@@ -1,0 +1,353 @@
+"""The walk: advance every particle to its destination through the tet
+mesh, scoring track-length flux along the way (plain PyTorch version).
+
+Counterpart of the flat, packed-table loop of
+``pumiumtally_tpu/ops/walk.py::trace_impl`` (its crossing body). Each
+iteration is one element-boundary crossing for every lane that is not yet
+done: gather the geo20 row of the lane's element, find the exit face,
+score ``(w·len, (w·len)²)`` into the flat ``[ntet·G·2]`` flux, apply the
+boundary conditions (destination reached, domain exit, material stop) and
+hop to the neighbor. With ``robust`` the walk also masks the entry face,
+runs the relocation chase and the escalated bump (the JAX module
+docstring's "Degeneracy robustness").
+
+This is the plain version of the CUDA kernel ``csrc/walk.cu``: on the CPU
+it is what the facade runs (``ops/walk_cuda.trace`` sends CPU tensors
+here), on the card it is only the kernel's yardstick. It writes every
+product and sum in the order the kernel computes it, so that the kernel,
+built without FMA contraction, agrees with it lane by lane. The flux is
+updated in place (the JAX walk donates it) and returned.
+
+Straggler compaction, loop unrolling and the scatter/gather strategy knobs
+of the JAX walk only schedule the same arithmetic; they have no
+counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .geometry import argmax4, exit_face
+
+
+def chase_face_choice(sd, elem, it: int, dtype, interior):
+    """Stochastic visibility-walk face choice for the relocation chase: the
+    face the point violates most, scaled by per-face weights hashed from
+    (element, iteration), boundary faces excluded while any interior face
+    exists.
+
+    The JAX walk hashes ``elem*int32(-1640531527) + it*int32(40503)`` with
+    int32 wraparound and uses bits 0..7 only; int64 arithmetic gives the
+    same low bits without overflow."""
+    h = elem.to(torch.int64) * -1640531527 + it * 40503
+    shifts = torch.arange(0, 8, 2, device=elem.device)
+    wf = 1.0 + ((h[:, None] >> shifts) & 3).to(dtype) * 0.125
+    big = torch.finfo(dtype).max
+    any_interior = interior.any(dim=-1, keepdim=True)
+    score = torch.where(interior | ~any_interior, sd * wf, -big)
+    return argmax4(score)
+
+
+def _exp2i(k: torch.Tensor, dtype) -> torch.Tensor:
+    """2**k as ``dtype`` for small non-negative integer k, assembled from
+    the float's exponent bits."""
+    if dtype == torch.float32:
+        return ((k.to(torch.int32) + 127) << 23).view(torch.float32)
+    if dtype == torch.float64:
+        return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+    raise ValueError(f"unsupported walk dtype {dtype}")
+
+
+def escalated_bump(stuck, contained, continuing, t_step, tol_floor,
+                   tol_eff, cur, dnorm):
+    """Doubling forward bump for zero-progress crossings: a continuing
+    particle advances at least ~32 ulps per crossing, doubling per
+    consecutive zero-progress crossing up to the walk tolerance. Returns
+    (extra_t, stuck_next)."""
+    scale1 = 1.0 + cur.abs().amax(dim=-1)
+    nudge0 = 4.0 * tol_floor * scale1 / torch.where(dnorm > 0, dnorm, 1.0)
+    nudge_t = torch.minimum(
+        nudge0 * _exp2i(stuck, cur.dtype), torch.maximum(tol_eff, nudge0)
+    )
+    zero_step = continuing & (t_step < nudge0) & ~contained
+    stuck_next = torch.where(
+        zero_step,
+        torch.clamp_max(stuck + 1, 48),
+        torch.where(continuing, 0, stuck),
+    )
+    extra = torch.clamp_min(nudge_t - t_step, 0.0)
+    return extra, stuck_next
+
+
+def walk_stats_vector(ncross_l, nchase_l, done, nseg, it) -> torch.Tensor:
+    """The [8] per-move stats vector in ``obs/walk_stats.py`` field order:
+    crossings, max crossings per lane, chase hops, truncated walks,
+    compaction occupancy (always 0, 0: there is no compaction), segments,
+    loop iterations."""
+    i64 = torch.int64
+    zero = torch.zeros((), dtype=i64, device=done.device)
+    return torch.stack([
+        ncross_l.sum(dtype=i64),
+        ncross_l.max().to(i64) if ncross_l.numel() else zero,
+        nchase_l.sum(dtype=i64),
+        (~done).sum(dtype=i64),
+        zero,
+        zero,
+        torch.as_tensor(nseg, dtype=i64, device=done.device),
+        torch.as_tensor(it, dtype=i64, device=done.device),
+    ])
+
+
+@dataclasses.dataclass
+class TraceResult:
+    """Outputs of one walk.
+
+    position: [n,3] final positions (destination, or clipped at a domain or
+      material boundary).
+    elem: [n] int32 parent element after the walk.
+    material_id: [n] int32 updated material ids.
+    flux: the flat [ntet·G·2] accumulator, updated in place.
+    n_segments: scalar int64 count of scored particle-segments.
+    n_crossings: scalar int64 count of loop iterations (the most any lane
+      ran).
+    done: [n] bool, False where the walk was truncated by max_crossings.
+    lane_iters: [n] int32 iterations each lane ran (geo20 rows it read).
+    track_length: [n] scored track length per lane (None without ledger).
+    stats: [8] int64 walk stats vector (None without stats).
+    """
+
+    position: torch.Tensor
+    elem: torch.Tensor
+    material_id: torch.Tensor
+    flux: torch.Tensor
+    n_segments: torch.Tensor
+    n_crossings: torch.Tensor
+    done: torch.Tensor
+    lane_iters: torch.Tensor
+    track_length: torch.Tensor | None = None
+    stats: torch.Tensor | None = None
+
+
+def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
+                    material_id, flux, n_groups):
+    """Shape/dtype/device checks shared by the plain walk and the kernel
+    wrapper. Raises on anything the walk does not take."""
+    if mesh.geo20 is None:
+        raise NotImplementedError(
+            "this mesh has no packed geo20 table (>= 2^24 elements or more "
+            "than 64 classes); the unpacked four-gather walk is not ported "
+            "yet (ROADMAP.md, port queue)"
+        )
+    dtype, dev = origin.dtype, origin.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"walk dtype must be float32 or float64: {dtype}")
+    n = origin.shape[0]
+    ntet = mesh.ntet
+    expect = {
+        "geo20": (mesh.geo20, (ntet, 20), dtype),
+        "origin": (origin, (n, 3), dtype),
+        "dest": (dest, (n, 3), dtype),
+        "elem": (elem, (n,), torch.int32),
+        "in_flight": (in_flight, (n,), torch.bool),
+        "weight": (weight, (n,), dtype),
+        "group": (group, (n,), torch.int32),
+        "material_id": (material_id, (n,), torch.int32),
+        "flux": (flux, (ntet * n_groups * 2,), dtype),
+    }
+    for name, (t, shape, dt) in expect.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, origin on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def resolve_material(mat_code, material_id, class_values):
+    """Material codes → class values: -2 keeps the caller's id, -1 means
+    destination reached or domain exit, >= 0 indexes ``class_values``."""
+    return torch.where(
+        mat_code == -2,
+        material_id,
+        torch.where(
+            mat_code == -1,
+            -1,
+            class_values[mat_code.clamp_min(0).long()],
+        ),
+    ).to(torch.int32)
+
+
+def trace(
+    mesh,
+    origin,
+    dest,
+    elem,
+    in_flight,
+    weight,
+    group,
+    material_id,
+    flux,
+    *,
+    initial: bool,
+    max_crossings: int,
+    n_groups: int,
+    score_squares: bool = True,
+    tolerance: float = 1e-8,
+    robust: bool = True,
+    ledger: bool = True,
+    stats: bool = True,
+) -> TraceResult:
+    """Walk every lane from origin to dest (plain PyTorch).
+
+    Args:
+      mesh: TetMesh with a geo20 table.
+      origin, dest: [n,3] ray endpoints in the mesh dtype.
+      elem: [n] int32 current parent elements.
+      in_flight: [n] bool; False lanes are parked (not walked, not scored).
+      weight, group: [n] statistical weight and int32 energy group; lanes
+        whose group is outside [0, n_groups) score nothing.
+      material_id: [n] int32, updated on material stops and exits.
+      flux: flat [ntet·n_groups·2] accumulator, updated in place.
+      initial: the location search: nothing is scored and material
+        boundaries do not stop a particle; only the domain boundary clips.
+      max_crossings: bound on loop iterations.
+      tolerance: geometric tolerance; a destination within it of the exit
+        face counts as reached.
+      robust: entry-face mask, relocation chase and escalated bump.
+    """
+    check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
+                    material_id, flux, n_groups)
+    dtype, dev = origin.dtype, origin.device
+    n = origin.shape[0]
+    geo20 = mesh.geo20
+    code_int = torch.int32 if dtype == torch.float32 else torch.int64
+    tol_floor = 8 * torch.finfo(dtype).eps
+    good_group = (group >= 0) & (group < n_groups)
+
+    cur = origin.clone()
+    elem = elem.clone()
+    done = ~in_flight
+    mat = torch.full((n,), -2, dtype=torch.int32, device=dev)
+    prev = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    stuck = torch.zeros(n, dtype=torch.int32, device=dev)
+    pseg = weight * 0
+    ncross = torch.zeros(n, dtype=torch.int32, device=dev)
+    nchase = torch.zeros(n, dtype=torch.int32, device=dev)
+    iters = torch.zeros(n, dtype=torch.int32, device=dev)
+    nseg = torch.zeros((), dtype=torch.int64, device=dev)
+    flux2 = flux.view(-1, 2)
+
+    it = 0
+    while it < max_crossings and not bool(done.all()):
+        active = ~done
+        iters += active.to(torch.int32)
+        row = geo20[elem.long()]
+        normals = row[:, :12].reshape(-1, 4, 3)
+        dplane = row[:, 12:16]
+        codes = row[:, 16:20].contiguous().view(code_int).to(torch.int32)
+        nbrs_all = (codes & 0xFFFFFF) - 1
+
+        dirv = dest - cur
+        if robust:
+            backward = (prev[:, None] >= 0) & (nbrs_all == prev[:, None])
+            t_exit, face, has_exit, plane_num = exit_face(
+                normals, dplane, cur, dirv, exclude=backward, return_num=True
+            )
+            sd = -plane_num
+            contained = sd.amax(dim=-1) <= 0.0
+            chase = active & (stuck >= 4) & ~contained
+            chase_face = chase_face_choice(sd, elem, it, dtype, nbrs_all >= 0)
+            face = torch.where(chase, chase_face, face)
+            t_exit = torch.where(chase, 0.0, t_exit)
+            has_exit = has_exit | chase
+        else:
+            t_exit, face, has_exit = exit_face(normals, dplane, cur, dirv)
+            chase = torch.zeros_like(done)
+
+        dnorm = torch.sqrt(
+            (dirv[:, 0] * dirv[:, 0] + dirv[:, 1] * dirv[:, 1])
+            + dirv[:, 2] * dirv[:, 2]
+        )
+        # A true division (``scalar / tensor`` would multiply by a
+        # rounded reciprocal).
+        tol_eff = torch.maximum(
+            torch.full_like(dnorm, tolerance)
+            / torch.where(dnorm > 0, dnorm, 1.0),
+            torch.full_like(dnorm, tol_floor),
+        )
+        reached = (t_exit >= 1.0 - tol_eff) | ~has_exit
+        t_step = torch.clamp_max(t_exit, 1.0)
+        xpoint = cur + t_step[:, None] * dirv
+
+        crossed = active & ~reached & has_exit
+        ncross += (crossed & ~chase).to(torch.int32)
+        nchase += chase.to(torch.int32)
+        face_l = face.long()[:, None]
+        code = torch.gather(codes, 1, face_l)[:, 0]
+        nbr = torch.gather(nbrs_all, 1, face_l)[:, 0]
+        next_elem = torch.where(crossed, nbr, -1)
+
+        if not initial:
+            seg = t_step * dnorm
+            score = active & in_flight & ~chase
+            contrib = seg * weight
+            hit = score & good_group
+            key = (elem[hit].long() * n_groups + group[hit].long())
+            c = contrib[hit]
+            flux2[:, 0].index_add_(0, key, c)
+            if score_squares:
+                flux2[:, 1].index_add_(0, key, c * c)
+            nseg += score.sum()
+            pseg = pseg + torch.where(score, seg, 0.0)
+
+        domain_exit = crossed & (next_elem == -1)
+        if initial:
+            material_stop = torch.zeros_like(domain_exit)
+        else:
+            material_stop = crossed & (((code >> 30) & 1) == 1) & ~chase
+            nbr_class = (code >> 24) & 0x3F
+        newly_done = (active & reached) | domain_exit | material_stop
+        if not initial:
+            mat = torch.where(
+                material_stop,
+                nbr_class,
+                torch.where((active & reached) | domain_exit, -1, mat),
+            )
+
+        hopped = crossed & (next_elem != -1)
+        if robust:
+            prev = torch.where(hopped, torch.where(chase, -1, elem), prev)
+        elem = torch.where(hopped, next_elem, elem)
+        cur = torch.where(active[:, None], xpoint, cur)
+        if robust:
+            continuing = crossed & ~newly_done
+            extra, stuck = escalated_bump(
+                stuck, contained, continuing, t_step, tol_floor, tol_eff,
+                cur, dnorm,
+            )
+            cur = torch.where(
+                continuing[:, None], cur + extra[:, None] * dirv, cur
+            )
+        done = done | newly_done
+        it += 1
+
+    material_out = resolve_material(mat, material_id, mesh.class_values)
+    n_crossings = torch.tensor(it, dtype=torch.int64, device=dev)
+    return TraceResult(
+        position=cur,
+        elem=elem,
+        material_id=material_out,
+        flux=flux,
+        n_segments=nseg,
+        n_crossings=n_crossings,
+        done=done,
+        lane_iters=iters,
+        track_length=pseg if ledger else None,
+        stats=(
+            walk_stats_vector(ncross, nchase, done, nseg, n_crossings)
+            if stats else None
+        ),
+    )
