@@ -25,12 +25,13 @@
 //    iteration count, since every active lane advances once per iteration.
 //
 // What bounds it: every iteration of a lane does one dependent random
-// 80/160 B row read and, when it scores, two atomics. At the 997,500-tet
+// 80/160 B row read and, when it scores, two atomics. At the 998,250-tet
 // mesh the 80 MB float32 table does not fit the 50 MB L2, so the kernel is
-// bound by memory latency; the bytes bound is
-// lane_iterations * (row + 2 * itemsize) / 3.35 TB/s. Keeping the table in
-// shared memory, TMA prefetch of the next row, or warp-level tally
-// aggregation are later work.
+// bound by the latency of those reads, not by their bytes. The bytes the
+// walk must move are far fewer: each row it needs once, each flux bin it
+// scores read and written once, and the lanes' inputs and outputs, over
+// 3.35 TB/s. Keeping rows close (shared memory, TMA prefetch of the next
+// row) and warp-level tally aggregation are later work.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
