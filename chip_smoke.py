@@ -7,13 +7,14 @@ NVIDIA card.
 Phases, each of which raises (exit code != 0) on any failed check:
 
 1. device: the card's name and power limit from nvidia-smi;
-2. build: the CUDA walk kernel (csrc/walk.cu) with nvcc, timed;
+2. build: the three CUDA sources (csrc/walk.cu, scatter.cu, gather.cu),
+   one nvcc each, started together, timed;
 3. kernel vs plain on a jittered 20^3 box (48,000 tets, two materials),
    65,536 lanes, 8 groups, float32 and float64, initial and move mode with
    robust=True plus one move with robust=False: elements, material ids,
    done flags and stats equal on every lane, positions within 1e-12 (f64)
-   / 1e-5 (f32), per-bin flux within rtol 1e-10 / 1e-4 (atomics reorder
-   the adds);
+   / 1e-5 (f32), flux bitwise equal (the ordered tally folds each bin in
+   the plain walk's order);
 4. main path: the four-call facade at the headline configuration
    (998,250-tet box, 1,048,576 particles, 8 groups, float32): construct,
    locate, 4 moves, write a .vtu. Launch counts are zeroed just before and
@@ -21,12 +22,30 @@ Phases, each of which raises (exit code != 0) on any failed check:
    and the .vtu are checked;
 5. kernel vs plain at the main path's shapes: the inputs of the main
    path's initial search and of its first move, replayed through the
-   kernel and the plain walk, compared and timed with CUDA events (median
-   of 5). The bound is the larger of two times: the bytes the walk must
-   move (each distinct table row it needs once, each flux bin it scores
-   read and written once, the lanes' inputs and outputs) over the HBM
-   rate, and its lane iterations' operations over the FP32/FP64 rate.
-   The ``kernels`` line reports the move.
+   kernel and the plain walk, compared (flux bitwise) and timed with CUDA
+   events (median of 5); the ordered move is also timed in its two parts
+   (walk into records, ordered scatter) and beside the atomic walk. The
+   bound is the larger of two times: the bytes the walk must move (each
+   distinct table row it needs once, each flux bin it scores read and
+   written once, the lanes' inputs and outputs) over the HBM rate, and its
+   lane iterations' operations over the FP32/FP64 rate;
+6. reproducibility (phase C): move 1 replayed twice through the ordered
+   walk gives the same flux bits; twice through the atomic walk, whose
+   run-to-run difference is reported (the atomic walk's path: its launches
+   are counted over these replays);
+7. overflow (phase D): move 1 with a record capacity of 1,000 overflows,
+   runs the walk again and gives the same flux bits;
+8. probe path (phase A): the gather/scatter probe
+   (``pumiumtally_tpu_torch.probes.gather_scatter.run``) with the main
+   path's geo20 table and move 1's real records: K2 and K3 against their
+   plain versions (bitwise for the gather and the ordered scatter, rtol
+   1e-5 for the atomic one) at the JAX probe's shapes and the walk's,
+   timed, with the library call beside them; launch counts zeroed before
+   and read after;
+9. point source (phase E): all 1,048,576 lanes start at one point of the
+   main-path mesh and fly one move; the ordered scatter of its records is
+   held bitwise against the plain version and timed, and its largest
+   bin's record count reported.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -60,6 +79,8 @@ LANE_OUT = {4: 12 + 4 + 4 + 1 + 4 + 16, 8: 24 + 4 + 4 + 1 + 8 + 16}
 DEVICE = "cuda"
 SMALL_CELLS, SMALL_LANES = 20, 65536
 MAIN_CELLS, MAIN_PARTICLES, MAIN_GROUPS = 55, 1048576, 8
+OVERFLOW_CAPACITY = 1000
+SOURCES = ("walk", "scatter", "gather")
 
 
 def log(msg: str) -> None:
@@ -93,7 +114,8 @@ def event_ms(fn, reps: int = 5, setup=None) -> float:
 
 def compare(k, p, dtype, pos_tol, flux_rtol, label: str) -> dict:
     """Hold a kernel TraceResult against the plain one; raises on a
-    mismatch. Returns the error summary."""
+    mismatch. ``flux_rtol`` 0 asks for bitwise equal flux. Returns the
+    error summary."""
     differ = (
         (k.elem != p.elem) | (k.material_id != p.material_id)
         | (k.done != p.done)
@@ -105,19 +127,21 @@ def compare(k, p, dtype, pos_tol, flux_rtol, label: str) -> dict:
     denom = torch.maximum(fk.abs(), fp.abs())
     rel = (fk - fp).abs() / torch.where(denom > 0, denom, 1.0)
     flux_rel = float(rel.max())
+    flux_bitwise = bool(torch.equal(k.flux, p.flux))
     stats_equal = bool(torch.equal(k.stats, p.stats))
     iters_equal = bool(torch.equal(k.lane_iters, p.lane_iters))
     log(
         f"[compare] {label}: lanes whose path differs={n_differ} "
         f"max|dpos|={pos_err:.3e} (tol {pos_tol:g}) "
         f"max flux rel={flux_rel:.3e} (rtol {flux_rtol:g}) "
+        f"flux bitwise equal={flux_bitwise} "
         f"stats equal={stats_equal} stats={k.stats.tolist()}"
     )
     if n_differ or not stats_equal or not iters_equal:
         raise AssertionError(f"{label}: kernel and plain walk disagree")
     if not pos_err <= pos_tol:
         raise AssertionError(f"{label}: positions differ by {pos_err}")
-    if not flux_rel <= flux_rtol:
+    if not (flux_bitwise if flux_rtol == 0 else flux_rel <= flux_rtol):
         raise AssertionError(f"{label}: flux differs by rel {flux_rel}")
     return {"max_abs_err": max(pos_err, flux_abs)}
 
@@ -141,10 +165,7 @@ def phase_kernel_vs_plain_small() -> None:
     from pumiumtally_tpu_torch.ops import walk, walk_cuda
 
     n, G = SMALL_LANES, 8
-    for dtype, pos_tol, rtol in (
-        (torch.float64, 1e-12, 1e-10),
-        (torch.float32, 1e-5, 1e-4),
-    ):
+    for dtype, pos_tol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
         mesh = jittered_box(SMALL_CELLS, 0.2, 0, dtype)
         rng = np.random.default_rng(0)
         dev = mesh.device
@@ -168,7 +189,7 @@ def phase_kernel_vs_plain_small() -> None:
         args = (mesh, origin, src, elem, fly, weight, group, mat)
         k = walk_cuda.trace(*args, flux0.clone(), initial=True, **kw)
         p = walk.trace(*args, flux0.clone(), initial=True, **kw)
-        compare(k, p, dtype, pos_tol, rtol, f"{dtype} initial robust")
+        compare(k, p, dtype, pos_tol, 0.0, f"{dtype} initial robust")
 
         # Move mode from the located positions, some lanes leaving.
         direction = rng.normal(size=(n, 3))
@@ -183,7 +204,7 @@ def phase_kernel_vs_plain_small() -> None:
                                 robust=robust, **kw)
             p = walk.trace(*args, flux0.clone(), initial=False,
                            robust=robust, **kw)
-            compare(k, p, dtype, pos_tol, rtol,
+            compare(k, p, dtype, pos_tol, 0.0,
                     f"{dtype} move robust={robust}")
         torch.cuda.synchronize()
 
@@ -191,14 +212,13 @@ def phase_kernel_vs_plain_small() -> None:
 def phase_main_path(tmpdir: str):
     """The four calls at the headline configuration. Returns the tally,
     snapshots of the inputs of the initial search and of the first move
-    (for the replay of phase 5), and the walk launches counted."""
+    (for the replay of phase 5), and the kernel launches counted."""
     from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
-    from pumiumtally_tpu_torch.ops import walk_cuda
 
     cells, n, G = MAIN_CELLS, MAIN_PARTICLES, MAIN_GROUPS
     rng = np.random.default_rng(1)
     torch.cuda.reset_peak_memory_stats()
-    walk_cuda.LAUNCHES = 0
+    zero_counts()
     t0 = time.perf_counter()
     mesh = build_box(1.0, 1.0, 1.0, cells, cells, cells, device=DEVICE)
     tally = PumiTally(mesh, n, TallyConfig(n_groups=G), device=DEVICE)
@@ -280,7 +300,7 @@ def phase_main_path(tmpdir: str):
     log(f"[main] write_pumi_tally_mesh: {time.perf_counter() - t0:.3f} s, "
         f"{os.path.getsize(out)} bytes")
     torch.cuda.synchronize()
-    launches = walk_cuda.LAUNCHES
+    launches = read_counts()
     with open(out) as f:
         head = f.read(4096)
     cells_m = re.search(r'NumberOfCells="(\d+)"', head)
@@ -290,9 +310,36 @@ def phase_main_path(tmpdir: str):
         f"tally {tally.tally_times.total_time_to_tally:.3f} s, "
         f"vtk {tally.tally_times.vtk_file_write_time:.3f} s; "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
-    if launches != 5:
-        raise AssertionError(f"walk kernel launched {launches} times, not 5")
+    log(f"[main] launches: {launches}")
+    if launches["walk"] != 5 + launches["walk_relaunches"]:
+        raise AssertionError(f"walk kernel launches {launches}: not 5 "
+                             "walks and their relaunches")
+    if launches["scatter_ordered"] != 4:
+        raise AssertionError("the ordered scatter did not run once a move")
+    if launches["scatter_atomic"] or launches["gather"]:
+        raise AssertionError("the facade launched a probe kernel")
     return tally, snaps, launches
+
+
+def zero_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from pumiumtally_tpu_torch.ops import gather, scatter, walk_cuda
+
+    walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
+    scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
+    gather.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    from pumiumtally_tpu_torch.ops import gather, scatter, walk_cuda
+
+    return {
+        "walk": walk_cuda.LAUNCHES,
+        "walk_relaunches": walk_cuda.RELAUNCHES,
+        "scatter_ordered": scatter.ORDERED_LAUNCHES,
+        "scatter_atomic": scatter.ATOMIC_LAUNCHES,
+        "gather": gather.LAUNCHES,
+    }
 
 
 def _snapshot(tally, dest: np.ndarray, groups: np.ndarray) -> dict:
@@ -329,11 +376,9 @@ def touched(mesh, args, kw, end_elem, scores: bool) -> tuple[int, int]:
     return int(rows.sum()), (int(hit.sum()) if scores else 0)
 
 
-def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
-    """Replay one main-path walk (the initial search or the first move)
-    through the kernel and the plain walk: compare, then time both."""
-    from pumiumtally_tpu_torch.ops import walk, walk_cuda
-
+def replay_args(tally, snap, initial: bool):
+    """The walk arguments of a snapshotted main-path call (without the
+    flux) and its keywords."""
     mesh, cfg = tally.mesh, tally.config
     dev, dtype = mesh.device, cfg.dtype
     n = tally.num_particles
@@ -347,16 +392,51 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
             snap["material_id"])
     kw = dict(initial=initial, max_crossings=tally._max_crossings,
               n_groups=cfg.n_groups, tolerance=cfg.tolerance)
+    return args, kw
+
+
+def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
+    """Replay one main-path walk (the initial search or the first move)
+    through the kernel and the plain walk: compare, then time both. The
+    move is also timed in its parts and with the atomic tally; its records
+    are returned for the probe path."""
+    from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
+
+    mesh, dtype = tally.mesh, tally.config.dtype
+    n = tally.num_particles
+    args, kw = replay_args(tally, snap, initial)
     label = "initial search" if initial else "move 1"
     k = walk_cuda.trace(*args, snap["flux"].clone(), **kw)
     p = walk.trace(*args, snap["flux"].clone(), **kw)
-    err = compare(k, p, dtype, 1e-5, 1e-4, f"main-path {label} ({dtype})")
+    err = compare(k, p, dtype, 1e-5, 0.0, f"main-path {label} ({dtype})")
 
     def fresh():
         return (snap["flux"].clone(),)
 
     ms = event_ms(lambda f: walk_cuda.trace(*args, f, **kw), 5, fresh)
     plain_ms = event_ms(lambda f: walk.trace(*args, f, **kw), 5, fresh)
+    out = {}
+    if not initial:
+        wkw = {key: v for key, v in kw.items() if key != "initial"}
+        _, rec = walk_cuda.walk_records(*args, snap["flux"].clone(), **wkw)
+        nbins = mesh.ntet * kw["n_groups"]
+        out = dict(
+            walk_ms=event_ms(
+                lambda f: walk_cuda.walk_records(*args, f, **wkw), 5, fresh),
+            scatter_ms=event_ms(
+                lambda f: scatter.ordered_cuda(f, rec.bin, rec.order, rec.c,
+                                               True, nbins), 5, fresh),
+            atomic_ms=event_ms(
+                lambda f: walk_cuda.trace(*args, f, **kw, tally="atomic"), 5,
+                fresh),
+            records=rec,
+        )
+        profile_move(lambda: walk_cuda.trace(*args, snap["flux"].clone(),
+                                             **kw))
+        log(f"[kernel] move 1 ordered = walk into {rec.bin.numel()} records "
+            f"{out['walk_ms']:.4f} ms + ordered scatter "
+            f"{out['scatter_ms']:.4f} ms (whole call {ms:.4f} ms); atomic "
+            f"walk {out['atomic_ms']:.4f} ms")
     item = torch.finfo(dtype).bits // 8
     rows = int(k.lane_iters.sum(dtype=torch.int64))
     segs = int(k.n_segments)
@@ -377,8 +457,167 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
     return dict(
         ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        max_abs_err=err["max_abs_err"],
+        max_abs_err=err["max_abs_err"], **out,
     )
+
+
+def profile_move(fn) -> None:
+    """Device time by kernel of one call, from torch.profiler's CUDA
+    activity (CUPTI); the share of the call's span the card was busy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        span = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in rows)
+    log(f"[profile] ordered move 1: {len(rows)} device kernels, busy "
+        f"{busy / 1e3:.4f} ms of a {span * 1e3:.4f} ms host span")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total):
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.4f} ms "
+            f"x{e.count} {e.key[:90]}")
+
+
+def phase_reproducible(tally, snap) -> dict:
+    """Move 1 twice through the ordered walk (same bits) and twice through
+    the atomic walk (its run-to-run difference reported). The atomic
+    replays are the atomic walk's path: its launches are counted there."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    args, kw = replay_args(tally, snap, initial=False)
+    a = walk_cuda.trace(*args, snap["flux"].clone(), **kw)
+    b = walk_cuda.trace(*args, snap["flux"].clone(), **kw)
+    if not torch.equal(a.flux, b.flux):
+        raise AssertionError("ordered walk: two runs of move 1 differ")
+    zero_counts()
+    x = walk_cuda.trace(*args, snap["flux"].clone(), **kw, tally="atomic")
+    y = walk_cuda.trace(*args, snap["flux"].clone(), **kw, tally="atomic")
+    torch.cuda.synchronize()
+    launches = read_counts()["walk"]
+    diff = (x.flux.double() - y.flux.double()).abs()
+    d_or = (x.flux.double() - a.flux.double()).abs()
+    log(f"[repro] ordered: two runs of move 1 bitwise equal; atomic: two "
+        f"runs differ in {int((diff > 0).sum())} of {diff.numel()} flux "
+        f"entries, max |diff| {float(diff.max()):.3e}; atomic vs ordered "
+        f"max |diff| {float(d_or.max()):.3e}; atomic walk launches "
+        f"{launches}")
+    return dict(flux=a.flux, launches=launches,
+                max_abs_err=float(d_or.max()))
+
+
+def phase_overflow(tally, snap, ordered_flux) -> None:
+    """Move 1 with buffers for OVERFLOW_CAPACITY records: the walk runs
+    again with buffers of its count and gives the same flux bits."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    args, kw = replay_args(tally, snap, initial=False)
+    before = walk_cuda.RELAUNCHES
+    r = walk_cuda.trace(*args, snap["flux"].clone(), **kw,
+                        capacity=OVERFLOW_CAPACITY)
+    if walk_cuda.RELAUNCHES != before + 1:
+        raise AssertionError("a capacity of 1,000 records did not overflow")
+    if not torch.equal(r.flux, ordered_flux):
+        raise AssertionError("the relaunched walk's flux differs")
+    log(f"[overflow] capacity {OVERFLOW_CAPACITY}: walk relaunched once, "
+        "flux bitwise equal to the ordered walk's")
+
+
+def phase_probe(tally, snap, rec) -> tuple[dict, dict]:
+    """The gather/scatter probe with the main path's table and move 1's
+    records; its launch counts are zeroed before and read after."""
+    from pumiumtally_tpu_torch.probes import gather_scatter
+
+    records = dict(flux=snap["flux"].clone(), bin=rec.bin, order=rec.order,
+                   c=rec.c)
+    zero_counts()
+    payload = gather_scatter.run(DEVICE, geo20=tally.mesh.geo20,
+                                 records=records)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for p in payload["probes"]:
+        log(f"[probe] {p['probe']} {p['shape']}: ok={p['ok']} "
+            f"agree={p['agree']} {p['usec_per_call']} us (plain "
+            f"{p['plain_usec_per_call']}, {p['library']} "
+            f"{p['library_usec_per_call']}), {p['gbps']} GB/s, bound "
+            f"{p['bound_usec']} us" + (f" {p['error']}" if p["error"] else ""))
+    bad = [p for p in payload["probes"] if not p["ok"]]
+    if bad:
+        raise AssertionError(f"probes failed: {bad}")
+    log(f"[probe] launches: {launches}")
+    return payload, launches
+
+
+def phase_point_source(tally) -> None:
+    """Every lane starts at one point (the centroid of the element nearest
+    the box centre) and flies one move: the ordered scatter of its records
+    against the plain version, timed, with its largest bin."""
+    from pumiumtally_tpu_torch.ops import scatter, walk_cuda
+
+    mesh, cfg = tally.mesh, tally.config
+    dev, dtype, n = mesh.device, cfg.dtype, tally.num_particles
+    cent = mesh.centroids()
+    e0 = int(((cent - 0.5) ** 2).sum(dim=1).argmin())
+    rng = np.random.default_rng(7)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    origin = cent[e0].expand(n, 3).contiguous()
+    dest = origin + torch.from_numpy(d * rng.exponential(0.08, (n, 1))).to(
+        dev, dtype)
+    group = torch.from_numpy(
+        rng.integers(0, cfg.n_groups, n).astype(np.int32)).to(dev)
+    args = (mesh, origin, dest,
+            torch.full((n,), e0, dtype=torch.int32, device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.ones(n, dtype=dtype, device=dev), group,
+            torch.full((n,), -1, dtype=torch.int32, device=dev))
+    flux0 = torch.zeros(mesh.ntet * cfg.n_groups * 2, dtype=dtype, device=dev)
+    res, rec = walk_cuda.walk_records(
+        *args, flux0, max_crossings=tally._max_crossings,
+        n_groups=cfg.n_groups, tolerance=cfg.tolerance)
+    per_bin = torch.bincount(rec.bin)
+    nbins = mesh.ntet * cfg.n_groups
+    got = scatter.scatter_ordered(flux0.clone(), rec.bin, rec.order, rec.c)
+    t0 = time.perf_counter()
+    ref = scatter.scatter_ordered_plain(flux0.clone(), rec.bin, rec.order,
+                                        rec.c)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not torch.equal(got, ref):
+        raise AssertionError("point source: ordered scatter differs from "
+                             "its plain version")
+
+    def fresh():
+        return (flux0.clone(),)
+
+    ms = event_ms(lambda f: scatter.ordered_cuda(f, rec.bin, rec.order,
+                                                 rec.c, True, nbins), 5, fresh)
+    log(f"[point] {n} lanes from element {e0}: {rec.bin.numel()} records, "
+        f"largest bin {int(per_bin.max())} records, bins over 32 records "
+        f"{int((per_bin > 32).sum())}; ordered scatter {ms:.4f} ms (median "
+        f"of 5), bitwise equal to the plain version ({plain_s:.3f} s on the "
+        f"host clock); walk truncated {int((~res.done).sum())}")
+
+
+def _probe_kernel(payload, probe: str, launches: int, name: str,
+                  source: str, replaces: str) -> dict:
+    """A ``kernels`` entry from the probe's walk-shape run of ``probe``
+    (its last entry of that kind)."""
+    p = [q for q in payload["probes"] if q["probe"] == probe][-1]
+    lib = p["library_usec_per_call"]
+    return {
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": p["max_abs_err"],
+        "ms": p["usec_per_call"] / 1e3,
+        "plain_ms": p["plain_usec_per_call"] / 1e3,
+        "bound_ms": p["bound_usec"] / 1e3, "bound_by": "bytes",
+        "library_ms": None if lib is None else lib / 1e3,
+        "library": p["library"], "shape": p["shape"],
+    }
 
 
 def main() -> int:
@@ -388,19 +627,21 @@ def main() -> int:
         return 2
     from pumiumtally_tpu_torch.ops import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {name}")
 
     t0 = time.perf_counter()
-    lib = _build.build("walk")
-    log(f"[build] csrc/walk.cu -> {os.path.basename(lib)} in "
+    libs = _build.build_many(SOURCES)
+    log(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, built together, in "
         f"{time.perf_counter() - t0:.2f} s")
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "registers" in line or "spill" in line:
-                log(f"[build] {line.strip()}")
+    for lib in libs:
+        with open(lib[:-3] + ".log") as f:
+            for line in f:
+                if "registers" in line or "spill" in line:
+                    log(f"[build] {os.path.basename(lib)}: {line.strip()}")
 
     t0 = time.perf_counter()
     phase_kernel_vs_plain_small()
@@ -418,19 +659,55 @@ def main() -> int:
     log(f"[phase] kernel vs plain (main-path shapes): "
         f"{time.perf_counter() - t0:.2f} s")
 
-    kernels = [{
-        "name": "walk_cuda.trace",
+    t0 = time.perf_counter()
+    repro = phase_reproducible(tally, snaps["move"])
+    phase_overflow(tally, snaps["move"], repro["flux"])
+    log(f"[phase] reproducibility and overflow: "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    payload, probe_launches = phase_probe(tally, snaps["move"], k["records"])
+    log(f"[phase] probe path: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_point_source(tally)
+    log(f"[phase] point source: {time.perf_counter() - t0:.2f} s")
+
+    walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
         "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",
-        "launches": launches,
-        "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"],
         "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,
-    }]
+    }
+    kernels = [
+        {"name": "walk_cuda.trace", **walk, "launches": launches["walk"],
+         "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+         "walk_ms": k["walk_ms"], "scatter_ms": k["scatter_ms"],
+         "atomic_ms": k["atomic_ms"]},
+        {"name": "walk_cuda.trace(tally='atomic')", **walk,
+         "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
+         "ms": k["atomic_ms"]},
+        _probe_kernel(payload, "gather", probe_launches["gather"],
+                      "gather.gather_rows",
+                      "pumiumtally_tpu_torch/csrc/gather.cu",
+                      "scripts/probe_pallas_gather.py:76"),
+        _probe_kernel(payload, "scatter_atomic",
+                      probe_launches["scatter_atomic"],
+                      "scatter.scatter_atomic",
+                      "pumiumtally_tpu_torch/csrc/scatter.cu",
+                      "scripts/probe_pallas_gather.py:211"),
+        _probe_kernel(payload, "scatter_ordered",
+                      launches["scatter_ordered"], "scatter.scatter_ordered",
+                      "pumiumtally_tpu_torch/csrc/scatter.cu",
+                      "scripts/probe_pallas_gather.py:211"),
+    ]
+    for kern in kernels:
+        if not kern["launches"]:
+            raise AssertionError(f"{kern['name']} was not launched on its path")
+    log(f"[phase] total: {time.perf_counter() - t_start:.2f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,18 @@
 //  * The geo20 row is one direct load: 5 x 16 B in float32 (80 B) or
 //    10 x 16 B in float64 (160 B). The 4 topology codes are read through an
 //    integer view of their bits. The TPU's one-hot MXU gather is dropped.
-//  * The tally is two atomicAdds per scored crossing, (c, c^2) into the
-//    flat flux at 2*(elem*G + g) and +1. The per-bin add order therefore
-//    differs from run to run; a deterministic mode is later work.
+//  * The tally has two modes (template flag ORDERED). Ordered, the
+//    default of the wrapper: each scored crossing appends one record
+//    (bin = elem*G + g, order = it*n + lane, c = seg*w) to device buffers
+//    through a slot counter, and the walk touches no flux; csrc/scatter.cu
+//    then folds every bin in (iteration, lane) order, the add order of the
+//    JAX walk (tally_peel), so the flux is bitwise reproducible. The
+//    warp's scoring lanes take their slots with one atomic (a coalesced
+//    group). The counter keeps counting past the capacity and records
+//    past it are dropped, so the wrapper can size the buffers to the count
+//    and run the walk again. Atomic: two atomicAdds per scored crossing,
+//    (c, c^2) into the flat flux at 2*(elem*G + g) and +1, in an order that
+//    differs from run to run.
 //  * Per lane the kernel writes position, element, material code, done,
 //    scored track length, crossings, chase hops, segments and its
 //    iteration count. The wrapper (ops/walk_cuda.py) reduces these to the
@@ -25,15 +34,19 @@
 //    iteration count, since every active lane advances once per iteration.
 //
 // What bounds it: every iteration of a lane does one dependent random
-// 80/160 B row read and, when it scores, two atomics. At the 998,250-tet
-// mesh the 80 MB float32 table does not fit the 50 MB L2, so the kernel is
-// bound by the latency of those reads, not by their bytes. The bytes the
+// 80/160 B row read and, when it scores, one record (ordered) or two
+// atomics (atomic). At the 998,250-tet mesh the 80 MB float32 table does
+// not fit the 50 MB L2, so the kernel is bound by the latency of those
+// reads, not by their bytes. The bytes the
 // walk must move are far fewer: each row it needs once, each flux bin it
 // scores read and written once, and the lanes' inputs and outputs, over
 // 3.35 TB/s. Keeping rows close (shared memory, TMA prefetch of the next
-// row) and warp-level tally aggregation are later work.
+// row) and a warp-aggregated tally are later work.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -99,7 +112,7 @@ struct Real<double> {
   }
 };
 
-template <typename T, bool ROBUST, bool INITIAL>
+template <typename T, bool ROBUST, bool INITIAL, bool ORDERED>
 __global__ void __launch_bounds__(128)
 walk_kernel(const T* __restrict__ geo, const T* __restrict__ origin,
             const T* __restrict__ dest, const int* __restrict__ elem_in,
@@ -110,7 +123,10 @@ walk_kernel(const T* __restrict__ geo, const T* __restrict__ origin,
             int* __restrict__ elem_out, int* __restrict__ mat_out,
             bool* __restrict__ done_out, T* __restrict__ pseg_out,
             int* __restrict__ ncross_out, int* __restrict__ nchase_out,
-            int* __restrict__ nseg_out, int* __restrict__ iters_out) {
+            int* __restrict__ nseg_out, int* __restrict__ iters_out,
+            int* __restrict__ rec_bin, long long* __restrict__ rec_order,
+            T* __restrict__ rec_c, unsigned long long* __restrict__ rec_count,
+            long long capacity) {
   typedef Real<T> R;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -230,9 +246,23 @@ walk_kernel(const T* __restrict__ geo, const T* __restrict__ origin,
       const T seg = t_step * dn;
       if (good_group) {
         const T c = seg * w;
-        T* bin = flux + 2 * ((long long)elem * n_groups + g);
-        atomicAdd(bin, c);
-        if (score_squares) atomicAdd(bin + 1, c * c);
+        if (ORDERED) {
+          const cg::coalesced_group scoring = cg::coalesced_threads();
+          unsigned long long base = 0;
+          if (scoring.thread_rank() == 0)
+            base = atomicAdd(rec_count, (unsigned long long)scoring.size());
+          const unsigned long long slot =
+              scoring.shfl(base, 0) + scoring.thread_rank();
+          if (slot < (unsigned long long)capacity) {
+            rec_bin[slot] = elem * n_groups + g;
+            rec_order[slot] = (long long)it * n + i;
+            rec_c[slot] = c;
+          }
+        } else {
+          T* bin = flux + 2 * ((long long)elem * n_groups + g);
+          atomicAdd(bin, c);
+          if (score_squares) atomicAdd(bin + 1, c * c);
+        }
       }
       nseg += 1;
       pseg = pseg + seg;
@@ -294,52 +324,87 @@ walk_kernel(const T* __restrict__ geo, const T* __restrict__ origin,
   iters_out[i] = it;
 }
 
-template <typename T, bool ROBUST, bool INITIAL>
+template <typename T, bool ROBUST, bool INITIAL, bool ORDERED>
 int launch(const void* geo, const void* origin, const void* dest,
            const void* elem_in, const void* fly_in, const void* weight,
            const void* group, int n, int n_groups, int max_crossings,
            double tolerance, int score_squares, void* flux, void* pos_out,
            void* elem_out, void* mat_out, void* done_out, void* pseg_out,
            void* ncross_out, void* nchase_out, void* nseg_out,
-           void* iters_out, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
+           void* iters_out, void* rec_bin, void* rec_order, void* rec_c,
+           void* rec_count, long long capacity, void* stream) {
   const int block = 128;
   const int grid = (n + block - 1) / block;
-  walk_kernel<T, ROBUST, INITIAL><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const T*)geo, (const T*)origin, (const T*)dest, (const int*)elem_in,
-      (const bool*)fly_in, (const T*)weight, (const int*)group, n, n_groups,
-      max_crossings, (T)tolerance, score_squares, (T*)flux, (T*)pos_out,
-      (int*)elem_out, (int*)mat_out, (bool*)done_out, (T*)pseg_out,
-      (int*)ncross_out, (int*)nchase_out, (int*)nseg_out, (int*)iters_out);
+  walk_kernel<T, ROBUST, INITIAL, ORDERED>
+      <<<grid, block, 0, (cudaStream_t)stream>>>(
+          (const T*)geo, (const T*)origin, (const T*)dest,
+          (const int*)elem_in, (const bool*)fly_in, (const T*)weight,
+          (const int*)group, n, n_groups, max_crossings, (T)tolerance,
+          score_squares, (T*)flux, (T*)pos_out, (int*)elem_out,
+          (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
+          (int*)nchase_out, (int*)nseg_out, (int*)iters_out, (int*)rec_bin,
+          (long long*)rec_order, (T*)rec_c, (unsigned long long*)rec_count,
+          capacity);
   return (int)cudaGetLastError();
+}
+
+// The initial search scores nothing, so it has no ordered instantiation.
+template <typename T>
+int dispatch(int robust, int initial, int ordered, const void* geo,
+             const void* origin, const void* dest, const void* elem_in,
+             const void* fly_in, const void* weight, const void* group, int n,
+             int n_groups, int max_crossings, double tolerance,
+             int score_squares, void* flux, void* pos_out, void* elem_out,
+             void* mat_out, void* done_out, void* pseg_out, void* ncross_out,
+             void* nchase_out, void* nseg_out, void* iters_out, void* rec_bin,
+             void* rec_order, void* rec_c, void* rec_count,
+             long long capacity, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+#define PUMI_WALK_LAUNCH(R, I, O)                                              \
+  return launch<T, R, I, O>(geo, origin, dest, elem_in, fly_in, weight, group, \
+                            n, n_groups, max_crossings, tolerance,             \
+                            score_squares, flux, pos_out, elem_out, mat_out,   \
+                            done_out, pseg_out, ncross_out, nchase_out,        \
+                            nseg_out, iters_out, rec_bin, rec_order, rec_c,    \
+                            rec_count, capacity, stream)
+  if (initial) {
+    if (robust) PUMI_WALK_LAUNCH(true, true, false);
+    PUMI_WALK_LAUNCH(false, true, false);
+  }
+  if (ordered) {
+    if (robust) PUMI_WALK_LAUNCH(true, false, true);
+    PUMI_WALK_LAUNCH(false, false, true);
+  }
+  if (robust) PUMI_WALK_LAUNCH(true, false, false);
+  PUMI_WALK_LAUNCH(false, false, false);
+#undef PUMI_WALK_LAUNCH
 }
 
 }  // namespace
 
-// One C entry point per instantiation: pumi_walk_<dtype>_r<robust>_i<initial>.
-// Every pointer and the stream are passed as void*; the return value is the
-// cudaError_t of the launch.
-#define PUMI_WALK_ENTRY(NAME, T, ROBUST, INITIAL)                              \
-  extern "C" int NAME(const void* geo, const void* origin, const void* dest,   \
-                      const void* elem_in, const void* fly_in,                 \
-                      const void* weight, const void* group, int n,            \
-                      int n_groups, int max_crossings, double tolerance,       \
-                      int score_squares, void* flux, void* pos_out,            \
-                      void* elem_out, void* mat_out, void* done_out,           \
-                      void* pseg_out, void* ncross_out, void* nchase_out,      \
-                      void* nseg_out, void* iters_out, void* stream) {         \
-    return launch<T, ROBUST, INITIAL>(                                         \
-        geo, origin, dest, elem_in, fly_in, weight, group, n, n_groups,        \
-        max_crossings, tolerance, score_squares, flux, pos_out, elem_out,      \
-        mat_out, done_out, pseg_out, ncross_out, nchase_out, nseg_out,         \
-        iters_out, stream);                                                    \
+// C entry points pumi_walk_f32 and pumi_walk_f64. Every pointer and the
+// stream are passed as void*; the return value is the cudaError_t of the
+// launch. In ordered mode (initial == 0) the records go to rec_bin [cap]
+// int32, rec_order [cap] int64 and rec_c [cap] of the walk's type, and
+// rec_count (one uint64, zeroed by the caller) ends at the number of
+// records the walk made, which may exceed cap; flux is not touched.
+#define PUMI_WALK_ENTRY(NAME, T)                                               \
+  extern "C" int NAME(                                                         \
+      int robust, int initial, int ordered, const void* geo,                   \
+      const void* origin, const void* dest, const void* elem_in,               \
+      const void* fly_in, const void* weight, const void* group, int n,        \
+      int n_groups, int max_crossings, double tolerance, int score_squares,    \
+      void* flux, void* pos_out, void* elem_out, void* mat_out,                \
+      void* done_out, void* pseg_out, void* ncross_out, void* nchase_out,      \
+      void* nseg_out, void* iters_out, void* rec_bin, void* rec_order,         \
+      void* rec_c, void* rec_count, long long capacity, void* stream) {        \
+    return dispatch<T>(robust, initial, ordered, geo, origin, dest, elem_in,   \
+                       fly_in, weight, group, n, n_groups, max_crossings,      \
+                       tolerance, score_squares, flux, pos_out, elem_out,      \
+                       mat_out, done_out, pseg_out, ncross_out, nchase_out,    \
+                       nseg_out, iters_out, rec_bin, rec_order, rec_c,         \
+                       rec_count, capacity, stream);                           \
   }
 
-PUMI_WALK_ENTRY(pumi_walk_f32_r0_i0, float, false, false)
-PUMI_WALK_ENTRY(pumi_walk_f32_r0_i1, float, false, true)
-PUMI_WALK_ENTRY(pumi_walk_f32_r1_i0, float, true, false)
-PUMI_WALK_ENTRY(pumi_walk_f32_r1_i1, float, true, true)
-PUMI_WALK_ENTRY(pumi_walk_f64_r0_i0, double, false, false)
-PUMI_WALK_ENTRY(pumi_walk_f64_r0_i1, double, false, true)
-PUMI_WALK_ENTRY(pumi_walk_f64_r1_i0, double, true, false)
-PUMI_WALK_ENTRY(pumi_walk_f64_r1_i1, double, true, true)
+PUMI_WALK_ENTRY(pumi_walk_f32, float)
+PUMI_WALK_ENTRY(pumi_walk_f64, double)

@@ -70,25 +70,43 @@ def library_path(name: str) -> str:
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library exists; returns the
     library path. Raises RuntimeError with nvcc's output on failure."""
-    out = library_path(name)
-    if os.path.exists(out):
-        return out
+    return build_many([name])[0]
+
+
+def build_many(names) -> list[str]:
+    """``build`` for several sources, one nvcc process each, all started
+    together; returns the library paths in order. Raises RuntimeError
+    with nvcc's output if any build fails."""
+    outs = [library_path(name) for name in names]
+    todo = [(n, o) for n, o in zip(names, outs) if not os.path.exists(o)]
+    if not todo:
+        return outs
     nvcc = find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.tmp.{os.getpid()}"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(SRC_DIR, f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(
-            f"nvcc failed to build csrc/{name}.cu (exit {proc.returncode}):"
-            f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    procs = []
+    for name, out in todo:
+        tmp = f"{out}.tmp.{os.getpid()}"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
+               os.path.join(SRC_DIR, f"{name}.cu")]
+        procs.append((name, out, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, out, tmp, cmd, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            failed.append(
+                f"nvcc failed to build csrc/{name}.cu (exit "
+                f"{proc.returncode}):\n{' '.join(cmd)}\n{stdout}{stderr}"
+            )
+            continue
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(stdout + stderr)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,10 @@ it is what the facade runs (``ops/walk_cuda.trace`` sends CPU tensors
 here), on the card it is only the kernel's yardstick. It writes every
 product and sum in the order the kernel computes it, so that the kernel,
 built without FMA contraction, agrees with it lane by lane. The flux is
-updated in place (the JAX walk donates it) and returned.
+updated in place (the JAX walk donates it) and returned. Each bin gets its
+adds in (iteration, lane) order, the JAX walk's scatter-add order, through
+``scatter_ordered_plain`` (keyed ``iteration · n + lane``), on the card as
+on the CPU, so the flux is reproducible bit for bit.
 
 Straggler compaction, loop unrolling and the scatter/gather strategy knobs
 of the JAX walk only schedule the same arithmetic; they have no
@@ -29,6 +32,7 @@ import dataclasses
 import torch
 
 from .geometry import argmax4, exit_face
+from .scatter import scatter_ordered_plain
 
 
 def chase_face_choice(sd, elem, it: int, dtype, interior):
@@ -238,7 +242,7 @@ def trace(
     nchase = torch.zeros(n, dtype=torch.int32, device=dev)
     iters = torch.zeros(n, dtype=torch.int32, device=dev)
     nseg = torch.zeros((), dtype=torch.int64, device=dev)
-    flux2 = flux.view(-1, 2)
+    lane = torch.arange(n, device=dev)
 
     it = 0
     while it < max_crossings and not bool(done.all()):
@@ -295,11 +299,13 @@ def trace(
             score = active & in_flight & ~chase
             contrib = seg * weight
             hit = score & good_group
-            key = (elem[hit].long() * n_groups + group[hit].long())
-            c = contrib[hit]
-            flux2[:, 0].index_add_(0, key, c)
-            if score_squares:
-                flux2[:, 1].index_add_(0, key, c * c)
+            scatter_ordered_plain(
+                flux,
+                elem[hit].long() * n_groups + group[hit].long(),
+                it * n + lane[hit],
+                contrib[hit],
+                score_squares,
+            )
             nseg += score.sum()
             pseg = pseg + torch.where(score, seg, 0.0)
 

@@ -1,14 +1,18 @@
-"""The CUDA walk kernel on the card (marker ``cuda``; skipped without one).
+"""The port's CUDA kernels on the card (marker ``cuda``; skipped without
+one): the walk, the tally scatter and the row gather.
 
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The kernel (``csrc/walk.cu``, built with ``--fmad=false``) computes the
-plain walk's arithmetic operation for operation, so elements, material
-ids, done flags, stats and positions must agree exactly; the flux agrees
-to the reordering of its atomic adds (rtol 1e-10 in float64, 1e-4 in
-float32).
+The walk kernel (``csrc/walk.cu``, built with ``--fmad=false``) computes
+the plain walk's arithmetic operation for operation, so elements, material
+ids, done flags, stats and positions must agree exactly. With the ordered
+tally (the default) each bin gets its adds in the plain walk's order, so
+the flux is bitwise equal too, and equal across runs. With the atomic
+tally it agrees to the reordering of its adds (rtol 1e-10 in float64,
+1e-4 in float32). The ordered scatter and the gather are bitwise equal to
+their plain versions; the atomic scatter agrees within rtol 1e-5.
 """
 from __future__ import annotations
 
@@ -41,15 +45,8 @@ def _jittered(nx, dtype, device):
     return TetMesh.from_numpy(coords, tets, cid, dtype=dtype, device=device)
 
 
-@pytest.mark.parametrize("robust", [True, False])
-@pytest.mark.parametrize("initial", [True, False])
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_kernel_matches_plain(cuda, dtype, initial, robust):
-    from pumiumtally_tpu_torch.ops import walk, walk_cuda
-
-    mesh = _jittered(6, dtype, cuda)
-    n, G = 4096, 4
-    rng = np.random.default_rng(9)
+def _walk_inputs(mesh, cuda, dtype, n=4096, G=4, seed=9):
+    rng = np.random.default_rng(seed)
 
     def t(a, dt):
         return torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dt)
@@ -61,22 +58,92 @@ def test_kernel_matches_plain(cuda, dtype, initial, robust):
     w = t(rng.uniform(0.5, 2.0, n), dtype)
     g = t(rng.integers(0, G + 1, n).astype(np.int32), torch.int32)
     mat = torch.full((n,), -1, dtype=torch.int32, device=cuda)
-    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=G,
-              robust=robust)
-    args = (mesh, origin, dest, elem, fly, w, g, mat)
-    before = walk_cuda.LAUNCHES
-    k = walk_cuda.trace(*args, torch.zeros(mesh.ntet * G * 2, dtype=dtype,
-                                           device=cuda), **kw)
-    p = walk.trace(*args, torch.zeros(mesh.ntet * G * 2, dtype=dtype,
-                                      device=cuda), **kw)
-    torch.cuda.synchronize()
-    assert walk_cuda.LAUNCHES == before + 1
+    return (mesh, origin, dest, elem, fly, w, g, mat)
+
+
+def _flux0(mesh, G, dtype, cuda):
+    """A nonzero seed, so the folds start from the flux's own values."""
+    rng = np.random.default_rng(1)
+    return torch.from_numpy(rng.uniform(0, 1, mesh.ntet * G * 2)).to(
+        cuda, dtype)
+
+
+def _lanes_equal(k, p):
     for name in ("elem", "material_id", "done", "stats", "lane_iters",
                  "position", "track_length"):
         assert torch.equal(getattr(k, name), getattr(p, name)), name
-    torch.testing.assert_close(
-        k.flux, p.flux, rtol=FLUX_RTOL[dtype], atol=0
-    )
+
+
+@pytest.mark.parametrize("robust", [True, False])
+@pytest.mark.parametrize("initial", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kernel_matches_plain(cuda, dtype, initial, robust):
+    """The default (ordered) walk: lanes and flux bitwise equal to the
+    plain walk's, and the flux equal across two runs."""
+    from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    G = 4
+    args = _walk_inputs(mesh, cuda, dtype, G=G)
+    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=G,
+              robust=robust)
+    before = walk_cuda.LAUNCHES
+    scattered = scatter.ORDERED_LAUNCHES
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    again = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    torch.cuda.synchronize()
+    assert walk_cuda.LAUNCHES - before >= 2
+    assert scatter.ORDERED_LAUNCHES - scattered == (0 if initial else 2)
+    _lanes_equal(k, p)
+    assert torch.equal(k.flux, p.flux)
+    assert torch.equal(k.flux, again.flux)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_atomic_kernel_matches_plain(cuda, dtype):
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    G = 4
+    args = _walk_inputs(mesh, cuda, dtype, G=G)
+    kw = dict(initial=False, max_crossings=mesh.ntet + 8, n_groups=G)
+    before = walk_cuda.LAUNCHES
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), tally="atomic",
+                        **kw)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    torch.cuda.synchronize()
+    assert walk_cuda.LAUNCHES == before + 1
+    _lanes_equal(k, p)
+    torch.testing.assert_close(k.flux, p.flux, rtol=FLUX_RTOL[dtype], atol=0)
+
+
+def test_overflow_relaunches_the_walk(cuda):
+    """Records past the capacity are dropped and the walk runs again with
+    buffers of its count; the flux is the same bits. The walk's records,
+    scattered apart, give them too."""
+    from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
+
+    dtype, G = torch.float32, 4
+    mesh = _jittered(6, dtype, cuda)
+    args = _walk_inputs(mesh, cuda, dtype, G=G)
+    kw = dict(initial=False, max_crossings=mesh.ntet + 8, n_groups=G)
+    before, re = walk_cuda.LAUNCHES, walk_cuda.RELAUNCHES
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), capacity=7,
+                        **kw)
+    torch.cuda.synchronize()
+    assert walk_cuda.RELAUNCHES == re + 1
+    assert walk_cuda.LAUNCHES == before + 2
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    _lanes_equal(k, p)
+    assert torch.equal(k.flux, p.flux)
+    flux = _flux0(mesh, G, dtype, cuda)
+    r, rec = walk_cuda.walk_records(*args, flux, max_crossings=mesh.ntet + 8,
+                                    n_groups=G)
+    assert torch.equal(flux, _flux0(mesh, G, dtype, cuda))  # untouched
+    assert 7 < rec.bin.numel() <= int(r.n_segments)
+    scatter.scatter_ordered(flux, rec.bin, rec.order, rec.c)
+    assert torch.equal(flux, p.flux)
 
 
 def test_facade_on_card_conserves_track_length(cuda):
@@ -87,7 +154,7 @@ def test_facade_on_card_conserves_track_length(cuda):
     mesh = build_box(1.0, 1.0, 1.0, 8, 8, 8, dtype=torch.float64)
     tally = PumiTally(mesh, n, TallyConfig(n_groups=2, dtype=torch.float64))
     assert tally.device.type == "cuda"
-    before = walk_cuda.LAUNCHES
+    before, re = walk_cuda.LAUNCHES, walk_cuda.RELAUNCHES
     rng = np.random.default_rng(2)
     prev = rng.uniform(0.05, 0.95, (n, 3))
     tally.initialize_particle_location(prev.reshape(-1).copy())
@@ -106,7 +173,7 @@ def test_facade_on_card_conserves_track_length(cuda):
         path += np.linalg.norm(final - prev, axis=1).sum()
         prev = final.copy()
         assert not flying.any() and (mats == -1).all()
-    assert walk_cuda.LAUNCHES == before + 4
+    assert walk_cuda.LAUNCHES - before == 4 + walk_cuda.RELAUNCHES - re
     np.testing.assert_allclose(tally.raw_flux[..., 0].sum(), path, rtol=1e-9)
 
 
@@ -128,3 +195,112 @@ def test_kernel_rejects_mixed_devices(cuda):
     ]
     with pytest.raises(ValueError, match="elem"):
         walk_cuda.trace(*args, initial=False, max_crossings=10, n_groups=1)
+
+
+def test_point_source_bin_holds_most_records(cuda):
+    """Every lane starts in one element with one group: that bin's records
+    go through the block sort and merge passes of the ordered scatter."""
+    from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
+
+    dtype, G, n = torch.float32, 1, 8192
+    mesh = _jittered(6, dtype, cuda)
+    rng = np.random.default_rng(3)
+    e0 = mesh.ntet // 2
+    elem = torch.full((n,), e0, dtype=torch.int32, device=cuda)
+    origin = mesh.centroids()[e0].expand(n, 3).contiguous()
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    dest = origin + torch.from_numpy(d * rng.exponential(0.2, (n, 1))).to(
+        cuda, dtype)
+    fly = torch.ones(n, dtype=torch.bool, device=cuda)
+    w = torch.ones(n, dtype=dtype, device=cuda)
+    g = torch.zeros(n, dtype=torch.int32, device=cuda)
+    mat = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    args = (mesh, origin, dest, elem, fly, w, g, mat)
+    kw = dict(max_crossings=mesh.ntet + 8, n_groups=G)
+    _, rec = walk_cuda.walk_records(*args, _flux0(mesh, G, dtype, cuda),
+                                    **kw)
+    assert int(torch.bincount(rec.bin).max()) >= n
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), initial=False,
+                        **kw)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), initial=False, **kw)
+    _lanes_equal(k, p)
+    assert torch.equal(k.flux, p.flux)
+    before = scatter.ORDERED_LAUNCHES
+    f = scatter.scatter_ordered(_flux0(mesh, G, dtype, cuda), rec.bin,
+                                rec.order, rec.c)
+    assert scatter.ORDERED_LAUNCHES == before + 1
+    assert torch.equal(f, p.flux)
+
+
+def _records(m, nbins, dtype, cuda, seed=0, hot=0.0):
+    """m records with many collisions, shuffled; a share ``hot`` of them in
+    bin 0."""
+    rng = np.random.default_rng(seed)
+    b = rng.integers(0, nbins, m)
+    b[rng.uniform(size=m) < hot] = 0
+    order = rng.permutation(m * 3)[:m]
+    t = torch.from_numpy
+    return (t(b.astype(np.int32)).to(cuda), t(order.astype(np.int64)).to(cuda),
+            t(rng.uniform(0.01, 2.0, m)).to(cuda, dtype))
+
+
+@pytest.mark.parametrize("nbins", [700, 2000, 20000])  # ~43, ~15, ~1.5 a bin
+@pytest.mark.parametrize("hot", [0.0, 0.6])
+@pytest.mark.parametrize("score_squares", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_scatter_kernels_match_plain(cuda, dtype, score_squares, hot, nbins):
+    from pumiumtally_tpu_torch.ops import scatter
+
+    m = 30000
+    b, order, c = _records(m, nbins, dtype, cuda, hot=hot)
+    seed = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, 2 * nbins)).to(cuda, dtype)
+    a0, o0 = scatter.ATOMIC_LAUNCHES, scatter.ORDERED_LAUNCHES
+    got = scatter.scatter_ordered(seed.clone(), b, order, c, score_squares)
+    ref = scatter.scatter_ordered_plain(seed.clone(), b, order, c,
+                                        score_squares)
+    assert torch.equal(got, ref)
+    got = scatter.scatter_atomic(seed.clone(), b, c, score_squares)
+    ref = scatter.scatter_atomic_plain(seed.clone(), b, c, score_squares)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+    assert scatter.ATOMIC_LAUNCHES == a0 + 1
+    assert scatter.ORDERED_LAUNCHES == o0 + 1
+    if not score_squares:
+        assert torch.equal(got[1::2], seed[1::2])
+
+
+def test_scatter_ordered_breaks_ties_in_record_order(cuda):
+    from pumiumtally_tpu_torch.ops import scatter
+
+    m = 5000
+    b = torch.zeros(m, dtype=torch.int32, device=cuda)
+    order = torch.from_numpy(
+        np.random.default_rng(2).integers(0, 4, m)).to(cuda)
+    c = torch.from_numpy(
+        np.random.default_rng(3).uniform(0, 1, m)).to(cuda, torch.float32)
+    f0 = torch.zeros(2, device=cuda)
+    got = scatter.scatter_ordered(f0.clone(), b, order, c)
+    assert torch.equal(got, scatter.scatter_ordered_plain(f0.clone(), b,
+                                                          order, c))
+
+
+@pytest.mark.parametrize("cols,dtype,idx_dtype", [
+    (20, torch.float32, torch.int32),   # a geo20 row, 16 B pieces
+    (16, torch.float32, torch.int64),
+    (20, torch.float64, torch.int32),
+    (3, torch.float32, torch.int32),    # 12 B rows, 4 B pieces
+    (3, torch.float64, torch.int64),    # 24 B rows, 8 B pieces
+])
+def test_gather_matches_plain(cuda, cols, dtype, idx_dtype):
+    from pumiumtally_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(4)
+    tbl = torch.from_numpy(rng.normal(size=(5000, cols))).to(cuda, dtype)
+    idx = torch.from_numpy(rng.integers(0, 5000, 70000)).to(cuda, idx_dtype)
+    before = gather.LAUNCHES
+    out = gather.gather_rows(tbl, idx)
+    assert gather.LAUNCHES == before + 1
+    assert torch.equal(out, gather.gather_rows_plain(tbl, idx))
+    with pytest.raises(IndexError):
+        gather.gather_rows(tbl, idx.clone().fill_(5000))
