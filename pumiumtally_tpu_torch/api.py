@@ -142,6 +142,10 @@ class PumiTally:
             # Host view of the last walk's stats vector (None with
             # walk_stats=False).
             self.last_stats: dict | None = None
+            # Scored segments of the last move: the ordered walk makes at
+            # most one tally record per segment, so the next move's record
+            # buffers are sized from it.
+            self._last_segments: int | None = None
             self._initialized = False
             timer.sync(self.device)
 
@@ -149,6 +153,7 @@ class PumiTally:
     def _walk(self, dest, in_flight, weight, group, *, initial: bool):
         cfg = self.config
         s = self.state
+        capacity = None if initial else self._record_capacity(dest, in_flight)
         return walk_cuda.trace(
             self.mesh, s.origin, dest, s.elem, in_flight, weight, group,
             s.material_id, self.flux,
@@ -160,7 +165,35 @@ class PumiTally:
             robust=cfg.robust,
             ledger=cfg.ledger,
             stats=cfg.walk_stats,
+            capacity=capacity,
         )
+
+    def _record_capacity(self, dest, in_flight) -> int:
+        """Tally records the ordered walk's buffers hold for this move
+        (a walk that makes more runs again): 5/4 of an estimate, at least
+        4 per lane. The estimate is the last move's segments; before the
+        first move, one segment per flying lane plus the faces its straight
+        path crosses at the mesh's rate for an isotropic line, S/(4V) with
+        S the elements' summed face areas and V their volume."""
+        n = self.num_particles
+        if self._last_segments is not None:
+            est = self._last_segments
+        else:
+            # Elementwise ops in the mesh dtype, sums in float64.
+            f64 = torch.float64
+            v = self.mesh.coords[self.mesh.tet2vert.long()]
+            area = 0.0
+            for a, b, c in ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)):
+                p, q = v[:, b] - v[:, a], v[:, c] - v[:, a]
+                x = p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1]
+                y = p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2]
+                z = p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]
+                area = area + (x * x + y * y + z * z).sqrt().sum(dtype=f64)
+            rate = area / 2 / (4 * self.mesh.volumes.sum(dtype=f64))
+            d = dest - self.state.origin
+            path = ((d * d).sum(dim=1).sqrt() * in_flight).sum(dtype=f64)
+            est = float(in_flight.sum() + rate * path)
+        return max(4 * n, int(np.ceil(1.25 * est)))
 
     def _summary(self, result) -> torch.Tensor:
         """The device vector the host reads after a walk: the [8] stats
@@ -288,7 +321,8 @@ class PumiTally:
             dest_flat[: n * 3].reshape(n, 3)[:] = final_pos
             mats_flat[:n] = final_mats
             flying_flat[:n] = 0
-            self.total_segments += self._account(summary)
+            self._last_segments = self._account(summary)
+            self.total_segments += self._last_segments
             if cfg.measure_time:
                 timer.sync(self.device)
         self.tally_times.n_moves += 1

@@ -30,12 +30,16 @@
 //        9 to 32 records by one thread that picks its records in (order,
 //        index) order by repeated minimum, reading each order key through
 //        its index (no writes, at most 32*32 key reads); a larger bin (a
-//        point source puts ~n/G records in one bin) goes to a list that
-//        blocks of 1024 threads work through: a bitonic sort of tiles of
-//        2048 keys in shared memory, then merge passes in device memory
-//        (merge path: each thread finds where its 4 outputs start by a
-//        binary search), O(k log k) for a bin of k records, and a fold
-//        by one thread from values the block stages in shared memory.
+//        point source puts ~n/G records in one bin) goes to a list, with
+//        its start in a scratch sized to the listed bins' records;
+//     5. pumi_scatter_ordered_large_<t>: the caller reads the list's
+//        length and records once and, only when the list is not empty,
+//        allocates that scratch and launches blocks of 1024 threads that
+//        work through it: a bitonic sort of tiles of 2048 keys in shared
+//        memory, then merge passes in device memory (merge path: each
+//        thread finds where its 4 outputs start by a binary search),
+//        O(k log k) for a bin of k records, and a fold by one thread
+//        from values the block stages in shared memory.
 //   The fold is f = f + c and, with squares, f2 = f2 + c*c, seeded from
 //   the flux; no library sort or scan is used.
 //
@@ -170,19 +174,25 @@ __global__ void place_kernel(const int* __restrict__ bin, int m, int lo,
   idx[offsets[b] + atomicSub(counts + b, 1) - 1] = r;
 }
 
+// Folds the bins of [lo, hi) that hold at most SMALL records. A larger
+// bin is listed in large[] with the start of its records in the large
+// bins' sort scratch (large_info: [0] listed bins, [1] their records).
 template <typename T>
 __global__ void fold_small(const int* __restrict__ offsets, int lo, int hi,
                            const long long* __restrict__ order,
                            const int* __restrict__ idx,
                            const T* __restrict__ c, T* __restrict__ flux,
-                           int sq, int* __restrict__ n_large,
-                           int* __restrict__ large) {
+                           int sq, int* __restrict__ large_info,
+                           int* __restrict__ large,
+                           int* __restrict__ large_beg) {
   const int b = lo + blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= hi) return;
   const int beg = offsets[b], cnt = offsets[b + 1] - beg;
   if (cnt == 0) return;
   if (cnt > SMALL) {
-    large[atomicAdd(n_large, 1)] = b;
+    const int L = atomicAdd(large_info, 1);
+    large[L] = b;
+    large_beg[L] = atomicAdd(large_info + 1, cnt);
     return;
   }
   T f = flux[2 * (long long)b];
@@ -270,22 +280,26 @@ __device__ void bitonic_tile(long long* sk, int* si) {
   }
 }
 
+// Orders and folds the nl listed bins. A bin's record indices are sorted
+// in place in idx (its range at offsets[b]); key_a, key_b and idx_b hold
+// only the listed bins' records, a bin's at large_beg[L].
 template <typename T>
 __global__ void __launch_bounds__(SORT_THREADS)
-sort_fold_large(const int* __restrict__ offsets, const int* __restrict__ n_large,
+sort_fold_large(const int* __restrict__ offsets, int nl,
                 const int* __restrict__ large,
-                const long long* __restrict__ order, long long* key_a,
-                int* idx_a, long long* key_b, int* idx_b,
+                const int* __restrict__ large_beg,
+                const long long* __restrict__ order, int* idx,
+                long long* key_a, long long* key_b, int* idx_b,
                 const T* __restrict__ c, T* __restrict__ flux, int sq) {
   __shared__ long long sk[SORT_TILE];
   __shared__ int si[SORT_TILE];
   __shared__ T sv[SORT_THREADS];
-  const int nl = *n_large;
   for (int L = blockIdx.x; L < nl; L += gridDim.x) {
     const int b = large[L];
     const int beg = offsets[b], cnt = offsets[b + 1] - beg;
-    long long* ka = key_a + beg;
-    int* ia = idx_a + beg;
+    const int sbeg = large_beg[L];
+    long long* ka = key_a + sbeg;
+    int* ia = idx + beg;
     // 1. Sorted tiles of SORT_TILE keys, padded with keys above all.
     for (int t0 = 0; t0 < cnt; t0 += SORT_TILE) {
       for (int j = threadIdx.x; j < SORT_TILE; j += SORT_THREADS) {
@@ -308,8 +322,8 @@ sort_fold_large(const int* __restrict__ offsets, const int* __restrict__ n_large
     // 2. Merge pairs of sorted runs, doubling their width.
     long long* sk_src = ka;
     int* si_src = ia;
-    long long* sk_dst = key_b + beg;
-    int* si_dst = idx_b + beg;
+    long long* sk_dst = key_b + sbeg;
+    int* si_dst = idx_b + sbeg;
     for (long long w = SORT_TILE; w < cnt; w *= 2) {
       for (long long o0 = 0; o0 < cnt; o0 += SORT_THREADS * MERGE_ITEMS) {
         const long long k = o0 + (long long)threadIdx.x * MERGE_ITEMS;
@@ -400,12 +414,13 @@ int atomic_launch(void* flux, const void* bin, const void* c, int m, int sq,
   return (int)cudaGetLastError();
 }
 
+// Passes 1-4: every bin of at most SMALL records folded, the larger ones
+// listed for large_launch.
 template <typename T>
 int ordered_launch(void* flux, const void* bin, const void* order,
                    const void* c, int m, int nbins, int sq, void* counts,
-                   void* offsets, void* tile_sums, void* n_large, void* large,
-                   void* key_a, void* idx_a, void* key_b, void* idx_b,
-                   void* stream) {
+                   void* offsets, void* tile_sums, void* large_info,
+                   void* large, void* large_beg, void* idx, void* stream) {
   if (m <= 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
   const int tiles = cdiv(nbins, SCAN_TILE);
@@ -429,29 +444,42 @@ int ordered_launch(void* flux, const void* bin, const void* order,
     if (hi == lo) continue;
     place_kernel<<<cdiv(m, 256), 256, 0, s>>>((const int*)bin, m, lo, hi,
                                               (const int*)offsets,
-                                              (int*)counts, (int*)idx_a);
+                                              (int*)counts, (int*)idx);
     PUMI_CHECK_LAUNCH();
     fold_small<T><<<cdiv(hi - lo, 256), 256, 0, s>>>(
         (const int*)offsets, lo, hi, (const long long*)order,
-        (const int*)idx_a, (const T*)c, (T*)flux, sq, (int*)n_large,
-        (int*)large);
+        (const int*)idx, (const T*)c, (T*)flux, sq, (int*)large_info,
+        (int*)large, (int*)large_beg);
     PUMI_CHECK_LAUNCH();
   }
-  sort_fold_large<T><<<LARGE_BLOCKS, SORT_THREADS, 0, s>>>(
-      (const int*)offsets, (const int*)n_large, (const int*)large,
-      (const long long*)order, (long long*)key_a, (int*)idx_a,
-      (long long*)key_b, (int*)idx_b,
-      (const T*)c, (T*)flux, sq);
+  return (int)cudaSuccess;
+}
+
+// Pass 5: the nl bins that ordered_launch listed.
+template <typename T>
+int large_launch(void* flux, const void* order, const void* c, int sq,
+                 const void* offsets, int nl, const void* large,
+                 const void* large_beg, void* idx, void* key_a, void* key_b,
+                 void* idx_b, void* stream) {
+  if (nl <= 0) return (int)cudaSuccess;
+  sort_fold_large<T>
+      <<<nl < LARGE_BLOCKS ? nl : LARGE_BLOCKS, SORT_THREADS, 0,
+         (cudaStream_t)stream>>>(
+          (const int*)offsets, nl, (const int*)large, (const int*)large_beg,
+          (const long long*)order, (int*)idx, (long long*)key_a,
+          (long long*)key_b, (int*)idx_b, (const T*)c, (T*)flux, sq);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // C entry points. Pointers and the stream are void*; the return value is
-// the cudaError_t of the launches. The caller allocates the scratch:
-// counts [nbins] int32 zeroed, offsets [nbins+1] int32, tile_sums
-// [ceil(nbins/4096)] int32, n_large [1] int32 zeroed, large [m/33+1]
-// int32, key_a/key_b [m] int64, idx_a/idx_b [m] int32.
+// the cudaError_t of the launches. The caller allocates the scratch of
+// pumi_scatter_ordered: counts [nbins] int32 zeroed, offsets [nbins+1]
+// int32, tile_sums [ceil(nbins/4096)] int32, large_info [2] int32 zeroed,
+// large and large_beg [m/33+1] int32, idx [m] int32; then, with nl and r
+// read from large_info, the scratch of pumi_scatter_ordered_large (only
+// when nl > 0): key_a and key_b [r] int64, idx_b [r] int32.
 #define PUMI_SCATTER_ENTRIES(TAG, T)                                          \
   extern "C" int pumi_scatter_atomic_##TAG(void* flux, const void* bin,       \
                                            const void* c, int m, int sq,      \
@@ -461,11 +489,18 @@ int ordered_launch(void* flux, const void* bin, const void* order,
   extern "C" int pumi_scatter_ordered_##TAG(                                  \
       void* flux, const void* bin, const void* order, const void* c, int m,   \
       int nbins, int sq, void* counts, void* offsets, void* tile_sums,        \
-      void* n_large, void* large, void* key_a, void* idx_a, void* key_b,      \
-      void* idx_b, void* stream) {                                            \
+      void* large_info, void* large, void* large_beg, void* idx,              \
+      void* stream) {                                                         \
     return ordered_launch<T>(flux, bin, order, c, m, nbins, sq, counts,       \
-                             offsets, tile_sums, n_large, large, key_a,       \
-                             idx_a, key_b, idx_b, stream);                    \
+                             offsets, tile_sums, large_info, large,           \
+                             large_beg, idx, stream);                         \
+  }                                                                           \
+  extern "C" int pumi_scatter_ordered_large_##TAG(                            \
+      void* flux, const void* order, const void* c, int sq,                   \
+      const void* offsets, int nl, const void* large, const void* large_beg,  \
+      void* idx, void* key_a, void* key_b, void* idx_b, void* stream) {       \
+    return large_launch<T>(flux, order, c, sq, offsets, nl, large,            \
+                           large_beg, idx, key_a, key_b, idx_b, stream);      \
   }
 
 PUMI_SCATTER_ENTRIES(f32, float)

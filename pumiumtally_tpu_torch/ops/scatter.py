@@ -176,7 +176,9 @@ def atomic_cuda(flux, bin, c, score_squares):
 def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
     """Launch the ordered scatter of ``csrc/scatter.cu`` on records that
     were checked (or that the walk made): count per bin, exclusive scan,
-    place, order each bin's range, fold."""
+    place, order and fold each bin of at most 32 records; then one host
+    read of how many bins (and records) are larger, and only if there are
+    any, their sort scratch and the block sort that folds them."""
     global ORDERED_LAUNCHES
     m = bin.numel()
     if m == 0:
@@ -187,25 +189,39 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
     counts = torch.zeros(nbins, **i32)
     offsets = torch.empty(nbins + 1, **i32)
     tile_sums = torch.empty(tiles, **i32)
-    n_large = torch.zeros(1, **i32)
+    large_info = torch.zeros(2, **i32)
     large = torch.empty(m // 33 + 1, **i32)
-    key_a = torch.empty(m, dtype=torch.int64, device=dev)
-    idx_a = torch.empty(m, **i32)
-    key_b = torch.empty(m, dtype=torch.int64, device=dev)
-    idx_b = torch.empty(m, **i32)
-    fn = _entry("pumi_scatter_ordered", flux.dtype)
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9
-        + [ctypes.c_void_p]
+    large_beg = torch.empty(m // 33 + 1, **i32)
+    idx = torch.empty(m, **i32)
+    small = _entry("pumi_scatter_ordered", flux.dtype)
+    small.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
     )
     with torch.cuda.device(dev):
-        err = fn(
+        err = small(
             flux.data_ptr(), bin.data_ptr(), order.data_ptr(), c.data_ptr(),
             m, nbins, int(bool(score_squares)), counts.data_ptr(),
-            offsets.data_ptr(), tile_sums.data_ptr(), n_large.data_ptr(),
-            large.data_ptr(), key_a.data_ptr(), idx_a.data_ptr(),
-            key_b.data_ptr(), idx_b.data_ptr(), _stream(dev),
+            offsets.data_ptr(), tile_sums.data_ptr(), large_info.data_ptr(),
+            large.data_ptr(), large_beg.data_ptr(), idx.data_ptr(),
+            _stream(dev),
         )
+        n_large, large_records = large_info.tolist() if err == 0 else (0, 0)
+        if n_large:
+            key_a = torch.empty(large_records, dtype=torch.int64, device=dev)
+            key_b = torch.empty(large_records, dtype=torch.int64, device=dev)
+            idx_b = torch.empty(large_records, **i32)
+            big = _entry("pumi_scatter_ordered_large", flux.dtype)
+            big.argtypes = (
+                [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p,
+                                         ctypes.c_int] + [ctypes.c_void_p] * 7
+            )
+            err = big(
+                flux.data_ptr(), order.data_ptr(), c.data_ptr(),
+                int(bool(score_squares)), offsets.data_ptr(), n_large,
+                large.data_ptr(), large_beg.data_ptr(), idx.data_ptr(),
+                key_a.data_ptr(), key_b.data_ptr(), idx_b.data_ptr(),
+                _stream(dev),
+            )
     if err != 0:
         raise RuntimeError(
             f"scatter_ordered launch failed with cudaError_t {err}"

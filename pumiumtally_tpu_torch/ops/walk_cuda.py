@@ -39,10 +39,6 @@ LAUNCHES = 0
 RELAUNCHES = 0
 TALLIES = ("ordered", "atomic")
 
-# Records made by the last ordered walk; the next one's buffers hold at
-# least 5/4 of it (and never fewer than 4 per lane).
-_last_records = 0
-
 _ARGTYPES = (
     [ctypes.c_int] * 3               # robust, initial, ordered
     + [ctypes.c_void_p] * 7          # geo, origin, dest, elem, fly, weight, group
@@ -98,9 +94,10 @@ def trace(
     flux is updated in place.
 
     ``tally`` is ``"ordered"`` (flux bitwise equal to the plain walk's) or
-    ``"atomic"``. ``capacity`` sets the ordered walk's record buffers
-    (default: 5/4 of the last ordered walk's records, at least 4 per
-    lane); a walk that makes more is run again with buffers of its count."""
+    ``"atomic"``. ``capacity`` is the number of records the ordered walk's
+    buffers hold (default 4 per lane; the facade passes its estimate of
+    the move's records); a walk that makes more is run again with buffers
+    of its count."""
     if tally not in TALLIES:
         raise ValueError(f"tally must be one of {TALLIES}, not {tally!r}")
     kw = dict(
@@ -157,11 +154,8 @@ def _check_cuda(mesh, origin, dest, elem, in_flight, weight, group,
 
 
 def _walk_ordered(*args, capacity, **kw):
-    global _last_records, RELAUNCHES
-    n = args[1].shape[0]
-    cap = capacity if capacity is not None else max(
-        4 * n, -(-5 * _last_records // 4)
-    )
+    global RELAUNCHES
+    cap = capacity if capacity is not None else 4 * args[1].shape[0]
     out, rec, made = _launch(*args, **kw, ordered=True, capacity=cap)
     if made > cap:
         out, rec, again = _launch(*args, **kw, ordered=True, capacity=made)
@@ -171,7 +165,6 @@ def _walk_ordered(*args, capacity, **kw):
                 f"the walk made {made} records, then {again} from the same "
                 "inputs"
             )
-    _last_records = made
     return out, Records(rec[0][:made], rec[1][:made], rec[2][:made])
 
 

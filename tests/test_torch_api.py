@@ -377,6 +377,35 @@ def test_walk_stats_off_still_counts_segments():
     assert t.last_stats is None and t.total_segments > 0
 
 
+@pytest.mark.parametrize("walk_stats", [True, False])
+def test_record_capacity_covers_each_move(walk_stats):
+    """The record buffers the facade asks for hold every record of the
+    move (one per scored segment): before the first move from the mesh's
+    face density and the move's path length, then from the last move."""
+    n, G = 3000, 4
+    mesh = build_box(1.0, 1.0, 1.0, 6, 6, 6, device="cpu")
+    t = PumiTally(mesh, n, TallyConfig(n_groups=G, walk_stats=walk_stats),
+                  device="cpu")
+    rng = np.random.default_rng(5)
+    prev = rng.uniform(0.05, 0.95, (n, 3))
+    t.initialize_particle_location(prev.reshape(-1).copy())
+    for move in range(3):
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        want = prev + d * rng.exponential(0.3, (n, 1))
+        fly = rng.uniform(size=n) < 0.9
+        cap = t._record_capacity(torch.from_numpy(want).float(),
+                                 torch.from_numpy(fly))
+        dest = want.reshape(-1).copy()
+        before = t.total_segments
+        t.move_to_next_location(dest, fly.astype(np.int8), np.ones(n),
+                                rng.integers(0, G, n).astype(np.int32),
+                                np.zeros(n, np.int32))
+        segs = t.total_segments - before
+        assert 4 * n < segs <= cap <= 2 * segs, (move, segs, cap)
+        prev = dest.reshape(n, 3).copy()
+
+
 def test_mesh_dtype_must_match_config():
     with pytest.raises(ValueError, match="dtype"):
         PumiTally(build_box(device="cpu"), 3,
