@@ -29,7 +29,13 @@ Phases, each of which raises (exit code != 0) on any failed check:
    bound is the larger of two times: the bytes the walk must move (each
    distinct table row it needs once, each flux bin it scores read and
    written once, the lanes' inputs and outputs) over the HBM rate, and its
-   lane iterations' operations over the FP32/FP64 rate;
+   lane iterations' operations over the FP32/FP64 rate. Each walk's
+   active-lane share, Σ lane iterations / (32 · Σ warp loop trips), is
+   printed beside the share one-thread-per-lane warps in launch order
+   would have had (32-lane groups of the lane iterations), and the walk
+   launch is timed with its lanes in the kernel's order (by start
+   element, or by destination cell in the initial search; the lane-order
+   pass included) and in launch order, a move's ordered scatter too;
 6. reproducibility (phase C): move 1 replayed twice through the ordered
    walk gives the same flux bits; twice through the atomic walk, each run
    held against the plain walk (lanes equal, flux within rtol 1e-4) and
@@ -43,7 +49,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    plain versions (bitwise for the gather and the ordered scatter, rtol
    1e-5 for the atomic one) at the JAX probe's shapes and the walk's,
    timed, with the library call beside them; launch counts zeroed before
-   and read after;
+   and read after. K3 outer also in float64, with and without squares, at
+   the JAX probe's shapes and move 1's records; and the SASS of the
+   atomic scatter and the atomic walk (cuobjdump) must hold the float32
+   pair's vector reduction;
 9. point source (phase E): all 1,048,576 lanes start at one point of the
    main-path mesh and fly one move; the ordered scatter of its records is
    held bitwise against the plain version and timed, and its largest
@@ -83,6 +92,7 @@ SMALL_CELLS, SMALL_LANES = 20, 65536
 MAIN_CELLS, MAIN_PARTICLES, MAIN_GROUPS = 55, 1048576, 8
 OVERFLOW_CAPACITY = 1000
 SOURCES = ("walk", "scatter", "gather")
+WARP = 32
 
 
 def log(msg: str) -> None:
@@ -320,6 +330,8 @@ def phase_main_path(tmpdir: str):
     if launches["walk"] != 5 + launches["walk_relaunches"]:
         raise AssertionError(f"walk kernel launches {launches}: not 5 "
                              "walks and their relaunches")
+    if launches["lane_order"] != 5:
+        raise AssertionError("the lanes were not ordered once a walk")
     if launches["scatter_ordered"] != 4:
         raise AssertionError("the ordered scatter did not run once a move")
     if launches["scatter_atomic"] or launches["gather"]:
@@ -333,6 +345,7 @@ def zero_counts() -> None:
 
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
+    scatter.ORDER_LAUNCHES = 0
     gather.LAUNCHES = 0
 
 
@@ -344,6 +357,7 @@ def read_counts() -> dict:
         "walk_relaunches": walk_cuda.RELAUNCHES,
         "scatter_ordered": scatter.ORDERED_LAUNCHES,
         "scatter_atomic": scatter.ATOMIC_LAUNCHES,
+        "lane_order": scatter.ORDER_LAUNCHES,
         "gather": gather.LAUNCHES,
     }
 
@@ -414,11 +428,33 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
     args, kw = replay_args(tally, snap, initial)
     label = "initial search" if initial else "move 1"
     k = walk_cuda.trace(*args, snap["flux"].clone(), **kw)
+    trips = int(walk_cuda.WARP_TRIPS)
     p = walk.trace(*args, snap["flux"].clone(), **kw)
     err = compare(k, p, dtype, 1e-5, 0.0, f"main-path {label} ({dtype})")
     # Buffers for every record (at most one per segment), so the timed
     # calls never run the walk again.
     cap = {} if initial else {"capacity": int(k.n_segments)}
+    share = active_share(k.lane_iters, trips)
+    runs = walk_orders(args, snap["flux"], kw, cap.get("capacity", 0))
+    resident = walk_cuda.resident_threads(dtype, initial=initial)
+    log(f"[share] {label}: active-lane share {share:.4f} (Σ lane "
+        f"iterations / (32 · {trips} warp trips), {resident} resident "
+        f"threads); one thread per lane in launch order (the earlier "
+        f"design, 32-lane groups): {launch_order_share(k.lane_iters):.4f}")
+    by = "destination cell" if initial else "start element"
+    log(f"[order] {label}: walk launch with lanes by {by} "
+        f"{runs['slots']['ms']:.4f} ms (lane-order pass "
+        f"{runs['order_ms']:.4f} ms included, share "
+        f"{runs['slots']['share']:.4f}); in launch order "
+        f"{runs['launch']['ms']:.4f} ms (share "
+        f"{runs['launch']['share']:.4f}); median of 5")
+    if not initial:
+        slot_sum = runs["slots"]["ms"] + runs["slots"]["scatter_ms"]
+        launch_sum = runs["launch"]["ms"] + runs["launch"]["scatter_ms"]
+        log(f"[order] {label}: ordered scatter of the records of the walk "
+            f"by {by} {runs['slots']['scatter_ms']:.4f} ms, in launch "
+            f"order {runs['launch']['scatter_ms']:.4f} ms; walk and "
+            f"scatter {slot_sum:.4f} / {launch_sum:.4f} ms")
 
     def fresh():
         return (snap["flux"].clone(),)
@@ -443,7 +479,8 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
                 fresh),
             records=rec, plain=p, **cap,
         )
-        profile_move(lambda: walk_cuda.trace(*args, snap["flux"].clone(),
+        profile_call("ordered move 1",
+                     lambda: walk_cuda.trace(*args, snap["flux"].clone(),
                                              **kw, **cap))
         log(f"[kernel] move 1 ordered = walk into {rec.bin.numel()} records "
             f"{out['walk_ms']:.4f} ms + ordered scatter "
@@ -467,32 +504,98 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
         f"{table_rows}, flux bins written {bins}, bytes that must move "
         f"{nbytes}, bytes bound {bytes_ms:.4f} ms, operations bound "
         f"{ops_ms:.4f} ms")
+    if initial:
+        profile_call("initial search",
+                     lambda: walk_cuda.trace(*args, snap["flux"].clone(),
+                                             **kw))
     return dict(
         ms=ms, plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        max_abs_err=err["max_abs_err"], **out,
+        max_abs_err=err["max_abs_err"], share=share,
+        launch_order_share=launch_order_share(k.lane_iters),
+        slot_order_ms=runs["slots"]["ms"],
+        launch_order_ms=runs["launch"]["ms"], **out,
     )
 
 
-def profile_move(fn) -> None:
-    """Device time by kernel of one call, from torch.profiler's CUDA
-    activity (CUPTI); the share of the call's span the card was busy."""
+def active_share(iters, trips: int) -> float:
+    """Σ lane iterations over the lane slots of the warps' loop trips."""
+    return int(iters.sum(dtype=torch.int64)) / (WARP * trips)
+
+
+def launch_order_share(iters) -> float:
+    """The active-lane share of one thread per lane, lanes in launch order:
+    each 32-lane warp issues for as long as its longest lane."""
+    pad = torch.nn.functional.pad(iters, (0, (-iters.numel()) % WARP))
+    longest = pad.view(-1, WARP).amax(dim=1).sum(dtype=torch.int64)
+    return int(iters.sum(dtype=torch.int64)) / (WARP * int(longest))
+
+
+def walk_orders(args, flux0, kw, capacity: int) -> dict:
+    """The walk launch alone, its lanes taken in ``lane_slots`` order (the
+    lane-order pass included) and in launch order: time (median of 5) and
+    active-lane share of each, and the lane-order pass alone. A move's
+    records from each order are also folded by the ordered scatter, timed:
+    the order the walk makes its records in is the order the scatter's
+    passes meet their bins in."""
+    from pumiumtally_tpu_torch.ops import scatter, walk_cuda
+
+    mesh, dest, elem = args[0], args[2], args[3]
+    initial = kw["initial"]
+    full = dict(kw, score_squares=True, robust=True, ledger=True,
+                stats=True, ordered=not initial, capacity=capacity)
+
+    def slots():
+        return walk_cuda.lane_slots(mesh, elem, dest, initial)
+
+    order = {
+        "slots": lambda f: walk_cuda._launch(*args, f, **full,
+                                             perm=slots()),
+        "launch": lambda f: walk_cuda._launch(*args, f, **full, perm=None),
+    }
+
+    def fresh():
+        return (flux0.clone(),)
+
+    out = {}
+    for name, fn in order.items():
+        o = fn(flux0.clone())
+        trips = int(walk_cuda.WARP_TRIPS)
+        out[name] = dict(ms=event_ms(fn, 5, fresh))
+        if not initial:
+            o, rec, made = o
+            b, k, c = (r[:made] for r in rec)
+            out[name]["scatter_ms"] = event_ms(
+                lambda f: scatter.ordered_cuda(f, b, k, c, True,
+                                               flux0.numel() // 2), 5, fresh)
+        out[name]["share"] = active_share(o["iters"], trips)
+    out["order_ms"] = event_ms(slots, 5)
+    return out
+
+
+def profile_call(label: str, fn, calls: int = 3) -> None:
+    """Device time by kernel per call, from torch.profiler's CUDA activity
+    (CUPTI) over ``calls`` calls after a warm-up; the share of the calls'
+    host span the card was busy."""
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        span = time.perf_counter() - t0
+        span = (time.perf_counter() - t0) / calls
     rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in rows)
-    log(f"[profile] ordered move 1: {len(rows)} device kernels, busy "
-        f"{busy / 1e3:.4f} ms of a {span * 1e3:.4f} ms host span")
+    busy = sum(e.self_device_time_total for e in rows) / calls
+    log(f"[profile] {label}, per call of {calls}: {len(rows)} device "
+        f"kernels, busy {busy / 1e3:.4f} ms of a {span * 1e3:.4f} ms host "
+        "span")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total):
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.4f} ms "
-            f"x{e.count} {e.key[:90]}")
+        log(f"[profile]   {e.self_device_time_total / calls / 1e3:9.4f} ms "
+            f"x{e.count / calls:g} {e.key[:90]}")
 
 
 def phase_reproducible(tally, snap, move) -> dict:
@@ -567,7 +670,94 @@ def phase_probe(tally, snap, rec) -> tuple[dict, dict]:
     if bad:
         raise AssertionError(f"probes failed: {bad}")
     log(f"[probe] launches: {launches}")
+    atomic = [p for p in payload["probes"] if p["probe"] == "scatter_atomic"]
+    log(f"[probe] K3 outer with move 1's records: "
+        f"{atomic[-1]['usec_per_call'] / 1e3:.4f} ms, Tensor.index_add_ "
+        f"{atomic[-1]['library_usec_per_call'] / 1e3:.4f} ms (median of 5)")
     return payload, launches
+
+
+def probe_atomic_f64(rec, nbins: int) -> None:
+    """K3 outer in float64 (two scalar adds a record) against its plain
+    version, with and without squares: at the JAX probe's shapes and with
+    move 1's records, their contributions in float64."""
+    from pumiumtally_tpu_torch.probes import gather_scatter as gs
+
+    cases = [(gs.probe_scatter_inputs(B, ntet, G, DEVICE), (B, ntet, G))
+             for B, ntet, G in gs.SCATTER_SHAPES]
+    cases.append((dict(flux=torch.zeros(2 * nbins, device=DEVICE),
+                       bin=rec.bin, order=rec.order, c=rec.c),
+                  (rec.bin.numel(), nbins)))
+    for r, shape in cases:
+        for sq in (True, False):
+            p = gs.scatter_probe("atomic", r["flux"].double(), r["bin"],
+                                 r["order"], r["c"].double(), shape,
+                                 score_squares=sq)
+            log(f"[probe] scatter_atomic float64 {shape} squares={sq}: "
+                f"ok={p['ok']} agree={p['agree']} {p['usec_per_call']} us, "
+                f"Tensor.index_add_ {p['library_usec_per_call']} us"
+                + (f" {p['error']}" if p["error"] else ""))
+            if not p["ok"]:
+                raise AssertionError(f"float64 atomic scatter failed: {p}")
+
+
+def sass_reductions(lib: str, kernel: str) -> list[str]:
+    """The atomic instructions (RED*, ATOM*) of the functions in lib's SASS
+    (cuobjdump) whose mangled name contains ``kernel``."""
+    from pumiumtally_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    found, inside = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and re.search(r"\b(RED|ATOM)G?\.", line):
+            found.append(re.sub(r"\s+", " ", line.split(";")[0]).strip())
+    return found
+
+
+def check_sass(libs: list[str]) -> None:
+    """The float32 atomic scatter (aligned records) and the float32 atomic
+    walk must add each (c, c²) pair with one vector reduction."""
+    lib = dict(zip(SOURCES, libs))
+    for source, kernel in (("scatter", "atomic_kernelIfLb1E"),
+                           ("walk", "walk_kernelIfLb1ELb0ELb0E")):
+        ops = sass_reductions(lib[source], kernel)
+        log(f"[sass] {kernel}: {ops}")
+        if not any("F32x2" in op for op in ops):
+            raise AssertionError(f"{kernel}: no vector reduction in its SASS")
+
+
+def phase_lane_order(snap, ntet: int) -> dict:
+    """The lane-order kernel against its plain version (argsort by
+    element) on move 1's start elements: a permutation whose elements
+    match; timed beside the plain version and an unstable argsort."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    elem = snap["elem"]
+    n = elem.numel()
+    perm = scatter.lane_order_cuda(elem, ntet).long()
+    plain = scatter.lane_order_plain(elem).long()
+    if not torch.equal(torch.sort(perm).values,
+                       torch.arange(n, device=elem.device)):
+        raise AssertionError("lane order: not a permutation")
+    err = int((elem[perm] - elem[plain]).abs().max())
+    if err:
+        raise AssertionError("lane order: elements out of order")
+    bytes_ms = 2 * 4 * n / HBM_BYTES_PER_S * 1e3  # elem read, perm written
+    out = dict(
+        ms=event_ms(lambda: scatter.lane_order_cuda(elem, ntet), 5),
+        plain_ms=event_ms(lambda: scatter.lane_order_plain(elem), 5),
+        library_ms=event_ms(lambda: torch.argsort(elem), 5),
+        bound_ms=bytes_ms, max_abs_err=float(err),
+    )
+    log(f"[order] lane order of move 1's {n} lanes over {ntet} elements: "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, unstable "
+        f"torch.argsort {out['library_ms']:.4f} ms, bound "
+        f"{bytes_ms:.4f} ms (median of 5)")
+    return out
 
 
 def phase_point_source(tally) -> None:
@@ -662,6 +852,8 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[build] {os.path.basename(lib)}: {line.strip()}")
 
+    check_sass(libs)
+
     t0 = time.perf_counter()
     phase_kernel_vs_plain_small()
     log(f"[phase] kernel vs plain (20^3 box): "
@@ -686,6 +878,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     payload, probe_launches = phase_probe(tally, snaps["move"], k["records"])
+    probe_atomic_f64(k["records"], tally.flux.numel() // 2)
+    order = phase_lane_order(snaps["move"], tally.mesh.ntet)
     log(f"[phase] probe path: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -705,7 +899,10 @@ def main() -> int:
         {"name": "walk_cuda.trace", **walk, "launches": launches["walk"],
          "max_abs_err": k["max_abs_err"], "ms": k["ms"],
          "walk_ms": k["walk_ms"], "scatter_ms": k["scatter_ms"],
-         "atomic_ms": k["atomic_ms"]},
+         "atomic_ms": k["atomic_ms"], "active_share": k["share"],
+         "launch_order_share": k["launch_order_share"],
+         "slot_order_ms": k["slot_order_ms"],
+         "launch_order_ms": k["launch_order_ms"]},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},
@@ -722,6 +919,11 @@ def main() -> int:
                       launches["scatter_ordered"], "scatter.scatter_ordered",
                       "pumiumtally_tpu_torch/csrc/scatter.cu",
                       "scripts/probe_pallas_gather.py:211"),
+        {"name": "scatter.lane_order", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/scatter.cu",
+         "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",
+         "launches": launches["lane_order"], "bound_by": "bytes",
+         "library": "torch.argsort", **order},
     ]
     for kern in kernels:
         if not kern["launches"]:

@@ -130,12 +130,12 @@ class PumiTally:
             self._max_crossings = cfg.resolve_max_crossings(mesh.ntet)
             self.state: ParticleState = seed_at_element_centroid(
                 make_particle_state(
-                    self.num_particles, cfg.dtype, self.device
+                    self.num_particles, cfg.dtype, device=self.device
                 ),
                 mesh,
             )
             self.flux = make_flux(
-                mesh.ntet, cfg.n_groups, cfg.dtype, self.device
+                mesh.ntet, cfg.n_groups, cfg.dtype, device=self.device
             )
             self.iter_count = 0
             self.total_segments = 0

@@ -8,6 +8,8 @@ import dataclasses
 
 import torch
 
+from ..utils.platform import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ParticleState:
@@ -29,8 +31,12 @@ class ParticleState:
 
 
 def make_particle_state(
-    n: int, dtype: torch.dtype = torch.float32, device="cpu"
+    n: int, dtype: torch.dtype = torch.float32, device=None
 ) -> ParticleState:
+    """n unplaced particles on ``device`` (default the CUDA card;
+    ``utils/platform.py::resolve_device``)."""
+    device = resolve_device(device)
+
     def full(shape, value, dt):
         return torch.full(shape, value, dtype=dt, device=device)
 

@@ -10,13 +10,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.platform import resolve_device
+
 
 def make_flux(
     ntet: int, n_groups: int, dtype: torch.dtype = torch.float32,
-    device="cpu",
+    device=None,
 ) -> torch.Tensor:
-    """Zero flat tally accumulator ``[ntet * n_groups * 2]``."""
-    return torch.zeros(ntet * n_groups * 2, dtype=dtype, device=device)
+    """Zero flat tally accumulator ``[ntet * n_groups * 2]`` on ``device``
+    (default the CUDA card; ``utils/platform.py::resolve_device``)."""
+    return torch.zeros(ntet * n_groups * 2, dtype=dtype,
+                       device=resolve_device(device))
 
 
 def _normalize_flux_impl(flux, volumes, n_particles, n_iterations):

@@ -7,8 +7,13 @@
 // The plain PyTorch versions are scatter_atomic_plain and
 // scatter_ordered_plain in pumiumtally_tpu_torch/ops/scatter.py.
 //
-// * pumi_scatter_atomic_<t>: one thread per record, two atomicAdds (the
-//   probe's "outer"). A bin's order of adds is the device's.
+// * pumi_scatter_atomic_<t> (the probe's "outer"): each thread takes 4
+//   records with 16 B loads of their bins and values and adds each to its
+//   bin. With squares, a float32 record's (c, c^2) pair is one 8 B vector
+//   reduction (atomicAdd on float2, global memory, compute capability
+//   9.x): half the L2 atomic operations of two scalar adds. PTX has no
+//   vector add of float64, so a float64 record makes two. A bin's order of
+//   adds is the device's.
 // * pumi_scatter_ordered_<t>: each bin gets its adds in ascending
 //   (order, record index), bitwise the sequence of the plain version (the
 //   probe's "peeled", and the walk's tally). The TPU kernel peels
@@ -42,6 +47,12 @@
 //        from values the block stages in shared memory.
 //   The fold is f = f + c and, with squares, f2 = f2 + c*c, seeded from
 //   the flux; no library sort or scan is used.
+// * pumi_lane_order: passes 1-3 with the walk's lanes as records and an
+//   int32 key per lane as bins (its start element, or in the initial
+//   search its destination cell), giving the permutation that orders the
+//   lanes by key (in any order within a key) for csrc/walk.cu. The lanes
+//   of a warp with one key count and place themselves with one atomic
+//   (__match_any_sync).
 //
 // What bounds it: the bytes of the records and of the touched bins are
 // the least it must move; the counts, offsets and indices of passes 1-3
@@ -71,21 +82,103 @@ __device__ __forceinline__ bool key_less(long long ka, int ia, long long kb,
   return ka < kb || (ka == kb && ia < ib);
 }
 
-template <typename T>
+constexpr int ATOMIC_ITEMS = 4;  // records per thread of atomic_kernel
+
+// (c, c*c) into a flux pair, or c alone without squares. In float32 the
+// pair is one 8 B vector reduction.
+__device__ __forceinline__ void add_pair(float* f, float c, int sq) {
+  if (sq)
+    atomicAdd(reinterpret_cast<float2*>(f), make_float2(c, c * c));
+  else
+    atomicAdd(f, c);
+}
+
+__device__ __forceinline__ void add_pair(double* f, double c, int sq) {
+  atomicAdd(f, c);
+  if (sq) atomicAdd(f + 1, c * c);
+}
+
+// 4 values from 16 B aligned memory in one (float) or two (double) loads.
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 x = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 y = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = y.x;
+  v[3] = y.y;
+}
+
+// VEC: bin and c are 16 B aligned, so a thread's 4 records load as vectors.
+template <typename T, bool VEC>
 __global__ void atomic_kernel(T* __restrict__ flux, const int* __restrict__ bin,
                               const T* __restrict__ c, int m, int sq) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= m) return;
-  const T v = c[r];
-  T* f = flux + 2 * (long long)bin[r];
-  atomicAdd(f, v);
-  if (sq) atomicAdd(f + 1, v * v);
+  const long long r0 =
+      ((long long)blockIdx.x * blockDim.x + threadIdx.x) * ATOMIC_ITEMS;
+  if (r0 >= m) return;
+  int b[ATOMIC_ITEMS];
+  T v[ATOMIC_ITEMS];
+  const int k = m - r0 < ATOMIC_ITEMS ? (int)(m - r0) : ATOMIC_ITEMS;
+  if (VEC && k == ATOMIC_ITEMS) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(bin + r0));
+    b[0] = x.x;
+    b[1] = x.y;
+    b[2] = x.z;
+    b[3] = x.w;
+    load4(c + r0, v);
+  } else {
+#pragma unroll
+    for (int j = 0; j < ATOMIC_ITEMS; ++j) {
+      b[j] = j < k ? bin[r0 + j] : 0;
+      v[j] = j < k ? c[r0 + j] : (T)0;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < ATOMIC_ITEMS; ++j)
+    if (j < k) add_pair(flux + 2 * (long long)b[j], v[j], sq);
 }
 
 __global__ void count_kernel(const int* __restrict__ bin, int m,
                              int* __restrict__ counts) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r < m) atomicAdd(counts + bin[r], 1);
+}
+
+// count_kernel and place_kernel over all bins, for bins that repeat
+// within a warp: the lanes of one bin make one atomic. The block size is
+// a multiple of 32, so every warp is whole.
+__global__ void order_count(const int* __restrict__ bin, int m,
+                            int* __restrict__ counts) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned live = __ballot_sync(0xffffffffu, r < m);
+  if (r >= m) return;
+  const int b = bin[r];
+  const unsigned same = __match_any_sync(live, b);
+  if ((int)(threadIdx.x & 31) == __ffs(same) - 1)
+    atomicAdd(counts + b, __popc(same));
+}
+
+__global__ void order_place(const int* __restrict__ bin, int m,
+                            const int* __restrict__ offsets,
+                            int* __restrict__ counts, int* __restrict__ idx) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned live = __ballot_sync(0xffffffffu, r < m);
+  if (r >= m) return;
+  const int b = bin[r];
+  const unsigned same = __match_any_sync(live, b);
+  const int lane = threadIdx.x & 31, lead = __ffs(same) - 1;
+  const int size = __popc(same);
+  int left = 0;
+  if (lane == lead) left = atomicSub(counts + b, size);
+  left = __shfl_sync(same, left, lead);
+  idx[offsets[b] + left - size + __popc(same & ((1u << lane) - 1u))] = r;
 }
 
 // Exclusive scan of one int per thread over a block of SCAN_THREADS;
@@ -409,8 +502,27 @@ template <typename T>
 int atomic_launch(void* flux, const void* bin, const void* c, int m, int sq,
                   void* stream) {
   if (m <= 0) return (int)cudaSuccess;
-  atomic_kernel<T><<<cdiv(m, 256), 256, 0, (cudaStream_t)stream>>>(
-      (T*)flux, (const int*)bin, (const T*)c, m, sq);
+  const int grid = cdiv(cdiv(m, ATOMIC_ITEMS), 256);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (((uintptr_t)bin | (uintptr_t)c) % 16 == 0)
+    atomic_kernel<T, true><<<grid, 256, 0, s>>>((T*)flux, (const int*)bin,
+                                               (const T*)c, m, sq);
+  else
+    atomic_kernel<T, false><<<grid, 256, 0, s>>>((T*)flux, (const int*)bin,
+                                                (const T*)c, m, sq);
+  return (int)cudaGetLastError();
+}
+
+// The exclusive scan of counts[nbins] into offsets[nbins + 1].
+int scan_launch(const int* counts, int nbins, int* offsets, int* tile_sums,
+                cudaStream_t s) {
+  const int tiles = cdiv(nbins, SCAN_TILE);
+  scan_tiles<<<tiles, SCAN_THREADS, 0, s>>>(counts, nbins, offsets,
+                                            tile_sums);
+  PUMI_CHECK_LAUNCH();
+  scan_sums<<<1, SCAN_THREADS, 0, s>>>(tile_sums, tiles, offsets, nbins);
+  PUMI_CHECK_LAUNCH();
+  add_sums<<<cdiv(nbins, 256), 256, 0, s>>>(offsets, nbins, tile_sums);
   return (int)cudaGetLastError();
 }
 
@@ -423,18 +535,11 @@ int ordered_launch(void* flux, const void* bin, const void* order,
                    void* large, void* large_beg, void* idx, void* stream) {
   if (m <= 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  const int tiles = cdiv(nbins, SCAN_TILE);
   count_kernel<<<cdiv(m, 256), 256, 0, s>>>((const int*)bin, m, (int*)counts);
   PUMI_CHECK_LAUNCH();
-  scan_tiles<<<tiles, SCAN_THREADS, 0, s>>>((const int*)counts, nbins,
-                                            (int*)offsets, (int*)tile_sums);
-  PUMI_CHECK_LAUNCH();
-  scan_sums<<<1, SCAN_THREADS, 0, s>>>((int*)tile_sums, tiles, (int*)offsets,
-                                       nbins);
-  PUMI_CHECK_LAUNCH();
-  add_sums<<<cdiv(nbins, 256), 256, 0, s>>>((int*)offsets, nbins,
-                                            (const int*)tile_sums);
-  PUMI_CHECK_LAUNCH();
+  const int e = scan_launch((const int*)counts, nbins, (int*)offsets,
+                            (int*)tile_sums, s);
+  if (e != 0) return e;
   // Place and fold the bins range by range, each range's indices few
   // enough to stay in L2 while they are scattered and read back.
   const int ranges = cdiv(4LL * m, PLACE_BYTES);
@@ -468,6 +573,22 @@ int large_launch(void* flux, const void* order, const void* c, int sq,
           (const int*)offsets, nl, (const int*)large, (const int*)large_beg,
           (const long long*)order, (int*)idx, (long long*)key_a,
           (long long*)key_b, (int*)idx_b, (const T*)c, (T*)flux, sq);
+  return (int)cudaGetLastError();
+}
+
+int lane_order_launch(const void* elem, int n, int nbins, void* counts,
+                      void* offsets, void* tile_sums, void* perm,
+                      void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  order_count<<<cdiv(n, 256), 256, 0, s>>>((const int*)elem, n, (int*)counts);
+  PUMI_CHECK_LAUNCH();
+  const int e = scan_launch((const int*)counts, nbins, (int*)offsets,
+                            (int*)tile_sums, s);
+  if (e != 0) return e;
+  order_place<<<cdiv(n, 256), 256, 0, s>>>((const int*)elem, n,
+                                           (const int*)offsets, (int*)counts,
+                                           (int*)perm);
   return (int)cudaGetLastError();
 }
 
@@ -505,3 +626,14 @@ int large_launch(void* flux, const void* order, const void* c, int sq,
 
 PUMI_SCATTER_ENTRIES(f32, float)
 PUMI_SCATTER_ENTRIES(f64, double)
+
+// pumi_lane_order: perm [n] int32 gets the lanes 0..n-1 ordered by keys
+// [n] int32 (values in [0, nbins)), in any order within a key. The
+// caller allocates counts [nbins] int32 zeroed, offsets [nbins+1] int32
+// and tile_sums [ceil(nbins/4096)] int32.
+extern "C" int pumi_lane_order(const void* elem, int n, int nbins,
+                               void* counts, void* offsets, void* tile_sums,
+                               void* perm, void* stream) {
+  return lane_order_launch(elem, n, nbins, counts, offsets, tile_sums, perm,
+                           stream);
+}

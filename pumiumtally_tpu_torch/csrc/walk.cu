@@ -9,9 +9,33 @@
 //
 // Design, from what the walk computes rather than how the TPU kernel was
 // blocked:
-//  * One thread per lane. The whole crossing loop runs in the thread until
-//    the lane is done or has run max_crossings iterations. Threads retire
-//    on their own, so the TPU's straggler compaction has no counterpart.
+//  * Persistent threads that refill. A warp issues for as long as its
+//    longest lane runs: with one lane per thread, a thread whose lane is
+//    done idles until its whole warp is (26% of the lane slots did work at
+//    the main path's first move). So the grid holds only as many threads
+//    as stay resident on the card, each thread walks one lane at a time,
+//    and a thread whose lane is done (or has run max_crossings
+//    iterations) writes that lane's outputs and takes the next lane slot
+//    from a device counter in the same loop: the threads that need a lane
+//    take consecutive slots with one atomic. The warp meets in a ballot
+//    on every trip, so it stays converged, and leaves the loop together
+//    when none of its threads has a lane left. This is the
+//    GPU form of the JAX walk's straggler compaction (ops/walk.py
+//    first_k_active, compact_round); cf. Aila & Laine, "Understanding the
+//    Efficiency of Ray Traversal on GPUs" (HPG 2009). Every lane keeps its
+//    own iteration count, truncation and record keys, so results do not
+//    depend on which thread walks a lane or when. Each warp adds its loop
+//    trips to a counter, so a run can read the share of lane slots that
+//    did work.
+//  * Slot s walks lane perm[s] when a permutation is given: the wrapper
+//    orders a move's lanes by start element and the initial search's by
+//    destination cell (csrc/scatter.cu pumi_lane_order), so the lanes in
+//    flight walk a window of the element table (element ids run in raster
+//    order on the box) and share its rows in the caches. pack_kernel
+//    gathers the lanes' inputs into slot order first, and a warp takes
+//    its slots 32 at a time: the counter is read a batch ahead and the
+//    batch is copied to shared memory asynchronously (cp.async), so a
+//    thread takes its next lane without waiting on memory.
 //  * The geo20 row is one direct load: 5 x 16 B in float32 (80 B) or
 //    10 x 16 B in float64 (160 B). The 4 topology codes are read through an
 //    integer view of their bits. The TPU's one-hot MXU gather is dropped.
@@ -20,29 +44,33 @@
 //    (bin = elem*G + g, order = it*n + lane, c = seg*w) to device buffers
 //    through a slot counter, and the walk touches no flux; csrc/scatter.cu
 //    then folds every bin in (iteration, lane) order, the add order of the
-//    JAX walk (tally_peel), so the flux is bitwise reproducible. The
-//    warp's scoring lanes take their slots with one atomic (a coalesced
-//    group). The counter keeps counting past the capacity and records
-//    past it are dropped, so the wrapper can size the buffers to the count
-//    and run the walk again. Atomic: two atomicAdds per scored crossing,
-//    (c, c^2) into the flat flux at 2*(elem*G + g) and +1, in an order that
-//    differs from run to run.
+//    JAX walk (tally_peel), so the flux is bitwise reproducible whatever
+//    order the records arrive in. The warp's scoring lanes take their
+//    slots with one atomic (a coalesced group). The counter keeps counting
+//    past the capacity and records past it are dropped, so the wrapper can
+//    size the buffers to the count and run the walk again. Atomic: (c,
+//    c^2) added to the flat flux at 2*(elem*G + g), in float32 as one 8 B
+//    vector reduction, in an order that differs from run to run.
 //  * Per lane the kernel writes position, element, material code, done,
 //    scored track length, crossings, chase hops, segments and its
 //    iteration count. The wrapper (ops/walk_cuda.py) reduces these to the
 //    stats vector; the max of the iteration counts equals the JAX loop's
 //    iteration count, since every active lane advances once per iteration.
 //
-// What bounds it: every iteration of a lane does one dependent random
-// 80/160 B row read and, when it scores, one record (ordered) or two
-// atomics (atomic). At the 998,250-tet mesh the 80 MB float32 table does
-// not fit the 50 MB L2, so the kernel is bound by the latency of those
-// reads, not by their bytes. The bytes the
-// walk must move are far fewer: each row it needs once, each flux bin it
-// scores read and written once, and the lanes' inputs and outputs, over
-// 3.35 TB/s. Keeping rows close (shared memory, TMA prefetch of the next
-// row) and a warp-aggregated tally are later work.
+// What bounds it: every iteration of a lane does one random 80/160 B row
+// read that depends on the last and, when it scores, one record (ordered)
+// or one vector atomic (atomic), so the walk is bound by the latency of
+// those reads and by the row traffic of the lanes in flight, not by the
+// bytes it must move. At the 998,250-tet mesh the 80 MB float32 table
+// does not fit the 50 MB L2; the lane order keeps the rows of the lanes
+// in flight in a window of it. The bytes the walk must move are far
+// fewer: each row it needs once, each flux bin it scores read and
+// written once, and the lanes' inputs and outputs, over 3.35 TB/s. The
+// tail is the other loss: at the end, threads finish the lanes they hold
+// while their warps have no lane left to hand out. Keeping rows close
+// (shared memory, TMA prefetch of the next row) is later work.
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,299 +140,479 @@ struct Real<double> {
   }
 };
 
+constexpr int BLOCK = 128;
+constexpr int WARP = 32;
+// The three uint64 counters of a launch, zeroed by the caller.
+constexpr int REC_COUNT = 0;   // records made (ordered mode)
+constexpr int NEXT_SLOT = 1;   // lane slots taken
+constexpr int WARP_TRIPS = 2;  // loop trips summed over warps
+constexpr unsigned FULL = 0xffffffffu;
+
+// (c, c*c) into a flux pair, or c alone without squares. In float32 the
+// pair is one 8 B vector reduction (global memory, compute capability
+// 9.x); PTX has no vector add of float64, so there it is two.
+__device__ __forceinline__ void add_pair(float* f, float c, int sq) {
+  if (sq)
+    atomicAdd(reinterpret_cast<float2*>(f), make_float2(c, c * c));
+  else
+    atomicAdd(f, c);
+}
+
+__device__ __forceinline__ void add_pair(double* f, double c, int sq) {
+  atomicAdd(f, c);
+  if (sq) atomicAdd(f + 1, c * c);
+}
+
+// a[f] by selects, so the arrays stay in registers (an index known only at
+// run time would put them on the stack).
+__device__ __forceinline__ int pick4(const int (&a)[4], int f) {
+  return f == 0 ? a[0] : f == 1 ? a[1] : f == 2 ? a[2] : a[3];
+}
+
+// One lane's inputs, packed by pack_kernel in slot order, so a warp's
+// batch of 32 slots is one contiguous block it copies to shared memory.
+template <typename T>
+struct __align__(16) Lane {
+  T o[3], d[3], w;
+  int elem, group, index, fly;
+};
+static_assert(sizeof(Lane<float>) == 48, "float32 lane record");
+static_assert(sizeof(Lane<double>) == 80, "float64 lane record");
+
+// Slot s gets lane perm[s] (lane s without a permutation).
+template <typename T>
+__global__ void pack_kernel(const T* __restrict__ origin,
+                            const T* __restrict__ dest,
+                            const int* __restrict__ elem_in,
+                            const bool* __restrict__ fly_in,
+                            const T* __restrict__ weight,
+                            const int* __restrict__ group,
+                            const int* __restrict__ perm, int n,
+                            Lane<T>* __restrict__ lanes) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= n) return;
+  const int i = perm != nullptr ? perm[s] : s;
+  Lane<T> l;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    l.o[k] = origin[3 * i + k];
+    l.d[k] = dest[3 * i + k];
+  }
+  l.w = weight[i];
+  l.elem = elem_in[i];
+  l.group = group[i];
+  l.index = i;
+  l.fly = fly_in[i];
+  lanes[s] = l;
+}
+
+// Asynchronous copy of one lane record from device to shared memory.
+template <typename T>
+__device__ __forceinline__ void copy_lane(Lane<T>* dst, const Lane<T>* src) {
+#pragma unroll
+  for (int k = 0; k < (int)(sizeof(Lane<T>) / 16); ++k)
+    __pipeline_memcpy_async(reinterpret_cast<char*>(dst) + 16 * k,
+                            reinterpret_cast<const char*>(src) + 16 * k, 16);
+}
+
 template <typename T, bool ROBUST, bool INITIAL, bool ORDERED>
-__global__ void __launch_bounds__(128)
-walk_kernel(const T* __restrict__ geo, const T* __restrict__ origin,
-            const T* __restrict__ dest, const int* __restrict__ elem_in,
-            const bool* __restrict__ fly_in, const T* __restrict__ weight,
-            const int* __restrict__ group, int n, int n_groups,
-            int max_crossings, T tolerance, int score_squares,
-            T* __restrict__ flux, T* __restrict__ pos_out,
+__global__ void __launch_bounds__(BLOCK)
+walk_kernel(const T* __restrict__ geo, const Lane<T>* __restrict__ lanes,
+            int n, int n_groups, int max_crossings, T tolerance,
+            int score_squares, T* __restrict__ flux, T* __restrict__ pos_out,
             int* __restrict__ elem_out, int* __restrict__ mat_out,
             bool* __restrict__ done_out, T* __restrict__ pseg_out,
             int* __restrict__ ncross_out, int* __restrict__ nchase_out,
             int* __restrict__ nseg_out, int* __restrict__ iters_out,
             int* __restrict__ rec_bin, long long* __restrict__ rec_order,
-            T* __restrict__ rec_c, unsigned long long* __restrict__ rec_count,
+            T* __restrict__ rec_c, unsigned long long* __restrict__ counters,
             long long capacity) {
   typedef Real<T> R;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
   const T inf = (T)__int_as_float(0x7f800000);  // +inf
   const T tol_floor = (T)8 * R::eps;
   const T nudge_c = (T)32 * R::eps;  // 4 * tol_floor, as the JAX walk folds it
 
-  T cx = origin[3 * i], cy = origin[3 * i + 1], cz = origin[3 * i + 2];
-  const T ex = dest[3 * i], ey = dest[3 * i + 1], ez = dest[3 * i + 2];
-  int elem = elem_in[i];
-  bool done = !fly_in[i];
-  const T w = weight[i];
-  const int g = group[i];
-  const bool good_group = g >= 0 && g < n_groups;
-  int mat = -2, prev = -1, stuck = 0;
-  int ncross = 0, nchase = 0, nseg = 0;
-  T pseg = w * (T)0;
+  // The lane this thread walks (-1: none) and that lane's state.
+  const int lane = threadIdx.x & 31;
+  int i = -1;
+  T cx = 0, cy = 0, cz = 0, ex = 0, ey = 0, ez = 0, w = 0, pseg = 0;
+  int elem = 0, g = 0, mat = 0, prev = 0, stuck = 0;
+  int ncross = 0, nchase = 0, nseg = 0, it = 0;
+  bool done = true, good_group = false;
+  unsigned long long trips = 0;  // the warp's loop trips
 
-  int it = 0;
-  for (; it < max_crossings && !done; ++it) {
-    T r[20];
-    R::load_row(geo, elem, r);
-    int code[4], nbrs[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      code[f] = R::code(r[16 + f]);
-      nbrs[f] = (code[f] & 0xFFFFFF) - 1;
+  // Slots come to a warp in batches of 32 through a double buffer in
+  // shared memory: buf[cur] is handed out (qn slots, the next at qpos)
+  // while the next batch (nn slots) is copied in, and lane 0 holds the
+  // slot base of the batch after that (pend), taken from the counter a
+  // whole batch ahead. So a refill waits on no memory access.
+  __shared__ Lane<T> batches[BLOCK / WARP][2][WARP];
+  Lane<T>(*const buf)[WARP] = batches[threadIdx.x / WARP];
+  unsigned long long pend = 0;
+  int cur = 0, qn = 0, qpos = 0, nn = 0;
+  bool dry = false;  // the counter has passed n (the same in the warp)
+  auto fetch = [&](int b) {
+    nn = 0;
+    if (!dry) {
+      const long long base = (long long)__shfl_sync(FULL, pend, 0);
+      const long long left = (long long)n - base;
+      nn = left <= 0 ? 0 : left < WARP ? (int)left : WARP;
+      dry = nn < WARP;
+      if (lane < nn) copy_lane(&buf[b][lane], lanes + base + lane);
+      if (lane == 0 && !dry)
+        pend = atomicAdd(counters + NEXT_SLOT, (unsigned long long)WARP);
     }
-    const T ux = ex - cx, uy = ey - cy, uz = ez - cz;
+    __pipeline_commit();
+  };
+  if (lane == 0)
+    pend = atomicAdd(counters + NEXT_SLOT, (unsigned long long)WARP);
+  fetch(0);
+  qn = nn;
+  fetch(1);
+  __pipeline_wait_prior(1);
+  __syncwarp();
 
-    // exit_face: least plane parameter among faces the ray heads out of.
-    T num[4], t_all[4];
-#pragma unroll
-    for (int f = 0; f < 4; ++f) {
-      const T n0 = r[3 * f], n1 = r[3 * f + 1], n2 = r[3 * f + 2];
-      const T denom = (n0 * ux + n1 * uy) + n2 * uz;
-      num[f] = r[12 + f] - ((n0 * cx + n1 * cy) + n2 * cz);
-      T t = denom > (T)0 ? R::div_(num[f], denom) : inf;
-      t_all[f] = t < (T)0 ? (T)0 : t;
+  for (;;) {
+    // Refill: every thread without a lane takes the next slot of the
+    // batch. The whole warp meets in these collectives on every trip, so
+    // it stays converged; it leaves the loop together.
+    unsigned want = __ballot_sync(FULL, i < 0);
+    while (want) {
+      if (qpos == qn) {
+        if (nn == 0) break;  // no slot left
+        __pipeline_wait_prior(0);
+        __syncwarp();
+        cur ^= 1;
+        qn = nn;
+        qpos = 0;
+        fetch(cur ^ 1);
+      }
+      const int rank = __popc(want & ((1u << lane) - 1u));
+      const bool take = ((want >> lane) & 1u) && qpos + rank < qn;
+      if (take) {
+        const Lane<T>& l = buf[cur][qpos + rank];
+        i = l.index;
+        cx = l.o[0];
+        cy = l.o[1];
+        cz = l.o[2];
+        ex = l.d[0];
+        ey = l.d[1];
+        ez = l.d[2];
+        w = l.w;
+        elem = l.elem;
+        g = l.group;
+        done = !l.fly;
+        good_group = g >= 0 && g < n_groups;
+        mat = -2;
+        prev = -1;
+        stuck = 0;
+        ncross = nchase = nseg = 0;
+        pseg = w * (T)0;
+        it = 0;
+      }
+      const unsigned took = __ballot_sync(FULL, take);
+      qpos += __popc(took);
+      want &= ~took;
     }
-    T t_exit = ROBUST && prev >= 0 && nbrs[0] == prev ? inf : t_all[0];
-    int face = 0;
-#pragma unroll
-    for (int f = 1; f < 4; ++f) {
-      const T t = ROBUST && prev >= 0 && nbrs[f] == prev ? inf : t_all[f];
-      if (t < t_exit) {
-        t_exit = t;
-        face = f;
-      }
-    }
-    bool has_exit = isfinite(t_exit);
-    bool chase = false, contained = true;
-    if (ROBUST) {
-      // The entry-face mask must not strand a lane that had an exit.
-      T t0 = t_all[0];
-      int f0 = 0;
-#pragma unroll
-      for (int f = 1; f < 4; ++f) {
-        if (t_all[f] < t0) {
-          t0 = t_all[f];
-          f0 = f;
-        }
-      }
-      if (!has_exit && isfinite(t0)) {
-        t_exit = t0;
-        face = f0;
-        has_exit = true;
-      }
-      // Relocation chase: a lane stuck for 4 zero-progress crossings in an
-      // element that does not contain it hops toward the point.
-      T sd[4];
-      T sdmax = -num[0];
+    if (!__any_sync(FULL, i >= 0)) break;
+    ++trips;
+    if (i >= 0 && !done && it < max_crossings) {
+      T r[20];
+      R::load_row(geo, elem, r);
+      int code[4], nbrs[4];
 #pragma unroll
       for (int f = 0; f < 4; ++f) {
-        sd[f] = -num[f];
-        if (f > 0 && sd[f] > sdmax) sdmax = sd[f];
+        code[f] = R::code(r[16 + f]);
+        nbrs[f] = (code[f] & 0xFFFFFF) - 1;
       }
-      contained = sdmax <= (T)0;
-      chase = stuck >= 4 && !contained;
-      if (chase) {
-        // Unsigned arithmetic: the hash relies on 32-bit wraparound.
-        const uint32_t h = (uint32_t)elem * 2654435769u + (uint32_t)it * 40503u;
-        const bool any_interior =
-            nbrs[0] >= 0 || nbrs[1] >= 0 || nbrs[2] >= 0 || nbrs[3] >= 0;
-        T best = -R::big;
-        int cf = 0;
+      const T ux = ex - cx, uy = ey - cy, uz = ez - cz;
+
+      // exit_face: least plane parameter among faces the ray heads out of.
+      T num[4], t_all[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const T n0 = r[3 * f], n1 = r[3 * f + 1], n2 = r[3 * f + 2];
+        const T denom = (n0 * ux + n1 * uy) + n2 * uz;
+        num[f] = r[12 + f] - ((n0 * cx + n1 * cy) + n2 * cz);
+        T t = denom > (T)0 ? R::div_(num[f], denom) : inf;
+        t_all[f] = t < (T)0 ? (T)0 : t;
+      }
+      T t_exit = ROBUST && prev >= 0 && nbrs[0] == prev ? inf : t_all[0];
+      int face = 0;
+#pragma unroll
+      for (int f = 1; f < 4; ++f) {
+        const T t = ROBUST && prev >= 0 && nbrs[f] == prev ? inf : t_all[f];
+        if (t < t_exit) {
+          t_exit = t;
+          face = f;
+        }
+      }
+      bool has_exit = isfinite(t_exit);
+      bool chase = false, contained = true;
+      if (ROBUST) {
+        // The entry-face mask must not strand a lane that had an exit.
+        T t0 = t_all[0];
+        int f0 = 0;
+#pragma unroll
+        for (int f = 1; f < 4; ++f) {
+          if (t_all[f] < t0) {
+            t0 = t_all[f];
+            f0 = f;
+          }
+        }
+        if (!has_exit && isfinite(t0)) {
+          t_exit = t0;
+          face = f0;
+          has_exit = true;
+        }
+        // Relocation chase: a lane stuck for 4 zero-progress crossings in
+        // an element that does not contain it hops toward the point.
+        T sd[4];
+        T sdmax = -num[0];
 #pragma unroll
         for (int f = 0; f < 4; ++f) {
-          const T wf = (T)1 + (T)((h >> (2 * f)) & 3u) * (T)0.125;
-          const T s = (nbrs[f] >= 0 || !any_interior) ? sd[f] * wf : -R::big;
-          if (f == 0 || s > best) {
-            best = s;
-            cf = f;
-          }
+          sd[f] = -num[f];
+          if (f > 0 && sd[f] > sdmax) sdmax = sd[f];
         }
-        face = cf;
-        t_exit = (T)0;
-        has_exit = true;
-      }
-    }
-
-    const T dn = R::sqrt_((ux * ux + uy * uy) + uz * uz);
-    const T dn_safe = dn > (T)0 ? dn : (T)1;
-    T tol_eff = R::div_(tolerance, dn_safe);
-    tol_eff = tol_eff < tol_floor ? tol_floor : tol_eff;
-    const bool reached = t_exit >= (T)1 - tol_eff || !has_exit;
-    const T t_step = t_exit < (T)1 ? t_exit : (T)1;
-    const T xx = cx + t_step * ux, xy = cy + t_step * uy, xz = cz + t_step * uz;
-
-    const bool crossed = !reached && has_exit;
-    ncross += crossed && !chase;
-    nchase += chase;
-    const int code_f = code[face];
-    const int next_elem = crossed ? nbrs[face] : -1;
-
-    if (!INITIAL && !chase) {
-      const T seg = t_step * dn;
-      if (good_group) {
-        const T c = seg * w;
-        if (ORDERED) {
-          const cg::coalesced_group scoring = cg::coalesced_threads();
-          unsigned long long base = 0;
-          if (scoring.thread_rank() == 0)
-            base = atomicAdd(rec_count, (unsigned long long)scoring.size());
-          const unsigned long long slot =
-              scoring.shfl(base, 0) + scoring.thread_rank();
-          if (slot < (unsigned long long)capacity) {
-            rec_bin[slot] = elem * n_groups + g;
-            rec_order[slot] = (long long)it * n + i;
-            rec_c[slot] = c;
+        contained = sdmax <= (T)0;
+        chase = stuck >= 4 && !contained;
+        if (chase) {
+          // Unsigned arithmetic: the hash relies on 32-bit wraparound.
+          const uint32_t h =
+              (uint32_t)elem * 2654435769u + (uint32_t)it * 40503u;
+          const bool any_interior =
+              nbrs[0] >= 0 || nbrs[1] >= 0 || nbrs[2] >= 0 || nbrs[3] >= 0;
+          T best = -R::big;
+          int cf = 0;
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const T wf = (T)1 + (T)((h >> (2 * f)) & 3u) * (T)0.125;
+            const T s =
+                (nbrs[f] >= 0 || !any_interior) ? sd[f] * wf : -R::big;
+            if (f == 0 || s > best) {
+              best = s;
+              cf = f;
+            }
           }
-        } else {
-          T* bin = flux + 2 * ((long long)elem * n_groups + g);
-          atomicAdd(bin, c);
-          if (score_squares) atomicAdd(bin + 1, c * c);
+          face = cf;
+          t_exit = (T)0;
+          has_exit = true;
         }
       }
-      nseg += 1;
-      pseg = pseg + seg;
-    }
 
-    const bool domain_exit = crossed && next_elem == -1;
-    bool material_stop = false;
-    if (!INITIAL) material_stop = crossed && ((code_f >> 30) & 1) && !chase;
-    const bool newly_done = reached || domain_exit || material_stop;
-    if (!INITIAL) {
-      if (material_stop)
-        mat = (code_f >> 24) & 0x3F;
-      else if (reached || domain_exit)
-        mat = -1;
-    }
+      const T dn = R::sqrt_((ux * ux + uy * uy) + uz * uz);
+      const T dn_safe = dn > (T)0 ? dn : (T)1;
+      T tol_eff = R::div_(tolerance, dn_safe);
+      tol_eff = tol_eff < tol_floor ? tol_floor : tol_eff;
+      const bool reached = t_exit >= (T)1 - tol_eff || !has_exit;
+      const T t_step = t_exit < (T)1 ? t_exit : (T)1;
+      const T xx = cx + t_step * ux, xy = cy + t_step * uy,
+              xz = cz + t_step * uz;
 
-    const bool hopped = crossed && next_elem != -1;
-    if (ROBUST && hopped) prev = chase ? -1 : elem;
-    if (hopped) elem = next_elem;
-    cx = xx;
-    cy = xy;
-    cz = xz;
-    if (ROBUST) {
-      // Escalated bump: guaranteed forward progress per crossing.
-      const bool continuing = crossed && !newly_done;
-      const T ax = fabs(cx), ay = fabs(cy), az = fabs(cz);
-      T amax = ax;
-      if (ay > amax) amax = ay;
-      if (az > amax) amax = az;
-      const T scale1 = (T)1 + amax;
-      const T nudge0 = R::div_(nudge_c * scale1, dn_safe);
-      const T cap = tol_eff > nudge0 ? tol_eff : nudge0;
-      T nudge_t = nudge0 * R::exp2i(stuck);
-      nudge_t = nudge_t < cap ? nudge_t : cap;
-      const bool zero_step = continuing && t_step < nudge0 && !contained;
-      stuck = zero_step ? (stuck + 1 < 48 ? stuck + 1 : 48)
-                        : (continuing ? 0 : stuck);
-      T extra = nudge_t - t_step;
-      extra = extra > (T)0 ? extra : (T)0;
-      if (continuing) {
-        cx = cx + extra * ux;
-        cy = cy + extra * uy;
-        cz = cz + extra * uz;
+      const bool crossed = !reached && has_exit;
+      ncross += crossed && !chase;
+      nchase += chase;
+      const int code_f = pick4(code, face);
+      const int next_elem = crossed ? pick4(nbrs, face) : -1;
+
+      if (!INITIAL && !chase) {
+        const T seg = t_step * dn;
+        if (good_group) {
+          const T c = seg * w;
+          if (ORDERED) {
+            const cg::coalesced_group scoring = cg::coalesced_threads();
+            unsigned long long base = 0;
+            if (scoring.thread_rank() == 0)
+              base = atomicAdd(counters + REC_COUNT,
+                               (unsigned long long)scoring.size());
+            const unsigned long long slot =
+                scoring.shfl(base, 0) + scoring.thread_rank();
+            if (slot < (unsigned long long)capacity) {
+              rec_bin[slot] = elem * n_groups + g;
+              rec_order[slot] = (long long)it * n + i;
+              rec_c[slot] = c;
+            }
+          } else {
+            add_pair(flux + 2 * ((long long)elem * n_groups + g), c,
+                     score_squares);
+          }
+        }
+        nseg += 1;
+        pseg = pseg + seg;
       }
+
+      const bool domain_exit = crossed && next_elem == -1;
+      bool material_stop = false;
+      if (!INITIAL)
+        material_stop = crossed && ((code_f >> 30) & 1) && !chase;
+      const bool newly_done = reached || domain_exit || material_stop;
+      if (!INITIAL) {
+        if (material_stop)
+          mat = (code_f >> 24) & 0x3F;
+        else if (reached || domain_exit)
+          mat = -1;
+      }
+
+      const bool hopped = crossed && next_elem != -1;
+      if (ROBUST && hopped) prev = chase ? -1 : elem;
+      if (hopped) elem = next_elem;
+      cx = xx;
+      cy = xy;
+      cz = xz;
+      if (ROBUST) {
+        // Escalated bump: guaranteed forward progress per crossing.
+        const bool continuing = crossed && !newly_done;
+        const T ax = fabs(cx), ay = fabs(cy), az = fabs(cz);
+        T amax = ax;
+        if (ay > amax) amax = ay;
+        if (az > amax) amax = az;
+        const T scale1 = (T)1 + amax;
+        const T nudge0 = R::div_(nudge_c * scale1, dn_safe);
+        const T cap = tol_eff > nudge0 ? tol_eff : nudge0;
+        T nudge_t = nudge0 * R::exp2i(stuck);
+        nudge_t = nudge_t < cap ? nudge_t : cap;
+        const bool zero_step = continuing && t_step < nudge0 && !contained;
+        stuck = zero_step ? (stuck + 1 < 48 ? stuck + 1 : 48)
+                          : (continuing ? 0 : stuck);
+        T extra = nudge_t - t_step;
+        extra = extra > (T)0 ? extra : (T)0;
+        if (continuing) {
+          cx = cx + extra * ux;
+          cy = cy + extra * uy;
+          cz = cz + extra * uz;
+        }
+      }
+      done = newly_done;
+      ++it;
     }
-    done = newly_done;
+    if (i >= 0 && (done || it >= max_crossings)) {
+      pos_out[3 * i] = cx;
+      pos_out[3 * i + 1] = cy;
+      pos_out[3 * i + 2] = cz;
+      elem_out[i] = elem;
+      mat_out[i] = mat;
+      done_out[i] = done;
+      pseg_out[i] = pseg;
+      ncross_out[i] = ncross;
+      nchase_out[i] = nchase;
+      nseg_out[i] = nseg;
+      iters_out[i] = it;
+      i = -1;
+    }
   }
-
-  pos_out[3 * i] = cx;
-  pos_out[3 * i + 1] = cy;
-  pos_out[3 * i + 2] = cz;
-  elem_out[i] = elem;
-  mat_out[i] = mat;
-  done_out[i] = done;
-  pseg_out[i] = pseg;
-  ncross_out[i] = ncross;
-  nchase_out[i] = nchase;
-  nseg_out[i] = nseg;
-  iters_out[i] = it;
+  __pipeline_wait_prior(0);
+  if (lane == 0) atomicAdd(counters + WARP_TRIPS, trips);
 }
 
-template <typename T, bool ROBUST, bool INITIAL, bool ORDERED>
-int launch(const void* geo, const void* origin, const void* dest,
-           const void* elem_in, const void* fly_in, const void* weight,
-           const void* group, int n, int n_groups, int max_crossings,
-           double tolerance, int score_squares, void* flux, void* pos_out,
-           void* elem_out, void* mat_out, void* done_out, void* pseg_out,
-           void* ncross_out, void* nchase_out, void* nseg_out,
-           void* iters_out, void* rec_bin, void* rec_order, void* rec_c,
-           void* rec_count, long long capacity, void* stream) {
-  const int block = 128;
-  const int grid = (n + block - 1) / block;
-  walk_kernel<T, ROBUST, INITIAL, ORDERED>
-      <<<grid, block, 0, (cudaStream_t)stream>>>(
-          (const T*)geo, (const T*)origin, (const T*)dest,
-          (const int*)elem_in, (const bool*)fly_in, (const T*)weight,
-          (const int*)group, n, n_groups, max_crossings, (T)tolerance,
-          score_squares, (T*)flux, (T*)pos_out, (int*)elem_out,
-          (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
-          (int*)nchase_out, (int*)nseg_out, (int*)iters_out, (int*)rec_bin,
-          (long long*)rec_order, (T*)rec_c, (unsigned long long*)rec_count,
-          capacity);
-  return (int)cudaGetLastError();
+// Calls f with the kernel instantiation for the flags. The initial
+// search scores nothing, so it has no ordered instantiation.
+template <typename T, typename F>
+int with_kernel(int robust, int initial, int ordered, F f) {
+  if (initial)
+    return robust ? f(walk_kernel<T, true, true, false>)
+                  : f(walk_kernel<T, false, true, false>);
+  if (ordered)
+    return robust ? f(walk_kernel<T, true, false, true>)
+                  : f(walk_kernel<T, false, false, true>);
+  return robust ? f(walk_kernel<T, true, false, false>)
+                : f(walk_kernel<T, false, false, false>);
 }
 
-// The initial search scores nothing, so it has no ordered instantiation.
+// Blocks for n lanes: as many as stay resident on the card at once (the
+// threads refill), fewer when n needs fewer.
+template <typename K>
+int grid_for(K kernel, long long n, int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK,
+                                                      0);
+  const long long resident = (long long)per_sm * sms;
+  const long long need = (n + BLOCK - 1) / BLOCK;
+  *grid = (int)(need < resident ? need : resident);
+  return (int)e;
+}
+
 template <typename T>
-int dispatch(int robust, int initial, int ordered, const void* geo,
-             const void* origin, const void* dest, const void* elem_in,
-             const void* fly_in, const void* weight, const void* group, int n,
-             int n_groups, int max_crossings, double tolerance,
-             int score_squares, void* flux, void* pos_out, void* elem_out,
-             void* mat_out, void* done_out, void* pseg_out, void* ncross_out,
-             void* nchase_out, void* nseg_out, void* iters_out, void* rec_bin,
-             void* rec_order, void* rec_c, void* rec_count,
-             long long capacity, void* stream) {
+int walk(int robust, int initial, int ordered, const void* geo,
+         const void* origin, const void* dest, const void* elem_in,
+         const void* fly_in, const void* weight, const void* group,
+         const void* perm, void* lanes, int n, int n_groups,
+         int max_crossings, double tolerance, int score_squares, void* flux,
+         void* pos_out, void* elem_out, void* mat_out, void* done_out,
+         void* pseg_out, void* ncross_out, void* nchase_out, void* nseg_out,
+         void* iters_out, void* rec_bin, void* rec_order, void* rec_c,
+         void* counters, long long capacity, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-#define PUMI_WALK_LAUNCH(R, I, O)                                              \
-  return launch<T, R, I, O>(geo, origin, dest, elem_in, fly_in, weight, group, \
-                            n, n_groups, max_crossings, tolerance,             \
-                            score_squares, flux, pos_out, elem_out, mat_out,   \
-                            done_out, pseg_out, ncross_out, nchase_out,        \
-                            nseg_out, iters_out, rec_bin, rec_order, rec_c,    \
-                            rec_count, capacity, stream)
-  if (initial) {
-    if (robust) PUMI_WALK_LAUNCH(true, true, false);
-    PUMI_WALK_LAUNCH(false, true, false);
-  }
-  if (ordered) {
-    if (robust) PUMI_WALK_LAUNCH(true, false, true);
-    PUMI_WALK_LAUNCH(false, false, true);
-  }
-  if (robust) PUMI_WALK_LAUNCH(true, false, false);
-  PUMI_WALK_LAUNCH(false, false, false);
-#undef PUMI_WALK_LAUNCH
+  const cudaStream_t s = (cudaStream_t)stream;
+  pack_kernel<T><<<(n + 255) / 256, 256, 0, s>>>(
+      (const T*)origin, (const T*)dest, (const int*)elem_in,
+      (const bool*)fly_in, (const T*)weight, (const int*)group,
+      (const int*)perm, n, (Lane<T>*)lanes);
+  const cudaError_t packed = cudaGetLastError();
+  if (packed != cudaSuccess) return (int)packed;
+  return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
+    int grid = 0;
+    const int e = grid_for(kernel, n, &grid);
+    if (e != 0) return e;
+    kernel<<<grid, BLOCK, 0, s>>>(
+        (const T*)geo, (const Lane<T>*)lanes, n, n_groups, max_crossings,
+        (T)tolerance, score_squares, (T*)flux, (T*)pos_out, (int*)elem_out,
+        (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
+        (int*)nchase_out, (int*)nseg_out, (int*)iters_out, (int*)rec_bin,
+        (long long*)rec_order, (T*)rec_c, (unsigned long long*)counters,
+        capacity);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int resident(int robust, int initial, int ordered, int* threads) {
+  return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
+    int grid = 0;
+    const int e = grid_for(kernel, 1LL << 40, &grid);
+    *threads = grid * BLOCK;
+    return e;
+  });
 }
 
 }  // namespace
 
-// C entry points pumi_walk_f32 and pumi_walk_f64. Every pointer and the
-// stream are passed as void*; the return value is the cudaError_t of the
-// launch. In ordered mode (initial == 0) the records go to rec_bin [cap]
-// int32, rec_order [cap] int64 and rec_c [cap] of the walk's type, and
-// rec_count (one uint64, zeroed by the caller) ends at the number of
-// records the walk made, which may exceed cap; flux is not touched.
-#define PUMI_WALK_ENTRY(NAME, T)                                               \
-  extern "C" int NAME(                                                         \
+// C entry points. pumi_walk_<t> launches one walk; every pointer and the
+// stream are passed as void*, and the return value is the cudaError_t of
+// the launches. perm is null (slot s walks lane s) or a permutation of the
+// n lanes; lanes is scratch for n lane records (48 B each in float32, 80 B
+// in float64, 16 B aligned) that pack_kernel fills in slot order before
+// the walk. counters is three uint64 zeroed by the caller: records made,
+// lane slots taken, warp loop trips. In ordered mode (initial == 0) the
+// records go to rec_bin [cap] int32, rec_order [cap] int64 and rec_c [cap]
+// of the walk's type, and the record count may end above cap; flux is not
+// touched. pumi_walk_resident_<t> gives the threads a launch of that
+// instantiation keeps resident on the current device.
+#define PUMI_WALK_ENTRY(TAG, T)                                                \
+  extern "C" int pumi_walk_##TAG(                                              \
       int robust, int initial, int ordered, const void* geo,                   \
       const void* origin, const void* dest, const void* elem_in,               \
-      const void* fly_in, const void* weight, const void* group, int n,        \
-      int n_groups, int max_crossings, double tolerance, int score_squares,    \
-      void* flux, void* pos_out, void* elem_out, void* mat_out,                \
-      void* done_out, void* pseg_out, void* ncross_out, void* nchase_out,      \
-      void* nseg_out, void* iters_out, void* rec_bin, void* rec_order,         \
-      void* rec_c, void* rec_count, long long capacity, void* stream) {        \
-    return dispatch<T>(robust, initial, ordered, geo, origin, dest, elem_in,   \
-                       fly_in, weight, group, n, n_groups, max_crossings,      \
-                       tolerance, score_squares, flux, pos_out, elem_out,      \
-                       mat_out, done_out, pseg_out, ncross_out, nchase_out,    \
-                       nseg_out, iters_out, rec_bin, rec_order, rec_c,         \
-                       rec_count, capacity, stream);                           \
+      const void* fly_in, const void* weight, const void* group,               \
+      const void* perm, void* lanes, int n, int n_groups, int max_crossings,   \
+      double tolerance, int score_squares, void* flux, void* pos_out,          \
+      void* elem_out, void* mat_out, void* done_out, void* pseg_out,           \
+      void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,     \
+      void* rec_bin, void* rec_order, void* rec_c, void* counters,             \
+      long long capacity, void* stream) {                                      \
+    return walk<T>(robust, initial, ordered, geo, origin, dest, elem_in,       \
+                   fly_in, weight, group, perm, lanes, n, n_groups,            \
+                   max_crossings, tolerance, score_squares, flux, pos_out,     \
+                   elem_out, mat_out, done_out, pseg_out, ncross_out,          \
+                   nchase_out, nseg_out, iters_out, rec_bin, rec_order, rec_c, \
+                   counters, capacity, stream);                                \
+  }                                                                            \
+  extern "C" int pumi_walk_resident_##TAG(int robust, int initial,             \
+                                          int ordered, int* threads) {         \
+    return resident<T>(robust, initial, ordered, threads);                     \
   }
 
-PUMI_WALK_ENTRY(pumi_walk_f32, float)
-PUMI_WALK_ENTRY(pumi_walk_f64, double)
+PUMI_WALK_ENTRY(f32, float)
+PUMI_WALK_ENTRY(f64, double)

@@ -11,6 +11,7 @@ outside face f of tet e when ``dot(n[e, f], x) > d[e, f]``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -82,6 +83,15 @@ class TetMesh:
     @property
     def device(self) -> torch.device:
         return self.coords.device
+
+    @functools.cached_property
+    def bounds(self) -> tuple[list[float], list[float]]:
+        """(lower corner, extent) of the vertices' bounding box as host
+        floats, read from the device once per mesh."""
+        lo = self.coords.amin(dim=0)
+        ext = self.coords.amax(dim=0) - lo
+        lo_h, ext_h = torch.stack([lo, ext]).double().cpu().tolist()
+        return lo_h, ext_h
 
     def centroids(self) -> torch.Tensor:
         """Element centroids, summed in vertex order in the mesh dtype."""

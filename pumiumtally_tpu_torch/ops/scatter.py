@@ -16,12 +16,19 @@ key; the walk uses ``iteration · n_lanes + lane``, so a bin's adds land in
 * ``scatter_ordered`` / ``scatter_ordered_plain``: each bin gets its adds
   in ascending ``order`` (ties in record order), bitwise, on any device
   (K3 ``peeled`` and the walk's tally).
+* ``lane_order`` / ``lane_order_plain``: the permutation that orders a
+  walk's lanes by an int32 key (their start elements, or in the initial
+  search their destination cells): the order in which the walk kernel's
+  threads take them (the ordered scatter's count, scan and place passes
+  with keys for bins). Only the permutation's key order is its contract:
+  within a key the kernel's order is the device's.
 
 The ``*_plain`` functions are the PyTorch versions. The wrappers take them
 for CPU tensors only; for CUDA tensors they launch the hand-written
 kernels of ``csrc/scatter.cu`` (built at first use) or raise.
-``ATOMIC_LAUNCHES`` and ``ORDERED_LAUNCHES`` count the wrappers' kernel
-launches (one per call that reaches the card), and nothing else.
+``ATOMIC_LAUNCHES``, ``ORDERED_LAUNCHES`` and ``ORDER_LAUNCHES`` count
+the wrappers' kernel launches (one per call that reaches the card), and
+nothing else.
 """
 from __future__ import annotations
 
@@ -33,6 +40,7 @@ from . import _build
 
 ATOMIC_LAUNCHES = 0
 ORDERED_LAUNCHES = 0
+ORDER_LAUNCHES = 0
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 _INT32_MAX = 2**31 - 1
@@ -49,6 +57,12 @@ def scatter_atomic_plain(flux, bin, c, score_squares: bool = True):
     if score_squares:
         flux2[:, 1].index_add_(0, bin, c * c)
     return flux
+
+
+def lane_order_plain(keys):
+    """The lanes ordered by key: ``argsort(keys, stable=True)``, as
+    int32."""
+    return torch.argsort(keys, stable=True).to(torch.int32)
 
 
 def _ordered_ranks(bin, order):
@@ -144,6 +158,26 @@ def scatter_ordered(flux, bin, order, c, score_squares: bool = True):
     return ordered_cuda(flux, bin, order, c, score_squares, nbins)
 
 
+def lane_order(keys, nbins: int):
+    """The permutation of the lanes ``0..n-1`` that orders ``keys`` (int32,
+    values in ``[0, nbins)``): ``lane_order_plain`` for a CPU tensor, the
+    kernel for a CUDA tensor (int32, in any order within a key)."""
+    if keys.dtype != torch.int32 or keys.dim() != 1:
+        raise TypeError(f"keys must be a 1-D int32 tensor, got {keys.dtype}")
+    if keys.device.type == "cpu":
+        return lane_order_plain(keys)
+    if keys.device.type != "cuda":
+        raise ValueError(f"the lane order runs on 'cuda' or 'cpu', not "
+                         f"{keys.device}")
+    if not 0 < nbins < _INT32_MAX or keys.numel() > _INT32_MAX:
+        raise ValueError("lanes and keys must each fit int32")
+    if keys.numel():
+        lo, hi = torch.aminmax(keys)
+        if int(lo) < 0 or int(hi) >= nbins:
+            raise IndexError(f"keys must lie in [0, {nbins})")
+    return lane_order_cuda(keys.contiguous(), nbins)
+
+
 def _entry(name: str, dtype=None):
     lib = _build.load("scatter")
     fn = getattr(lib, name if dtype is None else f"{name}_{_DTYPE_TAG[dtype]}")
@@ -157,11 +191,14 @@ def _stream(dev) -> int:
 
 def atomic_cuda(flux, bin, c, score_squares):
     """Launch the atomic scatter of ``csrc/scatter.cu`` on checked
-    records."""
+    records: 4 records a thread, each float32 (c, c²) pair one vector
+    add."""
     global ATOMIC_LAUNCHES
     m = bin.numel()
     if m == 0:
         return flux
+    if flux.data_ptr() % 8:
+        raise ValueError("flux must be 8-byte aligned for the pair adds")
     fn = _entry("pumi_scatter_atomic", flux.dtype)
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     with torch.cuda.device(flux.device):
@@ -171,6 +208,33 @@ def atomic_cuda(flux, bin, c, score_squares):
         raise RuntimeError(f"scatter_atomic launch failed with cudaError_t {err}")
     ATOMIC_LAUNCHES += 1
     return flux
+
+
+def lane_order_cuda(keys, nbins: int):
+    """Launch the lane order of ``csrc/scatter.cu`` on keys that were
+    checked (or that the walk makes): count the lanes per key, scan, place
+    each lane's index."""
+    global ORDER_LAUNCHES
+    n = keys.numel()
+    dev = keys.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return perm
+    i32 = dict(dtype=torch.int32, device=dev)
+    counts = torch.zeros(nbins, **i32)
+    offsets = torch.empty(nbins + 1, **i32)
+    tile_sums = torch.empty((nbins + 4095) // 4096, **i32)
+    fn = _entry("pumi_lane_order")
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p] * 5
+    with torch.cuda.device(dev):
+        err = fn(keys.data_ptr(), n, nbins, counts.data_ptr(),
+                 offsets.data_ptr(), tile_sums.data_ptr(), perm.data_ptr(),
+                 _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"lane_order launch failed with cudaError_t {err}")
+    ORDER_LAUNCHES += 1
+    return perm
 
 
 def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):

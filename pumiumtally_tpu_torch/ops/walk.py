@@ -23,7 +23,10 @@ on the CPU, so the flux is reproducible bit for bit.
 
 Straggler compaction, loop unrolling and the scatter/gather strategy knobs
 of the JAX walk only schedule the same arithmetic; they have no
-counterpart here.
+counterpart here. The kernel schedules lanes its own way (each thread
+walks lane after lane, in element order); ``trace_records`` walks any
+subset of a move's lanes into records keyed by each lane's own index, so
+a schedule's result can be checked against the one-shot walk.
 """
 from __future__ import annotations
 
@@ -101,6 +104,16 @@ def walk_stats_vector(ncross_l, nchase_l, done, nseg, it) -> torch.Tensor:
         torch.as_tensor(nseg, dtype=i64, device=done.device),
         torch.as_tensor(it, dtype=i64, device=done.device),
     ])
+
+
+@dataclasses.dataclass
+class Records:
+    """The scored crossings of one walk: ``c = seg·w`` goes to bin
+    ``elem·G + g`` with key ``order = iteration·n + lane``."""
+
+    bin: torch.Tensor    # [m] int32
+    order: torch.Tensor  # [m] int64
+    c: torch.Tensor      # [m], the walk's dtype
 
 
 @dataclasses.dataclass
@@ -224,6 +237,74 @@ def trace(
     """
     check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
                     material_id, flux, n_groups)
+    n = origin.shape[0]
+    lane = torch.arange(n, device=origin.device)
+
+    def score(it, hit, bins, c):
+        scatter_ordered_plain(flux, bins, it * n + lane[hit], c,
+                              score_squares)
+
+    return _walk(mesh, origin, dest, elem, in_flight, weight, group,
+                 material_id, flux, score, initial=initial,
+                 max_crossings=max_crossings, n_groups=n_groups,
+                 tolerance=tolerance, robust=robust, ledger=ledger,
+                 stats=stats)
+
+
+def trace_records(
+    mesh,
+    origin,
+    dest,
+    elem,
+    in_flight,
+    weight,
+    group,
+    material_id,
+    flux,
+    *,
+    lane_ids: torch.Tensor,
+    n_keys: int,
+    max_crossings: int,
+    n_groups: int,
+    tolerance: float = 1e-8,
+    robust: bool = True,
+    ledger: bool = True,
+    stats: bool = True,
+):
+    """The move of ``trace`` (``initial=False``) for some of a move's
+    lanes, scoring into records instead of the flux: returns the
+    TraceResult (its flux left as it was) and the Records, keyed
+    ``iteration · n_keys + lane_ids[k]`` for the walk's lane k.
+    ``scatter_ordered_plain`` of the records of every lane of a move,
+    walked in any chunks and order, gives the flux of ``trace``, bitwise."""
+    check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
+                    material_id, flux, n_groups)
+    if tuple(lane_ids.shape) != (origin.shape[0],):
+        raise ValueError("lane_ids must hold one index per lane")
+    lane_ids = lane_ids.to(origin.device, torch.int64)
+    parts = []
+
+    def score(it, hit, bins, c):
+        parts.append((bins.to(torch.int32), it * n_keys + lane_ids[hit], c))
+
+    r = _walk(mesh, origin, dest, elem, in_flight, weight, group,
+              material_id, flux, score, initial=False,
+              max_crossings=max_crossings, n_groups=n_groups,
+              tolerance=tolerance, robust=robust, ledger=ledger, stats=stats)
+    if not parts:
+        dev = origin.device
+        parts.append((torch.zeros(0, dtype=torch.int32, device=dev),
+                      torch.zeros(0, dtype=torch.int64, device=dev),
+                      torch.zeros(0, dtype=origin.dtype, device=dev)))
+    return r, Records(*(torch.cat(col) for col in zip(*parts)))
+
+
+def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
+          flux, score, *, initial, max_crossings, n_groups, tolerance,
+          robust, ledger, stats) -> TraceResult:
+    """The loop of ``trace``: ``score(it, hit, bins, c)`` takes each
+    iteration's scored crossings (the lanes ``hit``, their int64 bins and
+    contributions, in lane order)."""
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
     geo20 = mesh.geo20
@@ -242,7 +323,6 @@ def trace(
     nchase = torch.zeros(n, dtype=torch.int32, device=dev)
     iters = torch.zeros(n, dtype=torch.int32, device=dev)
     nseg = torch.zeros((), dtype=torch.int64, device=dev)
-    lane = torch.arange(n, device=dev)
 
     it = 0
     while it < max_crossings and not bool(done.all()):
@@ -296,18 +376,13 @@ def trace(
 
         if not initial:
             seg = t_step * dnorm
-            score = active & in_flight & ~chase
+            scored = active & in_flight & ~chase
             contrib = seg * weight
-            hit = score & good_group
-            scatter_ordered_plain(
-                flux,
-                elem[hit].long() * n_groups + group[hit].long(),
-                it * n + lane[hit],
-                contrib[hit],
-                score_squares,
-            )
-            nseg += score.sum()
-            pseg = pseg + torch.where(score, seg, 0.0)
+            hit = scored & good_group
+            score(it, hit, elem[hit].long() * n_groups + group[hit].long(),
+                  contrib[hit])
+            nseg += scored.sum()
+            pseg = pseg + torch.where(scored, seg, 0.0)
 
         domain_exit = crossed & (next_elem == -1)
         if initial:

@@ -3,7 +3,11 @@
 Counterpart of ``pumiumtally_tpu/ops/walk_pallas.py::trace_pallas_impl``:
 the same call as the plain walk (``ops/walk.py::trace``), one kernel launch
 for the whole move, then the per-lane outputs are reduced to the stats
-vector with torch ops outside the kernel.
+vector with torch ops outside the kernel. The kernel's threads stay
+resident and refill: each walks lane after lane, so no thread idles while
+its warp finishes. The lanes are taken in an order that keeps the rows of
+the lanes in flight close (``lane_slots``, one ``scatter.lane_order`` pass
+before every launch).
 
 The tally is ``"ordered"`` by default: the walk appends one record per
 scored crossing and ``ops/scatter.py``'s ordered kernel folds each bin in
@@ -17,47 +21,46 @@ which is built with nvcc at first use; a failed build or launch raises.
 ``LAUNCHES`` counts walk kernel launches (and nothing else), so a run can
 show that its path went through the kernel; ``RELAUNCHES`` counts the
 ordered walks that were run again because their records overflowed the
-buffers. The scatter counts its own launches.
+buffers. The scatter and the lane order count their own launches.
+``WARP_TRIPS`` is the last launch's device counter (an int64 on the card,
+read only when the caller reads it): its warps' loop trips, summed, so
+Σ ``lane_iters`` / (32 · ``WARP_TRIPS``) is the share of the warps' lane
+slots that did work.
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 
 import torch
 
 from . import _build, scatter
 from .walk import (
+    Records,
     TraceResult,
     check_walk_args,
     resolve_material,
     trace as trace_plain,
+    trace_records as trace_records_plain,
     walk_stats_vector,
 )
 
 LAUNCHES = 0
 RELAUNCHES = 0
+WARP_TRIPS: torch.Tensor | None = None
 TALLIES = ("ordered", "atomic")
 
 _ARGTYPES = (
     [ctypes.c_int] * 3               # robust, initial, ordered
-    + [ctypes.c_void_p] * 7          # geo, origin, dest, elem, fly, weight, group
+    + [ctypes.c_void_p] * 9          # geo, origin, dest, elem, fly, weight,
+                                     # group, perm, lane records
     + [ctypes.c_int] * 3             # n, n_groups, max_crossings
     + [ctypes.c_double, ctypes.c_int]  # tolerance, score_squares
-    + [ctypes.c_void_p] * 14         # flux, 9 per-lane outputs, 4 record buffers
+    + [ctypes.c_void_p] * 14         # flux, 9 per-lane outputs, 3 record
+                                     # buffers, counters
     + [ctypes.c_longlong, ctypes.c_void_p]  # capacity, stream
 )
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
-
-
-@dataclasses.dataclass
-class Records:
-    """The scored crossings of one ordered walk: ``c = seg·w`` goes to bin
-    ``elem·G + g`` with key ``order = iteration·n + lane``."""
-
-    bin: torch.Tensor    # [m] int32
-    order: torch.Tensor  # [m] int64
-    c: torch.Tensor      # [m], the walk's dtype
+_LANE_BYTES = {torch.float32: 48, torch.float64: 80}  # csrc/walk.cu Lane<T>
 
 
 def _entry(dtype):
@@ -65,6 +68,22 @@ def _entry(dtype):
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return fn
+
+
+def resident_threads(dtype, *, initial: bool, robust: bool = True,
+                     ordered: bool = True) -> int:
+    """Threads a walk launch keeps resident on the current card (its grid
+    for a large n): the lanes in flight at once."""
+    fn = getattr(_build.load("walk"),
+                 f"pumi_walk_resident_{_DTYPE_TAG[dtype]}")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(int(robust), int(initial), int(ordered and not initial),
+             ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"walk occupancy query failed: cudaError_t {err}")
+    return out.value
 
 
 def trace(
@@ -112,8 +131,12 @@ def trace(
     if origin.device.type != "cuda":
         raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
     _check_cuda(*args, n_groups, max_crossings)
+    if tally == "atomic" and flux.data_ptr() % 8:
+        raise ValueError("flux must be 8-byte aligned for the pair adds")
     if tally == "atomic" or initial:
-        return _result(_launch(*args, **kw, ordered=False), **kw)
+        return _result(_launch(*args, **kw, ordered=False,
+                               perm=lane_slots(mesh, elem, dest, initial)),
+                       **kw)
     out, rec = _walk_ordered(*args, **kw, capacity=capacity)
     scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
                          mesh.ntet * n_groups)
@@ -125,18 +148,23 @@ def walk_records(mesh, origin, dest, elem, in_flight, weight, group,
                  score_squares: bool = True, tolerance: float = 1e-8,
                  robust: bool = True, ledger: bool = True, stats: bool = True,
                  capacity: int | None = None):
-    """The ordered walk of a move (``initial=False``) on the card without
-    its scatter: returns its TraceResult, whose flux is left as it was,
-    and its Records. ``scatter.scatter_ordered`` of the records into the
-    flux completes ``trace``."""
+    """The ordered walk of a move (``initial=False``) without its scatter:
+    returns its TraceResult, whose flux is left as it was, and its
+    Records. ``scatter.scatter_ordered`` of the records into the flux
+    completes ``trace``. CPU tensors take the plain walk
+    (``ops/walk.py::trace_records``)."""
     args = (mesh, origin, dest, elem, in_flight, weight, group,
             material_id, flux)
+    kw = dict(max_crossings=max_crossings, n_groups=n_groups,
+              tolerance=tolerance, robust=robust, ledger=ledger, stats=stats)
+    if origin.device.type == "cpu":
+        n = origin.shape[0]
+        return trace_records_plain(*args, lane_ids=torch.arange(n),
+                                   n_keys=n, **kw)
     if origin.device.type != "cuda":
-        raise ValueError("walk records come from the CUDA kernel only")
+        raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
     _check_cuda(*args, n_groups, max_crossings)
-    kw = dict(initial=False, max_crossings=max_crossings, n_groups=n_groups,
-              score_squares=score_squares, tolerance=tolerance,
-              robust=robust, ledger=ledger, stats=stats)
+    kw.update(initial=False, score_squares=score_squares)
     out, rec = _walk_ordered(*args, **kw, capacity=capacity)
     return _result(out, **kw), rec
 
@@ -156,9 +184,12 @@ def _check_cuda(mesh, origin, dest, elem, in_flight, weight, group,
 def _walk_ordered(*args, capacity, **kw):
     global RELAUNCHES
     cap = capacity if capacity is not None else 4 * args[1].shape[0]
-    out, rec, made = _launch(*args, **kw, ordered=True, capacity=cap)
+    perm = lane_slots(args[0], args[3], args[2], kw["initial"])
+    out, rec, made = _launch(*args, **kw, ordered=True, capacity=cap,
+                             perm=perm)
     if made > cap:
-        out, rec, again = _launch(*args, **kw, ordered=True, capacity=made)
+        out, rec, again = _launch(*args, **kw, ordered=True, capacity=made,
+                                  perm=perm)
         RELAUNCHES += 1
         if again != made:
             raise RuntimeError(
@@ -168,12 +199,39 @@ def _walk_ordered(*args, capacity, **kw):
     return out, Records(rec[0][:made], rec[1][:made], rec[2][:made])
 
 
+def lane_slots(mesh, elem, dest, initial: bool):
+    """The order in which a walk launch's threads take the lanes (slot s
+    walks lane ``perm[s]``): a move's lanes by start element; the initial
+    search's, which all start from one point, by the cell of their
+    destination on a grid over the mesh's bounding box, so lanes that
+    walk the same rows run side by side."""
+    if not initial:
+        return scatter.lane_order_cuda(elem, mesh.ntet)
+    return scatter.lane_order_cuda(*destination_cells(mesh, dest))
+
+
+def destination_cells(mesh, dest):
+    """Each lane's cell on a grid over the mesh's bounding box with about
+    one cell per 6 elements (a hexahedron's worth), in raster order, as
+    int32 keys; and the number of cells. Destinations outside the box
+    take the nearest cell (a non-finite one a cell of the box)."""
+    lo, ext = mesh.bounds
+    ext = [max(e, 1e-30) for e in ext]
+    side = (ext[0] * ext[1] * ext[2] * 6.0 / max(mesh.ntet, 1)) ** (1 / 3)
+    cells = [max(1, min(1024, round(e / side))) for e in ext]
+    c = [((dest[:, k] - lo[k]) * (cells[k] / ext[k])).nan_to_num_(0.0)
+         .floor_().clamp_(0, cells[k] - 1).to(torch.int32) for k in range(3)]
+    keys = (c[2] * cells[1] + c[1]) * cells[0] + c[0]
+    return keys, cells[0] * cells[1] * cells[2]
+
+
 def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             flux, *, initial, max_crossings, n_groups, score_squares,
-            tolerance, robust, ledger, stats, ordered, capacity=0):
-    """One walk launch. Returns the per-lane outputs and, when ordered,
+            tolerance, robust, ledger, stats, ordered, perm, capacity=0):
+    """One walk launch; slot s walks lane ``perm[s]`` (lane s when
+    ``perm`` is None). Returns the per-lane outputs and, when ordered,
     the record buffers and the number of records the walk made."""
-    global LAUNCHES
+    global LAUNCHES, WARP_TRIPS
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
 
@@ -192,7 +250,10 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         torch.empty(cap, dtype=torch.int64, device=dev),
         torch.empty(cap, dtype=dtype, device=dev),
     )
-    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    # Records made, lane slots taken, warp loop trips.
+    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    packed = torch.empty(n * _LANE_BYTES[dtype], dtype=torch.uint8,
+                         device=dev)
 
     fn = _entry(dtype)
     with torch.cuda.device(dev):
@@ -201,12 +262,13 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             int(bool(robust)), int(bool(initial)), int(bool(ordered)),
             mesh.geo20.data_ptr(), origin.data_ptr(), dest.data_ptr(),
             elem.data_ptr(), in_flight.data_ptr(), weight.data_ptr(),
-            group.data_ptr(), n, n_groups, max_crossings, float(tolerance),
+            group.data_ptr(), 0 if perm is None else perm.data_ptr(),
+            packed.data_ptr(), n, n_groups, max_crossings, float(tolerance),
             int(bool(score_squares)), flux.data_ptr(), pos.data_ptr(),
             elem_o.data_ptr(), mat.data_ptr(), done.data_ptr(),
             pseg.data_ptr(), ncross.data_ptr(), nchase.data_ptr(),
             nseg_l.data_ptr(), iters.data_ptr(), rec[0].data_ptr(),
-            rec[1].data_ptr(), rec[2].data_ptr(), count.data_ptr(), cap,
+            rec[1].data_ptr(), rec[2].data_ptr(), counters.data_ptr(), cap,
             stream,
         )
     if err != 0:
@@ -214,12 +276,13 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             f"walk kernel launch failed with cudaError_t {err}"
         )
     LAUNCHES += 1
+    WARP_TRIPS = counters[2]
     out = dict(mesh=mesh, material_id=material_id, flux=flux, pos=pos,
                elem=elem_o, mat=mat, done=done, pseg=pseg, ncross=ncross,
                nchase=nchase, nseg=nseg_l, iters=iters)
     if not ordered:
         return out
-    return out, rec, int(count.item())
+    return out, rec, int(counters[0].item())
 
 
 def _result(o, *, ledger, stats, **_) -> TraceResult:

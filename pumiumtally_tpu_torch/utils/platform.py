@@ -1,7 +1,8 @@
 """Device selection for the port's entry points.
 
 Every entry point that places tensors (``build_box``, ``TetMesh.from_numpy``,
-``load_mesh``, ``PumiTally``) takes ``device=``. The default is the CUDA
+``load_mesh``, ``PumiTally``, ``make_flux``, ``make_particle_state``) takes
+``device=``. The default is the CUDA
 card: the port exists to run the walk there, so a box without CUDA raises
 instead of quietly computing on the CPU. Tests and CPU-only callers pass
 ``device="cpu"``, which runs the plain PyTorch walk.

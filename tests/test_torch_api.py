@@ -450,3 +450,23 @@ def test_scheduling_fields_accepted(field, value):
 def test_config_rejects_jax_dtype():
     with pytest.raises(ValueError, match="dtype"):
         TallyConfig(dtype=jnp.float32)
+
+
+@pytest.mark.parametrize("make", ["make_flux", "make_particle_state"])
+def test_entry_points_default_to_the_card(make):
+    """``make_flux`` and ``make_particle_state`` place their tensors as
+    every entry point does (``utils/platform.py::resolve_device``): no
+    ``device=`` means the CUDA card, which raises where there is none;
+    ``device="cpu"`` is asked for explicitly."""
+    from pumiumtally_tpu_torch.core.state import make_particle_state
+    from pumiumtally_tpu_torch.core.tally import make_flux
+
+    fn = {"make_flux": lambda **kw: make_flux(6, 2, **kw),
+          "make_particle_state": lambda **kw: make_particle_state(
+              3, **kw).origin}[make]
+    assert fn(device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert fn().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()

@@ -7,12 +7,16 @@ This file imports nothing of JAX, so it also runs where JAX is absent:
 
 The walk kernel (``csrc/walk.cu``, built with ``--fmad=false``) computes
 the plain walk's arithmetic operation for operation, so elements, material
-ids, done flags, stats and positions must agree exactly. With the ordered
+ids, done flags, stats and positions must agree exactly, whichever thread
+walks a lane and when (its threads stay resident and take lane after lane
+in element order). With the ordered
 tally (the default) each bin gets its adds in the plain walk's order, so
 the flux is bitwise equal too, and equal across runs. With the atomic
 tally it agrees to the reordering of its adds (rtol 1e-10 in float64,
 1e-4 in float32). The ordered scatter and the gather are bitwise equal to
-their plain versions; the atomic scatter agrees within rtol 1e-5.
+their plain versions; the atomic scatter agrees within rtol 1e-5. The lane
+order is a permutation whose elements are those of its plain version
+(within an element the order is the device's).
 """
 from __future__ import annotations
 
@@ -116,6 +120,68 @@ def test_atomic_kernel_matches_plain(cuda, dtype):
     assert walk_cuda.LAUNCHES == before + 1
     _lanes_equal(k, p)
     torch.testing.assert_close(k.flux, p.flux, rtol=FLUX_RTOL[dtype], atol=0)
+
+
+@pytest.mark.parametrize("initial", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_persistent_walk_refills_lanes(cuda, dtype, initial):
+    """Three times as many lanes as a launch keeps resident, so every
+    thread walks several: short hops beside long rays, parked lanes and
+    lanes truncated at max_crossings. Ordered: lanes and flux bitwise the
+    plain walk's; atomic: lanes equal, flux within FLUX_RTOL. The warps'
+    loop trips cover the lane iterations."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    G = 4
+    n = 3 * walk_cuda.resident_threads(dtype, initial=initial) + 77
+    args = list(_walk_inputs(mesh, cuda, dtype, n=n, G=G, seed=11))
+    hop = torch.from_numpy(np.random.default_rng(12).normal(
+        scale=0.02, size=(n, 3))).to(cuda, dtype)
+    short = torch.arange(n, device=cuda) % 3 == 0
+    args[2] = torch.where(short[:, None], args[1] + hop, args[2])
+    kw = dict(initial=initial, max_crossings=20, n_groups=G)
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    trips = int(walk_cuda.WARP_TRIPS)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    torch.cuda.synchronize()
+    _lanes_equal(k, p)
+    assert torch.equal(k.flux, p.flux)
+    assert bool((~args[4]).any()) and bool((k.lane_iters == 0).any())
+    assert bool((~k.done).any())  # truncated lanes
+    assert int(k.lane_iters.sum()) <= 32 * trips
+    assert trips >= int(k.lane_iters.max())
+    if not initial:
+        a = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda),
+                            tally="atomic", **kw)
+        _lanes_equal(a, p)
+        torch.testing.assert_close(a.flux, p.flux, rtol=FLUX_RTOL[dtype],
+                                   atol=0)
+
+
+@pytest.mark.parametrize("case", ["one element", "random", "descending"])
+def test_lane_order_kernel(cuda, case):
+    from pumiumtally_tpu_torch.ops import scatter
+
+    n, nbins = 100003, 5000
+    rng = np.random.default_rng(6)
+    elem = {
+        "one element": np.full(n, 17),
+        "random": rng.integers(0, nbins, n),
+        "descending": (nbins - 1 - np.arange(n) * nbins // n),
+    }[case]
+    elem = torch.from_numpy(elem.astype(np.int32)).to(cuda)
+    before = scatter.ORDER_LAUNCHES
+    perm = scatter.lane_order(elem, nbins)
+    torch.cuda.synchronize()
+    assert scatter.ORDER_LAUNCHES == before + 1
+    assert perm.dtype == torch.int32
+    assert torch.equal(torch.sort(perm.long()).values,
+                       torch.arange(n, device=cuda))
+    plain = scatter.lane_order_plain(elem)
+    assert torch.equal(elem[perm.long()], elem[plain.long()])
+    with pytest.raises(IndexError):
+        scatter.lane_order(elem, 17)
 
 
 def test_overflow_relaunches_the_walk(cuda):
@@ -272,6 +338,35 @@ def test_scatter_kernels_match_plain(cuda, dtype, score_squares, hot, nbins):
     assert scatter.ORDERED_LAUNCHES == o0 + 1
     if not score_squares:
         assert torch.equal(got[1::2], seed[1::2])
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 30001])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("score_squares", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_atomic_scatter_tails_and_offsets(cuda, dtype, score_squares, offset,
+                                          m):
+    """K3 outer takes 4 records a thread: counts that leave a tail, and
+    records that start off a 16 B boundary (loaded one by one)."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    nbins = 2000
+    b, _, c = _records(m + offset, nbins, dtype, cuda, seed=m)
+    b, c = b[offset:], c[offset:]
+    seed = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, 2 * nbins)).to(cuda, dtype)
+    got = scatter.scatter_atomic(seed.clone(), b, c, score_squares)
+    ref = scatter.scatter_atomic_plain(seed.clone(), b, c, score_squares)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=0)
+
+
+def test_atomic_scatter_refuses_an_unaligned_flux(cuda):
+    from pumiumtally_tpu_torch.ops import scatter
+
+    b, _, c = _records(100, 50, torch.float32, cuda)
+    flux = torch.zeros(101, device=cuda)[1:]  # 4 B past an 8 B boundary
+    with pytest.raises(ValueError, match="aligned"):
+        scatter.scatter_atomic(flux, b, c)
 
 
 def test_scatter_ordered_breaks_ties_in_record_order(cuda):
