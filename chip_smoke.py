@@ -20,7 +20,8 @@ Phases, each of which raises (exit code != 0) on any failed check:
    (998,250-tet box, 1,048,576 particles, 8 groups, float32): construct,
    locate, 4 moves, write a .vtu. Launch counts are zeroed just before and
    read just after; the conservation invariant, the boundary write-backs
-   and the .vtu are checked;
+   and the .vtu are checked. Each move's ordered scatter must take the
+   bucket path (its largest bucket and the capacity are printed);
 5. kernel vs plain at the main path's shapes: the inputs of the main
    path's initial search and of its first move, replayed through the
    kernel and the plain walk, compared (flux bitwise) and timed with CUDA
@@ -35,7 +36,11 @@ Phases, each of which raises (exit code != 0) on any failed check:
    would have had (32-lane groups of the lane iterations), and the walk
    launch is timed with its lanes in the kernel's order (by start
    element, or by destination cell in the initial search; the lane-order
-   pass included) and in launch order, a move's ordered scatter too;
+   pass included) and in launch order, a move's ordered scatter too.
+   Move 1's records are scattered by the ordered scatter's bucket path,
+   by its crowded path called directly and by ``torch.argsort`` +
+   ``Tensor.index_put_(accumulate=True)``, each held bitwise to the plain
+   version and timed, and the bucket path is profiled by kernel;
 6. reproducibility (phase C): move 1 replayed twice through the ordered
    walk gives the same flux bits; twice through the atomic walk, each run
    held against the plain walk (lanes equal, flux within rtol 1e-4) and
@@ -54,9 +59,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    atomic scatter and the atomic walk (cuobjdump) must hold the float32
    pair's vector reduction;
 9. point source (phase E): all 1,048,576 lanes start at one point of the
-   main-path mesh and fly one move; the ordered scatter of its records is
-   held bitwise against the plain version and timed, and its largest
-   bin's record count reported.
+   main-path mesh and fly one move; the ordered scatter of its records
+   must take the crowded path; it is held bitwise against the plain
+   version and timed, and its largest bin's record count reported.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -230,6 +235,7 @@ def phase_main_path(tmpdir: str):
     snapshots of the inputs of the initial search and of the first move
     (for the replay of phase 5), and the kernel launches counted."""
     from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
+    from pumiumtally_tpu_torch.ops import scatter
 
     cells, n, G = MAIN_CELLS, MAIN_PARTICLES, MAIN_GROUPS
     rng = np.random.default_rng(1)
@@ -269,10 +275,16 @@ def phase_main_path(tmpdir: str):
         mats = np.zeros(n, np.int32)
         if move == 1:
             snaps["move"] = _snapshot(tally, want, groups)
+        paths = (scatter.BUCKET_LAUNCHES, scatter.CROWDED_LAUNCHES)
         t0 = time.perf_counter()
         tally.move_to_next_location(dest, flying, weights, groups, mats)
         secs = time.perf_counter() - t0
         st = tally.last_stats
+        took = (scatter.BUCKET_LAUNCHES - paths[0],
+                scatter.CROWDED_LAUNCHES - paths[1])
+        log(f"[main] move {move}: ordered scatter took the "
+            f"{scatter.LAST_BUCKETS['path']} path (bucket, crowded calls "
+            f"{took}); {scatter.LAST_BUCKETS}")
         final = dest.reshape(n, 3)
         if flying.any():
             raise AssertionError(f"move {move}: flying not reset")
@@ -334,6 +346,8 @@ def phase_main_path(tmpdir: str):
         raise AssertionError("the lanes were not ordered once a walk")
     if launches["scatter_ordered"] != 4:
         raise AssertionError("the ordered scatter did not run once a move")
+    if launches["scatter_bucket"] != 4 or launches["scatter_crowded"]:
+        raise AssertionError("a move's ordered scatter left the bucket path")
     if launches["scatter_atomic"] or launches["gather"]:
         raise AssertionError("the facade launched a probe kernel")
     return tally, snaps, launches
@@ -346,6 +360,7 @@ def zero_counts() -> None:
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.ORDER_LAUNCHES = 0
+    scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
     gather.LAUNCHES = 0
 
 
@@ -356,6 +371,8 @@ def read_counts() -> dict:
         "walk": walk_cuda.LAUNCHES,
         "walk_relaunches": walk_cuda.RELAUNCHES,
         "scatter_ordered": scatter.ORDERED_LAUNCHES,
+        "scatter_bucket": scatter.BUCKET_LAUNCHES,
+        "scatter_crowded": scatter.CROWDED_LAUNCHES,
         "scatter_atomic": scatter.ATOMIC_LAUNCHES,
         "lane_order": scatter.ORDER_LAUNCHES,
         "gather": gather.LAUNCHES,
@@ -471,13 +488,11 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
             walk_ms=event_ms(
                 lambda f: walk_cuda.walk_records(*args, f, **wkw, **cap), 5,
                 fresh),
-            scatter_ms=event_ms(
-                lambda f: scatter.ordered_cuda(f, rec.bin, rec.order, rec.c,
-                                               True, nbins), 5, fresh),
             atomic_ms=event_ms(
                 lambda f: walk_cuda.trace(*args, f, **kw, tally="atomic"), 5,
                 fresh),
             records=rec, plain=p, **cap,
+            **scatter_paths(snap["flux"], rec, nbins),
         )
         profile_call("ordered move 1",
                      lambda: walk_cuda.trace(*args, snap["flux"].clone(),
@@ -516,6 +531,57 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
         slot_order_ms=runs["slots"]["ms"],
         launch_order_ms=runs["launch"]["ms"], **out,
     )
+
+
+def scatter_paths(flux0, rec, nbins: int) -> dict:
+    """Move 1's records through the ordered scatter's bucket path (the
+    wrapper the walk calls), its crowded path called directly, and
+    ``torch.argsort`` + ``Tensor.index_put_(accumulate=True)``: each held
+    bitwise to the plain version, then timed in turns (CUDA events,
+    median of 5); the bucket path's calls profiled by kernel."""
+    from pumiumtally_tpu_torch.ops import scatter
+    from pumiumtally_tpu_torch.probes.gather_scatter import library_ordered
+
+    def bucket(f):
+        return scatter.ordered_cuda(f, rec.bin, rec.order, rec.c, True, nbins)
+
+    def crowded(f):
+        return scatter.crowded_cuda(f, rec.bin, rec.order, rec.c, True, nbins)
+
+    def library(f):
+        return library_ordered(f, rec.bin, rec.order, rec.c)
+
+    ref = scatter.scatter_ordered_plain(flux0.clone(), rec.bin, rec.order,
+                                        rec.c)
+    before = scatter.BUCKET_LAUNCHES
+    if not torch.equal(bucket(flux0.clone()), ref):
+        raise AssertionError("move 1: the bucket path differs from plain")
+    if scatter.BUCKET_LAUNCHES != before + 1:
+        raise AssertionError("move 1's records left the bucket path")
+    info = dict(scatter.LAST_BUCKETS)
+    if not torch.equal(crowded(flux0.clone()), ref):
+        raise AssertionError("move 1: the crowded path differs from plain")
+    lib_equal = bool(torch.equal(library(flux0.clone()), ref))
+
+    def fresh():
+        return (flux0.clone(),)
+
+    out = {}
+    for name, fn in (("scatter_ms", bucket), ("crowded_ms", crowded),
+                     ("library_ms", library), ("scatter_ms_2", bucket),
+                     ("crowded_ms_2", crowded)):
+        out[name] = event_ms(fn, 5, fresh)
+    log(f"[scatter] move 1's {rec.bin.numel()} records into {nbins} bins: "
+        f"bucket path {out['scatter_ms']:.4f} / {out['scatter_ms_2']:.4f} ms "
+        f"(shift {info['shift']}, {info['buckets']} buckets, largest "
+        f"{info['largest']} of capacity {info['capacity']}), crowded path "
+        f"{out['crowded_ms']:.4f} / {out['crowded_ms_2']:.4f} ms, "
+        f"torch.argsort + index_put_(accumulate=True) "
+        f"{out['library_ms']:.4f} ms (bitwise equal: {lib_equal}); median "
+        "of 5 each, in turns")
+    profile_call("ordered scatter of move 1, bucket path",
+                 lambda: bucket(flux0.clone()))
+    return dict(out, buckets=info)
 
 
 def active_share(iters, trips: int) -> float:
@@ -789,7 +855,12 @@ def phase_point_source(tally) -> None:
         n_groups=cfg.n_groups, tolerance=cfg.tolerance)
     per_bin = torch.bincount(rec.bin)
     nbins = mesh.ntet * cfg.n_groups
+    crowded = scatter.CROWDED_LAUNCHES
     got = scatter.scatter_ordered(flux0.clone(), rec.bin, rec.order, rec.c)
+    log(f"[point] ordered scatter took the {scatter.LAST_BUCKETS['path']} "
+        f"path: {scatter.LAST_BUCKETS}")
+    if scatter.CROWDED_LAUNCHES != crowded + 1:
+        raise AssertionError("point source: the scatter was not crowded")
     t0 = time.perf_counter()
     ref = scatter.scatter_ordered_plain(flux0.clone(), rec.bin, rec.order,
                                         rec.c)
@@ -846,11 +917,15 @@ def main() -> int:
     libs = _build.build_many(SOURCES)
     log(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, built together, in "
         f"{time.perf_counter() - t0:.2f} s")
-    for lib in libs:
+    for lib in libs:  # ptxas's registers, shared memory and spills
         with open(lib[:-3] + ".log") as f:
+            kernel = ""
             for line in f:
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {os.path.basename(lib)}: {line.strip()}")
+                if "Function properties for" in line:
+                    kernel = line.split(" for ", 1)[1].strip()[:72]
+                elif "registers" in line or "spill" in line:
+                    log(f"[build] {os.path.basename(lib)} {kernel}: "
+                        f"{line.strip()}")
 
     check_sass(libs)
 
@@ -915,10 +990,15 @@ def main() -> int:
                       "scatter.scatter_atomic",
                       "pumiumtally_tpu_torch/csrc/scatter.cu",
                       "scripts/probe_pallas_gather.py:211"),
-        _probe_kernel(payload, "scatter_ordered",
-                      launches["scatter_ordered"], "scatter.scatter_ordered",
-                      "pumiumtally_tpu_torch/csrc/scatter.cu",
-                      "scripts/probe_pallas_gather.py:211"),
+        dict(_probe_kernel(payload, "scatter_ordered",
+                           launches["scatter_ordered"],
+                           "scatter.scatter_ordered",
+                           "pumiumtally_tpu_torch/csrc/scatter.cu",
+                           "scripts/probe_pallas_gather.py:211"),
+             bucket_launches=launches["scatter_bucket"],
+             crowded_launches=launches["scatter_crowded"],
+             move1_bucket_ms=k["scatter_ms"], move1_crowded_ms=k["crowded_ms"],
+             move1_library_ms=k["library_ms"], buckets=k["buckets"]),
         {"name": "scatter.lane_order", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/scatter.cu",
          "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",

@@ -14,51 +14,68 @@
 //   9.x): half the L2 atomic operations of two scalar adds. PTX has no
 //   vector add of float64, so a float64 record makes two. A bin's order of
 //   adds is the device's.
-// * pumi_scatter_ordered_<t>: each bin gets its adds in ascending
-//   (order, record index), bitwise the sequence of the plain version (the
-//   probe's "peeled", and the walk's tally). The TPU kernel peels
-//   collisions inside a 128-lane block with one-hot products on the MXU;
-//   on this card the records of a whole move are ordered at once, in
-//   passes that each run over all of them:
-//     1. count the records of every bin (integer atomics: the counts do
-//        not depend on the order they are made in);
+// * The ordered scatter: each bin gets its adds in ascending (order,
+//   record index), bitwise the sequence of the plain version (the probe's
+//   "peeled", and the walk's tally). The TPU kernel peels collisions
+//   inside a 128-lane block with one-hot products on the MXU; on this
+//   card the records of a whole move are ordered at once. The fold is
+//   f = f + c and, with squares, f2 = f2 + c*c, seeded from the flux; no
+//   library sort or scan is used. Two paths, chosen by the data:
+//   - the bucket path. A bucket is 2^shift consecutive bins (the caller
+//     picks the shift so that the mean bucket holds at most a third of
+//     BUCKET_CAP records). pumi_bucket_count counts the records of every
+//     bucket (one integer atomic per warp and bucket, __match_any_sync),
+//     scans the counts and finds the largest count and the range of the
+//     order keys; the caller reads those three numbers (the call's one
+//     host sync) and, when no bucket holds more than BUCKET_CAP records
+//     and the keys fit, pumi_scatter_bucket_<t> places every record in its
+//     bucket's range (the slot within a bucket is the device's) as one
+//     16 B store: a key (local bin << (obits + ibits) | (order - least
+//     order) << ibits | record index, at most 63 bits), whose order is
+//     (bin, order, index), beside the value's bits. Then one block a
+//     bucket loads its range into shared memory once, counts, scans and
+//     places the records per bin there, and one thread folds each bin in
+//     key order (a sorting network in registers for <= 8 records,
+//     repeated minimum for <= 32; a larger bin is ranked by the whole
+//     block, each record counting the keys below its own, then folded by
+//     one thread). Every key and value of the fold comes from shared
+//     memory, and a bucket's bins are contiguous in the flux. The
+//     counters (31,196 at the main path's move 1) stay in L2, and the
+//     placement's stores advance one cursor per bucket, so they merge in
+//     L2 instead of landing at random in device memory: one 16 B store a
+//     record takes a third of the time of four stores of 4-8 B;
+//   - the crowded path, for a call in which some bucket holds more than
+//     BUCKET_CAP records (a point source puts ~n/G records in one bin) or
+//     whose keys do not fit 63 bits:
+//     pumi_scatter_ordered_<t> runs passes 1-4 and
+//     pumi_scatter_ordered_large_<t> pass 5 by bin, over all records:
+//     1. count the records of every bin (integer atomics);
 //     2. exclusive prefix sum of the counts over the bins: tiles of 4096
 //        scanned in one block each with warp shuffles, the tile sums
 //        scanned by one block, then added back;
-//     3. place every record's index in its bin's range. These are 4 B
-//        stores to random places, slow once their array outgrows the 50 MB
-//        L2, so the bins are placed and folded in ranges whose indices
-//        take at most 24 MB (3 ranges for one move of the main path);
-//     4. order and fold each bin: a bin of at most 8 records (nearly all
-//        of a move's) is folded by one thread that reads its keys once
-//        into registers and orders them with a sorting network; a bin of
-//        9 to 32 records by one thread that picks its records in (order,
-//        index) order by repeated minimum, reading each order key through
-//        its index (no writes, at most 32*32 key reads); a larger bin (a
-//        point source puts ~n/G records in one bin) goes to a list, with
-//        its start in a scratch sized to the listed bins' records;
-//     5. pumi_scatter_ordered_large_<t>: the caller reads the list's
-//        length and records once and, only when the list is not empty,
-//        allocates that scratch and launches blocks of 1024 threads that
-//        work through it: a bitonic sort of tiles of 2048 keys in shared
-//        memory, then merge passes in device memory (merge path: each
-//        thread finds where its 4 outputs start by a binary search),
-//        O(k log k) for a bin of k records, and a fold by one thread
-//        from values the block stages in shared memory.
-//   The fold is f = f + c and, with squares, f2 = f2 + c*c, seeded from
-//   the flux; no library sort or scan is used.
-// * pumi_lane_order: passes 1-3 with the walk's lanes as records and an
-//   int32 key per lane as bins (its start element, or in the initial
-//   search its destination cell), giving the permutation that orders the
-//   lanes by key (in any order within a key) for csrc/walk.cu. The lanes
-//   of a warp with one key count and place themselves with one atomic
-//   (__match_any_sync).
+//     3. place every record's index in its bin's range, in ranges of bins
+//        whose indices take at most 24 MB, so they stay in L2;
+//     4. fold each bin of at most 32 records by one thread (sorting
+//        network for <= 8, repeated minimum for <= 32, keys read through
+//        the indices); list a larger bin with its start in a scratch sized
+//        to the listed bins' records;
+//     5. the caller reads the list's length and records once and, only
+//        when it is not empty, allocates that scratch and launches blocks
+//        of 1024 threads that sort each listed bin (bitonic tiles of 2048
+//        keys in shared memory, then merge-path passes in device memory)
+//        and fold it by one thread.
+// * pumi_lane_order: the count, scan and place passes with the walk's
+//   lanes as records and an int32 key per lane as bins (its start
+//   element, or in the initial search its destination cell), giving the
+//   permutation that orders the lanes by key (in any order within a key)
+//   for csrc/walk.cu.
 //
 // What bounds it: the bytes of the records and of the touched bins are
-// the least it must move; the counts, offsets and indices of passes 1-3
-// are this design's own traffic (one pass over the records per range
-// plus the random index stores and key reads, and 3 passes over the
-// bins), and the per-bin folds are chains of dependent adds.
+// the least it must move. The bucket path adds the 16 B record it writes
+// and reads back once, a read of the bins for the count and of the order
+// keys for their range; the crowded path adds random 4 B index stores and
+// key reads into arrays larger than L2, and 3 passes over the bins. The
+// per-bin folds are chains of dependent adds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -74,6 +91,9 @@ constexpr int SORT_TILE = 2 * SORT_THREADS;  // bitonic tile in shared memory
 constexpr int MERGE_ITEMS = 4;        // outputs per thread in a merge pass
 constexpr int LARGE_BLOCKS = 264;     // two per SM of an H100
 constexpr int PLACE_BYTES = 24 << 20;  // record indices per range (L2 50 MB)
+constexpr int BUCKET_CAP = 2048;      // records of a bucket in shared memory
+constexpr int BUCKET_THREADS = 256;   // threads of a bucket's block
+constexpr int BUCKET_SHIFT_MAX = 10;  // at most 1024 bins a bucket
 constexpr long long KEY_MAX = 0x7fffffffffffffffLL;
 constexpr int IDX_MAX = 0x7fffffff;
 
@@ -154,15 +174,31 @@ __global__ void count_kernel(const int* __restrict__ bin, int m,
 // count_kernel and place_kernel over all bins, for bins that repeat
 // within a warp: the lanes of one bin make one atomic. The block size is
 // a multiple of 32, so every warp is whole.
-__global__ void order_count(const int* __restrict__ bin, int m,
+// The key of a record is its bin >> shift (the bin itself for shift 0).
+__global__ void order_count(const int* __restrict__ bin, int m, int shift,
                             int* __restrict__ counts) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned live = __ballot_sync(0xffffffffu, r < m);
   if (r >= m) return;
-  const int b = bin[r];
+  const int b = bin[r] >> shift;
   const unsigned same = __match_any_sync(live, b);
   if ((int)(threadIdx.x & 31) == __ffs(same) - 1)
     atomicAdd(counts + b, __popc(same));
+}
+
+// A slot in key b's range for each live lane of the warp that holds b:
+// the lanes of one key take theirs with one atomic. Counts are spent as
+// cursors: every key ends at 0.
+__device__ __forceinline__ int claim_slot(int b, unsigned live,
+                                          const int* __restrict__ offsets,
+                                          int* __restrict__ counts) {
+  const unsigned same = __match_any_sync(live, b);
+  const int lane = threadIdx.x & 31, lead = __ffs(same) - 1;
+  const int size = __popc(same);
+  int left = 0;
+  if (lane == lead) left = atomicSub(counts + b, size);
+  left = __shfl_sync(same, left, lead);
+  return offsets[b] + left - size + __popc(same & ((1u << lane) - 1u));
 }
 
 __global__ void order_place(const int* __restrict__ bin, int m,
@@ -171,21 +207,79 @@ __global__ void order_place(const int* __restrict__ bin, int m,
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned live = __ballot_sync(0xffffffffu, r < m);
   if (r >= m) return;
-  const int b = bin[r];
-  const unsigned same = __match_any_sync(live, b);
-  const int lane = threadIdx.x & 31, lead = __ffs(same) - 1;
-  const int size = __popc(same);
-  int left = 0;
-  if (lane == lead) left = atomicSub(counts + b, size);
-  left = __shfl_sync(same, left, lead);
-  idx[offsets[b] + left - size + __popc(same & ((1u << lane) - 1u))] = r;
+  idx[claim_slot(bin[r], live, offsets, counts)] = r;
 }
 
-// Exclusive scan of one int per thread over a block of SCAN_THREADS;
+// A value's bits in the 8 B half of a placed record, and back.
+__device__ __forceinline__ long long value_bits(float v) {
+  return (long long)__float_as_uint(v);
+}
+__device__ __forceinline__ long long value_bits(double v) {
+  return __double_as_longlong(v);
+}
+__device__ __forceinline__ void from_bits(long long x, float* v) {
+  *v = __uint_as_float((unsigned)x);
+}
+__device__ __forceinline__ void from_bits(long long x, double* v) {
+  *v = __longlong_as_double(x);
+}
+
+// Every record into its bucket's range as one 16 B store: the key
+// (local bin << lshift) | ((order - omin) << ibits) | record index, whose
+// order is (bin, order, index), and the value's bits.
+template <typename T>
+__global__ void bucket_place(const int* __restrict__ bin,
+                             const long long* __restrict__ order,
+                             const T* __restrict__ c, int m, int shift,
+                             long long omin, int lshift, int ibits,
+                             const int* __restrict__ offsets,
+                             int* __restrict__ counts,
+                             longlong2* __restrict__ rec) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned live = __ballot_sync(0xffffffffu, r < m);
+  if (r >= m) return;
+  const int b = bin[r];
+  const int k = b >> shift;
+  const long long key = (long long)(b - (k << shift)) << lshift |
+                        (order[r] - omin) << ibits | r;
+  rec[claim_slot(k, live, offsets, counts)] =
+      make_longlong2(key, value_bits(c[r]));
+}
+
+// info[0] = the largest of counts[n] (info[0] zeroed), info[1] and
+// info[2] = the least and the largest of order[m] (info[1] and info[2]
+// set to the int64 maximum and minimum).
+__global__ void bucket_stats(const int* __restrict__ counts, int n,
+                             const long long* __restrict__ order, int m,
+                             long long* __restrict__ info) {
+  long long big = 0, lo = KEY_MAX, hi = -KEY_MAX - 1;
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+    big = max(big, (long long)counts[i]);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < m; i += stride) {
+    const long long o = order[i];
+    lo = min(lo, o);
+    hi = max(hi, o);
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    big = max(big, __shfl_xor_sync(0xffffffffu, big, d));
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, d));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, d));
+  }
+  if ((threadIdx.x & 31) == 0) {
+    atomicMax(info, big);
+    atomicMin(info + 1, lo);
+    atomicMax(info + 2, hi);
+  }
+}
+
+// Exclusive scan of one int per thread over a block of whole warps;
 // *total gets the block's sum.
 __device__ int block_exclusive_scan(int v, int* total) {
   __shared__ int warp_sums[32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   int x = v;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -195,7 +289,7 @@ __device__ int block_exclusive_scan(int v, int* total) {
   if (lane == 31) warp_sums[warp] = x;
   __syncthreads();
   if (warp == 0) {
-    int s = warp_sums[lane];
+    int s = lane < warps ? warp_sums[lane] : 0;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, s, d);
@@ -349,6 +443,166 @@ __global__ void fold_small(const int* __restrict__ offsets, int lo, int hi,
   }
   flux[2 * (long long)b] = f;
   if (sq) flux[2 * (long long)b + 1] = f2;
+}
+
+// Bytes of bucket_fold's dynamic shared memory for buckets of at most cap
+// records and 2^shift bins.
+template <typename T>
+constexpr size_t bucket_smem(int cap, int shift) {
+  return (size_t)cap * (sizeof(long long) + sizeof(T) +
+                        2 * sizeof(unsigned short)) +
+         (size_t)(2 * (1 << shift) + 1) * sizeof(int);
+}
+
+// Folds the bucket of bins [blockIdx.x << shift, ...): its records are
+// [offsets[k], offsets[k+1]) of the placed ones, at most cap of them. The
+// block loads them into shared memory once, counts and places them per
+// bin there, and one thread folds each bin in key order, which within a
+// bin is (order, index).
+template <typename T>
+__global__ void __launch_bounds__(BUCKET_THREADS)
+bucket_fold(const int* __restrict__ offsets,
+            const longlong2* __restrict__ rec, int nbins, int shift,
+            int lshift, int cap, T* __restrict__ flux, int sq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int nbig;
+  __shared__ int big[BUCKET_CAP / (SMALL + 1)];
+  const int base = blockIdx.x << shift;
+  const int nb = min(1 << shift, nbins - base);
+  const int beg = offsets[blockIdx.x], cnt = offsets[blockIdx.x + 1] - beg;
+  if (cnt == 0) return;
+  long long* sk = reinterpret_cast<long long*>(smem);  // [cap] keys
+  T* sv = reinterpret_cast<T*>(sk + cap);              // [cap] values
+  int* sbeg = reinterpret_cast<int*>(sv + cap);        // [nb + 1] bin starts
+  int* scur = sbeg + (1 << shift) + 1;                 // [nb] counts, cursors
+  unsigned short* slot = reinterpret_cast<unsigned short*>(
+      scur + (1 << shift));                            // [cap] by bin
+  unsigned short* ranked = slot + cap;                 // [cap] big bins' order
+  const int t = threadIdx.x;
+
+  for (int l = t; l < nb; l += blockDim.x) scur[l] = 0;
+  if (t == 0) nbig = 0;
+  __syncthreads();
+  for (int j = t; j < cnt; j += blockDim.x) {
+    const longlong2 x = rec[beg + j];
+    sk[j] = x.x;
+    from_bits(x.y, sv + j);
+    atomicAdd(scur + (int)(x.x >> lshift), 1);
+  }
+  __syncthreads();
+  // Bin starts: each thread scans a run of consecutive bins.
+  const int per = (nb + blockDim.x - 1) / blockDim.x;
+  const int l0 = min(t * per, nb), l1 = min(l0 + per, nb);
+  int run = 0;
+  for (int l = l0; l < l1; ++l) run += scur[l];
+  int total;
+  int at = block_exclusive_scan(run, &total);
+  for (int l = l0; l < l1; ++l) {
+    sbeg[l] = at;
+    at += scur[l];
+    scur[l] = 0;
+  }
+  if (t == 0) sbeg[nb] = cnt;
+  __syncthreads();
+  for (int j = t; j < cnt; j += blockDim.x) {
+    const int l = (int)(sk[j] >> lshift);
+    slot[sbeg[l] + atomicAdd(scur + l, 1)] = (unsigned short)j;
+  }
+  __syncthreads();
+
+  for (int l = t; l < nb; l += blockDim.x) {
+    const int b0 = sbeg[l], k = sbeg[l + 1] - b0;
+    if (k == 0) continue;
+    if (k > SMALL) {
+      big[atomicAdd(&nbig, 1)] = l;
+      continue;
+    }
+    const long long g = 2 * (long long)(base + l);
+    T f = flux[g];
+    T f2 = sq ? flux[g + 1] : f;
+    if (k <= TINY) {
+      // Keys and values into registers, ordered by an odd-even
+      // transposition network, then folded.
+      long long kk[TINY];
+      T v[TINY];
+#pragma unroll
+      for (int j = 0; j < TINY; ++j) {
+        const int q = j < k ? slot[b0 + j] : 0;
+        kk[j] = j < k ? sk[q] : KEY_MAX;
+        v[j] = j < k ? sv[q] : (T)0;
+      }
+#pragma unroll
+      for (int round = 0; round < TINY; ++round) {
+#pragma unroll
+        for (int j = round & 1; j + 1 < TINY; j += 2) {
+          if (kk[j + 1] < kk[j]) {
+            const long long tk = kk[j];
+            kk[j] = kk[j + 1];
+            kk[j + 1] = tk;
+            const T tv = v[j];
+            v[j] = v[j + 1];
+            v[j + 1] = tv;
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < TINY; ++j) {
+        if (j < k) {
+          f = f + v[j];
+          if (sq) f2 = f2 + v[j] * v[j];
+        }
+      }
+    } else {
+      long long last = -1;  // keys are not negative
+      for (int step = 0; step < k; ++step) {
+        long long best = KEY_MAX;
+        int bq = 0;
+        for (int j = b0; j < b0 + k; ++j) {
+          const int q = slot[j];
+          const long long kq = sk[q];
+          if (kq > last && kq < best) {
+            best = kq;
+            bq = q;
+          }
+        }
+        const T v = sv[bq];
+        f = f + v;
+        if (sq) f2 = f2 + v * v;
+        last = best;
+      }
+    }
+    flux[g] = f;
+    if (sq) flux[g + 1] = f2;
+  }
+  __syncthreads();
+
+  // Bins of more than SMALL records: the block ranks every record by the
+  // keys below its own (keys are distinct), then one thread folds a bin.
+  const int nl = nbig;
+  for (int L = 0; L < nl; ++L) {
+    const int l = big[L], b0 = sbeg[l], k = sbeg[l + 1] - b0;
+    for (int j = t; j < k; j += blockDim.x) {
+      const int q = slot[b0 + j];
+      const long long kq = sk[q];
+      int rank = 0;
+      for (int x = b0; x < b0 + k; ++x) rank += sk[slot[x]] < kq;
+      ranked[b0 + rank] = (unsigned short)q;
+    }
+  }
+  __syncthreads();
+  for (int L = t; L < nl; L += blockDim.x) {
+    const int l = big[L], b0 = sbeg[l], k = sbeg[l + 1] - b0;
+    const long long g = 2 * (long long)(base + l);
+    T f = flux[g];
+    T f2 = sq ? flux[g + 1] : f;
+    for (int j = b0; j < b0 + k; ++j) {
+      const T v = sv[ranked[j]];
+      f = f + v;
+      if (sq) f2 = f2 + v * v;
+    }
+    flux[g] = f;
+    if (sq) flux[g + 1] = f2;
+  }
 }
 
 // Bitonic sort of SORT_TILE (key, index) pairs in shared memory, one
@@ -526,6 +780,63 @@ int scan_launch(const int* counts, int nbins, int* offsets, int* tile_sums,
   return (int)cudaGetLastError();
 }
 
+// The bucket path's count: records per bucket of 2^shift bins into
+// counts [nbuckets] (zeroed) and their exclusive scan into offsets
+// [nbuckets + 1]; the largest count and the order keys' range into info
+// (see bucket_stats).
+int bucket_count_launch(const void* bin, const void* order, int m, int nbins,
+                        int shift, void* counts, void* offsets,
+                        void* tile_sums, void* info, void* stream) {
+  if (m <= 0) return (int)cudaSuccess;
+  if (shift < 0 || shift > BUCKET_SHIFT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int nbuckets = (int)(((long long)nbins + (1 << shift) - 1) >> shift);
+  order_count<<<cdiv(m, 256), 256, 0, s>>>((const int*)bin, m, shift,
+                                           (int*)counts);
+  PUMI_CHECK_LAUNCH();
+  const int e = scan_launch((const int*)counts, nbuckets, (int*)offsets,
+                            (int*)tile_sums, s);
+  if (e != 0) return e;
+  const int blocks = cdiv(m > nbuckets ? m : nbuckets, 256);
+  bucket_stats<<<blocks < LARGE_BLOCKS ? blocks : LARGE_BLOCKS, 256, 0, s>>>(
+      (const int*)counts, nbuckets, (const long long*)order, m,
+      (long long*)info);
+  return (int)cudaGetLastError();
+}
+
+// The bucket path's placement and fold, after bucket_count_launch found
+// no bucket larger than cap (<= BUCKET_CAP) and keys of lshift + shift <=
+// 63 bits, lshift = obits + ibits for an order range of obits bits from
+// omin and record indices of ibits bits. counts are spent as cursors; rec
+// holds 2m int64, 16 B aligned.
+template <typename T>
+int bucket_launch(void* flux, const void* bin, const void* order,
+                  const void* c, int m, int nbins, int shift, long long omin,
+                  int obits, int ibits, int cap, int sq, const void* offsets,
+                  void* counts, void* rec, void* stream) {
+  if (m <= 0) return (int)cudaSuccess;
+  const int lshift = obits + ibits;
+  if (shift < 0 || shift > BUCKET_SHIFT_MAX || cap < 1 || cap > BUCKET_CAP ||
+      obits < 0 || ibits < 1 || lshift + shift > 63 || (uintptr_t)rec % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int nbuckets = (int)(((long long)nbins + (1 << shift) - 1) >> shift);
+  bucket_place<T><<<cdiv(m, 256), 256, 0, s>>>(
+      (const int*)bin, (const long long*)order, (const T*)c, m, shift, omin,
+      lshift, ibits, (const int*)offsets, (int*)counts, (longlong2*)rec);
+  PUMI_CHECK_LAUNCH();
+  // Above 48 KB a block's dynamic shared memory must be asked for.
+  const cudaError_t a = cudaFuncSetAttribute(
+      bucket_fold<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bucket_smem<T>(BUCKET_CAP, BUCKET_SHIFT_MAX));
+  if (a != cudaSuccess) return (int)a;
+  bucket_fold<T><<<nbuckets, BUCKET_THREADS, bucket_smem<T>(cap, shift), s>>>(
+      (const int*)offsets, (const longlong2*)rec, nbins, shift, lshift, cap,
+      (T*)flux, sq);
+  return (int)cudaGetLastError();
+}
+
 // Passes 1-4: every bin of at most SMALL records folded, the larger ones
 // listed for large_launch.
 template <typename T>
@@ -581,7 +892,8 @@ int lane_order_launch(const void* elem, int n, int nbins, void* counts,
                       void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const cudaStream_t s = (cudaStream_t)stream;
-  order_count<<<cdiv(n, 256), 256, 0, s>>>((const int*)elem, n, (int*)counts);
+  order_count<<<cdiv(n, 256), 256, 0, s>>>((const int*)elem, n, 0,
+                                           (int*)counts);
   PUMI_CHECK_LAUNCH();
   const int e = scan_launch((const int*)counts, nbins, (int*)offsets,
                             (int*)tile_sums, s);
@@ -595,17 +907,44 @@ int lane_order_launch(const void* elem, int n, int nbins, void* counts,
 }  // namespace
 
 // C entry points. Pointers and the stream are void*; the return value is
-// the cudaError_t of the launches. The caller allocates the scratch of
+// the cudaError_t of the launches.
+//
+// The bucket path: with nbuckets = ceil(nbins / 2^shift), the caller
+// allocates counts [nbuckets] int32 zeroed, offsets [nbuckets+1] int32,
+// tile_sums [ceil(nbuckets/4096)] int32 and info [3] int64 set to (0,
+// int64 max, int64 min) for pumi_bucket_count; reads info (the largest
+// bucket, the least and the largest order) and, if the largest bucket is
+// at most 2048 and the keys fit 63 bits, passes it as cap to
+// pumi_scatter_bucket_<t> with the least order, the bits of the order
+// range and of the record indices, and rec [2m] int64 (16 B aligned).
+//
+// The crowded path: the caller allocates the scratch of
 // pumi_scatter_ordered: counts [nbins] int32 zeroed, offsets [nbins+1]
 // int32, tile_sums [ceil(nbins/4096)] int32, large_info [2] int32 zeroed,
 // large and large_beg [m/33+1] int32, idx [m] int32; then, with nl and r
 // read from large_info, the scratch of pumi_scatter_ordered_large (only
 // when nl > 0): key_a and key_b [r] int64, idx_b [r] int32.
+extern "C" int pumi_bucket_count(const void* bin, const void* order, int m,
+                                 int nbins, int shift, void* counts,
+                                 void* offsets, void* tile_sums, void* info,
+                                 void* stream) {
+  return bucket_count_launch(bin, order, m, nbins, shift, counts, offsets,
+                             tile_sums, info, stream);
+}
+
 #define PUMI_SCATTER_ENTRIES(TAG, T)                                          \
   extern "C" int pumi_scatter_atomic_##TAG(void* flux, const void* bin,       \
                                            const void* c, int m, int sq,      \
                                            void* stream) {                    \
     return atomic_launch<T>(flux, bin, c, m, sq, stream);                     \
+  }                                                                           \
+  extern "C" int pumi_scatter_bucket_##TAG(                                   \
+      void* flux, const void* bin, const void* order, const void* c, int m,   \
+      int nbins, int shift, long long omin, int obits, int ibits, int cap,    \
+      int sq, const void* offsets, void* counts, void* rec, void* stream) {   \
+    return bucket_launch<T>(flux, bin, order, c, m, nbins, shift, omin,       \
+                            obits, ibits, cap, sq, offsets, counts, rec,      \
+                            stream);                                          \
   }                                                                           \
   extern "C" int pumi_scatter_ordered_##TAG(                                  \
       void* flux, const void* bin, const void* order, const void* c, int m,   \

@@ -26,9 +26,25 @@ key; the walk uses ``iteration · n_lanes + lane``, so a bin's adds land in
 The ``*_plain`` functions are the PyTorch versions. The wrappers take them
 for CPU tensors only; for CUDA tensors they launch the hand-written
 kernels of ``csrc/scatter.cu`` (built at first use) or raise.
+
+On the card the ordered scatter takes one of two paths, chosen by the
+data. It counts the records of every bucket of ``2^shift`` consecutive
+bins (``bucket_shift`` picks the shift) and reads the largest count and
+the range of the order keys to the host once. The bucket path places
+every record in its bucket's range as one 16 B record, a 63-bit key that
+orders it by (bin, order, record index) beside its value
+(``bucket_keys_plain`` is the key's plain version), and folds each bucket
+in shared memory. A call takes the crowded path (``crowded_cuda``, a sort
+by bin over all records) when a bucket holds more than
+``BUCKET_CAPACITY`` records (``is_crowded``) or the keys do not fit 63
+bits (``key_bits``).
+
 ``ATOMIC_LAUNCHES``, ``ORDERED_LAUNCHES`` and ``ORDER_LAUNCHES`` count
 the wrappers' kernel launches (one per call that reaches the card), and
-nothing else.
+nothing else; ``BUCKET_LAUNCHES`` and ``CROWDED_LAUNCHES`` count the
+ordered scatter's calls by path. ``LAST_BUCKETS`` describes the last
+ordered call on the card: its shift, bucket count, largest bucket, the
+capacity, the key's bits and the path taken.
 """
 from __future__ import annotations
 
@@ -41,6 +57,14 @@ from . import _build
 ATOMIC_LAUNCHES = 0
 ORDERED_LAUNCHES = 0
 ORDER_LAUNCHES = 0
+BUCKET_LAUNCHES = 0
+CROWDED_LAUNCHES = 0
+LAST_BUCKETS: dict = {}
+
+# Records a bucket's block holds in shared memory, and the widest bucket
+# (csrc/scatter.cu BUCKET_CAP, BUCKET_SHIFT_MAX).
+BUCKET_CAPACITY = 2048
+MAX_SHIFT = 10
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 _INT32_MAX = 2**31 - 1
@@ -103,6 +127,58 @@ def scatter_ordered_plain(flux, bin, order, c, score_squares: bool = True):
             flux2[:, 1].index_add_(0, b, v * v)
         lo += k
     return flux
+
+
+def n_buckets(nbins: int, shift: int) -> int:
+    """Buckets of ``2^shift`` consecutive bins that cover ``nbins``; the
+    last may be short."""
+    return -(-nbins >> shift)
+
+
+def bucket_shift(m: int, nbins: int) -> int:
+    """The largest shift up to ``MAX_SHIFT`` for which the mean bucket,
+    ``m / n_buckets(nbins, shift)`` records, holds at most a third of
+    ``BUCKET_CAPACITY``; 0 when none does."""
+    for shift in range(MAX_SHIFT, 0, -1):
+        if 3 * m <= BUCKET_CAPACITY * n_buckets(nbins, shift):
+            return shift
+    return 0
+
+
+def bucket_counts_plain(bin, nbins: int, shift: int):
+    """Records per bucket (int64), the count pass of the bucket path."""
+    return torch.bincount(bin.long() >> shift,
+                          minlength=n_buckets(nbins, shift))
+
+
+def is_crowded(largest: int) -> bool:
+    """A call whose largest bucket holds more records than a bucket's
+    block can: it takes the crowded path."""
+    return largest > BUCKET_CAPACITY
+
+
+def key_bits(m: int, span: int) -> tuple[int, int]:
+    """Bits of a bucket key's order field (``span`` = the largest order
+    less the least) and of its record index (indices below ``m``). With
+    the local bin's ``shift`` bits above them, a key fits when the three
+    come to at most 63."""
+    return span.bit_length(), max(1, (m - 1).bit_length())
+
+
+def bucket_keys_plain(bin, order, shift: int):
+    """The bucket path's key of every record, as ``bucket_place`` makes
+    it: ``(bin mod 2^shift) << (obits + ibits) | (order - min order) <<
+    ibits | record index``. Within a bucket, keys order the records by
+    (bin, order, index). Raises ValueError when they do not fit 63 bits."""
+    m = bin.numel()
+    lo, hi = (int(v) for v in torch.aminmax(order))
+    obits, ibits = key_bits(m, hi - lo)
+    if shift + obits + ibits > 63:
+        raise ValueError(f"keys of {shift} + {obits} + {ibits} bits do not "
+                         "fit 63")
+    local = bin.long() & ((1 << shift) - 1)
+    idx = torch.arange(m, dtype=torch.int64, device=bin.device)
+    return local << (obits + ibits) | (order - lo) << ibits | idx
 
 
 def _check(flux, bin, c, order=None):
@@ -239,11 +315,71 @@ def lane_order_cuda(keys, nbins: int):
 
 def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
     """Launch the ordered scatter of ``csrc/scatter.cu`` on records that
-    were checked (or that the walk made): count per bin, exclusive scan,
+    were checked (or that the walk made): count the records per bucket,
+    scan, read the largest count and the order range to the host (the
+    call's one host sync), then either place them by bucket and fold each
+    bucket in shared memory (the bucket path) or, if the call is crowded
+    or its keys do not fit, ``crowded_cuda``."""
+    global ORDERED_LAUNCHES, BUCKET_LAUNCHES, LAST_BUCKETS
+    m = bin.numel()
+    if m == 0:
+        return flux
+    dev = flux.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    shift = bucket_shift(m, nbins)
+    nb = n_buckets(nbins, shift)
+    counts = torch.zeros(nb, **i32)
+    offsets = torch.empty(nb + 1, **i32)
+    tile_sums = torch.empty((nb + 4095) // 4096, **i32)
+    # Staged without waiting on the stream: the read below is the one sync.
+    info = torch.tensor([0, 2**63 - 1, -2**63], dtype=torch.int64).to(
+        dev, non_blocking=True)
+    count = _entry("pumi_bucket_count")
+    count.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 5
+    with torch.cuda.device(dev):
+        err = count(bin.data_ptr(), order.data_ptr(), m, nbins, shift,
+                    counts.data_ptr(), offsets.data_ptr(),
+                    tile_sums.data_ptr(), info.data_ptr(), _stream(dev))
+        if err != 0:
+            raise RuntimeError(
+                f"scatter_ordered bucket count failed with cudaError_t {err}")
+        largest, lo, hi = info.tolist()
+        obits, ibits = key_bits(m, hi - lo)
+        crowded = is_crowded(largest) or shift + obits + ibits > 63
+        LAST_BUCKETS = dict(shift=shift, buckets=nb, largest=largest,
+                            capacity=BUCKET_CAPACITY,
+                            key_bits=shift + obits + ibits,
+                            path="crowded" if crowded else "bucket")
+        if crowded:
+            del counts, offsets, tile_sums
+            crowded_cuda(flux, bin, order, c, score_squares, nbins)
+            ORDERED_LAUNCHES += 1
+            return flux
+        rec = torch.empty(2 * m, dtype=torch.int64, device=dev)
+        fold = _entry("pumi_scatter_bucket", flux.dtype)
+        fold.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p] * 4)
+        err = fold(flux.data_ptr(), bin.data_ptr(), order.data_ptr(),
+                   c.data_ptr(), m, nbins, shift, lo, obits, ibits, largest,
+                   int(bool(score_squares)), offsets.data_ptr(),
+                   counts.data_ptr(), rec.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"scatter_ordered bucket fold failed with cudaError_t {err}")
+    BUCKET_LAUNCHES += 1
+    ORDERED_LAUNCHES += 1
+    return flux
+
+
+def crowded_cuda(flux, bin, order, c, score_squares, nbins: int):
+    """The ordered scatter by bin over all records, for a call in which
+    some bucket is too large for a block: count per bin, exclusive scan,
     place, order and fold each bin of at most 32 records; then one host
     read of how many bins (and records) are larger, and only if there are
     any, their sort scratch and the block sort that folds them."""
-    global ORDERED_LAUNCHES
+    global CROWDED_LAUNCHES
     m = bin.numel()
     if m == 0:
         return flux
@@ -290,5 +426,5 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
         raise RuntimeError(
             f"scatter_ordered launch failed with cudaError_t {err}"
         )
-    ORDERED_LAUNCHES += 1
+    CROWDED_LAUNCHES += 1
     return flux

@@ -132,7 +132,7 @@ def gather_probe(tbl, idx, reps: int = 5) -> dict:
                       device=tbl.device, error=f"{type(e).__name__}: {e}")
 
 
-def _library_ordered(flux, bin, order, c):
+def library_ordered(flux, bin, order, c):
     """``index_put_(accumulate=True)`` on records sorted by order (stable):
     on the card it sorts the indices stably and adds each run of equal
     indices in that order, which may or may not be the fold's bits."""
@@ -204,10 +204,10 @@ def scatter_probe(kind: str, flux0, bin, order, c, shape, reps: int = 5,
                     lambda f: f.view(-1, 2).index_add_(0, b, v), reps, fresh)
                 times["library"] = "Tensor.index_add_"
             elif score_squares and torch.equal(
-                _library_ordered(flux0.clone(), bin, order, c), ref
+                library_ordered(flux0.clone(), bin, order, c), ref
             ):
                 times["library_us"] = event_us(
-                    lambda f: _library_ordered(f, bin, order, c), reps, fresh)
+                    lambda f: library_ordered(f, bin, order, c), reps, fresh)
                 times["library"] = ("torch.argsort + "
                                     "Tensor.index_put_(accumulate=True)")
         return _entry(probe, shape, ok, agree=agree, bytes_moved=nbytes,

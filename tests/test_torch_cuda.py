@@ -13,8 +13,9 @@ in element order). With the ordered
 tally (the default) each bin gets its adds in the plain walk's order, so
 the flux is bitwise equal too, and equal across runs. With the atomic
 tally it agrees to the reordering of its adds (rtol 1e-10 in float64,
-1e-4 in float32). The ordered scatter and the gather are bitwise equal to
-their plain versions; the atomic scatter agrees within rtol 1e-5. The lane
+1e-4 in float32). The ordered scatter (on its bucket path and on its
+crowded path, which the counters show) and the gather are bitwise equal
+to their plain versions; the atomic scatter agrees within rtol 1e-5. The lane
 order is a permutation whose elements are those of its plain version
 (within an element the order is the device's).
 """
@@ -382,6 +383,94 @@ def test_scatter_ordered_breaks_ties_in_record_order(cuda):
     got = scatter.scatter_ordered(f0.clone(), b, order, c)
     assert torch.equal(got, scatter.scatter_ordered_plain(f0.clone(), b,
                                                           order, c))
+
+
+def _bucket_case(case, cuda, dtype):
+    """Records for one case of the bucket path (bin, order, c, nbins) and
+    the path the call must take."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    rng = np.random.default_rng(len(case))
+    path = "bucket"
+    if case in ("uniform", "ties", "unaligned", "wide keys"):
+        m, nbins = 30000, 20000
+        b = rng.integers(0, nbins, m + 1)
+    elif case == "bin sizes":  # bins of 1, 8, 9, 32, 33 and 600 records
+        nbins = 4096
+        sizes = {3: 1, 40: 8, 41: 9, 300: 32, 301: 33, 1000: 600}
+        b = np.concatenate([np.full(k, x) for x, k in sizes.items()]
+                           + [rng.integers(2048, nbins, 5000)])
+        m = b.size
+    elif case in ("capacity", "capacity + 1"):  # all in the first bucket
+        m, nbins = scatter.BUCKET_CAPACITY + (case != "capacity"), 1 << 16
+        width = 1 << scatter.bucket_shift(m, nbins)
+        b = rng.integers(0, width, m)
+        b[:300] = 5  # a bin ranked by the block
+        path = "bucket" if case == "capacity" else "crowded"
+    elif case == "ragged":  # a short last bucket, its last bin crowded
+        m, nbins = 20000, 20001
+        b = rng.integers(0, nbins, m)
+        b[:500] = nbins - 1
+    else:  # "empty", "one"
+        m, nbins = {"empty": 0, "one": 1}[case], 1000
+        b = rng.integers(0, nbins, m)
+    b = rng.permutation(b)
+    order = (rng.integers(0, max(m // 8, 1), b.size) if case == "ties"
+             else rng.permutation(3 * b.size)[:b.size])
+    if case == "wide keys":  # (bin, order, index) does not fit 63 bits
+        order = rng.integers(-2**61, 2**61, b.size)
+        order[:2] = -2**61, 2**61
+        path = "crowded"
+    t = torch.from_numpy
+    rec = (t(b.astype(np.int32)).to(cuda), t(order.astype(np.int64)).to(cuda),
+           t(rng.uniform(0.01, 2.0, b.size)).to(cuda, dtype))
+    if case == "unaligned":  # 4 B / 8 B past the arrays' start
+        rec = tuple(r[1:] for r in rec)
+    else:
+        rec = tuple(r[:m] for r in rec)
+    return rec, nbins, path
+
+
+@pytest.mark.parametrize("case", [
+    "uniform", "ties", "bin sizes", "capacity", "capacity + 1", "empty", "one",
+    "ragged", "unaligned", "wide keys"])
+@pytest.mark.parametrize("score_squares", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_bucket_path_matches_plain(cuda, dtype, score_squares, case):
+    """The ordered scatter's bucket path, bitwise its plain version, and
+    the path each case takes: a bucket at exactly the capacity fits, one
+    more record sends the call to the crowded path, and so do order keys
+    too wide for a bucket key."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    (b, order, c), nbins, path = _bucket_case(case, cuda, dtype)
+    m = b.numel()
+    seed = torch.from_numpy(np.random.default_rng(1).uniform(
+        0, 1, 2 * nbins)).to(cuda, dtype)
+    before = (scatter.ORDERED_LAUNCHES, scatter.BUCKET_LAUNCHES,
+              scatter.CROWDED_LAUNCHES)
+    got = scatter.scatter_ordered(seed.clone(), b, order, c, score_squares)
+    ref = scatter.scatter_ordered_plain(seed.clone(), b, order, c,
+                                        score_squares)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    if not score_squares:
+        assert torch.equal(got[1::2], seed[1::2])
+    after = (scatter.ORDERED_LAUNCHES, scatter.BUCKET_LAUNCHES,
+             scatter.CROWDED_LAUNCHES)
+    ran = [a - z for a, z in zip(after, before)]
+    if m == 0:
+        assert ran == [0, 0, 0]
+        return
+    assert ran == ([1, 1, 0] if path == "bucket" else [1, 0, 1])
+    info = scatter.LAST_BUCKETS
+    shift = scatter.bucket_shift(m, nbins)
+    sizes = scatter.bucket_counts_plain(b, nbins, shift)
+    assert info["path"] == path and info["shift"] == shift
+    assert info["largest"] == int(sizes.max())
+    assert (info["key_bits"] > 63) == (case == "wide keys")
+    if case == "capacity":
+        assert info["largest"] == scatter.BUCKET_CAPACITY
 
 
 @pytest.mark.parametrize("cols,dtype,idx_dtype", [
