@@ -17,11 +17,13 @@ Phases, each of which raises (exit code != 0) on any failed check:
    the plain walk's order); the robust move also through the atomic
    tally, its flux within rtol 1e-4;
 4. main path: the four-call facade at the headline configuration
-   (998,250-tet box, 1,048,576 particles, 8 groups, float32): construct,
-   locate, 4 moves, write a .vtu. Launch counts are zeroed just before and
-   read just after; the conservation invariant, the boundary write-backs
-   and the .vtu are checked. Each move's ordered scatter must take the
-   bucket path (its largest bucket and the capacity are printed);
+   (998,250-tet box, 1,048,576 particles, 8 groups, float32, the default
+   ``io_pipeline="packed"``): construct, locate, 4 moves, write a .vtu.
+   Launch counts are zeroed just before and read just after; the
+   conservation invariant, the boundary write-backs, the .vtu and one
+   transfer each way a call are checked. Each move's ordered scatter must
+   take the bucket path (its largest bucket and the capacity are
+   printed);
 5. kernel vs plain at the main path's shapes: the inputs of the main
    path's initial search and of its first move, replayed through the
    kernel and the plain walk, compared (flux bitwise) and timed with CUDA
@@ -61,7 +63,21 @@ Phases, each of which raises (exit code != 0) on any failed check:
 9. point source (phase E): all 1,048,576 lanes start at one point of the
    main-path mesh and fly one move; the ordered scatter of its records
    must take the crowded path; it is held bitwise against the plain
-   version and timed, and its largest bin's record count reported.
+   version and timed, and its largest bin's record count reported;
+10. move-loop I/O: the main path's initial search and moves 1-4 from the
+   same seed under each ``io_pipeline`` mode (legacy, packed, overlap),
+   twice each: once with a ``StepClock`` (each host step of every move on
+   the host clock and as a stream span, and the walk's two host waits),
+   once with moves 2-4 traced by torch.profiler (the card's busy share of
+   their host time). Write-backs and raw flux must be bitwise equal
+   across all runs; a packed or overlap move must make 1 host→device and
+   1 device→host transfer, a legacy move 4 and 1; every run launches the
+   walk 5 times and the bucket scatter 4 times. Segments/s of moves 2-4
+   per mode;
+11. pipeline: 4 independent batches of 1,048,576 lanes through
+   ``StreamingTallyPipeline`` at depth 1 and 2, flux and positions
+   bitwise equal to sequential ``walk_cuda.trace``; batches/s beside the
+   sequential walk's, the submit calls' host times, and the busy share.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -338,7 +354,10 @@ def phase_main_path(tmpdir: str):
         f"tally {tally.tally_times.total_time_to_tally:.3f} s, "
         f"vtk {tally.tally_times.vtk_file_write_time:.3f} s; "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
-    log(f"[main] launches: {launches}")
+    log(f"[main] launches: {launches}; transfers {tally.io}")
+    if (tally.io["h2d_transfers"], tally.io["d2h_transfers"]) != (5, 5):
+        raise AssertionError("the packed facade did not make one transfer "
+                             "each way a call")
     if launches["walk"] != 5 + launches["walk_relaunches"]:
         raise AssertionError(f"walk kernel launches {launches}: not 5 "
                              "walks and their relaunches")
@@ -351,6 +370,338 @@ def phase_main_path(tmpdir: str):
     if launches["scatter_atomic"] or launches["gather"]:
         raise AssertionError("the facade launched a probe kernel")
     return tally, snaps, launches
+
+
+def main_move_inputs(rng, n: int, G: int, prev: np.ndarray):
+    """One main-path move's destinations (isotropic flights of mean 0.08
+    from ``prev``) and groups."""
+    direction = rng.normal(size=(n, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    want = prev + direction * rng.exponential(0.08, (n, 1))
+    return want, rng.integers(0, G, n).astype(np.int32)
+
+
+def io_run(mesh, mode: str, *, clocked: bool, profiled: bool) -> dict:
+    """The main-path cell's initial search and moves 1-4 under one
+    ``io_pipeline`` mode, from numpy seed 1 (the main path's inputs).
+    ``clocked`` times each host step of every move (``StepClock``: host
+    clock and stream span) and the host waits inside the walk;
+    ``profiled`` traces moves 2-4 with torch.profiler for the card's busy
+    share. Returns the write-backs, the flux, the per-move host seconds,
+    segments, transfers and step rows, and the launches counted."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import scatter, walk_cuda
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    rng = np.random.default_rng(1)
+    tally = PumiTally(mesh, n, TallyConfig(n_groups=G, io_pipeline=mode),
+                      device=DEVICE)
+    pos = rng.uniform(0.05, 0.95, (n, 3))
+    torch.cuda.synchronize()
+    zero_counts()
+    tally.initialize_particle_location(pos.reshape(-1))
+    if clocked:
+        tally.step_clock = StepClock(DEVICE)
+    prev, outs, moves, prof = pos, [], [], None
+    for move in range(1, 5):
+        want, groups = main_move_inputs(rng, n, G, prev)
+        dest = want.reshape(-1).copy()
+        mats = np.zeros(n, np.int32)
+        io0 = dict(tally.io)
+        if profiled and move == 2:
+            prof = start_profile()
+        t0 = time.perf_counter()
+        tally.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n),
+                                    groups, mats)
+        secs = time.perf_counter() - t0
+        row = dict(move=move, secs=secs,
+                   segments=tally.last_stats["segments"],
+                   io={k: tally.io[k] - io0[k] for k in io0})
+        if clocked:
+            row["steps"] = tally.step_clock.rows()
+            row["count_wait_ms"] = walk_cuda.LAST_WAIT_S * 1e3
+            row["bucket_wait_ms"] = scatter.LAST_BUCKETS.get(
+                "wait_s", float("nan")) * 1e3
+        moves.append(row)
+        outs.append((dest.copy(), mats.copy()))
+        prev = dest.reshape(n, 3).copy()
+    busy = (stop_profile(prof, 3, sum(m["secs"] for m in moves[1:]))
+            if profiled else None)
+    torch.cuda.synchronize()
+    return dict(mode=mode, outs=outs, flux=tally.raw_flux, moves=moves,
+                busy=busy, launches=read_counts())
+
+
+def start_profile():
+    """A torch.profiler session tracing the card's activity only (kernels
+    and copies, CUPTI), so the host runs untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
+def stop_profile(prof, calls: int, host_s: float) -> dict:
+    """Stop a ``start_profile`` session after ``calls`` calls that took
+    ``host_s`` seconds on the host clock: per call, the card's busy time
+    (the device events only: kernels, copies and fills), its copies'
+    part, the host time, and the busy share of the host time."""
+    torch.cuda.synchronize()
+    prof.__exit__(None, None, None)
+    rows = device_rows(prof)
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    copies = sum(e.self_device_time_total for e in rows
+                 if e.key.startswith(("Memcpy", "Memset"))) / 1e6
+    return dict(busy_ms=busy / calls * 1e3, copy_ms=copies / calls * 1e3,
+                span_ms=host_s / calls * 1e3, share=busy / host_s,
+                kernel_share=(busy - copies) / host_s,
+                top=[(e.key[:60], e.self_device_time_total / calls / 1e3)
+                     for e in sorted(rows, key=lambda e:
+                                     -e.self_device_time_total)[:8]])
+
+
+def print_io_run(run: dict) -> None:
+    """A run's moves (host clock, segments, transfers), segments/s of
+    moves 2-4 and, when profiled, the card's busy share and its kernels."""
+    mode, tag = run["mode"], "profiled" if run["busy"] else "clocked"
+    for m in run["moves"]:
+        log(f"[io] {mode} ({tag}) move {m['move']}: {m['secs'] * 1e3:.4f} ms "
+            f"host clock, segments {m['segments']}, transfers {m['io']}")
+    late = run["moves"][1:]
+    segs, secs = sum(m["segments"] for m in late), sum(m["secs"] for m in late)
+    run["segments_per_s"] = segs / secs
+    log(f"[io] {mode} ({tag}) moves 2-4: {segs} segments in {secs:.4f} s, "
+        f"segments/s={segs / secs:.4e}")
+    if run["busy"] is not None:
+        b = run["busy"]
+        log(f"[io] {mode} moves 2-4 profiled, per move: card busy "
+            f"{b['busy_ms']:.4f} ms (copies {b['copy_ms']:.4f} ms) of "
+            f"{b['span_ms']:.4f} ms on the host clock, busy share "
+            f"{b['share']:.4f} (kernels alone {b['kernel_share']:.4f})")
+        for key, ms in b["top"]:
+            log(f"[io]   {ms:9.4f} ms {key}")
+
+
+def print_step_table(label: str, moves: list) -> None:
+    """Median, least and most of each host step (host clock and stream
+    span) over ``moves``, which carry StepClock rows, in step order."""
+    steps: dict = {}
+    for m in moves:
+        for r in m["steps"]:
+            steps.setdefault(r["step"], []).append(r)
+        for key in ("count_wait_ms", "bucket_wait_ms"):
+            if key in m:
+                steps.setdefault(f"  {key[:-3]}", []).append(
+                    {"host_ms": m[key], "stream_ms": None})
+    for name, rows in steps.items():
+        host = np.array([r["host_ms"] for r in rows])
+        span = [r["stream_ms"] for r in rows if r["stream_ms"] is not None]
+        stream = (f"; stream span median {np.median(span):.4f} ms"
+                  if span else "")
+        log(f"[io] {label} {name:<16} host median {np.median(host):.4f} ms "
+            f"(least {host.min():.4f}, most {host.max():.4f}, "
+            f"{len(host)} samples){stream}")
+
+
+IO_MODES = ("legacy", "packed", "overlap")
+# The clocked runs, in turns, so that each mode meets the host's drift.
+IO_TURNS = ("legacy", "packed", "overlap", "overlap", "packed", "legacy")
+PIPE_BATCHES = 4
+
+
+def phase_io(mesh) -> dict:
+    """The main-path cell under each ``io_pipeline`` mode: clocked runs in
+    turns (``IO_TURNS``: per-step host table over moves 2-4 of both turns,
+    segments/s of moves 2-4) and one profiled run a mode (busy share of
+    moves 2-4). Every run's write-backs and flux must be bitwise equal to
+    the first's."""
+    runs: dict = {m: [] for m in IO_MODES}
+    ref = None
+    for mode, clocked in ([(m, True) for m in IO_TURNS]
+                          + [(m, False) for m in IO_MODES]):
+        run = io_run(mesh, mode, clocked=clocked, profiled=not clocked)
+        print_io_run(run)
+        outs, flux = run.pop("outs"), run.pop("flux")
+        if ref is None:
+            ref = dict(mode=mode, outs=outs, flux=flux)
+        for k, ((d, m), (d0, m0)) in enumerate(zip(outs, ref["outs"]), 1):
+            if not (np.array_equal(d, d0) and np.array_equal(m, m0)):
+                raise AssertionError(f"{mode}: move {k}'s write-backs "
+                                     f"differ from {ref['mode']}'s")
+        if not np.array_equal(flux, ref["flux"]):
+            raise AssertionError(f"{mode}: flux differs from "
+                                 f"{ref['mode']}'s")
+        want = (4, 1) if mode == "legacy" else (1, 1)
+        for m in run["moves"]:
+            got = (m["io"]["h2d_transfers"], m["io"]["d2h_transfers"])
+            if got != want:
+                raise AssertionError(f"{mode} move {m['move']}: "
+                                     f"transfers {got}, not {want}")
+        la = run["launches"]
+        if la["walk"] != 5 or la["scatter_bucket"] != 4:
+            raise AssertionError(f"{mode}: launches {la}")
+        runs[mode].append(run)
+    out = {}
+    for mode in IO_MODES:
+        clocked = [r for r in runs[mode] if r["busy"] is None]
+        print_step_table(f"{mode} moves 2-4",
+                         [m for r in clocked for m in r["moves"][1:]])
+        print_step_table(f"{mode} move 1",
+                         [r["moves"][0] for r in clocked])
+        rates = [r["segments_per_s"] for r in clocked]
+        busy = [r["busy"] for r in runs[mode] if r["busy"]][0]
+        out[mode] = dict(segments_per_s=rates, busy=busy,
+                         launches=clocked[0]["launches"])
+        log(f"[io] {mode}: moves 2-4 segments/s in turns "
+            f"{', '.join(f'{x:.4e}' for x in rates)}; busy share "
+            f"{busy['share']:.4f}; write-backs and flux bitwise equal to "
+            f"{ref['mode']}'s; launches {clocked[0]['launches']}")
+    return out
+
+
+def pipeline_batches(mesh, n: int, G: int) -> list:
+    """Independent batches at the main path's cell (numpy seed 11): lanes
+    start at the centroids of random elements and fly isotropically (mean
+    0.08), unit weights, random groups."""
+    rng = np.random.default_rng(11)
+    cent = mesh.centroids().double().cpu().numpy()
+    out = []
+    for _ in range(PIPE_BATCHES):
+        elem = rng.integers(0, mesh.ntet, n).astype(np.int32)
+        want, group = main_move_inputs(rng, n, G, cent[elem])
+        out.append((cent[elem], want, elem, group))
+    return out
+
+
+def walk_batch(mesh, cfg, batch, flux, capacity=None):
+    """One batch through ``walk_cuda.trace`` with pageable copies in and
+    out (the outputs a pipeline batch reads back: positions, elements,
+    material ids, stats): the pipeline's sequential reference. Returns the
+    positions."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    origin, dest, elem, group = batch
+    n, dev, dt = len(elem), mesh.device, cfg.dtype
+    r = walk_cuda.trace(
+        mesh, torch.from_numpy(origin).to(dev, dt),
+        torch.from_numpy(dest).to(dev, dt), torch.from_numpy(elem).to(dev),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        torch.ones(n, dtype=dt, device=dev), torch.from_numpy(group).to(dev),
+        torch.full((n,), -1, dtype=torch.int32, device=dev), flux,
+        initial=False, max_crossings=cfg.resolve_max_crossings(mesh.ntet),
+        n_groups=cfg.n_groups, tolerance=cfg.tolerance, capacity=capacity,
+    )
+    r.elem.cpu(), r.material_id.cpu(), r.stats.cpu()
+    return r.position.cpu().numpy()
+
+
+def phase_pipeline(mesh) -> dict:
+    """``PIPE_BATCHES`` independent batches of the main-path width through
+    ``StreamingTallyPipeline`` at depth 1 and 2, each held bitwise (flux
+    and every batch's positions) to the same batches through sequential
+    ``walk_cuda.trace``; batches per second on the host clock (the
+    sequential walk with pageable copies beside them) and, from a second,
+    profiled run, the card's busy share."""
+    from pumiumtally_tpu_torch import TallyConfig
+    from pumiumtally_tpu_torch.models.pipeline import StreamingTallyPipeline
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    cfg = TallyConfig(n_groups=MAIN_GROUPS)
+    n = MAIN_PARTICLES
+    batches = pipeline_batches(mesh, n, cfg.n_groups)
+    ref = torch.zeros(mesh.ntet * cfg.n_groups * 2, dtype=cfg.dtype,
+                      device=mesh.device)
+    ref_pos = [walk_batch(mesh, cfg, b, ref) for b in batches]
+    cap = walk_cuda.record_capacity(n, max(
+        walk_cuda.path_records(walk_cuda.face_rate(mesh), b[0], b[1],
+                               np.ones(n, bool)) for b in batches))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq = torch.zeros_like(ref)
+    for b in batches:
+        walk_batch(mesh, cfg, b, seq, capacity=cap)
+    seq.cpu()
+    seq_s = time.perf_counter() - t0
+    log(f"[pipe] sequential walk_cuda.trace with pageable copies (the flux "
+        f"read back at the end, as finish() does): {PIPE_BATCHES} batches "
+        f"of {n} lanes in {seq_s:.4f} s, {PIPE_BATCHES / seq_s:.4f} "
+        "batches/s")
+    out = {"sequential_batches_per_s": PIPE_BATCHES / seq_s}
+    for depth in (1, 2):
+        # The warm-up run fills the caching allocators (pinned host
+        # buffers, device blocks), so the timed runs see the steady state
+        # a long stream of batches runs in.
+        for run in ("warm-up", "clocked", "profiled"):
+            zero_counts()
+            torch.cuda.synchronize()
+            prof = start_profile() if run == "profiled" else None
+            t0 = time.perf_counter()
+            pipe = StreamingTallyPipeline(mesh, cfg, depth=depth)
+            if run == "clocked":
+                pipe.step_clock = StepClock(DEVICE)
+            submit_s = []
+            for origin, dest, elem, group in batches:
+                t1 = time.perf_counter()
+                pipe.submit(origin, dest, elem, group=group)
+                submit_s.append(time.perf_counter() - t1)
+            flux = pipe.finish()
+            secs = time.perf_counter() - t0
+            got = list(pipe.results())
+            launches = read_counts()
+            if not np.array_equal(flux.reshape(-1), ref.cpu().numpy()):
+                raise AssertionError(f"pipeline depth {depth}: flux differs "
+                                     "from sequential walk_cuda.trace")
+            if [b.index for b in got] != list(range(PIPE_BATCHES)):
+                raise AssertionError(f"pipeline depth {depth}: results out "
+                                     "of order")
+            for b, want in zip(got, ref_pos):
+                if not (np.array_equal(b.position, want) and b.all_done):
+                    raise AssertionError(f"pipeline depth {depth}: batch "
+                                         f"{b.index}'s positions differ")
+            if (launches["walk"] != PIPE_BATCHES + launches["walk_relaunches"]
+                    or launches["scatter_bucket"] != PIPE_BATCHES):
+                raise AssertionError(f"pipeline depth {depth}: launches "
+                                     f"{launches}")
+            if run == "profiled":
+                b = stop_profile(prof, PIPE_BATCHES, secs)
+                log(f"[pipe] depth {depth} profiled, per batch: card busy "
+                    f"{b['busy_ms']:.4f} ms (copies {b['copy_ms']:.4f} ms) "
+                    f"of {b['span_ms']:.4f} ms on the host clock, busy share "
+                    f"{b['share']:.4f} (kernels alone "
+                    f"{b['kernel_share']:.4f})")
+                for key, ms in b["top"]:
+                    log(f"[pipe]   {ms:9.4f} ms {key}")
+                out[f"depth{depth}_busy"] = b
+                continue
+            log(f"[pipe] depth {depth} {run}: {PIPE_BATCHES} batches in "
+                f"{secs:.4f} s, {PIPE_BATCHES / secs:.4f} batches/s; submit "
+                f"calls {[round(x * 1e3, 4) for x in submit_s]} ms; flux and "
+                f"positions bitwise equal to sequential walk_cuda.trace; "
+                f"launches {launches}")
+            if run == "warm-up":
+                continue
+            rows = pipe.step_clock.rows()
+            for r in rows:
+                span = ("" if r["stream_ms"] is None
+                        else f", stream span {r['stream_ms']:.4f} ms")
+                log(f"[pipe]   depth {depth} {r['step']:<9} host "
+                    f"{r['host_ms']:.4f} ms{span}")
+            flux_s = sum(r["host_ms"] for r in rows
+                         if r["step"] == "flux") / 1e3
+            out[f"depth{depth}_batches_per_s"] = PIPE_BATCHES / secs
+            out[f"depth{depth}_launches"] = launches
+            steady = (PIPE_BATCHES - 1) / sum(submit_s[1:])
+            out[f"depth{depth}_steady_submits_per_s"] = steady
+            log(f"[pipe] depth {depth}: {PIPE_BATCHES / secs:.4f} batches/s "
+                f"with finish()'s flux copy ({flux_s * 1e3:.4f} ms), "
+                f"{PIPE_BATCHES / (secs - flux_s):.4f} without it; submits "
+                f"2-{PIPE_BATCHES} (past the first batch's set-up) "
+                f"{steady:.4f} a second")
+    return out
 
 
 def zero_counts() -> None:
@@ -639,6 +990,19 @@ def walk_orders(args, flux0, kw, capacity: int) -> dict:
     return out
 
 
+def device_rows(prof) -> list:
+    """A profile's device events (kernels, copies, fills) by name: the rows
+    on the card, without the CPU ops that carry their kernels' device time
+    (counting those too counts a torch op twice) and without CUPTI's own
+    buffer requests."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and e.key != "Activity Buffer Request"]
+
+
 def profile_call(label: str, fn, calls: int = 3) -> None:
     """Device time by kernel per call, from torch.profiler's CUDA activity
     (CUPTI) over ``calls`` calls after a warm-up; the share of the calls'
@@ -654,7 +1018,7 @@ def profile_call(label: str, fn, calls: int = 3) -> None:
             fn()
         torch.cuda.synchronize()
         span = (time.perf_counter() - t0) / calls
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = device_rows(prof)
     busy = sum(e.self_device_time_total for e in rows) / calls
     log(f"[profile] {label}, per call of {calls}: {len(rows)} device "
         f"kernels, busy {busy / 1e3:.4f} ms of a {span * 1e3:.4f} ms host "
@@ -911,7 +1275,8 @@ def main() -> int:
     card = card_line()
     name = torch.cuda.get_device_name(0)
     log(f"[device] {card} | torch {torch.__version__} cuda "
-        f"{torch.version.cuda} | {name}")
+        f"{torch.version.cuda} | {name} | host: {os.cpu_count()} CPUs, "
+        f"torch threads {torch.get_num_threads()}")
 
     t0 = time.perf_counter()
     libs = _build.build_many(SOURCES)
@@ -961,6 +1326,14 @@ def main() -> int:
     phase_point_source(tally)
     log(f"[phase] point source: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    io = phase_io(tally.mesh)
+    log(f"[phase] move-loop I/O: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    pipe = phase_pipeline(tally.mesh)
+    log(f"[phase] pipeline: {time.perf_counter() - t0:.2f} s")
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -977,7 +1350,10 @@ def main() -> int:
          "atomic_ms": k["atomic_ms"], "active_share": k["share"],
          "launch_order_share": k["launch_order_share"],
          "slot_order_ms": k["slot_order_ms"],
-         "launch_order_ms": k["launch_order_ms"]},
+         "launch_order_ms": k["launch_order_ms"],
+         "io_launches": {m: r["launches"]["walk"] for m, r in io.items()},
+         "pipeline_launches": {d: pipe[f"depth{d}_launches"]["walk"]
+                               for d in (1, 2)}},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},
@@ -998,7 +1374,12 @@ def main() -> int:
              bucket_launches=launches["scatter_bucket"],
              crowded_launches=launches["scatter_crowded"],
              move1_bucket_ms=k["scatter_ms"], move1_crowded_ms=k["crowded_ms"],
-             move1_library_ms=k["library_ms"], buckets=k["buckets"]),
+             move1_library_ms=k["library_ms"], buckets=k["buckets"],
+             io_bucket_launches={m: r["launches"]["scatter_bucket"]
+                                 for m, r in io.items()},
+             pipeline_bucket_launches={
+                 d: pipe[f"depth{d}_launches"]["scatter_bucket"]
+                 for d in (1, 2)}),
         {"name": "scatter.lane_order", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/scatter.cu",
          "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",

@@ -15,10 +15,36 @@ entry points and numpy array contracts:
   * ``write_pumi_tally_mesh(filename)`` — normalizes and writes VTK.
 
 The mesh, the particle state and the flux stay on ``device`` (by default
-the CUDA card) between calls. Each move copies its inputs host→device
-and brings positions, material ids and the walk stats vector back in one
-device→host copy. On the card the walk is the CUDA kernel
+the CUDA card) between calls. On the card the walk is the CUDA kernel
 ``csrc/walk.cu``; on the CPU it is the plain PyTorch walk.
+
+How a call moves its data follows ``TallyConfig.io_pipeline``
+(``resolve_io_pipeline``), as in the JAX facade:
+
+  * ``"packed"`` (the default): the move's inputs are packed on the host
+    into one record of carrier words (``ops/staging.py``), in a pinned
+    buffer on the card, copied host→device once with
+    ``non_blocking=True``; the walk unpacks it and packs positions,
+    material ids, done flags and the stats vector into one readback
+    (``walk_cuda.trace_packed``), copied device→host once into a pinned
+    buffer and waited on by a CUDA event before the write-back. Packing
+    and the write-backs use torch's threaded CPU copies.
+  * ``"overlap"``: ``"packed"`` with two pinned buffers per record kind
+    used in turns. The JAX facade also defers its telemetry fold past the
+    move there; the port has no telemetry to fold yet (A10), so the two
+    modes differ only in their buffers.
+  * ``"legacy"``: four pageable host→device copies (destinations, flags,
+    weights, groups, each converted by numpy first) and one
+    device→host copy of the stats, positions and material ids.
+
+``PumiTally.io`` counts the facade's transfers (``h2d_transfers``,
+``h2d_bytes``, ``d2h_transfers``, ``d2h_bytes``) as the JAX facade's
+telemetry totals count them: a packed move makes one each way, a legacy
+move four host→device and one device→host. The ordered walk's own host
+reads on the card (the record count in ``ops/walk_cuda.py``, the bucket
+information in ``ops/scatter.py``) happen inside the walk wrapper and are
+not counted (ROADMAP.md B2). ``PumiTally.step_clock`` set to a
+``utils/timing.py::StepClock`` times each host step of a call.
 """
 from __future__ import annotations
 
@@ -33,10 +59,11 @@ from .io.vtk import write_flux_vtk
 from .mesh.core import TetMesh
 from .mesh.io import load_mesh
 from .obs.walk_stats import stats_to_dict
-from .ops import walk_cuda
+from .ops import staging, walk_cuda
+from .ops.staging import HostStager, host_tensor
 from .utils.config import TallyConfig
 from .utils.platform import resolve_device
-from .utils.timing import TallyTimes, phase_timer
+from .utils.timing import StepClock, TallyTimes, clock_step, phase_timer
 
 _NP_DTYPES = {
     torch.float32: np.float32, torch.float64: np.float64,
@@ -79,6 +106,11 @@ def _out_param(arr, name: str, expected_dtypes, min_size: int) -> np.ndarray:
             "caller's buffer"
         )
     return flat
+
+
+def _convert(host: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """A contiguous host copy of ``host`` in the walk's dtype."""
+    return np.ascontiguousarray(host, _NP_DTYPES[dtype])
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -128,6 +160,10 @@ class PumiTally:
             self.mesh = mesh
             self.num_particles = int(num_particles)
             self._max_crossings = cfg.resolve_max_crossings(mesh.ntet)
+            self._io = cfg.resolve_io_pipeline()
+            self._stager = HostStager(
+                depth=2 if self._io == "overlap" else 1, device=self.device
+            )
             self.state: ParticleState = seed_at_element_centroid(
                 make_particle_state(
                     self.num_particles, cfg.dtype, device=self.device
@@ -144,19 +180,25 @@ class PumiTally:
             self.last_stats: dict | None = None
             # Scored segments of the last move: the ordered walk makes at
             # most one tally record per segment, so the next move's record
-            # buffers are sized from it.
+            # buffers are sized from it. Before the first move they are
+            # sized from the face rate and the path from the initial
+            # search's destinations (a host copy).
             self._last_segments: int | None = None
+            self._face_rate = walk_cuda.face_rate(mesh)
+            self._origin_h: np.ndarray | None = None
             self._initialized = False
+            # Host↔device transfers the facade made, as the JAX facade's
+            # telemetry totals count them.
+            self.io = dict(h2d_transfers=0, h2d_bytes=0, d2h_transfers=0,
+                           d2h_bytes=0)
+            # Set to a StepClock to time each host step of the calls.
+            self.step_clock: StepClock | None = None
             timer.sync(self.device)
 
     # ------------------------------------------------------------------ #
-    def _walk(self, dest, in_flight, weight, group, *, initial: bool):
+    def _walk_kw(self, initial: bool) -> dict:
         cfg = self.config
-        s = self.state
-        capacity = None if initial else self._record_capacity(dest, in_flight)
-        return walk_cuda.trace(
-            self.mesh, s.origin, dest, s.elem, in_flight, weight, group,
-            s.material_id, self.flux,
+        return dict(
             initial=initial,
             max_crossings=self._max_crossings,
             n_groups=cfg.n_groups,
@@ -165,35 +207,62 @@ class PumiTally:
             robust=cfg.robust,
             ledger=cfg.ledger,
             stats=cfg.walk_stats,
-            capacity=capacity,
         )
 
     def _record_capacity(self, dest, in_flight) -> int:
         """Tally records the ordered walk's buffers hold for this move
-        (a walk that makes more runs again): 5/4 of an estimate, at least
-        4 per lane. The estimate is the last move's segments; before the
-        first move, one segment per flying lane plus the faces its straight
-        path crosses at the mesh's rate for an isotropic line, S/(4V) with
-        S the elements' summed face areas and V their volume."""
-        n = self.num_particles
+        (``walk_cuda.record_capacity``; a walk that makes more runs
+        again). The estimate is the last move's segments; before the first
+        move, ``walk_cuda.path_records`` from the initial search's
+        destinations. ``dest`` and ``in_flight`` are on the host (numpy
+        arrays or CPU tensors), so the estimate reads nothing from the
+        card."""
         if self._last_segments is not None:
             est = self._last_segments
         else:
-            # Elementwise ops in the mesh dtype, sums in float64.
-            f64 = torch.float64
-            v = self.mesh.coords[self.mesh.tet2vert.long()]
-            area = 0.0
-            for a, b, c in ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)):
-                p, q = v[:, b] - v[:, a], v[:, c] - v[:, a]
-                x = p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1]
-                y = p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2]
-                z = p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]
-                area = area + (x * x + y * y + z * z).sqrt().sum(dtype=f64)
-            rate = area / 2 / (4 * self.mesh.volumes.sum(dtype=f64))
-            d = dest - self.state.origin
-            path = ((d * d).sum(dim=1).sqrt() * in_flight).sum(dtype=f64)
-            est = float(in_flight.sum() + rate * path)
-        return max(4 * n, int(np.ceil(1.25 * est)))
+            est = walk_cuda.path_records(self._face_rate, self._origin_h,
+                                         dest, in_flight)
+        return walk_cuda.record_capacity(self.num_particles, est)
+
+    def _step(self, name: str):
+        """The context of one timed host step (nothing without a clock)."""
+        return clock_step(self.step_clock, name)
+
+    def _count(self, way: str, nbytes: int) -> None:
+        self.io[f"{way}_transfers"] += 1
+        self.io[f"{way}_bytes"] += int(nbytes)
+
+    def _put(self, host: np.ndarray) -> torch.Tensor:
+        """Host→device copy of one input array (legacy)."""
+        self._count("h2d", host.nbytes)
+        return torch.from_numpy(host).to(self.device)
+
+    def _to_host(self, *tensors: torch.Tensor) -> list[np.ndarray]:
+        """``_to_host``, counted as one device→host transfer (legacy)."""
+        self._count("d2h", sum(t.numel() * t.element_size()
+                               for t in tensors))
+        return _to_host(*tensors)
+
+    def _put_record(self, rec: torch.Tensor) -> torch.Tensor:
+        """The packed record's one host→device copy."""
+        self._count("h2d", rec.numel() * rec.element_size())
+        return rec.to(self.device, non_blocking=True)
+
+    def _fetch(self, readback: torch.Tensor):
+        """The packed readback's one device→host copy, as views
+        (``staging.readback_views``: positions, material ids, done words,
+        tail)."""
+        self._count("d2h", readback.numel() * readback.element_size())
+        host = staging.to_host(self._stager, readback)
+        return staging.readback_views(host, self.num_particles,
+                                      self.config.dtype)
+
+    def _packed_summary(self, tail: np.ndarray, done_words: np.ndarray):
+        """The legacy summary from a packed readback: the stats vector, or
+        (segments, truncated) when walk_stats is off."""
+        if self.config.walk_stats:
+            return tail
+        return np.array([tail[0], np.count_nonzero(done_words == 0)])
 
     def _summary(self, result) -> torch.Tensor:
         """The device vector the host reads after a walk: the [8] stats
@@ -223,12 +292,6 @@ class PumiTally:
             )
         return segs
 
-    def _put(self, host: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-        """Host→device copy of one input array (converted on the host)."""
-        return torch.from_numpy(
-            np.ascontiguousarray(host, _NP_DTYPES.get(dtype, host.dtype))
-        ).to(self.device)
-
     # ------------------------------------------------------------------ #
     def initialize_particle_location(
         self, init_particle_positions: np.ndarray, size: int | None = None
@@ -245,16 +308,34 @@ class PumiTally:
         if size != n * 3:
             raise ValueError(f"expected {n * 3} coordinates, got {size}")
         cfg = self.config
+        pos3 = pos[:size].reshape(n, 3)
+        self._origin_h = pos3.copy()
+        s = self.state
         with phase_timer(
             self.tally_times, "initialization_time", True
         ) as timer:
-            dest = self._put(pos[:size].reshape(n, 3), cfg.dtype)
-            fly = torch.ones(n, dtype=torch.bool, device=self.device)
-            s = self.state
-            r = self._walk(dest, fly, s.weight, s.group, initial=True)
+            if self._io != "legacy":
+                rec = staging.pack_init_record(
+                    self._stager, pos3, np.ones(n, bool), cfg.dtype
+                )
+                r, readback, dest, _, _, _ = walk_cuda.trace_packed(
+                    self.mesh, s.origin, s.elem, s.material_id,
+                    self._put_record(rec), self.flux, None,
+                    weight=s.weight, group=s.group, **self._walk_kw(True),
+                )
+                _, _, done_h, tail = self._fetch(readback)
+                summary = self._packed_summary(tail, done_h)
+            else:
+                dest = self._put(_convert(pos3, cfg.dtype))
+                fly = torch.ones(n, dtype=torch.bool, device=self.device)
+                r = walk_cuda.trace(
+                    self.mesh, s.origin, dest, s.elem, fly, s.weight,
+                    s.group, s.material_id, self.flux,
+                    **self._walk_kw(True),
+                )
+                (summary,) = self._to_host(self._summary(r))
             self.flux = r.flux
             self.state = s.replace(origin=r.position, dest=dest, elem=r.elem)
-            (summary,) = _to_host(self._summary(r))
             self._account(summary)
             self._initialized = True
             if cfg.measure_time:
@@ -279,31 +360,90 @@ class PumiTally:
             )
         n = self.num_particles
         cfg = self.config
-        dest_flat = _out_param(
-            particle_destinations, "particle_destinations", [np.float64], n * 3
-        )
-        if size is None:
-            size = dest_flat.size
-        if size != n * 3:
-            raise ValueError(f"expected {n * 3} coordinates, got {size}")
-        flying_flat = _out_param(flying, "flying", [np.int8], n)
-        mats_flat = _out_param(material_ids, "material_ids", [np.int32], n)
-        weights_h = np.asarray(weights, dtype=np.float64).reshape(-1)[:n]
-        groups_h = np.asarray(groups, dtype=np.int32).reshape(-1)[:n]
-        _check_group_range(groups_h, cfg.n_groups)
-        fly_h = flying_flat[:n] != 0
-        dest3_h = dest_flat[: n * 3].reshape(n, 3)
+        step = self._step
+        with step("checks"):
+            dest_flat = _out_param(
+                particle_destinations, "particle_destinations", [np.float64],
+                n * 3,
+            )
+            if size is None:
+                size = dest_flat.size
+            if size != n * 3:
+                raise ValueError(f"expected {n * 3} coordinates, got {size}")
+            flying_flat = _out_param(flying, "flying", [np.int8], n)
+            mats_flat = _out_param(material_ids, "material_ids", [np.int32],
+                                   n)
+            weights_h = np.asarray(weights, dtype=np.float64).reshape(-1)[:n]
+            groups_h = np.asarray(groups, dtype=np.int32).reshape(-1)[:n]
+            _check_group_range(groups_h, cfg.n_groups)
+            fly_h = flying_flat[:n] != 0
+            dest3_h = dest_flat[: n * 3].reshape(n, 3)
 
         with phase_timer(
             self.tally_times, "total_time_to_tally", True
         ) as timer:
-            dest = self._put(dest3_h, cfg.dtype)
-            in_flight = self._put(fly_h, torch.bool)
-            weight = self._put(weights_h, cfg.dtype)
-            group = self._put(groups_h, torch.int32)
-            r = self._walk(dest, in_flight, weight, group, initial=False)
+            s = self.state
+            with step("capacity"):
+                kw = dict(self._walk_kw(False),
+                          capacity=self._record_capacity(dest3_h, fly_h))
+            if self._io != "legacy":
+                with step("pack"):
+                    rec = staging.pack_move_record(
+                        self._stager, dest3_h, weights_h, groups_h, fly_h,
+                        cfg.dtype,
+                    )
+                with step("put record"):
+                    rec_dev = self._put_record(rec)
+                with step("walk"):
+                    r, readback, dest, in_flight, weight, group = (
+                        walk_cuda.trace_packed(
+                            self.mesh, s.origin, s.elem, s.material_id,
+                            rec_dev, self.flux, None, **kw,
+                        )
+                    )
+                with step("readback"):
+                    final_pos, final_mats, done_h, tail = self._fetch(
+                        readback
+                    )
+                with step("write-back"):
+                    # Copy-back contract: clipped final positions and
+                    # material ids into the caller's arrays, flying flags
+                    # reset to 0 (threaded torch copies, the first a cast).
+                    host_tensor(dest3_h).copy_(torch.from_numpy(final_pos))
+                    host_tensor(mats_flat[:n]).copy_(
+                        torch.from_numpy(final_mats)
+                    )
+                    flying_flat[:n] = 0
+                summary = self._packed_summary(tail, done_h)
+            else:
+                with step("convert"):
+                    dest_c = _convert(dest3_h, cfg.dtype)
+                    weight_c = _convert(weights_h, cfg.dtype)
+                    group_c = np.ascontiguousarray(groups_h)
+                with step("put dest"):
+                    dest = self._put(dest_c)
+                with step("put flying"):
+                    in_flight = self._put(fly_h)
+                with step("put weight"):
+                    weight = self._put(weight_c)
+                with step("put group"):
+                    group = self._put(group_c)
+                with step("walk"):
+                    r = walk_cuda.trace(
+                        self.mesh, s.origin, dest, s.elem, in_flight, weight,
+                        group, s.material_id, self.flux, **kw,
+                    )
+                with step("to_host"):
+                    summary, final_pos, final_mats = self._to_host(
+                        self._summary(r), r.position, r.material_id
+                    )
+                with step("write-back"):
+                    # Copy-back contract, as above (numpy casts).
+                    dest3_h[:] = final_pos
+                    mats_flat[:n] = final_mats
+                    flying_flat[:n] = 0
             self.flux = r.flux
-            self.state = self.state.replace(
+            self.state = s.replace(
                 origin=r.position,
                 dest=dest,
                 in_flight=in_flight,
@@ -313,14 +453,6 @@ class PumiTally:
                 material_id=r.material_id,
             )
             self.iter_count += 1
-            summary, final_pos, final_mats = _to_host(
-                self._summary(r), r.position, r.material_id
-            )
-            # Copy-back contract: clipped final positions and material
-            # ids into the caller's arrays, flying flags reset to 0.
-            dest_flat[: n * 3].reshape(n, 3)[:] = final_pos
-            mats_flat[:n] = final_mats
-            flying_flat[:n] = 0
             self._last_segments = self._account(summary)
             self.total_segments += self._last_segments
             if cfg.measure_time:

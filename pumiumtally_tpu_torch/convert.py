@@ -65,6 +65,7 @@ def load_tally_arrays(tally, flux, origin, elem, material_id) -> None:
             f"flux has {flux.shape[0]} entries, tally {tally.flux.shape[0]}"
         )
     tally.flux = put(flux, (-1,), dtype)
+    tally._origin_h = np.array(origin, np.float64).reshape(n, 3)
     tally.state = tally.state.replace(
         origin=put(origin, (n, 3), dtype),
         elem=put(elem, (n,), torch.int32),

@@ -44,11 +44,13 @@ the wrappers' kernel launches (one per call that reaches the card), and
 nothing else; ``BUCKET_LAUNCHES`` and ``CROWDED_LAUNCHES`` count the
 ordered scatter's calls by path. ``LAST_BUCKETS`` describes the last
 ordered call on the card: its shift, bucket count, largest bucket, the
-capacity, the key's bits and the path taken.
+capacity, the key's bits, the path taken and ``wait_s``, the host time
+the call waited at its one host read.
 """
 from __future__ import annotations
 
 import ctypes
+import time
 
 import torch
 
@@ -181,6 +183,14 @@ def bucket_keys_plain(bin, order, shift: int):
     return local << (obits + ibits) | (order - lo) << ibits | idx
 
 
+def check_counts(m: int, nbins: int) -> None:
+    """The kernels count records and bins in int32: raises ValueError
+    unless ``m`` records and ``nbins`` bins each fit."""
+    if m > _INT32_MAX or nbins >= _INT32_MAX:
+        raise ValueError(
+            f"records ({m}) and bins ({nbins}) must each fit int32")
+
+
 def _check(flux, bin, c, order=None):
     dtype, dev = flux.dtype, flux.device
     if dtype not in _DTYPE_TAG:
@@ -203,8 +213,7 @@ def _check(flux, bin, c, order=None):
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the scatter runs on 'cuda' or 'cpu', not {dev}")
     nbins = flux.numel() // 2
-    if m > _INT32_MAX or nbins >= _INT32_MAX:
-        raise ValueError("records and bins must each fit int32")
+    check_counts(m, nbins)
     if m and dev.type == "cuda":
         lo, hi = torch.aminmax(bin)
         if int(lo) < 0 or int(hi) >= nbins:
@@ -322,6 +331,7 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
     or its keys do not fit, ``crowded_cuda``."""
     global ORDERED_LAUNCHES, BUCKET_LAUNCHES, LAST_BUCKETS
     m = bin.numel()
+    check_counts(m, nbins)
     if m == 0:
         return flux
     dev = flux.device
@@ -344,13 +354,16 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
         if err != 0:
             raise RuntimeError(
                 f"scatter_ordered bucket count failed with cudaError_t {err}")
+        t0 = time.perf_counter()
         largest, lo, hi = info.tolist()
+        wait_s = time.perf_counter() - t0
         obits, ibits = key_bits(m, hi - lo)
         crowded = is_crowded(largest) or shift + obits + ibits > 63
         LAST_BUCKETS = dict(shift=shift, buckets=nb, largest=largest,
                             capacity=BUCKET_CAPACITY,
                             key_bits=shift + obits + ibits,
-                            path="crowded" if crowded else "bucket")
+                            path="crowded" if crowded else "bucket",
+                            wait_s=wait_s)
         if crowded:
             del counts, offsets, tile_sums
             crowded_cuda(flux, bin, order, c, score_squares, nbins)
@@ -381,6 +394,7 @@ def crowded_cuda(flux, bin, order, c, score_squares, nbins: int):
     any, their sort scratch and the block sort that folds them."""
     global CROWDED_LAUNCHES
     m = bin.numel()
+    check_counts(m, nbins)
     if m == 0:
         return flux
     dev = flux.device

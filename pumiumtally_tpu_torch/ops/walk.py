@@ -36,6 +36,7 @@ import torch
 
 from .geometry import argmax4, exit_face
 from .scatter import scatter_ordered_plain
+from .staging import pack_trace_readback, unpack_move_record
 
 
 def chase_face_choice(sd, elem, it: int, dtype, interior):
@@ -132,6 +133,8 @@ class TraceResult:
     lane_iters: [n] int32 iterations each lane ran (geo20 rows it read).
     track_length: [n] scored track length per lane (None without ledger).
     stats: [8] int64 walk stats vector (None without stats).
+    n_records: the tally records the ordered walk made on the card, a
+      host int (None elsewhere): the walk wrapper reads it anyway.
     """
 
     position: torch.Tensor
@@ -144,6 +147,7 @@ class TraceResult:
     lane_iters: torch.Tensor
     track_length: torch.Tensor | None = None
     stats: torch.Tensor | None = None
+    n_records: int | None = None
 
 
 def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
@@ -249,6 +253,39 @@ def trace(
                  max_crossings=max_crossings, n_groups=n_groups,
                  tolerance=tolerance, robust=robust, ledger=ledger,
                  stats=stats)
+
+
+def trace_packed(mesh, origin, elem, material_id, record, flux, perm=None,
+                 weight=None, group=None, **kwargs):
+    """The packed-I/O step (plain version), counterpart of
+    ``pumiumtally_tpu/ops/walk.py::trace_packed_impl``: unpack the move
+    record (``staging.unpack_move_record``), walk (``trace``, keywords as
+    there), pack the readback (``staging.pack_trace_readback``).
+
+    ``record`` is a ``[n, MOVE_COLS]`` (``[n, INIT_COLS]`` when
+    ``initial``) carrier-word record from ``staging.pack_move_record`` /
+    ``pack_init_record``; for the initial search ``weight`` and ``group``
+    come from the arguments (the device state). ``perm`` must be None
+    (the element sort is A5). Returns ``(TraceResult, readback, dest,
+    in_flight, weight, group)``: the staged tensors ride along so the
+    facade can keep them as its state."""
+    return packed_step(trace, mesh, origin, elem, material_id, record,
+                       flux, perm, weight, group, **kwargs)
+
+
+def packed_step(walk, mesh, origin, elem, material_id, record, flux, perm,
+                weight, group, **kwargs):
+    """``trace_packed`` with ``walk`` as the walk (``trace`` here,
+    ``walk_cuda.trace`` on the card)."""
+    dest, in_flight, w, g = unpack_move_record(record, origin.dtype, perm,
+                                               kwargs["initial"])
+    if w is None:
+        w, g = weight, group
+    r = walk(mesh, origin, dest, elem, in_flight, w, g, material_id, flux,
+             **kwargs)
+    readback = pack_trace_readback(r.position, r.material_id, r.done,
+                                   r.stats, r.n_segments, perm)
+    return r, readback, dest, in_flight, w, g
 
 
 def trace_records(

@@ -25,12 +25,23 @@ buffers. The scatter and the lane order count their own launches.
 ``WARP_TRIPS`` is the last launch's device counter (an int64 on the card,
 read only when the caller reads it): its warps' loop trips, summed, so
 Σ ``lane_iters`` / (32 · ``WARP_TRIPS``) is the share of the warps' lane
-slots that did work.
+slots that did work. ``LAST_WAIT_S`` is the host time the last ordered
+launch spent waiting at its one host read, the record count.
+
+The ordered scatter takes at most 2^31 − 1 records a call
+(``check_record_count``): a walk that makes more raises before its
+records reach the scatter. ``record_capacity``, ``face_rate`` and
+``path_records`` size an ordered walk's record buffers from an estimate
+on the host; ``trace_packed`` is ``trace`` between the move-loop records
+of ``ops/staging.py``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+import time
 
+import numpy as np
 import torch
 
 from . import _build, scatter
@@ -38,6 +49,7 @@ from .walk import (
     Records,
     TraceResult,
     check_walk_args,
+    packed_step,
     resolve_material,
     trace as trace_plain,
     trace_records as trace_records_plain,
@@ -47,7 +59,9 @@ from .walk import (
 LAUNCHES = 0
 RELAUNCHES = 0
 WARP_TRIPS: torch.Tensor | None = None
+LAST_WAIT_S = 0.0
 TALLIES = ("ordered", "atomic")
+_INT32_MAX = 2**31 - 1
 
 _ARGTYPES = (
     [ctypes.c_int] * 3               # robust, initial, ordered
@@ -140,7 +154,19 @@ def trace(
     out, rec = _walk_ordered(*args, **kw, capacity=capacity)
     scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
                          mesh.ntet * n_groups)
-    return _result(out, **kw)
+    return _result(out, **kw, records=rec.bin.numel())
+
+
+def trace_packed(mesh, origin, elem, material_id, record, flux, perm=None,
+                 weight=None, group=None, **kwargs) -> tuple:
+    """The packed-I/O step of ``ops/walk.py::trace_packed`` around this
+    module's ``trace`` (keywords as there, ``tally`` and ``capacity``
+    included): the record is unpacked and the readback packed with torch
+    ops on the record's device, the walk is the kernel for CUDA tensors
+    and the plain walk for CPU tensors. Returns ``(TraceResult,
+    readback, dest, in_flight, weight, group)``."""
+    return packed_step(trace, mesh, origin, elem, material_id, record,
+                       flux, perm, weight, group, **kwargs)
 
 
 def walk_records(mesh, origin, dest, elem, in_flight, weight, group,
@@ -181,12 +207,66 @@ def _check_cuda(mesh, origin, dest, elem, in_flight, weight, group,
         raise ValueError("ntet * n_groups must fit int32 (the tally's bins)")
 
 
+def check_record_count(made: int) -> int:
+    """``made``, the tally records an ordered walk made, if the ordered
+    scatter can take them (at most 2^31 − 1: it counts records in int32);
+    else ValueError. The walk counts in 64 bits, so the count is exact."""
+    if made > _INT32_MAX:
+        raise ValueError(
+            f"the walk made {made} tally records, more than the ordered "
+            f"scatter takes in one call ({_INT32_MAX}); walk fewer "
+            "particles per move"
+        )
+    return made
+
+
+def record_capacity(n: int, estimate: float) -> int:
+    """Records an ordered walk's buffers are given for ``n`` lanes and an
+    estimate of the records it makes: 5/4 of the estimate, at least 4 per
+    lane."""
+    return max(4 * n, math.ceil(1.25 * estimate))
+
+
+def face_rate(mesh) -> float:
+    """Faces an isotropic straight line crosses per unit length in the
+    mesh, S/(4V) with S the elements' summed face areas and V their
+    volume (elementwise ops in the mesh dtype, sums in float64; one read
+    to the host)."""
+    f64 = torch.float64
+    v = mesh.coords[mesh.tet2vert.long()]
+    area = 0.0
+    for a, b, c in ((1, 2, 3), (0, 2, 3), (0, 1, 3), (0, 1, 2)):
+        p, q = v[:, b] - v[:, a], v[:, c] - v[:, a]
+        x = p[:, 1] * q[:, 2] - p[:, 2] * q[:, 1]
+        y = p[:, 2] * q[:, 0] - p[:, 0] * q[:, 2]
+        z = p[:, 0] * q[:, 1] - p[:, 1] * q[:, 0]
+        area = area + (x * x + y * y + z * z).sqrt().sum(dtype=f64)
+    return float(area / 2 / (4 * mesh.volumes.sum(dtype=f64)))
+
+
+def path_records(rate: float, origin, dest, in_flight,
+                 sample: int = 65536) -> float:
+    """An estimate of the records a walk makes, from host arrays (numpy or
+    CPU tensors): one segment per flying lane plus the faces its straight
+    path from ``origin`` to ``dest`` crosses at ``rate`` (``face_rate``).
+    The paths are summed over every k-th lane, at most ``sample`` lanes
+    (all of them up to ``sample``), and scaled to all lanes."""
+    fly = np.asarray(in_flight, bool)
+    n = fly.shape[0]
+    k = max(1, n // sample)
+    d = (np.asarray(dest, np.float64)[::k]
+         - np.asarray(origin, np.float64)[::k])
+    path = np.sqrt((d * d).sum(axis=1))[fly[::k]].sum() * (n / len(d))
+    return int(fly.sum()) + rate * float(path)
+
+
 def _walk_ordered(*args, capacity, **kw):
     global RELAUNCHES
     cap = capacity if capacity is not None else 4 * args[1].shape[0]
     perm = lane_slots(args[0], args[3], args[2], kw["initial"])
     out, rec, made = _launch(*args, **kw, ordered=True, capacity=cap,
                              perm=perm)
+    check_record_count(made)
     if made > cap:
         out, rec, again = _launch(*args, **kw, ordered=True, capacity=made,
                                   perm=perm)
@@ -231,7 +311,7 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     """One walk launch; slot s walks lane ``perm[s]`` (lane s when
     ``perm`` is None). Returns the per-lane outputs and, when ordered,
     the record buffers and the number of records the walk made."""
-    global LAUNCHES, WARP_TRIPS
+    global LAUNCHES, WARP_TRIPS, LAST_WAIT_S
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
 
@@ -282,10 +362,13 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
                nchase=nchase, nseg=nseg_l, iters=iters)
     if not ordered:
         return out
-    return out, rec, int(counters[0].item())
+    t0 = time.perf_counter()
+    made = int(counters[0].item())
+    LAST_WAIT_S = time.perf_counter() - t0
+    return out, rec, made
 
 
-def _result(o, *, ledger, stats, **_) -> TraceResult:
+def _result(o, *, ledger, stats, records=None, **_) -> TraceResult:
     iters, dev = o["iters"], o["iters"].device
     nseg = o["nseg"].sum(dtype=torch.int64)
     n_crossings = (
@@ -308,4 +391,5 @@ def _result(o, *, ledger, stats, **_) -> TraceResult:
                               n_crossings)
             if stats else None
         ),
+        n_records=records,
     )

@@ -7,12 +7,11 @@ packages. What the port does with each field:
 * read by the main path: ``n_groups``, ``tolerance``, ``max_crossings``,
   ``dtype`` (``torch.float32`` or ``torch.float64``), ``output_filename``,
   ``score_squares``, ``robust``, ``ledger``, ``walk_stats``,
-  ``measure_time``;
+  ``measure_time``, ``io_pipeline`` (``resolve_io_pipeline``);
 * accepted and ignored, because in the JAX package they only schedule the
   same arithmetic (straggler compaction, loop unrolling, scatter and
-  gather strategies, the I/O staging mode): ``compact_after``,
-  ``compact_size``, ``compact_stages``, ``unroll``, ``tally_scatter``,
-  ``gathers``, ``io_pipeline``;
+  gather strategies): ``compact_after``, ``compact_size``,
+  ``compact_stages``, ``unroll``, ``tally_scatter``, ``gathers``;
 * every other field is a feature the port does not have yet: setting it
   away from its default raises ``NotImplementedError`` naming the
   ROADMAP.md item that ports it. Nothing computes something else
@@ -21,9 +20,12 @@ packages. What the port does with each field:
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import torch
+
+IO_PIPELINES = ("packed", "overlap", "legacy")
 
 # Field → the ROADMAP.md port item that brings it.
 _UNPORTED = {
@@ -113,6 +115,19 @@ class TallyConfig:
             )
         if self.n_groups < 1:
             raise ValueError(f"n_groups must be >= 1: {self.n_groups}")
+
+    def resolve_io_pipeline(self) -> str:
+        """The effective move-loop I/O mode (``api.py``): the environment
+        variable ``PUMI_TPU_IO_PIPELINE`` beats the field. In the JAX
+        package ``record_xpoints`` and ``checkify_invariants`` force
+        ``"legacy"``; the port refuses both at construction (A5)."""
+        mode = os.environ.get("PUMI_TPU_IO_PIPELINE") or self.io_pipeline
+        if mode not in IO_PIPELINES:
+            raise ValueError(
+                f"io_pipeline must be 'packed', 'overlap' or 'legacy': "
+                f"{mode!r}"
+            )
+        return mode
 
     def resolve_max_crossings(self, ntet: int) -> int:
         if self.max_crossings is not None:

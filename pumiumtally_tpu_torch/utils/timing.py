@@ -43,6 +43,59 @@ class TallyTimes:
             _log.info("[TIME] %s: %.6f s", phase, seconds)
 
 
+class StepClock:
+    """Times of the named host steps of facade calls, for measurement.
+
+    A facade or pipeline with a clock set (``PumiTally.step_clock``,
+    ``StreamingTallyPipeline.step_clock``) wraps each host step of a call
+    in ``clock.step(name)``. A step's row holds its host
+    clock and, on the card, its stream span: the CUDA events recorded on
+    the current stream at the step's entry and exit, so the span runs
+    from the stream reaching the work queued before the step to the
+    stream finishing the work the step queued (idle time included). No
+    step synchronizes; ``rows()`` does, once, to read the events. A step
+    is a row per call: ``rows()`` lists them in call order."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._rows: list = []
+
+    @contextlib.contextmanager
+    def step(self, name: str):
+        cuda = self.device.type == "cuda"
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            host = time.perf_counter() - t0
+            if cuda:
+                b.record()
+            self._rows.append((name, host, (a, b) if cuda else None))
+
+    def rows(self) -> list[dict]:
+        """``{"step", "host_ms", "stream_ms"}`` per step in call order
+        (``stream_ms`` is None off the card); clears the clock."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        out = [
+            {"step": name, "host_ms": host * 1e3,
+             "stream_ms": ev[0].elapsed_time(ev[1]) if ev else None}
+            for name, host, ev in self._rows
+        ]
+        self._rows = []
+        return out
+
+
+def clock_step(clock: StepClock | None, name: str):
+    """``clock.step(name)``, or a context that does nothing without a
+    clock."""
+    return contextlib.nullcontext() if clock is None else clock.step(name)
+
+
 class phase_timer(contextlib.AbstractContextManager):
     """Accumulate elapsed wall-clock into ``times.<field>``. Inside the
     block, ``.sync(device)`` asks for the device to be synchronized before

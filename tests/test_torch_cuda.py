@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card (marker ``cuda``; skipped without
-one): the walk, the tally scatter and the row gather.
+one): the walk, the tally scatter and the row gather, and the move-loop
+I/O around them (pinned staging, the ``io_pipeline`` modes, the streaming
+pipeline, the guard on a walk's record count).
 
 This file imports nothing of JAX, so it also runs where JAX is absent:
 
@@ -17,7 +19,9 @@ tally it agrees to the reordering of its adds (rtol 1e-10 in float64,
 crowded path, which the counters show) and the gather are bitwise equal
 to their plain versions; the atomic scatter agrees within rtol 1e-5. The lane
 order is a permutation whose elements are those of its plain version
-(within an element the order is the device's).
+(within an element the order is the device's). Packed and overlap staging
+give the legacy path's bits, and the pipeline those of the same batches
+walked one after another.
 """
 from __future__ import annotations
 
@@ -492,3 +496,135 @@ def test_gather_matches_plain(cuda, cols, dtype, idx_dtype):
     assert torch.equal(out, gather.gather_rows_plain(tbl, idx))
     with pytest.raises(IndexError):
         gather.gather_rows(tbl, idx.clone().fill_(5000))
+
+
+# --------------------------------------------------------------------- #
+# Move-loop I/O on the card (ops/staging.py, io_pipeline, the pipeline)
+# --------------------------------------------------------------------- #
+def _drive_facade(io, dtype, cuda, n=4096, moves=3):
+    """A facade run on a two-material box; returns each move's write-backs,
+    the raw flux and the transfers of the last move."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    mesh = _jittered(6, dtype, cuda)
+    t = PumiTally(mesh, n, TallyConfig(n_groups=3, dtype=dtype,
+                                       io_pipeline=io))
+    rng = np.random.default_rng(6)
+    prev = rng.uniform(0.05, 0.95, (n, 3))
+    t.initialize_particle_location(prev.reshape(-1).copy())
+    outs = []
+    for _ in range(moves):
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        dest = (prev + d * rng.exponential(0.2, (n, 1))).reshape(-1)
+        flying = (rng.uniform(size=n) > 0.1).astype(np.int8)
+        mats = np.full(n, 9, np.int32)
+        before = dict(t.io)
+        t.move_to_next_location(dest, flying, rng.uniform(0.5, 2.0, n),
+                                rng.integers(0, 3, n).astype(np.int32), mats)
+        outs.append((dest.copy(), mats.copy()))
+        prev = dest.reshape(n, 3).copy()
+    io = {k: t.io[k] - before[k] for k in before}
+    return outs, t.raw_flux, t.element_ids, io
+
+
+@pytest.mark.parametrize("io", ["packed", "overlap"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_packed_io_matches_legacy(cuda, dtype, io):
+    """Packed and overlap staging give the legacy path's write-backs, flux
+    and elements bit for bit, with one transfer each way a move."""
+    outs_a, flux_a, elems_a, io_a = _drive_facade("legacy", dtype, cuda)
+    outs_b, flux_b, elems_b, io_b = _drive_facade(io, dtype, cuda)
+    for (da, ma), (db, mb) in zip(outs_a, outs_b):
+        np.testing.assert_array_equal(db, da)
+        np.testing.assert_array_equal(mb, ma)
+    np.testing.assert_array_equal(flux_b, flux_a)
+    np.testing.assert_array_equal(elems_b, elems_a)
+    assert (io_a["h2d_transfers"], io_a["d2h_transfers"]) == (4, 1)
+    assert (io_b["h2d_transfers"], io_b["d2h_transfers"]) == (1, 1)
+
+
+def test_host_stager_buffers_are_pinned(cuda):
+    from pumiumtally_tpu_torch.ops.staging import HostStager
+
+    st = HostStager(depth=2, device=cuda)
+    a = st.buf((64, 6), torch.int32, "move")
+    b = st.buf((64, 6), torch.int32, "move")
+    assert a.is_pinned() and b.is_pinned()
+    assert a.data_ptr() != b.data_ptr()
+    assert st.buf((64, 6), torch.int32, "move").data_ptr() == a.data_ptr()
+
+
+def test_pipeline_depth2_matches_sequential(cuda):
+    """Four batches through the pipeline (copy stream, depth 2) give the
+    flux and positions of the same batches walked one after another."""
+    from pumiumtally_tpu_torch import TallyConfig
+    from pumiumtally_tpu_torch.models.pipeline import StreamingTallyPipeline
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    dtype, G, n = torch.float32, 4, 4096
+    mesh = _jittered(6, dtype, cuda)
+    cfg = TallyConfig(n_groups=G, dtype=dtype)
+    rng = np.random.default_rng(12)
+    cent = mesh.centroids().double().cpu().numpy()
+    batches = []
+    for _ in range(4):
+        elem = rng.integers(0, mesh.ntet, n).astype(np.int32)
+        dest = rng.uniform(-0.05, 1.05, (n, 3))
+        w = rng.uniform(0.5, 2.0, n)
+        g = rng.integers(0, G, n).astype(np.int32)
+        batches.append((cent[elem], dest, elem, w, g))
+    pipe = StreamingTallyPipeline(mesh, cfg, depth=2)
+    for b in batches:
+        pipe.submit(*b)
+    flux = pipe.finish()
+    ref = torch.zeros(mesh.ntet * G * 2, dtype=dtype, device=cuda)
+    positions = []
+    for origin, dest, elem, w, g in batches:
+        def t(a, dt):
+            return torch.from_numpy(a).to(cuda, dt)
+
+        r = walk_cuda.trace(
+            mesh, t(origin, dtype), t(dest, dtype), t(elem, torch.int32),
+            torch.ones(n, dtype=torch.bool, device=cuda), t(w, dtype),
+            t(g, torch.int32),
+            torch.full((n,), -1, dtype=torch.int32, device=cuda), ref,
+            initial=False, max_crossings=mesh.ntet + 64, n_groups=G)
+        positions.append(r.position.cpu().numpy())
+    np.testing.assert_array_equal(flux.reshape(-1), ref.cpu().numpy())
+    got = list(pipe.results())
+    assert [b.index for b in got] == [0, 1, 2, 3]
+    for b, want in zip(got, positions):
+        np.testing.assert_array_equal(b.position, want)
+
+
+def test_record_guard_raises_before_any_allocation(cuda, monkeypatch):
+    """A walk that made 2^31 records raises in the walk wrapper before
+    the relaunch's buffers are allocated, and the ordered scatter refuses
+    2^31 records before it allocates (expanded tensors: no memory)."""
+    from pumiumtally_tpu_torch.ops import scatter, walk_cuda
+
+    dtype = torch.float32
+    mesh = _jittered(2, dtype, cuda)
+    args = _walk_inputs(mesh, cuda, dtype, n=64, G=2)
+    calls = []
+
+    def fake_launch(*a, **kw):
+        calls.append(kw["capacity"])
+        return {}, None, 2**31
+
+    monkeypatch.setattr(walk_cuda, "_launch", fake_launch)
+    with pytest.raises(ValueError, match="tally records"):
+        walk_cuda.trace(*args, torch.zeros(mesh.ntet * 4, device=cuda),
+                        initial=False, max_crossings=64, n_groups=2)
+    assert len(calls) == 1
+    m = 2**31
+    one = torch.zeros(1, device=cuda)
+    held = torch.cuda.memory_allocated()
+    with pytest.raises(ValueError, match="int32"):
+        scatter.ordered_cuda(
+            one.expand(2),
+            torch.zeros(1, dtype=torch.int32, device=cuda).expand(m),
+            torch.zeros(1, dtype=torch.int64, device=cuda).expand(m),
+            one.expand(m), True, 1)
+    assert torch.cuda.memory_allocated() == held
