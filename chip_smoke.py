@@ -21,9 +21,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    ``io_pipeline="packed"``): construct, locate, 4 moves, write a .vtu.
    Launch counts are zeroed just before and read just after; the
    conservation invariant, the boundary write-backs, the .vtu and one
-   transfer each way a call are checked. Each move's ordered scatter must
-   take the bucket path (its largest bucket and the capacity are
-   printed);
+   transfer each way a call are checked. Each walk must run the lane
+   schedule's 3 kernels once (a relaunch none) and each move's ordered
+   scatter must take the bucket path (its largest bucket and the capacity
+   are printed);
 5. kernel vs plain at the main path's shapes: the inputs of the main
    path's initial search and of its first move, replayed through the
    kernel and the plain walk, compared (flux bitwise) and timed with CUDA
@@ -37,8 +38,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    printed beside the share one-thread-per-lane warps in launch order
    would have had (32-lane groups of the lane iterations), and the walk
    launch is timed with its lanes in the kernel's order (by start
-   element, or by destination cell in the initial search; the lane-order
-   pass included) and in launch order, a move's ordered scatter too.
+   element, or by destination cell in the initial search; the lane
+   schedule included) and in launch order, a move's ordered scatter too.
+   The lane schedule (``walk_cuda.lane_records``, three kernels) is held
+   against ``lane_records_plain`` on the inputs of move 1 and of the
+   initial search (every lane's record bytes, keys in slot order, its key
+   counts left at zero) and timed: device time by kernel (torch.profiler,
+   which must show its three kernels and nothing else), event span, the
+   plain version and ``torch.argsort`` of the keys, beside its bound.
    Move 1's records are scattered by the ordered scatter's bucket path,
    by its crowded path called directly and by ``torch.argsort`` +
    ``Tensor.index_put_(accumulate=True)``, each held bitwise to the plain
@@ -361,8 +368,10 @@ def phase_main_path(tmpdir: str):
     if launches["walk"] != 5 + launches["walk_relaunches"]:
         raise AssertionError(f"walk kernel launches {launches}: not 5 "
                              "walks and their relaunches")
-    if launches["lane_order"] != 5:
-        raise AssertionError("the lanes were not ordered once a walk")
+    walks = launches["walk"] - launches["walk_relaunches"]
+    if launches["schedule"] != 3 * walks:
+        raise AssertionError("the lane schedule did not run its 3 kernels "
+                             "once a walk")
     if launches["scatter_ordered"] != 4:
         raise AssertionError("the ordered scatter did not run once a move")
     if launches["scatter_bucket"] != 4 or launches["scatter_crowded"]:
@@ -709,8 +718,8 @@ def zero_counts() -> None:
     from pumiumtally_tpu_torch.ops import gather, scatter, walk_cuda
 
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
+    walk_cuda.SCHEDULE_LAUNCHES = 0
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
-    scatter.ORDER_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
     gather.LAUNCHES = 0
 
@@ -725,7 +734,7 @@ def read_counts() -> dict:
         "scatter_bucket": scatter.BUCKET_LAUNCHES,
         "scatter_crowded": scatter.CROWDED_LAUNCHES,
         "scatter_atomic": scatter.ATOMIC_LAUNCHES,
-        "lane_order": scatter.ORDER_LAUNCHES,
+        "schedule": walk_cuda.SCHEDULE_LAUNCHES,
         "gather": gather.LAUNCHES,
     }
 
@@ -811,7 +820,7 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
         f"design, 32-lane groups): {launch_order_share(k.lane_iters):.4f}")
     by = "destination cell" if initial else "start element"
     log(f"[order] {label}: walk launch with lanes by {by} "
-        f"{runs['slots']['ms']:.4f} ms (lane-order pass "
+        f"{runs['slots']['ms']:.4f} ms (lane schedule "
         f"{runs['order_ms']:.4f} ms included, share "
         f"{runs['slots']['share']:.4f}); in launch order "
         f"{runs['launch']['ms']:.4f} ms (share "
@@ -949,26 +958,29 @@ def launch_order_share(iters) -> float:
 
 
 def walk_orders(args, flux0, kw, capacity: int) -> dict:
-    """The walk launch alone, its lanes taken in ``lane_slots`` order (the
-    lane-order pass included) and in launch order: time (median of 5) and
-    active-lane share of each, and the lane-order pass alone. A move's
-    records from each order are also folded by the ordered scatter, timed:
-    the order the walk makes its records in is the order the scatter's
-    passes meet their bins in."""
+    """The walk launch alone, its lanes taken in the schedule's slot order
+    (``lane_records``, the schedule included) and in launch order (records
+    built beforehand): time (median of 5) and active-lane share of each,
+    and the schedule alone. A move's records from each order are also
+    folded by the ordered scatter, timed: the order the walk makes its
+    records in is the order the scatter's passes meet their bins in."""
     from pumiumtally_tpu_torch.ops import scatter, walk_cuda
 
-    mesh, dest, elem = args[0], args[2], args[3]
     initial = kw["initial"]
     full = dict(kw, score_squares=True, robust=True, ledger=True,
                 stats=True, ordered=not initial, capacity=capacity)
+    n = args[1].shape[0]
 
     def slots():
-        return walk_cuda.lane_slots(mesh, elem, dest, initial)
+        return walk_cuda.lane_records(*args[:7], initial=initial)
 
+    in_launch_order = walk_cuda.lane_records_plain(
+        torch.arange(n, device=args[1].device), *args[1:7])
     order = {
         "slots": lambda f: walk_cuda._launch(*args, f, **full,
-                                             perm=slots()),
-        "launch": lambda f: walk_cuda._launch(*args, f, **full, perm=None),
+                                             lanes=slots()),
+        "launch": lambda f: walk_cuda._launch(*args, f, **full,
+                                              lanes=in_launch_order),
     }
 
     def fresh():
@@ -1160,33 +1172,97 @@ def check_sass(libs: list[str]) -> None:
             raise AssertionError(f"{kernel}: no vector reduction in its SASS")
 
 
-def phase_lane_order(snap, ntet: int) -> dict:
-    """The lane-order kernel against its plain version (argsort by
-    element) on move 1's start elements: a permutation whose elements
-    match; timed beside the plain version and an unstable argsort."""
-    from pumiumtally_tpu_torch.ops import scatter
+def device_kernels(fn, calls: int = 3) -> list:
+    """torch.profiler's device events of ``calls`` calls of ``fn`` after a
+    warm-up, by name: (name, device ms per event, events). CUPTI may drop
+    an event, so a kernel's time is the mean over the events it kept."""
+    from torch.profiler import ProfilerActivity, profile
 
-    elem = snap["elem"]
-    n = elem.numel()
-    perm = scatter.lane_order_cuda(elem, ntet).long()
-    plain = scatter.lane_order_plain(elem).long()
-    if not torch.equal(torch.sort(perm).values,
-                       torch.arange(n, device=elem.device)):
-        raise AssertionError("lane order: not a permutation")
-    err = int((elem[perm] - elem[plain]).abs().max())
-    if err:
-        raise AssertionError("lane order: elements out of order")
-    bytes_ms = 2 * 4 * n / HBM_BYTES_PER_S * 1e3  # elem read, perm written
-    out = dict(
-        ms=event_ms(lambda: scatter.lane_order_cuda(elem, ntet), 5),
-        plain_ms=event_ms(lambda: scatter.lane_order_plain(elem), 5),
-        library_ms=event_ms(lambda: torch.argsort(elem), 5),
-        bound_ms=bytes_ms, max_abs_err=float(err),
-    )
-    log(f"[order] lane order of move 1's {n} lanes over {ntet} elements: "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, unstable "
-        f"torch.argsort {out['library_ms']:.4f} ms, bound "
-        f"{bytes_ms:.4f} ms (median of 5)")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.self_device_time_total / e.count / 1e3, e.count)
+            for e in device_rows(prof)]
+
+
+SCHEDULE_KERNELS = ("lane_count", "lane_scan", "lane_place")
+
+
+def phase_schedule(tally, snaps) -> dict:
+    """The lane schedule (``walk_cuda.lane_records``) against
+    ``lane_records_plain`` on the inputs of the main path's first move and
+    of its initial search: every lane's record must be the plain
+    version's bytes (matched through Lane.index), the keys non-decreasing
+    in slot order, the key counts and the scan's ticket left at zero.
+    Timed: its device time by kernel (torch.profiler over 3 calls: its
+    three kernels and no other event, no memset or copy), its CUDA-event
+    span (median of 5), the plain version's (keys and records) and
+    ``torch.argsort``'s of the keys, beside its bound: each lane's inputs
+    read once and its record written once."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    out = {}
+    for label, initial in (("move 1", False), ("initial search", True)):
+        args, _ = replay_args(tally, snaps["initial" if initial else "move"],
+                              initial)
+        mesh, origin, dest, elem = args[:4]
+        dtype, n = origin.dtype, origin.shape[0]
+
+        def kernel():
+            return walk_cuda.lane_records(*args[:7], initial=initial)
+
+        def plain():
+            keys, _ = walk_cuda.lane_keys(mesh, elem, dest, initial)
+            return walk_cuda.lane_records_plain(keys, *args[1:7])
+
+        rec = kernel()
+        keys, nkeys = walk_cuda.lane_keys(mesh, elem, dest, initial)
+        want = plain()
+        idx = walk_cuda.decode_lanes(rec, dtype)["index"].long()
+        if not torch.equal(torch.sort(idx).values,
+                           torch.arange(n, device=idx.device)):
+            raise AssertionError(f"schedule, {label}: not a permutation")
+        by_lane = torch.empty_like(rec)
+        by_lane[idx] = rec
+        want = want[torch.argsort(
+            walk_cuda.decode_lanes(want, dtype)["index"].long())]
+        differ = int((by_lane != want).any(dim=1).sum())
+        if differ:
+            raise AssertionError(f"schedule, {label}: {differ} lanes' "
+                                 "records differ from the plain version's")
+        if not bool((keys[idx][1:] >= keys[idx][:-1]).all()):
+            raise AssertionError(f"schedule, {label}: keys out of order")
+        for ws in walk_cuda._WORKSPACES.values():
+            if ws["counts"].any() or ws["ticket"].any():
+                raise AssertionError(f"schedule, {label}: counts not zero")
+        rows = device_kernels(kernel)
+        names = [next((k for k in SCHEDULE_KERNELS if k in key), key)
+                 for key, _, _ in rows]
+        if sorted(names) != sorted(SCHEDULE_KERNELS):
+            raise AssertionError(f"schedule, {label}: device events {rows}, "
+                                 "not its three kernels alone")
+        item = origin.element_size()
+        bound = n * (LANE_IN[item] + walk_cuda.LANE_BYTES[dtype]) / (
+            HBM_BYTES_PER_S) * 1e3
+        r = dict(
+            device_ms=sum(ms for _, ms, _ in rows),
+            kernels={name: ms for name, (_, ms, _) in zip(names, rows)},
+            span_ms=event_ms(kernel, 5), plain_ms=event_ms(plain, 5),
+            library_ms=event_ms(lambda: torch.argsort(keys), 5),
+            bound_ms=bound, max_abs_err=0.0, keys=nkeys,
+        )
+        out[label] = r
+        log(f"[schedule] {label}: {n} lanes over {nkeys} keys, records equal "
+            f"to the plain version's, keys in order, counts left at zero; "
+            f"device {r['device_ms']:.4f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in r["kernels"].items())
+            + f"; torch.profiler, mean over 3 calls), event span "
+            f"{r['span_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"torch.argsort of the keys {r['library_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms (bytes; median of 5)")
     return out
 
 
@@ -1307,6 +1383,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_kernel_vs_plain_full(tally, snaps["initial"], initial=True)
     k = phase_kernel_vs_plain_full(tally, snaps["move"], initial=False)
+    sched = phase_schedule(tally, snaps)
     log(f"[phase] kernel vs plain (main-path shapes): "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -1319,7 +1396,6 @@ def main() -> int:
     t0 = time.perf_counter()
     payload, probe_launches = phase_probe(tally, snaps["move"], k["records"])
     probe_atomic_f64(k["records"], tally.flux.numel() // 2)
-    order = phase_lane_order(snaps["move"], tally.mesh.ntet)
     log(f"[phase] probe path: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1380,11 +1456,18 @@ def main() -> int:
              pipeline_bucket_launches={
                  d: pipe[f"depth{d}_launches"]["scatter_bucket"]
                  for d in (1, 2)}),
-        {"name": "scatter.lane_order", "route": "cuda",
-         "source": "pumiumtally_tpu_torch/csrc/scatter.cu",
+        {"name": "walk_cuda.lane_records", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
          "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",
-         "launches": launches["lane_order"], "bound_by": "bytes",
-         "library": "torch.argsort", **order},
+         "launches": launches["schedule"],
+         "max_abs_err": sched["move 1"]["max_abs_err"],
+         "ms": sched["move 1"]["device_ms"],
+         "span_ms": sched["move 1"]["span_ms"],
+         "plain_ms": sched["move 1"]["plain_ms"],
+         "bound_ms": sched["move 1"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": sched["move 1"]["library_ms"],
+         "library": "torch.argsort", "kernels": sched["move 1"]["kernels"],
+         "initial_search": sched["initial search"]},
     ]
     for kern in kernels:
         if not kern["launches"]:

@@ -64,11 +64,6 @@
 //        of 1024 threads that sort each listed bin (bitonic tiles of 2048
 //        keys in shared memory, then merge-path passes in device memory)
 //        and fold it by one thread.
-// * pumi_lane_order: the count, scan and place passes with the walk's
-//   lanes as records and an int32 key per lane as bins (its start
-//   element, or in the initial search its destination cell), giving the
-//   permutation that orders the lanes by key (in any order within a key)
-//   for csrc/walk.cu.
 //
 // What bounds it: the bytes of the records and of the touched bins are
 // the least it must move. The bucket path adds the 16 B record it writes
@@ -199,15 +194,6 @@ __device__ __forceinline__ int claim_slot(int b, unsigned live,
   if (lane == lead) left = atomicSub(counts + b, size);
   left = __shfl_sync(same, left, lead);
   return offsets[b] + left - size + __popc(same & ((1u << lane) - 1u));
-}
-
-__global__ void order_place(const int* __restrict__ bin, int m,
-                            const int* __restrict__ offsets,
-                            int* __restrict__ counts, int* __restrict__ idx) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const unsigned live = __ballot_sync(0xffffffffu, r < m);
-  if (r >= m) return;
-  idx[claim_slot(bin[r], live, offsets, counts)] = r;
 }
 
 // A value's bits in the 8 B half of a placed record, and back.
@@ -887,23 +873,6 @@ int large_launch(void* flux, const void* order, const void* c, int sq,
   return (int)cudaGetLastError();
 }
 
-int lane_order_launch(const void* elem, int n, int nbins, void* counts,
-                      void* offsets, void* tile_sums, void* perm,
-                      void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  order_count<<<cdiv(n, 256), 256, 0, s>>>((const int*)elem, n, 0,
-                                           (int*)counts);
-  PUMI_CHECK_LAUNCH();
-  const int e = scan_launch((const int*)counts, nbins, (int*)offsets,
-                            (int*)tile_sums, s);
-  if (e != 0) return e;
-  order_place<<<cdiv(n, 256), 256, 0, s>>>((const int*)elem, n,
-                                           (const int*)offsets, (int*)counts,
-                                           (int*)perm);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry points. Pointers and the stream are void*; the return value is
@@ -965,14 +934,3 @@ extern "C" int pumi_bucket_count(const void* bin, const void* order, int m,
 
 PUMI_SCATTER_ENTRIES(f32, float)
 PUMI_SCATTER_ENTRIES(f64, double)
-
-// pumi_lane_order: perm [n] int32 gets the lanes 0..n-1 ordered by keys
-// [n] int32 (values in [0, nbins)), in any order within a key. The
-// caller allocates counts [nbins] int32 zeroed, offsets [nbins+1] int32
-// and tile_sums [ceil(nbins/4096)] int32.
-extern "C" int pumi_lane_order(const void* elem, int n, int nbins,
-                               void* counts, void* offsets, void* tile_sums,
-                               void* perm, void* stream) {
-  return lane_order_launch(elem, n, nbins, counts, offsets, tile_sums, perm,
-                           stream);
-}

@@ -27,15 +27,15 @@
 //    depend on which thread walks a lane or when. Each warp adds its loop
 //    trips to a counter, so a run can read the share of lane slots that
 //    did work.
-//  * Slot s walks lane perm[s] when a permutation is given: the wrapper
-//    orders a move's lanes by start element and the initial search's by
-//    destination cell (csrc/scatter.cu pumi_lane_order), so the lanes in
-//    flight walk a window of the element table (element ids run in raster
-//    order on the box) and share its rows in the caches. pack_kernel
-//    gathers the lanes' inputs into slot order first, and a warp takes
-//    its slots 32 at a time: the counter is read a batch ahead and the
-//    batch is copied to shared memory asynchronously (cp.async), so a
-//    thread takes its next lane without waiting on memory.
+//  * Slot s walks the lane of record lanes[s]: the lane schedule
+//    (pumi_lanes, below) writes every lane's inputs as one record in slot
+//    order, a move's lanes by start element and the initial search's by
+//    destination cell, so the lanes in flight walk a window of the element
+//    table (element ids run in raster order on the box) and share its rows
+//    in the caches. A warp takes its slots 32 at a time: the counter is
+//    read a batch ahead and the batch is copied to shared memory
+//    asynchronously (cp.async), so a thread takes its next lane without
+//    waiting on memory.
 //  * The geo20 row is one direct load: 5 x 16 B in float32 (80 B) or
 //    10 x 16 B in float64 (160 B). The 4 topology codes are read through an
 //    integer view of their bits. The TPU's one-hot MXU gather is dropped.
@@ -169,8 +169,9 @@ __device__ __forceinline__ int pick4(const int (&a)[4], int f) {
   return f == 0 ? a[0] : f == 1 ? a[1] : f == 2 ? a[2] : a[3];
 }
 
-// One lane's inputs, packed by pack_kernel in slot order, so a warp's
+// One lane's inputs, written by lane_place in slot order, so a warp's
 // batch of 32 slots is one contiguous block it copies to shared memory.
+// Padding (8 B in float64) is zero.
 template <typename T>
 struct __align__(16) Lane {
   T o[3], d[3], w;
@@ -179,31 +180,216 @@ struct __align__(16) Lane {
 static_assert(sizeof(Lane<float>) == 48, "float32 lane record");
 static_assert(sizeof(Lane<double>) == 80, "float64 lane record");
 
-// Slot s gets lane perm[s] (lane s without a permutation).
+// ---- The lane schedule: the walk's inputs into Lane records in slot order.
+//
+// Slot order puts the lanes' keys in non-decreasing order (within a key
+// the order is the device's): a move's key is its start element >> shift,
+// the initial search's its destination's cell on a grid over the mesh's
+// box (ops/walk_cuda.py lane_keys, destination_cells). Three launches, a
+// counting sort that moves each lane's record once:
+//  1. lane_count: lanes per key into counts (the lanes of one key in a
+//     warp make one atomic);
+//  2. lane_scan: each block scans a tile of SCAN_TILE counts into
+//     tile-relative offsets and the last block to finish scans the tiles'
+//     sums in place (a last-block-done scan: one launch, no spin);
+//  3. lane_place: thread r reads lane r's inputs (coalesced), claims a
+//     slot in its key's range (one atomic a key a warp; counts are spent
+//     as cursors, so every count ends at 0 and the buffer is ready for the
+//     next call without a memset) and writes the record with 16 B stores.
+// No permutation is kept: the walk writes a lane's outputs through
+// Lane.index. What bounds it: the bytes, each lane's inputs read once and
+// its record written once (85 B a lane in float32); the place pass's
+// records land at scattered slots, 48 B each.
+constexpr int SCHED_THREADS = 256;
+constexpr int SCAN_ITEMS = 16;
+constexpr int SCAN_TILE = SCHED_THREADS * SCAN_ITEMS;
+
+// A lane's key, clamped to [0, nkeys). CELL: the cell of its destination,
+// (c2 * cells1 + c1) * cells0 + c0 with ck = clamp(floor(nan_to_num((d_k -
+// lo_k) * scale_k)), 0, cells_k - 1) in the walk's type, the arithmetic of
+// ops/walk_cuda.py destination_cells; else elem >> shift.
 template <typename T>
-__global__ void pack_kernel(const T* __restrict__ origin,
-                            const T* __restrict__ dest,
-                            const int* __restrict__ elem_in,
-                            const bool* __restrict__ fly_in,
-                            const T* __restrict__ weight,
-                            const int* __restrict__ group,
-                            const int* __restrict__ perm, int n,
-                            Lane<T>* __restrict__ lanes) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n) return;
-  const int i = perm != nullptr ? perm[s] : s;
-  Lane<T> l;
+struct LaneKey {
+  int cell, shift, nkeys;
+  T lo[3], scale[3];
+  int cells[3];
+  __device__ __forceinline__ int operator()(const int* __restrict__ elem,
+                                            const T* __restrict__ dest,
+                                            int r) const {
+    int k;
+    if (cell) {
+      int c[3];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    l.o[k] = origin[3 * i + k];
-    l.d[k] = dest[3 * i + k];
+      for (int d = 0; d < 3; ++d) {
+        T v = (dest[3 * r + d] - lo[d]) * scale[d];
+        if (isnan(v)) v = (T)0;
+        v = floor(v);
+        const T top = (T)(cells[d] - 1);
+        v = v < (T)0 ? (T)0 : (v > top ? top : v);
+        c[d] = (int)v;
+      }
+      k = (c[2] * cells[1] + c[1]) * cells[0] + c[0];
+    } else {
+      k = elem[r] >> shift;
+    }
+    return k < 0 ? 0 : (k >= nkeys ? nkeys - 1 : k);
   }
-  l.w = weight[i];
-  l.elem = elem_in[i];
-  l.group = group[i];
-  l.index = i;
-  l.fly = fly_in[i];
-  lanes[s] = l;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(SCHED_THREADS)
+lane_count(LaneKey<T> key, const int* __restrict__ elem,
+           const T* __restrict__ dest, int n, int* __restrict__ counts) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned live = __ballot_sync(FULL, r < n);
+  if (r >= n) return;
+  const int k = key(elem, dest, r);
+  const unsigned same = __match_any_sync(live, k);
+  if ((int)(threadIdx.x & 31) == __ffs(same) - 1)
+    atomicAdd(counts + k, __popc(same));
+}
+
+// Exclusive scan of one int per thread over the block; returns the
+// thread's prefix and sets *total to the block's sum.
+__device__ int block_scan(int v, int* total) {
+  __shared__ int warp_sums[SCHED_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < SCHED_THREADS / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, s, d);
+      if (lane >= d) s += y;
+    }
+    if (lane < SCHED_THREADS / 32) warp_sums[lane] = s;
+  }
+  __syncthreads();
+  const int ex = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  *total = warp_sums[SCHED_THREADS / 32 - 1];
+  __syncthreads();
+  return ex;
+}
+
+// The exclusive scan of SCAN_TILE values of in[len] from base into out
+// (plus carry; in place allowed); returns their sum. The tile passes
+// through shared memory (padded a word every 32 against bank conflicts),
+// so global loads and stores are coalesced while each thread scans
+// SCAN_ITEMS consecutive values. COHERENT loads from L2: the values were
+// written by other blocks of this launch.
+template <bool COHERENT>
+__device__ int scan_tile(const int* in, int* out, long long base,
+                         long long len, int carry) {
+  __shared__ int tile[SCAN_TILE + SCAN_TILE / 32];
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int i = k * SCHED_THREADS + threadIdx.x;
+    const long long g = base + i;
+    tile[i + (i >> 5)] =
+        g < len ? (COHERENT ? __ldcg(in + g) : __ldg(in + g)) : 0;
+  }
+  __syncthreads();
+  int v[SCAN_ITEMS];
+  int s = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int i = threadIdx.x * SCAN_ITEMS + k;
+    v[k] = tile[i + (i >> 5)];
+    s += v[k];
+  }
+  int total;
+  int ex = block_scan(s, &total) + carry;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int i = threadIdx.x * SCAN_ITEMS + k;
+    tile[i + (i >> 5)] = ex;
+    ex += v[k];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    const int i = k * SCHED_THREADS + threadIdx.x;
+    if (base + i < len) out[base + i] = tile[i + (i >> 5)];
+  }
+  __syncthreads();
+  return total;
+}
+
+// offsets[k] = the lanes of keys below k in k's tile; the last block to
+// finish turns tile_sums[t] into the lanes of the tiles below t and sets
+// the ticket back to 0. A key's first slot is offsets[k] + tile_sums[k /
+// SCAN_TILE].
+__global__ void __launch_bounds__(SCHED_THREADS)
+lane_scan(const int* __restrict__ counts, int nkeys, int* __restrict__ offsets,
+          int* tile_sums, unsigned* ticket) {
+  __shared__ bool last;
+  const int total = scan_tile<false>(
+      counts, offsets, (long long)blockIdx.x * SCAN_TILE, nkeys, 0);
+  if (threadIdx.x == 0) {
+    tile_sums[blockIdx.x] = total;
+    __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  int carry = 0;
+  for (long long base = 0; base < gridDim.x; base += SCAN_TILE)
+    carry += scan_tile<true>(tile_sums, tile_sums, base, gridDim.x, carry);
+  if (threadIdx.x == 0) *ticket = 0u;
+}
+
+// A lane record as 16 B words, padding zero.
+template <typename T>
+union LaneWords {
+  Lane<T> l;
+  int4 v[sizeof(Lane<T>) / 16];
+};
+
+template <typename T>
+__global__ void __launch_bounds__(SCHED_THREADS)
+lane_place(LaneKey<T> key, const T* __restrict__ origin,
+           const T* __restrict__ dest, const int* __restrict__ elem,
+           const bool* __restrict__ fly, const T* __restrict__ weight,
+           const int* __restrict__ group, int n,
+           const int* __restrict__ offsets, const int* __restrict__ tile_sums,
+           int* __restrict__ counts, Lane<T>* __restrict__ lanes) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned live = __ballot_sync(FULL, r < n);
+  if (r >= n) return;
+  const int k = key(elem, dest, r);
+  const unsigned same = __match_any_sync(live, k);
+  const int lane = threadIdx.x & 31, lead = __ffs(same) - 1;
+  const int size = __popc(same);
+  int left = 0;
+  if (lane == lead) left = atomicSub(counts + k, size);
+  left = __shfl_sync(same, left, lead);
+  const int slot = __ldg(offsets + k) + __ldg(tile_sums + k / SCAN_TILE) +
+                   left - size + __popc(same & ((1u << lane) - 1u));
+  LaneWords<T> u;
+#pragma unroll
+  for (int j = 0; j < (int)(sizeof(Lane<T>) / 16); ++j)
+    u.v[j] = make_int4(0, 0, 0, 0);
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    u.l.o[d] = origin[3 * r + d];
+    u.l.d[d] = dest[3 * r + d];
+  }
+  u.l.w = weight[r];
+  u.l.elem = elem[r];
+  u.l.group = group[r];
+  u.l.index = r;
+  u.l.fly = fly[r];
+  int4* out = reinterpret_cast<int4*>(lanes + slot);
+#pragma unroll
+  for (int j = 0; j < (int)(sizeof(Lane<T>) / 16); ++j) out[j] = u.v[j];
 }
 
 // Asynchronous copy of one lane record from device to shared memory.
@@ -537,27 +723,19 @@ int grid_for(K kernel, long long n, int* grid) {
 
 template <typename T>
 int walk(int robust, int initial, int ordered, const void* geo,
-         const void* origin, const void* dest, const void* elem_in,
-         const void* fly_in, const void* weight, const void* group,
-         const void* perm, void* lanes, int n, int n_groups,
-         int max_crossings, double tolerance, int score_squares, void* flux,
-         void* pos_out, void* elem_out, void* mat_out, void* done_out,
-         void* pseg_out, void* ncross_out, void* nchase_out, void* nseg_out,
-         void* iters_out, void* rec_bin, void* rec_order, void* rec_c,
-         void* counters, long long capacity, void* stream) {
+         const void* lanes, int n, int n_groups, int max_crossings,
+         double tolerance, int score_squares, void* flux, void* pos_out,
+         void* elem_out, void* mat_out, void* done_out, void* pseg_out,
+         void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,
+         void* rec_bin, void* rec_order, void* rec_c, void* counters,
+         long long capacity, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const cudaStream_t s = (cudaStream_t)stream;
-  pack_kernel<T><<<(n + 255) / 256, 256, 0, s>>>(
-      (const T*)origin, (const T*)dest, (const int*)elem_in,
-      (const bool*)fly_in, (const T*)weight, (const int*)group,
-      (const int*)perm, n, (Lane<T>*)lanes);
-  const cudaError_t packed = cudaGetLastError();
-  if (packed != cudaSuccess) return (int)packed;
+  if ((uintptr_t)lanes % 16) return (int)cudaErrorInvalidValue;
   return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, n, &grid);
     if (e != 0) return e;
-    kernel<<<grid, BLOCK, 0, s>>>(
+    kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
         (const T*)geo, (const Lane<T>*)lanes, n, n_groups, max_crossings,
         (T)tolerance, score_squares, (T*)flux, (T*)pos_out, (int*)elem_out,
         (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
@@ -566,6 +744,37 @@ int walk(int robust, int initial, int ordered, const void* geo,
         capacity);
     return (int)cudaGetLastError();
   });
+}
+
+// The three launches of the lane schedule (see lane_count). counts
+// [nkeys] must be zero and is left zero; offsets [nkeys], tile_sums
+// [ceil(nkeys / SCAN_TILE)] and ticket (zero, left zero) are scratch.
+template <typename T>
+int schedule(const void* origin, const void* dest, const void* elem,
+             const void* fly, const void* weight, const void* group, int n,
+             const LaneKey<T>& key, void* counts, void* offsets,
+             void* tile_sums, void* ticket, void* lanes, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (key.nkeys < 1 || (uintptr_t)lanes % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (int)(((long long)n + SCHED_THREADS - 1) / SCHED_THREADS);
+  const int tiles = (int)(((long long)key.nkeys + SCAN_TILE - 1) / SCAN_TILE);
+  lane_count<T><<<blocks, SCHED_THREADS, 0, s>>>(
+      key, (const int*)elem, (const T*)dest, n, (int*)counts);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  lane_scan<<<tiles, SCHED_THREADS, 0, s>>>((const int*)counts, key.nkeys,
+                                            (int*)offsets, (int*)tile_sums,
+                                            (unsigned*)ticket);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  lane_place<T><<<blocks, SCHED_THREADS, 0, s>>>(
+      key, (const T*)origin, (const T*)dest, (const int*)elem,
+      (const bool*)fly, (const T*)weight, (const int*)group, n,
+      (const int*)offsets, (const int*)tile_sums, (int*)counts,
+      (Lane<T>*)lanes);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -580,30 +789,48 @@ int resident(int robust, int initial, int ordered, int* threads) {
 
 }  // namespace
 
-// C entry points. pumi_walk_<t> launches one walk; every pointer and the
-// stream are passed as void*, and the return value is the cudaError_t of
-// the launches. perm is null (slot s walks lane s) or a permutation of the
-// n lanes; lanes is scratch for n lane records (48 B each in float32, 80 B
-// in float64, 16 B aligned) that pack_kernel fills in slot order before
-// the walk. counters is three uint64 zeroed by the caller: records made,
-// lane slots taken, warp loop trips. In ordered mode (initial == 0) the
-// records go to rec_bin [cap] int32, rec_order [cap] int64 and rec_c [cap]
-// of the walk's type, and the record count may end above cap; flux is not
-// touched. pumi_walk_resident_<t> gives the threads a launch of that
-// instantiation keeps resident on the current device.
+// C entry points; every pointer and the stream are passed as void*, and
+// the return value is the cudaError_t of the launches.
+//
+// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (48 B
+// each in float32, 80 B in float64) into lanes [n] (16 B aligned) in slot
+// order. cell = 0 keys a lane by elem >> shift, cell = 1 by its
+// destination's cell (lo, scale and cells per axis); keys are clamped to
+// [0, nkeys). counts [nkeys] int32 and ticket (one uint32) are zero and
+// left zero; offsets [nkeys] and tile_sums [ceil(nkeys / 4096)] int32 are
+// scratch. After a failed call counts and ticket must be zeroed again.
+//
+// pumi_walk_<t> launches one walk over the records of pumi_lanes_<t>: slot
+// s walks lane lanes[s].index. counters is three uint64 zeroed by the
+// caller: records made, lane slots taken, warp loop trips. In ordered mode
+// (initial == 0) the records go to rec_bin [cap] int32, rec_order [cap]
+// int64 and rec_c [cap] of the walk's type, and the record count may end
+// above cap; flux is not touched. pumi_walk_resident_<t> gives the threads
+// a launch of that instantiation keeps resident on the current device.
 #define PUMI_WALK_ENTRY(TAG, T)                                                \
+  extern "C" int pumi_lanes_##TAG(                                             \
+      const void* origin, const void* dest, const void* elem, const void* fly, \
+      const void* weight, const void* group, int n, int cell, int shift,       \
+      int nkeys, double lo0, double lo1, double lo2, double scale0,            \
+      double scale1, double scale2, int cells0, int cells1, int cells2,        \
+      void* counts, void* offsets, void* tile_sums, void* ticket, void* lanes, \
+      void* stream) {                                                          \
+    const LaneKey<T> key{cell,        shift,       nkeys,                     \
+                         {(T)lo0, (T)lo1, (T)lo2},                            \
+                         {(T)scale0, (T)scale1, (T)scale2},                   \
+                         {cells0, cells1, cells2}};                           \
+    return schedule<T>(origin, dest, elem, fly, weight, group, n, key,         \
+                       counts, offsets, tile_sums, ticket, lanes, stream);     \
+  }                                                                            \
   extern "C" int pumi_walk_##TAG(                                              \
       int robust, int initial, int ordered, const void* geo,                   \
-      const void* origin, const void* dest, const void* elem_in,               \
-      const void* fly_in, const void* weight, const void* group,               \
-      const void* perm, void* lanes, int n, int n_groups, int max_crossings,   \
+      const void* lanes, int n, int n_groups, int max_crossings,               \
       double tolerance, int score_squares, void* flux, void* pos_out,          \
       void* elem_out, void* mat_out, void* done_out, void* pseg_out,           \
       void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,     \
       void* rec_bin, void* rec_order, void* rec_c, void* counters,             \
       long long capacity, void* stream) {                                      \
-    return walk<T>(robust, initial, ordered, geo, origin, dest, elem_in,       \
-                   fly_in, weight, group, perm, lanes, n, n_groups,            \
+    return walk<T>(robust, initial, ordered, geo, lanes, n, n_groups,          \
                    max_crossings, tolerance, score_squares, flux, pos_out,     \
                    elem_out, mat_out, done_out, pseg_out, ncross_out,          \
                    nchase_out, nseg_out, iters_out, rec_bin, rec_order, rec_c, \

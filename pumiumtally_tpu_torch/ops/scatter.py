@@ -18,10 +18,9 @@ key; the walk uses ``iteration · n_lanes + lane``, so a bin's adds land in
   (K3 ``peeled`` and the walk's tally).
 * ``lane_order`` / ``lane_order_plain``: the permutation that orders a
   walk's lanes by an int32 key (their start elements, or in the initial
-  search their destination cells): the order in which the walk kernel's
-  threads take them (the ordered scatter's count, scan and place passes
-  with keys for bins). Only the permutation's key order is its contract:
-  within a key the kernel's order is the device's.
+  search their destination cells), on the CPU. On the card the order is
+  part of the walk's lane schedule (``walk_cuda.lane_records``), which
+  writes each lane's record into its slot and keeps no permutation.
 
 The ``*_plain`` functions are the PyTorch versions. The wrappers take them
 for CPU tensors only; for CUDA tensors they launch the hand-written
@@ -39,8 +38,8 @@ by bin over all records) when a bucket holds more than
 ``BUCKET_CAPACITY`` records (``is_crowded``) or the keys do not fit 63
 bits (``key_bits``).
 
-``ATOMIC_LAUNCHES``, ``ORDERED_LAUNCHES`` and ``ORDER_LAUNCHES`` count
-the wrappers' kernel launches (one per call that reaches the card), and
+``ATOMIC_LAUNCHES`` and ``ORDERED_LAUNCHES`` count the wrappers' kernel
+launches (one per call that reaches the card), and
 nothing else; ``BUCKET_LAUNCHES`` and ``CROWDED_LAUNCHES`` count the
 ordered scatter's calls by path. ``LAST_BUCKETS`` describes the last
 ordered call on the card: its shift, bucket count, largest bucket, the
@@ -58,7 +57,6 @@ from . import _build
 
 ATOMIC_LAUNCHES = 0
 ORDERED_LAUNCHES = 0
-ORDER_LAUNCHES = 0
 BUCKET_LAUNCHES = 0
 CROWDED_LAUNCHES = 0
 LAST_BUCKETS: dict = {}
@@ -245,22 +243,21 @@ def scatter_ordered(flux, bin, order, c, score_squares: bool = True):
 
 def lane_order(keys, nbins: int):
     """The permutation of the lanes ``0..n-1`` that orders ``keys`` (int32,
-    values in ``[0, nbins)``): ``lane_order_plain`` for a CPU tensor, the
-    kernel for a CUDA tensor (int32, in any order within a key)."""
+    values in ``[0, nbins)``): ``lane_order_plain`` for a CPU tensor. A
+    CUDA tensor raises: on the card the walk's lane schedule
+    (``walk_cuda.lane_records``) orders the lanes and keeps no
+    permutation."""
     if keys.dtype != torch.int32 or keys.dim() != 1:
         raise TypeError(f"keys must be a 1-D int32 tensor, got {keys.dtype}")
-    if keys.device.type == "cpu":
-        return lane_order_plain(keys)
-    if keys.device.type != "cuda":
-        raise ValueError(f"the lane order runs on 'cuda' or 'cpu', not "
-                         f"{keys.device}")
-    if not 0 < nbins < _INT32_MAX or keys.numel() > _INT32_MAX:
-        raise ValueError("lanes and keys must each fit int32")
+    if keys.device.type != "cpu":
+        raise ValueError(
+            f"the lane order runs on the CPU, not {keys.device}; on the card "
+            "walk_cuda.lane_records orders the lanes inside the schedule")
     if keys.numel():
         lo, hi = torch.aminmax(keys)
         if int(lo) < 0 or int(hi) >= nbins:
             raise IndexError(f"keys must lie in [0, {nbins})")
-    return lane_order_cuda(keys.contiguous(), nbins)
+    return lane_order_plain(keys)
 
 
 def _entry(name: str, dtype=None):
@@ -293,33 +290,6 @@ def atomic_cuda(flux, bin, c, score_squares):
         raise RuntimeError(f"scatter_atomic launch failed with cudaError_t {err}")
     ATOMIC_LAUNCHES += 1
     return flux
-
-
-def lane_order_cuda(keys, nbins: int):
-    """Launch the lane order of ``csrc/scatter.cu`` on keys that were
-    checked (or that the walk makes): count the lanes per key, scan, place
-    each lane's index."""
-    global ORDER_LAUNCHES
-    n = keys.numel()
-    dev = keys.device
-    perm = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
-        return perm
-    i32 = dict(dtype=torch.int32, device=dev)
-    counts = torch.zeros(nbins, **i32)
-    offsets = torch.empty(nbins + 1, **i32)
-    tile_sums = torch.empty((nbins + 4095) // 4096, **i32)
-    fn = _entry("pumi_lane_order")
-    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p] * 5
-    with torch.cuda.device(dev):
-        err = fn(keys.data_ptr(), n, nbins, counts.data_ptr(),
-                 offsets.data_ptr(), tile_sums.data_ptr(), perm.data_ptr(),
-                 _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"lane_order launch failed with cudaError_t {err}")
-    ORDER_LAUNCHES += 1
-    return perm
 
 
 def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):

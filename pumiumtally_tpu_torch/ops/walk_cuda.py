@@ -6,8 +6,9 @@ for the whole move, then the per-lane outputs are reduced to the stats
 vector with torch ops outside the kernel. The kernel's threads stay
 resident and refill: each walks lane after lane, so no thread idles while
 its warp finishes. The lanes are taken in an order that keeps the rows of
-the lanes in flight close (``lane_slots``, one ``scatter.lane_order`` pass
-before every launch).
+the lanes in flight close: before the walk, the lane schedule
+(``lane_records``, three kernels of ``csrc/walk.cu``) writes every lane's
+inputs as one record, in order of its key (``lane_keys``).
 
 The tally is ``"ordered"`` by default: the walk appends one record per
 scored crossing and ``ops/scatter.py``'s ordered kernel folds each bin in
@@ -21,7 +22,9 @@ which is built with nvcc at first use; a failed build or launch raises.
 ``LAUNCHES`` counts walk kernel launches (and nothing else), so a run can
 show that its path went through the kernel; ``RELAUNCHES`` counts the
 ordered walks that were run again because their records overflowed the
-buffers. The scatter and the lane order count their own launches.
+buffers (a relaunch reuses the lane records: it runs no schedule).
+``SCHEDULE_LAUNCHES`` counts the lane schedule's kernel launches, three a
+schedule. The scatter counts its own launches.
 ``WARP_TRIPS`` is the last launch's device counter (an int64 on the card,
 read only when the caller reads it): its warps' loop trips, summed, so
 Σ ``lane_iters`` / (32 · ``WARP_TRIPS``) is the share of the warps' lane
@@ -58,29 +61,49 @@ from .walk import (
 
 LAUNCHES = 0
 RELAUNCHES = 0
+SCHEDULE_LAUNCHES = 0
+SCHEDULE_KERNELS = 3  # count, scan, place (csrc/walk.cu schedule)
+# A move's lane key is its start element >> KEY_SHIFT.
+KEY_SHIFT = 0
 WARP_TRIPS: torch.Tensor | None = None
 LAST_WAIT_S = 0.0
 TALLIES = ("ordered", "atomic")
 _INT32_MAX = 2**31 - 1
 
-_ARGTYPES = (
+_WALK_ARGTYPES = (
     [ctypes.c_int] * 3               # robust, initial, ordered
-    + [ctypes.c_void_p] * 9          # geo, origin, dest, elem, fly, weight,
-                                     # group, perm, lane records
+    + [ctypes.c_void_p] * 2          # geo, lane records
     + [ctypes.c_int] * 3             # n, n_groups, max_crossings
     + [ctypes.c_double, ctypes.c_int]  # tolerance, score_squares
     + [ctypes.c_void_p] * 14         # flux, 9 per-lane outputs, 3 record
                                      # buffers, counters
     + [ctypes.c_longlong, ctypes.c_void_p]  # capacity, stream
 )
+_LANES_ARGTYPES = (
+    [ctypes.c_void_p] * 6            # origin, dest, elem, fly, weight, group
+    + [ctypes.c_int] * 4             # n, cell, shift, nkeys
+    + [ctypes.c_double] * 6          # lo, scale
+    + [ctypes.c_int] * 3             # cells
+    + [ctypes.c_void_p] * 6          # counts, offsets, tile_sums, ticket,
+                                     # lane records, stream
+)
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
-_LANE_BYTES = {torch.float32: 48, torch.float64: 80}  # csrc/walk.cu Lane<T>
+# csrc/walk.cu Lane<T>: o[3], d[3], w in the walk's type, then int32 elem,
+# group, index, fly; 16 B aligned.
+LANE_BYTES = {torch.float32: 48, torch.float64: 80}
+_SCAN_TILE = 4096  # csrc/walk.cu SCAN_TILE
+_entries: dict = {}
 
 
-def _entry(dtype):
-    fn = getattr(_build.load("walk"), f"pumi_walk_{_DTYPE_TAG[dtype]}")
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+def _entry(name: str, dtype):
+    """The C entry ``pumi_<name>_<t>`` with its argument types set (once)."""
+    key = (name, dtype)
+    fn = _entries.get(key)
+    if fn is None:
+        fn = getattr(_build.load("walk"), f"pumi_{name}_{_DTYPE_TAG[dtype]}")
+        fn.argtypes = {"walk": _WALK_ARGTYPES, "lanes": _LANES_ARGTYPES}[name]
+        fn.restype = ctypes.c_int
+        _entries[key] = fn
     return fn
 
 
@@ -148,8 +171,9 @@ def trace(
     if tally == "atomic" and flux.data_ptr() % 8:
         raise ValueError("flux must be 8-byte aligned for the pair adds")
     if tally == "atomic" or initial:
-        return _result(_launch(*args, **kw, ordered=False,
-                               perm=lane_slots(mesh, elem, dest, initial)),
+        lanes = lane_records(mesh, origin, dest, elem, in_flight, weight,
+                             group, initial=initial)
+        return _result(_launch(*args, **kw, ordered=False, lanes=lanes),
                        **kw)
     out, rec = _walk_ordered(*args, **kw, capacity=capacity)
     scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
@@ -263,13 +287,13 @@ def path_records(rate: float, origin, dest, in_flight,
 def _walk_ordered(*args, capacity, **kw):
     global RELAUNCHES
     cap = capacity if capacity is not None else 4 * args[1].shape[0]
-    perm = lane_slots(args[0], args[3], args[2], kw["initial"])
+    lanes = lane_records(*args[:7], initial=kw["initial"])
     out, rec, made = _launch(*args, **kw, ordered=True, capacity=cap,
-                             perm=perm)
+                             lanes=lanes)
     check_record_count(made)
     if made > cap:
         out, rec, again = _launch(*args, **kw, ordered=True, capacity=made,
-                                  perm=perm)
+                                  lanes=lanes)
         RELAUNCHES += 1
         if again != made:
             raise RuntimeError(
@@ -279,51 +303,173 @@ def _walk_ordered(*args, capacity, **kw):
     return out, Records(rec[0][:made], rec[1][:made], rec[2][:made])
 
 
-def lane_slots(mesh, elem, dest, initial: bool):
-    """The order in which a walk launch's threads take the lanes (slot s
-    walks lane ``perm[s]``): a move's lanes by start element; the initial
-    search's, which all start from one point, by the cell of their
-    destination on a grid over the mesh's bounding box, so lanes that
-    walk the same rows run side by side."""
-    if not initial:
-        return scatter.lane_order_cuda(elem, mesh.ntet)
-    return scatter.lane_order_cuda(*destination_cells(mesh, dest))
-
-
 def destination_cells(mesh, dest):
     """Each lane's cell on a grid over the mesh's bounding box with about
     one cell per 6 elements (a hexahedron's worth), in raster order, as
     int32 keys; and the number of cells. Destinations outside the box
-    take the nearest cell (a non-finite one a cell of the box)."""
-    lo, ext = mesh.bounds
-    ext = [max(e, 1e-30) for e in ext]
-    side = (ext[0] * ext[1] * ext[2] * 6.0 / max(mesh.ntet, 1)) ** (1 / 3)
-    cells = [max(1, min(1024, round(e / side))) for e in ext]
-    c = [((dest[:, k] - lo[k]) * (cells[k] / ext[k])).nan_to_num_(0.0)
+    take the nearest cell (a non-finite one a cell of the box). The plain
+    version of the lane schedule's initial-search key."""
+    lo, scale, cells = _cell_grid(mesh)
+    c = [((dest[:, k] - lo[k]) * scale[k]).nan_to_num_(0.0)
          .floor_().clamp_(0, cells[k] - 1).to(torch.int32) for k in range(3)]
     keys = (c[2] * cells[1] + c[1]) * cells[0] + c[0]
     return keys, cells[0] * cells[1] * cells[2]
 
 
+def _cell_grid(mesh):
+    """The initial search's key grid: per axis the box's lower corner, the
+    cells per unit length and the number of cells (host floats and ints)."""
+    lo, ext = mesh.bounds
+    ext = [max(e, 1e-30) for e in ext]
+    side = (ext[0] * ext[1] * ext[2] * 6.0 / max(mesh.ntet, 1)) ** (1 / 3)
+    cells = [max(1, min(1024, round(e / side))) for e in ext]
+    return lo, [c / e for c, e in zip(cells, ext)], cells
+
+
+def n_keys(ntet: int, shift: int) -> int:
+    """Keys of a move's lanes: start elements ``>> shift``."""
+    return max(1, -(-ntet >> shift))
+
+
+def lane_keys(mesh, elem, dest, initial: bool, shift: int | None = None):
+    """The schedule's key of every lane (int32) and the number of keys: a
+    move's lanes by start element ``>> shift`` (``KEY_SHIFT`` by default),
+    the initial search's by ``destination_cells``; clamped to the keys'
+    range, as the kernel clamps them."""
+    if initial:
+        keys, nkeys = destination_cells(mesh, dest)
+    else:
+        nkeys = n_keys(mesh.ntet, KEY_SHIFT if shift is None else shift)
+        keys = elem >> (KEY_SHIFT if shift is None else shift)
+    return keys.clamp(0, nkeys - 1).to(torch.int32), nkeys
+
+
+def lane_records_plain(keys, origin, dest, elem, in_flight, weight, group):
+    """The lanes' ``Lane<T>`` records (``csrc/walk.cu``) in slot order, as
+    a ``uint8 [n, LANE_BYTES]`` tensor: lanes sorted stably by key, each
+    record origin, dest and weight in the walk's type, then int32 element,
+    group, lane index and flying flag, padding zero."""
+    dtype, n = origin.dtype, origin.shape[0]
+    idx = torch.argsort(keys, stable=True)
+    words = LANE_BYTES[dtype] // origin.element_size()
+    rec = torch.zeros(n, words, dtype=dtype, device=origin.device)
+    rec[:, 0:3] = origin[idx]
+    rec[:, 3:6] = dest[idx]
+    rec[:, 6] = weight[idx]
+    ints = rec.view(torch.int32)
+    first = 7 * origin.element_size() // 4
+    ints[:, first] = elem[idx]
+    ints[:, first + 1] = group[idx]
+    ints[:, first + 2] = idx.to(torch.int32)
+    ints[:, first + 3] = in_flight[idx].to(torch.int32)
+    return rec.view(torch.uint8).view(n, LANE_BYTES[dtype])
+
+
+def decode_lanes(records, dtype) -> dict:
+    """The fields of ``Lane<T>`` records (``uint8 [n, LANE_BYTES]``):
+    origin and dest ``[n, 3]`` and weight in ``dtype``, int32 elem, group
+    and index, and the flying flags as bool."""
+    n, item = records.shape[0], torch.finfo(dtype).bits // 8
+    flat = records.contiguous().view(-1)
+    real = flat.view(dtype).view(n, LANE_BYTES[dtype] // item)
+    ints = flat.view(torch.int32).view(n, LANE_BYTES[dtype] // 4)
+    first = 7 * item // 4
+    return dict(origin=real[:, 0:3], dest=real[:, 3:6], weight=real[:, 6],
+                elem=ints[:, first], group=ints[:, first + 1],
+                index=ints[:, first + 2], in_flight=ints[:, first + 3] != 0)
+
+
+def lane_records(mesh, origin, dest, elem, in_flight, weight, group, *,
+                 initial: bool):
+    """The walk's lane schedule: every lane's inputs as one ``Lane<T>``
+    record, in order of its key (``lane_keys``; within a key the device's
+    order), ``uint8 [n, LANE_BYTES]``. A CPU tensor takes
+    ``lane_records_plain``; a CUDA tensor the three kernels of
+    ``csrc/walk.cu`` (count, scan, place), which compute the key from
+    ``elem`` or ``dest`` themselves, or raises."""
+    if origin.device.type == "cpu":
+        keys, _ = lane_keys(mesh, elem, dest, initial)
+        return lane_records_plain(keys, origin, dest, elem, in_flight,
+                                  weight, group)
+    if origin.device.type != "cuda":
+        raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
+    return _schedule(mesh, origin, dest, elem, in_flight, weight, group,
+                     initial)
+
+
+# Per (device, stream): the schedule's key counts and scan ticket (zero
+# between calls: the place pass spends the counts as cursors and the scan
+# resets its ticket), with scratch for the offsets and tile sums.
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev, stream: int, nkeys: int) -> dict:
+    key = (dev.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws["counts"].numel() < nkeys:
+        i32 = dict(dtype=torch.int32, device=dev)
+        ws = _WORKSPACES[key] = dict(
+            counts=torch.zeros(nkeys, **i32),
+            offsets=torch.empty(nkeys, **i32),
+            tile_sums=torch.empty(-(-nkeys // _SCAN_TILE), **i32),
+            ticket=torch.zeros(1, **i32),
+        )
+    return ws
+
+
+def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial):
+    """Launch the lane schedule on checked walk inputs."""
+    global SCHEDULE_LAUNCHES
+    dtype, dev, n = origin.dtype, origin.device, origin.shape[0]
+    lanes = torch.empty(n, LANE_BYTES[dtype], dtype=torch.uint8, device=dev)
+    if n == 0:
+        return lanes
+    if initial:
+        lo, scale, cells = _cell_grid(mesh)
+        nkeys = cells[0] * cells[1] * cells[2]
+        shift = 0
+    else:
+        lo, scale, cells = [0.0] * 3, [0.0] * 3, [1] * 3
+        shift = KEY_SHIFT
+        nkeys = n_keys(mesh.ntet, shift)
+    fn = _entry("lanes", dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _workspace(dev, stream, nkeys)
+        err = fn(origin.data_ptr(), dest.data_ptr(), elem.data_ptr(),
+                 in_flight.data_ptr(), weight.data_ptr(), group.data_ptr(),
+                 n, int(initial), shift, nkeys, *lo, *scale, *cells,
+                 ws["counts"].data_ptr(), ws["offsets"].data_ptr(),
+                 ws["tile_sums"].data_ptr(), ws["ticket"].data_ptr(),
+                 lanes.data_ptr(), stream)
+    if err != 0:
+        # The counts may be left part spent: the next call starts afresh.
+        _WORKSPACES.pop((dev.index, stream), None)
+        raise RuntimeError(f"lane schedule launch failed with cudaError_t {err}")
+    SCHEDULE_LAUNCHES += SCHEDULE_KERNELS
+    return lanes
+
+
 def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             flux, *, initial, max_crossings, n_groups, score_squares,
-            tolerance, robust, ledger, stats, ordered, perm, capacity=0):
-    """One walk launch; slot s walks lane ``perm[s]`` (lane s when
-    ``perm`` is None). Returns the per-lane outputs and, when ordered,
-    the record buffers and the number of records the walk made."""
+            tolerance, robust, ledger, stats, ordered, lanes, capacity=0):
+    """One walk launch over the lane records ``lanes`` (``lane_records``):
+    slot s walks the lane of record s. Returns the per-lane outputs and,
+    when ordered, the record buffers and the number of records the walk
+    made."""
     global LAUNCHES, WARP_TRIPS, LAST_WAIT_S
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
 
-    def lanes(dt):
+    def per_lane(dt):
         return torch.empty(n, dtype=dt, device=dev)
 
     pos = torch.empty_like(origin)
     elem_o, mat, ncross, nchase, nseg_l, iters = (
-        lanes(torch.int32) for _ in range(6)
+        per_lane(torch.int32) for _ in range(6)
     )
-    done = lanes(torch.bool)
-    pseg = lanes(dtype)
+    done = per_lane(torch.bool)
+    pseg = per_lane(dtype)
     cap = capacity if ordered else 0
     rec = (
         torch.empty(cap, dtype=torch.int32, device=dev),
@@ -332,18 +478,14 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     )
     # Records made, lane slots taken, warp loop trips.
     counters = torch.zeros(3, dtype=torch.int64, device=dev)
-    packed = torch.empty(n * _LANE_BYTES[dtype], dtype=torch.uint8,
-                         device=dev)
 
-    fn = _entry(dtype)
+    fn = _entry("walk", dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             int(bool(robust)), int(bool(initial)), int(bool(ordered)),
-            mesh.geo20.data_ptr(), origin.data_ptr(), dest.data_ptr(),
-            elem.data_ptr(), in_flight.data_ptr(), weight.data_ptr(),
-            group.data_ptr(), 0 if perm is None else perm.data_ptr(),
-            packed.data_ptr(), n, n_groups, max_crossings, float(tolerance),
+            mesh.geo20.data_ptr(), lanes.data_ptr(), n, n_groups,
+            max_crossings, float(tolerance),
             int(bool(score_squares)), flux.data_ptr(), pos.data_ptr(),
             elem_o.data_ptr(), mat.data_ptr(), done.data_ptr(),
             pseg.data_ptr(), ncross.data_ptr(), nchase.data_ptr(),

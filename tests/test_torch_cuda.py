@@ -17,9 +17,10 @@ the flux is bitwise equal too, and equal across runs. With the atomic
 tally it agrees to the reordering of its adds (rtol 1e-10 in float64,
 1e-4 in float32). The ordered scatter (on its bucket path and on its
 crowded path, which the counters show) and the gather are bitwise equal
-to their plain versions; the atomic scatter agrees within rtol 1e-5. The lane
-order is a permutation whose elements are those of its plain version
-(within an element the order is the device's). Packed and overlap staging
+to their plain versions; the atomic scatter agrees within rtol 1e-5. The
+lane schedule writes each lane's record with the plain version's bytes,
+in key order (within a key the order is the device's), in 3 launches a
+walk; a relaunch after an overflow runs no second schedule. Packed and overlap staging
 give the legacy path's bits, and the pipeline those of the same batches
 walked one after another.
 """
@@ -98,11 +99,13 @@ def test_kernel_matches_plain(cuda, dtype, initial, robust):
               robust=robust)
     before = walk_cuda.LAUNCHES
     scattered = scatter.ORDERED_LAUNCHES
+    scheduled = walk_cuda.SCHEDULE_LAUNCHES
     k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
     again = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
     p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
     torch.cuda.synchronize()
     assert walk_cuda.LAUNCHES - before >= 2
+    assert walk_cuda.SCHEDULE_LAUNCHES - scheduled == 2 * 3  # 3 a walk
     assert scatter.ORDERED_LAUNCHES - scattered == (0 if initial else 2)
     _lanes_equal(k, p)
     assert torch.equal(k.flux, p.flux)
@@ -164,29 +167,51 @@ def test_persistent_walk_refills_lanes(cuda, dtype, initial):
                                    atol=0)
 
 
-@pytest.mark.parametrize("case", ["one element", "random", "descending"])
-def test_lane_order_kernel(cuda, case):
-    from pumiumtally_tpu_torch.ops import scatter
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["one element", "random", "descending",
+                                  "coarse", "initial"])
+def test_lane_order_kernel(cuda, case, dtype, monkeypatch):
+    """The lane schedule (``walk_cuda.lane_records``, three kernels): each
+    lane's record equals the plain version's bytes (matched through
+    Lane.index), keys are non-decreasing in slot order, and the key
+    counts and the scan's ticket are left at zero for the next call. The
+    initial search's keys (destination cells, some destinations outside
+    the box or not finite) are computed in the kernel."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
 
-    n, nbins = 100003, 5000
+    mesh = _jittered(12, dtype, cuda)
+    n, ntet = 100003, mesh.ntet
+    _, origin, dest, _, fly, w, g, _ = _walk_inputs(mesh, cuda, dtype, n=n)
+    dest[:3] = torch.tensor([[float("nan")] * 3, [float("inf")] * 3,
+                             [-float("inf"), 0.5, 2.0]], dtype=dtype)
     rng = np.random.default_rng(6)
     elem = {
         "one element": np.full(n, 17),
-        "random": rng.integers(0, nbins, n),
-        "descending": (nbins - 1 - np.arange(n) * nbins // n),
+        "random": rng.integers(0, ntet, n),
+        "descending": (ntet - 1 - np.arange(n) * ntet // n),
+        "coarse": rng.integers(0, ntet, n),
+        "initial": np.zeros(n),
     }[case]
     elem = torch.from_numpy(elem.astype(np.int32)).to(cuda)
-    before = scatter.ORDER_LAUNCHES
-    perm = scatter.lane_order(elem, nbins)
+    initial = case == "initial"
+    monkeypatch.setattr(walk_cuda, "KEY_SHIFT", 5 if case == "coarse" else 0)
+    before = walk_cuda.SCHEDULE_LAUNCHES
+    rec = walk_cuda.lane_records(mesh, origin, dest, elem, fly, w, g,
+                                 initial=initial)
     torch.cuda.synchronize()
-    assert scatter.ORDER_LAUNCHES == before + 1
-    assert perm.dtype == torch.int32
-    assert torch.equal(torch.sort(perm.long()).values,
-                       torch.arange(n, device=cuda))
-    plain = scatter.lane_order_plain(elem)
-    assert torch.equal(elem[perm.long()], elem[plain.long()])
-    with pytest.raises(IndexError):
-        scatter.lane_order(elem, 17)
+    assert walk_cuda.SCHEDULE_LAUNCHES == before + 3
+    assert tuple(rec.shape) == (n, walk_cuda.LANE_BYTES[dtype])
+    keys, _ = walk_cuda.lane_keys(mesh, elem, dest, initial)
+    plain = walk_cuda.lane_records_plain(keys, origin, dest, elem, fly, w, g)
+    idx = walk_cuda.decode_lanes(rec, dtype)["index"].long()
+    assert torch.equal(torch.sort(idx).values, torch.arange(n, device=cuda))
+    by_lane = torch.empty_like(rec)
+    by_lane[idx] = rec
+    assert torch.equal(by_lane, plain[torch.argsort(
+        walk_cuda.decode_lanes(plain, dtype)["index"].long())])
+    assert bool((keys[idx][1:] >= keys[idx][:-1]).all())
+    for ws in walk_cuda._WORKSPACES.values():
+        assert not ws["counts"].any() and not ws["ticket"].any()
 
 
 def test_overflow_relaunches_the_walk(cuda):
@@ -200,11 +225,14 @@ def test_overflow_relaunches_the_walk(cuda):
     args = _walk_inputs(mesh, cuda, dtype, G=G)
     kw = dict(initial=False, max_crossings=mesh.ntet + 8, n_groups=G)
     before, re = walk_cuda.LAUNCHES, walk_cuda.RELAUNCHES
+    scheduled = walk_cuda.SCHEDULE_LAUNCHES
     k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), capacity=7,
                         **kw)
     torch.cuda.synchronize()
     assert walk_cuda.RELAUNCHES == re + 1
     assert walk_cuda.LAUNCHES == before + 2
+    # The relaunch walks the same lane records: no second schedule.
+    assert walk_cuda.SCHEDULE_LAUNCHES == scheduled + 3
     p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
     _lanes_equal(k, p)
     assert torch.equal(k.flux, p.flux)

@@ -122,7 +122,7 @@ def _scheduled(pm, a, order, chunk, kw):
 
 
 @pytest.mark.parametrize("chunk", [1, 13, 128])
-@pytest.mark.parametrize("lane_order", ["random", "element"])
+@pytest.mark.parametrize("lane_order", ["random", "element", "records"])
 @pytest.mark.parametrize("truncate", [False, True],
                          ids=["whole", "truncated"])
 def test_schedule_matches_one_shot(truncate, lane_order, chunk):
@@ -134,6 +134,9 @@ def test_schedule_matches_one_shot(truncate, lane_order, chunk):
     if lane_order == "element":
         order = scatter.lane_order(torch.from_numpy(a["elem"]),
                                    pm.ntet).numpy()
+    elif lane_order == "records":  # the lane schedule's slot order
+        rec = walk_cuda.lane_records(*_args(pm, a)[:7], initial=False)
+        order = walk_cuda.decode_lanes(rec, torch.float64)["index"].numpy()
     else:
         order = np.random.default_rng(1).permutation(n)
     lanes, flux, segments = _scheduled(pm, a, order, chunk, kw)
@@ -185,9 +188,7 @@ def test_schedule_with_truncation_reports_not_done():
     np.zeros(0, np.int32),
 ])
 def test_plain_lane_order_is_a_permutation_by_element(elem):
-    before = scatter.ORDER_LAUNCHES
     perm = scatter.lane_order(torch.from_numpy(elem), 384)
-    assert scatter.ORDER_LAUNCHES == before  # CPU: the plain version
     assert perm.dtype == torch.int32
     assert torch.equal(torch.sort(perm.long()).values,
                        torch.arange(len(elem)))
