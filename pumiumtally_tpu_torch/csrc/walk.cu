@@ -171,14 +171,16 @@ __device__ __forceinline__ int pick4(const int (&a)[4], int f) {
 
 // One lane's inputs, written by lane_place in slot order, so a warp's
 // batch of 32 slots is one contiguous block it copies to shared memory.
-// Padding (8 B in float64) is zero.
+// A record fills whole 32 B sectors (padding zero: 16 B in float32, 24 B
+// in float64): lane_place writes records at scattered slots, and a record
+// that shared a sector with its neighbour left sectors part written.
 template <typename T>
-struct __align__(16) Lane {
+struct __align__(32) Lane {
   T o[3], d[3], w;
   int elem, group, index, fly;
 };
-static_assert(sizeof(Lane<float>) == 48, "float32 lane record");
-static_assert(sizeof(Lane<double>) == 80, "float64 lane record");
+static_assert(sizeof(Lane<float>) == 64, "float32 lane record");
+static_assert(sizeof(Lane<double>) == 96, "float64 lane record");
 
 // ---- The lane schedule: the walk's inputs into Lane records in slot order.
 //

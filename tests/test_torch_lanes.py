@@ -33,7 +33,7 @@ DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 def lane_dtype(real) -> np.dtype:
     """``Lane<T>`` as a numpy structured dtype: C's field offsets
-    (``align=True``) and the struct's 16 B alignment on its size."""
+    (``align=True``) and the struct's 32 B alignment on its size."""
     fields = [("o", real, (3,)), ("d", real, (3,)), ("w", real),
               ("elem", np.int32), ("group", np.int32), ("index", np.int32),
               ("fly", np.int32)]
@@ -41,7 +41,7 @@ def lane_dtype(real) -> np.dtype:
     return np.dtype({"names": c.names,
                      "formats": [c.fields[k][0] for k in c.names],
                      "offsets": [c.fields[k][1] for k in c.names],
-                     "itemsize": -(-c.itemsize // 16) * 16})
+                     "itemsize": -(-c.itemsize // 32) * 32})
 
 
 def lane_inputs(n: int, ntet: int, dtype, seed: int = 0):
