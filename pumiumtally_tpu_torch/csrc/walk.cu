@@ -197,11 +197,13 @@ static_assert(sizeof(Lane<double>) == 96, "float64 lane record");
 //  3. lane_place: thread r reads lane r's inputs (coalesced), claims a
 //     slot in its key's range (one atomic a key a warp; counts are spent
 //     as cursors, so every count ends at 0 and the buffer is ready for the
-//     next call without a memset) and writes the record with 16 B stores.
+//     next call without a memset) and the warp writes its records with
+//     16 B stores, a whole record a group of threads.
 // No permutation is kept: the walk writes a lane's outputs through
 // Lane.index. What bounds it: the bytes, each lane's inputs read once and
-// its record written once (85 B a lane in float32); the place pass's
-// records land at scattered slots, 48 B each.
+// its record written once (37 + 64 B a lane in float32); the records land
+// at scattered slots, so the place pass pays a scattered 64 B write a
+// lane, and its claim an atomic and a read of its key's offset.
 constexpr int SCHED_THREADS = 256;
 constexpr int SCAN_ITEMS = 16;
 constexpr int SCAN_TILE = SCHED_THREADS * SCAN_ITEMS;
@@ -355,6 +357,11 @@ union LaneWords {
   int4 v[sizeof(Lane<T>) / 16];
 };
 
+// The place pass. Each thread builds its lane's record and stages it in
+// its warp's slice of shared memory; the warp then writes its 32 records
+// 16 B a thread, the threads of one record side by side, so each store
+// instruction writes whole records (2 or 3 whole sectors each) and not 32
+// scattered 16 B pieces.
 template <typename T>
 __global__ void __launch_bounds__(SCHED_THREADS)
 lane_place(LaneKey<T> key, const T* __restrict__ origin,
@@ -363,35 +370,48 @@ lane_place(LaneKey<T> key, const T* __restrict__ origin,
            const int* __restrict__ group, int n,
            const int* __restrict__ offsets, const int* __restrict__ tile_sums,
            int* __restrict__ counts, Lane<T>* __restrict__ lanes) {
+  constexpr int C = (int)(sizeof(Lane<T>) / 16);  // 16 B words a record
+  __shared__ int4 staged[SCHED_THREADS / 32][32 * C];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
   const unsigned live = __ballot_sync(FULL, r < n);
-  if (r >= n) return;
-  const int k = key(elem, dest, r);
-  const unsigned same = __match_any_sync(live, k);
-  const int lane = threadIdx.x & 31, lead = __ffs(same) - 1;
-  const int size = __popc(same);
-  int left = 0;
-  if (lane == lead) left = atomicSub(counts + k, size);
-  left = __shfl_sync(same, left, lead);
-  const int slot = __ldg(offsets + k) + __ldg(tile_sums + k / SCAN_TILE) +
-                   left - size + __popc(same & ((1u << lane) - 1u));
-  LaneWords<T> u;
+  if (live == 0u) return;
+  int4* const mine = staged[threadIdx.x >> 5];
+  int slot = 0;
+  if (r < n) {
+    const int k = key(elem, dest, r);
+    const unsigned same = __match_any_sync(live, k);
+    const int lead = __ffs(same) - 1, size = __popc(same);
+    int left = 0;
+    if (lane == lead) left = atomicSub(counts + k, size);
+    left = __shfl_sync(same, left, lead);
+    slot = __ldg(offsets + k) + __ldg(tile_sums + k / SCAN_TILE) + left -
+           size + __popc(same & ((1u << lane) - 1u));
+    LaneWords<T> u;
 #pragma unroll
-  for (int j = 0; j < (int)(sizeof(Lane<T>) / 16); ++j)
-    u.v[j] = make_int4(0, 0, 0, 0);
+    for (int j = 0; j < C; ++j) u.v[j] = make_int4(0, 0, 0, 0);
 #pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    u.l.o[d] = origin[3 * r + d];
-    u.l.d[d] = dest[3 * r + d];
+    for (int d = 0; d < 3; ++d) {
+      u.l.o[d] = origin[3 * r + d];
+      u.l.d[d] = dest[3 * r + d];
+    }
+    u.l.w = weight[r];
+    u.l.elem = elem[r];
+    u.l.group = group[r];
+    u.l.index = r;
+    u.l.fly = fly[r];
+#pragma unroll
+    for (int j = 0; j < C; ++j) mine[lane * C + j] = u.v[j];
   }
-  u.l.w = weight[r];
-  u.l.elem = elem[r];
-  u.l.group = group[r];
-  u.l.index = r;
-  u.l.fly = fly[r];
-  int4* out = reinterpret_cast<int4*>(lanes + slot);
+  __syncwarp();
+  int4* const out = reinterpret_cast<int4*>(lanes);
 #pragma unroll
-  for (int j = 0; j < (int)(sizeof(Lane<T>) / 16); ++j) out[j] = u.v[j];
+  for (int j = 0; j < C; ++j) {
+    const int q = j * 32 + lane;  // word q % C of the warp's record q / C
+    const int src = q / C;
+    const int s = __shfl_sync(FULL, slot, src);
+    if ((live >> src) & 1u) out[(long long)s * C + q % C] = mine[q];
+  }
 }
 
 // Asynchronous copy of one lane record from device to shared memory.
@@ -732,7 +752,7 @@ int walk(int robust, int initial, int ordered, const void* geo,
          void* rec_bin, void* rec_order, void* rec_c, void* counters,
          long long capacity, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if ((uintptr_t)lanes % 16) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)lanes % 32) return (int)cudaErrorInvalidValue;
   return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, n, &grid);
@@ -757,7 +777,7 @@ int schedule(const void* origin, const void* dest, const void* elem,
              const LaneKey<T>& key, void* counts, void* offsets,
              void* tile_sums, void* ticket, void* lanes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (key.nkeys < 1 || (uintptr_t)lanes % 16)
+  if (key.nkeys < 1 || (uintptr_t)lanes % 32)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (int)(((long long)n + SCHED_THREADS - 1) / SCHED_THREADS);
@@ -794,8 +814,8 @@ int resident(int robust, int initial, int ordered, int* threads) {
 // C entry points; every pointer and the stream are passed as void*, and
 // the return value is the cudaError_t of the launches.
 //
-// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (48 B
-// each in float32, 80 B in float64) into lanes [n] (16 B aligned) in slot
+// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (64 B
+// each in float32, 96 B in float64) into lanes [n] (32 B aligned) in slot
 // order. cell = 0 keys a lane by elem >> shift, cell = 1 by its
 // destination's cell (lo, scale and cells per axis); keys are clamped to
 // [0, nkeys). counts [nkeys] int32 and ticket (one uint32) are zero and
