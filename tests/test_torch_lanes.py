@@ -3,8 +3,8 @@
 The schedule writes every lane's walk inputs as one ``Lane<T>`` record
 (``csrc/walk.cu``) in slot order: keys non-decreasing, lanes of one key in
 any order. The plain version sorts stably by key. Here its bytes are held
-to a numpy structured dtype laid out as the C struct (16 B aligned, padding
-zero), its order to the keys over the sizes where a warp or a scan tile
+to a numpy structured dtype laid out as the C struct (32 B aligned, so a
+record fills whole sectors; padding zero), its order to the keys over the sizes where a warp or a scan tile
 is ragged, and a walk fed from its decoded records to the JAX package's
 walk on the same seeded inputs: positions within 1e-12 and flux within
 rtol 1e-10 in float64, the tolerances of ``tests/test_torch_walk.py``.
