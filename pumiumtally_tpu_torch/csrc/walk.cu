@@ -189,23 +189,21 @@ static_assert(sizeof(Lane<double>) == 96, "float64 lane record");
 // the initial search's its destination's cell on a grid over the mesh's
 // box (ops/walk_cuda.py lane_keys, destination_cells). Three launches, a
 // counting sort that moves each lane's record once:
-//  1. lane_count: lanes per key into counts, and each lane's rank among
-//     its key's lanes (the lanes of one key in a warp make one atomic);
+//  1. lane_count: lanes per key into counts (the lanes of one key in a
+//     warp make one atomic);
 //  2. lane_scan: each block scans a tile of SCAN_TILE counts into
-//     tile-relative offsets and sets those counts back to 0 (so the
-//     buffer is ready for the next call without a memset), and the last
-//     block to finish scans the tiles' sums in place (a last-block-done
-//     scan: one launch, no spin);
-//  3. lane_place: thread r reads lane r's inputs and rank (coalesced),
-//     and the warp writes its records into their slots (key offset plus
-//     rank: no atomic) with 16 B stores, a whole record a group of
-//     threads.
+//     tile-relative offsets and the last block to finish scans the tiles'
+//     sums in place (a last-block-done scan: one launch, no spin);
+//  3. lane_place: thread r reads lane r's inputs (coalesced), claims a
+//     slot in its key's range (one atomic a key a warp; counts are spent
+//     as cursors, so every count ends at 0 and the buffer is ready for the
+//     next call without a memset) and the warp writes its records with
+//     16 B stores, a whole record a group of threads.
 // No permutation is kept: the walk writes a lane's outputs through
 // Lane.index. What bounds it: the bytes, each lane's inputs read once and
-// its record written once (37 + 64 B a lane in float32). What it pays
-// beyond them: an atomic a lane in the count pass, the ranks (8 B a
-// lane), a read of the key's offset a lane and the scattered 64 B write
-// of each record.
+// its record written once (37 + 64 B a lane in float32); the records land
+// at scattered slots, so the place pass pays a scattered 64 B write a
+// lane, and its claim an atomic and a read of its key's offset.
 constexpr int SCHED_THREADS = 256;
 constexpr int SCAN_ITEMS = 16;
 constexpr int SCAN_TILE = SCHED_THREADS * SCAN_ITEMS;
@@ -245,18 +243,14 @@ struct LaneKey {
 template <typename T>
 __global__ void __launch_bounds__(SCHED_THREADS)
 lane_count(LaneKey<T> key, const int* __restrict__ elem,
-           const T* __restrict__ dest, int n, int* __restrict__ counts,
-           int* __restrict__ rank) {
+           const T* __restrict__ dest, int n, int* __restrict__ counts) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const unsigned live = __ballot_sync(FULL, r < n);
   if (r >= n) return;
   const int k = key(elem, dest, r);
   const unsigned same = __match_any_sync(live, k);
-  const int lane = threadIdx.x & 31, lead = __ffs(same) - 1;
-  int base = 0;
-  if (lane == lead) base = atomicAdd(counts + k, __popc(same));
-  rank[r] = __shfl_sync(same, base, lead) +
-            __popc(same & ((1u << lane) - 1u));
+  if ((int)(threadIdx.x & 31) == __ffs(same) - 1)
+    atomicAdd(counts + k, __popc(same));
 }
 
 // Exclusive scan of one int per thread over the block; returns the
@@ -293,19 +287,17 @@ __device__ int block_scan(int v, int* total) {
 // through shared memory (padded a word every 32 against bank conflicts),
 // so global loads and stores are coalesced while each thread scans
 // SCAN_ITEMS consecutive values. COHERENT loads from L2: the values were
-// written by other blocks of this launch. ZERO sets the values read in
-// `in` back to 0.
-template <bool COHERENT, bool ZERO>
-__device__ int scan_tile(int* in, int* out, long long base, long long len,
-                         int carry) {
+// written by other blocks of this launch.
+template <bool COHERENT>
+__device__ int scan_tile(const int* in, int* out, long long base,
+                         long long len, int carry) {
   __shared__ int tile[SCAN_TILE + SCAN_TILE / 32];
 #pragma unroll
   for (int k = 0; k < SCAN_ITEMS; ++k) {
     const int i = k * SCHED_THREADS + threadIdx.x;
     const long long g = base + i;
     tile[i + (i >> 5)] =
-        g < len ? (COHERENT ? __ldcg(in + g) : in[g]) : 0;
-    if (ZERO && g < len) in[g] = 0;
+        g < len ? (COHERENT ? __ldcg(in + g) : __ldg(in + g)) : 0;
   }
   __syncthreads();
   int v[SCAN_ITEMS];
@@ -334,15 +326,15 @@ __device__ int scan_tile(int* in, int* out, long long base, long long len,
   return total;
 }
 
-// offsets[k] = the lanes of keys below k in k's tile, and counts[k] back
-// to 0 for the next call; the last block to finish turns tile_sums[t] into
-// the lanes of the tiles below t and sets the ticket back to 0. A key's
-// first slot is offsets[k] + tile_sums[k / SCAN_TILE].
+// offsets[k] = the lanes of keys below k in k's tile; the last block to
+// finish turns tile_sums[t] into the lanes of the tiles below t and sets
+// the ticket back to 0. A key's first slot is offsets[k] + tile_sums[k /
+// SCAN_TILE].
 __global__ void __launch_bounds__(SCHED_THREADS)
-lane_scan(int* __restrict__ counts, int nkeys, int* __restrict__ offsets,
+lane_scan(const int* __restrict__ counts, int nkeys, int* __restrict__ offsets,
           int* tile_sums, unsigned* ticket) {
   __shared__ bool last;
-  const int total = scan_tile<false, true>(
+  const int total = scan_tile<false>(
       counts, offsets, (long long)blockIdx.x * SCAN_TILE, nkeys, 0);
   if (threadIdx.x == 0) {
     tile_sums[blockIdx.x] = total;
@@ -354,8 +346,7 @@ lane_scan(int* __restrict__ counts, int nkeys, int* __restrict__ offsets,
   __threadfence();
   int carry = 0;
   for (long long base = 0; base < gridDim.x; base += SCAN_TILE)
-    carry += scan_tile<true, false>(tile_sums, tile_sums, base, gridDim.x,
-                                    carry);
+    carry += scan_tile<true>(tile_sums, tile_sums, base, gridDim.x, carry);
   if (threadIdx.x == 0) *ticket = 0u;
 }
 
@@ -366,8 +357,7 @@ union LaneWords {
   int4 v[sizeof(Lane<T>) / 16];
 };
 
-// The place pass. Lane r's slot is its key's first slot plus its rank
-// from the count pass. Each thread builds its lane's record and stages it in
+// The place pass. Each thread builds its lane's record and stages it in
 // its warp's slice of shared memory; the warp then writes its 32 records
 // 16 B a thread, the threads of one record side by side, so each store
 // instruction writes whole records (2 or 3 whole sectors each) and not 32
@@ -379,7 +369,7 @@ lane_place(LaneKey<T> key, const T* __restrict__ origin,
            const bool* __restrict__ fly, const T* __restrict__ weight,
            const int* __restrict__ group, int n,
            const int* __restrict__ offsets, const int* __restrict__ tile_sums,
-           const int* __restrict__ rank, Lane<T>* __restrict__ lanes) {
+           int* __restrict__ counts, Lane<T>* __restrict__ lanes) {
   constexpr int C = (int)(sizeof(Lane<T>) / 16);  // 16 B words a record
   __shared__ int4 staged[SCHED_THREADS / 32][32 * C];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
@@ -390,7 +380,13 @@ lane_place(LaneKey<T> key, const T* __restrict__ origin,
   int slot = 0;
   if (r < n) {
     const int k = key(elem, dest, r);
-    slot = __ldg(offsets + k) + __ldg(tile_sums + k / SCAN_TILE) + rank[r];
+    const unsigned same = __match_any_sync(live, k);
+    const int lead = __ffs(same) - 1, size = __popc(same);
+    int left = 0;
+    if (lane == lead) left = atomicSub(counts + k, size);
+    left = __shfl_sync(same, left, lead);
+    slot = __ldg(offsets + k) + __ldg(tile_sums + k / SCAN_TILE) + left -
+           size + __popc(same & ((1u << lane) - 1u));
     LaneWords<T> u;
 #pragma unroll
     for (int j = 0; j < C; ++j) u.v[j] = make_int4(0, 0, 0, 0);
@@ -774,14 +770,12 @@ int walk(int robust, int initial, int ordered, const void* geo,
 
 // The three launches of the lane schedule (see lane_count). counts
 // [nkeys] must be zero and is left zero; offsets [nkeys], tile_sums
-// [ceil(nkeys / SCAN_TILE)], rank [n] and ticket (zero, left zero) are
-// scratch.
+// [ceil(nkeys / SCAN_TILE)] and ticket (zero, left zero) are scratch.
 template <typename T>
 int schedule(const void* origin, const void* dest, const void* elem,
              const void* fly, const void* weight, const void* group, int n,
              const LaneKey<T>& key, void* counts, void* offsets,
-             void* tile_sums, void* ticket, void* rank, void* lanes,
-             void* stream) {
+             void* tile_sums, void* ticket, void* lanes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (key.nkeys < 1 || (uintptr_t)lanes % 32)
     return (int)cudaErrorInvalidValue;
@@ -789,10 +783,10 @@ int schedule(const void* origin, const void* dest, const void* elem,
   const int blocks = (int)(((long long)n + SCHED_THREADS - 1) / SCHED_THREADS);
   const int tiles = (int)(((long long)key.nkeys + SCAN_TILE - 1) / SCAN_TILE);
   lane_count<T><<<blocks, SCHED_THREADS, 0, s>>>(
-      key, (const int*)elem, (const T*)dest, n, (int*)counts, (int*)rank);
+      key, (const int*)elem, (const T*)dest, n, (int*)counts);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  lane_scan<<<tiles, SCHED_THREADS, 0, s>>>((int*)counts, key.nkeys,
+  lane_scan<<<tiles, SCHED_THREADS, 0, s>>>((const int*)counts, key.nkeys,
                                             (int*)offsets, (int*)tile_sums,
                                             (unsigned*)ticket);
   e = cudaGetLastError();
@@ -800,7 +794,7 @@ int schedule(const void* origin, const void* dest, const void* elem,
   lane_place<T><<<blocks, SCHED_THREADS, 0, s>>>(
       key, (const T*)origin, (const T*)dest, (const int*)elem,
       (const bool*)fly, (const T*)weight, (const int*)group, n,
-      (const int*)offsets, (const int*)tile_sums, (const int*)rank,
+      (const int*)offsets, (const int*)tile_sums, (int*)counts,
       (Lane<T>*)lanes);
   return (int)cudaGetLastError();
 }
@@ -825,9 +819,8 @@ int resident(int robust, int initial, int ordered, int* threads) {
 // order. cell = 0 keys a lane by elem >> shift, cell = 1 by its
 // destination's cell (lo, scale and cells per axis); keys are clamped to
 // [0, nkeys). counts [nkeys] int32 and ticket (one uint32) are zero and
-// left zero; offsets [nkeys], tile_sums [ceil(nkeys / 4096)] and rank [n]
-// int32 are scratch. After a failed call counts and ticket must be zeroed
-// again.
+// left zero; offsets [nkeys] and tile_sums [ceil(nkeys / 4096)] int32 are
+// scratch. After a failed call counts and ticket must be zeroed again.
 //
 // pumi_walk_<t> launches one walk over the records of pumi_lanes_<t>: slot
 // s walks lane lanes[s].index. counters is three uint64 zeroed by the
@@ -842,15 +835,14 @@ int resident(int robust, int initial, int ordered, int* threads) {
       const void* weight, const void* group, int n, int cell, int shift,       \
       int nkeys, double lo0, double lo1, double lo2, double scale0,            \
       double scale1, double scale2, int cells0, int cells1, int cells2,        \
-      void* counts, void* offsets, void* tile_sums, void* ticket, void* rank,  \
-      void* lanes, void* stream) {                                             \
+      void* counts, void* offsets, void* tile_sums, void* ticket, void* lanes, \
+      void* stream) {                                                          \
     const LaneKey<T> key{cell,        shift,       nkeys,                     \
                          {(T)lo0, (T)lo1, (T)lo2},                            \
                          {(T)scale0, (T)scale1, (T)scale2},                   \
                          {cells0, cells1, cells2}};                           \
     return schedule<T>(origin, dest, elem, fly, weight, group, n, key,         \
-                       counts, offsets, tile_sums, ticket, rank, lanes,        \
-                       stream);                                                \
+                       counts, offsets, tile_sums, ticket, lanes, stream);     \
   }                                                                            \
   extern "C" int pumi_walk_##TAG(                                              \
       int robust, int initial, int ordered, const void* geo,                   \

@@ -84,8 +84,8 @@ _LANES_ARGTYPES = (
     + [ctypes.c_int] * 4             # n, cell, shift, nkeys
     + [ctypes.c_double] * 6          # lo, scale
     + [ctypes.c_int] * 3             # cells
-    + [ctypes.c_void_p] * 7          # counts, offsets, tile_sums, ticket,
-                                     # rank, lane records, stream
+    + [ctypes.c_void_p] * 6          # counts, offsets, tile_sums, ticket,
+                                     # lane records, stream
 )
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # csrc/walk.cu Lane<T>: o[3], d[3], w in the walk's type, then int32 elem,
@@ -398,25 +398,22 @@ def lane_records(mesh, origin, dest, elem, in_flight, weight, group, *,
 
 
 # Per (device, stream): the schedule's key counts and scan ticket (zero
-# between calls: the scan sets the counts it reads back to 0 and resets
-# its ticket), with scratch for the offsets, tile sums and lane ranks.
+# between calls: the place pass spends the counts as cursors and the scan
+# resets its ticket), with scratch for the offsets and tile sums.
 _WORKSPACES: dict = {}
 
 
-def _workspace(dev, stream: int, nkeys: int, n: int) -> dict:
+def _workspace(dev, stream: int, nkeys: int) -> dict:
     key = (dev.index, stream)
     ws = _WORKSPACES.get(key)
-    i32 = dict(dtype=torch.int32, device=dev)
     if ws is None or ws["counts"].numel() < nkeys:
+        i32 = dict(dtype=torch.int32, device=dev)
         ws = _WORKSPACES[key] = dict(
             counts=torch.zeros(nkeys, **i32),
             offsets=torch.empty(nkeys, **i32),
             tile_sums=torch.empty(-(-nkeys // _SCAN_TILE), **i32),
             ticket=torch.zeros(1, **i32),
-            rank=torch.empty(n, **i32),
         )
-    if ws["rank"].numel() < n:
-        ws["rank"] = torch.empty(n, **i32)
     return ws
 
 
@@ -438,13 +435,13 @@ def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial):
     fn = _entry("lanes", dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = _workspace(dev, stream, nkeys, n)
+        ws = _workspace(dev, stream, nkeys)
         err = fn(origin.data_ptr(), dest.data_ptr(), elem.data_ptr(),
                  in_flight.data_ptr(), weight.data_ptr(), group.data_ptr(),
                  n, int(initial), shift, nkeys, *lo, *scale, *cells,
                  ws["counts"].data_ptr(), ws["offsets"].data_ptr(),
                  ws["tile_sums"].data_ptr(), ws["ticket"].data_ptr(),
-                 ws["rank"].data_ptr(), lanes.data_ptr(), stream)
+                 lanes.data_ptr(), stream)
     if err != 0:
         # The counts may be left part spent: the next call starts afresh.
         _WORKSPACES.pop((dev.index, stream), None)
