@@ -1188,7 +1188,7 @@ def device_kernels(fn, calls: int = 3) -> list:
             for e in device_rows(prof)]
 
 
-SCHEDULE_KERNELS = ("lane_count", "lane_scan", "lane_place")
+SCHEDULE_KERNEL_NAMES = ("lane_count", "lane_scan", "lane_place")
 
 
 def phase_schedule(tally, snaps) -> dict:
@@ -1239,9 +1239,9 @@ def phase_schedule(tally, snaps) -> dict:
             if ws["counts"].any() or ws["ticket"].any():
                 raise AssertionError(f"schedule, {label}: counts not zero")
         rows = device_kernels(kernel)
-        names = [next((k for k in SCHEDULE_KERNELS if k in key), key)
+        names = [next((k for k in SCHEDULE_KERNEL_NAMES if k in key), key)
                  for key, _, _ in rows]
-        if sorted(names) != sorted(SCHEDULE_KERNELS):
+        if sorted(names) != sorted(SCHEDULE_KERNEL_NAMES):
             raise AssertionError(f"schedule, {label}: device events {rows}, "
                                  "not its three kernels alone")
         item = origin.element_size()

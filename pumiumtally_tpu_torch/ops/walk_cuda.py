@@ -63,7 +63,9 @@ LAUNCHES = 0
 RELAUNCHES = 0
 SCHEDULE_LAUNCHES = 0
 SCHEDULE_KERNELS = 3  # count, scan, place (csrc/walk.cu schedule)
-# A move's lane key is its start element >> KEY_SHIFT.
+# A move's lane key is its start element >> KEY_SHIFT. Coarser keys made
+# no faster schedule and a slower walk and scatter (PERF.md, Findings), so 0;
+# probes/turns.py sets it to compare shifts.
 KEY_SHIFT = 0
 WARP_TRIPS: torch.Tensor | None = None
 LAST_WAIT_S = 0.0
@@ -331,16 +333,16 @@ def n_keys(ntet: int, shift: int) -> int:
     return max(1, -(-ntet >> shift))
 
 
-def lane_keys(mesh, elem, dest, initial: bool, shift: int | None = None):
+def lane_keys(mesh, elem, dest, initial: bool):
     """The schedule's key of every lane (int32) and the number of keys: a
-    move's lanes by start element ``>> shift`` (``KEY_SHIFT`` by default),
-    the initial search's by ``destination_cells``; clamped to the keys'
-    range, as the kernel clamps them."""
+    move's lanes by start element ``>> KEY_SHIFT``, the initial search's
+    by ``destination_cells``; clamped to the keys' range, as the kernel
+    clamps them."""
     if initial:
         keys, nkeys = destination_cells(mesh, dest)
     else:
-        nkeys = n_keys(mesh.ntet, KEY_SHIFT if shift is None else shift)
-        keys = elem >> (KEY_SHIFT if shift is None else shift)
+        nkeys = n_keys(mesh.ntet, KEY_SHIFT)
+        keys = elem >> KEY_SHIFT
     return keys.clamp(0, nkeys - 1).to(torch.int32), nkeys
 
 

@@ -116,11 +116,12 @@ def test_plain_schedule_is_a_permutation_by_key(n, keys, dtype, seed):
 
 
 @pytest.mark.parametrize("shift", [0, 3])
-def test_lane_keys_of_a_move_are_coarse_elements(shift):
+def test_lane_keys_of_a_move_are_coarse_elements(shift, monkeypatch):
+    monkeypatch.setattr(walk_cuda, "KEY_SHIFT", shift)
     mesh = build_box(1, 1, 1, 4, 4, 4, device="cpu")
     elem = torch.tensor([0, 7, 8, mesh.ntet - 1, -3, mesh.ntet + 40],
                         dtype=torch.int32)
-    keys, nkeys = walk_cuda.lane_keys(mesh, elem, None, False, shift=shift)
+    keys, nkeys = walk_cuda.lane_keys(mesh, elem, None, False)
     assert nkeys == -(-mesh.ntet // 2**shift) == walk_cuda.n_keys(mesh.ntet,
                                                                    shift)
     assert keys.dtype == torch.int32
