@@ -171,16 +171,16 @@ __device__ __forceinline__ int pick4(const int (&a)[4], int f) {
 
 // One lane's inputs, written by lane_place in slot order, so a warp's
 // batch of 32 slots is one contiguous block it copies to shared memory.
-// A record fills whole 32 B sectors (padding zero: 16 B in float32, 24 B
-// in float64): lane_place writes records at scattered slots, and a record
-// that shared a sector with its neighbour left sectors part written.
+// Padding (8 B in float64) is zero. Records padded to whole 32 B sectors
+// (64 / 96 B) made the place pass faster but the walk slower: its batches
+// take more shared memory, which the SM takes from L1.
 template <typename T>
-struct __align__(32) Lane {
+struct __align__(16) Lane {
   T o[3], d[3], w;
   int elem, group, index, fly;
 };
-static_assert(sizeof(Lane<float>) == 64, "float32 lane record");
-static_assert(sizeof(Lane<double>) == 96, "float64 lane record");
+static_assert(sizeof(Lane<float>) == 48, "float32 lane record");
+static_assert(sizeof(Lane<double>) == 80, "float64 lane record");
 
 // ---- The lane schedule: the walk's inputs into Lane records in slot order.
 //
@@ -201,8 +201,8 @@ static_assert(sizeof(Lane<double>) == 96, "float64 lane record");
 //     16 B stores, a whole record a group of threads.
 // No permutation is kept: the walk writes a lane's outputs through
 // Lane.index. What bounds it: the bytes, each lane's inputs read once and
-// its record written once (37 + 64 B a lane in float32); the records land
-// at scattered slots, so the place pass pays a scattered 64 B write a
+// its record written once (37 + 48 B a lane in float32); the records land
+// at scattered slots, so the place pass pays a scattered 48 B write a
 // lane, and its claim an atomic and a read of its key's offset.
 constexpr int SCHED_THREADS = 256;
 constexpr int SCAN_ITEMS = 16;
@@ -360,8 +360,7 @@ union LaneWords {
 // The place pass. Each thread builds its lane's record and stages it in
 // its warp's slice of shared memory; the warp then writes its 32 records
 // 16 B a thread, the threads of one record side by side, so each store
-// instruction writes whole records (2 or 3 whole sectors each) and not 32
-// scattered 16 B pieces.
+// instruction writes whole records and not 32 scattered 16 B pieces.
 template <typename T>
 __global__ void __launch_bounds__(SCHED_THREADS)
 lane_place(LaneKey<T> key, const T* __restrict__ origin,
@@ -752,7 +751,7 @@ int walk(int robust, int initial, int ordered, const void* geo,
          void* rec_bin, void* rec_order, void* rec_c, void* counters,
          long long capacity, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if ((uintptr_t)lanes % 32) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)lanes % 16) return (int)cudaErrorInvalidValue;
   return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, n, &grid);
@@ -777,7 +776,7 @@ int schedule(const void* origin, const void* dest, const void* elem,
              const LaneKey<T>& key, void* counts, void* offsets,
              void* tile_sums, void* ticket, void* lanes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (key.nkeys < 1 || (uintptr_t)lanes % 32)
+  if (key.nkeys < 1 || (uintptr_t)lanes % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (int)(((long long)n + SCHED_THREADS - 1) / SCHED_THREADS);
@@ -814,8 +813,8 @@ int resident(int robust, int initial, int ordered, int* threads) {
 // C entry points; every pointer and the stream are passed as void*, and
 // the return value is the cudaError_t of the launches.
 //
-// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (64 B
-// each in float32, 96 B in float64) into lanes [n] (32 B aligned) in slot
+// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (48 B
+// each in float32, 80 B in float64) into lanes [n] (16 B aligned) in slot
 // order. cell = 0 keys a lane by elem >> shift, cell = 1 by its
 // destination's cell (lo, scale and cells per axis); keys are clamped to
 // [0, nkeys). counts [nkeys] int32 and ticket (one uint32) are zero and

@@ -91,8 +91,8 @@ _LANES_ARGTYPES = (
 )
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # csrc/walk.cu Lane<T>: o[3], d[3], w in the walk's type, then int32 elem,
-# group, index, fly; 32 B aligned (whole sectors).
-LANE_BYTES = {torch.float32: 64, torch.float64: 96}
+# group, index, fly; 16 B aligned.
+LANE_BYTES = {torch.float32: 48, torch.float64: 80}
 _SCAN_TILE = 4096  # csrc/walk.cu SCAN_TILE
 _entries: dict = {}
 
