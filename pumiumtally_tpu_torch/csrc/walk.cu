@@ -389,16 +389,14 @@ lane_place(LaneKey<T> key, const T* __restrict__ origin,
     LaneWords<T> u;
 #pragma unroll
     for (int j = 0; j < C; ++j) u.v[j] = make_int4(0, 0, 0, 0);
-    // Streaming loads: the inputs are read once, so they should not push
-    // the records' part-written lines out of L2.
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      u.l.o[d] = __ldcs(origin + 3 * r + d);
-      u.l.d[d] = __ldcs(dest + 3 * r + d);
+      u.l.o[d] = origin[3 * r + d];
+      u.l.d[d] = dest[3 * r + d];
     }
-    u.l.w = __ldcs(weight + r);
-    u.l.elem = __ldcs(elem + r);
-    u.l.group = __ldcs(group + r);
+    u.l.w = weight[r];
+    u.l.elem = elem[r];
+    u.l.group = group[r];
     u.l.index = r;
     u.l.fly = fly[r];
 #pragma unroll
