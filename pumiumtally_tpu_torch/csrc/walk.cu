@@ -169,18 +169,29 @@ __device__ __forceinline__ int pick4(const int (&a)[4], int f) {
   return f == 0 ? a[0] : f == 1 ? a[1] : f == 2 ? a[2] : a[3];
 }
 
-// One lane's inputs, written by lane_place in slot order, so a warp's
-// batch of 32 slots is one contiguous block it copies to shared memory.
-// Padding (8 B in float64) is zero. Records padded to whole 32 B sectors
-// (64 / 96 B) made the place pass faster but the walk slower: its batches
-// take more shared memory, which the SM takes from L1.
+// One lane's inputs, as a warp's batch holds them in shared memory.
 template <typename T>
 struct __align__(16) Lane {
   T o[3], d[3], w;
   int elem, group, index, fly;
 };
-static_assert(sizeof(Lane<float>) == 48, "float32 lane record");
-static_assert(sizeof(Lane<double>) == 80, "float64 lane record");
+static_assert(sizeof(Lane<float>) == 48, "float32 lane");
+static_assert(sizeof(Lane<double>) == 80, "float64 lane");
+
+// A lane's record in device memory, written by lane_place in slot order,
+// so a warp's batch of 32 slots is one contiguous block it copies to
+// shared memory: the Lane and zero padding to whole 32 B sectors (64 B in
+// float32, 96 B in float64). The place pass writes records at scattered
+// slots, and a 48 B record that shared a sector with its neighbour left
+// that sector part written (the pass took 0.11 against 0.06 ms). The walk
+// copies the Lane alone, so its batches keep their shared memory and the
+// SM its L1.
+template <typename T>
+struct __align__(32) LaneRecord {
+  Lane<T> l;
+};
+static_assert(sizeof(LaneRecord<float>) == 64, "float32 lane record");
+static_assert(sizeof(LaneRecord<double>) == 96, "float64 lane record");
 
 // ---- The lane schedule: the walk's inputs into Lane records in slot order.
 //
@@ -201,8 +212,8 @@ static_assert(sizeof(Lane<double>) == 80, "float64 lane record");
 //     16 B stores, a whole record a group of threads.
 // No permutation is kept: the walk writes a lane's outputs through
 // Lane.index. What bounds it: the bytes, each lane's inputs read once and
-// its record written once (37 + 48 B a lane in float32); the records land
-// at scattered slots, so the place pass pays a scattered 48 B write a
+// its record written once (37 + 64 B a lane in float32); the records land
+// at scattered slots, so the place pass pays a scattered 64 B write a
 // lane, and its claim an atomic and a read of its key's offset.
 constexpr int SCHED_THREADS = 256;
 constexpr int SCAN_ITEMS = 16;
@@ -353,8 +364,8 @@ lane_scan(const int* __restrict__ counts, int nkeys, int* __restrict__ offsets,
 // A lane record as 16 B words, padding zero.
 template <typename T>
 union LaneWords {
-  Lane<T> l;
-  int4 v[sizeof(Lane<T>) / 16];
+  LaneRecord<T> r;
+  int4 v[sizeof(LaneRecord<T>) / 16];
 };
 
 // The place pass. Each thread builds its lane's record and stages it in
@@ -368,8 +379,8 @@ lane_place(LaneKey<T> key, const T* __restrict__ origin,
            const bool* __restrict__ fly, const T* __restrict__ weight,
            const int* __restrict__ group, int n,
            const int* __restrict__ offsets, const int* __restrict__ tile_sums,
-           int* __restrict__ counts, Lane<T>* __restrict__ lanes) {
-  constexpr int C = (int)(sizeof(Lane<T>) / 16);  // 16 B words a record
+           int* __restrict__ counts, LaneRecord<T>* __restrict__ lanes) {
+  constexpr int C = (int)(sizeof(LaneRecord<T>) / 16);  // 16 B words
   __shared__ int4 staged[SCHED_THREADS / 32][32 * C];
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
@@ -389,16 +400,17 @@ lane_place(LaneKey<T> key, const T* __restrict__ origin,
     LaneWords<T> u;
 #pragma unroll
     for (int j = 0; j < C; ++j) u.v[j] = make_int4(0, 0, 0, 0);
+    Lane<T>& l = u.r.l;
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      u.l.o[d] = origin[3 * r + d];
-      u.l.d[d] = dest[3 * r + d];
+      l.o[d] = origin[3 * r + d];
+      l.d[d] = dest[3 * r + d];
     }
-    u.l.w = weight[r];
-    u.l.elem = elem[r];
-    u.l.group = group[r];
-    u.l.index = r;
-    u.l.fly = fly[r];
+    l.w = weight[r];
+    l.elem = elem[r];
+    l.group = group[r];
+    l.index = r;
+    l.fly = fly[r];
 #pragma unroll
     for (int j = 0; j < C; ++j) mine[lane * C + j] = u.v[j];
   }
@@ -424,7 +436,8 @@ __device__ __forceinline__ void copy_lane(Lane<T>* dst, const Lane<T>* src) {
 
 template <typename T, bool ROBUST, bool INITIAL, bool ORDERED>
 __global__ void __launch_bounds__(BLOCK)
-walk_kernel(const T* __restrict__ geo, const Lane<T>* __restrict__ lanes,
+walk_kernel(const T* __restrict__ geo,
+            const LaneRecord<T>* __restrict__ lanes,
             int n, int n_groups, int max_crossings, T tolerance,
             int score_squares, T* __restrict__ flux, T* __restrict__ pos_out,
             int* __restrict__ elem_out, int* __restrict__ mat_out,
@@ -465,7 +478,7 @@ walk_kernel(const T* __restrict__ geo, const Lane<T>* __restrict__ lanes,
       const long long left = (long long)n - base;
       nn = left <= 0 ? 0 : left < WARP ? (int)left : WARP;
       dry = nn < WARP;
-      if (lane < nn) copy_lane(&buf[b][lane], lanes + base + lane);
+      if (lane < nn) copy_lane(&buf[b][lane], &lanes[base + lane].l);
       if (lane == 0 && !dry)
         pend = atomicAdd(counters + NEXT_SLOT, (unsigned long long)WARP);
     }
@@ -751,13 +764,14 @@ int walk(int robust, int initial, int ordered, const void* geo,
          void* rec_bin, void* rec_order, void* rec_c, void* counters,
          long long capacity, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if ((uintptr_t)lanes % 16) return (int)cudaErrorInvalidValue;
+  if ((uintptr_t)lanes % 32) return (int)cudaErrorInvalidValue;
   return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, n, &grid);
     if (e != 0) return e;
     kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-        (const T*)geo, (const Lane<T>*)lanes, n, n_groups, max_crossings,
+        (const T*)geo, (const LaneRecord<T>*)lanes, n, n_groups,
+        max_crossings,
         (T)tolerance, score_squares, (T*)flux, (T*)pos_out, (int*)elem_out,
         (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
         (int*)nchase_out, (int*)nseg_out, (int*)iters_out, (int*)rec_bin,
@@ -776,7 +790,7 @@ int schedule(const void* origin, const void* dest, const void* elem,
              const LaneKey<T>& key, void* counts, void* offsets,
              void* tile_sums, void* ticket, void* lanes, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (key.nkeys < 1 || (uintptr_t)lanes % 16)
+  if (key.nkeys < 1 || (uintptr_t)lanes % 32)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (int)(((long long)n + SCHED_THREADS - 1) / SCHED_THREADS);
@@ -794,7 +808,7 @@ int schedule(const void* origin, const void* dest, const void* elem,
       key, (const T*)origin, (const T*)dest, (const int*)elem,
       (const bool*)fly, (const T*)weight, (const int*)group, n,
       (const int*)offsets, (const int*)tile_sums, (int*)counts,
-      (Lane<T>*)lanes);
+      (LaneRecord<T>*)lanes);
   return (int)cudaGetLastError();
 }
 
@@ -813,8 +827,8 @@ int resident(int robust, int initial, int ordered, int* threads) {
 // C entry points; every pointer and the stream are passed as void*, and
 // the return value is the cudaError_t of the launches.
 //
-// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (48 B
-// each in float32, 80 B in float64) into lanes [n] (16 B aligned) in slot
+// pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (64 B
+// each in float32, 96 B in float64) into lanes [n] (32 B aligned) in slot
 // order. cell = 0 keys a lane by elem >> shift, cell = 1 by its
 // destination's cell (lo, scale and cells per axis); keys are clamped to
 // [0, nkeys). counts [nkeys] int32 and ticket (one uint32) are zero and

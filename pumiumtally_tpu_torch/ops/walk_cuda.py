@@ -90,9 +90,9 @@ _LANES_ARGTYPES = (
                                      # lane records, stream
 )
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
-# csrc/walk.cu Lane<T>: o[3], d[3], w in the walk's type, then int32 elem,
-# group, index, fly; 16 B aligned.
-LANE_BYTES = {torch.float32: 48, torch.float64: 80}
+# csrc/walk.cu LaneRecord<T>: o[3], d[3], w in the walk's type, then int32
+# elem, group, index, fly, and zero padding to whole 32 B sectors.
+LANE_BYTES = {torch.float32: 64, torch.float64: 96}
 _SCAN_TILE = 4096  # csrc/walk.cu SCAN_TILE
 _entries: dict = {}
 
@@ -347,7 +347,7 @@ def lane_keys(mesh, elem, dest, initial: bool):
 
 
 def lane_records_plain(keys, origin, dest, elem, in_flight, weight, group):
-    """The lanes' ``Lane<T>`` records (``csrc/walk.cu``) in slot order, as
+    """The lanes' ``LaneRecord<T>`` records (``csrc/walk.cu``) in slot order, as
     a ``uint8 [n, LANE_BYTES]`` tensor: lanes sorted stably by key, each
     record origin, dest and weight in the walk's type, then int32 element,
     group, lane index and flying flag, padding zero."""
@@ -368,7 +368,7 @@ def lane_records_plain(keys, origin, dest, elem, in_flight, weight, group):
 
 
 def decode_lanes(records, dtype) -> dict:
-    """The fields of ``Lane<T>`` records (``uint8 [n, LANE_BYTES]``):
+    """The fields of ``LaneRecord<T>`` records (``uint8 [n, LANE_BYTES]``):
     origin and dest ``[n, 3]`` and weight in ``dtype``, int32 elem, group
     and index, and the flying flags as bool."""
     n, item = records.shape[0], torch.finfo(dtype).bits // 8
@@ -383,8 +383,8 @@ def decode_lanes(records, dtype) -> dict:
 
 def lane_records(mesh, origin, dest, elem, in_flight, weight, group, *,
                  initial: bool):
-    """The walk's lane schedule: every lane's inputs as one ``Lane<T>``
-    record, in order of its key (``lane_keys``; within a key the device's
+    """The walk's lane schedule: every lane's inputs as one
+    ``LaneRecord<T>``, in order of its key (``lane_keys``; within a key the device's
     order), ``uint8 [n, LANE_BYTES]``. A CPU tensor takes
     ``lane_records_plain``; a CUDA tensor the three kernels of
     ``csrc/walk.cu`` (count, scan, place), which compute the key from

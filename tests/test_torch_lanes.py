@@ -1,10 +1,10 @@
 """The walk's lane schedule on the CPU: ``walk_cuda.lane_records_plain``.
 
-The schedule writes every lane's walk inputs as one ``Lane<T>`` record
+The schedule writes every lane's walk inputs as one ``LaneRecord<T>``
 (``csrc/walk.cu``) in slot order: keys non-decreasing, lanes of one key in
 any order. The plain version sorts stably by key. Here its bytes are held
-to a numpy structured dtype laid out as the C struct (16 B aligned, padding
-zero), its order to the keys over the sizes where a warp or a scan tile
+to a numpy structured dtype laid out as the C struct (32 B aligned, so a
+record fills whole sectors; padding zero), its order to the keys over the sizes where a warp or a scan tile
 is ragged, and a walk fed from its decoded records to the JAX package's
 walk on the same seeded inputs: positions within 1e-12 and flux within
 rtol 1e-10 in float64, the tolerances of ``tests/test_torch_walk.py``.
@@ -32,8 +32,8 @@ DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def lane_dtype(real) -> np.dtype:
-    """``Lane<T>`` as a numpy structured dtype: C's field offsets
-    (``align=True``) and the struct's 16 B alignment on its size."""
+    """``LaneRecord<T>`` as a numpy structured dtype: C's field offsets
+    (``align=True``) and the struct's 32 B alignment on its size."""
     fields = [("o", real, (3,)), ("d", real, (3,)), ("w", real),
               ("elem", np.int32), ("group", np.int32), ("index", np.int32),
               ("fly", np.int32)]
@@ -41,7 +41,7 @@ def lane_dtype(real) -> np.dtype:
     return np.dtype({"names": c.names,
                      "formats": [c.fields[k][0] for k in c.names],
                      "offsets": [c.fields[k][1] for k in c.names],
-                     "itemsize": -(-c.itemsize // 16) * 16})
+                     "itemsize": -(-c.itemsize // 32) * 32})
 
 
 def lane_inputs(n: int, ntet: int, dtype, seed: int = 0):
