@@ -196,8 +196,8 @@ static_assert(sizeof(LaneRecord<double>) == 96, "float64 lane record");
 // ---- The lane schedule: the walk's inputs into Lane records in slot order.
 //
 // Slot order puts the lanes' keys in non-decreasing order (within a key
-// the order is the device's): a move's key is its start element >> shift,
-// the initial search's its destination's cell on a grid over the mesh's
+// the order is the device's): a move's key is its start element, the
+// initial search's its destination's cell on a grid over the mesh's
 // box (ops/walk_cuda.py lane_keys, destination_cells). Three launches, a
 // counting sort that moves each lane's record once:
 //  1. lane_count: lanes per key into counts (the lanes of one key in a
@@ -212,9 +212,10 @@ static_assert(sizeof(LaneRecord<double>) == 96, "float64 lane record");
 //     16 B stores, a whole record a group of threads.
 // No permutation is kept: the walk writes a lane's outputs through
 // Lane.index. What bounds it: the bytes, each lane's inputs read once and
-// its record written once (37 + 64 B a lane in float32); the records land
+// its Lane written once (37 + 48 B a lane in float32); the records land
 // at scattered slots, so the place pass pays a scattered 64 B write a
-// lane, and its claim an atomic and a read of its key's offset.
+// lane (the Lane and its padding), and its claim an atomic and a read of
+// its key's offset.
 constexpr int SCHED_THREADS = 256;
 constexpr int SCAN_ITEMS = 16;
 constexpr int SCAN_TILE = SCHED_THREADS * SCAN_ITEMS;
@@ -222,10 +223,10 @@ constexpr int SCAN_TILE = SCHED_THREADS * SCAN_ITEMS;
 // A lane's key, clamped to [0, nkeys). CELL: the cell of its destination,
 // (c2 * cells1 + c1) * cells0 + c0 with ck = clamp(floor(nan_to_num((d_k -
 // lo_k) * scale_k)), 0, cells_k - 1) in the walk's type, the arithmetic of
-// ops/walk_cuda.py destination_cells; else elem >> shift.
+// ops/walk_cuda.py destination_cells; else its start element.
 template <typename T>
 struct LaneKey {
-  int cell, shift, nkeys;
+  int cell, nkeys;
   T lo[3], scale[3];
   int cells[3];
   __device__ __forceinline__ int operator()(const int* __restrict__ elem,
@@ -245,7 +246,7 @@ struct LaneKey {
       }
       k = (c[2] * cells[1] + c[1]) * cells[0] + c[0];
     } else {
-      k = elem[r] >> shift;
+      k = elem[r];
     }
     return k < 0 ? 0 : (k >= nkeys ? nkeys - 1 : k);
   }
@@ -829,7 +830,7 @@ int resident(int robust, int initial, int ordered, int* threads) {
 //
 // pumi_lanes_<t> is the lane schedule: it writes the n lanes' records (64 B
 // each in float32, 96 B in float64) into lanes [n] (32 B aligned) in slot
-// order. cell = 0 keys a lane by elem >> shift, cell = 1 by its
+// order. cell = 0 keys a lane by elem, cell = 1 by its
 // destination's cell (lo, scale and cells per axis); keys are clamped to
 // [0, nkeys). counts [nkeys] int32 and ticket (one uint32) are zero and
 // left zero; offsets [nkeys] and tile_sums [ceil(nkeys / 4096)] int32 are
@@ -845,15 +846,16 @@ int resident(int robust, int initial, int ordered, int* threads) {
 #define PUMI_WALK_ENTRY(TAG, T)                                                \
   extern "C" int pumi_lanes_##TAG(                                             \
       const void* origin, const void* dest, const void* elem, const void* fly, \
-      const void* weight, const void* group, int n, int cell, int shift,       \
-      int nkeys, double lo0, double lo1, double lo2, double scale0,            \
-      double scale1, double scale2, int cells0, int cells1, int cells2,        \
+      const void* weight, const void* group, int n, int cell, int nkeys,       \
+      double lo0, double lo1, double lo2, double scale0, double scale1,        \
+      double scale2, int cells0, int cells1, int cells2,                       \
       void* counts, void* offsets, void* tile_sums, void* ticket, void* lanes, \
       void* stream) {                                                          \
-    const LaneKey<T> key{cell,        shift,       nkeys,                     \
-                         {(T)lo0, (T)lo1, (T)lo2},                            \
-                         {(T)scale0, (T)scale1, (T)scale2},                   \
-                         {cells0, cells1, cells2}};                           \
+    const LaneKey<T> key{cell,                                                 \
+                         nkeys,                                                \
+                         {(T)lo0, (T)lo1, (T)lo2},                             \
+                         {(T)scale0, (T)scale1, (T)scale2},                    \
+                         {cells0, cells1, cells2}};                            \
     return schedule<T>(origin, dest, elem, fly, weight, group, n, key,         \
                        counts, offsets, tile_sums, ticket, lanes, stream);     \
   }                                                                            \

@@ -63,10 +63,6 @@ LAUNCHES = 0
 RELAUNCHES = 0
 SCHEDULE_LAUNCHES = 0
 SCHEDULE_KERNELS = 3  # count, scan, place (csrc/walk.cu schedule)
-# A move's lane key is its start element >> KEY_SHIFT. Coarser keys made
-# no faster schedule and a slower walk and scatter (PERF.md, Findings), so 0;
-# probes/turns.py sets it to compare shifts.
-KEY_SHIFT = 0
 WARP_TRIPS: torch.Tensor | None = None
 LAST_WAIT_S = 0.0
 TALLIES = ("ordered", "atomic")
@@ -83,7 +79,7 @@ _WALK_ARGTYPES = (
 )
 _LANES_ARGTYPES = (
     [ctypes.c_void_p] * 6            # origin, dest, elem, fly, weight, group
-    + [ctypes.c_int] * 4             # n, cell, shift, nkeys
+    + [ctypes.c_int] * 3             # n, cell, nkeys
     + [ctypes.c_double] * 6          # lo, scale
     + [ctypes.c_int] * 3             # cells
     + [ctypes.c_void_p] * 6          # counts, offsets, tile_sums, ticket,
@@ -93,6 +89,8 @@ _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 # csrc/walk.cu LaneRecord<T>: o[3], d[3], w in the walk's type, then int32
 # elem, group, index, fly, and zero padding to whole 32 B sectors.
 LANE_BYTES = {torch.float32: 64, torch.float64: 96}
+# The Lane<T> a record carries, the bytes the walk reads of it.
+LANE_PAYLOAD = {torch.float32: 48, torch.float64: 80}
 _SCAN_TILE = 4096  # csrc/walk.cu SCAN_TILE
 _entries: dict = {}
 
@@ -328,21 +326,15 @@ def _cell_grid(mesh):
     return lo, [c / e for c, e in zip(cells, ext)], cells
 
 
-def n_keys(ntet: int, shift: int) -> int:
-    """Keys of a move's lanes: start elements ``>> shift``."""
-    return max(1, -(-ntet >> shift))
-
-
 def lane_keys(mesh, elem, dest, initial: bool):
     """The schedule's key of every lane (int32) and the number of keys: a
-    move's lanes by start element ``>> KEY_SHIFT``, the initial search's
+    move's lanes by start element, the initial search's
     by ``destination_cells``; clamped to the keys' range, as the kernel
     clamps them."""
     if initial:
         keys, nkeys = destination_cells(mesh, dest)
     else:
-        nkeys = n_keys(mesh.ntet, KEY_SHIFT)
-        keys = elem >> KEY_SHIFT
+        keys, nkeys = elem, max(1, mesh.ntet)
     return keys.clamp(0, nkeys - 1).to(torch.int32), nkeys
 
 
@@ -429,18 +421,16 @@ def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial):
     if initial:
         lo, scale, cells = _cell_grid(mesh)
         nkeys = cells[0] * cells[1] * cells[2]
-        shift = 0
     else:
         lo, scale, cells = [0.0] * 3, [0.0] * 3, [1] * 3
-        shift = KEY_SHIFT
-        nkeys = n_keys(mesh.ntet, shift)
+        nkeys = max(1, mesh.ntet)
     fn = _entry("lanes", dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ws = _workspace(dev, stream, nkeys)
         err = fn(origin.data_ptr(), dest.data_ptr(), elem.data_ptr(),
                  in_flight.data_ptr(), weight.data_ptr(), group.data_ptr(),
-                 n, int(initial), shift, nkeys, *lo, *scale, *cells,
+                 n, int(initial), nkeys, *lo, *scale, *cells,
                  ws["counts"].data_ptr(), ws["offsets"].data_ptr(),
                  ws["tile_sums"].data_ptr(), ws["ticket"].data_ptr(),
                  lanes.data_ptr(), stream)

@@ -24,7 +24,8 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "pumiumtally_tpu_torch"
-SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "turns.py"]
 
 
 def _run(code: str, cwd=ROOT, env=None) -> subprocess.CompletedProcess:

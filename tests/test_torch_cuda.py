@@ -169,14 +169,15 @@ def test_persistent_walk_refills_lanes(cuda, dtype, initial):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", ["one element", "random", "descending",
-                                  "coarse", "initial"])
-def test_lane_order_kernel(cuda, case, dtype, monkeypatch):
+                                  "out of range", "initial"])
+def test_lane_order_kernel(cuda, case, dtype):
     """The lane schedule (``walk_cuda.lane_records``, three kernels): each
     lane's record equals the plain version's bytes (matched through
     Lane.index), keys are non-decreasing in slot order, and the key
     counts and the scan's ticket are left at zero for the next call. The
     initial search's keys (destination cells, some destinations outside
-    the box or not finite) are computed in the kernel."""
+    the box or not finite) are computed in the kernel; a move's elements
+    outside the mesh take the nearest key."""
     from pumiumtally_tpu_torch.ops import walk_cuda
 
     mesh = _jittered(12, dtype, cuda)
@@ -189,12 +190,11 @@ def test_lane_order_kernel(cuda, case, dtype, monkeypatch):
         "one element": np.full(n, 17),
         "random": rng.integers(0, ntet, n),
         "descending": (ntet - 1 - np.arange(n) * ntet // n),
-        "coarse": rng.integers(0, ntet, n),
+        "out of range": rng.integers(-40, ntet + 40, n),
         "initial": np.zeros(n),
     }[case]
     elem = torch.from_numpy(elem.astype(np.int32)).to(cuda)
     initial = case == "initial"
-    monkeypatch.setattr(walk_cuda, "KEY_SHIFT", 5 if case == "coarse" else 0)
     before = walk_cuda.SCHEDULE_LAUNCHES
     rec = walk_cuda.lane_records(mesh, origin, dest, elem, fly, w, g,
                                  initial=initial)

@@ -115,19 +115,17 @@ def test_plain_schedule_is_a_permutation_by_key(n, keys, dtype, seed):
     assert (idx == np.argsort(k, kind="stable")).all()  # stable in a key
 
 
-@pytest.mark.parametrize("shift", [0, 3])
-def test_lane_keys_of_a_move_are_coarse_elements(shift, monkeypatch):
-    monkeypatch.setattr(walk_cuda, "KEY_SHIFT", shift)
-    mesh = build_box(1, 1, 1, 4, 4, 4, device="cpu")
+@pytest.mark.parametrize("cells", [(4, 4, 4), (3, 5, 2)])
+def test_lane_keys_of_a_move_are_coarse_elements(cells):
+    """A move's lane key is its start element, one key an element."""
+    mesh = build_box(1, 1, 1, *cells, device="cpu")
     elem = torch.tensor([0, 7, 8, mesh.ntet - 1, -3, mesh.ntet + 40],
                         dtype=torch.int32)
     keys, nkeys = walk_cuda.lane_keys(mesh, elem, None, False)
-    assert nkeys == -(-mesh.ntet // 2**shift) == walk_cuda.n_keys(mesh.ntet,
-                                                                   shift)
+    assert nkeys == mesh.ntet == 6 * cells[0] * cells[1] * cells[2]
     assert keys.dtype == torch.int32
     # Out-of-range elements take the nearest key, as in the kernel.
-    assert keys.tolist() == [0, 7 >> shift, 8 >> shift, nkeys - 1, 0,
-                             nkeys - 1]
+    assert keys.tolist() == [0, 7, 8, nkeys - 1, 0, nkeys - 1]
 
 
 def test_lane_records_on_the_cpu_run_no_kernel():
