@@ -63,10 +63,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    plain versions (bitwise for the gather and the ordered scatter, rtol
    1e-5 for the atomic one) at the JAX probe's shapes and the walk's,
    timed, with the library call beside them; launch counts zeroed before
-   and read after. K3 outer also in float64, with and without squares, at
-   the JAX probe's shapes and move 1's records; and the SASS of the
-   atomic scatter and the atomic walk (cuobjdump) must hold the float32
-   pair's vector reduction;
+   and read after (the gather bitwise through the words' integer views).
+   K3 outer also in float64, with and without squares, at the JAX probe's
+   shapes and move 1's records (the move-1 reading goes into the
+   ``kernels`` line beside index_add_'s); K2 also at the walk's shape in
+   float64 (the box's geo20 built in float64, its codes int64 bits),
+   bitwise, timed beside the plain version and index_select, its launches
+   counted apart; and the SASS of the atomic scatter and the atomic walk
+   (cuobjdump) must hold the float32 pair's vector reduction;
 9. point source (phase E): all 1,048,576 lanes start at one point of the
    main-path mesh and fly one move; the ordered scatter of its records
    must take the crowded path; it is held bitwise against the plain
@@ -1119,10 +1123,40 @@ def phase_probe(tally, snap, rec) -> tuple[dict, dict]:
     return payload, launches
 
 
-def probe_atomic_f64(rec, nbins: int) -> None:
+def probe_gather_f64() -> dict:
+    """K2 at the walk's shape in float64: the geo20 of the main path's box
+    built in float64 (int64 topology codes as float bits), gathered at the
+    probe's 16,934,705 indices, bitwise against its plain version and
+    timed beside it and ``torch.index_select``; its launches are counted
+    apart from the probe path's."""
+    from pumiumtally_tpu_torch.mesh.box import build_box
+    from pumiumtally_tpu_torch.probes import gather_scatter as gs
+
+    cells = MAIN_CELLS
+    geo = build_box(1.0, 1.0, 1.0, cells, cells, cells, dtype=torch.float64,
+                    device=DEVICE).geo20
+    ridx = np.random.default_rng(3).integers(0, geo.shape[0], gs.WALK_RECORDS)
+    idx = torch.from_numpy(ridx.astype(np.int32)).to(DEVICE)
+    zero_counts()
+    p = gs.gather_probe(geo, idx)
+    torch.cuda.synchronize()
+    p["launches"] = read_counts()["gather"]
+    log(f"[probe] gather float64 {p['shape']}: ok={p['ok']} "
+        f"agree={p['agree']} {p['usec_per_call']} us (plain "
+        f"{p['plain_usec_per_call']}, {p['library']} "
+        f"{p['library_usec_per_call']}), {p['gbps']} GB/s, bound "
+        f"{p['bound_usec']} us, launches {p['launches']}"
+        + (f" {p['error']}" if p["error"] else ""))
+    if not p["ok"]:
+        raise AssertionError(f"float64 gather failed: {p}")
+    return p
+
+
+def probe_atomic_f64(rec, nbins: int) -> dict:
     """K3 outer in float64 (two scalar adds a record) against its plain
     version, with and without squares: at the JAX probe's shapes and with
-    move 1's records, their contributions in float64."""
+    move 1's records, their contributions in float64. Returns the reading
+    with move 1's records and squares."""
     from pumiumtally_tpu_torch.probes import gather_scatter as gs
 
     cases = [(gs.probe_scatter_inputs(B, ntet, G, DEVICE), (B, ntet, G))
@@ -1130,6 +1164,7 @@ def probe_atomic_f64(rec, nbins: int) -> None:
     cases.append((dict(flux=torch.zeros(2 * nbins, device=DEVICE),
                        bin=rec.bin, order=rec.order, c=rec.c),
                   (rec.bin.numel(), nbins)))
+    move1 = None
     for r, shape in cases:
         for sq in (True, False):
             p = gs.scatter_probe("atomic", r["flux"].double(), r["bin"],
@@ -1141,6 +1176,14 @@ def probe_atomic_f64(rec, nbins: int) -> None:
                 + (f" {p['error']}" if p["error"] else ""))
             if not p["ok"]:
                 raise AssertionError(f"float64 atomic scatter failed: {p}")
+            if sq:
+                move1 = p
+    log(f"[probe] K3 outer float64 with move 1's records: "
+        f"{move1['usec_per_call'] / 1e3:.4f} ms, Tensor.index_add_ "
+        f"{move1['library_usec_per_call'] / 1e3:.4f} ms, plain "
+        f"{move1['plain_usec_per_call'] / 1e3:.4f} ms, bound "
+        f"{move1['bound_usec'] / 1e3:.4f} ms (median of 5)")
+    return move1
 
 
 def sass_reductions(lib: str, kernel: str) -> list[str]:
@@ -1346,22 +1389,26 @@ def phase_point_source(tally) -> None:
         f"host clock); walk truncated {int((~res.done).sum())}")
 
 
-def _probe_kernel(payload, probe: str, launches: int, name: str,
-                  source: str, replaces: str) -> dict:
-    """A ``kernels`` entry from the probe's walk-shape run of ``probe``
-    (its last entry of that kind)."""
-    p = [q for q in payload["probes"] if q["probe"] == probe][-1]
+def _probe_entry(p: dict, launches) -> dict:
+    """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
     return {
-        "name": name, "route": "cuda", "source": source,
-        "replaces": replaces, "launches": launches,
-        "max_abs_err": p["max_abs_err"],
+        "launches": launches, "max_abs_err": p["max_abs_err"],
         "ms": p["usec_per_call"] / 1e3,
         "plain_ms": p["plain_usec_per_call"] / 1e3,
         "bound_ms": p["bound_usec"] / 1e3, "bound_by": "bytes",
         "library_ms": None if lib is None else lib / 1e3,
         "library": p["library"], "shape": p["shape"],
     }
+
+
+def _probe_kernel(payload, probe: str, launches: int, name: str,
+                  source: str, replaces: str) -> dict:
+    """A ``kernels`` entry from the probe's walk-shape run of ``probe``
+    (its last entry of that kind)."""
+    p = [q for q in payload["probes"] if q["probe"] == probe][-1]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, **_probe_entry(p, launches)}
 
 
 def main() -> int:
@@ -1419,7 +1466,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     payload, probe_launches = phase_probe(tally, snaps["move"], k["records"])
-    probe_atomic_f64(k["records"], tally.flux.numel() // 2)
+    atomic_f64 = probe_atomic_f64(k["records"], tally.flux.numel() // 2)
+    gather_f64 = probe_gather_f64()
     log(f"[phase] probe path: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1457,15 +1505,18 @@ def main() -> int:
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},
-        _probe_kernel(payload, "gather", probe_launches["gather"],
-                      "gather.gather_rows",
-                      "pumiumtally_tpu_torch/csrc/gather.cu",
-                      "scripts/probe_pallas_gather.py:76"),
-        _probe_kernel(payload, "scatter_atomic",
-                      probe_launches["scatter_atomic"],
-                      "scatter.scatter_atomic",
-                      "pumiumtally_tpu_torch/csrc/scatter.cu",
-                      "scripts/probe_pallas_gather.py:211"),
+        dict(_probe_kernel(payload, "gather", probe_launches["gather"],
+                           "gather.gather_rows",
+                           "pumiumtally_tpu_torch/csrc/gather.cu",
+                           "scripts/probe_pallas_gather.py:76"),
+             jax_probe_ms=payload["probes"][0]["usec_per_call"] / 1e3,
+             f64=_probe_entry(gather_f64, gather_f64["launches"])),
+        dict(_probe_kernel(payload, "scatter_atomic",
+                           probe_launches["scatter_atomic"],
+                           "scatter.scatter_atomic",
+                           "pumiumtally_tpu_torch/csrc/scatter.cu",
+                           "scripts/probe_pallas_gather.py:211"),
+             f64=_probe_entry(atomic_f64, None)),
         dict(_probe_kernel(payload, "scatter_ordered",
                            launches["scatter_ordered"],
                            "scatter.scatter_ordered",

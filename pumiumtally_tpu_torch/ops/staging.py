@@ -41,6 +41,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..utils.platform import resolve_device
+
 # Record column layouts (single-chip facade), the JAX package's.
 MOVE_COLS = 6       # dest x,y,z | weight | group | flying
 INIT_COLS = 4       # dest x,y,z | flying
@@ -120,14 +122,17 @@ class HostStager:
     the next pack. ``depth=2`` (overlap) alternates two, so packing move
     k+1 never writes the buffer of move k's copy. Each (tag, shape,
     dtype) has its own ring and rotation, and reuse hands back the
-    oldest buffer. On the CPU a "copy" to the device is the same memory,
-    so every call returns a fresh buffer, as the JAX stager does there.
+    oldest buffer. ``device`` defaults to the card, as every entry
+    point's does (``utils/platform.py::resolve_device``: without CUDA
+    that default raises; pass ``device="cpu"``). On the CPU a "copy" to
+    the device is the same memory, so every call returns a fresh buffer,
+    as the JAX stager does there.
     Buffers are not cleared: the packs write every word. A stager belongs
     to one facade or pipeline and is used from its calling thread."""
 
-    def __init__(self, depth: int = 1, device="cpu"):
+    def __init__(self, depth: int = 1, device=None):
         self.depth = max(1, int(depth))
-        self.pinned = torch.device(device).type == "cuda"
+        self.pinned = resolve_device(device).type == "cuda"
         self._bufs: dict = {}
 
     def buf(self, shape: tuple, dtype: torch.dtype, tag: str = ""

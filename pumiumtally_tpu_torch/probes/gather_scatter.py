@@ -101,7 +101,8 @@ def _entry(probe, shape, ok, *, agree, bytes_moved, device, max_abs_err=None,
 
 
 def gather_probe(tbl, idx, reps: int = 5) -> dict:
-    """Hold ``gather_rows`` against ``tbl[idx]`` (bitwise) and, on the
+    """Hold ``gather_rows`` against ``tbl[idx]`` (bitwise: the words'
+    integer views, so -0.0 and code bits count) and, on the
     card, time it, the plain version and ``torch.index_select``. The bytes
     it must move: each distinct row once, the output, the indices."""
     shape = (*tbl.shape, idx.numel())
@@ -111,7 +112,8 @@ def gather_probe(tbl, idx, reps: int = 5) -> dict:
     try:
         out = gather.gather_rows(tbl, idx)
         ref = gather.gather_rows_plain(tbl, idx)
-        agree = bool(torch.equal(out, ref))
+        bits = torch.int32 if tbl.element_size() == 4 else torch.int64
+        agree = bool(torch.equal(out.view(bits), ref.view(bits)))
         err = float((out.double() - ref.double()).abs().max()) if out.numel() \
             else 0.0
         del out, ref

@@ -505,25 +505,105 @@ def test_bucket_path_matches_plain(cuda, dtype, score_squares, case):
         assert info["largest"] == scatter.BUCKET_CAPACITY
 
 
-@pytest.mark.parametrize("cols,dtype,idx_dtype", [
-    (20, torch.float32, torch.int32),   # a geo20 row, 16 B pieces
-    (16, torch.float32, torch.int64),
-    (20, torch.float64, torch.int32),
-    (3, torch.float32, torch.int32),    # 12 B rows, 4 B pieces
-    (3, torch.float64, torch.int64),    # 24 B rows, 8 B pieces
+@pytest.mark.parametrize("cols,dtype,idx_dtype,n,shift,piece", [
+    (20, torch.float32, torch.int32, 70000, 0, 16),  # a geo20 row, 5 x 16 B
+    (16, torch.float32, torch.int64, 70000, 0, 16),  # the JAX probe's 64 B
+    (20, torch.float64, torch.int32, 70000, 0, 16),  # float64 geo20, 160 B
+    (20, torch.float64, torch.int64, 70001, 0, 16),  # count off the tile
+    (3, torch.float32, torch.int32, 70000, 0, 4),    # 12 B rows, 4 B pieces
+    (3, torch.float64, torch.int64, 70000, 0, 8),    # 24 B rows, 8 B pieces
+    (2, torch.float32, torch.int64, 513, 0, 8),      # 8 B rows
+    (20, torch.float32, torch.int32, 70001, 1, 4),   # table 4 B off 16 B
+    (20, torch.float32, torch.int64, 70001, 2, 8),   # table 8 B off 16 B
+    (20, torch.float64, torch.int32, 70001, 1, 8),   # table 8 B off 16 B
+    (5, torch.float32, torch.int32, 1, 0, 4),        # one row
 ])
-def test_gather_matches_plain(cuda, cols, dtype, idx_dtype):
+def test_gather_matches_plain(cuda, cols, dtype, idx_dtype, n, shift, piece):
+    """Each piece size of the kernel bitwise against ``tbl[idx]`` (the
+    table's words drawn as integers, so NaN patterns and codes are among
+    them); a misaligned table view takes narrower pieces; indices out of
+    range raise before any launch."""
     from pumiumtally_tpu_torch.ops import gather
 
     rng = np.random.default_rng(4)
-    tbl = torch.from_numpy(rng.normal(size=(5000, cols))).to(cuda, dtype)
-    idx = torch.from_numpy(rng.integers(0, 5000, 70000)).to(cuda, idx_dtype)
+    R = 5000
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, R * cols + shift))
+    tbl = words.to(cuda, bits).view(dtype)[shift:].view(R, cols)
+    assert tbl.is_contiguous()
+    idx = torch.from_numpy(rng.integers(0, R, n)).to(cuda, idx_dtype)
+    row_bytes = cols * tbl.element_size()
+    assert gather.piece_bytes(row_bytes, tbl.data_ptr(), 256) == piece
     before = gather.LAUNCHES
     out = gather.gather_rows(tbl, idx)
+    torch.cuda.synchronize()
     assert gather.LAUNCHES == before + 1
-    assert torch.equal(out, gather.gather_rows_plain(tbl, idx))
-    with pytest.raises(IndexError):
-        gather.gather_rows(tbl, idx.clone().fill_(5000))
+    assert torch.equal(out.view(bits), gather.gather_rows_plain(
+        tbl, idx).view(bits))
+    for bad in (R, -1):
+        with pytest.raises(IndexError):
+            gather.gather_rows(tbl, idx.clone().index_fill_(0, idx[:1] * 0,
+                                                            bad))
+    assert gather.LAUNCHES == before + 1
+
+
+def test_gather_past_2_31_pieces(cuda):
+    """More than 2^31 pieces of 4 B (a table view 4 B off alignment, rows
+    of 4,000 B, an 8.6 GB output): the launch takes its 64-bit piece
+    index and every word lands; compared in slices to bound the memory."""
+    from pumiumtally_tpu_torch.ops import gather
+
+    R, cols = 4099, 1000
+    n = (1 << 31) // cols + 7
+    g = torch.Generator(device=cuda).manual_seed(9)
+    words = torch.randint(-2**31, 2**31, (R * cols + 1,), generator=g,
+                          device=cuda, dtype=torch.int32)
+    tbl = words[1:].view(torch.float32).view(R, cols)
+    idx = torch.randint(0, R, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    assert gather.piece_bytes(cols * 4, tbl.data_ptr()) == 4
+    out = gather.gather_rows(tbl, idx)
+    torch.cuda.synchronize()
+    assert out.numel() > 2**31
+    for a in range(0, n, 1 << 20):
+        b = min(n, a + (1 << 20))
+        assert torch.equal(out[a:b].view(torch.int32),
+                           tbl[idx[a:b].long()].view(torch.int32)), a
+
+
+def test_gather_empty_and_zero_width(cuda):
+    from pumiumtally_tpu_torch.ops import gather
+
+    tbl = torch.zeros(4, 20, device=cuda)
+    before = gather.LAUNCHES
+    out = gather.gather_rows(tbl, torch.zeros(0, dtype=torch.int32,
+                                              device=cuda))
+    assert out.shape == (0, 20) and out.device.type == "cuda"
+    out = gather.gather_rows(torch.zeros(4, 0, device=cuda),
+                             torch.tensor([3, 0], device=cuda))
+    assert out.shape == (2, 0)
+    assert gather.LAUNCHES == before  # nothing to launch
+
+
+def test_gather_output_past_2_31_bytes(cuda):
+    """A float64 gather whose output passes 2^31 bytes (the float64 walk
+    shape writes 2.71 GB): offsets are 64-bit, every word lands."""
+    from pumiumtally_tpu_torch.ops import gather
+
+    R, cols = 998_250, 20
+    n = (1 << 31) // (cols * 8) + 4099
+    g = torch.Generator(device=cuda).manual_seed(8)
+    tbl = torch.randint(-2**62, 2**62, (R, cols), generator=g,
+                        device=cuda).view(torch.float64)
+    idx = torch.randint(0, R, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = gather.LAUNCHES
+    out = gather.gather_rows(tbl, idx)
+    torch.cuda.synchronize()
+    assert gather.LAUNCHES == before + 1
+    assert out.numel() * 8 > 2**31
+    assert torch.equal(out.view(torch.int64),
+                       gather.gather_rows_plain(tbl, idx).view(torch.int64))
 
 
 # --------------------------------------------------------------------- #

@@ -63,8 +63,8 @@ def _move_inputs(rng, n):
 def test_move_record_round_trip_and_jax_bytes(dtype):
     rng = np.random.default_rng(3)
     dest, w, g, fly = _move_inputs(rng, 33)
-    rec = staging.pack_move_record(staging.HostStager(), dest, w, g, fly,
-                                   dtype)
+    rec = staging.pack_move_record(staging.HostStager(device="cpu"), dest,
+                                   w, g, fly, dtype)
     jrec = jstaging.pack_move_record(jstaging.HostStager(), dest, w, g, fly,
                                      _NP[dtype])
     assert rec.shape == (33, staging.MOVE_COLS)
@@ -85,7 +85,8 @@ def test_init_record_round_trip_and_jax_bytes(dtype):
     rng = np.random.default_rng(4)
     dest = _special(rng, 17)
     fly = rng.uniform(size=17) > 0.5
-    rec = staging.pack_init_record(staging.HostStager(), dest, fly, dtype)
+    rec = staging.pack_init_record(staging.HostStager(device="cpu"), dest,
+                                   fly, dtype)
     jrec = jstaging.pack_init_record(jstaging.HostStager(), dest, fly,
                                      _NP[dtype])
     assert rec.numpy().tobytes() == jrec.tobytes()
@@ -127,8 +128,9 @@ def test_readback_round_trip_and_jax_bytes(dtype, stats):
 
 
 def test_unported_record_parts_raise():
-    rec = staging.pack_init_record(staging.HostStager(), np.zeros((2, 3)),
-                                   np.ones(2, bool), torch.float64)
+    rec = staging.pack_init_record(staging.HostStager(device="cpu"),
+                                   np.zeros((2, 3)), np.ones(2, bool),
+                                   torch.float64)
     with pytest.raises(NotImplementedError, match="A5"):
         staging.unpack_move_record(rec, torch.float64,
                                    torch.arange(2), True)
@@ -148,11 +150,31 @@ def test_unported_record_parts_raise():
 def test_host_stager_ring_on_cpu_allocates_fresh():
     """On the CPU a record is the device tensor itself, so every buffer
     is new; the ring (depth, oldest-first reuse) is the card's."""
-    st = staging.HostStager(depth=2)
+    st = staging.HostStager(depth=2, device="cpu")
     a, b = st.buf((4, 6), torch.int32), st.buf((4, 6), torch.int32)
     assert a.data_ptr() != b.data_ptr()
     assert not st.pinned and st.depth == 2
     assert staging.to_host(st, a) is a
+
+
+def test_host_stager_defaults_to_the_card():
+    """Built bare, a stager is the card's (pinned buffers), as every entry
+    point defaults to the card; without CUDA it raises PumiTally's error."""
+    from pumiumtally_tpu_torch import PumiTally
+    from pumiumtally_tpu_torch.utils.platform import resolve_device
+
+    if torch.cuda.is_available():
+        assert staging.HostStager().pinned
+        return
+    with pytest.raises(RuntimeError) as stager_err:
+        staging.HostStager()
+    with pytest.raises(RuntimeError) as tally_err:
+        PumiTally(None, 4)
+    with pytest.raises(RuntimeError) as device_err:
+        resolve_device()
+    assert str(stager_err.value) == str(tally_err.value) == str(
+        device_err.value)
+    assert "device='cpu'" in str(stager_err.value)
 
 
 # --------------------------------------------------------------------- #
@@ -182,8 +204,8 @@ def test_trace_packed_is_the_walk_between_the_records():
                        rng.uniform(0.5, 2.0, n),
                        rng.integers(0, G, n).astype(np.int32),
                        rng.uniform(size=n) > 0.1)
-    rec = staging.pack_move_record(staging.HostStager(), dest, w, g, fly,
-                                   dtype)
+    rec = staging.pack_move_record(staging.HostStager(device="cpu"), dest,
+                                   w, g, fly, dtype)
     mat = torch.full((n,), -1, dtype=torch.int32)
     kw = dict(initial=False, max_crossings=pmesh.ntet + 64, n_groups=G)
     flux = torch.zeros(pmesh.ntet * G * 2, dtype=dtype)
