@@ -25,12 +25,13 @@
 //    the next tile's indices prefetched) held fewer warps resident and
 //    ran no faster.
 //  * The output and the indices are streamed (st.global.cs, ld.global.cs):
-//    each is touched once, so they are first out of L2, which keeps more of
-//    the table there while it fits (8-14% faster at 8-32 MB tables). Per-access
-//    L2 policies (createpolicy evict_last on the rows, evict_first on the
-//    stores) and an access-policy window over the table gained nothing or
-//    lost (the window tripled the time), so the kernel sets no cache
-//    policy and touches no stream or device L2 setting.
+//    each is touched once, so they are first out of L2, which keeps more
+//    of the table there while it fits (4-19% faster at 8-32 MB tables).
+//    Per-access L2 policies (createpolicy evict_last on the rows,
+//    evict_first on the stores) and an access-policy window over the
+//    table gained nothing or lost (the window tripled the time), so the
+//    kernel sets no cache policy and touches no stream or device L2
+//    setting.
 //  * A piece's row and column come from one 32-bit division while the
 //    piece count fits 31 bits (every shape of the port: 169M pieces at the
 //    float64 walk shape); the element offsets are 64-bit, so an output
