@@ -88,7 +88,25 @@ Phases, each of which raises (exit code != 0) on any failed check:
 11. pipeline: 4 independent batches of 1,048,576 lanes through
    ``StreamingTallyPipeline`` at depth 1 and 2, flux and positions
    bitwise equal to sequential ``walk_cuda.trace``; batches/s beside the
-   sequential walk's, the submit calls' host times, and the busy share.
+   sequential walk's, the submit calls' host times, and the busy share;
+12. run statistics: the main path's inputs (init and moves 1-4, packed)
+   under four configurations, launch counts zeroed before and read after
+   their runs: (a) ``convergence=True, batch_moves=2``: flux and
+   write-backs bitwise the run without it, one transfer each way a move,
+   2 batches, the summary equal to a float64 host recomputation from the
+   moves' even entries (rtol 1e-5); (b) ``sd_mode="batch"``: even
+   entries bitwise (a)'s, odd entries Σ (ΔT)² in float64 (rtol 1e-5, or
+   within the dtype's smallest normal number below it);
+   (c) ``max_crossings=4`` with re-walks (``RUNSTATS_TRUNC``): lanes
+   re-walked, none lost, elements equal to the ample run's, flux within
+   rtol 1e-5 + atol 1e-5; (d) ``quarantine=True`` with 1,000 NaN
+   destinations on move 2: 1,000 lanes quarantined, flux finite and
+   bitwise the run in which they are parked. Move wall time with
+   convergence off and on in turns (off, on, on, off); the device time
+   of ``fold_and_reduce`` and ``accumulate_batch_squares``; move 1
+   replayed kernel against plain walk with squares off and at (c)'s bound
+   with its re-walks (bitwise), the first re-walk's walk and scatter
+   timed; the peak device memory.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -102,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -123,6 +142,13 @@ DEVICE = "cuda"
 SMALL_CELLS, SMALL_LANES = 20, 65536
 MAIN_CELLS, MAIN_PARTICLES, MAIN_GROUPS = 55, 1048576, 8
 OVERFLOW_CAPACITY = 1000
+# The run-statistics phase's configurations. A lane of the main cell
+# crosses up to ~200 faces in the initial search and ~150 in a move, so
+# from max_crossings=4 the doubling re-walks need 6 attempts (a budget of
+# 4 + 8 + ... + 256 crossings) to lose nothing.
+RUNSTATS_CONV = dict(convergence=True, batch_moves=2)
+RUNSTATS_TRUNC = dict(max_crossings=4, truncation_retries=6)
+RUNSTATS_BAD = 1000  # lanes given NaN destinations in (d)
 SOURCES = ("walk", "scatter", "gather")
 WARP = 32
 
@@ -498,7 +524,7 @@ def print_io_run(run: dict) -> None:
             log(f"[io]   {ms:9.4f} ms {key}")
 
 
-def print_step_table(label: str, moves: list) -> None:
+def print_step_table(label: str, moves: list, tag: str = "[io]") -> None:
     """Median, least and most of each host step (host clock and stream
     span) over ``moves``, which carry StepClock rows, in step order."""
     steps: dict = {}
@@ -514,7 +540,7 @@ def print_step_table(label: str, moves: list) -> None:
         span = [r["stream_ms"] for r in rows if r["stream_ms"] is not None]
         stream = (f"; stream span median {np.median(span):.4f} ms"
                   if span else "")
-        log(f"[io] {label} {name:<16} host median {np.median(host):.4f} ms "
+        log(f"{tag} {label} {name:<16} host median {np.median(host):.4f} ms "
             f"(least {host.min():.4f}, most {host.max():.4f}, "
             f"{len(host)} samples){stream}")
 
@@ -1389,6 +1415,323 @@ def phase_point_source(tally) -> None:
         f"host clock); walk truncated {int((~res.done).sum())}")
 
 
+def stats_run(mesh, cfg_kw: dict, *, nan_move: int = 0, park: bool = False,
+              evens: bool = False, clocked: bool = False) -> dict:
+    """The main-path cell's initial search and moves 1-4 (numpy seed 1,
+    the main path's inputs, ``io_pipeline="packed"``) with the
+    ``TallyConfig`` fields ``cfg_kw``. On move ``nan_move`` the first
+    ``RUNSTATS_BAD`` lanes get NaN destinations, or with ``park`` are
+    given ``flying=0`` instead. Returns the tally, each move's host
+    seconds and write-backs, the per-move transfers, (``evens``) the
+    flux's even entries after each move in float64 and (``clocked``)
+    each move's host steps (``StepClock``)."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    rng = np.random.default_rng(1)
+    tally = PumiTally(mesh, n, TallyConfig(n_groups=G, **cfg_kw),
+                      device=DEVICE)
+    pos = rng.uniform(0.05, 0.95, (n, 3))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)  # nothing is lost
+        tally.initialize_particle_location(pos.reshape(-1))
+        if clocked:
+            tally.step_clock = StepClock(DEVICE)
+        prev, out = pos, dict(secs=[], outs=[], io=[], evens=[], moves=[])
+        for move in range(1, 5):
+            want, groups = main_move_inputs(rng, n, G, prev)
+            dest = want.reshape(-1).copy()
+            flying = np.ones(n, np.int8)
+            if move == nan_move:
+                if park:
+                    flying[:RUNSTATS_BAD] = 0
+                else:
+                    dest[:3 * RUNSTATS_BAD] = np.nan
+            mats = np.zeros(n, np.int32)
+            io0 = dict(tally.io)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tally.move_to_next_location(dest, flying, np.ones(n), groups,
+                                        mats)
+            out["secs"].append(time.perf_counter() - t0)
+            if clocked:
+                out["moves"].append(dict(steps=tally.step_clock.rows()))
+            out["io"].append({k: tally.io[k] - io0[k] for k in io0})
+            out["outs"].append((dest.copy(), mats.copy()))
+            if evens:
+                out["evens"].append(tally.flux[0::2].double().cpu().numpy())
+            prev = dest.reshape(n, 3).copy()
+    torch.cuda.synchronize()
+    out["tally"] = tally
+    return out
+
+
+def _log_moves(label: str, run: dict) -> None:
+    """A run's per-move host seconds and, when clocked, its host steps
+    over moves 2-4."""
+    log(f"[stats] {label}: moves 1-4 host "
+        f"{', '.join(f'{x * 1e3:.4f}' for x in run['secs'])} ms; moves "
+        f"2-4 median {float(np.median(run['secs'][1:])) * 1e3:.4f} ms")
+    if run["moves"]:
+        print_step_table(f"{label} moves 2-4", run["moves"][1:], "[stats]")
+
+
+def _same_outputs(a: dict, b: dict, label: str) -> None:
+    for k, ((d, m), (d0, m0)) in enumerate(zip(a["outs"], b["outs"]), 1):
+        if not (np.array_equal(d, d0) and np.array_equal(m, m0)):
+            raise AssertionError(f"{label}: move {k}'s write-backs differ")
+
+
+def _batch_oracle(evens: list, cuts: list, target: float) -> dict:
+    """The convergence summary in host float64 from the even entries
+    after each move: batches end after the moves in ``cuts``."""
+    snaps = np.stack([np.zeros_like(evens[0])] + [evens[c - 1]
+                                                  for c in cuts])
+    t = np.diff(snaps, axis=0)
+    nb = t.shape[0]
+    s1, s2 = t.sum(0), (t * t).sum(0)
+    scored = s1 > 0
+    rel = np.where(scored, np.sqrt(np.maximum(nb * s2 - s1 * s1, 0.0)
+                                   / max(nb - 1, 1))
+                   / np.where(scored, s1, 1.0), 0.0)
+    return dict(n_batches=nb, scored=int(scored.sum()),
+                sum_rel_err=float(rel.sum()), max_rel_err=float(rel.max()),
+                converged=int((scored & (rel <= target)).sum()),
+                near=int((np.abs(rel - target) < 1e-3 * target).sum()))
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-300)
+
+
+def phase_run_statistics(mesh) -> dict:
+    """The run statistics and recovery at the main cell, each from the
+    main path's inputs under ``io_pipeline="packed"``: (a) convergence
+    reads only (flux bitwise the run without it, one transfer each way a
+    move, its summary the float64 host recomputation), (b) batch sd (even
+    entries bitwise (a)'s, odd entries Σ (ΔT)² in float64), (c) a
+    truncation re-walk (nothing lost, the ample run's elements and flux;
+    move 1's walk and re-walks kernel against plain walk on the card,
+    bitwise), (d) quarantine (the parked run's flux, bitwise). Times the
+    move with convergence on and off in turns, the convergence fold and
+    the batch fold (CUDA events), the re-walk, and the peak memory.
+    Launches are counted over the facade runs only."""
+    from pumiumtally_tpu_torch.core.tally import accumulate_batch_squares
+    from pumiumtally_tpu_torch.obs.convergence import (
+        CONV_FIELDS, ConvState, fold_and_reduce)
+    from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    runs = {}
+    # Move wall time with convergence off and on, in turns.
+    for label, kw in (("off", {}), ("on", RUNSTATS_CONV),
+                      ("on", RUNSTATS_CONV), ("off", {})):
+        run = stats_run(mesh, kw, evens=label == "off" and "off" not in runs)
+        _log_moves(f"convergence {label}", run)
+        runs.setdefault(label, run)
+        runs.setdefault(f"{label} secs", []).append(run["secs"])
+        if run is not runs[label]:
+            _same_outputs(run, runs[label], f"convergence {label}")
+        del run
+    base, conv = runs["off"], runs["on"]
+    for label in ("off", "on"):
+        med = [float(np.median(s[1:])) * 1e3 for s in runs[f"{label} secs"]]
+        log(f"[stats] convergence {label}: moves 2-4 host median "
+            f"{', '.join(f'{m:.4f}' for m in med)} ms in turns "
+            f"(off, on, on, off)")
+
+    # (a) Convergence only reads.
+    t_a = conv["tally"]
+    if not torch.equal(t_a.flux, base["tally"].flux):
+        raise AssertionError("(a) convergence changed the flux")
+    _same_outputs(conv, base, "(a)")
+    for k, io in enumerate(conv["io"], 1):
+        if (io["h2d_transfers"], io["d2h_transfers"]) != (1, 1):
+            raise AssertionError(f"(a) move {k} transfers {io}")
+    summary = dict(zip(CONV_FIELDS,
+                       t_a._conv.summary.double().cpu().tolist()))
+    want = _batch_oracle(base["evens"], [2, 4],
+                         t_a.config.rel_err_target)
+    tm = t_a.telemetry()
+    log(f"[stats] (a) summary {summary}; float64 recomputation {want}; "
+        f"telemetry {tm['convergence']}")
+    if tm["convergence"]["n_batches"] != 2 or want["n_batches"] != 2:
+        raise AssertionError("(a) not 2 batches")
+    if summary["scored"] != want["scored"]:
+        raise AssertionError("(a) scored bins differ")
+    for f in ("sum_rel_err", "max_rel_err"):
+        if not _rel(summary[f], want[f]) <= 1e-5:
+            raise AssertionError(f"(a) {f} {summary[f]} vs {want[f]}")
+    if abs(summary["converged"] - want["converged"]) > want["near"]:
+        raise AssertionError("(a) converged bins differ")
+
+    # (b) Batch sd.
+    b = stats_run(mesh, dict(sd_mode="batch"), clocked=True)
+    _log_moves("(b) sd_mode='batch'", b)
+    fb, fa = b["tally"].flux, t_a.flux
+    if not torch.equal(fb[0::2], fa[0::2]):
+        raise AssertionError("(b) even entries differ from (a)'s")
+    totals = np.diff(np.stack([np.zeros_like(base["evens"][0])]
+                              + base["evens"]), axis=0)
+    sq = (totals * totals).sum(0)
+    odd = fb[1::2].double().cpu().numpy()
+    # Squares below the walk dtype's smallest normal number (a sliver
+    # segment's ΔT² in float32) keep only an absolute precision of it.
+    tiny = float(torch.finfo(fb.dtype).tiny)
+    normal = sq >= tiny
+    err = np.abs(odd - sq) / np.where(normal, sq, 1.0)
+    sub = np.abs(odd - sq)[~normal]
+    worst = int(np.argmax(np.where(normal, err, 0.0)))
+    log(f"[stats] (b) odd entries vs float64 Σ (ΔT)²: max rel "
+        f"{err[normal].max():.3e} (limit 1e-5; bin {worst}: "
+        f"{odd[worst]:.9e} against {sq[worst]:.9e}) over "
+        f"{int(normal.sum())} "
+        f"bins; {int((~normal & (sq > 0)).sum())} bins below "
+        f"{tiny:.3e} differ by at most {sub.max(initial=0):.3e} (limit "
+        f"{tiny:.3e}); even entries bitwise (a)'s")
+    if not (err[normal].max() <= 1e-5 and sub.max(initial=0) <= tiny):
+        raise AssertionError("(b) odd entries differ")
+    _same_outputs(b, base, "(b)")
+    del b, fb, odd, err, totals, sq
+
+    # (c) Truncation re-walk.
+    c = stats_run(mesh, RUNSTATS_TRUNC, clocked=True)
+    _log_moves(f"(c) {RUNSTATS_TRUNC}", c)
+    t_c = c["tally"]
+    tot = t_c.telemetry()["totals"]
+    rec = [r for r in t_c.telemetry()["per_move"] if r["kind"] == "rewalk"]
+    log(f"[stats] (c) {RUNSTATS_TRUNC}: rewalked "
+        f"{tot['rewalked']} lanes, lost {tot['lost']}; per call "
+        f"{[(r['move'], r['retried']) for r in rec]}")
+    if not tot["rewalked"] > 0 or tot["lost"]:
+        raise AssertionError("(c) re-walk did not recover every lane")
+    if not np.array_equal(t_c.element_ids, base["tally"].element_ids):
+        raise AssertionError("(c) elements differ from the ample run's")
+    fc = t_c.flux.double()
+    fbase = base["tally"].flux.double()
+    bad = ((fc - fbase).abs() > 1e-5 * fbase.abs() + 1e-5).sum()
+    log(f"[stats] (c) flux vs ample run: max abs "
+        f"{float((fc - fbase).abs().max()):.3e}, bins beyond rtol 1e-5 + "
+        f"atol 1e-5: {int(bad)}")
+    if int(bad):
+        raise AssertionError("(c) flux differs from the ample run's")
+    del fc, fbase, c
+
+    # (d) Quarantine.
+    q = stats_run(mesh, dict(quarantine=True), nan_move=2)
+    p = stats_run(mesh, {}, nan_move=2, park=True)
+    _log_moves("(d) quarantine", q)
+    _log_moves("(d) parked", p)
+    lanes = q["tally"].quarantined_lanes()
+    log(f"[stats] (d) quarantined {int(lanes.sum())} lanes, flux finite "
+        f"{bool(torch.isfinite(q['tally'].flux).all())}, bitwise the "
+        f"parked run's {bool(torch.equal(q['tally'].flux, p['tally'].flux))}")
+    if lanes.sum() != RUNSTATS_BAD or lanes[:RUNSTATS_BAD].sum() != \
+            RUNSTATS_BAD:
+        raise AssertionError("(d) quarantined lanes")
+    if not torch.isfinite(q["tally"].flux).all():
+        raise AssertionError("(d) flux not finite")
+    if not torch.equal(q["tally"].flux, p["tally"].flux):
+        raise AssertionError("(d) flux differs from the parked run's")
+    _same_outputs(q, p, "(d)")
+    del q, p
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"[stats] launches over the facade runs: {launches}")
+    if not launches["walk"] or not launches["scatter_bucket"]:
+        raise AssertionError("run statistics did not launch the walk and "
+                             "the bucket scatter")
+
+    # Device time of the two folds at the main cell's flux.
+    flux = t_a.flux.clone()
+    nbins = flux.numel() // 2
+
+    def fresh_state():
+        st = ConvState.zeros(nbins, flux.dtype, flux.device)
+        st.snap.copy_(flux[0::2] * 0.5)
+        return (st,)
+
+    fold_ms = event_ms(lambda st: fold_and_reduce(
+        flux, st, batch_moves=1, rel_err_target=0.05), 5, fresh_state)
+    prev = flux[0::2] * 0.5
+    batch_ms = event_ms(
+        lambda f, pe: accumulate_batch_squares(f, pe), 5,
+        lambda: (flux.clone(), prev.clone()))
+    nbytes = flux.element_size()
+    fold_bound = (3 * nbins * nbytes + 2 * nbins * nbytes) / HBM_BYTES_PER_S
+    batch_bound = (5 * nbins * nbytes) / HBM_BYTES_PER_S
+    log(f"[stats] fold_and_reduce (a batch end, {nbins} bins): "
+        f"{fold_ms:.4f} ms (bytes bound {fold_bound * 1e3:.4f} ms); "
+        f"accumulate_batch_squares: {batch_ms:.4f} ms (bytes bound "
+        f"{batch_bound * 1e3:.4f} ms); CUDA events, median of 5")
+
+    # Move 1 replayed at the main cell, kernel against the plain walk on
+    # the card: the move with squares off (batch sd's walk), and the walk
+    # at (c)'s bound with its re-walks; the first re-walk attempt timed.
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    n, G, dev = MAIN_PARTICLES, MAIN_GROUPS, torch.device(DEVICE)
+    rng = np.random.default_rng(1)
+    t0 = PumiTally(mesh, n, TallyConfig(n_groups=G), device=DEVICE)
+    pos = rng.uniform(0.05, 0.95, (n, 3))
+    t0.initialize_particle_location(pos.reshape(-1))
+    want1, groups = main_move_inputs(rng, n, G, pos)
+    args = (mesh, t0.state.origin,
+            torch.from_numpy(want1).to(dev, t0.config.dtype), t0.state.elem,
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.ones(n, dtype=t0.config.dtype, device=dev),
+            torch.from_numpy(groups).to(dev), t0.state.material_id)
+    kw = dict(initial=False, n_groups=G, tolerance=t0.config.tolerance)
+    nosq = dict(kw, max_crossings=t0._max_crossings, score_squares=False)
+    got = walk_cuda.trace(*args, t0.flux.clone(), **nosq)
+    ref = walk.trace(*args, t0.flux.clone(), **nosq)
+    compare(got, ref, t0.config.dtype, 1e-5, 0, "move 1, squares off")
+    if not torch.equal(got.flux[1::2], t0.flux[1::2]):
+        raise AssertionError("squares off: odd entries written")
+    del got, ref
+    mc = RUNSTATS_TRUNC["max_crossings"]
+    first = walk_cuda.trace(*args, t0.flux.clone(), max_crossings=mc, **kw)
+    pfirst = walk.trace(*args, t0.flux.clone(), max_crossings=mc, **kw)
+    compare(first, pfirst, t0.config.dtype, 1e-5, 0,
+            f"move 1 at max_crossings={mc}")
+    todo = ~first.done
+    n_todo = int(todo.sum())
+    rw_args = (mesh, first.position, args[2], first.elem, todo, args[5],
+               args[6], first.material_id)
+    rw_kw = dict(max_crossings=2 * mc, n_groups=G,
+                 tolerance=t0.config.tolerance,
+                 capacity=min(2 * mc * n_todo, 8 * n))
+    walk_ms = event_ms(lambda: walk_cuda.walk_records(
+        *rw_args, first.flux, **rw_kw))
+    _, rec1 = walk_cuda.walk_records(*rw_args, first.flux, **rw_kw)
+    scat_ms = event_ms(lambda f: scatter.scatter_ordered(
+        f, rec1.bin, rec1.order, rec1.c), 5,
+        lambda: (first.flux.clone(),))
+    retries = RUNSTATS_TRUNC["truncation_retries"]
+    got, retried, lost = walk_cuda.rewalk_truncated(
+        mesh, first, args[2], args[5], args[6], retries=retries,
+        max_crossings=mc, **kw)
+    ref, retried_p, lost_p = walk.rewalk_truncated(
+        mesh, pfirst, args[2], args[5], args[6], retries=retries,
+        max_crossings=mc, **kw)
+    compare(got, ref, t0.config.dtype, 0, 0, "move 1 re-walked")
+    log(f"[stats] (c) move 1 replayed: {n_todo} of {n} lanes truncated at "
+        f"max_crossings={mc}, {retried} lane walks over the attempts, "
+        f"{lost} lost; first re-walk (max_crossings={2 * mc}): walk into "
+        f"{rec1.bin.numel()} records {walk_ms:.4f} ms, ordered scatter "
+        f"{scat_ms:.4f} ms (CUDA events, median of 5)")
+    if (retried, lost) != (retried_p, lost_p) or lost:
+        raise AssertionError("(c) re-walk kernel differs from the plain walk")
+    del got, ref, first, pfirst, rec1, t0
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[stats] peak device memory {peak} bytes; card {card_line()}")
+    return dict(launches=launches, fold_ms=fold_ms, batch_ms=batch_ms,
+                rewalk_walk_ms=walk_ms, rewalk_scatter_ms=scat_ms,
+                rewalked=tot["rewalked"], peak_bytes=peak)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -1482,6 +1825,10 @@ def main() -> int:
     pipe = phase_pipeline(tally.mesh)
     log(f"[phase] pipeline: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    stats = phase_run_statistics(tally.mesh)
+    log(f"[phase] run statistics: {time.perf_counter() - t0:.2f} s")
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -1501,7 +1848,11 @@ def main() -> int:
          "launch_order_ms": k["launch_order_ms"],
          "io_launches": {m: r["launches"]["walk"] for m, r in io.items()},
          "pipeline_launches": {d: pipe[f"depth{d}_launches"]["walk"]
-                               for d in (1, 2)}},
+                               for d in (1, 2)},
+         "runstats_launches": stats["launches"]["walk"],
+         "runstats_relaunches": stats["launches"]["walk_relaunches"],
+         "rewalk_walk_ms": stats["rewalk_walk_ms"],
+         "rewalk_scatter_ms": stats["rewalk_scatter_ms"]},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},
@@ -1530,7 +1881,9 @@ def main() -> int:
                                  for m, r in io.items()},
              pipeline_bucket_launches={
                  d: pipe[f"depth{d}_launches"]["scatter_bucket"]
-                 for d in (1, 2)}),
+                 for d in (1, 2)},
+             runstats_launches=stats["launches"]["scatter_ordered"],
+             runstats_bucket_launches=stats["launches"]["scatter_bucket"]),
         {"name": "walk_cuda.lane_records", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/walk.cu",
          "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",

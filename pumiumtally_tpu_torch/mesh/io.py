@@ -1,8 +1,9 @@
-"""Mesh ingest: .npz snapshots and ASCII Gmsh .msh (v2.2 and v4.1).
+"""Mesh ingest: .npz snapshots, ASCII Gmsh .msh (v2.2 and v4.1) and
+Omega_h-layout .osh directories.
 
 Counterpart of ``pumiumtally_tpu/mesh/io.py`` without the native C++
-tokenizer: the pure-Python parsers are copied. The Omega_h ``.osh`` reader
-is not ported yet (ROADMAP.md, port queue).
+tokenizer: the pure-Python parsers are copied, and ``.osh`` goes through
+the subset reader of ``mesh/osh.py``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from .core import TetMesh
+from .osh import read_osh
 
 
 def load_npz_arrays(filename: str):
@@ -106,20 +108,19 @@ def _renumber(node_ids, coords, tets, cids):
 def load_mesh(
     filename: str, dtype: torch.dtype = torch.float32, device=None
 ) -> TetMesh:
-    """Load a .npz or .msh mesh onto ``device`` (default: the CUDA card)."""
+    """Load a .npz, .msh or .osh mesh onto ``device`` (default: the CUDA
+    card)."""
     ext = os.path.splitext(filename)[1].lower()
     if ext == ".npz":
         coords, tet2vert, class_id = load_npz_arrays(filename)
     elif ext == ".msh":
         coords, tet2vert, class_id = parse_gmsh(filename)
     elif ext == ".osh":
-        raise NotImplementedError(
-            "the Omega_h .osh reader (pumiumtally_tpu/mesh/osh.py) is not "
-            "ported yet (ROADMAP.md, port queue); convert to .npz or .msh"
-        )
+        coords, tet2vert, class_id = read_osh(filename)
     else:
         raise ValueError(
-            f"unsupported mesh format '{ext}' (.npz and .msh supported)"
+            f"unsupported mesh format '{ext}' (.npz, .msh and .osh "
+            "supported)"
         )
     return TetMesh.from_numpy(
         coords, tet2vert, class_id, dtype=dtype, device=device

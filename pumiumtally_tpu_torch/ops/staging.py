@@ -9,10 +9,11 @@ host→device copy and one device→host copy:
     carrier words (``pack_move_record``), in a pinned host buffer on the
     card, and copied with ``non_blocking=True``; ``unpack_move_record``
     bitcasts the columns back on the device.
-  * **coalesced readback (D2H)**: positions, material ids, done flags and
-    the walk-stats vector are packed on the device into ONE flat record
-    (``pack_trace_readback``), copied into a pinned host buffer and
-    split on the host (``split_trace_readback``).
+  * **coalesced readback (D2H)**: positions, material ids, done flags,
+    the walk-stats vector and, with convergence on, the [CONV_LEN]
+    convergence summary (``obs/convergence.py``) are packed on the
+    device into ONE flat record (``pack_trace_readback``), copied into a
+    pinned host buffer and split on the host (``split_trace_readback``).
 
 Encoding: every record is made of carrier words of the walk dtype's width
 (``np_carrier``: uint32 for float32, uint64 for float64, as in the JAX
@@ -24,15 +25,17 @@ walk-dtype rounding of the destinations and weights happens on the host,
 while packing, to nearest even as numpy's ``astype`` and JAX do: the
 record holds walk-dtype words, so the device never sees the float64
 values. Tail integers (the stats vector, or the segment count) are
-widened to int64 before they are bitcast into carrier words.
+widened to int64 before they are bitcast into carrier words; the
+convergence summary's walk-dtype floats are bitcast as they are, so they
+travel bit-exactly.
 
 Host buffers come from :class:`HostStager`: pinned (page-locked) on the
 card, a ring of ``depth`` buffers per record kind; fresh on the CPU,
 where a "transfer" is the same memory.
 
 Not ported here: the slot permutation of the element sort (``perm``; A5),
-the integrity and convergence tails (A8, A5), and the partitioned and
-megastep records (A9, A7). Asking for them raises NotImplementedError.
+the integrity tail (A8), and the partitioned and megastep records (A9,
+A7). Asking for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..obs.convergence import CONV_LEN
 from ..utils.platform import resolve_device
 
 # Record column layouts (single-chip facade), the JAX package's.
@@ -230,66 +234,74 @@ def unpack_move_record(rec, dtype, perm, initial: bool):
     return dest, words[:, 5] != 0, weight, group
 
 
+def _no_integrity() -> None:
+    raise NotImplementedError(
+        "the integrity tail is not ported yet (ROADMAP.md A8)")
+
+
 def pack_trace_readback(position, material_id, done, stats, n_segments,
                         perm=None, integrity=None, convergence=None):
     """Device-side readback pack: the ``[n, READBACK_COLS]`` slot record,
     flattened, with the walk-stats vector (or, when walk stats are off,
-    the segment count) appended as an int64-encoded tail; one carrier
-    tensor, so ONE device→host copy carries what the facade needs per
-    move."""
+    the segment count) appended as an int64-encoded tail and, when
+    ``convergence`` (the [CONV_LEN] summary) is given, its walk-dtype
+    floats appended last as carrier words; one carrier tensor, so ONE
+    device→host copy carries what the facade needs per move."""
     _no_perm(perm)
     if integrity is not None:
-        raise NotImplementedError(
-            "the integrity tail is not ported yet (ROADMAP.md A8)")
-    if convergence is not None:
-        raise NotImplementedError(
-            "the convergence tail is not ported yet (ROADMAP.md A5)")
+        _no_integrity()
     carrier = torch_carrier(position.dtype)
     n = position.shape[0]
     tail_src = stats if stats is not None else n_segments.reshape(1)
     tail = tail_src.to(torch.int64).view(carrier)
-    out = torch.empty(n * READBACK_COLS + tail.numel(), dtype=carrier,
-                      device=position.device)
+    conv_words = 0 if convergence is None else convergence.numel()
+    out = torch.empty(n * READBACK_COLS + tail.numel() + conv_words,
+                      dtype=carrier, device=position.device)
     slot = out[: n * READBACK_COLS].view(n, READBACK_COLS)
     slot[:, 0:3] = position.view(carrier)
     slot[:, 3] = _enc_i32_dev(material_id, carrier)
     slot[:, 4] = done
-    out[n * READBACK_COLS:] = tail
+    out[n * READBACK_COLS:n * READBACK_COLS + tail.numel()] = tail
+    if convergence is not None:
+        out[out.numel() - conv_words:] = (
+            convergence.to(position.dtype).view(carrier))
     return out
 
 
-def readback_views(host_rec, n: int, dtype):
+def readback_views(host_rec, n: int, dtype, convergence: bool = False):
     """The parts of a host readback as views into it, with no pass over
     the lanes: ``(position [n,3] walk dtype, material ids [n] in the
     carrier's signed int, done words [n] (nonzero: done), tail int64
-    array)``."""
+    array, convergence summary float64 copy or None)``."""
     carrier = np_carrier(dtype)
     if isinstance(host_rec, torch.Tensor):
         host_rec = host_rec.numpy()
     words = host_rec.view(carrier)
     slot = words[: n * READBACK_COLS].reshape(n, READBACK_COLS)
-    position = _dec_f_host(slot[:, 0:3], _NP_FLOAT.get(dtype, dtype))
+    npdt = _NP_FLOAT.get(dtype, dtype)
+    position = _dec_f_host(slot[:, 0:3], npdt)
     material = slot[:, 3].view(np.int32 if carrier == np.uint32
                                else np.int64)
-    return position, material, slot[:, 4], _dec_i64_host(
-        words[n * READBACK_COLS:])
+    tail_words = words[n * READBACK_COLS:]
+    conv = None
+    if convergence:
+        conv = _dec_f_host(tail_words[-CONV_LEN:], npdt).astype(np.float64)
+        tail_words = tail_words[:-CONV_LEN]
+    return position, material, slot[:, 4], _dec_i64_host(tail_words), conv
 
 
 def split_trace_readback(host_rec, n: int, dtype, integrity: bool = False,
                          convergence: bool = False):
     """Host-side inverse of ``pack_trace_readback``. Returns ``(position
     [n,3] walk dtype, material_id [n] int32, done [n] bool, tail int64
-    array, None, None)``, where ``tail`` is the stats vector (walk stats
-    on) or ``[n_segments]`` (off); the last two are the JAX package's
-    integrity and convergence slots. Positions and (in float32) material
-    ids are strided views into ``host_rec``."""
+    array, None, convergence float64 vector or None)``, where ``tail`` is
+    the stats vector (walk stats on) or ``[n_segments]`` (off); the fifth
+    is the JAX package's integrity slot. Positions and (in float32)
+    material ids are strided views into ``host_rec``."""
     if integrity:
-        raise NotImplementedError(
-            "the integrity tail is not ported yet (ROADMAP.md A8)")
-    if convergence:
-        raise NotImplementedError(
-            "the convergence tail is not ported yet (ROADMAP.md A5)")
-    position, material, done, tail = readback_views(host_rec, n, dtype)
+        _no_integrity()
+    position, material, done, tail, conv = readback_views(
+        host_rec, n, dtype, convergence)
     material = _dec_i32_host(material.view(np_carrier(dtype)),
                              np_carrier(dtype))
-    return position, material, done != 0, tail, None, None
+    return position, material, done != 0, tail, None, conv

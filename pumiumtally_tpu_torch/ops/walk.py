@@ -34,6 +34,8 @@ import dataclasses
 
 import torch
 
+from ..obs.convergence import fold_and_reduce
+from ..obs.walk_stats import WALK_STATS_FIELDS
 from .geometry import argmax4, exit_face
 from .scatter import scatter_ordered_plain
 from .staging import pack_trace_readback, unpack_move_record
@@ -135,6 +137,8 @@ class TraceResult:
     stats: [8] int64 walk stats vector (None without stats).
     n_records: the tally records the ordered walk made on the card, a
       host int (None elsewhere): the walk wrapper reads it anyway.
+    convergence: the [CONV_LEN] convergence summary of a packed step
+      with ``conv_state`` (``obs/convergence.py``), else None.
     """
 
     position: torch.Tensor
@@ -148,6 +152,7 @@ class TraceResult:
     track_length: torch.Tensor | None = None
     stats: torch.Tensor | None = None
     n_records: int | None = None
+    convergence: torch.Tensor | None = None
 
 
 def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
@@ -260,31 +265,47 @@ def trace_packed(mesh, origin, elem, material_id, record, flux, perm=None,
     """The packed-I/O step (plain version), counterpart of
     ``pumiumtally_tpu/ops/walk.py::trace_packed_impl``: unpack the move
     record (``staging.unpack_move_record``), walk (``trace``, keywords as
-    there), pack the readback (``staging.pack_trace_readback``).
+    there), fold the convergence batch (``conv_state``), pack the
+    readback (``staging.pack_trace_readback``).
 
     ``record`` is a ``[n, MOVE_COLS]`` (``[n, INIT_COLS]`` when
     ``initial``) carrier-word record from ``staging.pack_move_record`` /
     ``pack_init_record``; for the initial search ``weight`` and ``group``
     come from the arguments (the device state). ``perm`` must be None
-    (the element sort is A5). Returns ``(TraceResult, readback, dest,
-    in_flight, weight, group)``: the staged tensors ride along so the
-    facade can keep them as its state."""
+    (the element sort is A5). ``conv_state`` (an
+    ``obs/convergence.py::ConvState``, with ``batch_moves`` and
+    ``rel_err_target``) folds the move into the batch accumulators after
+    the walk and appends the summary to the readback. Returns
+    ``(TraceResult, readback, dest, in_flight, weight, group)``: the
+    staged tensors ride along so the facade can keep them as its state
+    and re-walk truncated lanes from them."""
     return packed_step(trace, mesh, origin, elem, material_id, record,
                        flux, perm, weight, group, **kwargs)
 
 
 def packed_step(walk, mesh, origin, elem, material_id, record, flux, perm,
-                weight, group, **kwargs):
+                weight, group, conv_state=None, batch_moves=1,
+                rel_err_target=0.05, **kwargs):
     """``trace_packed`` with ``walk`` as the walk (``trace`` here,
     ``walk_cuda.trace`` on the card)."""
+    if conv_state is not None and kwargs["initial"]:
+        raise ValueError(
+            "conv_state is a move-loop feature: the initial location "
+            "search scores nothing and must not advance the batch cadence"
+        )
     dest, in_flight, w, g = unpack_move_record(record, origin.dtype, perm,
                                                kwargs["initial"])
     if w is None:
         w, g = weight, group
     r = walk(mesh, origin, dest, elem, in_flight, w, g, material_id, flux,
              **kwargs)
+    if conv_state is not None:
+        r.convergence = fold_and_reduce(
+            r.flux, conv_state, batch_moves=batch_moves,
+            rel_err_target=rel_err_target)
     readback = pack_trace_readback(r.position, r.material_id, r.done,
-                                   r.stats, r.n_segments, perm)
+                                   r.stats, r.n_segments, perm,
+                                   convergence=r.convergence)
     return r, readback, dest, in_flight, w, g
 
 
@@ -469,3 +490,104 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             if stats else None
         ),
     )
+
+
+# --------------------------------------------------------------------- #
+# Truncated-lane escalation
+# --------------------------------------------------------------------- #
+_MAX_CROSS = WALK_STATS_FIELDS.index("max_crossings")
+_TRUNCATED = WALK_STATS_FIELDS.index("truncated")
+
+
+def merge_rewalk(a: TraceResult, b: TraceResult) -> TraceResult:
+    """Fold a re-walk's result ``b`` (only the lanes ``a`` left unfinished
+    were in flight) into the prior attempt ``a``, as
+    ``pumiumtally_tpu/ops/walk.py::_merge_rewalk`` does: per-lane outputs
+    come from ``b`` (parked lanes pass through a walk untouched), run
+    totals add. In the stats vector ``max_crossings`` is a max and
+    ``truncated`` is ``b``'s, the final count."""
+    stats = None
+    if a.stats is not None and b.stats is not None:
+        stats = a.stats + b.stats
+        stats[_MAX_CROSS] = torch.maximum(a.stats[_MAX_CROSS],
+                                          b.stats[_MAX_CROSS])
+        stats[_TRUNCATED] = b.stats[_TRUNCATED]
+    track = None
+    if a.track_length is not None and b.track_length is not None:
+        track = a.track_length + b.track_length
+    records = None
+    if a.n_records is not None and b.n_records is not None:
+        records = a.n_records + b.n_records
+    return TraceResult(
+        position=b.position,
+        elem=b.elem,
+        material_id=b.material_id,
+        flux=b.flux,
+        n_segments=a.n_segments + b.n_segments,
+        n_crossings=a.n_crossings + b.n_crossings,
+        done=b.done,
+        lane_iters=a.lane_iters + b.lane_iters,
+        track_length=track,
+        stats=stats,
+        n_records=records,
+    )
+
+
+def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
+                     retries: int, trace_fn=None, **trace_kwargs):
+    """Escalation for truncated walks, counterpart of
+    ``pumiumtally_tpu/ops/walk.py::rewalk_truncated``: re-walk only the
+    truncated lanes with doubled ``max_crossings``, up to ``retries``
+    attempts, before declaring them lost.
+
+    A truncated lane holds a mid-walk position and parent element, and
+    flux is additive per segment, so continuing the walk from where it
+    stopped scores exactly the segments the truncation dropped. Each
+    attempt doubles the crossing bound and puts only the still
+    unfinished lanes in flight, from ``result``'s position, element and
+    material id (the device tensors of the walk that truncated); the
+    others ride along parked. Each attempt's records fold into the flux
+    after the previous attempt's (the ordered tally keys records per
+    call), so the flux matches an uninterrupted walk's within rounding,
+    not bit for bit.
+
+    Args:
+      result: the truncated TraceResult (``done`` has False lanes).
+      dest, weight, group: the move's per-lane inputs on the device.
+      retries: the most re-walk attempts.
+      trace_fn: the walk; the default is this module's ``trace``. A
+        ``trace_fn`` given is also passed ``capacity=``, the records the
+        attempt's buffers hold (``walk_cuda.trace``'s): the unfinished
+        lanes times the doubled bound (a lane scores at most once an
+        iteration), at most 8 a lane of the move; a walk that makes more
+        runs again with buffers of its count.
+      trace_kwargs: the first walk's keywords, ``max_crossings`` (the
+        doubling base) and ``initial`` included.
+
+    Returns ``(merged TraceResult, n_retried, n_lost)``: ``n_retried``
+    sums lanes over attempts, ``n_lost`` counts lanes still unfinished
+    after the last attempt. Each attempt reads its count of unfinished
+    lanes to the host.
+    """
+    kwargs = dict(trace_kwargs)
+    max_crossings = kwargs.pop("max_crossings")
+    n = result.done.shape[0]
+    n_retried = 0
+    for _ in range(retries):
+        todo = ~result.done
+        n_todo = int(todo.sum())
+        if n_todo == 0:
+            break
+        n_retried += n_todo
+        max_crossings *= 2
+        extra = {}
+        if trace_fn is not None:
+            extra["capacity"] = min(n_todo * max_crossings, 8 * n)
+        r2 = (trace_fn or trace)(
+            mesh, result.position, dest, result.elem, todo, weight, group,
+            result.material_id, result.flux, max_crossings=max_crossings,
+            **kwargs, **extra,
+        )
+        result = merge_rewalk(result, r2)
+    n_lost = int((~result.done).sum())
+    return result, n_retried, n_lost

@@ -36,7 +36,8 @@ The ordered scatter takes at most 2^31 − 1 records a call
 records reach the scatter. ``record_capacity``, ``face_rate`` and
 ``path_records`` size an ordered walk's record buffers from an estimate
 on the host; ``trace_packed`` is ``trace`` between the move-loop records
-of ``ops/staging.py``.
+of ``ops/staging.py``; ``rewalk_truncated`` walks a move's truncated
+lanes again.
 """
 from __future__ import annotations
 
@@ -54,6 +55,7 @@ from .walk import (
     check_walk_args,
     packed_step,
     resolve_material,
+    rewalk_truncated as rewalk_truncated_with,
     trace as trace_plain,
     trace_records as trace_records_plain,
     walk_stats_vector,
@@ -191,6 +193,17 @@ def trace_packed(mesh, origin, elem, material_id, record, flux, perm=None,
     readback, dest, in_flight, weight, group)``."""
     return packed_step(trace, mesh, origin, elem, material_id, record,
                        flux, perm, weight, group, **kwargs)
+
+
+def rewalk_truncated(mesh, result, dest, weight, group, *, retries: int,
+                     **kwargs):
+    """``ops/walk.py::rewalk_truncated`` with this module's ``trace`` as
+    the walk: on the card each attempt is a walk kernel launch (and its
+    ordered scatter) with only the truncated lanes in flight, from the
+    device-resident mid-walk state of ``result``, its record buffers
+    sized for the attempt; on the CPU the plain walk."""
+    return rewalk_truncated_with(mesh, result, dest, weight, group,
+                                 retries=retries, trace_fn=trace, **kwargs)
 
 
 def walk_records(mesh, origin, dest, elem, in_flight, weight, group,

@@ -8,10 +8,18 @@ packages. What the port does with each field:
   ``dtype`` (``torch.float32`` or ``torch.float64``), ``output_filename``,
   ``score_squares``, ``robust``, ``ledger``, ``walk_stats``,
   ``measure_time``, ``io_pipeline`` (``resolve_io_pipeline``);
+* read by the run statistics and recovery: ``sd_mode`` ("segment" or
+  "batch"), ``convergence`` with ``rel_err_target``, ``batch_moves`` and
+  ``converged_fraction`` (``resolve_convergence``),
+  ``truncation_retries`` and ``quarantine``;
 * accepted and ignored, because in the JAX package they only schedule the
   same arithmetic (straggler compaction, loop unrolling, scatter and
   gather strategies): ``compact_after``, ``compact_size``,
-  ``compact_stages``, ``unroll``, ``tally_scatter``, ``gathers``;
+  ``compact_stages``, ``unroll``, ``tally_scatter``, ``gathers``. One
+  difference shows at the crossing bound: the JAX walk tests
+  ``max_crossings`` once per block of ``unroll`` iterations, the port
+  every iteration (as the JAX walk with ``unroll=1``), so with a bound
+  small enough to truncate walks the JAX walk lets lanes run past it;
 * every other field is a feature the port does not have yet: setting it
   away from its default raises ``NotImplementedError`` naming the
   ROADMAP.md item that ports it. Nothing computes something else
@@ -26,6 +34,7 @@ from typing import Any
 import torch
 
 IO_PIPELINES = ("packed", "overlap", "legacy")
+SD_MODES = ("segment", "batch")
 
 # Field → the ROADMAP.md port item that brings it.
 _UNPORTED = {
@@ -33,9 +42,6 @@ _UNPORTED = {
     "sort_by_element": "A5 (element sort)",
     "checkify_invariants": "A5 (device asserts)",
     "record_xpoints": "A5 (record_xpoints)",
-    "sd_mode": "A5 (sd_mode='batch')",
-    "quarantine": "A5 (quarantine)",
-    "truncation_retries": "A5 (truncation escalation)",
     "integrity": "A8 (integrity)",
     "integrity_tol": "A8 (integrity)",
     "audit_lanes": "A8 (integrity audit)",
@@ -43,10 +49,6 @@ _UNPORTED = {
     "audit_tol": "A8 (integrity audit)",
     "audit_seed": "A8 (integrity audit)",
     "move_deadline_s": "A8 (watchdog)",
-    "convergence": "A5 (convergence)",
-    "rel_err_target": "A5 (convergence)",
-    "batch_moves": "A5 (convergence)",
-    "converged_fraction": "A5 (convergence)",
     "megastep": "A7 (megastep)",
     "kernel": "B1 (the port's walk kernel is csrc/walk.cu; there is no "
               "Pallas backend to select)",
@@ -115,6 +117,39 @@ class TallyConfig:
             )
         if self.n_groups < 1:
             raise ValueError(f"n_groups must be >= 1: {self.n_groups}")
+        if self.sd_mode not in SD_MODES:
+            raise ValueError(
+                f"sd_mode must be 'segment' or 'batch': {self.sd_mode!r}"
+            )
+        if self.truncation_retries < 0:
+            raise ValueError(
+                "truncation_retries must be >= 0: "
+                f"{self.truncation_retries}"
+            )
+
+    def resolve_convergence(self) -> int | None:
+        """Validate the convergence knobs and return the moves per batch
+        (None when convergence is off), as the JAX package does."""
+        if not self.convergence:
+            if self.batch_moves is not None:
+                raise ValueError(
+                    "batch_moves only applies to convergence "
+                    "observability: set convergence=True or drop it"
+                )
+            return None
+        if not self.rel_err_target > 0:
+            raise ValueError(
+                f"rel_err_target must be positive: {self.rel_err_target}"
+            )
+        if not 0 < self.converged_fraction <= 1:
+            raise ValueError(
+                "converged_fraction must be in (0, 1]: "
+                f"{self.converged_fraction}"
+            )
+        bm = 1 if self.batch_moves is None else int(self.batch_moves)
+        if bm < 1:
+            raise ValueError(f"batch_moves must be >= 1: {bm}")
+        return bm
 
     def resolve_io_pipeline(self) -> str:
         """The effective move-loop I/O mode (``api.py``): the environment

@@ -9,12 +9,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import logging
 import time
 
 import torch
 
-_log = logging.getLogger("pumiumtally_tpu_torch")
+from .log import log_time
 
 
 @dataclasses.dataclass
@@ -25,22 +24,22 @@ class TallyTimes:
     n_moves: int = 0
 
     def print_times(self) -> None:
+        """One ``[TIME]`` record per phase through ``utils/log.py``."""
         total = (
             self.initialization_time
             + self.total_time_to_tally
             + self.vtk_file_write_time
         )
-        rows = [
-            ("initialization", self.initialization_time),
-            ("tally", self.total_time_to_tally),
-        ]
+        log_time("initialization", self.initialization_time)
+        log_time("tally", self.total_time_to_tally, n_moves=self.n_moves)
         if self.n_moves:
-            rows.append(
-                ("tally_per_move", self.total_time_to_tally / self.n_moves)
+            log_time(
+                "tally_per_move",
+                self.total_time_to_tally / self.n_moves,
+                n_moves=self.n_moves,
             )
-        rows += [("vtk_write", self.vtk_file_write_time), ("total", total)]
-        for phase, seconds in rows:
-            _log.info("[TIME] %s: %.6f s", phase, seconds)
+        log_time("vtk_write", self.vtk_file_write_time)
+        log_time("total", total)
 
 
 class StepClock:

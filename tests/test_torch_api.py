@@ -417,14 +417,9 @@ def test_mesh_dtype_must_match_config():
     ("migration_period", 50),
     ("checkify_invariants", True),
     ("record_xpoints", 4),
-    ("sd_mode", "batch"),
-    ("quarantine", True),
-    ("truncation_retries", 2),
     ("integrity", "warn"),
     ("audit_lanes", 8),
     ("move_deadline_s", 5.0),
-    ("convergence", True),
-    ("batch_moves", 2),
     ("megastep", 4),
     ("kernel", "pallas"),
     ("pallas_lane_block", 256),
@@ -433,6 +428,24 @@ def test_mesh_dtype_must_match_config():
 def test_unported_config_fields_refused(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TallyConfig(**{field: value})
+
+
+@pytest.mark.parametrize("kw", [
+    dict(sd_mode="batch"),
+    dict(quarantine=True),
+    dict(truncation_retries=2),
+    dict(convergence=True),
+    dict(convergence=True, batch_moves=2),
+    dict(convergence=True, rel_err_target=0.1, converged_fraction=0.5),
+])
+def test_run_statistics_fields_accepted(kw):
+    """The run-statistics and recovery fields construct, with the JAX
+    package's validation (``resolve_convergence``)."""
+    cfg = TallyConfig(**kw)
+    for field, value in kw.items():
+        assert getattr(cfg, field) == value
+    want = kw.get("batch_moves", 1) if kw.get("convergence") else None
+    assert cfg.resolve_convergence() == want
 
 
 @pytest.mark.parametrize("field,value", [

@@ -74,6 +74,31 @@ def test_sources_import_no_jax(path):
             )
 
 
+# The port's copies of modules of the JAX package that import no JAX
+# themselves (the port keeps its own copy of each); the scans above
+# cover them like every source of the package.
+OWN_COPIES = (
+    "utils/log.py", "utils/profiling.py", "obs/registry.py",
+    "obs/recorder.py", "obs/telemetry.py", "obs/convergence.py",
+    "resilience/quarantine.py", "mesh/osh.py",
+)
+
+
+@pytest.mark.parametrize("rel", OWN_COPIES)
+def test_own_copies_are_scanned_and_import_nothing_of_jax(rel):
+    path = PKG / rel
+    assert path in SOURCES
+    r = _run(
+        "import importlib, sys\n"
+        f"importlib.import_module('pumiumtally_tpu_torch.' + "
+        f"{rel[:-3].replace('/', '.')!r})\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'pumiumtally_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is usable")

@@ -736,3 +736,164 @@ def test_record_guard_raises_before_any_allocation(cuda, monkeypatch):
             torch.zeros(1, dtype=torch.int64, device=cuda).expand(m),
             one.expand(m), True, 1)
     assert torch.cuda.memory_allocated() == held
+
+
+# --------------------------------------------------------------------- #
+# Run statistics and recovery on the card (sd_mode="batch", convergence,
+# truncation re-walks, quarantine, telemetry)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("point", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_walk_without_squares_leaves_odd_entries(cuda, dtype, point):
+    """score_squares=False reaches the ordered scatter's bucket path and
+    (a point source) its crowded path: even entries bitwise the plain
+    walk's, odd entries untouched."""
+    from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
+
+    mesh = _jittered(8, dtype, cuda)
+    args = list(_walk_inputs(mesh, cuda, dtype, n=20000, G=2))
+    if point:
+        args[1] = args[1][:1].expand_as(args[1]).contiguous()
+        args[3] = args[3][:1].expand_as(args[3]).contiguous()
+    kw = dict(initial=False, max_crossings=mesh.ntet + 64, n_groups=2,
+              score_squares=False)
+    seed = _flux0(mesh, 2, dtype, cuda)
+    paths = (scatter.BUCKET_LAUNCHES, scatter.CROWDED_LAUNCHES)
+    got = walk_cuda.trace(*args, seed.clone(), **kw)
+    ref = walk.trace(*args, seed.clone(), **kw)
+    took = (scatter.BUCKET_LAUNCHES - paths[0],
+            scatter.CROWDED_LAUNCHES - paths[1])
+    assert took == ((0, 1) if point else (1, 0))
+    assert torch.equal(got.flux, ref.flux)
+    assert torch.equal(got.flux[1::2], seed[1::2])
+    assert not torch.equal(got.flux[0::2], seed[0::2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rewalk_kernel_matches_plain(cuda, dtype):
+    """Truncated lanes re-walked by the kernel from the device-resident
+    mid-walk state: positions, elements, material ids and the flux
+    bitwise those of the plain walk over the same attempts."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(8, dtype, cuda)
+    args = _walk_inputs(mesh, cuda, dtype, n=8192)
+    kw = dict(initial=False, n_groups=4)
+    seed = _flux0(mesh, 4, dtype, cuda)
+    first = walk_cuda.trace(*args, seed.clone(), max_crossings=3, **kw)
+    plain_first = walk.trace(*args, seed.clone(), max_crossings=3, **kw)
+    assert torch.equal(first.flux, plain_first.flux)
+    assert int((~first.done).sum()) > 1000
+    before = walk_cuda.LAUNCHES
+    got, retried, lost = walk_cuda.rewalk_truncated(
+        mesh, first, args[2], args[5], args[6], retries=6,
+        max_crossings=3, **kw)
+    ref, retried_p, lost_p = walk.rewalk_truncated(
+        mesh, plain_first, args[2], args[5], args[6], retries=6,
+        max_crossings=3, **kw)
+    assert walk_cuda.LAUNCHES > before
+    assert (retried, lost) == (retried_p, lost_p) and lost == 0
+    for f in ("position", "elem", "material_id", "done", "flux"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert torch.equal(got.stats, ref.stats)
+
+
+def _stats_facade(cuda, dtype, n=8192, moves=4, flag_nan=(), **cfg):
+    """A facade run on the card with ``cfg``; returns the tally, each
+    move's write-backs and the even entries after each move (float64)."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    mesh = _jittered(8, dtype, cuda)
+    t = PumiTally(mesh, n, TallyConfig(n_groups=4, dtype=dtype, **cfg))
+    rng = np.random.default_rng(12)
+    prev = rng.uniform(0.05, 0.95, (n, 3))
+    t.initialize_particle_location(prev.reshape(-1).copy())
+    outs, evens = [], []
+    for _ in range(moves):
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        dest = (prev + d * rng.exponential(0.08, (n, 1))).reshape(-1)
+        flying = np.ones(n, np.int8)
+        if flag_nan == "park":
+            flying[:100] = 0
+        elif flag_nan == "nan":
+            dest.reshape(n, 3)[:100] = np.nan
+        mats = np.zeros(n, np.int32)
+        t.move_to_next_location(dest, flying, np.ones(n),
+                                rng.integers(0, 4, n).astype(np.int32),
+                                mats)
+        outs.append((dest.copy(), mats.copy()))
+        evens.append(t.raw_flux[..., 0].astype(np.float64).reshape(-1))
+        prev = dest.reshape(n, 3).copy()
+    return t, outs, evens
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_convergence_and_batch_sd_on_card(cuda, dtype):
+    """Convergence only reads (flux bitwise that of a run without it,
+    one transfer each way a move) and its summary is the float64 host
+    recomputation from the moves' even entries; batch sd gives the same
+    even entries and Σ of squared per-move bin totals in the odd ones."""
+    rtol = 1e-9 if dtype == torch.float64 else 1e-5
+    base, outs0, evens = _stats_facade(cuda, dtype)
+    conv_t, outs1, _ = _stats_facade(cuda, dtype, convergence=True,
+                                     batch_moves=2)
+    assert np.array_equal(conv_t.raw_flux, base.raw_flux)
+    for (a, b), (c, d) in zip(outs0, outs1):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+    tm = conv_t.telemetry()
+    assert (tm["totals"]["h2d_transfers"], tm["totals"]["d2h_transfers"]) \
+        == (5, 5)
+    c = tm["convergence"]
+    assert c["n_batches"] == 2
+    snaps = np.stack([np.zeros_like(evens[0]), evens[1], evens[3]])
+    T = np.diff(snaps, axis=0)
+    s1, s2 = T.sum(0), (T * T).sum(0)
+    scored = s1 > 0
+    rel = np.where(scored, np.sqrt(np.maximum(2 * s2 - s1 * s1, 0.0))
+                   / np.where(scored, s1, 1.0), 0.0)
+    assert c["scored"] == int(scored.sum())
+    np.testing.assert_allclose(c["rel_err_max"], rel.max(), rtol=rtol)
+    np.testing.assert_allclose(c["rel_err_mean"],
+                               rel.sum() / scored.sum(), rtol=rtol)
+    batch, _, _ = _stats_facade(cuda, dtype, sd_mode="batch")
+    assert np.array_equal(batch.raw_flux[..., 0], base.raw_flux[..., 0])
+    totals = np.diff(np.stack([np.zeros_like(evens[0])] + evens), axis=0)
+    np.testing.assert_allclose(batch.raw_flux[..., 1].reshape(-1),
+                               (totals * totals).sum(0), rtol=rtol,
+                               atol=0)
+
+
+def test_truncation_and_quarantine_on_card(cuda):
+    """A tiny crossing bound with retries recovers every lane and gives
+    the ample run's elements; quarantined NaN lanes give the flux of the
+    run in which those lanes are parked, bit for bit."""
+    dtype = torch.float32
+    ample, outs_a, _ = _stats_facade(cuda, dtype)
+    esc, outs_e, _ = _stats_facade(cuda, dtype, max_crossings=2,
+                                   truncation_retries=5)
+    tm = esc.telemetry()["totals"]
+    assert tm["rewalked"] > 0 and tm["lost"] == 0
+    np.testing.assert_array_equal(esc.element_ids, ample.element_ids)
+    np.testing.assert_allclose(esc.raw_flux, ample.raw_flux, rtol=1e-5,
+                               atol=1e-5)
+    parked, outs_p, _ = _stats_facade(cuda, dtype, flag_nan="park")
+    quar, outs_q, _ = _stats_facade(cuda, dtype, flag_nan="nan",
+                                    quarantine=True)
+    assert quar.quarantined_lanes().sum() == 4 * 100
+    assert np.isfinite(quar.raw_flux).all()
+    assert np.array_equal(quar.raw_flux, parked.raw_flux)
+    for (a, b), (c, d) in zip(outs_p, outs_q):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)
+
+
+def test_device_memory_stats_on_card(cuda):
+    from pumiumtally_tpu_torch.utils.profiling import device_memory_stats
+
+    x = torch.ones(1 << 20, device=cuda)
+    stats = device_memory_stats()
+    rec = stats[f"cuda:{x.device.index}"]
+    assert rec["peak_bytes_in_use"] >= rec["bytes_in_use"] >= x.nbytes
+    assert rec["bytes_limit"] > rec["peak_bytes_in_use"]

@@ -235,5 +235,11 @@ def test_npz_load_and_osh_refused(tmp_path):
              class_id=np.zeros(len(tets), np.int32))
     m = load_mesh(str(p), device="cpu")
     assert m.ntet == 48 and m.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="osh"):
-        load_mesh(str(tmp_path / "mesh.osh"), device="cpu")
+    # An .osh directory whose stream is not the subset format (genuine
+    # Omega_h bytes) is refused, naming the offline converter.
+    foreign = tmp_path / "mesh.osh"
+    foreign.mkdir()
+    (foreign / "nparts").write_text("1\n")
+    (foreign / "0.osh").write_bytes(b"\x00mega_h!" + b"\x00" * 64)
+    with pytest.raises(NotImplementedError, match="osh2npz"):
+        load_mesh(str(foreign), device="cpu")

@@ -141,8 +141,11 @@ def test_unported_record_parts_raise():
         staging.pack_trace_readback(z, i, b, None, torch.tensor(0),
                                     integrity=torch.zeros(3))
     with pytest.raises(NotImplementedError, match="A5"):
+        staging.pack_trace_readback(z, i, b, None, torch.tensor(0),
+                                    perm=torch.arange(2))
+    with pytest.raises(NotImplementedError, match="A8"):
         staging.split_trace_readback(np.zeros(12, np.uint64), 2,
-                                     torch.float64, convergence=True)
+                                     torch.float64, integrity=True)
     with pytest.raises(NotImplementedError, match="4- or 8-byte"):
         staging.np_carrier(torch.float16)
 
