@@ -439,7 +439,7 @@ class PumiTally:
         fly_h = np.ones(n, bool)
         qmask = None
         if cfg.quarantine:
-            pos3, qmask = quarantine.apply(self, pos3, None, 0)
+            pos3, _, qmask = quarantine.apply(self, pos3, None, 0)
             if qmask is not None:
                 fly_h &= ~qmask  # masked lanes stay at the seed
         self._origin_h = pos3.copy()
@@ -534,10 +534,7 @@ class PumiTally:
             dest_in = dest3_h
         if cfg.quarantine:
             with step("quarantine"):
-                # weights_h may alias the caller's array; the sanitize
-                # must not write through it.
-                weights_h = weights_h.copy()
-                dest_in, qmask = quarantine.apply(
+                dest_in, weights_h, qmask = quarantine.apply(
                     self, dest3_h, weights_h, self.iter_count + 1)
                 if qmask is not None:
                     fly_h = fly_h & ~qmask  # quarantined lanes are parked

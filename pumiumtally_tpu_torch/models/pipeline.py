@@ -79,7 +79,9 @@ class StreamingTallyPipeline:
     Args:
       mesh: TetMesh; its device is the pipeline's.
       config: TallyConfig; n_groups, dtype, tolerance, max_crossings,
-        score_squares, robust, ledger and walk_stats apply.
+        score_squares, robust, ledger and walk_stats apply; sd_mode must
+        be "segment"; the facade's convergence, truncation_retries and
+        quarantine do not apply (as in the JAX pipeline).
       depth: submissions kept in flight before the oldest result is read
         back (2 = double buffering).
       want_outputs: when False, per-batch positions and material ids are
@@ -90,6 +92,13 @@ class StreamingTallyPipeline:
                  depth: int = 2, want_outputs: bool = True):
         self.mesh = mesh
         self.config = config or TallyConfig()
+        if self.config.sd_mode != "segment":
+            raise NotImplementedError(
+                "StreamingTallyPipeline supports sd_mode='segment' only "
+                "(batches overlap in flight, so a per-move even-entry "
+                "snapshot would serialize the pipeline); use PumiTally "
+                f"for sd_mode={self.config.sd_mode!r}"
+            )
         self.depth = max(1, int(depth))
         self.want_outputs = want_outputs
         self.device = mesh.device

@@ -555,12 +555,8 @@ def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
       result: the truncated TraceResult (``done`` has False lanes).
       dest, weight, group: the move's per-lane inputs on the device.
       retries: the most re-walk attempts.
-      trace_fn: the walk; the default is this module's ``trace``. A
-        ``trace_fn`` given is also passed ``capacity=``, the records the
-        attempt's buffers hold (``walk_cuda.trace``'s): the unfinished
-        lanes times the doubled bound (a lane scores at most once an
-        iteration), at most 8 a lane of the move; a walk that makes more
-        runs again with buffers of its count.
+      trace_fn: the walk, called as this module's ``trace`` is (the
+        default).
       trace_kwargs: the first walk's keywords, ``max_crossings`` (the
         doubling base) and ``initial`` included.
 
@@ -571,7 +567,6 @@ def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
     """
     kwargs = dict(trace_kwargs)
     max_crossings = kwargs.pop("max_crossings")
-    n = result.done.shape[0]
     n_retried = 0
     for _ in range(retries):
         todo = ~result.done
@@ -580,13 +575,10 @@ def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
             break
         n_retried += n_todo
         max_crossings *= 2
-        extra = {}
-        if trace_fn is not None:
-            extra["capacity"] = min(n_todo * max_crossings, 8 * n)
         r2 = (trace_fn or trace)(
             mesh, result.position, dest, result.elem, todo, weight, group,
             result.material_id, result.flux, max_crossings=max_crossings,
-            **kwargs, **extra,
+            **kwargs,
         )
         result = merge_rewalk(result, r2)
     n_lost = int((~result.done).sum())

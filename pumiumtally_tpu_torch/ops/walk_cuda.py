@@ -203,7 +203,21 @@ def rewalk_truncated(mesh, result, dest, weight, group, *, retries: int,
     device-resident mid-walk state of ``result``, its record buffers
     sized for the attempt; on the CPU the plain walk."""
     return rewalk_truncated_with(mesh, result, dest, weight, group,
-                                 retries=retries, trace_fn=trace, **kwargs)
+                                 retries=retries, trace_fn=_rewalk_attempt,
+                                 **kwargs)
+
+
+def _rewalk_attempt(mesh, origin, dest, elem, in_flight, *rest,
+                    max_crossings: int, **kwargs):
+    """One re-walk attempt: ``trace`` with record buffers for the lanes in
+    flight times the doubled bound (a lane scores at most once an
+    iteration), at most 8 a lane of the move; a walk that makes more runs
+    again with buffers of its count. Reads the count of lanes in flight
+    to the host."""
+    n = in_flight.shape[0]
+    capacity = min(int(in_flight.sum()) * max_crossings, 8 * n)
+    return trace(mesh, origin, dest, elem, in_flight, *rest,
+                 max_crossings=max_crossings, capacity=capacity, **kwargs)
 
 
 def walk_records(mesh, origin, dest, elem, in_flight, weight, group,

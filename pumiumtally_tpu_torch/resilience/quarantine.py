@@ -143,19 +143,22 @@ def lanes(tally) -> np.ndarray:
 
 def apply(tally, dest3, weights, move):
     """The facade's entry point: scan one call's inputs against
-    ``tally._qbounds``; on a hit, sanitize a staging copy of ``dest3``
-    (the caller's buffer keeps its values until the facade's own
-    copy-back) and fold per-lane counts into ``tally._quarantined`` and
-    the telemetry counters.
+    ``tally._qbounds``; on a hit, sanitize staging copies of ``dest3``
+    and ``weights`` (the caller's buffers keep their values until the
+    facade's own copy-back) and fold per-lane counts into
+    ``tally._quarantined`` and the telemetry counters. A clean call
+    copies nothing.
 
-    ``weights`` must already be a facade copy (sanitized in place) or
-    None. Returns ``(dest3_for_staging, mask_or_None)``.
+    ``weights`` is None on the initial location search. Returns
+    ``(dest3_for_staging, weights_for_staging, mask_or_None)``.
     """
     rep = scan(dest3, weights, tally._qbounds)
     if rep is None:
-        return dest3, None
+        return dest3, weights, None
     dest3 = dest3.copy()
+    if weights is not None:
+        weights = weights.copy()
     sanitize(rep, dest3, weights)
     tally._quarantined += rep.mask
     tally._telemetry.record_quarantine(move, rep.count, rep.reasons)
-    return dest3, rep.mask
+    return dest3, weights, rep.mask

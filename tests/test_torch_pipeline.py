@@ -20,6 +20,7 @@ import pumiumtally_tpu as jpt
 from pumiumtally_tpu.models.pipeline import (
     StreamingTallyPipeline as JaxPipeline,
 )
+from pumiumtally_tpu.utils.config import TallyConfig as JaxConfig
 from pumiumtally_tpu_torch import TallyConfig
 from pumiumtally_tpu_torch.convert import MESH_FIELDS, mesh_from_jax_arrays
 from pumiumtally_tpu_torch.models.pipeline import (
@@ -166,3 +167,15 @@ def test_pipeline_unported_surfaces(meshes):
         pipe.submit_source(np.zeros((2, 3)), np.zeros(2, np.int32), 3)
     assert pipe.shape_keys() == {}
     assert BatchResult._fields[-1] == "shape_key"
+
+
+def test_pipeline_refuses_batch_sd_like_jax(meshes):
+    """The pipeline walks with per-segment squares and never folds batch
+    squares, so both packages refuse sd_mode='batch' rather than fill the
+    odd entries with something else."""
+    jmesh, mesh = meshes
+    with pytest.raises(NotImplementedError, match="sd_mode='segment' only"):
+        JaxPipeline(jmesh, JaxConfig(dtype=jnp.float64, sd_mode="batch"))
+    with pytest.raises(NotImplementedError, match="sd_mode='segment' only"):
+        StreamingTallyPipeline(mesh, TallyConfig(dtype=DTYPE,
+                                                 sd_mode="batch"))

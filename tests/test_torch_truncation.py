@@ -138,10 +138,11 @@ def test_escalation_in_float32_matches_the_ample_run():
     np.testing.assert_array_equal(pt.element_ids, ref.element_ids)
 
 
-def test_rewalk_walks_only_the_truncated_lanes():
+def test_rewalk_walks_only_the_truncated_lanes(monkeypatch):
     """Each attempt puts exactly the lanes the last one left unfinished in
     flight, from its mid-walk positions and elements, with the crossing
-    bound doubled; the card wrapper on CPU tensors is the same walk."""
+    bound doubled; the card wrapper on CPU tensors is the same walk, and
+    sizes each attempt's record buffers from its lanes in flight."""
     pmesh = twin_meshes(nx=5)[1]
     rng = np.random.default_rng(3)
     n = 64
@@ -168,8 +169,8 @@ def test_rewalk_walks_only_the_truncated_lanes():
     calls = []
 
     def spy(mesh, origin, dest, elem, in_flight, *rest, max_crossings,
-            capacity, **kw2):
-        calls.append((in_flight.clone(), max_crossings, capacity))
+            **kw2):
+        calls.append((in_flight.clone(), max_crossings))
         return walk.trace(mesh, origin, dest, elem, in_flight, *rest,
                           max_crossings=max_crossings, **kw2)
 
@@ -184,10 +185,18 @@ def test_rewalk_walks_only_the_truncated_lanes():
     assert lost == 0 and retried == sum(int(c[0].sum()) for c in calls)
     assert calls[0][0].equal(~first.done)
     assert [c[1] for c in calls] == [4 * 2 ** k for k in range(len(calls))]
-    assert all(c[2] == min(int(c[0].sum()) * c[1], 8 * n) for c in calls)
+    capacities = []
+    card_trace = walk_cuda.trace
+
+    def sized(*a, capacity, **kw2):
+        capacities.append(capacity)
+        return card_trace(*a, capacity=capacity, **kw2)
+
+    monkeypatch.setattr(walk_cuda, "trace", sized)
     card, retried2, lost2 = walk_cuda.rewalk_truncated(
         pmesh, fresh(), dest, args[5], args[6], retries=6, **kw)
     assert (retried2, lost2) == (retried, lost)
+    assert capacities == [min(int(c[0].sum()) * c[1], 8 * n) for c in calls]
     assert torch.equal(card.flux, merged.flux)
     assert torch.equal(card.position, merged.position)
     assert merged.stats[3] == 0  # truncated: the final count
