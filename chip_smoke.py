@@ -106,13 +106,29 @@ Phases, each of which raises (exit code != 0) on any failed check:
    of ``fold_and_reduce`` and ``accumulate_batch_squares``; move 1
    replayed kernel against plain walk with squares off and at (c)'s bound
    with its re-walks (bitwise), the first re-walk's walk and scatter
-   timed; the peak device memory.
+   timed; the peak device memory;
+13. feature tails (``[tails]`` lines): the main path's inputs with (a)
+   ``record_xpoints=8`` (move 1's points and counts from the facade and
+   the kernel against the plain walk on the card, counts equal, points
+   within 1e-5; the flux bitwise the run without them; the buffers'
+   bytes), (b) the element sort every move (positions, materials,
+   element ids and flux bitwise across the three ``io_pipeline`` modes
+   and two runs; against the unsorted run bitwise but for the flux, rtol
+   1e-5; the sort's device ms and the lane schedule's kernels with sorted
+   slots against unsorted ones) and (c) ``checkify_invariants`` (a clean
+   run bitwise the unchecked one; the kernel must raise the walk's
+   message for a corrupted parent element and for a NaN destination,
+   the next walk in the process give its flux bits, and a checked
+   facade run after both raises the unchecked run's flux). Each feature's
+   move cost on against off in turns, its walk call's CUDA-event time,
+   and its launches (the ``kernels`` line's ``feature_launches``).
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -748,7 +764,7 @@ def zero_counts() -> None:
     from pumiumtally_tpu_torch.ops import gather, scatter, walk_cuda
 
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
-    walk_cuda.SCHEDULE_LAUNCHES = 0
+    walk_cuda.FEATURE_LAUNCHES = walk_cuda.SCHEDULE_LAUNCHES = 0
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
     gather.LAUNCHES = 0
@@ -760,6 +776,7 @@ def read_counts() -> dict:
     return {
         "walk": walk_cuda.LAUNCHES,
         "walk_relaunches": walk_cuda.RELAUNCHES,
+        "walk_features": walk_cuda.FEATURE_LAUNCHES,
         "scatter_ordered": scatter.ORDERED_LAUNCHES,
         "scatter_bucket": scatter.BUCKET_LAUNCHES,
         "scatter_crowded": scatter.CROWDED_LAUNCHES,
@@ -1416,7 +1433,8 @@ def phase_point_source(tally) -> None:
 
 
 def stats_run(mesh, cfg_kw: dict, *, nan_move: int = 0, park: bool = False,
-              evens: bool = False, clocked: bool = False) -> dict:
+              evens: bool = False, clocked: bool = False,
+              snap: dict | None = None) -> dict:
     """The main-path cell's initial search and moves 1-4 (numpy seed 1,
     the main path's inputs, ``io_pipeline="packed"``) with the
     ``TallyConfig`` fields ``cfg_kw``. On move ``nan_move`` the first
@@ -1424,7 +1442,9 @@ def stats_run(mesh, cfg_kw: dict, *, nan_move: int = 0, park: bool = False,
     given ``flying=0`` instead. Returns the tally, each move's host
     seconds and write-backs, the per-move transfers, (``evens``) the
     flux's even entries after each move in float64 and (``clocked``)
-    each move's host steps (``StepClock``)."""
+    each move's host steps (``StepClock``). ``snap`` receives move 1's
+    inputs (``_snapshot``) and, with ``record_xpoints``, its crossing
+    points (``intersection_points``)."""
     from pumiumtally_tpu_torch import PumiTally, TallyConfig
     from pumiumtally_tpu_torch.utils.timing import StepClock
 
@@ -1450,11 +1470,16 @@ def stats_run(mesh, cfg_kw: dict, *, nan_move: int = 0, park: bool = False,
                     dest[:3 * RUNSTATS_BAD] = np.nan
             mats = np.zeros(n, np.int32)
             io0 = dict(tally.io)
+            if move == 1 and snap is not None:
+                snap.update(_snapshot(tally, want, groups))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             tally.move_to_next_location(dest, flying, np.ones(n), groups,
                                         mats)
             out["secs"].append(time.perf_counter() - t0)
+            if move == 1 and snap is not None and \
+                    tally.config.record_xpoints is not None:
+                snap["xpoints"] = tally.intersection_points()
             if clocked:
                 out["moves"].append(dict(steps=tally.step_clock.rows()))
             out["io"].append({k: tally.io[k] - io0[k] for k in io0})
@@ -1731,6 +1756,235 @@ def phase_run_statistics(mesh) -> dict:
                 rewalk_walk_ms=walk_ms, rewalk_scatter_ms=scat_ms,
                 rewalked=tot["rewalked"], peak_bytes=peak)
 
+# The feature-tails phase: the points kept a lane, the sort's cadence and
+# the modes its runs take (legacy, packed, overlap, packed again for the
+# run-to-run check), and the flux limit against the unsorted run: the sort
+# changes only the add order of each bin's positive terms, so a bin of k
+# terms differs by at most about k float32 roundings.
+TAILS_K = 8
+TAILS_SORT = dict(sort_by_element=True, migration_period=1)
+TAILS_SORT_RTOL = 1e-5
+
+
+def _turns(mesh, label: str, off: dict, on: dict, **kw) -> tuple:
+    """Runs of the main cell with ``off`` and ``on`` in turns (off, on,
+    on, off); logs the moves 2-4 host medians; returns the first off and
+    on runs, after holding each repeat to its first run's write-backs and
+    flux."""
+    runs: dict = {}
+    for tag, cfg in (("off", off), ("on", on), ("on", on), ("off", off)):
+        run = stats_run(mesh, cfg, **(kw if tag == "on" else {}))
+        runs.setdefault(f"{tag} secs", []).append(run["secs"])
+        if tag in runs:
+            _same_outputs(run, runs[tag], f"{label} {tag}")
+            if not torch.equal(run["tally"].flux, runs[tag]["tally"].flux):
+                raise AssertionError(f"{label} {tag}: flux differs by run")
+        else:
+            runs[tag] = run
+    for tag in ("off", "on"):
+        med = [float(np.median(x[1:])) * 1e3 for x in runs[f"{tag} secs"]]
+        log(f"[tails] {label} {tag}: moves 2-4 host median "
+            f"{', '.join(f'{m:.4f}' for m in med)} ms in turns "
+            f"(off, on, on, off)")
+    return runs["off"], runs["on"]
+
+
+def phase_feature_tails(mesh) -> dict:
+    """The walk's feature tails at the main cell (998,250 tets, 1,048,576
+    lanes, 8 groups, float32, numpy seed 1; init and 4 moves a run):
+    (a) ``record_xpoints=8``: move 1's points and counts from the facade
+    and from the kernel replayed on its inputs against the plain walk on
+    the card (counts equal, points within 1e-5), the flux bitwise the run
+    with the points off, the buffers' bytes; (b) the element sort every
+    move: positions, materials, element ids and flux bitwise equal across
+    the three io_pipeline modes and across two packed runs, bitwise
+    equal to the unsorted run but for the flux (rtol TAILS_SORT_RTOL);
+    the sort's device ms and the lane schedule's kernels with sorted
+    slots and unsorted ones; (c) ``checkify_invariants``: a clean run
+    bitwise the unchecked legacy run, then the kernel called directly
+    with a corrupted parent element and with a NaN destination must raise
+    the walk's messages, each raise followed by a clean walk that gives
+    its flux bits, and after both a checked facade run must give the
+    unchecked run's flux bits. Each feature's move cost on against off,
+    in turns;
+    launches counted over each feature's facade runs."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+    from pumiumtally_tpu_torch.ops.walk import CHECKS, WalkInvariantError
+
+    out = {"launches": {}}
+    n, K = MAIN_PARTICLES, TAILS_K
+
+    # (a) Recorded intersection points.
+    zero_counts()
+    snap: dict = {}
+    off, on = _turns(mesh, "(a) record_xpoints=8", {},
+                     dict(record_xpoints=K), snap=snap)
+    torch.cuda.synchronize()
+    out["launches"]["xpoints"] = read_counts()
+    _same_outputs(on, off, "(a)")
+    if not torch.equal(on["tally"].flux, off["tally"].flux):
+        raise AssertionError("(a) recording the points changed the flux")
+    xp_h, kx_h = snap["xpoints"]
+    args, kw = replay_args(on["tally"], snap, initial=False)
+    kern = walk_cuda.trace(*args, snap["flux"].clone(), **kw,
+                           record_xpoints=K)
+    plain = walk.trace(*args, snap["flux"].clone(), **kw, record_xpoints=K)
+    err = compare(kern, plain, args[1].dtype, 1e-5, 0,
+                  "(a) move 1 with record_xpoints=8")
+    counts_equal = bool(torch.equal(kern.n_xpoints, plain.n_xpoints))
+    pts_err = float((kern.xpoints - plain.xpoints).abs().max())
+    facade_err = float(np.abs(xp_h - plain.xpoints.double().cpu().numpy())
+                       .max())
+    facade_counts = bool(np.array_equal(kx_h, plain.n_xpoints.cpu().numpy()))
+    nbytes = kern.xpoints.numel() * kern.xpoints.element_size()
+    cbytes = kern.n_xpoints.numel() * kern.n_xpoints.element_size()
+    counts = plain.n_xpoints
+    log(f"[tails] (a) move 1 points: kernel vs plain counts equal "
+        f"{counts_equal}, max|dpoint| {pts_err:.3e}; facade vs plain counts "
+        f"equal {facade_counts}, max|dpoint| {facade_err:.3e} (limit 1e-5); "
+        f"crossings a lane: mean {float(counts.double().mean()):.3f}, max "
+        f"{int(counts.max())}, lanes past K {int((counts > K).sum())}; "
+        f"buffers {nbytes} B of points + {cbytes} B of counts on the card")
+    if not (counts_equal and facade_counts and pts_err <= 1e-5
+            and facade_err <= 1e-5):
+        raise AssertionError("(a) recorded points differ from the plain walk")
+    flux0 = snap["flux"]
+    rec_ms = event_ms(lambda f: walk_cuda.trace(*args, f, **kw,
+                                                record_xpoints=K), 5,
+                      lambda: (flux0.clone(),))
+    base_ms = event_ms(lambda f: walk_cuda.trace(*args, f, **kw), 5,
+                       lambda: (flux0.clone(),))
+    log(f"[tails] (a) move 1 walk call: with record_xpoints=8 "
+        f"{rec_ms:.4f} ms, without {base_ms:.4f} ms (CUDA events, median "
+        "of 5)")
+    out.update(xpoints_ms=rec_ms, walk_ms=base_ms,
+               xpoints_err=max(pts_err, err["max_abs_err"]),
+               xpoint_bytes=nbytes, count_bytes=cbytes)
+    del kern, plain, on, off
+
+    # (b) The element sort.
+    zero_counts()
+    runs = {}
+    for label, cfg in (("off", dict(io_pipeline="packed")),
+                       ("packed", dict(TAILS_SORT, io_pipeline="packed")),
+                       ("overlap", dict(TAILS_SORT, io_pipeline="overlap")),
+                       ("legacy", dict(TAILS_SORT, io_pipeline="legacy")),
+                       ("packed again", dict(TAILS_SORT,
+                                             io_pipeline="packed")),
+                       ("off again", dict(io_pipeline="packed"))):
+        runs[label] = stats_run(mesh, cfg)
+        _log_moves(f"(b) sort {label}", runs[label])
+    torch.cuda.synchronize()
+    out["launches"]["sort"] = read_counts()
+    for label in ("off", "packed"):
+        med = [float(np.median(runs[x]["secs"][1:])) * 1e3
+               for x in (label, f"{label} again")]
+        log(f"[tails] (b) sort {'on' if label == 'packed' else 'off'} "
+            f"(packed): moves 2-4 host median {med[0]:.4f}, {med[1]:.4f} ms "
+            f"(runs 1 and 5, 2 and 6 of off, on, overlap, legacy, on, off)")
+    ref = runs["packed"]["tally"]
+    for label in ("overlap", "legacy", "packed again", "off"):
+        t = runs[label]["tally"]
+        _same_outputs(runs[label], runs["packed"], f"(b) {label}")
+        if not np.array_equal(t.element_ids, ref.element_ids):
+            raise AssertionError(f"(b) {label}: element ids differ")
+        if label != "off" and not torch.equal(t.flux, ref.flux):
+            raise AssertionError(f"(b) {label}: flux differs")
+    fo, fs = runs["off"]["tally"].flux.double(), ref.flux.double()
+    rel = float(((fo - fs).abs() / fo.abs().clamp_min(1e-300)).max())
+    log(f"[tails] (b) sorted runs bitwise equal across legacy, packed, "
+        f"overlap and two packed runs; against the unsorted run write-backs "
+        f"and element ids bitwise, flux max rel {rel:.3e} (limit "
+        f"{TAILS_SORT_RTOL:g}), bitwise {bool(torch.equal(fo, fs))}")
+    if not rel <= TAILS_SORT_RTOL:
+        raise AssertionError("(b) sorted flux beyond its limit")
+    s = ref.state
+    fields = [f.name for f in dataclasses.fields(s)]
+
+    def sort_state():
+        order = torch.argsort(s.elem, stable=True)
+        return [getattr(s, f)[order] for f in fields]
+
+    sort_ms = event_ms(sort_state)
+    log(f"[tails] (b) the sort (stable argsort of {n} elements and the "
+        f"gather of {len(fields)} state fields): {sort_ms:.4f} ms (CUDA "
+        "events, median of 5)")
+    sched = {}
+    for label, tally in (("sorted", ref), ("unsorted",
+                                           runs["off"]["tally"])):
+        st = tally.state
+        rows = device_kernels(lambda: walk_cuda.lane_records(
+            mesh, st.origin, st.dest, st.elem, st.in_flight, st.weight,
+            st.group, initial=False))
+        sched[label] = {name: ms for name, ms, _ in rows}
+        log(f"[tails] (b) lane schedule over {label} slots (device ms a "
+            f"call, torch.profiler over 3 calls): "
+            f"{', '.join(f'{k} {v:.4f}' for k, v in sched[label].items())}")
+    place = {k: next(v for name, v in d.items() if "lane_place" in name)
+             for k, d in sched.items()}
+    out.update(sort_ms=sort_ms, place_sorted_ms=place["sorted"],
+               place_unsorted_ms=place["unsorted"], sort_flux_rel=rel)
+    del runs, ref, s
+
+    # (c) The invariant checks.
+    zero_counts()
+    off, on = _turns(mesh, "(c) checkify_invariants",
+                     dict(io_pipeline="legacy"),
+                     dict(checkify_invariants=True))
+    torch.cuda.synchronize()
+    out["launches"]["checks"] = read_counts()
+    _same_outputs(on, off, "(c)")
+    if not torch.equal(on["tally"].flux, off["tally"].flux):
+        raise AssertionError("(c) the checked run's flux differs")
+    ref = walk_cuda.trace(*args, flux0.clone(), **kw)
+    chk_ms = event_ms(lambda f: walk_cuda.trace(*args, f, **kw,
+                                                debug_checks=True), 5,
+                      lambda: (flux0.clone(),))
+    cents = mesh.centroids()
+    far = int(torch.argmax(((cents - args[1][0]) ** 2).sum(dim=1)))
+    bad_elem, bad_dest = args[3].clone(), args[2].clone()
+    bad_elem[0] = far
+    bad_dest[5] = float("nan")
+    for label, i, bad, want in (("corrupted parent element", 3, bad_elem,
+                                 CHECKS[0]),
+                                ("NaN destination", 2, bad_dest, CHECKS[1])):
+        flux = flux0.clone()
+        try:
+            walk_cuda.trace(*args[:i], bad, *args[i + 1:], flux, **kw,
+                            debug_checks=True)
+        except WalkInvariantError as e:
+            got = str(e)
+        else:
+            raise AssertionError(f"(c) {label}: nothing raised")
+        after = walk_cuda.trace(*args, flux0.clone(), **kw)
+        torch.cuda.synchronize()
+        log(f"[tails] (c) {label}: raised {got!r}; flux left as it was "
+            f"{bool(torch.equal(flux, flux0))}; the next walk's flux "
+            f"bitwise {bool(torch.equal(after.flux, ref.flux))}")
+        if got != want or not torch.equal(flux, flux0) \
+                or not torch.equal(after.flux, ref.flux):
+            raise AssertionError(f"(c) {label}: check or context failed")
+    again = stats_run(mesh, dict(checkify_invariants=True))
+    same = torch.equal(again["tally"].flux, off["tally"].flux)
+    log(f"[tails] (c) after the raises, a checked facade run (init and 4 "
+        f"moves) gives the unchecked run's flux bits: {same}")
+    if not same:
+        raise AssertionError("(c) the run after the raises differs")
+    _same_outputs(again, off, "(c) after the raises")
+    del again
+    log(f"[tails] (c) move 1 walk call with the checks {chk_ms:.4f} ms, "
+        f"without {base_ms:.4f} ms (CUDA events, median of 5)")
+    out.update(checks_ms=chk_ms)
+    for feat, counts in out["launches"].items():
+        log(f"[tails] launches over the {feat} runs: {counts}")
+    if not (out["launches"]["xpoints"]["walk_features"]
+            and out["launches"]["checks"]["walk_features"]
+            and out["launches"]["sort"]["walk"]):
+        raise AssertionError("the feature runs did not launch their walk")
+    log(f"[tails] peak device memory {torch.cuda.max_memory_allocated()} "
+        f"bytes; card {card_line()}")
+    return out
+
 
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
@@ -1829,6 +2083,10 @@ def main() -> int:
     stats = phase_run_statistics(tally.mesh)
     log(f"[phase] run statistics: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    tails = phase_feature_tails(tally.mesh)
+    log(f"[phase] feature tails: {time.perf_counter() - t0:.2f} s")
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -1852,7 +2110,15 @@ def main() -> int:
          "runstats_launches": stats["launches"]["walk"],
          "runstats_relaunches": stats["launches"]["walk_relaunches"],
          "rewalk_walk_ms": stats["rewalk_walk_ms"],
-         "rewalk_scatter_ms": stats["rewalk_scatter_ms"]},
+         "rewalk_scatter_ms": stats["rewalk_scatter_ms"],
+         "feature_launches": {
+             f: {"walk": c["walk"], "feature_walk": c["walk_features"]}
+             for f, c in tails["launches"].items()},
+         "xpoints_ms": tails["xpoints_ms"],
+         "xpoints_max_abs_err": tails["xpoints_err"],
+         "checks_ms": tails["checks_ms"], "sort_ms": tails["sort_ms"],
+         "lane_place_sorted_ms": tails["place_sorted_ms"],
+         "lane_place_unsorted_ms": tails["place_unsorted_ms"]},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},

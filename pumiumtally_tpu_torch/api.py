@@ -64,9 +64,31 @@ Run statistics and recovery, as in the JAX facade (``TallyConfig``):
     (``ops/walk.py::rewalk_truncated``) before they count as lost;
   * ``quarantine=True``: lanes with non-finite or absurd inputs are
     parked before the pack (``resilience/quarantine.py``).
+
+The walk's feature tails, as in the JAX facade:
+
+  * ``record_xpoints=K``: ``intersection_points()`` returns the last
+    walk's crossing points and counts (the tracer's
+    ``getIntersectionPoints()``), in host particle order;
+  * ``sort_by_element`` with ``migration_period``: every
+    ``migration_period`` moves the particle state is sorted by parent
+    element on the card (``torch.argsort(..., stable=True)``, so equal
+    elements keep their order and the flux its bits from run to run).
+    The device then holds particles in slot order: slot i holds particle
+    ``_perm[i]`` (``ParticleState.particle_id``). The packed records are
+    permuted on the card (``ops/staging.py``); legacy inputs and
+    write-backs, the stored points and ``element_ids`` on the host;
+  * ``checkify_invariants``: host inputs must be finite
+    (``_check_finite``) and every walk of a call, re-walks included,
+    evaluates the walk's invariant checks (``ops/walk.py CHECKS``); a
+    violation raises ``WalkInvariantError`` with the JAX message.
+
+``record_xpoints`` and ``checkify_invariants`` force
+``io_pipeline="legacy"`` (``TallyConfig.resolve_io_pipeline``).
 """
 from __future__ import annotations
 
+import dataclasses
 import warnings
 
 import numpy as np
@@ -144,6 +166,16 @@ def _out_param(arr, name: str, expected_dtypes, min_size: int) -> np.ndarray:
 def _convert(host: np.ndarray, dtype: torch.dtype) -> np.ndarray:
     """A contiguous host copy of ``host`` in the walk's dtype."""
     return np.ascontiguousarray(host, _NP_DTYPES[dtype])
+
+
+def _particle_order(slots: np.ndarray, perm) -> np.ndarray:
+    """Per-slot host values in particle order: slot i holds particle
+    ``perm[i]`` (None: the identity)."""
+    if perm is None:
+        return slots
+    out = np.empty_like(slots)
+    out[perm] = slots
+    return out
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -254,6 +286,17 @@ class PumiTally:
             self._face_rate = walk_cuda.face_rate(mesh)
             self._origin_h: np.ndarray | None = None
             self._initialized = False
+            # The element sort's slot permutation: slot i holds particle
+            # _perm[i] (host) / _perm_dev[i] (the card, int64); None
+            # while the layout is the identity. Both are taken from
+            # state.particle_id when a sort fires, never per move.
+            self._perm: np.ndarray | None = None
+            self._perm_dev: torch.Tensor | None = None
+            self._traces_since_sort = 0
+            # record_xpoints: the last walk's (points, counts) and the
+            # permutation of its slots, on the card until
+            # intersection_points() asks for them.
+            self._last_xpoints: tuple | None = None
             # Host↔device transfers the facade made (the telemetry
             # totals count the same).
             self.io = dict(h2d_transfers=0, h2d_bytes=0, d2h_transfers=0,
@@ -280,6 +323,8 @@ class PumiTally:
             robust=cfg.robust,
             ledger=cfg.ledger,
             stats=cfg.walk_stats,
+            record_xpoints=cfg.record_xpoints,
+            debug_checks=cfg.checkify_invariants,
         )
 
     def _record_capacity(self, dest, in_flight) -> int:
@@ -310,9 +355,20 @@ class PumiTally:
         return {k: v - before[k] for k, v in self.io.items()}
 
     def _put(self, host: np.ndarray) -> torch.Tensor:
-        """Host→device copy of one input array (legacy)."""
+        """Host→device copy of one per-particle input array (legacy), in
+        device slot order (``_gather_in``)."""
+        host = np.ascontiguousarray(self._gather_in(host))
         self._count("h2d", host.nbytes)
         return torch.from_numpy(host).to(self.device)
+
+    def _gather_in(self, host: np.ndarray) -> np.ndarray:
+        """Per-particle host input in device slot order."""
+        return host if self._perm is None else host[self._perm]
+
+    def _check_finite(self, name: str, arr: np.ndarray) -> None:
+        """``checkify_invariants``: refuse non-finite host inputs."""
+        if self.config.checkify_invariants and not np.isfinite(arr).all():
+            raise ValueError(f"{name} contains non-finite values")
 
     def _to_host(self, *tensors: torch.Tensor) -> list[np.ndarray]:
         """``_to_host``, counted as one device→host transfer (legacy)."""
@@ -394,7 +450,7 @@ class PumiTally:
                 parts = self._fetch(
                     staging.pack_trace_readback(
                         result.position, result.material_id, result.done,
-                        result.stats, result.n_segments),
+                        result.stats, result.n_segments, self._perm_dev),
                     tag="rewalk",
                 )[:4]
             else:
@@ -403,6 +459,32 @@ class PumiTally:
         if n_retried or n_lost:
             self._telemetry.record_rewalk(move, n_retried, n_lost)
         return result, parts, n_lost
+
+    def _store_xpoints(self, result) -> None:
+        """Keep the walk's crossing points and counts, with the
+        permutation of that walk (a later sort must not re-map them); they
+        stay on the card until ``intersection_points`` reads them."""
+        if result.xpoints is not None:
+            self._last_xpoints = (result.xpoints, result.n_xpoints,
+                                  self._perm)
+
+    def _resort_by_element(self) -> None:
+        """The periodic locality sort (the reference's migrate-every-100):
+        the particle state sorted by parent element on the card, stably,
+        so equal elements keep their slot order and the ordered tally's
+        keys, and with them the flux's bits, are the same from run to
+        run. The permutation is taken from ``state.particle_id`` (one
+        device→host copy). Skipped when no walk ran since the last sort:
+        the elements cannot have changed."""
+        if self._traces_since_sort == 0:
+            return
+        s = self.state
+        order = torch.argsort(s.elem, stable=True)
+        self.state = type(s)(**{f.name: getattr(s, f.name)[order]
+                                for f in dataclasses.fields(s)})
+        self._traces_since_sort = 0
+        (self._perm,) = self._to_host(self.state.particle_id)
+        self._perm_dev = self.state.particle_id.long()
 
     def _fold(self, fold) -> None:
         """Run a telemetry fold now, or after the next call's walk under
@@ -442,6 +524,7 @@ class PumiTally:
             pos3, _, qmask = quarantine.apply(self, pos3, None, 0)
             if qmask is not None:
                 fly_h &= ~qmask  # masked lanes stay at the seed
+        self._check_finite("init_particle_positions", pos3)
         self._origin_h = pos3.copy()
         s = self.state
         io0 = dict(self.io)
@@ -456,7 +539,7 @@ class PumiTally:
                 )
                 r, readback, dest, _, _, _ = walk_cuda.trace_packed(
                     self.mesh, s.origin, s.elem, s.material_id,
-                    self._put_record(rec), self.flux, None,
+                    self._put_record(rec), self.flux, self._perm_dev,
                     weight=s.weight, group=s.group, **kw,
                 )
                 _, _, done_h, tail, _ = self._fetch(readback)
@@ -481,6 +564,8 @@ class PumiTally:
                     if self._io != "legacy" else parts[0])
             self.flux = r.flux
             self.state = s.replace(origin=r.position, dest=dest, elem=r.elem)
+            self._traces_since_sort += 1
+            self._store_xpoints(r)
             self._initialized = True
             self._warn_if_truncated(n_lost)
             if cfg.measure_time:
@@ -538,6 +623,8 @@ class PumiTally:
                     self, dest3_h, weights_h, self.iter_count + 1)
                 if qmask is not None:
                     fly_h = fly_h & ~qmask  # quarantined lanes are parked
+        self._check_finite("particle_destinations", dest_in)
+        self._check_finite("weights", weights_h)
 
         io0 = dict(self.io)
         t_before = self.tally_times.total_time_to_tally
@@ -570,7 +657,7 @@ class PumiTally:
                     r, readback, dest, in_flight, weight, group = (
                         walk_cuda.trace_packed(
                             self.mesh, s.origin, s.elem, s.material_id,
-                            rec_dev, self.flux, None, **kw, **ckw,
+                            rec_dev, self.flux, self._perm_dev, **kw, **ckw,
                         )
                     )
                 if self._io == "overlap":
@@ -639,9 +726,14 @@ class PumiTally:
                     summary, final_pos, final_mats = parts
                     stats_d, segs, _ = self._read_summary(summary)
                 with step("write-back"):
-                    # Copy-back contract, as above (numpy casts).
-                    dest3_h[:] = final_pos
-                    mats_flat[:n] = final_mats
+                    # Copy-back contract, as above (numpy casts), from
+                    # slot order into particle order.
+                    if self._perm is None:
+                        dest3_h[:] = final_pos
+                        mats_flat[:n] = final_mats
+                    else:
+                        dest3_h[self._perm] = final_pos
+                        mats_flat[:n][self._perm] = final_mats
                     flying_flat[:n] = 0
             self.flux = r.flux
             if self._prev_even is not None:
@@ -657,11 +749,17 @@ class PumiTally:
                 material_id=r.material_id,
             )
             self.iter_count += 1
+            self._traces_since_sort += 1
             self._last_segments = segs
             self.total_segments += segs
+            self._store_xpoints(r)
             # The truncation warning stays in the call in every mode;
             # only the telemetry fold is deferred under "overlap".
             self._warn_if_truncated(n_lost)
+            if (cfg.sort_by_element
+                    and self.iter_count % cfg.migration_period == 0):
+                with step("sort"):
+                    self._resort_by_element()
             if cfg.measure_time:
                 timer.sync(self.device)
         self.tally_times.n_moves += 1
@@ -687,8 +785,34 @@ class PumiTally:
 
     @property
     def element_ids(self) -> np.ndarray:
-        """Current parent element per particle (a host copy)."""
-        return self.state.elem.to("cpu", copy=True).numpy()
+        """Current parent element per particle, in particle order (a host
+        copy)."""
+        return _particle_order(self.state.elem.to("cpu", copy=True).numpy(),
+                               self._perm)
+
+    def intersection_points(self) -> tuple[np.ndarray, np.ndarray]:
+        """The last walk's boundary-crossing points, the tracer's
+        ``getIntersectionPoints()``: ``(points [n, K, 3] float64, counts
+        [n] int32)`` in particle order. Needs ``record_xpoints=K``; a
+        count above K means the walk crossed more faces than the buffer
+        keeps (the first K are kept)."""
+        if self.config.record_xpoints is None:
+            raise ValueError(
+                "set TallyConfig.record_xpoints=K to record intersection "
+                "points (off by default: the hot path pays nothing)"
+            )
+        if self._last_xpoints is None:
+            raise RuntimeError(
+                "no trace has run yet: call initialize_particle_location "
+                "(and move_to_next_location) before intersection_points"
+            )
+        xp, counts, perm = self._last_xpoints
+        if isinstance(xp, torch.Tensor):  # first read: one device→host copy
+            xp, counts = self._to_host(xp, counts)
+            self._last_xpoints = (
+                _particle_order(xp.astype(np.float64), perm),
+                _particle_order(counts.astype(np.int32), perm), None)
+        return self._last_xpoints[:2]
 
     def normalized_flux(self) -> np.ndarray:
         """[ntet, n_groups, 3] (mean, second moment, sd) after

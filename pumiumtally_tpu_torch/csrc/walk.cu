@@ -56,6 +56,19 @@
 //    iteration count. The wrapper (ops/walk_cuda.py) reduces these to the
 //    stats vector; the max of the iteration counts equals the JAX loop's
 //    iteration count, since every active lane advances once per iteration.
+//  * The feature tails (template flag FEAT; the main path's instantiation
+//    has it off, so its code is the same as without them): the JAX walk's
+//    record_crossing and its checkify invariants (trace_impl). Recorded
+//    crossing points go to per-lane buffers indexed by the lane's own
+//    index, as every per-lane output: a lane keeps its count in a register
+//    from the count buffer (in/out, so a re-walk appends) and writes its
+//    k-th genuine crossing (not a chase hop) to row k while k < K. The
+//    checks are the JAX walk's four in-loop checks, each a bit of a thread's
+//    error word, ORed into the launch's error counter once a thread is
+//    done; the wrapper reads it with the record count and raises the
+//    lowest set bit's message (ops/walk.py CHECKS), so the message does
+//    not depend on timing. No device assert and no trap: either would
+//    leave the CUDA context unusable for every later call in the process.
 //
 // What bounds it: every iteration of a lane does one random 80/160 B row
 // read that depends on the last and, when it scores, one record (ordered)
@@ -142,10 +155,17 @@ struct Real<double> {
 
 constexpr int BLOCK = 128;
 constexpr int WARP = 32;
-// The three uint64 counters of a launch, zeroed by the caller.
+// The four uint64 counters of a launch, zeroed by the caller.
 constexpr int REC_COUNT = 0;   // records made (ordered mode)
 constexpr int NEXT_SLOT = 1;   // lane slots taken
 constexpr int WARP_TRIPS = 2;  // loop trips summed over warps
+constexpr int ERR_BITS = 3;    // the checks' error bits (FEAT)
+// The checks' bits, in the precedence of ops/walk.py CHECKS (bit 4, the
+// track-length check after the walk, is the wrapper's).
+constexpr unsigned CHECK_CONTAINED = 1u;   // position in its element
+constexpr unsigned CHECK_FINITE = 2u;      // finite crossing point
+constexpr unsigned CHECK_ELEM_RANGE = 4u;  // hop target in range
+constexpr unsigned CHECK_CONTRIB = 8u;     // contribution >= 0, finite
 constexpr unsigned FULL = 0xffffffffu;
 
 // (c, c*c) into a flux pair, or c alone without squares. In float32 the
@@ -177,6 +197,18 @@ struct __align__(16) Lane {
 };
 static_assert(sizeof(Lane<float>) == 48, "float32 lane");
 static_assert(sizeof(Lane<double>) == 80, "float64 lane");
+
+// The feature tails' arguments (read only by the FEAT instantiations).
+template <typename T>
+struct Features {
+  T* xp;       // [n, k, 3] crossing points (record)
+  int* kx;     // [n] crossing counts, in/out (record)
+  int k;       // points kept a lane
+  int record;  // record the crossing points
+  int checks;  // evaluate the invariant checks
+  int ntet;    // elements, the hop target's range
+  T tol10;     // 10 * tolerance, rounded once to T (the containment bound)
+};
 
 // A lane's record in device memory, written by lane_place in slot order,
 // so a warp's batch of 32 slots is one contiguous block it copies to
@@ -435,7 +467,7 @@ __device__ __forceinline__ void copy_lane(Lane<T>* dst, const Lane<T>* src) {
                             reinterpret_cast<const char*>(src) + 16 * k, 16);
 }
 
-template <typename T, bool ROBUST, bool INITIAL, bool ORDERED>
+template <typename T, bool ROBUST, bool INITIAL, bool ORDERED, bool FEAT>
 __global__ void __launch_bounds__(BLOCK)
 walk_kernel(const T* __restrict__ geo,
             const LaneRecord<T>* __restrict__ lanes,
@@ -447,7 +479,7 @@ walk_kernel(const T* __restrict__ geo,
             int* __restrict__ nseg_out, int* __restrict__ iters_out,
             int* __restrict__ rec_bin, long long* __restrict__ rec_order,
             T* __restrict__ rec_c, unsigned long long* __restrict__ counters,
-            long long capacity) {
+            long long capacity, Features<T> feat) {
   typedef Real<T> R;
   const T inf = (T)__int_as_float(0x7f800000);  // +inf
   const T tol_floor = (T)8 * R::eps;
@@ -461,6 +493,8 @@ walk_kernel(const T* __restrict__ geo,
   int ncross = 0, nchase = 0, nseg = 0, it = 0;
   bool done = true, good_group = false;
   unsigned long long trips = 0;  // the warp's loop trips
+  int kx = 0;                    // the lane's recorded crossings (FEAT)
+  unsigned err = 0;              // the thread's check bits (FEAT)
 
   // Slots come to a warp in batches of 32 through a double buffer in
   // shared memory: buf[cur] is handed out (qn slots, the next at qpos)
@@ -530,6 +564,7 @@ walk_kernel(const T* __restrict__ geo,
         ncross = nchase = nseg = 0;
         pseg = w * (T)0;
         it = 0;
+        if (FEAT && feat.record) kx = feat.kx[i];
       }
       const unsigned took = __ballot_sync(FULL, take);
       qpos += __popc(took);
@@ -621,6 +656,20 @@ walk_kernel(const T* __restrict__ geo,
         }
       }
 
+      if (FEAT && feat.checks) {
+        // The lane lies in its parent element within the tolerance and
+        // rounding: every signed distance -num[f] <= bound (false for NaN).
+        const T ax = fabs(cx), ay = fabs(cy), az = fabs(cz);
+        T amax = ax;
+        if (ay > amax) amax = ay;
+        if (az > amax) amax = az;
+        const T bound = feat.tol10 + (T)64 * tol_floor * (amax + (T)1);
+        bool inside = true;
+#pragma unroll
+        for (int f = 0; f < 4; ++f) inside = inside && (-num[f] <= bound);
+        if (!inside) err |= CHECK_CONTAINED;
+      }
+
       const T dn = R::sqrt_((ux * ux + uy * uy) + uz * uz);
       const T dn_safe = dn > (T)0 ? dn : (T)1;
       T tol_eff = R::div_(tolerance, dn_safe);
@@ -633,11 +682,34 @@ walk_kernel(const T* __restrict__ geo,
       const bool crossed = !reached && has_exit;
       ncross += crossed && !chase;
       nchase += chase;
+      if (FEAT && feat.record && crossed && !chase) {
+        if (kx < feat.k) {
+          T* p = feat.xp + ((size_t)i * feat.k + kx) * 3;
+          p[0] = xx;
+          p[1] = xy;
+          p[2] = xz;
+        }
+        ++kx;
+      }
       const int code_f = pick4(code, face);
-      const int next_elem = crossed ? pick4(nbrs, face) : -1;
+      int next_elem = crossed ? pick4(nbrs, face) : -1;
+      if (FEAT && feat.checks) {
+        if (!(isfinite(xx) && isfinite(xy) && isfinite(xz)))
+          err |= CHECK_FINITE;
+        // A hop out of the table ends the lane as a domain exit (its row
+        // cannot be read); the check reports it.
+        if (next_elem < -1 || next_elem >= feat.ntet) {
+          err |= CHECK_ELEM_RANGE;
+          next_elem = -1;
+        }
+      }
 
       if (!INITIAL && !chase) {
         const T seg = t_step * dn;
+        if (FEAT && feat.checks) {
+          const T c = seg * w;
+          if (!(c >= (T)0 && isfinite(c))) err |= CHECK_CONTRIB;
+        }
         if (good_group) {
           const T c = seg * w;
           if (ORDERED) {
@@ -718,25 +790,37 @@ walk_kernel(const T* __restrict__ geo,
       nchase_out[i] = nchase;
       nseg_out[i] = nseg;
       iters_out[i] = it;
+      if (FEAT && feat.record) feat.kx[i] = kx;
       i = -1;
     }
   }
   __pipeline_wait_prior(0);
   if (lane == 0) atomicAdd(counters + WARP_TRIPS, trips);
+  if (FEAT && err) atomicOr(counters + ERR_BITS, (unsigned long long)err);
 }
 
 // Calls f with the kernel instantiation for the flags. The initial
-// search scores nothing, so it has no ordered instantiation.
+// search scores nothing, so it has no ordered instantiation. The feature
+// tails are instantiated for what the facade and the re-walk launch, the
+// initial search and the ordered move; the atomic tally has none.
 template <typename T, typename F>
-int with_kernel(int robust, int initial, int ordered, F f) {
+int with_kernel(int robust, int initial, int ordered, int feat, F f) {
+  if (feat) {
+    if (initial)
+      return robust ? f(walk_kernel<T, true, true, false, true>)
+                    : f(walk_kernel<T, false, true, false, true>);
+    if (!ordered) return (int)cudaErrorInvalidValue;
+    return robust ? f(walk_kernel<T, true, false, true, true>)
+                  : f(walk_kernel<T, false, false, true, true>);
+  }
   if (initial)
-    return robust ? f(walk_kernel<T, true, true, false>)
-                  : f(walk_kernel<T, false, true, false>);
+    return robust ? f(walk_kernel<T, true, true, false, false>)
+                  : f(walk_kernel<T, false, true, false, false>);
   if (ordered)
-    return robust ? f(walk_kernel<T, true, false, true>)
-                  : f(walk_kernel<T, false, false, true>);
-  return robust ? f(walk_kernel<T, true, false, false>)
-                : f(walk_kernel<T, false, false, false>);
+    return robust ? f(walk_kernel<T, true, false, true, false>)
+                  : f(walk_kernel<T, false, false, true, false>);
+  return robust ? f(walk_kernel<T, true, false, false, false>)
+                : f(walk_kernel<T, false, false, false, false>);
 }
 
 // Blocks for n lanes: as many as stay resident on the card at once (the
@@ -763,10 +847,11 @@ int walk(int robust, int initial, int ordered, const void* geo,
          void* elem_out, void* mat_out, void* done_out, void* pseg_out,
          void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,
          void* rec_bin, void* rec_order, void* rec_c, void* counters,
-         long long capacity, void* stream) {
+         long long capacity, const Features<T>& feat, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if ((uintptr_t)lanes % 32) return (int)cudaErrorInvalidValue;
-  return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
+  const int on = feat.record || feat.checks;
+  return with_kernel<T>(robust, initial, ordered, on, [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, n, &grid);
     if (e != 0) return e;
@@ -777,7 +862,7 @@ int walk(int robust, int initial, int ordered, const void* geo,
         (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
         (int*)nchase_out, (int*)nseg_out, (int*)iters_out, (int*)rec_bin,
         (long long*)rec_order, (T*)rec_c, (unsigned long long*)counters,
-        capacity);
+        capacity, feat);
     return (int)cudaGetLastError();
   });
 }
@@ -815,7 +900,7 @@ int schedule(const void* origin, const void* dest, const void* elem,
 
 template <typename T>
 int resident(int robust, int initial, int ordered, int* threads) {
-  return with_kernel<T>(robust, initial, ordered, [&](auto kernel) {
+  return with_kernel<T>(robust, initial, ordered, 0, [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, 1LL << 40, &grid);
     *threads = grid * BLOCK;
@@ -837,12 +922,17 @@ int resident(int robust, int initial, int ordered, int* threads) {
 // scratch. After a failed call counts and ticket must be zeroed again.
 //
 // pumi_walk_<t> launches one walk over the records of pumi_lanes_<t>: slot
-// s walks lane lanes[s].index. counters is three uint64 zeroed by the
-// caller: records made, lane slots taken, warp loop trips. In ordered mode
-// (initial == 0) the records go to rec_bin [cap] int32, rec_order [cap]
-// int64 and rec_c [cap] of the walk's type, and the record count may end
-// above cap; flux is not touched. pumi_walk_resident_<t> gives the threads
-// a launch of that instantiation keeps resident on the current device.
+// s walks lane lanes[s].index. counters is four uint64 zeroed by the
+// caller: records made, lane slots taken, warp loop trips, check bits. In
+// ordered mode (initial == 0) the records go to rec_bin [cap] int32,
+// rec_order [cap] int64 and rec_c [cap] of the walk's type, and the record
+// count may end above cap; flux is not touched. record != 0 records each
+// lane's first k crossing points into xp [n, k, 3] from the counts kx [n]
+// int32 on (in/out); checks != 0 sets the check bits (ntet elements, tol10
+// = 10 * tolerance); either takes the feature instantiation, which the
+// atomic tally (initial == 0, ordered == 0) does not have.
+// pumi_walk_resident_<t> gives the threads a launch of that instantiation
+// keeps resident on the current device.
 #define PUMI_WALK_ENTRY(TAG, T)                                                \
   extern "C" int pumi_lanes_##TAG(                                             \
       const void* origin, const void* dest, const void* elem, const void* fly, \
@@ -866,12 +956,15 @@ int resident(int robust, int initial, int ordered, int* threads) {
       void* elem_out, void* mat_out, void* done_out, void* pseg_out,           \
       void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,     \
       void* rec_bin, void* rec_order, void* rec_c, void* counters,             \
-      long long capacity, void* stream) {                                      \
+      long long capacity, void* xp, void* kx, int k, int record, int checks,   \
+      int ntet, double tol10, void* stream) {                                  \
+    const Features<T> feat{(T*)xp, (int*)kx, k, record, checks, ntet,          \
+                           (T)tol10};                                          \
     return walk<T>(robust, initial, ordered, geo, lanes, n, n_groups,          \
                    max_crossings, tolerance, score_squares, flux, pos_out,     \
                    elem_out, mat_out, done_out, pseg_out, ncross_out,          \
                    nchase_out, nseg_out, iters_out, rec_bin, rec_order, rec_c, \
-                   counters, capacity, stream);                                \
+                   counters, capacity, feat, stream);                          \
   }                                                                            \
   extern "C" int pumi_walk_resident_##TAG(int robust, int initial,             \
                                           int ordered, int* threads) {         \

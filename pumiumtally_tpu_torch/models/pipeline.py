@@ -55,10 +55,11 @@ class BatchResult(NamedTuple):
 
     ``stats`` is the named per-move stats dict (obs/walk_stats.py) when
     the config keeps walk_stats on; ``all_done`` then comes from its
-    truncation counter, else from the done flags. ``xpoints`` and
-    ``n_xpoints`` (``record_xpoints``, A5) and ``physics`` (the device
-    source, A7) are always None in the port; so is ``shape_key`` until the
-    tuning shapes are ported (A10)."""
+    truncation counter, else from the done flags. ``xpoints`` [n, K, 3]
+    and ``n_xpoints`` [n] are the batch's crossing points and counts when
+    the config sets ``record_xpoints=K``, else None. ``physics`` (the
+    device source, A7) is always None in the port; so is ``shape_key``
+    until the tuning shapes are ported (A10)."""
 
     index: int
     position: np.ndarray
@@ -79,7 +80,8 @@ class StreamingTallyPipeline:
     Args:
       mesh: TetMesh; its device is the pipeline's.
       config: TallyConfig; n_groups, dtype, tolerance, max_crossings,
-        score_squares, robust, ledger and walk_stats apply; sd_mode must
+        score_squares, robust, ledger, walk_stats and record_xpoints apply
+        (as in the JAX pipeline, checkify_invariants does not); sd_mode must
         be "segment"; the facade's convergence, truncation_retries and
         quarantine do not apply (as in the JAX pipeline).
       depth: submissions kept in flight before the oldest result is read
@@ -159,9 +161,10 @@ class StreamingTallyPipeline:
                 n_groups=cfg.n_groups, score_squares=cfg.score_squares,
                 tolerance=cfg.tolerance, robust=cfg.robust,
                 ledger=cfg.ledger, stats=cfg.walk_stats, capacity=cap,
+                record_xpoints=cfg.record_xpoints,
             )
         self._records = r.n_records
-        entry = (self._n_submitted, n, None, None, None)
+        entry = (self._n_submitted, n, None, None, None, None, None)
         if self.want_outputs:
             with step("readback"):
                 entry = (self._n_submitted, n, *self._read_back(r))
@@ -217,24 +220,32 @@ class StreamingTallyPipeline:
         return out
 
     def _read_back(self, r):
-        """The batch's readback (``staging.pack_trace_readback``) and
-        elements, copied into pinned buffers on the current stream without
-        waiting, and the event that marks the copies' end (None on the
-        CPU, where they are the outputs themselves)."""
+        """The batch's readback (``staging.pack_trace_readback``), elements
+        and, with ``record_xpoints``, crossing points and counts, copied
+        into pinned buffers on the current stream without waiting, and the
+        event that marks the copies' end (None on the CPU, where they are
+        the outputs themselves)."""
         rb = pack_trace_readback(r.position, r.material_id, r.done, r.stats,
                                  r.n_segments)
+        outs = [rb, r.elem, r.xpoints, r.n_xpoints]
         if not self._cuda:
-            return rb, r.elem, None
-        host_rb = self._stager.buf(rb.shape, rb.dtype, "readback")
-        host_elem = self._stager.buf(r.elem.shape, r.elem.dtype, "elem_out")
-        host_rb.copy_(rb, non_blocking=True)
-        host_elem.copy_(r.elem, non_blocking=True)
+            return (*outs, None)
+        hosts = []
+        for name, t in zip(("readback", "elem_out", "xp_out", "kx_out"),
+                           outs):
+            if t is None:
+                hosts.append(None)
+                continue
+            buf = self._stager.buf(t.shape, t.dtype, name)
+            buf.copy_(t, non_blocking=True)
+            hosts.append(buf)
         done = torch.cuda.Event()
         done.record()
-        return host_rb, host_elem, done
+        return (*hosts, done)
 
     def _drain_one(self) -> None:
-        idx, n, host_rb, host_elem, done = self._inflight.popleft()
+        idx, n, host_rb, host_elem, host_xp, host_kx, done = (
+            self._inflight.popleft())
         if host_rb is None:
             return
         with self._step("drain"):
@@ -257,6 +268,8 @@ class StreamingTallyPipeline:
                 material_id=_owned(mats, torch.int32),
                 n_segments=segs,
                 all_done=all_done,
+                xpoints=None if host_xp is None else _owned(host_xp),
+                n_xpoints=None if host_kx is None else _owned(host_kx),
                 stats=stats,
             ))
 

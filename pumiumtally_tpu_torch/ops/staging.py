@@ -33,9 +33,14 @@ Host buffers come from :class:`HostStager`: pinned (page-locked) on the
 card, a ring of ``depth`` buffers per record kind; fresh on the CPU,
 where a "transfer" is the same memory.
 
-Not ported here: the slot permutation of the element sort (``perm``; A5),
-the integrity tail (A8), and the partitioned and megastep records (A9,
-A7). Asking for them raises NotImplementedError.
+After an element sort the device holds the particles in slot order:
+``unpack_move_record`` gathers the host-order record into slots and
+``pack_trace_readback`` scatters the slots back into host order, both
+with the slot permutation ``perm`` as torch index ops on the card (the
+JAX package does them outside any kernel too).
+
+Not ported here: the integrity tail (A8), and the partitioned and
+megastep records (A9, A7). Asking for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -212,19 +217,15 @@ def pack_init_record(stager: HostStager, dest3, fly, dtype) -> torch.Tensor:
     return rec
 
 
-def _no_perm(perm) -> None:
-    if perm is not None:
-        raise NotImplementedError(
-            "the slot permutation of the element sort is not ported yet "
-            "(ROADMAP.md A5, element sort); pass perm=None"
-        )
-
-
 def unpack_move_record(rec, dtype, perm, initial: bool):
     """Device-side inverse of ``pack_move_record`` / ``pack_init_record``:
     ``(dest [n,3], in_flight [n] bool, weight, group)``, each contiguous;
-    weight and group are None for the initial search."""
-    _no_perm(perm)
+    weight and group are None for the initial search. The record's rows
+    are in host particle order; with the slot permutation ``perm`` (int64
+    [n] on the record's device, after an element sort) slot i takes
+    particle ``perm[i]``'s row (one gather on the card)."""
+    if perm is not None:
+        rec = rec[perm]
     words = rec.view(torch_carrier(dtype))
     dest = words[:, 0:3].view(dtype).contiguous()
     if initial:
@@ -246,8 +247,9 @@ def pack_trace_readback(position, material_id, done, stats, n_segments,
     the segment count) appended as an int64-encoded tail and, when
     ``convergence`` (the [CONV_LEN] summary) is given, its walk-dtype
     floats appended last as carrier words; one carrier tensor, so ONE
-    device→host copy carries what the facade needs per move."""
-    _no_perm(perm)
+    device→host copy carries what the facade needs per move. With the slot
+    permutation ``perm`` the slot rows are scattered back into host
+    particle order (row ``perm[i]`` takes slot i) on the card."""
     if integrity is not None:
         _no_integrity()
     carrier = torch_carrier(position.dtype)
@@ -261,6 +263,8 @@ def pack_trace_readback(position, material_id, done, stats, n_segments,
     slot[:, 0:3] = position.view(carrier)
     slot[:, 3] = _enc_i32_dev(material_id, carrier)
     slot[:, 4] = done
+    if perm is not None:
+        slot[perm] = slot.clone()
     out[n * READBACK_COLS:n * READBACK_COLS + tail.numel()] = tail
     if convergence is not None:
         out[out.numel() - conv_words:] = (

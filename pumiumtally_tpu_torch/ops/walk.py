@@ -21,6 +21,16 @@ adds in (iteration, lane) order, the JAX walk's scatter-add order, through
 ``scatter_ordered_plain`` (keyed ``iteration · n + lane``), on the card as
 on the CPU, so the flux is reproducible bit for bit.
 
+Two feature tails ride the loop, as in the JAX walk. ``record_xpoints=K``
+records each lane's first K genuine boundary crossings (``crossed`` and
+not a relocation-chase hop) into ``[n, K, 3]`` points, counting past K;
+``xpoints`` continues given buffers, so a re-walk appends after the
+attempt before it. ``debug_checks`` evaluates the JAX walk's checkify
+invariants (the four in-loop checks and the post-loop track-length
+check, with its bounds and messages) into an error word whose lowest set
+bit is raised as ``WalkInvariantError`` after the walk, before any score
+reaches the flux.
+
 Straggler compaction, loop unrolling and the scatter/gather strategy knobs
 of the JAX walk only schedule the same arithmetic; they have no
 counterpart here. The kernel schedules lanes its own way (each thread
@@ -90,6 +100,57 @@ def escalated_bump(stuck, contained, continuing, t_step, tol_floor,
     return extra, stuck_next
 
 
+class WalkInvariantError(RuntimeError):
+    """A walk invariant failed under ``debug_checks``
+    (``TallyConfig.checkify_invariants``); the message is the JAX walk's
+    checkify message."""
+
+
+# The walk's invariant checks in their precedence: bit k of an error word
+# is CHECKS[k], and the lowest set bit is the one raised, so the message
+# does not depend on which lane or thread found its violation first. The
+# order is the JAX walk's order within one iteration
+# (pumiumtally_tpu/ops/walk.py, trace_impl).
+CHECKS = (
+    "particle position outside its parent element "
+    "(corrupted walk state or degenerate geometry)",
+    "non-finite intersection point in walk",
+    "element id out of range after hop",
+    "negative or non-finite tally contribution",
+    "scored track length disagrees with net displacement "
+    "(missed or double-scored segment)",
+)
+TRACK_CHECK = len(CHECKS) - 1  # the post-loop check's bit
+
+
+def raise_on_violation(bits: int) -> None:
+    """Raise ``WalkInvariantError`` for the lowest set bit of ``bits``."""
+    if bits:
+        raise WalkInvariantError(CHECKS[(bits & -bits).bit_length() - 1])
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((v[:, 0] * v[:, 0] + v[:, 1] * v[:, 1])
+                      + v[:, 2] * v[:, 2])
+
+
+def track_length_violated(position, origin, dest, track, n_iters,
+                          tolerance: float) -> torch.Tensor:
+    """The post-loop check of ``debug_checks``: a [] bool tensor, True
+    where some lane's scored track length differs from its net
+    displacement by more than the JAX walk's bound, ``(n_iters + 1) ·
+    (tolerance + 64·tol_floor·(1 + max(|origin|, |dist|) + |ray|))``, with
+    ``n_iters`` the walk's iteration count (the most any lane ran)."""
+    dtype = origin.dtype
+    tol_floor = 8 * torch.finfo(dtype).eps
+    dist = _norm3(position - origin)
+    raylen = _norm3(dest - origin)
+    scale = 1.0 + torch.maximum(_norm3(origin), dist)
+    bound = (n_iters.to(dtype) + 1.0) * (
+        tolerance + 64.0 * tol_floor * (scale + raylen))
+    return ~(torch.abs(track - dist) <= bound).all()
+
+
 def walk_stats_vector(ncross_l, nchase_l, done, nseg, it) -> torch.Tensor:
     """The [8] per-move stats vector in ``obs/walk_stats.py`` field order:
     crossings, max crossings per lane, chase hops, truncated walks,
@@ -139,6 +200,9 @@ class TraceResult:
       host int (None elsewhere): the walk wrapper reads it anyway.
     convergence: the [CONV_LEN] convergence summary of a packed step
       with ``conv_state`` (``obs/convergence.py``), else None.
+    xpoints: [n,K,3] recorded crossing points with ``record_xpoints=K``
+      (only each lane's first ``n_xpoints`` rows, at most K, are set).
+    n_xpoints: [n] int32 genuine crossings per lane (may exceed K).
     """
 
     position: torch.Tensor
@@ -153,6 +217,8 @@ class TraceResult:
     stats: torch.Tensor | None = None
     n_records: int | None = None
     convergence: torch.Tensor | None = None
+    xpoints: torch.Tensor | None = None
+    n_xpoints: torch.Tensor | None = None
 
 
 def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
@@ -192,6 +258,25 @@ def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
             raise ValueError(f"{name} must be contiguous")
 
 
+def xpoint_buffers(n: int, k: int, dtype, device, xpoints=None):
+    """The ``record_xpoints=k`` buffers of a walk of ``n`` lanes: the given
+    ``(points [n,k,3], counts [n] int32)`` to continue, checked, or fresh
+    zeros."""
+    if xpoints is None:
+        return (torch.zeros(n, k, 3, dtype=dtype, device=device),
+                torch.zeros(n, dtype=torch.int32, device=device))
+    xp, kx = xpoints
+    if (tuple(xp.shape) != (n, k, 3) or xp.dtype != dtype
+            or tuple(kx.shape) != (n,) or kx.dtype != torch.int32):
+        raise ValueError(
+            f"xpoints must be ([{n},{k},3] {dtype}, [{n}] int32) buffers")
+    if xp.device != device or kx.device != device:
+        raise ValueError(f"xpoints must lie on {device}")
+    if not (xp.is_contiguous() and kx.is_contiguous()):
+        raise ValueError("xpoints must be contiguous")
+    return xp, kx
+
+
 def resolve_material(mat_code, material_id, class_values):
     """Material codes → class values: -2 keeps the caller's id, -1 means
     destination reached or domain exit, >= 0 indexes ``class_values``."""
@@ -225,6 +310,9 @@ def trace(
     robust: bool = True,
     ledger: bool = True,
     stats: bool = True,
+    record_xpoints: int | None = None,
+    xpoints: tuple | None = None,
+    debug_checks: bool = False,
 ) -> TraceResult:
     """Walk every lane from origin to dest (plain PyTorch).
 
@@ -243,21 +331,35 @@ def trace(
       tolerance: geometric tolerance; a destination within it of the exit
         face counts as reached.
       robust: entry-face mask, relocation chase and escalated bump.
+      record_xpoints: K, to record each lane's first K crossing points.
+      xpoints: ``(points, counts)`` buffers to continue (updated in place),
+        as ``TraceResult.xpoints`` and ``n_xpoints`` of an earlier walk.
+      debug_checks: the invariant checks; a violation raises
+        ``WalkInvariantError`` and the flux is left as it was.
     """
     check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
                     material_id, flux, n_groups)
     n = origin.shape[0]
     lane = torch.arange(n, device=origin.device)
+    held = []
 
     def score(it, hit, bins, c):
-        scatter_ordered_plain(flux, bins, it * n + lane[hit], c,
-                              score_squares)
+        if debug_checks:  # scattered once the checks have passed
+            held.append((bins, it * n + lane[hit], c))
+        else:
+            scatter_ordered_plain(flux, bins, it * n + lane[hit], c,
+                                  score_squares)
 
-    return _walk(mesh, origin, dest, elem, in_flight, weight, group,
-                 material_id, flux, score, initial=initial,
-                 max_crossings=max_crossings, n_groups=n_groups,
-                 tolerance=tolerance, robust=robust, ledger=ledger,
-                 stats=stats)
+    r = _walk(mesh, origin, dest, elem, in_flight, weight, group,
+              material_id, flux, score, initial=initial,
+              max_crossings=max_crossings, n_groups=n_groups,
+              tolerance=tolerance, robust=robust, ledger=ledger,
+              stats=stats, record_xpoints=record_xpoints, xpoints=xpoints,
+              debug_checks=debug_checks)
+    if held:
+        scatter_ordered_plain(flux, *(torch.cat(col) for col in zip(*held)),
+                              score_squares)
+    return r
 
 
 def trace_packed(mesh, origin, elem, material_id, record, flux, perm=None,
@@ -359,10 +461,12 @@ def trace_records(
 
 def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
           flux, score, *, initial, max_crossings, n_groups, tolerance,
-          robust, ledger, stats) -> TraceResult:
+          robust, ledger, stats, record_xpoints=None, xpoints=None,
+          debug_checks=False) -> TraceResult:
     """The loop of ``trace``: ``score(it, hit, bins, c)`` takes each
     iteration's scored crossings (the lanes ``hit``, their int64 bins and
-    contributions, in lane order)."""
+    contributions, in lane order). Raises ``WalkInvariantError`` after the
+    loop when a check of ``debug_checks`` failed."""
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
     geo20 = mesh.geo20
@@ -381,6 +485,12 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     nchase = torch.zeros(n, dtype=torch.int32, device=dev)
     iters = torch.zeros(n, dtype=torch.int32, device=dev)
     nseg = torch.zeros((), dtype=torch.int64, device=dev)
+    xp = kx = None
+    if record_xpoints is not None:
+        xp, kx = xpoint_buffers(n, record_xpoints, dtype, dev, xpoints)
+    # One flag per check of CHECKS, read once after the walk.
+    bad = (torch.zeros(len(CHECKS), dtype=torch.bool, device=dev)
+           if debug_checks else None)
 
     it = 0
     while it < max_crossings and not bool(done.all()):
@@ -405,6 +515,11 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             face = torch.where(chase, chase_face, face)
             t_exit = torch.where(chase, 0.0, t_exit)
             has_exit = has_exit | chase
+        elif debug_checks:
+            t_exit, face, has_exit, plane_num = exit_face(
+                normals, dplane, cur, dirv, return_num=True)
+            sd = -plane_num
+            chase = torch.zeros_like(done)
         else:
             t_exit, face, has_exit = exit_face(normals, dplane, cur, dirv)
             chase = torch.zeros_like(done)
@@ -423,19 +538,40 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         reached = (t_exit >= 1.0 - tol_eff) | ~has_exit
         t_step = torch.clamp_max(t_exit, 1.0)
         xpoint = cur + t_step[:, None] * dirv
+        if debug_checks:
+            # Each active lane lies in its parent element, within the
+            # tolerance and rounding.
+            scale = cur.abs().amax(dim=-1) + 1.0
+            bound = 10.0 * tolerance + 64.0 * tol_floor * scale
+            bad[0] |= (active & ~(sd.amax(dim=-1) <= bound)).any()
 
         crossed = active & ~reached & has_exit
-        ncross += (crossed & ~chase).to(torch.int32)
+        real_cross = crossed & ~chase
+        ncross += real_cross.to(torch.int32)
         nchase += chase.to(torch.int32)
+        if xp is not None:
+            rows = torch.nonzero(real_cross & (kx < record_xpoints))[:, 0]
+            xp[rows, kx[rows].long()] = xpoint[rows]
+            kx += real_cross.to(torch.int32)
         face_l = face.long()[:, None]
         code = torch.gather(codes, 1, face_l)[:, 0]
         nbr = torch.gather(nbrs_all, 1, face_l)[:, 0]
         next_elem = torch.where(crossed, nbr, -1)
+        if debug_checks:
+            bad[1] |= (active[:, None] & ~torch.isfinite(xpoint)).any()
+            # A hop out of the table ends the lane as a domain exit (the
+            # walk cannot read that row); the check reports it.
+            beyond = (next_elem < -1) | (next_elem >= mesh.ntet)
+            bad[2] |= beyond.any()
+            next_elem = torch.where(beyond, -1, next_elem)
 
         if not initial:
             seg = t_step * dnorm
             scored = active & in_flight & ~chase
             contrib = seg * weight
+            if debug_checks:
+                bad[3] |= (scored & ~((contrib >= 0)
+                                      & torch.isfinite(contrib))).any()
             hit = scored & good_group
             score(it, hit, elem[hit].long() * n_groups + group[hit].long(),
                   contrib[hit])
@@ -475,6 +611,12 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
 
     material_out = resolve_material(mat, material_id, mesh.class_values)
     n_crossings = torch.tensor(it, dtype=torch.int64, device=dev)
+    if debug_checks:
+        if not initial and ledger:
+            bad[TRACK_CHECK] = track_length_violated(
+                cur, origin, dest, pseg, n_crossings, tolerance)
+        raise_on_violation(sum(1 << k for k, b in enumerate(bad.tolist())
+                               if b))
     return TraceResult(
         position=cur,
         elem=elem,
@@ -489,6 +631,8 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             walk_stats_vector(ncross, nchase, done, nseg, n_crossings)
             if stats else None
         ),
+        xpoints=xp,
+        n_xpoints=kx,
     )
 
 
@@ -505,7 +649,9 @@ def merge_rewalk(a: TraceResult, b: TraceResult) -> TraceResult:
     ``pumiumtally_tpu/ops/walk.py::_merge_rewalk`` does: per-lane outputs
     come from ``b`` (parked lanes pass through a walk untouched), run
     totals add. In the stats vector ``max_crossings`` is a max and
-    ``truncated`` is ``b``'s, the final count."""
+    ``truncated`` is ``b``'s, the final count. ``b`` recorded its crossing
+    points into ``a``'s buffers (``rewalk_truncated`` passes them on), so
+    they are ``b``'s."""
     stats = None
     if a.stats is not None and b.stats is not None:
         stats = a.stats + b.stats
@@ -530,6 +676,8 @@ def merge_rewalk(a: TraceResult, b: TraceResult) -> TraceResult:
         track_length=track,
         stats=stats,
         n_records=records,
+        xpoints=b.xpoints,
+        n_xpoints=b.n_xpoints,
     )
 
 
@@ -549,7 +697,9 @@ def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
     others ride along parked. Each attempt's records fold into the flux
     after the previous attempt's (the ordered tally keys records per
     call), so the flux matches an uninterrupted walk's within rounding,
-    not bit for bit.
+    not bit for bit. With ``record_xpoints`` each attempt records into the
+    last one's point buffers, after its points, so the points and counts
+    are those of an uninterrupted walk.
 
     Args:
       result: the truncated TraceResult (``done`` has False lanes).
@@ -575,6 +725,8 @@ def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
             break
         n_retried += n_todo
         max_crossings *= 2
+        if result.xpoints is not None:
+            kwargs["xpoints"] = (result.xpoints, result.n_xpoints)
         r2 = (trace_fn or trace)(
             mesh, result.position, dest, result.elem, todo, weight, group,
             result.material_id, result.flux, max_crossings=max_crossings,

@@ -38,6 +38,16 @@ records reach the scatter. ``record_capacity``, ``face_rate`` and
 on the host; ``trace_packed`` is ``trace`` between the move-loop records
 of ``ops/staging.py``; ``rewalk_truncated`` walks a move's truncated
 lanes again.
+
+The feature tails (``record_xpoints``, ``xpoints``, ``debug_checks``, as
+in ``ops/walk.py::trace``) take the kernel's feature instantiation, for
+the initial search and the ordered move; the atomic tally refuses them.
+The invariant checks' error word comes back with the record count in the
+same read, with the post-loop track-length check computed on the card
+beside it; a violation raises ``walk.WalkInvariantError`` before the
+records reach the scatter, so the flux is left as it was. ``FEATURE_LAUNCHES``
+counts the walk launches with a feature on (they count in ``LAUNCHES``
+too).
 """
 from __future__ import annotations
 
@@ -50,18 +60,23 @@ import torch
 
 from . import _build, scatter
 from .walk import (
+    TRACK_CHECK,
     Records,
     TraceResult,
     check_walk_args,
     packed_step,
+    raise_on_violation,
     resolve_material,
     rewalk_truncated as rewalk_truncated_with,
     trace as trace_plain,
     trace_records as trace_records_plain,
+    track_length_violated,
     walk_stats_vector,
+    xpoint_buffers,
 )
 
 LAUNCHES = 0
+FEATURE_LAUNCHES = 0
 RELAUNCHES = 0
 SCHEDULE_LAUNCHES = 0
 SCHEDULE_KERNELS = 3  # count, scan, place (csrc/walk.cu schedule)
@@ -77,7 +92,10 @@ _WALK_ARGTYPES = (
     + [ctypes.c_double, ctypes.c_int]  # tolerance, score_squares
     + [ctypes.c_void_p] * 14         # flux, 9 per-lane outputs, 3 record
                                      # buffers, counters
-    + [ctypes.c_longlong, ctypes.c_void_p]  # capacity, stream
+    + [ctypes.c_longlong]            # capacity
+    + [ctypes.c_void_p] * 2          # crossing points and counts
+    + [ctypes.c_int] * 4             # k, record, checks, ntet
+    + [ctypes.c_double, ctypes.c_void_p]  # 10 * tolerance, stream
 )
 _LANES_ARGTYPES = (
     [ctypes.c_void_p] * 6            # origin, dest, elem, fly, weight, group
@@ -146,6 +164,9 @@ def trace(
     stats: bool = True,
     tally: str = "ordered",
     capacity: int | None = None,
+    record_xpoints: int | None = None,
+    xpoints: tuple | None = None,
+    debug_checks: bool = False,
 ) -> TraceResult:
     """The walk of ``ops/walk.py::trace`` (same arguments, same result):
     the CUDA kernel for CUDA tensors, the plain walk for CPU tensors. The
@@ -161,7 +182,8 @@ def trace(
     kw = dict(
         initial=initial, max_crossings=max_crossings, n_groups=n_groups,
         score_squares=score_squares, tolerance=tolerance, robust=robust,
-        ledger=ledger, stats=stats,
+        ledger=ledger, stats=stats, record_xpoints=record_xpoints,
+        xpoints=xpoints, debug_checks=debug_checks,
     )
     args = (mesh, origin, dest, elem, in_flight, weight, group,
             material_id, flux)
@@ -172,6 +194,11 @@ def trace(
     _check_cuda(*args, n_groups, max_crossings)
     if tally == "atomic" and flux.data_ptr() % 8:
         raise ValueError("flux must be 8-byte aligned for the pair adds")
+    if tally == "atomic" and not initial and (
+            record_xpoints is not None or debug_checks):
+        raise ValueError(
+            "the atomic tally has no feature tails (record_xpoints, "
+            "debug_checks): use the ordered tally")
     if tally == "atomic" or initial:
         lanes = lane_records(mesh, origin, dest, elem, in_flight, weight,
                              group, initial=initial)
@@ -315,10 +342,17 @@ def _walk_ordered(*args, capacity, **kw):
     global RELAUNCHES
     cap = capacity if capacity is not None else 4 * args[1].shape[0]
     lanes = lane_records(*args[:7], initial=kw["initial"])
+    counts0 = None
+    if kw.get("record_xpoints") is not None and kw.get("xpoints"):
+        counts0 = kw["xpoints"][1].clone()  # a relaunch records afresh
     out, rec, made = _launch(*args, **kw, ordered=True, capacity=cap,
                              lanes=lanes)
     check_record_count(made)
     if made > cap:
+        if counts0 is not None:
+            kw["xpoints"][1].copy_(counts0)
+        elif kw.get("record_xpoints") is not None:
+            kw = dict(kw, xpoints=(out["xp"], out["kx"].zero_()))
         out, rec, again = _launch(*args, **kw, ordered=True, capacity=made,
                                   lanes=lanes)
         RELAUNCHES += 1
@@ -471,14 +505,20 @@ def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial):
 
 def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             flux, *, initial, max_crossings, n_groups, score_squares,
-            tolerance, robust, ledger, stats, ordered, lanes, capacity=0):
+            tolerance, robust, ledger, stats, ordered, lanes, capacity=0,
+            record_xpoints=None, xpoints=None, debug_checks=False):
     """One walk launch over the lane records ``lanes`` (``lane_records``):
     slot s walks the lane of record s. Returns the per-lane outputs and,
     when ordered, the record buffers and the number of records the walk
-    made."""
-    global LAUNCHES, WARP_TRIPS, LAST_WAIT_S
+    made. With ``debug_checks`` it reads the check bits (with the record
+    count, in one read) and raises on a violation."""
+    global LAUNCHES, FEATURE_LAUNCHES, WARP_TRIPS, LAST_WAIT_S
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
+    record = record_xpoints is not None
+    xp = kx = None
+    if record:
+        xp, kx = xpoint_buffers(n, record_xpoints, dtype, dev, xpoints)
 
     def per_lane(dt):
         return torch.empty(n, dtype=dt, device=dev)
@@ -495,8 +535,8 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         torch.empty(cap, dtype=torch.int64, device=dev),
         torch.empty(cap, dtype=dtype, device=dev),
     )
-    # Records made, lane slots taken, warp loop trips.
-    counters = torch.zeros(3, dtype=torch.int64, device=dev)
+    # Records made, lane slots taken, warp loop trips, check bits.
+    counters = torch.zeros(4, dtype=torch.int64, device=dev)
 
     fn = _entry("walk", dtype)
     with torch.cuda.device(dev):
@@ -510,17 +550,30 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             pseg.data_ptr(), ncross.data_ptr(), nchase.data_ptr(),
             nseg_l.data_ptr(), iters.data_ptr(), rec[0].data_ptr(),
             rec[1].data_ptr(), rec[2].data_ptr(), counters.data_ptr(), cap,
-            stream,
+            xp.data_ptr() if record else None,
+            kx.data_ptr() if record else None,
+            int(record_xpoints or 0), int(record), int(bool(debug_checks)),
+            mesh.ntet, 10.0 * float(tolerance), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"walk kernel launch failed with cudaError_t {err}"
         )
     LAUNCHES += 1
+    FEATURE_LAUNCHES += int(record or bool(debug_checks))
     WARP_TRIPS = counters[2]
     out = dict(mesh=mesh, material_id=material_id, flux=flux, pos=pos,
                elem=elem_o, mat=mat, done=done, pseg=pseg, ncross=ncross,
-               nchase=nchase, nseg=nseg_l, iters=iters)
+               nchase=nchase, nseg=nseg_l, iters=iters, xp=xp, kx=kx)
+    if debug_checks:
+        bits = counters[3]
+        if not initial and ledger and n:
+            bad = track_length_violated(pos, origin, dest, pseg,
+                                        iters.max(), tolerance)
+            bits = bits | (bad.to(torch.int64) << TRACK_CHECK)
+        made, bits = torch.stack([counters[0], bits]).tolist()  # one read
+        raise_on_violation(bits)
+        return (out, rec, made) if ordered else out
     if not ordered:
         return out
     t0 = time.perf_counter()
@@ -553,4 +606,6 @@ def _result(o, *, ledger, stats, records=None, **_) -> TraceResult:
             if stats else None
         ),
         n_records=records,
+        xpoints=o["xp"],
+        n_xpoints=o["kx"],
     )

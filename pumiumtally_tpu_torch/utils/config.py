@@ -12,6 +12,9 @@ packages. What the port does with each field:
   "batch"), ``convergence`` with ``rel_err_target``, ``batch_moves`` and
   ``converged_fraction`` (``resolve_convergence``),
   ``truncation_retries`` and ``quarantine``;
+* read by the walk's feature tails: ``record_xpoints`` (the intersection
+  points), ``sort_by_element`` with ``migration_period`` (the periodic
+  element sort) and ``checkify_invariants`` (the walk's invariant checks);
 * accepted and ignored, because in the JAX package they only schedule the
   same arithmetic (straggler compaction, loop unrolling, scatter and
   gather strategies): ``compact_after``, ``compact_size``,
@@ -38,10 +41,6 @@ SD_MODES = ("segment", "batch")
 
 # Field → the ROADMAP.md port item that brings it.
 _UNPORTED = {
-    "migration_period": "A5 (element sort)",
-    "sort_by_element": "A5 (element sort)",
-    "checkify_invariants": "A5 (device asserts)",
-    "record_xpoints": "A5 (record_xpoints)",
     "integrity": "A8 (integrity)",
     "integrity_tol": "A8 (integrity)",
     "audit_lanes": "A8 (integrity audit)",
@@ -149,19 +148,29 @@ class TallyConfig:
         bm = 1 if self.batch_moves is None else int(self.batch_moves)
         if bm < 1:
             raise ValueError(f"batch_moves must be >= 1: {bm}")
+        if self.checkify_invariants:
+            # As in the JAX package: the two debug surfaces do not compose.
+            raise ValueError(
+                "convergence observability does not compose with "
+                "checkify_invariants (the checkified walk cannot carry "
+                "the batch accumulators); disable one of them"
+            )
         return bm
 
     def resolve_io_pipeline(self) -> str:
         """The effective move-loop I/O mode (``api.py``): the environment
-        variable ``PUMI_TPU_IO_PIPELINE`` beats the field. In the JAX
-        package ``record_xpoints`` and ``checkify_invariants`` force
-        ``"legacy"``; the port refuses both at construction (A5)."""
+        variable ``PUMI_TPU_IO_PIPELINE`` beats the field; the debug
+        surfaces that need the unpacked result (``record_xpoints``,
+        ``checkify_invariants``) force ``"legacy"``, as in the JAX
+        package."""
         mode = os.environ.get("PUMI_TPU_IO_PIPELINE") or self.io_pipeline
         if mode not in IO_PIPELINES:
             raise ValueError(
                 f"io_pipeline must be 'packed', 'overlap' or 'legacy': "
                 f"{mode!r}"
             )
+        if self.record_xpoints is not None or self.checkify_invariants:
+            return "legacy"
         return mode
 
     def resolve_max_crossings(self, ntet: int) -> int:

@@ -413,10 +413,6 @@ def test_mesh_dtype_must_match_config():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sort_by_element", True),
-    ("migration_period", 50),
-    ("checkify_invariants", True),
-    ("record_xpoints", 4),
     ("integrity", "warn"),
     ("audit_lanes", 8),
     ("move_deadline_s", 5.0),
@@ -446,6 +442,21 @@ def test_run_statistics_fields_accepted(kw):
         assert getattr(cfg, field) == value
     want = kw.get("batch_moves", 1) if kw.get("convergence") else None
     assert cfg.resolve_convergence() == want
+
+
+@pytest.mark.parametrize("field,value", [
+    ("sort_by_element", True),
+    ("migration_period", 50),
+    ("checkify_invariants", True),
+    ("record_xpoints", 4),
+])
+def test_feature_tail_fields_accepted(field, value):
+    """The walk's feature tails construct; the two debug surfaces force
+    ``io_pipeline="legacy"``, as in the JAX package."""
+    cfg = TallyConfig(**{field: value})
+    assert getattr(cfg, field) == value
+    debug = field in ("checkify_invariants", "record_xpoints")
+    assert (cfg.resolve_io_pipeline() == "legacy") == debug
 
 
 @pytest.mark.parametrize("field,value", [

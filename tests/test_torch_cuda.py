@@ -897,3 +897,157 @@ def test_device_memory_stats_on_card(cuda):
     rec = stats[f"cuda:{x.device.index}"]
     assert rec["peak_bytes_in_use"] >= rec["bytes_in_use"] >= x.nbytes
     assert rec["bytes_limit"] > rec["peak_bytes_in_use"]
+
+
+# --------------------------------------------------------------------- #
+# The walk's feature tails on the card (record_xpoints, the element sort,
+# the invariant checks)
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("robust", [True, False])
+@pytest.mark.parametrize("initial", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_xpoints_kernel_matches_plain(cuda, dtype, initial, robust):
+    """The feature instantiation records each lane's points and counts
+    bitwise the plain walk's (counts past K keep counting), and walks and
+    scores as the default one does; a forced overflow relaunch records
+    afresh, not twice."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    G, K = 4, 5
+    args = _walk_inputs(mesh, cuda, dtype, G=G)
+    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=G,
+              robust=robust)
+    feats, re = walk_cuda.FEATURE_LAUNCHES, walk_cuda.RELAUNCHES
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda),
+                        record_xpoints=K, **kw)
+    # One launch, and one more if its records overflowed the buffers.
+    assert walk_cuda.FEATURE_LAUNCHES - feats == 1 + walk_cuda.RELAUNCHES - re
+    off = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), record_xpoints=K,
+                   **kw)
+    torch.cuda.synchronize()
+    _lanes_equal(k, p)
+    _lanes_equal(k, off)
+    assert torch.equal(k.flux, p.flux) and torch.equal(k.flux, off.flux)
+    assert torch.equal(k.n_xpoints, p.n_xpoints)
+    assert torch.equal(k.xpoints, p.xpoints)
+    assert int(k.n_xpoints.max()) > K
+    if not initial:
+        again = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda),
+                                record_xpoints=K, capacity=7, **kw)
+        assert torch.equal(again.n_xpoints, p.n_xpoints)
+        assert torch.equal(again.xpoints, p.xpoints)
+        assert torch.equal(again.flux, p.flux)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_rewalk_appends_points_on_card(cuda, dtype):
+    """Re-walks continue the point buffers in place: points and counts
+    bitwise the plain walk's over the same attempts."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(8, dtype, cuda)
+    args = _walk_inputs(mesh, cuda, dtype, n=8192)
+    kw = dict(initial=False, n_groups=4, record_xpoints=6)
+    seed = _flux0(mesh, 4, dtype, cuda)
+    first = walk_cuda.trace(*args, seed.clone(), max_crossings=3, **kw)
+    pfirst = walk.trace(*args, seed.clone(), max_crossings=3, **kw)
+    got, _, lost = walk_cuda.rewalk_truncated(
+        mesh, first, args[2], args[5], args[6], retries=6, max_crossings=3,
+        **kw)
+    ref, _, _ = walk.rewalk_truncated(
+        mesh, pfirst, args[2], args[5], args[6], retries=6, max_crossings=3,
+        **kw)
+    assert lost == 0
+    for f in ("xpoints", "n_xpoints", "position", "flux"):
+        assert torch.equal(getattr(got, f), getattr(ref, f)), f
+    assert int(got.n_xpoints.max()) > 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_checks_on_card_raise_and_leave_the_context(cuda, dtype):
+    """A clean checked walk is bitwise the unchecked one; a corrupted
+    parent element and a NaN destination raise the plain walk's messages
+    (the error word, no device assert), the flux is left as it was, and
+    the next walk in the process runs and gives its bits; the atomic
+    tally refuses the features."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+    from pumiumtally_tpu_torch.ops.walk import CHECKS, WalkInvariantError
+
+    mesh = _jittered(6, dtype, cuda)
+    G = 4
+    args = list(_walk_inputs(mesh, cuda, dtype, G=G))
+    kw = dict(initial=False, max_crossings=mesh.ntet + 8, n_groups=G)
+    ref = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda),
+                        debug_checks=True, **kw)
+    assert torch.equal(k.flux, ref.flux)
+    _lanes_equal(k, ref)
+    cents = mesh.centroids()
+    far = int(torch.argmax(((cents - args[1][0]) ** 2).sum(dim=1)))
+    bad_elem = args[3].clone()
+    bad_elem[0] = far
+    bad_dest = args[2].clone()
+    bad_dest[5] = float("nan")
+    for i, msg in ((3, CHECKS[0]), (2, CHECKS[1])):
+        bad = list(args)
+        bad[i] = bad_elem if i == 3 else bad_dest
+        for fn in (walk.trace, walk_cuda.trace):
+            flux = _flux0(mesh, G, dtype, cuda)
+            with pytest.raises(WalkInvariantError) as e:
+                fn(*bad, flux, debug_checks=True, **kw)
+            assert str(e.value) == msg
+            assert torch.equal(flux, _flux0(mesh, G, dtype, cuda))
+        after = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(after.flux, ref.flux)
+    with pytest.raises(ValueError, match="atomic"):
+        walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), tally="atomic",
+                        debug_checks=True, **kw)
+
+
+def test_sort_on_card_across_modes_and_runs(cuda):
+    """The element sort every move on the card: the three io_pipeline
+    modes bitwise equal, two runs bitwise equal (the stable sort), and
+    against the sort-off run the write-backs and elements bitwise, the
+    flux to its add order."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    dtype, n = torch.float32, 8192
+    mesh = _jittered(8, dtype, cuda)
+
+    def run(io, **cfg):
+        t = PumiTally(mesh, n, TallyConfig(n_groups=4, dtype=dtype,
+                                           io_pipeline=io, **cfg))
+        rng = np.random.default_rng(12)
+        prev = rng.uniform(0.05, 0.95, (n, 3))
+        t.initialize_particle_location(prev.reshape(-1).copy())
+        outs = []
+        for _ in range(3):
+            d = rng.normal(size=(n, 3))
+            d /= np.linalg.norm(d, axis=1, keepdims=True)
+            dest = (prev + d * rng.exponential(0.08, (n, 1))).reshape(-1)
+            mats = np.zeros(n, np.int32)
+            t.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n),
+                                    rng.integers(0, 4, n).astype(np.int32),
+                                    mats)
+            outs.append((dest.copy(), mats.copy()))
+            prev = dest.reshape(n, 3).copy()
+        return t, outs
+
+    sort = dict(sort_by_element=True, migration_period=1)
+    runs = [run(io, **sort) for io in ("legacy", "packed", "overlap",
+                                       "packed")]
+    off, outs_off = run("packed")
+    base, outs_base = runs[0]
+    assert base._perm is not None
+    for t, outs in runs[1:] + [(off, outs_off)]:
+        for (a, b), (c, d) in zip(outs_base, outs):
+            np.testing.assert_array_equal(a, c)
+            np.testing.assert_array_equal(b, d)
+        np.testing.assert_array_equal(t.element_ids, base.element_ids)
+    for t, _ in runs[1:]:
+        assert np.array_equal(t.raw_flux, base.raw_flux)
+    np.testing.assert_allclose(off.raw_flux, base.raw_flux, rtol=1e-4,
+                               atol=1e-6)

@@ -128,21 +128,30 @@ def test_readback_round_trip_and_jax_bytes(dtype, stats):
 
 
 def test_unported_record_parts_raise():
+    """The integrity tail (A8) raises; the slot permutation of the element
+    sort (A5) is ported: the unpack gathers host rows into slots and the
+    readback scatters slots back into host order."""
+    dest = np.arange(6, dtype=np.float64).reshape(2, 3)
     rec = staging.pack_init_record(staging.HostStager(device="cpu"),
-                                   np.zeros((2, 3)), np.ones(2, bool),
+                                   dest, np.array([True, False]),
                                    torch.float64)
-    with pytest.raises(NotImplementedError, match="A5"):
-        staging.unpack_move_record(rec, torch.float64,
-                                   torch.arange(2), True)
+    perm = torch.tensor([1, 0])
+    d, fly, _, _ = staging.unpack_move_record(rec, torch.float64, perm, True)
+    np.testing.assert_array_equal(d.numpy(), dest[::-1])
+    np.testing.assert_array_equal(fly.numpy(), [False, True])
     z = torch.zeros(2, 3, dtype=torch.float64)
     i = torch.zeros(2, dtype=torch.int32)
     b = torch.ones(2, dtype=torch.bool)
     with pytest.raises(NotImplementedError, match="A8"):
         staging.pack_trace_readback(z, i, b, None, torch.tensor(0),
                                     integrity=torch.zeros(3))
-    with pytest.raises(NotImplementedError, match="A5"):
-        staging.pack_trace_readback(z, i, b, None, torch.tensor(0),
-                                    perm=torch.arange(2))
+    pos, mats, done, _, _, _ = staging.split_trace_readback(
+        staging.pack_trace_readback(d, torch.tensor([7, 8], dtype=torch.int32),
+                                    fly, None, torch.tensor(0), perm=perm),
+        2, torch.float64)
+    np.testing.assert_array_equal(pos, dest)
+    np.testing.assert_array_equal(mats, [8, 7])
+    np.testing.assert_array_equal(done, [True, False])
     with pytest.raises(NotImplementedError, match="A8"):
         staging.split_trace_readback(np.zeros(12, np.uint64), 2,
                                      torch.float64, integrity=True)

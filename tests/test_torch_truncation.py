@@ -2,8 +2,9 @@
 path, and the bounded re-walk escalation (``ops/walk.py::
 rewalk_truncated``, ``TallyConfig.truncation_retries``).
 
-Mirrors tests/test_truncation.py :60, :74, :92 and :121 (the partitioned
-and ``record_xpoints`` cases wait for ROADMAP.md A9 and A5). Each test
+Mirrors tests/test_truncation.py :60, :74, :92 and :121 (the
+``record_xpoints`` case :139 is held in tests/test_torch_xpoints.py; the
+partitioned case waits for ROADMAP.md A9). Each test
 drives the JAX facade with the same inputs: lost and re-walked counts
 are equal, the flux agrees at the float64 parity bar (1e-10 relative;
 the re-walks of both packages fold their records after the first walk's,

@@ -1,7 +1,7 @@
 """Phases 4 and 5 of a checkout's ``chip_smoke.py``, or its row gather
 (K2), to compare two commits on one card in turns.
 
-    python3 turns.py --tree DIR
+    python3 turns.py --tree DIR [--reps N]
     python3 turns.py --tree DIR --gather
 
 Imports the package and the ``chip_smoke.py`` of the checkout at ``DIR``
@@ -11,9 +11,15 @@ through the kernel and the plain walk (phase 5), whose log lines carry the
 walk into records, the ordered scatter, the active-lane share and the
 profile by kernel. The last line is a JSON object: move 1's walk into
 records, ordered scatter and whole walk call (CUDA events, median of 5),
-its active-lane share, and the device time of every kernel of one move-1
+its active-lane share, the device time of every kernel of one move-1
 walk into records (torch.profiler, mean over 3 calls), from which a reader
-sums the lane schedule's kernels of either design.
+sums the lane schedule's kernels of either design, the main path's moves
+2-4 in segments per second (host clock, from phase 4's log line), and the
+walk kernels' registers and spills as ptxas reported them when the
+checkout's ``csrc/walk.cu`` was built. ``--reps N`` adds the quartiles
+(25%, 50%, 75%) of N single calls each of move 1's walk into records and
+of its whole ordered walk call (``walk_cuda.trace``, a fresh flux each),
+CUDA events around each call, for comparisons finer than a median of 5.
 
 With ``--gather`` it times the checkout's ``gather.gather_cuda`` (CUDA
 events, median of 5 after a warm-up; each output held bitwise to
@@ -39,9 +45,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", required=True,
                     help="root of the checkout whose phases run")
+    ap.add_argument("--reps", type=int, default=0,
+                    help="also time N single calls of move 1's walk")
     ap.add_argument("--gather", action="store_true",
                     help="time the checkout's row gather instead")
     args = ap.parse_args()
+    reps = args.reps
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
     os.chdir(tree)
@@ -60,22 +69,69 @@ def main() -> int:
         print(json.dumps(dict(tree=tree, gather_ms=gather_ms(smoke.log))),
               flush=True)
         return 0
+    lines = []
+    log = smoke.log
+
+    def keep(msg):
+        lines.append(msg)
+        log(msg)
+
+    smoke.log = keep
     with tempfile.TemporaryDirectory() as tmp:
         tally, snaps, launches = smoke.phase_main_path(tmp)
+    smoke.log = log
+    late = [m for m in lines if m.startswith("[main] moves 2-4")]
+    segs_per_s = float(late[-1].rsplit("segments/s=", 1)[1])
     smoke.log(f"[turns] main path launches {launches}")
     smoke.phase_kernel_vs_plain_full(tally, snaps["initial"], initial=True)
     k = smoke.phase_kernel_vs_plain_full(tally, snaps["move"], initial=False)
     snap = snaps["move"]
     args, kw = smoke.replay_args(tally, snap, initial=False)
     wkw = {key: v for key, v in kw.items() if key != "initial"}
+    extra = {}
+    if reps:
+        import numpy as np
+
+        def quartiles(fn, setup=None):
+            t = [smoke.event_ms(fn, 1, setup) for _ in range(reps)]
+            return [float(q) for q in np.percentile(t, [25, 50, 75])]
+
+        extra = dict(
+            walk_records_quartiles_ms=quartiles(
+                lambda: walk_cuda.walk_records(
+                    *args, snap["flux"].clone(), **wkw,
+                    capacity=k["capacity"])),
+            trace_quartiles_ms=quartiles(
+                lambda f: walk_cuda.trace(*args, f, **kw,
+                                          capacity=k["capacity"]),
+                lambda: (snap["flux"].clone(),)))
     print(json.dumps(dict(
         tree=tree, walk_ms=k["walk_ms"], scatter_ms=k["scatter_ms"],
-        ms=k["ms"], share=k["share"],
+        ms=k["ms"], share=k["share"], moves_2_4_segments_per_s=segs_per_s,
+        walk_ptxas=ptxas_lines(_build.library_path("walk")),
         walk_records_kernels=device_ms(
             lambda: walk_cuda.walk_records(*args, snap["flux"].clone(), **wkw,
                                            capacity=k["capacity"])),
+        **extra,
     )), flush=True)
     return 0
+
+
+def ptxas_lines(lib: str) -> dict:
+    """{walk kernel instantiation: [ptxas lines]} from the build log kept
+    beside ``lib``: registers, shared memory and spills, by the kernel's
+    template arguments (its mangled name between ``walk_kernelI`` and
+    the parameter list)."""
+    out, kernel = {}, ""
+    with open(lib[:-3] + ".log") as f:
+        for line in f:
+            if "Function properties for" in line:
+                kernel = line.split(" for ", 1)[1].strip()
+            elif "walk_kernelI" in kernel and (
+                    "registers" in line or "spill" in line):
+                name = kernel.split("walk_kernelI", 1)[1].split("EEvPK")[0]
+                out.setdefault(name, []).append(line.strip())
+    return out
 
 
 SWEEP_MB = (8, 16, 32, 48, 64, 80, 160)
