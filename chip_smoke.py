@@ -7,8 +7,8 @@ NVIDIA card.
 Phases, each of which raises (exit code != 0) on any failed check:
 
 1. device: the card's name and power limit from nvidia-smi;
-2. build: the three CUDA sources (csrc/walk.cu, scatter.cu, gather.cu),
-   one nvcc each, started together, timed;
+2. build: the four CUDA sources (csrc/walk.cu, scatter.cu, gather.cu,
+   source.cu), one nvcc each, started together, timed;
 3. kernel vs plain on a jittered 20^3 box (48,000 tets, two materials),
    65,536 lanes, 8 groups, float32 and float64, initial and move mode with
    robust=True plus one move with robust=False: elements, material ids,
@@ -123,6 +123,29 @@ Phases, each of which raises (exit code != 0) on any failed check:
    move cost on against off in turns, its walk call's CUDA-event time,
    and its launches (the ``kernels`` line's ``feature_launches``).
 
+14. megastep (``[mega]`` lines), the device-sourced move loop: (a) on a
+   jittered 20^3 two-region box, 4,096 lanes, both dtypes: move 1's
+   flight kernel (``csrc/source.cu``) against its plain version on the
+   card (its five uniforms bitwise, the collision and roulette draws
+   bitwise, the destinations bitwise or their differing elements counted
+   with their largest ulp, limit 2), and 4 fused moves through the kernels
+   against the same moves through the plain sampling and the plain walk
+   on the card (counters and discrete state equal; positions and flux
+   bitwise where every destination is, else within the walk's
+   tolerances); (b) the full cell, bench.py's megastep cell (the main
+   mesh, 1,048,576 lanes, 8 groups, ``tolerance=1e-6``, Σt 12.5, seed 1,
+   K = 8): a warm call and a timed call of 8 moves, clocked by step
+   (``StepClock``: sample, walk and its two host waits, physics, folds,
+   the tail read), launches counted (8 flight launches, 8 walks and their
+   relaunches, one tail copy), then the same at K = 1, which must end
+   bitwise where K = 8 ended; a profiled K = 8 call for the card's busy
+   share; the flight kernel at the timed call's first move, timed beside
+   its plain version and its bound; (c) ``SyntheticTransport`` on
+   ``problems.assembly(55, 3)`` (998,250 tets, 10 regions, pins at
+   ``Material(4.0, 0.5)``), 1,048,576 particles: a megastep batch to its
+   end (K = 8, at most 1,000 events) and 4 host-mode events, in turns
+   (megastep, host, host, megastep), moves/s and segments/s.
+
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
 """
@@ -165,7 +188,7 @@ OVERFLOW_CAPACITY = 1000
 RUNSTATS_CONV = dict(convergence=True, batch_moves=2)
 RUNSTATS_TRUNC = dict(max_crossings=4, truncation_retries=6)
 RUNSTATS_BAD = 1000  # lanes given NaN destinations in (d)
-SOURCES = ("walk", "scatter", "gather")
+SOURCES = ("walk", "scatter", "gather", "source")
 WARP = 32
 
 
@@ -761,17 +784,19 @@ def phase_pipeline(mesh) -> dict:
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from pumiumtally_tpu_torch.ops import gather, scatter, walk_cuda
+    from pumiumtally_tpu_torch.ops import gather, scatter, source_cuda
+    from pumiumtally_tpu_torch.ops import walk_cuda
 
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
     walk_cuda.FEATURE_LAUNCHES = walk_cuda.SCHEDULE_LAUNCHES = 0
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
-    gather.LAUNCHES = 0
+    gather.LAUNCHES = source_cuda.LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    from pumiumtally_tpu_torch.ops import gather, scatter, walk_cuda
+    from pumiumtally_tpu_torch.ops import gather, scatter, source_cuda
+    from pumiumtally_tpu_torch.ops import walk_cuda
 
     return {
         "walk": walk_cuda.LAUNCHES,
@@ -783,6 +808,7 @@ def read_counts() -> dict:
         "scatter_atomic": scatter.ATOMIC_LAUNCHES,
         "schedule": walk_cuda.SCHEDULE_LAUNCHES,
         "gather": gather.LAUNCHES,
+        "source": source_cuda.LAUNCHES,
     }
 
 
@@ -1986,6 +2012,381 @@ def phase_feature_tails(mesh) -> dict:
     return out
 
 
+# The megastep phase: the 20^3 box's lanes and fused moves, the full
+# cell's chunk (bench.py's megastep cell: Σt 12.5 = 1/0.08, the main
+# cell's mean flight), the transport cell's assembly and event cap, and
+# the INT32 rate of the flight kernel's bound: 132 SMs x 64 INT32 lanes a
+# clock (Hopper's SM has half as many INT32 as FP32 units) x 1.98 GHz.
+MEGA_SMALL_LANES, MEGA_SMALL_MOVES = 4096, 4
+MEGA_K, MEGA_SIGMA_T = 8, 12.5
+TRANSPORT_CELLS, TRANSPORT_LATTICE, TRANSPORT_EVENTS = 55, 3, 1000
+INT32_OPS = 132 * 64 * 1.98e9
+# The walk's flux tolerance where kernel and plain runs may differ.
+FLUX_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+# Integer operations a lane of the flight kernel does: six threefry2x32
+# blocks (the lane key and five draws), each 2 + 2 key words + 20 rounds x
+# 3 (add, funnel shift, xor) + 5 injections x 3 adds; the clip of pid.
+THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
+FLIGHT_INT_OPS = 6 * THREEFRY_OPS + 2
+# float32 / float64 bytes a lane of the flight kernel must move: pid,
+# elem, alive, origin, class_id[elem] and sigma_t[region] read; dest,
+# coll_u and roul_u written.
+FLIGHT_BYTES = {4: 4 + 4 + 1 + 12 + 4 + 4 + 12 + 4 + 4,
+                8: 4 + 4 + 1 + 24 + 4 + 8 + 24 + 8 + 8}
+
+
+def _ulp_diff(got, want) -> tuple[int, float]:
+    """Elements of ``got`` not bitwise ``want``, and their largest
+    difference in ulps of max(|want|, 1)."""
+    differ = got != want
+    if not bool(differ.any()):
+        return 0, 0.0
+    eps = torch.finfo(want.dtype).eps
+    ulps = ((got - want).abs() / (eps * want.abs().clamp_min(1.0)))[differ]
+    return int(differ.sum()), float(ulps.max())
+
+
+def flight_check(label, mesh, key, pid, elem, alive, origin, sig) -> dict:
+    """The flight kernel against its plain version on the card on one
+    move's inputs: the five uniforms (the kernel's debug output) bitwise,
+    the collision and roulette draws bitwise, the destinations bitwise or
+    their differing elements counted with their largest ulp (limit 2: the
+    directions' cos and sin round once each); the kernel's and the plain
+    version's device ms."""
+    from pumiumtally_tpu_torch.ops import source, source_cuda
+
+    n, dtype = origin.shape[0], origin.dtype
+    u = torch.empty(n, 5, dtype=dtype, device=origin.device)
+    launches = source_cuda.LAUNCHES
+    dest, cu, ru = source_cuda.sample_flight(key, pid, n, elem, alive, origin,
+                                             mesh.class_id, sig, u_out=u)
+    pd, pc, pr = source.sample_flight_plain(key, pid, n, elem, alive, origin,
+                                            mesh.class_id, sig)
+    want_u = source.lane_uniforms(key, pid, n, dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(u.view(torch.uint8), want_u.view(torch.uint8)):
+        raise AssertionError(f"{label}: the kernel's uniforms differ")
+    if not (torch.equal(cu, pc) and torch.equal(ru, pr)):
+        raise AssertionError(f"{label}: collision/roulette draws differ")
+    n_diff, ulps = _ulp_diff(dest, pd)
+    err = float((dest - pd).abs().max()) if n else 0.0
+    if ulps > 2:
+        raise AssertionError(f"{label}: {n_diff} destinations differ by up "
+                             f"to {ulps} ulp (limit 2)")
+    args = (key, pid, n, elem, alive, origin, mesh.class_id, sig)
+    ms = event_ms(lambda: source_cuda.sample_flight(*args))
+    plain_ms = event_ms(lambda: source.sample_flight_plain(*args))
+    source_cuda.LAUNCHES = launches  # comparisons count no launch
+    item = origin.element_size()
+    distinct = int(torch.unique(elem).numel())
+    nbytes = n * FLIGHT_BYTES[item] - n * 4 + distinct * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * FLIGHT_INT_OPS / INT32_OPS * 1e3
+    out = dict(max_abs_err=err, dest_differ=n_diff, max_ulp=ulps, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
+               bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+               bytes_ms=bytes_ms, ops_ms=ops_ms)
+    log(f"[mega] {label}: uniforms bitwise, draws bitwise, destinations "
+        f"differing {n_diff} (largest {ulps:.1f} ulp, limit 2), max abs err "
+        f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms by {out['bound_by']} (bytes "
+        f"{bytes_ms:.4f}, {FLIGHT_INT_OPS} integer ops a lane {ops_ms:.4f})")
+    return out
+
+
+def _mega_state(tally) -> dict:
+    s = tally.state
+    return {f: getattr(s, f).clone() for f in (
+        "origin", "elem", "material_id", "weight", "group", "in_flight",
+        "particle_id")}
+
+
+def megastep_small(dtype) -> None:
+    """(a) on the 20^3 box: move 1's flight kernel against plain, and 4
+    fused moves through the kernels against the same moves through the
+    plain sampling and the plain walk on the card."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import source, walk
+    from pumiumtally_tpu_torch.ops.staging import split_megastep_tail
+
+    n, G = MEGA_SMALL_LANES, 2
+    mesh = jittered_box(SMALL_CELLS, 0.2, 4, dtype)
+    src = source.SourceParams(sigma_t={0: 4.0, 1: 9.0},
+                              absorption={0: 0.3, 1: 0.5},
+                              survival_weight=0.2, seed=13)
+    tally = PumiTally(mesh, n, TallyConfig(n_groups=G, dtype=dtype,
+                                           megastep=MEGA_SMALL_MOVES),
+                      device=DEVICE)
+    pos = np.random.default_rng(3).uniform(0.1, 0.9, (n, 3))
+    tally.initialize_particle_location(pos.reshape(-1))
+    s = _mega_state(tally)
+    sig, ab, _ = tally._source_tables(src)
+    key = source.prng_key(src.seed)
+    flight_check(f"{dtype} 20^3 move 1", mesh, source.fold_in(key, 0),
+                 s["particle_id"], s["elem"], s["in_flight"], s["origin"],
+                 sig)
+    statics = tally._megastep_statics(src)
+    runs = {}
+    for plain in (False, True):
+        flux = tally.flux.clone()
+        r = walk.megastep(
+            mesh, s["origin"], s["elem"], s["material_id"], s["weight"],
+            s["group"], s["in_flight"], s["particle_id"], flux, 0, key, sig,
+            ab, n_moves=MEGA_SMALL_MOVES, plain=plain, **statics)
+        tail, _, _, phys = split_megastep_tail(
+            r.readback.cpu(), dtype, True, False, False)
+        runs[plain] = (r, tail, phys)
+    (k, kt, kp), (p, pt, pp) = runs[False], runs[True]
+    if not (np.array_equal(kt, pt) and np.array_equal(kp[[0, 1, 2, 4, 5]],
+                                                      pp[[0, 1, 2, 4, 5]])):
+        raise AssertionError(f"{dtype} 20^3: counters differ: {kt} {kp} / "
+                             f"{pt} {pp}")
+    for f in ("elem", "material_id", "group", "alive"):
+        if not torch.equal(getattr(k, f), getattr(p, f)):
+            raise AssertionError(f"{dtype} 20^3: {f} differs")
+    same = all(torch.equal(getattr(k, f), getattr(p, f))
+               for f in ("dest", "position", "weight", "flux"))
+    pos_tol = 1e-12 if dtype == torch.float64 else 1e-5
+    pos_err = float((k.position - p.position).abs().max())
+    flux_err = float(((k.flux - p.flux).abs()
+                      / p.flux.abs().clamp_min(1e-30)).max())
+    if not same and not (pos_err <= pos_tol
+                         and flux_err <= FLUX_RTOL[dtype]):
+        raise AssertionError(f"{dtype} 20^3: positions {pos_err}, flux "
+                             f"{flux_err}")
+    log(f"[mega] {dtype} 20^3 {MEGA_SMALL_MOVES} fused moves, kernels "
+        f"against plain sampling + plain walk on the card: counters "
+        f"{[int(x) for x in kt[[0, 3, 6]]]} (crossings, truncated, "
+        f"segments) and physics {pp.tolist()} equal, discrete state equal, "
+        f"{'bitwise in every output' if same else 'not bitwise'} "
+        f"(positions {pos_err:.3e}, flux rel {flux_err:.3e})")
+
+
+
+def mega_tally(mesh, k: int):
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    n = MAIN_PARTICLES
+    tally = PumiTally(mesh, n, TallyConfig(n_groups=MAIN_GROUPS,
+                                           tolerance=1e-6, megastep=k),
+                      device=DEVICE)
+    pos = np.random.default_rng(1).uniform(0.05, 0.95, (n, 3))
+    tally.initialize_particle_location(pos.reshape(-1))
+    return tally
+
+
+def megastep_full(mesh) -> dict:
+    """(b) the full cell: a warm call and a timed call of K = 8 moves
+    (clocked by step, launches counted), then the same two calls at
+    K = 1, which must end bitwise where K = 8 ended (flux, per-lane state,
+    counters; the absorbed weight within rtol 1e-5, its grouping follows
+    the chunks); a profiled K = 8 call for the busy share; the flight
+    kernel at the timed call's first move."""
+    from pumiumtally_tpu_torch.ops import source
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    n = MAIN_PARTICLES
+    src = source.SourceParams(default_sigma_t=MEGA_SIGMA_T, seed=1)
+    ones, zeros = np.ones(n), np.zeros(n, np.int32)
+    alive = np.ones(n, bool)
+    runs, keep = {}, None
+    for k in (MEGA_K, 1):
+        tally = mega_tally(mesh, k)
+        t0 = time.perf_counter()
+        tally.run_source_moves(MEGA_K, src, weights=ones, groups=zeros,
+                               alive=alive)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        flight = None
+        if k == MEGA_K:
+            before = _mega_state(tally)
+            flight = flight_check(
+                "full cell, the timed call's first move", mesh,
+                source.fold_in(source.prng_key(src.seed), tally.iter_count),
+                before["particle_id"], before["elem"],
+                torch.ones(n, dtype=torch.bool, device=mesh.device),
+                before["origin"], tally._source_tables(src)[0])
+            del before
+            tally.step_clock = StepClock(DEVICE)
+        seg0, io0 = tally.total_segments, dict(tally.io)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = tally.run_source_moves(MEGA_K, src, weights=ones, alive=alive)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        segs = tally.total_segments - seg0
+        io = {key: tally.io[key] - io0[key] for key in io0}
+        log(f"[mega] full cell K={k}: warm call {warm:.4f} s; timed call "
+            f"{res['moves']} moves, {segs} segments in {secs:.4f} s: "
+            f"segments/s={segs / secs:.4e}, moves/s={res['moves'] / secs:.4f}"
+            f"; {res}; transfers {io}; launches {counts}")
+        if counts["source"] != res["moves"] or res["moves"] != MEGA_K:
+            raise AssertionError(f"K={k}: flight kernel launches "
+                                 f"{counts['source']} for {res['moves']} "
+                                 "moves")
+        if counts["walk"] != MEGA_K + counts["walk_relaunches"]:
+            raise AssertionError(f"K={k}: walk launches {counts}")
+        if io["d2h_transfers"] != -(-MEGA_K // k) or io["h2d_transfers"] != 2:
+            raise AssertionError(f"K={k}: transfers {io}")
+        runs[k] = dict(res=res, secs=secs, segs=segs, counts=counts,
+                       warm_s=warm, flight=flight,
+                       segments_per_s=segs / secs,
+                       moves_per_s=res["moves"] / secs)
+        state = _mega_state(tally)
+        if keep is None:
+            keep = dict(state=state, flux=tally.flux.clone(), res=res)
+            runs[k]["steps"] = tally.step_clock.rows()
+            tally.step_clock = None
+            print_step_table(f"full cell K={k} timed call",
+                             [{"steps": runs[k]["steps"]}], tag="[mega]")
+            prof = start_profile()
+            t0 = time.perf_counter()
+            tally.run_source_moves(MEGA_K, src, weights=ones, alive=alive)
+            busy = stop_profile(prof, 1, time.perf_counter() - t0)
+            runs[k]["busy"] = busy
+            log(f"[mega] full cell K={k} profiled call: card busy "
+                f"{busy['busy_ms']:.4f} ms (copies {busy['copy_ms']:.4f}) of "
+                f"{busy['span_ms']:.4f} ms host clock, busy share "
+                f"{busy['share']:.4f} (kernels {busy['kernel_share']:.4f})")
+            for key, ms in busy["top"]:
+                log(f"[mega]   {ms:9.4f} ms {key}")
+            del tally
+            continue
+        for f, v in state.items():
+            if not torch.equal(v, keep["state"][f]):
+                raise AssertionError(f"K=1 against K={MEGA_K}: {f} differs")
+        if not torch.equal(tally.flux, keep["flux"]):
+            raise AssertionError(f"K=1 against K={MEGA_K}: flux differs")
+        for f in ("moves", "segments", "collisions", "escaped", "rouletted",
+                  "alive", "truncated"):
+            if res[f] != keep["res"][f]:
+                raise AssertionError(f"K=1 against K={MEGA_K}: {f}")
+        if not np.isclose(res["absorbed_weight"],
+                          keep["res"]["absorbed_weight"], rtol=1e-5):
+            raise AssertionError("K=1 against K=8: absorbed weight")
+        log(f"[mega] full cell: {MEGA_K} x megastep-1 ends bitwise where "
+            f"megastep-{MEGA_K} ended (flux, per-lane state, counters; "
+            f"absorbed weight {res['absorbed_weight']:.9e} / "
+            f"{keep['res']['absorbed_weight']:.9e})")
+    return runs
+
+
+def transport_run(driver, tally) -> dict:
+    """One megastep batch of the transport driver to its end: the batch's
+    moves, segments and the host clock of its source moves (the tally's
+    ``total_time_to_tally``; the initial search apart)."""
+    moves0, segs0 = driver.stats.events, tally.total_segments
+    t_tally0 = tally.tally_times.total_time_to_tally
+    t0 = time.perf_counter()
+    driver.run_batch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    secs = tally.tally_times.total_time_to_tally - t_tally0
+    moves = driver.stats.events - moves0
+    segs = tally.total_segments - segs0
+    return dict(moves=moves, segments=segs, secs=secs, wall=wall,
+                moves_per_s=moves / secs, segments_per_s=segs / secs)
+
+
+def host_events(driver, tally, events: int) -> dict:
+    """``events`` host-mode advance events of a fresh batch (the OpenMC
+    call pattern through the packed facade), each on the host clock."""
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    pos = driver.start_batch()
+    st = driver.host_state(pos)
+    secs, segs, facade, moves = [], [], [], []
+    tally.step_clock = StepClock(DEVICE)
+    for _ in range(events):
+        seg0 = tally.total_segments
+        f0 = tally.tally_times.total_time_to_tally
+        t0 = time.perf_counter()
+        if not driver.host_event(st):
+            break
+        secs.append(time.perf_counter() - t0)
+        facade.append(tally.tally_times.total_time_to_tally - f0)
+        segs.append(tally.total_segments - seg0)
+        moves.append({"steps": tally.step_clock.rows()})
+    tally.step_clock = None
+    return dict(secs=secs, segments=segs, facade_secs=facade, moves=moves,
+                segments_per_s=sum(segs) / sum(secs))
+
+
+def phase_transport() -> dict:
+    """(c) SyntheticTransport on the 3x3 assembly at 55^3 cells (998,250
+    tets, 10 regions; the pins at Material(4.0, 0.5)), 1,048,576
+    particles: a megastep batch to its end (K = 8, at most 1,000 events)
+    and 4 host-mode events, in turns."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.models import problems
+    from pumiumtally_tpu_torch.models.transport import (
+        Material,
+        SyntheticTransport,
+    )
+
+    t0 = time.perf_counter()
+    mesh = problems.assembly(cells=TRANSPORT_CELLS,
+                             lattice=TRANSPORT_LATTICE, device=DEVICE)
+    regions = int(torch.unique(mesh.class_id).numel())
+    log(f"[mega] transport mesh: assembly({TRANSPORT_CELLS}, "
+        f"{TRANSPORT_LATTICE}) {mesh.ntet} tets, {regions} regions, built "
+        f"in {time.perf_counter() - t0:.3f} s")
+    mats = {c: Material(4.0, 0.5)
+            for c in range(1, TRANSPORT_LATTICE ** 2 + 1)}
+    n = MAIN_PARTICLES
+
+    def driver(mode, seed):
+        tally = PumiTally(mesh, n, TallyConfig(n_groups=2, megastep=MEGA_K),
+                          device=DEVICE)
+        return tally, SyntheticTransport(tally, materials=mats, seed=seed,
+                                         max_events=TRANSPORT_EVENTS,
+                                         mode=mode)
+
+    mt, md = driver("megastep", 5)
+    ht, hd = driver("host", 5)
+    out = dict(megastep=[], host=[], regions=regions)
+    for turn in ("megastep", "host", "host", "megastep"):
+        if turn == "megastep":
+            r = transport_run(md, mt)
+            log(f"[mega] transport megastep batch: {r['moves']} moves, "
+                f"{r['segments']} segments, source moves "
+                f"{r['secs']:.4f} s on the host clock (batch "
+                f"{r['wall']:.4f} s with its initial search): moves/s="
+                f"{r['moves_per_s']:.4f}, segments/s="
+                f"{r['segments_per_s']:.4e}; {md.stats}")
+            if r["moves"] >= TRANSPORT_EVENTS or not md.stats.collisions:
+                raise AssertionError(f"transport batch did not end: {r}")
+        else:
+            r = host_events(hd, ht, 4)
+            log(f"[mega] transport host events: "
+                f"{', '.join(f'{x * 1e3:.4f}' for x in r['secs'])} ms, of "
+                f"them in move_to_next_location "
+                f"{', '.join(f'{x * 1e3:.4f}' for x in r['facade_secs'])} "
+                f"ms, segments {r['segments']}, segments/s="
+                f"{r['segments_per_s']:.4e}")
+        out[turn].append(r)
+    print_step_table("transport host event", [
+        m for r in out["host"] for m in r["moves"]], tag="[mega]")
+    flux = mt.raw_flux[..., 0]
+    cid = mesh.class_id.cpu().numpy()
+    flown = [int(c) for c in np.unique(cid) if flux[cid == c].sum() > 0]
+    if len(flown) != regions or not np.isfinite(flux).all():
+        raise AssertionError(f"transport flux: regions flown {flown}")
+    log(f"[mega] transport: every region flown ({flown}), flux finite")
+    return out
+
+
+def phase_megastep(mesh) -> dict:
+    """Phase 14: the device-sourced move loop."""
+    for dtype in (torch.float64, torch.float32):
+        megastep_small(dtype)
+    full = megastep_full(mesh)
+    transport = phase_transport()
+    return dict(full=full, transport=transport)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -2087,6 +2488,11 @@ def main() -> int:
     tails = phase_feature_tails(tally.mesh)
     log(f"[phase] feature tails: {time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    mega = phase_megastep(tally.mesh)
+    log(f"[phase] megastep: {time.perf_counter() - t0:.2f} s")
+    full, flight = mega["full"][MEGA_K], mega["full"][MEGA_K]["flight"]
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -2118,7 +2524,9 @@ def main() -> int:
          "xpoints_max_abs_err": tails["xpoints_err"],
          "checks_ms": tails["checks_ms"], "sort_ms": tails["sort_ms"],
          "lane_place_sorted_ms": tails["place_sorted_ms"],
-         "lane_place_unsorted_ms": tails["place_unsorted_ms"]},
+         "lane_place_unsorted_ms": tails["place_unsorted_ms"],
+         "megastep_launches": full["counts"]["walk"],
+         "megastep_relaunches": full["counts"]["walk_relaunches"]},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},
@@ -2162,6 +2570,19 @@ def main() -> int:
          "library_ms": sched["move 1"]["library_ms"],
          "library": "torch.argsort", "kernels": sched["move 1"]["kernels"],
          "initial_search": sched["initial search"]},
+        {"name": "source_cuda.sample_flight", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/source.cu",
+         "replaces": "pumiumtally_tpu/ops/source.py:179 (XLA)",
+         "launches": full["counts"]["source"],
+         "max_abs_err": flight["max_abs_err"], "ms": flight["ms"],
+         "plain_ms": flight["plain_ms"], "bound_ms": flight["bound_ms"],
+         "bound_by": flight["bound_by"], "library_ms": None,
+         "dest_differ": flight["dest_differ"], "max_ulp": flight["max_ulp"],
+         "megastep_segments_per_s": full["segments_per_s"],
+         "megastep_moves_per_s": full["moves_per_s"],
+         "megastep_busy_share": full["busy"]["share"],
+         "transport_moves_per_s": [
+             r["moves_per_s"] for r in mega["transport"]["megastep"]]},
     ]
     for kern in kernels:
         if not kern["launches"]:

@@ -85,6 +85,18 @@ The walk's feature tails, as in the JAX facade:
 
 ``record_xpoints`` and ``checkify_invariants`` force
 ``io_pipeline="legacy"`` (``TallyConfig.resolve_io_pipeline``).
+
+The device-sourced move loop, as in the JAX facade:
+``run_source_moves(n_moves, source, weights, groups, alive)`` runs the
+inner loop of ``models/transport.py`` on the card, in chunks of
+``TallyConfig.megastep`` = K moves (``ops/walk.py::megastep``): each move
+samples every alive lane's flight (``csrc/source.cu``), walks it and
+applies the collision and roulette physics, with the per-lane state and
+the flux kept on the card. A chunk copies one tail to the host (its
+stats, convergence summary and physics counters) and nothing to the
+card: the move counter reaches the sampling kernel as an argument. The
+walk's own host reads stay (ROADMAP.md B2), so a chunk is a host loop of
+K moves: any K gives the bits of K = 1 and saves no launches.
 """
 from __future__ import annotations
 
@@ -229,6 +241,10 @@ class PumiTally:
             self.num_particles = int(num_particles)
             self._max_crossings = cfg.resolve_max_crossings(mesh.ntet)
             self._io = cfg.resolve_io_pipeline()
+            # The walk-backend knobs, validated and refused as in the JAX
+            # facade's construction; the port has one walk either way.
+            self._kernel_policy = cfg.resolve_kernel()
+            self._lane_block = cfg.resolve_lane_block(self.num_particles)
             self._stager = HostStager(
                 depth=2 if self._io == "overlap" else 1, device=self.device
             )
@@ -284,6 +300,9 @@ class PumiTally:
             # search's destinations (a host copy).
             self._last_segments: int | None = None
             self._face_rate = walk_cuda.face_rate(mesh)
+            # The last megastep walk's tally records on the card (the next
+            # chunk's first record buffers are sized from it).
+            self._mega_records: int | None = None
             self._origin_h: np.ndarray | None = None
             self._initialized = False
             # The element sort's slot permutation: slot i holds particle
@@ -772,6 +791,210 @@ class PumiTally:
             fields = conv_to_dict(conv_h)
             secs_total = self.tally_times.total_time_to_tally
             self._fold(lambda: self._monitor.update(fields, secs_total))
+
+    # ------------------------------------------------------------------ #
+    # The device-sourced move loop (ops/walk.py::megastep)
+    # ------------------------------------------------------------------ #
+    def _source_tables(self, src):
+        """The Σt and absorption tables of one SourceParams on the card,
+        staged once per physics identity, and the least Σt of the mesh's
+        regions (a host float, for the record buffers' first estimate)."""
+        from .ops.source import least_sigma_t, staged_tables
+
+        cache = getattr(self, "_src_tables", None)
+        # The tables depend on the regions only through the largest class
+        # id, so the mesh's distinct class values (a few words) stand in
+        # for its per-element class ids.
+        self._src_tables = staged_tables(
+            src, self.mesh.class_values, self.config.dtype, self.device,
+            cache)
+        if self._src_tables is not cache:
+            self._sigma_min = least_sigma_t(src, self.mesh.class_values)
+        _, sig, ab = self._src_tables
+        return sig, ab, self._sigma_min
+
+    def _rng_key(self, seed: int):
+        """The key words of one source seed (host ints, kept per seed)."""
+        from .ops.source import staged_rng_key
+
+        self._rng_key_cache = staged_rng_key(
+            seed, getattr(self, "_rng_key_cache", None))
+        return self._rng_key_cache[1]
+
+    def _megastep_statics(self, src) -> dict:
+        cfg = self.config
+        from .ops.source import near_epsilon
+
+        if getattr(self, "_eps_near", None) is None:
+            # One read of the mesh's coordinates a tally, not one a call.
+            self._eps_near = near_epsilon(self.mesh.coords)
+        return dict(
+            n_groups=cfg.n_groups,
+            survival_weight=float(src.survival_weight),
+            downscatter=float(src.downscatter),
+            eps_near=self._eps_near,
+            max_crossings=self._max_crossings,
+            score_squares=cfg.score_squares and cfg.sd_mode == "segment",
+            tolerance=cfg.tolerance,
+            robust=cfg.robust,
+            ledger=cfg.ledger,
+            stats=cfg.walk_stats,
+            rel_err_target=cfg.rel_err_target,
+            batch_moves=self._batch_moves or 1,
+        )
+
+    def _stage_source_lanes(self, weights, groups, alive) -> int | None:
+        """Stage caller-given physics lanes (host particle order) into the
+        device state, in slot order (``_gather_in``), one host→device copy
+        each, counted in ``self.io`` (so in the chunk that stages them).
+        Returns the alive lanes' count when ``alive`` is given, else
+        None."""
+        n, cfg = self.num_particles, self.config
+        repl, n_alive = {}, None
+        if weights is not None:
+            w = np.asarray(weights, np.float64).reshape(-1)[:n]
+            repl["weight"] = self._put(_convert(w, cfg.dtype))
+        if groups is not None:
+            g = np.asarray(groups, np.int32).reshape(-1)[:n]
+            _check_group_range(g, cfg.n_groups)
+            repl["group"] = self._put(g)
+        if alive is not None:
+            a = np.asarray(alive).astype(bool).reshape(-1)[:n]
+            repl["in_flight"] = self._put(a)
+            n_alive = int(a.sum())
+        if repl:
+            self.state = self.state.replace(**repl)
+        return n_alive
+
+    def run_source_moves(
+        self,
+        n_moves: int,
+        source=None,
+        weights: np.ndarray | None = None,
+        groups: np.ndarray | None = None,
+        alive: np.ndarray | None = None,
+    ) -> dict:
+        """Run ``n_moves`` device-sourced moves, as the JAX facade's
+        ``run_source_moves``: per-lane flight sampling keyed by (seed,
+        move, particle id) over the per-region Σt table, the walk, and
+        the collision and roulette physics of ``models/transport.py``'s
+        inner loop, in chunks of ``TallyConfig.megastep`` = K moves
+        (``resolve_megastep``), until ``n_moves`` ran or no lane is alive.
+
+        ``weights``/``groups``/``alive`` (host particle order) re-stage
+        the physics lanes when given; omitted, the lanes continue from
+        the device state (``state.in_flight`` is the alive flag), so
+        consecutive calls chain bit for bit like one longer call. The
+        random stream is keyed by ``iter_count``, so any K gives the same
+        bits. A chunk makes one device→host copy (the tail) and, but for
+        the staging of given lanes, no host→device copy. Truncated lanes
+        stay alive and continue next move (counted and warned); re-walks,
+        the element sort and the quarantine do not run inside a call.
+        Returns the accumulated counters (``ops/source.py``
+        MEGA_PHYS_FIELDS, ``moves``, ``segments``)."""
+        if not self._initialized:
+            raise RuntimeError(
+                "initialize_particle_location must run before source moves"
+            )
+        cfg = self.config
+        K = cfg.resolve_megastep()
+        if self._kernel_policy == "pallas" and cfg.kernel == "pallas":
+            raise NotImplementedError(
+                "run_source_moves fuses source sampling + walk + "
+                "physics into one scanned XLA program; kernel='pallas' "
+                "does not ride it (TallyConfig.resolve_kernel) — use "
+                "kernel='auto' (XLA fallback) or 'xla' for "
+                "device-sourced runs"
+            )
+        from .ops import walk_cuda as wc
+        from .ops.source import SourceParams, phys_to_dict
+        from .ops.walk import megastep
+
+        src = source if source is not None else SourceParams()
+        sig_dev, ab_dev, sig_min = self._source_tables(src)
+        rng_key = self._rng_key(src.seed)
+        statics = self._megastep_statics(src)
+        totals = {
+            "moves": 0, "segments": 0, "collisions": 0, "escaped": 0,
+            "rouletted": 0, "absorbed_weight": 0.0, "alive": 0,
+            "truncated": 0,
+        }
+        io0 = dict(self.io)
+        n_alive = self._stage_source_lanes(weights, groups, alive)
+        if self._mega_records is None or n_alive is not None:
+            lanes = self.num_particles if n_alive is None else n_alive
+            est = wc.source_records(self._face_rate, lanes, sig_min)
+        else:
+            est = self._mega_records
+        capacity = wc.record_capacity(self.num_particles, est)
+        step = self._step
+        done_moves = 0
+        while done_moves < n_moves:
+            k = min(K, n_moves - done_moves)
+            t_before = self.tally_times.total_time_to_tally
+            with phase_timer(self.tally_times, "total_time_to_tally",
+                             True) as timer:
+                s = self.state
+                out = megastep(
+                    self.mesh, s.origin, s.elem, s.material_id, s.weight,
+                    s.group, s.in_flight, s.particle_id, self.flux,
+                    self.iter_count, rng_key, sig_dev, ab_dev,
+                    self._prev_even, self._conv, n_moves=k,
+                    capacity=capacity, clock=self.step_clock, **statics,
+                )
+                with step("tail read"):
+                    self._count("d2h", out.readback.numel()
+                                * out.readback.element_size())
+                    host_rb = staging.to_host(self._stager, out.readback,
+                                              "megastep")
+                    tail, _, conv_h, phys = staging.split_megastep_tail(
+                        host_rb, cfg.dtype, cfg.walk_stats, False,
+                        self._conv is not None)
+                self.flux = out.flux
+                self.state = s.replace(
+                    origin=out.position, dest=out.dest,
+                    in_flight=out.alive, weight=out.weight,
+                    group=out.group, elem=out.elem,
+                    material_id=out.material_id,
+                )
+                if out.n_records is not None:
+                    self._mega_records = out.n_records
+                    capacity = wc.record_capacity(self.num_particles,
+                                                  out.n_records)
+                self.iter_count += k
+                self._traces_since_sort += 1
+                stats_d = stats_to_dict(tail) if cfg.walk_stats else None
+                segs = (stats_d["segments"] if stats_d is not None
+                        else int(tail[0]))
+                self.total_segments += segs
+                self._last_segments = segs // k
+                p = phys_to_dict(phys)
+                self._warn_if_truncated(p["truncated"])
+                if cfg.measure_time:
+                    timer.sync(self.device)
+            self.tally_times.n_moves += k
+            seconds = self.tally_times.total_time_to_tally - t_before
+            self._telemetry.record_walk(
+                "megastep", self.iter_count, stats_d, seconds=seconds,
+                synced=cfg.measure_time, moves=k,
+                collisions=p["collisions"], escaped=p["escaped"],
+                rouletted=p["rouletted"], alive=p["alive"],
+                **self._io_since(io0),
+            )
+            io0 = dict(self.io)
+            if self._monitor is not None and conv_h is not None:
+                self._monitor.update(conv_to_dict(conv_h),
+                                     self.tally_times.total_time_to_tally)
+            totals["moves"] += k
+            totals["segments"] += segs
+            for f in ("collisions", "escaped", "rouletted", "truncated"):
+                totals[f] += p[f]
+            totals["absorbed_weight"] += p["absorbed_weight"]
+            totals["alive"] = p["alive"]
+            done_moves += k
+            if p["alive"] == 0:
+                break
+        return totals
 
     # ------------------------------------------------------------------ #
     @property

@@ -1,1 +1,2 @@
-"""Models built on the walk: the streaming batch pipeline."""
+"""Models built on the walk: the streaming batch pipeline, the benchmark
+problems and the synthetic transport driver."""

@@ -18,6 +18,12 @@ returns only once the batch's walk kernel has run; the scatter's
 placement and fold, the readback and the next batch's staging and copy
 are what overlap. Merging the two reads is ROADMAP.md B2.
 
+``submit_source`` takes a device-sourced batch instead: its whole event
+loop (flight sampling, walk, physics; ``ops/walk.py::megastep``) runs
+``n_moves`` moves on the card, and its result carries the physics
+counters. It is done only when every particle is dead and no walk was
+cut short.
+
 Use ``PumiTally.move_to_next_location`` for the strictly sequential
 per-event contract, where one event's output feeds the next.
 """
@@ -57,8 +63,9 @@ class BatchResult(NamedTuple):
     the config keeps walk_stats on; ``all_done`` then comes from its
     truncation counter, else from the done flags. ``xpoints`` [n, K, 3]
     and ``n_xpoints`` [n] are the batch's crossing points and counts when
-    the config sets ``record_xpoints=K``, else None. ``physics`` (the
-    device source, A7) is always None in the port; so is ``shape_key``
+    the config sets ``record_xpoints=K``, else None. ``physics`` holds a
+    ``submit_source`` batch's counters (``ops/source.py``
+    MEGA_PHYS_FIELDS), None for ``submit`` batches; ``shape_key`` is None
     until the tuning shapes are ported (A10)."""
 
     index: int
@@ -101,9 +108,17 @@ class StreamingTallyPipeline:
                 "snapshot would serialize the pipeline); use PumiTally "
                 f"for sd_mode={self.config.sd_mode!r}"
             )
+        if self.config.compact_stages == "adaptive":
+            raise NotImplementedError(
+                "compact_stages='adaptive' replans via PumiTally's "
+                "post-move hook; the pipeline resolves its schedule "
+                "once — use 'plan' or an explicit schedule"
+            )
         self.depth = max(1, int(depth))
         self.want_outputs = want_outputs
         self.device = mesh.device
+        self._kernel_policy = self.config.resolve_kernel()
+        self._src_tables = None
         self.flux = make_flux(mesh.ntet, self.config.n_groups,
                               self.config.dtype, device=self.device)
         self._cuda = self.device.type == "cuda"
@@ -164,10 +179,10 @@ class StreamingTallyPipeline:
                 record_xpoints=cfg.record_xpoints,
             )
         self._records = r.n_records
-        entry = (self._n_submitted, n, None, None, None, None, None)
+        entry = (self._n_submitted, n, None, None, None, None, None, None)
         if self.want_outputs:
             with step("readback"):
-                entry = (self._n_submitted, n, *self._read_back(r))
+                entry = (self._n_submitted, n, *self._read_back(r), "walk")
         self._inflight.append(entry)
         self._n_submitted += 1
         while len(self._inflight) > self.depth:
@@ -244,9 +259,13 @@ class StreamingTallyPipeline:
         return (*hosts, done)
 
     def _drain_one(self) -> None:
-        idx, n, host_rb, host_elem, host_xp, host_kx, done = (
+        idx, n, host_rb, host_elem, host_xp, host_kx, done, kind = (
             self._inflight.popleft())
         if host_rb is None:
+            return
+        if kind == "source":
+            self._drain_megastep(idx, host_rb, host_elem, host_xp, host_kx,
+                                 done)
             return
         with self._step("drain"):
             if done is not None:
@@ -281,10 +300,134 @@ class StreamingTallyPipeline:
 
     def submit_source(self, origin, elem, n_moves: int, source=None,
                       weight=None, group=None) -> None:
-        raise NotImplementedError(
-            "device-sourced batches (megastep) are not ported yet "
-            "(ROADMAP.md A7)"
+        """Stage one device-sourced batch (host ``origin`` [n,3] and
+        ``elem`` [n], optional ``weight`` and ``group``) and run its whole
+        ``n_moves`` event loop on the card (``ops/walk.py::megastep``,
+        from move 0 with the key of ``source.seed``); batches are
+        independent, so give each its own seed. Its result drains like a
+        ``submit`` batch's, with the physics counters attached."""
+        cfg = self.config
+        cfg.resolve_megastep()
+        if self._kernel_policy == "pallas" and cfg.kernel == "pallas":
+            raise NotImplementedError(
+                "submit_source fuses source sampling + walk + physics "
+                "into one scanned XLA program; kernel='pallas' does not "
+                "ride it — use kernel='auto' (XLA fallback) or 'xla'"
+            )
+        from ..ops.source import (
+            SourceParams,
+            near_epsilon,
+            prng_key,
+            staged_tables,
         )
+        from ..ops.walk import megastep
+
+        src = source if source is not None else SourceParams()
+        self._src_tables = staged_tables(src, self.mesh.class_values,
+                                         cfg.dtype, self.device,
+                                         self._src_tables)
+        _, sig, ab = self._src_tables
+        dt, i32 = cfg.dtype, torch.int32
+        n = np.asarray(origin).shape[0]
+        given = {"origin": (origin, dt, (n, 3)), "elem": (elem, i32, (n,)),
+                 "weight": (weight, dt, (n,)), "group": (group, i32, (n,))}
+        with self._step("capacity"):
+            cap = self._source_capacity(n, src)
+        t = self._stage({k: v for k, v in given.items() if v[0] is not None})
+        dev = self.device
+        if "weight" not in t:
+            t["weight"] = torch.ones(n, dtype=dt, device=dev)
+        if "group" not in t:
+            t["group"] = torch.zeros(n, dtype=i32, device=dev)
+        with self._step("megastep"):
+            out = megastep(
+                self.mesh, t["origin"], t["elem"],
+                torch.full((n,), -1, dtype=i32, device=dev), t["weight"],
+                t["group"], torch.ones(n, dtype=torch.bool, device=dev),
+                torch.arange(n, dtype=i32, device=dev), self.flux, 0,
+                prng_key(src.seed), sig, ab, n_moves=int(n_moves),
+                n_groups=cfg.n_groups,
+                survival_weight=float(src.survival_weight),
+                downscatter=float(src.downscatter),
+                eps_near=near_epsilon(self.mesh.coords),
+                max_crossings=cfg.resolve_max_crossings(self.mesh.ntet),
+                score_squares=cfg.score_squares, tolerance=cfg.tolerance,
+                robust=cfg.robust, ledger=cfg.ledger, stats=cfg.walk_stats,
+                capacity=cap,
+            )
+        if out.n_records is not None:
+            self._records = out.n_records
+        entry = (self._n_submitted, n, None, None, None, None, None, None)
+        if self.want_outputs:
+            with self._step("readback"):
+                entry = (self._n_submitted, n,
+                         *self._read_back_source(out))
+        self._inflight.append(entry)
+        self._n_submitted += 1
+        while len(self._inflight) > self.depth:
+            self._drain_one()
+
+    def _source_capacity(self, n: int, src) -> int | None:
+        """The first walk's record buffers of a source batch on the card:
+        from the last walk's records, or from the least Σt of the mesh's
+        regions (each lane's mean flight crosses ``face_rate / Σt``
+        faces)."""
+        if not self._cuda:
+            return None
+        if self._records is not None:
+            return walk_cuda.record_capacity(n, self._records)
+        from ..ops.source import least_sigma_t
+
+        if self._face_rate is None:
+            self._face_rate = walk_cuda.face_rate(self.mesh)
+        return walk_cuda.record_capacity(n, walk_cuda.source_records(
+            self._face_rate, n, least_sigma_t(src, self.mesh.class_values)))
+
+    def _read_back_source(self, out):
+        """A source batch's tail, positions, elements and material ids,
+        copied into pinned buffers without waiting (as ``_read_back``)."""
+        outs = [out.readback, out.position, out.elem, out.material_id]
+        if not self._cuda:
+            return (*outs, None, "source")
+        hosts = []
+        for name, t in zip(("tail", "pos_out", "elem_out", "mat_out"), outs):
+            buf = self._stager.buf(t.shape, t.dtype, name)
+            buf.copy_(t, non_blocking=True)
+            hosts.append(buf)
+        done = torch.cuda.Event()
+        done.record()
+        return (*hosts, done, "source")
+
+    def _drain_megastep(self, idx, tail, pos, elem, mats, done) -> None:
+        """Drain one ``submit_source`` batch: its tail's stats and physics,
+        and its per-lane outputs. A batch is done only when every particle
+        terminated (absorbed, escaped or rouletted) and no walk was cut
+        short: lanes alive when ``n_moves`` ran out are unfinished work."""
+        from ..ops.source import phys_to_dict
+        from ..ops.staging import split_megastep_tail
+
+        cfg = self.config
+        with self._step("drain"):
+            if done is not None:
+                done.synchronize()
+            stail, _, _, phys = split_megastep_tail(
+                tail, cfg.dtype, cfg.walk_stats, False, False)
+            if cfg.walk_stats:
+                stats = stats_to_dict(stail)
+                segs = stats["segments"]
+            else:
+                stats, segs = None, int(stail[0])
+            p = phys_to_dict(phys)
+            self._results.append(BatchResult(
+                index=idx,
+                position=_owned(pos),
+                elem=_owned(elem),
+                material_id=_owned(mats),
+                n_segments=segs,
+                all_done=p["alive"] == 0 and p["truncated"] == 0,
+                stats=stats,
+                physics=p,
+            ))
 
     def results(self) -> Iterator[BatchResult]:
         """Results read back so far (lagging submissions by ``depth``)."""

@@ -155,6 +155,10 @@ class TallyTelemetry:
                 self._move_s.observe(float(seconds))
         if kind == "move":
             self._moves.inc()
+        elif kind == "megastep":
+            # One record covers the chunk's K device moves; the moves
+            # counter advances by K, so totals count moves in either loop.
+            self._moves.inc(int(extra.get("moves", 1)))
         if stats is not None:
             fields.update(stats)
             self._segments.inc(stats["segments"])

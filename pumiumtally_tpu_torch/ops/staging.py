@@ -39,8 +39,14 @@ After an element sort the device holds the particles in slot order:
 with the slot permutation ``perm`` as torch index ops on the card (the
 JAX package does them outside any kernel too).
 
-Not ported here: the integrity tail (A8), and the partitioned and
-megastep records (A9, A7). Asking for them raises NotImplementedError.
+The megastep's readback (``pack_megastep_tail``) is a tail alone: the
+chunk's stats vector (or segment count) int64-encoded, the last
+convergence summary and the physics vector (``ops/source.py``) as
+walk-dtype carrier words; per-lane state stays on the card between
+chunks, so one device→host copy of a few words ends a chunk.
+
+Not ported here: the integrity tail (A8) and the partitioned records
+(A9). Asking for them raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -309,3 +315,46 @@ def split_trace_readback(host_rec, n: int, dtype, integrity: bool = False,
     material = _dec_i32_host(material.view(np_carrier(dtype)),
                              np_carrier(dtype))
     return position, material, done != 0, tail, None, conv
+
+
+# --------------------------------------------------------------------- #
+# Megastep readback tail (device-sourced move loop)
+# --------------------------------------------------------------------- #
+def pack_megastep_tail(stats, n_segments, integrity, convergence, phys,
+                       dtype):
+    """The megastep's device-side readback: the chunk's stats reduction
+    (or, walk stats off, the segment count) int64-encoded, then the last
+    convergence summary (or nothing) and the [MEGA_PHYS_LEN] physics
+    vector as walk-dtype floats, as ONE flat carrier tensor. The
+    integrity slot is the JAX package's (A8)."""
+    if integrity is not None:
+        _no_integrity()
+    carrier = torch_carrier(dtype)
+    tail_src = stats if stats is not None else n_segments.reshape(1)
+    parts = [tail_src.to(torch.int64).view(carrier)]
+    if convergence is not None:
+        parts.append(convergence.to(dtype).view(carrier))
+    parts.append(phys.to(dtype).view(carrier))
+    return torch.cat(parts)
+
+
+def split_megastep_tail(host_vec, dtype, walk_stats: bool,
+                        integrity: bool, convergence: bool):
+    """Host-side inverse of ``pack_megastep_tail``. Returns ``(tail int64
+    array: the stats vector or [n_segments], None (the integrity slot),
+    convergence float64 vector or None, phys float64 vector)``."""
+    from .source import MEGA_PHYS_LEN
+
+    if integrity:
+        _no_integrity()
+    if isinstance(host_vec, torch.Tensor):
+        host_vec = host_vec.numpy()
+    npdt = np.dtype(_NP_FLOAT.get(dtype, dtype))
+    words = np.asarray(host_vec).view(np_carrier(dtype))
+    phys = _dec_f_host(words[-MEGA_PHYS_LEN:], npdt).astype(np.float64)
+    words = words[:-MEGA_PHYS_LEN]
+    conv = None
+    if convergence:
+        conv = _dec_f_host(words[-CONV_LEN:], npdt).astype(np.float64)
+        words = words[:-CONV_LEN]
+    return _dec_i64_host(words), None, conv, phys

@@ -735,3 +735,202 @@ def rewalk_truncated(mesh, result: TraceResult, dest, weight, group, *,
         result = merge_rewalk(result, r2)
     n_lost = int((~result.done).sum())
     return result, n_retried, n_lost
+
+
+# --------------------------------------------------------------------- #
+# Megastep: K device-sourced moves a chunk
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass
+class MegastepResult:
+    """Outputs of one megastep chunk (the flux, ``prev_even`` and the
+    convergence state are updated in place). The per-lane state stays on
+    the device for the next chunk; ``readback`` (the packed stats,
+    convergence and physics tail, ``staging.pack_megastep_tail``) is what
+    the host copies. ``n_records`` is the last walk's tally records on the
+    card (a host int the walk read anyway; None on the CPU): the next
+    chunk's first walk sizes its record buffers from it."""
+
+    position: torch.Tensor
+    dest: torch.Tensor
+    elem: torch.Tensor
+    material_id: torch.Tensor
+    weight: torch.Tensor
+    group: torch.Tensor
+    alive: torch.Tensor
+    flux: torch.Tensor
+    readback: torch.Tensor
+    n_records: int | None = None
+
+
+def merge_megastep_stats(acc, stats):
+    """Fold one fused move's stats vector into the chunk's: sums
+    everywhere, the max of ``max_crossings``, and ``truncated`` summed
+    (each fused move's truncation is a lane that would have warned on the
+    per-move facade)."""
+    out = acc + stats
+    out[_MAX_CROSS] = torch.maximum(acc[_MAX_CROSS], stats[_MAX_CROSS])
+    return out
+
+
+def megastep(
+    mesh,
+    origin,
+    elem,
+    material_id,
+    weight,
+    group,
+    alive,
+    pid,
+    flux,
+    move0: int,
+    rng_key,
+    sigma_t,
+    absorb_t,
+    prev_even=None,
+    conv_state=None,
+    *,
+    n_moves: int,
+    n_groups: int,
+    survival_weight: float,
+    downscatter: float,
+    eps_near: float,
+    max_crossings: int,
+    score_squares: bool = True,
+    tolerance: float = 1e-8,
+    compact_after: int | None = None,
+    compact_size: int | None = None,
+    compact_stages=None,
+    unroll: int = 1,
+    robust: bool = True,
+    tally_scatter: str = "auto",
+    gathers: str = "merged",
+    ledger: bool = True,
+    stats: bool = True,
+    integrity: bool = False,
+    rel_err_target: float = 0.05,
+    batch_moves: int = 1,
+    capacity: int | None = None,
+    draws=None,
+    clock=None,
+    plain: bool = False,
+) -> MegastepResult:
+    """Run ``n_moves`` device-sourced moves, counterpart of
+    ``pumiumtally_tpu/ops/walk.py::megastep_impl`` with its arguments in
+    its order and meaning.
+
+    Each fused move ``m = move0 + k``: every lane draws its flight keyed
+    by ``(rng_key, m, pid)`` over its region's Σt
+    (``ops/source_cuda.py::sample_flight``: the kernel ``csrc/source.cu``
+    on the card, the plain version on the CPU; dead lanes keep their
+    origin), the walk moves the alive lanes (``walk_cuda.trace``: the
+    walk kernel and the ordered scatter on the card, the plain walk on the
+    CPU), the physics of ``ops/source.py::apply_physics`` runs with the
+    absorption of each lane's final region, then the batch-sd fold
+    (``prev_even``) and the convergence fold (``conv_state``) once per
+    fused move, and ``n_trunc = Σ(alive & ~done)``.
+
+    ``move0`` is the facade's move counter, a host int that reaches the
+    kernel as its move key (an argument, not a copy); ``rng_key`` the
+    seed's key words (``source.prng_key``); ``pid`` the particle-id lane.
+    Per-lane state, the flux (updated in place), ``prev_even`` and the
+    accumulators stay on the device between moves; nothing is read to the
+    host but what the walk itself reads (its record count and bucket
+    information on the card), so K moves are a host loop of K moves: the
+    bits are those of K calls of one move, and K saves no launches
+    (ROADMAP.md B2 is the graph capture).
+
+    The compaction, unroll, scatter and gather knobs schedule the JAX
+    walk only and are ignored; ``integrity`` (A8) must be False.
+    ``capacity`` sizes the first walk's record buffers on the card; later
+    walks take the previous walk's record count. ``draws``, a sequence of
+    ``(direction, ell, coll_u, roul_u)`` per fused move, replaces the
+    sampling (a test feeds the JAX package's draws). ``clock`` (a
+    ``utils/timing.py::StepClock``) times each step of each fused move
+    and notes the walk's two host waits. ``plain`` runs the plain
+    sampling (``source.sample_flight_plain``) and the plain walk
+    (``trace``) on whatever device the tensors are on: the kernels'
+    yardstick on the card."""
+    from ..core.tally import accumulate_batch_squares
+    from ..utils.timing import clock_step
+    from . import scatter, source_cuda, walk_cuda
+    from .source import (
+        MEGA_PHYS_LEN,
+        apply_physics,
+        flight_dest,
+        fold_in,
+        lane_sigma,
+        sample_flight_plain,
+    )
+    from .staging import pack_megastep_tail
+
+    if integrity:
+        raise NotImplementedError(
+            "the megastep's integrity tail is not ported yet (ROADMAP.md A8)")
+    dtype, dev = origin.dtype, origin.device
+    n = origin.shape[0]
+    walk_kw = dict(initial=False, max_crossings=max_crossings,
+                   n_groups=n_groups, score_squares=score_squares,
+                   tolerance=tolerance, robust=robust, ledger=ledger,
+                   stats=stats)
+    phys_kw = dict(eps_near=eps_near, survival_weight=survival_weight,
+                   downscatter=downscatter, n_groups=n_groups)
+    sacc = (torch.zeros(len(WALK_STATS_FIELDS), dtype=torch.int64,
+                        device=dev) if stats else None)
+    cvec = None
+    pacc = torch.zeros(MEGA_PHYS_LEN, dtype=dtype, device=dev)
+    nseg = torch.zeros((), dtype=torch.int64, device=dev)
+    alive = alive.to(torch.bool)
+    mat, dest, records = material_id, origin, None
+    for k in range(n_moves):
+        with clock_step(clock, "sample"):
+            if draws is None:
+                sample = (sample_flight_plain if plain
+                          else source_cuda.sample_flight)
+                dest, coll_u, roul_u = sample(
+                    fold_in(rng_key, move0 + k), pid, n, elem, alive,
+                    origin, mesh.class_id, sigma_t)
+            else:
+                direction, ell, coll_u, roul_u = draws[k]
+                dest = flight_dest(origin, direction, ell,
+                                   lane_sigma(mesh.class_id, elem, sigma_t),
+                                   alive)
+        with clock_step(clock, "walk"):
+            if plain:
+                r = trace(mesh, origin, dest, elem, alive, weight, group,
+                          mat, flux, **walk_kw)
+            else:
+                r = walk_cuda.trace(mesh, origin, dest, elem, alive, weight,
+                                    group, mat, flux, capacity=capacity,
+                                    **walk_kw)
+        if clock is not None and dev.type == "cuda" and not plain:
+            clock.note("count_wait", walk_cuda.LAST_WAIT_S)
+            clock.note("bucket_wait", scatter.LAST_BUCKETS.get("wait_s", 0.0))
+        with clock_step(clock, "physics"):
+            absorb = lane_sigma(mesh.class_id, r.elem, absorb_t)
+            weight, group, alive2, phys4 = apply_physics(
+                r.position, dest, r.done, r.material_id, weight, group,
+                alive, absorb, coll_u, roul_u, **phys_kw)
+        with clock_step(clock, "folds"):
+            if prev_even is not None:
+                accumulate_batch_squares(flux, prev_even)
+            if sacc is not None:
+                sacc = merge_megastep_stats(sacc, r.stats)
+            if conv_state is not None:
+                cvec = fold_and_reduce(flux, conv_state,
+                                       batch_moves=batch_moves,
+                                       rel_err_target=rel_err_target)
+            n_trunc = (alive & ~r.done).sum().to(dtype)
+            pacc = torch.cat([pacc[:4] + phys4,
+                              alive2.sum().to(dtype).reshape(1),
+                              (pacc[5] + n_trunc).reshape(1)])
+            nseg = nseg + r.n_segments
+        origin, elem, mat, alive = r.position, r.elem, r.material_id, alive2
+        if r.n_records is not None:
+            records = r.n_records
+            capacity = walk_cuda.record_capacity(n, records)
+    readback = pack_megastep_tail(sacc, nseg, None, cvec, pacc, dtype)
+    return MegastepResult(
+        position=origin, dest=dest, elem=elem, material_id=mat,
+        weight=weight, group=group, alive=alive, flux=flux,
+        readback=readback, n_records=records,
+    )

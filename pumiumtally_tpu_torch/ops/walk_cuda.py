@@ -33,9 +33,9 @@ launch spent waiting at its one host read, the record count.
 
 The ordered scatter takes at most 2^31 − 1 records a call
 (``check_record_count``): a walk that makes more raises before its
-records reach the scatter. ``record_capacity``, ``face_rate`` and
-``path_records`` size an ordered walk's record buffers from an estimate
-on the host; ``trace_packed`` is ``trace`` between the move-loop records
+records reach the scatter. ``record_capacity``, ``face_rate``,
+``path_records`` and ``source_records`` size an ordered walk's record
+buffers from an estimate on the host; ``trace_packed`` is ``trace`` between the move-loop records
 of ``ops/staging.py``; ``rewalk_truncated`` walks a move's truncated
 lanes again.
 
@@ -336,6 +336,13 @@ def path_records(rate: float, origin, dest, in_flight,
          - np.asarray(origin, np.float64)[::k])
     path = np.sqrt((d * d).sum(axis=1))[fly[::k]].sum() * (n / len(d))
     return int(fly.sum()) + rate * float(path)
+
+
+def source_records(rate: float, lanes: int, sigma_min: float) -> float:
+    """An estimate of the records a device-sourced move makes: a segment
+    per lane plus the faces (``face_rate``) a mean flight of the longest
+    mean free path 1/``sigma_min`` crosses."""
+    return lanes * (1.0 + rate / max(sigma_min, 1e-30))
 
 
 def _walk_ordered(*args, capacity, **kw):

@@ -15,14 +15,24 @@ packages. What the port does with each field:
 * read by the walk's feature tails: ``record_xpoints`` (the intersection
   points), ``sort_by_element`` with ``migration_period`` (the periodic
   element sort) and ``checkify_invariants`` (the walk's invariant checks);
+* read by the device-sourced move loop: ``megastep``
+  (``resolve_megastep``, the moves a ``run_source_moves`` chunk runs);
 * accepted and ignored, because in the JAX package they only schedule the
   same arithmetic (straggler compaction, loop unrolling, scatter and
   gather strategies): ``compact_after``, ``compact_size``,
-  ``compact_stages``, ``unroll``, ``tally_scatter``, ``gathers``. One
+  ``compact_stages``, ``unroll``, ``tally_scatter``, ``gathers``, with
+  the JAX package's refusals of unknown values (``tally_scatter``,
+  ``gathers`` and a ``compact_stages`` string, at construction). One
   difference shows at the crossing bound: the JAX walk tests
   ``max_crossings`` once per block of ``unroll`` iterations, the port
   every iteration (as the JAX walk with ``unroll=1``), so with a bound
   small enough to truncate walks the JAX walk lets lanes run past it;
+* accepted with the JAX package's validation and refusals, and then
+  ignored: ``kernel`` ("xla", "pallas" or "auto", env
+  ``PUMI_TPU_KERNEL``; ``resolve_kernel``) and ``pallas_lane_block``
+  (``resolve_lane_block``). The JAX package selects between two walk
+  backends with them; the port has one walk, whatever the value: the
+  plain PyTorch walk on the CPU and ``csrc/walk.cu`` on the card;
 * every other field is a feature the port does not have yet: setting it
   away from its default raises ``NotImplementedError`` naming the
   ROADMAP.md item that ports it. Nothing computes something else
@@ -48,12 +58,12 @@ _UNPORTED = {
     "audit_tol": "A8 (integrity audit)",
     "audit_seed": "A8 (integrity audit)",
     "move_deadline_s": "A8 (watchdog)",
-    "megastep": "A7 (megastep)",
-    "kernel": "B1 (the port's walk kernel is csrc/walk.cu; there is no "
-              "Pallas backend to select)",
-    "pallas_lane_block": "B1 (no Pallas backend)",
     "tuning": "A10 (tuning)",
 }
+KERNELS = ("xla", "pallas", "auto")
+TALLY_SCATTERS = ("auto", "interleaved", "pair")
+GATHERS = ("merged", "split")
+COMPACT_STAGE_NAMES = ("auto", "plan", "adaptive")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,6 +135,123 @@ class TallyConfig:
                 "truncation_retries must be >= 0: "
                 f"{self.truncation_retries}"
             )
+        # The scheduling knobs are ignored, but a value the JAX package
+        # refuses is refused here too, with its message.
+        if self.tally_scatter not in TALLY_SCATTERS:
+            raise ValueError(
+                f"tally_scatter must be 'auto', 'interleaved' or 'pair': "
+                f"{self.tally_scatter!r}"
+            )
+        if self.gathers not in GATHERS:
+            raise ValueError(
+                f"gathers must be 'merged' or 'split': {self.gathers!r}")
+        if (isinstance(self.compact_stages, str)
+                and self.compact_stages not in COMPACT_STAGE_NAMES):
+            raise ValueError(
+                "unknown compact_stages string "
+                f"{self.compact_stages!r}; expected 'auto', 'plan', "
+                "'adaptive' or an explicit "
+                "((start, size[, unroll]), ...) schedule"
+            )
+
+    def resolve_kernel(self) -> str:
+        """The walk-backend knob as the JAX package resolves it ("xla",
+        "pallas" or "auto"; env ``PUMI_TPU_KERNEL`` beats the field),
+        with its resolve-time refusals: an explicit "pallas" with
+        ``record_xpoints``, ``checkify_invariants`` or ``megastep``
+        raises ValueError, and an env-forced "pallas" over such a config
+        resolves to "xla". The port has one walk whatever the value."""
+        env = os.environ.get("PUMI_TPU_KERNEL")
+        kernel = env or self.kernel
+        if kernel not in KERNELS:
+            raise ValueError(
+                f"kernel must be 'xla', 'pallas' or 'auto': {kernel!r}"
+            )
+        if kernel != "pallas":
+            return kernel
+        conflict = None
+        if self.record_xpoints is not None:
+            conflict = (
+                "kernel='pallas' cannot record intersection points "
+                "(the Mosaic kernel keeps no per-crossing recording "
+                "buffers); use kernel='xla' or drop record_xpoints"
+            )
+        elif self.checkify_invariants:
+            conflict = (
+                "kernel='pallas' cannot thread checkify device "
+                "asserts through the Mosaic kernel; use "
+                "kernel='xla' or drop checkify_invariants"
+            )
+        elif self.megastep is not None:
+            conflict = (
+                "kernel='pallas' does not compose with the fused "
+                "megastep program (megastep=K fuses source sampling "
+                "+ walk + physics into one scanned XLA body); use "
+                "kernel='xla' for device-sourced megastep runs, or "
+                "drop megastep and drive per-move dispatches"
+            )
+        if conflict is None:
+            return kernel
+        if env and self.kernel != "pallas":
+            return "xla"
+        raise ValueError(conflict)
+
+    def resolve_lane_block(self, n_particles: int | None = None
+                           ) -> int | None:
+        """The Pallas block width as the JAX package validates it (env
+        ``PUMI_TPU_PALLAS_LANE_BLOCK`` beats the field; a positive power
+        of two, clamped to the batch), or None. The port's walk ignores
+        it."""
+        env = os.environ.get("PUMI_TPU_PALLAS_LANE_BLOCK")
+        if env:
+            lb = int(env)
+        elif self.pallas_lane_block is not None:
+            lb = int(self.pallas_lane_block)
+        else:
+            return None
+        if lb < 1 or (lb & (lb - 1)) != 0:
+            raise ValueError(
+                f"pallas_lane_block must be a positive power of two "
+                f"(the one-hot block tiles the MXU): {lb}"
+            )
+        if n_particles is not None:
+            lb = min(lb, max(int(n_particles), 1))
+        return lb
+
+    def resolve_megastep(self, *, tuned=None) -> int:
+        """The moves a ``run_source_moves`` chunk runs, K: env
+        ``PUMI_TPU_MEGASTEP`` beats the field, the field beats ``tuned``
+        (a tuning decision with a ``megastep`` attribute; None until the
+        tuning database is ported, ROADMAP.md A10), else 1. Any K gives
+        the same bits as K = 1. Recorded intersection points and the
+        invariant checks are per-move facade surfaces, refused here for
+        any K, as in the JAX package."""
+        env = os.environ.get("PUMI_TPU_MEGASTEP")
+        if env:
+            k = int(env)
+        elif self.megastep is not None:
+            k = int(self.megastep)
+        elif tuned is not None and tuned.megastep:
+            k = int(tuned.megastep)
+        else:
+            k = 1
+        if k < 1:
+            raise ValueError(f"megastep must be >= 1: {k}")
+        if self.record_xpoints is not None:
+            raise ValueError(
+                "the device-sourced megastep program cannot record "
+                "intersection points (record_xpoints); use the per-move "
+                "facade path (move_to_next_location) or drop "
+                "record_xpoints"
+            )
+        if self.checkify_invariants:
+            raise ValueError(
+                "the device-sourced megastep program cannot thread "
+                "checkify device asserts (checkify_invariants); use the "
+                "per-move facade path (move_to_next_location) or drop "
+                "checkify_invariants"
+            )
+        return k
 
     def resolve_convergence(self) -> int | None:
         """Validate the convergence knobs and return the moves per batch

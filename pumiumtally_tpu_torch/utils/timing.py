@@ -75,6 +75,11 @@ class StepClock:
                 b.record()
             self._rows.append((name, host, (a, b) if cuda else None))
 
+    def note(self, name: str, host_s: float) -> None:
+        """A row of a host time measured elsewhere (a wait inside a
+        wrapper), with no stream span."""
+        self._rows.append((name, host_s, None))
+
     def rows(self) -> list[dict]:
         """``{"step", "host_ms", "stream_ms"}`` per step in call order
         (``stream_ms`` is None off the card); clears the clock."""

@@ -416,14 +416,124 @@ def test_mesh_dtype_must_match_config():
     ("integrity", "warn"),
     ("audit_lanes", 8),
     ("move_deadline_s", 5.0),
-    ("megastep", 4),
-    ("kernel", "pallas"),
-    ("pallas_lane_block", 256),
     ("tuning", "TUNING.json"),
 ])
 def test_unported_config_fields_refused(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TallyConfig(**{field: value})
+
+
+def _same_outcome(port_call, jax_call):
+    """Both calls return the same value, or both raise ValueError with the
+    same message."""
+    try:
+        want = jax_call()
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            port_call()
+        assert str(got.value) == str(e)
+        return
+    assert port_call() == want
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kernel="xla"),
+    dict(kernel="pallas"),
+    dict(kernel="auto"),
+    dict(kernel="mosaic"),
+    dict(kernel="pallas", record_xpoints=4),
+    dict(kernel="pallas", checkify_invariants=True),
+    dict(kernel="pallas", megastep=4),
+    dict(kernel="auto", megastep=4),
+    dict(pallas_lane_block=256),
+    dict(pallas_lane_block=100),
+    dict(pallas_lane_block=0),
+    dict(megastep=3),
+    dict(megastep=0),
+    dict(megastep=2, record_xpoints=4),
+    dict(megastep=2, checkify_invariants=True),
+])
+def test_walk_backend_knobs_like_jax(kw):
+    """``kernel``, ``pallas_lane_block`` and ``megastep`` construct as in
+    the JAX package, and resolve to its values or raise its messages
+    (``resolve_kernel``, ``resolve_lane_block`` clamped to a batch of 64,
+    ``resolve_megastep``). The port has one walk whatever the kernel."""
+    port, ref = TallyConfig(**kw), jpt.TallyConfig(**kw)
+    _same_outcome(port.resolve_kernel, ref.resolve_kernel)
+    _same_outcome(lambda: port.resolve_lane_block(64),
+                  lambda: ref.resolve_lane_block(64))
+    _same_outcome(port.resolve_megastep, ref.resolve_megastep)
+
+
+@pytest.mark.parametrize("env,kw", [
+    ("pallas", dict(kernel="xla")),
+    ("pallas", dict(record_xpoints=4)),
+    ("pallas", dict(checkify_invariants=True)),
+    ("pallas", dict(kernel="pallas", record_xpoints=4)),
+    ("bogus", dict()),
+])
+def test_kernel_env_override_like_jax(monkeypatch, env, kw):
+    """``PUMI_TPU_KERNEL`` beats the field; an env-forced 'pallas' over a
+    debug surface resolves to 'xla', the same conflict in the config
+    raises (tests/test_kernel_pallas.py's policy tests)."""
+    monkeypatch.setenv("PUMI_TPU_KERNEL", env)
+    _same_outcome(TallyConfig(**kw).resolve_kernel,
+                  jpt.TallyConfig(**kw).resolve_kernel)
+
+
+def test_facade_construction_resolves_the_kernel_knob():
+    """A conflict written into the config fails at the facade's
+    construction, as in the JAX facade; a valid value constructs."""
+    mesh = build_box(device="cpu")
+    with pytest.raises(ValueError, match="intersection points"):
+        PumiTally(mesh, 3, TallyConfig(kernel="pallas", record_xpoints=4),
+                  device="cpu")
+    t = PumiTally(mesh, 3, TallyConfig(kernel="auto", pallas_lane_block=8),
+                  device="cpu")
+    assert t._kernel_policy == "auto" and t._lane_block == 3
+
+
+@pytest.mark.parametrize("field,value,ok", [
+    ("tally_scatter", "auto", True),
+    ("tally_scatter", "interleaved", True),
+    ("tally_scatter", "pair", True),
+    ("tally_scatter", "scalar", False),
+    ("gathers", "merged", True),
+    ("gathers", "split", True),
+    ("gathers", "fused", False),
+    ("compact_stages", "auto", True),
+    ("compact_stages", "plan", True),
+    ("compact_stages", "adaptive", True),
+    ("compact_stages", ((16, 256),), True),
+    ("compact_stages", "ladder", False),
+])
+def test_scheduling_knobs_refused_like_jax(field, value, ok):
+    """The ignored scheduling knobs refuse what the JAX package refuses,
+    with its message: ``tally_scatter`` and ``gathers`` as its walk does
+    (ops/walk.py), a ``compact_stages`` string as
+    ``resolve_compact_stages`` does; the port refuses at construction."""
+    if ok:
+        TallyConfig(**{field: value})
+        return
+    if field == "compact_stages":
+        with pytest.raises(ValueError) as want:
+            jpt.TallyConfig(compact_stages=value).resolve_compact_stages(
+                2048)
+    else:
+        jmesh = jpt.build_box()
+        n = 1
+        args = (jmesh, jnp.zeros((n, 3)), jnp.zeros((n, 3)),
+                jnp.zeros(n, jnp.int32), jnp.ones(n, bool), jnp.ones(n),
+                jnp.zeros(n, jnp.int32), jnp.zeros(n, jnp.int32),
+                jnp.zeros(jmesh.ntet * 2 * 2))
+        from pumiumtally_tpu.ops.walk import trace_impl
+
+        with pytest.raises(ValueError) as want:
+            trace_impl(*args, initial=False, max_crossings=8, n_groups=2,
+                       **{field: value})
+    with pytest.raises(ValueError) as got:
+        TallyConfig(**{field: value})
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("kw", [

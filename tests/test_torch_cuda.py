@@ -1051,3 +1051,76 @@ def test_sort_on_card_across_modes_and_runs(cuda):
         assert np.array_equal(t.raw_flux, base.raw_flux)
     np.testing.assert_allclose(off.raw_flux, base.raw_flux, rtol=1e-4,
                                atol=1e-6)
+
+
+# --------------------------------------------------------------------- #
+# The device source (csrc/source.cu) and the megastep
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_sample_flight_kernel_matches_plain(cuda, dtype):
+    """The flight kernel's uniforms bitwise the plain threefry's, its
+    collision and roulette draws bitwise, its destinations within one ulp
+    of the plain version's on the card (cos, sin, log1p from the same
+    libdevice: expected bitwise), dead lanes at their origin."""
+    from pumiumtally_tpu_torch.ops import source, source_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    n = 20000
+    rng = np.random.default_rng(3)
+    pid = torch.from_numpy(np.arange(-1, n - 1, dtype=np.int32)).to(cuda)
+    elem = torch.from_numpy(rng.integers(0, mesh.ntet, n).astype(
+        np.int32)).to(cuda)
+    alive = torch.from_numpy(rng.uniform(size=n) < 0.8).to(cuda)
+    origin = mesh.centroids()[elem.long()].contiguous()
+    sig = torch.tensor([3.0, 7.0], dtype=dtype, device=cuda)
+    key = source.fold_in(source.prng_key(2**33 + 7), 5)
+    u = torch.empty(n, 5, dtype=dtype, device=cuda)
+    before = source_cuda.LAUNCHES
+    dest, cu, ru = source_cuda.sample_flight(key, pid, n, elem, alive, origin,
+                                             mesh.class_id, sig, u_out=u)
+    torch.cuda.synchronize()
+    assert source_cuda.LAUNCHES == before + 1
+    want_u = source.lane_uniforms(key, pid, n, dtype)
+    assert torch.equal(u.view(torch.uint8), want_u.view(torch.uint8))
+    pd, pc, pr = source.sample_flight_plain(key, pid, n, elem, alive, origin,
+                                            mesh.class_id, sig)
+    assert torch.equal(cu, pc) and torch.equal(ru, pr)
+    assert torch.equal(dest[~alive], origin[~alive])
+    ulp = torch.finfo(dtype).eps * pd.abs().clamp_min(1.0)
+    assert ((dest - pd).abs() <= ulp).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_megastep_k_bitwise_on_card(cuda, dtype):
+    """run_source_moves with megastep=2 gives the bits of megastep=1 on
+    the card (the flux ordered), and launches the flight kernel once a
+    move."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import source, source_cuda
+
+    mesh = _jittered(8, dtype, cuda)
+    n = 4096
+    src = source.SourceParams(sigma_t={0: 4.0, 1: 9.0},
+                              absorption={0: 0.3, 1: 0.5},
+                              survival_weight=0.2, seed=13)
+    pos = np.random.default_rng(3).uniform(0.1, 0.9, (n, 3))
+
+    def run(k):
+        t = PumiTally(mesh, n, TallyConfig(n_groups=2, dtype=dtype,
+                                           megastep=k), device=cuda)
+        t.initialize_particle_location(pos.reshape(-1).copy())
+        before = source_cuda.LAUNCHES
+        out = t.run_source_moves(4, src, weights=np.ones(n),
+                                 groups=np.zeros(n, np.int32))
+        assert source_cuda.LAUNCHES - before == out["moves"] == 4
+        return t, out
+
+    a, oa = run(1)
+    b, ob = run(2)
+    for f in ("segments", "collisions", "escaped", "rouletted", "alive",
+              "truncated"):
+        assert oa[f] == ob[f], f
+    assert torch.equal(a.flux, b.flux)
+    for f in ("origin", "elem", "material_id", "weight", "group",
+              "in_flight"):
+        assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f

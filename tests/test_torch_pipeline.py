@@ -161,10 +161,17 @@ def test_pipeline_defaults_and_walk_stats_off(meshes):
 
 
 def test_pipeline_unported_surfaces(meshes):
+    """``submit_source`` runs a device-sourced batch (the megastep, A7)
+    and drains with its physics counters; ``shape_keys`` stays empty
+    until the tuning shapes are ported (A10)."""
     _, mesh = meshes
     pipe = StreamingTallyPipeline(mesh, TallyConfig(dtype=DTYPE))
-    with pytest.raises(NotImplementedError, match="A7"):
-        pipe.submit_source(np.zeros((2, 3)), np.zeros(2, np.int32), 3)
+    cents = mesh.centroids().numpy()
+    pipe.submit_source(cents[:2], np.arange(2, dtype=np.int32), 3)
+    pipe.finish()
+    (r,) = pipe.results()
+    assert r.physics is not None and r.physics["alive"] >= 0
+    assert r.position.shape == (2, 3) and r.shape_key is None
     assert pipe.shape_keys() == {}
     assert BatchResult._fields[-1] == "shape_key"
 
