@@ -1284,20 +1284,26 @@ def check_sass(libs: list[str]) -> None:
             raise AssertionError(f"{kernel}: no vector reduction in its SASS")
 
 
-def device_kernels(fn, calls: int = 3) -> list:
+def device_kernels(fn, calls: int = 3, tries: int = 3) -> list:
     """torch.profiler's device events of ``calls`` calls of ``fn`` after a
     warm-up, by name: (name, device ms per event, events). CUPTI may drop
-    an event, so a kernel's time is the mean over the events it kept."""
+    an event, so a kernel's time is the mean over the events it kept; a
+    trace that kept no device event at all is taken again, at most
+    ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if rows:
+            break
     return [(e.key, e.self_device_time_total / e.count / 1e3, e.count)
-            for e in device_rows(prof)]
+            for e in rows]
 
 
 SCHEDULE_KERNEL_NAMES = ("lane_count", "lane_scan", "lane_place")
@@ -2273,37 +2279,37 @@ def megastep_full(mesh) -> dict:
     return runs
 
 
-def transport_run(driver, tally) -> dict:
-    """One megastep batch of the transport driver to its end: the batch's
+def transport_run(sim, tally) -> dict:
+    """One megastep batch of ``SyntheticTransport`` to its end: the batch's
     moves, segments and the host clock of its source moves (the tally's
     ``total_time_to_tally``; the initial search apart)."""
-    moves0, segs0 = driver.stats.events, tally.total_segments
+    moves0, segs0 = sim.stats.events, tally.total_segments
     t_tally0 = tally.tally_times.total_time_to_tally
     t0 = time.perf_counter()
-    driver.run_batch()
+    sim.run_batch()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     secs = tally.tally_times.total_time_to_tally - t_tally0
-    moves = driver.stats.events - moves0
+    moves = sim.stats.events - moves0
     segs = tally.total_segments - segs0
     return dict(moves=moves, segments=segs, secs=secs, wall=wall,
                 moves_per_s=moves / secs, segments_per_s=segs / secs)
 
 
-def host_events(driver, tally, events: int) -> dict:
+def host_events(sim, tally, events: int) -> dict:
     """``events`` host-mode advance events of a fresh batch (the OpenMC
     call pattern through the packed facade), each on the host clock."""
     from pumiumtally_tpu_torch.utils.timing import StepClock
 
-    pos = driver.start_batch()
-    st = driver.host_state(pos)
+    pos = sim.start_batch()
+    st = sim.host_state(pos)
     secs, segs, facade, moves = [], [], [], []
     tally.step_clock = StepClock(DEVICE)
     for _ in range(events):
         seg0 = tally.total_segments
         f0 = tally.tally_times.total_time_to_tally
         t0 = time.perf_counter()
-        if not driver.host_event(st):
+        if not sim.host_event(st):
             break
         secs.append(time.perf_counter() - t0)
         facade.append(tally.tally_times.total_time_to_tally - f0)
@@ -2337,15 +2343,15 @@ def phase_transport() -> dict:
             for c in range(1, TRANSPORT_LATTICE ** 2 + 1)}
     n = MAIN_PARTICLES
 
-    def driver(mode, seed):
+    def transport(mode, seed):
         tally = PumiTally(mesh, n, TallyConfig(n_groups=2, megastep=MEGA_K),
                           device=DEVICE)
         return tally, SyntheticTransport(tally, materials=mats, seed=seed,
                                          max_events=TRANSPORT_EVENTS,
                                          mode=mode)
 
-    mt, md = driver("megastep", 5)
-    ht, hd = driver("host", 5)
+    mt, md = transport("megastep", 5)
+    ht, hd = transport("host", 5)
     out = dict(megastep=[], host=[], regions=regions)
     for turn in ("megastep", "host", "host", "megastep"):
         if turn == "megastep":

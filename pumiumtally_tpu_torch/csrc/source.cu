@@ -95,8 +95,9 @@ template <> struct Real<double> {
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-sample_flight_kernel(uint32_t mk0, uint32_t mk1, const int32_t* __restrict__ pid,
-                     int n_total, const int32_t* __restrict__ elem,
+sample_flight_kernel(uint32_t mk0, uint32_t mk1,
+                     const int32_t* __restrict__ pid, int n_total,
+                     const int32_t* __restrict__ elem,
                      const uint8_t* __restrict__ alive,
                      const T* __restrict__ origin,
                      const int32_t* __restrict__ class_id, int ntet,

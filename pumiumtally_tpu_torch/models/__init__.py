@@ -1,2 +1,2 @@
 """Models built on the walk: the streaming batch pipeline, the benchmark
-problems and the synthetic transport driver."""
+problems and the synthetic transport loop."""

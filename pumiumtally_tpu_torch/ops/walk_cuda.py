@@ -35,9 +35,9 @@ The ordered scatter takes at most 2^31 − 1 records a call
 (``check_record_count``): a walk that makes more raises before its
 records reach the scatter. ``record_capacity``, ``face_rate``,
 ``path_records`` and ``source_records`` size an ordered walk's record
-buffers from an estimate on the host; ``trace_packed`` is ``trace`` between the move-loop records
-of ``ops/staging.py``; ``rewalk_truncated`` walks a move's truncated
-lanes again.
+buffers from an estimate on the host; ``trace_packed`` is ``trace``
+between the move-loop records of ``ops/staging.py``;
+``rewalk_truncated`` walks a move's truncated lanes again.
 
 The feature tails (``record_xpoints``, ``xpoints``, ``debug_checks``, as
 in ``ops/walk.py::trace``) take the kernel's feature instantiation, for

@@ -1,11 +1,11 @@
-"""The port's synthetic transport driver (``pumiumtally_tpu_torch/models/
+"""The port's synthetic transport (``pumiumtally_tpu_torch/models/
 transport.py``) on ``device="cpu"``, mirroring tests/test_transport.py in
 both drive modes: the smoke on a two-region box (both regions flown,
 downscatter filling group 1, escapes or roulette kills, the ``.vtu``
 written; ``slow`` as there) and the track-length envelope. Host mode
-draws with numpy, so the port's driver and the JAX package's, from one
-seed, make the same moves: their counters are equal and their fluxes
-agree at the parity bar."""
+draws with numpy, so the port's SyntheticTransport and the JAX package's,
+from one seed, make the same moves: their counters are equal and their
+fluxes agree at the parity bar."""
 from __future__ import annotations
 
 import os
@@ -43,11 +43,11 @@ def test_transport_smoke(tmp_path, mode):
     mesh = _two_region_mesh()
     tally = PumiTally(mesh, 64, TallyConfig(n_groups=2, tolerance=1e-6),
                       device="cpu")
-    driver = SyntheticTransport(
+    sim = SyntheticTransport(
         tally, materials={0: Material(2.0, 0.4), 1: Material(8.0, 0.6)},
         seed=3, mode=mode)
     out = str(tmp_path / "flux.vtu")
-    stats = driver.run(batches=2, output=out)
+    stats = sim.run(batches=2, output=out)
     assert stats.batches == 2 and stats.events > 0
     assert stats.collisions > 0 and stats.absorbed_weight > 0
     assert stats.boundary_escapes + stats.roulette_kills > 0
@@ -65,10 +65,10 @@ def test_flux_tracks_track_length_envelope(mode):
     mesh = _two_region_mesh(3)
     tally = PumiTally(mesh, 32, TallyConfig(n_groups=2, tolerance=1e-6),
                       device="cpu")
-    driver = SyntheticTransport(tally, seed=11, mode=mode)
-    driver.run(batches=1)
+    sim = SyntheticTransport(tally, seed=11, mode=mode)
+    sim.run(batches=1)
     total = float(tally.raw_flux[..., 0].sum())
-    assert 0 < total <= (tally.num_particles * driver.stats.events
+    assert 0 < total <= (tally.num_particles * sim.stats.events
                          * np.sqrt(3))
 
 
@@ -80,7 +80,7 @@ def test_refuses_unknown_mode():
 
 def test_source_params_from_materials():
     """The Material map becomes the megastep's tables, with a seed drawn
-    per batch from the driver's numpy stream, as the JAX driver's."""
+    per batch from its numpy stream, as the JAX package's does."""
     tally = PumiTally(_two_region_mesh(2), 4, TallyConfig(), device="cpu")
     mats = {0: Material(2.0, 0.4), 1: Material(8.0, 0.6)}
     a = SyntheticTransport(tally, materials=mats, seed=5)
@@ -92,9 +92,10 @@ def test_source_params_from_materials():
     assert a._source_params().seed == b._source_params().seed
 
 
-def test_host_mode_matches_jax_driver():
-    """Host mode, the OpenMC call pattern: the port's driver and the JAX
-    driver, same numpy seed, same mesh (float64), one batch."""
+def test_host_mode_matches_jax_transport():
+    """Host mode, the OpenMC call pattern: the port's SyntheticTransport
+    and the JAX package's, same numpy seed, same mesh (float64), one
+    batch."""
     jmesh, pmesh = twin_meshes(torch.float64, nx=3, classes=(0, 1))
     mats = {0: Material(2.0, 0.4), 1: Material(8.0, 0.6)}
     jmats = {c: jtransport.Material(m.sigma_t, m.absorption)
