@@ -145,6 +145,27 @@ Phases, each of which raises (exit code != 0) on any failed check:
    ``Material(4.0, 0.5)``), 1,048,576 particles: a megastep batch to its
    end (K = 8, at most 1,000 events) and 4 host-mode events, in turns
    (megastep, host, host, megastep), moves/s and segments/s.
+15. integrity and resilience (``[resil]`` lines) at the main cell (the
+   main path's inputs, recorded once with the defaults; every run below
+   is held bitwise to that run's flux, positions, elements and
+   write-backs), launch counts zeroed before and read after: (a)
+   ``integrity="warn"`` with 64 audited lanes a move: 0 violations, 0
+   audit mismatches, one transfer each way a move (the audit's gather of
+   its 64 lanes is out of band), the conservation sums within 1e-5
+   relative of the host oracle from the write-backs and the residual
+   within ``conservation_tolerance``; the integrity vector's device ms
+   (CUDA events, median of 5) beside its bytes bound, the ``verify``
+   step's host ms, and the move's host ms with the checks off and on in
+   turns (off, on, on, off); (b) a checkpoint after move 2 restored into
+   a fresh tally, then moves 3-4: save and restore seconds and the file's
+   bytes; (c) ``ResilientRunner``: ``die_at_move:3`` and an auto-resume
+   from the store, a transient retried once, and ``bitflip_flux:2`` under
+   ``integrity="halt"`` caught as "flux" at move 3 with generation 2
+   flushed; (d) ``move_deadline_s`` on healthy moves: no timeout, the
+   move's host ms with the deadline off and on in turns; (e) the
+   megastep cell (K = 8) with integrity on: 0 violations, bitwise the
+   run without, and a checkpoint after 4 moves restored and run 4 more
+   moves ends where the 8 uninterrupted moves end.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -2393,6 +2414,437 @@ def phase_megastep(mesh) -> dict:
     return dict(full=full, transport=transport)
 
 
+# --------------------------------------------------------------------- #
+# Phase 15: integrity, checkpoints, the runner and the watchdog
+# --------------------------------------------------------------------- #
+RESIL_MOVES = 4
+RESIL_AUDIT = dict(integrity="warn", audit_lanes=64, audit_every=1)
+RESIL_REL = 1e-5  # the integrity sums against the host oracle, float32
+RESIL_DEADLINE_S = 30.0
+# The order of the runs a feature's cost is read from (on against off).
+RESIL_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
+
+
+def resil_tally(mesh, **kw):
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    return PumiTally(mesh, MAIN_PARTICLES,
+                     TallyConfig(n_groups=MAIN_GROUPS, **kw), device=DEVICE)
+
+
+def resil_record(mesh) -> dict:
+    """The main path's inputs (numpy seed 1: positions, then 4 moves of
+    isotropic flights from the previous write-backs) walked once with the
+    defaults: the inputs kept for every later run, the write-backs and
+    the end state to hold them to."""
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    rng = np.random.default_rng(1)
+    t = resil_tally(mesh)
+    pos = rng.uniform(0.05, 0.95, (n, 3))
+    t.initialize_particle_location(pos.reshape(-1))
+    prev, moves, outs = pos, [], []
+    for _ in range(RESIL_MOVES):
+        want, groups = main_move_inputs(rng, n, G, prev)
+        moves.append((want.reshape(-1).copy(), groups))
+        dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
+        t.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n),
+                                groups, mats)
+        outs.append((dest, mats))
+        prev = dest.reshape(n, 3).copy()
+    return dict(pos=pos, moves=moves, outs=outs, flux=t.flux.clone(),
+                origin=t.state.origin.clone(), elem=t.state.elem.clone())
+
+
+def resil_move(t, rec, i: int, run=None) -> tuple:
+    """Move ``i`` (0-based) of the recorded inputs through ``run`` (a
+    runner) or the tally; returns the write-backs and the host seconds."""
+    n = MAIN_PARTICLES
+    dest0, groups = rec["moves"][i]
+    dest, mats = dest0.copy(), np.zeros(n, np.int32)
+    t0 = time.perf_counter()
+    (run or t).move_to_next_location(dest, np.ones(n, np.int8), np.ones(n),
+                                     groups, mats)
+    return dest, mats, time.perf_counter() - t0
+
+
+def resil_same(t, rec, outs, label: str) -> None:
+    """The tally's flux, positions and elements, and the write-backs of
+    ``outs`` (the last moves), bitwise the recorded run's."""
+    if not torch.equal(t.flux, rec["flux"]):
+        raise AssertionError(f"[resil] {label}: flux differs")
+    if not (torch.equal(t.state.origin, rec["origin"])
+            and torch.equal(t.state.elem, rec["elem"])):
+        raise AssertionError(f"[resil] {label}: positions or elements "
+                             "differ")
+    for (d, m), (rd, rm) in zip(outs, rec["outs"][-len(outs):]):
+        if not (np.array_equal(d, rd) and np.array_equal(m, rm)):
+            raise AssertionError(f"[resil] {label}: write-backs differ")
+
+
+def resil_run(mesh, rec, runner_kw=None, **cfg) -> dict:
+    """The recorded inputs through a tally of ``cfg`` (under a
+    ResilientRunner with ``runner_kw`` when given); the moves' host
+    seconds, transfers and write-backs, and the tally."""
+    from pumiumtally_tpu_torch.resilience.runner import ResilientRunner
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    t = resil_tally(mesh, **cfg)
+    # Located before the runner wraps it: the runner then writes no
+    # generation 0 (a checkpoint write is seconds of one host thread).
+    t.initialize_particle_location(rec["pos"].reshape(-1))
+    run = (ResilientRunner(t, handle_signals=False, sleep=lambda s: None,
+                           **runner_kw) if runner_kw is not None else None)
+    t.step_clock = StepClock(DEVICE)
+    secs, outs, io, steps = [], [], [], []
+    for i in range(RESIL_MOVES):
+        io0 = dict(t.io)
+        d, m, sec = resil_move(t, rec, i, run)
+        secs.append(sec)
+        outs.append((d, m))
+        io.append({k: t.io[k] - io0[k] for k in io0})
+        steps.append({"steps": t.step_clock.rows()})
+    t.step_clock = None
+    return dict(tally=t, run=run, secs=secs, outs=outs, io=io, steps=steps)
+
+
+def resil_integrity(mesh, rec) -> dict:
+    """(a) integrity="warn" with 64 audited lanes a move: no violation, no
+    mismatch, the recorded run's bits, one copy each way a move (the
+    audit's gather of its lanes is out of band), the conservation sums
+    against the host oracle from the write-backs; the integrity vector's
+    device ms against its bytes bound; the move's host ms with the checks
+    on and off in turns."""
+    from pumiumtally_tpu_torch.integrity import invariants
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    n = MAIN_PARTICLES
+    a = resil_run(mesh, rec, **RESIL_AUDIT)
+    t = a["tally"]
+    tm = t.telemetry()
+    resil_same(t, rec, a["outs"], "integrity warn + audit")
+    if tm["integrity"]["violations"] or tm["integrity"]["audit_mismatches"]:
+        raise AssertionError(f"[resil] (a) violations {tm['integrity']}")
+    audited = tm["integrity"]["audited_lanes"]
+    if audited < RESIL_MOVES * RESIL_AUDIT["audit_lanes"] // 2:
+        raise AssertionError(f"[resil] (a) only {audited} lanes audited")
+    for i, io in enumerate(a["io"], 1):
+        if (io["h2d_transfers"], io["d2h_transfers"]) != (1, 1):
+            raise AssertionError(f"[resil] (a) move {i} transfers {io}")
+    tol = invariants.conservation_tolerance(
+        None, torch.float32, invariants.mesh_scale(mesh.coords.cpu()),
+        t.config.tolerance)
+    recs = [r for r in tm["per_move"] if r["kind"] == "integrity"
+            and r["move"] >= 1]
+    prev = rec["pos"].astype(np.float32).astype(np.float64)
+    worst = 0.0
+    for r, (d, _) in zip(recs, a["outs"]):
+        final = d.reshape(n, 3)
+        oracle = float(np.linalg.norm(final - prev, axis=1).sum())
+        for f in ("scored_wlen", "path_wlen"):
+            rel = abs(r[f] - oracle) / oracle
+            worst = max(worst, rel)
+            if not rel <= RESIL_REL:
+                raise AssertionError(f"[resil] (a) move {r['move']} {f} "
+                                     f"{r[f]} against oracle {oracle}")
+        if not r["max_residual"] <= tol or r["lanes_done"] != n:
+            raise AssertionError(f"[resil] (a) move {r['move']}: {r}")
+        prev = final
+    log(f"[resil] (a) integrity=warn, audit 64 lanes a move: moves "
+        f"1-{RESIL_MOVES} bitwise the run without, 0 violations, "
+        f"{audited} lanes audited, 0 mismatches; transfers a move "
+        f"{a['io'][1]}; sums against the host oracle rel <= {worst:.3e} "
+        f"(limit {RESIL_REL:g}); max_residual <= "
+        f"{max(r['max_residual'] for r in recs):.3e} (conservation_"
+        f"tolerance {tol:.3e}); last vector {recs[-1]}")
+    print_step_table("(a) integrity + audit, moves 1-4", a["steps"],
+                     tag="[resil]")
+    verify = [r["host_ms"] for m in a["steps"] for r in m["steps"]
+              if r["step"] == "verify"]
+    # The vector alone at full width: a move-1 walk's outputs.
+    s0 = resil_tally(mesh)
+    s0.initialize_particle_location(rec["pos"].reshape(-1))
+    st = s0.state
+    dest = torch.from_numpy(rec["moves"][0][0].reshape(n, 3)).to(
+        DEVICE, torch.float32)
+    fly = torch.ones(n, dtype=torch.bool, device=DEVICE)
+    w = torch.ones(n, device=DEVICE)
+    g = torch.from_numpy(rec["moves"][0][1]).to(DEVICE)
+    r = walk_cuda.trace(mesh, st.origin, dest, st.elem, fly, w, g,
+                        st.material_id, s0.flux, initial=False,
+                        max_crossings=s0._max_crossings,
+                        n_groups=MAIN_GROUPS, integrity=True)
+    args = (fly, r.done, w, r.track_length, r.position, st.origin, r.flux,
+            False)
+    vec = walk.integrity_vector(*args)
+    if not torch.equal(vec, r.integrity):
+        raise AssertionError("[resil] the vector differs from the walk's")
+    vec_ms = event_ms(lambda: walk.integrity_vector(*args))
+    profile_call("(a) integrity_vector at full width",
+                 lambda: walk.integrity_vector(*args))
+    nbytes = (r.flux.numel() * r.flux.element_size()
+              + sum(x.numel() * x.element_size() for x in args[:6]))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"[resil] (a) integrity_vector at full width: {vec_ms:.4f} ms "
+        f"(CUDA events, median of 5) against its bound {bound_ms:.4f} ms "
+        f"(bytes: {nbytes} read once); the verify step (checks + audit "
+        f"of 64 lanes) host median {np.median(verify):.4f} ms")
+    del s0, r, args
+    # The move's host ms, checks off and on in turns (no audit).
+    turns, steps = {}, {}
+    for label in RESIL_TURNS:
+        cfg = dict(integrity="warn") if label == "on" else {}
+        run = resil_run(mesh, rec, **cfg)
+        if label == "on":
+            resil_same(run["tally"], rec, run["outs"], "integrity warn")
+            if any(io["d2h_transfers"] != 1 for io in run["io"]):
+                raise AssertionError(f"[resil] (a) transfers {run['io']}")
+        turns.setdefault(label, []).extend(run["secs"][1:])
+        steps.setdefault(label, []).extend(run["steps"][1:])
+    for label in ("off", "on"):
+        print_step_table(f"(a) checks {label}, moves 2-4", steps[label],
+                         tag="[resil]")
+    on_ms = float(np.median(turns["on"])) * 1e3
+    off_ms = float(np.median(turns["off"])) * 1e3
+    log(f"[resil] (a) move host ms, moves 2-4 in turns {RESIL_TURNS}:"
+        f" off median {off_ms:.4f} ({[round(x * 1e3, 4) for x in turns['off']]}"
+        f"), on median {on_ms:.4f} ({[round(x * 1e3, 4) for x in turns['on']]}"
+        f"); one D2H a move with the checks on")
+    return dict(vec_ms=vec_ms, bound_ms=bound_ms, vec_bytes=nbytes,
+                verify_ms=float(np.median(verify)), on_ms=on_ms,
+                off_ms=off_ms)
+
+
+def resil_checkpoint(mesh, rec, tmpdir: str) -> dict:
+    """(b) save after move 2, restore into a fresh tally, moves 3-4:
+    bitwise the uninterrupted run; save and restore seconds, the file's
+    bytes."""
+    t = resil_tally(mesh)
+    t.initialize_particle_location(rec["pos"].reshape(-1))
+    for i in range(2):
+        resil_move(t, rec, i)
+    path = os.path.join(tmpdir, "resil.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    del t
+    b = resil_tally(mesh)
+    t0 = time.perf_counter()
+    b.restore_checkpoint(path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    outs = [resil_move(b, rec, i)[:2] for i in (2, 3)]
+    resil_same(b, rec, outs, "checkpoint round trip")
+    size = os.path.getsize(path)
+    state = sum(x.numel() * x.element_size() for x in (
+        b.flux, *(getattr(b.state, f) for f in (
+            "origin", "dest", "elem", "in_flight", "weight", "group",
+            "material_id", "particle_id"))))
+    log(f"[resil] (b) checkpoint after move 2, restored into a fresh "
+        f"tally, moves 3-4: bitwise the uninterrupted run (flux, positions,"
+        f" elements, write-backs); save {save_s:.3f} s, restore "
+        f"{restore_s:.3f} s, file {size} bytes for {state} bytes of state")
+    return dict(save_s=save_s, restore_s=restore_s, bytes=size,
+                state_bytes=state)
+
+
+def resil_runner(mesh, rec, tmpdir: str) -> dict:
+    """(c) a die_at_move fault then auto-resume from the store, a
+    transient retried once, and a bitflip under integrity="halt" caught
+    as "flux" with the last good generation flushed."""
+    from pumiumtally_tpu_torch.integrity import FatalIntegrityViolation
+    from pumiumtally_tpu_torch.resilience.faultinject import (
+        FaultInjector,
+        InjectedKill,
+        parse_faults,
+    )
+    from pumiumtally_tpu_torch.resilience.runner import ResilientRunner
+
+    store = os.path.join(tmpdir, "die")
+    t0 = time.perf_counter()
+    t = resil_tally(mesh)
+    t.initialize_particle_location(rec["pos"].reshape(-1))
+    run = ResilientRunner(t, store, every_moves=2, handle_signals=False,
+                          faults=FaultInjector(parse_faults("die_at_move:3")))
+    try:
+        for i in range(RESIL_MOVES):
+            resil_move(t, rec, i, run)
+        raise AssertionError("[resil] (c) die_at_move:3 did not fire")
+    except InjectedKill:
+        pass
+    if t.iter_count != 2:
+        raise AssertionError(f"[resil] (c) died at iteration {t.iter_count}")
+    del run, t
+    b = resil_tally(mesh)
+    run = ResilientRunner(b, store, every_moves=2, handle_signals=False)
+    if run.resumed_from != 2:
+        raise AssertionError(f"[resil] (c) resumed from {run.resumed_from}")
+    run.initialize_particle_location(rec["pos"].reshape(-1))
+    outs = [resil_move(b, rec, i, run)[:2] for i in (2, 3)]
+    run.close(final_checkpoint=False)
+    resil_same(b, rec, outs, "die at move 3, resumed")
+    die_s = time.perf_counter() - t0
+    log(f"[resil] (c) die_at_move:3, resumed from generation 2 of the "
+        f"store: bitwise the uninterrupted run ({die_s:.3f} s with 1 "
+        f"generation written and restored)")
+
+    t0 = time.perf_counter()
+    tr = resil_run(mesh, rec, dict(
+        store=os.path.join(tmpdir, "transient"), every_moves=100,
+        faults=FaultInjector(parse_faults("transient_at_move:3"))))
+    resil_same(tr["tally"], rec, tr["outs"], "transient retried")
+    retries = tr["tally"].metrics.counter("pumi_move_retries_total").value()
+    if retries != 1:
+        raise AssertionError(f"[resil] (c) {retries} retries")
+    log(f"[resil] (c) transient_at_move:3 retried once from the snapshot "
+        f"on the card: bitwise the uninterrupted run; move 3 host "
+        f"{tr['secs'][2] * 1e3:.4f} ms with its rollback, moves "
+        f"{[round(x * 1e3, 4) for x in tr['secs']]} ms "
+        f"({time.perf_counter() - t0:.3f} s)")
+
+    os.environ["PUMI_TPU_FAULTS"] = "bitflip_flux:2"
+    try:
+        h = resil_tally(mesh, integrity="halt")
+    finally:
+        del os.environ["PUMI_TPU_FAULTS"]
+    h.initialize_particle_location(rec["pos"].reshape(-1))
+    run = ResilientRunner(h, os.path.join(tmpdir, "halt"), every_moves=100,
+                          handle_signals=False, sleep=lambda s: None)
+    try:
+        for i in range(RESIL_MOVES):
+            resil_move(h, rec, i, run)
+        raise AssertionError("[resil] (c) the bitflip was not detected")
+    except FatalIntegrityViolation as e:
+        checks, move = e.checks, e.move
+    latest = run.store.find_latest()
+    if checks != ("flux",) or move != 3 or latest[0] != 2:
+        raise AssertionError(f"[resil] (c) halt: checks {checks} at move "
+                             f"{move}, last generation {latest}")
+    flips = h.metrics.counter("pumi_injected_faults_total").value(
+        kind="bitflip_flux")
+    log(f"[resil] (c) bitflip_flux:2 under integrity=halt: caught at move "
+        f"{move} as {list(checks)}, generation {latest[0]} (the last good "
+        f"state) flushed, {flips} flip injected")
+    return dict(die_s=die_s)
+
+
+def resil_watchdog(mesh, rec) -> dict:
+    """(d) move_deadline_s on healthy moves: no timeout, the recorded
+    run's bits; the move's host ms with the deadline off and on in turns
+    (the worker thread's cost)."""
+    turns: dict = {}
+    for label in RESIL_TURNS:
+        cfg = {"move_deadline_s": RESIL_DEADLINE_S} if label == "on" else {}
+        run = resil_run(mesh, rec, **cfg)
+        resil_same(run["tally"], rec, run["outs"], f"deadline {label}")
+        if run["tally"].telemetry()["integrity"]["violations"]:
+            raise AssertionError("[resil] (d) the watchdog fired")
+        turns.setdefault(label, []).extend(run["secs"][1:])
+    out = {}
+    for label, secs in turns.items():
+        ms = np.array(secs) * 1e3
+        out[label] = dict(median=float(np.median(ms)),
+                          quartiles=[float(q) for q in
+                                     np.percentile(ms, [25, 75])])
+    log(f"[resil] (d) move_deadline_s={RESIL_DEADLINE_S:g} on healthy "
+        f"moves: no timeout, bitwise; moves 2-4 host ms in turns "
+        f"{RESIL_TURNS}: " + "; ".join(
+            f"{k} median {v['median']:.4f} (quartiles "
+            f"{v['quartiles'][0]:.4f}, {v['quartiles'][1]:.4f}, "
+            f"{len(turns[k])} moves)" for k, v in out.items()))
+    return dict(on_ms=out["on"]["median"], off_ms=out["off"]["median"])
+
+
+def resil_megastep(mesh, tmpdir: str) -> dict:
+    """(e) the phase-14 megastep cell (K = 8) with integrity on: no
+    violation, bitwise the run without; a checkpoint after 4 moves,
+    restored into a fresh tally and run 4 more moves, ends bitwise where
+    the uninterrupted 8 moves end."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import source
+
+    n = MAIN_PARTICLES
+    src = source.SourceParams(default_sigma_t=MEGA_SIGMA_T, seed=1)
+    lanes = dict(weights=np.ones(n), groups=np.zeros(n, np.int32),
+                 alive=np.ones(n, bool))
+    pos = np.random.default_rng(1).uniform(0.05, 0.95, (n, 3))
+
+    def tally(**kw):
+        t = PumiTally(mesh, n, TallyConfig(
+            n_groups=MAIN_GROUPS, tolerance=1e-6, megastep=MEGA_K, **kw),
+            device=DEVICE)
+        t.initialize_particle_location(pos.reshape(-1))
+        return t
+
+    runs, secs = {}, {"off": [], "on": []}
+    for label in ("warm-up",) + RESIL_TURNS[:4]:
+        t = tally(**({} if label == "off" else dict(integrity="warn")))
+        t0 = time.perf_counter()
+        t.run_source_moves(MEGA_K, src, **lanes)
+        torch.cuda.synchronize()
+        if label != "warm-up":
+            secs[label].append(time.perf_counter() - t0)
+            runs[label] = dict(state=_mega_state(t), flux=t.flux.clone(),
+                               tm=t.telemetry()["integrity"],
+                               recs=[r for r in t.telemetry()["per_move"]
+                                     if r["kind"] == "integrity"])
+        del t
+    off, on = runs["off"], runs["on"]
+    on["secs"], off["secs"] = (float(np.median(secs[k])) for k in ("on", "off"))
+    if on["tm"]["violations"] or len(on["recs"]) != 2:
+        raise AssertionError(f"[resil] (e) {on['tm']} {on['recs']}")
+    if not torch.equal(on["flux"], off["flux"]) or any(
+            not torch.equal(v, off["state"][f])
+            for f, v in on["state"].items()):
+        raise AssertionError("[resil] (e) integrity changed the megastep")
+    a = tally(integrity="warn")
+    a.run_source_moves(MEGA_K // 2, src, **lanes)
+    path = os.path.join(tmpdir, "mega.npz")
+    a.save_checkpoint(path)
+    del a
+    b = PumiTally(mesh, n, TallyConfig(n_groups=MAIN_GROUPS, tolerance=1e-6,
+                                       megastep=MEGA_K, integrity="warn"),
+                  device=DEVICE)
+    b.restore_checkpoint(path)
+    b.run_source_moves(MEGA_K // 2, src)
+    if not torch.equal(b.flux, off["flux"]) or any(
+            not torch.equal(v, off["state"][f])
+            for f, v in _mega_state(b).items()):
+        raise AssertionError("[resil] (e) the restored megastep differs")
+    if b.telemetry()["integrity"]["violations"]:
+        raise AssertionError("[resil] (e) violations after the restore")
+    log(f"[resil] (e) megastep cell K={MEGA_K} with integrity=warn: 0 "
+        f"violations, bitwise the run without (a call of {MEGA_K} moves "
+        f"after a warm-up, in turns off/on/on/off: on {secs['on']} s, off "
+        f"{secs['off']} s); chunk vector {on['recs'][-1]};"
+        f" a checkpoint after {MEGA_K // 2} moves restored into a fresh "
+        f"tally ends bitwise where the {MEGA_K} uninterrupted moves end")
+    return dict(on_s=on["secs"], off_s=off["secs"])
+
+
+def phase_resilience(mesh) -> dict:
+    """Phase 15: integrity, checkpoints, the runner and the watchdog at
+    the main cell's full width; launch counts zeroed before and read
+    after."""
+    torch.cuda.synchronize()
+    zero_counts()
+    rec = resil_record(mesh)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        out["a"] = resil_integrity(mesh, rec)
+        out["b"] = resil_checkpoint(mesh, rec, tmpdir)
+        out["c"] = resil_runner(mesh, rec, tmpdir)
+        out["d"] = resil_watchdog(mesh, rec)
+        out["e"] = resil_megastep(mesh, tmpdir)
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+    log(f"[resil] launches over phase 15: {out['launches']}")
+    for key in ("walk", "scatter_bucket", "schedule", "source"):
+        if not out["launches"][key]:
+            raise AssertionError(f"[resil] no {key} launch in phase 15")
+    return out
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -2499,6 +2951,10 @@ def main() -> int:
     log(f"[phase] megastep: {time.perf_counter() - t0:.2f} s")
     full, flight = mega["full"][MEGA_K], mega["full"][MEGA_K]["flight"]
 
+    t0 = time.perf_counter()
+    resil = phase_resilience(tally.mesh)
+    log(f"[phase] integrity and resilience: {time.perf_counter() - t0:.2f} s")
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -2532,7 +2988,11 @@ def main() -> int:
          "lane_place_sorted_ms": tails["place_sorted_ms"],
          "lane_place_unsorted_ms": tails["place_unsorted_ms"],
          "megastep_launches": full["counts"]["walk"],
-         "megastep_relaunches": full["counts"]["walk_relaunches"]},
+         "megastep_relaunches": full["counts"]["walk_relaunches"],
+         "resil_launches": resil["launches"]["walk"],
+         "resil_relaunches": resil["launches"]["walk_relaunches"],
+         "integrity_vector_ms": resil["a"]["vec_ms"],
+         "integrity_vector_bound_ms": resil["a"]["bound_ms"]},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},
@@ -2563,7 +3023,8 @@ def main() -> int:
                  d: pipe[f"depth{d}_launches"]["scatter_bucket"]
                  for d in (1, 2)},
              runstats_launches=stats["launches"]["scatter_ordered"],
-             runstats_bucket_launches=stats["launches"]["scatter_bucket"]),
+             runstats_bucket_launches=stats["launches"]["scatter_bucket"],
+             resil_bucket_launches=resil["launches"]["scatter_bucket"]),
         {"name": "walk_cuda.lane_records", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/walk.cu",
          "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",
@@ -2575,7 +3036,8 @@ def main() -> int:
          "bound_ms": sched["move 1"]["bound_ms"], "bound_by": "bytes",
          "library_ms": sched["move 1"]["library_ms"],
          "library": "torch.argsort", "kernels": sched["move 1"]["kernels"],
-         "initial_search": sched["initial search"]},
+         "initial_search": sched["initial search"],
+         "resil_launches": resil["launches"]["schedule"]},
         {"name": "source_cuda.sample_flight", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/source.cu",
          "replaces": "pumiumtally_tpu/ops/source.py:179 (XLA)",
@@ -2588,7 +3050,8 @@ def main() -> int:
          "megastep_moves_per_s": full["moves_per_s"],
          "megastep_busy_share": full["busy"]["share"],
          "transport_moves_per_s": [
-             r["moves_per_s"] for r in mega["transport"]["megastep"]]},
+             r["moves_per_s"] for r in mega["transport"]["megastep"]],
+         "resil_launches": resil["launches"]["source"]},
     ]
     for kern in kernels:
         if not kern["launches"]:

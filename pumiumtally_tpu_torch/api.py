@@ -86,6 +86,27 @@ The walk's feature tails, as in the JAX facade:
 ``record_xpoints`` and ``checkify_invariants`` force
 ``io_pipeline="legacy"`` (``TallyConfig.resolve_io_pipeline``).
 
+Integrity, checkpoints and the watchdog, as in the JAX facade:
+
+  * ``integrity="warn" | "retry" | "halt"``: every walk also computes the
+    conservation vector on the card (``ops/walk.py::integrity_vector``),
+    which rides the move's one readback (no host read of its own); the
+    host checks it (``integrity/invariants.py``) and escalates
+    (``integrity/policy.py``). ``audit_lanes=K`` walks K sampled lanes
+    again every ``audit_every`` moves on a float64 host walker
+    (``integrity/audit.py``; one out-of-band gather of the sampled lanes,
+    not counted in ``io``). Off, a move runs exactly as without the
+    integrity layer;
+  * ``move_deadline_s``: each move's walk and readback run on a worker
+    thread under a deadline (``integrity/watchdog.py``; the first call of
+    each kind, which builds the kernels, runs without one);
+  * ``save_checkpoint`` / ``restore_checkpoint``: the JAX package's
+    single-file format (``utils/checkpoint.py``), so either package
+    restores the other's files; ``resilience/runner.py::ResilientRunner``
+    supervises a run with them;
+  * ``PUMI_TPU_FAULTS``: the facade's fault hooks (``bitflip_flux``,
+    ``sdc_walk``, ``hang_at_move``; ``resilience/faultinject.py``).
+
 The device-sourced move loop, as in the JAX facade:
 ``run_source_moves(n_moves, source, weights, groups, alive)`` runs the
 inner loop of ``models/transport.py`` on the card, in chunks of
@@ -101,6 +122,7 @@ K moves: any K gives the bits of K = 1 and saves no launches.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import warnings
 
 import numpy as np
@@ -188,6 +210,11 @@ def _particle_order(slots: np.ndarray, perm) -> np.ndarray:
     out = np.empty_like(slots)
     out[perm] = slots
     return out
+
+
+def _present(*tensors) -> list:
+    """The tensors that are not None."""
+    return [t for t in tensors if t is not None]
 
 
 def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
@@ -288,6 +315,32 @@ class PumiTally:
             # Telemetry folds deferred by io_pipeline="overlap", in call
             # order.
             self._pending_folds: list = []
+            # Integrity layer: the escalation mode, the checks'
+            # tolerances, the shadow audit's host walker and the
+            # facade's fault hooks (bitflip_flux, sdc_walk, hang_at_move
+            # target its detectors). None or off by default: a move then
+            # runs as without it.
+            self._integrity = cfg.resolve_integrity()
+            self._finj = None
+            self._auditor = None
+            # Kinds of call (init, move, megastep:k) whose first,
+            # un-deadlined call has run.
+            self._watchdog_warm: set = set()
+            if (self._integrity != "off" or cfg.audit_lanes
+                    or cfg.move_deadline_s is not None):
+                from .integrity import invariants
+                from .resilience.faultinject import FaultInjector
+
+                self._finj = FaultInjector()
+                scale = invariants.mesh_scale(mesh.coords.cpu().numpy())
+                self._integrity_tol = invariants.conservation_tolerance(
+                    cfg.integrity_tol, cfg.dtype, scale, cfg.tolerance)
+                self._audit_tol = invariants.audit_tolerance(
+                    cfg.audit_tol, cfg.dtype, scale, cfg.tolerance)
+            if cfg.audit_lanes:
+                from .integrity.audit import HostReference
+
+                self._auditor = HostReference(mesh)
             self.iter_count = 0
             self.total_segments = 0
             # Host view of the last walk's stats vector (None with
@@ -344,7 +397,168 @@ class PumiTally:
             stats=cfg.walk_stats,
             record_xpoints=cfg.record_xpoints,
             debug_checks=cfg.checkify_invariants,
+            integrity=self._integrity != "off",
         )
+
+    def _trace(self, *args, _packed: bool = False, **kwargs):
+        """The facade's one walk entry for its initial search and moves:
+        ``walk_cuda.trace_packed`` (``_packed``) or ``walk_cuda.trace``,
+        so a wrapper around it sees packed and legacy moves alike."""
+        if _packed:
+            return walk_cuda.trace_packed(*args, **kwargs)
+        return walk_cuda.trace(*args, **kwargs)
+
+    def _dispatch(self, fn, move: int, kind: str | None = None):
+        """Run one call's device work, ``fn`` (the walk and its blocking
+        readback), under the watchdog deadline when
+        ``TallyConfig.move_deadline_s`` is set (``integrity/watchdog.py``).
+        ``fn`` must not mutate facade state: after a timeout its
+        abandoned thread may still finish, and nothing applies that; the
+        supervisor's rollback assigns fresh tensors.
+
+        The worker thread runs on the caller's CUDA stream, so the
+        record's host→device copy, the walk and the readback stay
+        ordered as on the calling thread, and the caller returns only
+        after the readback's event. The first call of each kind (initial
+        search, move, megastep chunk length) runs without a deadline: it
+        builds the kernels. After a timeout the facade takes fresh host
+        staging buffers (the abandoned worker may still write the old
+        ones), and an injected hang that outlived its deadline runs no
+        device work."""
+        if self.config.move_deadline_s is None:
+            return fn()
+        key = kind or ("init" if move == 0 else "move")
+        abandoned = threading.Event()
+        stream = (torch.cuda.current_stream(self.device)
+                  if self.device.type == "cuda" else None)
+
+        def body():
+            if self._finj is not None and self._finj.maybe_hang(move):
+                self._count_fault("hang")
+            if abandoned.is_set():
+                return None
+            if stream is None:
+                return fn()
+            with torch.cuda.device(self.device), torch.cuda.stream(stream):
+                return fn()
+
+        if key not in self._watchdog_warm:
+            self._watchdog_warm.add(key)
+            return body()
+        from .integrity.watchdog import DispatchTimeoutError, run_with_deadline
+
+        try:
+            return run_with_deadline(body, self.config.move_deadline_s)
+        except DispatchTimeoutError:
+            abandoned.set()
+            self._stager = HostStager(depth=self._stager.depth,
+                                      device=self.device)
+            self._telemetry.record_integrity(move, {}, ["watchdog"])
+            raise
+
+    def _count_fault(self, kind: str) -> None:
+        self.metrics.counter(
+            "pumi_injected_faults_total",
+            "faults injected through PUMI_TPU_FAULTS (labeled by kind)",
+        ).inc(kind=kind)
+
+    def _self_verify(self, move, integ, fly_h, n_lost, s_before, result,
+                     dest_dev, done_h, pos_out) -> None:
+        """Check the move's integrity vector and, every ``audit_every``
+        moves, a shadow audit, and escalate per ``TallyConfig.integrity``
+        (the JAX facade's ``_self_verify``). Violations are counted and
+        recorded before the policy escalates, so "warn" and "halt" leave
+        the same telemetry."""
+        cfg = self.config
+        if self._integrity == "off" and not cfg.audit_lanes:
+            return
+        from .integrity import invariants, policy
+
+        fields: dict = {}
+        violations: list = []
+        if integ is not None:
+            fields = invariants.integrity_to_dict(integ)
+            violations += invariants.check_move(
+                fields, np.count_nonzero(fly_h), int(n_lost),
+                self._integrity_tol)
+        if (cfg.audit_lanes and self._auditor is not None and move >= 1
+                and move % cfg.audit_every == 0):
+            out = self._run_audit(move, s_before, result, dest_dev, fly_h,
+                                  done_h, pos_out)
+            if out is not None:
+                self._telemetry.record_audit(
+                    move, out.audited, out.mismatches, out.skipped,
+                    out.max_dev)
+                if out.mismatches:
+                    violations.append("sdc_audit")
+        if fields or violations:
+            self._telemetry.record_integrity(move, fields, violations)
+        policy.escalate(self._integrity, violations, move)
+
+    def _run_audit(self, move, s_before, result, dest_dev, fly_h, done_h,
+                   pos_out):
+        """Shadow-audit one move (``integrity/audit.py``): sample up to
+        ``audit_lanes`` lanes that flew and finished, as the JAX facade
+        does (``np.random.default_rng([audit_seed, move])`` over the same
+        candidates, so both packages audit the same lanes), gather their
+        pre-move state and the walk's outputs on the card into one small
+        device→host copy, walk them again in float64 on the host and
+        compare. ``done_h`` is the readback's done words (nonzero: done,
+        particle order), or None under legacy I/O (the done flags are
+        read here)."""
+        cfg = self.config
+        if done_h is None:
+            done_h = _particle_order(result.done.cpu().numpy(), self._perm)
+        cand = np.nonzero(fly_h & (done_h != 0))[0]
+        if cand.size == 0:
+            return None
+        rng = np.random.default_rng([cfg.audit_seed, int(move)])
+        pids = rng.choice(cand, size=min(cfg.audit_lanes, cand.size),
+                          replace=False)
+        if self._perm is None:
+            slots = pids
+        else:
+            inv = np.empty(self.num_particles, np.int64)
+            inv[self._perm] = np.arange(self.num_particles)
+            slots = inv[pids]
+        sl = torch.as_tensor(slots, device=self.device)
+        origins, elems, dests, track = _to_host(
+            s_before.origin[sl], s_before.elem[sl], dest_dev[sl],
+            result.track_length[sl])
+        track = track.astype(np.float64)
+        prod_pos = np.asarray(pos_out[pids], np.float64)
+        if self._finj is not None and self._finj.sdc_at(move):
+            # Injected SDC: one mis-scored segment on the first sampled
+            # lane; the float64 walk must flag it.
+            track[0] += 1e3 * self._audit_tol
+            self._count_fault("sdc_walk")
+        from .integrity.audit import audit_sample
+
+        return audit_sample(
+            self._auditor, origins.astype(np.float64),
+            dests.astype(np.float64), elems, prod_pos, track,
+            tolerance=cfg.tolerance, max_crossings=self._max_crossings,
+            tol=self._audit_tol,
+        )
+
+    def _maybe_inject_bitflip(self, move: int) -> None:
+        """``PUMI_TPU_FAULTS=bitflip_flux:K``: after move K flip the sign
+        bit of the flux entry of largest magnitude (the first, on a tie),
+        or write NaN into entry 0 of an empty accumulator, through an
+        integer view of the card's tensor: the JAX hook's bit on the JAX
+        hook's entry. The next move's flux check must catch it."""
+        if self._finj is None or not self._finj.bitflip_at(move):
+            return
+        j = int(torch.argmax(self.flux.abs()))
+        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+        it = ints[self.flux.dtype]
+        bits = self.flux.view(it)
+        if float(self.flux[j]) == 0.0:
+            nan = torch.tensor(float("nan"), dtype=self.flux.dtype)
+            bits[j] = int(nan.view(it))
+        else:
+            bits[j] ^= torch.iinfo(it).min
+        self._count_fault("bitflip_flux")
 
     def _record_capacity(self, dest, in_flight) -> int:
         """Tally records the ordered walk's buffers hold for this move
@@ -395,20 +609,25 @@ class PumiTally:
                                for t in tensors))
         return _to_host(*tensors)
 
+    def _count_to_host(self, host: list) -> None:
+        """Count a legacy walk's one device→host copy, made by the module's
+        ``_to_host`` inside the dispatched step."""
+        self._count("d2h", sum(a.nbytes for a in host))
+
     def _put_record(self, rec: torch.Tensor) -> torch.Tensor:
         """The packed record's one host→device copy."""
         self._count("h2d", rec.numel() * rec.element_size())
         return rec.to(self.device, non_blocking=True)
 
-    def _fetch(self, readback: torch.Tensor, tag: str = "readback",
-               convergence: bool = False):
-        """A packed readback's one device→host copy, as views
+    def _views(self, host: torch.Tensor, convergence: bool = False):
+        """Count a packed readback's device→host copy (made by
+        ``staging.to_host``) and return its parts as views
         (``staging.readback_views``: positions, material ids, done words,
-        tail, convergence summary or None)."""
-        self._count("d2h", readback.numel() * readback.element_size())
-        host = staging.to_host(self._stager, readback, tag)
-        return staging.readback_views(host, self.num_particles,
-                                      self.config.dtype, convergence)
+        tail, integrity vector or None, convergence summary or None)."""
+        self._count("d2h", host.numel() * host.element_size())
+        return staging.readback_views(
+            host, self.num_particles, self.config.dtype,
+            self._integrity != "off", convergence)
 
     def _packed_summary(self, tail: np.ndarray, done_words: np.ndarray):
         """The legacy summary from a packed readback: the stats vector, or
@@ -454,8 +673,9 @@ class PumiTally:
         before declaring them lost. After a re-walk the host views are
         refreshed by one more device→host copy: a packed readback
         (``packed``; no convergence tail, the move's summary stands) or
-        the legacy summary, positions and material ids. Returns
-        ``(result, refreshed views or None, n_lost)``."""
+        the legacy summary, positions, material ids and integrity vector
+        (None with integrity off). Returns ``(result, refreshed views or
+        None, n_lost)``."""
         if not n_tr:
             return result, None, 0
         n_lost, n_retried, parts = n_tr, 0, None
@@ -466,15 +686,18 @@ class PumiTally:
                 retries=self.config.truncation_retries, **kw,
             )
             if packed:
-                parts = self._fetch(
+                parts = self._views(staging.to_host(
+                    self._stager,
                     staging.pack_trace_readback(
                         result.position, result.material_id, result.done,
-                        result.stats, result.n_segments, self._perm_dev),
-                    tag="rewalk",
-                )[:4]
+                        result.stats, result.n_segments, self._perm_dev,
+                        integrity=result.integrity),
+                    "rewalk"))[:5]
             else:
-                parts = self._to_host(self._summary(result),
-                                      result.position, result.material_id)
+                summary, pos, mats, *integ = self._to_host(
+                    self._summary(result), result.position,
+                    result.material_id, *_present(result.integrity))
+                parts = (summary, pos, mats, integ[0] if integ else None)
         if n_retried or n_lost:
             self._telemetry.record_rewalk(move, n_retried, n_lost)
         return result, parts, n_lost
@@ -552,41 +775,62 @@ class PumiTally:
             self.tally_times, "initialization_time", True
         ) as timer:
             kw = self._walk_kw(True)
-            if self._io != "legacy":
+            packed = self._io != "legacy"
+            # The walk's inputs, bound now: an abandoned watchdog worker
+            # must walk into these, never into what a rollback restored.
+            flux_in, perm_in, stager = self.flux, self._perm_dev, self._stager
+            if packed:
                 rec = staging.pack_init_record(
                     self._stager, pos3, fly_h, cfg.dtype
                 )
-                r, readback, dest, _, _, _ = walk_cuda.trace_packed(
-                    self.mesh, s.origin, s.elem, s.material_id,
-                    self._put_record(rec), self.flux, self._perm_dev,
-                    weight=s.weight, group=s.group, **kw,
-                )
-                _, _, done_h, tail, _ = self._fetch(readback)
+                rec_dev = self._put_record(rec)
+
+                def walk():
+                    out = self._trace(
+                        self.mesh, s.origin, s.elem, s.material_id, rec_dev,
+                        flux_in, perm_in, weight=s.weight, group=s.group,
+                        _packed=True, **kw,
+                    )
+                    return out, staging.to_host(stager, out[1], "readback")
+
+                (r, _, dest, _, _, _), host = self._dispatch(walk, 0)
+                _, _, done_h, tail, integ, _ = self._views(host)
                 summary = self._packed_summary(tail, done_h)
             else:
                 dest = self._put(_convert(pos3, cfg.dtype))
                 fly = (torch.ones(n, dtype=torch.bool, device=self.device)
                        if qmask is None else self._put(fly_h))
-                r = walk_cuda.trace(
-                    self.mesh, s.origin, dest, s.elem, fly, s.weight,
-                    s.group, s.material_id, self.flux, **kw,
-                )
-                (summary,) = self._to_host(self._summary(r))
+
+                def walk():
+                    r = self._trace(
+                        self.mesh, s.origin, dest, s.elem, fly, s.weight,
+                        s.group, s.material_id, flux_in, **kw,
+                    )
+                    return r, _to_host(self._summary(r),
+                                       *_present(r.integrity))
+
+                r, host = self._dispatch(walk, 0)
+                self._count_to_host(host)
+                summary, *rest = host
+                integ = rest[0] if rest else None
             stats_d, _, n_tr = self._read_summary(summary)
             r, parts, n_lost = self._escalate_truncated(
-                r, dest, s.weight, s.group, n_tr, kw, 0,
-                packed=self._io != "legacy",
-            )
+                r, dest, s.weight, s.group, n_tr, kw, 0, packed=packed)
             if parts is not None:
                 stats_d, _, _ = self._read_summary(
                     self._packed_summary(parts[3], parts[2])
-                    if self._io != "legacy" else parts[0])
+                    if packed else parts[0])
+                integ = parts[4] if packed else parts[3]
             self.flux = r.flux
             self.state = s.replace(origin=r.position, dest=dest, elem=r.elem)
             self._traces_since_sort += 1
             self._store_xpoints(r)
             self._initialized = True
             self._warn_if_truncated(n_lost)
+            # The search scores nothing: the flux must stay clean and
+            # the lane counts close (the audit starts with move 1).
+            self._self_verify(0, integ, fly_h, n_lost, s, r, dest, None,
+                              None)
             if cfg.measure_time:
                 timer.sync(self.device)
         self._telemetry.record_walk(
@@ -664,6 +908,10 @@ class PumiTally:
                            batch_moves=self._batch_moves,
                            rel_err_target=cfg.rel_err_target)
             conv_h = None
+            # The walk's inputs, bound now: an abandoned watchdog worker
+            # must walk into these, never into what a rollback restored.
+            flux_in, perm_in, stager = self.flux, self._perm_dev, self._stager
+            deadline = cfg.move_deadline_s is not None
             if self._io != "legacy":
                 with step("pack"):
                     rec = staging.pack_move_record(
@@ -672,30 +920,38 @@ class PumiTally:
                     )
                 with step("put record"):
                     rec_dev = self._put_record(rec)
-                with step("walk"):
-                    r, readback, dest, in_flight, weight, group = (
-                        walk_cuda.trace_packed(
+
+                def walk():
+                    with step("walk"):
+                        out = self._trace(
                             self.mesh, s.origin, s.elem, s.material_id,
-                            rec_dev, self.flux, self._perm_dev, **kw, **ckw,
+                            rec_dev, flux_in, perm_in, _packed=True, **kw,
+                            **ckw,
                         )
-                    )
-                if self._io == "overlap":
-                    # The previous move's telemetry fold, while this
-                    # move's work runs on the card.
+                    if self._io == "overlap" and not deadline:
+                        # The previous move's telemetry fold, while this
+                        # move's work runs on the card (after the step
+                        # under a deadline: the step mutates nothing).
+                        with step("deferred fold"):
+                            self._drain_pending()
+                    with step("readback"):
+                        host = staging.to_host(stager, out[1], "readback")
+                    return out, host
+
+                out, host = self._dispatch(walk, move)
+                r, _, dest, in_flight, weight, group = out
+                if self._io == "overlap" and deadline:
                     with step("deferred fold"):
                         self._drain_pending()
-                with step("readback"):
-                    final_pos, final_mats, done_h, tail, conv_h = (
-                        self._fetch(readback,
-                                    convergence=self._conv is not None)
-                    )
+                final_pos, final_mats, done_h, tail, integ, conv_h = (
+                    self._views(host, convergence=self._conv is not None))
                 stats_d, segs, n_tr = self._read_summary(
                     self._packed_summary(tail, done_h))
                 with step("escalate"):
                     r, parts, n_lost = self._escalate_truncated(
                         r, dest, weight, group, n_tr, kw, move, packed=True)
                 if parts is not None:
-                    final_pos, final_mats, done_h, tail = parts
+                    final_pos, final_mats, done_h, tail, integ = parts
                     stats_d, segs, _ = self._read_summary(
                         self._packed_summary(tail, done_h))
                 with step("write-back"):
@@ -720,30 +976,39 @@ class PumiTally:
                     weight = self._put(weight_c)
                 with step("put group"):
                     group = self._put(group_c)
-                with step("walk"):
-                    r = walk_cuda.trace(
-                        self.mesh, s.origin, dest, s.elem, in_flight, weight,
-                        group, s.material_id, self.flux, **kw,
-                    )
-                    extra = []
-                    if self._conv is not None:
-                        extra = [fold_and_reduce(r.flux, self._conv, **{
-                            k: v for k, v in ckw.items()
-                            if k != "conv_state"})]
-                with step("to_host"):
-                    summary, final_pos, final_mats, *conv = self._to_host(
-                        self._summary(r), r.position, r.material_id, *extra
-                    )
-                    if conv:
-                        conv_h = conv[0].astype(np.float64)
+                conv_in = self._conv
+
+                def walk():
+                    with step("walk"):
+                        r = self._trace(
+                            self.mesh, s.origin, dest, s.elem, in_flight,
+                            weight, group, s.material_id, flux_in, **kw,
+                        )
+                        extra = _present(r.integrity)
+                        if conv_in is not None:
+                            extra.append(fold_and_reduce(r.flux, conv_in, **{
+                                k: v for k, v in ckw.items()
+                                if k != "conv_state"}))
+                    with step("to_host"):
+                        host = _to_host(self._summary(r), r.position,
+                                        r.material_id, *extra)
+                    return r, host
+
+                r, host = self._dispatch(walk, move)
+                self._count_to_host(host)
+                summary, final_pos, final_mats, *rest = host
+                integ = rest.pop(0) if r.integrity is not None else None
+                if rest:
+                    conv_h = rest[0].astype(np.float64)
                 stats_d, segs, n_tr = self._read_summary(summary)
                 with step("escalate"):
                     r, parts, n_lost = self._escalate_truncated(
                         r, dest, weight, group, n_tr, kw, move,
                         packed=False)
                 if parts is not None:
-                    summary, final_pos, final_mats = parts
+                    summary, final_pos, final_mats, integ = parts
                     stats_d, segs, _ = self._read_summary(summary)
+                done_h = None
                 with step("write-back"):
                     # Copy-back contract, as above (numpy casts), from
                     # slot order into particle order.
@@ -775,6 +1040,14 @@ class PumiTally:
             # The truncation warning stays in the call in every mode;
             # only the telemetry fold is deferred under "overlap".
             self._warn_if_truncated(n_lost)
+            # The integrity checks and the shadow audit, escalated per
+            # TallyConfig.integrity; then the bitflip fault hook (the
+            # next move's flux check must catch it).
+            if self._integrity != "off" or cfg.audit_lanes:
+                with step("verify"):
+                    self._self_verify(self.iter_count, integ, fly_h,
+                                      n_lost, s, r, dest, done_h, dest3_h)
+            self._maybe_inject_bitflip(self.iter_count)
             if (cfg.sort_by_element
                     and self.iter_count % cfg.migration_period == 0):
                 with step("sort"):
@@ -839,6 +1112,7 @@ class PumiTally:
             robust=cfg.robust,
             ledger=cfg.ledger,
             stats=cfg.walk_stats,
+            integrity=self._integrity != "off",
             rel_err_target=cfg.rel_err_target,
             batch_moves=self._batch_moves or 1,
         )
@@ -866,6 +1140,18 @@ class PumiTally:
             self.state = self.state.replace(**repl)
         return n_alive
 
+    def _verify_megastep(self, integ, n_truncated: int, k: int) -> None:
+        """Check a chunk's reduced integrity vector
+        (``integrity/invariants.py::check_megastep``) and escalate."""
+        from .integrity import invariants, policy
+
+        fields = invariants.integrity_to_dict(integ)
+        violations = invariants.check_megastep(
+            fields, n_truncated, self._integrity_tol,
+            dtype=self.config.dtype, n_moves=k)
+        self._telemetry.record_integrity(self.iter_count, fields, violations)
+        policy.escalate(self._integrity, violations, self.iter_count)
+
     def run_source_moves(
         self,
         n_moves: int,
@@ -889,7 +1175,9 @@ class PumiTally:
         bits. A chunk makes one device→host copy (the tail) and, but for
         the staging of given lanes, no host→device copy. Truncated lanes
         stay alive and continue next move (counted and warned); re-walks,
-        the element sort and the quarantine do not run inside a call.
+        the element sort, the quarantine and the shadow audit do not run
+        inside a call. With integrity on, each chunk's reduced integrity
+        vector rides its tail and is checked after it.
         Returns the accumulated counters (``ops/source.py``
         MEGA_PHYS_FIELDS, ``moves``, ``segments``)."""
         if not self._initialized:
@@ -935,21 +1223,30 @@ class PumiTally:
             with phase_timer(self.tally_times, "total_time_to_tally",
                              True) as timer:
                 s = self.state
-                out = megastep(
-                    self.mesh, s.origin, s.elem, s.material_id, s.weight,
-                    s.group, s.in_flight, s.particle_id, self.flux,
-                    self.iter_count, rng_key, sig_dev, ab_dev,
-                    self._prev_even, self._conv, n_moves=k,
-                    capacity=capacity, clock=self.step_clock, **statics,
-                )
-                with step("tail read"):
-                    self._count("d2h", out.readback.numel()
-                                * out.readback.element_size())
-                    host_rb = staging.to_host(self._stager, out.readback,
-                                              "megastep")
-                    tail, _, conv_h, phys = staging.split_megastep_tail(
-                        host_rb, cfg.dtype, cfg.walk_stats, False,
-                        self._conv is not None)
+                # Bound now, as in the per-move step (``_dispatch``).
+                flux_in, prev_in, conv_in = (self.flux, self._prev_even,
+                                             self._conv)
+                stager, move0 = self._stager, self.iter_count
+
+                def chunk():
+                    out = megastep(
+                        self.mesh, s.origin, s.elem, s.material_id, s.weight,
+                        s.group, s.in_flight, s.particle_id, flux_in,
+                        move0, rng_key, sig_dev, ab_dev, prev_in, conv_in,
+                        n_moves=k, capacity=capacity, clock=self.step_clock,
+                        **statics,
+                    )
+                    with step("tail read"):
+                        host = staging.to_host(stager, out.readback,
+                                               "megastep")
+                    return out, host
+
+                out, host_rb = self._dispatch(chunk, move0 + 1,
+                                              kind=f"megastep:{k}")
+                self._count("d2h", host_rb.numel() * host_rb.element_size())
+                tail, integ, conv_h, phys = staging.split_megastep_tail(
+                    host_rb, cfg.dtype, cfg.walk_stats, statics["integrity"],
+                    self._conv is not None)
                 self.flux = out.flux
                 self.state = s.replace(
                     origin=out.position, dest=out.dest,
@@ -970,6 +1267,9 @@ class PumiTally:
                 self._last_segments = segs // k
                 p = phys_to_dict(phys)
                 self._warn_if_truncated(p["truncated"])
+                if integ is not None:
+                    self._verify_megastep(integ, p["truncated"], k)
+                self._maybe_inject_bitflip(self.iter_count)
                 if cfg.measure_time:
                     timer.sync(self.device)
             self.tally_times.n_moves += k
@@ -1164,3 +1464,24 @@ class PumiTally:
         """This tally's MetricsRegistry (Prometheus text via
         ``tally.metrics.render_prometheus()``)."""
         return self._telemetry.registry
+
+    # ------------------------------------------------------------------ #
+    def save_checkpoint(self, filename: str,
+                        n_shards: int | None = None) -> None:
+        """Persist the resumable state (flux, particle state, move
+        counter) in the JAX package's single-file format
+        (``utils/checkpoint.py``); either package restores it. A
+        ``.shards`` name (the sharded layout) is ROADMAP.md A9."""
+        from .utils.checkpoint import save_checkpoint
+
+        self._drain_pending()
+        save_checkpoint(filename, self, n_shards=n_shards)
+
+    def restore_checkpoint(self, filename: str) -> None:
+        """Resume from a checkpoint written (by either package) against
+        the same mesh and configuration; a single-device ``.shards``
+        generation restores too."""
+        from .utils.checkpoint import restore_checkpoint
+
+        self._drain_pending()
+        restore_checkpoint(filename, self)

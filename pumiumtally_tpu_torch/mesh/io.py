@@ -1,5 +1,5 @@
-"""Mesh ingest: .npz snapshots, ASCII Gmsh .msh (v2.2 and v4.1) and
-Omega_h-layout .osh directories.
+"""Mesh ingest: .npz snapshots (and ``save_npz`` to write them), ASCII Gmsh
+.msh (v2.2 and v4.1) and Omega_h-layout .osh directories.
 
 Counterpart of ``pumiumtally_tpu/mesh/io.py`` without the native C++
 tokenizer: the pure-Python parsers are copied, and ``.osh`` goes through
@@ -14,6 +14,21 @@ import torch
 
 from .core import TetMesh
 from .osh import read_osh
+
+
+def save_npz(filename: str, coords, tet2vert, class_id) -> None:
+    """Write a mesh snapshot (float64 coordinates, int64 connectivity,
+    int32 class ids: the JAX package's layout) through the atomic writer
+    of ``utils/checkpoint.py``, so a crash never leaves a torn ``.npz``
+    under the real name. Arrays may be numpy arrays or tensors."""
+    from ..utils.checkpoint import _host, atomic_savez
+
+    atomic_savez(
+        filename,
+        coords=_host(coords).astype(np.float64),
+        tet2vert=_host(tet2vert).astype(np.int64),
+        class_id=_host(class_id).astype(np.int32),
+    )
 
 
 def load_npz_arrays(filename: str):

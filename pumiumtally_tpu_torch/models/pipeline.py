@@ -270,7 +270,7 @@ class StreamingTallyPipeline:
         with self._step("drain"):
             if done is not None:
                 done.synchronize()
-            pos, mats, done_words, tail, _ = readback_views(
+            pos, mats, done_words, tail, _, _ = readback_views(
                 host_rb, n, self.config.dtype)
             if self.config.walk_stats:
                 stats = stats_to_dict(tail)

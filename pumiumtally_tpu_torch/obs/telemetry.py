@@ -10,6 +10,8 @@ reads the same. The facade calls:
     call made;
   * ``record_quarantine`` and ``record_rewalk`` from the quarantine and
     the truncation escalation;
+  * ``record_integrity`` and ``record_audit`` from the integrity checks
+    (``integrity/``);
   * ``record_memory(phase)`` at phase boundaries (construction, VTK
     write) to capture the card's memory peaks;
   * ``snapshot(times=...)`` from ``tally.telemetry()``.
@@ -22,9 +24,9 @@ not interleave):
   pumi_move_seconds, pumi_device_peak_bytes{device=...},
   pumi_quarantined_lanes_total, pumi_quarantine_reasons_total{reason=...},
   pumi_rewalked_lanes_total, pumi_lost_walks_total, the transfer counters
-  pumi_{h2d,d2h}_{bytes,transfers}_total, and the integrity families,
-  which stay zero until the integrity checks are ported (ROADMAP.md A8;
-  the payload keeps the JAX package's keys).
+  pumi_{h2d,d2h}_{bytes,transfers}_total, and the integrity families
+  pumi_integrity_violations_total{check=...}, pumi_audited_lanes_total
+  and pumi_audit_mismatches_total.
 """
 from __future__ import annotations
 
@@ -207,6 +209,45 @@ class TallyTelemetry:
         return self.recorder.record(
             "rewalk", move=int(move), retried=int(retried),
             lost=int(lost),
+        )
+
+    def record_integrity(
+        self, move: int, fields: dict, violations: list
+    ) -> dict:
+        """Fold one move's integrity evaluation: the invariant scalars
+        (``integrity/invariants.py`` field names; empty for a watchdog
+        event) and the violated check names. Counted here, before the
+        policy escalates, so the counters agree whichever rung fires."""
+        for check in violations:
+            self._integ_violations.inc(check=check)
+        if fields.get("max_residual") is not None:
+            self._max_residual = max(
+                self._max_residual, float(fields["max_residual"])
+            )
+        return self.recorder.record(
+            "integrity",
+            move=int(move),
+            violations=list(violations),
+            **fields,
+        )
+
+    def record_audit(
+        self, move: int, audited: int, mismatches: int, skipped: int,
+        max_dev: float,
+    ) -> dict:
+        """Fold one move's shadow-audit outcome (``integrity/audit.py``)
+        into the counters and the flight recorder."""
+        if audited:
+            self._audited.inc(audited)
+        if mismatches:
+            self._audit_mismatch.inc(mismatches)
+        return self.recorder.record(
+            "audit",
+            move=int(move),
+            audited=int(audited),
+            mismatches=int(mismatches),
+            skipped=int(skipped),
+            max_dev=float(max_dev),
         )
 
     def record_memory(self, phase: str) -> dict:

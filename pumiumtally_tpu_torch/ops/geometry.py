@@ -1,6 +1,8 @@
-"""Ray/tet exit-face geometry on face planes (torch).
+"""Ray/tet geometry on face planes (torch).
 
-Counterpart of ``pumiumtally_tpu/ops/geometry.py::exit_face``. Dot products
+Counterpart of ``pumiumtally_tpu/ops/geometry.py``: ``exit_face`` for the
+walk, and ``face_signed_distance``, ``point_in_tet`` and the brute-force
+``locate_points`` for tests and seeding. Dot products
 are written out as ``n0*x0 + n1*x1 + n2*x2`` in that order, and the argmin
 is a sequential strict-less scan (first index wins a tie), so that the
 CUDA walk kernel (``csrc/walk.cu``), compiled without FMA contraction,
@@ -39,6 +41,37 @@ def argmax4(s: torch.Tensor) -> torch.Tensor:
         best = torch.where(better, s[:, f], best)
         idx = torch.where(better, f, idx)
     return idx
+
+
+def face_signed_distance(mesh, elem, x):
+    """Signed distance of points ``x`` [n,3] to the 4 face planes of their
+    tets ``elem`` [n] → [n,4]; positive = outside."""
+    e = torch.as_tensor(elem, device=x.device).long()
+    return dot3(mesh.face_normals[e], x) - mesh.face_d[e]
+
+
+def point_in_tet(mesh, elem, x, tol):
+    """True where ``x`` lies inside (or within ``tol`` of) tet ``elem``."""
+    return (face_signed_distance(mesh, elem, x) <= tol).all(dim=-1)
+
+
+def locate_points(mesh, x, tol):
+    """Brute-force point location: the element containing each point (the
+    argmin over elements of the point's worst face violation; on a tie the
+    first element, as ``jnp.argmin``), or -1 where that is above ``tol``.
+    ``x`` is [n,3] in the mesh dtype; returns [n] int64.
+
+    O(ntet · npoints) time and memory (an [ntet, n, 4] table); meant for
+    tests and seeding, as in the JAX package, not the hot path (which
+    locates by walking)."""
+    sd = (dot3(mesh.face_normals[:, None], x[None])
+          - mesh.face_d[:, None, :])
+    worst = sd.amax(dim=-1)  # [ntet, n]
+    best_val = worst.amin(dim=0)
+    # The first element that attains the min (torch.min leaves the index
+    # of a tie unspecified; argmax takes the first).
+    first = torch.argmax((worst == best_val).to(torch.uint8), dim=0)
+    return torch.where(best_val <= tol, first, -1)
 
 
 def exit_face(normals, d, cur, dirv, exclude=None, return_num=False):

@@ -10,10 +10,12 @@ host→device copy and one device→host copy:
     card, and copied with ``non_blocking=True``; ``unpack_move_record``
     bitcasts the columns back on the device.
   * **coalesced readback (D2H)**: positions, material ids, done flags,
-    the walk-stats vector and, with convergence on, the [CONV_LEN]
-    convergence summary (``obs/convergence.py``) are packed on the
-    device into ONE flat record (``pack_trace_readback``), copied into a
-    pinned host buffer and split on the host (``split_trace_readback``).
+    the walk-stats vector and, with integrity on, the [INTEGRITY_LEN]
+    integrity vector (``integrity/invariants.py``) and, with convergence
+    on, the [CONV_LEN] convergence summary (``obs/convergence.py``) are
+    packed on the device into ONE flat record (``pack_trace_readback``),
+    copied into a pinned host buffer and split on the host
+    (``split_trace_readback``).
 
 Encoding: every record is made of carrier words of the walk dtype's width
 (``np_carrier``: uint32 for float32, uint64 for float64, as in the JAX
@@ -26,8 +28,8 @@ while packing, to nearest even as numpy's ``astype`` and JAX do: the
 record holds walk-dtype words, so the device never sees the float64
 values. Tail integers (the stats vector, or the segment count) are
 widened to int64 before they are bitcast into carrier words; the
-convergence summary's walk-dtype floats are bitcast as they are, so they
-travel bit-exactly.
+integrity vector's and the convergence summary's walk-dtype floats are
+bitcast as they are, so they travel bit-exactly.
 
 Host buffers come from :class:`HostStager`: pinned (page-locked) on the
 card, a ring of ``depth`` buffers per record kind; fresh on the CPU,
@@ -40,13 +42,13 @@ with the slot permutation ``perm`` as torch index ops on the card (the
 JAX package does them outside any kernel too).
 
 The megastep's readback (``pack_megastep_tail``) is a tail alone: the
-chunk's stats vector (or segment count) int64-encoded, the last
-convergence summary and the physics vector (``ops/source.py``) as
-walk-dtype carrier words; per-lane state stays on the card between
-chunks, so one device→host copy of a few words ends a chunk.
+chunk's stats vector (or segment count) int64-encoded, the chunk's
+integrity vector, the last convergence summary and the physics vector
+(``ops/source.py``) as walk-dtype carrier words; per-lane state stays on
+the card between chunks, so one device→host copy of a few words ends a
+chunk.
 
-Not ported here: the integrity tail (A8) and the partitioned records
-(A9). Asking for them raises NotImplementedError.
+Not ported here: the partitioned records (ROADMAP.md A9).
 """
 from __future__ import annotations
 
@@ -55,6 +57,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..integrity.invariants import INTEGRITY_LEN
 from ..obs.convergence import CONV_LEN
 from ..utils.platform import resolve_device
 
@@ -241,29 +244,25 @@ def unpack_move_record(rec, dtype, perm, initial: bool):
     return dest, words[:, 5] != 0, weight, group
 
 
-def _no_integrity() -> None:
-    raise NotImplementedError(
-        "the integrity tail is not ported yet (ROADMAP.md A8)")
-
-
 def pack_trace_readback(position, material_id, done, stats, n_segments,
                         perm=None, integrity=None, convergence=None):
     """Device-side readback pack: the ``[n, READBACK_COLS]`` slot record,
     flattened, with the walk-stats vector (or, when walk stats are off,
-    the segment count) appended as an int64-encoded tail and, when
-    ``convergence`` (the [CONV_LEN] summary) is given, its walk-dtype
-    floats appended last as carrier words; one carrier tensor, so ONE
-    device→host copy carries what the facade needs per move. With the slot
-    permutation ``perm`` the slot rows are scattered back into host
-    particle order (row ``perm[i]`` takes slot i) on the card."""
-    if integrity is not None:
-        _no_integrity()
-    carrier = torch_carrier(position.dtype)
+    the segment count) appended as an int64-encoded tail, then the
+    ``integrity`` vector (when given) and the ``convergence`` summary
+    (when given) as walk-dtype floats in carrier words; one carrier
+    tensor, so ONE device→host copy carries what the facade needs per
+    move, as in the JAX package. With the slot permutation ``perm`` the
+    slot rows are scattered back into host particle order (row
+    ``perm[i]`` takes slot i) on the card."""
+    dtype = position.dtype
+    carrier = torch_carrier(dtype)
     n = position.shape[0]
     tail_src = stats if stats is not None else n_segments.reshape(1)
     tail = tail_src.to(torch.int64).view(carrier)
-    conv_words = 0 if convergence is None else convergence.numel()
-    out = torch.empty(n * READBACK_COLS + tail.numel() + conv_words,
+    floats = [v.to(dtype) for v in (integrity, convergence) if v is not None]
+    n_floats = sum(v.numel() for v in floats)
+    out = torch.empty(n * READBACK_COLS + tail.numel() + n_floats,
                       dtype=carrier, device=position.device)
     slot = out[: n * READBACK_COLS].view(n, READBACK_COLS)
     slot[:, 0:3] = position.view(carrier)
@@ -271,18 +270,22 @@ def pack_trace_readback(position, material_id, done, stats, n_segments,
     slot[:, 4] = done
     if perm is not None:
         slot[perm] = slot.clone()
-    out[n * READBACK_COLS:n * READBACK_COLS + tail.numel()] = tail
-    if convergence is not None:
-        out[out.numel() - conv_words:] = (
-            convergence.to(position.dtype).view(carrier))
+    off = n * READBACK_COLS
+    out[off:off + tail.numel()] = tail
+    off += tail.numel()
+    for v in floats:
+        out[off:off + v.numel()] = v.view(carrier)
+        off += v.numel()
     return out
 
 
-def readback_views(host_rec, n: int, dtype, convergence: bool = False):
+def readback_views(host_rec, n: int, dtype, integrity: bool = False,
+                   convergence: bool = False):
     """The parts of a host readback as views into it, with no pass over
     the lanes: ``(position [n,3] walk dtype, material ids [n] in the
     carrier's signed int, done words [n] (nonzero: done), tail int64
-    array, convergence summary float64 copy or None)``."""
+    array, integrity float64 copy or None, convergence summary float64
+    copy or None)``."""
     carrier = np_carrier(dtype)
     if isinstance(host_rec, torch.Tensor):
         host_rec = host_rec.numpy()
@@ -293,28 +296,38 @@ def readback_views(host_rec, n: int, dtype, convergence: bool = False):
     material = slot[:, 3].view(np.int32 if carrier == np.uint32
                                else np.int64)
     tail_words = words[n * READBACK_COLS:]
-    conv = None
+    tail_words, integ, conv = _split_floats(tail_words, npdt, integrity,
+                                            convergence)
+    return (position, material, slot[:, 4], _dec_i64_host(tail_words),
+            integ, conv)
+
+
+def _split_floats(words, npdt, integrity: bool, convergence: bool):
+    """Split the float tails off the end of a record's words: ``(rest,
+    integrity float64 or None, convergence float64 or None)``."""
+    integ = conv = None
     if convergence:
-        conv = _dec_f_host(tail_words[-CONV_LEN:], npdt).astype(np.float64)
-        tail_words = tail_words[:-CONV_LEN]
-    return position, material, slot[:, 4], _dec_i64_host(tail_words), conv
+        conv = _dec_f_host(words[-CONV_LEN:], npdt).astype(np.float64)
+        words = words[:-CONV_LEN]
+    if integrity:
+        integ = _dec_f_host(words[-INTEGRITY_LEN:], npdt).astype(np.float64)
+        words = words[:-INTEGRITY_LEN]
+    return words, integ, conv
 
 
 def split_trace_readback(host_rec, n: int, dtype, integrity: bool = False,
                          convergence: bool = False):
     """Host-side inverse of ``pack_trace_readback``. Returns ``(position
     [n,3] walk dtype, material_id [n] int32, done [n] bool, tail int64
-    array, None, convergence float64 vector or None)``, where ``tail`` is
-    the stats vector (walk stats on) or ``[n_segments]`` (off); the fifth
-    is the JAX package's integrity slot. Positions and (in float32)
-    material ids are strided views into ``host_rec``."""
-    if integrity:
-        _no_integrity()
-    position, material, done, tail, conv = readback_views(
-        host_rec, n, dtype, convergence)
+    array, integrity float64 vector or None, convergence float64 vector
+    or None)``, where ``tail`` is the stats vector (walk stats on) or
+    ``[n_segments]`` (off). Positions and (in float32) material ids are
+    strided views into ``host_rec``."""
+    position, material, done, tail, integ, conv = readback_views(
+        host_rec, n, dtype, integrity, convergence)
     material = _dec_i32_host(material.view(np_carrier(dtype)),
                              np_carrier(dtype))
-    return position, material, done != 0, tail, None, conv
+    return position, material, done != 0, tail, integ, conv
 
 
 # --------------------------------------------------------------------- #
@@ -323,17 +336,16 @@ def split_trace_readback(host_rec, n: int, dtype, integrity: bool = False,
 def pack_megastep_tail(stats, n_segments, integrity, convergence, phys,
                        dtype):
     """The megastep's device-side readback: the chunk's stats reduction
-    (or, walk stats off, the segment count) int64-encoded, then the last
-    convergence summary (or nothing) and the [MEGA_PHYS_LEN] physics
-    vector as walk-dtype floats, as ONE flat carrier tensor. The
-    integrity slot is the JAX package's (A8)."""
-    if integrity is not None:
-        _no_integrity()
+    (or, walk stats off, the segment count) int64-encoded, then the
+    chunk's integrity vector and the last convergence summary (each when
+    given) and the [MEGA_PHYS_LEN] physics vector as walk-dtype floats,
+    as ONE flat carrier tensor, the JAX package's layout."""
     carrier = torch_carrier(dtype)
     tail_src = stats if stats is not None else n_segments.reshape(1)
     parts = [tail_src.to(torch.int64).view(carrier)]
-    if convergence is not None:
-        parts.append(convergence.to(dtype).view(carrier))
+    for v in (integrity, convergence):
+        if v is not None:
+            parts.append(v.to(dtype).view(carrier))
     parts.append(phys.to(dtype).view(carrier))
     return torch.cat(parts)
 
@@ -341,20 +353,15 @@ def pack_megastep_tail(stats, n_segments, integrity, convergence, phys,
 def split_megastep_tail(host_vec, dtype, walk_stats: bool,
                         integrity: bool, convergence: bool):
     """Host-side inverse of ``pack_megastep_tail``. Returns ``(tail int64
-    array: the stats vector or [n_segments], None (the integrity slot),
-    convergence float64 vector or None, phys float64 vector)``."""
+    array: the stats vector or [n_segments], integrity float64 vector or
+    None, convergence float64 vector or None, phys float64 vector)``."""
     from .source import MEGA_PHYS_LEN
 
-    if integrity:
-        _no_integrity()
     if isinstance(host_vec, torch.Tensor):
         host_vec = host_vec.numpy()
     npdt = np.dtype(_NP_FLOAT.get(dtype, dtype))
     words = np.asarray(host_vec).view(np_carrier(dtype))
     phys = _dec_f_host(words[-MEGA_PHYS_LEN:], npdt).astype(np.float64)
-    words = words[:-MEGA_PHYS_LEN]
-    conv = None
-    if convergence:
-        conv = _dec_f_host(words[-CONV_LEN:], npdt).astype(np.float64)
-        words = words[:-CONV_LEN]
-    return _dec_i64_host(words), None, conv, phys
+    words, integ, conv = _split_floats(words[:-MEGA_PHYS_LEN], npdt,
+                                       integrity, convergence)
+    return _dec_i64_host(words), integ, conv, phys

@@ -31,6 +31,12 @@ check, with its bounds and messages) into an error word whose lowest set
 bit is raised as ``WalkInvariantError`` after the walk, before any score
 reaches the flux.
 
+With ``integrity`` the walk also returns the conservation vector of
+``integrity/invariants.py`` (``integrity_vector``: end-of-walk reductions
+over the per-lane outputs and the flux, in torch ops, after the walk's
+scores reached the flux); the plain walk and ``walk_cuda.trace`` share
+that one definition. The flux math is the same with it on or off.
+
 Straggler compaction, loop unrolling and the scatter/gather strategy knobs
 of the JAX walk only schedule the same arithmetic; they have no
 counterpart here. The kernel schedules lanes its own way (each thread
@@ -44,6 +50,7 @@ import dataclasses
 
 import torch
 
+from ..integrity.invariants import IIDX, INTEGRITY_LEN
 from ..obs.convergence import fold_and_reduce
 from ..obs.walk_stats import WALK_STATS_FIELDS
 from .geometry import argmax4, exit_face
@@ -151,6 +158,39 @@ def track_length_violated(position, origin, dest, track, n_iters,
     return ~(torch.abs(track - dist) <= bound).all()
 
 
+def integrity_vector(in_flight, done, weight, pseg, cur, origin, flux,
+                     initial: bool) -> torch.Tensor:
+    """End-of-walk conservation reductions → the [INTEGRITY_LEN] vector in
+    the walk dtype (``integrity/invariants.py`` field order), as
+    ``pumiumtally_tpu/ops/walk.py::integrity_vector``: over lanes in
+    flight and done, Σ weight·track, Σ weight·|final − origin| and the
+    max per-lane |track − |final − origin||; the count of flux entries
+    that are not finite or negative; lanes in flight; lanes in flight and
+    done. The initial search scores nothing, so its first three are 0. A
+    truncated lane holds a partial track (the re-walk merge keeps the sums
+    consistent across attempts, ``merge_rewalk``). ``flux`` is the flat
+    accumulator after this walk's scores; it is read, never written.
+
+    Few torch ops, each over whole arrays (on the card their launches,
+    not their bytes, set much of the time): the two weighted sums are
+    dot products, the bad entries are counted from one bool pass over
+    the flux, and the counts travel as int64 until the one cast at the
+    end (exact, as the JAX package's cast of its counts)."""
+    dtype = flux.dtype
+    comp = in_flight & done
+    if initial or comp.numel() == 0:
+        sums = flux.new_zeros(3)
+    else:
+        dist = torch.linalg.vector_norm(cur - origin, dim=1)
+        wc = torch.where(comp, weight, 0.0)
+        resid = torch.where(comp, (pseg - dist).abs_(), 0.0).amax()
+        sums = torch.stack([torch.dot(wc, pseg), torch.dot(wc, dist), resid])
+    good = torch.count_nonzero(
+        (flux >= 0).logical_and_(flux <= torch.finfo(dtype).max))
+    counts = torch.stack([flux.numel() - good, in_flight.sum(), comp.sum()])
+    return torch.cat([sums, counts.to(dtype)])
+
+
 def walk_stats_vector(ncross_l, nchase_l, done, nseg, it) -> torch.Tensor:
     """The [8] per-move stats vector in ``obs/walk_stats.py`` field order:
     crossings, max crossings per lane, chase hops, truncated walks,
@@ -203,6 +243,8 @@ class TraceResult:
     xpoints: [n,K,3] recorded crossing points with ``record_xpoints=K``
       (only each lane's first ``n_xpoints`` rows, at most K, are set).
     n_xpoints: [n] int32 genuine crossings per lane (may exceed K).
+    integrity: [INTEGRITY_LEN] conservation vector in the walk dtype with
+      ``integrity`` (``integrity_vector``), else None.
     """
 
     position: torch.Tensor
@@ -219,6 +261,26 @@ class TraceResult:
     convergence: torch.Tensor | None = None
     xpoints: torch.Tensor | None = None
     n_xpoints: torch.Tensor | None = None
+    integrity: torch.Tensor | None = None
+
+
+def check_integrity_args(integrity: bool, ledger: bool) -> None:
+    """The conservation check reads the per-lane track ledger."""
+    if integrity and not ledger:
+        raise ValueError(
+            "integrity=True needs the per-particle track-length ledger "
+            "(ledger=True) for the conservation invariant"
+        )
+
+
+def with_integrity(r: "TraceResult", origin, in_flight, weight,
+                   initial: bool) -> "TraceResult":
+    """``r`` with its ``integrity`` vector (``integrity_vector`` over the
+    walk's inputs and outputs, after its scores reached the flux)."""
+    r.integrity = integrity_vector(in_flight, r.done, weight,
+                                   r.track_length, r.position, origin,
+                                   r.flux, initial)
+    return r
 
 
 def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
@@ -313,6 +375,7 @@ def trace(
     record_xpoints: int | None = None,
     xpoints: tuple | None = None,
     debug_checks: bool = False,
+    integrity: bool = False,
 ) -> TraceResult:
     """Walk every lane from origin to dest (plain PyTorch).
 
@@ -336,9 +399,12 @@ def trace(
         as ``TraceResult.xpoints`` and ``n_xpoints`` of an earlier walk.
       debug_checks: the invariant checks; a violation raises
         ``WalkInvariantError`` and the flux is left as it was.
+      integrity: return the conservation vector (``integrity_vector``,
+        needs ``ledger``).
     """
     check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
                     material_id, flux, n_groups)
+    check_integrity_args(integrity, ledger)
     n = origin.shape[0]
     lane = torch.arange(n, device=origin.device)
     held = []
@@ -359,6 +425,8 @@ def trace(
     if held:
         scatter_ordered_plain(flux, *(torch.cat(col) for col in zip(*held)),
                               score_squares)
+    if integrity:
+        with_integrity(r, origin, in_flight, weight, initial)
     return r
 
 
@@ -407,6 +475,7 @@ def packed_step(walk, mesh, origin, elem, material_id, record, flux, perm,
             rel_err_target=rel_err_target)
     readback = pack_trace_readback(r.position, r.material_id, r.done,
                                    r.stats, r.n_segments, perm,
+                                   integrity=r.integrity,
                                    convergence=r.convergence)
     return r, readback, dest, in_flight, w, g
 
@@ -641,6 +710,9 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
 # --------------------------------------------------------------------- #
 _MAX_CROSS = WALK_STATS_FIELDS.index("max_crossings")
 _TRUNCATED = WALK_STATS_FIELDS.index("truncated")
+_RESID = IIDX["max_residual"]
+_BAD_FLUX = IIDX["bad_flux"]
+_FLYING = IIDX["lanes_flying"]
 
 
 def merge_rewalk(a: TraceResult, b: TraceResult) -> TraceResult:
@@ -664,6 +736,13 @@ def merge_rewalk(a: TraceResult, b: TraceResult) -> TraceResult:
     records = None
     if a.n_records is not None and b.n_records is not None:
         records = a.n_records + b.n_records
+    integ = b.integrity
+    if a.integrity is not None and b.integrity is not None:
+        integ = a.integrity + b.integrity
+        integ[_RESID] = torch.maximum(a.integrity[_RESID],
+                                      b.integrity[_RESID])
+        integ[_BAD_FLUX] = b.integrity[_BAD_FLUX]
+        integ[_FLYING] = a.integrity[_FLYING]
     return TraceResult(
         position=b.position,
         elem=b.elem,
@@ -678,6 +757,7 @@ def merge_rewalk(a: TraceResult, b: TraceResult) -> TraceResult:
         n_records=records,
         xpoints=b.xpoints,
         n_xpoints=b.n_xpoints,
+        integrity=integ,
     )
 
 
@@ -772,6 +852,17 @@ def merge_megastep_stats(acc, stats):
     return out
 
 
+def merge_megastep_integrity(acc, integ):
+    """Fold one fused move's integrity vector into the chunk's, as
+    ``pumiumtally_tpu/ops/walk.py::merge_megastep_integrity``: the
+    conservation sums and lane counts add, the residual is a max, and
+    ``bad_flux`` is the last move's (the final accumulator)."""
+    out = acc + integ
+    out[_RESID] = torch.maximum(acc[_RESID], integ[_RESID])
+    out[_BAD_FLUX] = integ[_BAD_FLUX]
+    return out
+
+
 def megastep(
     mesh,
     origin,
@@ -840,7 +931,9 @@ def megastep(
     (ROADMAP.md B2 is the graph capture).
 
     The compaction, unroll, scatter and gather knobs schedule the JAX
-    walk only and are ignored; ``integrity`` (A8) must be False.
+    walk only and are ignored. ``integrity`` folds each walk's integrity
+    vector into the chunk's (``merge_megastep_integrity``), which rides
+    the tail.
     ``capacity`` sizes the first walk's record buffers on the card; later
     walks take the previous walk's record count. ``draws``, a sequence of
     ``(direction, ell, coll_u, roul_u)`` per fused move, replaces the
@@ -863,20 +956,19 @@ def megastep(
     )
     from .staging import pack_megastep_tail
 
-    if integrity:
-        raise NotImplementedError(
-            "the megastep's integrity tail is not ported yet (ROADMAP.md A8)")
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
     walk_kw = dict(initial=False, max_crossings=max_crossings,
                    n_groups=n_groups, score_squares=score_squares,
                    tolerance=tolerance, robust=robust, ledger=ledger,
-                   stats=stats)
+                   stats=stats, integrity=integrity)
     phys_kw = dict(eps_near=eps_near, survival_weight=survival_weight,
                    downscatter=downscatter, n_groups=n_groups)
     sacc = (torch.zeros(len(WALK_STATS_FIELDS), dtype=torch.int64,
                         device=dev) if stats else None)
     cvec = None
+    iacc = (torch.zeros(INTEGRITY_LEN, dtype=dtype, device=dev)
+            if integrity else None)
     pacc = torch.zeros(MEGA_PHYS_LEN, dtype=dtype, device=dev)
     nseg = torch.zeros((), dtype=torch.int64, device=dev)
     alive = alive.to(torch.bool)
@@ -915,6 +1007,8 @@ def megastep(
                 accumulate_batch_squares(flux, prev_even)
             if sacc is not None:
                 sacc = merge_megastep_stats(sacc, r.stats)
+            if iacc is not None:
+                iacc = merge_megastep_integrity(iacc, r.integrity)
             if conv_state is not None:
                 cvec = fold_and_reduce(flux, conv_state,
                                        batch_moves=batch_moves,
@@ -928,7 +1022,7 @@ def megastep(
         if r.n_records is not None:
             records = r.n_records
             capacity = walk_cuda.record_capacity(n, records)
-    readback = pack_megastep_tail(sacc, nseg, None, cvec, pacc, dtype)
+    readback = pack_megastep_tail(sacc, nseg, iacc, cvec, pacc, dtype)
     return MegastepResult(
         position=origin, dest=dest, elem=elem, material_id=mat,
         weight=weight, group=group, alive=alive, flux=flux,

@@ -63,6 +63,7 @@ from .walk import (
     TRACK_CHECK,
     Records,
     TraceResult,
+    check_integrity_args,
     check_walk_args,
     packed_step,
     raise_on_violation,
@@ -72,6 +73,7 @@ from .walk import (
     trace_records as trace_records_plain,
     track_length_violated,
     walk_stats_vector,
+    with_integrity,
     xpoint_buffers,
 )
 
@@ -167,10 +169,13 @@ def trace(
     record_xpoints: int | None = None,
     xpoints: tuple | None = None,
     debug_checks: bool = False,
+    integrity: bool = False,
 ) -> TraceResult:
     """The walk of ``ops/walk.py::trace`` (same arguments, same result):
     the CUDA kernel for CUDA tensors, the plain walk for CPU tensors. The
-    flux is updated in place.
+    flux is updated in place. ``integrity`` adds the conservation vector
+    of ``ops/walk.py::integrity_vector`` (torch ops on the card after the
+    scatter, no kernel of its own and no host read).
 
     ``tally`` is ``"ordered"`` (flux bitwise equal to the plain walk's) or
     ``"atomic"``. ``capacity`` is the number of records the ordered walk's
@@ -188,7 +193,8 @@ def trace(
     args = (mesh, origin, dest, elem, in_flight, weight, group,
             material_id, flux)
     if origin.device.type == "cpu":
-        return trace_plain(*args, **kw)
+        return trace_plain(*args, **kw, integrity=integrity)
+    check_integrity_args(integrity, ledger)
     if origin.device.type != "cuda":
         raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
     _check_cuda(*args, n_groups, max_crossings)
@@ -202,12 +208,15 @@ def trace(
     if tally == "atomic" or initial:
         lanes = lane_records(mesh, origin, dest, elem, in_flight, weight,
                              group, initial=initial)
-        return _result(_launch(*args, **kw, ordered=False, lanes=lanes),
-                       **kw)
-    out, rec = _walk_ordered(*args, **kw, capacity=capacity)
-    scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
-                         mesh.ntet * n_groups)
-    return _result(out, **kw, records=rec.bin.numel())
+        r = _result(_launch(*args, **kw, ordered=False, lanes=lanes), **kw)
+    else:
+        out, rec = _walk_ordered(*args, **kw, capacity=capacity)
+        scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
+                             mesh.ntet * n_groups)
+        r = _result(out, **kw, records=rec.bin.numel())
+    if integrity:
+        with_integrity(r, origin, in_flight, weight, initial)
+    return r
 
 
 def trace_packed(mesh, origin, elem, material_id, record, flux, perm=None,

@@ -17,6 +17,11 @@ packages. What the port does with each field:
   element sort) and ``checkify_invariants`` (the walk's invariant checks);
 * read by the device-sourced move loop: ``megastep``
   (``resolve_megastep``, the moves a ``run_source_moves`` chunk runs);
+* read by the integrity layer (``resolve_integrity``, with the JAX
+  package's validation and messages): ``integrity`` ("off", "warn",
+  "retry" or "halt"), ``integrity_tol``, the shadow audit's
+  ``audit_lanes``, ``audit_every``, ``audit_tol`` and ``audit_seed``,
+  and the watchdog's ``move_deadline_s``;
 * accepted and ignored, because in the JAX package they only schedule the
   same arithmetic (straggler compaction, loop unrolling, scatter and
   gather strategies): ``compact_after``, ``compact_size``,
@@ -51,15 +56,9 @@ SD_MODES = ("segment", "batch")
 
 # Field → the ROADMAP.md port item that brings it.
 _UNPORTED = {
-    "integrity": "A8 (integrity)",
-    "integrity_tol": "A8 (integrity)",
-    "audit_lanes": "A8 (integrity audit)",
-    "audit_every": "A8 (integrity audit)",
-    "audit_tol": "A8 (integrity audit)",
-    "audit_seed": "A8 (integrity audit)",
-    "move_deadline_s": "A8 (watchdog)",
     "tuning": "A10 (tuning)",
 }
+INTEGRITY_MODES = ("off", "warn", "retry", "halt")
 KERNELS = ("xla", "pallas", "auto")
 TALLY_SCATTERS = ("auto", "interleaved", "pair")
 GATHERS = ("merged", "split")
@@ -252,6 +251,45 @@ class TallyConfig:
                 "checkify_invariants"
             )
         return k
+
+    def resolve_integrity(self) -> str:
+        """Validate and return the integrity mode (``integrity/policy.py``
+        escalation ladder), as the JAX package does: the conservation
+        check needs the track-length ledger, and the audit and watchdog
+        knobs must be coherent."""
+        mode = self.integrity
+        if mode not in INTEGRITY_MODES:
+            raise ValueError(
+                "integrity must be 'off', 'warn', 'retry' or 'halt': "
+                f"{mode!r}"
+            )
+        if mode != "off" and not self.ledger:
+            raise ValueError(
+                "integrity checks need the track-length conservation "
+                "ledger: keep ledger=True (the default) or set "
+                "integrity='off'"
+            )
+        if self.audit_lanes < 0:
+            raise ValueError(
+                f"audit_lanes must be >= 0: {self.audit_lanes}"
+            )
+        if self.audit_every < 1:
+            raise ValueError(
+                f"audit_every must be >= 1: {self.audit_every}"
+            )
+        if self.audit_lanes and not self.ledger:
+            raise ValueError(
+                "shadow audits compare the track-length ledger: keep "
+                "ledger=True (the default) or set audit_lanes=0"
+            )
+        if (
+            self.move_deadline_s is not None
+            and self.move_deadline_s <= 0
+        ):
+            raise ValueError(
+                f"move_deadline_s must be positive: {self.move_deadline_s}"
+            )
+        return mode
 
     def resolve_convergence(self) -> int | None:
         """Validate the convergence knobs and return the moves per batch

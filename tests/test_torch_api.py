@@ -413,14 +413,29 @@ def test_mesh_dtype_must_match_config():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("integrity", "warn"),
-    ("audit_lanes", 8),
-    ("move_deadline_s", 5.0),
     ("tuning", "TUNING.json"),
 ])
 def test_unported_config_fields_refused(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TallyConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("integrity", "warn"),
+    ("integrity_tol", 1e-6),
+    ("audit_lanes", 8),
+    ("audit_every", 2),
+    ("audit_tol", 1e-5),
+    ("audit_seed", 3),
+    ("move_deadline_s", 5.0),
+])
+def test_integrity_config_fields_accepted(field, value):
+    """The integrity fields are ported: set away from their defaults they
+    construct and resolve as in the JAX package."""
+    cfg = TallyConfig(**{field: value})
+    assert getattr(cfg, field) == value
+    assert cfg.resolve_integrity() == (value if field == "integrity"
+                                       else "off")
 
 
 def _same_outcome(port_call, jax_call):

@@ -81,6 +81,10 @@ OWN_COPIES = (
     "utils/log.py", "utils/profiling.py", "obs/registry.py",
     "obs/recorder.py", "obs/telemetry.py", "obs/convergence.py",
     "resilience/quarantine.py", "mesh/osh.py",
+    "integrity/invariants.py", "integrity/policy.py", "integrity/audit.py",
+    "integrity/watchdog.py", "utils/checkpoint.py", "utils/signals.py",
+    "resilience/store.py", "resilience/runner.py",
+    "resilience/coordinator.py", "resilience/faultinject.py",
 )
 
 

@@ -6,7 +6,8 @@ in every ``io_pipeline`` mode (:138), the read-only contract (:216), one
 H2D and one D2H a packed move with convergence on (:254), the early stop
 at the expected batch (:295), the ``batch_moves`` cadence and
 ``end_batch`` (:333), the re-base of the batch history (:382, through
-``_reset_convergence``; checkpoints are ROADMAP.md A8), the VTK
+``_reset_convergence``; its checkpoint form is in
+tests/test_torch_resilience.py), the VTK
 uncertainty fields (:417), the config validation (:440) and the gauges
 and per-batch records (:475). The same inputs go through the JAX facade:
 its summary agrees with the port's at 1e-9 relative in float64 (the

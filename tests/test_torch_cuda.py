@@ -1124,3 +1124,100 @@ def test_megastep_k_bitwise_on_card(cuda, dtype):
     for f in ("origin", "elem", "material_id", "weight", "group",
               "in_flight"):
         assert torch.equal(getattr(a.state, f), getattr(b.state, f)), f
+
+
+# --------------------------------------------------------------------- #
+# Integrity, checkpoints and the runner on the card
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_integrity_vector_kernel_matches_plain(cuda, dtype, initial):
+    """walk_cuda.trace(integrity=True): the walk kernel's outputs give the
+    plain walk's integrity vector (counts and bad_flux equal; the sums to
+    rounding, 1e-12 relative in float64 and 1e-5 in float32), and the
+    flux bitwise that of the walk with the vector off."""
+    from pumiumtally_tpu_torch.integrity.invariants import integrity_to_dict
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    args = list(_walk_inputs(mesh, cuda, dtype, n=2048, G=2))
+    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=2)
+    f_on, f_off, f_plain = (_flux0(mesh, 2, dtype, cuda) for _ in range(3))
+    f_on[7] = -1.0  # a planted bad entry
+    f_off[7] = f_plain[7] = -1.0
+    on = walk_cuda.trace(*args, f_on, integrity=True, **kw)
+    off = walk_cuda.trace(*args, f_off, **kw)
+    plain = walk.trace(*args, f_plain, integrity=True, **kw)
+    assert torch.equal(on.flux, off.flux)
+    got = integrity_to_dict(on.integrity.cpu().numpy())
+    want = integrity_to_dict(plain.integrity.cpu().numpy())
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    for f in ("bad_flux", "lanes_flying", "lanes_done"):
+        assert got[f] == want[f], f
+    assert got["bad_flux"] == 1
+    for f in ("scored_wlen", "path_wlen", "max_residual"):
+        assert got[f] == pytest.approx(want[f], rel=rtol,
+                                       abs=rtol * max(1.0, want["path_wlen"]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_checkpoint_round_trip_on_card(cuda, dtype, tmp_path):
+    """Save after move 2, restore into a fresh tally on the card, run
+    moves 3-4: flux, positions, elements and write-backs bitwise the
+    uninterrupted run's; a transient retried under the runner too."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.resilience.faultinject import (
+        FaultInjector,
+        parse_faults,
+    )
+    from pumiumtally_tpu_torch.resilience.runner import ResilientRunner
+
+    mesh = _jittered(6, dtype, cuda)
+    n = 4096
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(0.05, 0.95, (n, 3)).reshape(-1)
+    moves = [(rng.uniform(0.05, 0.95, (n, 3)).reshape(-1),
+              np.ones(n, np.int8), rng.uniform(0.5, 2.0, n),
+              rng.integers(0, 2, n).astype(np.int32),
+              np.full(n, -1, np.int32)) for _ in range(4)]
+
+    def tally(**kw):
+        t = PumiTally(mesh, n, TallyConfig(n_groups=2, dtype=dtype,
+                                           integrity="warn", **kw),
+                      device=cuda)
+        return t
+
+    def move(t, i):
+        a = [np.array(x, copy=True) for x in moves[i]]
+        t.move_to_next_location(*a)
+        return a[0], a[4]
+
+    ref = tally()
+    ref.initialize_particle_location(pos.copy())
+    outs = [move(ref, i) for i in range(4)]
+    a = tally()
+    a.initialize_particle_location(pos.copy())
+    move(a, 0)
+    move(a, 1)
+    path = str(tmp_path / "card.npz")
+    a.save_checkpoint(path)
+    b = tally()
+    b.restore_checkpoint(path)
+    got = [move(b, i) for i in (2, 3)]
+    assert torch.equal(b.flux, ref.flux)
+    assert torch.equal(b.state.origin, ref.state.origin)
+    assert torch.equal(b.state.elem, ref.state.elem)
+    for (p, m), (q, k) in zip(got, outs[2:]):
+        np.testing.assert_array_equal(p, q)
+        np.testing.assert_array_equal(m, k)
+    c = tally()
+    run = ResilientRunner(c, str(tmp_path / "cks"), every_moves=100,
+                          handle_signals=False, sleep=lambda s: None,
+                          faults=FaultInjector(parse_faults(
+                              "transient_at_move:3")))
+    run.initialize_particle_location(pos.copy())
+    for i in range(4):
+        run.move_to_next_location(*[np.array(x, copy=True)
+                                    for x in moves[i]])
+    assert torch.equal(c.flux, ref.flux)
+    assert c.telemetry()["integrity"]["violations"] == {}

@@ -21,12 +21,24 @@ from hypothesis import strategies as st
 from pumiumtally_tpu import build_box as jbuild_box
 from pumiumtally_tpu import make_flux as jmake_flux
 from pumiumtally_tpu.ops import walk as jwalk
-from pumiumtally_tpu.ops.geometry import locate_points
+from pumiumtally_tpu.ops.geometry import locate_points as jlocate_points
 from pumiumtally_tpu_torch.convert import MESH_FIELDS, mesh_from_jax_arrays
+from pumiumtally_tpu_torch.ops.geometry import locate_points
 from pumiumtally_tpu_torch.mesh.box import build_box
 from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
 
 POS_TOL, FLUX_RTOL = 1e-12, 1e-10
+
+
+def _locate(jm, origin) -> np.ndarray:
+    """The lanes' parent elements by the port's locate_points on the port's
+    copy of ``jm``, checked against the JAX package's."""
+    pm = mesh_from_jax_arrays({f: np.asarray(getattr(jm, f))
+                               for f in MESH_FIELDS}, "cpu")
+    elem = locate_points(pm, torch.as_tensor(origin), 1e-12).numpy()
+    np.testing.assert_array_equal(
+        elem, np.asarray(jlocate_points(jm, jnp.asarray(origin), 1e-12)))
+    return elem
 G = 2
 DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -161,7 +173,7 @@ def _jax_case(initial: bool):
     fly = rng.random(n) > 0.2
     w = rng.uniform(0.1, 3.0, n)
     g = rng.integers(0, G, n).astype(np.int32)
-    elem = np.asarray(locate_points(jm, jnp.asarray(origin), 1e-12))
+    elem = _locate(jm, origin)
     if initial:
         origin = np.tile(origin[:1], (n, 1))
         elem = np.full(n, int(elem[0]))

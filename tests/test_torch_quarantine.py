@@ -3,8 +3,9 @@
 
 Mirrors tests/test_resilience.py :425 (masking and per-lane, per-reason
 reports), :466 (a lane with several reasons counts once) and :485 (the
-initial positions); :397, :500 and :584 need the ResilientRunner, the
-fault injector and checkpoints (ROADMAP.md A8). The same inputs go
+initial positions); :397, :500 and :584, which need the
+ResilientRunner, the fault injector and checkpoints, are in
+tests/test_torch_resilience.py. The same inputs go
 through the JAX facade: quarantined lanes, reasons and write-backs are
 equal, the flux at the float64 parity bar (1e-10 relative); the scan's
 verdicts equal the JAX module's on the same arrays, and a quarantined run

@@ -30,11 +30,23 @@ import torch
 from pumiumtally_tpu import build_box as jbuild_box
 from pumiumtally_tpu import make_flux as jmake_flux
 from pumiumtally_tpu.ops import walk as jwalk
-from pumiumtally_tpu.ops.geometry import locate_points
+from pumiumtally_tpu.ops.geometry import locate_points as jlocate_points
 from pumiumtally_tpu_torch.convert import MESH_FIELDS, mesh_from_jax_arrays
+from pumiumtally_tpu_torch.ops.geometry import locate_points
 from pumiumtally_tpu_torch.ops import scatter, walk, walk_cuda
 
 POS_TOL, FLUX_RTOL = 1e-12, 1e-10  # float64, as tests/test_torch_walk.py
+
+
+def _locate(jm, origin) -> np.ndarray:
+    """The lanes' parent elements by the port's locate_points on the port's
+    copy of ``jm``, checked against the JAX package's."""
+    pm = mesh_from_jax_arrays({f: np.asarray(getattr(jm, f))
+                               for f in MESH_FIELDS}, "cpu")
+    elem = locate_points(pm, torch.as_tensor(origin), 1e-12).numpy()
+    np.testing.assert_array_equal(
+        elem, np.asarray(jlocate_points(jm, jnp.asarray(origin), 1e-12)))
+    return elem
 G = 2
 LANE_OUTPUTS = ("position", "elem", "material_id", "done", "lane_iters",
                 "track_length")
@@ -59,7 +71,7 @@ def _compaction_inputs():
     in_flight = rng.random(n) > 0.2
     weight = rng.uniform(0.1, 3.0, n)
     group = rng.integers(0, G, n).astype(np.int32)
-    elem = np.asarray(locate_points(jm, jnp.asarray(origin), 1e-12))
+    elem = _locate(jm, origin)
     assert (elem >= 0).all()
     lanes = dict(origin=origin, dest=dest, elem=elem.astype(np.int32),
                  fly=in_flight, w=weight, g=group,
@@ -74,7 +86,7 @@ def _bar_inputs():
     n = 4
     origin = np.tile([0.05, 0.4, 0.5], (n, 1))
     dest = np.tile([19.95, 0.4, 0.5], (n, 1))
-    elem = np.asarray(locate_points(jm, jnp.asarray(origin), 1e-12))
+    elem = _locate(jm, origin)
     lanes = dict(origin=origin, dest=dest, elem=elem.astype(np.int32),
                  fly=np.ones(n, bool), w=np.ones(n), g=np.zeros(n, np.int32),
                  mat=np.full(n, -1, np.int32))

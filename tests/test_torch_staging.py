@@ -29,6 +29,7 @@ from pumiumtally_tpu.ops import staging as jstaging
 from pumiumtally_tpu.ops.walk import trace_packed as jtrace_packed
 from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
 from pumiumtally_tpu_torch.convert import MESH_FIELDS, mesh_from_jax_arrays
+from pumiumtally_tpu_torch.obs.convergence import CONV_LEN
 from pumiumtally_tpu_torch.ops import scatter, staging, walk, walk_cuda
 
 N = 128
@@ -128,9 +129,12 @@ def test_readback_round_trip_and_jax_bytes(dtype, stats):
 
 
 def test_unported_record_parts_raise():
-    """The integrity tail (A8) raises; the slot permutation of the element
-    sort (A5) is ported: the unpack gathers host rows into slots and the
-    readback scatters slots back into host order."""
+    """Only a carrier width other than 4 or 8 bytes is refused now. The
+    integrity tail is ported: it rides after the stats tail and before
+    the convergence summary, bit for bit, in the JAX package's layout
+    (the JAX split reads the port's record). The slot permutation of the
+    element sort is ported: the unpack gathers host rows into slots and
+    the readback scatters slots back into host order."""
     dest = np.arange(6, dtype=np.float64).reshape(2, 3)
     rec = staging.pack_init_record(staging.HostStager(device="cpu"),
                                    dest, np.array([True, False]),
@@ -139,24 +143,52 @@ def test_unported_record_parts_raise():
     d, fly, _, _ = staging.unpack_move_record(rec, torch.float64, perm, True)
     np.testing.assert_array_equal(d.numpy(), dest[::-1])
     np.testing.assert_array_equal(fly.numpy(), [False, True])
-    z = torch.zeros(2, 3, dtype=torch.float64)
-    i = torch.zeros(2, dtype=torch.int32)
-    b = torch.ones(2, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match="A8"):
-        staging.pack_trace_readback(z, i, b, None, torch.tensor(0),
-                                    integrity=torch.zeros(3))
-    pos, mats, done, _, _, _ = staging.split_trace_readback(
-        staging.pack_trace_readback(d, torch.tensor([7, 8], dtype=torch.int32),
-                                    fly, None, torch.tensor(0), perm=perm),
-        2, torch.float64)
+    integ = torch.tensor([1.5, 1.25, 1e-9, 0.0, 2.0, 1.0],
+                         dtype=torch.float64)
+    conv = torch.arange(CONV_LEN, dtype=torch.float64) / 7
+    rb = staging.pack_trace_readback(
+        d, torch.tensor([7, 8], dtype=torch.int32), fly, None,
+        torch.tensor(5), perm=perm, integrity=integ, convergence=conv)
+    pos, mats, done, tail, got, c = staging.split_trace_readback(
+        rb, 2, torch.float64, integrity=True, convergence=True)
     np.testing.assert_array_equal(pos, dest)
     np.testing.assert_array_equal(mats, [8, 7])
     np.testing.assert_array_equal(done, [True, False])
-    with pytest.raises(NotImplementedError, match="A8"):
-        staging.split_trace_readback(np.zeros(12, np.uint64), 2,
-                                     torch.float64, integrity=True)
+    np.testing.assert_array_equal(tail, [5])
+    np.testing.assert_array_equal(got, integ.numpy())
+    np.testing.assert_array_equal(c, conv.numpy())
+    jp, jm, jd, jtail, jinteg, jconv = jstaging.split_trace_readback(
+        rb.numpy().view(np.uint64), 2, np.float64, integrity=True,
+        convergence=True)
+    np.testing.assert_array_equal(jinteg, integ.numpy())
+    np.testing.assert_array_equal(jconv, conv.numpy())
+    np.testing.assert_array_equal(jtail, [5])
     with pytest.raises(NotImplementedError, match="4- or 8-byte"):
         staging.np_carrier(torch.float16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_megastep_tail_integrity_slot_is_the_jax_packages(dtype):
+    """The megastep tail with the integrity vector: the port's pack, split
+    by the port and by the JAX package, gives the same words."""
+    from pumiumtally_tpu_torch.ops.source import MEGA_PHYS_LEN
+
+    stats = torch.arange(8, dtype=torch.int64)
+    integ = torch.tensor([3.5, 3.25, 1e-6, 0.0, 64.0, 60.0], dtype=dtype)
+    phys = torch.arange(MEGA_PHYS_LEN, dtype=dtype) + 0.5
+    vec = staging.pack_megastep_tail(stats, None, integ, None, phys, dtype)
+    tail, got, conv, p = staging.split_megastep_tail(vec, dtype, True, True,
+                                                     False)
+    np.testing.assert_array_equal(tail, stats.numpy())
+    np.testing.assert_array_equal(got, integ.numpy().astype(np.float64))
+    assert conv is None
+    np.testing.assert_array_equal(p, phys.numpy().astype(np.float64))
+    npdt = np.float32 if dtype == torch.float32 else np.float64
+    jtail, jinteg, _, jp = jstaging.split_megastep_tail(
+        vec.numpy().view(staging.np_carrier(dtype)), npdt, True, True, False)
+    np.testing.assert_array_equal(jtail, tail)
+    np.testing.assert_array_equal(jinteg, got)
+    np.testing.assert_array_equal(jp, p)
 
 
 def test_host_stager_ring_on_cpu_allocates_fresh():
