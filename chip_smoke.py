@@ -166,6 +166,32 @@ Phases, each of which raises (exit code != 0) on any failed check:
    megastep cell (K = 8) with integrity on: 0 violations, bitwise the
    run without, and a checkpoint after 4 moves restored and run 4 more
    moves ends where the 8 uninterrupted moves end.
+16. the partitioned tally (``[part]`` lines): (a) the unpacked table
+   layout: the four calls on the main box with 65 z-slab classes built
+   ``packed=False`` (initial search and one move through the unpacked
+   instantiation, counted; material stops at the slabs), their inputs
+   replayed kernel against plain walk (every lane and the flux bitwise),
+   the same on a float64 65-class 20^3 box, and move 1 of the main path
+   on the main mesh's unpacked twin (bitwise the packed walk) timed
+   against the packed mesh in turns (packed, unpacked, unpacked, packed;
+   CUDA events, median of 5) beside its bound, with the unpacked and
+   partitioned instantiations' ptxas registers and spills; (b) the
+   partitioned walk phase on a jittered 20^3 box in 4 parts, halo 0 and
+   1, both dtypes: the first walk phase kernel against plain (every
+   lane's state, target and the slab flux bitwise) and the whole step
+   (slots, positions, slab flux, rounds and exchange counts bitwise,
+   twice through the kernel); (c) the main cell (seed 1) through
+   ``PartitionedTally(n_parts=4, halo_layers=1)``: a counted run (launch
+   counts zeroed before and read after, round waits, peak device memory,
+   a .vtu), a run beside ``PumiTally`` in turns (host ms and segments/s a
+   move, rounds, emigrants a round, each round's walk phase, exchange and
+   halo fold in CUDA events; positions within 1e-5, materials and
+   elements counted where they differ, the flux per bin within rtol 1e-5
+   + atol 1e-5, segments equal, the conservation residual <= 1e-4, the
+   flux bitwise the counted run's), a profiled run (the card's busy
+   share), and move 1's first walk phase at full width kernel against
+   plain, timed beside its bound; (d) ``io_pipeline`` "legacy" and
+   "overlap": the packed run's flux and write-backs bitwise.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -210,6 +236,7 @@ RUNSTATS_CONV = dict(convergence=True, batch_moves=2)
 RUNSTATS_TRUNC = dict(max_crossings=4, truncation_retries=6)
 RUNSTATS_BAD = 1000  # lanes given NaN destinations in (d)
 SOURCES = ("walk", "scatter", "gather", "source")
+LIBS: list = []  # the built libraries, for their ptxas logs
 WARP = 32
 
 
@@ -810,6 +837,7 @@ def zero_counts() -> None:
 
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
     walk_cuda.FEATURE_LAUNCHES = walk_cuda.SCHEDULE_LAUNCHES = 0
+    walk_cuda.UNPACKED_LAUNCHES = walk_cuda.PART_LAUNCHES = 0
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
     gather.LAUNCHES = source_cuda.LAUNCHES = 0
@@ -823,6 +851,8 @@ def read_counts() -> dict:
         "walk": walk_cuda.LAUNCHES,
         "walk_relaunches": walk_cuda.RELAUNCHES,
         "walk_features": walk_cuda.FEATURE_LAUNCHES,
+        "walk_unpacked": walk_cuda.UNPACKED_LAUNCHES,
+        "walk_partitioned": walk_cuda.PART_LAUNCHES,
         "scatter_ordered": scatter.ORDERED_LAUNCHES,
         "scatter_bucket": scatter.BUCKET_LAUNCHES,
         "scatter_crowded": scatter.CROWDED_LAUNCHES,
@@ -2845,6 +2875,634 @@ def phase_resilience(mesh) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# 16. The partitioned tally on one card (A9's first half), with the
+# unpacked table layout (B1) and the partitioned walk phase (B8).
+# ---------------------------------------------------------------------- #
+PART_PARTS, PART_HALO = 4, 1
+UNPACKED_CLASSES = 65
+# Bytes one element's row of the unpacked layout holds: 12 normal
+# components and 4 offsets in the walk's type, then the four neighbor
+# codes, the class and the four neighbor classes as int32.
+UNPACKED_ROW = {4: 16 * 4 + 9 * 4, 8: 16 * 8 + 9 * 4}
+# A partitioned walk lane's inputs and outputs: origin, dest, row,
+# weight, group, material, track, prev, stuck, slot in; position, row,
+# material, done, track, prev, stuck, target, target row, crossings,
+# chases, segments, iterations out.
+PART_LANE_IN = {4: 12 + 12 + 4 + 4 + 4 + 4 + 4 + 4 + 4 + 8,
+                8: 24 + 24 + 4 + 8 + 4 + 4 + 8 + 4 + 4 + 8}
+PART_LANE_OUT = {4: 12 + 4 + 4 + 1 + 4 + 4 * 8, 8: 24 + 4 + 4 + 1 + 8 + 4 * 8}
+# The partitioned segment's |x1 - x0|: 3 subtractions, 5 for the norm.
+PART_FLOPS_PER_ITER = FLOPS_PER_ITER + 8
+
+
+def walk_bound(rows: int, row_bytes: int, bins: int, item: int,
+               lane_bytes: int, iters: int, flops: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of one walk: each distinct row
+    read once, each scored bin's pair read and written once, each lane's
+    inputs read and outputs written once, against the lane iterations'
+    operations at the card's rate for the type."""
+    nbytes = rows * row_bytes + bins * 2 * 2 * item + lane_bytes
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = iters * flops / (FP32_FLOPS if item == 4 else FP64_FLOPS) * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), nbytes
+
+
+def walk_registers(lib: str, layouts=(1, 2)) -> list:
+    """ptxas's registers and spills of the walk kernel's instantiations of
+    the given table layouts, from the build log."""
+    out, kernel = [], None
+    pat = re.compile(r"walk_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E")
+    with open(lib[:-3] + ".log") as f:
+        for line in f:
+            if "Function properties for" in line:
+                m = pat.search(line)
+                kernel = m.groups() if m and int(m.group(6)) in layouts \
+                    else None
+            elif kernel and ("registers" in line or "spill" in line):
+                out.append((kernel, line.strip()))
+    return out
+
+
+def unpacked_main_mesh(classes: int | None):
+    """The main cell's box without geo20: ``classes`` z-slabs of class ids
+    (None: one class, the main mesh's unpacked twin)."""
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+
+    cells = MAIN_CELLS
+    cid = None
+    if classes is not None:
+        coords, tets = build_box_arrays(1.0, 1.0, 1.0, cells, cells, cells)
+        z = coords[tets].mean(axis=1)[:, 2]
+        cid = np.minimum((z * classes).astype(np.int32), classes - 1)
+    mesh = build_box(1.0, 1.0, 1.0, cells, cells, cells, class_id=cid,
+                     device=DEVICE, packed=False)
+    if mesh.geo20 is not None:
+        raise AssertionError("the unpacked main mesh has a geo20 table")
+    return mesh
+
+
+def part_unpacked(main_tally, main_snaps) -> dict:
+    """(a) B1: the four calls on the 65-class main box (init, one move),
+    counted; the kernel against the plain walk on their inputs (flux
+    bitwise) and on a float64 65-class 20^3 box; move 1's walk on the main
+    mesh's unpacked twin against the packed main mesh in turns."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    t0 = time.perf_counter()
+    mesh65 = unpacked_main_mesh(UNPACKED_CLASSES)
+    log(f"[part] (a) 65-class main box, packed=False: built in "
+        f"{time.perf_counter() - t0:.3f} s, geo20 None, "
+        f"{int(mesh65.class_values.numel())} classes")
+    rng = np.random.default_rng(1)
+    zero_counts()
+    t = PumiTally(mesh65, n, TallyConfig(n_groups=G), device=DEVICE)
+    pos = rng.uniform(0.05, 0.95, (n, 3))
+    snaps = {"initial": _snapshot(t, pos, t.state.group.cpu().numpy())}
+    t.initialize_particle_location(pos.reshape(-1))
+    want, groups = main_move_inputs(rng, n, G, pos)
+    snaps["move"] = _snapshot(t, want, groups)
+    dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
+    t.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n), groups,
+                            mats)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    stops = int((mats >= 0).sum())
+    log(f"[part] (a) facade on the 65-class box: launches {launches}, "
+        f"unpacked walk launches {walk_cuda.UNPACKED_LAUNCHES}, material "
+        f"stops in move 1: {stops}")
+    if walk_cuda.UNPACKED_LAUNCHES < 2 or launches["walk"] != \
+            walk_cuda.UNPACKED_LAUNCHES:
+        raise AssertionError("the unpacked facade did not run the unpacked "
+                             "walk instantiation")
+    if not stops:
+        raise AssertionError("no material stop at the 65 class boundaries")
+    errs = []
+    for initial in (True, False):
+        label = "initial search" if initial else "move 1"
+        args, kw = replay_args(t, snaps["initial" if initial else "move"],
+                               initial)
+        flux0 = snaps["initial" if initial else "move"]["flux"]
+        k = walk_cuda.trace(*args, flux0.clone(), **kw)
+        p = walk.trace(*args, flux0.clone(), **kw)
+        errs.append(compare(k, p, torch.float32, 0.0, 0.0,
+                            f"[part] (a) unpacked 65-class {label} "
+                            "(float32)")["max_abs_err"])
+    # Float64 on a small 65-class box.
+    from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+    from pumiumtally_tpu_torch.mesh.core import TetMesh
+
+    coords, tets = build_box_arrays(1.0, 1.0, 1.0, SMALL_CELLS, SMALL_CELLS,
+                                    SMALL_CELLS)
+    cid = (np.arange(len(tets)) % UNPACKED_CLASSES).astype(np.int32)
+    small = TetMesh.from_numpy(coords, tets, cid, dtype=torch.float64,
+                               device=DEVICE)
+    srng = np.random.default_rng(2)
+    m = SMALL_LANES
+    sdev = small.device
+    elem = torch.from_numpy(srng.integers(0, small.ntet, m).astype(
+        np.int32)).to(sdev)
+    origin = small.centroids()[elem.long()].contiguous()
+    sdest = torch.from_numpy(srng.uniform(-0.1, 1.1, (m, 3))).to(sdev)
+    sargs = (small, origin, sdest, elem,
+             torch.ones(m, dtype=torch.bool, device=sdev),
+             torch.from_numpy(srng.uniform(0.5, 2, m)).to(sdev),
+             torch.from_numpy(srng.integers(0, G, m).astype(np.int32)).to(
+                 sdev),
+             torch.full((m,), -1, dtype=torch.int32, device=sdev))
+    for initial in (True, False):
+        skw = dict(initial=initial, max_crossings=small.ntet + 64,
+                   n_groups=G)
+        f0 = torch.zeros(small.ntet * G * 2, dtype=torch.float64,
+                         device=sdev)
+        k = walk_cuda.trace(*sargs, f0.clone(), **skw)
+        p = walk.trace(*sargs, f0.clone(), **skw)
+        errs.append(compare(k, p, torch.float64, 0.0, 0.0,
+                            f"[part] (a) unpacked 65-class 20^3 "
+                            f"{'initial' if initial else 'move'} "
+                            "(float64)")["max_abs_err"])
+    # Move 1 of the main path on its unpacked twin against the packed
+    # main mesh, in turns.
+    twin = unpacked_main_mesh(None)
+    args, kw = replay_args(main_tally, main_snaps["move"], False)
+    targs = (twin,) + args[1:]
+    flux0 = main_snaps["move"]["flux"]
+    kp = walk_cuda.trace(*args, flux0.clone(), **kw)
+    ku = walk_cuda.trace(*targs, flux0.clone(), **kw)
+    same = all(torch.equal(getattr(kp, f), getattr(ku, f)) for f in (
+        "flux", "position", "elem", "material_id", "done"))
+    log(f"[part] (a) move 1, unpacked twin against packed main mesh: "
+        f"bitwise equal={same}")
+    if not same:
+        raise AssertionError("the unpacked twin walks move 1 differently")
+    cap = {"capacity": int(kp.n_segments)}
+
+    def fresh():
+        return (flux0.clone(),)
+
+    turns = {"packed": [], "unpacked": []}
+    for which in ("packed", "unpacked", "unpacked", "packed"):
+        a = args if which == "packed" else targs
+        turns[which].append(event_ms(
+            lambda f, a=a: walk_cuda.trace(*a, f, **kw, **cap), 5, fresh))
+    plain_ms = event_ms(lambda f: walk.trace(*targs, f, **kw), 5, fresh)
+    item = 4
+    table_rows, bins = touched(twin, targs, dict(kw, **cap), ku.elem, True)
+    iters = int(ku.lane_iters.sum(dtype=torch.int64))
+    bound, by, nbytes = walk_bound(
+        table_rows, UNPACKED_ROW[item], bins, item,
+        n * (LANE_IN[item] + LANE_OUT[item]), iters, FLOPS_PER_ITER)
+    ms = float(np.median(turns["unpacked"]))
+    log(f"[part] (a) move 1 walk call (CUDA events, median of 5), in turns "
+        f"packed, unpacked, unpacked, packed: packed {turns['packed']} ms, "
+        f"unpacked {turns['unpacked']} ms; plain (unpacked) {plain_ms:.4f} "
+        f"ms; distinct rows {table_rows} x {UNPACKED_ROW[item]} B (geo20 "
+        f"row 80 B), bins {bins}, bytes {nbytes}, bound {bound:.4f} ms "
+        f"({by})")
+    for kernel, line in walk_registers(
+            [x for x in LIBS if "libwalk" in x][0]):
+        log(f"[part] ptxas walk_kernel<{','.join(kernel)}> "
+            f"(T, ROBUST, INITIAL, ORDERED, FEAT, LAYOUT): {line}")
+    return dict(launches=launches["walk_unpacked"], ms=ms,
+                packed_ms=float(np.median(turns["packed"])),
+                turns=turns, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, max_abs_err=max(errs), stops=stops)
+
+
+def part_phase_inputs(part, placed):
+    """The first walk phase's lanes of a distributed step: every occupied
+    slot, as ``walk_rows`` takes them."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    slots = torch.nonzero(placed["valid"])[:, 0].contiguous()
+    total = placed["valid"].shape[0]
+    cap = total // part.n_parts
+    rows = ((slots // cap) * part.max_local
+            + placed["elem"][slots]).to(torch.int32)
+    m = slots.numel()
+    dev, dtype = slots.device, placed["origin"].dtype
+    i32 = dict(dtype=torch.int32, device=dev)
+    args = (wp.stacked_tables(part), placed["origin"][slots],
+            placed["dest"][slots], rows, placed["weight"][slots],
+            placed["group"][slots], placed["material_id"][slots],
+            torch.zeros(m, dtype=dtype, device=dev),
+            torch.full((m,), -1, **i32), torch.zeros(m, **i32), slots)
+    return args, dict(stride=total, max_local=part.max_local)
+
+
+PHASE_FIELDS = ("pos", "elem", "mat", "done", "pseg", "ncross", "nchase",
+                "nseg", "iters", "target", "target_elem", "prev", "stuck")
+STEP_FIELDS = ("position", "elem", "material_id", "done", "valid",
+               "particle_id", "track_length", "flux", "n_rounds",
+               "n_segments", "round_stats", "stats", "n_dropped")
+
+
+def part_kernel_vs_plain() -> dict:
+    """(b) B8 on a jittered 20^3 box in 4 parts, halo 0 and 1, both
+    dtypes: the first walk phase (every lane's slot state, target and the
+    slab flux) and the whole step (slots, positions, the slab flux, the
+    rounds and exchange counts) through the kernel against the plain walk
+    phases on the card, bitwise."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+    from pumiumtally_tpu_torch.parallel.mesh_partition import partition_mesh
+
+    n, G = SMALL_LANES, MAIN_GROUPS
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        mesh = jittered_box(SMALL_CELLS, 0.2, 0, dtype)
+        npdt = np.float64 if dtype == torch.float64 else np.float32
+        rng = np.random.default_rng(3)
+        elem = rng.integers(0, mesh.ntet, n).astype(np.int32)
+        origin = mesh.centroids().double().cpu().numpy()[elem]
+        u = rng.normal(size=(n, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        dest = origin + u * rng.exponential(0.15, (n, 1))
+        fields = dict(origin=origin.astype(npdt), dest=dest.astype(npdt),
+                      weight=rng.uniform(0.5, 2, n).astype(npdt),
+                      group=rng.integers(0, G, n).astype(np.int32),
+                      material_id=np.full(n, -1, np.int32))
+        for halo in (0, 1):
+            part = partition_mesh(mesh, PART_PARTS, halo_layers=halo)
+            placed = wp.distribute_particles(part, None, elem, fields)
+            args, pkw = part_phase_inputs(part, placed)
+            L = part.max_local
+            label = f"{dtype} halo {halo}"
+            for initial in (True, False):
+                kw = dict(pkw, initial=initial, n_groups=G,
+                          max_crossings=mesh.ntet + 64)
+                f0 = torch.zeros(PART_PARTS * L * G * 2, dtype=dtype,
+                                 device=mesh.device)
+                fk, fp = f0.clone(), f0.clone()
+                k, _ = walk_cuda.walk_rows(*args, fk, **kw)
+                p, _ = wp.walk_rows_plain(*args, fp, **kw)
+                torch.cuda.synchronize()
+                bad = [f for f in PHASE_FIELDS if not torch.equal(k[f], p[f])]
+                frozen = int((p["target"] >= 0).sum())
+                log(f"[part] (b) walk phase {label} "
+                    f"{'initial' if initial else 'move'}: {n} lanes, "
+                    f"{frozen} froze at cuts, fields differing {bad}, flux "
+                    f"bitwise {torch.equal(fk, fp)}")
+                if bad or not torch.equal(fk, fp) or not frozen:
+                    raise AssertionError(f"partitioned walk phase {label}: "
+                                         "kernel and plain disagree")
+            runs = []
+            for plain in (False, True, False):
+                step = wp.make_partitioned_step(
+                    [mesh.device] * PART_PARTS, part, n_groups=G,
+                    max_crossings=mesh.ntet + 64, plain=plain)
+                runs.append(step(
+                    placed["origin"], placed["dest"], placed["elem"],
+                    torch.zeros_like(placed["valid"]), placed["material_id"],
+                    placed["weight"], placed["group"],
+                    placed["particle_id"], placed["valid"],
+                    torch.zeros(PART_PARTS, L * G * 2, dtype=dtype,
+                                device=mesh.device)))
+            torch.cuda.synchronize()
+            k, p, again = runs
+            bad = [f for f in STEP_FIELDS
+                   if not torch.equal(getattr(k, f), getattr(p, f))
+                   or not torch.equal(getattr(k, f), getattr(again, f))]
+            log(f"[part] (b) step {label}: rounds {int(k.n_rounds[0])}, "
+                f"emigrants sent {int(k.round_stats[:, 1].sum())}, dropped "
+                f"{int(k.n_dropped.sum())}, fields differing {bad}")
+            if bad or int(k.n_dropped.sum()) or not int(k.n_rounds[0]):
+                raise AssertionError(f"partitioned step {label}: kernel and "
+                                     "plain disagree")
+    return out
+
+
+def part_tally(mesh, io: str = "packed"):
+    from pumiumtally_tpu_torch import PartitionedTally, TallyConfig
+
+    return PartitionedTally(mesh, MAIN_PARTICLES,
+                            TallyConfig(n_groups=MAIN_GROUPS,
+                                        io_pipeline=io),
+                            n_parts=PART_PARTS, halo_layers=PART_HALO,
+                            device=DEVICE)
+
+
+def part_inputs() -> dict:
+    """The main cell's inputs (numpy seed 1, as the main path's): source
+    positions, then 4 moves of destinations and groups, each from the
+    previous move's reached points (the destinations clipped nowhere)."""
+    rng = np.random.default_rng(1)
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    pos = rng.uniform(0.05, 0.95, (n, 3))
+    moves, prev = [], pos
+    for _ in range(4):
+        want, groups = main_move_inputs(rng, n, G, prev)
+        moves.append((want, groups))
+        prev = np.clip(want, 0.0, 1.0)
+    return dict(pos=pos, moves=moves)
+
+
+def part_run(mesh, inputs, io="packed", single=None, spans=False,
+             profiled=False, tmpdir=None, keep=None, clocked=False) -> dict:
+    """The partitioned cell: construct, locate, 4 moves (and a .vtu with
+    ``tmpdir``). With ``single`` (a PumiTally) each call of it runs
+    beside the partitioned one, in turns (single first on odd moves).
+    Returns the write-backs, the host ms and segments of each move, the
+    rounds, round stats, host waits and (``spans``) the CUDA-event spans
+    of each move's walk phases, exchanges and halo fold; ``clocked``
+    times each host step of the partitioned moves (``StepClock``)."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+    from pumiumtally_tpu_torch.utils.timing import StepClock
+
+    n = MAIN_PARTICLES
+    t0 = time.perf_counter()
+    t = part_tally(mesh, io)
+    torch.cuda.synchronize()
+    construct = time.perf_counter() - t0
+    if keep is not None:
+        keep(t, "construct")
+    t.initialize_particle_location(inputs["pos"].reshape(-1))
+    if single is not None:
+        single.initialize_particle_location(inputs["pos"].reshape(-1))
+    if clocked:
+        t.step_clock = StepClock(DEVICE)
+    out = dict(construct_s=construct, moves=[], init_rounds=t.total_rounds,
+               init_round_stats=t.last_round_stats)
+    prof = start_profile() if profiled else None
+    host = 0.0
+    for i, (want, groups) in enumerate(inputs["moves"], 1):
+        if keep is not None:
+            keep(t, f"move {i}")
+        rec = {}
+        order = (("single", "part") if i % 2 else ("part", "single"))
+        for which in order:
+            if which == "single" and single is None:
+                continue
+            tl = t if which == "part" else single
+            dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
+            fly = np.ones(n, np.int8)
+            rounds0, waits0 = t.total_rounds, wp.ROUND_WAITS
+            seg0 = getattr(tl, "total_segments", 0)
+            if spans and which == "part":
+                wp.SPANS = []
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            tl.move_to_next_location(dest, fly, np.ones(n), groups, mats)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - s0
+            if which == "part":
+                host += secs
+                got = dict(dest=dest.reshape(n, 3), mats=mats,
+                           ms=secs * 1e3, rounds=t.total_rounds - rounds0,
+                           waits=wp.ROUND_WAITS - waits0,
+                           segments=tl.total_segments - seg0,
+                           round_stats=t.last_round_stats)
+                if clocked:
+                    got["steps"] = t.step_clock.rows()
+                if spans:
+                    got["spans"] = [(nm, r, a.elapsed_time(b))
+                                    for nm, r, a, b in wp.SPANS]
+                    wp.SPANS = None
+                rec["part"] = got
+            else:
+                rec["single"] = dict(dest=dest.reshape(n, 3), mats=mats,
+                                     ms=secs * 1e3,
+                                     segments=tl.last_stats["segments"])
+        out["moves"].append(rec)
+    if profiled:
+        out["busy"] = stop_profile(prof, 4, host)
+    out["flux"] = t.flux_slabs.clone()
+    out["raw_flux"] = t.raw_flux
+    out["elem_global"] = t.elem_global.copy()
+    out["segments"] = t.total_segments
+    out["tally"] = t
+    if tmpdir is not None:
+        path = os.path.join(tmpdir, "partitioned.vtu")
+        t.write_pumi_tally_mesh(path)
+        out["vtu_bytes"] = os.path.getsize(path)
+        with open(path) as f:
+            head = f.read(4096)
+        m = re.search(r'NumberOfCells="(\d+)"', head)
+        if m is None or int(m.group(1)) != mesh.ntet:
+            raise AssertionError("the partitioned .vtu does not hold the "
+                                 "mesh's cells")
+    return out
+
+
+def part_phase_timing(t, state, inputs) -> dict:
+    """Move 1's first walk phase at full width, from the facade's state
+    before move 1: the kernel against the plain walk phase (bitwise) and
+    both timed (CUDA events, median of 5), with its bound."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    want, groups = inputs["moves"][0]
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    placed = wp.distribute_particles(t.partition, None, state["elem"], dict(
+        origin=state["pos"].astype(np.float32),
+        dest=want.astype(np.float32), weight=np.ones(n, np.float32),
+        group=groups, material_id=state["mat"]), cap=t.cap)
+    args, pkw = part_phase_inputs(t.partition, placed)
+    kw = dict(pkw, initial=False, n_groups=G,
+              max_crossings=t._step_kwargs["max_crossings"])
+    L = t.partition.max_local
+    f0 = torch.zeros(PART_PARTS * L * G * 2, dtype=torch.float32,
+                     device=DEVICE)
+    fk, fp = f0.clone(), f0.clone()
+    k, records = walk_cuda.walk_rows(*args, fk, **kw)
+    p, _ = wp.walk_rows_plain(*args, fp, **kw)
+    torch.cuda.synchronize()
+    bad = [f for f in PHASE_FIELDS if not torch.equal(k[f], p[f])]
+    err = max(float((k["pos"] - p["pos"]).abs().max()),
+              float((fk - fp).abs().max()))
+    log(f"[part] (c) move 1's first walk phase at full width: "
+        f"{args[1].shape[0]} lanes, {records} records, "
+        f"{int((k['target'] >= 0).sum())} froze at cuts, fields differing "
+        f"{bad}, flux bitwise {torch.equal(fk, fp)}")
+    if bad or not torch.equal(fk, fp):
+        raise AssertionError("the full-width walk phase: kernel and plain "
+                             "disagree")
+
+    def fresh():
+        return (f0.clone(),)
+
+    cap = dict(capacity=records)
+    ms = event_ms(lambda f: walk_cuda.walk_rows(*args, f, **kw, **cap), 5,
+                  fresh)
+    plain_ms = event_ms(lambda f: wp.walk_rows_plain(*args, f, **kw), 5,
+                        fresh)
+    # Rows the phase cannot avoid: start, end and every scored row (a
+    # probe with unit weights into a zero flux).
+    probe = f0.clone()
+    ones = torch.ones_like(args[4])
+    walk_cuda.walk_rows(*args[:4], ones, *args[5:], probe, **kw, **cap)
+    hit = probe.view(-1, G, 2)[..., 0] > 0
+    rows = hit.any(dim=1)
+    rows[args[3].long()] = True
+    rows[(args[3].long() // L) * L + k["elem"].long()] = True
+    m = args[1].shape[0]
+    bound, by, nbytes = walk_bound(
+        int(rows.sum()), UNPACKED_ROW[4], int(hit.sum()), 4,
+        m * (PART_LANE_IN[4] + PART_LANE_OUT[4]),
+        int(k["iters"].sum(dtype=torch.int64)), PART_FLOPS_PER_ITER)
+    log(f"[part] (c) walk phase kernel {ms:.4f} ms (walk_rows: schedule, "
+        f"walk, ordered scatter; median of 5), plain {plain_ms:.4f} ms; "
+        f"distinct rows {int(rows.sum())} x {UNPACKED_ROW[4]} B, bins "
+        f"{int(hit.sum())}, bytes {nbytes}, bound {bound:.4f} ms ({by})")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err)
+
+
+def part_full_width(mesh, tmpdir: str) -> dict:
+    """(c) and (d): the partitioned cell at full width against PumiTally,
+    bitwise across runs and io_pipeline modes."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    inputs = part_inputs()
+    n = MAIN_PARTICLES
+    # Run 1: the counted run (packed), with move 1's state kept.
+    state = {}
+
+    def keep(t, when):
+        if when == "move 1":
+            state.update(pos=t.positions.copy(), elem=t.elem_global.copy(),
+                         mat=t.material_id.copy())
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    wp.ROUND_WAITS = 0
+    t0 = time.perf_counter()
+    run1 = part_run(mesh, inputs, tmpdir=tmpdir, keep=keep)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    launches["walk_partitioned"] = walk_cuda.PART_LAUNCHES
+    waits = wp.ROUND_WAITS
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[part] (c) run 1 (packed): {secs:.3f} s (construct "
+        f"{run1['construct_s']:.3f} s, partition max_local "
+        f"{run1['tally'].partition.max_local}, counts "
+        f"{run1['tally'].partition.counts.tolist()}); launches {launches}; "
+        f"ROUND_WAITS {waits}; peak device memory {peak} bytes; .vtu "
+        f"{run1['vtu_bytes']} bytes")
+    if not launches["walk_partitioned"] or launches["walk"] != \
+            launches["walk_partitioned"]:
+        raise AssertionError("the partitioned run did not walk through the "
+                             "partitioned layout alone")
+    if not launches["scatter_ordered"] or not launches["schedule"]:
+        raise AssertionError("the partitioned run did not schedule or "
+                             "scatter its walk phases")
+    timing = part_phase_timing(run1.pop("tally"), state, inputs)
+    # Run 2: beside PumiTally, in turns, with the phases' spans.
+    single = PumiTally(mesh, n, TallyConfig(n_groups=MAIN_GROUPS),
+                       device=DEVICE)
+    run2 = part_run(mesh, inputs, single=single, spans=True, clocked=True)
+    run2.pop("tally")
+    print_step_table("partitioned moves 2-4",
+                     [r["part"] for r in run2["moves"][1:]], "[part]")
+    for i, rec in enumerate(run2["moves"], 1):
+        p, s = rec["part"], rec["single"]
+        rs = p["round_stats"][:, :, :p["rounds"]]
+        per_round = {}
+        for nm, r, ms in p["spans"]:
+            per_round.setdefault(r, {}).setdefault(nm, 0.0)
+            per_round[r][nm] += ms
+        log(f"[part] (c) move {i}: partitioned {p['ms']:.3f} ms host, "
+            f"{p['segments']} segments, {p['segments'] / p['ms'] * 1e3:.4e} "
+            f"segments/s, {p['rounds']} rounds, {p['waits']} round waits; "
+            f"PumiTally {s['ms']:.3f} ms, {s['segments']} segments, "
+            f"{s['segments'] / s['ms'] * 1e3:.4e} segments/s")
+        log(f"[part] (c) move {i}: emigrants sent a round "
+            f"{rs[:, 1].sum(axis=0).tolist()}, pending "
+            f"{rs[:, 0].sum(axis=0).tolist()}, adopted "
+            f"{rs[:, 4].sum(axis=0).tolist()}")
+        for r in sorted(per_round):
+            log(f"[part] (c) move {i} round {r}: " + ", ".join(
+                f"{nm} {ms:.4f} ms" for nm, ms in per_round[r].items()))
+    late = run2["moves"][1:]
+    pseg = sum(r["part"]["segments"] for r in late)
+    pms = sum(r["part"]["ms"] for r in late)
+    sseg = sum(r["single"]["segments"] for r in late)
+    sms = sum(r["single"]["ms"] for r in late)
+    log(f"[part] (c) moves 2-4 in turns: partitioned {pseg / pms * 1e3:.4e} "
+        f"segments/s ({pms:.3f} ms), PumiTally {sseg / sms * 1e3:.4e} "
+        f"segments/s ({sms:.3f} ms)")
+    # Against PumiTally.
+    last = run2["moves"][-1]
+    ps, ss = last["part"], last["single"]
+    pos_err = max(float(np.abs(r["part"]["dest"] - r["single"]["dest"]).max())
+                  for r in run2["moves"])
+    mat_diff = sum(int((r["part"]["mats"] != r["single"]["mats"]).sum())
+                   for r in run2["moves"])
+    elem_diff = int((run2["elem_global"] != single.element_ids).sum())
+    a = run2["raw_flux"].astype(np.float64)
+    b = single.raw_flux.astype(np.float64)
+    slack = np.abs(a - b) - (1e-5 * np.abs(b) + 1e-5)
+    flux_bad = int((slack > 0).sum())
+    path = sum(float(np.linalg.norm(
+        r["part"]["dest"] - (run2["moves"][i - 1]["part"]["dest"]
+                             if i else inputs["pos"]), axis=1).sum())
+        for i, r in enumerate(run2["moves"]))
+    scored = float(a[..., 0].sum())
+    resid = abs(scored - path) / path
+    log(f"[part] (c) against PumiTally: max|dpos| {pos_err:.3e} (limit "
+        f"1e-5), materials differing {mat_diff}, elements differing "
+        f"{elem_diff}, flux bins past rtol 1e-5 + atol 1e-5: {flux_bad}, "
+        f"max |dflux| {float(np.abs(a - b).max()):.3e}; segments "
+        f"{run2['segments']} / {single.total_segments}; conservation "
+        f"residual {resid:.3e} (limit 1e-4)")
+    if pos_err > 1e-5 or flux_bad or run2["segments"] != \
+            single.total_segments or resid > 1e-4:
+        raise AssertionError("the partitioned cell disagrees with PumiTally")
+    if mat_diff or elem_diff:
+        log(f"[part] (c) note: {mat_diff} material ids and {elem_diff} "
+            "elements differ (ties: positions agree within 1e-5)")
+    if not torch.equal(run1["flux"], run2["flux"]):
+        raise AssertionError("the partitioned flux differs between runs")
+    # Run 3: profiled, for the card's busy share.
+    run3 = part_run(mesh, inputs, profiled=True)
+    run3.pop("tally")
+    busy = run3["busy"]
+    log(f"[part] (c) profiled run: the card busy {busy['share']:.4f} of "
+        f"the moves' host time ({busy['busy_ms']:.3f} of "
+        f"{busy['span_ms']:.3f} ms a move; copies {busy['copy_ms']:.3f} "
+        f"ms); top {busy['top']}")
+    same = [torch.equal(run3["flux"], run1["flux"])]
+    # (d) The other io_pipeline modes.
+    for io in ("legacy", "overlap"):
+        r = part_run(mesh, inputs, io=io)
+        r.pop("tally")
+        same.append(torch.equal(r["flux"], run1["flux"]) and all(
+            np.array_equal(x["part"]["dest"], y["part"]["dest"])
+            and np.array_equal(x["part"]["mats"], y["part"]["mats"])
+            for x, y in zip(r["moves"], run1["moves"])))
+        log(f"[part] (d) io_pipeline={io}: flux and write-backs bitwise the "
+            f"packed run: {same[-1]}")
+    if not all(same):
+        raise AssertionError("the partitioned flux differs across runs or "
+                             "io_pipeline modes")
+    return dict(launches=launches, waits=waits, peak=peak, busy=busy,
+                segments_per_s=pseg / pms * 1e3,
+                single_segments_per_s=sseg / sms * 1e3,
+                rounds=[r["part"]["rounds"] for r in run2["moves"]],
+                **timing)
+
+
+def phase_partitioned(main_tally, main_snaps, tmpdir: str) -> dict:
+    t0 = time.perf_counter()
+    b1 = part_unpacked(main_tally, main_snaps)
+    log(f"[phase] (a) unpacked layout: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    b8 = part_kernel_vs_plain()
+    log(f"[phase] (b) partitioned walk phase: "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    full = part_full_width(main_tally.mesh, tmpdir)
+    log(f"[phase] (c, d) partitioned cell: {time.perf_counter() - t0:.2f} s")
+    return dict(b1=b1, b8=b8, full=full)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -2883,6 +3541,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     libs = _build.build_many(SOURCES)
+    LIBS[:] = libs
     log(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, built together, in "
         f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:  # ptxas's registers, shared memory and spills
@@ -2954,6 +3613,12 @@ def main() -> int:
     t0 = time.perf_counter()
     resil = phase_resilience(tally.mesh)
     log(f"[phase] integrity and resilience: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        part = phase_partitioned(tally, snaps, tmpdir)
+    log(f"[phase] partitioned tally: {time.perf_counter() - t0:.2f} s")
+    b1, pfull = part["b1"], part["full"]
 
     walk = {
         "route": "cuda",
@@ -3052,6 +3717,28 @@ def main() -> int:
          "transport_moves_per_s": [
              r["moves_per_s"] for r in mega["transport"]["megastep"]],
          "resil_launches": resil["launches"]["source"]},
+        {"name": "walk_cuda.trace (unpacked layout)", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
+         "replaces": "pumiumtally_tpu/ops/walk.py:823 (XLA four-gather "
+                     "fallback of trace_impl)",
+         "launches": b1["launches"], "max_abs_err": b1["max_abs_err"],
+         "ms": b1["ms"], "packed_ms": b1["packed_ms"],
+         "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
+         "bound_by": b1["bound_by"], "library_ms": None},
+        {"name": "walk_cuda.walk_rows (partitioned layout)", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
+         "replaces": "pumiumtally_tpu/ops/walk_partitioned.py:186 (XLA "
+                     "_walk_phase)",
+         "launches": pfull["launches"]["walk_partitioned"],
+         "max_abs_err": max(part["b8"]["max_abs_err"], pfull["max_abs_err"]),
+         "ms": pfull["ms"], "plain_ms": pfull["plain_ms"],
+         "bound_ms": pfull["bound_ms"], "bound_by": pfull["bound_by"],
+         "library_ms": None, "round_waits": pfull["waits"],
+         "rounds": pfull["rounds"],
+         "segments_per_s": pfull["segments_per_s"],
+         "pumitally_segments_per_s": pfull["single_segments_per_s"],
+         "busy_share": pfull["busy"]["share"],
+         "peak_device_bytes": pfull["peak"]},
     ]
     for kern in kernels:
         if not kern["launches"]:

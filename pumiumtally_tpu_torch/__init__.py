@@ -13,11 +13,13 @@ from .core.tally import make_flux
 from .mesh.box import build_box
 from .mesh.core import TetMesh
 from .mesh.io import load_mesh
+from .parallel.partitioned_api import PartitionedTally
 from .utils.config import TallyConfig
 
 __all__ = [
     "PumiTally",
     "ParticleState",
+    "PartitionedTally",
     "TallyConfig",
     "TetMesh",
     "build_box",

@@ -1471,7 +1471,7 @@ class PumiTally:
         """Persist the resumable state (flux, particle state, move
         counter) in the JAX package's single-file format
         (``utils/checkpoint.py``); either package restores it. A
-        ``.shards`` name (the sharded layout) is ROADMAP.md A9."""
+        ``.shards`` name (the sharded layout) is ROADMAP.md A9b."""
         from .utils.checkpoint import save_checkpoint
 
         self._drain_pending()

@@ -69,6 +69,20 @@
 //    lowest set bit's message (ops/walk.py CHECKS), so the message does
 //    not depend on timing. No device assert and no trap: either would
 //    leave the CUDA context unusable for every later call in the process.
+//  * The table layout (template flag LAYOUT). PACKED reads a geo20 row.
+//    UNPACKED reads the element's four face planes and neighbors from
+//    their own tables, and the class tables where a lane crosses a face:
+//    the four-gather fallback of the JAX walk body (ops/walk.py:823-826)
+//    for meshes past geo20's limits. PARTITIONED walks the stacked tables
+//    of mesh parts (pumiumtally_tpu/ops/walk_partitioned.py::_walk_phase):
+//    a neighbor code < -1 names another part's row, and a lane that
+//    crosses into it freezes there with that part and row for the
+//    exchange; the classes compare through the neighbor-class table, so
+//    no remote row is read. A partitioned lane's carried state (entry
+//    face, zero-progress count, material, track length) comes by lane
+//    index beside its record, and its records are keyed by its slot in
+//    the stacked parts. The lane schedule, the refill and the ordered
+//    scatter are the same for every layout.
 //
 // What bounds it: every iteration of a lane does one random 80/160 B row
 // read that depends on the last and, when it scores, one record (ordered)
@@ -122,6 +136,25 @@ struct Real<float> {
       r[4 * k + 3] = v.w;
     }
   }
+  // The unpacked layout's planes of row e into r[0..15], geo20's order.
+  static __device__ __forceinline__ void load_planes(
+      const float* __restrict__ normals, const float* __restrict__ d,
+      long long e, float* r) {
+    const float4* p = reinterpret_cast<const float4*>(normals + e * 12);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float4 v = __ldg(p + k);
+      r[4 * k + 0] = v.x;
+      r[4 * k + 1] = v.y;
+      r[4 * k + 2] = v.z;
+      r[4 * k + 3] = v.w;
+    }
+    float4 v = __ldg(reinterpret_cast<const float4*>(d + e * 4));
+    r[12] = v.x;
+    r[13] = v.y;
+    r[14] = v.z;
+    r[15] = v.w;
+  }
 };
 
 template <>
@@ -151,10 +184,32 @@ struct Real<double> {
       r[2 * k + 1] = v.y;
     }
   }
+  static __device__ __forceinline__ void load_planes(
+      const double* __restrict__ normals, const double* __restrict__ d,
+      long long e, double* r) {
+    const double2* p = reinterpret_cast<const double2*>(normals + e * 12);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      double2 v = __ldg(p + k);
+      r[2 * k + 0] = v.x;
+      r[2 * k + 1] = v.y;
+    }
+    const double2* q = reinterpret_cast<const double2*>(d + e * 4);
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      double2 v = __ldg(q + k);
+      r[12 + 2 * k] = v.x;
+      r[13 + 2 * k] = v.y;
+    }
+  }
 };
 
 constexpr int BLOCK = 128;
 constexpr int WARP = 32;
+// The walk table's layout (template flag LAYOUT of walk_kernel).
+constexpr int PACKED = 0;       // geo20 rows (the main path)
+constexpr int UNPACKED = 1;     // four tables, a mesh without geo20
+constexpr int PARTITIONED = 2;  // four tables of stacked mesh parts
 // The four uint64 counters of a launch, zeroed by the caller.
 constexpr int REC_COUNT = 0;   // records made (ordered mode)
 constexpr int NEXT_SLOT = 1;   // lane slots taken
@@ -208,6 +263,37 @@ struct Features {
   int checks;  // evaluate the invariant checks
   int ntet;    // elements, the hop target's range
   T tol10;     // 10 * tolerance, rounded once to T (the containment bound)
+};
+
+// The unpacked layout's tables (LAYOUT UNPACKED and PARTITIONED), the
+// four-gather fallback of the JAX walk body and the per-part tables of
+// its partitioned walk: per row its four face planes, its four neighbor
+// codes (a row >= 0, -1 the domain boundary, and in the partitioned
+// layout < -1 an element of another part, -2 - (part * max_local + row)),
+// its class and the class across each face (its own on the boundary).
+// A row is 100 B in float32 against geo20's 80 B; the walk reads the two
+// class tables only where a lane crosses a face.
+template <typename T>
+struct Tables {
+  const T* normals;    // [rows, 4, 3]
+  const T* d;          // [rows, 4]
+  const int* nbr;      // [rows, 4]
+  const int* cls;      // [rows]
+  const int* nbr_cls;  // [rows, 4]
+};
+
+// The partitioned walk phase's lane state (LAYOUT PARTITIONED), by lane
+// index; a lane's element is a row of the stacked parts, part * max_local
+// + its part-local row. Material ids (class values) and scored track
+// lengths carry in and out through mat_out and pseg_out.
+struct Parts {
+  const long long* slot;  // [n] the lane's slot: its tally order key
+  long long stride;       // the slots of all parts: order = it*stride + slot
+  int max_local;          // rows a part
+  int* prev;              // [n] in/out: entry-face code (-1 none)
+  int* stuck;             // [n] in/out: zero-progress crossings
+  int* target;            // [n] out: the part the lane froze for, or -1
+  int* target_elem;       // [n] out: its row there
 };
 
 // A lane's record in device memory, written by lane_place in slot order,
@@ -467,7 +553,8 @@ __device__ __forceinline__ void copy_lane(Lane<T>* dst, const Lane<T>* src) {
                             reinterpret_cast<const char*>(src) + 16 * k, 16);
 }
 
-template <typename T, bool ROBUST, bool INITIAL, bool ORDERED, bool FEAT>
+template <typename T, bool ROBUST, bool INITIAL, bool ORDERED, bool FEAT,
+          int LAYOUT>
 __global__ void __launch_bounds__(BLOCK)
 walk_kernel(const T* __restrict__ geo,
             const LaneRecord<T>* __restrict__ lanes,
@@ -479,8 +566,10 @@ walk_kernel(const T* __restrict__ geo,
             int* __restrict__ nseg_out, int* __restrict__ iters_out,
             int* __restrict__ rec_bin, long long* __restrict__ rec_order,
             T* __restrict__ rec_c, unsigned long long* __restrict__ counters,
-            long long capacity, Features<T> feat) {
+            long long capacity, Features<T> feat, Tables<T> tab,
+            Parts part) {
   typedef Real<T> R;
+  constexpr bool PART = LAYOUT == PARTITIONED;
   const T inf = (T)__int_as_float(0x7f800000);  // +inf
   const T tol_floor = (T)8 * R::eps;
   const T nudge_c = (T)32 * R::eps;  // 4 * tol_floor, as the JAX walk folds it
@@ -491,6 +580,9 @@ walk_kernel(const T* __restrict__ geo,
   T cx = 0, cy = 0, cz = 0, ex = 0, ey = 0, ez = 0, w = 0, pseg = 0;
   int elem = 0, g = 0, mat = 0, prev = 0, stuck = 0;
   int ncross = 0, nchase = 0, nseg = 0, it = 0;
+  // PARTITIONED: the lane's part's first row (else 0), and the part it
+  // froze for at a crossing into another part with that element's row.
+  int base = 0, target = -1, target_elem = 0;
   bool done = true, good_group = false;
   unsigned long long trips = 0;  // the warp's loop trips
   int kx = 0;                    // the lane's recorded crossings (FEAT)
@@ -564,6 +656,15 @@ walk_kernel(const T* __restrict__ geo,
         ncross = nchase = nseg = 0;
         pseg = w * (T)0;
         it = 0;
+        if (PART) {
+          base = elem / part.max_local * part.max_local;
+          mat = mat_out[i];
+          pseg = pseg_out[i];
+          prev = part.prev[i];
+          stuck = part.stuck[i];
+          target = -1;
+          target_elem = 0;
+        }
         if (FEAT && feat.record) kx = feat.kx[i];
       }
       const unsigned took = __ballot_sync(FULL, take);
@@ -572,14 +673,23 @@ walk_kernel(const T* __restrict__ geo,
     }
     if (!__any_sync(FULL, i >= 0)) break;
     ++trips;
-    if (i >= 0 && !done && it < max_crossings) {
+    if (i >= 0 && !done && target < 0 && it < max_crossings) {
       T r[20];
-      R::load_row(geo, elem, r);
       int code[4], nbrs[4];
+      if (LAYOUT == PACKED) {
+        R::load_row(geo, elem, r);
 #pragma unroll
-      for (int f = 0; f < 4; ++f) {
-        code[f] = R::code(r[16 + f]);
-        nbrs[f] = (code[f] & 0xFFFFFF) - 1;
+        for (int f = 0; f < 4; ++f) {
+          code[f] = R::code(r[16 + f]);
+          nbrs[f] = (code[f] & 0xFFFFFF) - 1;
+        }
+      } else {
+        R::load_planes(tab.normals, tab.d, elem, r);
+        const int4 nb = __ldg(reinterpret_cast<const int4*>(tab.nbr) + elem);
+        nbrs[0] = nb.x;
+        nbrs[1] = nb.y;
+        nbrs[2] = nb.z;
+        nbrs[3] = nb.w;
       }
       const T ux = ex - cx, uy = ey - cy, uz = ez - cz;
 
@@ -593,11 +703,13 @@ walk_kernel(const T* __restrict__ geo,
         T t = denom > (T)0 ? R::div_(num[f], denom) : inf;
         t_all[f] = t < (T)0 ? (T)0 : t;
       }
-      T t_exit = ROBUST && prev >= 0 && nbrs[0] == prev ? inf : t_all[0];
+      // prev holds a neighbor code (PARTITIONED: another part's too), -1
+      // for none: the face back to it is masked.
+      T t_exit = ROBUST && prev != -1 && nbrs[0] == prev ? inf : t_all[0];
       int face = 0;
 #pragma unroll
       for (int f = 1; f < 4; ++f) {
-        const T t = ROBUST && prev >= 0 && nbrs[f] == prev ? inf : t_all[f];
+        const T t = ROBUST && prev != -1 && nbrs[f] == prev ? inf : t_all[f];
         if (t < t_exit) {
           t_exit = t;
           face = f;
@@ -634,17 +746,19 @@ walk_kernel(const T* __restrict__ geo,
         chase = stuck >= 4 && !contained;
         if (chase) {
           // Unsigned arithmetic: the hash relies on 32-bit wraparound.
+          // The hash takes the part-local row, as the JAX walks do.
           const uint32_t h =
-              (uint32_t)elem * 2654435769u + (uint32_t)it * 40503u;
+              (uint32_t)(elem - base) * 2654435769u + (uint32_t)it * 40503u;
+          // Another part's face counts as interior.
           const bool any_interior =
-              nbrs[0] >= 0 || nbrs[1] >= 0 || nbrs[2] >= 0 || nbrs[3] >= 0;
+              nbrs[0] != -1 || nbrs[1] != -1 || nbrs[2] != -1 || nbrs[3] != -1;
           T best = -R::big;
           int cf = 0;
 #pragma unroll
           for (int f = 0; f < 4; ++f) {
             const T wf = (T)1 + (T)((h >> (2 * f)) & 3u) * (T)0.125;
             const T s =
-                (nbrs[f] >= 0 || !any_interior) ? sd[f] * wf : -R::big;
+                (nbrs[f] != -1 || !any_interior) ? sd[f] * wf : -R::big;
             if (f == 0 || s > best) {
               best = s;
               cf = f;
@@ -691,7 +805,6 @@ walk_kernel(const T* __restrict__ geo,
         }
         ++kx;
       }
-      const int code_f = pick4(code, face);
       int next_elem = crossed ? pick4(nbrs, face) : -1;
       if (FEAT && feat.checks) {
         if (!(isfinite(xx) && isfinite(xy) && isfinite(xz)))
@@ -705,7 +818,14 @@ walk_kernel(const T* __restrict__ geo,
       }
 
       if (!INITIAL && !chase) {
-        const T seg = t_step * dn;
+        // The partitioned JAX walk takes |xpoint - cur| as the segment.
+        T seg;
+        if (PART) {
+          const T sx = xx - cx, sy = xy - cy, sz = xz - cz;
+          seg = R::sqrt_((sx * sx + sy * sy) + sz * sz);
+        } else {
+          seg = t_step * dn;
+        }
         if (FEAT && feat.checks) {
           const T c = seg * w;
           if (!(c >= (T)0 && isfinite(c))) err |= CHECK_CONTRIB;
@@ -722,7 +842,9 @@ walk_kernel(const T* __restrict__ geo,
                 scoring.shfl(base, 0) + scoring.thread_rank();
             if (slot < (unsigned long long)capacity) {
               rec_bin[slot] = elem * n_groups + g;
-              rec_order[slot] = (long long)it * n + i;
+              rec_order[slot] =
+                  PART ? (long long)it * part.stride + __ldg(part.slot + i)
+                       : (long long)it * n + i;
               rec_c[slot] = c;
             }
           } else {
@@ -736,25 +858,40 @@ walk_kernel(const T* __restrict__ geo,
 
       const bool domain_exit = crossed && next_elem == -1;
       bool material_stop = false;
-      if (!INITIAL)
-        material_stop = crossed && ((code_f >> 30) & 1) && !chase;
+      int stop_class = 0;
+      if (!INITIAL) {
+        if (LAYOUT == PACKED) {
+          const int code_f = pick4(code, face);
+          material_stop = crossed && ((code_f >> 30) & 1) && !chase;
+          stop_class = (code_f >> 24) & 0x3F;
+        } else if (crossed && next_elem != -1 && !chase) {
+          stop_class = __ldg(tab.nbr_cls + 4 * (long long)elem + face);
+          material_stop = stop_class != __ldg(tab.cls + elem);
+        }
+      }
       const bool newly_done = reached || domain_exit || material_stop;
       if (!INITIAL) {
         if (material_stop)
-          mat = (code_f >> 24) & 0x3F;
+          mat = stop_class;
         else if (reached || domain_exit)
           mat = -1;
       }
+      if (PART && crossed && next_elem < -1) {
+        // Into another part: the lane freezes at the cut for the exchange.
+        const int c = -2 - next_elem;
+        target = c / part.max_local;
+        target_elem = c % part.max_local;
+      }
 
-      const bool hopped = crossed && next_elem != -1;
-      if (ROBUST && hopped) prev = chase ? -1 : elem;
-      if (hopped) elem = next_elem;
+      const bool hopped = crossed && next_elem >= 0;
+      if (ROBUST && hopped) prev = chase ? -1 : elem - base;
+      if (hopped) elem = base + next_elem;
       cx = xx;
       cy = xy;
       cz = xz;
       if (ROBUST) {
         // Escalated bump: guaranteed forward progress per crossing.
-        const bool continuing = crossed && !newly_done;
+        const bool continuing = hopped && !newly_done;
         const T ax = fabs(cx), ay = fabs(cy), az = fabs(cz);
         T amax = ax;
         if (ay > amax) amax = ay;
@@ -778,11 +915,17 @@ walk_kernel(const T* __restrict__ geo,
       done = newly_done;
       ++it;
     }
-    if (i >= 0 && (done || it >= max_crossings)) {
+    if (i >= 0 && (done || target >= 0 || it >= max_crossings)) {
       pos_out[3 * i] = cx;
       pos_out[3 * i + 1] = cy;
       pos_out[3 * i + 2] = cz;
-      elem_out[i] = elem;
+      elem_out[i] = elem - base;
+      if (PART) {
+        part.prev[i] = prev;
+        part.stuck[i] = stuck;
+        part.target[i] = target;
+        part.target_elem[i] = target_elem;
+      }
       mat_out[i] = mat;
       done_out[i] = done;
       pseg_out[i] = pseg;
@@ -802,25 +945,46 @@ walk_kernel(const T* __restrict__ geo,
 // Calls f with the kernel instantiation for the flags. The initial
 // search scores nothing, so it has no ordered instantiation. The feature
 // tails are instantiated for what the facade and the re-walk launch, the
-// initial search and the ordered move; the atomic tally has none.
+// initial search and the ordered move; the atomic tally has none. The
+// unpacked and partitioned layouts have the initial search and the
+// ordered move, without the feature tails.
+template <typename T, int L, typename F>
+int with_layout(int robust, int initial, int ordered, F f) {
+  if (initial)
+    return robust ? f(walk_kernel<T, true, true, false, false, L>)
+                  : f(walk_kernel<T, false, true, false, false, L>);
+  if (!ordered) return (int)cudaErrorInvalidValue;
+  return robust ? f(walk_kernel<T, true, false, true, false, L>)
+                : f(walk_kernel<T, false, false, true, false, L>);
+}
+
 template <typename T, typename F>
-int with_kernel(int robust, int initial, int ordered, int feat, F f) {
+int with_kernel(int robust, int initial, int ordered, int feat, int layout,
+                F f) {
+  if (layout != PACKED) {
+    if (feat) return (int)cudaErrorInvalidValue;
+    if (layout == UNPACKED)
+      return with_layout<T, UNPACKED>(robust, initial, ordered, f);
+    if (layout == PARTITIONED)
+      return with_layout<T, PARTITIONED>(robust, initial, ordered, f);
+    return (int)cudaErrorInvalidValue;
+  }
   if (feat) {
     if (initial)
-      return robust ? f(walk_kernel<T, true, true, false, true>)
-                    : f(walk_kernel<T, false, true, false, true>);
+      return robust ? f(walk_kernel<T, true, true, false, true, PACKED>)
+                    : f(walk_kernel<T, false, true, false, true, PACKED>);
     if (!ordered) return (int)cudaErrorInvalidValue;
-    return robust ? f(walk_kernel<T, true, false, true, true>)
-                  : f(walk_kernel<T, false, false, true, true>);
+    return robust ? f(walk_kernel<T, true, false, true, true, PACKED>)
+                  : f(walk_kernel<T, false, false, true, true, PACKED>);
   }
   if (initial)
-    return robust ? f(walk_kernel<T, true, true, false, false>)
-                  : f(walk_kernel<T, false, true, false, false>);
+    return robust ? f(walk_kernel<T, true, true, false, false, PACKED>)
+                  : f(walk_kernel<T, false, true, false, false, PACKED>);
   if (ordered)
-    return robust ? f(walk_kernel<T, true, false, true, false>)
-                  : f(walk_kernel<T, false, false, true, false>);
-  return robust ? f(walk_kernel<T, true, false, false, false>)
-                : f(walk_kernel<T, false, false, false, false>);
+    return robust ? f(walk_kernel<T, true, false, true, false, PACKED>)
+                  : f(walk_kernel<T, false, false, true, false, PACKED>);
+  return robust ? f(walk_kernel<T, true, false, false, false, PACKED>)
+                : f(walk_kernel<T, false, false, false, false, PACKED>);
 }
 
 // Blocks for n lanes: as many as stay resident on the card at once (the
@@ -847,11 +1011,19 @@ int walk(int robust, int initial, int ordered, const void* geo,
          void* elem_out, void* mat_out, void* done_out, void* pseg_out,
          void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,
          void* rec_bin, void* rec_order, void* rec_c, void* counters,
-         long long capacity, const Features<T>& feat, void* stream) {
+         long long capacity, const Features<T>& feat, int layout,
+         const Tables<T>& tab, const Parts& part, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if ((uintptr_t)lanes % 32) return (int)cudaErrorInvalidValue;
+  if (layout != PACKED &&
+      ((uintptr_t)tab.normals % 16 || (uintptr_t)tab.d % 16 ||
+       (uintptr_t)tab.nbr % 16))
+    return (int)cudaErrorInvalidValue;
+  if (layout == PARTITIONED && part.max_local < 1)
+    return (int)cudaErrorInvalidValue;
   const int on = feat.record || feat.checks;
-  return with_kernel<T>(robust, initial, ordered, on, [&](auto kernel) {
+  return with_kernel<T>(robust, initial, ordered, on, layout,
+                        [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, n, &grid);
     if (e != 0) return e;
@@ -862,7 +1034,7 @@ int walk(int robust, int initial, int ordered, const void* geo,
         (int*)mat_out, (bool*)done_out, (T*)pseg_out, (int*)ncross_out,
         (int*)nchase_out, (int*)nseg_out, (int*)iters_out, (int*)rec_bin,
         (long long*)rec_order, (T*)rec_c, (unsigned long long*)counters,
-        capacity, feat);
+        capacity, feat, tab, part);
     return (int)cudaGetLastError();
   });
 }
@@ -899,8 +1071,9 @@ int schedule(const void* origin, const void* dest, const void* elem,
 }
 
 template <typename T>
-int resident(int robust, int initial, int ordered, int* threads) {
-  return with_kernel<T>(robust, initial, ordered, 0, [&](auto kernel) {
+int resident(int robust, int initial, int ordered, int layout, int* threads) {
+  return with_kernel<T>(robust, initial, ordered, 0, layout,
+                        [&](auto kernel) {
     int grid = 0;
     const int e = grid_for(kernel, 1LL << 40, &grid);
     *threads = grid * BLOCK;
@@ -930,7 +1103,12 @@ int resident(int robust, int initial, int ordered, int* threads) {
 // lane's first k crossing points into xp [n, k, 3] from the counts kx [n]
 // int32 on (in/out); checks != 0 sets the check bits (ntet elements, tol10
 // = 10 * tolerance); either takes the feature instantiation, which the
-// atomic tally (initial == 0, ordered == 0) does not have.
+// atomic tally (initial == 0, ordered == 0) does not have. layout 0
+// walks geo (geo20 rows); layout 1 the unpacked tables normals, d, nbr,
+// cls, nbr_cls (16 B aligned, see Tables); layout 2 the stacked parts'
+// tables, with the lane state of Parts: slot [n] int64, stride, max_local,
+// prev, stuck [n] int32 in/out, target, target_elem [n] int32 out, and
+// mat_out and pseg_out read before they are written.
 // pumi_walk_resident_<t> gives the threads a launch of that instantiation
 // keeps resident on the current device.
 #define PUMI_WALK_ENTRY(TAG, T)                                                \
@@ -957,18 +1135,26 @@ int resident(int robust, int initial, int ordered, int* threads) {
       void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,     \
       void* rec_bin, void* rec_order, void* rec_c, void* counters,             \
       long long capacity, void* xp, void* kx, int k, int record, int checks,   \
-      int ntet, double tol10, void* stream) {                                  \
+      int ntet, double tol10, int layout, const void* normals, const void* d,  \
+      const void* nbr, const void* cls, const void* nbr_cls, const void* slot, \
+      long long stride, int max_local, void* prev, void* stuck, void* target,  \
+      void* target_elem, void* stream) {                                       \
     const Features<T> feat{(T*)xp, (int*)kx, k, record, checks, ntet,          \
                            (T)tol10};                                          \
+    const Tables<T> tab{(const T*)normals, (const T*)d, (const int*)nbr,       \
+                        (const int*)cls, (const int*)nbr_cls};                 \
+    const Parts part{(const long long*)slot, stride, max_local, (int*)prev,    \
+                     (int*)stuck, (int*)target, (int*)target_elem};            \
     return walk<T>(robust, initial, ordered, geo, lanes, n, n_groups,          \
                    max_crossings, tolerance, score_squares, flux, pos_out,     \
                    elem_out, mat_out, done_out, pseg_out, ncross_out,          \
                    nchase_out, nseg_out, iters_out, rec_bin, rec_order, rec_c, \
-                   counters, capacity, feat, stream);                          \
+                   counters, capacity, feat, layout, tab, part, stream);       \
   }                                                                            \
   extern "C" int pumi_walk_resident_##TAG(int robust, int initial,             \
-                                          int ordered, int* threads) {         \
-    return resident<T>(robust, initial, ordered, threads);                     \
+                                          int ordered, int layout,             \
+                                          int* threads) {                      \
+    return resident<T>(robust, initial, ordered, layout, threads);             \
   }
 
 PUMI_WALK_ENTRY(f32, float)

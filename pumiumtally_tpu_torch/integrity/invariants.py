@@ -28,7 +28,7 @@ Vector (walk dtype, ``INTEGRITY_FIELDS``):
 
 The vector rides the packed readback's tail, so the checks add no
 host↔device transfer. The partitioned facade's per-device vector is
-ROADMAP.md A9.
+ROADMAP.md A9b.
 """
 from __future__ import annotations
 

@@ -76,10 +76,13 @@ def build_box(
     class_id: np.ndarray | None = None,
     dtype: torch.dtype = torch.float32,
     device=None,
+    packed: bool = True,
 ) -> TetMesh:
     """Build a TetMesh box on ``device`` (default: the CUDA card). All
-    elements share class_id 0 unless given."""
+    elements share class_id 0 unless given; ``packed=False`` leaves the
+    mesh without its geo20 table (``TetMesh.from_numpy``)."""
     coords, tet2vert = build_box_arrays(lx, ly, lz, nx, ny, nz)
     return TetMesh.from_numpy(
-        coords, tet2vert, class_id=class_id, dtype=dtype, device=device
+        coords, tet2vert, class_id=class_id, dtype=dtype, device=device,
+        packed=packed,
     )

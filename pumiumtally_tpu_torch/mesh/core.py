@@ -54,7 +54,9 @@ class TetMesh:
         set when the neighbor's class differs (material boundary). Some
         codes are NaN or inf bit patterns, so the table is only ever
         gathered or viewed, never cast. None when the mesh exceeds the
-        packing limits.
+        packing limits or was built with ``packed=False``; the walk then
+        reads the unpacked tables (``face_normals``, ``face_d``,
+        ``tet2tet``, ``class_index``, ``nbr_class_index``).
       class_values: [nclasses] int32 sorted distinct class ids.
     """
 
@@ -93,6 +95,23 @@ class TetMesh:
         lo_h, ext_h = torch.stack([lo, ext]).double().cpu().tolist()
         return lo_h, ext_h
 
+    @functools.cached_property
+    def class_index(self) -> torch.Tensor:
+        """[ntet] int32 index of each element's class in ``class_values``:
+        the unpacked walk's material codes are these indices, as the
+        packed codes' bits 24..29 are."""
+        return torch.searchsorted(
+            self.class_values, self.class_id).to(torch.int32)
+
+    @functools.cached_property
+    def nbr_class_index(self) -> torch.Tensor:
+        """[ntet, 4] int32 ``class_index`` of the neighbor across each
+        face, the element's own on the domain boundary: the unpacked
+        walk's material-boundary test needs no second hop."""
+        nbr = self.tet2tet.long()
+        return torch.where(nbr >= 0, self.class_index[nbr.clamp_min(0)],
+                           self.class_index[:, None]).contiguous()
+
     def centroids(self) -> torch.Tensor:
         """Element centroids, summed in vertex order in the mesh dtype."""
         v = self.coords[self.tet2vert.long()]
@@ -106,9 +125,12 @@ class TetMesh:
         class_id: np.ndarray | None = None,
         dtype: torch.dtype = torch.float32,
         device=None,
+        packed: bool = True,
     ) -> "TetMesh":
         """Build all derived tables on the host (float64 numpy), then place
-        them on ``device`` (default: the CUDA card) in ``dtype``."""
+        them on ``device`` (default: the CUDA card) in ``dtype``.
+        ``packed=False`` leaves ``geo20`` None, as a mesh past the packing
+        limits does (``can_pack_walk_tables``)."""
         dev = resolve_device(device)
         if dtype not in _NP_DTYPES:
             raise ValueError(f"mesh dtype must be float32 or float64: {dtype}")
@@ -126,7 +148,7 @@ class TetMesh:
         tet2tet = build_tet2tet(tet2vert)
         _check_not_tangled(normals, tet2tet)
         class_values, geo20 = _pack_geo20(
-            normals, d, tet2tet, class_id, np_dtype
+            normals, d, tet2tet, class_id, np_dtype, packed
         )
 
         def put(a, np_dt):
@@ -147,9 +169,10 @@ class TetMesh:
         )
 
 
-def _pack_geo20(normals, d, tet2tet, class_id, np_dtype):
+def _pack_geo20(normals, d, tet2tet, class_id, np_dtype, packed=True):
     """(class_values, geo20 or None): the packed walk table in ``np_dtype``
-    with the topology codes stored as that dtype's integer bits."""
+    with the topology codes stored as that dtype's integer bits; None
+    without ``packed`` or past the packing limits."""
     ntet = tet2tet.shape[0]
     nbr_safe = np.maximum(tet2tet, 0)
     nbr_class = np.where(tet2tet >= 0, class_id[nbr_safe], class_id[:, None])
@@ -157,7 +180,7 @@ def _pack_geo20(normals, d, tet2tet, class_id, np_dtype):
         np.int64
     )
     class_values, class_idx = np.unique(class_id, return_inverse=True)
-    if not can_pack_walk_tables(
+    if not packed or not can_pack_walk_tables(
         ntet, class_values.shape[0], np_dtype.itemsize
     ):
         return class_values.astype(np.int64), None

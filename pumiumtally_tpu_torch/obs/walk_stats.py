@@ -45,3 +45,20 @@ def stats_to_dict(vec) -> dict:
         round(d["occ_active"] / d["occ_slots"], 4) if d["occ_slots"] else None
     )
     return d
+
+
+def reduce_chip_stats(mat) -> dict:
+    """One run-level dict from a per-part ``[n_parts, LEN]`` stats matrix:
+    sums everywhere except ``max_crossings`` (the max over parts)."""
+    m = np.asarray(mat)
+    if m.ndim != 2 or m.shape[1] != WALK_STATS_LEN:
+        raise ValueError(
+            f"expected [n_parts, {WALK_STATS_LEN}] chip stats, got {m.shape}"
+        )
+    d = {f: int(m[:, i].sum()) for i, f in enumerate(WALK_STATS_FIELDS)}
+    d["max_crossings"] = int(m[:, WALK_STATS_FIELDS.index("max_crossings")]
+                             .max(initial=0))
+    d["occupancy"] = (
+        round(d["occ_active"] / d["occ_slots"], 4) if d["occ_slots"] else None
+    )
+    return d

@@ -48,7 +48,12 @@ integrity vector, the last convergence summary and the physics vector
 the card between chunks, so one device→host copy of a few words ends a
 chunk.
 
-Not ported here: the partitioned records (ROADMAP.md A9).
+The partitioned facade's records (``pack_partitioned_record``,
+``pack_partitioned_readback``) are slot-major over the ``[n_parts·cap]``
+slots of ``ops/walk_partitioned.py``, the JAX package's layouts: one
+host→device copy of the distributed inputs and one device→host copy of
+the per-slot outputs with a per-part int64 tail (stats, round stats,
+rounds, drops, segments) a move.
 """
 from __future__ import annotations
 
@@ -65,6 +70,10 @@ from ..utils.platform import resolve_device
 MOVE_COLS = 6       # dest x,y,z | weight | group | flying
 INIT_COLS = 4       # dest x,y,z | flying
 READBACK_COLS = 5   # pos x,y,z | material_id | done
+# Partitioned facade, slot-major over [n_parts * cap] slots.
+PART_IN_COLS = 12   # origin(3) | dest(3) | weight | group | material |
+#                     elem | particle_id | valid
+PART_RB_SLOT_COLS = 9  # pos(3) | material | elem | done | track | pid | valid
 
 _TORCH_CARRIER = {4: torch.int32, 8: torch.int64}
 _NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
@@ -365,3 +374,154 @@ def split_megastep_tail(host_vec, dtype, walk_stats: bool,
     words, integ, conv = _split_floats(words[:-MEGA_PHYS_LEN], npdt,
                                        integrity, convergence)
     return _dec_i64_host(words), integ, conv, phys
+
+
+# --------------------------------------------------------------------- #
+# Partitioned facade records
+# --------------------------------------------------------------------- #
+def pack_partitioned_record(partition, global_elem, fields: dict, cap: int,
+                            dtype, stager: HostStager) -> torch.Tensor:
+    """Slot-major host record ``[n_parts·cap, PART_IN_COLS]`` carrier
+    words: the packed ``walk_partitioned.distribute_particles`` (the same
+    slots), ONE host buffer instead of eight. Empty slots carry pid -1,
+    valid 0 and zero bits elsewhere."""
+    from .walk_partitioned import slot_layout
+
+    carrier = torch_carrier(dtype)
+    slot_of, cap = slot_layout(partition, global_elem, cap)
+    n = slot_of.shape[0]
+    rec = stager.buf((partition.n_parts * cap, PART_IN_COLS), carrier,
+                     "part")
+    rec.zero_()
+    rec[:, 10] = -1
+    so = torch.from_numpy(slot_of)
+    words = rec.view(dtype)
+
+    def real(name):
+        return host_tensor(np.asarray(fields[name], np.float64)).to(dtype)
+
+    words[so, 0:3] = real("origin")
+    words[so, 3:6] = real("dest")
+    words[so, 6] = real("weight")
+    rec[so, 7] = host_tensor(np.asarray(fields["group"], np.int64)).to(carrier)
+    rec[so, 8] = host_tensor(
+        np.asarray(fields["material_id"], np.int32)).to(carrier)
+    rec[so, 9] = torch.from_numpy(
+        partition.global2local[np.asarray(global_elem)]).to(carrier)
+    rec[so, 10] = torch.arange(n, dtype=torch.int32).to(carrier)
+    rec[so, 11] = 1
+    return rec
+
+
+def unpack_partitioned_record(rec):
+    """Device-side inverse of ``pack_partitioned_record`` (the walk dtype
+    is the carrier's width): the step's per-slot inputs ``(origin, dest,
+    elem, done, material_id, weight, group, pid, valid)``, done all
+    False."""
+    dtype = torch.float32 if rec.dtype == torch.int32 else torch.float64
+    words = rec.view(dtype)
+    valid = rec[:, 11] != 0
+    return (words[:, 0:3].contiguous(), words[:, 3:6].contiguous(),
+            _dec_i32_dev(rec[:, 9]), torch.zeros_like(valid),
+            _dec_i32_dev(rec[:, 8]), words[:, 6].contiguous(),
+            _dec_i32_dev(rec[:, 7]), _dec_i32_dev(rec[:, 10]), valid)
+
+
+def pack_partitioned_readback(res, n_parts: int) -> torch.Tensor:
+    """Device-side readback of a partitioned step: per slot
+    ``[pos(3), material, elem, done, track, pid, valid]`` carrier words,
+    then a per-part int64 tail (the stats vector, the round stats, rounds,
+    drops, segments): ONE ``[n_parts, cap·COLS + tail]`` tensor."""
+    dtype = res.position.dtype
+    carrier = torch_carrier(dtype)
+    cap = res.position.shape[0] // n_parts
+    slot = torch.empty(n_parts * cap, PART_RB_SLOT_COLS, dtype=carrier,
+                       device=res.position.device)
+    slot[:, 0:3] = res.position.view(carrier)
+    slot[:, 3] = _enc_i32_dev(res.material_id, carrier)
+    slot[:, 4] = _enc_i32_dev(res.elem, carrier)
+    slot[:, 5] = res.done.to(carrier)
+    slot[:, 6] = res.track_length.view(carrier)
+    slot[:, 7] = _enc_i32_dev(res.particle_id, carrier)
+    slot[:, 8] = res.valid.to(carrier)
+    tail = torch.cat([
+        res.stats, res.round_stats.reshape(n_parts, -1),
+        res.n_rounds[:, None], res.n_dropped[:, None],
+        res.n_segments[:, None]], dim=1).to(torch.int64).contiguous()
+    return torch.cat([slot.view(n_parts, -1),
+                      tail.view(carrier).view(n_parts, -1)], dim=1)
+
+
+def split_partitioned_readback(host_rec, n_parts: int, cap: int, dtype,
+                               integrity: bool = False,
+                               convergence: bool = False) -> dict:
+    """Host-side inverse of ``pack_partitioned_readback`` (numpy); the
+    round-stats bound is recovered from the tail's width. ``integrity``
+    and ``convergence`` tails are not ported (ROADMAP.md A9b)."""
+    from ..obs.walk_stats import WALK_STATS_LEN
+
+    if integrity or convergence:
+        raise NotImplementedError(
+            "the partitioned readback's integrity and convergence tails "
+            "are not ported yet (ROADMAP.md A9b)")
+    carrier = np_carrier(dtype)
+    npdt = np.dtype(_NP_FLOAT.get(dtype, dtype))
+    if isinstance(host_rec, torch.Tensor):
+        host_rec = host_rec.numpy()
+    host_rec = np.asarray(host_rec).view(carrier)
+    w = 8 // carrier.itemsize
+    width = host_rec.shape[1]
+    rem = width - cap * PART_RB_SLOT_COLS
+    if rem < 0 or rem % w:
+        raise ValueError(
+            f"cannot split a [{n_parts}, {width}] partitioned readback at "
+            f"cap={cap}")
+    ints = rem // w - WALK_STATS_LEN - 3
+    if ints < 0 or ints % 6:
+        raise ValueError(
+            f"partitioned readback tail of {rem // w} int64s does not "
+            f"decode at cap={cap}")
+    R = ints // 6
+    slot = host_rec[:, : cap * PART_RB_SLOT_COLS].reshape(
+        n_parts * cap, PART_RB_SLOT_COLS)
+    tail = _dec_i64_host(host_rec[:, cap * PART_RB_SLOT_COLS:]).reshape(
+        n_parts, -1)
+    S = WALK_STATS_LEN
+    return {
+        "position": _dec_f_host(np.ascontiguousarray(slot[:, 0:3]), npdt),
+        "material_id": _dec_i32_host(np.ascontiguousarray(slot[:, 3]),
+                                     carrier),
+        "elem": _dec_i32_host(np.ascontiguousarray(slot[:, 4]), carrier),
+        "done": slot[:, 5] != 0,
+        "track_length": _dec_f_host(np.ascontiguousarray(slot[:, 6]), npdt),
+        "particle_id": _dec_i32_host(np.ascontiguousarray(slot[:, 7]),
+                                     carrier),
+        "valid": slot[:, 8] != 0,
+        "stats": tail[:, :S],
+        "round_stats": tail[:, S: S + 6 * R].reshape(n_parts, 6, R),
+        "n_rounds": tail[:, S + 6 * R],
+        "n_dropped": tail[:, S + 6 * R + 1],
+        "n_segments": tail[:, S + 6 * R + 2],
+    }
+
+
+def collect_packed(parsed: dict, n: int, partition) -> dict:
+    """The packed per-slot outputs back in host particle order: the
+    packed ``walk_partitioned.collect_by_particle_id`` (the same zero
+    fills, ``elem_global`` through the holding part's local2global)."""
+    pid = parsed["particle_id"]
+    sel = parsed["valid"] & (pid >= 0)
+    idx = pid[sel]
+    out = {}
+    for name in ("position", "material_id", "done", "elem",
+                 "track_length"):
+        arr = parsed[name]
+        buf = np.zeros((n,) + arr.shape[1:], arr.dtype)
+        buf[idx] = arr[sel]
+        out[name] = buf
+    cap = pid.shape[0] // partition.n_parts
+    chip = (np.arange(pid.shape[0]) // cap)[sel]
+    buf = np.full(n, -1, np.int64)
+    buf[idx] = partition.local2global[chip, parsed["elem"][sel]]
+    out["elem_global"] = buf
+    return out

@@ -1,10 +1,12 @@
 """The walk: advance every particle to its destination through the tet
 mesh, scoring track-length flux along the way (plain PyTorch version).
 
-Counterpart of the flat, packed-table loop of
+Counterpart of the flat loop of
 ``pumiumtally_tpu/ops/walk.py::trace_impl`` (its crossing body). Each
 iteration is one element-boundary crossing for every lane that is not yet
-done: gather the geo20 row of the lane's element, find the exit face,
+done: gather the geo20 row of the lane's element (or, for a mesh without
+geo20, its face planes, neighbors and class tables: the JAX body's
+four-gather layout), find the exit face,
 score ``(w·len, (w·len)²)`` into the flat ``[ntet·G·2]`` flux, apply the
 boundary conditions (destination reached, domain exit, material stop) and
 hop to the neighbor. With ``robust`` the walk also masks the entry face,
@@ -287,19 +289,22 @@ def check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
                     material_id, flux, n_groups):
     """Shape/dtype/device checks shared by the plain walk and the kernel
     wrapper. Raises on anything the walk does not take."""
-    if mesh.geo20 is None:
-        raise NotImplementedError(
-            "this mesh has no packed geo20 table (>= 2^24 elements or more "
-            "than 64 classes); the unpacked four-gather walk is not ported "
-            "yet (ROADMAP.md, port queue)"
-        )
     dtype, dev = origin.dtype, origin.device
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"walk dtype must be float32 or float64: {dtype}")
     n = origin.shape[0]
     ntet = mesh.ntet
+    if mesh.geo20 is not None:
+        tables = {"geo20": (mesh.geo20, (ntet, 20), dtype)}
+    else:  # the unpacked layout: the four tables the walk reads
+        tables = {
+            "face_normals": (mesh.face_normals, (ntet, 4, 3), dtype),
+            "face_d": (mesh.face_d, (ntet, 4), dtype),
+            "tet2tet": (mesh.tet2tet, (ntet, 4), torch.int32),
+            "class_id": (mesh.class_id, (ntet,), torch.int32),
+        }
     expect = {
-        "geo20": (mesh.geo20, (ntet, 20), dtype),
+        **tables,
         "origin": (origin, (n, 3), dtype),
         "dest": (dest, (n, 3), dtype),
         "elem": (elem, (n,), torch.int32),
@@ -380,7 +385,7 @@ def trace(
     """Walk every lane from origin to dest (plain PyTorch).
 
     Args:
-      mesh: TetMesh with a geo20 table.
+      mesh: TetMesh, with a geo20 table or the unpacked layout.
       origin, dest: [n,3] ray endpoints in the mesh dtype.
       elem: [n] int32 current parent elements.
       in_flight: [n] bool; False lanes are parked (not walked, not scored).
@@ -539,6 +544,8 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
     geo20 = mesh.geo20
+    if geo20 is None:  # the unpacked layout's class tables
+        cls_idx, nbr_cls_idx = mesh.class_index, mesh.nbr_class_index
     code_int = torch.int32 if dtype == torch.float32 else torch.int64
     tol_floor = 8 * torch.finfo(dtype).eps
     good_group = (group >= 0) & (group < n_groups)
@@ -565,11 +572,18 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     while it < max_crossings and not bool(done.all()):
         active = ~done
         iters += active.to(torch.int32)
-        row = geo20[elem.long()]
-        normals = row[:, :12].reshape(-1, 4, 3)
-        dplane = row[:, 12:16]
-        codes = row[:, 16:20].contiguous().view(code_int).to(torch.int32)
-        nbrs_all = (codes & 0xFFFFFF) - 1
+        e = elem.long()
+        if geo20 is None:
+            # The four-gather layout of the JAX walk body without geo20.
+            normals = mesh.face_normals[e]
+            dplane = mesh.face_d[e]
+            nbrs_all = mesh.tet2tet[e]
+        else:
+            row = geo20[e]
+            normals = row[:, :12].reshape(-1, 4, 3)
+            dplane = row[:, 12:16]
+            codes = row[:, 16:20].contiguous().view(code_int).to(torch.int32)
+            nbrs_all = (codes & 0xFFFFFF) - 1
 
         dirv = dest - cur
         if robust:
@@ -623,7 +637,6 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             xp[rows, kx[rows].long()] = xpoint[rows]
             kx += real_cross.to(torch.int32)
         face_l = face.long()[:, None]
-        code = torch.gather(codes, 1, face_l)[:, 0]
         nbr = torch.gather(nbrs_all, 1, face_l)[:, 0]
         next_elem = torch.where(crossed, nbr, -1)
         if debug_checks:
@@ -650,7 +663,13 @@ def _walk(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         domain_exit = crossed & (next_elem == -1)
         if initial:
             material_stop = torch.zeros_like(domain_exit)
+        elif geo20 is None:
+            # Class indices compared, as the JAX walk compares class ids.
+            nbr_class = torch.gather(nbr_cls_idx[e], 1, face_l)[:, 0]
+            material_stop = (crossed & (next_elem >= 0)
+                             & (nbr_class != cls_idx[e]) & ~chase)
         else:
+            code = torch.gather(codes, 1, face_l)[:, 0]
             material_stop = crossed & (((code >> 30) & 1) == 1) & ~chase
             nbr_class = (code >> 24) & 0x3F
         newly_done = (active & reached) | domain_exit | material_stop

@@ -48,6 +48,17 @@ beside it; a violation raises ``walk.WalkInvariantError`` before the
 records reach the scatter, so the flux is left as it was. ``FEATURE_LAUNCHES``
 counts the walk launches with a feature on (they count in ``LAUNCHES``
 too).
+
+A mesh without geo20 (``packed=False``, or past the packing limits) takes
+the kernel's unpacked layout: each crossing reads the element's face
+planes and neighbors from ``face_normals``, ``face_d`` and ``tet2tet``,
+and at a crossing the class tables ``class_index`` and
+``nbr_class_index``, as the JAX walk body's four-gather fallback does;
+``UNPACKED_LAUNCHES`` counts those launches. ``walk_rows`` launches the
+partitioned layout (``ops/walk_partitioned.py``'s walk phase over the
+stacked parts' tables); ``PART_LAUNCHES`` counts its launches. Both count
+in ``LAUNCHES`` too, and both have the initial search and the ordered
+move only.
 """
 from __future__ import annotations
 
@@ -79,6 +90,8 @@ from .walk import (
 
 LAUNCHES = 0
 FEATURE_LAUNCHES = 0
+UNPACKED_LAUNCHES = 0
+PART_LAUNCHES = 0
 RELAUNCHES = 0
 SCHEDULE_LAUNCHES = 0
 SCHEDULE_KERNELS = 3  # count, scan, place (csrc/walk.cu schedule)
@@ -97,8 +110,14 @@ _WALK_ARGTYPES = (
     + [ctypes.c_longlong]            # capacity
     + [ctypes.c_void_p] * 2          # crossing points and counts
     + [ctypes.c_int] * 4             # k, record, checks, ntet
-    + [ctypes.c_double, ctypes.c_void_p]  # 10 * tolerance, stream
+    + [ctypes.c_double, ctypes.c_int]  # 10 * tolerance, layout
+    + [ctypes.c_void_p] * 6          # normals, d, nbr, cls, nbr_cls, slot
+    + [ctypes.c_longlong, ctypes.c_int]  # stride, max_local
+    + [ctypes.c_void_p] * 5          # prev, stuck, target, target_elem,
+                                     # stream
 )
+# csrc/walk.cu's table layouts.
+PACKED, UNPACKED, PARTITIONED = 0, 1, 2
 _LANES_ARGTYPES = (
     [ctypes.c_void_p] * 6            # origin, dest, elem, fly, weight, group
     + [ctypes.c_int] * 3             # n, cell, nkeys
@@ -130,16 +149,16 @@ def _entry(name: str, dtype):
 
 
 def resident_threads(dtype, *, initial: bool, robust: bool = True,
-                     ordered: bool = True) -> int:
+                     ordered: bool = True, layout: int = PACKED) -> int:
     """Threads a walk launch keeps resident on the current card (its grid
     for a large n): the lanes in flight at once."""
     fn = getattr(_build.load("walk"),
                  f"pumi_walk_resident_{_DTYPE_TAG[dtype]}")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
     err = fn(int(robust), int(initial), int(ordered and not initial),
-             ctypes.addressof(out))
+             int(layout), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"walk occupancy query failed: cudaError_t {err}")
     return out.value
@@ -197,9 +216,14 @@ def trace(
     check_integrity_args(integrity, ledger)
     if origin.device.type != "cuda":
         raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
-    _check_cuda(*args, n_groups, max_crossings)
+    _check_cuda(*args, n_groups, max_crossings, record_xpoints,
+                debug_checks)
     if tally == "atomic" and flux.data_ptr() % 8:
         raise ValueError("flux must be 8-byte aligned for the pair adds")
+    if tally == "atomic" and mesh.geo20 is None:
+        raise ValueError(
+            "the atomic tally walks geo20 rows only: use the ordered tally "
+            "on a mesh without geo20")
     if tally == "atomic" and not initial and (
             record_xpoints is not None or debug_checks):
         raise ValueError(
@@ -282,12 +306,85 @@ def walk_records(mesh, origin, dest, elem, in_flight, weight, group,
     return _result(out, **kw), rec
 
 
+def unpacked_tables(mesh) -> tuple:
+    """The unpacked layout's five tables of a mesh without geo20, in the
+    order of ``csrc/walk.cu``'s ``Tables``: face planes, neighbors, the
+    class index and the neighbors' class index."""
+    return (mesh.face_normals, mesh.face_d, mesh.tet2tet, mesh.class_index,
+            mesh.nbr_class_index)
+
+
+def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
+              prev, stuck, slot, flux, *, stride: int, max_local: int,
+              initial: bool, max_crossings: int, n_groups: int,
+              score_squares: bool = True, tolerance: float = 1e-8,
+              robust: bool = True, capacity: int | None = None):
+    """One partitioned walk phase on the card (``csrc/walk.cu``'s
+    partitioned layout), for ``ops/walk_partitioned.py``: the m lanes
+    walk from ``origin`` toward ``dest`` over the stacked parts' tables
+    (``tables``: face planes, neighbor codes, classes, neighbor classes,
+    the rows of all parts one after the other, ``max_local`` a part),
+    each from its row ``rows`` (part · max_local + local row), until it
+    is done, freezes at a crossing into another part, or has run
+    ``max_crossings`` iterations. ``material_id``, ``pseg``, ``prev`` and
+    ``stuck`` are each lane's carried state (read, not written). A move
+    scores into ``flux`` (the stacked flat slab, bins ``row · G + g``)
+    through the ordered scatter, records keyed ``it · stride +
+    slot[k]``. The lanes are scheduled by row (``lane_records``).
+    Returns ``(out, records)``: the per-lane outputs of ``_launch``
+    (``elem`` part-local, ``target``/``target_elem`` the frozen lanes'
+    destination, -1 for the others) and the records made. CPU tensors
+    take the plain version (``walk_partitioned.walk_rows_plain``; its
+    records count is None)."""
+    dev = origin.device
+    kw = dict(stride=stride, max_local=max_local, initial=initial,
+              max_crossings=max_crossings, n_groups=n_groups,
+              score_squares=score_squares, tolerance=tolerance,
+              robust=robust)
+    if dev.type == "cpu":
+        from .walk_partitioned import walk_rows_plain
+
+        return walk_rows_plain(tables, origin, dest, rows, weight, group,
+                               material_id, pseg, prev, stuck, slot, flux,
+                               **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {dev}")
+    m = origin.shape[0]
+    nrows = tables[0].shape[0]
+    if m and (stride * max_crossings >= 2**63 or nrows * n_groups >= 2**31):
+        raise ValueError("the stacked parts' keys or bins overflow")
+    part = dict(tables=tables, slot=slot, stride=stride,
+                max_local=max_local, prev=prev, stuck=stuck,
+                mat=material_id, pseg=pseg)
+    fly = torch.ones(m, dtype=torch.bool, device=dev)
+    args = (None, origin, dest, rows, fly, weight, group, material_id, flux)
+    kw = dict(initial=initial, max_crossings=max_crossings,
+              n_groups=n_groups, score_squares=score_squares,
+              tolerance=tolerance, robust=robust, ledger=True, stats=True,
+              part=part)
+    if initial:
+        lanes = lane_records(*args[:7], initial=True, nkeys=nrows)
+        return _launch(*args, **kw, ordered=False, lanes=lanes), 0
+    out, rec = _walk_ordered(*args, **kw, capacity=capacity, nkeys=nrows)
+    scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
+                         nrows * n_groups)
+    return out, rec.bin.numel()
+
+
 def _check_cuda(mesh, origin, dest, elem, in_flight, weight, group,
-                material_id, flux, n_groups, max_crossings):
+                material_id, flux, n_groups, max_crossings,
+                record_xpoints=None, debug_checks=False):
     check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
                     material_id, flux, n_groups)
-    if mesh.geo20.data_ptr() % 16:
-        raise ValueError("geo20 must be 16-byte aligned for the row loads")
+    if mesh.geo20 is None and (record_xpoints is not None or debug_checks):
+        raise ValueError(
+            "the unpacked layout has no feature tails (record_xpoints, "
+            "debug_checks): they walk geo20 rows")
+    for t in ((mesh.geo20,) if mesh.geo20 is not None
+              else unpacked_tables(mesh)[:3]):
+        if t.data_ptr() % 16:
+            raise ValueError("the walk tables must be 16-byte aligned for "
+                             "the row loads")
     if max_crossings >= 2**31:
         raise ValueError(f"max_crossings must fit int32: {max_crossings}")
     if mesh.ntet * n_groups >= 2**31:
@@ -354,10 +451,10 @@ def source_records(rate: float, lanes: int, sigma_min: float) -> float:
     return lanes * (1.0 + rate / max(sigma_min, 1e-30))
 
 
-def _walk_ordered(*args, capacity, **kw):
+def _walk_ordered(*args, capacity, nkeys=None, **kw):
     global RELAUNCHES
     cap = capacity if capacity is not None else 4 * args[1].shape[0]
-    lanes = lane_records(*args[:7], initial=kw["initial"])
+    lanes = lane_records(*args[:7], initial=kw["initial"], nkeys=nkeys)
     counts0 = None
     if kw.get("record_xpoints") is not None and kw.get("xpoints"):
         counts0 = kw["xpoints"][1].clone()  # a relaunch records afresh
@@ -403,12 +500,15 @@ def _cell_grid(mesh):
     return lo, [c / e for c, e in zip(cells, ext)], cells
 
 
-def lane_keys(mesh, elem, dest, initial: bool):
+def lane_keys(mesh, elem, dest, initial: bool, nkeys: int | None = None):
     """The schedule's key of every lane (int32) and the number of keys: a
     move's lanes by start element, the initial search's
     by ``destination_cells``; clamped to the keys' range, as the kernel
-    clamps them."""
-    if initial:
+    clamps them. A given ``nkeys`` keys every lane by its element (the
+    partitioned walk's rows)."""
+    if nkeys is not None:
+        keys = elem
+    elif initial:
         keys, nkeys = destination_cells(mesh, dest)
     else:
         keys, nkeys = elem, max(1, mesh.ntet)
@@ -451,21 +551,22 @@ def decode_lanes(records, dtype) -> dict:
 
 
 def lane_records(mesh, origin, dest, elem, in_flight, weight, group, *,
-                 initial: bool):
+                 initial: bool, nkeys: int | None = None):
     """The walk's lane schedule: every lane's inputs as one
     ``LaneRecord<T>``, in order of its key (``lane_keys``; within a key the device's
     order), ``uint8 [n, LANE_BYTES]``. A CPU tensor takes
     ``lane_records_plain``; a CUDA tensor the three kernels of
     ``csrc/walk.cu`` (count, scan, place), which compute the key from
-    ``elem`` or ``dest`` themselves, or raises."""
+    ``elem`` or ``dest`` themselves, or raises. ``nkeys``: key by element
+    among that many (``lane_keys``)."""
     if origin.device.type == "cpu":
-        keys, _ = lane_keys(mesh, elem, dest, initial)
+        keys, _ = lane_keys(mesh, elem, dest, initial, nkeys)
         return lane_records_plain(keys, origin, dest, elem, in_flight,
                                   weight, group)
     if origin.device.type != "cuda":
         raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
     return _schedule(mesh, origin, dest, elem, in_flight, weight, group,
-                     initial)
+                     initial, nkeys)
 
 
 # Per (device, stream): the schedule's key counts and scan ticket (zero
@@ -488,26 +589,28 @@ def _workspace(dev, stream: int, nkeys: int) -> dict:
     return ws
 
 
-def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial):
+def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial,
+              nkeys=None):
     """Launch the lane schedule on checked walk inputs."""
     global SCHEDULE_LAUNCHES
     dtype, dev, n = origin.dtype, origin.device, origin.shape[0]
     lanes = torch.empty(n, LANE_BYTES[dtype], dtype=torch.uint8, device=dev)
     if n == 0:
         return lanes
-    if initial:
+    cell = initial and nkeys is None
+    if cell:
         lo, scale, cells = _cell_grid(mesh)
         nkeys = cells[0] * cells[1] * cells[2]
     else:
         lo, scale, cells = [0.0] * 3, [0.0] * 3, [1] * 3
-        nkeys = max(1, mesh.ntet)
+        nkeys = max(1, mesh.ntet if nkeys is None else nkeys)
     fn = _entry("lanes", dtype)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         ws = _workspace(dev, stream, nkeys)
         err = fn(origin.data_ptr(), dest.data_ptr(), elem.data_ptr(),
                  in_flight.data_ptr(), weight.data_ptr(), group.data_ptr(),
-                 n, int(initial), nkeys, *lo, *scale, *cells,
+                 n, int(cell), nkeys, *lo, *scale, *cells,
                  ws["counts"].data_ptr(), ws["offsets"].data_ptr(),
                  ws["tile_sums"].data_ptr(), ws["ticket"].data_ptr(),
                  lanes.data_ptr(), stream)
@@ -522,15 +625,29 @@ def _schedule(mesh, origin, dest, elem, in_flight, weight, group, initial):
 def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             flux, *, initial, max_crossings, n_groups, score_squares,
             tolerance, robust, ledger, stats, ordered, lanes, capacity=0,
-            record_xpoints=None, xpoints=None, debug_checks=False):
+            record_xpoints=None, xpoints=None, debug_checks=False,
+            part=None):
     """One walk launch over the lane records ``lanes`` (``lane_records``):
     slot s walks the lane of record s. Returns the per-lane outputs and,
     when ordered, the record buffers and the number of records the walk
     made. With ``debug_checks`` it reads the check bits (with the record
-    count, in one read) and raises on a violation."""
+    count, in one read) and raises on a violation. ``part`` (the dict of
+    ``walk_rows``) launches the partitioned layout; a mesh without geo20
+    the unpacked one."""
     global LAUNCHES, FEATURE_LAUNCHES, WARP_TRIPS, LAST_WAIT_S
+    global UNPACKED_LAUNCHES, PART_LAUNCHES
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
+    if part is not None:
+        layout, tables = PARTITIONED, part["tables"]
+    elif mesh.geo20 is None:
+        layout, tables = UNPACKED, unpacked_tables(mesh)
+    else:
+        layout, tables = PACKED, (None,) * 5
+    slot = prev = stuck = None
+    if part is not None:  # in/out lane state: fresh copies each launch
+        slot = part["slot"]
+        prev, stuck = part["prev"].clone(), part["stuck"].clone()
     record = record_xpoints is not None
     xp = kx = None
     if record:
@@ -545,6 +662,14 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     )
     done = per_lane(torch.bool)
     pseg = per_lane(dtype)
+    target = target_elem = None
+    if part is not None:  # material ids and track lengths carry in
+        mat, pseg = part["mat"].clone(), part["pseg"].clone()
+        target, target_elem = per_lane(torch.int32), per_lane(torch.int32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     cap = capacity if ordered else 0
     rec = (
         torch.empty(cap, dtype=torch.int32, device=dev),
@@ -559,7 +684,8 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             int(bool(robust)), int(bool(initial)), int(bool(ordered)),
-            mesh.geo20.data_ptr(), lanes.data_ptr(), n, n_groups,
+            ptr(mesh.geo20) if layout == PACKED else None,
+            lanes.data_ptr(), n, n_groups,
             max_crossings, float(tolerance),
             int(bool(score_squares)), flux.data_ptr(), pos.data_ptr(),
             elem_o.data_ptr(), mat.data_ptr(), done.data_ptr(),
@@ -569,7 +695,10 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             xp.data_ptr() if record else None,
             kx.data_ptr() if record else None,
             int(record_xpoints or 0), int(record), int(bool(debug_checks)),
-            mesh.ntet, 10.0 * float(tolerance), stream,
+            mesh.ntet if mesh is not None else 0, 10.0 * float(tolerance),
+            layout, *(ptr(t) for t in tables), ptr(slot),
+            part["stride"] if part else 0, part["max_local"] if part else 0,
+            ptr(prev), ptr(stuck), ptr(target), ptr(target_elem), stream,
         )
     if err != 0:
         raise RuntimeError(
@@ -577,10 +706,14 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         )
     LAUNCHES += 1
     FEATURE_LAUNCHES += int(record or bool(debug_checks))
+    UNPACKED_LAUNCHES += int(layout == UNPACKED)
+    PART_LAUNCHES += int(layout == PARTITIONED)
     WARP_TRIPS = counters[2]
     out = dict(mesh=mesh, material_id=material_id, flux=flux, pos=pos,
                elem=elem_o, mat=mat, done=done, pseg=pseg, ncross=ncross,
-               nchase=nchase, nseg=nseg_l, iters=iters, xp=xp, kx=kx)
+               nchase=nchase, nseg=nseg_l, iters=iters, xp=xp, kx=kx,
+               target=target, target_elem=target_elem, prev=prev,
+               stuck=stuck)
     if debug_checks:
         bits = counters[3]
         if not initial and ledger and n:

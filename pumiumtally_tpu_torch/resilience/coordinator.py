@@ -12,7 +12,7 @@ failed move; what it should do depends on what happened:
     ``chip_down_at_move``, or an error behind which the probe finds the
     device dead). On one device nothing is left to shrink onto: the
     runner flushes the last good generation and raises (the elastic
-    mesh shrink needs ``PartitionedTally``, ROADMAP.md A9).
+    mesh shrink needs ``PartitionedTally``, ROADMAP.md A9b).
   * ``"preempted"`` — an eviction notice (``InjectedPreemption``, or a
     real SIGTERM/SIGINT through the runner's handlers): one last flush
     of the last good generation, then die; the next process resumes.

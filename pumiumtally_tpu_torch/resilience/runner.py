@@ -23,7 +23,7 @@ single-device ``PumiTally``. It wraps the tally behind the same
     replays bit for bit; ``preempted`` flushes the last good generation
     and propagates; ``chip-lost`` on one device flushes the last good
     generation and raises NotImplementedError, since the elastic mesh
-    shrink needs ``PartitionedTally`` (ROADMAP.md A9; with
+    shrink needs ``PartitionedTally`` (ROADMAP.md A9b; with
     ``elastic=False`` the ChipLostError itself propagates);
   * **fault injection**: every hook of ``faultinject.py`` threads
     through here, so the tests can prove each failure mode recovers.
@@ -117,8 +117,8 @@ class ResilientRunner:
         # propagate like any other (the next process auto-resumes).
         self.retry_snapshots = bool(retry_snapshots)
         # Elastic mesh-shrink recovery (partitioned tallies, ROADMAP.md
-        # A9): on one device a chip-lost verdict flushes the last good
-        # generation and raises NotImplementedError naming A9; off, the
+        # A9b): on one device a chip-lost verdict flushes the last good
+        # generation and raises NotImplementedError naming A9b; off, the
         # ChipLostError itself propagates (declared degradation).
         self.elastic = bool(elastic)
         self.faults = faults if faults is not None else FaultInjector()
@@ -341,7 +341,7 @@ class ResilientRunner:
                             f"chip loss in {what}: elastic recovery "
                             "re-partitions a PartitionedTally onto the "
                             "surviving devices, which is not ported yet "
-                            "(ROADMAP.md A9); the last good generation "
+                            "(ROADMAP.md A9b); the last good generation "
                             "is flushed for the next process to resume"
                         ) from e
                     raise

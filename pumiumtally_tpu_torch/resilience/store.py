@@ -8,7 +8,7 @@ entry, in either on-disk layout (utils/checkpoint.py):
     npz files plus a ``MANIFEST.json`` committed last (two-phase
     commit). The port reads and verifies such generations; it writes
     them only when ``shards`` forces a count, and the sharded writer of
-    the partitioned facade is ROADMAP.md A9.
+    the partitioned facade is ROADMAP.md A9b.
 
 The store keeps the newest ``keep`` generations, and
 ``find_latest``/``restore_latest`` walk newest→oldest SKIPPING corrupt

@@ -35,7 +35,7 @@ Sharded generations (a ``<name>.shards`` directory of ``shard-*.npz``
 payload splits and a ``MANIFEST.json`` committed last) are read and
 verified here (``verify_sharded_checkpoint``, restore of a
 single-device generation); writing them, and the partitioned facade's
-payload, is ROADMAP.md A9.
+payload, is ROADMAP.md A9b.
 
 ``snapshot_state`` / ``restore_state`` keep the same payload in memory,
 on the device: the ``ResilientRunner``'s retry anchor. The port's flux is
@@ -547,11 +547,11 @@ def save_checkpoint(filename: str, tally, n_shards: int | None = None
                     ) -> None:
     """Serialize a PumiTally's resumable state (atomic write, per-array
     digests; module docstring). A ``.shards`` name is refused: the
-    sharded writer is ROADMAP.md A9."""
+    sharded writer is ROADMAP.md A9b."""
     if is_sharded(filename):
         raise NotImplementedError(
             "sharded checkpoint generations are written by the partitioned "
-            "facade, not ported yet (ROADMAP.md A9); use a single-file "
+            "facade, not ported yet (ROADMAP.md A9b); use a single-file "
             "name (.npz)"
         )
     meta, arrays = _plain_payload(tally)
@@ -592,6 +592,6 @@ def restore_state(tally, snap: tuple) -> None:
     if kind != "plain":
         raise NotImplementedError(
             f"{kind!r} snapshots belong to the partitioned facade "
-            "(ROADMAP.md A9)"
+            "(ROADMAP.md A9b)"
         )
     _apply_plain(tally, meta, arrays)

@@ -103,6 +103,34 @@ def test_own_copies_are_scanned_and_import_nothing_of_jax(rel):
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+# The partitioned slice's modules (their JAX counterparts import JAX):
+# each imports in a fresh interpreter without pulling JAX in.
+PARTITIONED_MODULES = (
+    "parallel/mesh_partition.py", "parallel/particle_sharding.py",
+    "parallel/partitioned_api.py", "ops/walk_partitioned.py",
+)
+
+
+@pytest.mark.parametrize("rel", PARTITIONED_MODULES)
+def test_partitioned_modules_import_nothing_of_jax(rel):
+    test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
+
+
+def test_partitioned_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    from pumiumtally_tpu_torch import PartitionedTally, build_box
+    from pumiumtally_tpu_torch.parallel.particle_sharding import (
+        make_device_mesh,
+    )
+
+    mesh = build_box(1.0, 1.0, 1.0, 2, 2, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PartitionedTally(mesh, 4, n_parts=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_device_mesh(2)
+
+
 def test_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is usable")

@@ -112,6 +112,37 @@ def test_kernel_matches_plain(cuda, dtype, initial, robust):
     assert torch.equal(k.flux, again.flux)
 
 
+@pytest.mark.parametrize("robust", [True, False])
+@pytest.mark.parametrize("initial", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_unpacked_kernel_matches_plain(cuda, dtype, initial, robust):
+    """The unpacked layout (a mesh without geo20: 65 classes, one more
+    than the codes hold): lanes and flux bitwise the plain walk's, through
+    the unpacked instantiation (its own launch count), with material
+    stops at the class boundaries."""
+    from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+    from pumiumtally_tpu_torch.mesh.core import TetMesh
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    coords, tets = build_box_arrays(1.0, 1.0, 1.0, 6, 6, 6)
+    cid = (np.arange(len(tets)) % 65).astype(np.int32)
+    mesh = TetMesh.from_numpy(coords, tets, cid, dtype=dtype, device=cuda)
+    assert mesh.geo20 is None
+    G = 4
+    args = _walk_inputs(mesh, cuda, dtype, G=G)
+    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=G,
+              robust=robust)
+    before = walk_cuda.UNPACKED_LAUNCHES
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    torch.cuda.synchronize()
+    assert walk_cuda.UNPACKED_LAUNCHES - before >= 1
+    _lanes_equal(k, p)
+    assert torch.equal(k.flux, p.flux)
+    if not initial:
+        assert (p.material_id >= 0).any()
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_atomic_kernel_matches_plain(cuda, dtype):
     from pumiumtally_tpu_torch.ops import walk, walk_cuda
@@ -1221,3 +1252,140 @@ def test_checkpoint_round_trip_on_card(cuda, dtype, tmp_path):
                                     for x in moves[i]])
     assert torch.equal(c.flux, ref.flux)
     assert c.telemetry()["integrity"]["violations"] == {}
+
+
+def _part_inputs(dtype, cuda, n_parts, halo, n=8192, seed=5):
+    """A jittered 12^3 two-region box split into parts on the card, and
+    n distributed lanes (flights of mean 0.15, some leaving the box)."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+    from pumiumtally_tpu_torch.parallel.mesh_partition import partition_mesh
+
+    mesh = _jittered(12, dtype, cuda)
+    part = partition_mesh(mesh, n_parts, halo_layers=halo)
+    rng = np.random.default_rng(seed)
+    elem = rng.integers(0, mesh.ntet, n).astype(np.int32)
+    origin = mesh.centroids().double().cpu().numpy()[elem]
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    dest = origin + u * rng.exponential(0.15, (n, 1))
+    placed = wp.distribute_particles(part, None, elem, dict(
+        origin=origin.astype(np.float32 if dtype == torch.float32
+                             else np.float64),
+        dest=dest.astype(np.float32 if dtype == torch.float32
+                         else np.float64),
+        weight=rng.uniform(0.5, 2.0, n).astype(
+            np.float32 if dtype == torch.float32 else np.float64),
+        group=rng.integers(0, 4, n).astype(np.int32),
+        material_id=np.full(n, -1, np.int32)))
+    return mesh, part, placed
+
+
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("halo", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_partitioned_walk_phase_kernel_matches_plain(cuda, dtype, halo,
+                                                     initial):
+    """One walk phase of the stacked parts: the kernel's partitioned
+    layout against its plain version on the same lanes, three times as
+    many as a launch keeps resident (every thread walks several): every
+    lane's position, row, material, target, done flag, carried state and
+    counters bitwise, and the slab flux bitwise."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    n = 3 * walk_cuda.resident_threads(dtype, initial=initial,
+                                       layout=walk_cuda.PARTITIONED) + 77
+    mesh, part, placed = _part_inputs(dtype, cuda, 4, halo, n=n)
+    slots = torch.nonzero(placed["valid"])[:, 0].contiguous()
+    total = placed["valid"].shape[0]
+    cap = total // 4
+    rows = ((slots // cap) * part.max_local
+            + placed["elem"][slots]).to(torch.int32)
+    m = slots.numel()
+    i32 = dict(dtype=torch.int32, device=cuda)
+    args = (wp.stacked_tables(part), placed["origin"][slots],
+            placed["dest"][slots], rows, placed["weight"][slots],
+            placed["group"][slots], placed["material_id"][slots],
+            torch.zeros(m, dtype=dtype, device=cuda),
+            torch.full((m,), -1, **i32), torch.zeros(m, **i32), slots)
+    kw = dict(stride=total, max_local=part.max_local, initial=initial,
+              max_crossings=mesh.ntet + 8, n_groups=4)
+    flux0 = torch.zeros(part.n_parts * part.max_local * 8, dtype=dtype,
+                        device=cuda)
+    before = walk_cuda.PART_LAUNCHES
+    k, _ = walk_cuda.walk_rows(*args, flux0.clone(), **kw)
+    fk = flux0.clone()
+    walk_cuda.walk_rows(*args, fk, **kw)
+    fp = flux0.clone()
+    p, _ = wp.walk_rows_plain(*args, fp, **kw)
+    torch.cuda.synchronize()
+    assert walk_cuda.PART_LAUNCHES - before >= 2
+    for name in ("pos", "elem", "mat", "done", "pseg", "ncross", "nchase",
+                 "nseg", "iters", "target", "target_elem", "prev", "stuck"):
+        assert torch.equal(k[name], p[name]), name
+    assert torch.equal(fk, fp)
+    assert (p["target"] >= 0).any()  # lanes froze at cuts
+
+
+@pytest.mark.parametrize("halo", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_partitioned_step_kernel_matches_plain(cuda, dtype, halo):
+    """A whole partitioned step (4 parts): the kernel against the plain
+    walk phases on the card, slot for slot, the slab flux and the rounds
+    bitwise; two kernel runs give the same bits."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    mesh, part, placed = _part_inputs(dtype, cuda, 4, halo)
+    dm = [cuda] * 4
+    L = part.max_local
+
+    def run(plain):
+        step = wp.make_partitioned_step(dm, part, n_groups=4,
+                                        max_crossings=mesh.ntet + 8,
+                                        plain=plain)
+        flux = torch.zeros(4, L * 8, dtype=dtype, device=cuda)
+        return step(placed["origin"], placed["dest"], placed["elem"],
+                    torch.zeros_like(placed["valid"]),
+                    placed["material_id"], placed["weight"],
+                    placed["group"], placed["particle_id"],
+                    placed["valid"], flux)
+
+    k, again, p = run(False), run(False), run(True)
+    torch.cuda.synchronize()
+    for name in ("position", "elem", "material_id", "done", "valid",
+                 "particle_id", "track_length", "flux", "n_rounds",
+                 "n_segments", "round_stats", "stats", "n_dropped"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+        assert torch.equal(getattr(k, name), getattr(again, name)), name
+    assert int(k.n_rounds[0]) >= 1 and int(k.n_dropped.sum()) == 0
+    assert bool(k.done[k.valid].all())
+
+
+def test_partitioned_tally_on_card_matches_pumitally(cuda):
+    """The partitioned facade on the card (4 parts, halo 1) against the
+    single-device facade on the same inputs: elements, materials and
+    segments equal, positions within 1e-12, the flux within 1e-10
+    (float64: the partitioned segment is |x1 - x0|)."""
+    from pumiumtally_tpu_torch import PartitionedTally, PumiTally, TallyConfig
+
+    mesh = _jittered(10, torch.float64, cuda)
+    n = 20000
+    cfg = TallyConfig(dtype=torch.float64, n_groups=2)
+    single = PumiTally(mesh, n, cfg, device=cuda)
+    parted = PartitionedTally(mesh, n, cfg, n_parts=4, halo_layers=1,
+                              device=cuda)
+    rng = np.random.default_rng(3)
+    src = rng.uniform(0.05, 0.95, (n, 3))
+    dest = np.clip(src + rng.normal(0, 0.2, (n, 3)), -0.1, 1.1)
+    outs = []
+    for t in (single, parted):
+        t.initialize_particle_location(src.copy())
+        d, m = dest.copy(), np.zeros(n, np.int32)
+        t.move_to_next_location(d, np.ones(n, np.int8), np.ones(n),
+                                np.zeros(n, np.int32), m)
+        outs.append((d, m, t.raw_flux, t.total_segments))
+    (ds, ms, fs, ss), (dp, mp, fpart, sp) = outs
+    np.testing.assert_allclose(dp, ds, atol=1e-12)
+    np.testing.assert_array_equal(mp, ms)
+    np.testing.assert_allclose(fpart, fs, rtol=1e-10, atol=1e-12)
+    assert sp == ss
