@@ -3,10 +3,11 @@ port's PumiTally, on the CPU.
 
 Mirrors tests/test_partitioned_api.py's matches-PumiTally, VTK and
 batch-sd cases (its checkpoint and recorded-points cases are ROADMAP.md
-A9b), and adds each refusal naming A9b. The JAX facade runs twice, as
-module fixtures (float64, 8 parts, halo 1, packed; float32, 4 parts,
-halo 0, legacy); the grid of part counts (2, 4, 8), halo depths (0, 1,
-2), dtypes and ``io_pipeline`` modes is held to the port's PumiTally.
+A9b), and adds each refusal naming A9b. The JAX facade runs three times,
+as module fixtures (float64, 8 parts, halo 1, packed; float32, 4 parts,
+halo 0, legacy; float64, 2 parts, halo 2, overlap), so every part
+count, halo depth, dtype and ``io_pipeline`` mode meets the JAX facade;
+a grid of them is also held to the port's PumiTally.
 
 Tolerances: float64 positions atol 1e-12 and flux atol 1e-11 (the JAX
 test's own); float32 positions 1e-5, flux rtol 1e-4 with an absolute
@@ -76,8 +77,10 @@ def _assert_same_run(outs_a, outs_b, flux_a, flux_b, dtype):
 
 @pytest.fixture(scope="module",
                 params=[(torch.float64, 8, 1, "packed"),
-                        (torch.float32, 4, 0, "legacy")],
-                ids=["f64-8parts-halo1-packed", "f32-4parts-halo0-legacy"])
+                        (torch.float32, 4, 0, "legacy"),
+                        (torch.float64, 2, 2, "overlap")],
+                ids=["f64-8parts-halo1-packed", "f32-4parts-halo0-legacy",
+                     "f64-2parts-halo2-overlap"])
 def jax_run(request, meshes):
     dtype, n_parts, halo, io = request.param
     jm, pm = meshes[dtype]
