@@ -184,14 +184,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    ``PartitionedTally(n_parts=4, halo_layers=1)``: a counted run (launch
    counts zeroed before and read after, round waits, peak device memory,
    a .vtu), a run beside ``PumiTally`` in turns (host ms and segments/s a
-   move, rounds, emigrants a round, each round's walk phase, exchange and
-   halo fold in CUDA events; positions within 1e-5, materials and
-   elements counted where they differ, the flux per bin within rtol 1e-5
-   + atol 1e-5, segments equal, the conservation residual <= 1e-4, the
-   flux bitwise the counted run's), a profiled run (the card's busy
-   share), and move 1's first walk phase at full width kernel against
-   plain, timed beside its bound; (d) ``io_pipeline`` "legacy" and
-   "overlap": the packed run's flux and write-backs bitwise.
+   move, rounds, walk relaunches, emigrants a round, each round's walk
+   phase, exchange and halo fold in CUDA events; positions within 1e-5,
+   materials and elements counted where they differ, the flux per bin
+   within rtol 1e-5 + atol 1e-5, segments equal, the conservation
+   residual <= 1e-4, the flux bitwise the counted run's), a profiled run
+   (the card's busy share), and move 1's first walk phase at full width
+   kernel against plain, timed beside its bound; (d) ``io_pipeline``
+   "legacy" and "overlap": the packed run's flux and write-backs bitwise.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -2881,10 +2881,14 @@ def phase_resilience(mesh) -> dict:
 # ---------------------------------------------------------------------- #
 PART_PARTS, PART_HALO = 4, 1
 UNPACKED_CLASSES = 65
-# Bytes one element's row of the unpacked layout holds: 12 normal
-# components and 4 offsets in the walk's type, then the four neighbor
-# codes, the class and the four neighbor classes as int32.
-UNPACKED_ROW = {4: 16 * 4 + 9 * 4, 8: 16 * 8 + 9 * 4}
+# Bytes of an element's row that a walk must read. B1, the single-device
+# walk without geo20 (the JAX four-gather fallback): 12 normal components
+# and 4 offsets in the walk's type, the four neighbor codes and the class
+# as int32 (a neighbor's class is its own row's). B8, the partitioned walk
+# phase: the same and the four neighbor classes, since a neighbor across
+# a cut has no row in the part.
+UNPACKED_ROW = {4: 16 * 4 + 5 * 4, 8: 16 * 8 + 5 * 4}
+PART_ROW = {4: 16 * 4 + 9 * 4, 8: 16 * 8 + 9 * 4}
 # A partitioned walk lane's inputs and outputs: origin, dest, row,
 # weight, group, material, track, prev, stuck, slot in; position, row,
 # material, done, track, prev, stuck, target, target row, crossings,
@@ -3207,9 +3211,11 @@ def part_run(mesh, inputs, io="packed", single=None, spans=False,
     ``tmpdir``). With ``single`` (a PumiTally) each call of it runs
     beside the partitioned one, in turns (single first on odd moves).
     Returns the write-backs, the host ms and segments of each move, the
-    rounds, round stats, host waits and (``spans``) the CUDA-event spans
-    of each move's walk phases, exchanges and halo fold; ``clocked``
-    times each host step of the partitioned moves (``StepClock``)."""
+    rounds, round stats, host waits, walk relaunches and (``spans``) the
+    CUDA-event spans of each move's walk phases, exchanges and halo fold;
+    ``clocked`` times each host step of the partitioned moves
+    (``StepClock``)."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
     from pumiumtally_tpu_torch.utils.timing import StepClock
 
@@ -3241,6 +3247,7 @@ def part_run(mesh, inputs, io="packed", single=None, spans=False,
             dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
             fly = np.ones(n, np.int8)
             rounds0, waits0 = t.total_rounds, wp.ROUND_WAITS
+            relaunch0 = walk_cuda.RELAUNCHES
             seg0 = getattr(tl, "total_segments", 0)
             if spans and which == "part":
                 wp.SPANS = []
@@ -3254,6 +3261,7 @@ def part_run(mesh, inputs, io="packed", single=None, spans=False,
                 got = dict(dest=dest.reshape(n, 3), mats=mats,
                            ms=secs * 1e3, rounds=t.total_rounds - rounds0,
                            waits=wp.ROUND_WAITS - waits0,
+                           relaunches=walk_cuda.RELAUNCHES - relaunch0,
                            segments=tl.total_segments - seg0,
                            round_stats=t.last_round_stats)
                 if clocked:
@@ -3341,12 +3349,12 @@ def part_phase_timing(t, state, inputs) -> dict:
     rows[(args[3].long() // L) * L + k["elem"].long()] = True
     m = args[1].shape[0]
     bound, by, nbytes = walk_bound(
-        int(rows.sum()), UNPACKED_ROW[4], int(hit.sum()), 4,
+        int(rows.sum()), PART_ROW[4], int(hit.sum()), 4,
         m * (PART_LANE_IN[4] + PART_LANE_OUT[4]),
         int(k["iters"].sum(dtype=torch.int64)), PART_FLOPS_PER_ITER)
     log(f"[part] (c) walk phase kernel {ms:.4f} ms (walk_rows: schedule, "
         f"walk, ordered scatter; median of 5), plain {plain_ms:.4f} ms; "
-        f"distinct rows {int(rows.sum())} x {UNPACKED_ROW[4]} B, bins "
+        f"distinct rows {int(rows.sum())} x {PART_ROW[4]} B, bins "
         f"{int(hit.sum())}, bytes {nbytes}, bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 max_abs_err=err)
@@ -3410,7 +3418,8 @@ def part_full_width(mesh, tmpdir: str) -> dict:
             per_round[r][nm] += ms
         log(f"[part] (c) move {i}: partitioned {p['ms']:.3f} ms host, "
             f"{p['segments']} segments, {p['segments'] / p['ms'] * 1e3:.4e} "
-            f"segments/s, {p['rounds']} rounds, {p['waits']} round waits; "
+            f"segments/s, {p['rounds']} rounds, {p['waits']} round waits, "
+            f"{p['relaunches']} walk relaunches; "
             f"PumiTally {s['ms']:.3f} ms, {s['segments']} segments, "
             f"{s['segments'] / s['ms'] * 1e3:.4e} segments/s")
         log(f"[part] (c) move {i}: emigrants sent a round "
@@ -3486,6 +3495,7 @@ def part_full_width(mesh, tmpdir: str) -> dict:
                 segments_per_s=pseg / pms * 1e3,
                 single_segments_per_s=sseg / sms * 1e3,
                 rounds=[r["part"]["rounds"] for r in run2["moves"]],
+                relaunches=[r["part"]["relaunches"] for r in run2["moves"]],
                 **timing)
 
 
@@ -3734,7 +3744,7 @@ def main() -> int:
          "ms": pfull["ms"], "plain_ms": pfull["plain_ms"],
          "bound_ms": pfull["bound_ms"], "bound_by": pfull["bound_by"],
          "library_ms": None, "round_waits": pfull["waits"],
-         "rounds": pfull["rounds"],
+         "rounds": pfull["rounds"], "relaunches": pfull["relaunches"],
          "segments_per_s": pfull["segments_per_s"],
          "pumitally_segments_per_s": pfull["single_segments_per_s"],
          "busy_share": pfull["busy"]["share"],

@@ -244,6 +244,14 @@ __device__ __forceinline__ int pick4(const int (&a)[4], int f) {
   return f == 0 ? a[0] : f == 1 ? a[1] : f == 2 ? a[2] : a[3];
 }
 
+// Whether a neighbor code names an element: -1 is the domain boundary, and
+// in the partitioned layout a code < -1 is another part's row. The other
+// layouts' codes are >= -1, where the test is the packed walk's own.
+template <bool PART>
+__device__ __forceinline__ bool names_elem(int c) {
+  return PART ? c != -1 : c >= 0;
+}
+
 // One lane's inputs, as a warp's batch holds them in shared memory.
 template <typename T>
 struct __align__(16) Lane {
@@ -705,11 +713,12 @@ walk_kernel(const T* __restrict__ geo,
       }
       // prev holds a neighbor code (PARTITIONED: another part's too), -1
       // for none: the face back to it is masked.
-      T t_exit = ROBUST && prev != -1 && nbrs[0] == prev ? inf : t_all[0];
+      const bool has_prev = names_elem<PART>(prev);
+      T t_exit = ROBUST && has_prev && nbrs[0] == prev ? inf : t_all[0];
       int face = 0;
 #pragma unroll
       for (int f = 1; f < 4; ++f) {
-        const T t = ROBUST && prev != -1 && nbrs[f] == prev ? inf : t_all[f];
+        const T t = ROBUST && has_prev && nbrs[f] == prev ? inf : t_all[f];
         if (t < t_exit) {
           t_exit = t;
           face = f;
@@ -751,14 +760,16 @@ walk_kernel(const T* __restrict__ geo,
               (uint32_t)(elem - base) * 2654435769u + (uint32_t)it * 40503u;
           // Another part's face counts as interior.
           const bool any_interior =
-              nbrs[0] != -1 || nbrs[1] != -1 || nbrs[2] != -1 || nbrs[3] != -1;
+              names_elem<PART>(nbrs[0]) || names_elem<PART>(nbrs[1]) ||
+              names_elem<PART>(nbrs[2]) || names_elem<PART>(nbrs[3]);
           T best = -R::big;
           int cf = 0;
 #pragma unroll
           for (int f = 0; f < 4; ++f) {
             const T wf = (T)1 + (T)((h >> (2 * f)) & 3u) * (T)0.125;
             const T s =
-                (nbrs[f] != -1 || !any_interior) ? sd[f] * wf : -R::big;
+                (names_elem<PART>(nbrs[f]) || !any_interior) ? sd[f] * wf
+                                                             : -R::big;
             if (f == 0 || s > best) {
               best = s;
               cf = f;
@@ -883,7 +894,9 @@ walk_kernel(const T* __restrict__ geo,
         target_elem = c % part.max_local;
       }
 
-      const bool hopped = crossed && next_elem >= 0;
+      // A crossing into another part is no hop: the lane stays frozen.
+      const bool hopped =
+          crossed && (PART ? next_elem >= 0 : next_elem != -1);
       if (ROBUST && hopped) prev = chase ? -1 : elem - base;
       if (hopped) elem = base + next_elem;
       cx = xx;
@@ -891,7 +904,7 @@ walk_kernel(const T* __restrict__ geo,
       cz = xz;
       if (ROBUST) {
         // Escalated bump: guaranteed forward progress per crossing.
-        const bool continuing = hopped && !newly_done;
+        const bool continuing = (PART ? hopped : crossed) && !newly_done;
         const T ax = fabs(cx), ay = fabs(cy), az = fabs(cz);
         T amax = ax;
         if (ay > amax) amax = ay;

@@ -284,6 +284,7 @@ def make_partitioned_step(
     rel_err_target: float = 0.05,
     batch_moves: int = 1,
     plain: bool = False,
+    face_rate: float | None = None,
 ):
     """The partitioned step for one partition, with the arguments of
     the JAX ``make_partitioned_step``: ``device_mesh``
@@ -303,7 +304,12 @@ def make_partitioned_step(
     with ``packed_io`` ``step(record, flux, capacity=None)`` over the
     record of ``staging.pack_partitioned_record``, whose result carries
     the ``readback``. ``capacity`` sizes the first walk phase's record
-    buffers on the card. The flux is updated in place.
+    buffers on the card. With ``face_rate`` (``walk_cuda.face_rate`` of
+    the partitioned mesh) a move sizes each later phase's buffers from
+    the pending lanes' remaining paths (``walk_cuda.path_records``' rule),
+    read with the round's stop test; without it a later phase has 4
+    records a lane and walks again when it makes more. The flux is
+    updated in place.
 
     ``record_xpoints``, ``integrity`` and ``convergence`` raise
     NotImplementedError (ROADMAP.md A9b)."""
@@ -350,6 +356,9 @@ def make_partitioned_step(
         walk_fn = walk_rows_plain
     else:
         from .walk_cuda import walk_rows as walk_fn
+    sizing = face_rate is not None and not initial
+    if sizing:
+        from .walk_cuda import record_capacity
     walk_kw = dict(max_local=max_local, initial=initial,
                    max_crossings=max_crossings, n_groups=n_groups,
                    score_squares=score_squares, tolerance=tolerance,
@@ -430,10 +439,16 @@ def make_partitioned_step(
         rnd = 0
         while rnd < rounds_bound:
             ROUND_WAITS += 1
-            if not bool((valid & (target >= 0)).any()):
+            pend = valid & (target >= 0)
+            if sizing:
+                n_pend, path = _pending_path(pend, cur, dest)
+                records = record_capacity(n_pend, n_pend + face_rate * path)
+            else:
+                n_pend, records = int(bool(pend.any())), None
+            if not n_pend:
                 break
             ex = exchange(rnd + 1)
-            w = walk_phase(rnd + 1)
+            w = walk_phase(rnd + 1, records)
             round_stats[:, :5, rnd] = ex
             round_stats[:, 5, rnd] = w
             rnd += 1
@@ -469,6 +484,17 @@ def make_partitioned_step(
         return res
 
     return packed
+
+
+def _pending_path(pend, cur, dest) -> tuple:
+    """(the pending lanes, the sum of their remaining paths |dest − cur|)
+    in one host read: an upper estimate of the next phase's lanes and
+    their paths (overflow stays pending; a lane freezes again at the
+    next cut)."""
+    path = torch.where(pend, _norm3(dest - cur), 0.0).sum(
+        dtype=torch.float64)
+    n, path = torch.stack([pend.sum(dtype=torch.float64), path]).tolist()
+    return int(n), path
 
 
 def _row_ranks(mask: torch.Tensor) -> torch.Tensor:

@@ -187,7 +187,8 @@ class PartitionedTally:
         self._initialized = False
         # The first walk phase's record buffers on the card: sized from
         # the last move's segments, before the first move from the face
-        # rate and the move's paths.
+        # rate and the move's paths; the later phases' from the face rate
+        # and the pending lanes' remaining paths (the step's face_rate).
         self._face_rate = (walk_cuda.face_rate(mesh)
                            if self.device.type == "cuda" else 0.0)
         self._last_segments: int | None = None
@@ -204,7 +205,9 @@ class PartitionedTally:
         if key not in self._steps:
             self._steps[key] = make_partitioned_step(
                 self.device_mesh, self.partition, initial=initial,
-                packed_io=self._io != "legacy", **self._step_kwargs)
+                packed_io=self._io != "legacy",
+                face_rate=(self._face_rate if self.device.type == "cuda"
+                           else None), **self._step_kwargs)
         return self._steps[key]
 
     def _drain_pending(self) -> None:

@@ -308,6 +308,38 @@ def test_partitioned_small_exchange_buffer(box):
     assert (rs[:, 1] < rs[:, 0]).any()  # some emigrants waited a round
 
 
+def test_later_phases_sized_from_remaining_paths(box, monkeypatch):
+    """With ``face_rate`` every walk phase after the first gets a record
+    capacity of at least 4 a lane and at least the records it makes, read
+    with the round's stop test (one host read a round either way); the
+    results are bitwise those of the step without it."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    _, pm = box
+    part = partition_mesh(pm, N_DEV, halo_layers=1)
+    batch = _batch(pm, 96, seed=3)
+    seen = []
+
+    def walk_rows(*args, capacity=None, **kw):
+        out, rec = pwp.walk_rows_plain(*args, **kw)
+        seen.append((capacity, args[1].shape[0], int(out["nseg"].sum())))
+        return out, rec
+
+    monkeypatch.setattr(walk_cuda, "walk_rows", walk_rows)
+    w0 = pwp.ROUND_WAITS
+    a, _ = _partitioned(pm, part, batch, face_rate=walk_cuda.face_rate(pm))
+    waits = pwp.ROUND_WAITS - w0
+    b, _ = _partitioned(pm, part, batch)
+    assert pwp.ROUND_WAITS - w0 - waits == waits == int(a.n_rounds[0]) + 1
+    assert seen[0][0] is None and len(seen) > 2
+    for capacity, lanes, records in seen[1:len(seen) // 2]:
+        assert capacity >= max(4 * lanes, records), (capacity, lanes)
+    assert all(c is None for c, _, _ in seen[len(seen) // 2:])
+    for f in ("position", "elem", "material_id", "done", "particle_id",
+              "track_length", "flux", "n_rounds", "round_stats"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
 @pytest.mark.parametrize("knob", [
     dict(unroll=4),
     dict(compact_after=4, compact_size=16),

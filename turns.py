@@ -3,6 +3,7 @@
 
     python3 turns.py --tree DIR [--reps N]
     python3 turns.py --tree DIR --gather
+    python3 turns.py --tree DIR --sass
 
 Imports the package and the ``chip_smoke.py`` of the checkout at ``DIR``
 and builds its kernels. Without ``--gather`` it drives the checkout's main
@@ -31,6 +32,13 @@ indices, where the time shows how much of the table the L2 keeps; the
 last line is a JSON object of those times in ms. Started for two
 checkouts in turns (parent, change, change, parent) in one command,
 either mode compares them on one card.
+
+With ``--sass`` it prints, after the build, a JSON object of the
+checkout's walk kernel instantiations (by template arguments, as
+``walk_ptxas``) with the count and sha256 of their SASS instructions
+(``cuobjdump -sass`` of the built library, addresses and encodings left
+out), so two checkouts' machine code can be compared instantiation by
+instantiation.
 """
 from __future__ import annotations
 
@@ -49,6 +57,8 @@ def main() -> int:
                     help="also time N single calls of move 1's walk")
     ap.add_argument("--gather", action="store_true",
                     help="time the checkout's row gather instead")
+    ap.add_argument("--sass", action="store_true",
+                    help="digest the walk kernels' SASS instead")
     args = ap.parse_args()
     reps = args.reps
     tree = os.path.abspath(args.tree)
@@ -65,6 +75,10 @@ def main() -> int:
 
     smoke.log(f"[turns] tree {tree}: {smoke.card_line()}")
     _build.build_many(smoke.SOURCES)
+    if args.sass:
+        print(json.dumps(dict(tree=tree, walk_sass=sass_digests(
+            _build.library_path("walk")))), flush=True)
+        return 0
     if args.gather:
         print(json.dumps(dict(tree=tree, gather_ms=gather_ms(smoke.log))),
               flush=True)
@@ -131,6 +145,39 @@ def ptxas_lines(lib: str) -> dict:
                     "registers" in line or "spill" in line):
                 name = kernel.split("walk_kernelI", 1)[1].split("EEvPK")[0]
                 out.setdefault(name, []).append(line.strip())
+    return out
+
+
+def sass_digests(lib: str) -> dict:
+    """{walk kernel instantiation: [instructions, sha256 of their text]}
+    from ``cuobjdump -sass`` of ``lib``."""
+    import hashlib
+    import re
+    import subprocess
+
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], check=True,
+                          capture_output=True, text=True).stdout
+    out, name, body = {}, None, []
+
+    def close():
+        if name is not None:
+            out[name] = [len(body), hashlib.sha256(
+                "\n".join(body).encode()).hexdigest()]
+
+    for line in text.splitlines():
+        if "Function :" in line:
+            close()
+            fn = line.split("Function :", 1)[1].strip()
+            name = (fn.split("walk_kernelI", 1)[1].split("EEvPK")[0]
+                    if "walk_kernelI" in fn else None)
+            body = []
+        elif name is not None:
+            m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
+            if m:
+                body.append(m.group(1))
+    close()
     return out
 
 
