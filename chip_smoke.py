@@ -192,6 +192,29 @@ Phases, each of which raises (exit code != 0) on any failed check:
    (the card's busy share), and move 1's first walk phase at full width
    kernel against plain, timed beside its bound; (d) ``io_pipeline``
    "legacy" and "overlap": the packed run's flux and write-backs bitwise.
+17. the partitioned source loop (``[pmega]`` lines,
+   ``PartitionedTally.run_source_moves``): (b) on a jittered 20^3 box in
+   4 parts, halo 1, both dtypes: 3 fused moves of the partitioned
+   megastep through the kernels against the same through the plain
+   flight and the plain walk phases on the card (slot state, slab flux
+   and readback bitwise), and K = 3 bitwise 3 x K = 1; at the megastep
+   cell (the main mesh, 1,048,576 particles, 8 groups, float32, Σt 12.5,
+   seed 1, K = 8) in 4 parts, halo 1: (c) the first fused move beside
+   PumiTally's (segments equal, positions within 1e-5, the flux per bin
+   within rtol 1e-5 + atol 1e-5: the flux is scored before the physics),
+   (a) the flight kernel on the next move's stacked slots (4 x 1,048,576,
+   each lane's region at its part-local row) and in its single-device
+   form against the plain version (uniforms and draws bitwise, the
+   destinations within 2 ulp), timed beside its bound, (c) a warm chunk
+   each, then chunks of 8 in turns with ``PumiTally.run_source_moves``
+   (partitioned, single, single, partitioned): moves/s, segments/s, host
+   ms a fused move and rounds; the first partitioned chunk counted
+   (launches, ``ROUND_WAITS``, the walk, exchange and halo spans, peak
+   device memory), a profiled chunk for the busy share; (d) integrity
+   on, convergence on, and a checkpoint saved after move 1: each run
+   held bitwise to (c)'s after its first two calls, the checkpoint
+   restored into 4 parts bitwise and into 2 parts (the restored flux
+   bitwise, the next chunk's segments and flux sum within 2e-2).
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -2103,22 +2126,28 @@ def _ulp_diff(got, want) -> tuple[int, float]:
     return int(differ.sum()), float(ulps.max())
 
 
-def flight_check(label, mesh, key, pid, elem, alive, origin, sig) -> dict:
+def flight_check(label, mesh, key, pid, elem, alive, origin, sig,
+                 class_id=None, cap=None, max_local=None, tag="[mega]"
+                 ) -> dict:
     """The flight kernel against its plain version on the card on one
     move's inputs: the five uniforms (the kernel's debug output) bitwise,
     the collision and roulette draws bitwise, the destinations bitwise or
     their differing elements counted with their largest ulp (limit 2: the
     directions' cos and sin round once each); the kernel's and the plain
-    version's device ms."""
+    version's device ms. ``class_id`` (default the mesh's), ``cap`` and
+    ``max_local`` give the stacked-row form of the partitioned megastep
+    (lane i's region at row (i // cap)·max_local + clip(elem))."""
     from pumiumtally_tpu_torch.ops import source, source_cuda
 
     n, dtype = origin.shape[0], origin.dtype
+    cls = mesh.class_id if class_id is None else class_id
+    rows_kw = dict(cap=cap, max_local=max_local)
     u = torch.empty(n, 5, dtype=dtype, device=origin.device)
     launches = source_cuda.LAUNCHES
     dest, cu, ru = source_cuda.sample_flight(key, pid, n, elem, alive, origin,
-                                             mesh.class_id, sig, u_out=u)
+                                             cls, sig, u_out=u, **rows_kw)
     pd, pc, pr = source.sample_flight_plain(key, pid, n, elem, alive, origin,
-                                            mesh.class_id, sig)
+                                            cls, sig, **rows_kw)
     want_u = source.lane_uniforms(key, pid, n, dtype)
     torch.cuda.synchronize()
     if not torch.equal(u.view(torch.uint8), want_u.view(torch.uint8)):
@@ -2130,12 +2159,16 @@ def flight_check(label, mesh, key, pid, elem, alive, origin, sig) -> dict:
     if ulps > 2:
         raise AssertionError(f"{label}: {n_diff} destinations differ by up "
                              f"to {ulps} ulp (limit 2)")
-    args = (key, pid, n, elem, alive, origin, mesh.class_id, sig)
-    ms = event_ms(lambda: source_cuda.sample_flight(*args))
-    plain_ms = event_ms(lambda: source.sample_flight_plain(*args))
+    args = (key, pid, n, elem, alive, origin, cls, sig)
+    ms = event_ms(lambda: source_cuda.sample_flight(*args, **rows_kw))
+    plain_ms = event_ms(lambda: source.sample_flight_plain(*args, **rows_kw))
     source_cuda.LAUNCHES = launches  # comparisons count no launch
     item = origin.element_size()
-    distinct = int(torch.unique(elem).numel())
+    ml = cls.shape[0] if max_local is None else max_local
+    rows = elem.long().clamp(0, ml - 1)
+    if cap is not None:
+        rows = rows + torch.arange(n, device=elem.device) // cap * ml
+    distinct = int(torch.unique(rows).numel())
     nbytes = n * FLIGHT_BYTES[item] - n * 4 + distinct * 4
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n * FLIGHT_INT_OPS / INT32_OPS * 1e3
@@ -2143,7 +2176,7 @@ def flight_check(label, mesh, key, pid, elem, alive, origin, sig) -> dict:
                plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
                bytes_ms=bytes_ms, ops_ms=ops_ms)
-    log(f"[mega] {label}: uniforms bitwise, draws bitwise, destinations "
+    log(f"{tag} {label}: uniforms bitwise, draws bitwise, destinations "
         f"differing {n_diff} (largest {ulps:.1f} ulp, limit 2), max abs err "
         f"{err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms by {out['bound_by']} (bytes "
@@ -3513,6 +3546,393 @@ def phase_partitioned(main_tally, main_snaps, tmpdir: str) -> dict:
     return dict(b1=b1, b8=b8, full=full)
 
 
+# --------------------------------------------------------------------- #
+# Phase 17: the partitioned source loop
+# --------------------------------------------------------------------- #
+PMEGA_SMALL_LANES, PMEGA_SMALL_MOVES = 4096, 3
+PMEGA_CKPT_PARTS = 2  # the part count a checkpoint is restored into
+
+
+def pmega_tally(mesh, n: int, k: int, n_parts=PART_PARTS, dtype=None,
+                **kw):
+    from pumiumtally_tpu_torch import PartitionedTally, TallyConfig
+
+    cfg = dict(n_groups=MAIN_GROUPS, tolerance=1e-6, megastep=k)
+    if dtype is not None:
+        cfg.update(dtype=dtype, n_groups=2, tolerance=1e-8)
+    cfg.update(kw)
+    return PartitionedTally(mesh, n, TallyConfig(**cfg), n_parts=n_parts,
+                            halo_layers=PART_HALO, device=DEVICE)
+
+
+def pmega_slots(t) -> dict:
+    """Clones of a partitioned tally's device slot state and slabs."""
+    out = {k: v.clone() for k, v in t._src.items()}
+    out["flux"] = t.flux_slabs.clone()
+    return out
+
+
+def pmega_same(a: dict, b: dict) -> list:
+    """The fields of two ``pmega_slots`` that are not bitwise equal."""
+    return [f for f in a if not torch.equal(a[f], b[f])]
+
+
+def pmega_small(dtype) -> None:
+    """(b) on the 20^3 box, 4 parts, halo 1: 3 fused moves of the
+    megastep through the kernels against the same moves through the plain
+    flight and the plain walk phases on the card (slot state, slab flux
+    and the readback bitwise), and run_source_moves at K = 3 bitwise
+    3 x K = 1."""
+    from pumiumtally_tpu_torch.ops import source
+    from pumiumtally_tpu_torch.ops.walk_partitioned import (
+        make_partitioned_megastep,
+    )
+
+    n = PMEGA_SMALL_LANES
+    mesh = jittered_box(SMALL_CELLS, 0.2, 4, dtype)
+    src = source.SourceParams(sigma_t={0: 4.0, 1: 9.0},
+                              absorption={0: 0.3, 1: 0.5},
+                              survival_weight=0.2, seed=13)
+    pos = np.random.default_rng(3).uniform(0.1, 0.9, (n, 3))
+    sig, ab = src.tables(mesh.class_id.cpu().numpy())
+    ends = {}
+    for k in (PMEGA_SMALL_MOVES, 1):
+        t = pmega_tally(mesh, n, k, dtype=dtype)
+        t.initialize_particle_location(pos.reshape(-1))
+        t._ensure_source_state(np.ones(n), None, None)
+        if k == PMEGA_SMALL_MOVES:
+            start = pmega_slots(t)
+            l2g = np.clip(t.partition.local2global, 0, mesh.ntet - 1)
+            cls_local = np.clip(mesh.class_id.cpu().numpy()[l2g], 0,
+                                sig.size - 1)
+            runs = []
+            for plain in (False, True):
+                mega = make_partitioned_megastep(
+                    t.device_mesh, t.partition, n_moves=PMEGA_SMALL_MOVES,
+                    n_total=n, n_groups=2, class_local=cls_local,
+                    sigma_t=sig, absorb_t=ab,
+                    eps_near=source.near_epsilon(mesh.coords),
+                    survival_weight=src.survival_weight,
+                    downscatter=src.downscatter, dtype=dtype,
+                    max_crossings=t._step_kwargs["max_crossings"],
+                    tolerance=1e-8, plain=plain)
+                s = {f: v.clone() for f, v in start.items()}
+                runs.append(mega(s["pos"], s["elem"], s["material_id"],
+                                 s["weight"], s["group"], s["pid"],
+                                 s["valid"], s["alive"], s["flux"], 0,
+                                 source.prng_key(src.seed)))
+            torch.cuda.synchronize()
+            kr, pr = runs
+            bad = [f for f in ("position", "elem", "material_id", "weight",
+                               "group", "particle_id", "valid", "alive",
+                               "flux", "readback")
+                   if not torch.equal(getattr(kr, f), getattr(pr, f))]
+            log(f"[pmega] (b) {dtype} {SMALL_CELLS}^3, 4 parts, "
+                f"{PMEGA_SMALL_MOVES} fused moves, kernels against plain flight + plain walk on "
+                f"the card: fields differing {bad}")
+            if bad:
+                raise AssertionError(f"(b) {dtype}: kernels and plain "
+                                     f"disagree in {bad}")
+        out = t.run_source_moves(PMEGA_SMALL_MOVES, src)
+        ends[k] = (pmega_slots(t), out)
+    bad = pmega_same(ends[PMEGA_SMALL_MOVES][0], ends[1][0])
+    log(f"[pmega] (b) {dtype} run_source_moves K={PMEGA_SMALL_MOVES} against "
+        f"{PMEGA_SMALL_MOVES} x K=1: fields differing {bad}; "
+        f"{ends[1][1]}")
+    if bad or ends[1][1]["segments"] != ends[PMEGA_SMALL_MOVES][1]["segments"]:
+        raise AssertionError(f"(b) {dtype}: K={PMEGA_SMALL_MOVES} is not "
+                             "bitwise K=1")
+
+
+def pmega_chunk(t, src, k: int, **stage) -> dict:
+    """One timed ``run_source_moves`` call of k moves: host seconds, the
+    part of them the re-stage of given lanes took (a partitioned tally's
+    ``_ensure_source_state``: the slot state folded back, distributed
+    again and copied), segments and rounds."""
+    seg0, rounds0 = t.total_segments, getattr(t, "total_rounds", 0)
+    staged = []
+    ensure = getattr(t, "_ensure_source_state", None)
+    if ensure is not None:
+        def timed_ensure(*a):
+            torch.cuda.synchronize()
+            s0 = time.perf_counter()
+            out = ensure(*a)
+            torch.cuda.synchronize()
+            staged.append(time.perf_counter() - s0)
+            return out
+        t._ensure_source_state = timed_ensure
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = t.run_source_moves(k, src, **stage)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if ensure is not None:
+        del t._ensure_source_state
+    stage_s = sum(staged)
+    return dict(res=res, secs=secs, stage_s=stage_s,
+                move_ms=(secs - stage_s) / res["moves"] * 1e3,
+                segments=t.total_segments - seg0,
+                rounds=getattr(t, "total_rounds", 0) - rounds0,
+                moves_per_s=res["moves"] / secs,
+                segments_per_s=(t.total_segments - seg0) / secs)
+
+
+def pmega_full(mesh, tmpdir: str) -> dict:
+    """(a), (c) and (d) on the main mesh with bench.py's megastep source
+    (1,048,576 particles, 8 groups, float32, Σt 12.5, seed 1, K = 8),
+    4 parts, halo 1."""
+    from pumiumtally_tpu_torch.ops import source, source_cuda, walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    n = MAIN_PARTICLES
+    src = source.SourceParams(default_sigma_t=MEGA_SIGMA_T, seed=1)
+    # bench.py's megastep calls: the lanes staged in the first call and
+    # every later call re-staging unit weights and all lanes alive.
+    stage = dict(weights=np.ones(n), groups=np.zeros(n, np.int32),
+                 alive=np.ones(n, bool))
+    restage = dict(weights=stage["weights"], alive=stage["alive"])
+    t0 = time.perf_counter()
+    pt = pmega_tally(mesh, n, MEGA_K)
+    torch.cuda.synchronize()
+    construct = time.perf_counter() - t0
+    pos = np.random.default_rng(1).uniform(0.05, 0.95, (n, 3))
+    pt.initialize_particle_location(pos.reshape(-1))
+    st = mega_tally(mesh, MEGA_K)
+    # The first fused move beside PumiTally's: the flux is scored before
+    # the physics, so one move is the same work in both.
+    first = {}
+    for which, t in (("part", pt), ("single", st)):
+        first[which] = pmega_chunk(t, src, 1, **stage)
+    pt._sync_source_state()
+    a = pt.raw_flux.astype(np.float64)
+    b = st.raw_flux.astype(np.float64)
+    slack = np.abs(a - b) - (1e-5 * np.abs(b) + 1e-5)
+    flux_bad = int((slack > 0).sum())
+    order = st._perm if st._perm is not None else np.arange(n)
+    single_pos = np.empty((n, 3))
+    single_pos[order] = st.state.origin.double().cpu().numpy()
+    pos_err = float(np.abs(pt.positions - single_pos).max())
+    log(f"[pmega] (c) fused move 1 beside PumiTally's: segments "
+        f"{first['part']['segments']} / {first['single']['segments']}, "
+        f"max|dpos| {pos_err:.3e} (limit 1e-5), flux bins past rtol 1e-5 + "
+        f"atol 1e-5: {flux_bad}, max |dflux| {float(np.abs(a - b).max()):.3e}")
+    if (first["part"]["segments"] != first["single"]["segments"]
+            or flux_bad or pos_err > 1e-5):
+        raise AssertionError("(c) the partitioned megastep's first move "
+                             "disagrees with PumiTally's")
+    # (a) The flight kernel at full width on the stacked slots of the
+    # next move, and the single-device form on PumiTally's lanes.
+    s = pt._src
+    sig = torch.as_tensor(src.tables(mesh.class_id.cpu().numpy())[0],
+                          dtype=torch.float32, device=DEVICE)
+    class_id = mesh.class_id.cpu().numpy()
+    l2g = np.clip(pt.partition.local2global, 0, mesh.ntet - 1)
+    cls = torch.from_numpy(np.clip(class_id[l2g], 0, sig.numel() - 1)
+                           .astype(np.int32).reshape(-1)).to(DEVICE)
+    key = source.fold_in(source.prng_key(src.seed), pt.iter_count)
+    go = s["valid"] & s["alive"]
+    stacked = flight_check(
+        f"(a) stacked slots ({PART_PARTS} x {pt.cap}, "
+        f"{int(go.sum())} live)", mesh, key, s["pid"], s["elem"], go,
+        s["pos"], sig, class_id=cls, cap=pt.cap,
+        max_local=pt.partition.max_local, tag="[pmega]")
+    ss = _mega_state(st)
+    single = flight_check("(a) the single-device form, PumiTally's lanes",
+                          mesh, key, ss["particle_id"], ss["elem"],
+                          ss["in_flight"], ss["origin"],
+                          st._source_tables(src)[0], tag="[pmega]")
+    del ss
+    # (c) A warm chunk each, then timed chunks in turns.
+    warm = {w: pmega_chunk(t, src, MEGA_K, **restage)
+            for w, t in (("part", pt), ("single", st))}
+    ref = pmega_slots(pt)
+    ref_res = warm["part"]["res"]
+    turns = []
+    counted = None
+    for which in ("part", "single", "single", "part"):
+        t = pt if which == "part" else st
+        if which == "part" and counted is None:
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            waits0 = wp.ROUND_WAITS
+            wp.SPANS = []
+            row = pmega_chunk(t, src, MEGA_K, **restage)
+            counts = read_counts()
+            spans = [(nm, r, a_.elapsed_time(b_))
+                     for nm, r, a_, b_ in wp.SPANS]
+            wp.SPANS = None
+            counted = dict(counts=counts, waits=wp.ROUND_WAITS - waits0,
+                           spans=spans,
+                           peak=torch.cuda.max_memory_allocated())
+        else:
+            row = pmega_chunk(t, src, MEGA_K, **restage)
+        row["which"] = which
+        turns.append(row)
+        log(f"[pmega] (c) {which} chunk of {MEGA_K}: {row['secs']:.4f} s "
+            f"host (the re-stage {row['stage_s'] * 1e3:.3f} ms), "
+            f"{row['move_ms']:.3f} ms a fused move, "
+            f"{row['segments']} segments, segments/s="
+            f"{row['segments_per_s']:.4e}, moves/s={row['moves_per_s']:.4f}"
+            + (f", rounds {row['rounds']} ({row['rounds'] / MEGA_K:.2f} a "
+               "move)" if which == "part" else ""))
+    c = counted["counts"]
+    log(f"[pmega] (c) counted chunk: launches {c}; ROUND_WAITS "
+        f"{counted['waits']}; peak device memory {counted['peak']} bytes")
+    if c["source"] != MEGA_K or not c["walk_partitioned"] or \
+            c["walk"] != c["walk_partitioned"]:
+        raise AssertionError(f"(c) the partitioned megastep did not run "
+                             f"through its kernels: {c}")
+    if not c["scatter_ordered"] or not c["schedule"]:
+        raise AssertionError("(c) the walk phases were not scheduled or "
+                             "scattered")
+    per = {}
+    for nm, _, ms in counted["spans"]:
+        per.setdefault(nm, []).append(ms)
+    for nm, v in per.items():
+        log(f"[pmega] (c) counted chunk {nm}: {len(v)} spans, "
+            f"{sum(v):.4f} ms in all, {sum(v) / MEGA_K:.4f} ms a move, "
+            f"least {min(v):.4f}, most {max(v):.4f}")
+    # A profiled chunk: the card's busy share of a chunk.
+    pt._ensure_source_state(restage["weights"], None, restage["alive"])
+    prof = start_profile()
+    t0 = time.perf_counter()
+    pt.run_source_moves(MEGA_K, src)
+    busy = stop_profile(prof, MEGA_K, time.perf_counter() - t0)
+    log(f"[pmega] (c) profiled chunk, per fused move: card busy "
+        f"{busy['busy_ms']:.4f} ms (copies {busy['copy_ms']:.4f} ms) of "
+        f"{busy['span_ms']:.4f} ms host, busy share {busy['share']:.4f} "
+        f"(kernels {busy['kernel_share']:.4f})")
+    for key_, ms in busy["top"]:
+        log(f"[pmega]   {ms:9.4f} ms {key_}")
+    parts = [r for r in turns if r["which"] == "part"]
+    singles = [r for r in turns if r["which"] == "single"]
+    pseg = sum(r["segments"] for r in parts)
+    psec = sum(r["secs"] for r in parts)
+    pstage = sum(r["stage_s"] for r in parts)
+    sseg = sum(r["segments"] for r in singles)
+    ssec = sum(r["secs"] for r in singles)
+    log(f"[pmega] (c) in turns, bench.py's calls (the re-stage included): "
+        f"partitioned {pseg / psec:.4e} segments/s, "
+        f"{MEGA_K * len(parts) / psec:.4f} moves/s; without the re-stage "
+        f"{pseg / (psec - pstage):.4e} segments/s, "
+        f"{(psec - pstage) / (MEGA_K * len(parts)) * 1e3:.3f} ms a fused "
+        f"move; PumiTally {sseg / ssec:.4e} segments/s, "
+        f"{MEGA_K * len(singles) / ssec:.4f} moves/s, "
+        f"{ssec / (MEGA_K * len(singles)) * 1e3:.3f} ms a fused move")
+    del pt, st
+    torch.cuda.empty_cache()
+    features = pmega_features(mesh, src, stage, restage, pos, ref, ref_res,
+                              tmpdir)
+    return dict(first=first, stacked=stacked, single=single, turns=turns,
+                counted=counted, busy=busy, construct_s=construct,
+                segments_per_s=pseg / psec, moves_per_s=MEGA_K * len(parts)
+                / psec, single_segments_per_s=sseg / ssec,
+                stage_ms=pstage / len(parts) * 1e3,
+                move_ms=(psec - pstage) / (MEGA_K * len(parts)) * 1e3,
+                single_move_ms=ssec / (MEGA_K * len(singles)) * 1e3,
+                features=features)
+
+
+def pmega_run(mesh, src, stage, restage, pos, k=MEGA_K, **kw):
+    """A fresh partitioned tally through (c)'s first two calls: one fused
+    move with the lanes staged, then a chunk of MEGA_K moves re-staging
+    weights and alive flags."""
+    t = pmega_tally(mesh, MAIN_PARTICLES, k, **kw)
+    t.initialize_particle_location(pos.reshape(-1))
+    t.run_source_moves(1, src, **stage)
+    t.run_source_moves(MEGA_K, src, **restage)
+    return t
+
+
+def pmega_features(mesh, src, stage, restage, pos, ref, ref_res,
+                   tmpdir) -> dict:
+    """(d) each feature at full width, held bitwise to (c)'s run after its
+    first two calls: integrity on, convergence on, and a checkpoint saved
+    after the first call and restored into a fresh tally of the same
+    layout (bitwise) and of another part count (the restored state
+    bitwise; the continued run to the tolerance stated)."""
+    out = {}
+    for name, kw in (("integrity", dict(integrity="warn")),
+                     ("convergence", dict(convergence=True, batch_moves=2))):
+        t0 = time.perf_counter()
+        t = pmega_run(mesh, src, stage, restage, pos, **kw)
+        bad = pmega_same(pmega_slots(t), ref)
+        tel = t.telemetry()
+        extra = (tel["integrity"] if name == "integrity"
+                 else {f: tel["convergence"][f] for f in
+                       ("n_batches", "scored", "rel_err_mean",
+                        "rel_err_max")})
+        log(f"[pmega] (d) {name} on: fields differing from (c)'s run {bad}; "
+            f"{extra}; {time.perf_counter() - t0:.2f} s")
+        if bad or (name == "integrity" and tel["integrity"]["violations"]):
+            raise AssertionError(f"(d) {name}: not bitwise (c)'s run or "
+                                 "violations")
+        out[name] = extra
+        del t
+    # The checkpoint: after the first call, then the chunk.
+    t = pmega_tally(mesh, MAIN_PARTICLES, MEGA_K)
+    t.initialize_particle_location(pos.reshape(-1))
+    t.run_source_moves(1, src, **stage)
+    path = os.path.join(tmpdir, "pmega.npz")
+    t0 = time.perf_counter()
+    t.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    saved = t.raw_flux
+    t.run_source_moves(MEGA_K, src, **restage)
+    bad = pmega_same(pmega_slots(t), ref)
+    del t
+    rows = {}
+    for parts in (PART_PARTS, PMEGA_CKPT_PARTS):
+        r = pmega_tally(mesh, MAIN_PARTICLES, MEGA_K, n_parts=parts)
+        t0 = time.perf_counter()
+        r.restore_checkpoint(path)
+        restore_s = time.perf_counter() - t0
+        restored = np.array_equal(r.raw_flux, saved)
+        res = r.run_source_moves(MEGA_K, src, **restage)
+        rows[parts] = dict(restore_s=restore_s, restored=restored, res=res,
+                           segments=res["segments"])
+        if parts == PART_PARTS:
+            rows[parts]["differ"] = pmega_same(pmega_slots(r), ref)
+        else:
+            rows[parts]["flux_sum"] = float(r.flux_slabs.double().sum())
+        del r
+    ref_sum = float(ref["flux"].double().sum())
+    other = rows[PMEGA_CKPT_PARTS]
+    seg_rel = abs(other["segments"] - ref_res["segments"]) / ref_res[
+        "segments"]
+    flux_rel = abs(other["flux_sum"] - ref_sum) / ref_sum
+    log(f"[pmega] (d) checkpoint after move 1: save {save_s:.3f} s, "
+        f"{os.path.getsize(path)} bytes; the writer's continued run "
+        f"differs from (c)'s in {bad}; restored into {PART_PARTS} parts in "
+        f"{rows[PART_PARTS]['restore_s']:.3f} s (flux bitwise "
+        f"{rows[PART_PARTS]['restored']}), its chunk differs from (c)'s in "
+        f"{rows[PART_PARTS]['differ']}; into {PMEGA_CKPT_PARTS} parts in "
+        f"{other['restore_s']:.3f} s (flux bitwise {other['restored']}), "
+        f"its chunk's segments {other['segments']} against "
+        f"{ref_res['segments']} (rel {seg_rel:.3e}), flux sum rel "
+        f"{flux_rel:.3e} (limits 2e-2: the slots differ, so do the physics "
+        "draws of lanes that migrate)")
+    if bad or rows[PART_PARTS]["differ"] or not rows[PART_PARTS][
+            "restored"] or not other["restored"] or seg_rel > 2e-2 or \
+            flux_rel > 2e-2:
+        raise AssertionError("(d) the checkpoint did not resume (c)'s run")
+    out["checkpoint"] = dict(save_s=save_s, bytes=os.path.getsize(path),
+                             restore_s={p: r["restore_s"]
+                                        for p, r in rows.items()},
+                             other_seg_rel=seg_rel, other_flux_rel=flux_rel)
+    return out
+
+
+def phase_partitioned_megastep(mesh, tmpdir: str) -> dict:
+    """Phase 17: the partitioned source loop."""
+    t0 = time.perf_counter()
+    for dtype in (torch.float64, torch.float32):
+        pmega_small(dtype)
+    log(f"[phase] (b) small partitioned megastep: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return pmega_full(mesh, tmpdir)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -3630,6 +4050,12 @@ def main() -> int:
     log(f"[phase] partitioned tally: {time.perf_counter() - t0:.2f} s")
     b1, pfull = part["b1"], part["full"]
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        pmega = phase_partitioned_megastep(tally.mesh, tmpdir)
+    log(f"[phase] partitioned source loop: {time.perf_counter() - t0:.2f} s")
+    pcount = pmega["counted"]["counts"]
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -3699,7 +4125,8 @@ def main() -> int:
                  for d in (1, 2)},
              runstats_launches=stats["launches"]["scatter_ordered"],
              runstats_bucket_launches=stats["launches"]["scatter_bucket"],
-             resil_bucket_launches=resil["launches"]["scatter_bucket"]),
+             resil_bucket_launches=resil["launches"]["scatter_bucket"],
+             pmega_launches=pcount["scatter_ordered"]),
         {"name": "walk_cuda.lane_records", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/walk.cu",
          "replaces": "pumiumtally_tpu/ops/walk_pallas.py:730",
@@ -3726,7 +4153,15 @@ def main() -> int:
          "megastep_busy_share": full["busy"]["share"],
          "transport_moves_per_s": [
              r["moves_per_s"] for r in mega["transport"]["megastep"]],
-         "resil_launches": resil["launches"]["source"]},
+         "resil_launches": resil["launches"]["source"],
+         "stacked_launches": pcount["source"],
+         "stacked_max_abs_err": pmega["stacked"]["max_abs_err"],
+         "stacked_ms": pmega["stacked"]["ms"],
+         "stacked_plain_ms": pmega["stacked"]["plain_ms"],
+         "stacked_bound_ms": pmega["stacked"]["bound_ms"],
+         "stacked_bound_by": pmega["stacked"]["bound_by"],
+         "single_again_ms": pmega["single"]["ms"],
+         "single_again_max_abs_err": pmega["single"]["max_abs_err"]},
         {"name": "walk_cuda.trace (unpacked layout)", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/walk.cu",
          "replaces": "pumiumtally_tpu/ops/walk.py:823 (XLA four-gather "
@@ -3748,7 +4183,16 @@ def main() -> int:
          "segments_per_s": pfull["segments_per_s"],
          "pumitally_segments_per_s": pfull["single_segments_per_s"],
          "busy_share": pfull["busy"]["share"],
-         "peak_device_bytes": pfull["peak"]},
+         "peak_device_bytes": pfull["peak"],
+         "megastep_launches": pcount["walk_partitioned"],
+         "megastep_relaunches": pcount["walk_relaunches"],
+         "megastep_round_waits": pmega["counted"]["waits"],
+         "megastep_segments_per_s": pmega["segments_per_s"],
+         "megastep_moves_per_s": pmega["moves_per_s"],
+         "megastep_move_ms": pmega["move_ms"],
+         "megastep_restage_ms": pmega["stage_ms"],
+         "megastep_busy_share": pmega["busy"]["share"],
+         "megastep_peak_device_bytes": pmega["counted"]["peak"]},
     ]
     for kern in kernels:
         if not kern["launches"]:

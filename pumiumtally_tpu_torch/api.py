@@ -233,6 +233,20 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     return out
 
 
+def flip_largest(flux: torch.Tensor) -> None:
+    """Flip, in place through an integer view, the sign bit of the entry
+    of largest magnitude of a flat accumulator (the first, on a tie), or
+    write NaN into entry 0 of an empty one: the fault the flux check must
+    catch."""
+    j = int(torch.argmax(flux.abs()))
+    it = {torch.float32: torch.int32, torch.float64: torch.int64}[flux.dtype]
+    bits = flux.view(it)
+    if float(flux[j]) == 0.0:
+        bits[j] = int(torch.tensor(float("nan"), dtype=flux.dtype).view(it))
+    else:
+        bits[j] ^= torch.iinfo(it).min
+
+
 class PumiTally:
     """Track-length flux tally on an unstructured tet mesh."""
 
@@ -543,21 +557,12 @@ class PumiTally:
 
     def _maybe_inject_bitflip(self, move: int) -> None:
         """``PUMI_TPU_FAULTS=bitflip_flux:K``: after move K flip the sign
-        bit of the flux entry of largest magnitude (the first, on a tie),
-        or write NaN into entry 0 of an empty accumulator, through an
-        integer view of the card's tensor: the JAX hook's bit on the JAX
-        hook's entry. The next move's flux check must catch it."""
+        bit of the flux entry of largest magnitude (``flip_largest``), the
+        JAX hook's bit on the JAX hook's entry. The next move's flux check
+        must catch it."""
         if self._finj is None or not self._finj.bitflip_at(move):
             return
-        j = int(torch.argmax(self.flux.abs()))
-        ints = {torch.float32: torch.int32, torch.float64: torch.int64}
-        it = ints[self.flux.dtype]
-        bits = self.flux.view(it)
-        if float(self.flux[j]) == 0.0:
-            nan = torch.tensor(float("nan"), dtype=self.flux.dtype)
-            bits[j] = int(nan.view(it))
-        else:
-            bits[j] ^= torch.iinfo(it).min
+        flip_largest(self.flux)
         self._count_fault("bitflip_flux")
 
     def _record_capacity(self, dest, in_flight) -> int:
@@ -1471,7 +1476,8 @@ class PumiTally:
         """Persist the resumable state (flux, particle state, move
         counter) in the JAX package's single-file format
         (``utils/checkpoint.py``); either package restores it. A
-        ``.shards`` name (the sharded layout) is ROADMAP.md A9b."""
+        ``.shards`` name writes the sharded two-phase layout
+        (``n_shards`` splits, default one)."""
         from .utils.checkpoint import save_checkpoint
 
         self._drain_pending()

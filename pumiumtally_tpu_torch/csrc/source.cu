@@ -17,7 +17,14 @@
 //  * mu = 2u0 - 1, phi = 2pi u1, s = sqrt(max(1 - mu^2, 0)), direction
 //    (s cos phi, s sin phi, mu), ell = -log1p(-u2), and the destination
 //    origin + direction * (ell / max(sigma_t[region], tiny)) for alive
-//    lanes (the origin for dead ones), region = class_id[clip(elem)];
+//    lanes (the origin for dead ones), region = class_id[row] with
+//    row = (i / cap) * max_local + clip(elem, 0, max_local - 1): lane i
+//    sits in block i / cap of cap slots, whose part-local element rows
+//    start at (i / cap) * max_local of the stacked class table. With
+//    cap = n and max_local = ntet this is class_id[clip(elem, 0, ntet-1)]
+//    of one mesh; with the partitioned megastep's stacked slots it is the
+//    JAX megastep's sigma_dev[chip_base + clip(elem, 0, max_local-1)]
+//    (pumiumtally_tpu/ops/walk_partitioned.py:1385-1387);
 //  * coll_u = u3 and roul_u = u4 written for the physics.
 // cos, sin, log1p and sqrt are the correctly rounded or libdevice
 // functions (cosf, never __cosf), the plain version's on the card; the
@@ -100,8 +107,9 @@ sample_flight_kernel(uint32_t mk0, uint32_t mk1,
                      const int32_t* __restrict__ elem,
                      const uint8_t* __restrict__ alive,
                      const T* __restrict__ origin,
-                     const int32_t* __restrict__ class_id, int ntet,
-                     const T* __restrict__ sigma_t, int nclass, int n,
+                     const int32_t* __restrict__ class_id, int cap,
+                     int max_local, const T* __restrict__ sigma_t,
+                     int nclass, int n,
                      T* __restrict__ dest, T* __restrict__ coll_u,
                      T* __restrict__ roul_u, T* __restrict__ u_out) {
   const int i = blockIdx.x * BLOCK + threadIdx.x;
@@ -124,7 +132,8 @@ sample_flight_kernel(uint32_t mk0, uint32_t mk1,
   const T phi = u[1] * Real<T>::two_pi();
   const T s = Real<T>::rt(fmax(((T)1 - mu * mu), (T)0));
   const T ell = -Real<T>::l1p(-u[2]);
-  const int e = min(max(elem[i], 0), ntet - 1);
+  const long long e = (long long)(i / cap) * max_local
+                      + min(max(elem[i], 0), max_local - 1);
   const int region = min(max(class_id[e], 0), nclass - 1);
   const T scale = ell / fmax(__ldg(sigma_t + region), Real<T>::tiny());
   const T dir[3] = {s * Real<T>::c(phi), s * Real<T>::s(phi), mu};
@@ -141,16 +150,17 @@ sample_flight_kernel(uint32_t mk0, uint32_t mk1,
 template <typename T>
 int launch(uint32_t mk0, uint32_t mk1, const void* pid, int n_total,
            const void* elem, const void* alive, const void* origin,
-           const void* class_id, int ntet, const void* sigma_t, int nclass,
-           int n, void* dest, void* coll_u, void* roul_u, void* u_out,
-           void* stream) {
+           const void* class_id, int cap, int max_local, const void* sigma_t,
+           int nclass, int n, void* dest, void* coll_u, void* roul_u,
+           void* u_out, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  if (n_total < 1 || ntet < 1 || nclass < 1) return (int)cudaErrorInvalidValue;
+  if (n_total < 1 || cap < 1 || max_local < 1 || nclass < 1)
+    return (int)cudaErrorInvalidValue;
   const int blocks = (n + BLOCK - 1) / BLOCK;
   sample_flight_kernel<T><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
       mk0, mk1, (const int32_t*)pid, n_total, (const int32_t*)elem,
-      (const uint8_t*)alive, (const T*)origin, (const int32_t*)class_id, ntet,
-      (const T*)sigma_t, nclass, n, (T*)dest, (T*)coll_u, (T*)roul_u,
+      (const uint8_t*)alive, (const T*)origin, (const int32_t*)class_id, cap,
+      max_local, (const T*)sigma_t, nclass, n, (T*)dest, (T*)coll_u, (T*)roul_u,
       (T*)u_out);
   return (int)cudaGetLastError();
 }
@@ -158,24 +168,28 @@ int launch(uint32_t mk0, uint32_t mk1, const void* pid, int n_total,
 }  // namespace
 
 // C entry points: pumi_sample_flight_f32 / _f64. mk0, mk1 are the move
-// key's words; u_out, when not null, receives each lane's five uniforms
-// ([n, 5], a check of the draws). Returns the launch's cudaError_t.
+// key's words; cap and max_local map a lane to its row of class_id (see
+// the top of this file); u_out, when not null, receives each lane's five
+// uniforms ([n, 5], a check of the draws). Returns the launch's
+// cudaError_t.
 extern "C" int pumi_sample_flight_f32(
     unsigned mk0, unsigned mk1, const void* pid, int n_total,
     const void* elem, const void* alive, const void* origin,
-    const void* class_id, int ntet, const void* sigma_t, int nclass, int n,
-    void* dest, void* coll_u, void* roul_u, void* u_out, void* stream) {
+    const void* class_id, int cap, int max_local, const void* sigma_t,
+    int nclass, int n, void* dest, void* coll_u, void* roul_u, void* u_out,
+    void* stream) {
   return launch<float>(mk0, mk1, pid, n_total, elem, alive, origin, class_id,
-                       ntet, sigma_t, nclass, n, dest, coll_u, roul_u, u_out,
-                       stream);
+                       cap, max_local, sigma_t, nclass, n, dest, coll_u,
+                       roul_u, u_out, stream);
 }
 
 extern "C" int pumi_sample_flight_f64(
     unsigned mk0, unsigned mk1, const void* pid, int n_total,
     const void* elem, const void* alive, const void* origin,
-    const void* class_id, int ntet, const void* sigma_t, int nclass, int n,
-    void* dest, void* coll_u, void* roul_u, void* u_out, void* stream) {
+    const void* class_id, int cap, int max_local, const void* sigma_t,
+    int nclass, int n, void* dest, void* coll_u, void* roul_u, void* u_out,
+    void* stream) {
   return launch<double>(mk0, mk1, pid, n_total, elem, alive, origin,
-                        class_id, ntet, sigma_t, nclass, n, dest, coll_u,
-                        roul_u, u_out, stream);
+                        class_id, cap, max_local, sigma_t, nclass, n, dest,
+                        coll_u, roul_u, u_out, stream);
 }

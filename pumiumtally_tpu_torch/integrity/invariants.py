@@ -27,8 +27,13 @@ Vector (walk dtype, ``INTEGRITY_FIELDS``):
     + parked (or quarantined) == n.
 
 The vector rides the packed readback's tail, so the checks add no
-host↔device transfer. The partitioned facade's per-device vector is
-ROADMAP.md A9b.
+host↔device transfer.
+
+Partitioned per-part vector (int64, ``PART_INTEGRITY_FIELDS``):
+``bad_flux`` / ``lanes_valid`` / ``lanes_done``, the on-device half (flux
+health and slot accounting) of each part after the halo fold; the
+conservation half is checked on the host from the track lengths that
+migrate with each particle, against the facade's pre-move positions.
 """
 from __future__ import annotations
 
@@ -44,6 +49,9 @@ INTEGRITY_FIELDS = (
 )
 INTEGRITY_LEN = len(INTEGRITY_FIELDS)
 IIDX = {name: i for i, name in enumerate(INTEGRITY_FIELDS)}
+
+PART_INTEGRITY_FIELDS = ("bad_flux", "lanes_valid", "lanes_done")
+PART_INTEGRITY_LEN = len(PART_INTEGRITY_FIELDS)
 
 
 def integrity_to_dict(vec) -> dict:

@@ -84,10 +84,12 @@ class ConvState:
 
 def conv_reduce(snap, sumsq, nb: int, rel_err_target: float):
     """Per-bin relative error reduced to the [CONV_LEN] summary vector in
-    ``snap.dtype``, on ``snap``'s device. Bins with fewer than 2 batches
-    have no variance estimate: scored bins there report rel-err 1,
-    unscored bins 0 and are excluded everywhere."""
+    ``snap.dtype``, on ``snap``'s device, over the last axis (``[P, L]``
+    accumulators give one vector a part, ``[P, CONV_LEN]``). Bins with
+    fewer than 2 batches have no variance estimate: scored bins there
+    report rel-err 1, unscored bins 0 and are excluded everywhere."""
     dtype = snap.dtype
+    lead = tuple(snap.shape[:-1])
     nbf = float(max(nb, 1))
     scored = snap > 0
     var_num = (nbf * sumsq - snap * snap).clamp_min_(0.0)
@@ -96,38 +98,45 @@ def conv_reduce(snap, sumsq, nb: int, rel_err_target: float):
     defined = nb >= 2
     rel = torch.where(scored, rel if defined else torch.ones_like(rel),
                       torch.zeros_like(rel))
-    n_scored = scored.sum()
-    n_conv = (scored & (rel <= rel_err_target)).sum() if defined else (
-        torch.zeros((), dtype=torch.int64, device=snap.device))
+    n_scored = scored.sum(-1)
+    n_conv = (scored & (rel <= rel_err_target)).sum(-1) if defined else (
+        torch.zeros(lead, dtype=torch.int64, device=snap.device))
     return torch.stack([
-        torch.full((), nb, dtype=dtype, device=snap.device),
+        torch.full(lead, nb, dtype=dtype, device=snap.device),
         n_scored.to(dtype),
-        rel.sum(),
-        rel.amax(),
+        rel.sum(-1),
+        rel.amax(-1),
         n_conv.to(dtype),
-    ])
+    ], dim=-1)
 
 
 def fold_and_reduce(flux, state: ConvState, *, batch_moves: int,
-                    rel_err_target: float, force: bool = False):
+                    rel_err_target: float, force: bool = False,
+                    enable: bool = True):
     """One move's (or one explicit ``end_batch``'s) convergence step, in
     place on ``state``.
 
-    ``flux`` is the flat stride-2 accumulator; only its even (Σc) entries
-    are read, so convergence composes with ``score_squares=False`` and
-    ``sd_mode="batch"`` alike. A batch completes when the moves since the
-    last batch end reach a multiple of ``batch_moves``, or always with
-    ``force`` (``end_batch``, which restarts the cadence). A completed
-    batch adds (even − S1)² to Σ T², sets S1 to the even entries and
-    recomputes the summary; otherwise the last summary stands. Returns
-    the summary vector (``[CONV_LEN]``, the flux's dtype and device)."""
+    ``flux`` is the stride-2 accumulator with the (Σc, Σc²) pairs on its
+    last axis (flat, or ``[P, 2L]`` per-part slabs with ``[P, L]``
+    accumulators); only its even (Σc) entries are read, so convergence
+    composes with ``score_squares=False`` and ``sd_mode="batch"`` alike.
+    A batch completes when the moves since the last batch end reach a
+    multiple of ``batch_moves``, or always with ``force`` (``end_batch``,
+    which restarts the cadence). ``enable`` False (the partitioned
+    facade's initial search and re-walks) leaves the cadence and the
+    accumulators alone. A completed batch adds (even − S1)² to Σ T², sets
+    S1 to the even entries and recomputes the summary; otherwise the last
+    summary stands. Returns the summary vector (``[..., CONV_LEN]``, the
+    flux's dtype and device)."""
     if force:
         state.moves, end = 0, True
-    else:
+    elif enable:
         state.moves += 1
         end = state.moves % batch_moves == 0
+    else:
+        end = False
     if end:
-        even = flux[0::2]
+        even = flux[..., 0::2]
         delta = even - state.snap
         state.sumsq += delta * delta
         state.snap.copy_(even)
@@ -151,6 +160,24 @@ def conv_to_dict(vec) -> dict:
         "sum_rel_err": float(v[CONV_IDX["sum_rel_err"]]),
         "max_rel_err": float(v[CONV_IDX["max_rel_err"]]),
         "converged": int(v[CONV_IDX["converged"]]),
+    }
+
+
+def reduce_chip_conv(mat) -> dict:
+    """Per-part ``[n_parts, CONV_LEN]`` summaries as one run-level dict:
+    counts and sums add (each bin is owned by exactly one part),
+    ``max_rel_err`` is the max, ``n_batches`` the same in every part."""
+    m = np.asarray(mat, np.float64)
+    if m.ndim != 2 or m.shape[1] != CONV_LEN:
+        raise ValueError(
+            f"expected [n_parts, {CONV_LEN}] part summaries, got {m.shape}"
+        )
+    return {
+        "n_batches": int(m[:, CONV_IDX["n_batches"]].max(initial=0)),
+        "scored": int(m[:, CONV_IDX["scored"]].sum()),
+        "sum_rel_err": float(m[:, CONV_IDX["sum_rel_err"]].sum()),
+        "max_rel_err": float(m[:, CONV_IDX["max_rel_err"]].max(initial=0)),
+        "converged": int(m[:, CONV_IDX["converged"]].sum()),
     }
 
 

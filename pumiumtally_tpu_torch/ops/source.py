@@ -262,22 +262,33 @@ def flight_dest(origin, direction, ell, sig, alive):
     return torch.where(alive[:, None], origin + flight, origin)
 
 
-def lane_sigma(class_id, elem, table):
+def lane_sigma(class_id, elem, table, cap: int | None = None,
+               max_local: int | None = None):
     """Each lane's value of a per-region table: ``table[clip(class_id[
-    clip(elem)])]`` (the region of the lane's parent element)."""
-    ntet, nclass = class_id.shape[0], table.shape[0]
-    region = class_id[elem.long().clamp(0, ntet - 1)]
+    row])]`` (the region of the lane's parent element), ``row =
+    (i // cap)·max_local + clip(elem, 0, max_local-1)`` for lane i; by
+    default one mesh (``cap`` the lanes, ``max_local`` the elements), else
+    the stacked part-local rows of the partitioned megastep."""
+    nclass = table.shape[0]
+    max_local = class_id.shape[0] if max_local is None else int(max_local)
+    row = elem.long().clamp(0, max_local - 1)
+    if cap is not None and elem.shape[0] > cap:
+        lane = torch.arange(elem.shape[0], device=elem.device)
+        row = row + lane // int(cap) * max_local
+    region = class_id[row]
     return table[region.long().clamp(0, nclass - 1)]
 
 
 def sample_flight_plain(move_key, pid, n_total: int, elem, alive, origin,
-                        class_id, sigma_t):
+                        class_id, sigma_t, cap: int | None = None,
+                        max_local: int | None = None):
     """The plain version of the kernel ``csrc/source.cu``: one move's
     ``(dest [n,3], coll_u [n], roul_u [n])`` for the move key's words
-    (``fold_in(base key, move)``)."""
+    (``fold_in(base key, move)``); ``cap`` and ``max_local`` as in
+    ``lane_sigma``."""
     direction, ell, coll_u, roul_u = draws_from_uniforms(
         lane_uniforms(move_key, pid, n_total, origin.dtype))
-    sig = lane_sigma(class_id, elem, sigma_t)
+    sig = lane_sigma(class_id, elem, sigma_t, cap, max_local)
     return flight_dest(origin, direction, ell, sig, alive), coll_u, roul_u
 
 

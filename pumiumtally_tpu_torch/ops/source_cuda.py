@@ -4,7 +4,12 @@
 roulette draws for every lane, keyed by (seed, move, particle id): the
 counterpart of ``pumiumtally_tpu/ops/source.py::sample_move`` (:179) and
 of the flight in the JAX megastep's body, which the JAX package left to
-XLA. A CPU tensor goes to the plain version
+XLA, in both its forms: one mesh (``ops/walk.py::megastep``) and the
+partitioned megastep's stacked slots
+(``ops/walk_partitioned.py::make_partitioned_megastep``, JAX
+``walk_partitioned.py:1385-1387``), where lane i looks up its region by
+its part-local row ``(i // cap)·max_local + clip(elem, 0, max_local-1)``
+of the stacked class table. A CPU tensor goes to the plain version
 (``ops/source.py::sample_flight_plain``); a CUDA tensor goes to the
 kernel, built with nvcc at first use (``ops/_build.py``), or raises.
 ``LAUNCHES`` counts kernel launches and nothing else.
@@ -25,7 +30,8 @@ _ARGTYPES = (
     [ctypes.c_uint] * 2                  # move key words
     + [ctypes.c_void_p, ctypes.c_int]    # pid, n_total
     + [ctypes.c_void_p] * 4              # elem, alive, origin, class_id
-    + [ctypes.c_int, ctypes.c_void_p]    # ntet, sigma_t
+    + [ctypes.c_int] * 2                 # cap, max_local
+    + [ctypes.c_void_p]                  # sigma_t
     + [ctypes.c_int] * 2                 # nclass, n
     + [ctypes.c_void_p] * 5              # dest, coll_u, roul_u, u_out, stream
 )
@@ -43,7 +49,7 @@ def _entry(dtype):
     return fn
 
 
-def _check(pid, elem, alive, origin, class_id, sigma_t):
+def _check(pid, elem, alive, origin, class_id, sigma_t, cap, max_local):
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
     if dtype not in _DTYPE_TAG:
@@ -66,21 +72,34 @@ def _check(pid, elem, alive, origin, class_id, sigma_t):
             raise ValueError(f"{name} must be contiguous")
     if class_id.numel() == 0 or sigma_t.numel() == 0:
         raise ValueError("class_id and sigma_t must not be empty")
+    if cap < 1 or n % cap:
+        raise ValueError(f"{n} lanes do not split into blocks of cap={cap}")
+    if max_local < 1 or (n // cap) * max_local > class_id.shape[0]:
+        raise ValueError(
+            f"class_id has {class_id.shape[0]} rows; {n // cap} block(s) of "
+            f"max_local={max_local} need {(n // cap) * max_local}")
 
 
 def sample_flight(move_key, pid, n_total: int, elem, alive, origin,
-                  class_id, sigma_t, u_out=None):
+                  class_id, sigma_t, u_out=None, *, cap: int | None = None,
+                  max_local: int | None = None):
     """One move's ``(dest [n,3], coll_u [n], roul_u [n])``: ``move_key``
     is the move key's two uint32 words (``source.fold_in(base key,
     move)``, host ints), ``pid``/``elem`` int32 ``[n]``, ``alive`` bool
     ``[n]``, ``origin`` ``[n,3]`` in the walk dtype, ``class_id`` the
     mesh's int32 region per element, ``sigma_t`` the Σt table in the walk
     dtype. ``u_out``, a ``[n, 5]`` tensor of the walk dtype, receives the
-    lanes' uniforms (a check of the draws). CPU tensors take
+    lanes' uniforms (a check of the draws). ``cap`` and ``max_local``
+    (default: the lanes and ``class_id``'s rows, one mesh) give the
+    stacked slots' rows: lane i's region is ``class_id[(i // cap)·
+    max_local + clip(elem, 0, max_local-1)]``. CPU tensors take
     ``sample_flight_plain``; CUDA tensors the kernel."""
     global LAUNCHES
-    _check(pid, elem, alive, origin, class_id, sigma_t)
     n, dtype, dev = origin.shape[0], origin.dtype, origin.device
+    cap = n if cap is None else int(cap)
+    max_local = class_id.shape[0] if max_local is None else int(max_local)
+    _check(pid, elem, alive, origin, class_id, sigma_t, max(cap, 1),
+           max_local)
     if not 1 <= n_total < 2**31:
         raise ValueError(f"n_total must lie in [1, 2^31): {n_total}")
     if u_out is not None and (tuple(u_out.shape) != (n, 5)
@@ -90,7 +109,8 @@ def sample_flight(move_key, pid, n_total: int, elem, alive, origin,
                          f"tensor on {dev}")
     if dev.type == "cpu":
         out = sample_flight_plain(move_key, pid, n_total, elem, alive,
-                                  origin, class_id, sigma_t)
+                                  origin, class_id, sigma_t, cap=cap,
+                                  max_local=max_local)
         if u_out is not None:
             from .source import lane_uniforms
 
@@ -109,7 +129,7 @@ def sample_flight(move_key, pid, n_total: int, elem, alive, origin,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(k0, k1, pid.data_ptr(), int(n_total), elem.data_ptr(),
                  alive.data_ptr(), origin.data_ptr(), class_id.data_ptr(),
-                 class_id.shape[0], sigma_t.data_ptr(), sigma_t.shape[0], n,
+                 cap, max_local, sigma_t.data_ptr(), sigma_t.shape[0], n,
                  dest.data_ptr(), coll_u.data_ptr(), roul_u.data_ptr(),
                  None if u_out is None else u_out.data_ptr(), stream)
     if err != 0:

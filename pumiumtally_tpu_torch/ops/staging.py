@@ -53,7 +53,11 @@ The partitioned facade's records (``pack_partitioned_record``,
 slots of ``ops/walk_partitioned.py``, the JAX package's layouts: one
 host→device copy of the distributed inputs and one device→host copy of
 the per-slot outputs with a per-part int64 tail (stats, round stats,
-rounds, drops, segments) a move.
+rounds, drops, segments, and with integrity on the part's
+``PART_INTEGRITY_FIELDS``) a move, the per-part convergence summaries
+after it as walk-dtype words. The partitioned megastep's readback
+(``pack_partitioned_megastep_tail``) is such a per-part tail with no slot
+columns, and the chunk's physics vector.
 """
 from __future__ import annotations
 
@@ -62,7 +66,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..integrity.invariants import INTEGRITY_LEN
+from ..integrity.invariants import INTEGRITY_LEN, PART_INTEGRITY_LEN
 from ..obs.convergence import CONV_LEN
 from ..utils.platform import resolve_device
 
@@ -431,7 +435,9 @@ def pack_partitioned_readback(res, n_parts: int) -> torch.Tensor:
     """Device-side readback of a partitioned step: per slot
     ``[pos(3), material, elem, done, track, pid, valid]`` carrier words,
     then a per-part int64 tail (the stats vector, the round stats, rounds,
-    drops, segments): ONE ``[n_parts, cap·COLS + tail]`` tensor."""
+    drops, segments, and the integrity counters when the step has them)
+    and the per-part convergence summary (when it has one) as walk-dtype
+    words: ONE ``[n_parts, cap·COLS + tail]`` tensor."""
     dtype = res.position.dtype
     carrier = torch_carrier(dtype)
     cap = res.position.shape[0] // n_parts
@@ -444,12 +450,16 @@ def pack_partitioned_readback(res, n_parts: int) -> torch.Tensor:
     slot[:, 6] = res.track_length.view(carrier)
     slot[:, 7] = _enc_i32_dev(res.particle_id, carrier)
     slot[:, 8] = res.valid.to(carrier)
-    tail = torch.cat([
-        res.stats, res.round_stats.reshape(n_parts, -1),
-        res.n_rounds[:, None], res.n_dropped[:, None],
-        res.n_segments[:, None]], dim=1).to(torch.int64).contiguous()
-    return torch.cat([slot.view(n_parts, -1),
-                      tail.view(carrier).view(n_parts, -1)], dim=1)
+    cols = [res.stats, res.round_stats.reshape(n_parts, -1),
+            res.n_rounds[:, None], res.n_dropped[:, None],
+            res.n_segments[:, None]]
+    if res.integrity is not None:
+        cols.append(res.integrity)
+    tail = torch.cat(cols, dim=1).to(torch.int64).contiguous()
+    parts = [slot.view(n_parts, -1), tail.view(carrier).view(n_parts, -1)]
+    if res.convergence is not None:
+        parts.append(res.convergence.to(dtype).contiguous().view(carrier))
+    return torch.cat(parts, dim=1)
 
 
 def split_partitioned_readback(host_rec, n_parts: int, cap: int, dtype,
@@ -457,18 +467,22 @@ def split_partitioned_readback(host_rec, n_parts: int, cap: int, dtype,
                                convergence: bool = False) -> dict:
     """Host-side inverse of ``pack_partitioned_readback`` (numpy); the
     round-stats bound is recovered from the tail's width. ``integrity``
-    and ``convergence`` tails are not ported (ROADMAP.md A9b)."""
+    and ``convergence`` name the tails the step carried: the dict then
+    has ``integrity`` ([n_parts, PART_INTEGRITY_LEN] int64) and
+    ``convergence`` ([n_parts, CONV_LEN] float64)."""
     from ..obs.walk_stats import WALK_STATS_LEN
 
-    if integrity or convergence:
-        raise NotImplementedError(
-            "the partitioned readback's integrity and convergence tails "
-            "are not ported yet (ROADMAP.md A9b)")
     carrier = np_carrier(dtype)
     npdt = np.dtype(_NP_FLOAT.get(dtype, dtype))
     if isinstance(host_rec, torch.Tensor):
         host_rec = host_rec.numpy()
     host_rec = np.asarray(host_rec).view(carrier)
+    conv = None
+    if convergence:
+        conv = _dec_f_host(np.ascontiguousarray(host_rec[:, -CONV_LEN:]),
+                           npdt).astype(np.float64)
+        host_rec = host_rec[:, :-CONV_LEN]
+    ilen = PART_INTEGRITY_LEN if integrity else 0
     w = 8 // carrier.itemsize
     width = host_rec.shape[1]
     rem = width - cap * PART_RB_SLOT_COLS
@@ -476,7 +490,7 @@ def split_partitioned_readback(host_rec, n_parts: int, cap: int, dtype,
         raise ValueError(
             f"cannot split a [{n_parts}, {width}] partitioned readback at "
             f"cap={cap}")
-    ints = rem // w - WALK_STATS_LEN - 3
+    ints = rem // w - WALK_STATS_LEN - 3 - ilen
     if ints < 0 or ints % 6:
         raise ValueError(
             f"partitioned readback tail of {rem // w} int64s does not "
@@ -487,7 +501,7 @@ def split_partitioned_readback(host_rec, n_parts: int, cap: int, dtype,
     tail = _dec_i64_host(host_rec[:, cap * PART_RB_SLOT_COLS:]).reshape(
         n_parts, -1)
     S = WALK_STATS_LEN
-    return {
+    out = {
         "position": _dec_f_host(np.ascontiguousarray(slot[:, 0:3]), npdt),
         "material_id": _dec_i32_host(np.ascontiguousarray(slot[:, 3]),
                                      carrier),
@@ -503,6 +517,67 @@ def split_partitioned_readback(host_rec, n_parts: int, cap: int, dtype,
         "n_dropped": tail[:, S + 6 * R + 1],
         "n_segments": tail[:, S + 6 * R + 2],
     }
+    if integrity:
+        base = S + 6 * R + 3
+        out["integrity"] = tail[:, base: base + ilen]
+    if conv is not None:
+        out["convergence"] = conv
+    return out
+
+
+def pack_partitioned_megastep_tail(stats, n_rounds, n_dropped, n_segments,
+                                   integrity, convergence, phys, dtype):
+    """The partitioned megastep's device-side readback: ONE ``[n_parts,
+    W]`` carrier tensor of each part's chunk stats vector, rounds, drops
+    and segments (and integrity counters, when given) int64-encoded, its
+    last convergence summary (when given) and the chunk's physics vector
+    (the same in every row) as walk-dtype words."""
+    carrier = torch_carrier(dtype)
+    n_parts = stats.shape[0]
+    cols = [stats, n_rounds[:, None], n_dropped[:, None],
+            n_segments[:, None]]
+    if integrity is not None:
+        cols.append(integrity)
+    tail = torch.cat(cols, dim=1).to(torch.int64).contiguous()
+    parts = [tail.view(carrier).view(n_parts, -1)]
+    if convergence is not None:
+        parts.append(convergence.to(dtype).contiguous().view(carrier))
+    parts.append(phys.to(dtype).expand(n_parts, -1).contiguous()
+                 .view(carrier))
+    return torch.cat(parts, dim=1)
+
+
+def split_partitioned_megastep_tail(host_rec, dtype, integrity: bool,
+                                    convergence: bool) -> dict:
+    """Host-side inverse of ``pack_partitioned_megastep_tail``: ``stats``
+    [n_parts, 8], ``n_rounds``, ``n_dropped``, ``n_segments`` [n_parts]
+    int64, ``phys`` [MEGA_PHYS_LEN] float64, and ``integrity`` /
+    ``convergence`` when asked for."""
+    from ..obs.walk_stats import WALK_STATS_LEN
+    from .source import MEGA_PHYS_LEN
+
+    carrier = np_carrier(dtype)
+    npdt = np.dtype(_NP_FLOAT.get(dtype, dtype))
+    if isinstance(host_rec, torch.Tensor):
+        host_rec = host_rec.numpy()
+    rec = np.asarray(host_rec).view(carrier)
+    phys = _dec_f_host(np.ascontiguousarray(rec[0, -MEGA_PHYS_LEN:]),
+                       npdt).astype(np.float64)
+    rec = rec[:, :-MEGA_PHYS_LEN]
+    out = {}
+    if convergence:
+        out["convergence"] = _dec_f_host(
+            np.ascontiguousarray(rec[:, -CONV_LEN:]), npdt).astype(
+                np.float64)
+        rec = rec[:, :-CONV_LEN]
+    tail = _dec_i64_host(rec).reshape(rec.shape[0], -1)
+    S = WALK_STATS_LEN
+    out.update(stats=tail[:, :S], n_rounds=tail[:, S],
+               n_dropped=tail[:, S + 1], n_segments=tail[:, S + 2],
+               phys=phys)
+    if integrity:
+        out["integrity"] = tail[:, S + 3: S + 3 + PART_INTEGRITY_LEN]
+    return out
 
 
 def collect_packed(parsed: dict, n: int, partition) -> dict:

@@ -1,9 +1,10 @@
 """The partitioned walk: per-part mesh blocks and particle migration, with
 the parts stacked on one device.
 
-Counterpart of ``pumiumtally_tpu/ops/walk_partitioned.py`` (the step of
-``make_partitioned_step``; its megastep is not ported here, ROADMAP.md
-A9b). A step alternates
+Counterpart of ``pumiumtally_tpu/ops/walk_partitioned.py``: the step of
+``make_partitioned_step`` and the K fused device-sourced moves of
+``make_partitioned_megastep`` (``partitioned_megastep`` here). A step
+alternates
 
   1. a *walk phase*: every active slot (valid, not done, not pending)
      walks as in ``ops/walk.py``, over its part's rows of the stacked
@@ -36,7 +37,9 @@ guests' scores fold onto their owners' rows after the last round, one
 ``index_add_`` a sending part in part order (a one-to-one row map each,
 so the fold is deterministic and adds in the JAX fold's order), and the
 halo rows are zeroed. The flux is the same bits from run to run and
-between the kernel and the plain version.
+between the kernel and the plain version. With ``integrity`` each part's
+``PART_INTEGRITY_FIELDS`` counters, and with ``convergence`` each part's
+batch fold and summary (``obs/convergence.py``), follow the halo fold.
 
 The JAX step's compaction, unroll and scatter knobs only schedule its
 arithmetic; they are accepted and ignored. A phase's lanes each count
@@ -53,6 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..obs.convergence import fold_and_reduce
 from ..utils.platform import resolve_device
 from .geometry import exit_face
 from .scatter import scatter_ordered_plain
@@ -60,7 +64,7 @@ from .walk import _norm3, chase_face_choice, escalated_bump
 
 ROUND_WAITS = 0
 SPANS: list | None = None
-A9B = "ROADMAP.md A9b"
+A9C = "ROADMAP.md A9c"
 # The exchange payload's columns: floats cur(3) dest(3) weight track; ints
 # pid group material target_elem occupied done back_code.
 _F_COLS, _I_COLS = 8, 7
@@ -83,6 +87,10 @@ class PartitionedTraceResult:
     stats: [n_parts, 8] int64 walk stats vectors (``obs/walk_stats.py``
       order; the compaction occupancy is 0, 0: there is no compaction).
     readback: the packed step's readback (``staging``), else None.
+    integrity: [n_parts, PART_INTEGRITY_LEN] int64 (``integrity``), else
+      None.
+    convergence: [n_parts, CONV_LEN] summaries in the walk dtype
+      (``convergence``), else None.
     """
 
     position: torch.Tensor
@@ -102,6 +110,8 @@ class PartitionedTraceResult:
     round_stats: torch.Tensor
     stats: torch.Tensor
     readback: torch.Tensor | None = None
+    integrity: torch.Tensor | None = None
+    convergence: torch.Tensor | None = None
 
 
 def stacked_tables(partition) -> tuple:
@@ -299,28 +309,27 @@ def make_partitioned_step(
     card).
 
     Returns ``step(cur, dest, elem, done, material_id, weight, group,
-    pid, valid, flux, capacity=None) -> PartitionedTraceResult``
+    pid, valid, flux, conv=None, capacity=None) -> PartitionedTraceResult``
     (per-slot tensors ``[n_parts·cap]``, ``elem`` part-local rows), or
-    with ``packed_io`` ``step(record, flux, capacity=None)`` over the
-    record of ``staging.pack_partitioned_record``, whose result carries
-    the ``readback``. ``capacity`` sizes the first walk phase's record
-    buffers on the card. With ``face_rate`` (``walk_cuda.face_rate`` of
+    with ``packed_io`` ``step(record, flux, conv=None, capacity=None)``
+    over the record of ``staging.pack_partitioned_record``, whose result
+    carries the ``readback``. ``conv`` is ``(ConvState of [n_parts, L]
+    accumulators, enable)`` with ``convergence`` (the JAX step's five
+    trailing inputs: the accumulators, and the gate the facade closes for
+    its initial search and re-walks), updated in place. ``capacity``
+    sizes the first walk phase's record buffers on the card. With ``face_rate`` (``walk_cuda.face_rate`` of
     the partitioned mesh) a move sizes each later phase's buffers from
     the pending lanes' remaining paths (``walk_cuda.path_records``' rule),
     read with the round's stop test; without it a later phase has 4
     records a lane and walks again when it makes more. The flux is
     updated in place.
 
-    ``record_xpoints``, ``integrity`` and ``convergence`` raise
-    NotImplementedError (ROADMAP.md A9b)."""
+    ``record_xpoints`` raises NotImplementedError (ROADMAP.md A9c)."""
     del unroll, compact_after, compact_size, compact_stages
-    del followup_compact_size, rel_err_target, batch_moves
-    for name, on in (("record_xpoints", record_xpoints is not None),
-                     ("integrity", integrity),
-                     ("convergence", convergence)):
-        if on:
-            raise NotImplementedError(
-                f"the partitioned step's {name} is not ported yet ({A9B})")
+    del followup_compact_size
+    if record_xpoints is not None:
+        raise NotImplementedError(
+            f"the partitioned step's record_xpoints is not ported yet ({A9C})")
     if tally_scatter not in ("auto", "interleaved", "pair"):
         raise ValueError(
             f"tally_scatter must be 'auto', 'interleaved' or 'pair': "
@@ -335,7 +344,7 @@ def make_partitioned_step(
     if any(resolve_device(d) != dev for d in devs):
         raise ValueError(
             f"the parts are stacked on {dev}; every device of the mesh must "
-            "be that device (parts on several devices: ROADMAP.md A9b)")
+            "be that device (parts on several devices: ROADMAP.md A9c)")
     if 2 * max_local * n_groups >= 2**31:
         raise NotImplementedError(
             "flat tally keys overflow int32: max_local*n_groups*2 = "
@@ -365,8 +374,12 @@ def make_partitioned_step(
                    robust=robust)
 
     def run(cur, dest, elem, done, material_id, weight, group, pid, valid,
-            flux, capacity=None):
+            flux, conv=None, capacity=None):
         global ROUND_WAITS
+        if convergence and conv is None:
+            raise ValueError(
+                "this step was built with convergence=True and needs the "
+                "(ConvState, enable) pair")
         if cur.device != dev:
             raise ValueError(f"the slots are on {cur.device}, the parts on "
                              f"{dev}")
@@ -456,6 +469,25 @@ def make_partitioned_step(
             with _span(dev, "halo", rnd):
                 _fold_halo(flat, halo, n_parts, max_local, n_groups)
         i64 = torch.int64
+        ivec = cvec = None
+        if integrity:
+            # PART_INTEGRITY_FIELDS: non-finite or negative entries of the
+            # part's slab (the accumulator a bit flip poisons) and its
+            # slot accounting, after the halo fold.
+            slab = flat.view(n_parts, -1)
+            vp = valid.view(n_parts, cap)
+            ivec = torch.stack([
+                (~torch.isfinite(slab) | (slab < 0)).sum(1, dtype=i64),
+                vp.sum(1, dtype=i64),
+                (vp & done.view(n_parts, cap)).sum(1, dtype=i64)], dim=1)
+        if convergence:
+            # After the halo fold: the even entries read are the parts'
+            # complete owned scores (halo rows are zero).
+            state, enable = conv
+            cvec = fold_and_reduce(flat.view(n_parts, -1), state,
+                                   batch_moves=batch_moves,
+                                   rel_err_target=rel_err_target,
+                                   enable=bool(enable))
         nc = ncross.view(n_parts, cap)
         zero = torch.zeros(n_parts, dtype=i64, device=dev)
         stats = torch.stack([
@@ -470,20 +502,230 @@ def make_partitioned_step(
             done=done, flux=flux, n_segments=nseg,
             n_rounds=torch.full((n_parts,), rnd, dtype=i64, device=dev),
             n_dropped=dropped, track_length=pseg, round_stats=round_stats,
-            stats=stats)
+            stats=stats, integrity=ivec, convergence=cvec)
 
     if not packed_io:
         return run
 
     from .staging import pack_partitioned_readback, unpack_partitioned_record
 
-    def packed(record, flux, capacity=None):
-        res = run(*unpack_partitioned_record(record), flux,
+    def packed(record, flux, conv=None, capacity=None):
+        res = run(*unpack_partitioned_record(record), flux, conv=conv,
                   capacity=capacity)
         res.readback = pack_partitioned_readback(res, n_parts)
         return res
 
     return packed
+
+
+# ---------------------------------------------------------------------- #
+# The partitioned megastep: K device-sourced moves over the stacked parts.
+# ---------------------------------------------------------------------- #
+@dataclasses.dataclass
+class PartitionedMegastepResult:
+    """Outputs of one partitioned megastep chunk. The per-slot state
+    (``[n_parts·cap]``) stays on the device for the next chunk; the flux
+    and ``prev_even`` are updated in place; ``readback``
+    (``staging.pack_partitioned_megastep_tail``: each part's stats,
+    rounds, drops and segments, integrity counters and convergence
+    summary, and the physics vector) is what the host copies."""
+
+    position: torch.Tensor
+    dest: torch.Tensor
+    elem: torch.Tensor
+    material_id: torch.Tensor
+    weight: torch.Tensor
+    group: torch.Tensor
+    particle_id: torch.Tensor
+    valid: torch.Tensor
+    alive: torch.Tensor
+    flux: torch.Tensor
+    readback: torch.Tensor
+    prev_even: torch.Tensor | None = None
+
+
+def make_partitioned_megastep(
+    device_mesh,
+    partition,
+    *,
+    n_moves: int,
+    n_total: int,
+    n_groups: int,
+    class_local,
+    sigma_t,
+    absorb_t,
+    eps_near: float,
+    survival_weight: float,
+    downscatter: float,
+    dtype,
+    max_crossings: int = 4096,
+    max_rounds: int | None = None,
+    exchange_size: int | None = None,
+    tolerance: float = 1e-8,
+    score_squares: bool = True,
+    unroll: int = 1,
+    compact_after: int | None = None,
+    compact_size: int | None = None,
+    compact_stages: tuple | None = None,
+    followup_compact_size: int | None = None,
+    robust: bool = True,
+    tally_scatter: str = "auto",
+    integrity: bool = False,
+    convergence: bool = False,
+    rel_err_target: float = 0.05,
+    batch_moves: int = 1,
+    plain: bool = False,
+    face_rate: float | None = None,
+):
+    """The partitioned megastep, counterpart of the JAX
+    ``make_partitioned_megastep`` (``walk_partitioned.py:1260-1521``):
+    ``n_moves`` complete moves a call, each the re-source keyed by
+    (seed, move, particle id), the partitioned step (walk phases,
+    exchanges, halo fold) and the collision and termination physics.
+
+    The JAX builder takes the per-row Σt and absorption values; here
+    ``class_local`` (``[n_parts, max_local]`` region ids of the stacked
+    rows, clipped into the tables) and the region tables ``sigma_t`` /
+    ``absorb_t`` (host float64) give the same values, looked up by the
+    flight kernel (``source_cuda.sample_flight`` with ``cap`` and
+    ``max_local``: ``csrc/source.cu``) and by ``source.lane_sigma``.
+    ``n_total`` is the particle count (the random stream's width). The
+    other knobs are the step's (``make_partitioned_step``); ``plain``
+    runs the plain flight and the plain walk (the kernels' yardstick on
+    the card), ``face_rate`` sizes the later walk phases' record buffers.
+
+    Returns ``mega(cur, elem, material_id, weight, group, pid, valid,
+    alive, flux, move0, rng_key, conv=None, prev_even=None,
+    capacity=None, draws=None) -> PartitionedMegastepResult``: per-slot
+    tensors ``[n_parts·cap]``, ``move0`` the facade's move counter (a
+    host int: each move's key reaches the kernel as two arguments),
+    ``rng_key`` the seed's key words (``source.prng_key``), ``conv`` the
+    ``[n_parts, L]`` ConvState (folded once a fused move), ``prev_even``
+    the sd_mode="batch" snapshot, ``capacity`` the first walk phase's
+    record buffers of each move on the card, ``draws`` a sequence of
+    ``(direction, ell, coll_u, roul_u)`` per fused move in place of the
+    sampling (a test feeds the JAX draws).
+
+    The moves are a host loop: the K moves make the launches of K calls
+    of one move, and each move's step keeps its per-round host reads
+    (``ROUND_WAITS``). As in the JAX body, a lane that walks keeps its
+    slot's collision and roulette draws: the physics reads the draws of
+    the slot, and a slot an immigrant took holds the draws of its
+    previous occupant. The alive flag needs no payload: dead lanes never
+    walk (they start done), so never change slots, and every immigrant
+    was walking: after the step, ``alive = valid & (pid changed or
+    alive)``."""
+    from ..core.tally import accumulate_batch_squares
+    from ..integrity.invariants import PART_INTEGRITY_LEN
+    from ..obs.walk_stats import WALK_STATS_FIELDS, WALK_STATS_LEN
+    from . import source_cuda
+    from .source import (
+        MEGA_PHYS_LEN,
+        apply_physics,
+        flight_dest,
+        fold_in,
+        lane_sigma,
+        sample_flight_plain,
+    )
+    from .staging import pack_partitioned_megastep_tail
+
+    step = make_partitioned_step(
+        device_mesh, partition, n_groups=n_groups, initial=False,
+        max_crossings=max_crossings, max_rounds=max_rounds,
+        exchange_size=exchange_size, tolerance=tolerance,
+        score_squares=score_squares, unroll=unroll,
+        compact_after=compact_after, compact_size=compact_size,
+        compact_stages=compact_stages,
+        followup_compact_size=followup_compact_size, robust=robust,
+        tally_scatter=tally_scatter, integrity=integrity,
+        convergence=convergence, rel_err_target=rel_err_target,
+        batch_moves=batch_moves, plain=plain, face_rate=face_rate)
+    n_parts, max_local = partition.n_parts, partition.max_local
+    dev = partition.device
+    cls = torch.as_tensor(np.asarray(class_local, np.int32).reshape(-1),
+                          device=dev)
+    if cls.shape[0] != n_parts * max_local:
+        raise ValueError(
+            f"class_local must have {n_parts}×{max_local} rows, got "
+            f"{cls.shape[0]}")
+    sig = torch.as_tensor(np.asarray(sigma_t, np.float64), dtype=dtype,
+                          device=dev)
+    ab = torch.as_tensor(np.asarray(absorb_t, np.float64), dtype=dtype,
+                         device=dev)
+    sample = sample_flight_plain if plain else source_cuda.sample_flight
+    phys_kw = dict(eps_near=eps_near, survival_weight=survival_weight,
+                   downscatter=downscatter, n_groups=n_groups)
+    i64 = torch.int64
+    max_cross = WALK_STATS_FIELDS.index("max_crossings")
+
+    def mega(cur, elem, material_id, weight, group, pid, valid, alive, flux,
+             move0: int, rng_key, conv=None, prev_even=None, capacity=None,
+             draws=None):
+        cap = cur.shape[0] // n_parts
+        sacc = torch.zeros(n_parts, WALK_STATS_LEN, dtype=i64, device=dev)
+        iacc = (torch.zeros(n_parts, PART_INTEGRITY_LEN, dtype=i64,
+                            device=dev) if integrity else None)
+        cvec = None
+        pacc = torch.zeros(MEGA_PHYS_LEN, dtype=cur.dtype, device=dev)
+        rounds, dropped, nseg = (torch.zeros(n_parts, dtype=i64, device=dev)
+                                 for _ in range(3))
+        alive = alive.to(torch.bool)
+        dest, mat = cur, material_id
+        for k in range(n_moves):
+            go = valid & alive
+            if draws is None:
+                dest, coll_u, roul_u = sample(
+                    fold_in(rng_key, move0 + k), pid, n_total, elem, go, cur,
+                    cls, sig, cap=cap, max_local=max_local)
+            else:
+                direction, ell, coll_u, roul_u = draws[k]
+                dest = flight_dest(cur, direction, ell,
+                                   lane_sigma(cls, elem, sig, cap, max_local),
+                                   go)
+            res = step(cur, dest, elem, ~go, mat, weight, group, pid, valid,
+                       flux, conv=None if conv is None else (conv, True),
+                       capacity=capacity)
+            alive_w = res.valid & torch.where(res.particle_id != pid, True,
+                                              alive)
+            absorb = lane_sigma(cls, res.elem, ab, cap, max_local)
+            weight2, group2, alive2, phys4 = apply_physics(
+                res.position, res.dest, res.done, res.material_id,
+                res.weight, res.group, alive_w, absorb, coll_u, roul_u,
+                **phys_kw)
+            if prev_even is not None:
+                accumulate_batch_squares(flux.view(-1), prev_even)
+            # Sums everywhere, the max of max_crossings (JAX :1424-1427).
+            s2 = sacc + res.stats
+            s2[:, max_cross] = torch.maximum(sacc[:, max_cross],
+                                             res.stats[:, max_cross])
+            sacc = s2
+            if iacc is not None:
+                # bad_flux is the last move's (the final accumulator); the
+                # slot counts add (JAX :1433-1436).
+                iacc = torch.cat([res.integrity[:, :1],
+                                  iacc[:, 1:] + res.integrity[:, 1:]], 1)
+            if conv is not None:
+                cvec = res.convergence
+            n_trunc = (alive_w & ~res.done).sum().to(cur.dtype)
+            pacc = torch.cat([pacc[:4] + phys4,
+                              alive2.sum().to(cur.dtype).reshape(1),
+                              (pacc[5] + n_trunc).reshape(1)])
+            rounds = rounds + res.n_rounds
+            dropped = dropped + res.n_dropped
+            nseg = nseg + res.n_segments
+            cur, dest, elem, mat = (res.position, res.dest, res.elem,
+                                    res.material_id)
+            weight, group, pid, valid = (weight2, group2, res.particle_id,
+                                         res.valid)
+            alive = alive2
+        readback = pack_partitioned_megastep_tail(
+            sacc, rounds, dropped, nseg, iacc, cvec, pacc, cur.dtype)
+        return PartitionedMegastepResult(
+            position=cur, dest=dest, elem=elem, material_id=mat,
+            weight=weight, group=group, particle_id=pid, valid=valid,
+            alive=alive, flux=flux, readback=readback, prev_even=prev_even)
+
+    return mega
 
 
 def _pending_path(pend, cur, dest) -> tuple:

@@ -8,7 +8,7 @@ card: a device mesh is a list of torch devices, every entry the same
 device, and the shards walk one after the other, each with the port's
 walk (``ops/walk_cuda.py``: the walk kernel on the card, the plain walk on
 the CPU). Spreading the shards over several cards with NCCL is ROADMAP.md
-A9b.
+A9c.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def _device(device_mesh) -> torch.device:
     if len(devs) != 1:
         raise ValueError(
             "the shards run on one device; a mesh over several devices is "
-            "ROADMAP.md A9b")
+            "ROADMAP.md A9c")
     return devs.pop()
 
 

@@ -111,7 +111,7 @@ a supervisor wraps the run. The serving and fleet modes (poison_job,
 transient_quantum, kill_server_at_quantum, wedge_member, slow_member,
 disk_full_at) parse and answer as in the JAX package; the port's serving
 layer that drives them is ROADMAP.md A11, and its chip-lost recovery
-(the elastic mesh shrink) A9b.
+(the elastic mesh shrink) A9c.
 
 The injector is a no-op when the plan is empty, so production code can
 call its hooks unconditionally.

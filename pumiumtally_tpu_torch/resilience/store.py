@@ -6,9 +6,8 @@ entry, in either on-disk layout (utils/checkpoint.py):
   * ``ckpt-<iteration>.npz``    — single atomic file (per-array sha256);
   * ``ckpt-<iteration>.shards`` — a DIRECTORY of per-mesh-part shard
     npz files plus a ``MANIFEST.json`` committed last (two-phase
-    commit). The port reads and verifies such generations; it writes
-    them only when ``shards`` forces a count, and the sharded writer of
-    the partitioned facade is ROADMAP.md A9b.
+    commit), written for partitioned tallies by default and for any
+    tally when ``shards`` forces a count.
 
 The store keeps the newest ``keep`` generations, and
 ``find_latest``/``restore_latest`` walk newest→oldest SKIPPING corrupt

@@ -32,13 +32,23 @@ since its ``TetMesh`` keeps ``tet2vert`` and ``class_id`` as int32 in
 either mode, so one mesh gives one fingerprint in both packages.
 
 Sharded generations (a ``<name>.shards`` directory of ``shard-*.npz``
-payload splits and a ``MANIFEST.json`` committed last) are read and
-verified here (``verify_sharded_checkpoint``, restore of a
-single-device generation); writing them, and the partitioned facade's
-payload, is ROADMAP.md A9b.
+payload splits, written concurrently, and a ``MANIFEST.json`` naming
+every shard with its sha256, committed last) are written
+(``save_sharded_checkpoint``), verified and restored here for both
+facades, in the JAX package's layout.
+
+The partitioned facade's payload (``kind: "partitioned"``) stores the
+flux assembled in global element order, so it resumes under another part
+count or halo depth, the host particle state in particle order, the
+megastep's physics lanes, and, while a device-sourced run holds its slot
+state on the device, that state (``src_*``, with ``src_layout`` = [parts,
+cap]): a restore into the same layout continues the run bit for bit, a
+restore into another one re-distributes from the particle state.
 
 ``snapshot_state`` / ``restore_state`` keep the same payload in memory,
-on the device: the ``ResilientRunner``'s retry anchor. The port's flux is
+on the device (the partitioned facade's slabs and slot state as device
+clones, its host mirrors as copies): the ``ResilientRunner``'s retry
+anchor. The port's flux is
 updated in place by every walk, so a snapshot clones every device tensor
 it keeps and a restore assigns fresh clones: neither the next move nor
 an abandoned watchdog worker can write into a snapshot or into what a
@@ -376,11 +386,71 @@ def verify_sharded_checkpoint(dirname: str) -> dict:
     return manifest["meta"]
 
 
-def _restore_sharded(dirname: str, tally) -> None:
+def _restore_sharded(dirname: str, tally, expected_kind=None) -> None:
     manifest = _read_manifest(dirname)
     meta = manifest["meta"]
-    _validate_meta(meta, tally, expected_kind=None)
-    _apply_plain(tally, meta, _load_sharded_arrays(dirname, manifest))
+    _validate_meta(meta, tally, expected_kind=expected_kind)
+    arrays = _load_sharded_arrays(dirname, manifest)
+    if expected_kind == "partitioned":
+        _apply_partitioned(tally, meta, arrays)
+    else:
+        _apply_plain(tally, meta, arrays)
+
+
+# --------------------------------------------------------------------- #
+# Sharded generations: writer
+# --------------------------------------------------------------------- #
+def shard_name(index: int) -> str:
+    return f"shard-{int(index):03d}.npz"
+
+
+def save_sharded_checkpoint(dirname: str, tally,
+                            n_shards: int | None = None) -> int:
+    """Write one sharded generation with two-phase commit, as the JAX
+    package does. Phase 1 splits the facade's payload into ``n_shards``
+    first-axis chunks (one a mesh part by default; every payload array is
+    per particle, per element or per slot, so reassembly is a
+    concatenation) and writes one digest-carrying npz a shard,
+    concurrently, each atomically. Phase 2 commits ``MANIFEST.json``
+    (the facade meta and every shard's whole-file sha256) atomically,
+    last. A manifest already there is removed before any shard is
+    touched, so a crash mid-rewrite leaves an uncommitted directory that
+    readers skip, never a manifest naming half-written shards. Returns the
+    shard count."""
+    if hasattr(tally, "flux_slabs"):
+        meta, arrays = _partitioned_payload(tally)
+    else:
+        meta, arrays = _plain_payload(tally)
+    if n_shards is None:
+        n_shards = int(getattr(tally, "n_parts", 1))
+    n_shards = max(1, int(n_shards))
+    os.makedirs(dirname, exist_ok=True)
+    manifest_path = os.path.join(dirname, MANIFEST_NAME)
+    if os.path.exists(manifest_path):
+        os.unlink(manifest_path)
+        fsync_dir(dirname)
+    chunks = {name: np.array_split(np.asarray(a), n_shards)
+              for name, a in arrays.items()}
+
+    def write(i: int) -> str:
+        shard_meta = {"format_version": FORMAT_VERSION, "shard": int(i),
+                      "n_shards": int(n_shards)}
+        return _write_checkpoint(
+            os.path.join(dirname, shard_name(i)), shard_meta,
+            {name: np.ascontiguousarray(chunks[name][i]) for name in arrays})
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=min(n_shards, 8)) as ex:
+        paths = list(ex.map(write, range(n_shards)))
+    manifest = {
+        "format_version": FORMAT_VERSION,
+        "meta": meta,
+        "n_shards": int(n_shards),
+        "shards": {os.path.basename(p): _file_digest(p) for p in paths},
+    }
+    atomic_write_bytes(manifest_path, json.dumps(manifest, indent=1).encode())
+    return n_shards
 
 
 def _validate_meta(meta: dict, tally, expected_kind: str | None) -> None:
@@ -546,14 +616,11 @@ def _apply_quarantined(tally, arrays: dict) -> None:
 def save_checkpoint(filename: str, tally, n_shards: int | None = None
                     ) -> None:
     """Serialize a PumiTally's resumable state (atomic write, per-array
-    digests; module docstring). A ``.shards`` name is refused: the
-    sharded writer is ROADMAP.md A9b."""
+    digests; module docstring). A ``.shards`` name writes the sharded
+    two-phase layout instead (``n_shards`` splits, default one)."""
     if is_sharded(filename):
-        raise NotImplementedError(
-            "sharded checkpoint generations are written by the partitioned "
-            "facade, not ported yet (ROADMAP.md A9b); use a single-file "
-            "name (.npz)"
-        )
+        save_sharded_checkpoint(filename, tally, n_shards=n_shards)
+        return
     meta, arrays = _plain_payload(tally)
     _write_checkpoint(_normalize(filename), meta, arrays)
 
@@ -573,13 +640,143 @@ def restore_checkpoint(filename: str, tally) -> None:
 
 
 # --------------------------------------------------------------------- #
+# The partitioned facade's payload
+# --------------------------------------------------------------------- #
+# The megastep's slot state in the payload (``src_<name>``) and the torch
+# dtypes it is restored in (None: the walk dtype).
+_SRC = (("pos", None), ("elem", torch.int32), ("material_id", torch.int32),
+        ("weight", None), ("group", torch.int32), ("pid", torch.int32),
+        ("valid", torch.bool), ("alive", torch.bool))
+
+
+def _partitioned_payload(tally, host: bool = True) -> tuple[dict, dict]:
+    """``(meta, arrays)`` of a PartitionedTally, the JAX package's
+    layout. ``host``: numpy arrays in the file's layout, the megastep's
+    slot state folded back into the particle state first (the flux
+    assembled in global element order); else the in-memory snapshot,
+    whose slabs and slot state are device clones (the host mirrors are
+    copies either way)."""
+    if host and tally._src is not None:
+        tally._sync_source_state()
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "kind": "partitioned",
+        "num_particles": tally.num_particles,
+        "n_groups": tally.config.n_groups,
+        "iter_count": tally.iter_count,
+        "total_segments": tally.total_segments,
+        "total_rounds": tally.total_rounds,
+        "initialized": tally._initialized,
+        "dtype": str(np_dtype(tally.config.dtype)),
+        "sd_mode": tally.config.sd_mode,
+    }
+    if host:
+        meta["mesh_fingerprint"] = _fingerprint(tally)
+    q = tally._quarantined
+    arrays = {
+        "flux": (tally.raw_flux if host
+                 else tally.flux_slabs.detach().clone()),
+        "positions": tally.positions.copy(),
+        "elem_global": tally.elem_global.copy(),
+        "material_id": tally.material_id.copy(),
+        "quarantined": q.copy() if q is not None else np.empty(0, np.int64),
+        "weights": tally.weights.copy(),
+        "groups": tally.groups.copy(),
+        "alive": tally.alive.copy(),
+    }
+    if tally._src is not None:
+        meta["src_layout"] = [int(tally.n_parts), int(tally.cap)]
+        for name, _ in _SRC:
+            t = tally._src[name].detach()
+            arrays[f"src_{name}"] = (t.to("cpu", copy=True).numpy() if host
+                                     else t.clone())
+    return meta, arrays
+
+
+def _apply_partitioned(tally, meta: dict, arrays: dict) -> None:
+    """Load a partitioned payload into the tally: the flux into its own
+    slab layout (a file's assembled flux, or a snapshot's slabs), the
+    particle state, and the slot state when the payload's layout is the
+    tally's (else the next ``run_source_moves`` re-distributes). Then the
+    derived state: the batch-sd snapshot and the convergence batches."""
+    from ..parallel.mesh_partition import disassemble_global_flux
+
+    dtype, dev = tally.config.dtype, tally.device
+    flux = arrays["flux"]
+    if isinstance(flux, torch.Tensor):
+        tally.flux_slabs = _fresh(flux, dtype, dev)
+    else:
+        slabs = disassemble_global_flux(
+            tally.partition, np.asarray(flux).astype(np_dtype(dtype)))
+        tally.flux_slabs = _fresh(slabs.reshape(slabs.shape[0], -1), dtype,
+                                  dev)
+    tally.positions = np.asarray(arrays["positions"], np.float64).copy()
+    tally.elem_global = np.asarray(arrays["elem_global"], np.int64).copy()
+    tally.material_id = np.asarray(arrays["material_id"], np.int32).copy()
+    if "weights" in arrays:
+        tally.weights = np.asarray(arrays["weights"], np.float64).copy()
+        tally.groups = np.asarray(arrays["groups"], np.int32).copy()
+        tally.alive = np.asarray(arrays["alive"]).astype(bool).copy()
+    layout = meta.get("src_layout")
+    if layout is not None and list(layout) == [int(tally.n_parts),
+                                               int(tally.cap)]:
+        tally._src = {name: _fresh(arrays[f"src_{name}"], dt or dtype, dev)
+                      for name, dt in _SRC}
+    else:
+        tally._src = None
+    tally.iter_count = int(meta["iter_count"])
+    tally.total_segments = int(meta["total_segments"])
+    tally.total_rounds = int(meta["total_rounds"])
+    tally._initialized = bool(meta["initialized"])
+    _apply_quarantined(tally, arrays)
+    if tally._prev_even is not None:
+        # At a move boundary the even-entry snapshot equals the even
+        # entries.
+        tally._prev_even = tally.flux_slabs[:, 0::2].reshape(-1).clone()
+    tally._reset_convergence()
+
+
+def save_partitioned_checkpoint(filename: str, tally,
+                                n_shards: int | None = None) -> None:
+    """Serialize a PartitionedTally's resumable state: the flux assembled
+    (layout independent: it resumes under another part count or halo
+    depth), the particle state, the megastep's slot state and the
+    counters, atomically with per-array digests. A ``.shards`` name
+    writes the sharded two-phase layout (one npz a mesh part by
+    default)."""
+    if is_sharded(filename):
+        save_sharded_checkpoint(filename, tally, n_shards=n_shards)
+        return
+    meta, arrays = _partitioned_payload(tally)
+    _write_checkpoint(_normalize(filename), meta, arrays)
+
+
+def restore_partitioned_checkpoint(filename: str, tally) -> None:
+    """Restore state saved by ``save_partitioned_checkpoint`` (of either
+    package) into a PartitionedTally on the same mesh, in any layout;
+    validation and the integrity check run before any state is
+    overwritten."""
+    if is_sharded(filename):
+        _restore_sharded(filename, tally, expected_kind="partitioned")
+        return
+    meta, arrays = _read_npz(filename)
+    _validate_meta(meta, tally, expected_kind="partitioned")
+    _verify_integrity(arrays, meta, filename)
+    _apply_partitioned(tally, meta, arrays)
+
+
+# --------------------------------------------------------------------- #
 # In-memory snapshots (the ResilientRunner's retry anchor)
 # --------------------------------------------------------------------- #
 def snapshot_state(tally) -> tuple:
-    """The resumable state as clones on the tally's device: the payload of
-    a checkpoint without serialization or a host copy. The runner takes
-    one after every good move so that a transient failure rolls back
-    without losing the moves since the last file."""
+    """The resumable state as clones on the tally's device (host copies of
+    the partitioned facade's mirrors): the payload of a checkpoint without
+    serialization. The runner takes one after every good move so that a
+    transient failure rolls back without losing the moves since the last
+    file."""
+    if hasattr(tally, "flux_slabs"):
+        meta, arrays = _partitioned_payload(tally, host=False)
+        return ("partitioned", meta, arrays)
     meta, arrays = _plain_payload(tally, host=False)
     return ("plain", meta, arrays)
 
@@ -589,9 +786,7 @@ def restore_state(tally, snap: tuple) -> None:
     (no validation: same process, same object), as fresh clones, so the
     snapshot stays good for a second rollback."""
     kind, meta, arrays = snap
-    if kind != "plain":
-        raise NotImplementedError(
-            f"{kind!r} snapshots belong to the partitioned facade "
-            "(ROADMAP.md A9b)"
-        )
-    _apply_plain(tally, meta, arrays)
+    if kind == "partitioned":
+        _apply_partitioned(tally, meta, arrays)
+    else:
+        _apply_plain(tally, meta, arrays)

@@ -1389,3 +1389,120 @@ def test_partitioned_tally_on_card_matches_pumitally(cuda):
     np.testing.assert_array_equal(mp, ms)
     np.testing.assert_allclose(fpart, fs, rtol=1e-10, atol=1e-12)
     assert sp == ss
+
+
+# --------------------------------------------------------------------- #
+# The partitioned megastep: the flight on stacked rows
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_stacked_row_flight_kernel_matches_plain(cuda, dtype):
+    """The flight kernel on the partitioned megastep's stacked slots (4
+    blocks of cap slots, each lane's region at its part-local row of the
+    stacked class table): uniforms and draws bitwise the plain version's,
+    destinations within one ulp, empty (pid −1) and dead lanes at their
+    origin."""
+    from pumiumtally_tpu_torch.ops import source, source_cuda
+
+    P, cap, max_local = 4, 5000, 700
+    n = P * cap
+    rng = np.random.default_rng(8)
+    pid = torch.from_numpy(np.where(rng.uniform(size=n) < 0.7,
+                                    rng.permutation(n), -1).astype(
+                                        np.int32)).to(cuda)
+    elem = torch.from_numpy(rng.integers(-2, max_local + 3, n).astype(
+        np.int32)).to(cuda)
+    alive = (pid >= 0) & torch.from_numpy(rng.uniform(size=n) < 0.9).to(cuda)
+    origin = torch.from_numpy(rng.uniform(size=(n, 3))).to(cuda, dtype)
+    cls = torch.from_numpy(rng.integers(0, 3, P * max_local).astype(
+        np.int32)).to(cuda)
+    sig = torch.tensor([3.0, 7.0, 11.0], dtype=dtype, device=cuda)
+    key = source.fold_in(source.prng_key(13), 4)
+    u = torch.empty(n, 5, dtype=dtype, device=cuda)
+    before = source_cuda.LAUNCHES
+    dest, cu, ru = source_cuda.sample_flight(
+        key, pid, n, elem, alive, origin, cls, sig, u_out=u, cap=cap,
+        max_local=max_local)
+    torch.cuda.synchronize()
+    assert source_cuda.LAUNCHES == before + 1
+    want_u = source.lane_uniforms(key, pid, n, dtype)
+    assert torch.equal(u.view(torch.uint8), want_u.view(torch.uint8))
+    pd, pc, pr = source.sample_flight_plain(key, pid, n, elem, alive, origin,
+                                            cls, sig, cap=cap,
+                                            max_local=max_local)
+    assert torch.equal(cu, pc) and torch.equal(ru, pr)
+    assert torch.equal(dest[~alive], origin[~alive])
+    ulp = torch.finfo(dtype).eps * pd.abs().clamp_min(1.0)
+    assert ((dest - pd).abs() <= ulp).all()
+    # The single-device form is the same kernel with cap = n and
+    # max_local = ntet: the defaults give what the stacked form gives for
+    # one block.
+    one = source_cuda.sample_flight(key, pid[:cap], cap, elem[:cap],
+                                    alive[:cap], origin[:cap],
+                                    cls[:max_local], sig)
+    blk = source_cuda.sample_flight(key, pid[:cap], cap, elem[:cap],
+                                    alive[:cap], origin[:cap], cls, sig,
+                                    cap=cap, max_local=max_local)
+    torch.cuda.synchronize()
+    for a, b in zip(one, blk):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_partitioned_megastep_kernels_match_plain(cuda, dtype):
+    """A small partitioned run_source_moves on the card: the megastep with
+    the kernels against the same megastep with the plain flight and the
+    plain walk, slot state and slab flux bitwise; megastep=3 gives the
+    bits of megastep=1, and the flight kernel launches once a move."""
+    from pumiumtally_tpu_torch import PartitionedTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import source, source_cuda, walk_cuda
+    from pumiumtally_tpu_torch.ops.walk_partitioned import (
+        make_partitioned_megastep,
+    )
+
+    mesh = _jittered(8, dtype, cuda)
+    n = 4096
+    src = source.SourceParams(sigma_t={0: 4.0, 1: 9.0},
+                              absorption={0: 0.3, 1: 0.5},
+                              survival_weight=0.2, seed=3)
+    pos = np.random.default_rng(2).uniform(0.1, 0.9, (n, 3))
+    runs = []
+    for k in (1, 3):
+        t = PartitionedTally(mesh, n, TallyConfig(dtype=dtype, n_groups=2,
+                                                  megastep=k),
+                             n_parts=4, halo_layers=1, device=cuda)
+        t.initialize_particle_location(pos.copy())
+        f0, p0 = source_cuda.LAUNCHES, walk_cuda.PART_LAUNCHES
+        out = t.run_source_moves(3, src, weights=np.ones(n))
+        torch.cuda.synchronize()
+        assert source_cuda.LAUNCHES - f0 == 3
+        assert walk_cuda.PART_LAUNCHES - p0 >= 3
+        runs.append((t, out))
+    (a, oa), (b, ob) = runs
+    assert oa["segments"] == ob["segments"] and oa["alive"] == ob["alive"]
+    assert torch.equal(a.flux_slabs, b.flux_slabs)
+    for key_ in a._src:
+        assert torch.equal(a._src[key_], b._src[key_]), key_
+    # Kernels against plain on one chunk from the same state.
+    sig, ab = src.tables(mesh.class_id.cpu().numpy())
+    l2g = np.clip(a.partition.local2global, 0, mesh.ntet - 1)
+    cls_local = np.clip(mesh.class_id.cpu().numpy()[l2g], 0, sig.size - 1)
+    kw = dict(n_moves=2, n_total=n, n_groups=2, class_local=cls_local,
+              sigma_t=sig, absorb_t=ab,
+              eps_near=source.near_epsilon(mesh.coords),
+              survival_weight=src.survival_weight,
+              downscatter=src.downscatter, dtype=dtype,
+              max_crossings=mesh.ntet + 64)
+    s = a._src
+    outs = []
+    for plain in (False, True):
+        mega = make_partitioned_megastep(a.device_mesh, a.partition,
+                                         plain=plain, **kw)
+        flux = a.flux_slabs.clone()
+        outs.append(mega(s["pos"], s["elem"], s["material_id"], s["weight"],
+                         s["group"], s["pid"], s["valid"], s["alive"], flux,
+                         3, source.prng_key(src.seed)))
+    torch.cuda.synchronize()
+    k_, p_ = outs
+    for f in ("position", "elem", "material_id", "weight", "group",
+              "particle_id", "valid", "alive", "flux", "readback"):
+        assert torch.equal(getattr(k_, f), getattr(p_, f)), f

@@ -2,8 +2,10 @@
 port's PumiTally, on the CPU.
 
 Mirrors tests/test_partitioned_api.py's matches-PumiTally, VTK and
-batch-sd cases (its checkpoint and recorded-points cases are ROADMAP.md
-A9b), and adds each refusal naming A9b. The JAX facade runs three times,
+batch-sd cases (its checkpoint case is in
+tests/test_torch_partitioned_checkpoint.py, its recorded-points case is
+ROADMAP.md A9c), and adds each refusal naming A9c. The JAX facade runs
+three times,
 as module fixtures (float64, 8 parts, halo 1, packed; float32, 4 parts,
 halo 0, legacy; float64, 2 parts, halo 2, overlap), so every part
 count, halo depth, dtype and ``io_pipeline`` mode meets the JAX facade;
@@ -212,38 +214,53 @@ def test_partitioned_batch_sd_matches_pumitally(meshes):
     ("sort_by_element", True),
 ])
 def test_unported_features_refused_naming_a9b(meshes, field, value):
+    """The run features the JAX facade carries are accepted; the three
+    debug surfaces that need the walk's feature × partitioned
+    instantiations are refused naming A9c."""
     _, pm = meshes[torch.float64]
     cfg = TallyConfig(**_cfg(torch.float64, **{field: value}))
-    with pytest.raises(NotImplementedError, match="A9b"):
-        PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
+    if field in ("record_xpoints", "checkify_invariants", "sort_by_element"):
+        with pytest.raises(NotImplementedError, match="A9c"):
+            PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
+    else:
+        t = PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
+        _drive(t, moves=1)
+        assert np.isfinite(t.raw_flux).all()
 
 
 def test_unported_calls_refused_naming_a9b(meshes, tmp_path):
+    """Checkpoints and the device-sourced loop run; the recorded points
+    still raise as without record_xpoints (ROADMAP.md A9c)."""
     _, pm = meshes[torch.float64]
     t = PartitionedTally(pm, N, TallyConfig(**_cfg(torch.float64)),
                          n_parts=2, device="cpu")
-    for call in (lambda: t.save_checkpoint(str(tmp_path / "c.npz")),
-                 lambda: t.restore_checkpoint(str(tmp_path / "c.npz")),
-                 lambda: t.run_source_moves(4)):
-        with pytest.raises(NotImplementedError, match="A9b"):
-            call()
+    _drive(t, moves=1)
+    t.save_checkpoint(str(tmp_path / "c.npz"))
+    t.restore_checkpoint(str(tmp_path / "c.npz"))
+    assert t.run_source_moves(2)["moves"] == 2
+    with pytest.raises(ValueError, match="record_xpoints"):
+        t.intersection_points()
 
 
 def test_truncation_retries_refused_when_a_lane_truncates(meshes):
     """Lanes that run past max_crossings: with re-walks asked for the
-    port refuses (A9b); without, it warns as the JAX facade does."""
+    port re-walks them (the truncated count and the re-walks reach the
+    telemetry); without, it warns as the JAX facade does."""
     _, pm = meshes[torch.float64]
     src = np.random.default_rng(3).uniform(0.05, 0.95, (N, 3))
-    for retries, ctx in ((2, pytest.raises(NotImplementedError,
-                                           match="A9b")),
-                         (0, pytest.warns(RuntimeWarning,
-                                          match="truncated"))):
-        t = PartitionedTally(
-            pm, N, TallyConfig(**_cfg(torch.float64, max_crossings=2,
-                                      truncation_retries=retries)),
-            n_parts=2, device="cpu")
-        with ctx:
-            t.initialize_particle_location(src.ravel().copy())
+    t = PartitionedTally(
+        pm, N, TallyConfig(**_cfg(torch.float64, max_crossings=2,
+                                  truncation_retries=2)),
+        n_parts=2, device="cpu")
+    with pytest.warns(RuntimeWarning, match="truncated"):
+        t.initialize_particle_location(src.ravel().copy())
+    assert t.telemetry()["totals"]["rewalked"] > 0
+    t = PartitionedTally(
+        pm, N, TallyConfig(**_cfg(torch.float64, max_crossings=2,
+                                  truncation_retries=0)),
+        n_parts=2, device="cpu")
+    with pytest.warns(RuntimeWarning, match="truncated"):
+        t.initialize_particle_location(src.ravel().copy())
 
 
 @pytest.mark.parametrize("kw,exc", [

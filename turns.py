@@ -4,6 +4,7 @@
     python3 turns.py --tree DIR [--reps N]
     python3 turns.py --tree DIR --gather
     python3 turns.py --tree DIR --sass
+    python3 turns.py --tree DIR --flight [--reps N]
 
 Imports the package and the ``chip_smoke.py`` of the checkout at ``DIR``
 and builds its kernels. Without ``--gather`` it drives the checkout's main
@@ -39,6 +40,16 @@ checkout's walk kernel instantiations (by template arguments, as
 (``cuobjdump -sass`` of the built library, addresses and encodings left
 out), so two checkouts' machine code can be compared instantiation by
 instantiation.
+
+With ``--flight`` it times the checkout's flight kernel
+(``source_cuda.sample_flight``) in its single-device form on the megastep
+cell's shape: the 55³-cell box in float32, 1,048,576 lanes, all alive,
+each at the centroid of an element drawn from numpy seed 5, Σt 12.5, the
+move key of seed 1 and move 9. The last line is a JSON object of its CUDA
+events (median of 5 after a warm-up; ``--reps N`` adds the quartiles of
+N single calls) and the sha256 of its outputs' bytes (destinations,
+collision and roulette draws), so two checkouts' outputs compare bit for
+bit.
 """
 from __future__ import annotations
 
@@ -59,6 +70,8 @@ def main() -> int:
                     help="time the checkout's row gather instead")
     ap.add_argument("--sass", action="store_true",
                     help="digest the walk kernels' SASS instead")
+    ap.add_argument("--flight", action="store_true",
+                    help="time the checkout's flight kernel instead")
     args = ap.parse_args()
     reps = args.reps
     tree = os.path.abspath(args.tree)
@@ -81,6 +94,10 @@ def main() -> int:
         return 0
     if args.gather:
         print(json.dumps(dict(tree=tree, gather_ms=gather_ms(smoke.log))),
+              flush=True)
+        return 0
+    if args.flight:
+        print(json.dumps(dict(tree=tree, **flight_ms(smoke, reps))),
               flush=True)
         return 0
     lines = []
@@ -226,6 +243,42 @@ def gather_ms(log) -> dict:
         out[f"{mb} MB"] = timed(f"{mb} MB", tbl, uniform(rows, WALK_RECORDS))
         del tbl
         torch.cuda.empty_cache()
+    return out
+
+
+def flight_ms(smoke, reps: int) -> dict:
+    """The checkout's flight kernel, single-device form, on the megastep
+    cell's shape (see the module's docstring): ms and output digests."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pumiumtally_tpu_torch.mesh.box import build_box
+    from pumiumtally_tpu_torch.ops import source, source_cuda
+
+    mesh = build_box(1.0, 1.0, 1.0, 55, 55, 55, device="cuda")
+    n = 1048576
+    elem = torch.from_numpy(np.random.default_rng(5).integers(
+        0, mesh.ntet, n).astype(np.int32)).cuda()
+    origin = mesh.centroids()[elem.long()].contiguous()
+    pid = torch.arange(n, dtype=torch.int32, device="cuda")
+    alive = torch.ones(n, dtype=torch.bool, device="cuda")
+    sig = torch.tensor([12.5], device="cuda")
+    key = source.fold_in(source.prng_key(1), 9)
+    args = (key, pid, n, elem, alive, origin, mesh.class_id, sig)
+    outs = source_cuda.sample_flight(*args)
+    digest = hashlib.sha256()
+    for t in outs:
+        digest.update(t.cpu().numpy().tobytes())
+    out = dict(flight_ms=smoke.event_ms(lambda: source_cuda.sample_flight(
+        *args)), flight_sha256=digest.hexdigest())
+    if reps:
+        t = [smoke.event_ms(lambda: source_cuda.sample_flight(*args), 1)
+             for _ in range(reps)]
+        out["flight_quartiles_ms"] = [
+            float(q) for q in np.percentile(t, [25, 50, 75])]
+    smoke.log(f"[turns] flight: {out}")
     return out
 
 
