@@ -216,6 +216,23 @@ Phases, each of which raises (exit code != 0) on any failed check:
    restored into 4 parts bitwise and into 2 parts (the restored flux
    bitwise, the next chunk's segments and flux sum within 2e-2).
 
+18. the partitioned tally across processes and its recovery (``[ranks]``
+   lines): (a) the walk launches and stop tests of phase 16 (c)'s counted
+   run and phase 17 (c)'s counted chunk equal PR 14's (the crossing
+   budget's later rounds add none at the default bound), then move 1 of
+   the partitioned cell as one step at ``max_crossings=16``, kernel
+   against plain bitwise, with the later-round launches and the lanes
+   given a fresh budget; (b) that step (default bound) over the
+   ``MeshEntry`` mesh of a one-rank NCCL group against the stacked step,
+   in turns (stacked, nccl, nccl, stacked), every output bitwise, each
+   round's exchange in CUDA events and the peak device memory; (e)
+   ``write_parallel_vtk`` on that rank (the piece holds the mesh's cells,
+   the index names it); (c) ``chip_down_at_move:2,chip:2`` under
+   ``ResilientRunner`` on the 4-part cell: rebuilt on 3 parts, 3 moves
+   finished, the recovery seconds, segments and flux sum within 1e-4 of
+   a fault-free 3-part run; (d) two ``DepletionLoop`` steps in megastep
+   mode on a two-region 20^3 box (65,536 particles): the densities fall.
+
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
 """
@@ -3933,6 +3950,299 @@ def phase_partitioned_megastep(mesh, tmpdir: str) -> dict:
     return pmega_full(mesh, tmpdir)
 
 
+# --------------------------------------------------------------------- #
+# Phase 18: the partitioned tally across processes and its recovery
+# --------------------------------------------------------------------- #
+# PR 14's launch counts at the partitioned cells (phase 16 (c)'s counted
+# run, phase 17 (c)'s counted chunk): walk phases and stop tests.
+PR14_PART_LAUNCHES, PR14_PART_WAITS = 37, 37
+PR14_PMEGA_LAUNCHES, PR14_PMEGA_WAITS = 58, 58
+C3_MAX_CROSSINGS = 16
+DEPLETION_CELLS, DEPLETION_PARTICLES, DEPLETION_STEPS = 20, 65536, 2
+
+
+def ranks_cell(mesh) -> dict:
+    """The partitioned cell's move 1 as a step's inputs: a fresh 4-part
+    facade locates the cell's sources (seed 1), then its host state and
+    move 1's destinations are distributed into the slot layout; the step
+    keywords are the facade's."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    inputs = part_inputs()
+    t = part_tally(mesh)
+    t.initialize_particle_location(inputs["pos"].reshape(-1))
+    want, groups = inputs["moves"][0]
+    n = MAIN_PARTICLES
+    placed = wp.distribute_particles(
+        t.partition, t.device_mesh, t.elem_global, dict(
+            origin=t.positions.astype(np.float32),
+            dest=want.astype(np.float32), weight=np.ones(n, np.float32),
+            group=groups, material_id=t.material_id))
+    kw = dict(t._step_kwargs, initial=False)
+    return dict(tally=t, placed=placed, kw=kw, partition=t.partition)
+
+
+def ranks_step(cell, device_mesh, spans=False, **over) -> tuple:
+    """One partitioned step over ``device_mesh`` on the cell's inputs:
+    (the result, the exchange spans in ms, the step's peak device bytes
+    above what was allocated before it)."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    part, p = cell["partition"], cell["placed"]
+    step = wp.make_partitioned_step(device_mesh, part,
+                                    **dict(cell["kw"], **over))
+    flux = torch.zeros(part.n_parts,
+                       part.max_local * MAIN_GROUPS * 2,
+                       dtype=torch.float32, device=DEVICE)
+    if spans:
+        wp.SPANS = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res = step(p["origin"], p["dest"], p["elem"],
+               torch.zeros_like(p["valid"]), p["material_id"], p["weight"],
+               p["group"], p["particle_id"], p["valid"], flux)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ex = []
+    if spans:
+        ex = [a.elapsed_time(b) for nm, _, a, b in wp.SPANS
+              if nm == "exchange"]
+        wp.SPANS = None
+    return res, ex, peak
+
+
+def ranks_budget(part_counts, pmega_counts, cell) -> dict:
+    """(a) C3 at the cell: the default bound's launches against PR 14's,
+    then max_crossings=16, kernel against plain."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    got = dict(part=part_counts, pmega=pmega_counts)
+    want = dict(part=(PR14_PART_LAUNCHES, PR14_PART_WAITS),
+                pmega=(PR14_PMEGA_LAUNCHES, PR14_PMEGA_WAITS))
+    log(f"[ranks] (a) default bound: phase 16 (c) walk launches and stop "
+        f"tests {got['part']}, phase 17 (c) {got['pmega']}; PR 14 "
+        f"{want['part']}, {want['pmega']}")
+    if got != want:
+        raise AssertionError("the default bound's launches differ from "
+                             "PR 14's")
+    runs, fresh = [], []
+    for plain in (False, True):
+        r0, l0 = wp.BUDGET_RELAUNCHES, wp.BUDGET_LANES
+        t0 = time.perf_counter()
+        res, _, _ = ranks_step(cell, cell["tally"].device_mesh, plain=plain,
+                               max_crossings=C3_MAX_CROSSINGS)
+        secs = time.perf_counter() - t0
+        runs.append(res)
+        fresh.append((wp.BUDGET_RELAUNCHES - r0, wp.BUDGET_LANES - l0))
+        trunc = int((res.valid & ~res.done).sum())
+        log(f"[ranks] (a) max_crossings={C3_MAX_CROSSINGS} "
+            f"{'plain' if plain else 'kernel'}: {secs:.3f} s, rounds "
+            f"{int(res.n_rounds[0])}, later-round launches {fresh[-1][0]}, "
+            f"lanes given a fresh budget {fresh[-1][1]}, lanes starved "
+            f"{wp.BUDGET_STARVED}, truncated after the step {trunc}")
+    (k, p), kernel = runs, fresh[0]
+    bad = [f for f in STEP_FIELDS
+           if not torch.equal(getattr(k, f), getattr(p, f))]
+    log(f"[ranks] (a) kernel against plain at max_crossings="
+        f"{C3_MAX_CROSSINGS}: fields differing {bad}")
+    if bad or fresh[0] != fresh[1] or not kernel[1]:
+        raise AssertionError("C3's later rounds: kernel and plain disagree "
+                             "or no lane got a fresh budget")
+    return dict(default=got, relaunches=kernel[0], lanes=kernel[1])
+
+
+def ranks_nccl(cell, tmpdir: str) -> dict:
+    """(b) the step in a one-rank NCCL group against the stacked step,
+    bitwise, each step's exchange timed a round (CUDA events); (e)
+    write_parallel_vtk on that rank."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pumiumtally_tpu_torch.parallel import multihost
+    from pumiumtally_tpu_torch.parallel.mesh_partition import (
+        assemble_global_flux,
+    )
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    up = multihost.init_distributed(f"tcp://localhost:{port}", 1, 0,
+                                    device=DEVICE, group_of_one=True,
+                                    timeout_s=120)
+    log(f"[ranks] (b) process group: {up}, backend {dist.get_backend()}, "
+        f"world {dist.get_world_size()}, in {time.perf_counter() - t0:.3f} s")
+    try:
+        dm = multihost.global_device_mesh(PART_PARTS)
+        stacked = cell["tally"].device_mesh
+        out, ref, bad = {}, None, set()
+        for label, mesh_ in (("stacked", stacked), ("nccl", dm),
+                             ("nccl", dm), ("stacked", stacked)):
+            res, ex, peak = ranks_step(cell, mesh_, spans=True)
+            out.setdefault(label, []).append((ex, peak))
+            log(f"[ranks] (b) {label}: rounds {int(res.n_rounds[0])}, "
+                f"exchange ms a round {[round(x, 4) for x in ex]}, total "
+                f"{sum(ex):.4f} ms; the step's peak device memory {peak} "
+                "bytes above its inputs")
+            if ref is None:
+                ref = res
+            else:  # each result held to the first, then let go
+                bad |= {f for f in STEP_FIELDS
+                        if not torch.equal(getattr(res, f), getattr(ref, f))}
+            del res
+        bad = sorted(bad)
+        log(f"[ranks] (b) one-rank NCCL step against the stacked step: "
+            f"fields differing {bad}")
+        if bad:
+            raise AssertionError("the one-rank NCCL step differs from the "
+                                 "stacked step")
+        part = cell["partition"]
+        flux = assemble_global_flux(part, ref.flux.view(
+            part.n_parts, part.max_local, MAIN_GROUPS, 2))
+        t0 = time.perf_counter()
+        piece = multihost.write_parallel_vtk(
+            os.path.join(tmpdir, "ranks"), cell["tally"].mesh, flux)
+        secs = time.perf_counter() - t0
+        with open(os.path.join(tmpdir, "ranks.pvtu")) as f:
+            index = f.read()
+        with open(piece) as f:
+            head = f.read(4096)
+        m = re.search(r'NumberOfCells="(\d+)"', head)
+        log(f"[ranks] (e) write_parallel_vtk on one rank: {piece} "
+            f"{os.path.getsize(piece)} bytes in {secs:.3f} s; index names "
+            f"it: {os.path.basename(piece) in index}")
+        if m is None or int(m.group(1)) != part.ntet or \
+                os.path.basename(piece) not in index:
+            raise AssertionError("the parallel VTK piece or index is wrong")
+        return dict(
+            exchange_ms={k: [sum(ex) for ex, _ in v] for k, v in out.items()},
+            peak={k: [pk for _, pk in v] for k, v in out.items()})
+    finally:
+        dist.destroy_process_group()
+        multihost._initialized = False
+
+
+def ranks_elastic(mesh, tmpdir: str) -> dict:
+    """(c) a chip lost at move 2 of the 4-part cell under the runner:
+    rebuilt on 3 parts, the run finished, against a fault-free 3-part
+    run (segments and flux sum)."""
+    from pumiumtally_tpu_torch import PartitionedTally, TallyConfig
+    from pumiumtally_tpu_torch.resilience.faultinject import (
+        FaultInjector,
+        parse_faults,
+    )
+    from pumiumtally_tpu_torch.resilience.runner import ResilientRunner
+    from pumiumtally_tpu_torch.resilience.store import CheckpointStore
+
+    inputs = part_inputs()
+    n = MAIN_PARTICLES
+
+    def drive(t, moves):
+        t.initialize_particle_location(inputs["pos"].reshape(-1))
+        for want, groups in inputs["moves"][:moves]:
+            t.move_to_next_location(want.reshape(-1).copy(),
+                                    np.ones(n, np.int8), np.ones(n), groups,
+                                    np.zeros(n, np.int32))
+
+    t0 = time.perf_counter()
+    run = ResilientRunner(
+        part_tally(mesh), CheckpointStore(os.path.join(tmpdir, "cks"),
+                                          shards=None),
+        every_moves=1000, handle_signals=False, sleep=lambda s: None,
+        faults=FaultInjector(parse_faults("chip_down_at_move:2,chip:2")))
+    drive(run, 3)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    st = run.recovery_stats
+    got = run.tally
+    ref = PartitionedTally(mesh, n, TallyConfig(n_groups=MAIN_GROUPS),
+                           n_parts=PART_PARTS - 1, halo_layers=PART_HALO,
+                           device=DEVICE)
+    drive(ref, 3)
+    a = got.raw_flux.astype(np.float64)
+    b = ref.raw_flux.astype(np.float64)
+    seg_rel = abs(got.total_segments - ref.total_segments) / max(
+        ref.total_segments, 1)
+    sum_rel = abs(float(a[..., 0].sum() - b[..., 0].sum())) / float(
+        b[..., 0].sum())
+    health = run.coordinator.probe_chips()
+    log(f"[ranks] (c) chip 2 lost at move 2 of 3: rebuilt on "
+        f"{got.n_parts} parts; recovery {st['recovery_seconds']:.3f} s "
+        f"(rollbacks {st['rollbacks']}, reshards {st['reshards']}, lost "
+        f"moves {st['lost_moves']}); run {secs:.3f} s; against a fault-free "
+        f"3-part run: segments {got.total_segments} / {ref.total_segments} "
+        f"(rel {seg_rel:.3e}), flux sum rel {sum_rel:.3e}, survivors "
+        f"healthy {all(health.values())}")
+    if got.n_parts != PART_PARTS - 1 or st["reshards"] != 1 or \
+            got.iter_count != 3 or not np.isfinite(a).all() or \
+            seg_rel > 1e-4 or sum_rel > 1e-4 or not all(health.values()):
+        raise AssertionError("the chip-loss recovery did not finish the "
+                             "run on the survivors")
+    run.close()
+    return dict(recovery_s=st["recovery_seconds"], run_s=secs,
+                seg_rel=seg_rel, sum_rel=sum_rel)
+
+
+def ranks_depletion() -> dict:
+    """(d) two depletion steps in megastep mode on a two-region 20^3 box
+    (65,536 particles a step)."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.models.depletion import (
+        DepletionLoop,
+        RegionNuclide,
+    )
+
+    mesh = jittered_box(DEPLETION_CELLS, 0.0, 0, torch.float32)
+    t = PumiTally(mesh, DEPLETION_PARTICLES,
+                  TallyConfig(n_groups=2, tolerance=1e-6, megastep=MEGA_K),
+                  device=DEVICE)
+    inv = {0: RegionNuclide(1.0, 3.0, 1.5), 1: RegionNuclide(2.0, 5.0, 2.0)}
+    loop = DepletionLoop(t, inv, dt=0.05 * 64 / DEPLETION_PARTICLES, seed=7,
+                         mode="megastep")
+    secs = []
+    for _ in range(DEPLETION_STEPS):
+        t0 = time.perf_counter()
+        h = loop.step()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        log(f"[ranks] (d) depletion step {h.step}: {secs[-1]:.3f} s, "
+            f"densities {h.densities}, absorption rates "
+            f"{h.absorption_rate}, total flux {h.total_flux:.6e}")
+    hist = loop.history
+    # The JAX test's step, dt 0.05 at 64 particles, scaled per particle
+    # (the raw rates grow with the particles a step): no density reaches
+    # the floor.
+    falls = all(b.densities[r] < a.densities[r]
+                for a, b in zip(hist, hist[1:]) for r in inv) and all(
+        d > 1e-6 for r in inv for d in (hist[-1].densities[r],))
+    if not falls or not all(h.total_flux > 0 and np.isfinite(h.total_flux)
+                            for h in hist):
+        raise AssertionError("the depletion steps did not burn the "
+                             "densities down")
+    return dict(step_s=secs)
+
+
+def phase_ranks(mesh, part_counts, pmega_counts, tmpdir: str) -> dict:
+    t0 = time.perf_counter()
+    cell = ranks_cell(mesh)
+    budget = ranks_budget(part_counts, pmega_counts, cell)
+    log(f"[phase] (a) crossing budget: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    nccl = ranks_nccl(cell, tmpdir)
+    log(f"[phase] (b, e) one-rank NCCL step and parallel VTK: "
+        f"{time.perf_counter() - t0:.2f} s")
+    del cell
+    t0 = time.perf_counter()
+    elastic = ranks_elastic(mesh, tmpdir)
+    log(f"[phase] (c) chip loss: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    depl = ranks_depletion()
+    log(f"[phase] (d) depletion: {time.perf_counter() - t0:.2f} s")
+    return dict(budget=budget, nccl=nccl, elastic=elastic, depletion=depl)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -4055,6 +4365,15 @@ def main() -> int:
         pmega = phase_partitioned_megastep(tally.mesh, tmpdir)
     log(f"[phase] partitioned source loop: {time.perf_counter() - t0:.2f} s")
     pcount = pmega["counted"]["counts"]
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        ranks = phase_ranks(
+            tally.mesh, (pfull["launches"]["walk_partitioned"],
+                         pfull["waits"]),
+            (pcount["walk_partitioned"], pmega["counted"]["waits"]), tmpdir)
+    log(f"[phase] partitioned tally across ranks: "
+        f"{time.perf_counter() - t0:.2f} s")
 
     walk = {
         "route": "cuda",
@@ -4192,7 +4511,15 @@ def main() -> int:
          "megastep_move_ms": pmega["move_ms"],
          "megastep_restage_ms": pmega["stage_ms"],
          "megastep_busy_share": pmega["busy"]["share"],
-         "megastep_peak_device_bytes": pmega["counted"]["peak"]},
+         "megastep_peak_device_bytes": pmega["counted"]["peak"],
+         "budget_mc16_relaunches": ranks["budget"]["relaunches"],
+         "budget_mc16_fresh_lanes": ranks["budget"]["lanes"],
+         "nccl_exchange_ms": ranks["nccl"]["exchange_ms"]["nccl"],
+         "stacked_exchange_ms": ranks["nccl"]["exchange_ms"]["stacked"],
+         "nccl_peak_device_bytes": ranks["nccl"]["peak"]["nccl"],
+         "stacked_peak_device_bytes": ranks["nccl"]["peak"]["stacked"],
+         "chip_loss_recovery_s": ranks["elastic"]["recovery_s"],
+         "depletion_step_s": ranks["depletion"]["step_s"]},
     ]
     for kern in kernels:
         if not kern["launches"]:

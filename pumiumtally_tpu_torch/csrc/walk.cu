@@ -298,6 +298,8 @@ struct Parts {
   const long long* slot;  // [n] the lane's slot: its tally order key
   long long stride;       // the slots of all parts: order = it*stride + slot
   int max_local;          // rows a part
+  int reset;              // the iteration the chase hash's count restarts
+                          // at (0: never): a compacted round's fresh count
   int* prev;              // [n] in/out: entry-face code (-1 none)
   int* stuck;             // [n] in/out: zero-progress crossings
   int* target;            // [n] out: the part the lane froze for, or -1
@@ -756,8 +758,13 @@ walk_kernel(const T* __restrict__ geo,
         if (chase) {
           // Unsigned arithmetic: the hash relies on 32-bit wraparound.
           // The hash takes the part-local row, as the JAX walks do.
+          // PARTITIONED: the count restarts at part.reset, as a compacted
+          // round of the JAX phase restarts its loop counter.
+          const int hit = PART && part.reset > 0 && it >= part.reset
+                              ? it - part.reset
+                              : it;
           const uint32_t h =
-              (uint32_t)(elem - base) * 2654435769u + (uint32_t)it * 40503u;
+              (uint32_t)(elem - base) * 2654435769u + (uint32_t)hit * 40503u;
           // Another part's face counts as interior.
           const bool any_interior =
               names_elem<PART>(nbrs[0]) || names_elem<PART>(nbrs[1]) ||
@@ -1120,7 +1127,7 @@ int resident(int robust, int initial, int ordered, int layout, int* threads) {
 // walks geo (geo20 rows); layout 1 the unpacked tables normals, d, nbr,
 // cls, nbr_cls (16 B aligned, see Tables); layout 2 the stacked parts'
 // tables, with the lane state of Parts: slot [n] int64, stride, max_local,
-// prev, stuck [n] int32 in/out, target, target_elem [n] int32 out, and
+// reset, prev, stuck [n] int32 in/out, target, target_elem [n] int32 out, and
 // mat_out and pseg_out read before they are written.
 // pumi_walk_resident_<t> gives the threads a launch of that instantiation
 // keeps resident on the current device.
@@ -1150,14 +1157,15 @@ int resident(int robust, int initial, int ordered, int layout, int* threads) {
       long long capacity, void* xp, void* kx, int k, int record, int checks,   \
       int ntet, double tol10, int layout, const void* normals, const void* d,  \
       const void* nbr, const void* cls, const void* nbr_cls, const void* slot, \
-      long long stride, int max_local, void* prev, void* stuck, void* target,  \
-      void* target_elem, void* stream) {                                       \
+      long long stride, int max_local, int reset, void* prev, void* stuck,     \
+      void* target, void* target_elem, void* stream) {                         \
     const Features<T> feat{(T*)xp, (int*)kx, k, record, checks, ntet,          \
                            (T)tol10};                                          \
     const Tables<T> tab{(const T*)normals, (const T*)d, (const int*)nbr,       \
                         (const int*)cls, (const int*)nbr_cls};                 \
-    const Parts part{(const long long*)slot, stride, max_local, (int*)prev,    \
-                     (int*)stuck, (int*)target, (int*)target_elem};            \
+    const Parts part{(const long long*)slot, stride, max_local, reset,         \
+                     (int*)prev, (int*)stuck, (int*)target,                    \
+                     (int*)target_elem};                                       \
     return walk<T>(robust, initial, ordered, geo, lanes, n, n_groups,          \
                    max_crossings, tolerance, score_squares, flux, pos_out,     \
                    elem_out, mat_out, done_out, pseg_out, ncross_out,          \

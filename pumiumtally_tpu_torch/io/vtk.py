@@ -1,13 +1,15 @@
 """VTK output for tet meshes with cell data.
 
 Counterpart of ``pumiumtally_tpu/io/vtk.py``, copied (pure numpy): XML
-UnstructuredGrid (.vtu) and legacy ASCII .vtk.
+UnstructuredGrid (.vtu), its parallel index (.pvtu) and legacy ASCII
+.vtk.
 The bytes written equal the JAX package's for the same arrays. Mesh
 tensors are brought to the host as numpy before writing.
 """
 from __future__ import annotations
 
 import base64
+import os
 import struct
 
 import numpy as np
@@ -76,6 +78,34 @@ def write_vtu(
         parts.append(_data_array(name, np.asarray(arr)))
     parts.append("</CellData>\n</Piece>\n</UnstructuredGrid>\n</VTKFile>\n")
 
+    with open(filename, "w") as f:
+        f.write("".join(parts))
+
+
+def write_pvtu(
+    filename: str,
+    piece_files: list[str],
+    cell_data_names: list[str],
+    float_type: str = "Float64",
+) -> None:
+    """Write the parallel index referencing per-process .vtu pieces by
+    their base names."""
+    parts = [
+        '<?xml version="1.0"?>\n'
+        '<VTKFile type="PUnstructuredGrid" version="1.0" '
+        'byte_order="LittleEndian">\n'
+        '<PUnstructuredGrid GhostLevel="0">\n'
+        "<PPoints>\n"
+        f'<PDataArray type="{float_type}" Name="Points" '
+        'NumberOfComponents="3"/>\n'
+        "</PPoints>\n<PCellData>\n"
+    ]
+    for name in cell_data_names:
+        parts.append(f'<PDataArray type="{float_type}" Name="{name}"/>\n')
+    parts.append("</PCellData>\n")
+    for piece in piece_files:
+        parts.append(f'<Piece Source="{os.path.basename(piece)}"/>\n')
+    parts.append("</PUnstructuredGrid>\n</VTKFile>\n")
     with open(filename, "w") as f:
         f.write("".join(parts))
 

@@ -1,2 +1,2 @@
 """Models built on the walk: the streaming batch pipeline, the benchmark
-problems and the synthetic transport loop."""
+problems, the synthetic transport loop and the depletion loop."""

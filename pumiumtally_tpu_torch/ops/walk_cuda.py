@@ -112,7 +112,7 @@ _WALK_ARGTYPES = (
     + [ctypes.c_int] * 4             # k, record, checks, ntet
     + [ctypes.c_double, ctypes.c_int]  # 10 * tolerance, layout
     + [ctypes.c_void_p] * 6          # normals, d, nbr, cls, nbr_cls, slot
-    + [ctypes.c_longlong, ctypes.c_int]  # stride, max_local
+    + [ctypes.c_longlong] + [ctypes.c_int] * 2  # stride, max_local, reset
     + [ctypes.c_void_p] * 5          # prev, stuck, target, target_elem,
                                      # stream
 )
@@ -318,7 +318,8 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
               prev, stuck, slot, flux, *, stride: int, max_local: int,
               initial: bool, max_crossings: int, n_groups: int,
               score_squares: bool = True, tolerance: float = 1e-8,
-              robust: bool = True, capacity: int | None = None):
+              robust: bool = True, capacity: int | None = None,
+              reset: int = 0, fold: bool = True):
     """One partitioned walk phase on the card (``csrc/walk.cu``'s
     partitioned layout), for ``ops/walk_partitioned.py``: the m lanes
     walk from ``origin`` toward ``dest`` over the stacked parts' tables
@@ -326,21 +327,26 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
     the rows of all parts one after the other, ``max_local`` a part),
     each from its row ``rows`` (part · max_local + local row), until it
     is done, freezes at a crossing into another part, or has run
-    ``max_crossings`` iterations. ``material_id``, ``pseg``, ``prev`` and
-    ``stuck`` are each lane's carried state (read, not written). A move
+    ``max_crossings`` iterations. From iteration ``reset`` on (0: never)
+    the chase hash counts iterations from ``reset``, as a compacted round
+    of the JAX phase restarts its loop counter. ``material_id``,
+    ``pseg``, ``prev`` and ``stuck`` are each lane's carried state
+    (read, not written). A move
     scores into ``flux`` (the stacked flat slab, bins ``row · G + g``)
     through the ordered scatter, records keyed ``it · stride +
     slot[k]``. The lanes are scheduled by row (``lane_records``).
     Returns ``(out, records)``: the per-lane outputs of ``_launch``
     (``elem`` part-local, ``target``/``target_elem`` the frozen lanes'
-    destination, -1 for the others) and the records made. CPU tensors
-    take the plain version (``walk_partitioned.walk_rows_plain``; its
-    records count is None)."""
+    destination, -1 for the others) and the records made; with
+    ``fold=False`` the records ``(bin, order, c)`` themselves, not folded
+    (the caller folds a phase's launches in one ordered scatter). CPU
+    tensors take the plain version (``walk_partitioned.walk_rows_plain``;
+    its records count is None)."""
     dev = origin.device
     kw = dict(stride=stride, max_local=max_local, initial=initial,
               max_crossings=max_crossings, n_groups=n_groups,
               score_squares=score_squares, tolerance=tolerance,
-              robust=robust)
+              robust=robust, reset=reset, fold=fold)
     if dev.type == "cpu":
         from .walk_partitioned import walk_rows_plain
 
@@ -354,7 +360,7 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
     if m and (stride * max_crossings >= 2**63 or nrows * n_groups >= 2**31):
         raise ValueError("the stacked parts' keys or bins overflow")
     part = dict(tables=tables, slot=slot, stride=stride,
-                max_local=max_local, prev=prev, stuck=stuck,
+                max_local=max_local, reset=reset, prev=prev, stuck=stuck,
                 mat=material_id, pseg=pseg)
     fly = torch.ones(m, dtype=torch.bool, device=dev)
     args = (None, origin, dest, rows, fly, weight, group, material_id, flux)
@@ -364,8 +370,11 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
               part=part)
     if initial:
         lanes = lane_records(*args[:7], initial=True, nkeys=nrows)
-        return _launch(*args, **kw, ordered=False, lanes=lanes), 0
+        return _launch(*args, **kw, ordered=False, lanes=lanes), (
+            0 if fold else None)
     out, rec = _walk_ordered(*args, **kw, capacity=capacity, nkeys=nrows)
+    if not fold:
+        return out, (rec.bin, rec.order, rec.c)
     scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
                          nrows * n_groups)
     return out, rec.bin.numel()
@@ -698,7 +707,8 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             mesh.ntet if mesh is not None else 0, 10.0 * float(tolerance),
             layout, *(ptr(t) for t in tables), ptr(slot),
             part["stride"] if part else 0, part["max_local"] if part else 0,
-            ptr(prev), ptr(stuck), ptr(target), ptr(target_elem), stream,
+            part["reset"] if part else 0, ptr(prev), ptr(stuck),
+            ptr(target), ptr(target_elem), stream,
         )
     if err != 0:
         raise RuntimeError(

@@ -1,10 +1,12 @@
-"""The partitioned walk: per-part mesh blocks and particle migration, with
-the parts stacked on one device.
+"""The partitioned walk: per-part mesh blocks and particle migration,
+the parts stacked on one device or spread over the ranks of a process
+group.
 
 Counterpart of ``pumiumtally_tpu/ops/walk_partitioned.py``: the step of
 ``make_partitioned_step`` and the K fused device-sourced moves of
-``make_partitioned_megastep`` (``partitioned_megastep`` here). A step
-alternates
+``make_partitioned_megastep`` (``partitioned_megastep`` here). A process
+walks a block of parts stacked on its device (``rank_layout``: every part
+when the device mesh names no ranks). A step alternates
 
   1. a *walk phase*: every active slot (valid, not done, not pending)
      walks as in ``ops/walk.py``, over its part's rows of the stacked
@@ -17,36 +19,54 @@ alternates
      mask holds across a cut. Guests score into their host part's halo
      rows. On the card the phase is the walk kernel's partitioned layout
      (``csrc/walk.cu``, ``walk_cuda.walk_rows``): one launch walks every
-     part's active lanes, keyed by row; its records fold into the stacked
-     flat slab ``[P·max_local·G·2]`` (bin ``(p·max_local + row)·G + g``)
-     through the ordered scatter, keyed ``it·(P·cap) + slot`` with ``it``
-     the lane's iteration in the phase. On the CPU (or with ``plain``)
-     it is ``walk_rows_plain``, the kernel's plain version, bitwise equal.
+     local part's active lanes, keyed by row; its records fold into the
+     stacked flat slab ``[P·max_local·G·2]`` (bin ``(p·max_local +
+     row)·G + g``) through the ordered scatter, keyed ``it·(n_parts·cap)
+     + slot`` with ``it`` the lane's iteration in the phase and ``slot``
+     the global slot number. On the CPU (or with ``plain``) it is
+     ``walk_rows_plain``, the kernel's plain version, bitwise equal.
+     The phase follows the JAX phase's crossing budgets: the JAX step
+     walks its later phases, and with ``compact_after`` its first phase
+     past it, in compacted rounds, each taking a part's first S active
+     slots with a fresh ``max_crossings`` budget and a fresh loop count
+     (which the stuck-lane chase hash reads), at most ceil(cap/S) + 1
+     rounds. A lane's first round is one launch over every lane (the
+     kernel restarts the hash's count at ``compact_after``); the lanes
+     that run out of budget there are found with the round's stop test
+     and walk again, one launch a later round that takes one
+     (``BUDGET_RELAUNCHES``; ``BUDGET_LANES`` counts the lanes), as the
+     JAX schedule gives them rounds. A
+     schedule of several stages walks each stage as a launch over the
+     lanes it takes, the phase's records folded in one scatter keyed by
+     the lanes' iterations in the phase. (A lane that the JAX rounds would
+     never take because lanes that ran out fill every round is walked
+     on here; ``BUDGET_STARVED`` counts such lanes.)
   2. an *exchange*: pending lanes are bucketed by destination with a
      per-destination cumsum rank into ``E`` rows a destination, overflow
      staying resident for the next round; the send blocks
-     ``[P, P, E, fields]`` are transposed over their first two axes (the
-     JAX package's ``all_to_all`` over devices, here on one device); each
-     part adopts its i-th immigrant into its i-th free slot and counts
-     what it cannot adopt in ``n_dropped``.
+     ``[P_local, P, E, row]`` (float and int columns in one byte row) go
+     to their parts in one all_to_all (``Collectives``:
+     ``dist.all_to_all_single`` over ranks, its input itself when the
+     parts are stacked); each part adopts its i-th immigrant into its
+     i-th free slot and counts what it cannot adopt in ``n_dropped``.
 
-The rounds end when no part has pending lanes, one host read a round
-(``ROUND_WAITS`` counts them; each walk phase also reads its active count
-and, scoring, its record count and bucket information). With a halo the
-guests' scores fold onto their owners' rows after the last round, one
-``index_add_`` a sending part in part order (a one-to-one row map each,
-so the fold is deterministic and adds in the JAX fold's order), and the
-halo rows are zeroed. The flux is the same bits from run to run and
-between the kernel and the plain version. With ``integrity`` each part's
+The rounds end when no part of any rank has pending lanes: one
+all_reduce and one host read a round (``ROUND_WAITS`` counts them; each
+walk phase also reads its active count and, scoring, its record count
+and bucket information). With a halo the guests' scores go to their
+owners' parts in one all_to_all after the last round and fold onto the
+owners' rows, one ``index_add_`` a sending part in part order (a
+one-to-one row map each, so the fold is deterministic and adds in the JAX
+fold's order), and the halo rows are zeroed. The flux is the same bits
+from run to run, between the kernel and the plain version, and between
+the stacked step and the step over ranks. With ``integrity`` each part's
 ``PART_INTEGRITY_FIELDS`` counters, and with ``convergence`` each part's
 batch fold and summary (``obs/convergence.py``), follow the halo fold.
 
-The JAX step's compaction, unroll and scatter knobs only schedule its
-arithmetic; they are accepted and ignored. A phase's lanes each count
-their own iterations, as the JAX follow-up rounds' compacted lanes do.
-``SPANS``, when a list, collects ``(name, round, start, end)`` CUDA events
-around each walk phase, exchange and halo fold of the steps run on the
-card.
+The JAX step's unroll and scatter knobs only schedule its arithmetic;
+they are accepted and ignored. ``SPANS``, when a list, collects ``(name,
+round, start, end)`` CUDA events around each walk phase, exchange and
+halo fold of the steps run on the card.
 """
 from __future__ import annotations
 
@@ -63,8 +83,11 @@ from .scatter import scatter_ordered_plain
 from .walk import _norm3, chase_face_choice, escalated_bump
 
 ROUND_WAITS = 0
+BUDGET_RELAUNCHES = 0
+BUDGET_LANES = 0
+BUDGET_STARVED = 0
 SPANS: list | None = None
-A9C = "ROADMAP.md A9c"
+A9D = "ROADMAP.md A9d"
 # The exchange payload's columns: floats cur(3) dest(3) weight track; ints
 # pid group material target_elem occupied done back_code.
 _F_COLS, _I_COLS = 8, 7
@@ -114,16 +137,53 @@ class PartitionedTraceResult:
     convergence: torch.Tensor | None = None
 
 
-def stacked_tables(partition) -> tuple:
-    """The partition's walk tables with the parts' rows one after the
-    other, in ``csrc/walk.cu``'s ``Tables`` order: face planes, face
-    offsets, neighbor codes, classes, neighbor classes (views)."""
-    rows = partition.n_parts * partition.max_local
-    return (partition.face_normals.view(rows, 4, 3),
-            partition.face_d.view(rows, 4),
-            partition.tet2tet_enc.view(rows, 4),
-            partition.class_id.view(rows),
-            partition.nbr_class.view(rows, 4))
+def stacked_tables(partition, parts: tuple | None = None) -> tuple:
+    """The walk tables of the parts the partition holds (or of the block
+    ``parts=(lo, hi)`` of them, global part numbers), the parts' rows one
+    after the other, in ``csrc/walk.cu``'s ``Tables`` order: face planes,
+    face offsets, neighbor codes, classes, neighbor classes (views)."""
+    f = partition.first_part
+    lo, hi = ((0, partition.n_held) if parts is None
+              else (parts[0] - f, parts[1] - f))
+    if not 0 <= lo < hi <= partition.n_held:
+        raise ValueError(
+            f"the partition holds parts {f} to {f + partition.n_held}, "
+            f"not {parts}")
+    rows = (hi - lo) * partition.max_local
+    return (partition.face_normals[lo:hi].view(rows, 4, 3),
+            partition.face_d[lo:hi].view(rows, 4),
+            partition.tet2tet_enc[lo:hi].view(rows, 4),
+            partition.class_id[lo:hi].view(rows),
+            partition.nbr_class[lo:hi].view(rows, 4))
+
+
+def normalize_compact_stages(compact_stages, compact_after, compact_size,
+                             n: int, size_floor: int):
+    """The JAX walks' compaction schedule (``ops/walk.py``'s rule, own
+    copy): the single-stage knobs folded into a one-entry schedule
+    ``((start, size),)``, entries ``(start, size[, unroll])`` with
+    strictly increasing starts; None when compaction is off."""
+    if compact_stages is None and compact_after is not None:
+        compact_stages = ((compact_after, compact_size
+                           if compact_size is not None else size_floor),)
+    if compact_stages is None:
+        return None
+    if len(compact_stages) == 0:
+        raise ValueError("compact_stages must be None or a non-empty schedule")
+    for st in compact_stages:
+        if len(st) not in (2, 3):
+            raise ValueError(
+                "compact_stages entries must be (start, size) or "
+                f"(start, size, unroll): {st!r}")
+    starts = [st[0] for st in compact_stages]
+    if starts != sorted(set(starts)):
+        raise ValueError(
+            f"compact_stages starts must be strictly increasing: {starts}")
+    for st in compact_stages:
+        if st[1] < 1 or (len(st) == 3 and st[2] < 1):
+            raise ValueError(
+                f"compact_stages size/unroll must be >= 1: {st!r}")
+    return compact_stages
 
 
 def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
@@ -131,11 +191,13 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
                     max_local: int, initial: bool, max_crossings: int,
                     n_groups: int, score_squares: bool = True,
                     tolerance: float = 1e-8, robust: bool = True,
-                    capacity=None):
+                    capacity=None, reset: int = 0, fold: bool = True):
     """The plain version of ``walk_cuda.walk_rows`` (same arguments, same
     outputs; ``capacity`` is ignored): the crossing body of the JAX
     ``_walk_phase`` over the m lanes, written operation for operation
-    like the kernel's partitioned layout. Returns ``(out, None)``."""
+    like the kernel's partitioned layout. Returns ``(out, None)``, or
+    with ``fold=False`` ``(out, (bin, order, c))``: the records, not
+    folded."""
     del capacity
     normals_t, d_t, nbr_t, cls_t, nbrcls_t = tables
     dtype, dev = origin.dtype, origin.device
@@ -169,8 +231,9 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
             sd = -plane_num
             contained = sd.amax(dim=-1) <= 0.0
             chase = active & (stuck >= 4) & ~contained
-            chase_face = chase_face_choice(sd, row - base, it, dtype,
-                                           nbrs_all != -1)
+            chase_face = chase_face_choice(
+                sd, row - base, it - reset if 0 < reset <= it else it,
+                dtype, nbrs_all != -1)
             face = torch.where(chase, chase_face, face)
             t_exit = torch.where(chase, 0.0, t_exit)
             has_exit = has_exit | chase
@@ -231,14 +294,14 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
                               cur)
         done = done | newly_done
         it += 1
-    if held:
-        scatter_ordered_plain(flux, *(torch.cat(c) for c in zip(*held)),
-                              score_squares)
+    records = tuple(torch.cat(c) for c in zip(*held)) if held else None
+    if fold and records is not None:
+        scatter_ordered_plain(flux, *records, score_squares)
     out = dict(pos=cur, elem=(row - base).to(torch.int32), mat=mat,
                done=done, pseg=pseg, ncross=ncross, nchase=nchase, nseg=nseg,
                iters=iters, target=target, target_elem=target_elem,
                prev=prev, stuck=stuck.to(torch.int32))
-    return out, None
+    return out, (None if fold else records)
 
 
 @contextlib.contextmanager
@@ -297,39 +360,50 @@ def make_partitioned_step(
     face_rate: float | None = None,
 ):
     """The partitioned step for one partition, with the arguments of
-    the JAX ``make_partitioned_step``: ``device_mesh``
-    (``parallel/particle_sharding.py::make_device_mesh``) must list
-    ``partition.n_parts`` devices, all the partition's device (the parts
-    are stacked there).
+    the JAX ``make_partitioned_step``. ``device_mesh`` lists
+    ``partition.n_parts`` entries: torch devices, all one device (the
+    parts stacked there, ``particle_sharding.make_device_mesh``), or
+    entries carrying a rank and a device (``particle_sharding.MeshEntry``,
+    ``parallel/multihost.py::global_device_mesh``), each rank's in one
+    block, in rank order: this process walks its block of parts
+    (``rank_layout``), stacked on its device, and the exchange, the stop
+    test and the halo fold are collectives over the default process
+    group. ``partition`` holds every part's tables or just this rank's
+    (``partition_mesh(parts=...)``).
     ``exchange_size`` is the emigrant rows a destination takes a round
     (default ``max(cap // (2·n_parts), 64)``, at most cap);
     ``max_rounds`` bounds the walk/exchange rounds (default ``4·n_parts +
-    8``; lanes still pending then end not done). ``plain`` walks with the
-    plain version on whatever device (the kernel's yardstick on the
-    card).
+    8``; lanes still pending then end not done). ``compact_after``,
+    ``compact_size``, ``compact_stages`` and ``followup_compact_size``
+    set each walk phase's crossing budgets and loop counters as the JAX
+    step's compacted rounds do (module docstring); ``unroll`` and
+    ``tally_scatter`` schedule the JAX arithmetic only. ``plain`` walks
+    with the plain version on whatever device (the kernel's yardstick on
+    the card).
 
     Returns ``step(cur, dest, elem, done, material_id, weight, group,
     pid, valid, flux, conv=None, capacity=None) -> PartitionedTraceResult``
-    (per-slot tensors ``[n_parts·cap]``, ``elem`` part-local rows), or
+    (per-slot tensors ``[n_local·cap]`` of this process's parts, ``elem``
+    part-local rows; ``flux`` their slabs), or
     with ``packed_io`` ``step(record, flux, conv=None, capacity=None)``
     over the record of ``staging.pack_partitioned_record``, whose result
     carries the ``readback``. ``conv`` is ``(ConvState of [n_parts, L]
     accumulators, enable)`` with ``convergence`` (the JAX step's five
     trailing inputs: the accumulators, and the gate the facade closes for
     its initial search and re-walks), updated in place. ``capacity``
-    sizes the first walk phase's record buffers on the card. With ``face_rate`` (``walk_cuda.face_rate`` of
-    the partitioned mesh) a move sizes each later phase's buffers from
+    sizes the first walk phase's record buffers on the card. With
+    ``face_rate`` (``walk_cuda.face_rate`` of the partitioned mesh) a move
+    sizes each later phase's buffers from
     the pending lanes' remaining paths (``walk_cuda.path_records``' rule),
     read with the round's stop test; without it a later phase has 4
     records a lane and walks again when it makes more. The flux is
     updated in place.
 
-    ``record_xpoints`` raises NotImplementedError (ROADMAP.md A9c)."""
-    del unroll, compact_after, compact_size, compact_stages
-    del followup_compact_size
+    ``record_xpoints`` raises NotImplementedError (ROADMAP.md A9d)."""
+    del unroll
     if record_xpoints is not None:
         raise NotImplementedError(
-            f"the partitioned step's record_xpoints is not ported yet ({A9C})")
+            f"the partitioned step's record_xpoints is not ported yet ({A9D})")
     if tally_scatter not in ("auto", "interleaved", "pair"):
         raise ValueError(
             f"tally_scatter must be 'auto', 'interleaved' or 'pair': "
@@ -340,11 +414,12 @@ def make_partitioned_step(
         raise ValueError(
             f"device mesh has {len(devs)} devices, partition has {n_parts} "
             "parts")
-    dev = partition.device
-    if any(resolve_device(d) != dev for d in devs):
-        raise ValueError(
-            f"the parts are stacked on {dev}; every device of the mesh must "
-            "be that device (parts on several devices: ROADMAP.md A9c)")
+    lay = rank_layout(devs)
+    lo, hi, dev = lay.lo, lay.hi, lay.device
+    P_l = hi - lo
+    if partition.device != dev:
+        raise ValueError(f"the partition's tables are on {partition.device}, "
+                         f"this process's parts on {dev}")
     if 2 * max_local * n_groups >= 2**31:
         raise NotImplementedError(
             "flat tally keys overflow int32: max_local*n_groups*2 = "
@@ -354,11 +429,14 @@ def make_partitioned_step(
             "the stacked parts' bins overflow int32: n_parts*max_local*"
             f"n_groups = {n_parts * max_local * n_groups} >= 2^31")
     rounds_bound = max_rounds if max_rounds is not None else 4 * n_parts + 8
-    tables = stacked_tables(partition)
-    halo = _halo_fold_rows(partition) if partition.halo_layers else None
+    comm = Collectives(lay)
+    tables = stacked_tables(partition, (lo, hi))
+    halo = (_halo_fold_rows(partition, lo, hi, n_groups)
+            if partition.halo_layers else None)
     if partition.halo_layers:
-        canon = -2 - (partition.row_owner.long() * max_local
-                      + partition.row_owner_local.long()).view(-1)
+        f = lo - partition.first_part
+        canon = -2 - (partition.row_owner[f:f + P_l].long() * max_local
+                      + partition.row_owner_local[f:f + P_l].long()).view(-1)
     else:
         canon = None
     if plain:
@@ -368,10 +446,10 @@ def make_partitioned_step(
     sizing = face_rate is not None and not initial
     if sizing:
         from .walk_cuda import record_capacity
-    walk_kw = dict(max_local=max_local, initial=initial,
-                   max_crossings=max_crossings, n_groups=n_groups,
+    nbins = P_l * max_local * n_groups
+    walk_kw = dict(max_local=max_local, initial=initial, n_groups=n_groups,
                    score_squares=score_squares, tolerance=tolerance,
-                   robust=robust)
+                   robust=robust, fold=False)
 
     def run(cur, dest, elem, done, material_id, weight, group, pid, valid,
             flux, conv=None, capacity=None):
@@ -384,13 +462,18 @@ def make_partitioned_step(
             raise ValueError(f"the slots are on {cur.device}, the parts on "
                              f"{dev}")
         total = cur.shape[0]
-        if total % n_parts:
+        if total % P_l:
             raise ValueError(
-                f"{total} slots do not split into {n_parts} parts")
-        cap = total // n_parts
+                f"{total} slots do not split into {P_l} parts")
+        cap = total // P_l
         E = min(exchange_size if exchange_size is not None
                 else max(cap // (2 * n_parts), 64), cap)
-        flat = _flat_slabs(flux, n_parts, max_local, n_groups)
+        first = normalize_compact_stages(compact_stages, compact_after,
+                                         compact_size, cap, max(cap // 8, 64))
+        follow = ((0, min(followup_compact_size
+                          if followup_compact_size is not None
+                          else max(cap // 16, 64), cap)),)
+        flat = _flat_slabs(flux, P_l, max_local, n_groups)
         i32 = dict(dtype=torch.int32, device=dev)
         cur, dest, weight = cur.clone(), dest.clone(), weight.clone()
         elem, done = elem.clone().to(torch.int32), done.clone()
@@ -403,25 +486,32 @@ def make_partitioned_step(
         pseg = torch.zeros(total, dtype=cur.dtype, device=dev)
         ncross = torch.zeros(total, **i32)
         nchase = torch.zeros(total, **i32)
-        nseg = torch.zeros(n_parts, dtype=torch.int64, device=dev)
-        dropped = torch.zeros(n_parts, dtype=torch.int64, device=dev)
+        nseg = torch.zeros(P_l, dtype=torch.int64, device=dev)
+        dropped = torch.zeros(P_l, dtype=torch.int64, device=dev)
         part_of = torch.arange(total, device=dev) // cap
+        # Order keys in global slot numbers: it·(n_parts·cap) + slot.
+        stride = n_parts * cap
+        gslot0 = lo * cap
 
-        def walk_phase(rnd, cap_records=None):
-            """Walk every active slot; returns each part's iterations."""
-            slots = torch.nonzero(valid & ~done & (target < 0))[:, 0]
-            slots = slots.contiguous()
-            iters = torch.zeros(n_parts, dtype=torch.int64, device=dev)
-            if slots.numel() == 0:
-                return iters
+        def active():
+            return valid & ~done & (target < 0)
+
+        def walk(slots, bound, reset, it0=None, records=None,
+                 cap_records=None):
+            """Walk ``slots`` (sorted) for at most ``bound`` iterations;
+            their tally records join ``records`` keyed as if the phase's
+            iterations ``it0`` before had been this launch's. Returns the
+            lanes' outputs and their parts."""
             p = part_of[slots]
+            keys = slots + gslot0
+            if it0 is not None:
+                keys = keys + it0.to(torch.int64) * stride
             rows = (p * max_local + elem[slots]).to(torch.int32)
-            with _span(dev, "walk", rnd):
-                out, _ = walk_fn(
-                    tables, cur[slots], dest[slots], rows, weight[slots],
-                    group[slots], material_id[slots], pseg[slots],
-                    prev[slots], stuck[slots], slots, flat,
-                    stride=total, capacity=cap_records, **walk_kw)
+            out, rec = walk_fn(
+                tables, cur[slots], dest[slots], rows, weight[slots],
+                group[slots], material_id[slots], pseg[slots], prev[slots],
+                stuck[slots], keys, flat, stride=stride, capacity=cap_records,
+                max_crossings=bound, reset=reset, **walk_kw)
             cur[slots] = out["pos"]
             elem[slots] = out["elem"]
             material_id[slots] = out["mat"]
@@ -434,73 +524,202 @@ def make_partitioned_step(
             ncross[slots] += out["ncross"]
             nchase[slots] += out["nchase"]
             nseg.index_add_(0, p, out["nseg"].to(torch.int64))
-            return iters.scatter_reduce_(0, p, out["iters"].to(torch.int64),
-                                         "amax")
+            if records is not None and rec is not None:
+                records.append(rec)
+            return out, p
+
+        def fold(records):
+            if records:
+                _fold_records(flat, records, score_squares, nbins, plain)
+
+        def walk_phase(rnd, stages, cap_records=None):
+            """One walk phase in the JAX phase's schedule. Returns each
+            part's iterations (the longest lane's) and, when the schedule
+            has compacted rounds, what ``rounds`` needs: their lanes."""
+            slots = torch.nonzero(active())[:, 0].contiguous()
+            iters = torch.zeros(P_l, dtype=torch.int64, device=dev)
+            if slots.numel() == 0:
+                return iters, None
+            records = []
+            b0 = (max_crossings if stages is None
+                  else min(stages[0][0], max_crossings))
+            with _span(dev, "walk", rnd):
+                if b0 >= max_crossings:  # one loop, one budget
+                    out, p = walk(slots, max_crossings, 0, records=records,
+                                  cap_records=cap_records)
+                    lane_it = out["iters"].to(torch.int64)
+                    final = None
+                elif len(stages) == 1:
+                    # Iterations b0.. are each lane's first compacted round
+                    # (a fresh count, a fresh budget): one launch.
+                    out, p = walk(slots, b0 + max_crossings, b0,
+                                  records=records, cap_records=cap_records)
+                    lane_it = out["iters"].to(torch.int64)
+                    final = (slots, lane_it > b0,
+                             _ran_out(out, b0 + max_crossings))
+                else:
+                    lane_it = torch.zeros(total, dtype=torch.int64,
+                                          device=dev)
+                    if b0 > 0:
+                        out, _ = walk(slots, b0, 0, records=records,
+                                      cap_records=cap_records)
+                        lane_it[slots] = out["iters"].to(torch.int64)
+                    for i, (start, size, *_r) in enumerate(stages[:-1]):
+                        span = min(stages[i + 1][0], max_crossings) - start
+                        sub = _first_active(active(), P_l, cap,
+                                            min(cap, max(int(size), 1)))
+                        if span > 0 and sub.numel():
+                            out, _ = walk(sub, span, 0, lane_it[sub],
+                                          records)
+                            lane_it[sub] += out["iters"].to(torch.int64)
+                    last = torch.nonzero(active())[:, 0].contiguous()
+                    final = None
+                    if last.numel():
+                        out, _ = walk(last, max_crossings, 0, lane_it[last],
+                                      records)
+                        lane_it[last] += out["iters"].to(torch.int64)
+                        final = (last, torch.ones_like(last, dtype=torch.bool),
+                                 _ran_out(out, max_crossings))
+                    lane_it, p = lane_it[slots], part_of[slots]
+                fold(records)
+            iters.scatter_reduce_(0, p, lane_it, "amax")
+            if final is None:
+                return iters, None
+            lanes, entered, ran_out = final
+            return iters, dict(slots=lanes, entered=entered,
+                               ran_out=entered & ran_out,
+                               S=min(cap, max(int(stages[-1][1]), 1)),
+                               iters=iters)
+
+        def rounds(ph):
+            """The JAX phase's later compacted rounds, for lanes that ran
+            out of budget in their first: up to ceil(cap/S) + 1 rounds a
+            part, each taking its first S active lanes in slot order; a
+            lane walks again (a fresh budget and count) in each round that
+            takes it after its first. One launch a round that takes such
+            a lane; its records fold after the phase's."""
+            global BUDGET_RELAUNCHES, BUDGET_LANES, BUDGET_STARVED
+            S = ph["S"]
+            sl = ph["slots"][ph["entered"]].cpu().numpy()
+            ran_out = ph["ran_out"][ph["entered"]].cpu().numpy()
+            part = sl // cap
+            queues = [sl[part == q] for q in range(P_l)]
+            again = [set(sl[(part == q) & ran_out].tolist())
+                     for q in range(P_l)]
+            seen = [set() for _ in range(P_l)]
+            for _ in range(-(-cap // S) + 1):
+                if not any(qu.size for qu in queues):
+                    break
+                taken = [qu[:S] for qu in queues]
+                need = [s for q in range(P_l) for s in taken[q].tolist()
+                        if s in seen[q]]
+                for q in range(P_l):
+                    seen[q].update(taken[q].tolist())
+                if need:
+                    BUDGET_RELAUNCHES += 1
+                    BUDGET_LANES += len(need)
+                    sub = torch.as_tensor(need, dtype=torch.int64,
+                                          device=dev)
+                    recs = []
+                    out, p = walk(sub, max_crossings, 0, records=recs)
+                    fold(recs)
+                    ph["iters"].scatter_reduce_(
+                        0, p, out["iters"].to(torch.int64), "amax")
+                    still = _ran_out(out, max_crossings).tolist()
+                    for s, st in zip(need, still):
+                        if not st:
+                            again[s // cap].discard(s)
+                for q in range(P_l):
+                    keep = np.asarray([s in again[q]
+                                       for s in taken[q].tolist()], bool)
+                    queues[q] = np.concatenate(
+                        [taken[q][keep], queues[q][len(taken[q]):]])
+            BUDGET_STARVED += sum(
+                sum(s not in se for s in qu.tolist())
+                for qu, se in zip(queues, seen))
 
         def exchange(rnd):
             with _span(dev, "exchange", rnd):
-                return _exchange(n_parts, cap, E, max_local, canon, state,
-                                 dropped)
+                return _exchange(comm, n_parts, lo, P_l, cap, E, max_local,
+                                 canon, state, dropped)
 
         state = dict(cur=cur, dest=dest, weight=weight, pseg=pseg, pid=pid,
                      group=group, material_id=material_id, elem=elem,
                      done=done, valid=valid, target=target,
                      target_elem=target_elem, prev=prev, stuck=stuck)
-        w0 = walk_phase(0, capacity)
-        round_stats = torch.zeros(n_parts, 6, rounds_bound,
+        w0, ph = walk_phase(0, first, capacity)
+        round_stats = torch.zeros(P_l, 6, rounds_bound,
                                   dtype=torch.int64, device=dev)
+
+        def settle(ph, col):
+            """Run the phase's later rounds; the phase's iterations in
+            ``round_stats`` (the first phase's are ``w0`` itself)."""
+            rounds(ph)
+            if col is not None:
+                round_stats[:, 5, col] = ph["iters"]
+
         rnd = 0
-        while rnd < rounds_bound:
+        while True:
+            col = rnd - 1 if rnd else None
+            if rnd >= rounds_bound:
+                if ph is not None and bool(ph["ran_out"].any()):
+                    settle(ph, col)
+                break
             ROUND_WAITS += 1
-            pend = valid & (target >= 0)
-            if sizing:
-                n_pend, path = _pending_path(pend, cur, dest)
-                records = record_capacity(n_pend, n_pend + face_rate * path)
-            else:
-                n_pend, records = int(bool(pend.any())), None
+            n_pend, path, n_out, mine_out = comm.stop_test(
+                valid & (target >= 0), cur, dest,
+                None if ph is None else ph["ran_out"], sizing)
+            if n_out:
+                if mine_out:
+                    settle(ph, col)
+                ROUND_WAITS += 1
+                n_pend, path, _, _ = comm.stop_test(
+                    valid & (target >= 0), cur, dest, None, sizing)
             if not n_pend:
                 break
+            records = (record_capacity(n_pend, n_pend + face_rate * path)
+                       if sizing else None)
             ex = exchange(rnd + 1)
-            w = walk_phase(rnd + 1, records)
+            w, ph = walk_phase(rnd + 1, follow, records)
             round_stats[:, :5, rnd] = ex
             round_stats[:, 5, rnd] = w
             rnd += 1
         if halo is not None:
             with _span(dev, "halo", rnd):
-                _fold_halo(flat, halo, n_parts, max_local, n_groups)
+                _fold_halo(comm, flat, halo, P_l, max_local, n_groups)
         i64 = torch.int64
         ivec = cvec = None
         if integrity:
             # PART_INTEGRITY_FIELDS: non-finite or negative entries of the
             # part's slab (the accumulator a bit flip poisons) and its
             # slot accounting, after the halo fold.
-            slab = flat.view(n_parts, -1)
-            vp = valid.view(n_parts, cap)
+            slab = flat.view(P_l, -1)
+            vp = valid.view(P_l, cap)
             ivec = torch.stack([
                 (~torch.isfinite(slab) | (slab < 0)).sum(1, dtype=i64),
                 vp.sum(1, dtype=i64),
-                (vp & done.view(n_parts, cap)).sum(1, dtype=i64)], dim=1)
+                (vp & done.view(P_l, cap)).sum(1, dtype=i64)], dim=1)
         if convergence:
             # After the halo fold: the even entries read are the parts'
             # complete owned scores (halo rows are zero).
-            state, enable = conv
-            cvec = fold_and_reduce(flat.view(n_parts, -1), state,
+            cstate, enable = conv
+            cvec = fold_and_reduce(flat.view(P_l, -1), cstate,
                                    batch_moves=batch_moves,
                                    rel_err_target=rel_err_target,
                                    enable=bool(enable))
-        nc = ncross.view(n_parts, cap)
-        zero = torch.zeros(n_parts, dtype=i64, device=dev)
+        nc = ncross.view(P_l, cap)
+        zero = torch.zeros(P_l, dtype=i64, device=dev)
         stats = torch.stack([
             nc.sum(1, dtype=i64), nc.amax(1).to(i64),
-            nchase.view(n_parts, cap).sum(1, dtype=i64),
-            (valid & ~done).view(n_parts, cap).sum(1, dtype=i64),
+            nchase.view(P_l, cap).sum(1, dtype=i64),
+            (valid & ~done).view(P_l, cap).sum(1, dtype=i64),
             zero, zero, nseg, w0 + round_stats[:, 5].sum(1),
         ], dim=1)
         return PartitionedTraceResult(
             position=cur, dest=dest, elem=elem, material_id=material_id,
             weight=weight, group=group, particle_id=pid, valid=valid,
             done=done, flux=flux, n_segments=nseg,
-            n_rounds=torch.full((n_parts,), rnd, dtype=i64, device=dev),
+            n_rounds=torch.full((P_l,), rnd, dtype=i64, device=dev),
             n_dropped=dropped, track_length=pseg, round_stats=round_stats,
             stats=stats, integrity=ivec, convergence=cvec)
 
@@ -512,7 +731,7 @@ def make_partitioned_step(
     def packed(record, flux, conv=None, capacity=None):
         res = run(*unpack_partitioned_record(record), flux, conv=conv,
                   capacity=capacity)
-        res.readback = pack_partitioned_readback(res, n_parts)
+        res.readback = pack_partitioned_readback(res, P_l)
         return res
 
     return packed
@@ -629,6 +848,11 @@ def make_partitioned_megastep(
     )
     from .staging import pack_partitioned_megastep_tail
 
+    lay = rank_layout(device_mesh)
+    if lay.hi - lay.lo != partition.n_parts:
+        raise NotImplementedError(
+            "the partitioned megastep runs every part in one process; "
+            f"over ranks it is {A9D}")
     step = make_partitioned_step(
         device_mesh, partition, n_groups=n_groups, initial=False,
         max_crossings=max_crossings, max_rounds=max_rounds,
@@ -728,15 +952,144 @@ def make_partitioned_megastep(
     return mega
 
 
-def _pending_path(pend, cur, dest) -> tuple:
-    """(the pending lanes, the sum of their remaining paths |dest − cur|)
-    in one host read: an upper estimate of the next phase's lanes and
-    their paths (overflow stays pending; a lane freezes again at the
-    next cut)."""
-    path = torch.where(pend, _norm3(dest - cur), 0.0).sum(
-        dtype=torch.float64)
-    n, path = torch.stack([pend.sum(dtype=torch.float64), path]).tolist()
-    return int(n), path
+@dataclasses.dataclass(frozen=True)
+class RankLayout:
+    """The parts of a device mesh this process walks: parts ``lo`` to
+    ``hi`` on ``device``; ``bounds`` every rank's ``(lo, hi)`` in rank
+    order, or None when the mesh names no ranks (every part here)."""
+
+    lo: int
+    hi: int
+    device: torch.device
+    bounds: tuple | None = None
+    rank: int = 0
+
+
+def rank_layout(device_mesh) -> RankLayout:
+    """Where a device mesh puts the parts: entries without a rank (torch
+    devices) stack every part on their one device in this process;
+    entries with ``rank`` and ``device`` (``particle_sharding.MeshEntry``)
+    give each rank of the default process group its block, in rank
+    order."""
+    devs = list(device_mesh)
+    ranks = [getattr(d, "rank", None) for d in devs]
+    if all(r is None for r in ranks):
+        found = {resolve_device(d) for d in devs}
+        if len(found) != 1:
+            raise ValueError(
+                f"the parts of a mesh without ranks are stacked on one "
+                f"device, not {sorted(map(str, found))}; entries with a "
+                "rank and a device (particle_sharding.MeshEntry) spread "
+                "them over processes")
+        return RankLayout(0, len(devs), found.pop())
+    if any(r is None for r in ranks):
+        raise ValueError("either every entry of the mesh names a rank or "
+                         "none does")
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            "a mesh over ranks needs the default process group "
+            "(parallel/multihost.py::init_distributed)")
+    world, me = dist.get_world_size(), dist.get_rank()
+    if ranks != sorted(ranks) or set(ranks) != set(range(world)):
+        raise ValueError(
+            f"the mesh's ranks {ranks} must be the group's {world} ranks, "
+            "each in one block, in rank order")
+    bounds = tuple((ranks.index(r), len(ranks) - ranks[::-1].index(r))
+                   for r in range(world))
+    lo, hi = bounds[me]
+    found = {resolve_device(d.device) for d in devs[lo:hi]}
+    if len(found) != 1:
+        raise ValueError(f"rank {me}'s parts must be on one device, not "
+                         f"{sorted(map(str, found))}")
+    return RankLayout(lo, hi, found.pop(), bounds, me)
+
+
+class Collectives:
+    """The step's collectives over the ranks of a ``RankLayout``: the
+    all_to_all of the exchange and of the halo fold, and the stop test's
+    all_reduce, on the default process group (NCCL for CUDA tensors,
+    gloo for CPU ones). Without ranks the all_to_all hands back its input
+    and the all_reduce sums one row, so the stacked step and the step
+    over ranks are one code path."""
+
+    def __init__(self, layout: RankLayout):
+        self.layout = layout
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """``send`` ``[n_local, n_parts, ...]`` (block ``[p, d]`` from
+        local part p to part d) → ``[n_parts, n_local, ...]`` (block
+        ``[p, q]`` from part p to local part q): one
+        ``all_to_all_single``."""
+        bounds = self.layout.bounds
+        if bounds is None:
+            return send
+        import torch.distributed as dist
+
+        n_local, tail = send.shape[0], send.shape[2:]
+        chunks = [send[:, a:b].reshape(-1) for a, b in bounds]
+        inp = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        row = n_local * int(np.prod(tail, dtype=np.int64))
+        out_sizes = [(b - a) * row for a, b in bounds]
+        out = torch.empty(sum(out_sizes), dtype=send.dtype,
+                          device=send.device)
+        dist.all_to_all_single(out, inp.contiguous(), out_sizes,
+                               [c.numel() for c in chunks])
+        return out.view(-1, n_local, *tail)
+
+    def stop_test(self, pend, cur, dest, ran_out, sizing: bool) -> tuple:
+        """One host read a round: (the pending lanes of every rank, the
+        sum of their remaining paths |dest − cur| when ``sizing``, the
+        lanes of every rank that ran out of budget in a phase with later
+        rounds, this rank's such lanes). The pending lanes and paths are
+        an upper estimate of the next phase's lanes and paths (overflow
+        stays pending; a lane freezes again at the next cut)."""
+        f64 = torch.float64
+        zero = torch.zeros((), dtype=f64, device=cur.device)
+        path = (torch.where(pend, _norm3(dest - cur), 0.0).sum(dtype=f64)
+                if sizing else zero)
+        out = zero if ran_out is None else ran_out.sum(dtype=f64)
+        vec = torch.stack([pend.sum(dtype=f64), path, out])
+        bounds = self.layout.bounds
+        if bounds is None:
+            rows = vec[None]
+        else:
+            import torch.distributed as dist
+
+            rows = torch.zeros(len(bounds), 3, dtype=f64, device=cur.device)
+            rows[self.layout.rank] = vec
+            dist.all_reduce(rows)
+        vals = rows.tolist()
+        n, p, o = (sum(v[k] for v in vals) for k in range(3))
+        return int(n), p, int(o), int(vals[0 if bounds is None
+                                           else self.layout.rank][2])
+
+
+def _ran_out(out: dict, bound: int) -> torch.Tensor:
+    """The lanes of a walk's outputs that stopped at its budget: neither
+    done nor frozen at a cut after ``bound`` iterations."""
+    return ~out["done"] & (out["target"] < 0) & (out["iters"] >= bound)
+
+
+def _first_active(active, n_local: int, cap: int, size: int):
+    """Each part's first ``size`` active slots, in slot order."""
+    m = active.view(n_local, cap)
+    return torch.nonzero((m & (_row_ranks(m) < size)).view(-1))[:, 0]
+
+
+def _fold_records(flat, records: list, score_squares: bool, nbins: int,
+                  plain: bool) -> None:
+    """A phase's tally records, from one launch or several, folded into
+    the stacked slab in one ordered scatter (bins in key order)."""
+    bins, orders, cs = (x[0] if len(x) == 1 else torch.cat(x)
+                        for x in zip(*records))
+    if plain or flat.device.type == "cpu":
+        scatter_ordered_plain(flat, bins, orders, cs, score_squares)
+    else:
+        from .scatter import ordered_cuda
+
+        ordered_cuda(flat, bins, orders, cs, score_squares, nbins)
 
 
 def _row_ranks(mask: torch.Tensor) -> torch.Tensor:
@@ -749,16 +1102,18 @@ def _row_ranks(mask: torch.Tensor) -> torch.Tensor:
     return c - start[:, None] - 1
 
 
-def _exchange(P, cap, E, max_local, canon, s, dropped):
-    """One exchange round over the stacked slot state ``s`` (updated in
-    place): bucket, send blocks, transpose, adopt. Returns the [P, 5]
+def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
+    """One exchange round over this process's slot state ``s`` (updated
+    in place): bucket, send blocks, all_to_all, adopt. The send blocks'
+    float columns (_F_COLS) and int columns (_I_COLS, padded to 8) share
+    one byte buffer, so a round is one collective. Returns the [P_l, 5]
     int64 round stats (pending, sent, received, free, adopted)."""
     dev = s["cur"].device
     valid, target = s["valid"], s["target"]
-    emig = (valid & (target >= 0)).view(P, cap)
-    tgt = target.view(P, cap)
-    slot = torch.full((P, cap), P * E, dtype=torch.int64, device=dev)
-    sendable = torch.zeros(P, cap, dtype=torch.bool, device=dev)
+    emig = (valid & (target >= 0)).view(P_l, cap)
+    tgt = target.view(P_l, cap)
+    slot = torch.full((P_l, cap), P * E, dtype=torch.int64, device=dev)
+    sendable = torch.zeros(P_l, cap, dtype=torch.bool, device=dev)
     for d in range(P):
         m_d = emig & (tgt == d)
         rank_d = _row_ranks(m_d)
@@ -770,29 +1125,31 @@ def _exchange(P, cap, E, max_local, canon, s, dropped):
     dst = sp * (P * E) + slot.view(-1)[src]
     elem = s["elem"][src].long()
     if canon is None:  # the element left, as the receiver's codes name it
-        back = -2 - (sp * max_local + elem)
+        back = -2 - ((lo + sp) * max_local + elem)
     else:
         back = canon[sp * max_local + elem]
     back = torch.where(s["stuck"][src] >= 4, -1, back)
     dtype = s["cur"].dtype
-    fbuf = torch.zeros(P * P * E, _F_COLS, dtype=dtype, device=dev)
-    ibuf = torch.zeros(P * P * E, _I_COLS, dtype=torch.int32, device=dev)
+    fb = _F_COLS * torch.finfo(dtype).bits // 8
+    buf = torch.zeros(P_l * P * E, fb + 4 * 8, dtype=torch.uint8,
+                      device=dev)
+    fbuf, ibuf = buf[:, :fb].view(dtype), buf[:, fb:].view(torch.int32)
     fbuf[dst] = torch.cat([s["cur"][src], s["dest"][src],
                            s["weight"][src][:, None],
                            s["pseg"][src][:, None]], 1)
-    ibuf[dst] = torch.stack([
+    ibuf[dst, :_I_COLS] = torch.stack([
         s["pid"][src], s["group"][src], s["material_id"][src],
         s["target_elem"][src], torch.ones_like(s["pid"][src]),
         s["done"][src].to(torch.int32), back.to(torch.int32)], 1)
     valid[src] = False
     target[src] = -1
-    # The all_to_all of the JAX step: block d of sender p goes to part d.
-    recv_f = fbuf.view(P, P, E, _F_COLS).transpose(0, 1).reshape(
-        P, P * E, _F_COLS)
-    recv_i = ibuf.view(P, P, E, _I_COLS).transpose(0, 1).reshape(
-        P, P * E, _I_COLS)
+    # The JAX step's all_to_all: block d of sender p goes to part d.
+    recv = comm.all_to_all(buf.view(P_l, P, E, -1)).transpose(0, 1)
+    recv = recv.reshape(P_l, P * E, -1)
+    recv_f, recv_i = recv[..., :fb].view(dtype), recv[..., fb:].view(
+        torch.int32)
     mine = recv_i[:, :, 4] == 1
-    free = ~valid.view(P, cap)
+    free = ~valid.view(P_l, cap)
     n_mine, n_free = mine.sum(1), free.sum(1)
     take = torch.minimum(n_mine, n_free)
     dropped += (n_mine - n_free).clamp_min(0)
@@ -800,7 +1157,7 @@ def _exchange(P, cap, E, max_local, canon, s, dropped):
     rank_src = _row_ranks(mine)
     rank_free = _row_ranks(free)
     qf, kf = torch.nonzero(free, as_tuple=True)
-    free_at = torch.full((P, cap), cap, dtype=torch.int64, device=dev)
+    free_at = torch.full((P_l, cap), cap, dtype=torch.int64, device=dev)
     free_at[qf, rank_free[qf, kf]] = kf
     qs, js = torch.nonzero(mine & (rank_src < take[:, None]), as_tuple=True)
     at = qs * cap + free_at[qs, rank_src[qs, js]]
@@ -822,35 +1179,50 @@ def _exchange(P, cap, E, max_local, canon, s, dropped):
                         n_mine.to(i64), n_free.to(i64), take.to(i64)], 1)
 
 
-def _halo_fold_rows(partition) -> list:
-    """Per sending part p: (its halo rows, the owners' rows) as stacked
-    row ids, int64 on the partition's device, one-to-one."""
-    P, L = partition.n_parts, partition.max_local
-    send = partition.halo_send_rows.cpu().numpy().astype(np.int64)
-    recv = partition.halo_recv_rows.cpu().numpy().astype(np.int64)
-    out = []
+def _halo_fold_rows(partition, lo: int, hi: int, n_groups: int) -> dict:
+    """The halo fold's tables for parts ``lo`` to ``hi``, int64 on the
+    partition's device: ``send`` [P_l, P, Eh] the local rows each local
+    part sends each owner (-1 padding), ``pairs`` per sending part p (the
+    received rows' places in the all_to_all's output, the local owners'
+    rows), one-to-one, and ``owned`` the local parts' owned rows."""
+    P, L, f = partition.n_parts, partition.max_local, partition.first_part
+    P_l = hi - lo
+    send = partition.halo_send_rows[lo - f:hi - f].cpu().numpy().astype(
+        np.int64)
+    recv = partition.halo_recv_rows[lo - f:hi - f].cpu().numpy().astype(
+        np.int64)
+    Eh = send.shape[2]
+    local = np.arange(P_l)[:, None, None] * L + send
+    send_rows = np.where(send < L, local, -1)
+    pairs = []
     for p in range(P):
-        src, dst = [], []
-        for q in range(P):
-            ok = send[p, q] < L
-            src.append(p * L + send[p, q][ok])
+        at, dst = [], []
+        for q in range(P_l):
+            ok = np.nonzero(recv[q, p] < L)[0]
+            at.append((p * P_l + q) * Eh + ok)
             dst.append(q * L + recv[q, p][ok])
-        out.append(tuple(torch.from_numpy(np.concatenate(a)).to(
-            partition.device) for a in (src, dst)))
+        pairs.append(tuple(torch.from_numpy(np.concatenate(a)).to(
+            partition.device) for a in (at, dst)))
     owned = torch.from_numpy(
-        np.arange(L)[None, :] < partition.counts[:, None]).reshape(-1)
-    return [owned.to(partition.device), out]
+        np.arange(L)[None, :] < partition.counts[lo:hi, None]).reshape(-1)
+    return dict(send=torch.from_numpy(send_rows).to(partition.device),
+                pairs=pairs, owned=owned.to(partition.device))
 
 
-def _fold_halo(flat, halo, P, L, G):
+def _fold_halo(comm, flat, halo, P_l, L, G):
     """Guest scores onto their owners' rows, then the halo rows zeroed:
-    one ``index_add_`` a sending part, in part order."""
-    owned, pairs = halo
-    flux2 = flat.view(P * L, 2 * G)
-    sent = [flux2[src] for src, _ in pairs]
-    flux2.masked_fill_(~owned[:, None], 0.0)
-    for (_, dst), rows in zip(pairs, sent):
-        flux2.index_add_(0, dst, rows)
+    the guest rows go to their owners in one all_to_all (the JAX step's,
+    :1011-1027), then one ``index_add_`` a sending part, in part order,
+    so each owned row adds its guests' scores in the stacked order."""
+    flux2 = flat.view(P_l * L, 2 * G)
+    rows = halo["send"]
+    sent = torch.where((rows >= 0)[..., None], flux2[rows.clamp_min(0)],
+                       0.0)
+    got = comm.all_to_all(sent).reshape(-1, 2 * G)
+    flux2.masked_fill_(~halo["owned"][:, None], 0.0)
+    for at, dst in halo["pairs"]:
+        if dst.numel():
+            flux2.index_add_(0, dst, got[at])
 
 
 # ---------------------------------------------------------------------- #
@@ -879,19 +1251,23 @@ def slot_layout(partition, global_elem, cap: int | None = None):
 
 def distribute_particles(partition, device_mesh, global_elem, fields: dict,
                          cap: int | None = None) -> dict:
-    """Host particle arrays into the slot layout on the partition's
-    device: ``fields`` (name → [n, ...] host array; 'origin' and 'dest'
-    at least) as ``[n_parts·cap, ...]`` tensors, plus 'valid',
-    'particle_id' (-1 in empty slots) and 'elem' (part-local rows).
-    ``cap`` slots a part (default n)."""
-    del device_mesh  # every part lives on the partition's device
+    """Host particle arrays into the slot layout: ``fields`` (name →
+    [n, ...] host array; 'origin' and 'dest' at least) as
+    ``[n_local·cap, ...]`` tensors of this process's parts
+    (``rank_layout``: every part without ranks) on their device, plus
+    'valid', 'particle_id' (-1 in empty slots) and 'elem' (part-local
+    rows). ``cap`` slots a part (default n). A ``device_mesh`` of None
+    places every part on the partition's device."""
+    lay = (RankLayout(0, partition.n_parts, partition.device)
+           if device_mesh is None else rank_layout(device_mesh))
     slot_of, cap = slot_layout(partition, global_elem, cap)
     n = slot_of.shape[0]
     total = partition.n_parts * cap
-    dev = partition.device
+    mine = slice(lay.lo * cap, lay.hi * cap)
 
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a[mine])).to(
+            lay.device)
 
     out = {}
     for name, arr in fields.items():
@@ -910,26 +1286,46 @@ def distribute_particles(partition, device_mesh, global_elem, fields: dict,
     return out
 
 
-def collect_by_particle_id(result, n: int, partition=None) -> dict:
+def gather_parts(arrays: dict, device_mesh) -> dict:
+    """Per-part host arrays (name → numpy, leading axis this process's
+    parts or slots) of every process of a mesh over ranks, concatenated
+    in part order on every rank (``all_gather_object``); unchanged when
+    the mesh names no ranks."""
+    if rank_layout(device_mesh).bounds is None:
+        return arrays
+    import torch.distributed as dist
+
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, arrays)
+    return {k: np.concatenate([g[k] for g in got]) for k in arrays}
+
+
+def collect_by_particle_id(result, n: int, partition=None,
+                           device_mesh=None) -> dict:
     """Per-particle outputs back in host particle order (numpy): position,
     material_id, done, elem (the row on the part holding the particle),
     weight, group, track_length; with ``partition`` also ``elem_global``
-    (through the holding part's local2global)."""
-    pid = result.particle_id.cpu().numpy()
-    valid = result.valid.cpu().numpy()
+    (through the holding part's local2global). With a ``device_mesh``
+    over ranks every rank's slots are gathered first (``gather_parts``),
+    so every rank gets every particle."""
+    names = ("particle_id", "valid", "position", "material_id", "done",
+             "elem", "weight", "group", "track_length")
+    host = {k: getattr(result, k).cpu().numpy() for k in names}
+    if device_mesh is not None:
+        host = gather_parts(host, device_mesh)
+    pid, valid = host["particle_id"], host["valid"]
     sel = valid & (pid >= 0)
     idx = pid[sel]
     out = {}
-    for name in ("position", "material_id", "done", "elem", "weight",
-                 "group", "track_length"):
-        arr = getattr(result, name).cpu().numpy()
+    for name in names[2:]:
+        arr = host[name]
         buf = np.zeros((n,) + arr.shape[1:], arr.dtype)
         buf[idx] = arr[sel]
         out[name] = buf
     if partition is not None:
         cap = pid.shape[0] // partition.n_parts
         chip = (np.arange(pid.shape[0]) // cap)[sel]
-        eg = partition.local2global[chip, result.elem.cpu().numpy()[sel]]
+        eg = partition.local2global[chip, host["elem"][sel]]
         buf = np.full(n, -1, np.int64)
         buf[idx] = eg
         out["elem_global"] = buf

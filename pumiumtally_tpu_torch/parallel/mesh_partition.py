@@ -62,6 +62,9 @@ class MeshPartition:
       face_normals [n_parts, max_local, 4, 3], face_d [.., 4] (mesh
       dtype), tet2tet_enc [.., 4] int32 (codes above), class_id [..]
       int32, nbr_class [.., 4] int32, volumes [..] (mesh dtype).
+    The device fields hold the parts ``first_part`` to ``first_part +
+      n_held`` (all of them unless ``partition_mesh(parts=...)`` asked
+      for a block: a rank of the step over ranks holds its own parts).
     Halo fields (None when halo_layers == 0): row_owner and
       row_owner_local [n_parts, max_local] int32 (each row's owner and
       its row there; -1 and 0 for padding), halo_send_rows [n_parts,
@@ -83,6 +86,7 @@ class MeshPartition:
     nbr_class: Any
     volumes: Any
     halo_layers: int = 0
+    first_part: int = 0
     row_owner: Any = None
     row_owner_local: Any = None
     halo_send_rows: Any = None
@@ -95,6 +99,11 @@ class MeshPartition:
     @property
     def device(self) -> torch.device:
         return self.face_normals.device
+
+    @property
+    def n_held(self) -> int:
+        """The parts whose tables the device fields hold."""
+        return int(self.face_normals.shape[0])
 
 
 def decode_remote(enc: np.ndarray, max_local: int):
@@ -110,10 +119,12 @@ def partition_mesh(
     order: np.ndarray | None = None,
     halo_layers: int = 0,
     device=None,
+    parts: tuple | None = None,
 ) -> MeshPartition:
     """Partition a TetMesh into ``n_parts`` Morton-contiguous element
     blocks and build the stacked per-part tables on ``device`` (default:
-    the mesh's device).
+    the mesh's device); with ``parts=(lo, hi)`` only those parts' tables
+    (the host fields stay whole).
 
     ``order`` overrides the element order (tests force skewed cuts with
     it). ``halo_layers`` buffers that many face-adjacency rings of the
@@ -127,6 +138,10 @@ def partition_mesh(
         raise ValueError(f"n_parts={n_parts} out of range for {ntet} elements")
     if halo_layers < 0:
         raise ValueError(f"halo_layers must be >= 0: {halo_layers}")
+    lo, hi = (0, n_parts) if parts is None else (int(parts[0]),
+                                                 int(parts[1]))
+    if not 0 <= lo < hi <= n_parts:
+        raise ValueError(f"parts={parts} is not a block of {n_parts} parts")
 
     tet2tet = mesh.tet2tet.cpu().numpy().astype(np.int64)
     if order is None:
@@ -203,7 +218,7 @@ def partition_mesh(
     g = np.where(local2global >= 0, local2global, local2global[:, :1])
 
     def put(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        t = torch.from_numpy(np.ascontiguousarray(a[lo:hi]))
         return t.to(dev, dtype) if dtype is not None else t.to(dev)
 
     fields = dict(
@@ -257,6 +272,7 @@ def partition_mesh(
         global2local=global2local,
         local2global=local2global,
         counts=counts,
+        first_part=lo,
         **fields,
         **halo_kwargs,
     )

@@ -3,23 +3,37 @@
 Counterpart of ``pumiumtally_tpu/parallel/particle_sharding.py``: the
 particle axis is split into ``n`` shards, each shard walks its lanes over
 the whole mesh into its own partial flux row ``[n, ...]``, and
-``reduce_flux`` sums the rows (the tally all-reduce). The port runs on one
-card: a device mesh is a list of torch devices, every entry the same
-device, and the shards walk one after the other, each with the port's
-walk (``ops/walk_cuda.py``: the walk kernel on the card, the plain walk on
-the CPU). Spreading the shards over several cards with NCCL is ROADMAP.md
-A9c.
+``reduce_flux`` sums the rows (the tally all-reduce). A device mesh is a
+list: torch devices, all one device (the shards walk one after the other
+in this process), or ``MeshEntry(rank, device)`` entries, each rank's in
+one block in rank order (``multihost.global_device_mesh``): each process
+walks its own shards, and ``reduce_flux`` ends in a ``dist.all_reduce``
+over the default process group. Each shard walks with the port's walk
+(``ops/walk_cuda.py``: the walk kernel on the card, the plain walk on the
+CPU).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..ops import walk_cuda
 from ..ops.walk import TraceResult
+from ..ops.walk_partitioned import rank_layout
 from ..utils.platform import resolve_device
 
 PARTICLE_AXIS = "p"
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshEntry:
+    """A mesh entry of a process group: the rank that holds it and that
+    rank's device."""
+
+    rank: int
+    device: torch.device
 
 
 def make_device_mesh(n_devices: int | None = None, device=None) -> list:
@@ -29,32 +43,43 @@ def make_device_mesh(n_devices: int | None = None, device=None) -> list:
     return [dev] * (1 if n_devices is None else int(n_devices))
 
 
+def mesh_from_devices(devices) -> list:
+    """A 1-D mesh over an explicit list of entries, in their order — the
+    elastic recovery's survivors (resilience/elastic.py)."""
+    devices = list(devices)
+    if not devices:
+        raise ValueError("mesh_from_devices needs at least one device")
+    return devices
+
+
 def n_shards(device_mesh) -> int:
     return len(device_mesh)
 
 
+def _local(device_mesh) -> tuple:
+    """(this process's shards, their device)."""
+    lay = rank_layout(device_mesh)
+    return lay.hi - lay.lo, lay.device
+
+
 def _device(device_mesh) -> torch.device:
-    devs = {resolve_device(d) for d in device_mesh}
-    if len(devs) != 1:
-        raise ValueError(
-            "the shards run on one device; a mesh over several devices is "
-            "ROADMAP.md A9c")
-    return devs.pop()
+    return _local(device_mesh)[1]
 
 
 def make_sharded_flux(device_mesh, ntet: int, n_groups: int,
                       dtype=torch.float32, flat: bool = False):
-    """Per-shard partial tallies ``[n, ntet, n_groups, 2]``, or with
-    ``flat`` ``[n, ntet·n_groups·2]``, zero."""
-    nd = n_shards(device_mesh)
+    """This process's per-shard partial tallies ``[n, ntet, n_groups,
+    2]``, or with ``flat`` ``[n, ntet·n_groups·2]``, zero."""
+    nd, dev = _local(device_mesh)
     shape = (nd, ntet * n_groups * 2) if flat else (nd, ntet, n_groups, 2)
-    return torch.zeros(shape, dtype=dtype, device=_device(device_mesh))
+    return torch.zeros(shape, dtype=dtype, device=dev)
 
 
 def shard_particles(device_mesh, *arrays):
-    """Per-particle arrays (numpy or tensors) on the mesh's device; their
-    length must divide by the shard count (pad with parked particles)."""
-    dev, nd = _device(device_mesh), n_shards(device_mesh)
+    """This process's per-particle arrays (numpy or tensors) on its
+    device; their length must divide by its shard count (pad with parked
+    particles)."""
+    nd, dev = _local(device_mesh)
     out = []
     for a in arrays:
         t = (a if isinstance(a, torch.Tensor)
@@ -80,15 +105,16 @@ def make_sharded_trace(device_mesh, *, initial: bool, max_crossings: int,
                        compact_size: int | None = None, unroll: int = 8,
                        n_groups: int | None = None):
     """The sharded walk step: ``step(mesh, origin, dest, elem, in_flight,
-    weight, group, material_id, flux)`` walks shard k's lanes (the k-th
-    block of the particle axis) into ``flux[k]`` (updated in place) and
+    weight, group, material_id, flux)`` walks this process's shard k's
+    lanes (the k-th block of its particles) into ``flux[k]`` (updated in
+    place) and
     returns a TraceResult whose per-lane outputs are concatenated and
     whose flux, segments, iterations and stats carry the shard axis. The
     compaction and unroll knobs schedule the JAX walk only; they are
     ignored. ``n_groups`` defaults to the flux's ``[n, ntet, G, 2]``
     shape."""
     del compact_after, compact_size, unroll
-    nd = n_shards(device_mesh)
+    nd = _local(device_mesh)[0]
 
     def step(mesh, origin, dest, elem, in_flight, weight, group,
              material_id, flux):
@@ -129,7 +155,14 @@ def make_sharded_trace(device_mesh, *, initial: bool, max_crossings: int,
     return step
 
 
-def reduce_flux(sharded_flux: torch.Tensor) -> torch.Tensor:
+def reduce_flux(sharded_flux: torch.Tensor,
+                device_mesh=None) -> torch.Tensor:
     """The tally reduction: the per-shard partial slabs summed, shard 0
-    first."""
-    return sharded_flux.sum(dim=0)
+    first; with a ``device_mesh`` over ranks, then summed over the
+    processes (one ``dist.all_reduce``; every process gets the sum)."""
+    out = sharded_flux.sum(dim=0)
+    if device_mesh is not None and rank_layout(device_mesh).bounds:
+        import torch.distributed as dist
+
+        dist.all_reduce(out)
+    return out

@@ -16,7 +16,9 @@ in per-part owned slabs (halo rows return zeroed from every step);
 ``raw_flux`` assembles the global ``[ntet, G, 2]`` view. The parts are
 stacked on one device (``device=``, the CUDA card by default): on the card
 every walk phase is the walk kernel's partitioned layout, on the CPU its
-plain version. Parts on several devices (NCCL) are ROADMAP.md A9c.
+plain version. The facade runs in one process; the step over the ranks
+of a process group is ``ops/walk_partitioned.make_partitioned_step`` with
+a mesh of ``particle_sharding.MeshEntry`` entries.
 
 ``TallyConfig.io_pipeline``: "packed" (default) and "overlap" stage the
 slot distribution as ONE carrier record (``staging.pack_partitioned_
@@ -36,7 +38,7 @@ re-walks, convergence and checkpoints (the flux stored assembled, so a
 checkpoint resumes under another part count or halo depth).
 
 Not ported with this slice (each raises NotImplementedError naming
-ROADMAP.md A9c when asked for): ``record_xpoints``,
+ROADMAP.md A9d when asked for): ``record_xpoints``,
 ``checkify_invariants`` and ``sort_by_element``.
 """
 from __future__ import annotations
@@ -64,10 +66,11 @@ from ..obs.telemetry import TallyTelemetry
 from ..obs.walk_stats import WALK_STATS_FIELDS, reduce_chip_stats
 from ..ops import staging, walk_cuda
 from ..ops.walk_partitioned import (
-    A9C,
+    A9D,
     collect_by_particle_id,
     distribute_particles,
     make_partitioned_step,
+    rank_layout,
 )
 from ..resilience import quarantine
 from ..utils.config import TallyConfig
@@ -85,7 +88,7 @@ _SUMMED = ("rounds", "dropped", "migrated", "adopted", "h2d_bytes",
 
 def _unported(what: str):
     return NotImplementedError(
-        f"PartitionedTally: {what} is not ported yet ({A9C})")
+        f"PartitionedTally: {what} is not ported yet ({A9D})")
 
 
 def _merge_agg(a: dict, b: dict) -> dict:
@@ -172,6 +175,11 @@ class PartitionedTally:
                 f"mesh is on {mesh.device}, the tally on {self.device}")
         if device_mesh is None:
             device_mesh = make_device_mesh(n_parts, self.device)
+        lay = rank_layout(device_mesh)
+        if lay.hi - lay.lo != len(device_mesh):
+            raise ValueError(
+                "PartitionedTally runs every part in one process; spread "
+                "the step over ranks with make_partitioned_step")
         self.device_mesh = device_mesh
         self.n_parts = len(device_mesh)
         self.partition = partition_mesh(mesh, self.n_parts,
@@ -185,6 +193,9 @@ class PartitionedTally:
             )
         self._integrity = cfg.resolve_integrity()
         self._batch_moves = cfg.resolve_convergence()
+        # The first walk phase's compacted rounds resolve against the
+        # slots a part sweeps (cap), as the JAX facade resolves them.
+        compact = cfg.resolve_compaction(self.cap)
         self._step_kwargs = dict(
             n_groups=cfg.n_groups,
             max_crossings=cfg.resolve_max_crossings(mesh.ntet),
@@ -195,8 +206,10 @@ class PartitionedTally:
             unroll=cfg.unroll,
             robust=cfg.robust,
             tally_scatter=cfg.tally_scatter,
-            compact_after=cfg.compact_after,
-            compact_size=cfg.compact_size,
+            compact_after=compact[0],
+            compact_size=compact[1],
+            compact_stages=cfg.resolve_compact_stages(self.cap,
+                                                      ntet=mesh.ntet),
             exchange_size=exchange_size,
             max_rounds=max_rounds,
             integrity=self._integrity != "off",
@@ -1033,7 +1046,7 @@ class PartitionedTally:
 
     def intersection_points(self) -> tuple[np.ndarray, np.ndarray]:
         """Recorded crossing points: ``record_xpoints`` is refused at
-        construction (ROADMAP.md A9c), so this raises as without it."""
+        construction (ROADMAP.md A9d), so this raises as without it."""
         raise ValueError(
             "set TallyConfig.record_xpoints=K to record intersection "
             "points (off by default: the hot path pays nothing)")

@@ -1,30 +1,34 @@
 """ResilienceCoordinator: failure taxonomy and the device health probe.
 
-Own copy of ``pumiumtally_tpu/resilience/coordinator.py`` for the
-single-device facade. The ``ResilientRunner`` sees one exception per
-failed move; what it should do depends on what happened:
+Own copy of ``pumiumtally_tpu/resilience/coordinator.py``. The
+``ResilientRunner`` sees one exception per failed move; what it should
+do depends on what happened:
 
   * ``"transient"`` — a one-shot device or runtime error (injected
     transients, a ``torch.AcceleratorError``, a watchdog timeout with
     the device still answering its probe). Recovery: roll back to the
     last good state and replay bit for bit.
-  * ``"chip-lost"`` — the device dropped out (injected
-    ``chip_down_at_move``, or an error behind which the probe finds the
-    device dead). On one device nothing is left to shrink onto: the
-    runner flushes the last good generation and raises (the elastic
-    mesh shrink over several devices is ROADMAP.md A9c).
+  * ``"chip-lost"`` — a chip dropped out (injected
+    ``chip_down_at_move``, or an error behind which the probe finds a
+    chip dead). A partitioned tally of several parts is rebuilt on the
+    surviving entries of its device mesh (``resilience/elastic.py``);
+    the plain facade and a one-part tally flush the last good
+    generation and raise.
   * ``"preempted"`` — an eviction notice (``InjectedPreemption``, or a
     real SIGTERM/SIGINT through the runner's handlers): one last flush
     of the last good generation, then die; the next process resumes.
   * ``"persistent"`` — a failure a replay cannot fix (a fatal integrity
     violation, an injected poison job).
 
-The health probe is a tiny round trip on the tally's device (two ones
-made there and summed back on the host), plus the ``downed_devices``
-set the runner feeds through ``note_down`` on every ``ChipLostError``.
-Results go to the ``pumi_chip_health`` gauge of the tally's registry,
-beside ``pumi_rollbacks_total{cause=...}`` and
-``pumi_elastic_reshards_total`` (which stays 0 on one device).
+The chips are the entries of the tally's device mesh, by position (the
+parts of a PartitionedTally may all be stacked on one card, so a chip is
+a mesh position, not a torch device): the health probe is a tiny round
+trip on each entry's device (two ones made there and summed back on the
+host), and the ``downed`` positions the runner feeds through
+``note_down`` on every ``ChipLostError`` report dead. A rebind to a
+rebuilt tally clears them (its mesh holds only survivors). Results go to
+the ``pumi_chip_health`` gauge of the tally's registry, beside
+``pumi_rollbacks_total{cause=...}`` and ``pumi_elastic_reshards_total``.
 
 ``tracer`` takes an object with the JAX package's ``SpanTracer``
 surface (``span(name, **attrs)`` as a context manager yielding a dict,
@@ -92,14 +96,16 @@ class ResilienceCoordinator:
             "pumi_chip_health",
             "per-chip health probe result (1 = answering, 0 = lost)",
         )
-        # Dead devices by identity (a torch.device), as the JAX
-        # coordinator keeps them.
-        self.downed_devices: set = set()
+        # Dead chips by position in the tally's device mesh (the JAX
+        # coordinator keeps devices, which are one a chip there).
+        self.downed: set[int] = set()
         self._last_probe: dict[int, bool] | None = None
 
     def rebind(self, tally) -> None:
-        """Point at another tally (its registry keeps the counters)."""
+        """Point at the rebuilt tally (its registry keeps the counters);
+        its mesh holds the survivors only, so no position is down."""
         self.tally = tally
+        self.downed.clear()
 
     def note_rollback(self, cause: str) -> None:
         """Count one rollback to the last good generation."""
@@ -108,14 +114,18 @@ class ResilienceCoordinator:
 
     # ------------------------------------------------------------------ #
     def devices(self) -> list:
-        """The tally's device set: the one device its tensors live on."""
+        """The tally's chips, mesh order: the entries of the partitioned
+        facade's device mesh, or the one device of the plain facade."""
+        dm = getattr(self.tally, "device_mesh", None)
+        if dm is not None:
+            return list(dm)
         return [torch.device(self.tally.device)]
 
     def note_down(self, chip_index: int) -> None:
-        """Record a failed device (the runner calls this on every
-        ``ChipLostError``)."""
-        devs = self.devices()
-        self.downed_devices.add(devs[chip_index % len(devs)])
+        """Record a failed chip by its position in the current mesh (the
+        runner calls this on every ``ChipLostError``, before a rebuild
+        re-indexes the mesh)."""
+        self.downed.add(chip_index % len(self.devices()))
 
     def consume_last_probe(self) -> dict[int, bool] | None:
         """The probe ``classify`` ran for this failure (None when the
@@ -126,17 +136,18 @@ class ResilienceCoordinator:
     def probe_chips(self) -> dict[int, bool]:
         """Device liveness: two ones made on the device and summed back on
         the host (touches no tally state). A device in
-        ``downed_devices`` reports dead without a probe. Updates the
+        ``downed`` reports dead without a probe. Updates the
         ``pumi_chip_health`` gauge."""
         health: dict[int, bool] = {}
         with self.tracer.span("probe") as sp:
-            for i, dev in enumerate(self.devices()):
-                if dev in self.downed_devices:
+            for i, entry in enumerate(self.devices()):
+                if i in self.downed:
                     ok = False
                 else:
                     try:
-                        probe = torch.ones(2, dtype=torch.float32,
-                                           device=dev)
+                        probe = torch.ones(
+                            2, dtype=torch.float32,
+                            device=getattr(entry, "device", entry))
                         ok = float(probe.sum().item()) == 2.0
                     except Exception:
                         ok = False

@@ -110,8 +110,8 @@ injector so the detectors they target see the corruption whether or not
 a supervisor wraps the run. The serving and fleet modes (poison_job,
 transient_quantum, kill_server_at_quantum, wedge_member, slow_member,
 disk_full_at) parse and answer as in the JAX package; the port's serving
-layer that drives them is ROADMAP.md A11, and its chip-lost recovery
-(the elastic mesh shrink) A9c.
+layer that drives them is ROADMAP.md A11; ``chip_down_at_move`` drives
+the runner's elastic mesh shrink (resilience/elastic.py).
 
 The injector is a no-op when the plan is empty, so production code can
 call its hooks unconditionally.

@@ -1,7 +1,7 @@
 """ResilientRunner: the auto-checkpointing run supervisor.
 
 Own copy of ``pumiumtally_tpu/resilience/runner.py`` for a
-``PumiTally`` or a ``PartitionedTally`` on one device. It wraps the tally behind the same
+``PumiTally`` or a ``PartitionedTally``. It wraps the tally behind the same
 ``initialize_particle_location`` / ``move_to_next_location`` /
 ``run_source_moves`` surface and adds the fault-tolerance loop:
 
@@ -21,10 +21,12 @@ Own copy of ``pumiumtally_tpu/resilience/runner.py`` for a
     retries with exponential backoff, at most ``max_retries`` times;
   * **failure taxonomy** (``resilience/coordinator.py``): ``transient``
     replays bit for bit; ``preempted`` flushes the last good generation
-    and propagates; ``chip-lost`` on one device flushes the last good
-    generation and raises NotImplementedError, since the elastic mesh
-    shrink onto the surviving devices is ROADMAP.md A9c (with
-    ``elastic=False`` the ChipLostError itself propagates);
+    and propagates; ``chip-lost`` rolls every part back to the last good
+    generation and rebuilds a partitioned tally of several parts on the
+    surviving entries of its device mesh (``resilience/elastic.py``),
+    then flushes a fresh generation; the plain facade, a one-part
+    tally, ``elastic=False`` or a run without a snapshot flush the last
+    good generation and re-raise the loss;
   * **fault injection**: every hook of ``faultinject.py`` threads
     through here, so the tests can prove each failure mode recovers.
 
@@ -116,10 +118,10 @@ class ResilientRunner:
         # since the last file can turn it off: transient errors then
         # propagate like any other (the next process auto-resumes).
         self.retry_snapshots = bool(retry_snapshots)
-        # Elastic mesh-shrink recovery (partitioned tallies, ROADMAP.md
-        # A9c): on one device a chip-lost verdict flushes the last good
-        # generation and raises NotImplementedError naming A9c; off, the
-        # ChipLostError itself propagates (declared degradation).
+        # Elastic mesh-shrink recovery (partitioned tallies of several
+        # parts): a chip-lost verdict re-partitions onto the survivors;
+        # off, the ChipLostError propagates after the flush (declared
+        # degradation).
         self.elastic = bool(elastic)
         self.faults = faults if faults is not None else FaultInjector()
         self._sleep = sleep
@@ -332,18 +334,11 @@ class ResilientRunner:
                     self._c_fault.inc(kind="chip_down")
                     self.coordinator.note_down(e.chip)
                 verdict = self.coordinator.classify(e)
-                if verdict == "chip-lost":
-                    # Nothing to shrink onto on one device: flush the
-                    # last good generation and propagate.
+                if verdict == "chip-lost" and not self._can_reshard():
+                    # Nothing to shrink onto (the plain facade, one part,
+                    # elastic off, or no anchor): declared degradation —
+                    # flush the last good generation and propagate.
                     self._flush_last_good("chip-lost", what)
-                    if self.elastic:
-                        raise NotImplementedError(
-                            f"chip loss in {what}: elastic recovery "
-                            "re-partitions a PartitionedTally onto the "
-                            "surviving devices, which is not ported yet "
-                            "(ROADMAP.md A9c); the last good generation "
-                            "is flushed for the next process to resume"
-                        ) from e
                     raise
                 if attempt > self.max_retries or self._good is None:
                     # No anchor to roll back to (retry_snapshots off,
@@ -355,22 +350,27 @@ class ResilientRunner:
                 self._c_retry.inc()
                 t0 = time.monotonic()
                 iter_before = self.tally.iter_count
-                delay = min(
-                    self.backoff_base * 2 ** (attempt - 1),
-                    self.backoff_max,
-                )
-                log_warn(
-                    f"{what} failed transiently ({e}); restoring "
-                    f"last good state and retrying in {delay:.2f}s "
-                    f"(attempt {attempt}/{self.max_retries})"
-                )
-                restore_state(self.tally, self._good)
-                self._dirty = False
-                self.coordinator.note_rollback("transient")
-                self.recovery_stats["rollbacks"] += 1
-                if rearm is not None:
-                    rearm()
-                self._sleep(delay)
+                if verdict == "chip-lost":
+                    self._recover_chip_loss(e, what)
+                    if rearm is not None:
+                        rearm()
+                else:
+                    delay = min(
+                        self.backoff_base * 2 ** (attempt - 1),
+                        self.backoff_max,
+                    )
+                    log_warn(
+                        f"{what} failed transiently ({e}); restoring "
+                        f"last good state and retrying in {delay:.2f}s "
+                        f"(attempt {attempt}/{self.max_retries})"
+                    )
+                    restore_state(self.tally, self._good)
+                    self._dirty = False
+                    self.coordinator.note_rollback("transient")
+                    self.recovery_stats["rollbacks"] += 1
+                    if rearm is not None:
+                        rearm()
+                    self._sleep(delay)
                 self.recovery_stats["lost_moves"] += max(
                     0, iter_before - self.tally.iter_count
                 )
@@ -396,6 +396,63 @@ class ResilientRunner:
             )
         except Exception as e:  # pragma: no cover - flush best-effort
             log_warn(f"{cause} flush failed: {e}")
+
+    def _can_reshard(self) -> bool:
+        return (self.elastic and self._good is not None
+                and hasattr(self.tally, "flux_slabs")
+                and getattr(self.tally, "n_parts", 1) > 1)
+
+    def _recover_chip_loss(self, exc, what: str) -> None:
+        """The fleet rearm: probe the mesh, roll every part back to the
+        last good state, and when chips are gone rebuild the partitioned
+        facade on the survivors (resilience/elastic.py) with that state
+        re-slabbed onto the new partition; then flush a fresh generation
+        so a crash right after the shrink resumes in the new layout."""
+        from .elastic import rebuild_on_devices, surviving_devices
+
+        old = self.tally
+        # The probe classify() ran for this failure (an injected
+        # ChipLostError needed none: probe once here).
+        health = self.coordinator.consume_last_probe()
+        if health is None:
+            health = self.coordinator.probe_chips()
+        survivors = surviving_devices(old, health)
+        if not survivors:
+            # Fleet-wide loss: flush what can be flushed, then raise.
+            try:
+                self._flush_last_good("chip-lost", what)
+            except Exception as e:  # pragma: no cover - best-effort
+                log_warn(f"fleet-loss flush failed: {e}")
+            raise exc
+        if len(survivors) == old.n_parts:
+            # The probe found the mesh whole (a mis-attributed timeout):
+            # a same-layout rollback, whose replay is bitwise.
+            restore_state(old, self._good)
+            self._dirty = False
+            self.coordinator.note_rollback("chip-lost")
+            self.recovery_stats["rollbacks"] += 1
+            return
+        log_warn(
+            f"chip loss in {what} ({exc}); rolling every part back to "
+            f"the last good generation and re-partitioning "
+            f"{old.n_parts} -> {len(survivors)} parts")
+        # The last good state with the megastep's slot state folded into
+        # the particle mirrors, which the new layout re-distributes.
+        restore_state(old, self._good)
+        old._drop_source_state()
+        good = snapshot_state(old)
+        old.close()
+        new = rebuild_on_devices(old, survivors)
+        restore_state(new, good)
+        self.tally = new
+        self._dirty = False
+        self.coordinator.rebind(new)
+        self.coordinator.note_rollback("chip-lost")
+        self.coordinator.c_reshards.inc()
+        self.recovery_stats["rollbacks"] += 1
+        self.recovery_stats["reshards"] += 1
+        self._good = snapshot_state(new)
+        self.checkpoint()
 
     def _source_chunk_with_retry(
         self, move, chunk, source, kwargs

@@ -672,6 +672,8 @@ def _partitioned_payload(tally, host: bool = True) -> tuple[dict, dict]:
     }
     if host:
         meta["mesh_fingerprint"] = _fingerprint(tally)
+    else:  # the slabs' layout, for a restore onto another partition
+        meta["partition"] = tally.partition
     q = tally._quarantined
     arrays = {
         "flux": (tally.raw_flux if host
@@ -699,10 +701,21 @@ def _apply_partitioned(tally, meta: dict, arrays: dict) -> None:
     particle state, and the slot state when the payload's layout is the
     tally's (else the next ``run_source_moves`` re-distributes). Then the
     derived state: the batch-sd snapshot and the convergence batches."""
-    from ..parallel.mesh_partition import disassemble_global_flux
+    from ..parallel.mesh_partition import (
+        assemble_global_flux,
+        disassemble_global_flux,
+    )
 
     dtype, dev = tally.config.dtype, tally.device
     flux = arrays["flux"]
+    src = meta.get("partition")
+    if isinstance(flux, torch.Tensor) and src is not None and (
+            src is not tally.partition):
+        # A snapshot of another layout (the elastic rebuild): through
+        # the global element order, a permutation each way.
+        G = tally.config.n_groups
+        flux = assemble_global_flux(src, flux.view(
+            src.n_parts, src.max_local, G, 2))
     if isinstance(flux, torch.Tensor):
         tally.flux_slabs = _fresh(flux, dtype, dev)
     else:

@@ -65,6 +65,18 @@ GATHERS = ("merged", "split")
 COMPACT_STAGE_NAMES = ("auto", "plan", "adaptive")
 
 
+def dense_ladder(n_particles: int) -> tuple:
+    """The dense compaction ladder of the JAX package's
+    ``compact_stages="auto"`` (own copy): stage widths tracking an
+    exponential decay of the active lanes."""
+    M = n_particles
+    return (
+        (8, 5 * M // 8), (16, 3 * M // 8), (24, M // 4),
+        (32, M // 8), (48, max(M // 16, 256)),
+        (64, max(M // 32, 256)), (96, max(M // 64, 256)),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class TallyConfig:
     """Static configuration of a port :class:`PumiTally` run (see the module
@@ -337,6 +349,43 @@ class TallyConfig:
         if self.record_xpoints is not None or self.checkify_invariants:
             return "legacy"
         return mode
+
+    def resolve_compaction(self, n_particles: int) -> tuple:
+        """``(compact_after, compact_size)`` as the JAX package resolves
+        them: off below 1024 lanes, the size ``max(256, n // 8)`` unless
+        set, at most n. The partitioned step walks its first phase's
+        crossing budgets by them (ops/walk_partitioned.py)."""
+        if self.compact_after is None or n_particles < 1024:
+            return None, None
+        size = self.compact_size
+        if size is None:
+            size = max(256, n_particles // 8)
+        return self.compact_after, min(size, n_particles)
+
+    def resolve_compact_stages(self, n_particles: int,
+                               ntet: int | None = None) -> tuple | None:
+        """A configured stage schedule clamped to the batch (None when
+        unset or below 1024 lanes), as the JAX package resolves it:
+        ``"auto"`` is the dense ladder with its starts scaled by mesh
+        density. ``"plan"`` and ``"adaptive"`` plan with
+        ``utils/ladder.py`` (ROADMAP.md A10) and raise here."""
+        if self.compact_stages is None or n_particles < 1024:
+            return None
+        if isinstance(self.compact_stages, str):
+            if self.compact_stages != "auto":
+                raise NotImplementedError(
+                    f"compact_stages={self.compact_stages!r} plans the "
+                    "schedule with utils/ladder.py, not ported yet "
+                    "(ROADMAP.md A10); use 'auto' or an explicit schedule")
+            density = ((max(ntet, 1) / 998250.0) ** (1.0 / 3.0)
+                       if ntet is not None else 1.0)
+            scale = max(1.0, density)
+            return tuple((int(round(start * scale)), *rest)
+                         for start, *rest in dense_ladder(n_particles))
+        return tuple(
+            (int(start), min(max(int(size), 1), n_particles),
+             *(int(u) for u in rest))
+            for start, size, *rest in self.compact_stages)
 
     def resolve_max_crossings(self, ntet: int) -> int:
         if self.max_crossings is not None:

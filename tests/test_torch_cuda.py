@@ -26,6 +26,8 @@ walked one after another.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1506,3 +1508,84 @@ def test_partitioned_megastep_kernels_match_plain(cuda, dtype):
     for f in ("position", "elem", "material_id", "weight", "group",
               "particle_id", "valid", "alive", "flux", "readback"):
         assert torch.equal(getattr(k_, f), getattr(p_, f)), f
+
+
+# --------------------------------------------------------------------- #
+# The crossing budget's later rounds; the step in a one-rank NCCL group
+# --------------------------------------------------------------------- #
+STEP_OUT = ("position", "elem", "material_id", "done", "valid",
+            "particle_id", "track_length", "flux", "n_rounds", "n_segments",
+            "round_stats", "stats", "n_dropped")
+
+
+def _part_step(part, placed, dm, cuda, dtype, **kw):
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    step = wp.make_partitioned_step(dm, part, n_groups=4, **kw)
+    return step(placed["origin"], placed["dest"], placed["elem"],
+                torch.zeros_like(placed["valid"]), placed["material_id"],
+                placed["weight"], placed["group"], placed["particle_id"],
+                placed["valid"],
+                torch.zeros(part.n_parts, part.max_local * 8, dtype=dtype,
+                            device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_budget_rounds_kernel_matches_plain(cuda, dtype):
+    """max_crossings=6, the first phase compacted from crossing 3 (the
+    kernel restarts the chase hash's count there) and later rounds of 256
+    lanes: the later rounds' launches give the lanes that ran out a fresh
+    budget, through the kernel and through the plain walk phases on the
+    card, every output bitwise and the same lanes re-launched."""
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    mesh, part, placed = _part_inputs(dtype, cuda, 4, 1)
+    kw = dict(max_crossings=6, compact_after=3, compact_size=512,
+              followup_compact_size=256)
+    got = []
+    for plain in (False, True):
+        r0, l0 = wp.BUDGET_RELAUNCHES, wp.BUDGET_LANES
+        res = _part_step(part, placed, [cuda] * 4, cuda, dtype, plain=plain,
+                         **kw)
+        torch.cuda.synchronize()
+        got.append((res, wp.BUDGET_RELAUNCHES - r0, wp.BUDGET_LANES - l0))
+    (k, kr, kl), (p, pr, pl) = got
+    for name in STEP_OUT:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    assert (kr, kl) == (pr, pl) and kl > 0
+
+
+def test_one_rank_nccl_step_matches_stacked(cuda, tmp_path):
+    """The step over the MeshEntry mesh of a one-rank NCCL group (its
+    exchange, stop test and halo fold through the collectives) equals
+    the stacked step bit for bit; write_parallel_vtk on that rank writes
+    its piece and the index."""
+    import torch.distributed as dist
+
+    from pumiumtally_tpu_torch.parallel import multihost
+
+    mesh, part, placed = _part_inputs(torch.float32, cuda, 4, 1)
+    assert multihost.init_distributed(
+        "file://" + str(tmp_path / "rendezvous"), 1, 0, device=cuda,
+        group_of_one=True, timeout_s=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        dm = multihost.global_device_mesh(4)
+        assert [e.rank for e in dm] == [0] * 4
+        kw = dict(max_crossings=mesh.ntet + 8)
+        ranked = _part_step(part, placed, dm, cuda, torch.float32, **kw)
+        stacked = _part_step(part, placed, [cuda] * 4, cuda, torch.float32,
+                             **kw)
+        torch.cuda.synchronize()
+        for name in STEP_OUT:
+            assert torch.equal(getattr(ranked, name),
+                               getattr(stacked, name)), name
+        assert int(ranked.n_rounds[0]) >= 1
+        flux = np.zeros((mesh.ntet, 4, 2))
+        piece = multihost.write_parallel_vtk(str(tmp_path / "out"), mesh,
+                                             flux)
+        assert os.path.getsize(piece) > 100
+        assert "out_p0000.vtu" in (tmp_path / "out.pvtu").read_text()
+    finally:
+        dist.destroy_process_group()
+        multihost._initialized = False

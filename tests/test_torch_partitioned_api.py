@@ -4,7 +4,7 @@ port's PumiTally, on the CPU.
 Mirrors tests/test_partitioned_api.py's matches-PumiTally, VTK and
 batch-sd cases (its checkpoint case is in
 tests/test_torch_partitioned_checkpoint.py, its recorded-points case is
-ROADMAP.md A9c), and adds each refusal naming A9c. The JAX facade runs
+ROADMAP.md A9d), and adds each refusal naming A9d. The JAX facade runs
 three times,
 as module fixtures (float64, 8 parts, halo 1, packed; float32, 4 parts,
 halo 0, legacy; float64, 2 parts, halo 2, overlap), so every part
@@ -216,11 +216,11 @@ def test_partitioned_batch_sd_matches_pumitally(meshes):
 def test_unported_features_refused_naming_a9b(meshes, field, value):
     """The run features the JAX facade carries are accepted; the three
     debug surfaces that need the walk's feature × partitioned
-    instantiations are refused naming A9c."""
+    instantiations are refused naming A9d."""
     _, pm = meshes[torch.float64]
     cfg = TallyConfig(**_cfg(torch.float64, **{field: value}))
     if field in ("record_xpoints", "checkify_invariants", "sort_by_element"):
-        with pytest.raises(NotImplementedError, match="A9c"):
+        with pytest.raises(NotImplementedError, match="A9d"):
             PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
     else:
         t = PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
@@ -230,7 +230,7 @@ def test_unported_features_refused_naming_a9b(meshes, field, value):
 
 def test_unported_calls_refused_naming_a9b(meshes, tmp_path):
     """Checkpoints and the device-sourced loop run; the recorded points
-    still raise as without record_xpoints (ROADMAP.md A9c)."""
+    still raise as without record_xpoints (ROADMAP.md A9d)."""
     _, pm = meshes[torch.float64]
     t = PartitionedTally(pm, N, TallyConfig(**_cfg(torch.float64)),
                          n_parts=2, device="cpu")

@@ -5,6 +5,7 @@
     python3 turns.py --tree DIR --gather
     python3 turns.py --tree DIR --sass
     python3 turns.py --tree DIR --flight [--reps N]
+    python3 turns.py --tree DIR --part [--reps N]
 
 Imports the package and the ``chip_smoke.py`` of the checkout at ``DIR``
 and builds its kernels. Without ``--gather`` it drives the checkout's main
@@ -50,6 +51,18 @@ events (median of 5 after a warm-up; ``--reps N`` adds the quartiles of
 N single calls) and the sha256 of its outputs' bytes (destinations,
 collision and roulette draws), so two checkouts' outputs compare bit for
 bit.
+
+With ``--part`` it times the checkout's partitioned walk phase
+(``walk_cuda.walk_rows``: schedule, walk kernel in its partitioned
+layout, ordered scatter) over the 55³-cell box in float32 cut into 4
+parts with a halo of 1, on 1,048,576 lanes, each from the centroid of an
+element drawn from numpy seed 5 toward an isotropic flight of mean 0.08
+(seed 6), 8 groups, the default bound (ntet + 64): the phase's first
+launch as ``make_partitioned_step`` gives it, whatever the checkout's
+later rounds. The last line is a JSON object of its CUDA events (median
+of 5 after a warm-up, with ``--reps N`` the quartiles of N single
+calls, a fresh flux each) and the sha256 of its per-lane outputs and the
+flux, so two checkouts' phases compare bit for bit.
 """
 from __future__ import annotations
 
@@ -72,6 +85,9 @@ def main() -> int:
                     help="digest the walk kernels' SASS instead")
     ap.add_argument("--flight", action="store_true",
                     help="time the checkout's flight kernel instead")
+    ap.add_argument("--part", action="store_true",
+                    help="time the checkout's partitioned walk phase "
+                    "instead")
     args = ap.parse_args()
     reps = args.reps
     tree = os.path.abspath(args.tree)
@@ -98,6 +114,10 @@ def main() -> int:
         return 0
     if args.flight:
         print(json.dumps(dict(tree=tree, **flight_ms(smoke, reps))),
+              flush=True)
+        return 0
+    if args.part:
+        print(json.dumps(dict(tree=tree, **part_ms(smoke, reps))),
               flush=True)
         return 0
     lines = []
@@ -280,6 +300,57 @@ def flight_ms(smoke, reps: int) -> dict:
             float(q) for q in np.percentile(t, [25, 50, 75])]
     smoke.log(f"[turns] flight: {out}")
     return out
+
+
+def part_ms(smoke, reps: int) -> dict:
+    """The checkout's partitioned walk phase on the partitioned cell's
+    shape (see the module's docstring): ms and output digests."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from pumiumtally_tpu_torch.mesh.box import build_box
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+    from pumiumtally_tpu_torch.parallel.mesh_partition import partition_mesh
+
+    mesh = build_box(1.0, 1.0, 1.0, 55, 55, 55, device="cuda")
+    part = partition_mesh(mesh, 4, halo_layers=1)
+    n, G = 1048576, 8
+    elem = np.random.default_rng(5).integers(0, mesh.ntet, n).astype(
+        np.int32)
+    origin = mesh.centroids().cpu().numpy().astype(np.float32)[elem]
+    rng = np.random.default_rng(6)
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    dest = (origin + u * rng.exponential(0.08, (n, 1))).astype(np.float32)
+    placed = wp.distribute_particles(part, None, elem, dict(
+        origin=origin, dest=dest, weight=np.ones(n, np.float32),
+        group=rng.integers(0, G, n).astype(np.int32),
+        material_id=np.full(n, -1, np.int32)))
+    args, kw = smoke.part_phase_inputs(part, placed)
+    kw = dict(kw, initial=False, n_groups=G, max_crossings=mesh.ntet + 64)
+
+    def flux():
+        return (torch.zeros(4 * part.max_local * G * 2, device="cuda"),)
+
+    f = flux()[0]
+    out, _ = walk_cuda.walk_rows(*args, f, **kw)
+    digest = hashlib.sha256()
+    for name in ("pos", "elem", "mat", "done", "pseg", "iters", "target"):
+        digest.update(out[name].cpu().numpy().tobytes())
+    digest.update(f.cpu().numpy().tobytes())
+    res = dict(part_ms=smoke.event_ms(
+        lambda fl: walk_cuda.walk_rows(*args, fl, **kw), 5, flux),
+        part_sha256=digest.hexdigest())
+    if reps:
+        t = [smoke.event_ms(lambda fl: walk_cuda.walk_rows(*args, fl, **kw),
+                            1, flux) for _ in range(reps)]
+        res["part_quartiles_ms"] = [
+            float(q) for q in np.percentile(t, [25, 50, 75])]
+    smoke.log(f"[turns] partitioned walk phase: {res}")
+    return res
 
 
 def device_ms(fn, calls: int = 3) -> dict:
