@@ -35,12 +35,14 @@ when the device mesh names no ranks). A step alternates
      that run out of budget there are found with the round's stop test
      and walk again, one launch a later round that takes one
      (``BUDGET_RELAUNCHES``; ``BUDGET_LANES`` counts the lanes), as the
-     JAX schedule gives them rounds. A
-     schedule of several stages walks each stage as a launch over the
-     lanes it takes, the phase's records folded in one scatter keyed by
-     the lanes' iterations in the phase. (A lane that the JAX rounds would
-     never take because lanes that ran out fill every round is walked
-     on here; ``BUDGET_STARVED`` counts such lanes.)
+     JAX schedule gives them rounds. A schedule of several stages walks
+     each stage as a launch over the lanes it takes, the phase's records
+     folded in one scatter keyed by the lanes' iterations in the phase. A
+     phase with later rounds folds its records after the stop test, so
+     that a lane the JAX rounds never take (lanes that ran out fill every
+     round; ``BUDGET_STARVED`` counts them) gets back its state from
+     before its first round, that round's counters and records taken
+     off.
   2. an *exchange*: pending lanes are bucketed by destination with a
      per-destination cumsum rank into ``E`` rows a destination, overflow
      staying resident for the next round; the send blocks
@@ -501,17 +503,21 @@ def make_partitioned_step(
             """Walk ``slots`` (sorted) for at most ``bound`` iterations;
             their tally records join ``records`` keyed as if the phase's
             iterations ``it0`` before had been this launch's. Returns the
-            lanes' outputs and their parts."""
+            lanes' outputs, their parts and the lanes' state before the
+            launch."""
             p = part_of[slots]
             keys = slots + gslot0
             if it0 is not None:
                 keys = keys + it0.to(torch.int64) * stride
-            rows = (p * max_local + elem[slots]).to(torch.int32)
+            ins = dict(cur=cur[slots], rows=(p * max_local + elem[slots]).to(
+                torch.int32), mat=material_id[slots], pseg=pseg[slots],
+                prev=prev[slots], stuck=stuck[slots])
             out, rec = walk_fn(
-                tables, cur[slots], dest[slots], rows, weight[slots],
-                group[slots], material_id[slots], pseg[slots], prev[slots],
-                stuck[slots], keys, flat, stride=stride, capacity=cap_records,
-                max_crossings=bound, reset=reset, **walk_kw)
+                tables, ins["cur"], dest[slots], ins["rows"], weight[slots],
+                group[slots], ins["mat"], ins["pseg"], ins["prev"],
+                ins["stuck"], keys, flat, stride=stride,
+                capacity=cap_records, max_crossings=bound, reset=reset,
+                **walk_kw)
             cur[slots] = out["pos"]
             elem[slots] = out["elem"]
             material_id[slots] = out["mat"]
@@ -526,7 +532,7 @@ def make_partitioned_step(
             nseg.index_add_(0, p, out["nseg"].to(torch.int64))
             if records is not None and rec is not None:
                 records.append(rec)
-            return out, p
+            return out, p, ins
 
         def fold(records):
             if records:
@@ -535,7 +541,9 @@ def make_partitioned_step(
         def walk_phase(rnd, stages, cap_records=None):
             """One walk phase in the JAX phase's schedule. Returns each
             part's iterations (the longest lane's) and, when the schedule
-            has compacted rounds, what ``rounds`` needs: their lanes."""
+            has compacted rounds, what ``rounds`` needs: the phase's
+            records, not yet folded, and the last launch's lanes, their
+            state before it and what it added to the counters."""
             slots = torch.nonzero(active())[:, 0].contiguous()
             iters = torch.zeros(P_l, dtype=torch.int64, device=dev)
             if slots.numel() == 0:
@@ -545,51 +553,93 @@ def make_partitioned_step(
                   else min(stages[0][0], max_crossings))
             with _span(dev, "walk", rnd):
                 if b0 >= max_crossings:  # one loop, one budget
-                    out, p = walk(slots, max_crossings, 0, records=records,
-                                  cap_records=cap_records)
+                    out, p, _ = walk(slots, max_crossings, 0,
+                                     records=records, cap_records=cap_records)
                     lane_it = out["iters"].to(torch.int64)
                     final = None
                 elif len(stages) == 1:
                     # Iterations b0.. are each lane's first compacted round
                     # (a fresh count, a fresh budget): one launch.
-                    out, p = walk(slots, b0 + max_crossings, b0,
-                                  records=records, cap_records=cap_records)
+                    mark = len(records)
+                    out, p, ins = walk(slots, b0 + max_crossings, b0,
+                                       records=records,
+                                       cap_records=cap_records)
                     lane_it = out["iters"].to(torch.int64)
-                    final = (slots, lane_it > b0,
-                             _ran_out(out, b0 + max_crossings))
+                    final = (slots, lane_it > b0, b0 + max_crossings, b0,
+                             out, ins)
                 else:
                     lane_it = torch.zeros(total, dtype=torch.int64,
                                           device=dev)
                     if b0 > 0:
-                        out, _ = walk(slots, b0, 0, records=records,
-                                      cap_records=cap_records)
+                        out, _, _ = walk(slots, b0, 0, records=records,
+                                         cap_records=cap_records)
                         lane_it[slots] = out["iters"].to(torch.int64)
                     for i, (start, size, *_r) in enumerate(stages[:-1]):
                         span = min(stages[i + 1][0], max_crossings) - start
                         sub = _first_active(active(), P_l, cap,
                                             min(cap, max(int(size), 1)))
                         if span > 0 and sub.numel():
-                            out, _ = walk(sub, span, 0, lane_it[sub],
-                                          records)
+                            out, _, _ = walk(sub, span, 0, lane_it[sub],
+                                             records)
                             lane_it[sub] += out["iters"].to(torch.int64)
                     last = torch.nonzero(active())[:, 0].contiguous()
-                    final = None
+                    final, mark = None, len(records)
                     if last.numel():
-                        out, _ = walk(last, max_crossings, 0, lane_it[last],
-                                      records)
+                        out, _, ins = walk(last, max_crossings, 0,
+                                           lane_it[last], records)
                         lane_it[last] += out["iters"].to(torch.int64)
                         final = (last, torch.ones_like(last, dtype=torch.bool),
-                                 _ran_out(out, max_crossings))
+                                 max_crossings, 0, out, ins)
                     lane_it, p = lane_it[slots], part_of[slots]
-                fold(records)
+                if final is None:
+                    fold(records)
             iters.scatter_reduce_(0, p, lane_it, "amax")
             if final is None:
                 return iters, None
-            lanes, entered, ran_out = final
-            return iters, dict(slots=lanes, entered=entered,
-                               ran_out=entered & ran_out,
-                               S=min(cap, max(int(stages[-1][1]), 1)),
-                               iters=iters)
+            lanes, entered, bound, cut, out, ins = final
+            return iters, dict(
+                slots=lanes, entered=entered,
+                ran_out=entered & _ran_out(out, bound),
+                S=min(cap, max(int(stages[-1][1]), 1)), iters=iters,
+                records=records, cut=cut, ins=ins,
+                last=mark if len(records) > mark else None,
+                added={k: out[k] for k in ("ncross", "nchase", "nseg")})
+
+        def unwalk(ph, lanes: list) -> None:
+            """Lanes that the JAX rounds never take (lanes that ran out
+            fill every round) keep their state from before the phase's
+            last launch, walked on for its first ``cut`` iterations (the
+            compacted phase's full-width ones), as the JAX step leaves
+            them: their state goes back to the launch's inputs, what the
+            launch added to the counters comes off, the launch's records
+            of their later iterations are dropped, and the first ``cut``
+            iterations walk again, their records not kept (the launch's
+            are)."""
+            sl = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
+            at = torch.searchsorted(ph["slots"], sl)
+            ins, added, cut = ph["ins"], ph["added"], ph["cut"]
+            if ph["last"] is not None:  # the last launch's records
+                bins, order, c = ph["records"][ph["last"]]
+                drop = (torch.isin(order % stride, sl + gslot0)
+                        & (order // stride >= cut))
+                ph["records"][ph["last"]] = (bins[~drop], order[~drop],
+                                             c[~drop])
+            cur[sl] = ins["cur"][at]
+            elem[sl] = (ins["rows"][at].long()
+                        - part_of[sl] * max_local).to(torch.int32)
+            material_id[sl] = ins["mat"][at]
+            pseg[sl] = ins["pseg"][at]
+            prev[sl] = ins["prev"][at]
+            stuck[sl] = ins["stuck"][at]
+            done[sl] = False
+            target[sl] = -1
+            target_elem[sl] = 0
+            ncross[sl] -= added["ncross"][at]
+            nchase[sl] -= added["nchase"][at]
+            nseg.index_add_(0, part_of[sl],
+                            -added["nseg"][at].to(torch.int64))
+            if cut:
+                walk(sl, cut, 0)
 
         def rounds(ph):
             """The JAX phase's later compacted rounds, for lanes that ran
@@ -597,7 +647,7 @@ def make_partitioned_step(
             part, each taking its first S active lanes in slot order; a
             lane walks again (a fresh budget and count) in each round that
             takes it after its first. One launch a round that takes such
-            a lane; its records fold after the phase's."""
+            a lane; its records fold after the phase's, in round order."""
             global BUDGET_RELAUNCHES, BUDGET_LANES, BUDGET_STARVED
             S = ph["S"]
             sl = ph["slots"][ph["entered"]].cpu().numpy()
@@ -607,6 +657,7 @@ def make_partitioned_step(
             again = [set(sl[(part == q) & ran_out].tolist())
                      for q in range(P_l)]
             seen = [set() for _ in range(P_l)]
+            later = []
             for _ in range(-(-cap // S) + 1):
                 if not any(qu.size for qu in queues):
                     break
@@ -620,9 +671,9 @@ def make_partitioned_step(
                     BUDGET_LANES += len(need)
                     sub = torch.as_tensor(need, dtype=torch.int64,
                                           device=dev)
-                    recs = []
-                    out, p = walk(sub, max_crossings, 0, records=recs)
-                    fold(recs)
+                    later.append([])
+                    out, p, _ = walk(sub, max_crossings, 0,
+                                     records=later[-1])
                     ph["iters"].scatter_reduce_(
                         0, p, out["iters"].to(torch.int64), "amax")
                     still = _ran_out(out, max_crossings).tolist()
@@ -634,9 +685,14 @@ def make_partitioned_step(
                                        for s in taken[q].tolist()], bool)
                     queues[q] = np.concatenate(
                         [taken[q][keep], queues[q][len(taken[q]):]])
-            BUDGET_STARVED += sum(
-                sum(s not in se for s in qu.tolist())
-                for qu, se in zip(queues, seen))
+            starved = sorted(s for qu, se in zip(queues, seen)
+                             for s in qu.tolist() if s not in se)
+            if starved:
+                BUDGET_STARVED += len(starved)
+                unwalk(ph, starved)
+            fold(ph["records"])
+            for recs in later:
+                fold(recs)
 
         def exchange(rnd):
             with _span(dev, "exchange", rnd):
@@ -651,27 +707,33 @@ def make_partitioned_step(
         round_stats = torch.zeros(P_l, 6, rounds_bound,
                                   dtype=torch.int64, device=dev)
 
-        def settle(ph, col):
-            """Run the phase's later rounds; the phase's iterations in
-            ``round_stats`` (the first phase's are ``w0`` itself)."""
-            rounds(ph)
-            if col is not None:
+        def settle(ph, col, later_rounds: bool) -> None:
+            """Fold a phase with compacted rounds: its later rounds first
+            when lanes ran out (its iterations in ``round_stats``; the
+            first phase's are ``w0`` itself)."""
+            with _span(dev, "walk", 0 if col is None else col + 1):
+                if later_rounds:
+                    rounds(ph)
+                else:
+                    fold(ph["records"])
+            if later_rounds and col is not None:
                 round_stats[:, 5, col] = ph["iters"]
 
         rnd = 0
         while True:
             col = rnd - 1 if rnd else None
             if rnd >= rounds_bound:
-                if ph is not None and bool(ph["ran_out"].any()):
-                    settle(ph, col)
+                if ph is not None:
+                    settle(ph, col, bool(ph["ran_out"].any()))
                 break
             ROUND_WAITS += 1
             n_pend, path, n_out, mine_out = comm.stop_test(
                 valid & (target >= 0), cur, dest,
                 None if ph is None else ph["ran_out"], sizing)
+            if ph is not None:
+                settle(ph, col, mine_out > 0)
+                ph = None
             if n_out:
-                if mine_out:
-                    settle(ph, col)
                 ROUND_WAITS += 1
                 n_pend, path, _, _ = comm.stop_test(
                     valid & (target >= 0), cur, dest, None, sizing)

@@ -187,6 +187,35 @@ def test_compacted_chases_restart_their_count():
     assert not torch.equal(res.position, other.position)
 
 
+def test_starved_lanes_keep_their_state_like_jax():
+    """Two parts, max_crossings=2, the first phase compacted from
+    crossing 1 into rounds of 8 lanes (and later phases too) on a 6^3
+    box: lanes that ran out fill every round, so the JAX rounds never
+    take some active lanes, which keep their state from before the
+    phase's compacted rounds. The port walks every lane's first round in
+    one launch, so it puts those lanes back (state, counters, records)
+    and still agrees lane for lane."""
+    dtype = torch.float64
+    jm, pm = twin_meshes(dtype, nx=6, classes=(1, 2))
+    elem, origin, dest, weight, group = _batch(pm)
+    rng = np.random.default_rng(5)
+    extra = rng.integers(0, pm.ntet, N).astype(np.int32)
+    cen = pm.centroids().numpy()
+    batch = (np.concatenate([elem, extra]),
+             np.concatenate([origin, cen[extra]]),
+             np.concatenate([dest, np.clip(cen[extra] + rng.uniform(
+                 -0.9, 0.9, (N, 3)), -0.2, 1.2)]),
+             np.concatenate([weight, rng.uniform(0.5, 2.0, N)]),
+             np.concatenate([group, rng.integers(0, 2, N).astype(np.int32)]))
+    kw = dict(max_crossings=2, compact_after=1, compact_size=8,
+              followup_compact_size=8)
+    jres = _jax_step(jm, 2, batch, dtype, **kw)
+    s0 = pwp.BUDGET_STARVED
+    res = _port_step(pm, 2, batch, dtype, **kw)
+    _assert_steps_agree(res, jres, dtype)
+    assert pwp.BUDGET_STARVED > s0
+
+
 def test_default_bound_adds_no_launch(meshes, monkeypatch):
     """At the default bound (ntet + 64) no lane runs out: one walk a
     phase, as before the repair."""
