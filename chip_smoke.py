@@ -190,7 +190,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    within rtol 1e-5 + atol 1e-5, segments equal, the conservation
    residual <= 1e-4, the flux bitwise the counted run's), a profiled run
    (the card's busy share), and move 1's first walk phase at full width
-   kernel against plain, timed beside its bound; (d) ``io_pipeline``
+   as the facade's step makes it (one launch with the step's budget and
+   count restart, then the ordered fold of its records) kernel against
+   plain, timed beside its bound; (d) ``io_pipeline``
    "legacy" and "overlap": the packed run's flux and write-backs bitwise.
 17. the partitioned source loop (``[pmega]`` lines,
    ``PartitionedTally.run_source_moves``): (b) on a jittered 20^3 box in
@@ -228,9 +230,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    round's exchange in CUDA events and the peak device memory; (e)
    ``write_parallel_vtk`` on that rank (the piece holds the mesh's cells,
    the index names it); (c) ``chip_down_at_move:2,chip:2`` under
-   ``ResilientRunner`` on the 4-part cell: rebuilt on 3 parts, 3 moves
-   finished, the recovery seconds, segments and flux sum within 1e-4 of
-   a fault-free 3-part run; (d) two ``DepletionLoop`` steps in megastep
+   ``ResilientRunner`` on the 4-part cell: rebuilt on 3 parts, the
+   cell's 4 moves finished, the recovery seconds, segments and flux sum
+   within 1e-4 of phase 16 (c)'s fault-free 4-part counted run; (d) two ``DepletionLoop`` steps in megastep
    mode on a two-region 20^3 box (65,536 particles): the densities fall.
 
 The last two lines of standard output are the card line and the result
@@ -3192,8 +3194,11 @@ def part_kernel_vs_plain() -> dict:
                 f0 = torch.zeros(PART_PARTS * L * G * 2, dtype=dtype,
                                  device=mesh.device)
                 fk, fp = f0.clone(), f0.clone()
-                k, _ = walk_cuda.walk_rows(*args, fk, **kw)
-                p, _ = wp.walk_rows_plain(*args, fp, **kw)
+                k, rk = walk_cuda.walk_rows(*args, fk, **kw)
+                p, rp = wp.walk_rows_plain(*args, fp, **kw)
+                for f, r, plain in ((fk, rk, False), (fp, rp, True)):
+                    if r is not None:
+                        wp.fold_records(f, [r], True, f.numel() // 2, plain)
                 torch.cuda.synchronize()
                 bad = [f for f in PHASE_FIELDS if not torch.equal(k[f], p[f])]
                 frozen = int((p["target"] >= 0).sum())
@@ -3348,7 +3353,10 @@ def part_run(mesh, inputs, io="packed", single=None, spans=False,
 
 def part_phase_timing(t, state, inputs) -> dict:
     """Move 1's first walk phase at full width, from the facade's state
-    before move 1: the kernel against the plain walk phase (bitwise) and
+    before move 1, as the facade's step makes it: one launch with the
+    step's budget (``compact_after`` + ``max_crossings``, the chase
+    hash's count restarting at ``compact_after``) and the ordered fold of
+    its records. The kernel against the plain walk phase (bitwise) and
     both timed (CUDA events, median of 5), with its bound."""
     from pumiumtally_tpu_torch.ops import walk_cuda
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
@@ -3360,20 +3368,35 @@ def part_phase_timing(t, state, inputs) -> dict:
         dest=want.astype(np.float32), weight=np.ones(n, np.float32),
         group=groups, material_id=state["mat"]), cap=t.cap)
     args, pkw = part_phase_inputs(t.partition, placed)
-    kw = dict(pkw, initial=False, n_groups=G,
-              max_crossings=t._step_kwargs["max_crossings"])
+    mc, ca = (t._step_kwargs[k] for k in ("max_crossings", "compact_after"))
+    reset = ca if ca is not None and ca < mc else 0
+    kw = dict(pkw, initial=False, n_groups=G, max_crossings=mc + reset,
+              reset=reset)
     L = t.partition.max_local
-    f0 = torch.zeros(PART_PARTS * L * G * 2, dtype=torch.float32,
-                     device=DEVICE)
+    nbins = PART_PARTS * L * G
+    f0 = torch.zeros(2 * nbins, dtype=torch.float32, device=DEVICE)
+
+    def kernel(f, lanes=args, **cap):
+        out, rec = walk_cuda.walk_rows(*lanes, f, **kw, **cap)
+        wp.fold_records(f, [rec], True, nbins, False)
+        return out, rec
+
+    def plain(f):
+        out, rec = wp.walk_rows_plain(*args, f, **kw)
+        wp.fold_records(f, [rec], True, nbins, True)
+        return out, rec
+
     fk, fp = f0.clone(), f0.clone()
-    k, records = walk_cuda.walk_rows(*args, fk, **kw)
-    p, _ = wp.walk_rows_plain(*args, fp, **kw)
+    k, records = kernel(fk)
+    p, _ = plain(fp)
     torch.cuda.synchronize()
+    records = records[0].numel()
     bad = [f for f in PHASE_FIELDS if not torch.equal(k[f], p[f])]
     err = max(float((k["pos"] - p["pos"]).abs().max()),
               float((fk - fp).abs().max()))
     log(f"[part] (c) move 1's first walk phase at full width: "
-        f"{args[1].shape[0]} lanes, {records} records, "
+        f"{args[1].shape[0]} lanes, bound {mc + reset}, count restart "
+        f"{reset}, {records} records, "
         f"{int((k['target'] >= 0).sum())} froze at cuts, fields differing "
         f"{bad}, flux bitwise {torch.equal(fk, fp)}")
     if bad or not torch.equal(fk, fp):
@@ -3384,15 +3407,13 @@ def part_phase_timing(t, state, inputs) -> dict:
         return (f0.clone(),)
 
     cap = dict(capacity=records)
-    ms = event_ms(lambda f: walk_cuda.walk_rows(*args, f, **kw, **cap), 5,
-                  fresh)
-    plain_ms = event_ms(lambda f: wp.walk_rows_plain(*args, f, **kw), 5,
-                        fresh)
+    ms = event_ms(lambda f: kernel(f, **cap), 5, fresh)
+    plain_ms = event_ms(plain, 5, fresh)
     # Rows the phase cannot avoid: start, end and every scored row (a
     # probe with unit weights into a zero flux).
     probe = f0.clone()
     ones = torch.ones_like(args[4])
-    walk_cuda.walk_rows(*args[:4], ones, *args[5:], probe, **kw, **cap)
+    kernel(probe, args[:4] + (ones,) + args[5:], **cap)
     hit = probe.view(-1, G, 2)[..., 0] > 0
     rows = hit.any(dim=1)
     rows[args[3].long()] = True
@@ -3402,8 +3423,9 @@ def part_phase_timing(t, state, inputs) -> dict:
         int(rows.sum()), PART_ROW[4], int(hit.sum()), 4,
         m * (PART_LANE_IN[4] + PART_LANE_OUT[4]),
         int(k["iters"].sum(dtype=torch.int64)), PART_FLOPS_PER_ITER)
-    log(f"[part] (c) walk phase kernel {ms:.4f} ms (walk_rows: schedule, "
-        f"walk, ordered scatter; median of 5), plain {plain_ms:.4f} ms; "
+    log(f"[part] (c) walk phase kernel {ms:.4f} ms (walk_rows and "
+        f"fold_records: schedule, walk, ordered scatter; median of 5), "
+        f"plain {plain_ms:.4f} ms; "
         f"distinct rows {int(rows.sum())} x {PART_ROW[4]} B, bins "
         f"{int(hit.sum())}, bytes {nbytes}, bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
@@ -3546,6 +3568,8 @@ def part_full_width(mesh, tmpdir: str) -> dict:
                 single_segments_per_s=sseg / sms * 1e3,
                 rounds=[r["part"]["rounds"] for r in run2["moves"]],
                 relaunches=[r["part"]["relaunches"] for r in run2["moves"]],
+                fault_free=dict(segments=run1["segments"], flux_sum=float(
+                    run1["raw_flux"][..., 0].astype(np.float64).sum())),
                 **timing)
 
 
@@ -4124,11 +4148,10 @@ def ranks_nccl(cell, tmpdir: str) -> dict:
         multihost._initialized = False
 
 
-def ranks_elastic(mesh, tmpdir: str) -> dict:
+def ranks_elastic(mesh, tmpdir: str, fault_free: dict) -> dict:
     """(c) a chip lost at move 2 of the 4-part cell under the runner:
-    rebuilt on 3 parts, the run finished, against a fault-free 3-part
-    run (segments and flux sum)."""
-    from pumiumtally_tpu_torch import PartitionedTally, TallyConfig
+    rebuilt on 3 parts, the run's 4 moves finished, against phase 16's
+    fault-free 4-part run of the same moves (segments and flux sum)."""
     from pumiumtally_tpu_torch.resilience.faultinject import (
         FaultInjector,
         parse_faults,
@@ -4138,49 +4161,43 @@ def ranks_elastic(mesh, tmpdir: str) -> dict:
 
     inputs = part_inputs()
     n = MAIN_PARTICLES
-
-    def drive(t, moves):
-        t.initialize_particle_location(inputs["pos"].reshape(-1))
-        for want, groups in inputs["moves"][:moves]:
-            t.move_to_next_location(want.reshape(-1).copy(),
-                                    np.ones(n, np.int8), np.ones(n), groups,
-                                    np.zeros(n, np.int32))
-
     t0 = time.perf_counter()
     run = ResilientRunner(
         part_tally(mesh), CheckpointStore(os.path.join(tmpdir, "cks"),
                                           shards=None),
         every_moves=1000, handle_signals=False, sleep=lambda s: None,
         faults=FaultInjector(parse_faults("chip_down_at_move:2,chip:2")))
-    drive(run, 3)
+    run.initialize_particle_location(inputs["pos"].reshape(-1))
+    for want, groups in inputs["moves"]:
+        run.move_to_next_location(want.reshape(-1).copy(),
+                                  np.ones(n, np.int8), np.ones(n), groups,
+                                  np.zeros(n, np.int32))
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     st = run.recovery_stats
     got = run.tally
-    ref = PartitionedTally(mesh, n, TallyConfig(n_groups=MAIN_GROUPS),
-                           n_parts=PART_PARTS - 1, halo_layers=PART_HALO,
-                           device=DEVICE)
-    drive(ref, 3)
     a = got.raw_flux.astype(np.float64)
-    b = ref.raw_flux.astype(np.float64)
-    seg_rel = abs(got.total_segments - ref.total_segments) / max(
-        ref.total_segments, 1)
-    sum_rel = abs(float(a[..., 0].sum() - b[..., 0].sum())) / float(
-        b[..., 0].sum())
+    ref_seg = fault_free["segments"]
+    seg_rel = abs(got.total_segments - ref_seg) / max(ref_seg, 1)
+    sum_rel = abs(float(a[..., 0].sum()) - fault_free["flux_sum"]) / (
+        fault_free["flux_sum"])
     health = run.coordinator.probe_chips()
-    log(f"[ranks] (c) chip 2 lost at move 2 of 3: rebuilt on "
+    moves = len(inputs["moves"])
+    log(f"[ranks] (c) chip 2 lost at move 2 of {moves}: rebuilt on "
         f"{got.n_parts} parts; recovery {st['recovery_seconds']:.3f} s "
         f"(rollbacks {st['rollbacks']}, reshards {st['reshards']}, lost "
-        f"moves {st['lost_moves']}); run {secs:.3f} s; against a fault-free "
-        f"3-part run: segments {got.total_segments} / {ref.total_segments} "
-        f"(rel {seg_rel:.3e}), flux sum rel {sum_rel:.3e}, survivors "
-        f"healthy {all(health.values())}")
+        f"moves {st['lost_moves']}); run {secs:.3f} s; against the "
+        f"fault-free {PART_PARTS}-part run: segments {got.total_segments} "
+        f"/ {ref_seg} (rel {seg_rel:.3e}), flux sum rel {sum_rel:.3e}, "
+        f"survivors healthy {all(health.values())}")
     if got.n_parts != PART_PARTS - 1 or st["reshards"] != 1 or \
-            got.iter_count != 3 or not np.isfinite(a).all() or \
+            got.iter_count != moves or not np.isfinite(a).all() or \
             seg_rel > 1e-4 or sum_rel > 1e-4 or not all(health.values()):
         raise AssertionError("the chip-loss recovery did not finish the "
                              "run on the survivors")
-    run.close()
+    # No final generation: (c) checks the recovery's, and a flush of this
+    # size takes 5-7 s of the smoke's time.
+    run.close(final_checkpoint=False)
     return dict(recovery_s=st["recovery_seconds"], run_s=secs,
                 seg_rel=seg_rel, sum_rel=sum_rel)
 
@@ -4224,7 +4241,8 @@ def ranks_depletion() -> dict:
     return dict(step_s=secs)
 
 
-def phase_ranks(mesh, part_counts, pmega_counts, tmpdir: str) -> dict:
+def phase_ranks(mesh, part_counts, pmega_counts, fault_free: dict,
+                tmpdir: str) -> dict:
     t0 = time.perf_counter()
     cell = ranks_cell(mesh)
     budget = ranks_budget(part_counts, pmega_counts, cell)
@@ -4235,7 +4253,7 @@ def phase_ranks(mesh, part_counts, pmega_counts, tmpdir: str) -> dict:
         f"{time.perf_counter() - t0:.2f} s")
     del cell
     t0 = time.perf_counter()
-    elastic = ranks_elastic(mesh, tmpdir)
+    elastic = ranks_elastic(mesh, tmpdir, fault_free)
     log(f"[phase] (c) chip loss: {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     depl = ranks_depletion()
@@ -4371,7 +4389,8 @@ def main() -> int:
         ranks = phase_ranks(
             tally.mesh, (pfull["launches"]["walk_partitioned"],
                          pfull["waits"]),
-            (pcount["walk_partitioned"], pmega["counted"]["waits"]), tmpdir)
+            (pcount["walk_partitioned"], pmega["counted"]["waits"]),
+            pfull["fault_free"], tmpdir)
     log(f"[phase] partitioned tally across ranks: "
         f"{time.perf_counter() - t0:.2f} s")
 

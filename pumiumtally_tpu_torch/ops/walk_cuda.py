@@ -319,8 +319,8 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
               initial: bool, max_crossings: int, n_groups: int,
               score_squares: bool = True, tolerance: float = 1e-8,
               robust: bool = True, capacity: int | None = None,
-              reset: int = 0, fold: bool = True):
-    """One partitioned walk phase on the card (``csrc/walk.cu``'s
+              reset: int = 0):
+    """One partitioned walk launch on the card (``csrc/walk.cu``'s
     partitioned layout), for ``ops/walk_partitioned.py``: the m lanes
     walk from ``origin`` toward ``dest`` over the stacked parts' tables
     (``tables``: face planes, neighbor codes, classes, neighbor classes,
@@ -331,22 +331,21 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
     the chase hash counts iterations from ``reset``, as a compacted round
     of the JAX phase restarts its loop counter. ``material_id``,
     ``pseg``, ``prev`` and ``stuck`` are each lane's carried state
-    (read, not written). A move
-    scores into ``flux`` (the stacked flat slab, bins ``row · G + g``)
-    through the ordered scatter, records keyed ``it · stride +
-    slot[k]``. The lanes are scheduled by row (``lane_records``).
-    Returns ``(out, records)``: the per-lane outputs of ``_launch``
-    (``elem`` part-local, ``target``/``target_elem`` the frozen lanes'
-    destination, -1 for the others) and the records made; with
-    ``fold=False`` the records ``(bin, order, c)`` themselves, not folded
-    (the caller folds a phase's launches in one ordered scatter). CPU
-    tensors take the plain version (``walk_partitioned.walk_rows_plain``;
-    its records count is None)."""
+    (read, not written). A move's tally records, for ``flux`` (the
+    stacked flat slab, bins ``row · G + g``), are keyed ``it · stride +
+    slot[k]``; ``walk_partitioned.fold_records`` folds them (a phase's
+    launches in one ordered scatter), ``flux`` itself is not written.
+    The lanes are scheduled by row (``lane_records``). Returns ``(out,
+    records)``: the per-lane outputs of ``_launch`` (``elem`` part-local,
+    ``target``/``target_elem`` the frozen lanes' destination, -1 for the
+    others) and the records ``(bin, order, c)`` (None for the initial
+    search). CPU tensors take the plain version
+    (``walk_partitioned.walk_rows_plain``)."""
     dev = origin.device
     kw = dict(stride=stride, max_local=max_local, initial=initial,
               max_crossings=max_crossings, n_groups=n_groups,
               score_squares=score_squares, tolerance=tolerance,
-              robust=robust, reset=reset, fold=fold)
+              robust=robust, reset=reset)
     if dev.type == "cpu":
         from .walk_partitioned import walk_rows_plain
 
@@ -370,14 +369,9 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
               part=part)
     if initial:
         lanes = lane_records(*args[:7], initial=True, nkeys=nrows)
-        return _launch(*args, **kw, ordered=False, lanes=lanes), (
-            0 if fold else None)
+        return _launch(*args, **kw, ordered=False, lanes=lanes), None
     out, rec = _walk_ordered(*args, **kw, capacity=capacity, nkeys=nrows)
-    if not fold:
-        return out, (rec.bin, rec.order, rec.c)
-    scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
-                         nrows * n_groups)
-    return out, rec.bin.numel()
+    return out, (rec.bin, rec.order, rec.c)
 
 
 def _check_cuda(mesh, origin, dest, elem, in_flight, weight, group,

@@ -79,7 +79,7 @@ import numpy as np
 import torch
 
 from ..obs.convergence import fold_and_reduce
-from ..utils.platform import resolve_device
+from ..parallel.ranks import RankLayout, rank_layout
 from .geometry import exit_face
 from .scatter import scatter_ordered_plain
 from .walk import _norm3, chase_face_choice, escalated_bump
@@ -193,13 +193,12 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
                     max_local: int, initial: bool, max_crossings: int,
                     n_groups: int, score_squares: bool = True,
                     tolerance: float = 1e-8, robust: bool = True,
-                    capacity=None, reset: int = 0, fold: bool = True):
+                    capacity=None, reset: int = 0):
     """The plain version of ``walk_cuda.walk_rows`` (same arguments, same
     outputs; ``capacity`` is ignored): the crossing body of the JAX
     ``_walk_phase`` over the m lanes, written operation for operation
-    like the kernel's partitioned layout. Returns ``(out, None)``, or
-    with ``fold=False`` ``(out, (bin, order, c))``: the records, not
-    folded."""
+    like the kernel's partitioned layout. Returns ``(out, (bin, order,
+    c))``, the records None when the launch made none."""
     del capacity
     normals_t, d_t, nbr_t, cls_t, nbrcls_t = tables
     dtype, dev = origin.dtype, origin.device
@@ -297,13 +296,11 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
         done = done | newly_done
         it += 1
     records = tuple(torch.cat(c) for c in zip(*held)) if held else None
-    if fold and records is not None:
-        scatter_ordered_plain(flux, *records, score_squares)
     out = dict(pos=cur, elem=(row - base).to(torch.int32), mat=mat,
                done=done, pseg=pseg, ncross=ncross, nchase=nchase, nseg=nseg,
                iters=iters, target=target, target_elem=target_elem,
                prev=prev, stuck=stuck.to(torch.int32))
-    return out, (None if fold else records)
+    return out, records
 
 
 @contextlib.contextmanager
@@ -365,7 +362,7 @@ def make_partitioned_step(
     the JAX ``make_partitioned_step``. ``device_mesh`` lists
     ``partition.n_parts`` entries: torch devices, all one device (the
     parts stacked there, ``particle_sharding.make_device_mesh``), or
-    entries carrying a rank and a device (``particle_sharding.MeshEntry``,
+    entries carrying a rank and a device (``parallel/ranks.py::MeshEntry``,
     ``parallel/multihost.py::global_device_mesh``), each rank's in one
     block, in rank order: this process walks its block of parts
     (``rank_layout``), stacked on its device, and the exchange, the stop
@@ -451,7 +448,7 @@ def make_partitioned_step(
     nbins = P_l * max_local * n_groups
     walk_kw = dict(max_local=max_local, initial=initial, n_groups=n_groups,
                    score_squares=score_squares, tolerance=tolerance,
-                   robust=robust, fold=False)
+                   robust=robust)
 
     def run(cur, dest, elem, done, material_id, weight, group, pid, valid,
             flux, conv=None, capacity=None):
@@ -536,7 +533,7 @@ def make_partitioned_step(
 
         def fold(records):
             if records:
-                _fold_records(flat, records, score_squares, nbins, plain)
+                fold_records(flat, records, score_squares, nbins, plain)
 
         def walk_phase(rnd, stages, cap_records=None):
             """One walk phase in the JAX phase's schedule. Returns each
@@ -1014,60 +1011,6 @@ def make_partitioned_megastep(
     return mega
 
 
-@dataclasses.dataclass(frozen=True)
-class RankLayout:
-    """The parts of a device mesh this process walks: parts ``lo`` to
-    ``hi`` on ``device``; ``bounds`` every rank's ``(lo, hi)`` in rank
-    order, or None when the mesh names no ranks (every part here)."""
-
-    lo: int
-    hi: int
-    device: torch.device
-    bounds: tuple | None = None
-    rank: int = 0
-
-
-def rank_layout(device_mesh) -> RankLayout:
-    """Where a device mesh puts the parts: entries without a rank (torch
-    devices) stack every part on their one device in this process;
-    entries with ``rank`` and ``device`` (``particle_sharding.MeshEntry``)
-    give each rank of the default process group its block, in rank
-    order."""
-    devs = list(device_mesh)
-    ranks = [getattr(d, "rank", None) for d in devs]
-    if all(r is None for r in ranks):
-        found = {resolve_device(d) for d in devs}
-        if len(found) != 1:
-            raise ValueError(
-                f"the parts of a mesh without ranks are stacked on one "
-                f"device, not {sorted(map(str, found))}; entries with a "
-                "rank and a device (particle_sharding.MeshEntry) spread "
-                "them over processes")
-        return RankLayout(0, len(devs), found.pop())
-    if any(r is None for r in ranks):
-        raise ValueError("either every entry of the mesh names a rank or "
-                         "none does")
-    import torch.distributed as dist
-
-    if not (dist.is_available() and dist.is_initialized()):
-        raise ValueError(
-            "a mesh over ranks needs the default process group "
-            "(parallel/multihost.py::init_distributed)")
-    world, me = dist.get_world_size(), dist.get_rank()
-    if ranks != sorted(ranks) or set(ranks) != set(range(world)):
-        raise ValueError(
-            f"the mesh's ranks {ranks} must be the group's {world} ranks, "
-            "each in one block, in rank order")
-    bounds = tuple((ranks.index(r), len(ranks) - ranks[::-1].index(r))
-                   for r in range(world))
-    lo, hi = bounds[me]
-    found = {resolve_device(d.device) for d in devs[lo:hi]}
-    if len(found) != 1:
-        raise ValueError(f"rank {me}'s parts must be on one device, not "
-                         f"{sorted(map(str, found))}")
-    return RankLayout(lo, hi, found.pop(), bounds, me)
-
-
 class Collectives:
     """The step's collectives over the ranks of a ``RankLayout``: the
     all_to_all of the exchange and of the halo fold, and the stop test's
@@ -1140,8 +1083,8 @@ def _first_active(active, n_local: int, cap: int, size: int):
     return torch.nonzero((m & (_row_ranks(m) < size)).view(-1))[:, 0]
 
 
-def _fold_records(flat, records: list, score_squares: bool, nbins: int,
-                  plain: bool) -> None:
+def fold_records(flat, records: list, score_squares: bool, nbins: int,
+                 plain: bool) -> None:
     """A phase's tally records, from one launch or several, folded into
     the stacked slab in one ordered scatter (bins in key order)."""
     bins, orders, cs = (x[0] if len(x) == 1 else torch.cat(x)

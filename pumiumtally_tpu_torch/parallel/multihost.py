@@ -4,7 +4,7 @@ Counterpart of ``pumiumtally_tpu/parallel/multihost.py``. Every process
 runs the same program; ``init_distributed`` joins them into the default
 process group (NCCL when the process's device is a CUDA card, gloo when
 it is the CPU), and a device mesh whose entries carry a rank and a
-device (``particle_sharding.MeshEntry``, built by ``global_device_mesh``)
+device (``ranks.MeshEntry``, built by ``global_device_mesh``)
 spreads the partitioned step's parts over the processes
 (``ops/walk_partitioned.py``: the exchange, the stop test and the halo
 fold become collectives) or the particle shards of
@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.platform import resolve_device
-from .particle_sharding import MeshEntry
+from .ranks import MeshEntry
 
 _initialized = False
 

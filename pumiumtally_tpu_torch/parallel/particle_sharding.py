@@ -5,7 +5,7 @@ particle axis is split into ``n`` shards, each shard walks its lanes over
 the whole mesh into its own partial flux row ``[n, ...]``, and
 ``reduce_flux`` sums the rows (the tally all-reduce). A device mesh is a
 list: torch devices, all one device (the shards walk one after the other
-in this process), or ``MeshEntry(rank, device)`` entries, each rank's in
+in this process), or ``ranks.MeshEntry(rank, device)`` entries, each rank's in
 one block in rank order (``multihost.global_device_mesh``): each process
 walks its own shards, and ``reduce_flux`` ends in a ``dist.all_reduce``
 over the default process group. Each shard walks with the port's walk
@@ -14,26 +14,15 @@ CPU).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from ..ops import walk_cuda
 from ..ops.walk import TraceResult
-from ..ops.walk_partitioned import rank_layout
 from ..utils.platform import resolve_device
+from .ranks import rank_layout
 
 PARTICLE_AXIS = "p"
-
-
-@dataclasses.dataclass(frozen=True)
-class MeshEntry:
-    """A mesh entry of a process group: the rank that holds it and that
-    rank's device."""
-
-    rank: int
-    device: torch.device
 
 
 def make_device_mesh(n_devices: int | None = None, device=None) -> list:

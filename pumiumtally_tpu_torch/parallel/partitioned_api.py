@@ -18,7 +18,7 @@ stacked on one device (``device=``, the CUDA card by default): on the card
 every walk phase is the walk kernel's partitioned layout, on the CPU its
 plain version. The facade runs in one process; the step over the ranks
 of a process group is ``ops/walk_partitioned.make_partitioned_step`` with
-a mesh of ``particle_sharding.MeshEntry`` entries.
+a mesh of ``ranks.MeshEntry`` entries.
 
 ``TallyConfig.io_pipeline``: "packed" (default) and "overlap" stage the
 slot distribution as ONE carrier record (``staging.pack_partitioned_
@@ -70,7 +70,6 @@ from ..ops.walk_partitioned import (
     collect_by_particle_id,
     distribute_particles,
     make_partitioned_step,
-    rank_layout,
 )
 from ..resilience import quarantine
 from ..utils.config import TallyConfig
@@ -78,6 +77,7 @@ from ..utils.platform import resolve_device
 from ..utils.timing import StepClock, TallyTimes, clock_step, phase_timer
 from .mesh_partition import assemble_global_flux, partition_mesh
 from .particle_sharding import make_device_mesh
+from .ranks import rank_layout
 
 _SEGMENTS = WALK_STATS_FIELDS.index("segments")
 _CROSSINGS = WALK_STATS_FIELDS.index("crossings")
@@ -145,6 +145,10 @@ class PartitionedTally:
                 "post-move hook, which PartitionedTally does not have; "
                 "use 'plan' (density-estimated) or an explicit schedule"
             )
+        if cfg.compact_stages is not None:
+            raise NotImplementedError(
+                "PartitionedTally: a compact_stages schedule is not ported "
+                "yet (ROADMAP.md A10); compact_after and compact_size are")
         if cfg.sd_mode not in ("segment", "batch"):
             raise ValueError(
                 f"sd_mode must be 'segment' or 'batch': {cfg.sd_mode!r}")
@@ -208,8 +212,6 @@ class PartitionedTally:
             tally_scatter=cfg.tally_scatter,
             compact_after=compact[0],
             compact_size=compact[1],
-            compact_stages=cfg.resolve_compact_stages(self.cap,
-                                                      ntet=mesh.ntet),
             exchange_size=exchange_size,
             max_rounds=max_rounds,
             integrity=self._integrity != "off",

@@ -31,7 +31,11 @@ packages. What the port does with each field:
   difference shows at the crossing bound: the JAX walk tests
   ``max_crossings`` once per block of ``unroll`` iterations, the port
   every iteration (as the JAX walk with ``unroll=1``), so with a bound
-  small enough to truncate walks the JAX walk lets lanes run past it;
+  small enough to truncate walks the JAX walk lets lanes run past it.
+  ``PartitionedTally`` reads ``compact_after`` and ``compact_size``
+  (``resolve_compaction``): its step gives each lane the crossing
+  budgets of the JAX step's compacted rounds. It refuses a
+  ``compact_stages`` schedule (ROADMAP.md A10);
 * accepted with the JAX package's validation and refusals, and then
   ignored: ``kernel`` ("xla", "pallas" or "auto", env
   ``PUMI_TPU_KERNEL``; ``resolve_kernel``) and ``pallas_lane_block``
@@ -63,18 +67,6 @@ KERNELS = ("xla", "pallas", "auto")
 TALLY_SCATTERS = ("auto", "interleaved", "pair")
 GATHERS = ("merged", "split")
 COMPACT_STAGE_NAMES = ("auto", "plan", "adaptive")
-
-
-def dense_ladder(n_particles: int) -> tuple:
-    """The dense compaction ladder of the JAX package's
-    ``compact_stages="auto"`` (own copy): stage widths tracking an
-    exponential decay of the active lanes."""
-    M = n_particles
-    return (
-        (8, 5 * M // 8), (16, 3 * M // 8), (24, M // 4),
-        (32, M // 8), (48, max(M // 16, 256)),
-        (64, max(M // 32, 256)), (96, max(M // 64, 256)),
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -361,31 +353,6 @@ class TallyConfig:
         if size is None:
             size = max(256, n_particles // 8)
         return self.compact_after, min(size, n_particles)
-
-    def resolve_compact_stages(self, n_particles: int,
-                               ntet: int | None = None) -> tuple | None:
-        """A configured stage schedule clamped to the batch (None when
-        unset or below 1024 lanes), as the JAX package resolves it:
-        ``"auto"`` is the dense ladder with its starts scaled by mesh
-        density. ``"plan"`` and ``"adaptive"`` plan with
-        ``utils/ladder.py`` (ROADMAP.md A10) and raise here."""
-        if self.compact_stages is None or n_particles < 1024:
-            return None
-        if isinstance(self.compact_stages, str):
-            if self.compact_stages != "auto":
-                raise NotImplementedError(
-                    f"compact_stages={self.compact_stages!r} plans the "
-                    "schedule with utils/ladder.py, not ported yet "
-                    "(ROADMAP.md A10); use 'auto' or an explicit schedule")
-            density = ((max(ntet, 1) / 998250.0) ** (1.0 / 3.0)
-                       if ntet is not None else 1.0)
-            scale = max(1.0, density)
-            return tuple((int(round(start * scale)), *rest)
-                         for start, *rest in dense_ladder(n_particles))
-        return tuple(
-            (int(start), min(max(int(size), 1), n_particles),
-             *(int(u) for u in rest))
-            for start, size, *rest in self.compact_stages)
 
     def resolve_max_crossings(self, ntet: int) -> int:
         if self.max_crossings is not None:

@@ -112,13 +112,14 @@ WORKER_PARTITIONED = textwrap.dedent("""
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
     from pumiumtally_tpu_torch.parallel.mesh_partition import (
         assemble_global_flux, partition_mesh)
+    from pumiumtally_tpu_torch.parallel.ranks import rank_layout
 
     n_parts = 8
     coords, tets = build_box_arrays(1.0, 1.0, 1.0, 4, 4, 4)
     mesh = TetMesh.from_numpy(coords, tets, dtype=torch.float64,
                               device="cpu")
     dm = global_device_mesh(n_parts // world, "cpu")
-    lay = wp.rank_layout(dm)
+    lay = rank_layout(dm)
     part = partition_mesh(mesh, n_parts, halo_layers=1,
                           parts=(lay.lo, lay.hi))
     assert part.n_held == n_parts // world
@@ -504,15 +505,15 @@ class TestShardsOverRanks:
     def test_reduce_flux_sums_the_ranks(self, monkeypatch):
         """particle_sharding.reduce_flux ends in one all_reduce when the
         mesh spans ranks (here two patched ranks)."""
-        from pumiumtally_tpu_torch.ops import walk_partitioned as pwp
         from pumiumtally_tpu_torch.parallel import particle_sharding as ps
+        from pumiumtally_tpu_torch.parallel.ranks import MeshEntry, RankLayout
 
-        mesh = [ps.MeshEntry(0, torch.device("cpu")),
-                ps.MeshEntry(1, torch.device("cpu"))]
+        mesh = [MeshEntry(0, torch.device("cpu")),
+                MeshEntry(1, torch.device("cpu"))]
         monkeypatch.setattr(
             ps, "rank_layout",
-            lambda dm: pwp.RankLayout(0, 1, torch.device("cpu"),
-                                      ((0, 1), (1, 2)), 0))
+            lambda dm: RankLayout(0, 1, torch.device("cpu"),
+                                  ((0, 1), (1, 2)), 0))
         seen = []
 
         def all_reduce(t):

@@ -330,3 +330,63 @@ def test_megastep_truncation_default_rounds_matches_jax(meshes):
                                       np.asarray(getattr(jt, f)), err_msg=f)
     np.testing.assert_allclose(t.raw_flux, np.asarray(jt.raw_flux),
                                rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("stages", ["auto", ((8, 512), (16, 256))],
+                         ids=["auto", "schedule"])
+def test_facade_refuses_stage_schedules(meshes, stages):
+    """PartitionedTally walks the crossing budgets of ``compact_after``
+    and ``compact_size``; a ``compact_stages`` schedule is refused at
+    construction, naming its ROADMAP item (the step itself takes one)."""
+    _, pm = meshes[torch.float64]
+    with pytest.raises(NotImplementedError, match="A10"):
+        PartitionedTally(pm, 2048, TallyConfig(dtype=torch.float64,
+                                               compact_stages=stages),
+                         n_parts=2, device="cpu")
+
+
+def test_timed_launch_is_the_steps_first_phase(meshes):
+    """What chip_smoke.py and turns.py time as the first walk phase, one
+    ``walk_rows`` launch with the step's budget (``compact_after`` +
+    ``max_crossings``, the chase count restarting at ``compact_after``)
+    and ``fold_records`` of its records, is the step's first walk phase:
+    the lanes' outputs and the slab flux bitwise (``max_rounds=0``, no
+    halo, so nothing else scores)."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    dtype = torch.float64
+    _, pm = meshes[dtype]
+    part = partition_mesh(pm, 4, halo_layers=0)
+    dm = make_device_mesh(4, "cpu")
+    elem, fields = _fields(_batch(pm), dtype)
+    placed = pwp.distribute_particles(part, dm, elem, fields)
+    mc, ca = pm.ntet + 64, 3
+    step = pwp.make_partitioned_step(
+        dm, part, n_groups=2, tolerance=1e-8, max_crossings=mc,
+        max_rounds=0, compact_after=ca, compact_size=32)
+    res = step(placed["origin"], placed["dest"], placed["elem"],
+               torch.zeros_like(placed["valid"]), placed["material_id"],
+               placed["weight"], placed["group"], placed["particle_id"],
+               placed["valid"],
+               torch.zeros(4, part.max_local * 4, dtype=dtype))
+    slots = torch.nonzero(placed["valid"])[:, 0]
+    total = placed["valid"].shape[0]
+    rows = ((slots // (total // 4)) * part.max_local
+            + placed["elem"][slots]).to(torch.int32)
+    m = slots.numel()
+    flux = torch.zeros(4 * part.max_local * 4, dtype=dtype)
+    out, rec = walk_cuda.walk_rows(
+        pwp.stacked_tables(part), placed["origin"][slots],
+        placed["dest"][slots], rows, placed["weight"][slots],
+        placed["group"][slots], placed["material_id"][slots],
+        torch.zeros(m, dtype=dtype), torch.full((m,), -1, dtype=torch.int32),
+        torch.zeros(m, dtype=torch.int32), slots, flux, stride=total,
+        max_local=part.max_local, initial=False, max_crossings=mc + ca,
+        n_groups=2, tolerance=1e-8, reset=ca)
+    pwp.fold_records(flux, [rec], True, flux.numel() // 2, False)
+    assert (out["target"] >= 0).any()  # lanes froze at cuts
+    assert torch.equal(flux, res.flux.view(-1))
+    for name, f in (("pos", "position"), ("elem", "elem"),
+                    ("mat", "material_id"), ("done", "done"),
+                    ("pseg", "track_length")):
+        assert torch.equal(out[name], getattr(res, f)[slots]), name

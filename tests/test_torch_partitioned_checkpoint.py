@@ -359,11 +359,12 @@ def test_runner_die_at_move_resume_bitwise(meshes, tmp_path):
 
 
 def test_chip_loss_still_names_a9c(meshes, tmp_path):
-    """A chip loss, which raised NotImplementedError naming A9c before
-    the elastic recovery was ported, now re-partitions the 4-part tally
-    onto its 3 survivors and finishes the move (the recovery's own tests:
-    tests/test_torch_elastic.py); the generation flushed at the rollback
-    point is the rebuilt layout's."""
+    """A chip loss re-partitions the 4-part tally onto its 3 survivors and
+    finishes the move; the generation flushed at the rollback point is
+    the rebuilt layout's (the recovery's own tests:
+    tests/test_torch_elastic.py). The name is the test's from before the
+    recovery was ported, when a chip loss raised NotImplementedError
+    naming A9c; nothing names A9c now."""
     t = _pt(meshes)
     run = ResilientRunner(
         t, str(tmp_path / "cks"), every_moves=1000, handle_signals=False,

@@ -495,6 +495,11 @@ def test_quarantined_lanes_ride_checkpoints(mesh, tmp_path):
 # Verdicts of the single-device coordinator
 # ===================================================================== #
 def test_chip_loss_flushes_last_good_and_names_a9(mesh, tmp_path):
+    """Chip loss on the plain facade flushes the last good generation and
+    re-raises the ChipLostError itself, as the JAX package does; so does
+    ``elastic=False``. The name is the test's from before the elastic
+    recovery was ported, when the loss raised NotImplementedError naming
+    A9; nothing names A9 now."""
     t = _fresh(mesh)
     run = ResilientRunner(
         t, str(tmp_path / "cks"), every_moves=1000, handle_signals=False,
@@ -502,8 +507,7 @@ def test_chip_loss_flushes_last_good_and_names_a9(mesh, tmp_path):
         sleep=lambda s: None)
     _drive(run, 1, 1)
     # The plain facade has no smaller mesh: the loss itself propagates
-    # after the flush, as in the JAX package (the A9 refusal it raised
-    # before the elastic recovery was ported is gone).
+    # after the flush.
     with pytest.raises(ChipLostError):
         run.move_to_next_location(*_inputs(2))
     assert run.store.find_latest()[0] == 1

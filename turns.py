@@ -53,13 +53,15 @@ collision and roulette draws), so two checkouts' outputs compare bit for
 bit.
 
 With ``--part`` it times the checkout's partitioned walk phase
-(``walk_cuda.walk_rows``: schedule, walk kernel in its partitioned
-layout, ordered scatter) over the 55³-cell box in float32 cut into 4
-parts with a halo of 1, on 1,048,576 lanes, each from the centroid of an
-element drawn from numpy seed 5 toward an isotropic flight of mean 0.08
-(seed 6), 8 groups, the default bound (ntet + 64): the phase's first
-launch as ``make_partitioned_step`` gives it, whatever the checkout's
-later rounds. The last line is a JSON object of its CUDA events (median
+(``walk_cuda.walk_rows`` and ``walk_partitioned.fold_records``:
+schedule, walk kernel in its partitioned layout, ordered scatter) over
+the 55³-cell box in float32 cut into 4 parts with a halo of 1, on
+1,048,576 lanes, each from the centroid of an element drawn from numpy
+seed 5 toward an isotropic flight of mean 0.08 (seed 6), 8 groups: the
+phase's first launch as ``make_partitioned_step`` gives it under the
+default ``TallyConfig`` (the bound ``compact_after`` + ntet + 64, the
+chase hash's count restarting at ``compact_after``), whatever the
+checkout's later rounds. The last line is a JSON object of its CUDA events (median
 of 5 after a warm-up, with ``--reps N`` the quartiles of N single
 calls, a fresh flux each) and the sha256 of its per-lane outputs and the
 flux, so two checkouts' phases compare bit for bit.
@@ -310,6 +312,7 @@ def part_ms(smoke, reps: int) -> dict:
     import numpy as np
     import torch
 
+    from pumiumtally_tpu_torch import TallyConfig
     from pumiumtally_tpu_torch.mesh.box import build_box
     from pumiumtally_tpu_torch.ops import walk_cuda
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
@@ -330,23 +333,29 @@ def part_ms(smoke, reps: int) -> dict:
         group=rng.integers(0, G, n).astype(np.int32),
         material_id=np.full(n, -1, np.int32)))
     args, kw = smoke.part_phase_inputs(part, placed)
-    kw = dict(kw, initial=False, n_groups=G, max_crossings=mesh.ntet + 64)
+    reset = TallyConfig().resolve_compaction(kw["stride"] // 4)[0] or 0
+    kw = dict(kw, initial=False, n_groups=G,
+              max_crossings=reset + mesh.ntet + 64, reset=reset)
+    nbins = 4 * part.max_local * G
 
     def flux():
-        return (torch.zeros(4 * part.max_local * G * 2, device="cuda"),)
+        return (torch.zeros(2 * nbins, device="cuda"),)
+
+    def phase(fl):
+        out, rec = walk_cuda.walk_rows(*args, fl, **kw)
+        wp.fold_records(fl, [rec], True, nbins, False)
+        return out
 
     f = flux()[0]
-    out, _ = walk_cuda.walk_rows(*args, f, **kw)
+    out = phase(f)
     digest = hashlib.sha256()
     for name in ("pos", "elem", "mat", "done", "pseg", "iters", "target"):
         digest.update(out[name].cpu().numpy().tobytes())
     digest.update(f.cpu().numpy().tobytes())
-    res = dict(part_ms=smoke.event_ms(
-        lambda fl: walk_cuda.walk_rows(*args, fl, **kw), 5, flux),
-        part_sha256=digest.hexdigest())
+    res = dict(part_ms=smoke.event_ms(phase, 5, flux),
+               part_sha256=digest.hexdigest())
     if reps:
-        t = [smoke.event_ms(lambda fl: walk_cuda.walk_rows(*args, fl, **kw),
-                            1, flux) for _ in range(reps)]
+        t = [smoke.event_ms(phase, 1, flux) for _ in range(reps)]
         res["part_quartiles_ms"] = [
             float(q) for q in np.percentile(t, [25, 50, 75])]
     smoke.log(f"[turns] partitioned walk phase: {res}")
