@@ -28,7 +28,8 @@ Phases, each of which raises (exit code != 0) on any failed check:
 5. kernel vs plain at the main path's shapes: the inputs of the main
    path's initial search and of its first move, replayed through the
    kernel and the plain walk, compared (flux bitwise) and timed with CUDA
-   events (median of 5); the ordered move is also timed in its two parts
+   events (the kernel a median of 5, the plain walk one call); the
+   ordered move is also timed in its two parts
    (walk into records, ordered scatter) and beside the atomic walk. The
    bound is the larger of two times: the bytes the walk must move (each
    distinct table row it needs once, each flux bin it scores read and
@@ -234,6 +235,36 @@ Phases, each of which raises (exit code != 0) on any failed check:
    cell's 4 moves finished, the recovery seconds, segments and flux sum
    within 1e-4 of phase 16 (c)'s fault-free 4-part counted run; (d) two ``DepletionLoop`` steps in megastep
    mode on a two-region 20^3 box (65,536 particles): the densities fall.
+19. the partitioned debug surfaces and the megastep over ranks
+   (``[debug]`` lines): (a) move 1 of the main path on the main mesh's
+   unpacked twin (its tables without geo20) with ``record_xpoints=8`` and
+   the checks, through the unpacked layout's feature instantiation against
+   the plain walk (counts, points, lanes and flux bitwise; the flux and
+   lanes bitwise the walk without features), and the walk call with the
+   features off and on in turns; (b) the partitioned cell (phase 16 (c):
+   seed 1, 4 parts, halo 1) through ``PartitionedTally`` with
+   ``record_xpoints=8`` and ``checkify_invariants`` for the initial
+   search and move 1 beside ``PumiTally`` with the points: counts equal,
+   points within 1e-5, the slabs bitwise phase 16 (c)'s after move 1,
+   every walk launch a feature launch of the partitioned layout; move
+   1's first walk phase with points through the partitioned layout's
+   feature instantiation against the plain walk phase (lanes, points,
+   counts and flux bitwise) and with and without points in turns (CUDA
+   events); the largest send buffer an exchange allocated
+   (``walk_partitioned.SEND_BYTES``, against phase 16 (c)'s) and the
+   peak device memory; (c) the
+   partitioned megastep cell's first chunk (phase 17's source and
+   staging, K = 8) stacked and over the ``MeshEntry`` mesh of a one-rank
+   NCCL group, every output bitwise; (d) on (b)'s tally one NaN
+   destination: ``checkify_invariants`` raises the JAX facade's
+   ValueError and leaves the tally as it was. Phases 5, 16 (a) and 16 (c)
+   time their plain walks with one call each (a median of 5 before),
+   which makes room for this phase and for the build's 16 more walk
+   instantiations.
+
+The peaks of device memory that phases 16 (c), 17 (c) and 19 (b) print
+follow a garbage collection (``settle_memory``): they count what is
+live, not earlier phases' objects that wait for Python's collector.
 
 The last two lines of standard output are the card line and the result
 JSON; before them one line carries the ``kernels`` JSON.
@@ -241,6 +272,7 @@ JSON; before them one line carries the ``kernels`` JSON.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -1003,7 +1035,8 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
         return (snap["flux"].clone(),)
 
     ms = event_ms(lambda f: walk_cuda.trace(*args, f, **kw, **cap), 5, fresh)
-    plain_ms = event_ms(lambda f: walk.trace(*args, f, **kw), 5, fresh)
+    # One call of the plain walk (0.8-1.8 s at this size) is its yardstick.
+    plain_ms = event_ms(lambda f: walk.trace(*args, f, **kw), 1, fresh)
     out = {}
     if not initial:
         wkw = {key: v for key, v in kw.items() if key != "initial"}
@@ -1040,7 +1073,7 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
         FP32_FLOPS if item == 4 else FP64_FLOPS
     ) * 1e3
     log(f"[kernel] walk, main-path {label}: {ms:.4f} ms (median of 5), "
-        f"plain {plain_ms:.4f} ms; lane iterations (row reads) {rows}, "
+        f"plain {plain_ms:.4f} ms (one call); lane iterations (row reads) {rows}, "
         f"their bytes {rows * 20 * item}, segments {segs}; distinct rows "
         f"{table_rows}, flux bins written {bins}, bytes that must move "
         f"{nbytes}, bytes bound {bytes_ms:.4f} ms, operations bound "
@@ -3105,7 +3138,8 @@ def part_unpacked(main_tally, main_snaps) -> dict:
         a = args if which == "packed" else targs
         turns[which].append(event_ms(
             lambda f, a=a: walk_cuda.trace(*a, f, **kw, **cap), 5, fresh))
-    plain_ms = event_ms(lambda f: walk.trace(*targs, f, **kw), 5, fresh)
+    # One call of the plain walk (~1.8 s at this size) is its yardstick.
+    plain_ms = event_ms(lambda f: walk.trace(*targs, f, **kw), 1, fresh)
     item = 4
     table_rows, bins = touched(twin, targs, dict(kw, **cap), ku.elem, True)
     iters = int(ku.lane_iters.sum(dtype=torch.int64))
@@ -3115,8 +3149,8 @@ def part_unpacked(main_tally, main_snaps) -> dict:
     ms = float(np.median(turns["unpacked"]))
     log(f"[part] (a) move 1 walk call (CUDA events, median of 5), in turns "
         f"packed, unpacked, unpacked, packed: packed {turns['packed']} ms, "
-        f"unpacked {turns['unpacked']} ms; plain (unpacked) {plain_ms:.4f} "
-        f"ms; distinct rows {table_rows} x {UNPACKED_ROW[item]} B (geo20 "
+        f"unpacked {turns['unpacked']} ms; plain (unpacked, one call) "
+        f"{plain_ms:.4f} ms; distinct rows {table_rows} x {UNPACKED_ROW[item]} B (geo20 "
         f"row 80 B), bins {bins}, bytes {nbytes}, bound {bound:.4f} ms "
         f"({by})")
     for kernel, line in walk_registers(
@@ -3126,7 +3160,8 @@ def part_unpacked(main_tally, main_snaps) -> dict:
     return dict(launches=launches["walk_unpacked"], ms=ms,
                 packed_ms=float(np.median(turns["packed"])),
                 turns=turns, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, max_abs_err=max(errs), stops=stops)
+                bound_by=by, max_abs_err=max(errs), stops=stops,
+                touched=(table_rows, bins, iters))
 
 
 def part_phase_inputs(part, placed):
@@ -3357,7 +3392,8 @@ def part_phase_timing(t, state, inputs) -> dict:
     step's budget (``compact_after`` + ``max_crossings``, the chase
     hash's count restarting at ``compact_after``) and the ordered fold of
     its records. The kernel against the plain walk phase (bitwise) and
-    both timed (CUDA events, median of 5), with its bound."""
+    both timed (CUDA events: the kernel a median of 5, the plain version
+    one call), with its bound."""
     from pumiumtally_tpu_torch.ops import walk_cuda
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
 
@@ -3408,7 +3444,7 @@ def part_phase_timing(t, state, inputs) -> dict:
 
     cap = dict(capacity=records)
     ms = event_ms(lambda f: kernel(f, **cap), 5, fresh)
-    plain_ms = event_ms(plain, 5, fresh)
+    plain_ms = event_ms(plain, 1, fresh)  # one call (~1.1 s)
     # Rows the phase cannot avoid: start, end and every scored row (a
     # probe with unit weights into a zero flux).
     probe = f0.clone()
@@ -3425,11 +3461,24 @@ def part_phase_timing(t, state, inputs) -> dict:
         int(k["iters"].sum(dtype=torch.int64)), PART_FLOPS_PER_ITER)
     log(f"[part] (c) walk phase kernel {ms:.4f} ms (walk_rows and "
         f"fold_records: schedule, walk, ordered scatter; median of 5), "
-        f"plain {plain_ms:.4f} ms; "
+        f"plain {plain_ms:.4f} ms (one call); "
         f"distinct rows {int(rows.sum())} x {PART_ROW[4]} B, bins "
         f"{int(hit.sum())}, bytes {nbytes}, bound {bound:.4f} ms ({by})")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                max_abs_err=err)
+                max_abs_err=err, bound_bytes=nbytes,
+                iters=int(k["iters"].sum(dtype=torch.int64)))
+
+
+def settle_memory() -> tuple[int, int]:
+    """Collect the cycles of earlier phases' objects and reset the peak,
+    so that the peak that follows counts what is live: the run's own
+    memory and what the smoke keeps. Returns (device bytes resident
+    after the collection, bytes it freed)."""
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return resident, held - resident
 
 
 def part_full_width(mesh, tmpdir: str) -> dict:
@@ -3448,10 +3497,14 @@ def part_full_width(mesh, tmpdir: str) -> dict:
         if when == "move 1":
             state.update(pos=t.positions.copy(), elem=t.elem_global.copy(),
                          mat=t.material_id.copy())
+        elif when == "move 2":  # the slabs after the search and move 1,
+            # on the host, so that no device memory outlives this phase
+            state["flux1"] = t.flux_slabs.cpu()
 
-    torch.cuda.reset_peak_memory_stats()
+    resident, collected = settle_memory()
     zero_counts()
     wp.ROUND_WAITS = 0
+    wp.SEND_BYTES = 0
     t0 = time.perf_counter()
     run1 = part_run(mesh, inputs, tmpdir=tmpdir, keep=keep)
     torch.cuda.synchronize()
@@ -3459,12 +3512,15 @@ def part_full_width(mesh, tmpdir: str) -> dict:
     launches = read_counts()
     launches["walk_partitioned"] = walk_cuda.PART_LAUNCHES
     waits = wp.ROUND_WAITS
+    send_bytes = wp.SEND_BYTES
     peak = torch.cuda.max_memory_allocated()
     log(f"[part] (c) run 1 (packed): {secs:.3f} s (construct "
         f"{run1['construct_s']:.3f} s, partition max_local "
         f"{run1['tally'].partition.max_local}, counts "
         f"{run1['tally'].partition.counts.tolist()}); launches {launches}; "
-        f"ROUND_WAITS {waits}; peak device memory {peak} bytes; .vtu "
+        f"ROUND_WAITS {waits}; largest send buffer {send_bytes} B; peak "
+        f"device memory {peak} bytes (resident before {resident} B, after "
+        f"a garbage collection that freed {collected} B); .vtu "
         f"{run1['vtu_bytes']} bytes")
     if not launches["walk_partitioned"] or launches["walk"] != \
             launches["walk_partitioned"]:
@@ -3570,7 +3626,7 @@ def part_full_width(mesh, tmpdir: str) -> dict:
                 relaunches=[r["part"]["relaunches"] for r in run2["moves"]],
                 fault_free=dict(segments=run1["segments"], flux_sum=float(
                     run1["raw_flux"][..., 0].astype(np.float64).sum())),
-                **timing)
+                flux1=state["flux1"], send_bytes=send_bytes, **timing)
 
 
 def phase_partitioned(main_tally, main_snaps, tmpdir: str) -> dict:
@@ -3793,7 +3849,7 @@ def pmega_full(mesh, tmpdir: str) -> dict:
     for which in ("part", "single", "single", "part"):
         t = pt if which == "part" else st
         if which == "part" and counted is None:
-            torch.cuda.reset_peak_memory_stats()
+            resident, collected = settle_memory()
             zero_counts()
             waits0 = wp.ROUND_WAITS
             wp.SPANS = []
@@ -3804,7 +3860,8 @@ def pmega_full(mesh, tmpdir: str) -> dict:
             wp.SPANS = None
             counted = dict(counts=counts, waits=wp.ROUND_WAITS - waits0,
                            spans=spans,
-                           peak=torch.cuda.max_memory_allocated())
+                           peak=torch.cuda.max_memory_allocated(),
+                           resident=resident, collected=collected)
         else:
             row = pmega_chunk(t, src, MEGA_K, **restage)
         row["which"] = which
@@ -3818,7 +3875,9 @@ def pmega_full(mesh, tmpdir: str) -> dict:
                "move)" if which == "part" else ""))
     c = counted["counts"]
     log(f"[pmega] (c) counted chunk: launches {c}; ROUND_WAITS "
-        f"{counted['waits']}; peak device memory {counted['peak']} bytes")
+        f"{counted['waits']}; peak device memory {counted['peak']} bytes "
+        f"(resident before the chunk {counted['resident']} B, after a "
+        f"garbage collection that freed {counted['collected']} B)")
     if c["source"] != MEGA_K or not c["walk_partitioned"] or \
             c["walk"] != c["walk_partitioned"]:
         raise AssertionError(f"(c) the partitioned megastep did not run "
@@ -4261,6 +4320,332 @@ def phase_ranks(mesh, part_counts, pmega_counts, fault_free: dict,
     return dict(budget=budget, nccl=nccl, elastic=elastic, depletion=depl)
 
 
+# --------------------------------------------------------------------- #
+# Phase 19: the partitioned debug surfaces and the megastep over ranks
+# --------------------------------------------------------------------- #
+DEBUG_K = 8  # recorded points kept a lane
+POINTS_LIMIT = 1e-5  # partitioned against PumiTally's points, float32
+
+
+def points_bound(nbytes: int, iters: int, flops: int, lanes: int,
+                 rows: int) -> tuple:
+    """(bound ms, "bytes" or "operations") of a walk whose ``nbytes``
+    without points grow by the points it records (``rows`` of 12 B in
+    float32) and each lane's count, read and written (8 B)."""
+    b = nbytes + 12 * rows + 8 * lanes
+    bytes_ms = b / HBM_BYTES_PER_S * 1e3
+    ops_ms = iters * flops / FP32_FLOPS * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"), b
+
+
+def debug_unpacked(main_tally, main_snaps, b1) -> dict:
+    """(a) C4: move 1 of the main path on the main mesh's unpacked twin
+    (its tables without geo20: phase 16 (a) walks a twin built with
+    ``packed=False`` bitwise the packed mesh) with ``record_xpoints=8``
+    and the checks, through
+    the unpacked layout's feature instantiation against the plain walk
+    (every lane, the counts, the points and the flux bitwise; the flux
+    and lanes bitwise the walk without features); the walk call with the
+    features off and on in turns (CUDA events, median of 5 each)."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    n, K = MAIN_PARTICLES, DEBUG_K
+    args, kw = replay_args(main_tally, main_snaps["move"], False)
+    twin = dataclasses.replace(main_tally.mesh, geo20=None)
+    targs = (twin,) + args[1:]
+    flux0 = main_snaps["move"]["flux"]
+    feat = dict(record_xpoints=K, debug_checks=True)
+    zero_counts()
+    walk_cuda.FEATURE_UNPACKED_LAUNCHES = 0
+    on = walk_cuda.trace(*targs, flux0.clone(), **kw, **feat)
+    torch.cuda.synchronize()
+    launches = walk_cuda.FEATURE_UNPACKED_LAUNCHES
+    off = walk_cuda.trace(*targs, flux0.clone(), **kw)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    plain = walk.trace(*targs, flux0.clone(), **kw, **feat)
+    b.record()
+    torch.cuda.synchronize()
+    plain_ms = a.elapsed_time(b)
+    err = compare(on, plain, torch.float32, 0.0, 0.0,
+                  "[debug] (a) unpacked twin move 1, points and checks")
+    counts = bool(torch.equal(on.n_xpoints, plain.n_xpoints))
+    points = bool(torch.equal(on.xpoints, plain.xpoints))
+    same_off = [f for f in ("flux", "position", "elem", "material_id",
+                            "done", "lane_iters")
+                if not torch.equal(getattr(on, f), getattr(off, f))]
+    rows = int(on.n_xpoints.clamp(max=K).sum(dtype=torch.int64))
+    log(f"[debug] (a) unpacked twin, move 1 with record_xpoints={K} and the "
+        f"checks: {launches} feature launch(es) of the unpacked layout; "
+        f"kernel vs plain counts bitwise {counts}, points bitwise {points}; "
+        f"fields differing from the walk without features {same_off}; "
+        f"points recorded {rows} (mean count "
+        f"{float(on.n_xpoints.double().mean()):.3f}, max "
+        f"{int(on.n_xpoints.max())})")
+    if not (counts and points and not same_off and launches >= 1):
+        raise AssertionError("(a) the unpacked feature instantiation "
+                             "disagrees with the plain walk")
+    cap = {"capacity": int(off.n_segments)}
+    turns: dict = {"off": [], "on": []}
+    for tag in ("off", "on", "on", "off"):
+        extra = feat if tag == "on" else {}
+        turns[tag].append(event_ms(
+            lambda f, e=extra: walk_cuda.trace(*targs, f, **kw, **cap, **e),
+            5, lambda: (flux0.clone(),)))
+    table_rows, bins, iters = b1["touched"]
+    _, _, nbytes = walk_bound(table_rows, UNPACKED_ROW[4], bins, 4,
+                              n * (LANE_IN[4] + LANE_OUT[4]), iters,
+                              FLOPS_PER_ITER)
+    bound, by, pbytes = points_bound(nbytes, iters, FLOPS_PER_ITER, n, rows)
+    on_ms, off_ms = (float(np.median(turns[t])) for t in ("on", "off"))
+    log(f"[debug] (a) move 1 walk call on the unpacked twin (CUDA events, "
+        f"median of 5), in turns off, on, on, off: off {turns['off']} ms, "
+        f"on {turns['on']} ms; plain with the features {plain_ms:.4f} ms "
+        f"(one call); bound with the points {bound:.4f} ms ({by}, {pbytes} "
+        f"B; without them {nbytes} B)")
+    return dict(launches=launches, on_ms=on_ms, off_ms=off_ms, turns=turns,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=err["max_abs_err"])
+
+
+def debug_partitioned(mesh, full) -> dict:
+    """(b) the partitioned cell through ``PartitionedTally`` with
+    ``record_xpoints=8`` (and ``checkify_invariants``, which forces
+    "legacy" with it) for the initial search and move 1, beside
+    ``PumiTally`` with the points: counts equal, points within
+    POINTS_LIMIT, the slabs bitwise phase 16 (c)'s after move 1 (points
+    off); every walk launch of the run a feature launch of the
+    partitioned layout; the first walk phase of move 1 with points,
+    kernel against plain (bitwise, points and counts too), and with and
+    without points in turns (CUDA events); the largest send buffer the
+    exchanges allocated (``SEND_BYTES``) and the peak device memory. (d) one NaN destination: ``checkify_invariants``
+    raises the JAX facade's ValueError and the tally is left as it
+    was."""
+    from pumiumtally_tpu_torch import PartitionedTally, PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    n, G, K, P = MAIN_PARTICLES, MAIN_GROUPS, DEBUG_K, PART_PARTS
+    inputs = part_inputs()
+    want, groups = inputs["moves"][0]
+    t = PartitionedTally(mesh, n, TallyConfig(
+        n_groups=G, record_xpoints=K, checkify_invariants=True),
+        n_parts=P, halo_layers=PART_HALO, device=DEVICE)
+    if t._io != "legacy":
+        raise AssertionError("the debug surfaces did not force legacy I/O")
+    torch.cuda.synchronize()
+    resident, collected = settle_memory()
+    zero_counts()
+    walk_cuda.FEATURE_PART_LAUNCHES = 0
+    wp.SEND_BYTES = 0
+    t.initialize_particle_location(inputs["pos"].reshape(-1))
+    state = dict(pos=t.positions.copy(), elem=t.elem_global.copy(),
+                 mat=t.material_id.copy())
+    dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
+    torch.cuda.synchronize()
+    s0 = time.perf_counter()
+    t.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n), groups,
+                            mats)
+    torch.cuda.synchronize()
+    move_ms = (time.perf_counter() - s0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    send_on, send_off = wp.SEND_BYTES, full["send_bytes"]
+    launches = read_counts()
+    feat = walk_cuda.FEATURE_PART_LAUNCHES
+    xp, cp = t.intersection_points()
+    single = PumiTally(mesh, n, TallyConfig(n_groups=G, record_xpoints=K),
+                       device=DEVICE)
+    single.initialize_particle_location(inputs["pos"].reshape(-1))
+    single.move_to_next_location(want.reshape(-1).copy(),
+                                 np.ones(n, np.int8), np.ones(n), groups,
+                                 np.zeros(n, np.int32))
+    xs, cs = single.intersection_points()
+    differ = int((cp != cs).sum())
+    pts_err = float(np.abs(xp - xs).max())
+    flux_same = bool(torch.equal(t.flux_slabs.cpu(), full["flux1"]))
+    cap = t.cap
+    log(f"[debug] (b) partitioned cell, record_xpoints={K}: move 1 "
+        f"{move_ms:.3f} ms host (legacy I/O), launches {launches}, feature "
+        f"launches of the partitioned layout {feat}; counts differing from "
+        f"PumiTally's {differ} of {n}, max|dpoint| {pts_err:.3e} (limit "
+        f"{POINTS_LIMIT:g}); crossings a lane mean "
+        f"{float(cp.astype(np.float64).mean()):.3f}, max {int(cp.max())}; "
+        f"slabs bitwise the points-off run's (phase 16 (c)) {flux_same}; "
+        f"largest send buffer {send_on} B (phase 16 (c)'s points-off run "
+        f"{send_off} B); peak device memory {peak} B (resident before "
+        f"{resident} B, after a garbage collection that freed {collected} "
+        f"B; phase 16 (c)'s points-off run {full['peak']} B)")
+    if differ or pts_err > POINTS_LIMIT or not flux_same or not feat or \
+            feat != launches["walk_partitioned"] or send_on <= send_off:
+        raise AssertionError("(b) the partitioned points disagree with "
+                             "PumiTally's, or the run changed the flux")
+    # Move 1's first walk phase with and without points, in turns.
+    placed = wp.distribute_particles(t.partition, None, state["elem"], dict(
+        origin=state["pos"].astype(np.float32),
+        dest=want.astype(np.float32), weight=np.ones(n, np.float32),
+        group=groups, material_id=state["mat"]), cap=cap)
+    args, pkw = part_phase_inputs(t.partition, placed)
+    mc, ca = (t._step_kwargs[k] for k in ("max_crossings", "compact_after"))
+    reset = ca if ca is not None and ca < mc else 0
+    kw = dict(pkw, initial=False, n_groups=G, max_crossings=mc + reset,
+              reset=reset)
+    nbins = P * t.partition.max_local * G
+    f0 = torch.zeros(2 * nbins, dtype=torch.float32, device=DEVICE)
+    m = args[1].shape[0]
+
+    def fresh_points():
+        return (torch.zeros(m, K, 3, dtype=torch.float32, device=DEVICE),
+                torch.zeros(m, dtype=torch.int32, device=DEVICE))
+
+    def phase(f, pts=None, **cap_kw):
+        extra = {} if pts is None else dict(record_xpoints=K, xpoints=pts)
+        out, rec = walk_cuda.walk_rows(*args, f, **kw, **extra, **cap_kw)
+        wp.fold_records(f, [rec], True, nbins, False)
+        return out, rec
+
+    fo, fn, fp = f0.clone(), f0.clone(), f0.clone()
+    o, rec = phase(fo)
+    w, _ = phase(fn, fresh_points())
+    # The partitioned feature instantiation against the plain walk phase
+    # with the same points, on the same inputs.
+    p, prec = wp.walk_rows_plain(*args, fp, **kw, record_xpoints=K,
+                                 xpoints=fresh_points())
+    wp.fold_records(fp, [prec], True, nbins, True)
+    torch.cuda.synchronize()
+    bad = [f for f in PHASE_FIELDS if not torch.equal(o[f], w[f])]
+    bad_plain = [f for f in PHASE_FIELDS + ("xp", "kx")
+                 if not torch.equal(w[f], p[f])]
+    log(f"[debug] (b) move 1's first walk phase with points, kernel vs "
+        f"plain: fields differing {bad_plain}, flux bitwise "
+        f"{torch.equal(fn, fp)}; against the kernel without points: "
+        f"fields differing {bad}, flux bitwise {torch.equal(fo, fn)}")
+    if bad or bad_plain or not torch.equal(fo, fn) or \
+            not torch.equal(fn, fp):
+        raise AssertionError(f"(b) the walk phase with points differs "
+                             f"{bad} {bad_plain}")
+    del p, prec, fp
+    cap_kw = dict(capacity=rec[0].numel())
+    turns: dict = {"off": [], "on": []}
+    for tag in ("off", "on", "on", "off"):
+        if tag == "on":
+            turns[tag].append(event_ms(
+                lambda f, pts: phase(f, pts, **cap_kw), 5,
+                lambda: (f0.clone(), fresh_points())))
+        else:
+            turns[tag].append(event_ms(lambda f: phase(f, **cap_kw), 5,
+                                       lambda: (f0.clone(),)))
+    prow = int(w["kx"].clamp(max=K).sum(dtype=torch.int64))
+    bound, by, pbytes = points_bound(full["bound_bytes"], full["iters"],
+                                     PART_FLOPS_PER_ITER, m, prow)
+    on_ms, off_ms = (float(np.median(turns[x])) for x in ("on", "off"))
+    log(f"[debug] (b) move 1's first walk phase ({m} lanes; walk_rows and "
+        f"fold_records, CUDA events, median of 5), in turns off, on, on, "
+        f"off: off {turns['off']} ms, on {turns['on']} ms; points recorded "
+        f"{prow}; bound with the points {bound:.4f} ms ({by}, {pbytes} B)")
+    # (d) checkify_invariants on the cell: one NaN destination.
+    bad_dest = want.reshape(-1).copy()
+    bad_dest[3 * (n // 2)] = np.nan
+    before, it0 = t.flux_slabs.clone(), t.iter_count
+    pos0 = t.positions.copy()
+    try:
+        t.move_to_next_location(bad_dest, np.ones(n, np.int8), np.ones(n),
+                                groups, np.zeros(n, np.int32))
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    kept = (torch.equal(t.flux_slabs, before) and t.iter_count == it0
+            and np.array_equal(t.positions, pos0))
+    log(f"[debug] (d) checkify_invariants, one NaN destination: raised "
+        f"{raised!r}; the tally left as it was {kept}")
+    if raised != "particle_destinations contains non-finite values" or \
+            not kept:
+        raise AssertionError("(d) the partitioned checks did not refuse the "
+                             "NaN destination")
+    return dict(launches=feat, move_ms=move_ms, pts_err=pts_err, peak=peak,
+                send_on=send_on, send_off=send_off, on_ms=on_ms,
+                off_ms=off_ms, turns=turns, bound_ms=bound, bound_by=by)
+
+
+def debug_megastep_ranks(mesh) -> dict:
+    """(c) the partitioned megastep cell's first chunk (bench.py's
+    megastep source, K = 8, 4 parts, halo 1; the lanes staged as phase 17
+    stages them) through the stacked megastep and over the MeshEntry mesh
+    of a one-rank NCCL group: every output bitwise (slot state, slabs,
+    the readback with its physics sums)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from pumiumtally_tpu_torch.ops import source
+    from pumiumtally_tpu_torch.parallel import multihost
+
+    n = MAIN_PARTICLES
+    src = source.SourceParams(default_sigma_t=MEGA_SIGMA_T, seed=1)
+    pt = pmega_tally(mesh, n, MEGA_K)
+    pt.initialize_particle_location(np.random.default_rng(1).uniform(
+        0.05, 0.95, (n, 3)).reshape(-1))
+    pt._ensure_source_state(np.ones(n), np.zeros(n, np.int32),
+                            np.ones(n, bool))
+    s, key = pmega_slots(pt), pt._rng_key(src.seed)
+
+    def chunk():
+        mega, capacity = pt._mega_prog(src, MEGA_K)
+        x = {k: v.clone() for k, v in s.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = mega(x["pos"], x["elem"], x["material_id"], x["weight"],
+                 x["group"], x["pid"], x["valid"], x["alive"], x["flux"],
+                 pt.iter_count, key, capacity=capacity)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    ref, s_secs = chunk()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    multihost.init_distributed(f"tcp://localhost:{port}", 1, 0,
+                               device=DEVICE, group_of_one=True,
+                               timeout_s=120)
+    try:
+        pt.device_mesh = multihost.global_device_mesh(PART_PARTS)
+        pt._mega_progs = {}
+        got, r_secs = chunk()
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+        multihost._initialized = False
+    fields = ("position", "dest", "elem", "material_id", "weight", "group",
+              "particle_id", "valid", "alive", "flux", "readback")
+    bad = [f for f in fields
+           if not torch.equal(getattr(got, f), getattr(ref, f))]
+    log(f"[debug] (c) partitioned megastep cell, first chunk of {MEGA_K} "
+        f"moves: stacked {s_secs:.3f} s, one-rank {backend} group "
+        f"{r_secs:.3f} s; fields differing {bad}; alive after "
+        f"{int(got.alive.sum())}")
+    if bad:
+        raise AssertionError("(c) the megastep over ranks differs from the "
+                             "stacked megastep")
+    return dict(stacked_s=s_secs, ranks_s=r_secs)
+
+
+def phase_debug(main_tally, main_snaps, part) -> dict:
+    t0 = time.perf_counter()
+    a = debug_unpacked(main_tally, main_snaps, part["b1"])
+    log(f"[phase] (a) unpacked feature tails: "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    b = debug_partitioned(main_tally.mesh, part["full"])
+    log(f"[phase] (b, d) partitioned points and checks: "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    c = debug_megastep_ranks(main_tally.mesh)
+    log(f"[phase] (c) partitioned megastep over ranks: "
+        f"{time.perf_counter() - t0:.2f} s")
+    return dict(a=a, b=b, c=c)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -4394,6 +4779,11 @@ def main() -> int:
     log(f"[phase] partitioned tally across ranks: "
         f"{time.perf_counter() - t0:.2f} s")
 
+    t0 = time.perf_counter()
+    debug = phase_debug(tally, snaps, part)
+    log(f"[phase] partitioned debug surfaces and megastep over ranks: "
+        f"{time.perf_counter() - t0:.2f} s")
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -4421,6 +4811,10 @@ def main() -> int:
          "feature_launches": {
              f: {"walk": c["walk"], "feature_walk": c["walk_features"]}
              for f, c in tails["launches"].items()},
+         "feature_launches_by_layout": {
+             "packed": tails["launches"]["xpoints"]["walk_features"],
+             "unpacked": debug["a"]["launches"],
+             "partitioned": debug["b"]["launches"]},
          "xpoints_ms": tails["xpoints_ms"],
          "xpoints_max_abs_err": tails["xpoints_err"],
          "checks_ms": tails["checks_ms"], "sort_ms": tails["sort_ms"],
@@ -4507,7 +4901,14 @@ def main() -> int:
          "launches": b1["launches"], "max_abs_err": b1["max_abs_err"],
          "ms": b1["ms"], "packed_ms": b1["packed_ms"],
          "plain_ms": b1["plain_ms"], "bound_ms": b1["bound_ms"],
-         "bound_by": b1["bound_by"], "library_ms": None},
+         "bound_by": b1["bound_by"], "library_ms": None,
+         "feature_launches": debug["a"]["launches"],
+         "features_ms": debug["a"]["on_ms"],
+         "features_off_ms": debug["a"]["off_ms"],
+         "features_plain_ms": debug["a"]["plain_ms"],
+         "features_bound_ms": debug["a"]["bound_ms"],
+         "features_bound_by": debug["a"]["bound_by"],
+         "features_max_abs_err": debug["a"]["max_abs_err"]},
         {"name": "walk_cuda.walk_rows (partitioned layout)", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/walk.cu",
          "replaces": "pumiumtally_tpu/ops/walk_partitioned.py:186 (XLA "
@@ -4538,7 +4939,18 @@ def main() -> int:
          "nccl_peak_device_bytes": ranks["nccl"]["peak"]["nccl"],
          "stacked_peak_device_bytes": ranks["nccl"]["peak"]["stacked"],
          "chip_loss_recovery_s": ranks["elastic"]["recovery_s"],
-         "depletion_step_s": ranks["depletion"]["step_s"]},
+         "depletion_step_s": ranks["depletion"]["step_s"],
+         "feature_launches": debug["b"]["launches"],
+         "xpoints_phase_ms": debug["b"]["on_ms"],
+         "xpoints_phase_off_ms": debug["b"]["off_ms"],
+         "xpoints_phase_bound_ms": debug["b"]["bound_ms"],
+         "xpoints_phase_bound_by": debug["b"]["bound_by"],
+         "xpoints_max_abs_err_vs_pumitally": debug["b"]["pts_err"],
+         "xpoints_send_buffer_bytes": debug["b"]["send_on"],
+         "send_buffer_bytes": debug["b"]["send_off"],
+         "xpoints_peak_device_bytes": debug["b"]["peak"],
+         "megastep_nccl_chunk_s": debug["c"]["ranks_s"],
+         "megastep_stacked_chunk_s": debug["c"]["stacked_s"]},
     ]
     for kern in kernels:
         if not kern["launches"]:

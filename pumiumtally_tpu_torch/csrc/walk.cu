@@ -69,6 +69,10 @@
 //    lowest set bit's message (ops/walk.py CHECKS), so the message does
 //    not depend on timing. No device assert and no trap: either would
 //    leave the CUDA context unusable for every later call in the process.
+//    Every layout has them; the partitioned layout records points only
+//    (its step has no checks, and a crossing into another part is a hop
+//    the range check would flag), a crossing into another part recorded
+//    once, by the part it leaves.
 //  * The table layout (template flag LAYOUT). PACKED reads a geo20 row.
 //    UNPACKED reads the element's four face planes and neighbors from
 //    their own tables, and the class tables where a lane crosses a face:
@@ -580,6 +584,8 @@ walk_kernel(const T* __restrict__ geo,
             Parts part) {
   typedef Real<T> R;
   constexpr bool PART = LAYOUT == PARTITIONED;
+  // The partitioned layout records points only: its step has no checks.
+  constexpr bool CHECKS = FEAT && !PART;
   const T inf = (T)__int_as_float(0x7f800000);  // +inf
   const T tol_floor = (T)8 * R::eps;
   const T nudge_c = (T)32 * R::eps;  // 4 * tol_floor, as the JAX walk folds it
@@ -788,7 +794,7 @@ walk_kernel(const T* __restrict__ geo,
         }
       }
 
-      if (FEAT && feat.checks) {
+      if (CHECKS && feat.checks) {
         // The lane lies in its parent element within the tolerance and
         // rounding: every signed distance -num[f] <= bound (false for NaN).
         const T ax = fabs(cx), ay = fabs(cy), az = fabs(cz);
@@ -824,7 +830,7 @@ walk_kernel(const T* __restrict__ geo,
         ++kx;
       }
       int next_elem = crossed ? pick4(nbrs, face) : -1;
-      if (FEAT && feat.checks) {
+      if (CHECKS && feat.checks) {
         if (!(isfinite(xx) && isfinite(xy) && isfinite(xz)))
           err |= CHECK_FINITE;
         // A hop out of the table ends the lane as a domain exit (its row
@@ -844,7 +850,7 @@ walk_kernel(const T* __restrict__ geo,
         } else {
           seg = t_step * dn;
         }
-        if (FEAT && feat.checks) {
+        if (CHECKS && feat.checks) {
           const T c = seg * w;
           if (!(c >= (T)0 && isfinite(c))) err |= CHECK_CONTRIB;
         }
@@ -959,50 +965,40 @@ walk_kernel(const T* __restrict__ geo,
   }
   __pipeline_wait_prior(0);
   if (lane == 0) atomicAdd(counters + WARP_TRIPS, trips);
-  if (FEAT && err) atomicOr(counters + ERR_BITS, (unsigned long long)err);
+  if (CHECKS && err) atomicOr(counters + ERR_BITS, (unsigned long long)err);
 }
 
 // Calls f with the kernel instantiation for the flags. The initial
 // search scores nothing, so it has no ordered instantiation. The feature
-// tails are instantiated for what the facade and the re-walk launch, the
-// initial search and the ordered move; the atomic tally has none. The
-// unpacked and partitioned layouts have the initial search and the
-// ordered move, without the feature tails.
-template <typename T, int L, typename F>
+// tails are instantiated for what the facade, the re-walk and the
+// partitioned step launch, the initial search and the ordered move, on
+// every layout; the atomic tally (packed only) has none.
+template <typename T, int L, bool FEAT, typename F>
 int with_layout(int robust, int initial, int ordered, F f) {
   if (initial)
-    return robust ? f(walk_kernel<T, true, true, false, false, L>)
-                  : f(walk_kernel<T, false, true, false, false, L>);
+    return robust ? f(walk_kernel<T, true, true, false, FEAT, L>)
+                  : f(walk_kernel<T, false, true, false, FEAT, L>);
   if (!ordered) return (int)cudaErrorInvalidValue;
-  return robust ? f(walk_kernel<T, true, false, true, false, L>)
-                : f(walk_kernel<T, false, false, true, false, L>);
+  return robust ? f(walk_kernel<T, true, false, true, FEAT, L>)
+                : f(walk_kernel<T, false, false, true, FEAT, L>);
+}
+
+template <typename T, int L, typename F>
+int with_feat(int robust, int initial, int ordered, int feat, F f) {
+  return feat ? with_layout<T, L, true>(robust, initial, ordered, f)
+              : with_layout<T, L, false>(robust, initial, ordered, f);
 }
 
 template <typename T, typename F>
 int with_kernel(int robust, int initial, int ordered, int feat, int layout,
                 F f) {
-  if (layout != PACKED) {
-    if (feat) return (int)cudaErrorInvalidValue;
-    if (layout == UNPACKED)
-      return with_layout<T, UNPACKED>(robust, initial, ordered, f);
-    if (layout == PARTITIONED)
-      return with_layout<T, PARTITIONED>(robust, initial, ordered, f);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (feat) {
-    if (initial)
-      return robust ? f(walk_kernel<T, true, true, false, true, PACKED>)
-                    : f(walk_kernel<T, false, true, false, true, PACKED>);
-    if (!ordered) return (int)cudaErrorInvalidValue;
-    return robust ? f(walk_kernel<T, true, false, true, true, PACKED>)
-                  : f(walk_kernel<T, false, false, true, true, PACKED>);
-  }
-  if (initial)
-    return robust ? f(walk_kernel<T, true, true, false, false, PACKED>)
-                  : f(walk_kernel<T, false, true, false, false, PACKED>);
-  if (ordered)
-    return robust ? f(walk_kernel<T, true, false, true, false, PACKED>)
-                  : f(walk_kernel<T, false, false, true, false, PACKED>);
+  if (layout == UNPACKED)
+    return with_feat<T, UNPACKED>(robust, initial, ordered, feat, f);
+  if (layout == PARTITIONED)
+    return with_feat<T, PARTITIONED>(robust, initial, ordered, feat, f);
+  if (layout != PACKED) return (int)cudaErrorInvalidValue;
+  if (feat || initial || ordered)
+    return with_feat<T, PACKED>(robust, initial, ordered, feat, f);
   return robust ? f(walk_kernel<T, true, false, false, false, PACKED>)
                 : f(walk_kernel<T, false, false, false, false, PACKED>);
 }
@@ -1039,7 +1035,9 @@ int walk(int robust, int initial, int ordered, const void* geo,
       ((uintptr_t)tab.normals % 16 || (uintptr_t)tab.d % 16 ||
        (uintptr_t)tab.nbr % 16))
     return (int)cudaErrorInvalidValue;
-  if (layout == PARTITIONED && part.max_local < 1)
+  // The partitioned step has no invariant checks (a crossing into another
+  // part is a hop the range check would flag).
+  if (layout == PARTITIONED && (part.max_local < 1 || feat.checks))
     return (int)cudaErrorInvalidValue;
   const int on = feat.record || feat.checks;
   return with_kernel<T>(robust, initial, ordered, on, layout,
@@ -1122,8 +1120,9 @@ int resident(int robust, int initial, int ordered, int layout, int* threads) {
 // count may end above cap; flux is not touched. record != 0 records each
 // lane's first k crossing points into xp [n, k, 3] from the counts kx [n]
 // int32 on (in/out); checks != 0 sets the check bits (ntet elements, tol10
-// = 10 * tolerance); either takes the feature instantiation, which the
-// atomic tally (initial == 0, ordered == 0) does not have. layout 0
+// = 10 * tolerance; not on layout 2); either takes the feature
+// instantiation, which the atomic tally (initial == 0, ordered == 0) does
+// not have. layout 0
 // walks geo (geo20 rows); layout 1 the unpacked tables normals, d, nbr,
 // cls, nbr_cls (16 B aligned, see Tables); layout 2 the stacked parts'
 // tables, with the lane state of Parts: slot [n] int64, stride, max_local,

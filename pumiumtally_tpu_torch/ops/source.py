@@ -295,7 +295,7 @@ def sample_flight_plain(move_key, pid, n_total: int, elem, alive, origin,
 def apply_physics(position, dest, done, mat_out, weight, group, alive,
                   absorb, coll_u, roul_u, *, eps_near: float,
                   survival_weight: float, downscatter: float,
-                  n_groups: int):
+                  n_groups: int, parts: int | None = None):
     """One move's collision and termination physics, as the JAX package's
     ``apply_physics``. ``position``, ``done`` and ``mat_out`` are the
     walk's outputs, ``dest`` the sampled destination, ``absorb`` each
@@ -304,7 +304,9 @@ def apply_physics(position, dest, done, mat_out, weight, group, alive,
 
     Returns ``(weight', group', alive', phys [4])``, phys = (collisions,
     escaped, rouletted, absorbed_weight) in the walk dtype on the device
-    (no host read)."""
+    (no host read); with ``parts`` the lanes are that many equal blocks
+    (the partitioned megastep's parts) and phys is each block's sums,
+    ``[parts, 4]``."""
     dtype = weight.dtype
     d = position - dest
     dist = torch.linalg.vector_norm(d, dim=-1)
@@ -312,7 +314,10 @@ def apply_physics(position, dest, done, mat_out, weight, group, alive,
     finished = alive & done
     reached = finished & (mat_out < 0) & near
     escaped = finished & (mat_out < 0) & ~near
-    absorbed = torch.where(reached, weight * absorb, 0.0).sum()
+    def total(x):
+        return x.sum() if parts is None else x.view(parts, -1).sum(1)
+
+    absorbed = total(torch.where(reached, weight * absorb, 0.0))
     weight = torch.where(reached, weight * (1.0 - absorb), weight)
     if n_groups > 1:
         down = reached & (coll_u < downscatter)
@@ -324,8 +329,8 @@ def apply_physics(position, dest, done, mat_out, weight, group, alive,
     weight = torch.where(lucky, weight * 2.0, weight)
     killed = low & ~lucky
     alive = alive & ~killed
-    phys = torch.stack([reached.sum().to(dtype), escaped.sum().to(dtype),
-                        killed.sum().to(dtype), absorbed.to(dtype)])
+    phys = torch.stack([total(reached).to(dtype), total(escaped).to(dtype),
+                        total(killed).to(dtype), absorbed.to(dtype)], -1)
     return weight, group.to(torch.int32), alive, phys
 
 

@@ -344,6 +344,21 @@ def xpoint_buffers(n: int, k: int, dtype, device, xpoints=None):
     return xp, kx
 
 
+def merge_recorded_xpoints(xa, ka, xb, kb, rows_a, rows_b) -> None:
+    """Append a re-walk's recorded points after an earlier attempt's, in
+    place (host numpy, the JAX package's ``merge_recorded_xpoints``): for
+    each pair ``(rows_a[j], rows_b[j])`` the points of ``xb`` go after
+    those of ``xa``, up to the K-point buffer; the counts add, past K
+    too (the caller's sign of truncation)."""
+    K = xa.shape[1]
+    for ra, rb in zip(rows_a, rows_b):
+        kept = min(int(ka[ra]), K)
+        take = min(int(kb[rb]), K - kept)
+        if take > 0:
+            xa[ra, kept:kept + take] = xb[rb, :take]
+    ka[rows_a] += kb[rows_b]
+
+
 def resolve_material(mat_code, material_id, class_values):
     """Material codes → class values: -2 keeps the caller's id, -1 means
     destination reached or domain exit, >= 0 indexes ``class_values``."""

@@ -41,13 +41,16 @@ between the move-loop records of ``ops/staging.py``;
 
 The feature tails (``record_xpoints``, ``xpoints``, ``debug_checks``, as
 in ``ops/walk.py::trace``) take the kernel's feature instantiation, for
-the initial search and the ordered move; the atomic tally refuses them.
+the initial search and the ordered move on every table layout (the
+partitioned walk phase records points and has no checks); the atomic
+tally refuses them.
 The invariant checks' error word comes back with the record count in the
 same read, with the post-loop track-length check computed on the card
 beside it; a violation raises ``walk.WalkInvariantError`` before the
 records reach the scatter, so the flux is left as it was. ``FEATURE_LAUNCHES``
 counts the walk launches with a feature on (they count in ``LAUNCHES``
-too).
+too), ``FEATURE_UNPACKED_LAUNCHES`` and ``FEATURE_PART_LAUNCHES`` those
+of them on the unpacked and partitioned layouts.
 
 A mesh without geo20 (``packed=False``, or past the packing limits) takes
 the kernel's unpacked layout: each crossing reads the element's face
@@ -58,7 +61,7 @@ and at a crossing the class tables ``class_index`` and
 partitioned layout (``ops/walk_partitioned.py``'s walk phase over the
 stacked parts' tables); ``PART_LAUNCHES`` counts its launches. Both count
 in ``LAUNCHES`` too, and both have the initial search and the ordered
-move only.
+move only, each with and without the feature tails.
 """
 from __future__ import annotations
 
@@ -90,6 +93,8 @@ from .walk import (
 
 LAUNCHES = 0
 FEATURE_LAUNCHES = 0
+FEATURE_UNPACKED_LAUNCHES = 0
+FEATURE_PART_LAUNCHES = 0
 UNPACKED_LAUNCHES = 0
 PART_LAUNCHES = 0
 RELAUNCHES = 0
@@ -216,8 +221,7 @@ def trace(
     check_integrity_args(integrity, ledger)
     if origin.device.type != "cuda":
         raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
-    _check_cuda(*args, n_groups, max_crossings, record_xpoints,
-                debug_checks)
+    _check_cuda(*args, n_groups, max_crossings)
     if tally == "atomic" and flux.data_ptr() % 8:
         raise ValueError("flux must be 8-byte aligned for the pair adds")
     if tally == "atomic" and mesh.geo20 is None:
@@ -319,7 +323,8 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
               initial: bool, max_crossings: int, n_groups: int,
               score_squares: bool = True, tolerance: float = 1e-8,
               robust: bool = True, capacity: int | None = None,
-              reset: int = 0):
+              reset: int = 0, record_xpoints: int | None = None,
+              xpoints: tuple | None = None):
     """One partitioned walk launch on the card (``csrc/walk.cu``'s
     partitioned layout), for ``ops/walk_partitioned.py``: the m lanes
     walk from ``origin`` toward ``dest`` over the stacked parts' tables
@@ -339,13 +344,18 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
     records)``: the per-lane outputs of ``_launch`` (``elem`` part-local,
     ``target``/``target_elem`` the frozen lanes' destination, -1 for the
     others) and the records ``(bin, order, c)`` (None for the initial
-    search). CPU tensors take the plain version
-    (``walk_partitioned.walk_rows_plain``)."""
+    search). ``record_xpoints=K`` records each lane's first K genuine
+    crossings, the crossing into another part too, into ``xpoints``
+    (``[m, K, 3]`` points and ``[m]`` int32 counts, continued in place;
+    fresh zeros when None), returned as ``out["xp"]`` and ``out["kx"]``;
+    the partitioned layout has no invariant checks. CPU tensors take the
+    plain version (``walk_partitioned.walk_rows_plain``)."""
     dev = origin.device
     kw = dict(stride=stride, max_local=max_local, initial=initial,
               max_crossings=max_crossings, n_groups=n_groups,
               score_squares=score_squares, tolerance=tolerance,
-              robust=robust, reset=reset)
+              robust=robust, reset=reset, record_xpoints=record_xpoints,
+              xpoints=xpoints)
     if dev.type == "cpu":
         from .walk_partitioned import walk_rows_plain
 
@@ -366,7 +376,7 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
     kw = dict(initial=initial, max_crossings=max_crossings,
               n_groups=n_groups, score_squares=score_squares,
               tolerance=tolerance, robust=robust, ledger=True, stats=True,
-              part=part)
+              part=part, record_xpoints=record_xpoints, xpoints=xpoints)
     if initial:
         lanes = lane_records(*args[:7], initial=True, nkeys=nrows)
         return _launch(*args, **kw, ordered=False, lanes=lanes), None
@@ -375,14 +385,9 @@ def walk_rows(tables, origin, dest, rows, weight, group, material_id, pseg,
 
 
 def _check_cuda(mesh, origin, dest, elem, in_flight, weight, group,
-                material_id, flux, n_groups, max_crossings,
-                record_xpoints=None, debug_checks=False):
+                material_id, flux, n_groups, max_crossings):
     check_walk_args(mesh, origin, dest, elem, in_flight, weight, group,
                     material_id, flux, n_groups)
-    if mesh.geo20 is None and (record_xpoints is not None or debug_checks):
-        raise ValueError(
-            "the unpacked layout has no feature tails (record_xpoints, "
-            "debug_checks): they walk geo20 rows")
     for t in ((mesh.geo20,) if mesh.geo20 is not None
               else unpacked_tables(mesh)[:3]):
         if t.data_ptr() % 16:
@@ -639,6 +644,7 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     the unpacked one."""
     global LAUNCHES, FEATURE_LAUNCHES, WARP_TRIPS, LAST_WAIT_S
     global UNPACKED_LAUNCHES, PART_LAUNCHES
+    global FEATURE_UNPACKED_LAUNCHES, FEATURE_PART_LAUNCHES
     dtype, dev = origin.dtype, origin.device
     n = origin.shape[0]
     if part is not None:
@@ -709,7 +715,10 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             f"walk kernel launch failed with cudaError_t {err}"
         )
     LAUNCHES += 1
-    FEATURE_LAUNCHES += int(record or bool(debug_checks))
+    feat = int(record or bool(debug_checks))
+    FEATURE_LAUNCHES += feat
+    FEATURE_UNPACKED_LAUNCHES += feat * int(layout == UNPACKED)
+    FEATURE_PART_LAUNCHES += feat * int(layout == PARTITIONED)
     UNPACKED_LAUNCHES += int(layout == UNPACKED)
     PART_LAUNCHES += int(layout == PARTITIONED)
     WARP_TRIPS = counters[2]

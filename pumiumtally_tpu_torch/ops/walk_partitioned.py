@@ -46,11 +46,13 @@ when the device mesh names no ranks). A step alternates
   2. an *exchange*: pending lanes are bucketed by destination with a
      per-destination cumsum rank into ``E`` rows a destination, overflow
      staying resident for the next round; the send blocks
-     ``[P_local, P, E, row]`` (float and int columns in one byte row) go
-     to their parts in one all_to_all (``Collectives``:
+     ``[P_local, P, E, row]`` (float and int columns in one byte row, the
+     recorded points and their count among them with ``record_xpoints``)
+     go to their parts in one all_to_all (``Collectives``:
      ``dist.all_to_all_single`` over ranks, its input itself when the
      parts are stacked); each part adopts its i-th immigrant into its
      i-th free slot and counts what it cannot adopt in ``n_dropped``.
+     ``SEND_BYTES`` keeps the largest send buffer allocated, in bytes.
 
 The rounds end when no part of any rank has pending lanes: one
 all_reduce and one host read a round (``ROUND_WAITS`` counts them; each
@@ -64,6 +66,13 @@ from run to run, between the kernel and the plain version, and between
 the stacked step and the step over ranks. With ``integrity`` each part's
 ``PART_INTEGRITY_FIELDS`` counters, and with ``convergence`` each part's
 batch fold and summary (``obs/convergence.py``), follow the halo fold.
+
+With ``record_xpoints=K`` every walk phase records each lane's first K
+genuine crossings (the crossing into another part once, by the part it
+leaves) into per-slot buffers that migrate with the lanes, as the JAX
+phase's ``record_crossing`` does. The megastep runs over ranks as the
+step does; its physics sums are per-part partial sums added in part
+order after one collective, so its bits do not depend on the ranks.
 
 The JAX step's unroll and scatter knobs only schedule its arithmetic;
 they are accepted and ignored. ``SPANS``, when a list, collects ``(name,
@@ -82,16 +91,18 @@ from ..obs.convergence import fold_and_reduce
 from ..parallel.ranks import RankLayout, rank_layout
 from .geometry import exit_face
 from .scatter import scatter_ordered_plain
-from .walk import _norm3, chase_face_choice, escalated_bump
+from .walk import _norm3, chase_face_choice, escalated_bump, xpoint_buffers
 
 ROUND_WAITS = 0
 BUDGET_RELAUNCHES = 0
 BUDGET_LANES = 0
 BUDGET_STARVED = 0
+SEND_BYTES = 0
 SPANS: list | None = None
-A9D = "ROADMAP.md A9d"
-# The exchange payload's columns: floats cur(3) dest(3) weight track; ints
-# pid group material target_elem occupied done back_code.
+# The exchange payload's columns: floats cur(3) dest(3) weight track, then
+# with record_xpoints=K the points (3K); ints pid group material
+# target_elem occupied done back_code, then the point count (else
+# padding: the int block is 8 columns either way).
 _F_COLS, _I_COLS = 8, 7
 
 
@@ -112,6 +123,9 @@ class PartitionedTraceResult:
     stats: [n_parts, 8] int64 walk stats vectors (``obs/walk_stats.py``
       order; the compaction occupancy is 0, 0: there is no compaction).
     readback: the packed step's readback (``staging``), else None.
+    xpoints, n_xpoints: with ``record_xpoints=K``, per slot ``[K, 3]``
+      crossing points and the int32 count of genuine crossings (may
+      exceed K), migrated with their particles; else None.
     integrity: [n_parts, PART_INTEGRITY_LEN] int64 (``integrity``), else
       None.
     convergence: [n_parts, CONV_LEN] summaries in the walk dtype
@@ -137,6 +151,8 @@ class PartitionedTraceResult:
     readback: torch.Tensor | None = None
     integrity: torch.Tensor | None = None
     convergence: torch.Tensor | None = None
+    xpoints: torch.Tensor | None = None
+    n_xpoints: torch.Tensor | None = None
 
 
 def stacked_tables(partition, parts: tuple | None = None) -> tuple:
@@ -193,12 +209,16 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
                     max_local: int, initial: bool, max_crossings: int,
                     n_groups: int, score_squares: bool = True,
                     tolerance: float = 1e-8, robust: bool = True,
-                    capacity=None, reset: int = 0):
+                    capacity=None, reset: int = 0,
+                    record_xpoints: int | None = None, xpoints=None):
     """The plain version of ``walk_cuda.walk_rows`` (same arguments, same
     outputs; ``capacity`` is ignored): the crossing body of the JAX
     ``_walk_phase`` over the m lanes, written operation for operation
-    like the kernel's partitioned layout. Returns ``(out, (bin, order,
-    c))``, the records None when the launch made none."""
+    like the kernel's partitioned layout. With ``record_xpoints`` each
+    genuine crossing (not a chase hop), the crossing into another part
+    too, is recorded as the JAX phase's ``record_crossing`` does, into
+    ``xpoints`` (updated in place) or fresh buffers. Returns ``(out,
+    (bin, order, c))``, the records None when the launch made none."""
     del capacity
     normals_t, d_t, nbr_t, cls_t, nbrcls_t = tables
     dtype, dev = origin.dtype, origin.device
@@ -215,6 +235,9 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
     target = torch.full((m,), -1, **i32)
     target_elem = torch.zeros(m, **i32)
     ncross, nchase, nseg, iters = (torch.zeros(m, **i32) for _ in range(4))
+    xp = kx = None
+    if record_xpoints is not None:
+        xp, kx = xpoint_buffers(m, record_xpoints, dtype, dev, xpoints)
     held = []
     it = 0
     while it < max_crossings:
@@ -251,8 +274,13 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
         t_step = torch.clamp_max(t_exit, 1.0)
         xpoint = cur + t_step[:, None] * dirv
         crossed = active & ~reached & has_exit
-        ncross += (crossed & ~chase).to(torch.int32)
+        real_cross = crossed & ~chase
+        ncross += real_cross.to(torch.int32)
         nchase += chase.to(torch.int32)
+        if xp is not None:
+            hit = torch.nonzero(real_cross & (kx < record_xpoints))[:, 0]
+            xp[hit, kx[hit].long()] = xpoint[hit]
+            kx += real_cross.to(torch.int32)
         face_l = face.long()[:, None]
         nb = torch.gather(nbrs_all, 1, face_l)[:, 0]
         next_elem = torch.where(crossed, nb, -1)
@@ -299,7 +327,7 @@ def walk_rows_plain(tables, origin, dest, rows, weight, group, material_id,
     out = dict(pos=cur, elem=(row - base).to(torch.int32), mat=mat,
                done=done, pseg=pseg, ncross=ncross, nchase=nchase, nseg=nseg,
                iters=iters, target=target, target_elem=target_elem,
-               prev=prev, stuck=stuck.to(torch.int32))
+               prev=prev, stuck=stuck.to(torch.int32), xp=xp, kx=kx)
     return out, records
 
 
@@ -398,11 +426,17 @@ def make_partitioned_step(
     records a lane and walks again when it makes more. The flux is
     updated in place.
 
-    ``record_xpoints`` raises NotImplementedError (ROADMAP.md A9d)."""
+    ``record_xpoints=K`` records each particle's first K genuine crossing
+    points of the step (the crossing into another part once, by the part
+    it leaves) into per-slot buffers that start at zero each step and
+    migrate with their particles in the exchange's send rows
+    (``PartitionedTraceResult.xpoints``); each launch walks its slots'
+    rows of them. The packed-I/O step refuses it, as JAX's does."""
     del unroll
-    if record_xpoints is not None:
+    if packed_io and record_xpoints is not None:
         raise NotImplementedError(
-            f"the partitioned step's record_xpoints is not ported yet ({A9D})")
+            "packed_io does not carry the intersection-point buffers; use "
+            "the unpacked step for record_xpoints")
     if tally_scatter not in ("auto", "interleaved", "pair"):
         raise ValueError(
             f"tally_scatter must be 'auto', 'interleaved' or 'pair': "
@@ -449,6 +483,9 @@ def make_partitioned_step(
     walk_kw = dict(max_local=max_local, initial=initial, n_groups=n_groups,
                    score_squares=score_squares, tolerance=tolerance,
                    robust=robust)
+    K = record_xpoints
+    if K is not None:
+        walk_kw["record_xpoints"] = K = int(K)
 
     def run(cur, dest, elem, done, material_id, weight, group, pid, valid,
             flux, conv=None, capacity=None):
@@ -487,6 +524,10 @@ def make_partitioned_step(
         nchase = torch.zeros(total, **i32)
         nseg = torch.zeros(P_l, dtype=torch.int64, device=dev)
         dropped = torch.zeros(P_l, dtype=torch.int64, device=dev)
+        xp = kx = None
+        if K is not None:  # the step's points, from zero (the JAX step's)
+            xp = torch.zeros(total, K, 3, dtype=cur.dtype, device=dev)
+            kx = torch.zeros(total, **i32)
         part_of = torch.arange(total, device=dev) // cap
         # Order keys in global slot numbers: it·(n_parts·cap) + slot.
         stride = n_parts * cap
@@ -509,12 +550,19 @@ def make_partitioned_step(
             ins = dict(cur=cur[slots], rows=(p * max_local + elem[slots]).to(
                 torch.int32), mat=material_id[slots], pseg=pseg[slots],
                 prev=prev[slots], stuck=stuck[slots])
+            pts = {}
+            if K is not None:  # the slots' rows, continued by the launch
+                ins["kx"] = kx[slots]
+                pts["xpoints"] = (xp[slots], ins["kx"].clone())
             out, rec = walk_fn(
                 tables, ins["cur"], dest[slots], ins["rows"], weight[slots],
                 group[slots], ins["mat"], ins["pseg"], ins["prev"],
                 ins["stuck"], keys, flat, stride=stride,
                 capacity=cap_records, max_crossings=bound, reset=reset,
-                **walk_kw)
+                **walk_kw, **pts)
+            if K is not None:
+                xp[slots] = out["xp"]
+                kx[slots] = out["kx"]
             cur[slots] = out["pos"]
             elem[slots] = out["elem"]
             material_id[slots] = out["mat"]
@@ -611,7 +659,8 @@ def make_partitioned_step(
             launch added to the counters comes off, the launch's records
             of their later iterations are dropped, and the first ``cut``
             iterations walk again, their records not kept (the launch's
-            are)."""
+            are). Their recorded points go back to the launch's count,
+            the rows past it to zero."""
             sl = torch.as_tensor(lanes, dtype=torch.int64, device=dev)
             at = torch.searchsorted(ph["slots"], sl)
             ins, added, cut = ph["ins"], ph["added"], ph["cut"]
@@ -631,6 +680,11 @@ def make_partitioned_step(
             done[sl] = False
             target[sl] = -1
             target_elem[sl] = 0
+            if K is not None:
+                k0 = ins["kx"][at]
+                kx[sl] = k0
+                keep = torch.arange(K, device=dev)[None, :] < k0[:, None]
+                xp[sl] = torch.where(keep[..., None], xp[sl], 0.0)
             ncross[sl] -= added["ncross"][at]
             nchase[sl] -= added["nchase"][at]
             nseg.index_add_(0, part_of[sl],
@@ -699,7 +753,8 @@ def make_partitioned_step(
         state = dict(cur=cur, dest=dest, weight=weight, pseg=pseg, pid=pid,
                      group=group, material_id=material_id, elem=elem,
                      done=done, valid=valid, target=target,
-                     target_elem=target_elem, prev=prev, stuck=stuck)
+                     target_elem=target_elem, prev=prev, stuck=stuck,
+                     xp=xp, kx=kx)
         w0, ph = walk_phase(0, first, capacity)
         round_stats = torch.zeros(P_l, 6, rounds_bound,
                                   dtype=torch.int64, device=dev)
@@ -780,7 +835,8 @@ def make_partitioned_step(
             done=done, flux=flux, n_segments=nseg,
             n_rounds=torch.full((P_l,), rnd, dtype=i64, device=dev),
             n_dropped=dropped, track_length=pseg, round_stats=round_stats,
-            stats=stats, integrity=ivec, convergence=cvec)
+            stats=stats, integrity=ivec, convergence=cvec, xpoints=xp,
+            n_xpoints=kx)
 
     if not packed_io:
         return run
@@ -861,10 +917,17 @@ def make_partitioned_megastep(
     (seed, move, particle id), the partitioned step (walk phases,
     exchanges, halo fold) and the collision and termination physics.
 
+    ``device_mesh`` is the step's: the parts stacked in this process, or
+    spread over the ranks of the default process group, each rank
+    keeping its parts' slot state and per-part tail; the physics sums
+    are per-part partial sums, gathered over the ranks at the end of a
+    call (``Collectives.part_rows``) and added in part order, so the
+    megastep over ranks gives the stacked one's bits.
+
     The JAX builder takes the per-row Σt and absorption values; here
     ``class_local`` (``[n_parts, max_local]`` region ids of the stacked
-    rows, clipped into the tables) and the region tables ``sigma_t`` /
-    ``absorb_t`` (host float64) give the same values, looked up by the
+    rows, clipped into the tables; a process over ranks reads its
+    parts' block) and the region tables ``sigma_t`` / ``absorb_t`` (host float64) give the same values, looked up by the
     flight kernel (``source_cuda.sample_flight`` with ``cap`` and
     ``max_local``: ``csrc/source.cu``) and by ``source.lane_sigma``.
     ``n_total`` is the particle count (the random stream's width). The
@@ -875,7 +938,8 @@ def make_partitioned_megastep(
     Returns ``mega(cur, elem, material_id, weight, group, pid, valid,
     alive, flux, move0, rng_key, conv=None, prev_even=None,
     capacity=None, draws=None) -> PartitionedMegastepResult``: per-slot
-    tensors ``[n_parts·cap]``, ``move0`` the facade's move counter (a
+    tensors ``[n_local·cap]`` of this process's parts (and their slabs,
+    accumulators and draws), ``move0`` the facade's move counter (a
     host int: each move's key reaches the kernel as two arguments),
     ``rng_key`` the seed's key words (``source.prng_key``), ``conv`` the
     ``[n_parts, L]`` ConvState (folded once a fused move), ``prev_even``
@@ -908,10 +972,7 @@ def make_partitioned_megastep(
     from .staging import pack_partitioned_megastep_tail
 
     lay = rank_layout(device_mesh)
-    if lay.hi - lay.lo != partition.n_parts:
-        raise NotImplementedError(
-            "the partitioned megastep runs every part in one process; "
-            f"over ranks it is {A9D}")
+    P_l = lay.hi - lay.lo
     step = make_partitioned_step(
         device_mesh, partition, n_groups=n_groups, initial=False,
         max_crossings=max_crossings, max_rounds=max_rounds,
@@ -925,12 +986,14 @@ def make_partitioned_megastep(
         batch_moves=batch_moves, plain=plain, face_rate=face_rate)
     n_parts, max_local = partition.n_parts, partition.max_local
     dev = partition.device
-    cls = torch.as_tensor(np.asarray(class_local, np.int32).reshape(-1),
-                          device=dev)
+    cls = np.asarray(class_local, np.int32).reshape(-1)
     if cls.shape[0] != n_parts * max_local:
         raise ValueError(
             f"class_local must have {n_parts}×{max_local} rows, got "
             f"{cls.shape[0]}")
+    cls = torch.as_tensor(cls[lay.lo * max_local:lay.hi * max_local],
+                          device=dev)
+    comm = Collectives(lay)
     sig = torch.as_tensor(np.asarray(sigma_t, np.float64), dtype=dtype,
                           device=dev)
     ab = torch.as_tensor(np.asarray(absorb_t, np.float64), dtype=dtype,
@@ -944,13 +1007,17 @@ def make_partitioned_megastep(
     def mega(cur, elem, material_id, weight, group, pid, valid, alive, flux,
              move0: int, rng_key, conv=None, prev_even=None, capacity=None,
              draws=None):
-        cap = cur.shape[0] // n_parts
-        sacc = torch.zeros(n_parts, WALK_STATS_LEN, dtype=i64, device=dev)
-        iacc = (torch.zeros(n_parts, PART_INTEGRITY_LEN, dtype=i64,
+        cap = cur.shape[0] // P_l
+        sacc = torch.zeros(P_l, WALK_STATS_LEN, dtype=i64, device=dev)
+        iacc = (torch.zeros(P_l, PART_INTEGRITY_LEN, dtype=i64,
                             device=dev) if integrity else None)
         cvec = None
-        pacc = torch.zeros(MEGA_PHYS_LEN, dtype=cur.dtype, device=dev)
-        rounds, dropped, nseg = (torch.zeros(n_parts, dtype=i64, device=dev)
+        # Each local part's physics sums over the chunk (the alive count
+        # the last move's): gathered over the ranks after the last move
+        # and added in part order, so the stacked megastep and the
+        # megastep over ranks give the same bits.
+        pacc = torch.zeros(P_l, MEGA_PHYS_LEN, dtype=cur.dtype, device=dev)
+        rounds, dropped, nseg = (torch.zeros(P_l, dtype=i64, device=dev)
                                  for _ in range(3))
         alive = alive.to(torch.bool)
         dest, mat = cur, material_id
@@ -974,7 +1041,7 @@ def make_partitioned_megastep(
             weight2, group2, alive2, phys4 = apply_physics(
                 res.position, res.dest, res.done, res.material_id,
                 res.weight, res.group, alive_w, absorb, coll_u, roul_u,
-                **phys_kw)
+                parts=P_l, **phys_kw)
             if prev_even is not None:
                 accumulate_batch_squares(flux.view(-1), prev_even)
             # Sums everywhere, the max of max_crossings (JAX :1424-1427).
@@ -989,10 +1056,12 @@ def make_partitioned_megastep(
                                   iacc[:, 1:] + res.integrity[:, 1:]], 1)
             if conv is not None:
                 cvec = res.convergence
-            n_trunc = (alive_w & ~res.done).sum().to(cur.dtype)
-            pacc = torch.cat([pacc[:4] + phys4,
-                              alive2.sum().to(cur.dtype).reshape(1),
-                              (pacc[5] + n_trunc).reshape(1)])
+            n_trunc = (alive_w & ~res.done).view(P_l, cap).sum(1).to(
+                cur.dtype)
+            pacc = torch.cat([pacc[:, :4] + phys4,
+                              alive2.view(P_l, cap).sum(1).to(
+                                  cur.dtype)[:, None],
+                              (pacc[:, 5] + n_trunc)[:, None]], 1)
             rounds = rounds + res.n_rounds
             dropped = dropped + res.n_dropped
             nseg = nseg + res.n_segments
@@ -1001,8 +1070,12 @@ def make_partitioned_megastep(
             weight, group, pid, valid = (weight2, group2, res.particle_id,
                                          res.valid)
             alive = alive2
+        rows = comm.part_rows(pacc, n_parts)
+        phys = rows[0]
+        for p in range(1, n_parts):
+            phys = phys + rows[p]
         readback = pack_partitioned_megastep_tail(
-            sacc, rounds, dropped, nseg, iacc, cvec, pacc, cur.dtype)
+            sacc, rounds, dropped, nseg, iacc, cvec, phys, cur.dtype)
         return PartitionedMegastepResult(
             position=cur, dest=dest, elem=elem, material_id=mat,
             weight=weight, group=group, particle_id=pid, valid=valid,
@@ -1042,6 +1115,21 @@ class Collectives:
         dist.all_to_all_single(out, inp.contiguous(), out_sizes,
                                [c.numel() for c in chunks])
         return out.view(-1, n_local, *tail)
+
+    def part_rows(self, rows: torch.Tensor, n_parts: int) -> torch.Tensor:
+        """Every part's row of a per-part tensor (``rows`` this process's
+        ``[n_local, ...]``) as ``[n_parts, ...]`` on every rank: one
+        all_reduce of the rows placed among zeros (adding zeros keeps
+        every bit); the rows themselves without ranks."""
+        if self.layout.bounds is None:
+            return rows
+        import torch.distributed as dist
+
+        full = torch.zeros((n_parts,) + tuple(rows.shape[1:]),
+                           dtype=rows.dtype, device=rows.device)
+        full[self.layout.lo:self.layout.hi] = rows
+        dist.all_reduce(full)
+        return full
 
     def stop_test(self, pend, cur, dest, ran_out, sizing: bool) -> tuple:
         """One host read a round: (the pending lanes of every rank, the
@@ -1110,9 +1198,12 @@ def _row_ranks(mask: torch.Tensor) -> torch.Tensor:
 def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
     """One exchange round over this process's slot state ``s`` (updated
     in place): bucket, send blocks, all_to_all, adopt. The send blocks'
-    float columns (_F_COLS) and int columns (_I_COLS, padded to 8) share
-    one byte buffer, so a round is one collective. Returns the [P_l, 5]
-    int64 round stats (pending, sent, received, free, adopted)."""
+    float columns (_F_COLS, then 3K point columns when ``s["xp"]`` holds
+    recorded points) and int columns (_I_COLS and the point count, or
+    padding, 8) share one byte buffer, so a round is one collective; an
+    adopted lane takes its points and count into its slot, a sent slot
+    keeps its old ones (it is free). Returns the [P_l, 5] int64 round
+    stats (pending, sent, received, free, adopted)."""
     dev = s["cur"].device
     valid, target = s["valid"], s["target"]
     emig = (valid & (target >= 0)).view(P_l, cap)
@@ -1135,17 +1226,24 @@ def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
         back = canon[sp * max_local + elem]
     back = torch.where(s["stuck"][src] >= 4, -1, back)
     dtype = s["cur"].dtype
-    fb = _F_COLS * torch.finfo(dtype).bits // 8
+    xp = s["xp"]
+    K3 = 0 if xp is None else 3 * xp.shape[1]
+    fb = (_F_COLS + K3) * torch.finfo(dtype).bits // 8
     buf = torch.zeros(P_l * P * E, fb + 4 * 8, dtype=torch.uint8,
                       device=dev)
+    global SEND_BYTES
+    SEND_BYTES = max(SEND_BYTES, buf.numel())
     fbuf, ibuf = buf[:, :fb].view(dtype), buf[:, fb:].view(torch.int32)
-    fbuf[dst] = torch.cat([s["cur"][src], s["dest"][src],
-                           s["weight"][src][:, None],
-                           s["pseg"][src][:, None]], 1)
-    ibuf[dst, :_I_COLS] = torch.stack([
-        s["pid"][src], s["group"][src], s["material_id"][src],
-        s["target_elem"][src], torch.ones_like(s["pid"][src]),
-        s["done"][src].to(torch.int32), back.to(torch.int32)], 1)
+    f_cols = [s["cur"][src], s["dest"][src], s["weight"][src][:, None],
+              s["pseg"][src][:, None]]
+    i_cols = [s["pid"][src], s["group"][src], s["material_id"][src],
+              s["target_elem"][src], torch.ones_like(s["pid"][src]),
+              s["done"][src].to(torch.int32), back.to(torch.int32)]
+    if xp is not None:
+        f_cols.append(xp[src].view(-1, K3))
+        i_cols.append(s["kx"][src])
+    fbuf[dst] = torch.cat(f_cols, 1)
+    ibuf[dst, :len(i_cols)] = torch.stack(i_cols, 1)
     valid[src] = False
     target[src] = -1
     # The JAX step's all_to_all: block d of sender p goes to part d.
@@ -1178,6 +1276,9 @@ def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
     s["done"][at] = ri[:, 5] != 0
     s["prev"][at] = ri[:, 6]
     s["stuck"][at] = 0
+    if xp is not None:
+        xp[at] = rf[:, _F_COLS:].reshape(-1, K3 // 3, 3)
+        s["kx"][at] = ri[:, _I_COLS]
     valid[at] = True
     i64 = torch.int64
     return torch.stack([emig.sum(1, dtype=i64), sendable.sum(1, dtype=i64),
@@ -1309,12 +1410,15 @@ def collect_by_particle_id(result, n: int, partition=None,
                            device_mesh=None) -> dict:
     """Per-particle outputs back in host particle order (numpy): position,
     material_id, done, elem (the row on the part holding the particle),
-    weight, group, track_length; with ``partition`` also ``elem_global``
-    (through the holding part's local2global). With a ``device_mesh``
-    over ranks every rank's slots are gathered first (``gather_parts``),
-    so every rank gets every particle."""
+    weight, group, track_length, and with recorded points xpoints and
+    n_xpoints; with ``partition`` also ``elem_global`` (through the
+    holding part's local2global). With a ``device_mesh`` over ranks every
+    rank's slots are gathered first (``gather_parts``), so every rank gets
+    every particle."""
     names = ("particle_id", "valid", "position", "material_id", "done",
              "elem", "weight", "group", "track_length")
+    if result.xpoints is not None:
+        names += ("xpoints", "n_xpoints")
     host = {k: getattr(result, k).cpu().numpy() for k in names}
     if device_mesh is not None:
         host = gather_parts(host, device_mesh)

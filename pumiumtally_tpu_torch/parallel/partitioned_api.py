@@ -37,9 +37,14 @@ coverage), shadow audits, ``move_deadline_s``, quarantine, truncation
 re-walks, convergence and checkpoints (the flux stored assembled, so a
 checkpoint resumes under another part count or halo depth).
 
-Not ported with this slice (each raises NotImplementedError naming
-ROADMAP.md A9d when asked for): ``record_xpoints``,
-``checkify_invariants`` and ``sort_by_element``.
+The debug surfaces are the JAX facade's: ``record_xpoints=K`` records
+each particle's first K crossing points of every call through the walk
+phases (their buffers migrate with the particles), merged across
+re-walks and served in host order by ``intersection_points``;
+``checkify_invariants`` refuses non-finite positions, destinations and
+weights on the host; ``sort_by_element`` is accepted and has no effect
+(no partitioned module reads it, as in JAX). The first two force
+``io_pipeline="legacy"`` (``TallyConfig.resolve_io_pipeline``).
 """
 from __future__ import annotations
 
@@ -65,8 +70,8 @@ from ..obs.convergence import (
 from ..obs.telemetry import TallyTelemetry
 from ..obs.walk_stats import WALK_STATS_FIELDS, reduce_chip_stats
 from ..ops import staging, walk_cuda
+from ..ops.walk import merge_recorded_xpoints
 from ..ops.walk_partitioned import (
-    A9D,
     collect_by_particle_id,
     distribute_particles,
     make_partitioned_step,
@@ -86,11 +91,6 @@ _SUMMED = ("rounds", "dropped", "migrated", "adopted", "h2d_bytes",
            "h2d_transfers", "d2h_bytes", "d2h_transfers")
 
 
-def _unported(what: str):
-    return NotImplementedError(
-        f"PartitionedTally: {what} is not ported yet ({A9D})")
-
-
 def _merge_agg(a: dict, b: dict) -> dict:
     """Fold a re-walk attempt's reduced stats into the move's: sums
     everywhere but ``max_crossings`` (the max) and ``truncated`` (the
@@ -106,10 +106,16 @@ def _merge_agg(a: dict, b: dict) -> dict:
 def _merge_got(got: dict, sub_trunc: np.ndarray, got2: dict) -> None:
     """Fold a re-walk attempt's collected outputs (rows: the re-walked
     lanes in particle order, the rows ``sub_trunc`` selects) into the
-    move's ``got`` in place; track lengths add."""
+    move's ``got`` in place; track lengths add, recorded points append
+    (``merge_recorded_xpoints``)."""
     for name in ("position", "material_id", "elem", "done", "elem_global"):
         got[name][sub_trunc] = got2[name]
     got["track_length"][sub_trunc] += got2["track_length"]
+    if "xpoints" in got:
+        rows_a = np.nonzero(sub_trunc)[0]
+        merge_recorded_xpoints(got["xpoints"], got["n_xpoints"],
+                               got2["xpoints"], got2["n_xpoints"], rows_a,
+                               np.arange(rows_a.size))
 
 
 class PartitionedTally:
@@ -155,13 +161,6 @@ class PartitionedTally:
         if mesh.dtype != cfg.dtype:
             raise ValueError(
                 f"mesh dtype {mesh.dtype} != config dtype {cfg.dtype}")
-        for what, asked in (
-            ("record_xpoints", cfg.record_xpoints is not None),
-            ("checkify_invariants", bool(cfg.checkify_invariants)),
-            ("sort_by_element", bool(cfg.sort_by_element)),
-        ):
-            if asked:
-                raise _unported(what)
         self._kernel_policy = cfg.resolve_kernel()
         if self._kernel_policy == "pallas" and cfg.kernel == "pallas":
             raise ValueError(
@@ -210,6 +209,7 @@ class PartitionedTally:
             unroll=cfg.unroll,
             robust=cfg.robust,
             tally_scatter=cfg.tally_scatter,
+            record_xpoints=cfg.record_xpoints,
             compact_after=compact[0],
             compact_size=compact[1],
             exchange_size=exchange_size,
@@ -220,6 +220,8 @@ class PartitionedTally:
             batch_moves=self._batch_moves or 1,
         )
         self._steps: dict = {}
+        # record_xpoints: the last call's (points, counts) in host order.
+        self._last_xpoints: tuple | None = None
         self._io = cfg.resolve_io_pipeline()
         self._stager = staging.HostStager(
             depth=2 if self._io == "overlap" else 1, device=self.device)
@@ -334,9 +336,11 @@ class PartitionedTally:
         return walk_cuda.record_capacity(m, est)
 
     # PumiTally's watchdog dispatch and fault counter: they read only
-    # config, device, the fault injector, the staging ring and telemetry.
+    # config, device, the fault injector, the staging ring and telemetry;
+    # and its checkify_invariants host check (the JAX facade's too).
     _dispatch = PumiTally._dispatch
     _count_fault = PumiTally._count_fault
+    _check_finite = PumiTally._check_finite
 
     def _self_verify(self, move, initial, got, moving, stats, pos_before,
                      weights, n_lost) -> None:
@@ -516,6 +520,14 @@ class PartitionedTally:
         move = self.iter_count + (0 if initial else 1)
         if n_re or n_lost:
             self._telemetry.record_rewalk(move, n_re, n_lost)
+        if self.config.record_xpoints is not None:
+            # Host order; parked lanes record nothing (count 0).
+            n = self.num_particles
+            xp = np.zeros((n, int(self.config.record_xpoints), 3))
+            counts = np.zeros(n, np.int32)
+            xp[moving] = got["xpoints"]
+            counts[moving] = got["n_xpoints"]
+            self._last_xpoints = (xp, counts)
         if n_lost:
             warnings.warn(
                 f"{n_lost} partitioned walk(s) truncated (max_crossings="
@@ -636,6 +648,8 @@ class PartitionedTally:
             n_rounds, n_dropped = int(nr[0]), int(nd.sum())
             collected = ("particle_id", "valid", "position", "material_id",
                          "done", "elem", "weight", "group", "track_length")
+            if res.xpoints is not None:
+                collected += ("xpoints", "n_xpoints")
             d2h = [getattr(res, f) for f in collected] + reads
             io = dict(
                 h2d_bytes=sum(t.numel() * t.element_size()
@@ -779,7 +793,8 @@ class PartitionedTally:
                           self.mesh.ntet - 1)
             cls_local = np.clip(class_id[l2g], 0, sig.shape[0] - 1)
             kw = dict(self._step_kwargs)
-            for dup in ("integrity", "convergence", "n_groups"):
+            for dup in ("integrity", "convergence", "n_groups",
+                        "record_xpoints"):
                 kw.pop(dup)
             mega = make_partitioned_megastep(
                 self.device_mesh, self.partition, n_moves=int(k),
@@ -963,6 +978,7 @@ class PartitionedTally:
             dest, _, qmask = quarantine.apply(self, dest, None, 0)
             if qmask is not None:
                 flags[qmask] = 0
+        self._check_finite("init_particle_positions", dest)
         self._run(dest, flags, np.ones(n), np.zeros(n, np.int32),
                   initial=True)
         self._initialized = True
@@ -1004,6 +1020,8 @@ class PartitionedTally:
                 self, dest, weights_h, self.iter_count + 1)
             if qmask is not None:
                 fly = np.where(qmask, np.int8(0), fly)
+        self._check_finite("particle_destinations", dest)
+        self._check_finite("weights", weights_h)
         got, moving = self._run(dest, fly, weights_h, groups_h,
                                 initial=False)
         self.iter_count += 1
@@ -1047,11 +1065,20 @@ class PartitionedTally:
         return quarantine.lanes(self)
 
     def intersection_points(self) -> tuple[np.ndarray, np.ndarray]:
-        """Recorded crossing points: ``record_xpoints`` is refused at
-        construction (ROADMAP.md A9d), so this raises as without it."""
-        raise ValueError(
-            "set TallyConfig.record_xpoints=K to record intersection "
-            "points (off by default: the hot path pays nothing)")
+        """Each particle's crossing points of the last call in host order,
+        ``(points [n, K, 3] float64, counts [n] int32)``: the points
+        migrate with their particles, so each sequence is the particle's
+        path in order across parts; counts past K mean points were not
+        kept. Needs ``record_xpoints=K`` and a call that ran."""
+        if self.config.record_xpoints is None:
+            raise ValueError(
+                "set TallyConfig.record_xpoints=K to record intersection "
+                "points (off by default: the hot path pays nothing)")
+        if self._last_xpoints is None:
+            raise RuntimeError(
+                "no trace has run yet: call initialize_particle_location "
+                "(and move_to_next_location) before intersection_points")
+        return self._last_xpoints
 
     def save_checkpoint(self, filename: str,
                         n_shards: int | None = None) -> None:
@@ -1073,6 +1100,8 @@ class PartitionedTally:
 
         self._drain_pending()
         restore_partitioned_checkpoint(filename, self)
+        # The recorded points are the last call's before the restore.
+        self._last_xpoints = None
 
     # ------------------------------------------------------------------ #
     # Convergence (obs/convergence.py; PumiTally's contract)

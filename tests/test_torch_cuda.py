@@ -145,6 +145,69 @@ def test_unpacked_kernel_matches_plain(cuda, dtype, initial, robust):
         assert (p.material_id >= 0).any()
 
 
+def _unpacked_jittered(nx, dtype, device):
+    """The jittered two-region box built without geo20."""
+    from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+    from pumiumtally_tpu_torch.mesh.core import TetMesh
+
+    coords, tets = build_box_arrays(1.0, 1.0, 1.0, nx, nx, nx)
+    rng = np.random.default_rng(4)
+    interior = (coords > 1e-9).all(axis=1) & (coords < 1 - 1e-9).all(axis=1)
+    coords = coords.copy()
+    coords[interior] += rng.uniform(-0.2 / nx, 0.2 / nx, (interior.sum(), 3))
+    cid = (coords[tets].mean(axis=1)[:, 0] > 0.5).astype(np.int32)
+    return TetMesh.from_numpy(coords, tets, cid, dtype=dtype, device=device,
+                              packed=False)
+
+
+@pytest.mark.parametrize("robust", [True, False])
+@pytest.mark.parametrize("initial", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_unpacked_features_kernel_matches_plain(cuda, dtype, initial,
+                                                robust):
+    """The feature instantiations of the unpacked layout (recorded points
+    and the checks on a mesh without geo20): points, counts, lanes and
+    flux bitwise the plain walk's, the flux bitwise the run without the
+    features; a corrupted parent element and a NaN destination raise the
+    plain walk's messages, the flux left as it was."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+    from pumiumtally_tpu_torch.ops.walk import CHECKS, WalkInvariantError
+
+    mesh = _unpacked_jittered(6, dtype, cuda)
+    assert mesh.geo20 is None
+    G, K = 4, 5
+    args = list(_walk_inputs(mesh, cuda, dtype, G=G))
+    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=G,
+              robust=robust)
+    feats = walk_cuda.FEATURE_UNPACKED_LAUNCHES
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda),
+                        record_xpoints=K, debug_checks=True, **kw)
+    assert walk_cuda.FEATURE_UNPACKED_LAUNCHES - feats >= 1
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), record_xpoints=K,
+                   debug_checks=True, **kw)
+    off = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    torch.cuda.synchronize()
+    _lanes_equal(k, p)
+    _lanes_equal(k, off)
+    assert torch.equal(k.flux, p.flux) and torch.equal(k.flux, off.flux)
+    assert torch.equal(k.n_xpoints, p.n_xpoints)
+    assert torch.equal(k.xpoints, p.xpoints)
+    assert int(k.n_xpoints.max()) > K
+    far = int(torch.argmax(((mesh.centroids() - args[1][0]) ** 2).sum(1)))
+    bad_elem, bad_dest = args[3].clone(), args[2].clone()
+    bad_elem[0] = far
+    bad_dest[5] = float("nan")
+    for i, bad_arg, msg in ((3, bad_elem, CHECKS[0]),
+                            (2, bad_dest, CHECKS[1])):
+        bad = list(args)
+        bad[i] = bad_arg
+        flux = _flux0(mesh, G, dtype, cuda)
+        with pytest.raises(WalkInvariantError) as e:
+            walk_cuda.trace(*bad, flux, debug_checks=True, **kw)
+        assert str(e.value) == msg
+        assert torch.equal(flux, _flux0(mesh, G, dtype, cuda))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_atomic_kernel_matches_plain(cuda, dtype):
     from pumiumtally_tpu_torch.ops import walk, walk_cuda
@@ -1330,6 +1393,85 @@ def test_partitioned_walk_phase_kernel_matches_plain(cuda, dtype, halo,
         assert torch.equal(k[name], p[name]), name
     assert torch.equal(fk, fp)
     assert (p["target"] >= 0).any()  # lanes froze at cuts
+
+
+@pytest.mark.parametrize("robust", [True, False])
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_partitioned_xpoints_kernel_matches_plain(cuda, dtype, initial,
+                                                  robust):
+    """The feature instantiations of the partitioned layout (recorded
+    points; the step has no checks): one walk phase of the stacked parts
+    records each lane's points, the crossing into another part included,
+    and its count bitwise the plain version's, continuing given buffers;
+    every lane's state and the slab flux bitwise, and the same as the
+    launch without points. The layout refuses the checks."""
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    n = 3 * walk_cuda.resident_threads(dtype, initial=initial,
+                                       layout=walk_cuda.PARTITIONED) + 77
+    mesh, part, placed = _part_inputs(dtype, cuda, 4, 1, n=n)
+    slots = torch.nonzero(placed["valid"])[:, 0].contiguous()
+    total = placed["valid"].shape[0]
+    rows = ((slots // (total // 4)) * part.max_local
+            + placed["elem"][slots]).to(torch.int32)
+    m, K = slots.numel(), 4
+    i32 = dict(dtype=torch.int32, device=cuda)
+    args = (wp.stacked_tables(part), placed["origin"][slots],
+            placed["dest"][slots], rows, placed["weight"][slots],
+            placed["group"][slots], placed["material_id"][slots],
+            torch.zeros(m, dtype=dtype, device=cuda),
+            torch.full((m,), -1, **i32), torch.zeros(m, **i32), slots)
+    kw = dict(stride=total, max_local=part.max_local, initial=initial,
+              max_crossings=mesh.ntet + 8, n_groups=4, robust=robust)
+    flux0 = torch.zeros(part.n_parts * part.max_local * 8, dtype=dtype,
+                        device=cuda)
+    # Buffers that continue: one point recorded already on every lane.
+    xp0 = torch.full((m, K, 3), 7.0, dtype=dtype, device=cuda)
+    kx0 = torch.ones(m, **i32)
+
+    def given():
+        return (xp0.clone(), kx0.clone())
+
+    outs = []
+    feats = walk_cuda.FEATURE_PART_LAUNCHES
+    for fn, plain, pts in ((walk_cuda.walk_rows, False, given()),
+                           (wp.walk_rows_plain, True, given()),
+                           (walk_cuda.walk_rows, False, None)):
+        f = flux0.clone()
+        extra = {} if pts is None else dict(record_xpoints=K, xpoints=pts)
+        out, rec = fn(*args, f, **kw, **extra)
+        if rec is not None:
+            wp.fold_records(f, [rec], True, f.numel() // 2, plain)
+        outs.append((out, f))
+    torch.cuda.synchronize()
+    assert walk_cuda.FEATURE_PART_LAUNCHES - feats >= 1
+    (k, fk), (p, fp), (off, foff) = outs
+    for name in ("pos", "elem", "mat", "done", "pseg", "ncross", "nchase",
+                 "nseg", "iters", "target", "target_elem", "prev", "stuck"):
+        assert torch.equal(k[name], p[name]), name
+        assert torch.equal(k[name], off[name]), name
+    assert torch.equal(fk, fp) and torch.equal(fk, foff)
+    assert torch.equal(k["kx"], p["kx"]) and torch.equal(k["xp"], p["xp"])
+    assert torch.equal(k["kx"] - 1, k["ncross"])  # genuine crossings
+    assert bool((k["xp"][:, 0] == 7.0).all())  # the given row kept
+    assert int(k["kx"].max()) > K and (k["target"] >= 0).any()
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        walk_cuda._launch(None, *args[1:3], args[3], torch.ones(
+            m, dtype=torch.bool, device=cuda), *args[4:7], flux0.clone(),
+            initial=initial, max_crossings=8, n_groups=4,
+            score_squares=True, tolerance=1e-8, robust=robust, ledger=True,
+            stats=True, ordered=not initial, capacity=8 * m,
+            lanes=walk_cuda.lane_records(None, *args[1:3], args[3],
+                                         torch.ones(m, dtype=torch.bool,
+                                                    device=cuda),
+                                         *args[4:6], initial=initial,
+                                         nkeys=args[0][0].shape[0]),
+            debug_checks=True, part=dict(
+                tables=args[0], slot=slots, stride=total,
+                max_local=part.max_local, reset=0, prev=args[8],
+                stuck=args[9], mat=args[6], pseg=args[7]))
 
 
 @pytest.mark.parametrize("halo", [0, 1])

@@ -22,6 +22,15 @@ so parallel test workers never race for a port):
   * ``test_one_rank_group_is_the_stacked_step``: the step in a group of
     one rank (the code path the card runs under NCCL) equals the stacked
     step bit for bit.
+  * ``test_two_process_partitioned_xpoints``: the same step over 2 ranks
+    with ``record_xpoints=4`` bit for bit the stacked step, the points
+    and counts included (their columns ride the exchange's send rows).
+  * ``test_two_process_partitioned_megastep``: the partitioned megastep
+    (K = 3 device-sourced moves, 8 parts, the 4×4×4 two-region box,
+    float64) over 2 gloo ranks, each rank holding its parts' slot state,
+    class rows and per-part tail, bit for bit the stacked megastep: slot
+    state, slab flux and readback, the physics sums included (both add
+    per-part partial sums in part order); and a group of one rank too.
 
 Every worker has its own timeout (120 s); a timeout fails the test with
 the worker's stderr.
@@ -103,6 +112,7 @@ WORKER_PARTITIONED = textwrap.dedent("""
     import torch
     init, rank, world, out = (sys.argv[1], int(sys.argv[2]),
                               int(sys.argv[3]), sys.argv[4])
+    K = int(sys.argv[5]) or None
     from pumiumtally_tpu_torch.parallel.multihost import (
         global_device_mesh, init_distributed)
     assert init_distributed(init, world, rank, device="cpu",
@@ -135,7 +145,7 @@ WORKER_PARTITIONED = textwrap.dedent("""
         material_id=np.full(n, -1, np.int32)))
     step = wp.make_partitioned_step(dm, part, n_groups=2,
                                     max_crossings=mesh.ntet + 8,
-                                    tolerance=1e-8)
+                                    tolerance=1e-8, record_xpoints=K)
     flux = torch.zeros(lay.hi - lay.lo, part.max_local * 4,
                        dtype=torch.float64)
     res = step(placed["origin"], placed["dest"], placed["elem"],
@@ -145,11 +155,92 @@ WORKER_PARTITIONED = textwrap.dedent("""
     names = ("position", "elem", "material_id", "done", "valid",
              "particle_id", "track_length", "n_segments", "n_rounds",
              "n_dropped", "round_stats", "stats", "flux")
+    if K:
+        names += ("xpoints", "n_xpoints")
     got = wp.gather_parts({k: getattr(res, k).numpy() for k in names}, dm)
     if rank == 0:
         np.savez(out, **got)
     print("PRESULT", rank, int(got["n_segments"].sum()),
           int(got["n_rounds"][0]))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+""")
+
+MEGA_N, MEGA_K = 64, 3
+
+# K = 3 partitioned megastep moves over a device mesh (this process's
+# parts) on the 4×4×4 box with two regions split at x = 0.5, float64:
+# this process's slot state, slabs and readback (numpy). Run by the
+# workers and, stacked, by the test.
+MEGA_CASE = textwrap.dedent("""
+    import numpy as np
+    import torch
+
+
+    def megastep_case(device_mesh, n_parts, n=64, k=3):
+        from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+        from pumiumtally_tpu_torch.mesh.core import TetMesh
+        from pumiumtally_tpu_torch.ops import source
+        from pumiumtally_tpu_torch.ops import walk_partitioned as pwp
+        from pumiumtally_tpu_torch.parallel.mesh_partition import (
+            partition_mesh)
+        from pumiumtally_tpu_torch.parallel.ranks import rank_layout
+
+        coords, tets = build_box_arrays(1.0, 1.0, 1.0, 4, 4, 4)
+        cid = np.where(coords[tets].mean(axis=1)[:, 0] < 0.5, 1,
+                       2).astype(np.int32)
+        mesh = TetMesh.from_numpy(coords, tets, cid, dtype=torch.float64,
+                                  device="cpu")
+        lay = rank_layout(device_mesh)
+        part = partition_mesh(mesh, n_parts, halo_layers=1,
+                              parts=(lay.lo, lay.hi))
+        rng = np.random.default_rng(7)
+        elem = rng.integers(0, mesh.ntet, n).astype(np.int32)
+        placed = pwp.distribute_particles(part, device_mesh, elem, dict(
+            origin=mesh.centroids().numpy()[elem],
+            weight=rng.uniform(0.5, 2.0, n),
+            group=rng.integers(0, 2, n).astype(np.int32),
+            material_id=np.full(n, -1, np.int32)))
+        src = source.SourceParams(sigma_t={1: 4.0, 2: 9.0},
+                                  absorption={1: 0.3, 2: 0.5},
+                                  survival_weight=0.2, seed=13)
+        sig, ab = src.tables(cid)
+        l2g = np.clip(part.local2global, 0, mesh.ntet - 1)
+        mega = pwp.make_partitioned_megastep(
+            device_mesh, part, n_moves=k, n_total=n, n_groups=2,
+            class_local=np.clip(cid[l2g], 0, sig.shape[0] - 1),
+            sigma_t=sig, absorb_t=ab,
+            eps_near=source.near_epsilon(mesh.coords),
+            survival_weight=src.survival_weight,
+            downscatter=src.downscatter, dtype=torch.float64,
+            max_crossings=mesh.ntet + 64, tolerance=1e-8)
+        flux = torch.zeros(lay.hi - lay.lo, part.max_local * 4,
+                           dtype=torch.float64)
+        r = mega(placed["origin"], placed["elem"], placed["material_id"],
+                 placed["weight"], placed["group"], placed["particle_id"],
+                 placed["valid"], placed["valid"].clone(), flux, 0,
+                 source.prng_key(src.seed))
+        names = ("position", "dest", "elem", "material_id", "weight",
+                 "group", "particle_id", "valid", "alive", "flux",
+                 "readback")
+        return {name: getattr(r, name).numpy() for name in names}
+""")
+
+WORKER_MEGASTEP = MEGA_CASE + textwrap.dedent("""
+    import sys
+    init, rank, world, out = (sys.argv[1], int(sys.argv[2]),
+                              int(sys.argv[3]), sys.argv[4])
+    from pumiumtally_tpu_torch.parallel.multihost import (
+        global_device_mesh, init_distributed)
+    assert init_distributed(init, world, rank, device="cpu",
+                            group_of_one=True, timeout_s=60)
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    dm = global_device_mesh(8 // world, "cpu")
+    got = wp.gather_parts(megastep_case(dm, 8), dm)
+    if rank == 0:
+        np.savez(out, **got)
+    print("MRESULT", rank, got["readback"].tobytes().hex()[-96:])
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 """)
@@ -238,7 +329,7 @@ def _batch(mesh):
     return elem, origin, dest, weight, group
 
 
-def _stacked(pm, batch, n_parts=8):
+def _stacked(pm, batch, n_parts=8, k=None):
     """The port's stacked step (every part in this process)."""
     from pumiumtally_tpu_torch.ops import walk_partitioned as pwp
     from pumiumtally_tpu_torch.parallel.mesh_partition import partition_mesh
@@ -254,7 +345,7 @@ def _stacked(pm, batch, n_parts=8):
         material_id=np.full(len(elem), -1, np.int32)))
     step = pwp.make_partitioned_step(dm, part, n_groups=2,
                                      max_crossings=pm.ntet + 8,
-                                     tolerance=1e-8)
+                                     tolerance=1e-8, record_xpoints=k)
     res = step(placed["origin"], placed["dest"], placed["elem"],
                torch.zeros_like(placed["valid"]), placed["material_id"],
                placed["weight"], placed["group"], placed["particle_id"],
@@ -269,12 +360,12 @@ def _assert_bitwise(got, res):
                                       err_msg=k)
 
 
-def _ranked(tmp_path, world):
+def _ranked(tmp_path, world, k=0):
     init = _init_method(tmp_path)
     out = str(tmp_path / "rank0.npz")
     outs = _run_workers(
         WORKER_PARTITIONED,
-        lambda i: (init, str(i), str(world), out), world, tmp_path)
+        lambda i: (init, str(i), str(world), out, str(k)), world, tmp_path)
     seen = {}
     for o in outs:
         for m in re.finditer(r"^PRESULT (\d+) (\d+) (\d+)\s*$", o,
@@ -344,6 +435,49 @@ def test_one_rank_group_is_the_stacked_step(tmp_path):
     got = _ranked(tmp_path, 1)
     res, _ = _stacked(pm, _batch(pm))
     _assert_bitwise(got, res)
+
+
+
+def test_two_process_partitioned_xpoints(tmp_path):
+    """record_xpoints=4 over 2 gloo ranks: bitwise the stacked step, the
+    points and counts included."""
+    _, pm = twin_meshes(torch.float64, nx=4)
+    got = _ranked(tmp_path, 2, k=4)
+    res, _ = _stacked(pm, _batch(pm), k=4)
+    assert "xpoints" in got.files
+    _assert_bitwise(got, res)
+    assert int(got["n_xpoints"].sum()) > 0
+    assert int(got["round_stats"][:, 1].sum()) > 0  # lanes migrated
+
+
+@pytest.mark.parametrize("world", [2, 1])
+def test_two_process_partitioned_megastep(tmp_path, world):
+    """The partitioned megastep over ``world`` gloo ranks: bitwise the
+    stacked megastep (slot state, slabs, readback with its physics
+    sums)."""
+    from pumiumtally_tpu_torch.parallel.particle_sharding import (
+        make_device_mesh,
+    )
+
+    init = _init_method(tmp_path)
+    out = str(tmp_path / "mega0.npz")
+    outs = _run_workers(
+        WORKER_MEGASTEP, lambda i: (init, str(i), str(world), out), world,
+        tmp_path)
+    seen = {m.group(2) for o in outs for m in re.finditer(
+        r"^MRESULT (\d+) (\S+)\s*$", o, re.MULTILINE)}
+    assert len(seen) == 1  # every rank has the same physics sums
+    got = np.load(out)
+    ns: dict = {}
+    exec(MEGA_CASE, ns)
+    want = ns["megastep_case"](make_device_mesh(8, "cpu"), 8, MEGA_N,
+                               MEGA_K)
+    assert set(got.files) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert got["readback"].shape[0] == 8
+    assert int(want["valid"].sum()) == MEGA_N
+    assert 0 < int(want["alive"].sum()) < MEGA_N  # the physics acted
 
 
 # --------------------------------------------------------------------- #

@@ -3,8 +3,9 @@ port's PumiTally, on the CPU.
 
 Mirrors tests/test_partitioned_api.py's matches-PumiTally, VTK and
 batch-sd cases (its checkpoint case is in
-tests/test_torch_partitioned_checkpoint.py, its recorded-points case is
-ROADMAP.md A9d), and adds each refusal naming A9d. The JAX facade runs
+tests/test_torch_partitioned_checkpoint.py, its recorded-points case in
+tests/test_torch_partitioned_xpoints.py), and runs every run feature and
+debug surface the JAX facade accepts. The JAX facade runs
 three times,
 as module fixtures (float64, 8 parts, halo 1, packed; float32, 4 parts,
 halo 0, legacy; float64, 2 parts, halo 2, overlap), so every part
@@ -214,23 +215,21 @@ def test_partitioned_batch_sd_matches_pumitally(meshes):
     ("sort_by_element", True),
 ])
 def test_unported_features_refused_naming_a9b(meshes, field, value):
-    """The run features the JAX facade carries are accepted; the three
-    debug surfaces that need the walk's feature × partitioned
-    instantiations are refused naming A9d."""
+    """The run features and the debug surfaces the JAX facade carries
+    are accepted and run (none is refused now that the debug surfaces,
+    ROADMAP.md A9d, are ported)."""
     _, pm = meshes[torch.float64]
     cfg = TallyConfig(**_cfg(torch.float64, **{field: value}))
-    if field in ("record_xpoints", "checkify_invariants", "sort_by_element"):
-        with pytest.raises(NotImplementedError, match="A9d"):
-            PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
-    else:
-        t = PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
-        _drive(t, moves=1)
-        assert np.isfinite(t.raw_flux).all()
+    t = PartitionedTally(pm, N, cfg, n_parts=2, device="cpu")
+    _drive(t, moves=1)
+    assert np.isfinite(t.raw_flux).all()
+    if field == "record_xpoints":
+        assert t.intersection_points()[1].max() > 0
 
 
 def test_unported_calls_refused_naming_a9b(meshes, tmp_path):
-    """Checkpoints and the device-sourced loop run; the recorded points
-    still raise as without record_xpoints (ROADMAP.md A9d)."""
+    """Checkpoints and the device-sourced loop run; without
+    record_xpoints the recorded points raise, as in JAX."""
     _, pm = meshes[torch.float64]
     t = PartitionedTally(pm, N, TallyConfig(**_cfg(torch.float64)),
                          n_parts=2, device="cpu")
