@@ -190,11 +190,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    materials and elements counted where they differ, the flux per bin
    within rtol 1e-5 + atol 1e-5, segments equal, the conservation
    residual <= 1e-4, the flux bitwise the counted run's), a profiled run
-   (the card's busy share), and move 1's first walk phase at full width
+   of the search and moves 1-2 (the card's busy share; its slabs bitwise
+   the counted run's after move 2), and move 1's first walk phase at full width
    as the facade's step makes it (one launch with the step's budget and
    count restart, then the ordered fold of its records) kernel against
    plain, timed beside its bound; (d) ``io_pipeline``
-   "legacy" and "overlap": the packed run's flux and write-backs bitwise.
+   "legacy" (the initial search and move 1) and "overlap" (the search and
+   moves 1-2, so that a move drains the previous one's deferred folds):
+   the packed run's slabs and write-backs after the last move bitwise.
 17. the partitioned source loop (``[pmega]`` lines,
    ``PartitionedTally.run_source_moves``): (b) on a jittered 20^3 box in
    4 parts, halo 1, both dtypes: 3 fused moves of the partitioned
@@ -262,6 +265,26 @@ Phases, each of which raises (exit code != 0) on any failed check:
    which makes room for this phase and for the build's 16 more walk
    instantiations.
 
+20. the tuning (``[tune]`` lines): (a) the walk kernel's instantiations
+   at 64, 256 and 512 threads a block (the packed, robust initial search
+   and ordered move) against the 128 kernel on the main cell's initial
+   search and move 1 (lanes and flux bitwise, float32) and against the
+   plain walk on the jittered 20^3 box in float64 (bitwise); each width's
+   move 1 ordered walk call (CUDA events, median of 5, the widths in
+   turns), its resident threads and the ptxas registers,
+   spills and shared memory of every width; (b) ``tuning/search.py`` in
+   ``mode="hardware"`` on the headline class (the main mesh): four widths
+   (3 timed chains of 2 moves each) and K in {1, 4, 16} (16 moves), every
+   candidate's median, parity verdict and the winners, each width
+   launched (``walk_cuda.BLOCK_LAUNCHES``); ``PumiTally(tuning=<that
+   database>)`` on the main cell's inputs, initial search and moves 1-2
+   bitwise the default facade, every walk launch at the winning width;
+   ``PUMI_TPU_TUNE_FAULT=kernel:cuda:256`` on smoke1 rejected by the
+   parity gate; (c) move 1 of phase 16 (c)'s partitioned cell under
+   ``compact_stages="plan"`` and ``"auto"`` against the default:
+   write-backs and slabs bitwise; each run's ``PART_LAUNCHES``, rounds
+   and first walk phase (CUDA events).
+
 The peaks of device memory that phases 16 (c), 17 (c) and 19 (b) print
 follow a garbage collection (``settle_memory``): they count what is
 live, not earlier phases' objects that wait for Python's collector.
@@ -285,16 +308,19 @@ import warnings
 import numpy as np
 import torch
 
+# The walk's operations a lane iteration, the bytes a lane reads and
+# writes once, and the flight kernel's integer operations a lane: the
+# counts the tuner's cost model uses too.
+from pumiumtally_tpu_torch.tuning.costmodel import (  # noqa: E402
+    FLIGHT_OPS_PER_LANE as FLIGHT_INT_OPS,
+    FLOPS_PER_ITER,
+    LANE_IN,
+    LANE_OUT,
+)
+
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM, float32 outside the tensor cores
 FP64_FLOPS = 34e12             # H100 SXM, float64 outside the tensor cores
-# Floating-point operations per lane iteration of the walk, counted from
-# csrc/walk.cu: 4 faces x (denominator 5, numerator 6, division 1), the
-# ray norm 6, tolerance 2, crossing point 6, score 4, escalated bump 14.
-FLOPS_PER_ITER = 4 * 12 + 6 + 2 + 6 + 4 + 14
-# Per-lane bytes read once and written once by one walk launch.
-LANE_IN = {4: 12 + 12 + 4 + 1 + 4 + 4, 8: 24 + 24 + 4 + 1 + 8 + 4}
-LANE_OUT = {4: 12 + 4 + 4 + 1 + 4 + 16, 8: 24 + 4 + 4 + 1 + 8 + 16}
 
 # Where and at what size the phases run (a CPU rehearsal at a tiny size
 # may override these; the run on the card uses them as they are).
@@ -912,6 +938,7 @@ def zero_counts() -> None:
     walk_cuda.LAUNCHES = walk_cuda.RELAUNCHES = 0
     walk_cuda.FEATURE_LAUNCHES = walk_cuda.SCHEDULE_LAUNCHES = 0
     walk_cuda.UNPACKED_LAUNCHES = walk_cuda.PART_LAUNCHES = 0
+    walk_cuda.BLOCK_LAUNCHES = dict.fromkeys(walk_cuda.BLOCKS, 0)
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
     gather.LAUNCHES = source_cuda.LAUNCHES = 0
@@ -2155,11 +2182,6 @@ TRANSPORT_CELLS, TRANSPORT_LATTICE, TRANSPORT_EVENTS = 55, 3, 1000
 INT32_OPS = 132 * 64 * 1.98e9
 # The walk's flux tolerance where kernel and plain runs may differ.
 FLUX_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
-# Integer operations a lane of the flight kernel does: six threefry2x32
-# blocks (the lane key and five draws), each 2 + 2 key words + 20 rounds x
-# 3 (add, funnel shift, xor) + 5 injections x 3 adds; the clip of pid.
-THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
-FLIGHT_INT_OPS = 6 * THREEFRY_OPS + 2
 # float32 / float64 bytes a lane of the flight kernel must move: pid,
 # elem, alive, origin, class_id[elem] and sigma_t[region] read; dest,
 # coll_u and roul_u written.
@@ -2537,7 +2559,7 @@ RESIL_AUDIT = dict(integrity="warn", audit_lanes=64, audit_every=1)
 RESIL_REL = 1e-5  # the integrity sums against the host oracle, float32
 RESIL_DEADLINE_S = 30.0
 # The order of the runs a feature's cost is read from (on against off).
-RESIL_TURNS = ("off", "on", "on", "off", "off", "on", "on", "off")
+RESIL_TURNS = ("off", "on", "on", "off")
 
 
 def resil_tally(mesh, **kw):
@@ -3367,7 +3389,7 @@ def part_run(mesh, inputs, io="packed", single=None, spans=False,
                                      segments=tl.last_stats["segments"])
         out["moves"].append(rec)
     if profiled:
-        out["busy"] = stop_profile(prof, 4, host)
+        out["busy"] = stop_profile(prof, len(inputs["moves"]), host)
     out["flux"] = t.flux_slabs.clone()
     out["raw_flux"] = t.raw_flux
     out["elem_global"] = t.elem_global.copy()
@@ -3500,6 +3522,8 @@ def part_full_width(mesh, tmpdir: str) -> dict:
         elif when == "move 2":  # the slabs after the search and move 1,
             # on the host, so that no device memory outlives this phase
             state["flux1"] = t.flux_slabs.cpu()
+        elif when == "move 3":  # and after move 2
+            state["flux2"] = t.flux_slabs.cpu()
 
     resident, collected = settle_memory()
     zero_counts()
@@ -3597,25 +3621,32 @@ def part_full_width(mesh, tmpdir: str) -> dict:
             "elements differ (ties: positions agree within 1e-5)")
     if not torch.equal(run1["flux"], run2["flux"]):
         raise AssertionError("the partitioned flux differs between runs")
-    # Run 3: profiled, for the card's busy share.
-    run3 = part_run(mesh, inputs, profiled=True)
+    # Run 3: profiled, for the card's busy share (the search, moves 1-2).
+    run3 = part_run(mesh, dict(inputs, moves=inputs["moves"][:2]),
+                    profiled=True)
     run3.pop("tally")
     busy = run3["busy"]
-    log(f"[part] (c) profiled run: the card busy {busy['share']:.4f} of "
+    log(f"[part] (c) profiled run (moves 1-2): the card busy "
+        f"{busy['share']:.4f} of "
         f"the moves' host time ({busy['busy_ms']:.3f} of "
         f"{busy['span_ms']:.3f} ms a move; copies {busy['copy_ms']:.3f} "
         f"ms); top {busy['top']}")
-    same = [torch.equal(run3["flux"], run1["flux"])]
-    # (d) The other io_pipeline modes.
-    for io in ("legacy", "overlap"):
-        r = part_run(mesh, inputs, io=io)
+    same = [torch.equal(run3["flux"].cpu(), state["flux2"])]
+    # (d) The other io_pipeline modes: "legacy" the search and move 1,
+    # "overlap" the search and moves 1-2 (its deferred folds drain inside
+    # the next move from move 2 on).
+    for io, moves, flux in (("legacy", 1, state["flux1"]),
+                            ("overlap", 2, state["flux2"])):
+        r = part_run(mesh, dict(inputs, moves=inputs["moves"][:moves]),
+                     io=io)
         r.pop("tally")
-        same.append(torch.equal(r["flux"], run1["flux"]) and all(
+        same.append(torch.equal(r["flux"].cpu(), flux) and all(
             np.array_equal(x["part"]["dest"], y["part"]["dest"])
             and np.array_equal(x["part"]["mats"], y["part"]["mats"])
-            for x, y in zip(r["moves"], run1["moves"])))
-        log(f"[part] (d) io_pipeline={io}: flux and write-backs bitwise the "
-            f"packed run: {same[-1]}")
+            for x, y in zip(r["moves"], run1["moves"][:moves])))
+        span = "move 1" if moves == 1 else f"moves 1-{moves}"
+        log(f"[part] (d) io_pipeline={io}: the search and {span}, flux and "
+            f"write-backs bitwise the packed run: {same[-1]}")
     if not all(same):
         raise AssertionError("the partitioned flux differs across runs or "
                              "io_pipeline modes")
@@ -4646,6 +4677,288 @@ def phase_debug(main_tally, main_snaps, part) -> dict:
     return dict(a=a, b=b, c=c)
 
 
+# Phase 20: the block widths of the walk kernel, the tuner on the card and
+# the compaction ladder on the partitioned cell.
+WIDE_BLOCKS = (64, 256, 512)
+TUNE_REPS, TUNE_MOVES, TUNE_MEGA_MOVES = 3, 2, 16
+TUNE_FAULT_BLOCK = 256
+
+
+def width_ptxas(lib: str) -> dict:
+    """{(dtype letter, "initial" or "move", width): ptxas lines} of the
+    packed, non-feature, robust walk instantiations at every width, from
+    the build log."""
+    pat = re.compile(r"walk_kernelI([fd])Lb1ELb(\d)ELb(\d)ELb0ELi0ELi(\d+)E")
+    out, key = {}, None
+    with open(lib[:-3] + ".log") as f:
+        for line in f:
+            if "Function properties for" in line:
+                m = pat.search(line)
+                key = None
+                if m and (m.group(2) == "1" or m.group(3) == "1"):
+                    key = (m.group(1), "initial" if m.group(2) == "1"
+                           else "move", int(m.group(4)))
+            elif key is not None and ("registers" in line or "spill" in line):
+                out.setdefault(key, []).append(line.strip())
+    return out
+
+
+def tuning_widths(tally, snaps) -> dict:
+    """(a) Each width against the 128 kernel on the main cell's initial
+    search and move 1 (float32: lanes and flux bitwise), against the
+    plain walk on the 20^3 box (float64), and move 1's ordered walk call
+    at each width in turns (CUDA events, median of 5)."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    out = {"ms": {}, "resident": {}, "max_abs_err": 0.0}
+    for initial in (True, False):
+        args, kw = replay_args(tally, snaps["initial" if initial
+                                             else "move"], initial)
+        flux0 = snaps["initial" if initial else "move"]["flux"]
+        ref = walk_cuda.trace(*args, flux0.clone(), **kw)
+        cap = {} if initial else {"capacity": int(ref.n_segments)}
+        for b in WIDE_BLOCKS:
+            got = walk_cuda.trace(*args, flux0.clone(), **kw, **cap, block=b)
+            err = compare(got, ref, tally.config.dtype, 0.0, 0.0,
+                          f"[tune] (a) main cell "
+                          f"{'initial search' if initial else 'move 1'} "
+                          f"block {b} against block 128")
+            out["max_abs_err"] = max(out["max_abs_err"], err["max_abs_err"])
+        if initial:
+            continue
+        order = (128, *WIDE_BLOCKS)
+        calls = {b: [] for b in order}
+        for rep in range(5):
+            turn = order if rep % 2 == 0 else order[::-1]
+            for b in turn:
+                calls[b].append(event_ms(
+                    lambda f: walk_cuda.trace(*args, f, **kw, **cap,
+                                              block=b),
+                    1, lambda: (flux0.clone(),)))
+        for b in order:
+            out["ms"][b] = float(np.median(calls[b]))
+    lines = width_ptxas(LIBS[0])
+    for b in (128, *WIDE_BLOCKS):
+        res = {(dt, i): walk_cuda.resident_threads(dt, initial=i, block=b)
+               for dt in (torch.float32, torch.float64)
+               for i in (True, False)}
+        out["resident"][b] = res[(tally.config.dtype, False)]
+        log(f"[tune] (a) block {b}: move 1 ordered walk call "
+            f"{out['ms'][b]:.4f} ms (median of 5, widths in turns); "
+            f"resident threads (initial, move) float32 "
+            f"{res[(torch.float32, True)]}, {res[(torch.float32, False)]}, "
+            f"float64 {res[(torch.float64, True)]}, "
+            f"{res[(torch.float64, False)]}")
+        for tag, item in (("f", 48), ("d", 80)):
+            dyn = item * 2 * b if item * 2 * b > 48 * 1024 else 0
+            for phase in ("initial", "move"):
+                log(f"[tune] (a) ptxas {tag} {phase} block {b}: "
+                    + "; ".join(lines.get((tag, phase, b), ["(none)"]))
+                    + (f"; {dyn} bytes of dynamic shared memory" if dyn
+                       else ""))
+    # float64 on the 20^3 box: every width against the plain walk.
+    n, G = SMALL_LANES, 8
+    f64 = torch.float64
+    mesh = jittered_box(SMALL_CELLS, 0.2, 0, f64)
+    rng = np.random.default_rng(20)
+    dev = mesh.device
+
+    def t(a, dt):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    weight, group = t(rng.uniform(0.5, 2.0, n), f64), t(
+        rng.integers(0, G, n).astype(np.int32), torch.int32)
+    mat = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    flux0 = torch.zeros(mesh.ntet * G * 2, dtype=f64, device=dev)
+    kw = dict(max_crossings=mesh.ntet + 64, n_groups=G)
+    origin = mesh.centroids()[0].expand(n, 3).contiguous()
+    elem = torch.zeros(n, dtype=torch.int32, device=dev)
+    fly = torch.ones(n, dtype=torch.bool, device=dev)
+    src = t(rng.uniform(0.02, 0.98, (n, 3)), f64)
+    args = (mesh, origin, src, elem, fly, weight, group, mat)
+    p = walk.trace(*args, flux0.clone(), initial=True, **kw)
+    direction = rng.normal(size=(n, 3))
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    dest = t(p.position.cpu().numpy() + direction * rng.exponential(
+        0.15, (n, 1)), f64)
+    margs = (mesh, p.position, dest, p.elem, fly, weight, group, mat)
+    pm = walk.trace(*margs, flux0.clone(), initial=False, **kw)
+    for b in WIDE_BLOCKS:
+        for a, ref, initial in ((args, p, True), (margs, pm, False)):
+            got = walk_cuda.trace(*a, flux0.clone(), initial=initial,
+                                  block=b, **kw)
+            err = compare(got, ref, f64, 0.0, 0.0,
+                          f"[tune] (a) float64 20^3 "
+                          f"{'initial' if initial else 'move'} block {b} "
+                          f"against the plain walk")
+            out["max_abs_err"] = max(out["max_abs_err"], err["max_abs_err"])
+    torch.cuda.synchronize()
+    return out
+
+
+def tuning_search(tally, tmpdir: str) -> dict:
+    """(b) The tuner in ``mode="hardware"`` on the headline class (the
+    main mesh): the kernel axis at four widths, the megastep axis at K in
+    {1, 4, 16}; then ``PumiTally(tuning=...)`` on the main cell's inputs,
+    moves 1-2, bitwise the default facade, through the winning width; the
+    fault hook on smoke1."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.tuning import db as tdb
+    from pumiumtally_tpu_torch.tuning import search
+
+    path = os.path.join(tmpdir, "TUNING_TORCH.json")
+    zero_counts()
+    t0 = time.perf_counter()
+    data = search.tune({"headline": search.SPECS["headline"]},
+                       mode="hardware", reps=TUNE_REPS, moves=TUNE_MOVES,
+                       mega_moves=TUNE_MEGA_MOVES,
+                       meshes={"headline": tally.mesh})
+    secs = time.perf_counter() - t0
+    launches = dict(walk_cuda.BLOCK_LAUNCHES)
+    tdb.write_tuning(path, data)
+    sec = data["environments"][tdb.env_key(tdb.environment(DEVICE))]
+    (key, entry), = sec["entries"].items()
+    for c in entry["candidates"]:
+        what = (f"block {c['block']}" if c["kind"] == "kernel"
+                else f"megastep K={c['megastep']}")
+        log(f"[tune] (b) {key} {what}: {c['median_s_per_move'] * 1e3:.4f} "
+            f"ms a move (median of {TUNE_REPS}: "
+            f"{[round(x * 1e3, 4) for x in c['times_s_per_move']]}), "
+            f"parity {c['parity']}, predicted "
+            f"{c['predicted_s_per_move'] * 1e3:.4f} ms")
+        if c["parity"] != "bitwise":
+            raise AssertionError(f"tuner candidate {what} failed parity")
+    log(f"[tune] (b) winners {key}: block {entry['block']}, megastep "
+        f"{entry['megastep']}; calibration {entry['calibration']}; tuner "
+        f"{secs:.2f} s; walk launches by width {launches}")
+    if any(launches[b] == 0 for b in walk_cuda.BLOCKS):
+        raise AssertionError(f"the tuner did not launch every width: "
+                             f"{launches}")
+    # The tuned facade against the default on the main cell's moves 1-2.
+    inputs = part_inputs()
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    runs = {}
+    cfgs = {"default": TallyConfig(n_groups=G),
+            "tuned": TallyConfig(n_groups=G, tuning=path)}
+    for name, cfg in cfgs.items():
+        t = PumiTally(tally.mesh, n, cfg, device=DEVICE)
+        walk_cuda.BLOCK_LAUNCHES = dict.fromkeys(walk_cuda.BLOCKS, 0)
+        walk0 = walk_cuda.LAUNCHES
+        t.initialize_particle_location(inputs["pos"].reshape(-1))
+        outs = []
+        for want, groups in inputs["moves"][:2]:
+            dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
+            t.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n),
+                                    groups, mats)
+            outs.append((dest, mats))
+        torch.cuda.synchronize()
+        runs[name] = dict(outs=outs, flux=t.flux.clone(), width=t._block,
+                          launches=dict(walk_cuda.BLOCK_LAUNCHES),
+                          walk=walk_cuda.LAUNCHES - walk0)
+        log(f"[tune] (b) PumiTally {name}: shape key {t.shape_key}, tuned "
+            f"{t._tuned}, width {t._block}, walk launches "
+            f"{runs[name]['walk']} by width {runs[name]['launches']}")
+    base = runs["default"]
+    for name, r in runs.items():
+        same = torch.equal(r["flux"], base["flux"]) and all(
+            np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+            for a, b in zip(r["outs"], base["outs"]))
+        log(f"[tune] (b) PumiTally {name} moves 1-2 bitwise the default: "
+            f"{same}")
+        if not same:
+            raise AssertionError(f"the {name} facade differs from the "
+                                 "default")
+        if r["launches"][r["width"]] != r["walk"] or r["walk"] == 0:
+            raise AssertionError(f"the {name} facade did not walk at width "
+                                 f"{r['width']}: {r['launches']}")
+    # The fault hook: one candidate corrupted by one ulp is rejected.
+    os.environ["PUMI_TPU_TUNE_FAULT"] = f"kernel:cuda:{TUNE_FAULT_BLOCK}"
+    try:
+        _, faulted = search.tune_shape_class(
+            search.SPECS["smoke1"], mode="hardware", reps=1, moves=1,
+            mega_moves=1)
+    finally:
+        del os.environ["PUMI_TPU_TUNE_FAULT"]
+    verdicts = {c["block"]: c["parity"] for c in faulted["candidates"]
+                if c["kind"] == "kernel"}
+    log(f"[tune] (b) fault kernel:cuda:{TUNE_FAULT_BLOCK} on smoke1: "
+        f"verdicts {verdicts}, winner block {faulted['block']}")
+    if (verdicts.get(TUNE_FAULT_BLOCK) != "failed"
+            or faulted["block"] == TUNE_FAULT_BLOCK
+            or any(v != "bitwise" for b, v in verdicts.items()
+                   if b != TUNE_FAULT_BLOCK)):
+        raise AssertionError("the parity gate did not reject the fault")
+    return dict(entry=entry, launches=launches, seconds=secs,
+                facade_launches={k: r["launches"] for k, r in runs.items()})
+
+
+def tuning_ladder(mesh) -> dict:
+    """(c) Move 1 of the partitioned cell (phase 16 (c)'s) under
+    ``compact_stages="plan"`` and ``"auto"`` against the default, in
+    turns: the write-backs and slabs bitwise; each run's walk launches,
+    rounds and first walk phase (CUDA events, round 0's launches)."""
+    from pumiumtally_tpu_torch import PartitionedTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+
+    inputs = part_inputs()
+    n, G = MAIN_PARTICLES, MAIN_GROUPS
+    want, groups = inputs["moves"][0]
+    out = {}
+    for cs in (None, "plan", "auto"):
+        t = PartitionedTally(mesh, n, TallyConfig(n_groups=G,
+                                                  compact_stages=cs),
+                             n_parts=PART_PARTS, halo_layers=PART_HALO,
+                             device=DEVICE)
+        t.initialize_particle_location(inputs["pos"].reshape(-1))
+        dest, mats = want.reshape(-1).copy(), np.zeros(n, np.int32)
+        walk_cuda.PART_LAUNCHES = 0
+        rounds0 = t.total_rounds
+        wp.SPANS = []
+        t.move_to_next_location(dest, np.ones(n, np.int8), np.ones(n),
+                                groups, mats)
+        torch.cuda.synchronize()
+        first = sum(a.elapsed_time(b) for nm, r, a, b in wp.SPANS
+                    if nm == "walk" and r == 0)
+        wp.SPANS = None
+        name = cs or "default"
+        out[name] = dict(dest=dest, mats=mats, flux=t.flux_slabs.clone(),
+                         launches=walk_cuda.PART_LAUNCHES,
+                         rounds=t.total_rounds - rounds0, first_ms=first,
+                         stages=t._step_kwargs["compact_stages"])
+        log(f"[tune] (c) partitioned move 1 compact_stages={name}: "
+            f"schedule {out[name]['stages']}, PART_LAUNCHES "
+            f"{out[name]['launches']}, rounds {out[name]['rounds']}, "
+            f"first walk phase {first:.4f} ms")
+        del t
+    base = out["default"]
+    for name in ("plan", "auto"):
+        r = out[name]
+        same = (np.array_equal(r["dest"], base["dest"])
+                and np.array_equal(r["mats"], base["mats"])
+                and torch.equal(r["flux"], base["flux"]))
+        log(f"[tune] (c) {name} bitwise the default: {same}")
+        if not same or not r["stages"]:
+            raise AssertionError(f"compact_stages={name} differs from the "
+                                 "default or resolved no schedule")
+    return out
+
+
+def phase_tuning(tally, snaps, tmpdir: str) -> dict:
+    t0 = time.perf_counter()
+    widths = tuning_widths(tally, snaps)
+    t1 = time.perf_counter()
+    tuned = tuning_search(tally, tmpdir)
+    t2 = time.perf_counter()
+    ladder = tuning_ladder(tally.mesh)
+    t3 = time.perf_counter()
+    log(f"[tune] (a) {t1 - t0:.2f} s, (b) {t2 - t1:.2f} s, (c) "
+        f"{t3 - t2:.2f} s; card {card_line()}")
+    return dict(widths=widths, tuned=tuned, ladder=ladder)
+
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -4783,6 +5096,12 @@ def main() -> int:
     debug = phase_debug(tally, snaps, part)
     log(f"[phase] partitioned debug surfaces and megastep over ranks: "
         f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tune = phase_tuning(tally, snaps, tmpdir)
+    log(f"[phase] tuning: {time.perf_counter() - t0:.2f} s")
+    widths, tuned = tune["widths"], tune["tuned"]
 
     walk = {
         "route": "cuda",
@@ -4952,6 +5271,15 @@ def main() -> int:
          "megastep_nccl_chunk_s": debug["c"]["ranks_s"],
          "megastep_stacked_chunk_s": debug["c"]["stacked_s"]},
     ]
+    for b in WIDE_BLOCKS:
+        kernels.append({
+            "name": f"walk_cuda.trace(block={b})", **walk,
+            "launches": tuned["launches"][b],
+            "max_abs_err": widths["max_abs_err"], "ms": widths["ms"][b],
+            "block_128_ms": widths["ms"][128],
+            "resident_threads": widths["resident"][b],
+            "facade_launches": {name: c[b] for name, c in
+                                tuned["facade_launches"].items()}})
     for kern in kernels:
         if not kern["launches"]:
             raise AssertionError(f"{kern['name']} was not launched on its path")

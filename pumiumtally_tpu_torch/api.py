@@ -118,6 +118,22 @@ stats, convergence summary and physics counters) and nothing to the
 card: the move counter reaches the sampling kernel as an argument. The
 walk's own host reads stay (ROADMAP.md B2), so a chunk is a host loop of
 K moves: any K gives the bits of K = 1 and saves no launches.
+
+The tuning database, as in the JAX facade: ``TallyConfig.tuning`` (or
+env ``PUMI_TPU_TUNING``) names a ``TUNING_TORCH.json`` that construction
+consults once (``tuning/db.py::resolve_tuned``) for this workload's shape
+class (``shape_key``, which the flight records carry too). Its ``block``
+is the walk kernel's threads per block where neither
+``PUMI_TPU_PALLAS_LANE_BLOCK`` nor ``pallas_lane_block`` sets one
+(``TallyConfig.resolve_lane_block``, mapped by
+``walk_cuda.block_for``); the width rides the instantiations built at
+every width, the packed, robust initial search and move without feature
+tails, and every other walk runs at 128. Its ``megastep`` is K where
+neither ``PUMI_TPU_MEGASTEP`` nor ``megastep`` sets one. Every width and
+every K give the same bits, so a tuned run equals the default one.
+``compact_stages`` resolves as in the JAX facade ("adaptive" replans once
+from the first move's crossings, ``_maybe_replan``) and rides
+checkpoints; the walk refills its threads and ignores the schedule.
 """
 from __future__ import annotations
 
@@ -150,7 +166,10 @@ from .obs.walk_stats import stats_to_dict
 from .ops import staging, walk_cuda
 from .ops.staging import HostStager, host_tensor
 from .resilience import quarantine
+from .tuning.db import resolve_tuned
+from .tuning.shapes import classify
 from .utils.config import TallyConfig
+from .utils.ladder import plan_stages
 from .utils.platform import resolve_device
 from .utils.timing import StepClock, TallyTimes, clock_step, phase_timer
 
@@ -282,10 +301,31 @@ class PumiTally:
             self.num_particles = int(num_particles)
             self._max_crossings = cfg.resolve_max_crossings(mesh.ntet)
             self._io = cfg.resolve_io_pipeline()
+            # The compaction schedule as the JAX facade resolves it; the
+            # walk ignores it ("adaptive" replans after the first move).
+            self._compact_stages = cfg.resolve_compact_stages(
+                self.num_particles, ntet=mesh.ntet)
+            self._replanned = cfg.compact_stages != "adaptive"
+            # The tuning database, consulted once here for the knobs no
+            # env variable or field sets; a miss (or no database)
+            # changes nothing.
+            packed = mesh.geo20 is not None
+            self._tuned = resolve_tuned(
+                cfg, ntet=mesh.ntet, n_particles=self.num_particles,
+                n_groups=cfg.n_groups, dtype=cfg.dtype, packed=packed,
+                device=self.device)
+            self.shape_key = classify(mesh.ntet, self.num_particles,
+                                      cfg.n_groups, cfg.dtype, packed).key()
             # The walk-backend knobs, validated and refused as in the JAX
-            # facade's construction; the port has one walk either way.
+            # facade's construction; the port has one walk either way, and
+            # the block width is its threads per block on the card.
             self._kernel_policy = cfg.resolve_kernel()
-            self._lane_block = cfg.resolve_lane_block(self.num_particles)
+            self._lane_block = cfg.resolve_lane_block(self.num_particles,
+                                                      tuned=self._tuned)
+            self._block = walk_cuda.launch_block(
+                self._lane_block, packed=packed, robust=cfg.robust,
+                feature=(cfg.record_xpoints is not None
+                         or cfg.checkify_invariants))
             self._stager = HostStager(
                 depth=2 if self._io == "overlap" else 1, device=self.device
             )
@@ -412,7 +452,23 @@ class PumiTally:
             record_xpoints=cfg.record_xpoints,
             debug_checks=cfg.checkify_invariants,
             integrity=self._integrity != "off",
+            block=self._block,
         )
+
+    def _maybe_replan(self, n_segments: int, n_moving: int) -> None:
+        """compact_stages="adaptive": after the first move, plan the
+        ladder again from the measured crossings a move (a mover scores
+        crossings + 1 segments) instead of the mesh-density estimate, as
+        the JAX facade does. The port's walk ignores the schedule, so
+        only the facade's state (and its checkpoints) change."""
+        if self._replanned or n_moving == 0:
+            return
+        self._replanned = True
+        if self.num_particles < 1024:
+            return  # tiny batches stay on the flat loop
+        mean = max(n_segments / n_moving - 1.0, 0.25)
+        self._compact_stages = plan_stages(
+            self.num_particles, mean, unroll=self.config.unroll) or None
 
     def _trace(self, *args, _packed: bool = False, **kwargs):
         """The facade's one walk entry for its initial search and moves:
@@ -841,7 +897,8 @@ class PumiTally:
         self._telemetry.record_walk(
             "initial_search", 0, stats_d,
             seconds=self.tally_times.initialization_time - t_before,
-            synced=cfg.measure_time, **self._io_since(io0),
+            synced=cfg.measure_time, shape_key=self.shape_key,
+            **self._io_since(io0),
         )
 
     def move_to_next_location(
@@ -897,6 +954,8 @@ class PumiTally:
         io0 = dict(self.io)
         t_before = self.tally_times.total_time_to_tally
         move = self.iter_count + 1
+        # Movers for the one-shot adaptive replan (only while it waits).
+        n_moving = int(fly_h.sum()) if not self._replanned else 0
         with phase_timer(
             self.tally_times, "total_time_to_tally", True
         ) as timer:
@@ -1041,6 +1100,7 @@ class PumiTally:
             self._traces_since_sort += 1
             self._last_segments = segs
             self.total_segments += segs
+            self._maybe_replan(segs, n_moving)
             self._store_xpoints(r)
             # The truncation warning stays in the call in every mode;
             # only the telemetry fold is deferred under "overlap".
@@ -1064,7 +1124,8 @@ class PumiTally:
         io = self._io_since(io0)
         synced = cfg.measure_time
         self._fold(lambda: self._telemetry.record_walk(
-            "move", move, stats_d, seconds=seconds, synced=synced, **io))
+            "move", move, stats_d, seconds=seconds, synced=synced,
+            shape_key=self.shape_key, **io))
         if conv_h is not None:
             fields = conv_to_dict(conv_h)
             secs_total = self.tally_times.total_time_to_tally
@@ -1190,7 +1251,7 @@ class PumiTally:
                 "initialize_particle_location must run before source moves"
             )
         cfg = self.config
-        K = cfg.resolve_megastep()
+        K = cfg.resolve_megastep(tuned=self._tuned)
         if self._kernel_policy == "pallas" and cfg.kernel == "pallas":
             raise NotImplementedError(
                 "run_source_moves fuses source sampling + walk + "
@@ -1281,7 +1342,7 @@ class PumiTally:
             seconds = self.tally_times.total_time_to_tally - t_before
             self._telemetry.record_walk(
                 "megastep", self.iter_count, stats_d, seconds=seconds,
-                synced=cfg.measure_time, moves=k,
+                synced=cfg.measure_time, moves=k, shape_key=self.shape_key,
                 collisions=p["collisions"], escaped=p["escaped"],
                 rouletted=p["rouletted"], alive=p["alive"],
                 **self._io_since(io0),

@@ -87,6 +87,16 @@
 //    index beside its record, and its records are keyed by its slot in
 //    the stacked parts. The lane schedule, the refill and the ordered
 //    scatter are the same for every layout.
+//  * The block width (template value BLOCK, threads per block). Every
+//    instantiation has 128; the packed, non-feature, robust initial search
+//    and ordered move, the main path's, are built at 64, 256 and 512 too,
+//    the counterpart of the JAX kernel's lane_block ladder, which the
+//    port's autotuner (pumiumtally_tpu_torch/tuning/) times. A warp's
+//    batches take 2 x 32 lane records of shared memory (48 B in float32, 80
+//    B in float64), 12 KB / 20 KB a block at 128 and 48 KB / 80 KB at 512:
+//    past the 48 KB of static shared memory (float64 at 512) they are
+//    dynamic shared memory. The width changes which thread walks a lane,
+//    not what the lane computes: every width gives the same bits.
 //
 // What bounds it: every iteration of a lane does one random 80/160 B row
 // read that depends on the last and, when it scores, one record (ordered)
@@ -208,8 +218,11 @@ struct Real<double> {
   }
 };
 
-constexpr int BLOCK = 128;
+constexpr int DEFAULT_BLOCK = 128;
 constexpr int WARP = 32;
+// Static shared memory a block may declare; past it a launch passes the
+// batches' bytes as dynamic shared memory.
+constexpr size_t STATIC_SMEM = 48 * 1024;
 // The walk table's layout (template flag LAYOUT of walk_kernel).
 constexpr int PACKED = 0;       // geo20 rows (the main path)
 constexpr int UNPACKED = 1;     // four tables, a mesh without geo20
@@ -264,6 +277,33 @@ struct __align__(16) Lane {
 };
 static_assert(sizeof(Lane<float>) == 48, "float32 lane");
 static_assert(sizeof(Lane<double>) == 80, "float64 lane");
+
+// The shared-memory bytes of a block's batches (two of 32 lanes a warp),
+// and those of them a launch passes as dynamic shared memory (0 while they
+// fit the static limit).
+template <typename T>
+__host__ __device__ constexpr size_t batch_bytes(int block) {
+  return sizeof(Lane<T>) * 2 * (size_t)block;
+}
+template <typename T>
+__host__ __device__ constexpr size_t dynamic_bytes(int block) {
+  return batch_bytes<T>(block) > STATIC_SMEM ? batch_bytes<T>(block) : 0;
+}
+
+// The batches of a block: its static shared memory `s` while they fit the
+// static limit, else its dynamic shared memory (the launch passes
+// dynamic_bytes). Through this helper the 128-thread instantiations keep
+// the machine code they had before the width was a template value.
+template <typename T, int BLOCK>
+__device__ __forceinline__ Lane<T> (*block_batches(
+    Lane<T> (*s)[2][WARP]))[2][WARP] {
+  if constexpr (dynamic_bytes<T>(BLOCK) > 0) {
+    extern __shared__ __align__(16) unsigned char walk_smem[];
+    return reinterpret_cast<Lane<T>(*)[2][WARP]>(walk_smem);
+  } else {
+    return s;
+  }
+}
 
 // The feature tails' arguments (read only by the FEAT instantiations).
 template <typename T>
@@ -568,7 +608,7 @@ __device__ __forceinline__ void copy_lane(Lane<T>* dst, const Lane<T>* src) {
 }
 
 template <typename T, bool ROBUST, bool INITIAL, bool ORDERED, bool FEAT,
-          int LAYOUT>
+          int LAYOUT, int BLOCK = DEFAULT_BLOCK>
 __global__ void __launch_bounds__(BLOCK)
 walk_kernel(const T* __restrict__ geo,
             const LaneRecord<T>* __restrict__ lanes,
@@ -609,8 +649,10 @@ walk_kernel(const T* __restrict__ geo,
   // while the next batch (nn slots) is copied in, and lane 0 holds the
   // slot base of the batch after that (pend), taken from the counter a
   // whole batch ahead. So a refill waits on no memory access.
-  __shared__ Lane<T> batches[BLOCK / WARP][2][WARP];
-  Lane<T>(*const buf)[WARP] = batches[threadIdx.x / WARP];
+  __shared__ Lane<T>
+      batches[dynamic_bytes<T>(BLOCK) ? 1 : BLOCK / WARP][2][WARP];
+  Lane<T>(*const buf)[WARP] =
+      block_batches<T, BLOCK>(batches)[threadIdx.x / WARP];
   unsigned long long pend = 0;
   int cur = 0, qn = 0, qpos = 0, nn = 0;
   bool dry = false;  // the counter has passed n (the same in the warp)
@@ -968,19 +1010,22 @@ walk_kernel(const T* __restrict__ geo,
   if (CHECKS && err) atomicOr(counters + ERR_BITS, (unsigned long long)err);
 }
 
-// Calls f with the kernel instantiation for the flags. The initial
-// search scores nothing, so it has no ordered instantiation. The feature
-// tails are instantiated for what the facade, the re-walk and the
-// partitioned step launch, the initial search and the ordered move, on
-// every layout; the atomic tally (packed only) has none.
+// Calls f(kernel, block) with the kernel instantiation for the flags and
+// its block width. The initial search scores nothing, so it has no ordered
+// instantiation. The feature tails are instantiated for what the facade,
+// the re-walk and the partitioned step launch, the initial search and the
+// ordered move, on every layout; the atomic tally (packed only) has none.
+// Every instantiation has DEFAULT_BLOCK; the packed, non-feature, robust
+// initial search and ordered move have the wider and narrower widths too.
 template <typename T, int L, bool FEAT, typename F>
 int with_layout(int robust, int initial, int ordered, F f) {
+  constexpr int B = DEFAULT_BLOCK;
   if (initial)
-    return robust ? f(walk_kernel<T, true, true, false, FEAT, L>)
-                  : f(walk_kernel<T, false, true, false, FEAT, L>);
+    return robust ? f(walk_kernel<T, true, true, false, FEAT, L>, B)
+                  : f(walk_kernel<T, false, true, false, FEAT, L>, B);
   if (!ordered) return (int)cudaErrorInvalidValue;
-  return robust ? f(walk_kernel<T, true, false, true, FEAT, L>)
-                : f(walk_kernel<T, false, false, true, FEAT, L>);
+  return robust ? f(walk_kernel<T, true, false, true, FEAT, L>, B)
+                : f(walk_kernel<T, false, false, true, FEAT, L>, B);
 }
 
 template <typename T, int L, typename F>
@@ -989,9 +1034,29 @@ int with_feat(int robust, int initial, int ordered, int feat, F f) {
               : with_layout<T, L, false>(robust, initial, ordered, f);
 }
 
+template <typename T, int B, typename F>
+int with_width(int initial, F f) {
+  return initial ? f(walk_kernel<T, true, true, false, false, PACKED, B>, B)
+                 : f(walk_kernel<T, true, false, true, false, PACKED, B>, B);
+}
+
 template <typename T, typename F>
 int with_kernel(int robust, int initial, int ordered, int feat, int layout,
-                F f) {
+                int block, F f) {
+  if (block != DEFAULT_BLOCK) {
+    if (layout != PACKED || feat || !robust || !(initial || ordered))
+      return (int)cudaErrorInvalidValue;
+    switch (block) {
+      case 64:
+        return with_width<T, 64>(initial, f);
+      case 256:
+        return with_width<T, 256>(initial, f);
+      case 512:
+        return with_width<T, 512>(initial, f);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
   if (layout == UNPACKED)
     return with_feat<T, UNPACKED>(robust, initial, ordered, feat, f);
   if (layout == PARTITIONED)
@@ -999,23 +1064,32 @@ int with_kernel(int robust, int initial, int ordered, int feat, int layout,
   if (layout != PACKED) return (int)cudaErrorInvalidValue;
   if (feat || initial || ordered)
     return with_feat<T, PACKED>(robust, initial, ordered, feat, f);
-  return robust ? f(walk_kernel<T, true, false, false, false, PACKED>)
-                : f(walk_kernel<T, false, false, false, false, PACKED>);
+  return robust
+             ? f(walk_kernel<T, true, false, false, false, PACKED>,
+                 DEFAULT_BLOCK)
+             : f(walk_kernel<T, false, false, false, false, PACKED>,
+                 DEFAULT_BLOCK);
 }
 
-// Blocks for n lanes: as many as stay resident on the card at once (the
-// threads refill), fewer when n needs fewer.
+// Blocks of `block` threads for n lanes: as many as stay resident on the
+// card at once (the threads refill), fewer when n needs fewer. A kernel
+// whose batches are dynamic shared memory (`smem` bytes) is allowed them
+// first.
 template <typename K>
-int grid_for(K kernel, long long n, int* grid) {
+int grid_for(K kernel, int block, size_t smem, long long n, int* grid) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess && smem > 0)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK,
-                                                      0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, block,
+                                                      smem);
   const long long resident = (long long)per_sm * sms;
-  const long long need = (n + BLOCK - 1) / BLOCK;
+  const long long need = (n + block - 1) / block;
   *grid = (int)(need < resident ? need : resident);
   return (int)e;
 }
@@ -1028,7 +1102,7 @@ int walk(int robust, int initial, int ordered, const void* geo,
          void* ncross_out, void* nchase_out, void* nseg_out, void* iters_out,
          void* rec_bin, void* rec_order, void* rec_c, void* counters,
          long long capacity, const Features<T>& feat, int layout,
-         const Tables<T>& tab, const Parts& part, void* stream) {
+         const Tables<T>& tab, const Parts& part, int block, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if ((uintptr_t)lanes % 32) return (int)cudaErrorInvalidValue;
   if (layout != PACKED &&
@@ -1040,12 +1114,13 @@ int walk(int robust, int initial, int ordered, const void* geo,
   if (layout == PARTITIONED && (part.max_local < 1 || feat.checks))
     return (int)cudaErrorInvalidValue;
   const int on = feat.record || feat.checks;
-  return with_kernel<T>(robust, initial, ordered, on, layout,
-                        [&](auto kernel) {
+  return with_kernel<T>(robust, initial, ordered, on, layout, block,
+                        [&](auto kernel, int width) {
     int grid = 0;
-    const int e = grid_for(kernel, n, &grid);
+    const size_t smem = dynamic_bytes<T>(width);
+    const int e = grid_for(kernel, width, smem, n, &grid);
     if (e != 0) return e;
-    kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+    kernel<<<grid, width, smem, (cudaStream_t)stream>>>(
         (const T*)geo, (const LaneRecord<T>*)lanes, n, n_groups,
         max_crossings,
         (T)tolerance, score_squares, (T*)flux, (T*)pos_out, (int*)elem_out,
@@ -1089,12 +1164,14 @@ int schedule(const void* origin, const void* dest, const void* elem,
 }
 
 template <typename T>
-int resident(int robust, int initial, int ordered, int layout, int* threads) {
-  return with_kernel<T>(robust, initial, ordered, 0, layout,
-                        [&](auto kernel) {
+int resident(int robust, int initial, int ordered, int layout, int block,
+             int* threads) {
+  return with_kernel<T>(robust, initial, ordered, 0, layout, block,
+                        [&](auto kernel, int width) {
     int grid = 0;
-    const int e = grid_for(kernel, 1LL << 40, &grid);
-    *threads = grid * BLOCK;
+    const int e =
+        grid_for(kernel, width, dynamic_bytes<T>(width), 1LL << 40, &grid);
+    *threads = grid * width;
     return e;
   });
 }
@@ -1127,9 +1204,12 @@ int resident(int robust, int initial, int ordered, int layout, int* threads) {
 // cls, nbr_cls (16 B aligned, see Tables); layout 2 the stacked parts'
 // tables, with the lane state of Parts: slot [n] int64, stride, max_local,
 // reset, prev, stuck [n] int32 in/out, target, target_elem [n] int32 out, and
-// mat_out and pseg_out read before they are written.
+// mat_out and pseg_out read before they are written. block is the threads
+// per block: 128 for every instantiation, or 64, 256 or 512 for the packed
+// (layout 0), non-feature, robust initial search and ordered move; another
+// combination returns cudaErrorInvalidValue.
 // pumi_walk_resident_<t> gives the threads a launch of that instantiation
-// keeps resident on the current device.
+// and block width keeps resident on the current device.
 #define PUMI_WALK_ENTRY(TAG, T)                                                \
   extern "C" int pumi_lanes_##TAG(                                             \
       const void* origin, const void* dest, const void* elem, const void* fly, \
@@ -1157,7 +1237,7 @@ int resident(int robust, int initial, int ordered, int layout, int* threads) {
       int ntet, double tol10, int layout, const void* normals, const void* d,  \
       const void* nbr, const void* cls, const void* nbr_cls, const void* slot, \
       long long stride, int max_local, int reset, void* prev, void* stuck,     \
-      void* target, void* target_elem, void* stream) {                         \
+      void* target, void* target_elem, int block, void* stream) {              \
     const Features<T> feat{(T*)xp, (int*)kx, k, record, checks, ntet,          \
                            (T)tol10};                                          \
     const Tables<T> tab{(const T*)normals, (const T*)d, (const int*)nbr,       \
@@ -1169,12 +1249,13 @@ int resident(int robust, int initial, int ordered, int layout, int* threads) {
                    max_crossings, tolerance, score_squares, flux, pos_out,     \
                    elem_out, mat_out, done_out, pseg_out, ncross_out,          \
                    nchase_out, nseg_out, iters_out, rec_bin, rec_order, rec_c, \
-                   counters, capacity, feat, layout, tab, part, stream);       \
+                   counters, capacity, feat, layout, tab, part, block,         \
+                   stream);                                                    \
   }                                                                            \
   extern "C" int pumi_walk_resident_##TAG(int robust, int initial,             \
-                                          int ordered, int layout,             \
+                                          int ordered, int layout, int block,  \
                                           int* threads) {                      \
-    return resident<T>(robust, initial, ordered, layout, threads);             \
+    return resident<T>(robust, initial, ordered, layout, block, threads);      \
   }
 
 PUMI_WALK_ENTRY(f32, float)

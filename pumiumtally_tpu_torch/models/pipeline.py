@@ -24,6 +24,13 @@ loop (flight sampling, walk, physics; ``ops/walk.py::megastep``) runs
 counters. It is done only when every particle is dead and no walk was
 cut short.
 
+Each submission is classified by its batch size (``tuning/shapes.py``;
+``shape_keys()`` counts the batches by key), and ``submit`` consults the
+tuning database (``TallyConfig.tuning``) for the walk kernel's threads per
+block of that class, as the JAX pipeline does for its block width; every
+width gives the same bits. ``compact_stages`` is validated and ignored
+(the walk refills its threads), "adaptive" refused, as in JAX.
+
 Use ``PumiTally.move_to_next_location`` for the strictly sequential
 per-event contract, where one event's output feeds the next.
 """
@@ -44,6 +51,8 @@ from ..ops.staging import (
     pack_trace_readback,
     readback_views,
 )
+from ..tuning.db import resolve_tuned
+from ..tuning.shapes import classify
 from ..utils.config import TallyConfig
 from ..utils.timing import StepClock, clock_step
 
@@ -65,8 +74,8 @@ class BatchResult(NamedTuple):
     and ``n_xpoints`` [n] are the batch's crossing points and counts when
     the config sets ``record_xpoints=K``, else None. ``physics`` holds a
     ``submit_source`` batch's counters (``ops/source.py``
-    MEGA_PHYS_FIELDS), None for ``submit`` batches; ``shape_key`` is None
-    until the tuning shapes are ported (A10)."""
+    MEGA_PHYS_FIELDS), None for ``submit`` batches; ``shape_key`` is the
+    shape-class key (``tuning/shapes.py``) of the batch's size."""
 
     index: int
     position: np.ndarray
@@ -135,6 +144,10 @@ class StreamingTallyPipeline:
         self._results: list[BatchResult] = []
         self._face_rate: float | None = None
         self._records: int | None = None  # the last walk's tally records
+        # {shape-class key: batches submitted}; each key rides its
+        # BatchResult too.
+        self._shape_counts: collections.Counter = collections.Counter()
+        self._blocks: dict[int, int] = {}  # {batch size: walk block}
         # Set to a StepClock to time each host step of the calls.
         self.step_clock: StepClock | None = None
 
@@ -167,6 +180,7 @@ class StreamingTallyPipeline:
             t["in_flight"] = torch.ones(n, dtype=torch.bool, device=dev)
         if "material_id" not in t:
             t["material_id"] = torch.full((n,), -1, dtype=i32, device=dev)
+        key = self._classify(n)
         with step("walk"):
             r = walk_cuda.trace(
                 self.mesh, t["origin"], t["dest"], t["elem"], t["in_flight"],
@@ -176,17 +190,43 @@ class StreamingTallyPipeline:
                 n_groups=cfg.n_groups, score_squares=cfg.score_squares,
                 tolerance=cfg.tolerance, robust=cfg.robust,
                 ledger=cfg.ledger, stats=cfg.walk_stats, capacity=cap,
-                record_xpoints=cfg.record_xpoints,
+                record_xpoints=cfg.record_xpoints, block=self._block(n),
             )
         self._records = r.n_records
         entry = (self._n_submitted, n, None, None, None, None, None, None)
         if self.want_outputs:
             with step("readback"):
                 entry = (self._n_submitted, n, *self._read_back(r), "walk")
-        self._inflight.append(entry)
+        self._inflight.append(entry + (key,))
         self._n_submitted += 1
         while len(self._inflight) > self.depth:
             self._drain_one()
+
+    def _classify(self, n: int) -> str:
+        """The submission's shape-class key, counted into
+        ``shape_keys()``."""
+        cfg = self.config
+        key = classify(self.mesh.ntet, n, cfg.n_groups, cfg.dtype,
+                       self.mesh.geo20 is not None).key()
+        self._shape_counts[key] += 1
+        return key
+
+    def _block(self, n: int) -> int:
+        """The walk's threads per block for a batch of n lanes
+        (``walk_cuda.launch_block``), resolved at the first batch of that
+        size and kept: the shape class, and so the tuning database's
+        entry, depends on the batch size."""
+        block = self._blocks.get(n)
+        if block is None:
+            cfg = self.config
+            packed = self.mesh.geo20 is not None
+            tuned = resolve_tuned(cfg, ntet=self.mesh.ntet, n_particles=n,
+                                  n_groups=cfg.n_groups, dtype=cfg.dtype,
+                                  packed=packed, device=self.device)
+            block = self._blocks[n] = walk_cuda.launch_block(
+                cfg.resolve_lane_block(n, tuned=tuned), packed=packed,
+                robust=cfg.robust, feature=cfg.record_xpoints is not None)
+        return block
 
     def _step(self, name: str):
         """The context of one timed host step (nothing without a clock)."""
@@ -259,13 +299,13 @@ class StreamingTallyPipeline:
         return (*hosts, done)
 
     def _drain_one(self) -> None:
-        idx, n, host_rb, host_elem, host_xp, host_kx, done, kind = (
+        idx, n, host_rb, host_elem, host_xp, host_kx, done, kind, key = (
             self._inflight.popleft())
         if host_rb is None:
             return
         if kind == "source":
             self._drain_megastep(idx, host_rb, host_elem, host_xp, host_kx,
-                                 done)
+                                 done, key)
             return
         with self._step("drain"):
             if done is not None:
@@ -290,13 +330,13 @@ class StreamingTallyPipeline:
                 xpoints=None if host_xp is None else _owned(host_xp),
                 n_xpoints=None if host_kx is None else _owned(host_kx),
                 stats=stats,
+                shape_key=key,
             ))
 
     # ------------------------------------------------------------------ #
     def shape_keys(self) -> dict:
-        """{shape-class key: batches submitted}: empty until the tuning
-        shapes are ported (ROADMAP.md A10)."""
-        return {}
+        """{shape-class key: batches submitted}."""
+        return dict(self._shape_counts)
 
     def submit_source(self, origin, elem, n_moves: int, source=None,
                       weight=None, group=None) -> None:
@@ -331,6 +371,7 @@ class StreamingTallyPipeline:
         n = np.asarray(origin).shape[0]
         given = {"origin": (origin, dt, (n, 3)), "elem": (elem, i32, (n,)),
                  "weight": (weight, dt, (n,)), "group": (group, i32, (n,))}
+        key = self._classify(n)
         with self._step("capacity"):
             cap = self._source_capacity(n, src)
         t = self._stage({k: v for k, v in given.items() if v[0] is not None})
@@ -362,7 +403,7 @@ class StreamingTallyPipeline:
             with self._step("readback"):
                 entry = (self._n_submitted, n,
                          *self._read_back_source(out))
-        self._inflight.append(entry)
+        self._inflight.append(entry + (key,))
         self._n_submitted += 1
         while len(self._inflight) > self.depth:
             self._drain_one()
@@ -398,7 +439,8 @@ class StreamingTallyPipeline:
         done.record()
         return (*hosts, done, "source")
 
-    def _drain_megastep(self, idx, tail, pos, elem, mats, done) -> None:
+    def _drain_megastep(self, idx, tail, pos, elem, mats, done,
+                        key) -> None:
         """Drain one ``submit_source`` batch: its tail's stats and physics,
         and its per-lane outputs. A batch is done only when every particle
         terminated (absorbed, escaped or rouletted) and no walk was cut
@@ -427,6 +469,7 @@ class StreamingTallyPipeline:
                 all_done=p["alive"] == 0 and p["truncated"] == 0,
                 stats=stats,
                 physics=p,
+                shape_key=key,
             ))
 
     def results(self) -> Iterator[BatchResult]:

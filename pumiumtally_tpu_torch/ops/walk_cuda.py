@@ -62,6 +62,16 @@ partitioned layout (``ops/walk_partitioned.py``'s walk phase over the
 stacked parts' tables); ``PART_LAUNCHES`` counts its launches. Both count
 in ``LAUNCHES`` too, and both have the initial search and the ordered
 move only, each with and without the feature tails.
+
+``block`` is the kernel's threads per block, the counterpart of the JAX
+kernel's ``lane_block``: every instantiation is built at 128
+(``DEFAULT_BLOCK``), and the packed, non-feature, robust initial search
+and ordered move, the main path's, at each width of ``BLOCKS``. Another
+combination raises, as a width that fails to build or launch does; there
+is no fallback to 128. ``block_for`` maps a resolved value to a built
+width (the largest at or below it, 64 the least). Every width gives the
+same bits. ``BLOCK_LAUNCHES`` counts the walk launches by width; the plain
+walk (CPU tensors) ignores the width.
 """
 from __future__ import annotations
 
@@ -92,6 +102,9 @@ from .walk import (
 )
 
 LAUNCHES = 0
+BLOCKS = (64, 128, 256, 512)
+DEFAULT_BLOCK = 128
+BLOCK_LAUNCHES = dict.fromkeys(BLOCKS, 0)
 FEATURE_LAUNCHES = 0
 FEATURE_UNPACKED_LAUNCHES = 0
 FEATURE_PART_LAUNCHES = 0
@@ -118,8 +131,8 @@ _WALK_ARGTYPES = (
     + [ctypes.c_double, ctypes.c_int]  # 10 * tolerance, layout
     + [ctypes.c_void_p] * 6          # normals, d, nbr, cls, nbr_cls, slot
     + [ctypes.c_longlong] + [ctypes.c_int] * 2  # stride, max_local, reset
-    + [ctypes.c_void_p] * 5          # prev, stuck, target, target_elem,
-                                     # stream
+    + [ctypes.c_void_p] * 4          # prev, stuck, target, target_elem
+    + [ctypes.c_int, ctypes.c_void_p]  # block, stream
 )
 # csrc/walk.cu's table layouts.
 PACKED, UNPACKED, PARTITIONED = 0, 1, 2
@@ -153,17 +166,57 @@ def _entry(name: str, dtype):
     return fn
 
 
+def block_for(value: int | None) -> int:
+    """The built block width for a resolved ``pallas_lane_block`` value
+    (``TallyConfig.resolve_lane_block``): ``DEFAULT_BLOCK`` for None, else
+    the largest width of ``BLOCKS`` at or below it, 64 the least (so 100
+    runs at 64, 300 at 256 and 1024 at 512)."""
+    if value is None:
+        return DEFAULT_BLOCK
+    below = [b for b in BLOCKS if b <= int(value)]
+    return below[-1] if below else BLOCKS[0]
+
+
+def launch_block(value: int | None, *, packed: bool, robust: bool,
+                 feature: bool) -> int:
+    """The width a facade's walks launch at for a resolved
+    ``pallas_lane_block`` value: ``block_for(value)`` where the kernel is
+    built at every width (a packed mesh, the robust walk, no feature
+    tails), else ``DEFAULT_BLOCK``."""
+    if packed and robust and not feature:
+        return block_for(value)
+    return DEFAULT_BLOCK
+
+
+def _check_block(block: int, *, layout: int, feature: bool, robust: bool,
+                 initial: bool, ordered: bool) -> None:
+    """Raise unless ``csrc/walk.cu`` has the instantiation at ``block``."""
+    if block not in BLOCKS:
+        raise ValueError(f"block must be one of {BLOCKS}: {block!r}")
+    if block != DEFAULT_BLOCK and (layout != PACKED or feature
+                                   or not robust
+                                   or not (initial or ordered)):
+        raise ValueError(
+            f"the walk kernel is built at block width {block} for the "
+            "packed, robust initial search and ordered move without "
+            f"feature tails only; use block={DEFAULT_BLOCK}")
+
+
 def resident_threads(dtype, *, initial: bool, robust: bool = True,
-                     ordered: bool = True, layout: int = PACKED) -> int:
+                     ordered: bool = True, layout: int = PACKED,
+                     block: int = DEFAULT_BLOCK) -> int:
     """Threads a walk launch keeps resident on the current card (its grid
     for a large n): the lanes in flight at once."""
+    ordered = ordered and not initial
+    _check_block(block, layout=layout, feature=False, robust=robust,
+                 initial=initial, ordered=ordered)
     fn = getattr(_build.load("walk"),
                  f"pumi_walk_resident_{_DTYPE_TAG[dtype]}")
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)
-    err = fn(int(robust), int(initial), int(ordered and not initial),
-             int(layout), ctypes.addressof(out))
+    err = fn(int(robust), int(initial), int(ordered), int(layout),
+             int(block), ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"walk occupancy query failed: cudaError_t {err}")
     return out.value
@@ -194,12 +247,15 @@ def trace(
     xpoints: tuple | None = None,
     debug_checks: bool = False,
     integrity: bool = False,
+    block: int = DEFAULT_BLOCK,
 ) -> TraceResult:
     """The walk of ``ops/walk.py::trace`` (same arguments, same result):
     the CUDA kernel for CUDA tensors, the plain walk for CPU tensors. The
-    flux is updated in place. ``integrity`` adds the conservation vector
-    of ``ops/walk.py::integrity_vector`` (torch ops on the card after the
-    scatter, no kernel of its own and no host read).
+    flux is updated in place. ``block`` is the kernel's threads per block
+    (see the module docstring; the plain walk ignores it). ``integrity``
+    adds the conservation vector of ``ops/walk.py::integrity_vector``
+    (torch ops on the card after the scatter, no kernel of its own and no
+    host read).
 
     ``tally`` is ``"ordered"`` (flux bitwise equal to the plain walk's) or
     ``"atomic"``. ``capacity`` is the number of records the ordered walk's
@@ -236,9 +292,11 @@ def trace(
     if tally == "atomic" or initial:
         lanes = lane_records(mesh, origin, dest, elem, in_flight, weight,
                              group, initial=initial)
-        r = _result(_launch(*args, **kw, ordered=False, lanes=lanes), **kw)
+        r = _result(_launch(*args, **kw, ordered=False, lanes=lanes,
+                            block=block), **kw)
     else:
-        out, rec = _walk_ordered(*args, **kw, capacity=capacity)
+        out, rec = _walk_ordered(*args, **kw, capacity=capacity,
+                                 block=block)
         scatter.ordered_cuda(flux, rec.bin, rec.order, rec.c, score_squares,
                              mesh.ntet * n_groups)
         r = _result(out, **kw, records=rec.bin.numel())
@@ -288,12 +346,12 @@ def walk_records(mesh, origin, dest, elem, in_flight, weight, group,
                  material_id, flux, *, max_crossings: int, n_groups: int,
                  score_squares: bool = True, tolerance: float = 1e-8,
                  robust: bool = True, ledger: bool = True, stats: bool = True,
-                 capacity: int | None = None):
+                 capacity: int | None = None, block: int = DEFAULT_BLOCK):
     """The ordered walk of a move (``initial=False``) without its scatter:
     returns its TraceResult, whose flux is left as it was, and its
     Records. ``scatter.scatter_ordered`` of the records into the flux
     completes ``trace``. CPU tensors take the plain walk
-    (``ops/walk.py::trace_records``)."""
+    (``ops/walk.py::trace_records``; ``block`` is then ignored)."""
     args = (mesh, origin, dest, elem, in_flight, weight, group,
             material_id, flux)
     kw = dict(max_crossings=max_crossings, n_groups=n_groups,
@@ -306,7 +364,7 @@ def walk_records(mesh, origin, dest, elem, in_flight, weight, group,
         raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
     _check_cuda(*args, n_groups, max_crossings)
     kw.update(initial=False, score_squares=score_squares)
-    out, rec = _walk_ordered(*args, **kw, capacity=capacity)
+    out, rec = _walk_ordered(*args, **kw, capacity=capacity, block=block)
     return _result(out, **kw), rec
 
 
@@ -634,7 +692,7 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             flux, *, initial, max_crossings, n_groups, score_squares,
             tolerance, robust, ledger, stats, ordered, lanes, capacity=0,
             record_xpoints=None, xpoints=None, debug_checks=False,
-            part=None):
+            part=None, block=DEFAULT_BLOCK):
     """One walk launch over the lane records ``lanes`` (``lane_records``):
     slot s walks the lane of record s. Returns the per-lane outputs and,
     when ordered, the record buffers and the number of records the walk
@@ -658,6 +716,9 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
         slot = part["slot"]
         prev, stuck = part["prev"].clone(), part["stuck"].clone()
     record = record_xpoints is not None
+    _check_block(block, layout=layout,
+                 feature=record or bool(debug_checks), robust=bool(robust),
+                 initial=bool(initial), ordered=bool(ordered))
     xp = kx = None
     if record:
         xp, kx = xpoint_buffers(n, record_xpoints, dtype, dev, xpoints)
@@ -708,13 +769,14 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
             layout, *(ptr(t) for t in tables), ptr(slot),
             part["stride"] if part else 0, part["max_local"] if part else 0,
             part["reset"] if part else 0, ptr(prev), ptr(stuck),
-            ptr(target), ptr(target_elem), stream,
+            ptr(target), ptr(target_elem), int(block), stream,
         )
     if err != 0:
         raise RuntimeError(
             f"walk kernel launch failed with cudaError_t {err}"
         )
     LAUNCHES += 1
+    BLOCK_LAUNCHES[block] += 1
     feat = int(record or bool(debug_checks))
     FEATURE_LAUNCHES += feat
     FEATURE_UNPACKED_LAUNCHES += feat * int(layout == UNPACKED)

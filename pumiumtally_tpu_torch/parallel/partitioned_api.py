@@ -45,6 +45,14 @@ re-walks and served in host order by ``intersection_points``;
 weights on the host; ``sort_by_element`` is accepted and has no effect
 (no partitioned module reads it, as in JAX). The first two force
 ``io_pipeline="legacy"`` (``TallyConfig.resolve_io_pipeline``).
+
+``compact_stages`` ("auto", "plan" or a schedule; not "adaptive", as in
+JAX) resolves against the slots a part sweeps (``cap``) and is handed to
+the step, whose first walk phase then gives each lane the crossing
+budgets of that schedule's compacted rounds; the results are bitwise
+those without it. The tuning database (``TallyConfig.tuning``) is
+consulted once at construction for the megastep K only: the partitioned
+walk has the 128-thread instantiations alone.
 """
 from __future__ import annotations
 
@@ -77,6 +85,7 @@ from ..ops.walk_partitioned import (
     make_partitioned_step,
 )
 from ..resilience import quarantine
+from ..tuning.db import resolve_tuned
 from ..utils.config import TallyConfig
 from ..utils.platform import resolve_device
 from ..utils.timing import StepClock, TallyTimes, clock_step, phase_timer
@@ -151,10 +160,6 @@ class PartitionedTally:
                 "post-move hook, which PartitionedTally does not have; "
                 "use 'plan' (density-estimated) or an explicit schedule"
             )
-        if cfg.compact_stages is not None:
-            raise NotImplementedError(
-                "PartitionedTally: a compact_stages schedule is not ported "
-                "yet (ROADMAP.md A10); compact_after and compact_size are")
         if cfg.sd_mode not in ("segment", "batch"):
             raise ValueError(
                 f"sd_mode must be 'segment' or 'batch': {cfg.sd_mode!r}")
@@ -212,6 +217,8 @@ class PartitionedTally:
             record_xpoints=cfg.record_xpoints,
             compact_after=compact[0],
             compact_size=compact[1],
+            compact_stages=cfg.resolve_compact_stages(self.cap,
+                                                      ntet=mesh.ntet),
             exchange_size=exchange_size,
             max_rounds=max_rounds,
             integrity=self._integrity != "off",
@@ -220,6 +227,12 @@ class PartitionedTally:
             batch_moves=self._batch_moves or 1,
         )
         self._steps: dict = {}
+        # The tuning database, for the megastep K only (the partitioned
+        # layout has no geo20, hence packed=False in the shape class).
+        self._tuned = resolve_tuned(
+            cfg, ntet=mesh.ntet, n_particles=self.num_particles,
+            n_groups=cfg.n_groups, dtype=cfg.dtype, packed=False,
+            device=self.device)
         # record_xpoints: the last call's (points, counts) in host order.
         self._last_xpoints: tuple | None = None
         self._io = cfg.resolve_io_pipeline()
@@ -850,7 +863,7 @@ class PartitionedTally:
                 "initialize_particle_location must run before source moves"
             )
         cfg = self.config
-        K = cfg.resolve_megastep()
+        K = cfg.resolve_megastep(tuned=self._tuned)
         from ..ops.source import SourceParams, phys_to_dict
 
         src = source if source is not None else SourceParams()

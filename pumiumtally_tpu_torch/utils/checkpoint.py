@@ -517,6 +517,15 @@ def _plain_meta(tally, host: bool) -> dict:
         # Per-segment and per-move batch squares in slot 1 do not mix:
         # checked on restore.
         "sd_mode": tally.config.sd_mode,
+        # compact_stages="adaptive" replans once from the first move's
+        # crossings; a resumed run keeps that ladder instead of planning
+        # from a later move (the JAX facade's flux depends on it).
+        "replanned": bool(tally._replanned),
+        "compact_stages_planned": (
+            [list(s) for s in tally._compact_stages]
+            if tally._replanned and tally._compact_stages is not None
+            else None
+        ),
     }
     if host:
         meta["mesh_fingerprint"] = _fingerprint(tally)
@@ -582,6 +591,12 @@ def _apply_plain(tally, meta: dict, arrays: dict) -> None:
     tally._perm_dev = (tally.state.particle_id.long()
                        if tally._perm is not None else None)
     tally._traces_since_sort = 1
+    if "replanned" in meta:
+        tally._replanned = bool(meta["replanned"])
+        planned = meta.get("compact_stages_planned")
+        if tally._replanned and planned is not None:
+            tally._compact_stages = tuple(
+                tuple(int(x) for x in s) for s in planned)
     if tally._origin_h is None:
         # The first move's record-buffer estimate reads the host origin
         # (particle order).

@@ -22,30 +22,38 @@ packages. What the port does with each field:
   "retry" or "halt"), ``integrity_tol``, the shadow audit's
   ``audit_lanes``, ``audit_every``, ``audit_tol`` and ``audit_seed``,
   and the watchdog's ``move_deadline_s``;
-* accepted and ignored, because in the JAX package they only schedule the
-  same arithmetic (straggler compaction, loop unrolling, scatter and
-  gather strategies): ``compact_after``, ``compact_size``,
-  ``compact_stages``, ``unroll``, ``tally_scatter``, ``gathers``, with
-  the JAX package's refusals of unknown values (``tally_scatter``,
-  ``gathers`` and a ``compact_stages`` string, at construction). One
-  difference shows at the crossing bound: the JAX walk tests
-  ``max_crossings`` once per block of ``unroll`` iterations, the port
-  every iteration (as the JAX walk with ``unroll=1``), so with a bound
-  small enough to truncate walks the JAX walk lets lanes run past it.
-  ``PartitionedTally`` reads ``compact_after`` and ``compact_size``
-  (``resolve_compaction``): its step gives each lane the crossing
-  budgets of the JAX step's compacted rounds. It refuses a
-  ``compact_stages`` schedule (ROADMAP.md A10);
-* accepted with the JAX package's validation and refusals, and then
-  ignored: ``kernel`` ("xla", "pallas" or "auto", env
-  ``PUMI_TPU_KERNEL``; ``resolve_kernel``) and ``pallas_lane_block``
-  (``resolve_lane_block``). The JAX package selects between two walk
-  backends with them; the port has one walk, whatever the value: the
-  plain PyTorch walk on the CPU and ``csrc/walk.cu`` on the card;
-* every other field is a feature the port does not have yet: setting it
-  away from its default raises ``NotImplementedError`` naming the
-  ROADMAP.md item that ports it. Nothing computes something else
-  silently.
+* accepted and ignored by the single-device walk, because in the JAX
+  package they only schedule the same arithmetic (straggler compaction,
+  loop unrolling, scatter and gather strategies): ``compact_after``,
+  ``compact_size``, ``compact_stages``, ``unroll``, ``tally_scatter``,
+  ``gathers``, with the JAX package's refusals of unknown values
+  (``tally_scatter``, ``gathers`` and a ``compact_stages`` string, at
+  construction). ``PumiTally`` still resolves ``compact_stages``
+  (``resolve_compact_stages``: "auto" the dense ladder, "plan" and
+  "adaptive" the planner of ``utils/ladder.py``) and replans "adaptive"
+  after its first move, so its state and checkpoints read as the JAX
+  facade's. One difference shows at the crossing bound: the JAX walk
+  tests ``max_crossings`` once per block of ``unroll`` iterations, the
+  port every iteration (as the JAX walk with ``unroll=1``), so with a
+  bound small enough to truncate walks the JAX walk lets lanes run past
+  it. ``PartitionedTally`` reads ``compact_after``, ``compact_size`` and
+  ``compact_stages`` (``resolve_compaction``, ``resolve_compact_stages``):
+  its step gives each lane the crossing budgets of the JAX step's
+  compacted rounds, bitwise equal to a step without them;
+* accepted with the JAX package's validation and refusals: ``kernel``
+  ("xla", "pallas" or "auto", env ``PUMI_TPU_KERNEL``;
+  ``resolve_kernel``), which selects between two walk backends in the JAX
+  package and is ignored by the port (one walk: the plain PyTorch walk on
+  the CPU, ``csrc/walk.cu`` on the card); and ``pallas_lane_block``
+  (``resolve_lane_block``), the JAX kernel's block width, which on the
+  card is the walk kernel's threads per block
+  (``ops/walk_cuda.py::block_for``; the plain walk ignores it);
+* ``tuning`` (``resolve_tuning``, env ``PUMI_TPU_TUNING``): the path of
+  the port's tuning database (``tuning/db.py``), consulted once at a
+  facade's construction for the block width and the megastep K that no
+  env variable or field sets;
+* every field of the JAX ``TallyConfig`` is ported; nothing computes
+  something else silently.
 """
 from __future__ import annotations
 
@@ -58,15 +66,23 @@ import torch
 IO_PIPELINES = ("packed", "overlap", "legacy")
 SD_MODES = ("segment", "batch")
 
-# Field → the ROADMAP.md port item that brings it.
-_UNPORTED = {
-    "tuning": "A10 (tuning)",
-}
 INTEGRITY_MODES = ("off", "warn", "retry", "halt")
 KERNELS = ("xla", "pallas", "auto")
 TALLY_SCATTERS = ("auto", "interleaved", "pair")
 GATHERS = ("merged", "split")
 COMPACT_STAGE_NAMES = ("auto", "plan", "adaptive")
+
+
+def dense_ladder(n_particles: int) -> tuple:
+    """The dense compaction ladder of the JAX package's
+    ``compact_stages="auto"`` (own copy): stage widths tracking an
+    exponential decay of the active lanes."""
+    M = n_particles
+    return (
+        (8, 5 * M // 8), (16, 3 * M // 8), (24, M // 4),
+        (32, M // 8), (48, max(M // 16, 256)),
+        (64, max(M // 32, 256)), (96, max(M // 64, 256)),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,14 +131,6 @@ class TallyConfig:
     tuning: str | None = None
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name in _UNPORTED and getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"TallyConfig.{f.name}={getattr(self, f.name)!r} is not "
-                    "ported to pumiumtally_tpu_torch yet (ROADMAP.md "
-                    f"{_UNPORTED[f.name]}); leave it at its default "
-                    f"{f.default!r}"
-                )
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(
                 f"dtype must be torch.float32 or torch.float64: {self.dtype!r}"
@@ -199,17 +207,32 @@ class TallyConfig:
             return "xla"
         raise ValueError(conflict)
 
-    def resolve_lane_block(self, n_particles: int | None = None
-                           ) -> int | None:
-        """The Pallas block width as the JAX package validates it (env
-        ``PUMI_TPU_PALLAS_LANE_BLOCK`` beats the field; a positive power
-        of two, clamped to the batch), or None. The port's walk ignores
-        it."""
+    def resolve_tuning(self) -> str | None:
+        """The tuning database's path (None: tuning off): env
+        ``PUMI_TPU_TUNING`` beats the field, "off" turns it off. Loading,
+        the schema and environment checks and the lookup are
+        ``tuning/db.py::resolve_tuned``'s."""
+        env = os.environ.get("PUMI_TPU_TUNING")
+        val = env if env else self.tuning
+        if val in (None, "", "off"):
+            return None
+        return val
+
+    def resolve_lane_block(self, n_particles: int | None = None, *,
+                           tuned=None) -> int | None:
+        """The block width as the JAX package validates it, or None (the
+        kernel's default): env ``PUMI_TPU_PALLAS_LANE_BLOCK`` beats the
+        field, the field beats ``tuned`` (a ``tuning.TunedDecision``, its
+        ``block``); a positive power of two, clamped to the batch. On the
+        card it is the walk kernel's threads per block
+        (``ops/walk_cuda.py::block_for`` maps it to a built width)."""
         env = os.environ.get("PUMI_TPU_PALLAS_LANE_BLOCK")
         if env:
             lb = int(env)
         elif self.pallas_lane_block is not None:
             lb = int(self.pallas_lane_block)
+        elif tuned is not None and tuned.block:
+            lb = int(tuned.block)
         else:
             return None
         if lb < 1 or (lb & (lb - 1)) != 0:
@@ -224,8 +247,7 @@ class TallyConfig:
     def resolve_megastep(self, *, tuned=None) -> int:
         """The moves a ``run_source_moves`` chunk runs, K: env
         ``PUMI_TPU_MEGASTEP`` beats the field, the field beats ``tuned``
-        (a tuning decision with a ``megastep`` attribute; None until the
-        tuning database is ported, ROADMAP.md A10), else 1. Any K gives
+        (a ``tuning.TunedDecision``, its ``megastep``), else 1. Any K gives
         the same bits as K = 1. Recorded intersection points and the
         invariant checks are per-move facade surfaces, refused here for
         any K, as in the JAX package."""
@@ -353,6 +375,34 @@ class TallyConfig:
         if size is None:
             size = max(256, n_particles // 8)
         return self.compact_after, min(size, n_particles)
+
+    def resolve_compact_stages(self, n_particles: int,
+                               ntet: int | None = None) -> tuple | None:
+        """A configured stage schedule clamped to the batch (None when
+        unset or below 1024 lanes), as the JAX package resolves it:
+        ``"auto"`` is the dense ladder with its starts scaled by mesh
+        density, (ntet / 998250)^(1/3); ``"plan"`` and ``"adaptive"`` plan
+        with ``utils/ladder.py::plan_stages`` at a mean of 14.9 crossings
+        a move (the JAX bench workload's, the 55-cell box at mean path
+        0.08) times that density (``PumiTally`` replans "adaptive" from
+        its first move's crossings)."""
+        if self.compact_stages is None or n_particles < 1024:
+            return None
+        if isinstance(self.compact_stages, str):
+            density = ((max(ntet, 1) / 998250.0) ** (1.0 / 3.0)
+                       if ntet is not None else 1.0)
+            if self.compact_stages == "auto":
+                scale = max(1.0, density)
+                return tuple((int(round(start * scale)), *rest)
+                             for start, *rest in dense_ladder(n_particles))
+            from .ladder import plan_stages
+
+            return plan_stages(n_particles, 14.9 * density,
+                               unroll=self.unroll) or None
+        return tuple(
+            (int(start), min(max(int(size), 1), n_particles),
+             *(int(u) for u in rest))
+            for start, size, *rest in self.compact_stages)
 
     def resolve_max_crossings(self, ntet: int) -> int:
         if self.max_crossings is not None:

@@ -116,6 +116,21 @@ def test_partitioned_modules_import_nothing_of_jax(rel):
     test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
 
 
+# The autotuner and the ladder (their JAX counterparts import no JAX, but
+# the port keeps its own copies): each imports in a fresh interpreter
+# without pulling JAX in, the CLI too.
+TUNING_MODULES = (
+    "tuning/__init__.py", "tuning/shapes.py", "tuning/db.py",
+    "tuning/costmodel.py", "tuning/search.py", "tuning/__main__.py",
+    "utils/ladder.py",
+)
+
+
+@pytest.mark.parametrize("rel", TUNING_MODULES)
+def test_tuning_modules_import_nothing_of_jax(rel):
+    test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
+
+
 def test_partitioned_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is usable")

@@ -87,9 +87,9 @@ def test_round_trip_matches_uninterrupted(tmp_path):
 
 
 def test_adaptive_replan_state_rides_checkpoints(tmp_path):
-    """compact_stages='adaptive' (accepted and ignored by the port's
-    walk): the round trip stays bitwise, and a JAX checkpoint carrying
-    the replan keys restores."""
+    """compact_stages='adaptive' (resolved and replanned by the facade,
+    ignored by the port's walk): the round trip stays bitwise and the
+    replanned ladder rides the checkpoint, under the JAX keys."""
     path = str(tmp_path / "tally.npz")
     mesh = build_box(1.0, 1.0, 1.0, 3, 3, 3, device="cpu")
     n = 1024
@@ -102,7 +102,10 @@ def test_adaptive_replan_state_rides_checkpoints(tmp_path):
     _drive(b, 1, seed=12)
     np.testing.assert_array_equal(a.raw_flux, b.raw_flux)
     meta = ckpt.load_meta(path)
-    assert "replanned" not in meta  # the port has no compaction ladder
+    assert meta["replanned"] is True and b._replanned
+    assert meta["compact_stages_planned"] == [
+        list(s) for s in a._compact_stages]
+    assert b._compact_stages == a._compact_stages
 
 
 def test_mesh_mismatch_rejected(tmp_path):
@@ -203,6 +206,33 @@ def test_checkpoints_cross_between_the_packages(tmp_path, dtype, sort):
         np.testing.assert_array_equal(reader.element_ids,
                                       reader_ref.element_ids)
         assert reader.total_segments == reader_ref.total_segments
+
+
+def test_adaptive_replan_crosses_between_the_packages(tmp_path):
+    """The adaptive replan's state crosses with the checkpoint: the port's
+    replanned ladder (1024 lanes, one move) restores into a JAX tally
+    under the JAX keys, and the JAX tally's file back into a fresh port
+    tally, ``_replanned`` and ``_compact_stages`` equal both ways."""
+    n = 1024
+    meshes = twin_meshes(torch.float64, nx=3)
+    jt, pt = twin_tallies(meshes, n, compact_stages="adaptive", n_groups=2)
+    pos = np.random.default_rng(5).uniform(0.1, 0.9, (n, 3)).ravel()
+    pt.initialize_particle_location(pos.copy())
+    assert not pt._replanned
+    pt.move_to_next_location(*_inputs(np.random.default_rng(6), n))
+    assert pt._replanned and pt._compact_stages
+    path = str(tmp_path / "port.npz")
+    pt.save_checkpoint(path)
+    jt.restore_checkpoint(path)
+    assert jt._replanned and jt._compact_stages == pt._compact_stages
+    back = str(tmp_path / "jax.npz")
+    jt.save_checkpoint(back)
+    fresh = twin_tallies(meshes, n, compact_stages="adaptive",
+                         n_groups=2)[1]
+    assert not fresh._replanned
+    fresh.restore_checkpoint(back)
+    assert fresh._replanned and fresh._compact_stages == pt._compact_stages
+    np.testing.assert_array_equal(fresh.raw_flux, pt.raw_flux)
 
 
 def test_jax_sharded_generation_restores(tmp_path):

@@ -1734,3 +1734,63 @@ def test_one_rank_nccl_step_matches_stacked(cuda, tmp_path):
     finally:
         dist.destroy_process_group()
         multihost._initialized = False
+
+
+@pytest.mark.parametrize("block", [64, 256, 512])
+@pytest.mark.parametrize("initial", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_block_width_matches_plain(cuda, dtype, initial, block):
+    """The walk kernel built at another block width (the packed, robust
+    initial search and ordered move): lanes and flux bitwise the plain
+    walk's, over three times the lanes the width keeps resident, launched
+    at that width (``BLOCK_LAUNCHES``)."""
+    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    G = 4
+    n = 3 * walk_cuda.resident_threads(dtype, initial=initial,
+                                       block=block) + 77
+    args = _walk_inputs(mesh, cuda, dtype, n=n, G=G, seed=13)
+    kw = dict(initial=initial, max_crossings=mesh.ntet + 8, n_groups=G)
+    before = walk_cuda.BLOCK_LAUNCHES[block]
+    k = walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), block=block,
+                        **kw)
+    p = walk.trace(*args, _flux0(mesh, G, dtype, cuda), **kw)
+    torch.cuda.synchronize()
+    assert walk_cuda.BLOCK_LAUNCHES[block] > before
+    _lanes_equal(k, p)
+    assert torch.equal(k.flux, p.flux)
+    with pytest.raises(ValueError, match="block width"):
+        walk_cuda.trace(*args, _flux0(mesh, G, dtype, cuda), block=block,
+                        robust=False, **kw)
+
+
+def test_hardware_tuner_on_smoke1(cuda, tmp_path):
+    """``mode="hardware"`` on the smoke1 class: every candidate passes the
+    bitwise gate, the winners are built values, the section is the card's,
+    and a facade built from the database launches the winning width."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.ops import walk_cuda
+    from pumiumtally_tpu_torch.tuning import environment, env_key, search
+    from pumiumtally_tpu_torch.tuning.db import write_tuning
+
+    data = search.tune({"smoke1": search.SPECS["smoke1"]}, mode="hardware",
+                       reps=2, moves=2, mega_moves=4)
+    sec = data["environments"][env_key(environment(cuda))]
+    (key, entry), = sec["entries"].items()
+    assert sec["mode"] == "hardware"
+    assert all(c["parity"] == "bitwise" for c in entry["candidates"])
+    assert entry["block"] in walk_cuda.BLOCKS and entry["megastep"] in (1, 4)
+    assert [c["block"] for c in entry["candidates"]
+            if c["kind"] == "kernel"] == [128, 64, 256]
+    path = str(tmp_path / "tuning.json")
+    write_tuning(path, data)
+    w = search.build_workload(search.SPECS["smoke1"], moves=1, seed=0,
+                              device=cuda)
+    t = PumiTally(w["mesh"], w["n_particles"], TallyConfig(tuning=path),
+                  device=cuda)
+    assert t.shape_key == key and t._block == entry["block"]
+    before = walk_cuda.BLOCK_LAUNCHES[entry["block"]]
+    t.initialize_particle_location(
+        w["origin_host"].astype(np.float64).reshape(-1).copy())
+    assert walk_cuda.BLOCK_LAUNCHES[entry["block"]] > before

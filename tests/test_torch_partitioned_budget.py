@@ -335,14 +335,18 @@ def test_megastep_truncation_default_rounds_matches_jax(meshes):
 @pytest.mark.parametrize("stages", ["auto", ((8, 512), (16, 256))],
                          ids=["auto", "schedule"])
 def test_facade_refuses_stage_schedules(meshes, stages):
-    """PartitionedTally walks the crossing budgets of ``compact_after``
-    and ``compact_size``; a ``compact_stages`` schedule is refused at
-    construction, naming its ROADMAP item (the step itself takes one)."""
+    """A ``compact_stages`` schedule is no longer refused (A10): the
+    facade resolves it against its slots as the JAX facade does
+    (``resolve_compact_stages(cap, ntet)``) and hands it to the step,
+    whose first walk phase walks its crossing budgets. The name is kept
+    from when the facade refused it."""
     _, pm = meshes[torch.float64]
-    with pytest.raises(NotImplementedError, match="A10"):
-        PartitionedTally(pm, 2048, TallyConfig(dtype=torch.float64,
+    t = PartitionedTally(pm, 2048, TallyConfig(dtype=torch.float64,
                                                compact_stages=stages),
                          n_parts=2, device="cpu")
+    want = jpt.TallyConfig(dtype=jnp.float64, compact_stages=stages
+                           ).resolve_compact_stages(2048, ntet=pm.ntet)
+    assert want and t._step_kwargs["compact_stages"] == want
 
 
 def test_timed_launch_is_the_steps_first_phase(meshes):

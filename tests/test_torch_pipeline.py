@@ -90,7 +90,8 @@ def test_pipeline_matches_sequential(meshes, depth):
         np.testing.assert_array_equal(b.position, want)
         assert b.all_done and b.stats["truncated"] == 0
         assert b.n_segments == b.stats["segments"] > 0
-        assert b.shape_key is None and b.xpoints is None
+        assert b.shape_key == "ntet256.n64.g2.float64.packed"
+        assert b.xpoints is None
 
 
 def test_pipeline_matches_jax_pipeline(meshes):
@@ -109,7 +110,7 @@ def test_pipeline_matches_jax_pipeline(meshes):
     jflux, flux = jpipe.finish(), pipe.finish()
     np.testing.assert_allclose(flux, jflux, rtol=1e-10, atol=1e-12)
     for b, jb in zip(pipe.results(), jpipe.results()):
-        assert b.index == jb.index
+        assert b.index == jb.index and b.shape_key == jb.shape_key
         np.testing.assert_allclose(b.position, jb.position, rtol=0,
                                    atol=1e-12)
         np.testing.assert_array_equal(b.elem, jb.elem)
@@ -162,8 +163,8 @@ def test_pipeline_defaults_and_walk_stats_off(meshes):
 
 def test_pipeline_unported_surfaces(meshes):
     """``submit_source`` runs a device-sourced batch (the megastep, A7)
-    and drains with its physics counters; ``shape_keys`` stays empty
-    until the tuning shapes are ported (A10)."""
+    and drains with its physics counters; its shape-class key rides the
+    result and counts in ``shape_keys`` (A10)."""
     _, mesh = meshes
     pipe = StreamingTallyPipeline(mesh, TallyConfig(dtype=DTYPE))
     cents = mesh.centroids().numpy()
@@ -171,8 +172,9 @@ def test_pipeline_unported_surfaces(meshes):
     pipe.finish()
     (r,) = pipe.results()
     assert r.physics is not None and r.physics["alive"] >= 0
-    assert r.position.shape == (2, 3) and r.shape_key is None
-    assert pipe.shape_keys() == {}
+    key = "ntet256.n64.g2.float64.packed"
+    assert r.position.shape == (2, 3) and r.shape_key == key
+    assert pipe.shape_keys() == {key: 1}
     assert BatchResult._fields[-1] == "shape_key"
 
 

@@ -37,7 +37,8 @@ either mode compares them on one card.
 
 With ``--sass`` it prints, after the build, a JSON object of the
 checkout's walk kernel instantiations (by template arguments, as
-``walk_ptxas``) with the count and sha256 of their SASS instructions
+``walk_ptxas``; the default block width 128 left out of the name) with
+the count and sha256 of their SASS instructions
 (``cuobjdump -sass`` of the built library, addresses and encodings left
 out), so two checkouts' machine code can be compared instantiation by
 instantiation.
@@ -170,6 +171,15 @@ def main() -> int:
     return 0
 
 
+def _instantiation(mangled: str) -> str:
+    """A walk kernel's template arguments from its mangled name (between
+    ``walk_kernelI`` and the parameter list), the default block width 128
+    left out, so that checkouts built before the width was a template
+    argument name their instantiations alike."""
+    name = mangled.split("walk_kernelI", 1)[1].split("EEvPK")[0]
+    return name.removesuffix("Li128E")
+
+
 def ptxas_lines(lib: str) -> dict:
     """{walk kernel instantiation: [ptxas lines]} from the build log kept
     beside ``lib``: registers, shared memory and spills, by the kernel's
@@ -182,7 +192,7 @@ def ptxas_lines(lib: str) -> dict:
                 kernel = line.split(" for ", 1)[1].strip()
             elif "walk_kernelI" in kernel and (
                     "registers" in line or "spill" in line):
-                name = kernel.split("walk_kernelI", 1)[1].split("EEvPK")[0]
+                name = _instantiation(kernel)
                 out.setdefault(name, []).append(line.strip())
     return out
 
@@ -209,8 +219,7 @@ def sass_digests(lib: str) -> dict:
         if "Function :" in line:
             close()
             fn = line.split("Function :", 1)[1].strip()
-            name = (fn.split("walk_kernelI", 1)[1].split("EEvPK")[0]
-                    if "walk_kernelI" in fn else None)
+            name = _instantiation(fn) if "walk_kernelI" in fn else None
             body = []
         elif name is not None:
             m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;", line)
