@@ -134,12 +134,20 @@ every K give the same bits, so a tuned run equals the default one.
 ``compact_stages`` resolves as in the JAX facade ("adaptive" replans once
 from the first move's crossings, ``_maybe_replan``) and rides
 checkpoints; the walk refills its threads and ignores the schedule.
+
+Serving, as in the JAX facade: ``program_bank=`` (a
+``serving/bank.py::ProgramBank``) makes a facade on the card load its
+kernel libraries through the bank's validated entries (``telemetry()``
+reports ``bank.stats()`` under "aot"); ``PUMI_TPU_PROM_PORT`` starts the
+Prometheus endpoint on this tally's registry (``obs/exporter.py``), which
+``close()`` stops.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import warnings
+import weakref
 
 import numpy as np
 import torch
@@ -161,6 +169,7 @@ from .obs.convergence import (
     fold_and_reduce,
     host_relative_error,
 )
+from .obs.exporter import maybe_start_exporter
 from .obs.telemetry import TallyTelemetry
 from .obs.walk_stats import stats_to_dict
 from .ops import staging, walk_cuda
@@ -276,10 +285,17 @@ class PumiTally:
         config: TallyConfig | None = None,
         *,
         device=None,
+        program_bank=None,
     ):
         self.config = config or TallyConfig()
         cfg = self.config
         self.device = resolve_device(device)
+        # The library bank: on the card the kernel libraries of the main
+        # path and the source loop load through its validated entries
+        # before the first launch (the CPU runs no library).
+        self._bank = program_bank
+        if program_bank is not None and self.device.type == "cuda":
+            program_bank.load()
         self.tally_times = TallyTimes()
         # A private registry and flight recorder per tally; every walk
         # folds its stats vector here.
@@ -433,6 +449,11 @@ class PumiTally:
         # Phase-boundary memory sample (construction allocated the mesh
         # tables and the flux).
         self._telemetry.record_memory("initialization")
+        # Live scrape endpoint when PUMI_TPU_PROM_PORT is set; close()
+        # stops it, the finalizer releases the port of a dropped tally.
+        self._exporter = maybe_start_exporter(self.metrics)
+        if self._exporter is not None:
+            weakref.finalize(self, self._exporter.stop)
 
     # ------------------------------------------------------------------ #
     def _walk_kw(self, initial: bool) -> dict:
@@ -1523,6 +1544,8 @@ class PumiTally:
             if self._monitor is not None
             else {"enabled": False}
         )
+        if self._bank is not None:
+            out["aot"] = self._bank.stats()
         return out
 
     @property
@@ -1530,6 +1553,15 @@ class PumiTally:
         """This tally's MetricsRegistry (Prometheus text via
         ``tally.metrics.render_prometheus()``)."""
         return self._telemetry.registry
+
+    def close(self) -> None:
+        """Fold deferred telemetry and stop the scrape endpoint (frees
+        its port). Idempotent; a dropped tally's finalizer stops the
+        endpoint instead."""
+        self._drain_pending()
+        if self._exporter is not None:
+            self._exporter.stop()
+            self._exporter = None
 
     # ------------------------------------------------------------------ #
     def save_checkpoint(self, filename: str,

@@ -7,6 +7,10 @@ recorder keeps the last ``capacity`` in a ring for ``telemetry()`` and,
 when ``PUMI_TPU_METRICS=jsonl:/path`` is set, streams each record to that
 file (``utils/log.py::emit_metric``), so a crashed run leaves its whole
 per-move history on disk.
+
+The serving path's recorders (scheduler, journal, bank) stamp every
+record with ``schema=FLIGHT_SCHEMA``, so the JSONL streams of a killed
+server and of its restarted successor stay distinguishable.
 """
 from __future__ import annotations
 
@@ -15,11 +19,18 @@ import threading
 
 from ..utils.log import emit_metric
 
+#: Version stamp of the serving path's flight records.
+FLIGHT_SCHEMA = 1
+
 
 class FlightRecorder:
-    def __init__(self, capacity: int = 512):
+    def __init__(self, capacity: int = 512, sink: str | None = None,
+                 schema: int | None = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
+        self._schema = schema
+        # None defers to PUMI_TPU_METRICS at record time.
+        self._sink = sink
         # Sequencing and the ring append happen under one lock, so
         # records from several threads get unique, gap-free numbers.
         self._lock = threading.Lock()
@@ -31,9 +42,11 @@ class FlightRecorder:
         "initial_search", "memory", ...). Returns the stored record."""
         with self._lock:
             rec = {"seq": self._seq, "kind": str(kind), **fields}
+            if self._schema is not None:
+                rec.setdefault("schema", self._schema)
             self._seq += 1
             self._records.append(rec)
-        emit_metric(rec)
+        emit_metric(rec, path=self._sink)
         return rec
 
     def records(self) -> list[dict]:

@@ -15,12 +15,22 @@ spill report is kept beside the library as ``.log``.
 
 Nothing is built at import: the first ``load(name)`` builds. A missing
 ``nvcc`` or a failed build raises with nvcc's output; there is no
-fallback.
+fallback. ``build_dir=`` builds elsewhere (the library bank,
+``serving/bank.py``, builds each library into its own entry), and
+``load(name, path=)`` loads a library built there. A process loads one
+library of each name: asking for another path of a name already loaded
+raises.
+
+Each wrapper module lists the C entries it binds (``SYMBOLS``) and binds
+them through ``bind``, which refuses a name not on its list; the bank
+records those lists (``bound_symbols``) and checks them at load.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import importlib
 import os
 import shutil
 import subprocess
@@ -38,8 +48,13 @@ NVCC_FLAGS = (
 
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
+#: The wrapper module of each source, the one that binds its entries.
+WRAPPERS = {"walk": "walk_cuda", "scatter": "scatter",
+            "source": "source_cuda", "gather": "gather"}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_paths: dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -60,11 +75,43 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to (content- and flag-hashed)."""
-    with open(os.path.join(SRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+@functools.cache
+def nvcc_version() -> str | None:
+    """The last line of ``nvcc --version`` (its release and build), or
+    None when there is no nvcc."""
+    try:
+        out = subprocess.run([find_nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (RuntimeError, OSError, subprocess.TimeoutExpired):
+        return None
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    return lines[-1] if lines else None
+
+
+def source_path(name: str) -> str:
+    return os.path.join(SRC_DIR, f"{name}.cu")
+
+
+def source_digest(name: str) -> str:
+    """sha256 of ``csrc/<name>.cu`` and the nvcc flags: the library's
+    identity (its first 16 hex digits name the file)."""
+    with open(source_path(name), "rb") as f:
+        return hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
+                              ).hexdigest()
+
+
+def library_path(name: str, build_dir: str | None = None) -> str:
+    """Where ``csrc/<name>.cu`` builds to (content- and flag-hashed), in
+    ``build_dir`` or the package's ``_build/``."""
+    return os.path.join(build_dir or BUILD_DIR,
+                        f"lib{name}-{source_digest(name)[:16]}.so")
+
+
+def bound_symbols(name: str) -> list[str]:
+    """The C entries of ``csrc/<name>.cu`` that its wrapper binds (the
+    wrapper module's ``SYMBOLS``)."""
+    mod = importlib.import_module(f".{WRAPPERS[name]}", __package__)
+    return sorted(mod.SYMBOLS)
 
 
 def build(name: str) -> str:
@@ -73,21 +120,25 @@ def build(name: str) -> str:
     return build_many([name])[0]
 
 
-def build_many(names) -> list[str]:
+def build_many(names, build_dir=None) -> list[str]:
     """``build`` for several sources, one nvcc process each, all started
-    together; returns the library paths in order. Raises RuntimeError
-    with nvcc's output if any build fails."""
-    outs = [library_path(name) for name in names]
+    together; returns the library paths in order. ``build_dir`` is one
+    directory for all, or a list of one a name. Raises RuntimeError with
+    nvcc's output if any build fails."""
+    names = list(names)
+    dirs = (list(build_dir) if isinstance(build_dir, (list, tuple))
+            else [build_dir] * len(names))
+    outs = [library_path(n, d) for n, d in zip(names, dirs)]
     todo = [(n, o) for n, o in zip(names, outs) if not os.path.exists(o)]
     if not todo:
         return outs
     nvcc = find_nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    for _, out in todo:
+        os.makedirs(os.path.dirname(out), exist_ok=True)
     procs = []
     for name, out in todo:
         tmp = f"{out}.tmp.{os.getpid()}"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-               os.path.join(SRC_DIR, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)]
         procs.append((name, out, tmp, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -109,10 +160,34 @@ def build_many(names) -> list[str]:
     return outs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+def load(name: str, path: str | None = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``: on first use the one at
+    ``path`` (a bank's entry) or, without one, the package's own build.
+    Its kernels keep state on the card, so a process holds one copy: a
+    ``path`` other than the one loaded raises RuntimeError."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = _libs[name] = ctypes.CDLL(build(name))
+            path = path or build(name)
+            lib = _libs[name] = ctypes.CDLL(path)
+            _paths[name] = path
+        elif path is not None and (os.path.realpath(path)
+                                   != os.path.realpath(_paths[name])):
+            raise RuntimeError(
+                f"csrc/{name}.cu is loaded from {_paths[name]} in this "
+                f"process; it cannot also load {path}")
         return lib
+
+
+def loaded_path(name: str) -> str | None:
+    """The file this process loaded ``csrc/<name>.cu`` from, or None."""
+    return _paths.get(name)
+
+
+def bind(name: str, symbol: str, symbols) -> ctypes._CFuncPtr:
+    """``symbol`` of the loaded ``csrc/<name>.cu``; the wrapper's
+    ``symbols`` must list it (the bank checks that list at load)."""
+    if symbol not in symbols:
+        raise KeyError(f"{symbol} is not among the entries the "
+                       f"csrc/{name}.cu wrapper lists: {sorted(symbols)}")
+    return getattr(load(name), symbol)

@@ -25,6 +25,8 @@ from . import _build
 LAUNCHES = 0
 
 _INDEX_TAG = {torch.int32: "i32", torch.int64: "i64"}
+#: The C entries of csrc/gather.cu this module binds.
+SYMBOLS = tuple(f"pumi_gather_{t}" for t in _INDEX_TAG.values())
 _FNS: dict = {}
 
 
@@ -74,7 +76,7 @@ def _kernel(tag: str):
     """The C entry ``pumi_gather_<tag>`` with its argument types set."""
     fn = _FNS.get(tag)
     if fn is None:
-        fn = getattr(_build.load("gather"), f"pumi_gather_{tag}")
+        fn = _build.bind("gather", f"pumi_gather_{tag}", SYMBOLS)
         fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + (
             [ctypes.c_int] * 2) + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int

@@ -260,9 +260,17 @@ def lane_order(keys, nbins: int):
     return lane_order_plain(keys)
 
 
+#: The C entries of csrc/scatter.cu this module binds.
+SYMBOLS = ("pumi_bucket_count",) + tuple(
+    f"pumi_scatter_{name}_{tag}"
+    for name in ("atomic", "bucket", "ordered", "ordered_large")
+    for tag in _DTYPE_TAG.values())
+
+
 def _entry(name: str, dtype=None):
-    lib = _build.load("scatter")
-    fn = getattr(lib, name if dtype is None else f"{name}_{_DTYPE_TAG[dtype]}")
+    fn = _build.bind(
+        "scatter", name if dtype is None else f"{name}_{_DTYPE_TAG[dtype]}",
+        SYMBOLS)
     fn.restype = ctypes.c_int
     return fn
 

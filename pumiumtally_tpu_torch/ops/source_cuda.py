@@ -35,14 +35,16 @@ _ARGTYPES = (
     + [ctypes.c_int] * 2                 # nclass, n
     + [ctypes.c_void_p] * 5              # dest, coll_u, roul_u, u_out, stream
 )
+#: The C entries of csrc/source.cu this module binds.
+SYMBOLS = tuple(f"pumi_sample_flight_{t}" for t in _DTYPE_TAG.values())
 _FNS: dict = {}
 
 
 def _entry(dtype):
     fn = _FNS.get(dtype)
     if fn is None:
-        fn = getattr(_build.load("source"),
-                     f"pumi_sample_flight_{_DTYPE_TAG[dtype]}")
+        fn = _build.bind("source", f"pumi_sample_flight_{_DTYPE_TAG[dtype]}",
+                         SYMBOLS)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn

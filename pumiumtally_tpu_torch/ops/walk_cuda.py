@@ -151,6 +151,10 @@ LANE_BYTES = {torch.float32: 64, torch.float64: 96}
 # The Lane<T> a record carries, the bytes the walk reads of it.
 LANE_PAYLOAD = {torch.float32: 48, torch.float64: 80}
 _SCAN_TILE = 4096  # csrc/walk.cu SCAN_TILE
+#: The C entries of csrc/walk.cu this module binds.
+SYMBOLS = tuple(f"pumi_{name}_{tag}" for name in ("walk", "lanes",
+                                                  "walk_resident")
+                for tag in _DTYPE_TAG.values())
 _entries: dict = {}
 
 
@@ -159,7 +163,7 @@ def _entry(name: str, dtype):
     key = (name, dtype)
     fn = _entries.get(key)
     if fn is None:
-        fn = getattr(_build.load("walk"), f"pumi_{name}_{_DTYPE_TAG[dtype]}")
+        fn = _build.bind("walk", f"pumi_{name}_{_DTYPE_TAG[dtype]}", SYMBOLS)
         fn.argtypes = {"walk": _WALK_ARGTYPES, "lanes": _LANES_ARGTYPES}[name]
         fn.restype = ctypes.c_int
         _entries[key] = fn
@@ -210,8 +214,8 @@ def resident_threads(dtype, *, initial: bool, robust: bool = True,
     ordered = ordered and not initial
     _check_block(block, layout=layout, feature=False, robust=robust,
                  initial=initial, ordered=ordered)
-    fn = getattr(_build.load("walk"),
-                 f"pumi_walk_resident_{_DTYPE_TAG[dtype]}")
+    fn = _build.bind("walk", f"pumi_walk_resident_{_DTYPE_TAG[dtype]}",
+                     SYMBOLS)
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = ctypes.c_int(0)

@@ -30,14 +30,12 @@ rebuilt tally clears them (its mesh holds only survivors). Results go to
 the ``pumi_chip_health`` gauge of the tally's registry, beside
 ``pumi_rollbacks_total{cause=...}`` and ``pumi_elastic_reshards_total``.
 
-``tracer`` takes an object with the JAX package's ``SpanTracer``
-surface (``span(name, **attrs)`` as a context manager yielding a dict,
-``event(name, **attrs)``); without one, spans are not recorded (the
-port's span tracer is ROADMAP.md A12).
+``tracer`` is an ``obs/trace.py::SpanTracer``: the serving scheduler
+passes its own, so the ``classify`` and ``probe`` spans land in the
+failing job's trace through the ambient binding; without one the
+coordinator keeps a private ring-only tracer.
 """
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -63,23 +61,16 @@ DeviceError = getattr(torch, "AcceleratorError", _DeviceErrorPlaceholder)
 VERDICTS = ("transient", "chip-lost", "preempted", "persistent")
 
 
-class _NoSpans:
-    """The span surface when no tracer is given: records nothing."""
-
-    @contextlib.contextmanager
-    def span(self, name, **attrs):
-        yield dict(attrs)
-
-    def event(self, name, **attrs) -> None:
-        return None
-
-
 class ResilienceCoordinator:
     def __init__(self, tally, faults: FaultInjector | None = None,
                  tracer=None):
         self.tally = tally
         self.faults = faults if faults is not None else FaultInjector()
-        self.tracer = tracer if tracer is not None else _NoSpans()
+        if tracer is None:
+            from ..obs.trace import SpanTracer
+
+            tracer = SpanTracer()
+        self.tracer = tracer
         r = tally.metrics
         self.c_rollbacks = r.counter(
             "pumi_rollbacks_total",

@@ -109,9 +109,12 @@ driven by the ``ResilientRunner``'s injector; the integrity modes
 injector so the detectors they target see the corruption whether or not
 a supervisor wraps the run. The serving and fleet modes (poison_job,
 transient_quantum, kill_server_at_quantum, wedge_member, slow_member,
-disk_full_at) parse and answer as in the JAX package; the port's serving
-layer that drives them is ROADMAP.md A11; ``chip_down_at_move`` drives
-the runner's elastic mesh shrink (resilience/elastic.py).
+disk_full_at) parse and answer as in the JAX package; the serving
+scheduler (``serving/scheduler.py``) and its journal drive poison_job,
+transient_quantum, kill_server_at_quantum and disk_full_at, and the
+per-member modes answer the scheduler's member index;
+``chip_down_at_move`` drives the runner's elastic mesh shrink
+(resilience/elastic.py).
 
 The injector is a no-op when the plan is empty, so production code can
 call its hooks unconditionally.

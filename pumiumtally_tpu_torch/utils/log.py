@@ -101,17 +101,18 @@ def metrics_path() -> str | None:
 _metric_sink_warned: set = set()
 
 
-def emit_metric(fields: dict) -> None:
+def emit_metric(fields: dict, path: str | None = None) -> None:
     """Emit one metrics record: a debug-level record through the logger
     (rendered as JSON under ``PUMI_TPU_LOG_JSON=1``), plus one JSON line
-    appended to the ``PUMI_TPU_METRICS=jsonl:<path>`` sink when one is
-    set: ts, level and msg, then the record's flat fields. An unwritable
-    sink logs one warning per path and drops the records."""
+    appended to ``path`` or, without one, to the
+    ``PUMI_TPU_METRICS=jsonl:<path>`` sink when one is set: ts, level and
+    msg, then the record's flat fields. An unwritable sink logs one
+    warning per path and drops the records."""
     kind = str(fields.get("kind", "metric"))
     get_logger().debug(
         kind, extra={"fields": fields, "tag": "[METRIC]"}
     )
-    path = metrics_path()
+    path = path or metrics_path()
     if not path:
         return
     payload = {

@@ -1,9 +1,9 @@
-"""SIGTERM/SIGINT plumbing for the preemption flush of
-``resilience/runner.py::ResilientRunner``.
+"""SIGTERM/SIGINT plumbing for the preemption flushes of
+``resilience/runner.py::ResilientRunner`` and
+``serving/scheduler.py::TallyScheduler``.
 
-Own copy of ``pumiumtally_tpu/utils/signals.py`` (where the serving
-scheduler shares it; ROADMAP.md A11). A supervisor follows one
-discipline: install handlers on the
+Own copy of ``pumiumtally_tpu/utils/signals.py``. A supervisor follows
+one discipline: install handlers on the
 two preemption signals, defer delivery that lands mid-dispatch to a
 consistent boundary, flush durable state, then DIE THE WAY THE
 PROCESS WOULD HAVE WITHOUT US — chain a callable previous handler,

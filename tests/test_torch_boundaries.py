@@ -131,6 +131,22 @@ def test_tuning_modules_import_nothing_of_jax(rel):
     test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
 
 
+# Observability and the serving layer (their JAX counterparts import no
+# JAX, but the port keeps its own copies): each imports in a fresh
+# interpreter without pulling JAX in, the CLI too.
+SERVING_MODULES = (
+    "obs/__init__.py", "obs/trace.py", "obs/slo.py", "obs/aggregate.py",
+    "obs/profile.py", "obs/exporter.py", "serving/__init__.py",
+    "serving/bank.py", "serving/journal.py", "serving/scheduler.py",
+    "serving/saturate.py", "serving/__main__.py",
+)
+
+
+@pytest.mark.parametrize("rel", SERVING_MODULES)
+def test_serving_modules_import_nothing_of_jax(rel):
+    test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
+
+
 def test_partitioned_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is usable")
@@ -160,6 +176,41 @@ def test_entry_points_default_to_cuda():
         TetMesh.from_numpy(
             mesh.coords.numpy(), mesh.tet2vert.numpy().astype(np.int64)
         )
+
+
+def test_serving_entry_points_default_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.serving import TallyScheduler
+
+    mesh = build_box(1.0, 1.0, 1.0, 2, 2, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TallyScheduler(mesh)
+    r = subprocess.run(
+        [sys.executable, "-m", "pumiumtally_tpu_torch.serving", "--demo",
+         "1", "--bank", str(tmp_path / "bank")], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode != 0 and "device='cpu'" in r.stderr
+    assert '"summary"' not in r.stdout
+    assert not (tmp_path / "bank").exists()
+
+
+def test_bank_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """The bank builds with ``_build``'s nvcc and has nothing to fall back
+    to; a failed build leaves no entry."""
+    from pumiumtally_tpu_torch.ops import _build
+    from pumiumtally_tpu_torch.serving import ProgramBank
+
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "DEFAULT_CUDA_HOME", str(tmp_path))
+    bank = ProgramBank(str(tmp_path / "bank"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        bank.library("walk")
+    assert bank.entries_on_disk() == [] and bank.misses == 1
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):

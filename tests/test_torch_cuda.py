@@ -1794,3 +1794,109 @@ def test_hardware_tuner_on_smoke1(cuda, tmp_path):
     t.initialize_particle_location(
         w["origin_host"].astype(np.float64).reshape(-1).copy())
     assert walk_cuda.BLOCK_LAUNCHES[entry["block"]] > before
+
+
+# --------------------------------------------------------------------- #
+# Serving: the library bank over nvcc, the scheduler on the card
+# --------------------------------------------------------------------- #
+def test_library_bank_over_nvcc(cuda, tmp_path):
+    """A cold bank builds the facade's libraries together with nvcc; a
+    fresh bank over it is pure hits; a truncated library is named "torn"
+    and a META from another nvcc "stale", each rebuilt and rewritten,
+    after which the entries load clean."""
+    import json
+
+    from pumiumtally_tpu_torch.serving import ProgramBank
+    from pumiumtally_tpu_torch.serving.bank import FACADE_LIBRARIES, META_FILE
+
+    cold = ProgramBank(str(tmp_path))
+    paths = cold.libraries(FACADE_LIBRARIES)
+    assert (cold.misses, cold.hits, cold.rewrites) == (3, 0, 0)
+    assert cold.compile_seconds > 0
+    metas = [json.load(open(os.path.join(os.path.dirname(p), META_FILE)))
+             for p in paths]
+    assert all(m["ptxas"] and m["nvcc"] and m["symbols"] for m in metas)
+    warm = ProgramBank(str(tmp_path))
+    assert warm.libraries(FACADE_LIBRARIES) == paths
+    assert (warm.misses, warm.hits, warm.compile_seconds) == (0, 3, 0.0)
+    # The torn library is written as a new file: this process has the
+    # old one mapped (the warm bank's load check), and cutting a mapped
+    # library in place would fault the process, not the bank.
+    size = os.path.getsize(paths[0])
+    with open(paths[0], "rb") as f:
+        half = f.read(size // 2)
+    with open(paths[0] + ".cut", "wb") as f:
+        f.write(half)
+    os.replace(paths[0] + ".cut", paths[0])
+    meta = os.path.join(os.path.dirname(paths[1]), META_FILE)
+    doc = json.load(open(meta))
+    doc["nvcc"] = "Build cuda_0.0.r0.0/compiler.0_0"
+    json.dump(doc, open(meta, "w"))
+    hurt = ProgramBank(str(tmp_path))
+    assert hurt.libraries(FACADE_LIBRARIES) == paths
+    assert sorted(f["cause"] for f in hurt.findings) == ["stale", "torn"]
+    assert (hurt.hits, hurt.rewrites) == (1, 2)
+    assert os.path.getsize(paths[0]) == size
+    clean = ProgramBank(str(tmp_path))
+    clean.libraries(FACADE_LIBRARIES)
+    assert (clean.hits, clean.findings) == (3, [])
+
+
+_SERVED_SCRIPT = """
+import json, os, sys
+sys.path.insert(0, sys.argv[2])
+from pumiumtally_tpu_torch import TallyConfig, build_box
+from pumiumtally_tpu_torch.ops import _build
+from pumiumtally_tpu_torch.serving import (
+    ProgramBank, TallyScheduler, synthetic_requests)
+from pumiumtally_tpu_torch.serving.bank import FACADE_LIBRARIES
+from torch_serving_twins import solo_reference
+
+tmp = sys.argv[1]
+assert not any(_build.loaded_path(n) for n in FACADE_LIBRARIES)
+mesh = build_box(1.0, 1.0, 1.0, 8, 8, 8, device="cuda")
+cfg = TallyConfig(n_groups=4, tolerance=1e-6)
+bank = ProgramBank(os.path.join(tmp, "bank"))
+sched = TallyScheduler(mesh, cfg, bank=bank, max_resident=1,
+                       quantum_moves=2, preempt_after=1,
+                       checkpoint_dir=os.path.join(tmp, "ck"), device="cuda")
+reqs = synthetic_requests(mesh, 2, class_sizes=(3000, 1024), n_moves=4,
+                          seed=4)
+ids = [sched.submit(r) for r in reqs]
+sched.run()
+sched.close()
+same = [sched.result(j).tobytes()
+        == solo_reference(mesh, r, 2, cfg, device="cuda").tobytes()
+        for r, j in zip(reqs, ids)]
+print(json.dumps(dict(
+    stats=bank.stats(), preemptions=sched.stats()["preemptions"],
+    outcomes=[sched.job(j).outcome for j in ids], same=same,
+    loaded={n: _build.loaded_path(n) for n in FACADE_LIBRARIES},
+    entries={n: bank.library_file(n) for n in FACADE_LIBRARIES})))
+"""
+
+
+def test_served_jobs_bitwise_their_facade_runs(cuda, tmp_path):
+    """Two jobs through the scheduler on the card (one preempted and
+    re-admitted) give each job's uninterrupted facade run, bit for bit,
+    with the facades' libraries resolved through the bank. It runs in a
+    fresh process, so that the libraries it launches are the bank's
+    entries and not a build this process loaded before."""
+    import json
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SERVED_SCRIPT, str(tmp_path), here],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(here))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["preemptions"] >= 1
+    assert out["outcomes"] == ["completed", "completed"]
+    assert out["stats"]["entries"] == 3 and out["stats"]["misses"] == 3
+    assert out["loaded"] == out["entries"]
+    assert all(p.startswith(str(tmp_path / "bank"))
+               for p in out["loaded"].values())
+    assert out["same"] == [True, True]
