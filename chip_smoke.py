@@ -158,18 +158,20 @@ Phases, each of which raises (exit code != 0) on any failed check:
    (CUDA events, median of 5) beside its bytes bound, the ``verify``
    step's host ms, and the move's host ms with the checks off and on in
    turns (off, on, on, off); (b) the checkpoint round trip after move 2
-   went to phase 21 (a), whose preempted job's checkpoint is saved,
-   restored into a fresh tally (every save restored, checked) and
-   continued bitwise, its save and restore seconds and bytes printed
-   (the resumed runner of (c) restores a generation into a fresh tally
-   too); (c) ``ResilientRunner``: ``die_at_move:3`` and an auto-resume
-   from the store, a transient retried once, and ``bitflip_flux:2`` under
+   went to phase 22 (a), whose migrated job's checkpoint is saved,
+   restored into a fresh tally on the other member (every save and
+   restore counted) and continued bitwise, its save and restore seconds
+   printed (the resumed runner of (c) restores a generation into a fresh
+   tally too); (c) ``ResilientRunner``: ``die_at_move:3`` and an
+   auto-resume from the store (no cadence after the resume, so one
+   generation is written), a transient retried once, and
+   ``bitflip_flux:2`` under
    ``integrity="halt"`` caught as "flux" at move 3 with generation 2
    flushed; (d) ``move_deadline_s`` on healthy moves: no timeout, the
    move's host ms with the deadline off and on in turns; (e) the
    megastep cell (K = 8) with integrity on: 0 violations, bitwise the
-   run without (its checkpoint round trip went to phase 21 (a) too,
-   whose preempted job restores a megastep checkpoint at full width).
+   run without (its checkpoint round trip went to phase 22 (a) too,
+   whose migrated job restores a megastep checkpoint at full width).
 16. the partitioned tally (``[part]`` lines): (a) the unpacked table
    layout: the four calls on the main box with 65 z-slab classes built
    ``packed=False`` (initial search and one move through the unpacked
@@ -237,7 +239,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    round's exchange in CUDA events and the peak device memory; (e)
    ``write_parallel_vtk`` on that rank (the piece holds the mesh's cells,
    the index names it); (c) ``chip_down_at_move:2,chip:2`` under
-   ``ResilientRunner`` on the 4-part cell: rebuilt on 3 parts, the
+   ``ResilientRunner`` on the 4-part cell (located before the runner
+   wraps it, so no generation 0 is written: the rollback is to the
+   runner's snapshot on the card): rebuilt on 3 parts, the
    cell's 4 moves finished, the recovery seconds, segments and flux sum
    within 1e-4 of phase 16 (c)'s fault-free 4-part counted run; (d) two ``DepletionLoop`` steps in megastep
    mode on a two-region 20^3 box (65,536 particles): the densities fall.
@@ -290,17 +294,16 @@ Phases, each of which raises (exit code != 0) on any failed check:
 21. serving (``[serve]`` lines): (a) ``TallyScheduler`` on the main cell
    (the 55^3 box, 8 groups, float32) serves three synthetic jobs of
    1,048,576, 786,432 (padded to 1,048,576) and 262,144 particles, 4
-   moves each, ``max_resident=2``, quanta of 2 moves, ``preempt_after=1``
-   (one job is checkpointed and re-admitted), the exporter on port 0
-   (``/metrics``, ``/jobs`` and ``/trace`` fetched from it): every job's
-   flux bitwise its uninterrupted ``PumiTally`` run, every job's spans
-   through ``obs.check_job_trace``, the walk, schedule, bucket-scatter
-   and flight launches over the drain (zeroed before, read after; on the
-   ``kernels`` line as ``serving_*``), jobs and segments a second of the
-   drain (timed without the profiler), each quantum's device seconds
-   and the preemption checkpoint's save and restore seconds; every
-   preemption's checkpoint saved and restored (the admit span's
-   ``restored``), no job running more moves than it asked; (b) server
+   moves each, ``max_resident=2``, quanta of 2 moves, the exporter on
+   port 0 (``/metrics``, ``/jobs`` and ``/trace`` fetched from it): every
+   job's flux bitwise its uninterrupted ``PumiTally`` run, every job's
+   spans through ``obs.check_job_trace``, the walk, schedule,
+   bucket-scatter and flight launches over the drain (zeroed before,
+   read after; on the ``kernels`` line as ``serving_*``), jobs and
+   segments a second of the drain (timed without the profiler), each
+   quantum's device seconds, no job running more moves than it asked
+   (the preempted job's checkpoint round trip is phase 22 (a)'s
+   migration); (b) server
    processes, each the serving CLI's ``main`` (``python -m
    pumiumtally_tpu_torch.serving --demo 3``) serving three jobs of 65,536 and 32,768 particles on the 20^3 box: a
    cold process over an empty library bank, started before the smoke's
@@ -324,6 +327,34 @@ Phases, each of which raises (exit code != 0) on any failed check:
    ``PUMI_TPU_PROFILE=anomaly``, opens a torch.profiler window over a
    probe job and writes one Chrome trace whose device events are listed
    by name (a window that kept none is taken again, at most 3 times).
+22. the serving fleet (``[fleet]`` lines): (a) a ``FleetRouter`` of two
+   members (``max_resident=2``, quanta of 2, every member journaled) on
+   the card behind a ``TallyGateway`` on port 0 serves phase 21 (a)'s
+   jobs of 1,048,576 and 262,144 particles (its 786,432-particle job is
+   left out: each full-width job costs seconds of journal JSON and
+   checkpoints on the host): each POSTed with its idempotency key, then
+   again (the same ids, ``n_submitted`` unchanged); after the first
+   round the 1,048,576-particle job migrates to the other member (the
+   checkpoint the source member's journal saved at that quantum
+   boundary, which the migration reuses without a save of its own,
+   restored once on the target, whose admission says so); each result
+   fetched over ``GET /result`` and
+   decoded, bitwise phase 21 (a)'s flux; one ``migrated`` trace link,
+   ``pumi_jobs_recovered_total{source="migrated"}`` 1, every job's spans
+   through ``check_job_trace``, no job running more moves than it
+   asked; jobs a second of the drain, each checkpoint's save seconds,
+   the migration's seconds, peak device memory after ``settle_memory``
+   and the kernels' launches over the drain (``fleet_*`` on the
+   ``kernels`` line); (b) phase 21 (b)'s three jobs on the 20^3 box
+   through three failures: member 0 killed after the first round under
+   ``absorb_member_kills=True``; the router crashed by
+   ``kill_server_at_quantum:3`` and ``FleetRouter.recover``ed with the
+   whole workload POSTed again (every key deduped); a
+   ``FleetSupervisor`` evicting the member that ``wedge_member:1``
+   wedges. Each path ends with every job terminal on exactly one alive
+   member, the alive members' journals disjoint and every flux bitwise
+   phase 21's; ``obs.fleetview``'s check passes over every fleet
+   directory.
 
 The peaks of device memory that phases 16 (c), 17 (c) and 19 (b) print
 follow a garbage collection (``settle_memory``): they count what is
@@ -2820,7 +2851,9 @@ def resil_runner(mesh, rec, tmpdir: str) -> dict:
         raise AssertionError(f"[resil] (c) died at iteration {t.iter_count}")
     del run, t
     b = resil_tally(mesh)
-    run = ResilientRunner(b, store, every_moves=2, handle_signals=False)
+    # No cadence after the resume: a second generation at move 4 is
+    # seconds of host time and checks nothing the first did not.
+    run = ResilientRunner(b, store, every_moves=None, handle_signals=False)
     if run.resumed_from != 2:
         raise AssertionError(f"[resil] (c) resumed from {run.resumed_from}")
     run.initialize_particle_location(rec["pos"].reshape(-1))
@@ -2830,7 +2863,8 @@ def resil_runner(mesh, rec, tmpdir: str) -> dict:
     die_s = time.perf_counter() - t0
     log(f"[resil] (c) die_at_move:3, resumed from generation 2 of the "
         f"store: bitwise the uninterrupted run ({die_s:.3f} s with 1 "
-        f"generation written and restored)")
+        f"generation written and restored, and no cadence after the "
+        f"resume)")
 
     t0 = time.perf_counter()
     tr = resil_run(mesh, rec, dict(
@@ -4239,12 +4273,16 @@ def ranks_elastic(mesh, tmpdir: str, fault_free: dict) -> dict:
     inputs = part_inputs()
     n = MAIN_PARTICLES
     t0 = time.perf_counter()
+    # Located before the runner wraps it: the runner then writes no
+    # generation 0 (seconds of one host thread) and rolls back to its
+    # snapshot on the card, then flushes the recovery's generation.
+    t = part_tally(mesh)
+    t.initialize_particle_location(inputs["pos"].reshape(-1))
     run = ResilientRunner(
-        part_tally(mesh), CheckpointStore(os.path.join(tmpdir, "cks"),
-                                          shards=None),
+        t, CheckpointStore(os.path.join(tmpdir, "cks"), shards=None),
         every_moves=1000, handle_signals=False, sleep=lambda s: None,
         faults=FaultInjector(parse_faults("chip_down_at_move:2,chip:2")))
-    run.initialize_particle_location(inputs["pos"].reshape(-1))
+    del t
     for want, groups in inputs["moves"]:
         run.move_to_next_location(want.reshape(-1).copy(),
                                   np.ones(n, np.int8), np.ones(n), groups,
@@ -5088,14 +5126,26 @@ def _get(url: str) -> tuple:
         return resp.status, resp.read().decode()
 
 
+def quantum_moves(records: list, ids: list) -> dict:
+    """The moves each job ran over its quanta (flight records): a job
+    replayed from move 0 would run more than it asked."""
+    per_job = {j: sum(r["moves"] for r in records
+                      if r["kind"] == "quantum" and r["job"] == j)
+               for j in ids}
+    if set(per_job.values()) != {SERVE_MOVES}:
+        raise AssertionError(f"moves run a job: {per_job}")
+    return per_job
+
+
 def serve_full_width(mesh, tmpdir: str) -> dict:
     """(a) three jobs of 1,048,576, 786,432 (padded to 1,048,576) and
     262,144 particles, 4 moves each, through ``TallyScheduler``
-    (max_resident 2, quantum 2, preempt_after 1: one job is checkpointed
-    and re-admitted from its checkpoint), with the exporter on port 0;
-    each job's flux against its uninterrupted ``PumiTally`` run, bitwise;
-    each job's spans through ``check_job_trace``; the kernels' launches
-    over the drain, which is timed without the profiler."""
+    (max_resident 2, quantum 2), with the exporter on port 0; each job's
+    flux against its uninterrupted ``PumiTally`` run, bitwise; each job's
+    spans through ``check_job_trace``; the kernels' launches over the
+    drain, which is timed without the profiler. (The checkpoint round
+    trip of a job preempted and re-admitted is phase 22 (a)'s
+    migration.)"""
     from pumiumtally_tpu_torch import PumiTally, TallyConfig
     from pumiumtally_tpu_torch.obs import check_job_trace, job_trace
     from pumiumtally_tpu_torch.serving import (
@@ -5107,30 +5157,11 @@ def serve_full_width(mesh, tmpdir: str) -> dict:
     cfg = TallyConfig(n_groups=MAIN_GROUPS, tolerance=1e-6)
     reqs = synthetic_requests(mesh, 3, class_sizes=SERVE_CLASSES,
                               n_moves=SERVE_MOVES, seed=0)
-    # The preemption's checkpoint round trip, timed and counted: save and
-    # restore wrapped for this run only (a restore that raises is not
-    # counted, and the scheduler would replay that job from move 0).
-    ckpt: dict = {"save": [], "restore": []}
-    saved = PumiTally.save_checkpoint, PumiTally.restore_checkpoint
-
-    def timed(kind, fn):
-        def call(self, path, *a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(self, path, *a, **kw)
-            torch.cuda.synchronize()
-            ckpt[kind].append((time.perf_counter() - t0,
-                               os.path.getsize(path)))
-        return call
-
-    PumiTally.save_checkpoint = timed("save", saved[0])
-    PumiTally.restore_checkpoint = timed("restore", saved[1])
     t_start = time.perf_counter()
     os.environ["PUMI_TPU_PROM_PORT"] = "0"
     try:
         sched = TallyScheduler(
             mesh, cfg, max_resident=2, quantum_moves=SERVE_QUANTUM,
-            preempt_after=1, checkpoint_dir=os.path.join(tmpdir, "ck"),
             handle_signals=False, device=DEVICE)
     finally:
         del os.environ["PUMI_TPU_PROM_PORT"]
@@ -5151,7 +5182,6 @@ def serve_full_width(mesh, tmpdir: str) -> dict:
         results = {j: sched.result(j) for j in ids}
         rows = {j: sched.job(j) for j in ids}
     finally:
-        PumiTally.save_checkpoint, PumiTally.restore_checkpoint = saved
         sched.close()
     for path, (status, body) in scrapes.items():
         if status != 200:
@@ -5164,23 +5194,9 @@ def serve_full_width(mesh, tmpdir: str) -> dict:
             e.get("args", {}).get("job_id") == ids[0]
             for e in chrome["traceEvents"]):
         raise AssertionError("[serve] (d) /jobs or /trace misses a job")
-    if stats["outcomes"] != {"completed": 3} or stats["preemptions"] < 1:
+    if stats["outcomes"] != {"completed": 3}:
         raise AssertionError(f"[serve] (a) {stats}")
-    # Every preemption saved a checkpoint and its re-admission restored
-    # it (the admit span says so, and the job went on from its move).
-    restored = [r for r in spans if r["name"] == "admit" and r.get("restored")]
-    if not (len(ckpt["save"]) == len(ckpt["restore"]) == len(restored)
-            == stats["preemptions"]):
-        raise AssertionError(
-            f"[serve] (a) {stats['preemptions']} preemptions, "
-            f"{len(ckpt['save'])} saves, {len(ckpt['restore'])} restores, "
-            f"{len(restored)} admissions restored from a checkpoint")
-    # A job replayed from move 0 would run more quanta than its moves ask.
-    per_job = {j: sum(r["moves"] for r in records
-                      if r["kind"] == "quantum" and r["job"] == j)
-               for j in ids}
-    if set(per_job.values()) != {SERVE_MOVES}:
-        raise AssertionError(f"[serve] (a) moves run a job: {per_job}")
+    per_job = quantum_moves(records, ids)
     for jid in ids:
         problems = check_job_trace(job_trace(spans, jid), jid)
         if problems:
@@ -5194,9 +5210,9 @@ def serve_full_width(mesh, tmpdir: str) -> dict:
     q_wall = sum(r["seconds"] for r in quanta)
     log(f"[serve] (a) 3 jobs ({', '.join(map(str, SERVE_CLASSES))} "
         f"particles, padded to {[bucket(n) for n in SERVE_CLASSES]}), "
-        f"{SERVE_MOVES} moves, quantum {SERVE_QUANTUM}, max_resident 2, "
-        f"preempt_after 1: outcomes {stats['outcomes']}, preemptions "
-        f"{stats['preemptions']}, {len(quanta)} quanta; drain {drain_s:.4f} s "
+        f"{SERVE_MOVES} moves, quantum {SERVE_QUANTUM}, max_resident 2: "
+        f"outcomes {stats['outcomes']}, {len(quanta)} quanta (moves a job "
+        f"{per_job}); drain {drain_s:.4f} s "
         f"(no profiler): {3 / drain_s:.4f} jobs/s, "
         f"{segments / drain_s:.4e} segments/s ({segments} segments)")
     log(f"[serve] (a) quanta in order (job, moves, device s, wall s): "
@@ -5204,12 +5220,6 @@ def serve_full_width(mesh, tmpdir: str) -> dict:
                     f" {r['seconds']:.4f})" for r in quanta))
     log(f"[serve] (a) quanta's device seconds {sum(dev_s):.4f} of their "
         f"{q_wall:.4f} s wall ({sum(dev_s) / q_wall:.2%})")
-    log(f"[serve] (a) preemption checkpoint: save "
-        f"{[round(s, 3) for s, _ in ckpt['save']]} s, restore "
-        f"{[round(s, 3) for s, _ in ckpt['restore']]} s, file "
-        f"{[b for _, b in ckpt['save']]} bytes; {len(restored)} "
-        f"re-admission(s) restored from the checkpoint (admit spans "
-        f"restored=True; moves run a job {per_job})")
     log(f"[serve] (a) launches over the drain: {launches}")
     t0 = time.perf_counter()
     for req, jid in zip(reqs, ids):
@@ -5240,7 +5250,7 @@ def serve_full_width(mesh, tmpdir: str) -> dict:
                 jobs_per_s=3 / drain_s, segments_per_s=segments / drain_s,
                 device_s=dev_s, quantum_wall=q_wall,
                 hashes={j: _sha(v) for j, v in results.items()},
-                results=results, reqs=reqs, ckpt=ckpt)
+                results=results, reqs=reqs)
 
 
 def small_box_run() -> dict:
@@ -5457,9 +5467,374 @@ def phase_serving(mesh, servers: ServerProcesses, tmpdir: str) -> dict:
     log(f"[serve] (a) {t1 - t0:.2f} s, (d) {t2 - t1:.2f} s, (b, c) "
         f"{time.perf_counter() - t2:.2f} s (the server processes "
         f"{t3 - t2:.2f} s); card {card_line()}")
-    full.pop("results")
+    # Phase 22 serves the same jobs through the fleet and holds them to
+    # these bits.
+    bits = dict(full=full.pop("results"), small=want)
     full.pop("reqs")
-    return dict(full=full, bank=bank, recovery=rec, obs=obs)
+    return dict(full=full, bank=bank, recovery=rec, obs=obs, bits=bits)
+
+
+# ---------------------------------------------------------------------- #
+# 22. The serving fleet (A11's second part).
+# ---------------------------------------------------------------------- #
+FLEET_MEMBERS = 2
+# Phase 21 (a)'s jobs that (a) serves: its 786,432-particle job is left
+# out, as each job's journal texts and checkpoints cost seconds of host
+# time at full width (PERF.md, the fleet cell).
+FLEET_CLASSES = (1048576, 262144)
+FLEET_KILL = "kill_server_at_quantum:3"
+FLEET_WEDGE = "wedge_member:1"
+
+
+def _post(url: str, body: bytes) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=body, method="POST",
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        if resp.status != 200:
+            raise AssertionError(f"[fleet] POST {url}: {resp.status}")
+        return json.loads(resp.read())
+
+
+def fleet_checks(router, label: str, ids: list, want) -> dict:
+    """Every job terminal on exactly one alive member, the alive members'
+    journals disjoint and together every job, each flux against
+    ``want`` (job id -> flux, or -> its sha256), fleetview's check over
+    the fleet directory. Returns the members' journaled ids."""
+    from pumiumtally_tpu_torch.obs import fleetview
+
+    owned = sorted(j.id for j in router.jobs())
+    if owned != sorted(ids):
+        raise AssertionError(f"[fleet] {label}: jobs owned {owned}, "
+                             f"accepted {sorted(ids)}")
+    if not all(router.job(j).terminal for j in ids):
+        raise AssertionError(f"[fleet] {label}: a job did not end")
+    # fleetview's view of the directory holds every member journal's
+    # rows (a full-width request is seconds of json to read).
+    view = fleetview.load_dir(router.journal.dir)
+    problems = fleetview.check_fleetstats(view)
+    if problems:
+        raise AssertionError(f"[fleet] {label}: fleetview: {problems}")
+    alive = {m.index for m in router.members if m.alive}
+    journals = {i: sorted(r["id"] for r in view["jobs"] if r["member"] == i)
+                for i in alive}
+    seen = [j for v in journals.values() for j in v]
+    if sorted(seen) != sorted(ids):
+        raise AssertionError(f"[fleet] {label}: member journals "
+                             f"{journals} are not disjoint or miss a job")
+    for jid in ids:
+        got = router.result(jid)
+        ok = (got.tobytes() == want[jid].tobytes()
+              if isinstance(want[jid], np.ndarray) else _sha(got) == want[jid])
+        if not ok:
+            raise AssertionError(f"[fleet] {label}: {jid}'s flux differs "
+                                 "from phase 21's")
+    return journals
+
+
+def fleet_full_width(mesh, want: dict, tmpdir: str) -> dict:
+    """(a) phase 21 (a)'s three jobs through a ``FleetRouter`` of two
+    members behind a ``TallyGateway`` on port 0: each POSTed with its
+    idempotency key and POSTed again (the same ids, ``n_submitted``
+    unchanged), the 1,048,576-particle job migrated after its first
+    quantum, every result fetched over ``GET /result`` and decoded,
+    bitwise phase 21 (a)'s; the migration's trace link and counter,
+    each job's spans through ``check_job_trace``; the kernels' launches
+    over the drain; the journal's checkpoint saves timed."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+    from pumiumtally_tpu_torch.obs import (
+        check_job_trace,
+        job_trace,
+        load_trace_records,
+    )
+    from pumiumtally_tpu_torch.serving import (
+        FleetRouter,
+        TallyGateway,
+        decode_result,
+        synthetic_requests,
+    )
+    from pumiumtally_tpu_torch.serving.journal import request_to_json
+
+    cfg = TallyConfig(n_groups=MAIN_GROUPS, tolerance=1e-6)
+    reqs = synthetic_requests(mesh, 3, class_sizes=SERVE_CLASSES,
+                              n_moves=SERVE_MOVES, seed=0)
+    reqs = [r for r in reqs if r.origins.shape[0] in FLEET_CLASSES]
+    ckpt: dict = {"save": [], "restore": []}
+    saved = PumiTally.save_checkpoint, PumiTally.restore_checkpoint
+
+    def timed(kind, fn):
+        def call(self, path, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(self, path, *a, **kw)
+            torch.cuda.synchronize()
+            ckpt[kind].append((os.path.basename(path).split(".")[0],
+                               time.perf_counter() - t0))
+        return call
+
+    fdir = os.path.join(tmpdir, "fleet_a")
+    resident, freed = settle_memory()
+    PumiTally.save_checkpoint = timed("save", saved[0])
+    PumiTally.restore_checkpoint = timed("restore", saved[1])
+    t_start = time.perf_counter()
+    router = FleetRouter(mesh, cfg, fleet_dir=fdir, n_members=FLEET_MEMBERS,
+                         max_resident=2, quantum_moves=SERVE_QUANTUM,
+                         device=DEVICE)
+    gateway = TallyGateway(router, port=0)
+    try:
+        t0 = time.perf_counter()
+        bodies = [json.dumps(dict(request_to_json(r),
+                                  idempotency_key=f"key-{r.job_id}")).encode()
+                  for r in reqs]
+        t1 = time.perf_counter()
+        posted = [_post(gateway.url + "/submit", b) for b in bodies]
+        t2 = time.perf_counter()
+        submitted = router.stats()["jobs"], router._n_submitted
+        again = [_post(gateway.url + "/submit", b) for b in bodies]
+        t3 = time.perf_counter()
+        if again != posted or (router.stats()["jobs"],
+                               router._n_submitted) != submitted:
+            raise AssertionError(f"[fleet] (a) the second POSTs gave "
+                                 f"{again} against {posted}")
+        ids = [p["job"] for p in posted]
+        placed = {j: router.member_of(j) for j in ids}
+        torch.cuda.synchronize()
+        zero_counts()
+        t_drain = time.perf_counter()
+        router.step()
+        torch.cuda.synchronize()
+        t_mig = time.perf_counter()
+        saves_before = len(ckpt["save"])
+        moved = router.migrate(ids[0])
+        torch.cuda.synchronize()
+        mig_s = time.perf_counter() - t_mig
+        mig_saves = ckpt["save"][saves_before:]
+        router.run()
+        torch.cuda.synchronize()
+        drain_s = time.perf_counter() - t_drain
+        launches = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t4 = time.perf_counter()
+        fetched = {}
+        for jid in ids:
+            status, body = _get(f"{gateway.url}/result/{jid}")
+            if status != 200:
+                raise AssertionError(f"[fleet] (a) /result/{jid}: {status}")
+            fetched[jid] = decode_result(json.loads(body))
+        t5 = time.perf_counter()
+        stats = router.stats()
+        recovered = sum(m.registry.counter("pumi_jobs_recovered_total")
+                        .value(source="migrated") for m in router.members)
+        per_job = quantum_moves(router.recorder.records(), ids)
+        fleet_checks(router, "(a)", ids, want)
+    finally:
+        PumiTally.save_checkpoint, PumiTally.restore_checkpoint = saved
+        gateway.stop()
+        router.close()
+    for jid in ids:
+        if fetched[jid].tobytes() != want[jid].tobytes():
+            raise AssertionError(f"[fleet] (a) {jid} over GET /result differs "
+                                 "from phase 21 (a)'s flux")
+    spans = load_trace_records(fdir)
+    links = [r["job_id"] for r in spans if r["name"] == "migrated"]
+    if links != [ids[0]] or recovered != 1:
+        raise AssertionError(f"[fleet] (a) migrated links {links}, "
+                             f"pumi_jobs_recovered_total{{source=migrated}} "
+                             f"{recovered}")
+    for jid in ids:
+        problems = check_job_trace(job_trace(spans, jid), jid)
+        if problems:
+            raise AssertionError(f"[fleet] (a) {jid}'s trace: {problems}")
+    # The migration's checkpoint round trip: the source member saved the
+    # job at the quantum boundary (the journal's checkpoint, which the
+    # migration reuses: it saves nothing more), the target restored it
+    # once and its admission says so; each job ran its moves once.
+    restored = [r["job_id"] for r in spans
+                if r["name"] == "admit" and r.get("restored")]
+    if [j for j, _ in ckpt["restore"]] != [ids[0]] or restored != [ids[0]] \
+            or mig_saves or ids[0] not in [j for j, _ in ckpt["save"]]:
+        raise AssertionError(f"[fleet] (a) saves {ckpt['save']} (the "
+                             f"migration's {mig_saves}), restores "
+                             f"{ckpt['restore']}, restoring admissions "
+                             f"{restored}")
+    if stats["outcomes"] != {"completed": len(ids)} or \
+            stats["migrations"] != 1 or moved == placed[ids[0]]:
+        raise AssertionError(f"[fleet] (a) {stats}")
+    for key in ("walk", "schedule", "scatter_bucket", "source"):
+        if not launches[key]:
+            raise AssertionError(f"[fleet] (a) no {key} launch")
+    sizes = [r.origins.shape[0] for r in reqs]
+    log(f"[fleet] (a) {len(ids)} jobs ({', '.join(map(str, sizes))} "
+        f"particles), {SERVE_MOVES} moves, quantum {SERVE_QUANTUM}, "
+        f"{FLEET_MEMBERS} members of max_resident 2 on {DEVICE}, placed "
+        f"{placed}, {ids[0]} migrated to member {moved} after its first "
+        f"quantum: outcomes {stats['outcomes']}, placements "
+        f"{stats['placements']}")
+    log(f"[fleet] (a) submission: bodies encoded {t1 - t0:.3f} s "
+        f"({sum(map(len, bodies))} bytes), POSTed {t2 - t1:.3f} s, POSTed "
+        f"again {t3 - t2:.3f} s (the same ids, n_submitted "
+        f"{submitted[1]} unchanged)")
+    log(f"[fleet] (a) drain {drain_s:.4f} s: {len(ids) / drain_s:.4f} jobs/s; "
+        f"the migration {mig_s:.4f} s; GET /result of {len(ids)} fluxes "
+        f"{t5 - t4:.3f} s; peak device memory {peak} B after settle_memory "
+        f"({resident} B resident, {freed} B collected)")
+    log(f"[fleet] (a) checkpoint saves (job, s; the journal's at each "
+        f"quantum boundary; the migration reused {ids[0]}'s and saved "
+        f"none): "
+        + ", ".join(f"({j}, {s:.3f})" for j, s in ckpt["save"])
+        + "; restores: "
+        + ", ".join(f"({j}, {s:.3f})" for j, s in ckpt["restore"])
+        + f"; admissions restored from a checkpoint {restored}; moves a "
+        f"job {per_job}")
+    log(f"[fleet] (a) launches over the drain: {launches}")
+    log(f"[fleet] (a) every flux over GET /result bitwise phase 21 (a)'s; one "
+        f"migrated link, pumi_jobs_recovered_total{{source=\"migrated\"}} "
+        f"1; every job's spans pass check_job_trace; fleetview --check "
+        f"passed; all {time.perf_counter() - t_start:.3f} s")
+    return dict(launches=launches, drain_s=drain_s,
+                jobs_per_s=len(ids) / drain_s, migration_s=mig_s, peak=peak,
+                saves=ckpt["save"], restores=ckpt["restore"],
+                submit_s=t3 - t0, sizes=sizes)
+
+
+def fleet_failures(want: dict, tmpdir: str) -> dict:
+    """(b) the 20^3 box's three jobs (phase 21 (b), (c)) through three
+    failures, each ending bitwise phase 21's fluxes: a member killed and
+    absorbed; the router crashed by ``kill_server_at_quantum:3`` and
+    recovered with the whole workload POSTed again; a supervisor
+    evicting a member wedged by ``wedge_member:1``."""
+    from pumiumtally_tpu_torch import TallyConfig, build_box
+    from pumiumtally_tpu_torch.resilience.faultinject import (
+        FaultInjector,
+        InjectedKill,
+        parse_faults,
+    )
+    from pumiumtally_tpu_torch.serving import (
+        FleetJournal,
+        FleetRouter,
+        FleetSupervisor,
+        run_fleet_saturation,
+        synthetic_requests,
+    )
+
+    box = build_box(1.0, 1.0, 1.0, CRASH_CELLS, CRASH_CELLS, CRASH_CELLS,
+                    device=DEVICE)
+    cfg = TallyConfig(n_groups=MAIN_GROUPS, tolerance=1e-6)
+    kw = dict(max_resident=1, quantum_moves=SERVE_QUANTUM, device=DEVICE)
+    reqs = synthetic_requests(box, 3, class_sizes=CRASH_CLASSES,
+                              n_moves=SERVE_MOVES, seed=0)
+    ids = [r.job_id for r in reqs]
+    out = {}
+
+    t0 = time.perf_counter()
+    router = FleetRouter(box, cfg, fleet_dir=os.path.join(tmpdir, "kill"),
+                         n_members=FLEET_MEMBERS, absorb_member_kills=True,
+                         **kw)
+    try:
+        for r in reqs:
+            router.submit(r, idempotency_key=f"key-{r.job_id}")
+        router.step()
+        victims = [j for j in ids if router.member_of(j) == 0]
+        router.kill_member(0)
+        router.run()
+        if router.members[0].alive or not victims or any(
+                router.member_of(j) == 0 for j in ids):
+            raise AssertionError("[fleet] (b) kill: member 0's jobs stayed")
+        fleet_checks(router, "(b) kill", ids, want)
+        out["kill"] = dict(s=time.perf_counter() - t0, moved=len(victims),
+                           migrations=router.stats()["migrations"])
+    finally:
+        router.close()
+    log(f"[fleet] (b) member 0 killed after the first round, "
+        f"absorb_member_kills=True: its {len(victims)} journaled jobs "
+        f"placed on member 1, every flux bitwise phase 21's "
+        f"({out['kill']['s']:.3f} s)")
+
+    t0 = time.perf_counter()
+    fdir = os.path.join(tmpdir, "crash")
+    run = dict(fleet_dir=fdir, n_members=FLEET_MEMBERS, n_jobs=3,
+               class_sizes=CRASH_CLASSES, n_moves=SERVE_MOVES, seed=0, **kw)
+    try:
+        run_fleet_saturation(
+            box, cfg, faults=FaultInjector(parse_faults(FLEET_KILL)), **run)
+        raise AssertionError(f"[fleet] (b) {FLEET_KILL} did not crash the "
+                             "router")
+    except InjectedKill:
+        pass
+    t1 = time.perf_counter()
+    before = FleetJournal(fdir).load()
+    resumed = run_fleet_saturation(box, cfg, resume=True, **run)
+    after = FleetJournal(fdir).load()
+    if (after["n_submitted"], after["accepted"]) != (
+            before["n_submitted"], before["accepted"]) or \
+            before["n_submitted"] != 3:
+        raise AssertionError(f"[fleet] (b) the POSTs after the crash "
+                             f"accepted anew: {before['accepted']} -> "
+                             f"{after['accepted']}")
+    for jid in ids:
+        if _sha(resumed["results"][jid]) != want[jid]:
+            raise AssertionError(f"[fleet] (b) crash: {jid} differs")
+    if resumed["fleet"]["recovered"] < 1 or resumed["fleet"]["outcomes"] \
+            != {"completed": 3}:
+        raise AssertionError(f"[fleet] (b) crash: {resumed['fleet']}")
+    from pumiumtally_tpu_torch.obs import fleetview
+
+    view = fleetview.load_dir(fdir)
+    docs = sorted(r["id"] for r in view["jobs"])
+    if docs != sorted(ids) or fleetview.check_fleetstats(view):
+        raise AssertionError(f"[fleet] (b) crash: member journals {docs}, "
+                             f"fleetview {fleetview.check_fleetstats(view)}")
+    out["crash"] = dict(s=time.perf_counter() - t0,
+                        recovered=resumed["fleet"]["recovered"])
+    log(f"[fleet] (b) {FLEET_KILL} crashed the router "
+        f"({t1 - t0:.3f} s); FleetRouter.recover with the workload POSTed "
+        f"again: every key deduped (n_submitted {after['n_submitted']}), "
+        f"{resumed['fleet']['recovered']} jobs recovered, every flux "
+        f"bitwise phase 21's, member journals disjoint, fleetview --check "
+        f"passed ({time.perf_counter() - t1:.3f} s)")
+
+    t0 = time.perf_counter()
+    router = FleetRouter(box, cfg, fleet_dir=os.path.join(tmpdir, "wedge"),
+                         n_members=FLEET_MEMBERS,
+                         faults=FaultInjector(parse_faults(FLEET_WEDGE)),
+                         **kw)
+    try:
+        for r in reqs:
+            router.submit(r, idempotency_key=f"key-{r.job_id}")
+        victims = [j for j in ids if router.member_of(j) == 1]
+        sup = FleetSupervisor(router, heartbeat_misses=2, grace_ticks=1)
+        sup.run()
+        doc = FleetJournal(router.journal.dir).load()
+        if router.members[1].alive or doc["evicted"] != {
+                "1": {"cause": "wedged"}} or not victims:
+            raise AssertionError(f"[fleet] (b) wedge: {doc['evicted']}")
+        fleet_checks(router, "(b) wedge", ids, want)
+        probes = router.registry.histogram(
+            "pumi_supervisor_probe_seconds").snapshot()["series"][0]["value"]
+        out["wedge"] = dict(s=time.perf_counter() - t0, moved=len(victims),
+                            ticks=probes["count"],
+                            probe_s=probes["sum"] / probes["count"])
+    finally:
+        router.close()
+    log(f"[fleet] (b) {FLEET_WEDGE}: the supervisor evicted member 1 "
+        f"(wedged) after {out['wedge']['ticks']} ticks "
+        f"({out['wedge']['probe_s'] * 1e3:.3f} ms a tick), its "
+        f"{len(victims)} jobs drained onto member 0, every flux bitwise "
+        f"phase 21's ({out['wedge']['s']:.3f} s)")
+    return out
+
+
+def phase_fleet(mesh, bits: dict, tmpdir: str) -> dict:
+    """Phase 22: (a) the fleet at full width, (b) its failure paths."""
+    t0 = time.perf_counter()
+    full = fleet_full_width(mesh, bits["full"], tmpdir)
+    t1 = time.perf_counter()
+    fail = fleet_failures(bits["small"], tmpdir)
+    log(f"[fleet] (a) {t1 - t0:.2f} s, (b) {time.perf_counter() - t1:.2f} s; "
+        f"card {card_line()}")
+    return dict(full=full, fail=fail)
 
 
 def _probe_entry(p: dict, launches) -> dict:
@@ -5513,7 +5888,7 @@ def main() -> int:
 
 def _phases(card: str, name: str, t_start: float,
             servers: ServerProcesses, serve_dir: str) -> int:
-    """The build, phases 3-21 and the closing lines."""
+    """The build, phases 3-22 and the closing lines."""
     from pumiumtally_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -5634,6 +6009,12 @@ def _phases(card: str, name: str, t_start: float,
     log(f"[phase] serving: {time.perf_counter() - t0:.2f} s")
     served = serve["full"]["launches"]
 
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        fleet = phase_fleet(tally.mesh, serve.pop("bits"), tmpdir)
+    log(f"[phase] serving fleet: {time.perf_counter() - t0:.2f} s")
+    fleeted = fleet["full"]["launches"]
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -5676,6 +6057,8 @@ def _phases(card: str, name: str, t_start: float,
          "resil_relaunches": resil["launches"]["walk_relaunches"],
          "serving_launches": served["walk"],
          "serving_relaunches": served["walk_relaunches"],
+         "fleet_launches": fleeted["walk"],
+         "fleet_relaunches": fleeted["walk_relaunches"],
          "integrity_vector_ms": resil["a"]["vec_ms"],
          "integrity_vector_bound_ms": resil["a"]["bound_ms"]},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
@@ -5711,6 +6094,7 @@ def _phases(card: str, name: str, t_start: float,
              runstats_bucket_launches=stats["launches"]["scatter_bucket"],
              resil_bucket_launches=resil["launches"]["scatter_bucket"],
              serving_bucket_launches=served["scatter_bucket"],
+             fleet_bucket_launches=fleeted["scatter_bucket"],
              pmega_launches=pcount["scatter_ordered"]),
         {"name": "walk_cuda.lane_records", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -5725,7 +6109,8 @@ def _phases(card: str, name: str, t_start: float,
          "library": "torch.argsort", "kernels": sched["move 1"]["kernels"],
          "initial_search": sched["initial search"],
          "resil_launches": resil["launches"]["schedule"],
-         "serving_launches": served["schedule"]},
+         "serving_launches": served["schedule"],
+         "fleet_launches": fleeted["schedule"]},
         {"name": "source_cuda.sample_flight", "route": "cuda",
          "source": "pumiumtally_tpu_torch/csrc/source.cu",
          "replaces": "pumiumtally_tpu/ops/source.py:179 (XLA)",
@@ -5741,6 +6126,7 @@ def _phases(card: str, name: str, t_start: float,
              r["moves_per_s"] for r in mega["transport"]["megastep"]],
          "resil_launches": resil["launches"]["source"],
          "serving_launches": served["source"],
+         "fleet_launches": fleeted["source"],
          "stacked_launches": pcount["source"],
          "stacked_max_abs_err": pmega["stacked"]["max_abs_err"],
          "stacked_ms": pmega["stacked"]["ms"],

@@ -12,6 +12,9 @@ Counterpart of ``pumiumtally_tpu/obs``:
   * ``aggregate`` / ``slo`` / ``profile`` — registry aggregation,
     multi-window burn-rate SLOs, utilization gauges and
     capture-on-anomaly profiling (``PUMI_TPU_PROFILE=anomaly``);
+  * ``fleetview`` — a serving fleet's picture rendered or checked from
+    its directory or a live router (``python -m
+    pumiumtally_tpu_torch.obs.fleetview [--check]``);
   * ``exporter`` — ``/metrics``, ``/healthz``, ``/buildz`` and the
     owner's endpoints over HTTP (``PUMI_TPU_PROM_PORT=<port>``; 0 picks
     an ephemeral one).
@@ -37,7 +40,13 @@ from .convergence import (
 from .exporter import MetricsExporter, maybe_start_exporter
 from .profile import FleetProfiler, profile_mode
 from .recorder import FLIGHT_SCHEMA, FlightRecorder
-from .registry import Counter, Gauge, Histogram, MetricsRegistry
+from .registry import (
+    Counter,
+    Gauge,
+    Histogram,
+    MetricsRegistry,
+    default_registry,
+)
 from .slo import SLO, SLOEvaluator, default_slos
 from .telemetry import TallyTelemetry
 from .trace import (
@@ -51,6 +60,7 @@ from .trace import (
     trace_enabled,
 )
 from .walk_stats import (
+    IDX,
     WALK_STATS_FIELDS,
     WALK_STATS_LEN,
     reduce_chip_stats,
@@ -62,6 +72,7 @@ __all__ = [
     "Gauge",
     "Histogram",
     "MetricsRegistry",
+    "default_registry",
     "FlightRecorder",
     "FLIGHT_SCHEMA",
     "SpanTracer",
@@ -84,6 +95,7 @@ __all__ = [
     "default_slos",
     "FleetProfiler",
     "profile_mode",
+    "IDX",
     "WALK_STATS_FIELDS",
     "WALK_STATS_LEN",
     "stats_to_dict",

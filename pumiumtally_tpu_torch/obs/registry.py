@@ -228,3 +228,13 @@ class MetricsRegistry:
                         f"{name}{_fmt_labels(labels)} {entry['value']}"
                     )
         return "\n".join(lines) + ("\n" if lines else "")
+
+
+# Process-default registry for callers that want one shared aggregation
+# point; the facades default to a private registry per tally instance so
+# concurrent tallies (and tests) do not interleave counts.
+_DEFAULT = MetricsRegistry()
+
+
+def default_registry() -> MetricsRegistry:
+    return _DEFAULT

@@ -30,6 +30,7 @@ WALK_STATS_FIELDS = (
 )
 
 WALK_STATS_LEN = len(WALK_STATS_FIELDS)
+IDX = {name: i for i, name in enumerate(WALK_STATS_FIELDS)}
 
 
 def stats_to_dict(vec) -> dict:

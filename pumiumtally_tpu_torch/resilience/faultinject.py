@@ -1,11 +1,11 @@
 """Fault-injection harness: prove each failure mode recovers.
 
-Own copy of ``pumiumtally_tpu/resilience/faultinject.py`` (the seeded
-multi-fault ``ChaosPlan``/``ChaosInjector`` of the chaos campaigns are
-ROADMAP.md A11). A resilience subsystem that is only exercised by real
-preemptions is untested code on the critical path. This module injects
-the failure modes the ``ResilientRunner`` claims to survive,
-deterministically, from one env knob::
+Own copy of ``pumiumtally_tpu/resilience/faultinject.py``, the seeded
+multi-fault ``ChaosPlan``/``chaos_plan``/``ChaosInjector`` included. A
+resilience subsystem that is only exercised by real preemptions is
+untested code on the critical path. This module injects the failure
+modes the ``ResilientRunner`` claims to survive, deterministically, from
+one env knob::
 
     PUMI_TPU_FAULTS=nan_src:0.01,die_at_move:3,corrupt_ckpt
 
@@ -592,3 +592,209 @@ class FaultInjector:
         else:
             self._flip_bytes(path)
         return True
+
+
+# --------------------------------------------------------------------- #
+# Chaos campaigns: a randomized-but-seeded multi-fault schedule
+# --------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ChaosPlan:
+    """A concrete multi-fault schedule drawn deterministically from a
+    seed (``chaos_plan``): the unit of a chaos campaign, equal field for
+    field to the JAX package's plan for the same spec."""
+
+    transient_moves: tuple = ()
+    chip_down_move: int | None = None
+    chip: int = -1
+    preempt_move: int | None = None
+    torn_generation: int | None = None
+    poison_job: int | None = None
+    transient_quantum: int | None = None
+    kill_server_at_quantum: int | None = None
+    wedge_member: int | None = None
+    slow_member: int | None = None
+    slow_factor: float = 1.0
+    disk_full_at: int | None = None
+    seed: int = 0
+
+    def describe(self) -> str:
+        bits = [f"seed:{self.seed}"]
+        if self.transient_moves:
+            bits.append(
+                "transients@" + ",".join(map(str, self.transient_moves))
+            )
+        if self.chip_down_move is not None:
+            bits.append(f"chip_down@{self.chip_down_move}(chip {self.chip})")
+        if self.preempt_move is not None:
+            bits.append(f"preempt@{self.preempt_move}")
+        if self.torn_generation is not None:
+            bits.append(f"torn_shard@gen{self.torn_generation}")
+        if self.poison_job is not None:
+            bits.append(f"poison_job@{self.poison_job}")
+        if self.transient_quantum is not None:
+            bits.append(f"transient_quantum@job{self.transient_quantum}")
+        if self.kill_server_at_quantum is not None:
+            bits.append(f"kill_server@q{self.kill_server_at_quantum}")
+        if self.wedge_member is not None:
+            bits.append(f"wedge_member@{self.wedge_member}")
+        if self.slow_member is not None:
+            bits.append(
+                f"slow_member@{self.slow_member}x{self.slow_factor:g}"
+            )
+        if self.disk_full_at is not None:
+            bits.append(f"disk_full@write{self.disk_full_at}")
+        return " ".join(bits)
+
+
+def chaos_plan(spec: str, n_moves: int) -> ChaosPlan:
+    """Draw a concrete schedule from a chaos spec. Grammar
+    (comma-separated ``name[:value]``):
+
+      ``transients:N``  N transient device errors at distinct random
+                        moves;
+      ``chip_down:1``   one chip loss at a random move (value 0 = off);
+      ``chip:C``        which chip it kills (default -1 = last);
+      ``preempt:1``     one mid-move preemption at a random move AFTER
+                        every other fault (so recovery is exercised
+                        before the eviction);
+      ``torn:G``        tear the G-th checkpoint generation written;
+      ``poison_job:K``  job index K is poison (serving campaigns);
+      ``transient_quantum:K``  one transient on job K's next quantum;
+      ``kill_server:Q`` the server dies before its Q-th quantum;
+      ``wedge_member:M``  fleet member M silently wedges;
+      ``slow_member:M:F`` fleet member M runs F× slower (default 4×);
+      ``disk_full:N``   member-local disk fills at durable write N;
+      ``seed:S``        the schedule seed (default 0).
+
+    Same spec + seed + n_moves → the same schedule, so a chaos soak
+    failure reproduces exactly."""
+    counts = {"transients": 0, "chip_down": 0, "preempt": 0}
+    chip, torn, seed = -1, None, 0
+    poison_job = transient_quantum = kill_server = None
+    wedge_member = slow_member = disk_full = None
+    slow_factor = 1.0
+    for clause in filter(None, (c.strip() for c in spec.split(","))):
+        name, _, value = clause.partition(":")
+        if name in counts:
+            counts[name] = int(value or "1")
+        elif name == "chip":
+            chip = int(value)
+        elif name == "torn":
+            torn = int(value)
+        elif name == "poison_job":
+            poison_job = int(value)
+        elif name == "transient_quantum":
+            transient_quantum = int(value)
+        elif name == "kill_server":
+            kill_server = int(value)
+        elif name == "wedge_member":
+            wedge_member = int(value)
+        elif name == "slow_member":
+            member, _, factor = value.partition(":")
+            slow_member = int(member)
+            slow_factor = float(factor) if factor else 4.0
+        elif name == "disk_full":
+            disk_full = int(value)
+        elif name == "seed":
+            seed = int(value)
+        else:
+            raise ValueError(
+                f"unknown chaos clause {name!r} (known: transients, "
+                "chip_down, chip, preempt, torn, poison_job, "
+                "transient_quantum, kill_server, wedge_member, "
+                "slow_member, disk_full, seed)"
+            )
+    rng = np.random.default_rng([987654321, seed])
+    # Faults land in [2, n_moves-1]: move 1 establishes a good state
+    # first and the final move proves post-recovery steady state.
+    lo, hi = 2, max(2, int(n_moves) - 1)
+    candidates = np.arange(lo, hi + 1)
+    n_t = min(counts["transients"], candidates.size)
+    transients = tuple(
+        sorted(
+            int(m)
+            for m in rng.choice(candidates, size=n_t, replace=False)
+        )
+    )
+    chip_down = (
+        int(rng.choice(candidates)) if counts["chip_down"] else None
+    )
+    preempt = None
+    if counts["preempt"]:
+        floor = max([lo, *transients, chip_down or lo])
+        preempt = int(rng.integers(floor, hi + 1))
+    return ChaosPlan(
+        transient_moves=transients,
+        chip_down_move=chip_down,
+        chip=chip,
+        preempt_move=preempt,
+        torn_generation=torn,
+        poison_job=poison_job,
+        transient_quantum=transient_quantum,
+        kill_server_at_quantum=kill_server,
+        wedge_member=wedge_member,
+        slow_member=slow_member,
+        slow_factor=slow_factor,
+        disk_full_at=disk_full,
+        seed=seed,
+    )
+
+
+class ChaosInjector(FaultInjector):
+    """A FaultInjector driven by a ChaosPlan schedule: transients can
+    fire at SEVERAL moves (fault storms), a chip loss and a preemption
+    can ride the same run (fault-during-recovery compositions), and a
+    generation tear composes with all of them. Each scheduled fault
+    fires once. The serving-side faults (poison job / transient
+    quantum / server kill) ride the inherited FaultPlan hooks, so one
+    chaos schedule can compose per-move and per-job failures."""
+
+    def __init__(self, plan: ChaosPlan):
+        super().__init__(FaultPlan(
+            torn_shard=plan.torn_generation,
+            poison_job=plan.poison_job,
+            transient_quantum=plan.transient_quantum,
+            kill_server_at_quantum=plan.kill_server_at_quantum,
+            wedge_member=plan.wedge_member,
+            slow_member=plan.slow_member,
+            slow_factor=plan.slow_factor,
+            disk_full_at=plan.disk_full_at,
+        ))
+        self.chaos = plan
+        self._fired_transients: set[int] = set()
+
+    def maybe_transient(self, move: int) -> None:
+        if (
+            move in self.chaos.transient_moves
+            and move not in self._fired_transients
+        ):
+            self._fired_transients.add(move)
+            raise InjectedTransientFault(
+                f"chaos transient at move {move} "
+                f"({self.chaos.describe()})"
+            )
+
+    def maybe_chip_down(self, move: int) -> None:
+        if (
+            self.chaos.chip_down_move is not None
+            and move == self.chaos.chip_down_move
+            and self.chaos.chip not in self.downed
+        ):
+            self.downed.add(self.chaos.chip)
+            raise ChipLostError(
+                f"chaos chip loss at move {move} "
+                f"({self.chaos.describe()})",
+                chip=self.chaos.chip,
+            )
+
+    def maybe_preempt(self, move: int) -> None:
+        if (
+            self.chaos.preempt_move is not None
+            and move == self.chaos.preempt_move
+            and not self._preempt_fired
+        ):
+            self._preempt_fired = True
+            raise InjectedPreemption(
+                f"chaos preemption at move {move} "
+                f"({self.chaos.describe()})"
+            )

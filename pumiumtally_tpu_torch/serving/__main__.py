@@ -1,6 +1,7 @@
-"""Serve a synthetic many-job workload through one ``TallyScheduler``.
+"""Serve a synthetic many-job workload through one ``TallyScheduler``, or
+through a ``FleetRouter`` of N members behind the HTTP gateway.
 
-The port's counterpart of ``scripts/serve.py`` without ``--fleet``::
+The port's counterpart of ``scripts/serve.py``::
 
   python -m pumiumtally_tpu_torch.serving --demo 3               # temp bank
   python -m pumiumtally_tpu_torch.serving --demo 3 --bank BANK/  # run it
@@ -10,6 +11,10 @@ The port's counterpart of ``scripts/serve.py`` without ``--fleet``::
   python -m pumiumtally_tpu_torch.serving --demo 3 --journal J/
   python -m pumiumtally_tpu_torch.serving --demo 3 --journal J/ --resume
   python -m pumiumtally_tpu_torch.serving --device cpu --demo 4
+  python -m pumiumtally_tpu_torch.serving --demo 3 --fleet 2 --port 0 \
+      --journal F/      # N member schedulers behind the gateway, the
+                        # FLEET.json routing journal in F/ (--resume
+                        # recovers the whole fleet and re-POSTs the jobs)
 
 On the card (the default) it serves the main cell: the 55^3 box
 (998,250 tets), 8 groups, float32, jobs of 1,048,576, 786,432 (padded to
@@ -22,6 +27,12 @@ bank's counters, a row a job, each job's flux sha256 (``flux_sha256``) and
 the seconds from the start of ``main`` (mesh build and bank included) to
 the first quantum (``first_quantum_s``). One summary line follows: the
 last stdout line is always one JSON object.
+
+With ``--fleet N`` every member runs on ``--device`` (one card holds
+them all), each job is POSTed to the gateway on ``--port`` with the
+idempotency key ``key-<job id>``, and the summary line adds the members,
+the alive ones, the placements and the migrations; without ``--journal``
+the fleet directory is a temporary one.
 
 Exit codes: 0 every job completed or converged; 3 some jobs poisoned,
 rejected or cancelled (the server stayed healthy); 1 anything else.
@@ -101,10 +112,19 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prom-port", type=int, default=None,
                     help="serve live Prometheus /metrics on this port")
+    ap.add_argument("--fleet", type=int, default=None, metavar="N",
+                    help="serve through a FleetRouter with N member "
+                         "schedulers behind the HTTP gateway (--journal "
+                         "names the fleet directory)")
+    ap.add_argument("--port", type=int, default=0, metavar="P",
+                    help="gateway port with --fleet (default 0: "
+                         "ephemeral)")
     ap.add_argument("--out", default=None, help="also write JSON here")
     args = ap.parse_args(argv)
     if args.resume and not args.journal:
         ap.error("--resume needs --journal DIR")
+    if args.fleet is not None and args.fleet < 1:
+        ap.error("--fleet needs at least one member")
     cells, groups, dtype, classes = DEFAULTS[args.device]
     args.cells = args.cells or cells
     args.groups = args.groups or groups
@@ -122,7 +142,7 @@ def main(argv=None) -> int:
     import torch
 
     from .. import TallyConfig, build_box
-    from .saturate import run_saturation
+    from .saturate import run_fleet_saturation, run_saturation
 
     dtype = getattr(torch, args.dtype)
     mesh = build_box(1.0, 1.0, 1.0, args.cells, args.cells, args.cells,
@@ -141,28 +161,47 @@ def main(argv=None) -> int:
         bank = args.bank
     else:
         tmp_bank = bank = tempfile.mkdtemp(prefix="pumi_bank_")
-    ck_dir = None
-    if args.preempt_after is not None and args.journal is None:
+    ck_dir = tmp_fleet = None
+    if (args.preempt_after is not None and args.journal is None
+            and args.fleet is None):
         tmp_ck = ck_dir = tempfile.mkdtemp(prefix="pumi_serve_ck_")
+    if args.fleet is not None and args.journal is None:
+        tmp_fleet = tempfile.mkdtemp(prefix="pumi_fleet_")
+    classes = tuple(int(x) for x in args.classes.split(","))
     try:
         t_call = time.perf_counter()
-        out = run_saturation(
-            mesh, cfg, bank=bank, n_jobs=args.demo,
-            class_sizes=tuple(int(x) for x in args.classes.split(",")),
-            n_moves=args.moves, seed=args.seed,
-            max_resident=args.max_resident,
-            quantum_moves=args.quantum,
-            preempt_after=args.preempt_after,
-            checkpoint_dir=ck_dir,
-            max_queued=args.max_queued,
-            job_retries=args.retries,
-            quantum_deadline_s=args.deadline,
-            journal_dir=args.journal,
-            resume=args.resume,
-            device=args.device,
-        )
+        if args.fleet is not None:
+            out = run_fleet_saturation(
+                mesh, cfg, bank=bank, n_jobs=args.demo,
+                fleet_dir=args.journal or tmp_fleet,
+                n_members=args.fleet, port=args.port,
+                class_sizes=classes, n_moves=args.moves, seed=args.seed,
+                resume=args.resume,
+                max_resident=args.max_resident,
+                quantum_moves=args.quantum,
+                preempt_after=args.preempt_after,
+                max_queued=args.max_queued,
+                job_retries=args.retries,
+                quantum_deadline_s=args.deadline,
+                device=args.device,
+            )
+        else:
+            out = run_saturation(
+                mesh, cfg, bank=bank, n_jobs=args.demo,
+                class_sizes=classes, n_moves=args.moves, seed=args.seed,
+                max_resident=args.max_resident,
+                quantum_moves=args.quantum,
+                preempt_after=args.preempt_after,
+                checkpoint_dir=ck_dir,
+                max_queued=args.max_queued,
+                job_retries=args.retries,
+                quantum_deadline_s=args.deadline,
+                journal_dir=args.journal,
+                resume=args.resume,
+                device=args.device,
+            )
     finally:
-        for d in (tmp_bank, tmp_ck):
+        for d in (tmp_bank, tmp_ck, tmp_fleet):
             if d is not None:
                 shutil.rmtree(d, ignore_errors=True)
     # The raw flux arrays are not JSON material: their digests are.
@@ -171,7 +210,7 @@ def main(argv=None) -> int:
         for jid, flux in sorted(out.pop("results").items())
     }
     firsts = [r["first_quantum_s"] for r in out["per_job"]
-              if r["first_quantum_s"] is not None]
+              if r.get("first_quantum_s") is not None]
     out["first_quantum_s"] = (
         round(t_call - t_main + min(firsts), 4)
         if firsts else None)
@@ -193,15 +232,19 @@ def main(argv=None) -> int:
         rc = 3
     else:
         rc = 1
-    sched = out["scheduler"]
-    print(json.dumps({"summary": {
+    sched = out["fleet"] if args.fleet is not None else out["scheduler"]
+    summary = {
         "outcomes": outcomes,
         "jobs": len(out["per_job"]),
         "recovered": sched.get("recovered", 0),
         "retries": sched.get("retries", 0),
         "aot": sched.get("aot"),
         "exit": rc,
-    }}, sort_keys=True))
+    }
+    if args.fleet is not None:
+        for key in ("members", "alive", "placements", "migrations"):
+            summary[key] = sched[key]
+    print(json.dumps({"summary": summary}, sort_keys=True))
     return rc
 
 

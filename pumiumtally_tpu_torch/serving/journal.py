@@ -45,6 +45,14 @@ Requests round-trip exactly: json writes floats by ``repr`` (shortest
 round trip), so float64 origins and weights come back bit for bit, and
 ``SourceParams.tables()`` turns the string keys json gives the region
 dicts back into integer classes.
+
+A request's text is made once and kept (``RequestTexts``, on the
+``RequestJSON`` that ``request_to_json`` returns): the document is
+rewritten at every transition, and a 1,048,576-particle request is ~80
+MB of indented JSON, 6-7 s of ``json.dumps`` on one host core. The
+document's bytes are those of ``json.dumps(doc, indent=1,
+sort_keys=True)`` all the same (its number lists are rendered from their
+``repr``, which is json's float and int text).
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ import re
 
 import numpy as np
 
-from ..utils.checkpoint import atomic_write_bytes, atomic_write_json
+from ..utils.checkpoint import atomic_write_bytes
 from ..utils.log import log_warn
 
 #: The errnos that mean "the disk is full", not "the write is wrong":
@@ -101,7 +109,7 @@ def request_to_json(request) -> dict:
             f"{type(src).__name__} (a custom source object cannot be "
             "reconstructed by a fresh recovery process)"
         )
-    return {
+    return RequestJSON({
         "origins": origins.tolist(),
         "n_moves": int(request.n_moves),
         "weights": (
@@ -119,7 +127,7 @@ def request_to_json(request) -> dict:
         ),
         "job_id": request.job_id,
         "trace_id": getattr(request, "trace_id", None),
-    }
+    })
 
 
 def request_from_json(d: dict):
@@ -142,6 +150,122 @@ def request_from_json(d: dict):
         job_id=d.get("job_id"),
         trace_id=d.get("trace_id"),
     )
+
+
+# --------------------------------------------------------------------- #
+# Request texts
+# --------------------------------------------------------------------- #
+#: A json string that stands for a request in a document until its kept
+#: text replaces it (the NUL cannot occur in a journal-safe id).
+_TOKEN = "\x00request:"
+_TOKEN_TEXT = re.compile(r'"\\u0000request:([^"]*)"')
+#: The characters of a list of finite numbers' repr, which is then its
+#: json text too (json writes NaN and Infinity, repr nan and inf).
+_NUMBER_CHARS = b"0123456789.-+e, []"
+
+
+def _number_list_text(value: list, level: int) -> str | None:
+    """``json.dumps(value, indent=1)`` of a list of finite numbers, or of
+    a list of such lists, whose bracket opens at indent ``level``; None
+    for any other value (the caller then lets json render it)."""
+    s = repr(value)
+    if len(s) < 3 or "[]" in s or s.startswith("[[[") or \
+            s.encode().translate(None, _NUMBER_CHARS):
+        return None
+    sp = " " * (level + 1)
+    if not s.startswith("[["):
+        if s.count("[") != 1:
+            return None
+        return ("[\n" + sp + s[1:-1].replace(", ", ",\n" + sp)
+                + "\n" + " " * level + "]")
+    rows = s.count("], [")
+    if s.count("],") != rows or s.count(", [") != rows or \
+            s.count("[") != rows + 2:
+        return None
+    sp2 = " " * (level + 2)
+    inner = (s[2:-2].replace("], [", "\x01")
+             .replace(", ", ",\n" + sp2)
+             .replace("\x01", "\n" + sp + "],\n" + sp + "[\n" + sp2))
+    return ("[\n" + sp + "[\n" + sp2 + inner + "\n" + sp + "]\n"
+            + " " * level + "]")
+
+
+def request_text(req: dict) -> str:
+    """``json.dumps(req, indent=1, sort_keys=True)``: its number lists
+    (origins, weights, groups) rendered from their ``repr``, the rest by
+    json."""
+    stub, lists = {}, {}
+    for k, v in req.items():
+        text = _number_list_text(v, 1) if type(v) is list else None
+        if text is None:
+            stub[k] = v
+        else:
+            stub[k] = _TOKEN + k
+            lists[json.dumps(_TOKEN + k)] = text
+    out = json.dumps(stub, indent=1, sort_keys=True)
+    if not lists:
+        return out
+    parts = re.split("(" + "|".join(map(re.escape, lists)) + ")", out)
+    return "".join(lists.get(p, p) for p in parts)
+
+
+class RequestJSON(dict):
+    """A request's journal form (``request_to_json``), which keeps the
+    texts the journals make of it: FLEET.json, the member that runs the
+    job and a member that adopts it hold this one object, so each text
+    is made once a process."""
+
+    __slots__ = ("texts",)
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.texts: dict[int, str] = {}
+
+
+class RequestTexts:
+    """A journal's request texts, made once while the request object
+    stays the same (a job's request dict is never changed in place), so
+    that a document's rewrite costs its small fields only. A
+    ``RequestJSON`` keeps its own texts; a plain dict (one read back from
+    a journal) has them kept here while this journal holds it."""
+
+    def __init__(self):
+        self._kept: dict[str, tuple[dict, dict]] = {}
+
+    def _texts(self, key: str, req: dict) -> dict:
+        if isinstance(req, RequestJSON):
+            return req.texts
+        kept = self._kept.get(key)
+        if kept is None or kept[0] is not req:
+            kept = self._kept[key] = (req, {})
+        return kept[1]
+
+    def dumps(self, doc: dict, requests: dict) -> str:
+        """The text of ``json.dumps(doc, indent=1, sort_keys=True)`` with
+        each ``token(key)`` in ``doc`` replaced by ``requests[key]``,
+        indented where the token stands."""
+        out = json.dumps(doc, indent=1, sort_keys=True)
+        for key in set(self._kept) - set(requests):
+            del self._kept[key]
+        pieces, pos = [], 0
+        for m in _TOKEN_TEXT.finditer(out):
+            key = m.group(1)
+            line = out.rfind("\n", 0, m.start()) + 1
+            head = out[line:m.start()]
+            level = len(head) - len(head.lstrip(" "))
+            texts = self._texts(key, requests[key])
+            if level not in texts:
+                if 0 not in texts:
+                    texts[0] = request_text(requests[key])
+                texts[level] = texts[0].replace("\n", "\n" + " " * level)
+            pieces += [out[pos:m.start()], texts[level]]
+            pos = m.end()
+        pieces.append(out[pos:])
+        return "".join(pieces)
+
+    @staticmethod
+    def token(key: str) -> str:
+        return _TOKEN + key
 
 
 # --------------------------------------------------------------------- #
@@ -169,6 +293,7 @@ class SchedulerJournal:
         #: transition into degraded mode (the scheduler hangs metrics
         #: and flight-recorder notes off it).
         self.on_degraded = None
+        self._texts = RequestTexts()
 
     def note_disk_failure(self, op: str, exc: OSError) -> None:
         """Record an ENOSPC-class failure of durable write ``op`` and
@@ -252,11 +377,16 @@ class SchedulerJournal:
         doc = {
             "schema": JOURNAL_SCHEMA,
             "quantum_moves": int(quantum_moves),
-            "jobs": {e["id"]: e for e in entries},
+            "jobs": {
+                e["id"]: dict(e, request=RequestTexts.token(e["id"]))
+                for e in entries
+            },
         }
+        text = self._texts.dumps(
+            doc, {e["id"]: e["request"] for e in entries})
         try:
             self._gate_durable()
-            atomic_write_json(self.path, doc)
+            atomic_write_bytes(self.path, (text + "\n").encode())
         except OSError as exc:
             if exc.errno not in DISK_FULL_ERRNOS:
                 raise

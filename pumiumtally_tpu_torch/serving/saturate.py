@@ -1,10 +1,11 @@
 """The synthetic many-job workload and its drain.
 
-Counterpart of ``pumiumtally_tpu/serving/saturate.py`` (its single-server
-part): N jobs spread in turn over a ladder of request sizes (each a
-shape class of its own after padding), every job with its own source
-seed, drained by one ``TallyScheduler``. ``python -m
-pumiumtally_tpu_torch.serving --demo`` drives it.
+Counterpart of ``pumiumtally_tpu/serving/saturate.py``: N jobs spread in
+turn over a ladder of request sizes (each a shape class of its own after
+padding), every job with its own source seed, drained by one
+``TallyScheduler`` (``run_saturation``) or by a ``FleetRouter`` behind
+the HTTP gateway (``run_fleet_saturation``). ``python -m
+pumiumtally_tpu_torch.serving --demo`` drives them.
 """
 from __future__ import annotations
 
@@ -124,10 +125,11 @@ def run_saturation(
             sched.run()
         except InjectedKill:
             # A modeled server crash: skip close() and its graceful
-            # checkpoint parking — recovery must work from the
-            # write-ahead journal ALONE (the chaos-campaign contract).
-            # abandon() still releases device state and the signal
-            # handlers, which a real dead process would not hold.
+            # checkpoint parking, so that recovery works from the
+            # write-ahead journal alone (as run_fleet_saturation's
+            # router crash below). abandon() still releases device
+            # state and the signal handlers, which a dead process would
+            # not hold.
             crashed = True
             sched.abandon()
             raise
@@ -175,3 +177,130 @@ def run_saturation(
     finally:
         if not crashed:
             sched.close()
+
+
+def run_fleet_saturation(
+    mesh,
+    config=None,
+    *,
+    fleet_dir: str,
+    n_members: int = 2,
+    port: int = 0,
+    bank=None,
+    n_jobs: int = 8,
+    class_sizes: tuple = (96, 192),
+    n_moves: int = 8,
+    seed: int = 0,
+    resume: bool = False,
+    faults=None,
+    absorb_member_kills: bool = False,
+    via_http: bool = True,
+    device=None,
+    **member_kwargs,
+) -> dict:
+    """The fleet's twin of ``run_saturation``: the same workload, each
+    job POSTed to a ``TallyGateway`` (with an idempotency key) in front
+    of a ``FleetRouter`` of ``n_members`` schedulers on ``device``, then
+    drained.
+
+    Every submission carries ``idempotency_key="key-<job_id>"``, so
+    ``resume=True`` (the restart of a crashed router) re-POSTs the whole
+    workload and FLEET.json's key map dedups every job the previous
+    process accepted. ``via_http=False`` calls ``router.submit``
+    directly. An ``InjectedKill`` that no member absorbs crashes the
+    router: it is abandoned (no journal write) and the kill propagates."""
+    import json as _json
+    import os
+    import urllib.request
+
+    from .fleet import FLEET_FILE, FleetRouter
+    from .gateway import TallyGateway
+    from .journal import request_to_json
+
+    kwargs = dict(
+        bank=bank,
+        faults=faults,
+        absorb_member_kills=absorb_member_kills,
+        device=device,
+        **member_kwargs,
+    )
+    if resume and os.path.exists(os.path.join(fleet_dir, FLEET_FILE)):
+        router = FleetRouter.recover(fleet_dir, mesh, config, **kwargs)
+    else:
+        router = FleetRouter(
+            mesh, config, fleet_dir=fleet_dir, n_members=n_members,
+            **kwargs,
+        )
+    gateway = TallyGateway(router, port=port) if via_http else None
+    crashed = False
+    try:
+        requests = synthetic_requests(
+            mesh, n_jobs, class_sizes=class_sizes, n_moves=n_moves,
+            seed=seed,
+        )
+        ids = []
+        for r in requests:
+            key = f"key-{r.job_id}"
+            if gateway is not None:
+                body = _json.dumps(
+                    dict(request_to_json(r), idempotency_key=key)
+                ).encode()
+                with urllib.request.urlopen(
+                    urllib.request.Request(
+                        f"{gateway.url}/submit", data=body,
+                        method="POST",
+                        headers={"Content-Type": "application/json"},
+                    ),
+                    timeout=30,
+                ) as resp:
+                    ids.append(_json.loads(resp.read())["job"])
+            else:
+                ids.append(router.submit(r, idempotency_key=key))
+        t0 = time.perf_counter()
+        try:
+            router.run()
+        except InjectedKill:
+            # A modeled router crash (no member absorbed it): recovery
+            # works from FLEET.json and the member journals alone.
+            crashed = True
+            router.abandon()
+            raise
+        elapsed = time.perf_counter() - t0
+        stats = router.stats()
+        per_job = [
+            {
+                "job": j.id,
+                "shape_key": j.shape_key,
+                "outcome": j.outcome,
+                "member": router.member_of(j.id),
+                "moves": j.moves_done,
+                "preemptions": j.preemptions,
+                "retries": j.retries,
+                "device_seconds": round(j.device_seconds, 4),
+                "trace_id": j.trace_id,
+                "error": j.error,
+            }
+            for j in (router.job(i) for i in ids)
+        ]
+        return {
+            "n_jobs": n_jobs,
+            "n_members": stats["members"],
+            "class_sizes": list(class_sizes),
+            "n_moves": n_moves,
+            "elapsed_s": round(elapsed, 4),
+            "jobs_per_sec": round(n_jobs / elapsed, 3),
+            "via_http": gateway is not None,
+            "fleet": stats,
+            "per_job": per_job,
+            # Raw flux per job id (bitwise comparisons; JSON writers
+            # drop the arrays first).
+            "results": {
+                i: router.result(i) for i in ids
+                if router.job(i).result is not None
+            },
+        }
+    finally:
+        if gateway is not None:
+            gateway.stop()
+        if not crashed:
+            router.close()

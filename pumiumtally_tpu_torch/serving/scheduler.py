@@ -168,6 +168,9 @@ class Job:
         self.recovery_seconds = 0.0
         self.needs_stage = True    # first quantum stages the lanes
         self.checkpoint: str | None = None
+        #: The move counter the checkpoint file holds, when this process
+        #: wrote it at a quantum boundary (None: not known).
+        self.checkpoint_moves: int | None = None
         self.result: np.ndarray | None = None
         self.flux_name: str | None = None   # journal-relative, if any
         self.request_json: dict | None = None  # serialized-once cache
@@ -533,10 +536,13 @@ class TallyScheduler:
     # ------------------------------------------------------------------ #
     # Submission
     # ------------------------------------------------------------------ #
-    def submit(self, request: JobRequest) -> str:
+    def submit(self, request: JobRequest, *,
+               request_json: dict | None = None) -> str:
         """Enqueue one job; returns its id.  The job is padded onto the
         shape ladder here — its bucket decides which queue it joins
-        and which bank entries will serve it."""
+        and which bank entries will serve it. ``request_json`` is the
+        request's journal form when the caller made it already (a fleet
+        router: both journals then share its text)."""
         origins = np.asarray(request.origins, np.float64).reshape(-1, 3)
         n = origins.shape[0]
         if n < 1:
@@ -569,10 +575,10 @@ class TallyScheduler:
         check_job_id(job_id)
         # Serialize the (immutable) request ONCE; every journal flush
         # reuses the dict instead of re-walking the float64 payload.
-        request_json = (
-            request_to_json(request) if self.journal is not None
-            else None
-        )
+        if self.journal is None:
+            request_json = None
+        elif request_json is None:
+            request_json = request_to_json(request)
         job = Job(
             job_id, request, n, padded_n, shape.key(),
             index=self._n_submitted,
@@ -721,6 +727,7 @@ class TallyScheduler:
             self.journal.note_disk_failure("quantum checkpoint", exc)
             return
         job.checkpoint = path
+        job.checkpoint_moves = job.moves_done
 
     @classmethod
     def recover(cls, journal_dir: str, mesh,
@@ -1564,7 +1571,14 @@ class TallyScheduler:
             if self.journal is not None
             else os.path.join(self.checkpoint_dir, f"{job.id}.ckpt.npz")
         )
-        job.tally.save_checkpoint(path)
+        # A journaled job preempted at the boundary its quantum
+        # checkpoint was written at (a fleet migration) has that state on
+        # disk already: no quantum ran since, so it is not written again.
+        if not (job.checkpoint == path
+                and job.checkpoint_moves == job.moves_done
+                and os.path.exists(path)):
+            job.tally.save_checkpoint(path)
+            job.checkpoint_moves = job.moves_done
         job.tally.close()
         job.tally = None
         job.checkpoint = path

@@ -147,6 +147,57 @@ def test_serving_modules_import_nothing_of_jax(rel):
     test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
 
 
+# The serving fleet (its JAX counterparts import no JAX, but the port
+# keeps its own copies, fleetview's checks included): each imports in a
+# fresh interpreter without pulling JAX in.
+FLEET_MODULES = (
+    "serving/fleet.py", "serving/gateway.py", "serving/supervisor.py",
+    "obs/fleetview.py",
+)
+
+
+@pytest.mark.parametrize("rel", FLEET_MODULES)
+def test_fleet_modules_import_nothing_of_jax(rel):
+    test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
+
+
+def test_fleet_entry_points_default_to_cuda(tmp_path):
+    """``FleetRouter`` and ``run_fleet_saturation`` place their members on
+    the card unless told otherwise, and raise (naming device='cpu')
+    before they write anything when there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    from pumiumtally_tpu_torch import build_box
+    from pumiumtally_tpu_torch.serving import (
+        FleetRouter,
+        run_fleet_saturation,
+    )
+
+    mesh = build_box(1.0, 1.0, 1.0, 2, 2, 2, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetRouter(mesh, fleet_dir=str(tmp_path / "a"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_fleet_saturation(mesh, fleet_dir=str(tmp_path / "b"), n_jobs=1)
+    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+
+
+def test_fleet_cli_raises_without_a_card(tmp_path):
+    """``--fleet`` on the default device raises without a card: no
+    fleet directory, no summary line, a non-zero exit."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    r = subprocess.run(
+        [sys.executable, "-m", "pumiumtally_tpu_torch.serving", "--demo",
+         "1", "--fleet", "2", "--port", "0", "--journal",
+         str(tmp_path / "fleet"), "--bank", str(tmp_path / "bank")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode != 0 and "device='cpu'" in r.stderr
+    assert '"summary"' not in r.stdout
+    assert not (tmp_path / "fleet").exists()
+    assert not (tmp_path / "bank").exists()
+
+
 def test_partitioned_entry_points_default_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the default device is usable")

@@ -1900,3 +1900,42 @@ def test_served_jobs_bitwise_their_facade_runs(cuda, tmp_path):
     assert all(p.startswith(str(tmp_path / "bank"))
                for p in out["loaded"].values())
     assert out["same"] == [True, True]
+
+
+def test_fleet_migration_bitwise_on_card(cuda, tmp_path):
+    """A 2-member fleet on the 20^3 box, one job migrated after its first
+    quantum: every job's flux bitwise the same job served by one
+    ``TallyScheduler`` on the card."""
+    from pumiumtally_tpu_torch import TallyConfig, build_box
+    from pumiumtally_tpu_torch.serving import (
+        FleetRouter,
+        TallyScheduler,
+        synthetic_requests,
+    )
+
+    mesh = build_box(1.0, 1.0, 1.0, 20, 20, 20, device=cuda)
+    cfg = TallyConfig(n_groups=8, tolerance=1e-6)
+    reqs = synthetic_requests(mesh, 2, class_sizes=(65536, 32768),
+                              n_moves=4, seed=0)
+    solo = TallyScheduler(mesh, cfg, max_resident=1, quantum_moves=2,
+                          handle_signals=False, device=cuda)
+    ids = [solo.submit(r) for r in reqs]
+    solo.run()
+    want = {j: solo.result(j).tobytes() for j in ids}
+    solo.close()
+    router = FleetRouter(mesh, cfg, fleet_dir=str(tmp_path / "fleet"),
+                         n_members=2, quantum_moves=2, max_resident=1,
+                         device=cuda)
+    try:
+        for r in reqs:
+            router.submit(r, idempotency_key=f"key-{r.job_id}")
+        router.step()
+        src = router.member_of(ids[0])
+        assert router.migrate(ids[0]) != src
+        router.run()
+        assert router.stats()["migrations"] == 1
+        assert router.stats()["outcomes"] == {"completed": 2}
+        for j in ids:
+            assert router.result(j).tobytes() == want[j], j
+    finally:
+        router.close()

@@ -2,8 +2,8 @@
 runner's ``_recover_chip_loss``, the coordinator's mesh positions) on
 ``device="cpu"``.
 
-Mirrors the chip-down cases of tests/test_elastic.py (:220-457; its
-chaos-plan cases wait for ROADMAP.md A11): a ``chip_down_at_move`` in a
+Mirrors the chip-down and chaos cases of tests/test_elastic.py
+(:220-520): a ``chip_down_at_move`` in a
 partitioned run rolls every part back and re-partitions onto the
 survivors, and the finished run matches a fault-free run at the shrunk
 part count (flux atol 1e-11, elements equal; float64, the JAX test's
@@ -12,9 +12,15 @@ chip named by ``chip:C`` is the one dropped; the megastep path equals a
 deliberate migration at the same boundary bit for bit; a same-layout
 rollback replays bit for bit; ``elastic=False`` and the plain facade
 flush the last good generation and re-raise; the recovery statistics
-accumulate.
+accumulate. The seeded ``chaos_plan`` is deterministic and equal to the
+JAX package's plan for the same spec; a transient on the chip loss's
+move is absorbed by the replay after the reshard; a torn generation and
+a preemption compose, and the resumed run ends bitwise the uninterrupted
+one.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -25,9 +31,13 @@ from pumiumtally_tpu_torch.mesh.box import build_box_arrays
 from pumiumtally_tpu_torch.mesh.core import TetMesh
 from pumiumtally_tpu_torch.ops.source import SourceParams
 from pumiumtally_tpu_torch.resilience.faultinject import (
+    ChaosInjector,
+    ChaosPlan,
     ChipLostError,
     FaultInjector,
     FaultPlan,
+    InjectedPreemption,
+    chaos_plan,
     parse_faults,
 )
 from pumiumtally_tpu_torch.resilience.runner import ResilientRunner
@@ -285,3 +295,85 @@ def test_recovery_stats_surface(mesh, tmp_path):
     assert st2["reshards"] == 1 and st2["rollbacks"] == 1
     assert st2["recovery_seconds"] > 0.0 and st2["lost_moves"] == 0
     assert run2.tally.n_parts == 3 and run2.tally.iter_count == 3
+
+
+# ===================================================================== #
+# Chaos scheduling
+# ===================================================================== #
+def test_chaos_plan_is_seeded_and_deterministic():
+    from pumiumtally_tpu.resilience.faultinject import (
+        chaos_plan as jax_chaos_plan,
+    )
+
+    a = chaos_plan("transients:3,chip_down:1,preempt:1,seed:7", 12)
+    b = chaos_plan("transients:3,chip_down:1,preempt:1,seed:7", 12)
+    assert a == b
+    assert len(a.transient_moves) == 3
+    assert all(2 <= m <= 11 for m in a.transient_moves)
+    assert a.chip_down_move is not None
+    assert a.preempt_move >= max([*a.transient_moves, a.chip_down_move])
+    c = chaos_plan("transients:3,chip_down:1,preempt:1,seed:8", 12)
+    assert c != a
+    with pytest.raises(ValueError, match="unknown chaos clause"):
+        chaos_plan("explode:1", 12)
+    # The JAX package draws the same plan, field for field.
+    for spec, moves in (
+        ("transients:3,chip_down:1,preempt:1,seed:7", 12),
+        ("transients:20,seed:3", 6),
+        ("chip_down:1,chip:2,torn:2,poison_job:1,transient_quantum:0,"
+         "kill_server:4,wedge_member:1,slow_member:0:2.5,disk_full:3,"
+         "preempt:1,seed:11", 9),
+        ("", 1),
+    ):
+        mine = chaos_plan(spec, moves)
+        theirs = jax_chaos_plan(spec, moves)
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert mine.describe() == theirs.describe()
+
+
+def test_chaos_fault_during_recovery_composition(mesh, tmp_path):
+    """A transient on the chip loss's move: the replay after the reshard
+    absorbs it, and the run ends equal to the shrunk layout's."""
+    ref = _reference(mesh, 7, 5)
+    plan = ChaosPlan(transient_moves=(3,), chip_down_move=3)
+    t = _tally(mesh, 8)
+    run = ResilientRunner(
+        t, str(tmp_path / "cks"), every_moves=2,
+        handle_signals=False, sleep=lambda s: None,
+        faults=ChaosInjector(plan),
+    )
+    run.initialize_particle_location(_pos())
+    for i in range(1, 6):
+        run.move_to_next_location(*_inputs(i))
+    assert run.tally.n_parts == 7
+    assert run.recovery_stats["rollbacks"] >= 2  # transient + reshard
+    np.testing.assert_allclose(run.raw_flux, ref.raw_flux, rtol=0,
+                               atol=1e-11)
+
+
+def test_chaos_torn_generation_plus_preempt_resume(mesh, tmp_path):
+    """A torn generation and a preemption: the resume skips the torn
+    generation, restores the older one, and the replayed run ends
+    bitwise the uninterrupted reference."""
+    ref = _reference(mesh, 8, 4)
+    plan = ChaosPlan(preempt_move=4, torn_generation=3)
+    d = str(tmp_path / "cks")
+    t = _tally(mesh, 8)
+    run = ResilientRunner(
+        t, d, every_moves=1, handle_signals=False,
+        sleep=lambda s: None, faults=ChaosInjector(plan),
+    )
+    run.initialize_particle_location(_pos())
+    with pytest.raises(InjectedPreemption):
+        for i in range(1, 5):
+            run.move_to_next_location(*_inputs(i))
+    # Writes: init (0), move 1, move 2 (torn), move 3, the preemption's
+    # flush (3).
+    b = _tally(mesh, 8)
+    run_b = ResilientRunner(b, d, every_moves=1, handle_signals=False)
+    assert run_b.resumed_from == 3
+    for i in range(1, 5):
+        if b.iter_count >= i:
+            continue
+        run_b.move_to_next_location(*_inputs(i))
+    np.testing.assert_array_equal(b.raw_flux, ref.raw_flux)
