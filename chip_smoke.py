@@ -18,8 +18,9 @@ Phases, each of which raises (exit code != 0) on any failed check:
    tally, its flux within rtol 1e-4;
 4. main path: the four-call facade at the headline configuration
    (998,250-tet box, 1,048,576 particles, 8 groups, float32, the default
-   ``io_pipeline="packed"``): construct, locate, 4 moves, write a .vtu.
-   Launch counts are zeroed just before and read just after; the
+   ``io_pipeline="packed"``): construct (the mesh's derived tables and
+   adjacency through the native host runtime, one call each), locate, 4
+   moves, write a .vtu. Launch counts are zeroed just before and read just after; the
    conservation invariant, the boundary write-backs, the .vtu and one
    transfer each way a call are checked. Each walk must run the lane
    schedule's 3 kernels once (a relaunch none) and each move's ordered
@@ -355,6 +356,27 @@ Phases, each of which raises (exit code != 0) on any failed check:
    member, the alive members' journals disjoint and every flux bitwise
    phase 21's; ``obs.fleetview``'s check passes over every fleet
    directory.
+23. the C ABI (``[capi]`` lines): the bridge library, the demo host and
+   the replay host built with g++ (``capi.build_bridge``, the
+   interpreter's sysconfig flags); the native host runtime against the
+   numpy path on the main cell's arrays (998,250 tets: derived tables and
+   adjacency bitwise on this host, each path's seconds in turns); the
+   main cell written as .npz and phase 4's inputs (1,048,576 particles, 8
+   groups, seed 1, moves 1-4) written to files; the replay host (a C
+   program: create, initialize, 4 moves, get_flux, write) on the card
+   once, between two runs of ``PumiTally`` on the same mesh file in this
+   process (in-process, C, in-process): the flux and every move's
+   positions, flying flags and material ids in the C buffers bitwise the
+   in-process run's, each move's host seconds on both sides (the C side's
+   ``clock_gettime``), the in-process mesh loads through the native
+   runtime. The C host's kernel launches happen in its own process and
+   are not counted;
+24. the chaos drivers (``[chaos]`` lines): ``python -m
+   pumiumtally_tpu_torch.chaos.campaign --only corrupt_manifest_chip_down``,
+   ``chaos.serve --only storm`` and ``chaos.fleet --only retry_storm``
+   (its routers over phase 21's warm bank), each with ``--device cuda``,
+   and phase 23's demo host, the four processes together: each exits 0
+   (the demo printing ``OK``).
 
 The peaks of device memory that phases 16 (c), 17 (c) and 19 (b) print
 follow a garbage collection (``settle_memory``): they count what is
@@ -546,24 +568,33 @@ def phase_main_path(tmpdir: str):
     """The four calls at the headline configuration. Returns the tally,
     snapshots of the inputs of the initial search and of the first move
     (for the replay of phase 5), and the kernel launches counted."""
-    from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig, build_box, native
     from pumiumtally_tpu_torch.ops import scatter
 
     cells, n, G = MAIN_CELLS, MAIN_PARTICLES, MAIN_GROUPS
     rng = np.random.default_rng(1)
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    native_before = dict(native.CALLS)
     t0 = time.perf_counter()
     mesh = build_box(1.0, 1.0, 1.0, cells, cells, cells, device=DEVICE)
     tally = PumiTally(mesh, n, TallyConfig(n_groups=G), device=DEVICE)
     torch.cuda.synchronize()
+    native_calls = {k: native.CALLS[k] - native_before[k]
+                    for k in native.CALLS}
     log(f"[main] construct: {time.perf_counter() - t0:.3f} s "
-        f"(ntet={mesh.ntet}, particles={n}, groups={G})")
+        f"(ntet={mesh.ntet}, particles={n}, groups={G}); the native host "
+        f"runtime's calls {native_calls}")
     if mesh.ntet != 6 * cells ** 3:
         raise AssertionError(f"mesh has {mesh.ntet} tets")
+    if (native_calls["derive_geometry"], native_calls["build_tet2tet"]) != (
+            1, 1):
+        raise AssertionError("the main mesh was not built through the "
+                             "native host runtime")
 
     pos = rng.uniform(0.05, 0.95, (n, 3))
-    snaps = {"initial": _snapshot(tally, pos, tally.state.group.cpu().numpy())}
+    snaps = {"initial": _snapshot(tally, pos, tally.state.group.cpu().numpy()),
+             "run": {"pos": pos.copy(), "moves": []}}
     t0 = time.perf_counter()
     tally.initialize_particle_location(pos.reshape(-1))
     torch.cuda.synchronize()
@@ -585,6 +616,9 @@ def phase_main_path(tmpdir: str):
         weights = np.ones(n)
         groups = rng.integers(0, G, n).astype(np.int32)
         mats = np.zeros(n, np.int32)
+        snaps["run"]["moves"].append(
+            (want.copy(), flying.copy(), weights.copy(), groups.copy(),
+             mats.copy()))
         if move == 1:
             snaps["move"] = _snapshot(tally, want, groups)
         paths = (scatter.BUCKET_LAUNCHES, scatter.CROWDED_LAUNCHES)
@@ -5837,6 +5871,267 @@ def phase_fleet(mesh, bits: dict, tmpdir: str) -> dict:
     return dict(full=full, fail=fail)
 
 
+# In-process runs around one C host process: a C host spends ~12 s of its
+# own before its first call returns (the interpreter, torch, the card).
+CAPI_TURNS = ("python", "c", "python")
+CAPI_TIMEOUT_S = 600
+
+
+def capi_mesh_turns(coords, tets) -> dict:
+    """The native host runtime against the numpy path on the main cell's
+    arrays: their derived tables and adjacency bitwise (on this host), and
+    each path's seconds in turns (native, numpy, numpy, native)."""
+    from unittest import mock
+
+    from pumiumtally_tpu_torch import native
+    from pumiumtally_tpu_torch.mesh import core
+
+    def tables(use_native: bool):
+        t0 = time.perf_counter()
+        if use_native:
+            t2v, vol, nrm, d = native.derive_geometry(coords, tets.copy())
+        else:
+            t2v = core._canonicalize_orientation(coords, tets.copy())
+            vol = core._tet_volumes(coords, t2v)
+            nrm, d = core._face_planes(coords, t2v)
+        t1 = time.perf_counter()
+        if use_native:
+            t2t = core.build_tet2tet(t2v)
+        else:
+            with mock.patch.object(native, "load", return_value=None):
+                t2t = core.build_tet2tet(t2v)
+        t2 = time.perf_counter()
+        return (t2v, vol, nrm, d, t2t), (t1 - t0, t2 - t1)
+
+    secs = {True: [], False: []}
+    out = {}
+    for use_native in (True, False, False, True):
+        out[use_native], s = tables(use_native)
+        secs[use_native].append(s)
+    for a, b, label in zip(out[True], out[False],
+                           ("tet2vert", "volumes", "normals", "face_d",
+                            "tet2tet")):
+        if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+            raise AssertionError(f"[capi] native {label} differs from the "
+                                 "numpy path's on this host")
+    return {"native": secs[True], "numpy": secs[False]}
+
+
+def capi_inprocess(mesh_file: str, run: dict) -> dict:
+    """The four calls in this process on the mesh file, as the bridge's
+    ``capi.create`` makes them: per-call host seconds, write-backs and
+    the raw flux as float64."""
+    from pumiumtally_tpu_torch import PumiTally, TallyConfig
+
+    n = run["pos"].shape[0]
+    t0 = time.perf_counter()
+    t = PumiTally(mesh_file, n, TallyConfig(n_groups=MAIN_GROUPS),
+                  device=DEVICE)
+    torch.cuda.synchronize()
+    out = {"create_s": time.perf_counter() - t0, "move_s": [], "outs": []}
+    t0 = time.perf_counter()
+    t.initialize_particle_location(run["pos"].reshape(-1).copy())
+    out["init_s"] = time.perf_counter() - t0
+    for dest, flying, weights, groups, mats in run["moves"]:
+        d, f, m = dest.reshape(-1).copy(), flying.copy(), mats.copy()
+        t0 = time.perf_counter()
+        t.move_to_next_location(d, f, weights, groups, m)
+        out["move_s"].append(time.perf_counter() - t0)
+        out["outs"].append((d.reshape(n, 3), f, m))
+    t0 = time.perf_counter()
+    out["flux"] = np.asarray(t.raw_flux, np.float64).ravel()
+    out["flux_s"] = time.perf_counter() - t0
+    t.close()
+    return out
+
+
+def capi_host(hosts: dict, mesh_file: str, work: str, n: int, moves: int,
+              ntet: int) -> dict:
+    """One run of the replay host on the card: its per-call seconds
+    (``clock_gettime`` on the C side), write-backs and flux."""
+    from pumiumtally_tpu_torch import capi
+
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [hosts["replay_host"], mesh_file, work, str(n), str(moves),
+         str(MAIN_GROUPS), str(ntet * MAIN_GROUPS * 2)],
+        env=capi.host_env(DEVICE), capture_output=True, text=True,
+        timeout=CAPI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or r.stdout.splitlines()[-1:] != ["OK"]:
+        raise AssertionError(f"[capi] replay host exit {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+    replay = capi.read_replay_outputs(work, n, moves)
+    return dict(capi.parse_host_seconds(r.stdout), wall=wall,
+                flux=replay["flux"], outs=replay["moves"])
+
+
+def phase_capi(run: dict, tmpdir: str) -> dict:
+    """Phase 23: the C ABI at full width. The main cell's mesh written as
+    .npz, phase 4's inputs written to files, the replay host (a C program
+    linked to the port's bridge) driving the four entry points on the
+    card, its flux and every move's write-backs held bitwise to
+    ``PumiTally`` driven in this process on the same mesh file and
+    inputs, each move's host seconds on both sides in turns (in-process,
+    C, in-process); the native
+    mesh build against the numpy path at 998,250 tets. The demo host runs
+    in phase 24, beside the chaos drivers."""
+    from pumiumtally_tpu_torch import capi, native
+    from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+    from pumiumtally_tpu_torch.mesh.io import save_npz
+
+    if not native.available():
+        raise AssertionError("[capi] the native host runtime did not build "
+                             "on this host (g++)")
+    t0 = time.perf_counter()
+    hosts = capi.build_bridge()
+    build_s = time.perf_counter() - t0
+    log(f"[capi] bridge, demo_host and replay_host built in {build_s:.3f} s "
+        f"({os.path.basename(hosts['lib'])}); python {sys.version.split()[0]}"
+        f", sysconfig flags {capi.python_flags()}")
+
+    cells, n = MAIN_CELLS, run["pos"].shape[0]
+    coords, tets = build_box_arrays(1.0, 1.0, 1.0, cells, cells, cells)
+    coords = np.asarray(coords, np.float64)
+    tets = np.asarray(tets, np.int64)
+    ntet = tets.shape[0]
+    mesh_secs = capi_mesh_turns(coords, tets)
+    log(f"[capi] mesh build at {ntet} tets on this host, in turns (native, "
+        f"numpy, numpy, native): derive_geometry native "
+        f"{[round(s[0], 4) for s in mesh_secs['native']]} s, numpy "
+        f"{[round(s[0], 4) for s in mesh_secs['numpy']]} s; build_tet2tet "
+        f"native {[round(s[1], 4) for s in mesh_secs['native']]} s, numpy "
+        f"{[round(s[1], 4) for s in mesh_secs['numpy']]} s; every table "
+        f"bitwise")
+
+    mesh_file = os.path.join(tmpdir, "main.npz")
+    save_npz(mesh_file, coords, tets, np.zeros(ntet, np.int32))
+    work = os.path.join(tmpdir, "replay")
+    t0 = time.perf_counter()
+    capi.write_replay_inputs(work, run["pos"], run["moves"])
+    log(f"[capi] the main cell ({ntet} tets) as .npz and phase 4's inputs "
+        f"({n} particles, {len(run['moves'])} moves) written in "
+        f"{time.perf_counter() - t0:.3f} s")
+    torch.cuda.empty_cache()
+    res = {"c": [], "python": []}
+    before = dict(native.CALLS)
+    for side in CAPI_TURNS:
+        if side == "c":
+            res["c"].append(capi_host(hosts, mesh_file, work, n,
+                                      len(run["moves"]), ntet))
+        else:
+            res["python"].append(capi_inprocess(mesh_file, run))
+    if native.CALLS["derive_geometry"] - before["derive_geometry"] != 2:
+        raise AssertionError("[capi] the in-process mesh loads did not go "
+                             "through the native host runtime")
+    want = res["python"][0]
+    for r in res["c"] + res["python"][1:]:
+        if r["flux"].tobytes() != want["flux"].tobytes():
+            raise AssertionError("[capi] a run's flux differs bitwise")
+    for label, r in [("c", r) for r in res["c"]] + [
+            ("python", r) for r in res["python"][1:]]:
+        for m, (g, w) in enumerate(zip(r["outs"], want["outs"]), start=1):
+            for a, b, what in zip(g, w, ("positions", "flying", "materials")):
+                if a.tobytes() != b.tobytes():
+                    raise AssertionError(f"[capi] {label} move {m}: "
+                                         f"{what} differ bitwise")
+    last = res["c"][0]["outs"][-1]
+    if last[1].any() or not (last[2] == -1).any():
+        raise AssertionError("[capi] the C buffers' write-backs: flying "
+                             "not reset or no lane ended with material -1")
+    scored = float(want["flux"][0::2].sum())
+    log(f"[capi] the replay host's flux ({want['flux'].size} float64) and "
+        f"every move's positions, flying flags and material ids in the C "
+        f"buffers bitwise PumiTally's in this process (flux sum "
+        f"{scored:.9e})")
+    c_moves = [r["move_s"] for r in res["c"]]
+    py_moves = [r["move_s"] for r in res["python"]]
+    log(f"[capi] host seconds a move, in turns (in-process, C, "
+        f"in-process): C {[[round(x, 6) for x in m] for m in c_moves]}; "
+        f"in-process {[[round(x, 6) for x in m] for m in py_moves]}")
+    log(f"[capi] C side: create "
+        f"{[round(r['create_s'], 3) for r in res['c']]} s (interpreter, "
+        f"torch import, mesh load and card set-up), initialize "
+        f"{[round(r['init_s'], 4) for r in res['c']]} s, get_flux "
+        f"{[round(r['flux_s'], 4) for r in res['c']]} s, write "
+        f"{[round(r['write_s'], 4) for r in res['c']]} s, process "
+        f"{[round(r['wall'], 3) for r in res['c']]} s; in-process: create "
+        f"{[round(r['create_s'], 3) for r in res['python']]} s (mesh load "
+        f"and tally), initialize "
+        f"{[round(r['init_s'], 4) for r in res['python']]} s, raw_flux "
+        f"{[round(r['flux_s'], 4) for r in res['python']]} s")
+    demo_mesh = os.path.join(tmpdir, "demo.npz")
+    coords, tets = build_box_arrays(1.0, 1.0, 1.0, 2, 2, 2)
+    save_npz(demo_mesh, coords, tets, np.zeros(tets.shape[0], np.int32))
+    return {"c_move_s": c_moves, "python_move_s": py_moves,
+            "hosts": hosts, "demo_mesh": demo_mesh}
+
+
+CHAOS_RUNS = (
+    ("campaign", "corrupt_manifest_chip_down"),
+    ("serve", "storm"),
+    ("fleet", "retry_storm"),
+)
+
+
+def phase_chaos(hosts: dict, demo_mesh: str, bank: str,
+                tmpdir: str) -> dict:
+    """Phase 24: one scenario of each chaos driver on the card
+    (``python -m pumiumtally_tpu_torch.chaos.<driver> --only <scenario>
+    --device cuda``; the fleet's routers over phase 21's warm bank), and
+    phase 23's demo host once, all five processes together. Each must
+    exit 0 (the demo printing ``OK``)."""
+    from pumiumtally_tpu_torch import capi
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PUMI_TPU_")}
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    t0 = time.perf_counter()
+    for driver, scenario in CHAOS_RUNS:
+        cmd = [sys.executable, "-m", f"pumiumtally_tpu_torch.chaos.{driver}",
+               "--only", scenario, "--device", DEVICE]
+        if driver == "fleet":
+            cmd += ["--bank", bank]
+        logf = open(os.path.join(tmpdir, f"{driver}.log"), "w")
+        procs[f"{driver} {scenario}"] = (subprocess.Popen(
+            cmd, stdout=logf, stderr=subprocess.STDOUT, env=env, cwd=root),
+            logf)
+    logf = open(os.path.join(tmpdir, "demo.log"), "w")
+    procs["demo_host"] = (subprocess.Popen(
+        [hosts["demo_host"], demo_mesh, os.path.join(tmpdir, "demo.vtu")],
+        stdout=logf, stderr=subprocess.STDOUT,
+        env=capi.host_env(DEVICE), cwd=root), logf)
+    out = {}
+    try:
+        for label, (proc, logf) in procs.items():
+            rc = proc.wait(timeout=CAPI_TIMEOUT_S)
+            logf.close()
+            with open(logf.name) as f:
+                text = f.read()
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith(("[chaos", "FLUX_SUM", "OK",
+                                       "CHAOS", "SERVING", "FLEET"))]
+            for ln in lines:
+                log(f"[chaos] {label}: {ln[:400]}")
+            done = text.splitlines()[-1:] == ["OK"] if label == "demo_host" \
+                else "PASS" in text
+            if rc != 0 or not done:
+                raise AssertionError(f"[chaos] {label}: exit {rc}:\n"
+                                     f"{text[-3000:]}")
+            out[label] = dict(rc=rc, s=time.perf_counter() - t0)
+    finally:
+        for proc, logf in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
+    log(f"[chaos] all four processes exited 0 ("
+        + ", ".join(f"{k} by {v['s']:.2f} s" for k, v in out.items())
+        + f"); card {card_line()}")
+    return out
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -5888,7 +6183,7 @@ def main() -> int:
 
 def _phases(card: str, name: str, t_start: float,
             servers: ServerProcesses, serve_dir: str) -> int:
-    """The build, phases 3-22 and the closing lines."""
+    """The build, phases 3-24 and the closing lines."""
     from pumiumtally_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -6015,6 +6310,16 @@ def _phases(card: str, name: str, t_start: float,
     log(f"[phase] serving fleet: {time.perf_counter() - t0:.2f} s")
     fleeted = fleet["full"]["launches"]
 
+    with tempfile.TemporaryDirectory() as tmpdir:
+        t0 = time.perf_counter()
+        capi_run = phase_capi(snaps.pop("run"), tmpdir)
+        log(f"[phase] C ABI: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        phase_chaos(capi_run["hosts"], capi_run["demo_mesh"], servers.bank,
+                    tmpdir)
+        log(f"[phase] chaos drivers and demo host: "
+            f"{time.perf_counter() - t0:.2f} s")
+
     walk = {
         "route": "cuda",
         "source": "pumiumtally_tpu_torch/csrc/walk.cu",
@@ -6060,7 +6365,11 @@ def _phases(card: str, name: str, t_start: float,
          "fleet_launches": fleeted["walk"],
          "fleet_relaunches": fleeted["walk_relaunches"],
          "integrity_vector_ms": resil["a"]["vec_ms"],
-         "integrity_vector_bound_ms": resil["a"]["bound_ms"]},
+         "integrity_vector_bound_ms": resil["a"]["bound_ms"],
+         "capi_host_move_s": capi_run["c_move_s"],
+         "capi_inprocess_move_s": capi_run["python_move_s"],
+         "capi_launches": "not counted: phase 23's C host launches the "
+                          "walk in a process of its own"},
         {"name": "walk_cuda.trace(tally='atomic')", **walk,
          "launches": repro["launches"], "max_abs_err": repro["max_abs_err"],
          "ms": k["atomic_ms"]},

@@ -1,9 +1,11 @@
 """Tetrahedral mesh as a dataclass of torch tensors.
 
 Counterpart of ``pumiumtally_tpu/mesh/core.py``. The derived tables are
-built on the host in float64 numpy (the same maths as the JAX package's
-numpy path, copied here so the port imports nothing of it), then placed
-on the requested device in the requested dtype.
+built on the host in float64, by the native host runtime
+(``native/__init__.py``) where it builds and by numpy otherwise (the same
+maths as the JAX package's numpy path, copied here so the port imports
+nothing of it; the two give the same bits), then placed on the requested
+device in the requested dtype.
 
 Face ``f`` of a tet is the face opposite local vertex ``f``. A point x is
 outside face f of tet e when ``dot(n[e, f], x) > d[e, f]``.
@@ -16,6 +18,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.platform import resolve_device
 
 # Local vertex triples of the face opposite each local vertex.
@@ -127,8 +130,9 @@ class TetMesh:
         device=None,
         packed: bool = True,
     ) -> "TetMesh":
-        """Build all derived tables on the host (float64 numpy), then place
-        them on ``device`` (default: the CUDA card) in ``dtype``.
+        """Build all derived tables on the host in float64 (the native
+        runtime where it builds, numpy otherwise: the same bits), then
+        place them on ``device`` (default: the CUDA card) in ``dtype``.
         ``packed=False`` leaves ``geo20`` None, as a mesh past the packing
         limits does (``can_pack_walk_tables``)."""
         dev = resolve_device(device)
@@ -142,9 +146,13 @@ class TetMesh:
             class_id = np.zeros(ntet, dtype=np.int32)
         class_id = np.asarray(class_id, dtype=np.int32)
 
-        tet2vert = _canonicalize_orientation(coords, tet2vert)
-        volumes = _tet_volumes(coords, tet2vert)
-        normals, d = _face_planes(coords, tet2vert)
+        derived = native.derive_geometry(coords, tet2vert.copy())
+        if derived is not None:
+            tet2vert, volumes, normals, d = derived
+        else:
+            tet2vert = _canonicalize_orientation(coords, tet2vert)
+            volumes = _tet_volumes(coords, tet2vert)
+            normals, d = _face_planes(coords, tet2vert)
         tet2tet = build_tet2tet(tet2vert)
         _check_not_tangled(normals, tet2tet)
         class_values, geo20 = _pack_geo20(
@@ -274,8 +282,12 @@ def _check_not_tangled(normals: np.ndarray, tet2tet: np.ndarray) -> None:
 
 def build_tet2tet(tet2vert: np.ndarray) -> np.ndarray:
     """Face-adjacency table: neighbor across the face opposite local vertex
-    f, -1 on the domain boundary, by a lexicographic sort of the sorted
-    vertex triples of every face."""
+    f, -1 on the domain boundary: the native runtime's hash where it
+    builds, else a lexicographic sort of the sorted vertex triples of every
+    face (the same table)."""
+    fast = native.build_tet2tet(tet2vert)
+    if fast is not None:
+        return fast
     nt = tet2vert.shape[0]
     faces = tet2vert[:, FACE_LOCAL_VERTS]
     faces = np.sort(faces.reshape(nt * 4, 3), axis=1)

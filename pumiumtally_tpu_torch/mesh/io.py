@@ -1,9 +1,10 @@
 """Mesh ingest: .npz snapshots (and ``save_npz`` to write them), ASCII Gmsh
 .msh (v2.2 and v4.1) and Omega_h-layout .osh directories.
 
-Counterpart of ``pumiumtally_tpu/mesh/io.py`` without the native C++
-tokenizer: the pure-Python parsers are copied, and ``.osh`` goes through
-the subset reader of ``mesh/osh.py``.
+Counterpart of ``pumiumtally_tpu/mesh/io.py``: ASCII Gmsh files go through
+the native host runtime's tokenizer (``native/__init__.py``) where it
+builds, else through the pure-Python parsers copied here; ``.osh`` goes
+through the subset reader of ``mesh/osh.py``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import os
 import numpy as np
 import torch
 
+from .. import native
 from .core import TetMesh
 from .osh import read_osh
 
@@ -39,7 +41,13 @@ def load_npz_arrays(filename: str):
 def parse_gmsh(filename: str):
     """Parse an ASCII Gmsh .msh file (v2.2 and v4.1), keeping only 4-node
     tetrahedra (element type 4). Returns (coords, tet2vert, class_id) with
-    class_id from the first element tag (v2.2) or the entity tag (v4.1)."""
+    class_id from the first element tag (v2.2) or the entity tag (v4.1).
+
+    The native tokenizer reads v2.2 and v4.1 ASCII files where it builds;
+    binary files, sparse node ids and files it cannot parse come here."""
+    fast = native.parse_gmsh(filename)
+    if fast is not None:
+        return fast
     with open(filename) as f:
         lines = f.read().split("\n")
     try:

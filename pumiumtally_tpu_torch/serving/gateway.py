@@ -95,6 +95,13 @@ def parse_traceparent(header: str | None) -> str | None:
     )
 
 
+class _Server(ThreadingHTTPServer):
+    # A burst of clients (one submission retried from many threads) must
+    # wait in the listen queue: at socketserver's default of 5 the kernel
+    # resets the connections past it.
+    request_queue_size = 128
+
+
 class TallyGateway:
     """One HTTP ingress bound to one ``FleetRouter`` (module docstring
     API). Handler threads and the router's scheduling loop serialize on
@@ -247,7 +254,7 @@ class TallyGateway:
             def log_message(self, *args):  # requests are not log events
                 pass
 
-        self._server = ThreadingHTTPServer((host, int(port)), _Handler)
+        self._server = _Server((host, int(port)), _Handler)
         self._server.daemon_threads = True
         # stop() may race between teardown paths; the flag flip is
         # atomic so that exactly one caller shuts the server down.

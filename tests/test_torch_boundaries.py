@@ -8,6 +8,11 @@
 * The kernel build raises, and does not fall back, when nvcc is missing;
   importing the kernel wrapper builds nothing.
 * ``chip_smoke.py`` exits non-zero and prints no result without a card.
+* The C ABI and the native host runtime (``capi.py``, ``native/``) and the
+  chaos drivers (``chaos/``) import no JAX; the C/C++ host sources name no
+  module of the JAX package and include nothing from its ``native/``;
+  ``capi.create`` and the chaos CLIs refuse to run without a card unless
+  told to use the CPU.
 """
 from __future__ import annotations
 
@@ -211,6 +216,83 @@ def test_partitioned_entry_points_default_to_cuda():
         PartitionedTally(mesh, 4, n_parts=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_device_mesh(2)
+
+
+# The C ABI, the native host runtime and the chaos drivers (their JAX
+# counterparts import JAX or live under native/ and scripts/): each
+# imports in a fresh interpreter without pulling JAX in.
+A13_MODULES = (
+    "capi.py", "native/__init__.py", "chaos/__init__.py",
+    "chaos/campaign.py", "chaos/serve.py", "chaos/fleet.py",
+)
+
+
+@pytest.mark.parametrize("rel", A13_MODULES)
+def test_capi_and_chaos_modules_import_nothing_of_jax(rel):
+    test_own_copies_are_scanned_and_import_nothing_of_jax(rel)
+
+
+HOST_DIR = PKG / "csrc" / "host"
+HOST_SOURCES = sorted(p for p in HOST_DIR.rglob("*")
+                      if p.suffix in (".c", ".cpp", ".h"))
+
+
+def test_host_sources_are_the_ports():
+    import re
+
+    names = sorted(str(p.relative_to(HOST_DIR)) for p in HOST_SOURCES)
+    assert names == ["demo_host.c", "include/pumi_tally.h",
+                     "pumi_native.cpp", "pumi_tally_c.cpp", "replay_host.c"]
+    for path in HOST_SOURCES:
+        text = path.read_text()
+        assert "pumiumtally_tpu." not in text, path.name
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", text, flags=re.S)
+        for inc in re.findall(r'#include\s*[<"]([^>"]+)[>"]', code):
+            assert "native/" not in inc and ".." not in inc, (path.name, inc)
+    bridge = (HOST_DIR / "pumi_tally_c.cpp").read_text()
+    assert 'PyImport_ImportModule("pumiumtally_tpu_torch.capi")' in bridge
+
+
+def test_capi_create_defaults_to_cuda(monkeypatch, tmp_path):
+    """Without ``PUMI_TPU_PLATFORM=cpu`` the bridge's ``create`` places the
+    tally on the card and raises without one; with it, the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    from pumiumtally_tpu_torch import capi
+    from pumiumtally_tpu_torch.mesh.box import build_box_arrays
+    from pumiumtally_tpu_torch.mesh.io import save_npz
+
+    coords, tets = build_box_arrays(1.0, 1.0, 1.0, 2, 2, 2)
+    mesh_file = str(tmp_path / "box.npz")
+    save_npz(mesh_file, coords, tets, np.zeros(len(tets), np.int32))
+    monkeypatch.delenv("PUMI_TPU_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        capi.create(mesh_file, 4, 2)
+    monkeypatch.setenv("PUMI_TPU_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="PUMI_TPU_PLATFORM"):
+        capi.create(mesh_file, 4, 2)
+    monkeypatch.setenv("PUMI_TPU_PLATFORM", "cpu")
+    h = capi.create(mesh_file, 4, 2)
+    assert capi._registry[h].device.type == "cpu"
+    capi.destroy(h)
+
+
+@pytest.mark.parametrize("driver,scenario", [
+    ("campaign", "transient_storm"), ("serve", "storm"),
+    ("fleet", "retry_storm"),
+])
+def test_chaos_clis_default_to_cuda(driver, scenario):
+    """A chaos driver run without ``--device`` targets the card and
+    raises without one: no scenario line, no verdict, a non-zero exit."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the default device is usable")
+    r = subprocess.run(
+        [sys.executable, "-m", f"pumiumtally_tpu_torch.chaos.{driver}",
+         "--only", scenario], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert r.returncode != 0 and "device='cpu'" in r.stderr
+    assert "PASS" not in r.stdout and "OK" not in r.stdout
 
 
 def test_entry_points_default_to_cuda():
