@@ -376,7 +376,18 @@ Phases, each of which raises (exit code != 0) on any failed check:
    ``chaos.serve --only storm`` and ``chaos.fleet --only retry_storm``
    (its routers over phase 21's warm bank), each with ``--device cuda``,
    and phase 23's demo host, the four processes together: each exits 0
-   (the demo printing ``OK``).
+   (the demo printing ``OK``);
+25. host syncs (``[syncs]`` lines): the port's lint runner (``python -m
+   pumiumtally_tpu_torch.analysis``) over this checkout in a process of
+   its own, started first and required to exit 0; meanwhile, under
+   ``torch.cuda.set_sync_debug_mode("warn")``, two packed moves of phase
+   4's tally, one megastep chunk of bench.py's cell (K = 8, Σt 12.5) and
+   one move of the partitioned cell (4 parts, halo 1). Each synchronizing
+   operation that torch reports is placed at its innermost frame in the
+   package (file, line, function): every site must be a counted PUMI001
+   entry of LINT_BASELINE_TORCH.json or lie in a module that PUMI002
+   approves for transfers. The sites and their counts are printed; syncs
+   inside the kernels' ``ctypes`` libraries are not seen by torch.
 
 The peaks of device memory that phases 16 (c), 17 (c) and 19 (b) print
 follow a garbage collection (``settle_memory``): they count what is
@@ -397,6 +408,7 @@ import sys
 import tempfile
 import threading
 import time
+import traceback
 import warnings
 
 import numpy as np
@@ -6132,6 +6144,145 @@ def phase_chaos(hosts: dict, demo_mesh: str, bank: str,
     return out
 
 
+class SyncSites:
+    """A ``warnings.showwarning`` hook that counts the synchronizing
+    operations torch reports under ``set_sync_debug_mode("warn")`` by
+    their innermost frame in the package: (path, line, function, with
+    ``<locals>`` and comprehension frames folded into their def). A
+    warning with no package frame counts under torch's own location."""
+
+    def __init__(self):
+        import collections
+
+        self.root = os.path.dirname(os.path.abspath(__file__))
+        self.pkg = os.path.join(self.root, "pumiumtally_tpu_torch") + os.sep
+        self.sites = collections.Counter()
+        self.other = []
+        self.stacks: dict = {}  # a site without a package frame: its stack
+
+    def hook(self, message, category, filename, lineno, file=None,
+             line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            self.other.append((str(message)[:120], filename, lineno))
+            return
+        f = sys._getframe(1)
+        while f is not None and not f.f_code.co_filename.startswith(
+                self.pkg):
+            f = f.f_back
+        if f is None:
+            key = (filename, lineno, "<no package frame>")
+            self.sites[key] += 1
+            self.stacks.setdefault(key, " <- ".join(
+                f"{os.path.basename(g.filename)}:{g.lineno} {g.name}"
+                for g in reversed(traceback.extract_stack()[-12:-1])))
+            return
+        symbol = ".".join(p for p in f.f_code.co_qualname.split(".")
+                          if not p.startswith("<"))
+        self.sites[(os.path.relpath(f.f_code.co_filename, self.root),
+                    f.f_lineno, symbol)] += 1
+
+    def watch(self, fn):
+        """``fn()`` under the sync debug mode, every warning shown."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = self.hook
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+
+
+def phase_host_syncs(tally) -> dict:
+    """25. The lint runner in a process of its own (exit 0), and the move
+    loop's synchronizing operations on the card, each held to the lint's
+    allowance: a counted PUMI001 entry of LINT_BASELINE_TORCH.json, or a
+    module that PUMI002 approves for transfers. Returns the sites, the
+    runner's seconds and the watched runs' seconds."""
+    from pumiumtally_tpu_torch.analysis import load_baseline
+    from pumiumtally_tpu_torch.analysis.astlint import (
+        APPROVED_TRANSFER_MODULES,
+    )
+    from pumiumtally_tpu_torch.ops import source
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_lint = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "pumiumtally_tpu_torch.analysis"], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        counted = {(e["path"], e["symbol"]) for e in load_baseline(
+            os.path.join(root, "LINT_BASELINE_TORCH.json"))
+            if e["rule"] == "PUMI001"}
+        n, G = MAIN_PARTICLES, MAIN_GROUPS
+        rng = np.random.default_rng(25)
+        watch, runs = SyncSites(), {}
+        prev = tally.state.origin.double().cpu().numpy()
+        for move in (1, 2):
+            want, groups = main_move_inputs(rng, n, G, prev)
+            dest = want.reshape(-1).copy()
+            t0 = time.perf_counter()
+            watch.watch(lambda: tally.move_to_next_location(
+                dest, np.ones(n, np.int8), np.ones(n), groups,
+                np.zeros(n, np.int32)))
+            runs[f"packed move {move}"] = time.perf_counter() - t0
+            prev = dest.reshape(n, 3).copy()
+        mega = mega_tally(tally.mesh, MEGA_K)
+        src = source.SourceParams(default_sigma_t=MEGA_SIGMA_T, seed=1)
+        t0 = time.perf_counter()
+        watch.watch(lambda: mega.run_source_moves(
+            MEGA_K, src, weights=np.ones(n), groups=np.zeros(n, np.int32),
+            alive=np.ones(n, bool)))
+        runs[f"megastep chunk (K={MEGA_K})"] = time.perf_counter() - t0
+        del mega
+        part = part_tally(tally.mesh)
+        inputs = part_inputs()
+        part.initialize_particle_location(inputs["pos"].reshape(-1))
+        want, groups = inputs["moves"][0]
+        dest = want.reshape(-1).copy()
+        t0 = time.perf_counter()
+        watch.watch(lambda: part.move_to_next_location(
+            dest, np.ones(n, np.int8), np.ones(n), groups,
+            np.zeros(n, np.int32)))
+        runs["partitioned move"] = time.perf_counter() - t0
+        del part
+        gc.collect()
+    finally:
+        out, _ = lint.communicate(timeout=300)
+    lint_s = time.perf_counter() - t_lint
+    own = re.search(r"analysis: ([0-9.]+) s", out)
+    log(f"[syncs] runner: python -m pumiumtally_tpu_torch.analysis exit "
+        f"{lint.returncode} in {lint_s:.2f} s on this host (its own clock "
+        f"{own.group(1) if own else '?'} s), beside the watched runs")
+    if lint.returncode != 0:
+        raise AssertionError(f"the port's lint runner failed:\n{out}")
+    outside = []
+    for (path, line, symbol), count in sorted(watch.sites.items()):
+        if (path, symbol) in counted:
+            why = "counted PUMI001 entry"
+        elif path in APPROVED_TRANSFER_MODULES:
+            why = "PUMI002-approved module"
+        else:
+            why = "OUTSIDE the allowance"
+            outside.append((path, line, symbol))
+        log(f"[syncs] {count:5d} x {path}:{line} {symbol} ({why})")
+        if (path, line, symbol) in watch.stacks:
+            log(f"[syncs]         stack: {watch.stacks[path, line, symbol]}")
+    log(f"[syncs] {sum(watch.sites.values())} synchronizing operations at "
+        f"{len(watch.sites)} sites over "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in runs.items())
+        + "; syncs inside the kernels' ctypes libraries are not seen by "
+        "torch's sync debug mode")
+    for msg, filename, lineno in watch.other[:5]:
+        log(f"[syncs] other warning {filename}:{lineno}: {msg}")
+    if outside:
+        raise AssertionError(f"synchronizing operations outside the "
+                             f"lint's allowance: {outside}")
+    return dict(sites=dict(watch.sites), runs=runs, lint_s=lint_s)
+
+
 def _probe_entry(p: dict, launches) -> dict:
     """The measured numbers of one probe entry, in ms."""
     lib = p["library_usec_per_call"]
@@ -6183,7 +6334,7 @@ def main() -> int:
 
 def _phases(card: str, name: str, t_start: float,
             servers: ServerProcesses, serve_dir: str) -> int:
-    """The build, phases 3-24 and the closing lines."""
+    """The build, phases 3-25 and the closing lines."""
     from pumiumtally_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -6319,6 +6470,10 @@ def _phases(card: str, name: str, t_start: float,
                     tmpdir)
         log(f"[phase] chaos drivers and demo host: "
             f"{time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_host_syncs(tally)
+    log(f"[phase] host syncs: {time.perf_counter() - t0:.2f} s")
 
     walk = {
         "route": "cuda",

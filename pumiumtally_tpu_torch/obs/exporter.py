@@ -193,7 +193,7 @@ class MetricsExporter:
         # stop() races between an owner's close() and the GC finalizer
         # thread: exactly one caller runs the shutdown.
         self._stop_lock = threading.Lock()
-        self._stopped = False
+        self._stopped = False  # guarded by: self._stop_lock
         self._thread = threading.Thread(
             target=self._server.serve_forever,
             name="pumi-metrics-exporter",

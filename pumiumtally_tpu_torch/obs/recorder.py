@@ -34,8 +34,8 @@ class FlightRecorder:
         # Sequencing and the ring append happen under one lock, so
         # records from several threads get unique, gap-free numbers.
         self._lock = threading.Lock()
-        self._records = collections.deque(maxlen=capacity)
-        self._seq = 0
+        self._records = collections.deque(maxlen=capacity)  # guarded by: self._lock
+        self._seq = 0  # guarded by: self._lock
 
     def record(self, kind: str, **fields) -> dict:
         """Append one record; ``kind`` names the event ("move",

@@ -78,8 +78,8 @@ class SpanTracer:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.enabled = trace_enabled() if enabled is None else bool(enabled)
         self._lock = threading.Lock()
-        self._ring = collections.deque(maxlen=capacity)
-        self._seq = 0
+        self._ring = collections.deque(maxlen=capacity)  # guarded by: self._lock
+        self._seq = 0  # guarded by: self._lock
         # None defers to PUMI_TPU_METRICS at emission time.
         self._sink = sink
         # Ambient (trace_id, job_id, parent_id).

@@ -125,6 +125,8 @@ def build_many(names, build_dir=None) -> list[str]:
     together; returns the library paths in order. ``build_dir`` is one
     directory for all, or a list of one a name. Raises RuntimeError with
     nvcc's output if any build fails."""
+    from ..utils.checkpoint import atomic_write_bytes
+
     names = list(names)
     dirs = (list(build_dir) if isinstance(build_dir, (list, tuple))
             else [build_dir] * len(names))
@@ -152,8 +154,9 @@ def build_many(names, build_dir=None) -> list[str]:
                 f"{proc.returncode}):\n{' '.join(cmd)}\n{stdout}{stderr}"
             )
             continue
-        with open(out[:-3] + ".log", "w") as f:
-            f.write(stdout + stderr)
+        # The bank reads this log back into an entry's META
+        # (serving/bank.py::ptxas_summary): written whole or not at all.
+        atomic_write_bytes(out[:-3] + ".log", (stdout + stderr).encode())
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("\n".join(failed))

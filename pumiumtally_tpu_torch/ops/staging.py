@@ -61,6 +61,7 @@ columns, and the chunk's physics vector.
 """
 from __future__ import annotations
 
+import threading
 import warnings
 
 import numpy as np
@@ -159,12 +160,15 @@ class HostStager:
     the device is the same memory, so every call returns a fresh buffer,
     as the JAX stager does there.
     Buffers are not cleared: the packs write every word. A stager belongs
-    to one facade or pipeline and is used from its calling thread."""
+    to one facade or pipeline. Under ``move_deadline_s`` its moves run on
+    a watchdog's worker thread, so the ring rotation takes a lock (the
+    facade replaces the stager of a worker it abandons)."""
 
     def __init__(self, depth: int = 1, device=None):
         self.depth = max(1, int(depth))
         self.pinned = resolve_device(device).type == "cuda"
-        self._bufs: dict = {}
+        self._lock = threading.Lock()
+        self._bufs: dict = {}  # guarded by: self._lock
 
     def buf(self, shape: tuple, dtype: torch.dtype, tag: str = ""
             ) -> torch.Tensor:
@@ -172,12 +176,14 @@ class HostStager:
         if not self.pinned:
             return torch.empty(shape, dtype=dtype)
         key = (tag, shape, dtype)
-        ring, turn = self._bufs.setdefault(key, ([], 0))
-        if len(ring) < self.depth:
-            ring.append(torch.empty(shape, dtype=dtype, pin_memory=True))
-            return ring[-1]
-        self._bufs[key] = (ring, turn + 1)
-        return ring[turn % self.depth]
+        with self._lock:
+            ring, turn = self._bufs.setdefault(key, ([], 0))
+            if len(ring) < self.depth:
+                ring.append(torch.empty(shape, dtype=dtype,
+                                        pin_memory=True))
+                return ring[-1]
+            self._bufs[key] = (ring, turn + 1)
+            return ring[turn % self.depth]
 
 
 def host_tensor(a) -> torch.Tensor:

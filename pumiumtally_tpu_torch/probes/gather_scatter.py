@@ -33,7 +33,6 @@ written unless ``--out`` is given.
 from __future__ import annotations
 
 import argparse
-import json
 import subprocess
 import sys
 
@@ -319,8 +318,9 @@ def main(argv=None) -> int:
                  if us is not None else "(plain: not timed)")
               + (f" {p['error']}" if p["error"] else ""))
     if args.out:
-        with open(args.out, "w") as fh:
-            json.dump(payload, fh, indent=2)
+        from ..utils.checkpoint import atomic_write_json
+
+        atomic_write_json(args.out, payload)
         print(f"wrote {args.out} ({len(payload['probes'])} probes)")
     return 0 if all(p["ok"] for p in payload["probes"]) else 1
 

@@ -1561,6 +1561,18 @@ class TallyScheduler:
         self._flush_journal()
         self._remove_checkpoint(job)
 
+    @staticmethod
+    def _checkpoint_current(job: Job, path: str) -> bool:
+        """Whether ``path`` already holds ``job``'s state at this
+        boundary: a journaled job preempted at the boundary its quantum
+        checkpoint was written at (a fleet migration) has that state on
+        disk, and no quantum ran since. The protocol lint reads this
+        call as the effect ``checkpoint.current``, which stands in for
+        the save before the preemption's journal flush."""
+        return (job.checkpoint == path
+                and job.checkpoint_moves == job.moves_done
+                and os.path.exists(path))
+
     def _preempt(self, job: Job) -> None:
         """Checkpoint-preempt one resident job (megastep boundary —
         quanta never split) and re-queue it.  Journaled schedulers
@@ -1571,12 +1583,7 @@ class TallyScheduler:
             if self.journal is not None
             else os.path.join(self.checkpoint_dir, f"{job.id}.ckpt.npz")
         )
-        # A journaled job preempted at the boundary its quantum
-        # checkpoint was written at (a fleet migration) has that state on
-        # disk already: no quantum ran since, so it is not written again.
-        if not (job.checkpoint == path
-                and job.checkpoint_moves == job.moves_done
-                and os.path.exists(path)):
+        if not self._checkpoint_current(job, path):
             job.tally.save_checkpoint(path)
             job.checkpoint_moves = job.moves_done
         job.tally.close()

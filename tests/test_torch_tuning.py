@@ -4,8 +4,8 @@ the calibration join.
 
 Mirrors tests/test_tuning.py case by case on the port's own knobs (the
 walk kernel's threads per block in place of the JAX backend and its
-``lane_block``; the megastep K), but for its perfdiff and astlint cases,
-whose tools are not ported (ROADMAP.md A14). On this box the plain walk
+``lane_block``; the megastep K), but for its perfdiff case, whose tool
+is not ported (ROADMAP.md A14b). On this box the plain walk
 stands in for every block width, so a "tuned" run here shows the consult
 and the bits; ``tests/test_torch_cuda.py`` runs the widths and the
 hardware tuner on the card. Cross-package cases hold ``bucket``,
@@ -643,3 +643,23 @@ def test_committed_tuning_db_schema():
         assert entry["block"] in walk_cuda.BLOCKS and entry["megastep"] >= 1
         assert [c for c in entry["candidates"] if c["parity"] == "bitwise"]
         assert entry["calibration"] is not None
+
+
+def test_astlint_covers_tuner_scripts():
+    # The tuner's CLI (the port's tune.py) gets the value-safety subset
+    # and the tuning package every rule: pin that both stay clean under
+    # the port's lint and its baseline (PUMI001/004/005: host syncs on
+    # the move loop, the global random state, float64; and the package
+    # rules, whose only tuning entries are search.py's set-up transfers).
+    from pumiumtally_tpu_torch.analysis import apply_baseline, load_baseline
+    from pumiumtally_tpu_torch.analysis.astlint import lint_sources
+
+    src = {}
+    for rel in ("tuning/__main__.py", "tuning/search.py", "tuning/db.py",
+                "tuning/shapes.py", "tuning/costmodel.py",
+                "tuning/__init__.py"):
+        path = f"pumiumtally_tpu_torch/{rel}"
+        src[path] = open(os.path.join(ROOT, path)).read()
+    entries = load_baseline(os.path.join(ROOT, "LINT_BASELINE_TORCH.json"))
+    kept, _, _ = apply_baseline(lint_sources(src), entries)
+    assert kept == [], [f.render() for f in kept]
