@@ -378,8 +378,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    and phase 23's demo host, the four processes together: each exits 0
    (the demo printing ``OK``);
 25. host syncs (``[syncs]`` lines): the port's lint runner (``python -m
-   pumiumtally_tpu_torch.analysis``) over this checkout in a process of
-   its own, started first and required to exit 0; meanwhile, under
+   pumiumtally_tpu_torch.analysis --no-contracts``, which imports no
+   torch; its cost layer reads phase 2's build logs) over this checkout
+   in a process of its own, started first and required to exit 0;
+   meanwhile, under
    ``torch.cuda.set_sync_debug_mode("warn")``, two packed moves of phase
    4's tally, one megastep chunk of bench.py's cell (K = 8, Σt 12.5) and
    one move of the partitioned cell (4 parts, halo 1). Each synchronizing
@@ -387,7 +389,20 @@ Phases, each of which raises (exit code != 0) on any failed check:
    package (file, line, function): every site must be a counted PUMI001
    entry of LINT_BASELINE_TORCH.json or lie in a module that PUMI002
    approves for transfers. The sites and their counts are printed; syncs
-   inside the kernels' ``ctypes`` libraries are not seen by torch.
+   inside the kernels' ``ctypes`` libraries are not seen by torch;
+26. contracts (``[contracts]`` lines): the kernel resource contracts
+   (analysis/costmodel.py) over phase 2's fresh build logs of the four
+   sources: every instantiation's ptxas record and its float64 SASS
+   instructions (``cuobjdump -sass``), the baseline-free invariants (the
+   card's opt-in shared memory read from the device), the drift against
+   PERF_CONTRACTS_TORCH.json and its source digests, and the shared
+   memory mirror against the bytes each source's ``pumi_*_smem`` entry
+   says a launch passes; the program contracts (analysis/contracts.py):
+   the CPU families on this host against CONTRACTS_TORCH.json and the
+   ``cuda`` family (a packed move and a megastep chunk through the
+   kernels); ``cost.peak.cuda``: phase 4's ``max_memory_allocated``
+   against the analytic allowance of the main cell. Any finding outside
+   LINT_BASELINE_TORCH.json raises.
 
 The peaks of device memory that phases 16 (c), 17 (c) and 19 (b) print
 follow a garbage collection (``settle_memory``): they count what is
@@ -617,7 +632,7 @@ def phase_main_path(tmpdir: str):
 
     prev = pos.copy()
     path = 0.0
-    late_segs, late_secs = 0, 0.0
+    late_segs, late_secs, most_segs = 0, 0.0, 0
     for move in range(1, 5):
         direction = rng.normal(size=(n, 3))
         direction /= np.linalg.norm(direction, axis=1, keepdims=True)
@@ -665,6 +680,7 @@ def phase_main_path(tmpdir: str):
         if move >= 2:
             late_segs += st["segments"]
             late_secs += secs
+        most_segs = max(most_segs, st["segments"])
         log(f"[main] move {move}: {secs:.4f} s, segments={st['segments']}, "
             f"crossings={st['crossings']}, loop_iters={st['loop_iters']}, "
             f"segments/s={st['segments'] / secs:.4e}, "
@@ -692,10 +708,13 @@ def phase_main_path(tmpdir: str):
     cells_m = re.search(r'NumberOfCells="(\d+)"', head)
     if cells_m is None or int(cells_m.group(1)) != mesh.ntet:
         raise AssertionError(".vtu does not hold the mesh's cells")
+    # cost.peak.cuda (phase 26) holds this peak to the analytic allowance.
+    snaps["peak"] = dict(bytes=torch.cuda.max_memory_allocated(),
+                         segments=most_segs)
     log(f"[main] times: init {tally.tally_times.initialization_time:.3f} s, "
         f"tally {tally.tally_times.total_time_to_tally:.3f} s, "
         f"vtk {tally.tally_times.vtk_file_write_time:.3f} s; "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated()} bytes")
+        f"max_memory_allocated={snaps['peak']['bytes']} bytes")
     log(f"[main] launches: {launches}; transfers {tally.io}")
     if (tally.io["h2d_transfers"], tally.io["d2h_transfers"]) != (5, 5):
         raise AssertionError("the packed facade did not make one transfer "
@@ -3087,19 +3106,26 @@ def walk_bound(rows: int, row_bytes: int, bins: int, item: int,
                                    else "operations"), nbytes
 
 
+def ptxas_records(lib: str) -> dict:
+    """{instantiation: ptxas record} of ``lib``'s build log, read by the
+    resource contracts' parser (analysis/costmodel.py::parse_ptxas)."""
+    from pumiumtally_tpu_torch.analysis.costmodel import parse_ptxas
+
+    with open(lib[:-3] + ".log") as f:
+        return parse_ptxas(f.read())
+
+
 def walk_registers(lib: str, layouts=(1, 2)) -> list:
     """ptxas's registers and spills of the walk kernel's instantiations of
     the given table layouts, from the build log."""
-    out, kernel = [], None
-    pat = re.compile(r"walk_kernelI([fd])Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E")
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "Function properties for" in line:
-                m = pat.search(line)
-                kernel = m.groups() if m and int(m.group(6)) in layouts \
-                    else None
-            elif kernel and ("registers" in line or "spill" in line):
-                out.append((kernel, line.strip()))
+    from pumiumtally_tpu_torch.analysis.costmodel import ptxas_lines
+
+    pat = re.compile(r"walk_kernel<([fd])Lb(\d)ELb(\d)ELb(\d)ELb(\d)ELi(\d)E")
+    out = []
+    for inst, rec in ptxas_records(lib).items():
+        m = pat.match(inst)
+        if m and int(m.group(6)) in layouts:
+            out += [(m.groups(), line) for line in ptxas_lines(rec)]
     return out
 
 
@@ -4759,18 +4785,15 @@ def width_ptxas(lib: str) -> dict:
     """{(dtype letter, "initial" or "move", width): ptxas lines} of the
     packed, non-feature, robust walk instantiations at every width, from
     the build log."""
-    pat = re.compile(r"walk_kernelI([fd])Lb1ELb(\d)ELb(\d)ELb0ELi0ELi(\d+)E")
-    out, key = {}, None
-    with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "Function properties for" in line:
-                m = pat.search(line)
-                key = None
-                if m and (m.group(2) == "1" or m.group(3) == "1"):
-                    key = (m.group(1), "initial" if m.group(2) == "1"
-                           else "move", int(m.group(4)))
-            elif key is not None and ("registers" in line or "spill" in line):
-                out.setdefault(key, []).append(line.strip())
+    from pumiumtally_tpu_torch.analysis.costmodel import ptxas_lines
+
+    pat = re.compile(r"walk_kernel<([fd])Lb1ELb(\d)ELb(\d)ELb0ELi0ELi(\d+)E>")
+    out = {}
+    for inst, rec in ptxas_records(lib).items():
+        m = pat.match(inst)
+        if m and (m.group(2) == "1" or m.group(3) == "1"):
+            out[(m.group(1), "initial" if m.group(2) == "1" else "move",
+                 int(m.group(4)))] = ptxas_lines(rec)
     return out
 
 
@@ -6210,7 +6233,8 @@ def phase_host_syncs(tally) -> dict:
     root = os.path.dirname(os.path.abspath(__file__))
     t_lint = time.perf_counter()
     lint = subprocess.Popen(
-        [sys.executable, "-m", "pumiumtally_tpu_torch.analysis"], cwd=root,
+        [sys.executable, "-m", "pumiumtally_tpu_torch.analysis",
+         "--no-contracts"], cwd=root,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         counted = {(e["path"], e["symbol"]) for e in load_baseline(
@@ -6253,7 +6277,8 @@ def phase_host_syncs(tally) -> dict:
         out, _ = lint.communicate(timeout=300)
     lint_s = time.perf_counter() - t_lint
     own = re.search(r"analysis: ([0-9.]+) s", out)
-    log(f"[syncs] runner: python -m pumiumtally_tpu_torch.analysis exit "
+    log(f"[syncs] runner: python -m pumiumtally_tpu_torch.analysis "
+        f"--no-contracts exit "
         f"{lint.returncode} in {lint_s:.2f} s on this host (its own clock "
         f"{own.group(1) if own else '?'} s), beside the watched runs")
     if lint.returncode != 0:
@@ -6281,6 +6306,122 @@ def phase_host_syncs(tally) -> dict:
         raise AssertionError(f"synchronizing operations outside the "
                              f"lint's allowance: {outside}")
     return dict(sites=dict(watch.sites), runs=runs, lint_s=lint_s)
+
+
+SASS: dict = {}  # the float64 census of phase 26, started in phase 25
+
+
+def start_sass_census() -> None:
+    """``cuobjdump -sass`` of the four libraries in a thread (the dumps
+    take seconds), so that phase 25's runs overlap it; phase 26 joins."""
+    from pumiumtally_tpu_torch.analysis import costmodel as M
+
+    def run():
+        t0 = time.perf_counter()
+        SASS["f64"] = M.sass_census(M.find_logs())
+        SASS["seconds"] = time.perf_counter() - t0
+
+    SASS["thread"] = threading.Thread(target=run, daemon=True)
+    SASS["thread"].start()
+
+
+def phase_contracts(mesh, peak: dict, bank: str) -> dict:
+    """26. The kernel resource contracts over phase 2's build logs (and
+    ``cost.bank`` over the entries of phase 21's bank at ``bank``), the
+    program contracts (the CPU families on this host, the ``cuda`` family
+    on the card) and ``cost.peak.cuda`` on phase 4's peak (``peak``:
+    ``max_memory_allocated`` and the largest move's segments). Raises on
+    any finding outside LINT_BASELINE_TORCH.json. Returns the seconds of
+    each part and the numbers printed."""
+    from pumiumtally_tpu_torch.analysis import (
+        apply_baseline,
+        contracts as C,
+        costmodel as M,
+        load_baseline,
+    )
+    from pumiumtally_tpu_torch.ops import walk_cuda
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    entries = load_baseline(os.path.join(root, "LINT_BASELINE_TORCH.json"))
+    out, findings = {}, []
+    t0 = time.perf_counter()
+    logs = M.find_logs()
+    if set(logs) != set(SOURCES):
+        raise AssertionError(f"build logs of {sorted(logs)} only")
+    if SASS.get("thread") is None:
+        start_sass_census()
+    SASS["thread"].join()
+    out["sass_s"] = SASS["seconds"]
+    fresh = M.capture_ptxas(logs, f64=SASS["f64"])
+    committed = M.load_perf_contracts(
+        os.path.join(root, M.PERF_CONTRACTS_FILE))
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    findings += (M.check_cost(fresh, optin) + M.check_stale(committed["ptxas"])
+                 + M.diff_cost(fresh, committed["ptxas"])
+                 + M.check_smem_entries())
+    metas = []
+    for dirpath, _, files in os.walk(bank):
+        if "META.json" in files:
+            with open(os.path.join(dirpath, "META.json")) as f:
+                metas.append(json.load(f))
+    findings += M.check_bank(metas, fresh)
+    out["ptxas_s"] = time.perf_counter() - t0
+    insts = {i: r for s in fresh["sources"].values()
+             for i, r in s["instantiations"].items()}
+    spills = {i: (r["spill_stores"], r["spill_loads"]) for i, r in insts.items()
+              if r["spill_stores"] or r["spill_loads"]}
+    f64 = {i: r["f64"] for i, r in insts.items()
+           if r.get("f64") and "<d" not in i}
+    log(f"[contracts] ptxas: {len(insts)} instantiations of "
+        f"{sorted(fresh['sources'])} under {fresh['environment']}, "
+        f"registers {min(r['registers'] for r in insts.values())}-"
+        f"{max(r['registers'] for r in insts.values())}, static shared "
+        f"memory up to {max(r['smem'] for r in insts.values())} B (opt-in "
+        f"{optin} B); spills {spills}; float64 SASS instructions outside "
+        f"the float64 instantiations {f64}; {len(metas)} bank entries "
+        f"checked; {out['ptxas_s']:.2f} s (the cuobjdump census "
+        f"{out['sass_s']:.2f} s, begun in phase 25)")
+    t0 = time.perf_counter()
+    cpu = C.capture()
+    findings += C.check_structural(cpu, entries) + C.diff_baseline(
+        cpu, C.load_contracts(os.path.join(root, C.CONTRACTS_FILE)))
+    out["cpu_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cuda = C.capture_cuda()
+    findings += C.check_structural(cuda, entries)
+    out["cuda_s"] = time.perf_counter() - t0
+    for name, w in cuda["families"]["cuda"].items():
+        log(f"[contracts] cuda family, {name} window ({w['moves']} "
+            f"move(s)): calls {w['calls']}, launches {w['launches']}, host "
+            f"reads {w['host_reads']}, transfers {w['transfers']}"
+            + (f", facade io {w['io']}" if "io" in w else "")
+            + f", float64 outputs {w['f64_outputs']}, flux kept "
+            f"{w['flux_kept']}")
+    log(f"[contracts] CPU families on this host (torch {torch.__version__}) "
+        f"against {C.CONTRACTS_FILE}: {out['cpu_s']:.2f} s; the cuda family "
+        f"{out['cuda_s']:.2f} s")
+    records = walk_cuda.record_capacity(MAIN_PARTICLES, peak["segments"])
+    a = M.family_analytic(
+        "trace_packed", n=MAIN_PARTICLES, ntet=mesh.ntet,
+        n_groups=MAIN_GROUPS, itemsize=4, table_bytes=M.mesh_bytes(mesh),
+        records=records)
+    findings += M.check_peak_cuda(peak["bytes"], a)
+    out["peak"] = dict(bytes=peak["bytes"], allowance=M.allowance_bytes(a),
+                       analytic=a)
+    log(f"[contracts] cost.peak.cuda: phase 4's max_memory_allocated "
+        f"{peak['bytes']} B against the allowance {M.allowance_bytes(a)} B "
+        f"(flux {a['flux_bytes']}, lanes {a['lane_bytes']}, tables "
+        f"{a['table_bytes']}, records {a['record_bytes']} for {records} "
+        "records)")
+    ours = [e for e in entries if e["rule"] in ("CONTRACT", "COST")]
+    kept, suppressed, _ = apply_baseline(findings, ours)
+    for f in suppressed:
+        log(f"[contracts] baselined: {f.render()}")
+    if kept:
+        raise AssertionError("contract findings:\n" + "\n".join(
+            f.render() for f in kept))
+    out["instantiations"], out["spills"], out["f64"] = len(insts), spills, f64
+    return out
 
 
 def _probe_entry(p: dict, launches) -> dict:
@@ -6334,7 +6475,7 @@ def main() -> int:
 
 def _phases(card: str, name: str, t_start: float,
             servers: ServerProcesses, serve_dir: str) -> int:
-    """The build, phases 3-25 and the closing lines."""
+    """The build, phases 3-26 and the closing lines."""
     from pumiumtally_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -6342,15 +6483,12 @@ def _phases(card: str, name: str, t_start: float,
     LIBS[:] = libs
     log(f"[build] csrc/{{{','.join(SOURCES)}}}.cu, built together, in "
         f"{time.perf_counter() - t0:.2f} s")
+    from pumiumtally_tpu_torch.analysis.costmodel import ptxas_lines
+
     for lib in libs:  # ptxas's registers, shared memory and spills
-        with open(lib[:-3] + ".log") as f:
-            kernel = ""
-            for line in f:
-                if "Function properties for" in line:
-                    kernel = line.split(" for ", 1)[1].strip()[:72]
-                elif "registers" in line or "spill" in line:
-                    log(f"[build] {os.path.basename(lib)} {kernel}: "
-                        f"{line.strip()}")
+        for inst, rec in ptxas_records(lib).items():
+            for line in ptxas_lines(rec):
+                log(f"[build] {os.path.basename(lib)} {inst}: {line}")
 
     check_sass(libs)
     t0 = time.perf_counter()
@@ -6472,8 +6610,13 @@ def _phases(card: str, name: str, t_start: float,
             f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
+    start_sass_census()
     phase_host_syncs(tally)
     log(f"[phase] host syncs: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    phase_contracts(tally.mesh, snaps["peak"], servers.bank)
+    log(f"[phase] contracts: {time.perf_counter() - t0:.2f} s")
 
     walk = {
         "route": "cuda",

@@ -1,4 +1,4 @@
-"""Static analysis of the port's sources, in two layers.
+"""Static analysis of the port's sources and programs, in four layers.
 
 The port's promises that a runtime test sees only when a failure is
 executed (the move loop's counted host syncs, transfers kept to the
@@ -23,12 +23,19 @@ here on the source text:
     happens-before protocols are verified along all CFG paths of the
     functions that own them, then diffed against the committed
     ``PROTOCOLS_TORCH.json``.
+  * :mod:`analysis.contracts` - the program contracts: the move loop's
+    families run on the CPU under a census of the package's torch calls
+    (wrapper calls, host reads, transfers, float64 outputs, copies of the
+    flux), checked and diffed against ``CONTRACTS_TORCH.json``.
+  * :mod:`analysis.costmodel` - the kernel resource contracts: ptxas's
+    record of every instantiation in ``csrc/`` (registers, shared memory,
+    spills, float64 SASS) and the families' torch-op cost, checked and
+    diffed against ``PERF_CONTRACTS_TORCH.json``.
 
-``python -m pumiumtally_tpu_torch.analysis`` runs both layers with the
-``LINT_BASELINE_TORCH.json`` suppression file: every suppression carries
-a justification, and a stale entry is itself a failure unless
-``--allow-stale``. The kernel resource checks are not part of this
-package yet.
+``python -m pumiumtally_tpu_torch.analysis`` runs the four layers with
+the ``LINT_BASELINE_TORCH.json`` suppression file: every suppression
+carries a justification, and a stale entry is itself a failure unless
+``--allow-stale``.
 """
 from __future__ import annotations
 

@@ -1,12 +1,19 @@
-"""Run the port's two lint layers over its sources.
+"""Run the port's four analysis layers.
 
-  python -m pumiumtally_tpu_torch.analysis                # both layers
+  python -m pumiumtally_tpu_torch.analysis                # all four layers
   python -m pumiumtally_tpu_torch.analysis --ast-only
   python -m pumiumtally_tpu_torch.analysis --protocols-only
   python -m pumiumtally_tpu_torch.analysis --no-protocols
+  python -m pumiumtally_tpu_torch.analysis --no-contracts # no torch import
+  python -m pumiumtally_tpu_torch.analysis --no-cost
   python -m pumiumtally_tpu_torch.analysis --write-protocols
                                   # regenerate PROTOCOLS_TORCH.json
                                   # (intentional protocol drift only)
+  python -m pumiumtally_tpu_torch.analysis --write-contracts
+                                  # regenerate CONTRACTS_TORCH.json
+  python -m pumiumtally_tpu_torch.analysis --write-perf-contracts \
+      [--ptxas-dir DIR]           # regenerate PERF_CONTRACTS_TORCH.json
+                                  # from the build logs (on the card)
   python -m pumiumtally_tpu_torch.analysis --explain PUMI001
                                   # a rule's rationale, example finding
                                   # and fix pattern (also 'protocol' or
@@ -22,16 +29,26 @@ protocol layer (analysis/protolint.py) verifies the declared
 effect-ordering protocols of the crash-safety surface along all CFG
 paths of their owning functions, and diffs the effect inventories
 against the committed PROTOCOLS_TORCH.json (a capture from another
-environment is refused). Both layers share one parsed index. Findings
-are suppressed per (rule, path, symbol) through LINT_BASELINE_TORCH.json;
-every suppression carries a justification, and a STALE entry (its
-finding no longer exists) is itself a failure unless --allow-stale.
+environment is refused). Both layers share one parsed index. The
+contracts layer (analysis/contracts.py) runs the move loop's program
+families on the CPU under a census and checks them (CONTRACT findings)
+and their drift from CONTRACTS_TORCH.json. The cost layer
+(analysis/costmodel.py, COST findings) checks ptxas's report of every
+instantiation in csrc/: fresh build logs (the package's _build/, or
+--ptxas-dir) are checked and diffed against PERF_CONTRACTS_TORCH.json;
+without them, the committed capture's invariants and its source digests
+against the tree's; and the CPU families' torch-op cost on the shape
+ladder. --no-contracts skips the contracts layer and the cost layer's
+families, so that the run imports no torch. Findings are suppressed per
+(rule, path, symbol) through LINT_BASELINE_TORCH.json; every suppression
+carries a justification, and a STALE entry (its finding no longer
+exists) is itself a failure unless --allow-stale.
 
 Exit 0: no finding outside the baseline and no stale entry; 1: findings
 or a stale entry; 2: a configuration error (a baseline entry without a
-justification, or one whose rule routes to no layer) or a usage error.
-The kernel resource checks (the JAX package's contracts and cost layers)
-are not part of this runner.
+justification, or one whose rule routes to no layer, or
+--write-perf-contracts without the build logs of every source) or a
+usage error.
 """
 from __future__ import annotations
 
@@ -45,7 +62,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 #: Rule prefix of each layer's baseline entries.
-LAYERS = {"astlint": "PUMI", "protolint": "PROTO"}
+LAYERS = {"astlint": "PUMI", "protolint": "PROTO", "contracts": "CONTRACT",
+          "costmodel": "COST"}
 
 
 def _layer_entries(entries, layer):
@@ -113,6 +131,99 @@ def run_protocols(args, entries, index) -> int:
                   args.allow_stale)
 
 
+class Runs:
+    """The CPU families' runs, kept so that the cost layer's first ladder
+    rung reuses the contracts layer's (the same problem)."""
+
+    def __init__(self):
+        self.done: dict = {}
+
+    def __call__(self, family, *, n, cells, frames=None):
+        from . import contracts as C
+
+        key = (family, n, cells)
+        if key not in self.done:
+            self.done[key] = C.run_family(family, n=n, cells=cells,
+                                          frames=frames)
+        return self.done[key]
+
+
+def run_contracts(args, entries, runs) -> int:
+    from . import apply_baseline
+    from . import contracts as C
+
+    path = os.path.join(ROOT, C.CONTRACTS_FILE)
+    cap = C.capture(run=runs)
+    findings = C.check_structural(cap, entries)
+    if args.write_contracts:
+        C.write_contracts(path, cap)
+        print(f"wrote {C.CONTRACTS_FILE} for {len(cap['families'])} "
+              "families")
+    elif os.path.exists(path):
+        findings += C.diff_baseline(cap, C.load_contracts(path))
+    else:
+        findings.append(C._finding(
+            "baseline.missing", "all",
+            f"{C.CONTRACTS_FILE} not found — generate it with python -m "
+            "pumiumtally_tpu_torch.analysis --write-contracts"))
+    kept, suppressed, unused = apply_baseline(
+        findings, _layer_entries(entries, "contracts"))
+    return report("contracts", kept, suppressed, unused, args.verbose,
+                  args.allow_stale)
+
+
+def run_cost(args, entries, runs) -> int:
+    """The ptxas capture (fresh logs if any, else the committed one) and,
+    with the contracts layer on, the families' torch-op cost."""
+    from . import apply_baseline
+    from . import costmodel as M
+
+    path = os.path.join(ROOT, args.perf_contracts)
+    committed = (M.load_perf_contracts(path) if os.path.exists(path)
+                 else {})
+    logs = M.find_logs(args.ptxas_dir)
+    if args.write_perf_contracts and set(logs) != set(M.SOURCES):
+        raise ValueError(
+            f"--write-perf-contracts needs the build logs of every source "
+            f"({', '.join(M.SOURCES)}); found {sorted(logs) or 'none'} in "
+            f"{args.ptxas_dir or 'the package _build/'}: build them on the "
+            "card first")
+    base_ptxas = committed.get("ptxas", {"environment": {}, "sources": {}})
+    findings = []
+    if logs:
+        fresh = M.capture_ptxas(logs, f64=M.sass_census(logs)
+                                if args.write_perf_contracts else None)
+        merged = dict(base_ptxas, sources=dict(base_ptxas.get("sources", {}),
+                                               **fresh["sources"]))
+        findings += M.diff_cost(fresh, base_ptxas) if committed else []
+        ptxas = fresh if args.write_perf_contracts else merged
+        print(f"costmodel: ptxas logs of {sorted(logs)} under "
+              f"{fresh['environment']}")
+    else:
+        ptxas = base_ptxas
+    findings += M.check_cost(ptxas) + M.check_stale(ptxas)
+    families = committed.get("families")
+    if not args.no_contracts:
+        families = M.capture_families(run=runs)
+        if committed.get("families") and not args.write_perf_contracts:
+            findings += M.diff_families(families, committed["families"])
+    if families:
+        findings += M.check_families(families)
+    if args.write_perf_contracts:
+        M.write_perf_contracts(path, {"ptxas": ptxas, "families": families})
+        n = sum(len(s["instantiations"]) for s in ptxas["sources"].values())
+        print(f"wrote {args.perf_contracts}: {n} instantiations")
+    elif not committed:
+        findings.append(M._finding(
+            "cost.baseline.missing",
+            f"{args.perf_contracts} not found — write it on the card with "
+            "--write-perf-contracts"))
+    kept, suppressed, unused = apply_baseline(
+        findings, _layer_entries(entries, "costmodel"))
+    return report("costmodel", kept, suppressed, unused, args.verbose,
+                  args.allow_stale)
+
+
 def run_explain(topic: str) -> int:
     from . import astlint, protolint
 
@@ -142,9 +253,23 @@ def parser() -> argparse.ArgumentParser:
                     help="run only the protocol layer")
     ap.add_argument("--no-protocols", action="store_true",
                     help="skip the protocol layer")
+    ap.add_argument("--no-contracts", action="store_true",
+                    help="skip the contracts layer and the cost layer's "
+                         "CPU families (the run imports no torch)")
+    ap.add_argument("--no-cost", action="store_true",
+                    help="skip the cost layer")
     ap.add_argument("--write-protocols", action="store_true",
                     help="regenerate PROTOCOLS_TORCH.json from the current "
                          "tree (intentional protocol drift only)")
+    ap.add_argument("--write-contracts", action="store_true",
+                    help="regenerate CONTRACTS_TORCH.json")
+    ap.add_argument("--write-perf-contracts", action="store_true",
+                    help="regenerate PERF_CONTRACTS_TORCH.json from the "
+                         "build logs of every source (refused without "
+                         "them)")
+    ap.add_argument("--ptxas-dir", metavar="DIR",
+                    help="read the build logs (lib<name>-<hash>.log) from "
+                         "DIR instead of the package's _build/")
     ap.add_argument("--explain", metavar="RULE|PROTOCOL",
                     help="print one rule's (or protocol's) rationale, an "
                          "example finding and the fix pattern, then exit")
@@ -152,6 +277,7 @@ def parser() -> argparse.ArgumentParser:
                     help="stale baseline entries warn instead of failing")
     ap.add_argument("--baseline", default="LINT_BASELINE_TORCH.json")
     ap.add_argument("--protocols", default="PROTOCOLS_TORCH.json")
+    ap.add_argument("--perf-contracts", default="PERF_CONTRACTS_TORCH.json")
     ap.add_argument("-v", "--verbose", action="store_true")
     return ap
 
@@ -171,11 +297,20 @@ def main(argv=None, index=None) -> int:
         ap.error("--no-protocols contradicts --protocols-only")
     do_ast = not args.protocols_only
     do_protocols = not (args.ast_only or args.no_protocols)
+    only = args.ast_only or args.protocols_only
+    do_contracts = not (only or args.no_contracts)
+    do_cost = not (only or args.no_cost)
     # A write flag aimed at a disabled layer would exit 0 with the
     # baseline silently NOT regenerated — refuse the combination.
     if args.write_protocols and not do_protocols:
         ap.error("--write-protocols needs the protocol layer; drop "
                  "--ast-only / --no-protocols")
+    if args.write_contracts and not do_contracts:
+        ap.error("--write-contracts needs the contracts layer; drop "
+                 "--ast-only / --protocols-only / --no-contracts")
+    if args.write_perf_contracts and not do_cost:
+        ap.error("--write-perf-contracts needs the cost layer; drop "
+                 "--ast-only / --protocols-only / --no-cost")
 
     from . import load_baseline
 
@@ -189,8 +324,8 @@ def main(argv=None, index=None) -> int:
         if not e["rule"].startswith(tuple(LAYERS.values())):
             raise ValueError(
                 f"baseline entry rule {e['rule']!r} matches no lint layer "
-                "of the port (PUMI* / PROTO*) — fix the rule name or "
-                "remove the entry")
+                "of the port (PUMI* / PROTO* / CONTRACT* / COST*) — fix "
+                "the rule name or remove the entry")
     if index is None:
         from .protolint import build_index
 
@@ -200,6 +335,11 @@ def main(argv=None, index=None) -> int:
         rc |= run_ast(args, entries, index)
     if do_protocols:
         rc |= run_protocols(args, entries, index)
+    runs = Runs()
+    if do_contracts:
+        rc |= run_contracts(args, entries, runs)
+    if do_cost:
+        rc |= run_cost(args, entries, runs)
     print(f"analysis: {time.perf_counter() - t0:.2f} s")
     return rc
 

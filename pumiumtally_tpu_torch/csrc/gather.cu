@@ -44,6 +44,7 @@
 namespace {
 
 constexpr int BLOCK = 256;
+constexpr size_t DYNAMIC_SMEM = 0;  // a launch's dynamic shared memory
 constexpr int PER_THREAD = 2;  // pieces a thread loads before it stores
 constexpr long long BLOCK_PIECES = (long long)BLOCK * PER_THREAD;
 
@@ -90,13 +91,14 @@ int launch_pieces(const void* tbl, const void* idx, long long n,
   const long long blocks = (total + BLOCK_PIECES - 1) / BLOCK_PIECES;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   if (total < (1LL << 31))
-    gather_kernel<V, I, unsigned><<<(unsigned)blocks, BLOCK, 0, s>>>(
-        (const V*)tbl, (const I*)idx, (unsigned)total, pieces, (V*)out);
+    gather_kernel<V, I, unsigned>
+        <<<(unsigned)blocks, BLOCK, DYNAMIC_SMEM, s>>>(
+            (const V*)tbl, (const I*)idx, (unsigned)total, pieces, (V*)out);
   else
     gather_kernel<V, I, unsigned long long>
-        <<<(unsigned)blocks, BLOCK, 0, s>>>((const V*)tbl, (const I*)idx,
-                                            (unsigned long long)total,
-                                            pieces, (V*)out);
+        <<<(unsigned)blocks, BLOCK, DYNAMIC_SMEM, s>>>(
+            (const V*)tbl, (const I*)idx, (unsigned long long)total, pieces,
+            (V*)out);
   return (int)cudaGetLastError();
 }
 
@@ -132,4 +134,10 @@ extern "C" int pumi_gather_i64(const void* tbl, const void* idx, long long n,
                                int row_bytes, int piece, void* out,
                                void* stream) {
   return launch<int64_t>(tbl, idx, n, row_bytes, piece, out, stream);
+}
+
+// pumi_gather_smem gives the dynamic shared memory bytes a gather launch
+// passes (none), for the resource contracts.
+extern "C" long long pumi_gather_smem(void) {
+  return (long long)DYNAMIC_SMEM;
 }

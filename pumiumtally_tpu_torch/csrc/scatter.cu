@@ -934,3 +934,13 @@ extern "C" int pumi_bucket_count(const void* bin, const void* order, int m,
 
 PUMI_SCATTER_ENTRIES(f32, float)
 PUMI_SCATTER_ENTRIES(f64, double)
+
+// pumi_scatter_smem_<t> gives the dynamic shared memory bytes a bucket
+// fold launch passes for buckets of at most cap records and 2^shift bins
+// (bucket_smem); the other kernels of this file pass none.
+extern "C" long long pumi_scatter_smem_f32(int cap, int shift) {
+  return (long long)bucket_smem<float>(cap, shift);
+}
+extern "C" long long pumi_scatter_smem_f64(int cap, int shift) {
+  return (long long)bucket_smem<double>(cap, shift);
+}

@@ -45,6 +45,7 @@
 namespace {
 
 constexpr int BLOCK = 256;
+constexpr size_t DYNAMIC_SMEM = 0;  // a launch's dynamic shared memory
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
@@ -157,7 +158,8 @@ int launch(uint32_t mk0, uint32_t mk1, const void* pid, int n_total,
   if (n_total < 1 || cap < 1 || max_local < 1 || nclass < 1)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + BLOCK - 1) / BLOCK;
-  sample_flight_kernel<T><<<blocks, BLOCK, 0, (cudaStream_t)stream>>>(
+  sample_flight_kernel<T>
+      <<<blocks, BLOCK, DYNAMIC_SMEM, (cudaStream_t)stream>>>(
       mk0, mk1, (const int32_t*)pid, n_total, (const int32_t*)elem,
       (const uint8_t*)alive, (const T*)origin, (const int32_t*)class_id, cap,
       max_local, (const T*)sigma_t, nclass, n, (T*)dest, (T*)coll_u, (T*)roul_u,
@@ -192,4 +194,10 @@ extern "C" int pumi_sample_flight_f64(
   return launch<double>(mk0, mk1, pid, n_total, elem, alive, origin,
                         class_id, cap, max_local, sigma_t, nclass, n, dest,
                         coll_u, roul_u, u_out, stream);
+}
+
+// pumi_source_smem gives the dynamic shared memory bytes a flight launch
+// passes (none), for the resource contracts.
+extern "C" long long pumi_source_smem(void) {
+  return (long long)DYNAMIC_SMEM;
 }

@@ -1260,3 +1260,13 @@ int resident(int robust, int initial, int ordered, int layout, int block,
 
 PUMI_WALK_ENTRY(f32, float)
 PUMI_WALK_ENTRY(f64, double)
+
+// pumi_walk_smem_<t> gives the dynamic shared memory bytes a walk launch
+// of `block` threads passes (0 while its batches fit the static limit):
+// what the resource contracts' mirror of dynamic_bytes is held to.
+extern "C" long long pumi_walk_smem_f32(int block) {
+  return (long long)dynamic_bytes<float>(block);
+}
+extern "C" long long pumi_walk_smem_f64(int block) {
+  return (long long)dynamic_bytes<double>(block);
+}

@@ -26,7 +26,8 @@ LAUNCHES = 0
 
 _INDEX_TAG = {torch.int32: "i32", torch.int64: "i64"}
 #: The C entries of csrc/gather.cu this module binds.
-SYMBOLS = tuple(f"pumi_gather_{t}" for t in _INDEX_TAG.values())
+SYMBOLS = tuple(f"pumi_gather_{t}" for t in _INDEX_TAG.values()) + (
+    "pumi_gather_smem",)
 _FNS: dict = {}
 
 
@@ -82,6 +83,14 @@ def _kernel(tag: str):
         fn.restype = ctypes.c_int
         _FNS[tag] = fn
     return fn
+
+
+def dynamic_smem() -> int:
+    """The dynamic shared memory bytes a gather launch passes
+    (``pumi_gather_smem``; analysis/costmodel.py checks its mirror)."""
+    fn = _build.bind("gather", "pumi_gather_smem", SYMBOLS)
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
 
 
 def gather_cuda(tbl, idx):

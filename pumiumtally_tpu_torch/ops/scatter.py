@@ -263,7 +263,7 @@ def lane_order(keys, nbins: int):
 #: The C entries of csrc/scatter.cu this module binds.
 SYMBOLS = ("pumi_bucket_count",) + tuple(
     f"pumi_scatter_{name}_{tag}"
-    for name in ("atomic", "bucket", "ordered", "ordered_large")
+    for name in ("atomic", "bucket", "ordered", "ordered_large", "smem")
     for tag in _DTYPE_TAG.values())
 
 
@@ -273,6 +273,16 @@ def _entry(name: str, dtype=None):
         SYMBOLS)
     fn.restype = ctypes.c_int
     return fn
+
+
+def bucket_dynamic_smem(dtype, cap: int, shift: int) -> int:
+    """The dynamic shared memory bytes a bucket fold launch passes for
+    buckets of at most ``cap`` records and 2^``shift`` bins
+    (``pumi_scatter_smem_<t>``; analysis/costmodel.py checks its
+    mirror)."""
+    fn = _entry("pumi_scatter_smem", dtype)
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    return int(fn(int(cap), int(shift)))
 
 
 def _stream(dev) -> int:

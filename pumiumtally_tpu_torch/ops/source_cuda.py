@@ -36,7 +36,8 @@ _ARGTYPES = (
     + [ctypes.c_void_p] * 5              # dest, coll_u, roul_u, u_out, stream
 )
 #: The C entries of csrc/source.cu this module binds.
-SYMBOLS = tuple(f"pumi_sample_flight_{t}" for t in _DTYPE_TAG.values())
+SYMBOLS = tuple(f"pumi_sample_flight_{t}" for t in _DTYPE_TAG.values()) + (
+    "pumi_source_smem",)
 _FNS: dict = {}
 
 
@@ -49,6 +50,14 @@ def _entry(dtype):
         fn.restype = ctypes.c_int
         _FNS[dtype] = fn
     return fn
+
+
+def dynamic_smem() -> int:
+    """The dynamic shared memory bytes a flight launch passes
+    (``pumi_source_smem``; analysis/costmodel.py checks its mirror)."""
+    fn = _build.bind("source", "pumi_source_smem", SYMBOLS)
+    fn.argtypes, fn.restype = [], ctypes.c_longlong
+    return int(fn())
 
 
 def _check(pid, elem, alive, origin, class_id, sigma_t, cap, max_local):

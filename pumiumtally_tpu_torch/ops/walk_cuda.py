@@ -153,7 +153,7 @@ LANE_PAYLOAD = {torch.float32: 48, torch.float64: 80}
 _SCAN_TILE = 4096  # csrc/walk.cu SCAN_TILE
 #: The C entries of csrc/walk.cu this module binds.
 SYMBOLS = tuple(f"pumi_{name}_{tag}" for name in ("walk", "lanes",
-                                                  "walk_resident")
+                                                  "walk_resident", "walk_smem")
                 for tag in _DTYPE_TAG.values())
 _entries: dict = {}
 
@@ -168,6 +168,15 @@ def _entry(name: str, dtype):
         fn.restype = ctypes.c_int
         _entries[key] = fn
     return fn
+
+
+def dynamic_smem(dtype, block: int) -> int:
+    """The dynamic shared memory bytes a walk launch of ``block`` threads
+    passes (``pumi_walk_smem_<t>``; the resource contracts' check of
+    their mirror, analysis/costmodel.py)."""
+    fn = _build.bind("walk", f"pumi_walk_smem_{_DTYPE_TAG[dtype]}", SYMBOLS)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(int(block)))
 
 
 def block_for(value: int | None) -> int:

@@ -17,8 +17,9 @@ nothing to another)::
       <name>-<hash>/META.json             schema, environment, source
                                           sha256, nvcc flags and version,
                                           library sha256, the symbols the
-                                          wrappers bind, ptxas's registers
-                                          and spills, build seconds
+                                          wrappers bind, ptxas's registers,
+                                          shared memory and spills by
+                                          instantiation, build seconds
 
 Load-time validation, in the role of JAX's ``cost.donation.aot`` and
 ``cost.io.aot``: an entry is rebuilt and rewritten, its cause counted in
@@ -58,7 +59,6 @@ import ctypes
 import hashlib
 import json
 import os
-import re
 import threading
 import time
 
@@ -72,9 +72,6 @@ ENV_FAULT = "PUMI_TPU_AOT_FAULT"
 
 #: The libraries a facade's main path and source loop run.
 FACADE_LIBRARIES = ("walk", "scatter", "source")
-
-_PTXAS = re.compile(r"Used \d+ registers|\d+ bytes spill (?:stores|loads)")
-
 
 def environment() -> dict:
     """The bank's environment: the tuning database's."""
@@ -97,17 +94,15 @@ def sha256_file(path: str) -> str:
     return h.hexdigest()
 
 
-def ptxas_summary(log_text: str) -> list[str]:
-    """ptxas's register and spill counts, kernel by kernel, from nvcc's
-    ``-Xptxas=-v`` report."""
-    out, kernel = [], ""
-    for line in log_text.splitlines():
-        if "Function properties for" in line:
-            kernel = line.split(" for ", 1)[1].strip()
-        found = _PTXAS.findall(line)
-        if found:
-            out.append(f"{kernel}: {', '.join(found)}")
-    return out
+def ptxas_summary(log_text: str) -> dict:
+    """ptxas's registers, barriers, shared memory, stack and spills,
+    instantiation by instantiation, from nvcc's ``-Xptxas=-v`` report
+    (``analysis/costmodel.py::parse_ptxas``, the resource contracts'
+    parser: ``cost.bank`` holds an entry's summary to the committed
+    capture)."""
+    from ..analysis.costmodel import parse_ptxas, summary
+
+    return summary(parse_ptxas(log_text))
 
 
 def nvcc_build(names: list, dirs: list) -> list[str]:

@@ -1,8 +1,9 @@
-"""Predicted seconds and the calibration join of the port's autotuner.
+"""A candidate's counts for the port's autotuner.
 
-Counterpart of the slice of ``pumiumtally_tpu/analysis/costmodel.py`` that
-the JAX tuner calls (its own copy): ``NOMINAL_COEFFS``,
-``predict_seconds`` and ``calibrate_points``.
+The roofline the JAX tuner calls from ``pumiumtally_tpu/analysis/
+costmodel.py`` (``NOMINAL_COEFFS``, ``predict_seconds``,
+``calibrate_points``) lives in the port's own
+``analysis/costmodel.py``; this module imports it for the tuner.
 
 The JAX tuner reads a candidate's ``(flops, bytes_accessed)`` from the
 compiled XLA program. The port launches hand-written kernels and has no
@@ -20,9 +21,13 @@ are not a measurement of any card.
 """
 from __future__ import annotations
 
-import math
-
 import torch
+
+from ..analysis.costmodel import (  # noqa: F401  (the tuner's names)
+    NOMINAL_COEFFS,
+    calibrate_points,
+    predict_seconds,
+)
 
 # Floating-point operations a lane iteration of the walk does, counted
 # from csrc/walk.cu (chip_smoke.py's bounds use them too): 4 faces x
@@ -41,28 +46,6 @@ LANE_OUT = {4: 12 + 4 + 4 + 1 + 4 + 16, 8: 24 + 4 + 4 + 1 + 8 + 16}
 THREEFRY_OPS = 2 + 2 + 20 * 3 + 5 * 3
 FLIGHT_OPS_PER_LANE = 6 * THREEFRY_OPS + 2
 
-NOMINAL_COEFFS = {
-    "flops_per_s": 2.0e11,   # effective throughput
-    "bytes_per_s": 5.0e10,   # effective memory rate
-    "dispatch_s": 5.0e-5,    # per launch
-}
-
-
-def predict_seconds(metrics: dict, coeffs: dict, *,
-                    dispatches: float = 0.0) -> float:
-    """Roofline-style seconds of one program from its ``flops`` and
-    ``bytes_accessed``: compute time + memory time + ``dispatches``
-    launches. A coefficient ``calibrate_points`` could not fit (None)
-    contributes no term."""
-    t = dispatches * (coeffs.get("dispatch_s") or 0.0)
-    f = coeffs.get("flops_per_s")
-    if f:
-        t += metrics["flops"] / f
-    b = coeffs.get("bytes_per_s")
-    if b:
-        t += metrics["bytes_accessed"] / b
-    return t
-
 
 def walk_metrics(w: dict, iters: float, segments: float) -> dict:
     """``(flops, bytes_accessed)`` of one move of the workload ``w``
@@ -80,63 +63,3 @@ def walk_metrics(w: dict, iters: float, segments: float) -> dict:
         bytes_accessed=(rows * 20 * item + bins * 2 * 2 * item
                         + n * (LANE_IN[item] + LANE_OUT[item])),
     )
-
-
-def calibrate_points(points: list[dict]) -> dict | None:
-    """Fit effective throughput and memory rate from measured
-    ``(flops, bytes_accessed, seconds)`` points of one shape class:
-    ``t ≈ flops·x + bytes·y`` by 2×2 least squares. A degenerate or
-    unphysical fit (singular system, a coefficient <= 0, as when every
-    candidate has the same counts) falls back to the single-term fit that
-    explains the timings best, the other coefficient None. None with no
-    points."""
-    pts = [
-        (float(p["flops"]), float(p["bytes_accessed"]),
-         float(p["seconds"]))
-        for p in points
-        if p.get("seconds") and p["seconds"] > 0
-    ]
-    if not pts:
-        return None
-
-    def _one_term(idx):
-        # t ≈ v·x, so x = Σ v·t / Σ v² (least squares through 0)
-        num = sum(p[idx] * p[2] for p in pts)
-        den = sum(p[idx] * p[idx] for p in pts)
-        return (num / den) if den > 0 and num > 0 else None
-
-    def _rmse(x, y):
-        err = [
-            (f * (x or 0.0) + b * (y or 0.0) - t) ** 2
-            for f, b, t in pts
-        ]
-        return math.sqrt(sum(err) / len(err))
-
-    x = y = None
-    if len(pts) >= 2:
-        sff = sum(f * f for f, _, _ in pts)
-        sbb = sum(b * b for _, b, _ in pts)
-        sfb = sum(f * b for f, b, _ in pts)
-        sft = sum(f * t for f, _, t in pts)
-        sbt = sum(b * t for _, b, t in pts)
-        det = sff * sbb - sfb * sfb
-        if det > 0 and abs(det) > 1e-12 * max(sff * sbb, 1.0):
-            x = (sft * sbb - sbt * sfb) / det
-            y = (sbt * sff - sft * sfb) / det
-    if x is None or y is None or x <= 0 or y <= 0:
-        xf, yb = _one_term(0), _one_term(1)
-        cand = []
-        if xf is not None:
-            cand.append((xf, None))
-        if yb is not None:
-            cand.append((None, yb))
-        if not cand:
-            return None
-        x, y = min(cand, key=lambda c: _rmse(*c))
-    return {
-        "flops_per_s": (1.0 / x) if x else None,
-        "bytes_per_s": (1.0 / y) if y else None,
-        "rmse_s": _rmse(x, y),
-        "points": len(pts),
-        "model": "seconds = flops/flops_per_s + bytes/bytes_per_s",
-    }

@@ -1939,3 +1939,50 @@ def test_fleet_migration_bitwise_on_card(cuda, tmp_path):
             assert router.result(j).tobytes() == want[j], j
     finally:
         router.close()
+
+
+# --------------------------------------------------------------------- #
+# The resource and program contracts (analysis/costmodel.py, contracts.py)
+# --------------------------------------------------------------------- #
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_fresh_build_capture_equals_committed(cuda):
+    """A build of every source here gives the ptxas capture committed in
+    PERF_CONTRACTS_TORCH.json, instantiation for instantiation (float64
+    SASS counts included), at the tree's source digests."""
+    from pumiumtally_tpu_torch.analysis import costmodel as M
+    from pumiumtally_tpu_torch.ops import _build
+
+    _build.build_many(M.SOURCES)
+    logs = M.find_logs()
+    fresh = M.capture_ptxas(logs, f64=M.sass_census(logs))
+    committed = M.load_perf_contracts(
+        os.path.join(_ROOT, M.PERF_CONTRACTS_FILE))["ptxas"]
+    assert M.check_stale(committed) == []
+    assert [f.render() for f in M.diff_cost(fresh, committed)] == []
+    assert fresh["sources"] == committed["sources"]
+
+
+def test_smem_mirror_matches_the_c_entries(cuda):
+    """cost.smem: the mirror of dynamic_bytes and bucket_smem gives the
+    bytes each source's pumi_*_smem entry says a launch passes."""
+    from pumiumtally_tpu_torch.analysis import costmodel as M
+
+    assert [f.render() for f in M.check_smem_entries()] == []
+    assert M.entry_smem("walk", "d", 512) == 80 * 2 * 512
+    assert M.entry_smem("walk", "f", 512) == 0
+
+
+def test_cuda_contract_family_is_clean(cuda):
+    """The kernel path's program contracts: a packed move and a megastep
+    chunk through the kernels, every invariant of check_structural."""
+    from pumiumtally_tpu_torch.analysis import contracts as C
+    from pumiumtally_tpu_torch.analysis import load_baseline
+
+    cap = C.capture_cuda()
+    entries = load_baseline(os.path.join(_ROOT, "LINT_BASELINE_TORCH.json"))
+    assert [f.render() for f in C.check_structural(cap, entries)] == []
+    w = cap["families"]["cuda"]
+    assert w["move"]["io"]["h2d_transfers"] == 1
+    assert w["chunk"]["launches"]["flight"] == w["chunk"]["moves"]

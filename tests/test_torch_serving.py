@@ -181,11 +181,11 @@ def test_meta_records_symbols_ptxas_flags_and_nvcc(tmp_path):
     assert meta["symbols"] == _build.bound_symbols("walk") == [
         "pumi_lanes_f32", "pumi_lanes_f64", "pumi_walk_f32",
         "pumi_walk_f64", "pumi_walk_resident_f32", "pumi_walk_resident_f64",
+        "pumi_walk_smem_f32", "pumi_walk_smem_f64",
     ]
-    assert meta["ptxas"] == [
-        "_Z4walkILi128EEvv: 0 bytes spill stores, 0 bytes spill loads",
-        "_Z4walkILi128EEvv: Used 64 registers",
-    ]
+    assert meta["ptxas"] == {"walk<Li128E>": dict(
+        registers=64, barriers=1, smem=6144, stack=0, spill_stores=0,
+        spill_loads=0)}
     assert meta["build_seconds"] >= 0 and meta["built_together"] == ["walk"]
     assert "pumi_bucket_count" in _build.bound_symbols("scatter")
 

@@ -21,10 +21,17 @@ Left out, and why:
   (``test_jit_inside_loop_fires``, ``test_static_loop_var_fires_and_hoisted_clean``):
   the port donates no buffer and builds no jit, and drops both rules;
 * the contract-layer cases ``test_extract_signature_shape`` …
-  ``test_diff_baseline_names_drift`` (test_static_analysis.py:644-775)
-  and the JAX runner's ``test_lint_runner_exits_clean``: the kernel
-  resource checks wait for their own slice (ROADMAP A14b); the port's
-  runner has its own exit-clean case here.
+  ``test_diff_baseline_names_drift`` (test_static_analysis.py:644-775):
+  their counterparts are in tests/test_torch_contracts.py, beside the
+  cost layer's in tests/test_torch_costmodel.py; the JAX runner's
+  ``test_lint_runner_exits_clean``: the port's runner has its own
+  exit-clean case here, over its four layers.
+
+The runner's contracts and cost layers are covered here as layers: their
+CONTRACT and COST baseline entries route to them, a stale COST entry
+fails, their write flags refuse a disabled layer and the write of
+PERF_CONTRACTS_TORCH.json refuses a box without build logs, and
+``--no-contracts`` runs without importing torch.
 
 The runner's cases run in this process on one index of the real tree
 (``main(argv, index=...)``), so the tree is parsed once for the module.
@@ -606,20 +613,24 @@ def test_unjustified_baseline_entry_is_a_config_error(tmp_path, real_index,
     assert "justification" in err
 
 
-@pytest.mark.parametrize("rule", ["UMI001", "CONTRACT", "COST"])
+@pytest.mark.parametrize("rule", ["UMI001", "KONTRACT", "C0ST"])
 def test_unroutable_baseline_rule_is_a_config_error(tmp_path, real_index,
                                                     capsys, rule):
-    """A typo'd rule, or an entry of the JAX package's contract layers,
-    routes to no layer of the port: it would suppress nothing AND dodge
-    the stale-entry failure."""
+    """A typo'd rule routes to no layer of the port: it would suppress
+    nothing AND dodge the stale-entry failure."""
     typo = dict(_STALE, rule=rule)
     rc, out, err = _lint_ast_only(tmp_path, real_index, capsys, [typo])
     assert rc == 2, out + err
     assert "matches no lint layer" in err
 
 
-@pytest.mark.parametrize("flags", [["--ast-only", "--write-protocols"],
-                                   ["--no-protocols", "--write-protocols"]])
+@pytest.mark.parametrize("flags", [
+    ["--ast-only", "--write-protocols"],
+    ["--no-protocols", "--write-protocols"],
+    ["--no-contracts", "--write-contracts"],
+    ["--protocols-only", "--write-contracts"],
+    ["--no-cost", "--write-perf-contracts"],
+    ["--ast-only", "--write-perf-contracts"]])
 def test_write_flag_for_disabled_layer_is_rejected(flags, capsys):
     """A write flag aimed at a disabled layer is a usage error: exiting 0
     without regenerating the baseline would be a silent no-op."""
@@ -678,7 +689,9 @@ def test_explain_covers_every_kept_rule():
 def test_port_lint_runner_exits_clean():
     """``python -m pumiumtally_tpu_torch.analysis`` in a fresh process
     exits 0 on the repo: no finding outside LINT_BASELINE_TORCH.json, no
-    stale entry, and PROTOCOLS_TORCH.json matches the tree."""
+    stale entry, PROTOCOLS_TORCH.json and CONTRACTS_TORCH.json match the
+    tree, and the committed PERF_CONTRACTS_TORCH.json holds its
+    invariants at the tree's source digests."""
     proc = subprocess.run(
         [sys.executable, "-m", "pumiumtally_tpu_torch.analysis"],
         capture_output=True, text=True, cwd=str(ROOT), timeout=300,
@@ -687,3 +700,70 @@ def test_port_lint_runner_exits_clean():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "astlint: clean" in proc.stdout
     assert "protolint: clean" in proc.stdout
+    assert "contracts: clean" in proc.stdout
+    assert "costmodel: clean" in proc.stdout
+
+
+# --------------------------------------------------------------------- #
+# The contracts and cost layers in the runner
+# --------------------------------------------------------------------- #
+def test_contract_and_cost_entries_route_to_their_layers():
+    entries = [dict(rule=r, path="p", symbol="s", justification="j")
+               for r in ("PUMI001", "PROTO", "CONTRACT", "COST")]
+    for layer, rule in (("astlint", "PUMI001"), ("protolint", "PROTO"),
+                        ("contracts", "CONTRACT"), ("costmodel", "COST")):
+        assert [e["rule"] for e in runner._layer_entries(
+            entries, layer)] == [rule]
+
+
+_STALE_COST = {"rule": "COST", "path": "PERF_CONTRACTS_TORCH.json",
+               "symbol": "cost.spill.walk_kernel<long_gone>",
+               "justification": "a spill fixed long ago"}
+
+
+def _cost_only(tmp_path, real_index, capsys, extra, *flags):
+    committed = json.loads(BASELINE.read_text())["suppressions"]
+    p = tmp_path / "baseline.json"
+    p.write_text(json.dumps({"suppressions": committed + list(extra)}))
+    capsys.readouterr()
+    rc = runner.run(["--no-contracts", "--no-protocols", "--baseline",
+                     str(p), *flags], index=real_index)
+    out = capsys.readouterr()
+    return rc, out.out, out.err
+
+
+def test_stale_cost_entry_is_a_hard_failure(tmp_path, real_index, capsys):
+    rc, out, err = _cost_only(tmp_path, real_index, capsys, [])
+    assert rc == 0, out + err
+    assert "costmodel: clean, 3 baselined" in out
+    rc, out, err = _cost_only(tmp_path, real_index, capsys, [_STALE_COST])
+    assert rc == 1, out + err
+    assert "error: stale baseline entry COST" in out
+    assert "walk_kernel<long_gone>" in out
+
+
+def test_write_perf_contracts_refuses_without_build_logs(tmp_path,
+                                                         real_index, capsys):
+    """No nvcc build here: the write must refuse (exit 2) and leave the
+    committed capture as it is."""
+    before = (ROOT / "PERF_CONTRACTS_TORCH.json").read_bytes()
+    rc, out, err = _cost_only(
+        tmp_path, real_index, capsys, [], "--write-perf-contracts",
+        "--ptxas-dir", str(tmp_path / "no_logs"),
+        "--perf-contracts", str(tmp_path / "perf.json"))
+    assert rc == 2, out + err
+    assert "needs the build logs of every source" in err
+    assert not (tmp_path / "perf.json").exists()
+    assert (ROOT / "PERF_CONTRACTS_TORCH.json").read_bytes() == before
+
+
+def test_runner_without_contracts_imports_no_torch():
+    code = ("import sys; from pumiumtally_tpu_torch.analysis.__main__ "
+            "import run; rc = run(['--no-contracts']); "
+            "print('torch imported:', 'torch' in sys.modules); sys.exit(rc)")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, cwd=str(ROOT), timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "torch imported: False" in proc.stdout
+    assert "costmodel: clean" in proc.stdout

@@ -4,8 +4,9 @@ the calibration join.
 
 Mirrors tests/test_tuning.py case by case on the port's own knobs (the
 walk kernel's threads per block in place of the JAX backend and its
-``lane_block``; the megastep K), but for its perfdiff case, whose tool
-is not ported (ROADMAP.md A14b). On this box the plain walk
+``lane_block``; the megastep K); its perfdiff case renders
+TUNING_TORCH.json through ``python -m
+pumiumtally_tpu_torch.analysis.perfdiff --tuning``. On this box the plain walk
 stands in for every block width, so a "tuned" run here shows the consult
 and the bits; ``tests/test_torch_cuda.py`` runs the widths and the
 hardware tuner on the card. Cross-package cases hold ``bucket``,
@@ -663,3 +664,23 @@ def test_astlint_covers_tuner_scripts():
     entries = load_baseline(os.path.join(ROOT, "LINT_BASELINE_TORCH.json"))
     kept, _, _ = apply_baseline(lint_sources(src), entries)
     assert kept == [], [f.render() for f in kept]
+
+
+def test_perfdiff_tuning_table():
+    """The tuner's database as the tuned-against-default table: every
+    section and shape class of TUNING_TORCH.json, both axes, the card's
+    winners (block 128, K = 1) at 1.00x, and the calibration lines."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pumiumtally_tpu_torch.analysis.perfdiff",
+         "--tuning", os.path.join(ROOT, "TUNING_TORCH.json")],
+        capture_output=True, text=True, timeout=60, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "speedup" in proc.stdout and "calibration" in proc.stdout
+    db = json.load(open(os.path.join(ROOT, "TUNING_TORCH.json")))
+    for ekey, sec in db["environments"].items():
+        for skey in sec["entries"]:
+            assert f"{ekey}  " in proc.stdout and skey in proc.stdout
+    card = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("torch-cuda-") and " kernel " in ln]
+    assert card and all("block=128" in ln for ln in card)

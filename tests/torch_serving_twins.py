@@ -18,6 +18,8 @@ from pumiumtally_tpu_torch.ops import _build
 from pumiumtally_tpu_torch.tuning.shapes import bucket
 
 PTXAS_LOG = (
+    "ptxas info    : Compiling entry function '_Z4walkILi128EEvv' for "
+    "'sm_90a'\n"
     "ptxas info    : Function properties for _Z4walkILi128EEvv\n"
     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
     "ptxas info    : Used 64 registers, used 1 barriers, 6144 bytes smem\n"

@@ -18,8 +18,8 @@ its active-lane share, the device time of every kernel of one move-1
 walk into records (torch.profiler, mean over 3 calls), from which a reader
 sums the lane schedule's kernels of either design, the main path's moves
 2-4 in segments per second (host clock, from phase 4's log line), and the
-walk kernels' registers and spills as ptxas reported them when the
-checkout's ``csrc/walk.cu`` was built. ``--reps N`` adds the quartiles
+walk kernels' registers, shared memory and spills as ptxas reported them
+when the checkout's ``csrc/walk.cu`` was built. ``--reps N`` adds the quartiles
 (25%, 50%, 75%) of N single calls each of move 1's walk into records and
 of its whole ordered walk call (``walk_cuda.trace``, a fresh flux each),
 CUDA events around each call, for comparisons finer than a median of 5.
@@ -182,19 +182,16 @@ def _instantiation(mangled: str) -> str:
 
 def ptxas_lines(lib: str) -> dict:
     """{walk kernel instantiation: [ptxas lines]} from the build log kept
-    beside ``lib``: registers, shared memory and spills, by the kernel's
-    template arguments (its mangled name between ``walk_kernelI`` and
-    the parameter list)."""
-    out, kernel = {}, ""
+    beside ``lib``: stack, spills, registers and shared memory, by the
+    kernel's template arguments, read by the checkout's resource
+    contracts' parser (``analysis/costmodel.py::parse_ptxas``, on
+    checkouts that have it)."""
+    from pumiumtally_tpu_torch.analysis import costmodel
+
     with open(lib[:-3] + ".log") as f:
-        for line in f:
-            if "Function properties for" in line:
-                kernel = line.split(" for ", 1)[1].strip()
-            elif "walk_kernelI" in kernel and (
-                    "registers" in line or "spill" in line):
-                name = _instantiation(kernel)
-                out.setdefault(name, []).append(line.strip())
-    return out
+        recs = costmodel.parse_ptxas(f.read())
+    return {_instantiation(r["mangled"]): costmodel.ptxas_lines(r)
+            for r in recs.values() if "walk_kernelI" in r["mangled"]}
 
 
 def sass_digests(lib: str) -> dict:
