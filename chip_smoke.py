@@ -7,8 +7,9 @@ NVIDIA card.
 Phases, each of which raises (exit code != 0) on any failed check:
 
 1. device: the card's name and power limit from nvidia-smi;
-2. build: the four CUDA sources (csrc/walk.cu, scatter.cu, gather.cu,
-   source.cu), one nvcc each, started together, timed;
+2. build: the six CUDA sources (csrc/walk.cu, scatter.cu, gather.cu,
+   source.cu, exchange.cu, integrity.cu), one nvcc each, started
+   together, timed;
 3. kernel vs plain on a jittered 20^3 box (48,000 tets, two materials),
    65,536 lanes, 8 groups, float32 and float64, initial and move mode with
    robust=True plus one move with robust=False: elements, material ids,
@@ -155,10 +156,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    audit mismatches, one transfer each way a move (the audit's gather of
    its 64 lanes is out of band), the conservation sums within 1e-5
    relative of the host oracle from the write-backs and the residual
-   within ``conservation_tolerance``; the integrity vector's device ms
-   (CUDA events, median of 5) beside its bytes bound, the ``verify``
-   step's host ms, and the move's host ms with the checks off and on in
-   turns (off, on, on, off); (b) the checkpoint round trip after move 2
+   within ``conservation_tolerance``; on a full-width move's walk
+   outputs the fused vector (``csrc/integrity.cu``) equal to the walk's,
+   bitwise across two launches, against the plain torch vector (counts
+   equal, sums and residual within 1e-5 relative), both timed in turns
+   (plain, fused, fused, plain; CUDA events, median of 5) beside the
+   bytes bound, the ``verify`` step's host ms, and the move's host ms
+   with the checks off and on in turns (off, on, on, off); (b) the
+   checkpoint round trip after move 2
    went to phase 22 (a), whose migrated job's checkpoint is saved,
    restored into a fresh tally on the other member (every save and
    restore counted) and continued bitwise, its save and restore seconds
@@ -171,8 +176,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    flushed; (d) ``move_deadline_s`` on healthy moves: no timeout, the
    move's host ms with the deadline off and on in turns; (e) the
    megastep cell (K = 8) with integrity on: 0 violations, bitwise the
-   run without (its checkpoint round trip went to phase 22 (a) too,
-   whose migrated job restores a megastep checkpoint at full width).
+   run without, the fused vector launched once a fused move and the two
+   runs' chunk vectors bitwise equal (its checkpoint round trip went to
+   phase 22 (a), whose migrated job restores a megastep checkpoint at
+   full width).
 16. the partitioned tally (``[part]`` lines): (a) the unpacked table
    layout: the four calls on the main box with 65 z-slab classes built
    ``packed=False`` (initial search and one move through the unpacked
@@ -186,13 +193,21 @@ Phases, each of which raises (exit code != 0) on any failed check:
    partitioned walk phase on a jittered 20^3 box in 4 parts, halo 0 and
    1, both dtypes: the first walk phase kernel against plain (every
    lane's state, target and the slab flux bitwise) and the whole step
-   (slots, positions, slab flux, rounds and exchange counts bitwise,
-   twice through the kernel); (c) the main cell (seed 1) through
+   through the walk and exchange kernels (``csrc/exchange.cu``) against
+   the plain walk phases and ``_exchange_plain`` (every slot field, slab
+   flux, rounds, round stats and drops bitwise, twice through the
+   kernels, one exchange launch pair a round), also on 512 of the lanes
+   sent 0.8 of the way to a corner, in a slot layout of the most any
+   part starts with and 2 rows a destination a round (emigrants wait
+   rounds, the corner's part drops immigrants); (c) the main cell (seed
+   1) through
    ``PartitionedTally(n_parts=4, halo_layers=1)``: a counted run (launch
    counts zeroed before and read after, round waits, peak device memory,
-   a .vtu), a run beside ``PumiTally`` in turns (host ms and segments/s a
+   a .vtu; every round exchanged through the kernels), a run beside
+   ``PumiTally`` in turns (host ms and segments/s a
    move, rounds, walk relaunches, emigrants a round, each round's walk
-   phase, exchange and halo fold in CUDA events; positions within 1e-5,
+   phase, exchange and halo fold in CUDA events, the exchange's beside
+   torch exchange's 3.19-4.87 ms a round; positions within 1e-5,
    materials and elements counted where they differ, the flux per bin
    within rtol 1e-5 + atol 1e-5, segments equal, the conservation
    residual <= 1e-4, the flux bitwise the counted run's), a profiled run
@@ -200,7 +215,11 @@ Phases, each of which raises (exit code != 0) on any failed check:
    the counted run's after move 2), and move 1's first walk phase at full width
    as the facade's step makes it (one launch with the step's budget and
    count restart, then the ordered fold of its records) kernel against
-   plain, timed beside its bound; (d) ``io_pipeline``
+   plain, timed beside its bound, and the exchange round that follows
+   it (its slots from that phase's outputs) through the kernels against
+   ``_exchange_plain`` (every field, the stats and drops bitwise), both
+   timed in turns (plain, kernel, kernel, plain) beside the round's
+   bytes bound; (d) ``io_pipeline``
    "legacy" (the initial search and move 1) and "overlap" (the search and
    moves 1-2, so that a move drains the previous one's deferred folds):
    the packed run's slabs and write-backs after the last move bitwise.
@@ -236,8 +255,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    against plain bitwise, with the later-round launches and the lanes
    given a fresh budget; (b) that step (default bound) over the
    ``MeshEntry`` mesh of a one-rank NCCL group against the stacked step,
-   in turns (stacked, nccl, nccl, stacked), every output bitwise, each
-   round's exchange in CUDA events and the peak device memory; (e)
+   in turns (stacked, nccl, nccl, stacked), every output bitwise, every
+   round's exchange through the exchange kernels (their send blocks and
+   row counts through NCCL), each round's exchange in CUDA events and
+   the peak device memory; (e)
    ``write_parallel_vtk`` on that rank (the piece holds the mesh's cells,
    the index names it); (c) ``chip_down_at_move:2,chip:2`` under
    ``ResilientRunner`` on the 4-part cell (located before the runner
@@ -261,9 +282,12 @@ Phases, each of which raises (exit code != 0) on any failed check:
    1's first walk phase with points through the partitioned layout's
    feature instantiation against the plain walk phase (lanes, points,
    counts and flux bitwise) and with and without points in turns (CUDA
-   events); the largest send buffer an exchange allocated
-   (``walk_partitioned.SEND_BYTES``, against phase 16 (c)'s) and the
-   peak device memory; (c) the
+   events); the exchange round after that phase with 8 points a slot in
+   the send rows, kernels against ``_exchange_plain`` (every field,
+   points and counts included, bitwise) with each one's send buffer; the
+   largest send buffer an exchange allocated (``walk_partitioned.
+   SEND_BYTES``, against phase 16 (c)'s) and the peak device memory; (c)
+   the
    partitioned megastep cell's first chunk (phase 17's source and
    staging, K = 8) stacked and over the ``MeshEntry`` mesh of a one-rank
    NCCL group, every output bitwise; (d) on (b)'s tally one NaN
@@ -388,10 +412,12 @@ Phases, each of which raises (exit code != 0) on any failed check:
    operation that torch reports is placed at its innermost frame in the
    package (file, line, function): every site must be a counted PUMI001
    entry of LINT_BASELINE_TORCH.json or lie in a module that PUMI002
-   approves for transfers. The sites and their counts are printed; syncs
-   inside the kernels' ``ctypes`` libraries are not seen by torch;
+   approves for transfers, and none may lie in ``_exchange`` (the
+   partitioned move's rounds run ``csrc/exchange.cu``, counted). The
+   sites and their counts are printed; syncs inside the kernels'
+   ``ctypes`` libraries are not seen by torch;
 26. contracts (``[contracts]`` lines): the kernel resource contracts
-   (analysis/costmodel.py) over phase 2's fresh build logs of the four
+   (analysis/costmodel.py) over phase 2's fresh build logs of the six
    sources: every instantiation's ptxas record and its float64 SASS
    instructions (``cuobjdump -sass``), the baseline-free invariants (the
    card's opt-in shared memory read from the device), the drift against
@@ -456,7 +482,7 @@ OVERFLOW_CAPACITY = 1000
 RUNSTATS_CONV = dict(convergence=True, batch_moves=2)
 RUNSTATS_TRUNC = dict(max_crossings=4, truncation_retries=6)
 RUNSTATS_BAD = 1000  # lanes given NaN destinations in (d)
-SOURCES = ("walk", "scatter", "gather", "source")
+SOURCES = ("walk", "scatter", "gather", "source", "exchange", "integrity")
 LIBS: list = []  # the built libraries, for their ptxas logs
 WARP = 32
 
@@ -1069,6 +1095,7 @@ def phase_pipeline(mesh) -> dict:
 
 def zero_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
+    from pumiumtally_tpu_torch.ops import exchange_cuda, integrity_cuda
     from pumiumtally_tpu_torch.ops import gather, scatter, source_cuda
     from pumiumtally_tpu_torch.ops import walk_cuda
 
@@ -1079,9 +1106,12 @@ def zero_counts() -> None:
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
     gather.LAUNCHES = source_cuda.LAUNCHES = 0
+    exchange_cuda.BUCKET_LAUNCHES = exchange_cuda.ADOPT_LAUNCHES = 0
+    integrity_cuda.LAUNCHES = 0
 
 
 def read_counts() -> dict:
+    from pumiumtally_tpu_torch.ops import exchange_cuda, integrity_cuda
     from pumiumtally_tpu_torch.ops import gather, scatter, source_cuda
     from pumiumtally_tpu_torch.ops import walk_cuda
 
@@ -1098,6 +1128,9 @@ def read_counts() -> dict:
         "schedule": walk_cuda.SCHEDULE_LAUNCHES,
         "gather": gather.LAUNCHES,
         "source": source_cuda.LAUNCHES,
+        "exchange_bucket": exchange_cuda.BUCKET_LAUNCHES,
+        "exchange_adopt": exchange_cuda.ADOPT_LAUNCHES,
+        "integrity": integrity_cuda.LAUNCHES,
     }
 
 
@@ -2781,6 +2814,36 @@ def resil_run(mesh, rec, runner_kw=None, **cfg) -> dict:
     return dict(tally=t, run=run, secs=secs, outs=outs, io=io, steps=steps)
 
 
+def integrity_err(got, want, pseg, label: str) -> float:
+    """The fused vector against the plain one on lanes with track
+    lengths ``pseg``: the counts (bad flux entries, lanes in flight,
+    lanes done) equal, the sums within 1e-5 of path_wlen in float32
+    (1e-12 in float64: the sums' order differs), the residual within that
+    part of itself plus 4 ulps of max |pseg| (a max does not depend on
+    the fold's order, only on the norm's rounding); returns the largest
+    absolute difference."""
+    from pumiumtally_tpu_torch.integrity.invariants import integrity_to_dict
+
+    g = integrity_to_dict(got.cpu().numpy())
+    w = integrity_to_dict(want.cpu().numpy())
+    rtol = 1e-5 if got.dtype == torch.float32 else 1e-12
+    ulps = 4 * torch.finfo(got.dtype).eps * float(pseg.abs().max())
+    bad = [f for f in ("bad_flux", "lanes_flying", "lanes_done")
+           if g[f] != w[f]]
+    bad += [f for f in ("scored_wlen", "path_wlen")
+            if not abs(g[f] - w[f]) <= rtol * max(1.0, abs(w["path_wlen"]))]
+    if not abs(g["max_residual"] - w["max_residual"]) <= \
+            rtol * abs(w["max_residual"]) + ulps:
+        bad.append("max_residual")
+    err = float((got.double() - want.double()).abs().max())
+    log(f"[resil] {label}: fused vector {g} against plain {w}: max "
+        f"|difference| {err:.3e}, fields outside the tolerance {bad}")
+    if bad:
+        raise AssertionError(f"[resil] {label}: the fused integrity vector "
+                             f"disagrees with the plain one at {bad}")
+    return err
+
+
 def resil_integrity(mesh, rec) -> dict:
     """(a) integrity="warn" with 64 audited lanes a move: no violation, no
     mismatch, the recorded run's bits, one copy each way a move (the
@@ -2789,10 +2852,18 @@ def resil_integrity(mesh, rec) -> dict:
     device ms against its bytes bound; the move's host ms with the checks
     on and off in turns."""
     from pumiumtally_tpu_torch.integrity import invariants
-    from pumiumtally_tpu_torch.ops import walk, walk_cuda
+    from pumiumtally_tpu_torch.ops import integrity_cuda, walk, walk_cuda
 
     n = MAIN_PARTICLES
+    # The main path's run: every count 0 just before it, read just after
+    # (the phase's total goes on from here).
+    zero_counts()
     a = resil_run(mesh, rec, **RESIL_AUDIT)
+    torch.cuda.synchronize()
+    path = read_counts()
+    if not path["integrity"]:
+        raise AssertionError(f"[resil] (a) no fused integrity launch on the "
+                             f"path: {path}")
     t = a["tally"]
     tm = t.telemetry()
     resil_same(t, rec, a["outs"], "integrity warn + audit")
@@ -2849,19 +2920,46 @@ def resil_integrity(mesh, rec) -> dict:
                         n_groups=MAIN_GROUPS, integrity=True)
     args = (fly, r.done, w, r.track_length, r.position, st.origin, r.flux,
             False)
-    vec = walk.integrity_vector(*args)
-    if not torch.equal(vec, r.integrity):
-        raise AssertionError("[resil] the vector differs from the walk's")
-    vec_ms = event_ms(lambda: walk.integrity_vector(*args))
-    profile_call("(a) integrity_vector at full width",
-                 lambda: walk.integrity_vector(*args))
+    vec = integrity_cuda.integrity_vector(*args)
+    again = integrity_cuda.integrity_vector(*args)
+    plain = walk.integrity_vector(*args)
+    if not (torch.equal(vec, r.integrity) and torch.equal(vec, again)):
+        raise AssertionError("[resil] the fused vector differs from the "
+                             "walk's or between two launches")
+    err = integrity_err(vec, plain, r.track_length, "(a) full width")
+    # A residual of 0.25 planted on a lane in flight and done, one of 1.0
+    # on a lane taken out of flight: the fused max finds the first and
+    # skips the second.
+    fly2, pseg2 = fly.clone(), r.track_length.clone()
+    fly2[0] = False
+    pseg2[0] += 1.0
+    pseg2[1] += 0.25
+    planted = (fly2, r.done, w, pseg2) + args[4:]
+    pv, pp = (f(*planted) for f in (integrity_cuda.integrity_vector,
+                                    walk.integrity_vector))
+    integrity_err(pv, pp, pseg2, "(a) planted residual 0.25")
+    if not (0.2 < float(pp[2]) < 0.3 and bool(r.done[1])):
+        raise AssertionError(f"[resil] (a) the planted residual reads "
+                             f"{float(pp[2])}")
+    vturns: dict = {"plain": [], "fused": []}
+    for which in ("plain", "fused", "fused", "plain"):
+        fn = (walk.integrity_vector if which == "plain"
+              else integrity_cuda.integrity_vector)
+        vturns[which].append(event_ms(lambda: fn(*args)))
+    vec_ms = float(np.median(vturns["fused"]))
+    plain_ms = float(np.median(vturns["plain"]))
+    profile_call("(a) the fused integrity vector at full width",
+                 lambda: integrity_cuda.integrity_vector(*args))
     nbytes = (r.flux.numel() * r.flux.element_size()
               + sum(x.numel() * x.element_size() for x in args[:6]))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"[resil] (a) integrity_vector at full width: {vec_ms:.4f} ms "
-        f"(CUDA events, median of 5) against its bound {bound_ms:.4f} ms "
-        f"(bytes: {nbytes} read once); the verify step (checks + audit "
-        f"of 64 lanes) host median {np.median(verify):.4f} ms")
+    log(f"[resil] (a) integrity vector at full width (CUDA events, median "
+        f"of 5, in turns plain, fused, fused, plain): fused "
+        f"(csrc/integrity.cu) {vturns['fused']} ms, plain (torch ops) "
+        f"{vturns['plain']} ms (earlier: 0.3689-0.7853 ms), against its bound "
+        f"{bound_ms:.4f} ms (bytes: {nbytes} read once); bitwise across two "
+        f"launches; the verify step (checks + audit of 64 lanes) host median "
+        f"{np.median(verify):.4f} ms")
     del s0, r, args
     # The move's host ms, checks off and on in turns (no audit).
     turns, steps = {}, {}
@@ -2883,7 +2981,9 @@ def resil_integrity(mesh, rec) -> dict:
         f" off median {off_ms:.4f} ({[round(x * 1e3, 4) for x in turns['off']]}"
         f"), on median {on_ms:.4f} ({[round(x * 1e3, 4) for x in turns['on']]}"
         f"); one D2H a move with the checks on")
-    return dict(vec_ms=vec_ms, bound_ms=bound_ms, vec_bytes=nbytes,
+    return dict(vec_ms=vec_ms, plain_ms=plain_ms, vec_turns=vturns,
+                bound_ms=bound_ms, vec_bytes=nbytes, max_abs_err=err,
+                launches=path["integrity"],
                 verify_ms=float(np.median(verify)), on_ms=on_ms,
                 off_ms=off_ms)
 
@@ -3018,20 +3118,25 @@ def resil_megastep(mesh) -> dict:
         t.initialize_particle_location(pos.reshape(-1))
         return t
 
+    from pumiumtally_tpu_torch.ops import integrity_cuda
+
     runs, secs = {}, {"off": [], "on": []}
     for label in ("warm-up",) + RESIL_TURNS[:4]:
         t = tally(**({} if label == "off" else dict(integrity="warn")))
+        launches = integrity_cuda.LAUNCHES
         t0 = time.perf_counter()
         t.run_source_moves(MEGA_K, src, **lanes)
         torch.cuda.synchronize()
         if label != "warm-up":
             secs[label].append(time.perf_counter() - t0)
-            runs[label] = dict(state=_mega_state(t), flux=t.flux.clone(),
-                               tm=t.telemetry()["integrity"],
-                               recs=[r for r in t.telemetry()["per_move"]
-                                     if r["kind"] == "integrity"])
+            runs.setdefault(label, []).append(dict(
+                state=_mega_state(t), flux=t.flux.clone(),
+                tm=t.telemetry()["integrity"],
+                launches=integrity_cuda.LAUNCHES - launches,
+                recs=[r for r in t.telemetry()["per_move"]
+                      if r["kind"] == "integrity"]))
         del t
-    off, on = runs["off"], runs["on"]
+    (off, _), (on, on2) = runs["off"], runs["on"]
     on["secs"], off["secs"] = (float(np.median(secs[k])) for k in ("on", "off"))
     if on["tm"]["violations"] or len(on["recs"]) != 2:
         raise AssertionError(f"[resil] (e) {on['tm']} {on['recs']}")
@@ -3039,19 +3144,27 @@ def resil_megastep(mesh) -> dict:
             not torch.equal(v, off["state"][f])
             for f, v in on["state"].items()):
         raise AssertionError("[resil] (e) integrity changed the megastep")
+    if on["recs"] != on2["recs"] or on["launches"] != MEGA_K or \
+            on2["launches"] != MEGA_K or runs["off"][0]["launches"]:
+        raise AssertionError(
+            f"[resil] (e) the chunk vectors differ between two runs or the "
+            f"fused kernel ran {on['launches']}, {on2['launches']} times "
+            f"for {MEGA_K} moves")
     log(f"[resil] (e) megastep cell K={MEGA_K} with integrity=warn: 0 "
         f"violations, bitwise the run without (a call of {MEGA_K} moves "
         f"after a warm-up, in turns off/on/on/off: on {secs['on']} s, off "
-        f"{secs['off']} s); chunk vector {on['recs'][-1]}")
-    return dict(on_s=on["secs"], off_s=off["secs"])
+        f"{secs['off']} s); the fused vector launched once a fused move "
+        f"({on['launches']}), the two runs' chunk vectors bitwise equal: "
+        f"{on['recs'][-1]}")
+    return dict(on_s=on["secs"], off_s=off["secs"],
+                launches=on["launches"])
 
 
 def phase_resilience(mesh) -> dict:
     """Phase 15: integrity, checkpoints, the runner and the watchdog at
-    the main cell's full width; launch counts zeroed before and read
-    after."""
+    the main cell's full width; launch counts zeroed before (a)'s run
+    and read after (e)."""
     torch.cuda.synchronize()
-    zero_counts()
     rec = resil_record(mesh)
     out = {}
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -3062,7 +3175,7 @@ def phase_resilience(mesh) -> dict:
     torch.cuda.synchronize()
     out["launches"] = read_counts()
     log(f"[resil] launches over phase 15: {out['launches']}")
-    for key in ("walk", "scatter_bucket", "schedule", "source"):
+    for key in ("walk", "scatter_bucket", "schedule", "source", "integrity"):
         if not out["launches"][key]:
             raise AssertionError(f"[resil] no {key} launch in phase 15")
     return out
@@ -3302,18 +3415,27 @@ def part_phase_inputs(part, placed):
 
 PHASE_FIELDS = ("pos", "elem", "mat", "done", "pseg", "ncross", "nchase",
                 "nseg", "iters", "target", "target_elem", "prev", "stuck")
-STEP_FIELDS = ("position", "elem", "material_id", "done", "valid",
-               "particle_id", "track_length", "flux", "n_rounds",
-               "n_segments", "round_stats", "stats", "n_dropped")
+STEP_FIELDS = ("position", "dest", "elem", "material_id", "weight", "group",
+               "done", "valid", "particle_id", "track_length", "flux",
+               "n_rounds", "n_segments", "round_stats", "stats", "n_dropped")
+# 16 (b)'s overflow case: its lanes (the first of the batch, each sent
+# EXCH_PULL of the way to the corner EXCH_CORNER), the rows a destination
+# takes a round.
+EXCH_LANES, EXCH_SIZE, EXCH_PULL, EXCH_CORNER = 512, 2, 0.8, 0.95
 
 
 def part_kernel_vs_plain() -> dict:
-    """(b) B8 on a jittered 20^3 box in 4 parts, halo 0 and 1, both
-    dtypes: the first walk phase (every lane's slot state, target and the
-    slab flux) and the whole step (slots, positions, the slab flux, the
-    rounds and exchange counts) through the kernel against the plain walk
-    phases on the card, bitwise."""
-    from pumiumtally_tpu_torch.ops import walk_cuda
+    """(b) B8 and B12 on a jittered 20^3 box in 4 parts, halo 0 and 1,
+    both dtypes: the first walk phase (every lane's slot state, target and
+    the slab flux) and the whole step (slots, every slot field, the slab
+    flux, the rounds, the exchange's round stats and drops) through the
+    walk and exchange kernels against the plain walk phases and
+    ``_exchange_plain`` on the card, bitwise; the step also on the first
+    EXCH_LANES lanes sent most of the way to one corner, in a slot layout
+    of the most any part starts with and EXCH_SIZE rows a destination a
+    round, so that emigrants wait rounds and the corner's part drops
+    immigrants."""
+    from pumiumtally_tpu_torch.ops import exchange_cuda, walk_cuda
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
     from pumiumtally_tpu_torch.parallel.mesh_partition import partition_mesh
 
@@ -3359,29 +3481,48 @@ def part_kernel_vs_plain() -> dict:
                 if bad or not torch.equal(fk, fp) or not frozen:
                     raise AssertionError(f"partitioned walk phase {label}: "
                                          "kernel and plain disagree")
-            runs = []
-            for plain in (False, True, False):
-                step = wp.make_partitioned_step(
-                    [mesh.device] * PART_PARTS, part, n_groups=G,
-                    max_crossings=mesh.ntet + 64, plain=plain)
-                runs.append(step(
-                    placed["origin"], placed["dest"], placed["elem"],
-                    torch.zeros_like(placed["valid"]), placed["material_id"],
-                    placed["weight"], placed["group"],
-                    placed["particle_id"], placed["valid"],
-                    torch.zeros(PART_PARTS, L * G * 2, dtype=dtype,
-                                device=mesh.device)))
-            torch.cuda.synchronize()
-            k, p, again = runs
-            bad = [f for f in STEP_FIELDS
-                   if not torch.equal(getattr(k, f), getattr(p, f))
-                   or not torch.equal(getattr(k, f), getattr(again, f))]
-            log(f"[part] (b) step {label}: rounds {int(k.n_rounds[0])}, "
-                f"emigrants sent {int(k.round_stats[:, 1].sum())}, dropped "
-                f"{int(k.n_dropped.sum())}, fields differing {bad}")
-            if bad or int(k.n_dropped.sum()) or not int(k.n_rounds[0]):
-                raise AssertionError(f"partitioned step {label}: kernel and "
-                                     "plain disagree")
+            e2 = elem[:EXCH_LANES]
+            sub = {f: v[:EXCH_LANES] for f, v in fields.items()}
+            o = sub["origin"]
+            sub["dest"] = (o + EXCH_PULL * (EXCH_CORNER - o)).astype(npdt)
+            tight = wp.distribute_particles(
+                part, None, e2, sub, cap=int(np.bincount(
+                    part.owner[e2], minlength=PART_PARTS).max()))
+            for case, pl, kw in (("", placed, {}),
+                                 (", overflow and drops", tight,
+                                  dict(exchange_size=EXCH_SIZE))):
+                runs, launched = [], []
+                for plain in (False, True, False):
+                    step = wp.make_partitioned_step(
+                        [mesh.device] * PART_PARTS, part, n_groups=G,
+                        max_crossings=mesh.ntet + 64, plain=plain, **kw)
+                    b0 = exchange_cuda.BUCKET_LAUNCHES
+                    runs.append(step(
+                        pl["origin"], pl["dest"], pl["elem"],
+                        torch.zeros_like(pl["valid"]), pl["material_id"],
+                        pl["weight"], pl["group"], pl["particle_id"],
+                        pl["valid"],
+                        torch.zeros(PART_PARTS, L * G * 2, dtype=dtype,
+                                    device=mesh.device)))
+                    launched.append(exchange_cuda.BUCKET_LAUNCHES - b0)
+                torch.cuda.synchronize()
+                k, p, again = runs
+                bad = [f for f in STEP_FIELDS
+                       if not torch.equal(getattr(k, f), getattr(p, f))
+                       or not torch.equal(getattr(k, f), getattr(again, f))]
+                rs = k.round_stats
+                dropped, rounds = int(k.n_dropped.sum()), int(k.n_rounds[0])
+                waited = bool((rs[:, 1] < rs[:, 0]).any())
+                log(f"[part] (b) step {label}{case}: {pl['valid'].shape[0]} "
+                    f"slots, rounds {rounds}, emigrants sent "
+                    f"{int(rs[:, 1].sum())}, left waiting in a round "
+                    f"{waited}, dropped {dropped}, exchange kernel rounds "
+                    f"{launched} (kernel, plain, kernel), fields differing "
+                    f"{bad}")
+                if bad or not rounds or launched != [rounds, 0, rounds] or (
+                        (dropped == 0 or not waited) if case else dropped):
+                    raise AssertionError(f"partitioned step {label}{case}: "
+                                         "kernel and plain disagree")
     return out
 
 
@@ -3579,9 +3720,159 @@ def part_phase_timing(t, state, inputs) -> dict:
         f"plain {plain_ms:.4f} ms (one call); "
         f"distinct rows {int(rows.sum())} x {PART_ROW[4]} B, bins "
         f"{int(hit.sum())}, bytes {nbytes}, bound {bound:.4f} ms ({by})")
+    # Move 1's first exchange round at full width, from this phase.
+    exchange = exchange_round(
+        t.partition, exchange_state(placed, args[-1], k),
+        "(c) move 1's first")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 max_abs_err=err, bound_bytes=nbytes,
-                iters=int(k["iters"].sum(dtype=torch.int64)))
+                iters=int(k["iters"].sum(dtype=torch.int64)),
+                exchange=exchange)
+
+
+# The torch exchange's ms a round and its ms of a fused partitioned move,
+# measured on an NVIDIA H100 80GB HBM3 at 700 W before the exchange had
+# kernels (PERF.md, row B12): the figures the kernels' are printed beside.
+PARENT_EXCHANGE_MS, PARENT_FUSED_MOVE = (3.19, 4.87), (21.47, 42.85)
+
+
+def exchange_state(placed, slots, out, K=None) -> dict:
+    """The slot state a step holds after its first walk phase, as
+    ``_exchange`` takes it: the distributed slots ``placed`` with the
+    walked ``slots`` updated from ``walk_rows``' outputs ``out`` (and
+    their recorded points with ``K``)."""
+    dev, dtype = placed["origin"].device, placed["origin"].dtype
+    total = placed["valid"].shape[0]
+    i32 = dict(dtype=torch.int32, device=dev)
+    s = dict(cur=placed["origin"].clone(), dest=placed["dest"].clone(),
+             weight=placed["weight"].clone(),
+             pseg=torch.zeros(total, dtype=dtype, device=dev),
+             pid=placed["particle_id"].clone(), group=placed["group"].clone(),
+             material_id=placed["material_id"].clone(),
+             elem=placed["elem"].to(torch.int32).clone(),
+             done=torch.zeros(total, dtype=torch.bool, device=dev),
+             valid=placed["valid"].clone(),
+             target=torch.full((total,), -1, **i32),
+             target_elem=torch.zeros(total, **i32),
+             prev=torch.full((total,), -1, **i32),
+             stuck=torch.zeros(total, **i32), xp=None, kx=None)
+    for f, o in (("cur", "pos"), ("elem", "elem"), ("material_id", "mat"),
+                 ("done", "done"), ("pseg", "pseg"), ("prev", "prev"),
+                 ("stuck", "stuck"), ("target", "target"),
+                 ("target_elem", "target_elem")):
+        s[f][slots] = out[o]
+    if K is not None:
+        s["xp"] = torch.zeros(total, K, 3, dtype=dtype, device=dev)
+        s["kx"] = torch.zeros(total, **i32)
+        s["xp"][slots] = out["xp"]
+        s["kx"][slots] = out["kx"]
+    return s
+
+
+def exchange_bound(total: int, sent: int, adopted: int, item: int,
+                   K: int, row: int) -> tuple[float, int]:
+    """(ms, bytes) the least an exchange round must move: every slot's
+    valid flag and target read; a sent slot's fields read (8 floats, the
+    3K points, 6 int32, its done flag and its 8 B back code), its row
+    written and its valid and target cleared; an adopted slot's row read
+    and its fields written (8 floats, the points, 6 int32, two flags)."""
+    pts = 3 * K * item + (4 if K else 0)
+    nbytes = (total * 5 + sent * (8 * item + pts + 33 + row + 5)
+              + adopted * (row + 8 * item + pts + 26))
+    return nbytes / HBM_BYTES_PER_S * 1e3, nbytes
+
+
+def exchange_round(part, state, label: str, timed: bool = True,
+                   tag: str = "[part]") -> dict:
+    """One exchange round of the stacked parts from ``state``: the kernels
+    (``walk_partitioned._exchange``) against ``_exchange_plain`` on copies
+    of it, every slot field (points too), the round stats and the drops
+    bitwise, and each one's send buffer; with ``timed`` both in CUDA
+    events in turns (plain, kernel, kernel, plain; a median of 5 each,
+    the kernel on the step's buffer as a later round finds it) beside
+    the round's bytes bound."""
+    from pumiumtally_tpu_torch.ops import exchange_cuda
+    from pumiumtally_tpu_torch.ops import walk_partitioned as wp
+    from pumiumtally_tpu_torch.parallel.ranks import RankLayout
+
+    P, L, dev = part.n_parts, part.max_local, state["cur"].device
+    total = state["valid"].shape[0]
+    cap = total // P
+    E = min(max(cap // (2 * P), 64), cap)
+    comm = wp.Collectives(RankLayout(0, P, dev))
+    canon = (-2 - (part.row_owner.long() * L
+                   + part.row_owner_local.long()).view(-1)
+             if part.halo_layers else None)
+    K = 0 if state["xp"] is None else state["xp"].shape[1]
+
+    def fresh(send=None):
+        s = {f: None if v is None else v.clone() for f, v in state.items()}
+        if send is not None:
+            s["send"] = send
+        return s, torch.zeros(P, dtype=torch.int64, device=dev)
+
+    def run(fn, s, dropped):
+        return fn(comm, P, 0, P, cap, E, L, canon, s, dropped)
+
+    kept = wp.SEND_BYTES
+    out = {}
+    for which, fn in (("kernel", wp._exchange),
+                      ("plain", wp._exchange_plain)):
+        wp.SEND_BYTES = 0
+        s, d = fresh()
+        b0 = exchange_cuda.BUCKET_LAUNCHES
+        stats = run(fn, s, d)
+        torch.cuda.synchronize()
+        out[which] = dict(s=s, d=d, stats=stats, send_bytes=wp.SEND_BYTES,
+                        launches=exchange_cuda.BUCKET_LAUNCHES - b0)
+    wp.SEND_BYTES = kept
+    k, p = out["kernel"], out["plain"]
+    bad = [f for f, v in state.items()
+           if v is not None and not torch.equal(k["s"][f], p["s"][f])]
+    bad += [f for f in ("stats", "d") if not torch.equal(k[f], p[f])]
+    sent, adopted = (int(k["stats"][:, c].sum()) for c in (1, 4))
+    item = state["cur"].element_size()
+    row = exchange_cuda.row_bytes(state["cur"].dtype, K)
+    if exchange_cuda.kernel_row_bytes(state["cur"].dtype, K) != row:
+        raise AssertionError(f"{label} the send buffer's rows of {row} B "
+                             "are not the kernels' stride")
+    bound, nbytes = exchange_bound(total, sent, adopted, item, K, row)
+    log(f"{tag} {label} one exchange round of {P} stacked parts, {total} "
+        f"slots, E {E}, {K} points a slot: pending "
+        f"{int(k['stats'][:, 0].sum())}, sent {sent}, received "
+        f"{int(k['stats'][:, 2].sum())}, adopted {adopted}, dropped "
+        f"{int(k['d'].sum())}; kernel against _exchange_plain: fields "
+        f"differing {bad}; send buffer {k['send_bytes']} B (kernel, once a "
+        f"step) / {p['send_bytes']} B (plain, zeroed every round); row "
+        f"{row} B; bound {bound:.4f} ms (bytes: {nbytes})")
+    if bad or k["launches"] != 1 or p["launches"] or not sent:
+        raise AssertionError(f"{label} the exchange kernels disagree with "
+                             f"_exchange_plain at {bad}")
+    err = max(float((k["s"][f] - p["s"][f]).abs().max())
+              for f in ("cur", "dest", "weight", "pseg", "xp")
+              if state[f] is not None)
+    res = dict(sent=sent, adopted=adopted, bound_ms=bound, bound_bytes=nbytes,
+               send_bytes=k["send_bytes"], plain_send_bytes=p["send_bytes"],
+               max_abs_err=err)
+    if not timed:
+        return res
+    send = k["s"]["send"]
+    del out, k, p
+    turns: dict = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = wp._exchange if which == "kernel" else wp._exchange_plain
+        turns[which].append(event_ms(
+            lambda s, d: run(fn, s, d), 5,
+            lambda: fresh(send if which == "kernel" else None)))
+    wp.SEND_BYTES = kept
+    ms, plain_ms = (float(np.median(turns[x])) for x in ("kernel", "plain"))
+    log(f"{tag} {label} the round in CUDA events (median of 5, in turns "
+        f"plain, kernel, kernel, plain): kernel {turns['kernel']} ms, plain "
+        f"{turns['plain']} ms (the torch exchange in the step: "
+        f"{PARENT_EXCHANGE_MS[0]}-{PARENT_EXCHANGE_MS[1]} ms a round), bound "
+        f"{bound:.4f} ms")
+    return dict(res, ms=ms, plain_ms=plain_ms, turns=turns)
+
 
 
 def settle_memory() -> tuple[int, int]:
@@ -3646,6 +3937,12 @@ def part_full_width(mesh, tmpdir: str) -> dict:
     if not launches["scatter_ordered"] or not launches["schedule"]:
         raise AssertionError("the partitioned run did not schedule or "
                              "scatter its walk phases")
+    rounds1 = run1["init_rounds"] + sum(m["part"]["rounds"]
+                                        for m in run1["moves"])
+    if not rounds1 or launches["exchange_bucket"] != rounds1 or \
+            launches["exchange_adopt"] != rounds1:
+        raise AssertionError(f"the partitioned run's {rounds1} rounds did "
+                             "not each exchange through the kernels")
     timing = part_phase_timing(run1.pop("tally"), state, inputs)
     # Run 2: beside PumiTally, in turns, with the phases' spans.
     single = PumiTally(mesh, n, TallyConfig(n_groups=MAIN_GROUPS),
@@ -3674,6 +3971,15 @@ def part_full_width(mesh, tmpdir: str) -> dict:
         for r in sorted(per_round):
             log(f"[part] (c) move {i} round {r}: " + ", ".join(
                 f"{nm} {ms:.4f} ms" for nm, ms in per_round[r].items()))
+    ex_ms = [ms for r in run2["moves"] for nm, _, ms in r["part"]["spans"]
+             if nm == "exchange"]
+    log(f"[part] (c) exchange spans over moves 1-4: {len(ex_ms)} rounds, "
+        f"{min(ex_ms):.4f}-{max(ex_ms):.4f} ms a round, median "
+        f"{float(np.median(ex_ms)):.4f} ms (the torch exchange: "
+        f"{PARENT_EXCHANGE_MS[0]}-{PARENT_EXCHANGE_MS[1]} ms a round); "
+        f"exchange rounds through the kernels in run 1: "
+        f"{launches['exchange_bucket']} bucket, "
+        f"{launches['exchange_adopt']} adopt")
     late = run2["moves"][1:]
     pseg = sum(r["part"]["segments"] for r in late)
     pms = sum(r["part"]["ms"] for r in late)
@@ -3744,6 +4050,8 @@ def part_full_width(mesh, tmpdir: str) -> dict:
         raise AssertionError("the partitioned flux differs across runs or "
                              "io_pipeline modes")
     return dict(launches=launches, waits=waits, peak=peak, busy=busy,
+                exchange_span_ms=[min(ex_ms), float(np.median(ex_ms)),
+                                  max(ex_ms)],
                 segments_per_s=pseg / pms * 1e3,
                 single_segments_per_s=sseg / sms * 1e3,
                 rounds=[r["part"]["rounds"] for r in run2["moves"]],
@@ -3983,7 +4291,7 @@ def pmega_full(mesh, tmpdir: str) -> dict:
                      for nm, r, a_, b_ in wp.SPANS]
             wp.SPANS = None
             counted = dict(counts=counts, waits=wp.ROUND_WAITS - waits0,
-                           spans=spans,
+                           spans=spans, move_ms=row["move_ms"],
                            peak=torch.cuda.max_memory_allocated(),
                            resident=resident, collected=collected)
         else:
@@ -4016,6 +4324,14 @@ def pmega_full(mesh, tmpdir: str) -> dict:
         log(f"[pmega] (c) counted chunk {nm}: {len(v)} spans, "
             f"{sum(v):.4f} ms in all, {sum(v) / MEGA_K:.4f} ms a move, "
             f"least {min(v):.4f}, most {max(v):.4f}")
+    counted["exchange_ms"] = sum(per.get("exchange", [])) / MEGA_K
+    log(f"[pmega] (c) counted chunk: the exchange {counted['exchange_ms']:.4f}"
+        f" ms of a {counted['move_ms']:.3f} ms fused move (the torch "
+        f"exchange: {PARENT_FUSED_MOVE[0]} of {PARENT_FUSED_MOVE[1]} ms), "
+        f"{c['exchange_bucket']} rounds through csrc/exchange.cu")
+    if not c["exchange_bucket"] or c["exchange_adopt"] != c["exchange_bucket"]:
+        raise AssertionError("(c) the partitioned megastep did not exchange "
+                             "through its kernels")
     # A profiled chunk: the card's busy share of a chunk.
     pt._ensure_source_state(restage["weights"], None, restage["alive"])
     prof = start_profile()
@@ -4267,6 +4583,7 @@ def ranks_nccl(cell, tmpdir: str) -> dict:
 
     import torch.distributed as dist
 
+    from pumiumtally_tpu_torch.ops import exchange_cuda
     from pumiumtally_tpu_torch.parallel import multihost
     from pumiumtally_tpu_torch.parallel.mesh_partition import (
         assemble_global_flux,
@@ -4287,12 +4604,18 @@ def ranks_nccl(cell, tmpdir: str) -> dict:
         out, ref, bad = {}, None, set()
         for label, mesh_ in (("stacked", stacked), ("nccl", dm),
                              ("nccl", dm), ("stacked", stacked)):
+            b0 = exchange_cuda.BUCKET_LAUNCHES
             res, ex, peak = ranks_step(cell, mesh_, spans=True)
+            launched = exchange_cuda.BUCKET_LAUNCHES - b0
             out.setdefault(label, []).append((ex, peak))
             log(f"[ranks] (b) {label}: rounds {int(res.n_rounds[0])}, "
-                f"exchange ms a round {[round(x, 4) for x in ex]}, total "
+                f"exchange kernel rounds {launched}, exchange ms a round "
+                f"{[round(x, 4) for x in ex]}, total "
                 f"{sum(ex):.4f} ms; the step's peak device memory {peak} "
                 "bytes above its inputs")
+            if launched != int(res.n_rounds[0]):
+                raise AssertionError(f"the {label} step did not exchange "
+                                     "through the kernels every round")
             if ref is None:
                 ref = res
             else:  # each result held to the first, then let go
@@ -4654,6 +4977,11 @@ def debug_partitioned(mesh, full) -> dict:
         raise AssertionError(f"(b) the walk phase with points differs "
                              f"{bad} {bad_plain}")
     del p, prec, fp
+    # Move 1's first exchange round with the phase's points in the rows.
+    pts_ex = exchange_round(t.partition,
+                            exchange_state(placed, args[-1], w, K),
+                            f"(b) move 1's first, record_xpoints={K}:",
+                            timed=False, tag="[debug]")
     cap_kw = dict(capacity=rec[0].numel())
     turns: dict = {"off": [], "on": []}
     for tag in ("off", "on", "on", "off"):
@@ -4692,7 +5020,8 @@ def debug_partitioned(mesh, full) -> dict:
         raise AssertionError("(d) the partitioned checks did not refuse the "
                              "NaN destination")
     return dict(launches=feat, move_ms=move_ms, pts_err=pts_err, peak=peak,
-                send_on=send_on, send_off=send_off, on_ms=on_ms,
+                send_on=send_on, send_off=send_off,
+                exchange_points=pts_ex, on_ms=on_ms,
                 off_ms=off_ms, turns=turns, bound_ms=bound, bound_by=by)
 
 
@@ -6228,7 +6557,7 @@ def phase_host_syncs(tally) -> dict:
     from pumiumtally_tpu_torch.analysis.astlint import (
         APPROVED_TRANSFER_MODULES,
     )
-    from pumiumtally_tpu_torch.ops import source
+    from pumiumtally_tpu_torch.ops import exchange_cuda, source
 
     root = os.path.dirname(os.path.abspath(__file__))
     t_lint = time.perf_counter()
@@ -6267,10 +6596,12 @@ def phase_host_syncs(tally) -> dict:
         want, groups = inputs["moves"][0]
         dest = want.reshape(-1).copy()
         t0 = time.perf_counter()
+        b0 = exchange_cuda.BUCKET_LAUNCHES
         watch.watch(lambda: part.move_to_next_location(
             dest, np.ones(n, np.int8), np.ones(n), groups,
             np.zeros(n, np.int32)))
         runs["partitioned move"] = time.perf_counter() - t0
+        exchanged = exchange_cuda.BUCKET_LAUNCHES - b0
         del part
         gc.collect()
     finally:
@@ -6302,17 +6633,27 @@ def phase_host_syncs(tally) -> dict:
         "torch's sync debug mode")
     for msg, filename, lineno in watch.other[:5]:
         log(f"[syncs] other warning {filename}:{lineno}: {msg}")
+    at_exchange = [(path, line, symbol) for path, line, symbol in watch.sites
+                   if path.endswith("ops/walk_partitioned.py")
+                   and symbol.startswith("_exchange")]
+    log(f"[syncs] the partitioned move's {exchanged} exchange rounds "
+        f"through csrc/exchange.cu; synchronizing operations at _exchange's "
+        f"sites: {at_exchange}")
     if outside:
         raise AssertionError(f"synchronizing operations outside the "
                              f"lint's allowance: {outside}")
-    return dict(sites=dict(watch.sites), runs=runs, lint_s=lint_s)
+    if at_exchange or not exchanged:
+        raise AssertionError("the partitioned move's exchange synchronized "
+                             "or did not run through its kernels")
+    return dict(sites=dict(watch.sites), runs=runs, lint_s=lint_s,
+                exchanged=exchanged)
 
 
 SASS: dict = {}  # the float64 census of phase 26, started in phase 25
 
 
 def start_sass_census() -> None:
-    """``cuobjdump -sass`` of the four libraries in a thread (the dumps
+    """``cuobjdump -sass`` of the six libraries in a thread (the dumps
     take seconds), so that phase 25's runs overlap it; phase 26 joins."""
     from pumiumtally_tpu_torch.analysis import costmodel as M
 
@@ -6611,7 +6952,7 @@ def _phases(card: str, name: str, t_start: float,
 
     t0 = time.perf_counter()
     start_sass_census()
-    phase_host_syncs(tally)
+    syncs = phase_host_syncs(tally)
     log(f"[phase] host syncs: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -6799,6 +7140,39 @@ def _phases(card: str, name: str, t_start: float,
          "xpoints_peak_device_bytes": debug["b"]["peak"],
          "megastep_nccl_chunk_s": debug["c"]["ranks_s"],
          "megastep_stacked_chunk_s": debug["c"]["stacked_s"]},
+    ]
+    pex = pfull["exchange"]
+    kernels += [
+        {"name": "exchange_cuda (bucket + adopt, a round)", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/exchange.cu",
+         "replaces": "pumiumtally_tpu/ops/walk_partitioned.py:788-934 "
+                     "(XLA exchange)",
+         "launches": pfull["launches"]["exchange_bucket"],
+         "adopt_launches": pfull["launches"]["exchange_adopt"],
+         "max_abs_err": pex["max_abs_err"],
+         "ms": pex["ms"], "plain_ms": pex["plain_ms"],
+         "bound_ms": pex["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "round_turns": pex["turns"],
+         "round_sent": pex["sent"], "round_adopted": pex["adopted"],
+         "span_ms_a_round_min_median_max": pfull["exchange_span_ms"],
+         "send_buffer_bytes": pex["send_bytes"],
+         "xpoints_send_buffer_bytes":
+             debug["b"]["exchange_points"]["send_bytes"],
+         "megastep_launches": pcount["exchange_bucket"],
+         "megastep_exchange_ms_a_move": pmega["counted"]["exchange_ms"],
+         "megastep_move_ms": pmega["counted"]["move_ms"],
+         "nccl_exchange_ms": ranks["nccl"]["exchange_ms"]["nccl"],
+         "stacked_exchange_ms": ranks["nccl"]["exchange_ms"]["stacked"],
+         "host_sync_move_rounds": syncs["exchanged"]},
+        {"name": "integrity_cuda.integrity_vector", "route": "cuda",
+         "source": "pumiumtally_tpu_torch/csrc/integrity.cu",
+         "replaces": "pumiumtally_tpu/ops/walk.py:274 (XLA)",
+         "launches": resil["a"]["launches"],
+         "max_abs_err": resil["a"]["max_abs_err"],
+         "ms": resil["a"]["vec_ms"], "plain_ms": resil["a"]["plain_ms"],
+         "bound_ms": resil["a"]["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "turns": resil["a"]["vec_turns"],
+         "megastep_launches_a_chunk": resil["e"]["launches"]},
     ]
     for b in WIDE_BLOCKS:
         kernels.append({

@@ -189,6 +189,9 @@ PLAIN_VERSIONS = frozenset(
         (f"{PACKAGE}/ops/walk.py", "trace"),
         (f"{PACKAGE}/ops/walk_cuda.py", "lane_records_plain"),
         (f"{PACKAGE}/ops/walk_partitioned.py", "walk_rows_plain"),
+        (f"{PACKAGE}/ops/walk_partitioned.py", "_exchange_plain"),
+        # integrity_cuda.integrity_vector's plain version
+        (f"{PACKAGE}/ops/walk.py", "integrity_vector"),
         (f"{PACKAGE}/ops/scatter.py", "scatter_ordered_plain"),
         (f"{PACKAGE}/ops/scatter.py", "scatter_atomic_plain"),
         (f"{PACKAGE}/ops/gather.py", "gather_rows_plain"),

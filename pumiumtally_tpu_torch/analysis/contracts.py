@@ -88,6 +88,10 @@ WATCHED = (
     ("ops/walk.py", "trace"),
     ("ops/walk.py", "megastep"),
     ("ops/walk_partitioned.py", "walk_rows_plain"),
+    ("ops/walk_partitioned.py", "_exchange"),
+    ("ops/walk_partitioned.py", "_exchange_plain"),
+    ("ops/integrity_cuda.py", "integrity_vector"),
+    ("ops/walk.py", "integrity_vector"),
     ("ops/walk_partitioned.py", "Collectives.stop_test"),
     ("ops/scatter.py", "ordered_cuda"),
     ("ops/scatter.py", "crowded_cuda"),

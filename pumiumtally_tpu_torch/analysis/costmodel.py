@@ -30,7 +30,9 @@ runner reads the logs alone). Baseline-free invariants
                         ``batch_bytes`` / ``dynamic_bytes``
                         (``csrc/walk.cu``, ``Lane<T>`` of 48 and 80 B) and
                         of the bucket fold's fixed arrays and
-                        ``bucket_smem`` (``csrc/scatter.cu``) agrees with
+                        ``bucket_smem`` (``csrc/scatter.cu``) and of the
+                        exchange's count and place passes
+                        (``place_smem``, ``csrc/exchange.cu``) agrees with
                         the static bytes ptxas reports for each
                         instantiation (0 where the launch passes them as
                         dynamic bytes); on the card also with the bytes
@@ -82,7 +84,7 @@ import subprocess
 from . import Finding
 
 PERF_CONTRACTS_FILE = "PERF_CONTRACTS_TORCH.json"
-SOURCES = ("walk", "scatter", "gather", "source")
+SOURCES = ("walk", "scatter", "gather", "source", "exchange", "integrity")
 ARCH = "sm_90a"
 
 # The card's limits (an H100): the register file of an SM, the static
@@ -94,9 +96,10 @@ OPTIN_SMEM_MAX = 227 * 1024
 # -- the mirror of the kernels' launch widths and shared memory --------- #
 # Deliberately DUPLICATED from csrc/ (walk.cu SCHED_THREADS, Lane<T>,
 # batch_bytes, dynamic_bytes; scatter.cu's launches, BUCKET_CAP, SMALL,
-# bucket_smem; gather.cu and source.cu BLOCK): a kernel edit that changes
-# them must change this mirror in the same PR, or cost.smem / cost.regfile
-# name it.
+# bucket_smem; gather.cu and source.cu BLOCK; exchange.cu TILE,
+# SCAN_THREADS, MAX_PARTS, place_smem; integrity.cu BLOCK): a kernel edit
+# that changes them must change this mirror in the same PR, or cost.smem /
+# cost.regfile name it.
 _SCHED_THREADS = 256
 _LANE_BYTES = {"f": 48, "d": 80}
 _BUCKET_THREADS = 256
@@ -104,6 +107,9 @@ _BUCKET_CAP = 2048
 _BUCKET_SHIFT_MAX = 10
 _SMALL = 32
 _ITEM = {"f": 4, "d": 8}
+_EXCHANGE_TILE = 256
+_EXCHANGE_SCAN = 1024
+_EXCHANGE_MAX_PARTS = 1024
 
 #: Threads a block of each kernel is launched with (the walk kernel's is
 #: its BLOCK template value).
@@ -115,6 +121,9 @@ LAUNCH_THREADS = {
     "fold_small": 256, "bucket_place": 256, "bucket_fold": _BUCKET_THREADS,
     "scan_tiles": 1024, "scan_sums": 1024, "sort_fold_large": 1024,
     "gather_kernel": 256, "sample_flight_kernel": 256,
+    "exchange_count": _EXCHANGE_TILE, "exchange_scan": _EXCHANGE_SCAN,
+    "exchange_place": _EXCHANGE_TILE, "adopt_scan": _EXCHANGE_SCAN,
+    "adopt_place": _EXCHANGE_TILE, "integrity_kernel": 256,
 }
 
 
@@ -142,9 +151,20 @@ def bucket_static_bytes() -> int:
     return -(-raw // 16) * 16
 
 
+def exchange_smem(n_parts: int) -> int:
+    """``place_smem(n_parts)``: the exchange's place pass counts each
+    warp's emigrants to each destination (its count pass passes
+    ``(n_parts + 1)`` ints, fewer)."""
+    return _EXCHANGE_TILE // 32 * n_parts * 4
+
+
 def expected_smem(kernel: str, targs: str) -> tuple[int, int] | None:
     """(static bytes ptxas must report, the most dynamic bytes a launch
     passes) of an instantiation the mirror covers, or None."""
+    if kernel == "exchange_count":
+        return 0, (_EXCHANGE_MAX_PARTS + 1) * 4
+    if kernel == "exchange_place":  # the warps' free counts, static
+        return _EXCHANGE_TILE // 32 * 4, exchange_smem(_EXCHANGE_MAX_PARTS)
     if kernel == "walk_kernel":
         t, block = targs[0], _walk_block(targs)
         dyn = walk_dynamic_bytes(t, block)
@@ -513,17 +533,28 @@ def check_bank(metas: list, cap: dict) -> list[Finding]:
 def entry_smem(source: str, t: str, *args) -> int:
     """The dynamic shared memory bytes a launch of ``csrc/<source>.cu``
     passes, through its C entry (on the card): the walk at a block width,
-    the bucket fold at a cap and shift, the gather and the flight."""
+    the bucket fold at a cap and shift, the exchange at a part count,
+    the gather, the flight and the integrity vector."""
     import torch
 
-    from ..ops import gather, scatter, source_cuda, walk_cuda
+    from ..ops import (
+        exchange_cuda,
+        gather,
+        integrity_cuda,
+        scatter,
+        source_cuda,
+        walk_cuda,
+    )
 
     dt = {"f": torch.float32, "d": torch.float64}[t]
     if source == "walk":
         return walk_cuda.dynamic_smem(dt, *args)
     if source == "scatter":
         return scatter.bucket_dynamic_smem(dt, *args)
-    return {"gather": gather, "source": source_cuda}[source].dynamic_smem()
+    if source == "exchange":
+        return exchange_cuda.dynamic_smem(*args)
+    return {"gather": gather, "source": source_cuda,
+            "integrity": integrity_cuda}[source].dynamic_smem()
 
 
 def check_smem_entries() -> list[Finding]:
@@ -548,7 +579,14 @@ def check_smem_entries() -> list[Finding]:
                     "cost.smem.bucket_fold",
                     f"pumi_scatter_smem_{t}({cap}, {shift}) = {got} B, the "
                     f"mirror {bucket_smem(t, cap, shift)} B"))
-    for src in ("gather", "source"):
+    for parts in (1, 4, 64, _EXCHANGE_MAX_PARTS):
+        got = dynamic("exchange", "f", parts)
+        if got != exchange_smem(parts):
+            out.append(_finding(
+                "cost.smem.exchange_place",
+                f"pumi_exchange_smem({parts}) = {got} B, the mirror "
+                f"{exchange_smem(parts)} B"))
+    for src in ("gather", "source", "integrity"):
         if dynamic(src, "f") != 0:
             out.append(_finding(f"cost.smem.{src}",
                                 f"csrc/{src}.cu passes dynamic shared "

@@ -50,7 +50,8 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 
 #: The wrapper module of each source, the one that binds its entries.
 WRAPPERS = {"walk": "walk_cuda", "scatter": "scatter",
-            "source": "source_cuda", "gather": "gather"}
+            "source": "source_cuda", "gather": "gather",
+            "exchange": "exchange_cuda", "integrity": "integrity_cuda"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -82,7 +82,7 @@ import time
 import numpy as np
 import torch
 
-from . import _build, scatter
+from . import _build, integrity_cuda, scatter
 from .walk import (
     TRACK_CHECK,
     Records,
@@ -97,7 +97,6 @@ from .walk import (
     trace_records as trace_records_plain,
     track_length_violated,
     walk_stats_vector,
-    with_integrity,
     xpoint_buffers,
 )
 
@@ -267,8 +266,8 @@ def trace(
     flux is updated in place. ``block`` is the kernel's threads per block
     (see the module docstring; the plain walk ignores it). ``integrity``
     adds the conservation vector of ``ops/walk.py::integrity_vector``
-    (torch ops on the card after the scatter, no kernel of its own and no
-    host read).
+    (one launch of ``csrc/integrity.cu`` after the scatter,
+    ``integrity_cuda``; no host read).
 
     ``tally`` is ``"ordered"`` (flux bitwise equal to the plain walk's) or
     ``"atomic"``. ``capacity`` is the number of records the ordered walk's
@@ -314,7 +313,9 @@ def trace(
                              mesh.ntet * n_groups)
         r = _result(out, **kw, records=rec.bin.numel())
     if integrity:
-        with_integrity(r, origin, in_flight, weight, initial)
+        r.integrity = integrity_cuda.integrity_vector(
+            in_flight, r.done, weight, r.track_length, r.position, origin,
+            r.flux, initial)
     return r
 
 

@@ -52,6 +52,11 @@ when the device mesh names no ranks). A step alternates
      ``dist.all_to_all_single`` over ranks, its input itself when the
      parts are stacked); each part adopts its i-th immigrant into its
      i-th free slot and counts what it cannot adopt in ``n_dropped``.
+     On the card a round is the kernels of ``csrc/exchange.cu``
+     (``exchange_cuda``: a stable counting sort into the send rows, the
+     blocks' row counts sent beside them, an adopt by free-slot rank),
+     with no host read and one send buffer a step, never cleared; on the
+     CPU (or with ``plain``) it is ``_exchange_plain``, bitwise equal.
      ``SEND_BYTES`` keeps the largest send buffer allocated, in bytes.
 
 The rounds end when no part of any rank has pending lanes: one
@@ -89,6 +94,7 @@ import torch
 
 from ..obs.convergence import fold_and_reduce
 from ..parallel.ranks import RankLayout, rank_layout
+from . import exchange_cuda
 from .geometry import exit_face
 from .scatter import scatter_ordered_plain
 from .walk import _norm3, chase_face_choice, escalated_bump, xpoint_buffers
@@ -99,11 +105,6 @@ BUDGET_LANES = 0
 BUDGET_STARVED = 0
 SEND_BYTES = 0
 SPANS: list | None = None
-# The exchange payload's columns: floats cur(3) dest(3) weight track, then
-# with record_xpoints=K the points (3K); ints pid group material
-# target_elem occupied done back_code, then the point count (else
-# padding: the int block is 8 columns either way).
-_F_COLS, _I_COLS = 8, 7
 
 
 @dataclasses.dataclass
@@ -747,8 +748,9 @@ def make_partitioned_step(
 
         def exchange(rnd):
             with _span(dev, "exchange", rnd):
-                return _exchange(comm, n_parts, lo, P_l, cap, E, max_local,
-                                 canon, state, dropped)
+                return (_exchange_plain if plain else _exchange)(
+                    comm, n_parts, lo, P_l, cap, E, max_local, canon, state,
+                    dropped)
 
         state = dict(cur=cur, dest=dest, weight=weight, pseg=pseg, pid=pid,
                      group=group, material_id=material_id, elem=elem,
@@ -1197,13 +1199,45 @@ def _row_ranks(mask: torch.Tensor) -> torch.Tensor:
 
 def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
     """One exchange round over this process's slot state ``s`` (updated
-    in place): bucket, send blocks, all_to_all, adopt. The send blocks'
-    float columns (_F_COLS, then 3K point columns when ``s["xp"]`` holds
-    recorded points) and int columns (_I_COLS and the point count, or
-    padding, 8) share one byte buffer, so a round is one collective; an
-    adopted lane takes its points and count into its slot, a sent slot
-    keeps its old ones (it is free). Returns the [P_l, 5] int64 round
-    stats (pending, sent, received, free, adopted)."""
+    in place): the kernels of ``csrc/exchange.cu`` for CUDA tensors
+    (``exchange_cuda``: bucket, the send blocks and their row counts
+    through ``comm``'s all_to_all, adopt; no host read), the plain
+    version ``_exchange_plain`` for CPU tensors, bitwise equal. The send
+    buffer and the scratch are allocated once a step (kept in ``s``) and
+    never cleared: a receiver reads the counted rows of a block only.
+    Returns the [P_l, 5] int64 round stats (pending, sent, received,
+    free, adopted)."""
+    global SEND_BYTES
+    K = exchange_cuda.check(s, P, lo, P_l, cap, E, max_local, canon,
+                            dropped)
+    dev = s["cur"].device
+    if dev.type == "cpu":
+        return _exchange_plain(comm, P, lo, P_l, cap, E, max_local, canon,
+                               s, dropped)
+    if dev.type != "cuda":
+        raise ValueError(f"the exchange runs on 'cuda' or 'cpu', not {dev}")
+    ws = s.get("send")
+    if ws is None:
+        ws = s["send"] = exchange_cuda.workspace(s, P, P_l, cap, E, K)
+        SEND_BYTES = max(SEND_BYTES, ws["buf"].numel())
+    stats = torch.empty(P_l, 5, dtype=torch.int64, device=dev)
+    exchange_cuda.bucket(s, P, lo, P_l, cap, E, max_local, canon, ws, stats)
+    # The JAX step's all_to_all: block d of sender p goes to part d, its
+    # row count beside it.
+    exchange_cuda.adopt(s, P, P_l, cap, E, comm.all_to_all(ws["buf"]),
+                        comm.all_to_all(ws["rows"]), ws, stats, dropped)
+    return stats
+
+
+def _exchange_plain(comm, P, lo, P_l, cap, E, max_local, canon, s,
+                    dropped):
+    """The plain version of ``_exchange`` (same arguments, same results):
+    bucket, send blocks, all_to_all, adopt in torch ops. The send rows
+    (``exchange_cuda``'s layout: float columns, then the 3K points when
+    ``s["xp"]`` holds recorded points; the int block, its last column the
+    point count) share one byte buffer, zeroed each round, so a round is
+    one collective; an adopted lane takes its points and count into its
+    slot, a sent slot keeps its old ones (it is free)."""
     dev = s["cur"].device
     valid, target = s["valid"], s["target"]
     emig = (valid & (target >= 0)).view(P_l, cap)
@@ -1228,9 +1262,9 @@ def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
     dtype = s["cur"].dtype
     xp = s["xp"]
     K3 = 0 if xp is None else 3 * xp.shape[1]
-    fb = (_F_COLS + K3) * torch.finfo(dtype).bits // 8
-    buf = torch.zeros(P_l * P * E, fb + 4 * 8, dtype=torch.uint8,
-                      device=dev)
+    fb = (exchange_cuda.FLOAT_COLS + K3) * torch.finfo(dtype).bits // 8
+    buf = torch.zeros(P_l * P * E, exchange_cuda.row_bytes(dtype, K3 // 3),
+                      dtype=torch.uint8, device=dev)
     global SEND_BYTES
     SEND_BYTES = max(SEND_BYTES, buf.numel())
     fbuf, ibuf = buf[:, :fb].view(dtype), buf[:, fb:].view(torch.int32)
@@ -1277,8 +1311,8 @@ def _exchange(comm, P, lo, P_l, cap, E, max_local, canon, s, dropped):
     s["prev"][at] = ri[:, 6]
     s["stuck"][at] = 0
     if xp is not None:
-        xp[at] = rf[:, _F_COLS:].reshape(-1, K3 // 3, 3)
-        s["kx"][at] = ri[:, _I_COLS]
+        xp[at] = rf[:, exchange_cuda.FLOAT_COLS:].reshape(-1, K3 // 3, 3)
+        s["kx"][at] = ri[:, -1]
     valid[at] = True
     i64 = torch.int64
     return torch.stack([emig.sum(1, dtype=i64), sendable.sum(1, dtype=i64),

@@ -15,7 +15,7 @@ byte stability (the ptxas capture is written from a build on the card;
 here the runner must refuse to write without build logs, which
 tests/test_torch_static_analysis.py checks).
 
-The parser cases read the real ptxas logs of the four sources recorded
+The parser cases read the real ptxas logs of the six sources recorded
 on the card (``tests/ptxas_logs/``): the walk's float64 instantiation at
 512 threads passes its batches as dynamic shared memory (static 0), and
 the flight kernel's log has a non-entry function's properties block
@@ -101,7 +101,8 @@ def test_fit_exponent_rejects_degenerate_input():
 # --------------------------------------------------------------------- #
 def test_parse_ptxas_reads_every_entry_of_the_real_logs():
     counts = {n: len(M.parse_ptxas(_log(n))) for n in M.SOURCES}
-    assert counts == {"walk": 69, "scatter": 19, "gather": 12, "source": 2}
+    assert counts == {"walk": 69, "scatter": 19, "gather": 12, "source": 2,
+                      "exchange": 7, "integrity": 2}
     for n in M.SOURCES:
         text = _log(n)
         assert counts[n] == text.count("Compiling entry function")

@@ -1256,6 +1256,73 @@ def test_integrity_vector_kernel_matches_plain(cuda, dtype, initial):
                                        abs=rtol * max(1.0, want["path_wlen"]))
 
 
+@pytest.mark.parametrize("initial", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_integrity_vector_fused_kernel_matches_plain(cuda, dtype, initial):
+    """The fused kernel (csrc/integrity.cu) on a walk's outputs and a
+    flux with planted negative, NaN and infinite entries, against the
+    plain vector on the same tensors: counts and bad_flux equal, the sums
+    within 1e-12 relative in float64 and 1e-5 in float32 (as
+    test_integrity_vector_kernel_matches_plain), the max residual within
+    that part of itself plus 4 ulps of max |pseg| (a max does not depend
+    on the fold's order, only on the norm's rounding), the same bits from
+    two launches, the flux untouched; one launch each. Then a residual of
+    0.25 planted on a lane in flight and done, and one of 1.0 on a lane
+    not in flight: the fused max finds the first and skips the second."""
+    from pumiumtally_tpu_torch.integrity.invariants import integrity_to_dict
+    from pumiumtally_tpu_torch.ops import integrity_cuda, walk, walk_cuda
+
+    mesh = _jittered(6, dtype, cuda)
+    args = list(_walk_inputs(mesh, cuda, dtype, n=300_000, G=2))
+    flux = _flux0(mesh, 2, dtype, cuda)
+    r = walk_cuda.trace(*args, flux, initial=initial,
+                        max_crossings=mesh.ntet + 8, n_groups=2)
+    flux[3], flux[11], flux[12] = -1.0, float("nan"), float("inf")
+    vec = (args[4], r.done, args[5], r.track_length, r.position, args[1],
+           flux, initial)
+    kept = flux.clone()
+    before = integrity_cuda.LAUNCHES
+    a = integrity_cuda.integrity_vector(*vec)
+    b = integrity_cuda.integrity_vector(*vec)
+    want = walk.integrity_vector(*vec)
+    torch.cuda.synchronize()
+    assert integrity_cuda.LAUNCHES - before == 2
+    assert torch.equal(a, b)
+    bits = torch.int64 if dtype == torch.float64 else torch.int32
+    assert torch.equal(flux.view(bits), kept.view(bits))
+    got = integrity_to_dict(a.cpu().numpy())
+    ref = integrity_to_dict(want.cpu().numpy())
+    for f in ("bad_flux", "lanes_flying", "lanes_done"):
+        assert got[f] == ref[f], f
+    assert got["bad_flux"] == 3
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    _residual_close(got, ref, vec[3], rtol)
+    if initial:
+        assert got["scored_wlen"] == got["path_wlen"] == 0.0
+        return
+    pseg = vec[3].clone()
+    i, j = (int(torch.nonzero(m)[0]) for m in (vec[0] & vec[1], ~vec[0]))
+    pseg[i] += 0.25
+    pseg[j] += 1.0
+    planted = vec[:3] + (pseg,) + vec[4:]
+    got = integrity_to_dict(integrity_cuda.integrity_vector(*planted)
+                            .cpu().numpy())
+    ref = integrity_to_dict(walk.integrity_vector(*planted).cpu().numpy())
+    assert 0.2 < ref["max_residual"] < 0.3
+    _residual_close(got, ref, pseg, rtol)
+
+
+def _residual_close(got: dict, ref: dict, pseg, rtol: float) -> None:
+    """The two sums within ``rtol`` of path_wlen; the max residual within
+    ``rtol`` of itself plus 4 ulps of max |pseg|."""
+    for f in ("scored_wlen", "path_wlen"):
+        assert got[f] == pytest.approx(ref[f], rel=rtol,
+                                       abs=rtol * max(1.0, ref["path_wlen"]))
+    ulps = 4 * torch.finfo(pseg.dtype).eps * float(pseg.abs().max())
+    assert got["max_residual"] == pytest.approx(ref["max_residual"],
+                                                rel=rtol, abs=ulps)
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_checkpoint_round_trip_on_card(cuda, dtype, tmp_path):
     """Save after move 2, restore into a fresh tally on the card, run
@@ -1319,9 +1386,12 @@ def test_checkpoint_round_trip_on_card(cuda, dtype, tmp_path):
     assert c.telemetry()["integrity"]["violations"] == {}
 
 
-def _part_inputs(dtype, cuda, n_parts, halo, n=8192, seed=5):
+def _part_inputs(dtype, cuda, n_parts, halo, n=8192, seed=5, tight=False):
     """A jittered 12^3 two-region box split into parts on the card, and
-    n distributed lanes (flights of mean 0.15, some leaving the box)."""
+    n distributed lanes (flights of mean 0.15, some leaving the box);
+    ``tight`` sends every lane 0.8 of the way to a corner of the box and
+    gives each part only as many slots as the most any part starts with,
+    so that the corner's part drops immigrants."""
     from pumiumtally_tpu_torch.ops import walk_partitioned as wp
     from pumiumtally_tpu_torch.parallel.mesh_partition import partition_mesh
 
@@ -1333,6 +1403,8 @@ def _part_inputs(dtype, cuda, n_parts, halo, n=8192, seed=5):
     u = rng.normal(size=(n, 3))
     u /= np.linalg.norm(u, axis=1, keepdims=True)
     dest = origin + u * rng.exponential(0.15, (n, 1))
+    if tight:
+        dest = origin + 0.8 * (np.array([0.95, 0.95, 0.95]) - origin)
     placed = wp.distribute_particles(part, None, elem, dict(
         origin=origin.astype(np.float32 if dtype == torch.float32
                              else np.float64),
@@ -1341,7 +1413,9 @@ def _part_inputs(dtype, cuda, n_parts, halo, n=8192, seed=5):
         weight=rng.uniform(0.5, 2.0, n).astype(
             np.float32 if dtype == torch.float32 else np.float64),
         group=rng.integers(0, 4, n).astype(np.int32),
-        material_id=np.full(n, -1, np.int32)))
+        material_id=np.full(n, -1, np.int32)),
+        cap=(int(np.bincount(part.owner[elem], minlength=n_parts).max())
+             if tight else None))
     return mesh, part, placed
 
 
@@ -1506,6 +1580,54 @@ def test_partitioned_step_kernel_matches_plain(cuda, dtype, halo):
         assert torch.equal(getattr(k, name), getattr(again, name)), name
     assert int(k.n_rounds[0]) >= 1 and int(k.n_dropped.sum()) == 0
     assert bool(k.done[k.valid].all())
+
+
+@pytest.mark.parametrize("case", ["default", "xpoints8", "overflow_drops"])
+@pytest.mark.parametrize("halo", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_exchange_kernel_matches_plain(cuda, dtype, halo, case):
+    """The step through the exchange kernels (csrc/exchange.cu) against
+    the step through ``_exchange_plain`` (and the plain walk phases) on
+    the card: every slot field, the recorded points and their counts,
+    the rounds' stats, ``n_dropped`` and the slab flux bitwise, and two
+    kernel runs the same bits. ``xpoints8`` carries 8 recorded points a
+    slot in the send rows; ``overflow_drops`` takes 2 rows a destination
+    a round and a slot layout of the most any part starts with, so that
+    emigrants wait rounds and full parts drop immigrants."""
+    from pumiumtally_tpu_torch.ops import exchange_cuda
+
+    tight = case == "overflow_drops"
+    mesh, part, placed = _part_inputs(dtype, cuda, 4, halo,
+                                      n=512 if tight else 8192, tight=tight)
+    kw = dict(max_crossings=mesh.ntet + 8)
+    if case == "xpoints8":
+        kw["record_xpoints"] = 8
+    if tight:
+        kw["exchange_size"] = 2
+    runs = []
+    for plain in (False, True, False):
+        before = exchange_cuda.BUCKET_LAUNCHES, exchange_cuda.ADOPT_LAUNCHES
+        runs.append(_part_step(part, placed, [cuda] * 4, cuda, dtype,
+                               plain=plain, **kw))
+        torch.cuda.synchronize()
+        launched = (exchange_cuda.BUCKET_LAUNCHES - before[0],
+                    exchange_cuda.ADOPT_LAUNCHES - before[1])
+        rounds = int(runs[-1].n_rounds[0])
+        assert launched == ((0, 0) if plain else (rounds, rounds))
+    k, p, again = runs
+    for K in (0, 8):  # the buffer's rows are the kernels' stride
+        assert exchange_cuda.kernel_row_bytes(dtype, K) == \
+            exchange_cuda.row_bytes(dtype, K)
+    names = STEP_OUT + ("dest", "weight", "group") + (
+        ("xpoints", "n_xpoints") if case == "xpoints8" else ())
+    for name in names:
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+        assert torch.equal(getattr(k, name), getattr(again, name)), name
+    rs = k.round_stats
+    assert int(k.n_rounds[0]) >= 1 and int(rs[:, 1].sum()) > 0
+    if case == "overflow_drops":
+        assert int(k.n_dropped.sum()) > 0
+        assert bool((rs[:, 1] < rs[:, 0]).any())
 
 
 def test_partitioned_tally_on_card_matches_pumitally(cuda):
@@ -1702,11 +1824,13 @@ def test_budget_rounds_kernel_matches_plain(cuda, dtype):
 
 def test_one_rank_nccl_step_matches_stacked(cuda, tmp_path):
     """The step over the MeshEntry mesh of a one-rank NCCL group (its
-    exchange, stop test and halo fold through the collectives) equals
-    the stacked step bit for bit; write_parallel_vtk on that rank writes
-    its piece and the index."""
+    exchange through the exchange kernels and the collectives, its stop
+    test and halo fold through the collectives) equals the stacked step
+    bit for bit; write_parallel_vtk on that rank writes its piece and the
+    index."""
     import torch.distributed as dist
 
+    from pumiumtally_tpu_torch.ops import exchange_cuda
     from pumiumtally_tpu_torch.parallel import multihost
 
     mesh, part, placed = _part_inputs(torch.float32, cuda, 4, 1)
@@ -1718,7 +1842,11 @@ def test_one_rank_nccl_step_matches_stacked(cuda, tmp_path):
         dm = multihost.global_device_mesh(4)
         assert [e.rank for e in dm] == [0] * 4
         kw = dict(max_crossings=mesh.ntet + 8)
+        before = exchange_cuda.BUCKET_LAUNCHES
         ranked = _part_step(part, placed, dm, cuda, torch.float32, **kw)
+        torch.cuda.synchronize()
+        assert exchange_cuda.BUCKET_LAUNCHES - before == int(
+            ranked.n_rounds[0])  # its exchanges through the kernels
         stacked = _part_step(part, placed, [cuda] * 4, cuda, torch.float32,
                              **kw)
         torch.cuda.synchronize()

@@ -70,7 +70,6 @@ COUNTED = {
     (f"{PKG}/ops/walk_partitioned.py", "make_partitioned_step.run.rounds"): 3,
     (f"{PKG}/ops/walk_partitioned.py", "Collectives.stop_test"): 1,
     (f"{PKG}/ops/walk_partitioned.py", "_first_active"): 1,
-    (f"{PKG}/ops/walk_partitioned.py", "_exchange"): 3,
     (f"{PKG}/ops/walk_partitioned.py", "_halo_fold_rows"): 2,
 }
 
