@@ -81,7 +81,7 @@ Phases, each of which raises (exit code != 0) on any failed check:
 10. move-loop I/O: the main path's initial search and moves 1-4 from the
    same seed under each ``io_pipeline`` mode (legacy, packed, overlap),
    twice each: once with a ``StepClock`` (each host step of every move on
-   the host clock and as a stream span, and the walk's two host waits),
+   the host clock, and the walk's two host waits),
    once with moves 2-4 traced by torch.profiler (the card's busy share of
    their host time). Write-backs and raw flux must be bitwise equal
    across all runs; a packed or overlap move must make 1 host→device and
@@ -774,12 +774,11 @@ def io_run(mesh, mode: str, *, clocked: bool, profiled: bool) -> dict:
     """The main-path cell's initial search and moves 1-4 under one
     ``io_pipeline`` mode, from numpy seed 1 (the main path's inputs).
     ``clocked`` times each host step of every move (``StepClock``: host
-    clock and stream span) and the host waits inside the walk;
+    clock) and the host waits inside the walk (its rows);
     ``profiled`` traces moves 2-4 with torch.profiler for the card's busy
     share. Returns the write-backs, the flux, the per-move host seconds,
     segments, transfers and step rows, and the launches counted."""
     from pumiumtally_tpu_torch import PumiTally, TallyConfig
-    from pumiumtally_tpu_torch.ops import scatter, walk_cuda
     from pumiumtally_tpu_torch.utils.timing import StepClock
 
     n, G = MAIN_PARTICLES, MAIN_GROUPS
@@ -808,10 +807,11 @@ def io_run(mesh, mode: str, *, clocked: bool, profiled: bool) -> dict:
                    segments=tally.last_stats["segments"],
                    io={k: tally.io[k] - io0[k] for k in io0})
         if clocked:
-            row["steps"] = tally.step_clock.rows()
-            row["count_wait_ms"] = walk_cuda.LAST_WAIT_S * 1e3
-            row["bucket_wait_ms"] = scatter.LAST_BUCKETS.get(
-                "wait_s", float("nan")) * 1e3
+            rows = tally.step_clock.rows()
+            row["steps"] = [r for r in rows if r["step"] not in WAITS]
+            for key in WAITS:
+                row[f"{key}_ms"] = sum(r["host_ms"] for r in rows
+                                       if r["step"] == key)
         moves.append(row)
         outs.append((dest.copy(), mats.copy()))
         prev = dest.reshape(n, 3).copy()
@@ -874,25 +874,26 @@ def print_io_run(run: dict) -> None:
             log(f"[io]   {ms:9.4f} ms {key}")
 
 
+# The walk wrapper's two host waits, rows of the step they close in.
+WAITS = ("count_wait", "bucket_wait")
+
+
 def print_step_table(label: str, moves: list, tag: str = "[io]") -> None:
-    """Median, least and most of each host step (host clock and stream
-    span) over ``moves``, which carry StepClock rows, in step order."""
+    """Median, least and most of each host step's host clock over
+    ``moves``, which carry StepClock rows, in step order; a move's waits
+    taken out of its rows (``io_run``) follow, indented."""
     steps: dict = {}
     for m in moves:
         for r in m["steps"]:
-            steps.setdefault(r["step"], []).append(r)
-        for key in ("count_wait_ms", "bucket_wait_ms"):
-            if key in m:
-                steps.setdefault(f"  {key[:-3]}", []).append(
-                    {"host_ms": m[key], "stream_ms": None})
-    for name, rows in steps.items():
-        host = np.array([r["host_ms"] for r in rows])
-        span = [r["stream_ms"] for r in rows if r["stream_ms"] is not None]
-        stream = (f"; stream span median {np.median(span):.4f} ms"
-                  if span else "")
+            steps.setdefault(r["step"], []).append(r["host_ms"])
+        for key in WAITS:
+            if f"{key}_ms" in m:
+                steps.setdefault(f"  {key}", []).append(m[f"{key}_ms"])
+    for name, ms in steps.items():
+        host = np.array(ms)
         log(f"{tag} {label} {name:<16} host median {np.median(host):.4f} ms "
             f"(least {host.min():.4f}, most {host.max():.4f}, "
-            f"{len(host)} samples){stream}")
+            f"{len(host)} samples)")
 
 
 IO_MODES = ("legacy", "packed", "overlap")
@@ -1075,10 +1076,8 @@ def phase_pipeline(mesh) -> dict:
                 continue
             rows = pipe.step_clock.rows()
             for r in rows:
-                span = ("" if r["stream_ms"] is None
-                        else f", stream span {r['stream_ms']:.4f} ms")
                 log(f"[pipe]   depth {depth} {r['step']:<9} host "
-                    f"{r['host_ms']:.4f} ms{span}")
+                    f"{r['host_ms']:.4f} ms")
             flux_s = sum(r["host_ms"] for r in rows
                          if r["step"] == "flux") / 1e3
             out[f"depth{depth}_batches_per_s"] = PIPE_BATCHES / secs

@@ -44,8 +44,14 @@ totals count the same: a packed move makes one each way, a legacy
 move four host→device and one device→host. The ordered walk's own host
 reads on the card (the record count in ``ops/walk_cuda.py``, the bucket
 information in ``ops/scatter.py``) happen inside the walk wrapper and are
-not counted (ROADMAP.md B2). ``PumiTally.step_clock`` set to a
-``utils/timing.py::StepClock`` times each host step of a call.
+not transfers of ``io`` (ROADMAP.md B2). ``PumiTally.step_clock`` set to
+a ``utils/timing.py::StepClock`` is bound for each public call: it times
+each host step of the call (its rows), records every span the call opens
+down to the wrappers, and counts each blocking device→host read by site
+(the record count, the bucket information, the crowded scatter's large
+bins, the invariant checks' bits, the readback's event wait). While a
+torch profiler records, the same spans are ``pumi:`` ranges in its
+trace.
 
 Run statistics and recovery, as in the JAX facade (``TallyConfig``):
 
@@ -144,6 +150,7 @@ Prometheus endpoint on this tally's registry (``obs/exporter.py``), which
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import threading
 import warnings
@@ -180,7 +187,7 @@ from .tuning.shapes import classify
 from .utils.config import TallyConfig
 from .utils.ladder import plan_stages
 from .utils.platform import resolve_device
-from .utils.timing import StepClock, TallyTimes, clock_step, phase_timer
+from .utils.timing import StepClock, TallyTimes, bind, phase_timer, span, step
 
 _NP_DTYPES = {
     torch.float32: np.float32, torch.float64: np.float64,
@@ -538,8 +545,12 @@ class PumiTally:
             return body()
         from .integrity.watchdog import DispatchTimeoutError, run_with_deadline
 
+        # The worker runs in a copy of this context: the bound clock and
+        # the open span (utils/timing.py) go with it.
+        ctx = contextvars.copy_context()
         try:
-            return run_with_deadline(body, self.config.move_deadline_s)
+            return run_with_deadline(lambda: ctx.run(body),
+                                     self.config.move_deadline_s)
         except DispatchTimeoutError:
             abandoned.set()
             self._stager = HostStager(depth=self._stager.depth,
@@ -656,10 +667,6 @@ class PumiTally:
             est = walk_cuda.path_records(self._face_rate, self._origin_h,
                                          dest, in_flight)
         return walk_cuda.record_capacity(self.num_particles, est)
-
-    def _step(self, name: str):
-        """The context of one timed host step (nothing without a clock)."""
-        return clock_step(self.step_clock, name)
 
     def _count(self, way: str, nbytes: int) -> None:
         self.io[f"{way}_transfers"] += 1
@@ -832,95 +839,98 @@ class PumiTally:
         """Fly all particles from their current positions (element 0's
         centroid after construction) to their source positions to find
         their parent elements; nothing is tallied."""
-        pos = np.ascontiguousarray(
-            init_particle_positions, dtype=np.float64
-        ).reshape(-1)
-        if size is None:
-            size = pos.size
-        n = self.num_particles
-        if size != n * 3:
-            raise ValueError(f"expected {n * 3} coordinates, got {size}")
-        cfg = self.config
-        pos3 = pos[:size].reshape(n, 3)
-        fly_h = np.ones(n, bool)
-        qmask = None
-        if cfg.quarantine:
-            pos3, _, qmask = quarantine.apply(self, pos3, None, 0)
-            if qmask is not None:
-                fly_h &= ~qmask  # masked lanes stay at the seed
-        self._check_finite("init_particle_positions", pos3)
-        self._origin_h = pos3.copy()
-        s = self.state
-        io0 = dict(self.io)
-        t_before = self.tally_times.initialization_time
-        with phase_timer(
-            self.tally_times, "initialization_time", True
-        ) as timer:
-            kw = self._walk_kw(True)
-            packed = self._io != "legacy"
-            # The walk's inputs, bound now: an abandoned watchdog worker
-            # must walk into these, never into what a rollback restored.
-            flux_in, perm_in, stager = self.flux, self._perm_dev, self._stager
-            if packed:
-                rec = staging.pack_init_record(
-                    self._stager, pos3, fly_h, cfg.dtype
-                )
-                rec_dev = self._put_record(rec)
-
-                def walk():
-                    out = self._trace(
-                        self.mesh, s.origin, s.elem, s.material_id, rec_dev,
-                        flux_in, perm_in, weight=s.weight, group=s.group,
-                        _packed=True, **kw,
+        with bind(self.step_clock, "initialize_particle_location"):
+            pos = np.ascontiguousarray(
+                init_particle_positions, dtype=np.float64
+            ).reshape(-1)
+            if size is None:
+                size = pos.size
+            n = self.num_particles
+            if size != n * 3:
+                raise ValueError(f"expected {n * 3} coordinates, got {size}")
+            cfg = self.config
+            pos3 = pos[:size].reshape(n, 3)
+            fly_h = np.ones(n, bool)
+            qmask = None
+            if cfg.quarantine:
+                pos3, _, qmask = quarantine.apply(self, pos3, None, 0)
+                if qmask is not None:
+                    fly_h &= ~qmask  # masked lanes stay at the seed
+            self._check_finite("init_particle_positions", pos3)
+            self._origin_h = pos3.copy()
+            s = self.state
+            io0 = dict(self.io)
+            t_before = self.tally_times.initialization_time
+            with phase_timer(
+                self.tally_times, "initialization_time", True
+            ) as timer:
+                kw = self._walk_kw(True)
+                packed = self._io != "legacy"
+                # The walk's inputs, bound now: an abandoned watchdog worker
+                # must walk into these, never into what a rollback restored.
+                flux_in, perm_in, stager = (self.flux, self._perm_dev,
+                                            self._stager)
+                if packed:
+                    rec = staging.pack_init_record(
+                        self._stager, pos3, fly_h, cfg.dtype
                     )
-                    return out, staging.to_host(stager, out[1], "readback")
+                    rec_dev = self._put_record(rec)
 
-                (r, _, dest, _, _, _), host = self._dispatch(walk, 0)
-                _, _, done_h, tail, integ, _ = self._views(host)
-                summary = self._packed_summary(tail, done_h)
-            else:
-                dest = self._put(_convert(pos3, cfg.dtype))
-                fly = (torch.ones(n, dtype=torch.bool, device=self.device)
-                       if qmask is None else self._put(fly_h))
+                    def walk():
+                        out = self._trace(
+                            self.mesh, s.origin, s.elem, s.material_id,
+                            rec_dev, flux_in, perm_in, weight=s.weight,
+                            group=s.group, _packed=True, **kw,
+                        )
+                        return out, staging.to_host(stager, out[1], "readback")
 
-                def walk():
-                    r = self._trace(
-                        self.mesh, s.origin, dest, s.elem, fly, s.weight,
-                        s.group, s.material_id, flux_in, **kw,
-                    )
-                    return r, _to_host(self._summary(r),
-                                       *_present(r.integrity))
+                    (r, _, dest, _, _, _), host = self._dispatch(walk, 0)
+                    _, _, done_h, tail, integ, _ = self._views(host)
+                    summary = self._packed_summary(tail, done_h)
+                else:
+                    dest = self._put(_convert(pos3, cfg.dtype))
+                    fly = (torch.ones(n, dtype=torch.bool, device=self.device)
+                           if qmask is None else self._put(fly_h))
 
-                r, host = self._dispatch(walk, 0)
-                self._count_to_host(host)
-                summary, *rest = host
-                integ = rest[0] if rest else None
-            stats_d, _, n_tr = self._read_summary(summary)
-            r, parts, n_lost = self._escalate_truncated(
-                r, dest, s.weight, s.group, n_tr, kw, 0, packed=packed)
-            if parts is not None:
-                stats_d, _, _ = self._read_summary(
-                    self._packed_summary(parts[3], parts[2])
-                    if packed else parts[0])
-                integ = parts[4] if packed else parts[3]
-            self.flux = r.flux
-            self.state = s.replace(origin=r.position, dest=dest, elem=r.elem)
-            self._traces_since_sort += 1
-            self._store_xpoints(r)
-            self._initialized = True
-            self._warn_if_truncated(n_lost)
-            # The search scores nothing: the flux must stay clean and
-            # the lane counts close (the audit starts with move 1).
-            self._self_verify(0, integ, fly_h, n_lost, s, r, dest, None,
-                              None)
-            if cfg.measure_time:
-                timer.sync(self.device)
-        self._telemetry.record_walk(
-            "initial_search", 0, stats_d,
-            seconds=self.tally_times.initialization_time - t_before,
-            synced=cfg.measure_time, shape_key=self.shape_key,
-            **self._io_since(io0),
-        )
+                    def walk():
+                        r = self._trace(
+                            self.mesh, s.origin, dest, s.elem, fly, s.weight,
+                            s.group, s.material_id, flux_in, **kw,
+                        )
+                        return r, _to_host(self._summary(r),
+                                           *_present(r.integrity))
+
+                    r, host = self._dispatch(walk, 0)
+                    self._count_to_host(host)
+                    summary, *rest = host
+                    integ = rest[0] if rest else None
+                stats_d, _, n_tr = self._read_summary(summary)
+                r, parts, n_lost = self._escalate_truncated(
+                    r, dest, s.weight, s.group, n_tr, kw, 0, packed=packed)
+                if parts is not None:
+                    stats_d, _, _ = self._read_summary(
+                        self._packed_summary(parts[3], parts[2])
+                        if packed else parts[0])
+                    integ = parts[4] if packed else parts[3]
+                self.flux = r.flux
+                self.state = s.replace(origin=r.position, dest=dest,
+                                       elem=r.elem)
+                self._traces_since_sort += 1
+                self._store_xpoints(r)
+                self._initialized = True
+                self._warn_if_truncated(n_lost)
+                # The search scores nothing: the flux must stay clean and
+                # the lane counts close (the audit starts with move 1).
+                self._self_verify(0, integ, fly_h, n_lost, s, r, dest, None,
+                                  None)
+                if cfg.measure_time:
+                    timer.sync(self.device)
+            self._telemetry.record_walk(
+                "initial_search", 0, stats_d,
+                seconds=self.tally_times.initialization_time - t_before,
+                synced=cfg.measure_time, shape_key=self.shape_key,
+                **self._io_since(io0),
+            )
 
     def move_to_next_location(
         self,
@@ -935,222 +945,227 @@ class PumiTally:
         and write the (possibly boundary-clipped) final positions and
         material ids back into the caller's arrays; ``flying`` is reset to
         0."""
-        if not self._initialized:
-            raise RuntimeError(
-                "initialize_particle_location must run before moves"
-            )
-        n = self.num_particles
-        cfg = self.config
-        step = self._step
-        with step("checks"):
-            dest_flat = _out_param(
-                particle_destinations, "particle_destinations", [np.float64],
-                n * 3,
-            )
-            if size is None:
-                size = dest_flat.size
-            if size != n * 3:
-                raise ValueError(f"expected {n * 3} coordinates, got {size}")
-            flying_flat = _out_param(flying, "flying", [np.int8], n)
-            mats_flat = _out_param(material_ids, "material_ids", [np.int32],
-                                   n)
-            weights_h = np.asarray(weights, dtype=np.float64).reshape(-1)[:n]
-            groups_h = np.asarray(groups, dtype=np.int32).reshape(-1)[:n]
-            _check_group_range(groups_h, cfg.n_groups)
-            fly_h = flying_flat[:n] != 0
-            # The caller's buffer, written back at the end of the move;
-            # dest_in is what the walk is given (a sanitized copy when the
-            # quarantine parks a lane).
-            dest3_h = dest_flat[: n * 3].reshape(n, 3)
-            dest_in = dest3_h
-        if cfg.quarantine:
-            with step("quarantine"):
-                dest_in, weights_h, qmask = quarantine.apply(
-                    self, dest3_h, weights_h, self.iter_count + 1)
-                if qmask is not None:
-                    fly_h = fly_h & ~qmask  # quarantined lanes are parked
-        self._check_finite("particle_destinations", dest_in)
-        self._check_finite("weights", weights_h)
+        with bind(self.step_clock, "move_to_next_location"):
+            if not self._initialized:
+                raise RuntimeError(
+                    "initialize_particle_location must run before moves"
+                )
+            n = self.num_particles
+            cfg = self.config
+            with step("checks"):
+                dest_flat = _out_param(
+                    particle_destinations, "particle_destinations",
+                    [np.float64], n * 3,
+                )
+                if size is None:
+                    size = dest_flat.size
+                if size != n * 3:
+                    raise ValueError(
+                        f"expected {n * 3} coordinates, got {size}")
+                flying_flat = _out_param(flying, "flying", [np.int8], n)
+                mats_flat = _out_param(material_ids, "material_ids",
+                                       [np.int32], n)
+                weights_h = np.asarray(weights,
+                                       dtype=np.float64).reshape(-1)[:n]
+                groups_h = np.asarray(groups, dtype=np.int32).reshape(-1)[:n]
+                _check_group_range(groups_h, cfg.n_groups)
+                fly_h = flying_flat[:n] != 0
+                # The caller's buffer, written back at the end of the move;
+                # dest_in is what the walk is given (a sanitized copy when the
+                # quarantine parks a lane).
+                dest3_h = dest_flat[: n * 3].reshape(n, 3)
+                dest_in = dest3_h
+            if cfg.quarantine:
+                with step("quarantine"):
+                    dest_in, weights_h, qmask = quarantine.apply(
+                        self, dest3_h, weights_h, self.iter_count + 1)
+                    if qmask is not None:
+                        fly_h = fly_h & ~qmask  # quarantined lanes are parked
+            self._check_finite("particle_destinations", dest_in)
+            self._check_finite("weights", weights_h)
 
-        io0 = dict(self.io)
-        t_before = self.tally_times.total_time_to_tally
-        move = self.iter_count + 1
-        # Movers for the one-shot adaptive replan (only while it waits).
-        n_moving = int(fly_h.sum()) if not self._replanned else 0
-        with phase_timer(
-            self.tally_times, "total_time_to_tally", True
-        ) as timer:
-            s = self.state
-            with step("capacity"):
-                kw = dict(self._walk_kw(False),
-                          capacity=self._record_capacity(dest_in, fly_h))
-            # The convergence fold rides the move's main walk only: the
-            # re-walks score into the same flux, and the next batch's
-            # delta picks their scores up.
-            ckw = {}
-            if self._conv is not None:
-                ckw = dict(conv_state=self._conv,
-                           batch_moves=self._batch_moves,
-                           rel_err_target=cfg.rel_err_target)
-            conv_h = None
-            # The walk's inputs, bound now: an abandoned watchdog worker
-            # must walk into these, never into what a rollback restored.
-            flux_in, perm_in, stager = self.flux, self._perm_dev, self._stager
-            deadline = cfg.move_deadline_s is not None
-            if self._io != "legacy":
-                with step("pack"):
-                    rec = staging.pack_move_record(
-                        self._stager, dest_in, weights_h, groups_h, fly_h,
-                        cfg.dtype,
-                    )
-                with step("put record"):
-                    rec_dev = self._put_record(rec)
-
-                def walk():
-                    with step("walk"):
-                        out = self._trace(
-                            self.mesh, s.origin, s.elem, s.material_id,
-                            rec_dev, flux_in, perm_in, _packed=True, **kw,
-                            **ckw,
+            io0 = dict(self.io)
+            t_before = self.tally_times.total_time_to_tally
+            move = self.iter_count + 1
+            # Movers for the one-shot adaptive replan (only while it waits).
+            n_moving = int(fly_h.sum()) if not self._replanned else 0
+            with phase_timer(
+                self.tally_times, "total_time_to_tally", True
+            ) as timer:
+                s = self.state
+                with step("capacity"):
+                    kw = dict(self._walk_kw(False),
+                              capacity=self._record_capacity(dest_in, fly_h))
+                # The convergence fold rides the move's main walk only: the
+                # re-walks score into the same flux, and the next batch's
+                # delta picks their scores up.
+                ckw = {}
+                if self._conv is not None:
+                    ckw = dict(conv_state=self._conv,
+                               batch_moves=self._batch_moves,
+                               rel_err_target=cfg.rel_err_target)
+                conv_h = None
+                # The walk's inputs, bound now: an abandoned watchdog worker
+                # must walk into these, never into what a rollback restored.
+                flux_in, perm_in, stager = (self.flux, self._perm_dev,
+                                            self._stager)
+                deadline = cfg.move_deadline_s is not None
+                if self._io != "legacy":
+                    with step("pack"):
+                        rec = staging.pack_move_record(
+                            self._stager, dest_in, weights_h, groups_h, fly_h,
+                            cfg.dtype,
                         )
-                    if self._io == "overlap" and not deadline:
-                        # The previous move's telemetry fold, while this
-                        # move's work runs on the card (after the step
-                        # under a deadline: the step mutates nothing).
+                    with step("put record"):
+                        rec_dev = self._put_record(rec)
+
+                    def walk():
+                        with step("walk"):
+                            out = self._trace(
+                                self.mesh, s.origin, s.elem, s.material_id,
+                                rec_dev, flux_in, perm_in, _packed=True, **kw,
+                                **ckw,
+                            )
+                        if self._io == "overlap" and not deadline:
+                            # The previous move's telemetry fold, while this
+                            # move's work runs on the card (after the step
+                            # under a deadline: the step mutates nothing).
+                            with step("deferred fold"):
+                                self._drain_pending()
+                        with step("readback"):
+                            host = staging.to_host(stager, out[1], "readback")
+                        return out, host
+
+                    out, host = self._dispatch(walk, move)
+                    r, _, dest, in_flight, weight, group = out
+                    if self._io == "overlap" and deadline:
                         with step("deferred fold"):
                             self._drain_pending()
-                    with step("readback"):
-                        host = staging.to_host(stager, out[1], "readback")
-                    return out, host
-
-                out, host = self._dispatch(walk, move)
-                r, _, dest, in_flight, weight, group = out
-                if self._io == "overlap" and deadline:
-                    with step("deferred fold"):
-                        self._drain_pending()
-                final_pos, final_mats, done_h, tail, integ, conv_h = (
-                    self._views(host, convergence=self._conv is not None))
-                stats_d, segs, n_tr = self._read_summary(
-                    self._packed_summary(tail, done_h))
-                with step("escalate"):
-                    r, parts, n_lost = self._escalate_truncated(
-                        r, dest, weight, group, n_tr, kw, move, packed=True)
-                if parts is not None:
-                    final_pos, final_mats, done_h, tail, integ = parts
-                    stats_d, segs, _ = self._read_summary(
+                    final_pos, final_mats, done_h, tail, integ, conv_h = (
+                        self._views(host, convergence=self._conv is not None))
+                    stats_d, segs, n_tr = self._read_summary(
                         self._packed_summary(tail, done_h))
-                with step("write-back"):
-                    # Copy-back contract: clipped final positions and
-                    # material ids into the caller's arrays, flying flags
-                    # reset to 0 (threaded torch copies, the first a cast).
-                    host_tensor(dest3_h).copy_(torch.from_numpy(final_pos))
-                    host_tensor(mats_flat[:n]).copy_(
-                        torch.from_numpy(final_mats)
-                    )
-                    flying_flat[:n] = 0
-            else:
-                with step("convert"):
-                    dest_c = _convert(dest_in, cfg.dtype)
-                    weight_c = _convert(weights_h, cfg.dtype)
-                    group_c = np.ascontiguousarray(groups_h)
-                with step("put dest"):
-                    dest = self._put(dest_c)
-                with step("put flying"):
-                    in_flight = self._put(fly_h)
-                with step("put weight"):
-                    weight = self._put(weight_c)
-                with step("put group"):
-                    group = self._put(group_c)
-                conv_in = self._conv
-
-                def walk():
-                    with step("walk"):
-                        r = self._trace(
-                            self.mesh, s.origin, dest, s.elem, in_flight,
-                            weight, group, s.material_id, flux_in, **kw,
+                    with step("escalate"):
+                        r, parts, n_lost = self._escalate_truncated(
+                            r, dest, weight, group, n_tr, kw, move,
+                            packed=True)
+                    if parts is not None:
+                        final_pos, final_mats, done_h, tail, integ = parts
+                        stats_d, segs, _ = self._read_summary(
+                            self._packed_summary(tail, done_h))
+                    with step("write-back"):
+                        # Copy-back contract: clipped final positions and
+                        # material ids into the caller's arrays, flying flags
+                        # reset to 0 (threaded torch copies, the first a cast).
+                        host_tensor(dest3_h).copy_(torch.from_numpy(final_pos))
+                        host_tensor(mats_flat[:n]).copy_(
+                            torch.from_numpy(final_mats)
                         )
-                        extra = _present(r.integrity)
-                        if conv_in is not None:
-                            extra.append(fold_and_reduce(r.flux, conv_in, **{
-                                k: v for k, v in ckw.items()
-                                if k != "conv_state"}))
-                    with step("to_host"):
-                        host = _to_host(self._summary(r), r.position,
-                                        r.material_id, *extra)
-                    return r, host
+                        flying_flat[:n] = 0
+                else:
+                    with step("convert"):
+                        dest_c = _convert(dest_in, cfg.dtype)
+                        weight_c = _convert(weights_h, cfg.dtype)
+                        group_c = np.ascontiguousarray(groups_h)
+                    with step("put dest"):
+                        dest = self._put(dest_c)
+                    with step("put flying"):
+                        in_flight = self._put(fly_h)
+                    with step("put weight"):
+                        weight = self._put(weight_c)
+                    with step("put group"):
+                        group = self._put(group_c)
+                    conv_in = self._conv
 
-                r, host = self._dispatch(walk, move)
-                self._count_to_host(host)
-                summary, final_pos, final_mats, *rest = host
-                integ = rest.pop(0) if r.integrity is not None else None
-                if rest:
-                    conv_h = rest[0].astype(np.float64)
-                stats_d, segs, n_tr = self._read_summary(summary)
-                with step("escalate"):
-                    r, parts, n_lost = self._escalate_truncated(
-                        r, dest, weight, group, n_tr, kw, move,
-                        packed=False)
-                if parts is not None:
-                    summary, final_pos, final_mats, integ = parts
-                    stats_d, segs, _ = self._read_summary(summary)
-                done_h = None
-                with step("write-back"):
-                    # Copy-back contract, as above (numpy casts), from
-                    # slot order into particle order.
-                    if self._perm is None:
-                        dest3_h[:] = final_pos
-                        mats_flat[:n] = final_mats
-                    else:
-                        dest3_h[self._perm] = final_pos
-                        mats_flat[:n][self._perm] = final_mats
-                    flying_flat[:n] = 0
-            self.flux = r.flux
-            if self._prev_even is not None:
-                with step("batch squares"):
-                    accumulate_batch_squares(self.flux, self._prev_even)
-            self.state = s.replace(
-                origin=r.position,
-                dest=dest,
-                in_flight=in_flight,
-                weight=weight,
-                group=group,
-                elem=r.elem,
-                material_id=r.material_id,
-            )
-            self.iter_count += 1
-            self._traces_since_sort += 1
-            self._last_segments = segs
-            self.total_segments += segs
-            self._maybe_replan(segs, n_moving)
-            self._store_xpoints(r)
-            # The truncation warning stays in the call in every mode;
-            # only the telemetry fold is deferred under "overlap".
-            self._warn_if_truncated(n_lost)
-            # The integrity checks and the shadow audit, escalated per
-            # TallyConfig.integrity; then the bitflip fault hook (the
-            # next move's flux check must catch it).
-            if self._integrity != "off" or cfg.audit_lanes:
-                with step("verify"):
-                    self._self_verify(self.iter_count, integ, fly_h,
-                                      n_lost, s, r, dest, done_h, dest3_h)
-            self._maybe_inject_bitflip(self.iter_count)
-            if (cfg.sort_by_element
-                    and self.iter_count % cfg.migration_period == 0):
-                with step("sort"):
-                    self._resort_by_element()
-            if cfg.measure_time:
-                timer.sync(self.device)
-        self.tally_times.n_moves += 1
-        seconds = self.tally_times.total_time_to_tally - t_before
-        io = self._io_since(io0)
-        synced = cfg.measure_time
-        self._fold(lambda: self._telemetry.record_walk(
-            "move", move, stats_d, seconds=seconds, synced=synced,
-            shape_key=self.shape_key, **io))
-        if conv_h is not None:
-            fields = conv_to_dict(conv_h)
-            secs_total = self.tally_times.total_time_to_tally
-            self._fold(lambda: self._monitor.update(fields, secs_total))
+                    def walk():
+                        with step("walk"):
+                            r = self._trace(
+                                self.mesh, s.origin, dest, s.elem, in_flight,
+                                weight, group, s.material_id, flux_in, **kw,
+                            )
+                            extra = _present(r.integrity)
+                            if conv_in is not None:
+                                extra.append(fold_and_reduce(
+                                    r.flux, conv_in, **{
+                                        k: v for k, v in ckw.items()
+                                        if k != "conv_state"}))
+                        with step("to_host"):
+                            host = _to_host(self._summary(r), r.position,
+                                            r.material_id, *extra)
+                        return r, host
+
+                    r, host = self._dispatch(walk, move)
+                    self._count_to_host(host)
+                    summary, final_pos, final_mats, *rest = host
+                    integ = rest.pop(0) if r.integrity is not None else None
+                    if rest:
+                        conv_h = rest[0].astype(np.float64)
+                    stats_d, segs, n_tr = self._read_summary(summary)
+                    with step("escalate"):
+                        r, parts, n_lost = self._escalate_truncated(
+                            r, dest, weight, group, n_tr, kw, move,
+                            packed=False)
+                    if parts is not None:
+                        summary, final_pos, final_mats, integ = parts
+                        stats_d, segs, _ = self._read_summary(summary)
+                    done_h = None
+                    with step("write-back"):
+                        # Copy-back contract, as above (numpy casts), from
+                        # slot order into particle order.
+                        if self._perm is None:
+                            dest3_h[:] = final_pos
+                            mats_flat[:n] = final_mats
+                        else:
+                            dest3_h[self._perm] = final_pos
+                            mats_flat[:n][self._perm] = final_mats
+                        flying_flat[:n] = 0
+                self.flux = r.flux
+                if self._prev_even is not None:
+                    with step("batch squares"):
+                        accumulate_batch_squares(self.flux, self._prev_even)
+                self.state = s.replace(
+                    origin=r.position,
+                    dest=dest,
+                    in_flight=in_flight,
+                    weight=weight,
+                    group=group,
+                    elem=r.elem,
+                    material_id=r.material_id,
+                )
+                self.iter_count += 1
+                self._traces_since_sort += 1
+                self._last_segments = segs
+                self.total_segments += segs
+                self._maybe_replan(segs, n_moving)
+                self._store_xpoints(r)
+                # The truncation warning stays in the call in every mode;
+                # only the telemetry fold is deferred under "overlap".
+                self._warn_if_truncated(n_lost)
+                # The integrity checks and the shadow audit, escalated per
+                # TallyConfig.integrity; then the bitflip fault hook (the
+                # next move's flux check must catch it).
+                if self._integrity != "off" or cfg.audit_lanes:
+                    with step("verify"):
+                        self._self_verify(self.iter_count, integ, fly_h,
+                                          n_lost, s, r, dest, done_h, dest3_h)
+                self._maybe_inject_bitflip(self.iter_count)
+                if (cfg.sort_by_element
+                        and self.iter_count % cfg.migration_period == 0):
+                    with step("sort"):
+                        self._resort_by_element()
+                if cfg.measure_time:
+                    timer.sync(self.device)
+            self.tally_times.n_moves += 1
+            seconds = self.tally_times.total_time_to_tally - t_before
+            io = self._io_since(io0)
+            synced = cfg.measure_time
+            self._fold(lambda: self._telemetry.record_walk(
+                "move", move, stats_d, seconds=seconds, synced=synced,
+                shape_key=self.shape_key, **io))
+            if conv_h is not None:
+                fields = conv_to_dict(conv_h)
+                secs_total = self.tally_times.total_time_to_tally
+                self._fold(lambda: self._monitor.update(fields, secs_total))
 
     # ------------------------------------------------------------------ #
     # The device-sourced move loop (ops/walk.py::megastep)
@@ -1267,121 +1282,133 @@ class PumiTally:
         vector rides its tail and is checked after it.
         Returns the accumulated counters (``ops/source.py``
         MEGA_PHYS_FIELDS, ``moves``, ``segments``)."""
-        if not self._initialized:
-            raise RuntimeError(
-                "initialize_particle_location must run before source moves"
-            )
-        cfg = self.config
-        K = cfg.resolve_megastep(tuned=self._tuned)
-        if self._kernel_policy == "pallas" and cfg.kernel == "pallas":
-            raise NotImplementedError(
-                "run_source_moves fuses source sampling + walk + "
-                "physics into one scanned XLA program; kernel='pallas' "
-                "does not ride it (TallyConfig.resolve_kernel) — use "
-                "kernel='auto' (XLA fallback) or 'xla' for "
-                "device-sourced runs"
-            )
-        from .ops import walk_cuda as wc
-        from .ops.source import SourceParams, phys_to_dict
-        from .ops.walk import megastep
-
-        src = source if source is not None else SourceParams()
-        sig_dev, ab_dev, sig_min = self._source_tables(src)
-        rng_key = self._rng_key(src.seed)
-        statics = self._megastep_statics(src)
-        totals = {
-            "moves": 0, "segments": 0, "collisions": 0, "escaped": 0,
-            "rouletted": 0, "absorbed_weight": 0.0, "alive": 0,
-            "truncated": 0,
-        }
-        io0 = dict(self.io)
-        n_alive = self._stage_source_lanes(weights, groups, alive)
-        if self._mega_records is None or n_alive is not None:
-            lanes = self.num_particles if n_alive is None else n_alive
-            est = wc.source_records(self._face_rate, lanes, sig_min)
-        else:
-            est = self._mega_records
-        capacity = wc.record_capacity(self.num_particles, est)
-        step = self._step
-        done_moves = 0
-        while done_moves < n_moves:
-            k = min(K, n_moves - done_moves)
-            t_before = self.tally_times.total_time_to_tally
-            with phase_timer(self.tally_times, "total_time_to_tally",
-                             True) as timer:
-                s = self.state
-                # Bound now, as in the per-move step (``_dispatch``).
-                flux_in, prev_in, conv_in = (self.flux, self._prev_even,
-                                             self._conv)
-                stager, move0 = self._stager, self.iter_count
-
-                def chunk():
-                    out = megastep(
-                        self.mesh, s.origin, s.elem, s.material_id, s.weight,
-                        s.group, s.in_flight, s.particle_id, flux_in,
-                        move0, rng_key, sig_dev, ab_dev, prev_in, conv_in,
-                        n_moves=k, capacity=capacity, clock=self.step_clock,
-                        **statics,
-                    )
-                    with step("tail read"):
-                        host = staging.to_host(stager, out.readback,
-                                               "megastep")
-                    return out, host
-
-                out, host_rb = self._dispatch(chunk, move0 + 1,
-                                              kind=f"megastep:{k}")
-                self._count("d2h", host_rb.numel() * host_rb.element_size())
-                tail, integ, conv_h, phys = staging.split_megastep_tail(
-                    host_rb, cfg.dtype, cfg.walk_stats, statics["integrity"],
-                    self._conv is not None)
-                self.flux = out.flux
-                self.state = s.replace(
-                    origin=out.position, dest=out.dest,
-                    in_flight=out.alive, weight=out.weight,
-                    group=out.group, elem=out.elem,
-                    material_id=out.material_id,
+        with bind(self.step_clock, "run_source_moves"):
+            if not self._initialized:
+                raise RuntimeError(
+                    "initialize_particle_location must run before source moves"
                 )
-                if out.n_records is not None:
-                    self._mega_records = out.n_records
-                    capacity = wc.record_capacity(self.num_particles,
-                                                  out.n_records)
-                self.iter_count += k
-                self._traces_since_sort += 1
-                stats_d = stats_to_dict(tail) if cfg.walk_stats else None
-                segs = (stats_d["segments"] if stats_d is not None
-                        else int(tail[0]))
-                self.total_segments += segs
-                self._last_segments = segs // k
-                p = phys_to_dict(phys)
-                self._warn_if_truncated(p["truncated"])
-                if integ is not None:
-                    self._verify_megastep(integ, p["truncated"], k)
-                self._maybe_inject_bitflip(self.iter_count)
-                if cfg.measure_time:
-                    timer.sync(self.device)
-            self.tally_times.n_moves += k
-            seconds = self.tally_times.total_time_to_tally - t_before
-            self._telemetry.record_walk(
-                "megastep", self.iter_count, stats_d, seconds=seconds,
-                synced=cfg.measure_time, moves=k, shape_key=self.shape_key,
-                collisions=p["collisions"], escaped=p["escaped"],
-                rouletted=p["rouletted"], alive=p["alive"],
-                **self._io_since(io0),
-            )
+            cfg = self.config
+            K = cfg.resolve_megastep(tuned=self._tuned)
+            if self._kernel_policy == "pallas" and cfg.kernel == "pallas":
+                raise NotImplementedError(
+                    "run_source_moves fuses source sampling + walk + "
+                    "physics into one scanned XLA program; kernel='pallas' "
+                    "does not ride it (TallyConfig.resolve_kernel) — use "
+                    "kernel='auto' (XLA fallback) or 'xla' for "
+                    "device-sourced runs"
+                )
+            from .ops import walk_cuda as wc
+            from .ops.source import SourceParams, phys_to_dict
+            from .ops.walk import megastep
+
+            src = source if source is not None else SourceParams()
+            sig_dev, ab_dev, sig_min = self._source_tables(src)
+            rng_key = self._rng_key(src.seed)
+            statics = self._megastep_statics(src)
+            totals = {
+                "moves": 0, "segments": 0, "collisions": 0, "escaped": 0,
+                "rouletted": 0, "absorbed_weight": 0.0, "alive": 0,
+                "truncated": 0,
+            }
             io0 = dict(self.io)
-            if self._monitor is not None and conv_h is not None:
-                self._monitor.update(conv_to_dict(conv_h),
-                                     self.tally_times.total_time_to_tally)
-            totals["moves"] += k
-            totals["segments"] += segs
-            for f in ("collisions", "escaped", "rouletted", "truncated"):
-                totals[f] += p[f]
-            totals["absorbed_weight"] += p["absorbed_weight"]
-            totals["alive"] = p["alive"]
-            done_moves += k
-            if p["alive"] == 0:
-                break
-        return totals
+            with span("stage lanes"):
+                n_alive = self._stage_source_lanes(weights, groups, alive)
+                if self._mega_records is None or n_alive is not None:
+                    lanes = self.num_particles if n_alive is None else n_alive
+                    est = wc.source_records(self._face_rate, lanes, sig_min)
+                else:
+                    est = self._mega_records
+                capacity = wc.record_capacity(self.num_particles, est)
+            done_moves = 0
+            while done_moves < n_moves:
+                k = min(K, n_moves - done_moves)
+                t_before = self.tally_times.total_time_to_tally
+                with phase_timer(self.tally_times, "total_time_to_tally",
+                                 True) as timer:
+                    s = self.state
+                    # Bound now, as in the per-move step (``_dispatch``).
+                    flux_in, prev_in, conv_in = (self.flux, self._prev_even,
+                                                 self._conv)
+                    stager, move0 = self._stager, self.iter_count
+
+                    def chunk():
+                        out = megastep(
+                            self.mesh, s.origin, s.elem, s.material_id,
+                            s.weight, s.group, s.in_flight, s.particle_id,
+                            flux_in, move0, rng_key, sig_dev, ab_dev,
+                            prev_in, conv_in, n_moves=k, capacity=capacity,
+                            **statics,
+                        )
+                        with step("tail read"):
+                            host = staging.to_host(stager, out.readback,
+                                                   "megastep")
+                        return out, host
+
+                    with span("chunk"):
+                        out, host_rb = self._dispatch(chunk, move0 + 1,
+                                                      kind=f"megastep:{k}")
+                    # The chunk's bookkeeping, to the loop's next pass: two
+                    # spans of one name around the phase timer's close.
+                    with span("bookkeeping"):
+                        self._count("d2h",
+                                    host_rb.numel() * host_rb.element_size())
+                        tail, integ, conv_h, phys = (
+                            staging.split_megastep_tail(
+                                host_rb, cfg.dtype, cfg.walk_stats,
+                                statics["integrity"],
+                                self._conv is not None))
+                        self.flux = out.flux
+                        self.state = s.replace(
+                            origin=out.position, dest=out.dest,
+                            in_flight=out.alive, weight=out.weight,
+                            group=out.group, elem=out.elem,
+                            material_id=out.material_id,
+                        )
+                        if out.n_records is not None:
+                            self._mega_records = out.n_records
+                            capacity = wc.record_capacity(self.num_particles,
+                                                          out.n_records)
+                        self.iter_count += k
+                        self._traces_since_sort += 1
+                        stats_d = (stats_to_dict(tail) if cfg.walk_stats
+                                   else None)
+                        segs = (stats_d["segments"] if stats_d is not None
+                                else int(tail[0]))
+                        self.total_segments += segs
+                        self._last_segments = segs // k
+                        p = phys_to_dict(phys)
+                        self._warn_if_truncated(p["truncated"])
+                        if integ is not None:
+                            self._verify_megastep(integ, p["truncated"], k)
+                        self._maybe_inject_bitflip(self.iter_count)
+                        if cfg.measure_time:
+                            timer.sync(self.device)
+                with span("bookkeeping"):
+                    self.tally_times.n_moves += k
+                    seconds = self.tally_times.total_time_to_tally - t_before
+                    self._telemetry.record_walk(
+                        "megastep", self.iter_count, stats_d, seconds=seconds,
+                        synced=cfg.measure_time, moves=k,
+                        shape_key=self.shape_key, collisions=p["collisions"],
+                        escaped=p["escaped"], rouletted=p["rouletted"],
+                        alive=p["alive"], **self._io_since(io0),
+                    )
+                    io0 = dict(self.io)
+                    if self._monitor is not None and conv_h is not None:
+                        self._monitor.update(
+                            conv_to_dict(conv_h),
+                            self.tally_times.total_time_to_tally)
+                    totals["moves"] += k
+                    totals["segments"] += segs
+                    for f in ("collisions", "escaped", "rouletted",
+                              "truncated"):
+                        totals[f] += p[f]
+                    totals["absorbed_weight"] += p["absorbed_weight"]
+                    totals["alive"] = p["alive"]
+                done_moves += k
+                if p["alive"] == 0:
+                    break
+            return totals
 
     # ------------------------------------------------------------------ #
     @property

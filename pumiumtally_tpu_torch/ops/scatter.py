@@ -42,17 +42,23 @@ bits (``key_bits``).
 launches (one per call that reaches the card), and
 nothing else; ``BUCKET_LAUNCHES`` and ``CROWDED_LAUNCHES`` count the
 ordered scatter's calls by path. ``LAST_BUCKETS`` describes the last
-ordered call on the card: its shift, bucket count, largest bucket, the
-capacity, the key's bits, the path taken and ``wait_s``, the host time
-the call waited at its one host read.
+ordered call on the card that had records: its shift, bucket count,
+largest bucket, the capacity, the key's bits and the path taken.
+
+The host steps on the card are spans of ``utils/timing.py``:
+``scatter.count`` (the buffers, the staged information word and the count
+kernel's entry), the row ``bucket_wait`` around the read of the bucket
+information (the host read ``bucket``), then ``scatter.fold`` or
+``scatter.crowded``, in which ``crowded_wait`` is the read of the large
+bins (the host read ``crowded``).
 """
 from __future__ import annotations
 
 import ctypes
-import time
 
 import torch
 
+from ..utils import timing
 from . import _build
 
 ATOMIC_LAUNCHES = 0
@@ -324,48 +330,51 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
         return flux
     dev = flux.device
     i32 = dict(dtype=torch.int32, device=dev)
-    shift = bucket_shift(m, nbins)
-    nb = n_buckets(nbins, shift)
-    counts = torch.zeros(nb, **i32)
-    offsets = torch.empty(nb + 1, **i32)
-    tile_sums = torch.empty((nb + 4095) // 4096, **i32)
-    # Staged without waiting on the stream: the read below is the one sync.
-    info = torch.tensor([0, 2**63 - 1, -2**63], dtype=torch.int64).to(
-        dev, non_blocking=True)
-    count = _entry("pumi_bucket_count")
-    count.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 5
     with torch.cuda.device(dev):
-        err = count(bin.data_ptr(), order.data_ptr(), m, nbins, shift,
-                    counts.data_ptr(), offsets.data_ptr(),
-                    tile_sums.data_ptr(), info.data_ptr(), _stream(dev))
-        if err != 0:
-            raise RuntimeError(
-                f"scatter_ordered bucket count failed with cudaError_t {err}")
-        t0 = time.perf_counter()
-        largest, lo, hi = info.tolist()
-        wait_s = time.perf_counter() - t0
+        with timing.span("scatter.count"):
+            shift = bucket_shift(m, nbins)
+            nb = n_buckets(nbins, shift)
+            counts = torch.zeros(nb, **i32)
+            offsets = torch.empty(nb + 1, **i32)
+            tile_sums = torch.empty((nb + 4095) // 4096, **i32)
+            # Staged without waiting on the stream: the read below is the
+            # one sync.
+            info = torch.tensor([0, 2**63 - 1, -2**63],
+                                dtype=torch.int64).to(dev, non_blocking=True)
+            count = _entry("pumi_bucket_count")
+            count.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p] * 5
+            err = count(bin.data_ptr(), order.data_ptr(), m, nbins, shift,
+                        counts.data_ptr(), offsets.data_ptr(),
+                        tile_sums.data_ptr(), info.data_ptr(), _stream(dev))
+            if err != 0:
+                raise RuntimeError("scatter_ordered bucket count failed "
+                                   f"with cudaError_t {err}")
+        with timing.step("bucket_wait"):
+            largest, lo, hi = info.tolist()
+        timing.count("bucket")
         obits, ibits = key_bits(m, hi - lo)
         crowded = is_crowded(largest) or shift + obits + ibits > 63
         LAST_BUCKETS = dict(shift=shift, buckets=nb, largest=largest,
                             capacity=BUCKET_CAPACITY,
                             key_bits=shift + obits + ibits,
-                            path="crowded" if crowded else "bucket",
-                            wait_s=wait_s)
+                            path="crowded" if crowded else "bucket")
         if crowded:
             del counts, offsets, tile_sums
-            crowded_cuda(flux, bin, order, c, score_squares, nbins)
+            with timing.span("scatter.crowded"):
+                crowded_cuda(flux, bin, order, c, score_squares, nbins)
             ORDERED_LAUNCHES += 1
             return flux
-        rec = torch.empty(2 * m, dtype=torch.int64, device=dev)
-        fold = _entry("pumi_scatter_bucket", flux.dtype)
-        fold.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                         + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                         + [ctypes.c_void_p] * 4)
-        err = fold(flux.data_ptr(), bin.data_ptr(), order.data_ptr(),
-                   c.data_ptr(), m, nbins, shift, lo, obits, ibits, largest,
-                   int(bool(score_squares)), offsets.data_ptr(),
-                   counts.data_ptr(), rec.data_ptr(), _stream(dev))
+        with timing.span("scatter.fold"):
+            rec = torch.empty(2 * m, dtype=torch.int64, device=dev)
+            fold = _entry("pumi_scatter_bucket", flux.dtype)
+            fold.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                             + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p] * 4)
+            err = fold(flux.data_ptr(), bin.data_ptr(), order.data_ptr(),
+                       c.data_ptr(), m, nbins, shift, lo, obits, ibits,
+                       largest, int(bool(score_squares)), offsets.data_ptr(),
+                       counts.data_ptr(), rec.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"scatter_ordered bucket fold failed with cudaError_t {err}")
@@ -407,7 +416,11 @@ def crowded_cuda(flux, bin, order, c, score_squares, nbins: int):
             large.data_ptr(), large_beg.data_ptr(), idx.data_ptr(),
             _stream(dev),
         )
-        n_large, large_records = large_info.tolist() if err == 0 else (0, 0)
+        n_large = large_records = 0
+        if err == 0:
+            with timing.span("crowded_wait"):
+                n_large, large_records = large_info.tolist()
+            timing.count("crowded")
         if n_large:
             key_a = torch.empty(large_records, dtype=torch.int64, device=dev)
             key_b = torch.empty(large_records, dtype=torch.int64, device=dev)

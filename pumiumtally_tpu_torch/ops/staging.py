@@ -69,6 +69,7 @@ import torch
 
 from ..integrity.invariants import INTEGRITY_LEN, PART_INTEGRITY_LEN
 from ..obs.convergence import CONV_LEN
+from ..utils import timing
 from ..utils.platform import resolve_device
 
 # Record column layouts (single-chip facade), the JAX package's.
@@ -202,7 +203,8 @@ def to_host(stager: HostStager, t: torch.Tensor, tag: str = "readback"
             ) -> torch.Tensor:
     """The readback's one device→host copy, into a pinned buffer of the
     stager, waited on by a CUDA event on the current stream before it is
-    returned. A CPU tensor is returned as it is."""
+    returned (the host read ``tail`` of ``utils/timing.py::count``). A CPU
+    tensor is returned as it is."""
     if t.device.type == "cpu":
         return t
     host = stager.buf(t.shape, t.dtype, tag)
@@ -210,6 +212,7 @@ def to_host(stager: HostStager, t: torch.Tensor, tag: str = "readback"
     done = torch.cuda.Event()
     done.record()
     done.synchronize()
+    timing.count("tail")
     return host
 
 

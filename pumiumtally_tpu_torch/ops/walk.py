@@ -936,7 +936,6 @@ def megastep(
     batch_moves: int = 1,
     capacity: int | None = None,
     draws=None,
-    clock=None,
     plain: bool = False,
 ) -> MegastepResult:
     """Run ``n_moves`` device-sourced moves, counterpart of
@@ -971,15 +970,16 @@ def megastep(
     ``capacity`` sizes the first walk's record buffers on the card; later
     walks take the previous walk's record count. ``draws``, a sequence of
     ``(direction, ell, coll_u, roul_u)`` per fused move, replaces the
-    sampling (a test feeds the JAX package's draws). ``clock`` (a
-    ``utils/timing.py::StepClock``) times each step of each fused move
-    and notes the walk's two host waits. ``plain`` runs the plain
+    sampling (a test feeds the JAX package's draws). Each fused move's
+    steps are rows of the bound clock (``utils/timing.py::step``:
+    ``sample``, ``walk`` with the wrapper's waits inside it, ``physics``,
+    ``folds``). ``plain`` runs the plain
     sampling (``source.sample_flight_plain``) and the plain walk
     (``trace``) on whatever device the tensors are on: the kernels'
     yardstick on the card."""
     from ..core.tally import accumulate_batch_squares
-    from ..utils.timing import clock_step
-    from . import scatter, source_cuda, walk_cuda
+    from ..utils.timing import step
+    from . import source_cuda, walk_cuda
     from .source import (
         MEGA_PHYS_LEN,
         apply_physics,
@@ -1008,7 +1008,7 @@ def megastep(
     alive = alive.to(torch.bool)
     mat, dest, records = material_id, origin, None
     for k in range(n_moves):
-        with clock_step(clock, "sample"):
+        with step("sample"):
             if draws is None:
                 sample = (sample_flight_plain if plain
                           else source_cuda.sample_flight)
@@ -1020,7 +1020,7 @@ def megastep(
                 dest = flight_dest(origin, direction, ell,
                                    lane_sigma(mesh.class_id, elem, sigma_t),
                                    alive)
-        with clock_step(clock, "walk"):
+        with step("walk"):
             if plain:
                 r = trace(mesh, origin, dest, elem, alive, weight, group,
                           mat, flux, **walk_kw)
@@ -1028,15 +1028,12 @@ def megastep(
                 r = walk_cuda.trace(mesh, origin, dest, elem, alive, weight,
                                     group, mat, flux, capacity=capacity,
                                     **walk_kw)
-        if clock is not None and dev.type == "cuda" and not plain:
-            clock.note("count_wait", walk_cuda.LAST_WAIT_S)
-            clock.note("bucket_wait", scatter.LAST_BUCKETS.get("wait_s", 0.0))
-        with clock_step(clock, "physics"):
+        with step("physics"):
             absorb = lane_sigma(mesh.class_id, r.elem, absorb_t)
             weight, group, alive2, phys4 = apply_physics(
                 r.position, dest, r.done, r.material_id, weight, group,
                 alive, absorb, coll_u, roul_u, **phys_kw)
-        with clock_step(clock, "folds"):
+        with step("folds"):
             if prev_even is not None:
                 accumulate_batch_squares(flux, prev_even)
             if sacc is not None:

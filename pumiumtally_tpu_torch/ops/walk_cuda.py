@@ -28,8 +28,15 @@ schedule. The scatter counts its own launches.
 ``WARP_TRIPS`` is the last launch's device counter (an int64 on the card,
 read only when the caller reads it): its warps' loop trips, summed, so
 Σ ``lane_iters`` / (32 · ``WARP_TRIPS``) is the share of the warps' lane
-slots that did work. ``LAST_WAIT_S`` is the host time the last ordered
-launch spent waiting at its one host read, the record count.
+slots that did work.
+
+The wrapper's host steps are spans of ``utils/timing.py``:
+``walk.schedule`` (``lane_records``), ``walk.launch`` (the per-lane and
+record buffers and the kernel's entry), ``walk.result`` (``_result``'s
+reductions) and the row ``count_wait`` around each read of an ordered
+launch's record count (a relaunch reads twice), which counts as the host
+read ``count``; with the invariant checks the count rides the read of the
+check bits, ``checks``.
 
 The ordered scatter takes at most 2^31 − 1 records a call
 (``check_record_count``): a walk that makes more raises before its
@@ -77,11 +84,11 @@ from __future__ import annotations
 
 import ctypes
 import math
-import time
 
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import _build, integrity_cuda, scatter
 from .walk import (
     TRACK_CHECK,
@@ -113,7 +120,6 @@ RELAUNCHES = 0
 SCHEDULE_LAUNCHES = 0
 SCHEDULE_KERNELS = 3  # count, scan, place (csrc/walk.cu schedule)
 WARP_TRIPS: torch.Tensor | None = None
-LAST_WAIT_S = 0.0
 TALLIES = ("ordered", "atomic")
 _INT32_MAX = 2**31 - 1
 
@@ -639,14 +645,16 @@ def lane_records(mesh, origin, dest, elem, in_flight, weight, group, *,
     ``csrc/walk.cu`` (count, scan, place), which compute the key from
     ``elem`` or ``dest`` themselves, or raises. ``nkeys``: key by element
     among that many (``lane_keys``)."""
-    if origin.device.type == "cpu":
-        keys, _ = lane_keys(mesh, elem, dest, initial, nkeys)
-        return lane_records_plain(keys, origin, dest, elem, in_flight,
-                                  weight, group)
-    if origin.device.type != "cuda":
-        raise ValueError(f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
-    return _schedule(mesh, origin, dest, elem, in_flight, weight, group,
-                     initial, nkeys)
+    with timing.span("walk.schedule"):
+        if origin.device.type == "cpu":
+            keys, _ = lane_keys(mesh, elem, dest, initial, nkeys)
+            return lane_records_plain(keys, origin, dest, elem, in_flight,
+                                      weight, group)
+        if origin.device.type != "cuda":
+            raise ValueError(
+                f"the walk runs on 'cuda' or 'cpu', not {origin.device}")
+        return _schedule(mesh, origin, dest, elem, in_flight, weight,
+                         group, initial, nkeys)
 
 
 # Per (device, stream): the schedule's key counts and scan ticket (zero
@@ -714,95 +722,102 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
     count, in one read) and raises on a violation. ``part`` (the dict of
     ``walk_rows``) launches the partitioned layout; a mesh without geo20
     the unpacked one."""
-    global LAUNCHES, FEATURE_LAUNCHES, WARP_TRIPS, LAST_WAIT_S
+    global LAUNCHES, FEATURE_LAUNCHES, WARP_TRIPS
     global UNPACKED_LAUNCHES, PART_LAUNCHES
     global FEATURE_UNPACKED_LAUNCHES, FEATURE_PART_LAUNCHES
-    dtype, dev = origin.dtype, origin.device
-    n = origin.shape[0]
-    if part is not None:
-        layout, tables = PARTITIONED, part["tables"]
-    elif mesh.geo20 is None:
-        layout, tables = UNPACKED, unpacked_tables(mesh)
-    else:
-        layout, tables = PACKED, (None,) * 5
-    slot = prev = stuck = None
-    if part is not None:  # in/out lane state: fresh copies each launch
-        slot = part["slot"]
-        prev, stuck = part["prev"].clone(), part["stuck"].clone()
-    record = record_xpoints is not None
-    _check_block(block, layout=layout,
-                 feature=record or bool(debug_checks), robust=bool(robust),
-                 initial=bool(initial), ordered=bool(ordered))
-    xp = kx = None
-    if record:
-        xp, kx = xpoint_buffers(n, record_xpoints, dtype, dev, xpoints)
+    with timing.span("walk.launch"):
+        dtype, dev = origin.dtype, origin.device
+        n = origin.shape[0]
+        if part is not None:
+            layout, tables = PARTITIONED, part["tables"]
+        elif mesh.geo20 is None:
+            layout, tables = UNPACKED, unpacked_tables(mesh)
+        else:
+            layout, tables = PACKED, (None,) * 5
+        slot = prev = stuck = None
+        if part is not None:  # in/out lane state: fresh copies each launch
+            slot = part["slot"]
+            prev, stuck = part["prev"].clone(), part["stuck"].clone()
+        record = record_xpoints is not None
+        _check_block(block, layout=layout,
+                     feature=record or bool(debug_checks),
+                     robust=bool(robust), initial=bool(initial),
+                     ordered=bool(ordered))
+        xp = kx = None
+        if record:
+            xp, kx = xpoint_buffers(n, record_xpoints, dtype, dev, xpoints)
 
-    def per_lane(dt):
-        return torch.empty(n, dtype=dt, device=dev)
+        def per_lane(dt):
+            return torch.empty(n, dtype=dt, device=dev)
 
-    pos = torch.empty_like(origin)
-    elem_o, mat, ncross, nchase, nseg_l, iters = (
-        per_lane(torch.int32) for _ in range(6)
-    )
-    done = per_lane(torch.bool)
-    pseg = per_lane(dtype)
-    target = target_elem = None
-    if part is not None:  # material ids and track lengths carry in
-        mat, pseg = part["mat"].clone(), part["pseg"].clone()
-        target, target_elem = per_lane(torch.int32), per_lane(torch.int32)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    cap = capacity if ordered else 0
-    rec = (
-        torch.empty(cap, dtype=torch.int32, device=dev),
-        torch.empty(cap, dtype=torch.int64, device=dev),
-        torch.empty(cap, dtype=dtype, device=dev),
-    )
-    # Records made, lane slots taken, warp loop trips, check bits.
-    counters = torch.zeros(4, dtype=torch.int64, device=dev)
-
-    fn = _entry("walk", dtype)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            int(bool(robust)), int(bool(initial)), int(bool(ordered)),
-            ptr(mesh.geo20) if layout == PACKED else None,
-            lanes.data_ptr(), n, n_groups,
-            max_crossings, float(tolerance),
-            int(bool(score_squares)), flux.data_ptr(), pos.data_ptr(),
-            elem_o.data_ptr(), mat.data_ptr(), done.data_ptr(),
-            pseg.data_ptr(), ncross.data_ptr(), nchase.data_ptr(),
-            nseg_l.data_ptr(), iters.data_ptr(), rec[0].data_ptr(),
-            rec[1].data_ptr(), rec[2].data_ptr(), counters.data_ptr(), cap,
-            xp.data_ptr() if record else None,
-            kx.data_ptr() if record else None,
-            int(record_xpoints or 0), int(record), int(bool(debug_checks)),
-            mesh.ntet if mesh is not None else 0, 10.0 * float(tolerance),
-            layout, *(ptr(t) for t in tables), ptr(slot),
-            part["stride"] if part else 0, part["max_local"] if part else 0,
-            part["reset"] if part else 0, ptr(prev), ptr(stuck),
-            ptr(target), ptr(target_elem), int(block), stream,
+        pos = torch.empty_like(origin)
+        elem_o, mat, ncross, nchase, nseg_l, iters = (
+            per_lane(torch.int32) for _ in range(6)
         )
-    if err != 0:
-        raise RuntimeError(
-            f"walk kernel launch failed with cudaError_t {err}"
+        done = per_lane(torch.bool)
+        pseg = per_lane(dtype)
+        target = target_elem = None
+        if part is not None:  # material ids and track lengths carry in
+            mat, pseg = part["mat"].clone(), part["pseg"].clone()
+            target = per_lane(torch.int32)
+            target_elem = per_lane(torch.int32)
+
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        cap = capacity if ordered else 0
+        rec = (
+            torch.empty(cap, dtype=torch.int32, device=dev),
+            torch.empty(cap, dtype=torch.int64, device=dev),
+            torch.empty(cap, dtype=dtype, device=dev),
         )
-    LAUNCHES += 1
-    BLOCK_LAUNCHES[block] += 1
-    feat = int(record or bool(debug_checks))
-    FEATURE_LAUNCHES += feat
-    FEATURE_UNPACKED_LAUNCHES += feat * int(layout == UNPACKED)
-    FEATURE_PART_LAUNCHES += feat * int(layout == PARTITIONED)
-    UNPACKED_LAUNCHES += int(layout == UNPACKED)
-    PART_LAUNCHES += int(layout == PARTITIONED)
-    WARP_TRIPS = counters[2]
-    out = dict(mesh=mesh, material_id=material_id, flux=flux, pos=pos,
-               elem=elem_o, mat=mat, done=done, pseg=pseg, ncross=ncross,
-               nchase=nchase, nseg=nseg_l, iters=iters, xp=xp, kx=kx,
-               target=target, target_elem=target_elem, prev=prev,
-               stuck=stuck)
+        # Records made, lane slots taken, warp loop trips, check bits.
+        counters = torch.zeros(4, dtype=torch.int64, device=dev)
+
+        fn = _entry("walk", dtype)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = fn(
+                int(bool(robust)), int(bool(initial)), int(bool(ordered)),
+                ptr(mesh.geo20) if layout == PACKED else None,
+                lanes.data_ptr(), n, n_groups,
+                max_crossings, float(tolerance),
+                int(bool(score_squares)), flux.data_ptr(), pos.data_ptr(),
+                elem_o.data_ptr(), mat.data_ptr(), done.data_ptr(),
+                pseg.data_ptr(), ncross.data_ptr(), nchase.data_ptr(),
+                nseg_l.data_ptr(), iters.data_ptr(), rec[0].data_ptr(),
+                rec[1].data_ptr(), rec[2].data_ptr(), counters.data_ptr(),
+                cap,
+                xp.data_ptr() if record else None,
+                kx.data_ptr() if record else None,
+                int(record_xpoints or 0), int(record),
+                int(bool(debug_checks)),
+                mesh.ntet if mesh is not None else 0,
+                10.0 * float(tolerance),
+                layout, *(ptr(t) for t in tables), ptr(slot),
+                part["stride"] if part else 0,
+                part["max_local"] if part else 0,
+                part["reset"] if part else 0, ptr(prev), ptr(stuck),
+                ptr(target), ptr(target_elem), int(block), stream,
+            )
+        if err != 0:
+            raise RuntimeError(
+                f"walk kernel launch failed with cudaError_t {err}"
+            )
+        LAUNCHES += 1
+        BLOCK_LAUNCHES[block] += 1
+        feat = int(record or bool(debug_checks))
+        FEATURE_LAUNCHES += feat
+        FEATURE_UNPACKED_LAUNCHES += feat * int(layout == UNPACKED)
+        FEATURE_PART_LAUNCHES += feat * int(layout == PARTITIONED)
+        UNPACKED_LAUNCHES += int(layout == UNPACKED)
+        PART_LAUNCHES += int(layout == PARTITIONED)
+        WARP_TRIPS = counters[2]
+        out = dict(mesh=mesh, material_id=material_id, flux=flux,
+                   pos=pos, elem=elem_o, mat=mat, done=done, pseg=pseg,
+                   ncross=ncross, nchase=nchase, nseg=nseg_l, iters=iters,
+                   xp=xp, kx=kx, target=target, target_elem=target_elem,
+                   prev=prev, stuck=stuck)
     if debug_checks:
         bits = counters[3]
         if not initial and ledger and n:
@@ -810,40 +825,42 @@ def _launch(mesh, origin, dest, elem, in_flight, weight, group, material_id,
                                         iters.max(), tolerance)
             bits = bits | (bad.to(torch.int64) << TRACK_CHECK)
         made, bits = torch.stack([counters[0], bits]).tolist()  # one read
+        timing.count("checks")
         raise_on_violation(bits)
         return (out, rec, made) if ordered else out
     if not ordered:
         return out
-    t0 = time.perf_counter()
-    made = int(counters[0].item())
-    LAST_WAIT_S = time.perf_counter() - t0
+    with timing.step("count_wait"):
+        made = int(counters[0].item())
+    timing.count("count")
     return out, rec, made
 
 
 def _result(o, *, ledger, stats, records=None, **_) -> TraceResult:
-    iters, dev = o["iters"], o["iters"].device
-    nseg = o["nseg"].sum(dtype=torch.int64)
-    n_crossings = (
-        iters.max().to(torch.int64) if iters.numel()
-        else torch.zeros((), dtype=torch.int64, device=dev)
-    )
-    return TraceResult(
-        position=o["pos"],
-        elem=o["elem"],
-        material_id=resolve_material(o["mat"], o["material_id"],
-                                     o["mesh"].class_values),
-        flux=o["flux"],
-        n_segments=nseg,
-        n_crossings=n_crossings,
-        done=o["done"],
-        lane_iters=iters,
-        track_length=o["pseg"] if ledger else None,
-        stats=(
-            walk_stats_vector(o["ncross"], o["nchase"], o["done"], nseg,
-                              n_crossings)
-            if stats else None
-        ),
-        n_records=records,
-        xpoints=o["xp"],
-        n_xpoints=o["kx"],
-    )
+    with timing.span("walk.result"):
+        iters, dev = o["iters"], o["iters"].device
+        nseg = o["nseg"].sum(dtype=torch.int64)
+        n_crossings = (
+            iters.max().to(torch.int64) if iters.numel()
+            else torch.zeros((), dtype=torch.int64, device=dev)
+        )
+        return TraceResult(
+            position=o["pos"],
+            elem=o["elem"],
+            material_id=resolve_material(o["mat"], o["material_id"],
+                                         o["mesh"].class_values),
+            flux=o["flux"],
+            n_segments=nseg,
+            n_crossings=n_crossings,
+            done=o["done"],
+            lane_iters=iters,
+            track_length=o["pseg"] if ledger else None,
+            stats=(
+                walk_stats_vector(o["ncross"], o["nchase"], o["done"], nseg,
+                                  n_crossings)
+                if stats else None
+            ),
+            n_records=records,
+            xpoints=o["xp"],
+            n_xpoints=o["kx"],
+        )
