@@ -25,8 +25,8 @@ Phases, each of which raises (exit code != 0) on any failed check:
    conservation invariant, the boundary write-backs, the .vtu and one
    transfer each way a call are checked. Each walk must run the lane
    schedule's 3 kernels once (a relaunch none) and each move's ordered
-   scatter must take the bucket path (its largest bucket and the capacity
-   are printed);
+   scatter must take the bucket path with the dense fold (its largest
+   bucket and the capacity are printed);
 5. kernel vs plain at the main path's shapes: the inputs of the main
    path's initial search and of its first move, replayed through the
    kernel and the plain walk, compared (flux bitwise) and timed with CUDA
@@ -49,8 +49,10 @@ Phases, each of which raises (exit code != 0) on any failed check:
    counts left at zero) and timed: device time by kernel (torch.profiler,
    which must show its three kernels and nothing else), event span, the
    plain version and ``torch.argsort`` of the keys, beside its bound.
-   Move 1's records are scattered by the ordered scatter's bucket path,
-   by its crowded path called directly and by ``torch.argsort`` +
+   Move 1's records are scattered by the ordered scatter's bucket path
+   (the dense fold; a move's scatter must take it at this density), with
+   the sparse fold forced, by its crowded path called directly and by
+   ``torch.argsort`` +
    ``Tensor.index_put_(accumulate=True)``, each held bitwise to the plain
    version and timed, and the bucket path is profiled by kernel;
 6. reproducibility (phase C): move 1 replayed twice through the ordered
@@ -72,8 +74,14 @@ Phases, each of which raises (exit code != 0) on any failed check:
    ``kernels`` line beside index_add_'s); K2 also at the walk's shape in
    float64 (the box's geo20 built in float64, its codes int64 bits),
    bitwise, timed beside the plain version and index_select, its launches
-   counted apart; and the SASS of the atomic scatter and the atomic walk
-   (cuobjdump) must hold the float32 pair's vector reduction;
+   counted apart; the SASS of the atomic scatter and the atomic walk
+   (cuobjdump) must hold the float32 pair's vector reduction; and the
+   ordered scatter's two folds on the same records (``sparse_fold_probe``):
+   at the 10M-tet assembly's 707,766,780 float64 bins with a tail move's,
+   a lane's worth and a batch's first move's records, the sparse fold,
+   the dense fold and the plain version bitwise equal, both folds timed in
+   turns beside the bytes bound, then both timed over a sweep of mean
+   records a bin (the crossover behind ``scatter.SPARSE_BELOW``);
 9. point source (phase E): all 1,048,576 lanes start at one point of the
    main-path mesh and fly one move; the ordered scatter of its records
    must take the crowded path; it is held bitwise against the plain
@@ -141,13 +149,13 @@ Phases, each of which raises (exit code != 0) on any failed check:
    (``StepClock``: sample, walk and its two host waits, physics, folds,
    the tail read), launches counted (8 flight launches, 8 walks and their
    relaunches, one tail copy), then the same at K = 1, which must end
-   bitwise where K = 8 ended; a profiled K = 8 call for the card's busy
-   share; the flight kernel at the timed call's first move, timed beside
-   its plain version and its bound; (c) ``SyntheticTransport`` on
+   bitwise where K = 8 ended; the flight kernel at the timed call's first
+   move, timed beside its plain version and its bound (the loop's busy
+   share is the benchmark's); (c) ``SyntheticTransport`` on
    ``problems.assembly(55, 3)`` (998,250 tets, 10 regions, pins at
    ``Material(4.0, 0.5)``), 1,048,576 particles: a megastep batch to its
-   end (K = 8, at most 1,000 events) and 4 host-mode events, in turns
-   (megastep, host, host, megastep), moves/s and segments/s.
+   end (K = 8, at most 1,000 events) and 4 host-mode events, one run
+   each, moves/s and segments/s.
 15. integrity and resilience (``[resil]`` lines) at the main cell (the
    main path's inputs, recorded once with the defaults; every run below
    is held bitwise to that run's flux, positions, elements and
@@ -439,9 +447,11 @@ JSON; before them one line carries the ``kernels`` JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -756,6 +766,9 @@ def phase_main_path(tmpdir: str):
         raise AssertionError("the ordered scatter did not run once a move")
     if launches["scatter_bucket"] != 4 or launches["scatter_crowded"]:
         raise AssertionError("a move's ordered scatter left the bucket path")
+    if launches["scatter_sparse"]:
+        raise AssertionError("a full-width move (2.1 records a bin) took "
+                             "the sparse fold")
     if launches["scatter_atomic"] or launches["gather"]:
         raise AssertionError("the facade launched a probe kernel")
     return tally, snaps, launches
@@ -1104,6 +1117,7 @@ def zero_counts() -> None:
     walk_cuda.BLOCK_LAUNCHES = dict.fromkeys(walk_cuda.BLOCKS, 0)
     scatter.ATOMIC_LAUNCHES = scatter.ORDERED_LAUNCHES = 0
     scatter.BUCKET_LAUNCHES = scatter.CROWDED_LAUNCHES = 0
+    scatter.SPARSE_LAUNCHES = 0
     gather.LAUNCHES = source_cuda.LAUNCHES = 0
     exchange_cuda.BUCKET_LAUNCHES = exchange_cuda.ADOPT_LAUNCHES = 0
     integrity_cuda.LAUNCHES = 0
@@ -1122,6 +1136,7 @@ def read_counts() -> dict:
         "walk_partitioned": walk_cuda.PART_LAUNCHES,
         "scatter_ordered": scatter.ORDERED_LAUNCHES,
         "scatter_bucket": scatter.BUCKET_LAUNCHES,
+        "scatter_sparse": scatter.SPARSE_LAUNCHES,
         "scatter_crowded": scatter.CROWDED_LAUNCHES,
         "scatter_atomic": scatter.ATOMIC_LAUNCHES,
         "schedule": walk_cuda.SCHEDULE_LAUNCHES,
@@ -1288,17 +1303,39 @@ def phase_kernel_vs_plain_full(tally, snap, initial: bool) -> dict:
     )
 
 
+@contextlib.contextmanager
+def forced_fold(fold: str):
+    """The ordered scatter's bucket path takes ``fold`` ("bucket", the
+    dense fold, or "sparse") whatever the density, by setting
+    ``scatter.SPARSE_BELOW`` to 0 or to infinity for the block; a crowded
+    call stays crowded."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    kept = scatter.SPARSE_BELOW
+    scatter.SPARSE_BELOW = {"bucket": 0.0, "sparse": math.inf}[fold]
+    try:
+        yield
+    finally:
+        scatter.SPARSE_BELOW = kept
+
+
 def scatter_paths(flux0, rec, nbins: int) -> dict:
     """Move 1's records through the ordered scatter's bucket path (the
-    wrapper the walk calls), its crowded path called directly, and
-    ``torch.argsort`` + ``Tensor.index_put_(accumulate=True)``: each held
-    bitwise to the plain version, then timed in turns (CUDA events,
+    wrapper the walk calls, the dense fold at this density), the bucket
+    path with the sparse fold forced, its crowded path called directly,
+    and ``torch.argsort`` + ``Tensor.index_put_(accumulate=True)``: each
+    held bitwise to the plain version, then timed in turns (CUDA events,
     median of 5); the bucket path's calls profiled by kernel."""
     from pumiumtally_tpu_torch.ops import scatter
     from pumiumtally_tpu_torch.probes.gather_scatter import library_ordered
 
     def bucket(f):
         return scatter.ordered_cuda(f, rec.bin, rec.order, rec.c, True, nbins)
+
+    def sparse(f):
+        with forced_fold("sparse"):
+            return scatter.ordered_cuda(f, rec.bin, rec.order, rec.c, True,
+                                        nbins)
 
     def crowded(f):
         return scatter.crowded_cuda(f, rec.bin, rec.order, rec.c, True, nbins)
@@ -1314,6 +1351,11 @@ def scatter_paths(flux0, rec, nbins: int) -> dict:
     if scatter.BUCKET_LAUNCHES != before + 1:
         raise AssertionError("move 1's records left the bucket path")
     info = dict(scatter.LAST_BUCKETS)
+    if info["path"] != "bucket":
+        raise AssertionError("move 1's records (2.1 a bin) took the "
+                             f"{info['path']} fold")
+    if not torch.equal(sparse(flux0.clone()), ref):
+        raise AssertionError("move 1: the sparse fold differs from plain")
     if not torch.equal(crowded(flux0.clone()), ref):
         raise AssertionError("move 1: the crowded path differs from plain")
     lib_equal = bool(torch.equal(library(flux0.clone()), ref))
@@ -1322,14 +1364,17 @@ def scatter_paths(flux0, rec, nbins: int) -> dict:
         return (flux0.clone(),)
 
     out = {}
-    for name, fn in (("scatter_ms", bucket), ("crowded_ms", crowded),
-                     ("library_ms", library), ("scatter_ms_2", bucket),
-                     ("crowded_ms_2", crowded)):
+    for name, fn in (("scatter_ms", bucket), ("sparse_ms", sparse),
+                     ("crowded_ms", crowded), ("library_ms", library),
+                     ("crowded_ms_2", crowded), ("sparse_ms_2", sparse),
+                     ("scatter_ms_2", bucket)):
         out[name] = event_ms(fn, 5, fresh)
     log(f"[scatter] move 1's {rec.bin.numel()} records into {nbins} bins: "
         f"bucket path {out['scatter_ms']:.4f} / {out['scatter_ms_2']:.4f} ms "
         f"(shift {info['shift']}, {info['buckets']} buckets, largest "
-        f"{info['largest']} of capacity {info['capacity']}), crowded path "
+        f"{info['largest']} of capacity {info['capacity']}), with the "
+        f"sparse fold {out['sparse_ms']:.4f} / {out['sparse_ms_2']:.4f} ms, "
+        f"crowded path "
         f"{out['crowded_ms']:.4f} / {out['crowded_ms_2']:.4f} ms, "
         f"torch.argsort + index_put_(accumulate=True) "
         f"{out['library_ms']:.4f} ms (bitwise equal: {lib_equal}); median "
@@ -1337,6 +1382,122 @@ def scatter_paths(flux0, rec, nbins: int) -> dict:
     profile_call("ordered scatter of move 1, bucket path",
                  lambda: bucket(flux0.clone()))
     return dict(out, buckets=info)
+
+
+# The assembly cell's flux (BENCHMARK.json's assembly17-casmo70-f64: 119^3
+# cubes of 6 tets, 10,110,954 tets, 70 groups, float64) and the record
+# counts the sparse fold's probe scatters into it: a tail move, about one
+# record a lane, and a batch's first moves (up to ~12M records). The
+# crossover sweep's mean records a bin, on the assembly's bins up to the
+# largest count whose keys fit 63 bits, then on the main path's (move 1
+# reads 2.12).
+ASSEMBLY_BINS = 119 ** 3 * 6 * 70
+SPARSE_MOVES = (100_000, 1_048_576, 20_000_000)
+SPARSE_SWEEP = ((ASSEMBLY_BINS, (1e-4, 1e-3, 0.01, 0.03, 0.05)),
+                (MAIN_CELLS ** 3 * 6 * MAIN_GROUPS,
+                 (0.01, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 1.0, 2.12)))
+
+
+def sparse_records(m: int, nbins: int, seed: int):
+    """``m`` float64 records on the card: uniform bins, distinct order keys
+    in shuffled record order, contributions over several binades."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    kw = dict(device=DEVICE, generator=g)
+    bin = torch.randint(0, nbins, (m,), dtype=torch.int64, **kw).int()
+    order = torch.randperm(m, **kw)
+    c = torch.rand(m, dtype=torch.float64, **kw) * 2.0 ** torch.randint(
+        -12, 4, (m,), **kw).double()
+    return bin, order, c
+
+
+def sparse_fold_probe() -> dict:
+    """The two folds of the ordered scatter's bucket path on the same
+    records, each forced (``forced_fold``): at the assembly
+    cell's moves, the sparse fold, the dense fold and the plain version's
+    fluxes bitwise equal, both timed in turns (CUDA events, median of 5,
+    the count and its host read included) beside the bytes bound; then the
+    crossover sweep behind ``scatter.SPARSE_BELOW``: both folds (bitwise
+    equal) timed over mean records a bin, and the faster named at each."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    def call(fold, nbins, rec, value=0.25):
+        flux = torch.full((2 * nbins,), value, dtype=torch.float64,
+                          device=DEVICE)
+        with forced_fold(fold):
+            return scatter.ordered_cuda(flux, *rec, True, nbins)
+
+    def timed(nbins, rec):
+        flux = torch.full((2 * nbins,), 0.25, dtype=torch.float64,
+                          device=DEVICE)
+        out = {}
+        for fold in ("bucket", "sparse", "sparse", "bucket"):
+            with forced_fold(fold):
+                out.setdefault(fold, []).append(event_ms(
+                    lambda: scatter.ordered_cuda(flux, *rec, True, nbins),
+                    5))
+        return out
+
+    def bound_ms(m, nbins):
+        return (m * (4 + 8 + 8) + min(m, nbins) * 4 * 8) / HBM_BYTES_PER_S * 1e3
+
+    out = {"moves": [], "sweep": []}
+    for i, m in enumerate(SPARSE_MOVES):
+        rec = sparse_records(m, ASSEMBLY_BINS, 2700 + i)
+        dense = call("bucket", ASSEMBLY_BINS, rec)
+        info = dict(scatter.LAST_BUCKETS)
+        sparse = call("sparse", ASSEMBLY_BINS, rec)
+        if not torch.equal(sparse, dense):
+            raise AssertionError(f"sparse fold of {m} records on the "
+                                 "assembly's bins differs from the dense")
+        del sparse
+        plain = scatter.scatter_ordered_plain(
+            torch.full_like(dense, 0.25), *rec, True)
+        if not torch.equal(plain, dense):
+            raise AssertionError(f"the folds of {m} records on the "
+                                 "assembly's bins differ from plain")
+        del plain, dense
+        t = timed(ASSEMBLY_BINS, rec)
+        row = dict(records=m, bins=ASSEMBLY_BINS, largest=info["largest"],
+                   shift=info["shift"], dense_ms=t["bucket"],
+                   sparse_ms=t["sparse"], bound_ms=bound_ms(m, ASSEMBLY_BINS),
+                   path=scatter.fold_path(m, ASSEMBLY_BINS, info["largest"],
+                                          info["key_bits"]))
+        out["moves"].append(row)
+        log(f"[sparse] {m} records into the assembly's {ASSEMBLY_BINS} bins "
+            f"(largest bucket {info['largest']}, shift {info['shift']}): "
+            f"dense fold {t['bucket'][0]:.4f} / {t['bucket'][1]:.4f} ms, "
+            f"sparse {t['sparse'][0]:.4f} / {t['sparse'][1]:.4f} ms (whole "
+            f"call, median of 5, in turns), bytes bound "
+            f"{row['bound_ms']:.4f} ms; sparse, dense and plain bitwise "
+            f"equal; the dispatch takes {row['path']}")
+        del rec
+    for nbins, rates in SPARSE_SWEEP:
+        for j, rate in enumerate(rates):
+            m = int(rate * nbins)
+            rec = sparse_records(m, nbins, 2800 + j)
+            if not torch.equal(call("sparse", nbins, rec),
+                               call("bucket", nbins, rec)):
+                raise AssertionError(f"sparse fold of {m} records on {nbins} "
+                                     "bins differs from the dense")
+            info = dict(scatter.LAST_BUCKETS)
+            t = timed(nbins, rec)
+            dense_ms, sparse_ms = (float(np.median(t[f]))
+                                   for f in ("bucket", "sparse"))
+            path = scatter.fold_path(m, nbins, info["largest"],
+                                     info["key_bits"])
+            out["sweep"].append(dict(bins=nbins, records=m, rate=rate,
+                                     largest=info["largest"],
+                                     dense_ms=t["bucket"],
+                                     sparse_ms=t["sparse"], path=path))
+            log(f"[sparse] sweep {rate:g} records a bin ({m} into {nbins}, "
+                f"largest bucket {info['largest']}, shift {info['shift']}): "
+                f"dense {t['bucket'][0]:.4f} / {t['bucket'][1]:.4f} ms, "
+                f"sparse {t['sparse'][0]:.4f} / {t['sparse'][1]:.4f} ms; "
+                f"faster: {'sparse' if sparse_ms < dense_ms else 'dense'}, "
+                f"the dispatch (below {scatter.SPARSE_BELOW:g}) takes {path}")
+            del rec
+    torch.cuda.empty_cache()
+    return out
 
 
 def active_share(iters, trips: int) -> float:
@@ -2513,8 +2674,9 @@ def megastep_full(mesh) -> dict:
     (clocked by step, launches counted), then the same two calls at
     K = 1, which must end bitwise where K = 8 ended (flux, per-lane state,
     counters; the absorbed weight within rtol 1e-5, its grouping follows
-    the chunks); a profiled K = 8 call for the busy share; the flight
-    kernel at the timed call's first move."""
+    the chunks); the flight kernel at the timed call's first move. The
+    busy share of the device-sourced loop is the benchmark's
+    (``tallybench``, ``idle_pct.source``)."""
     from pumiumtally_tpu_torch.ops import source
     from pumiumtally_tpu_torch.utils.timing import StepClock
 
@@ -2574,17 +2736,6 @@ def megastep_full(mesh) -> dict:
             tally.step_clock = None
             print_step_table(f"full cell K={k} timed call",
                              [{"steps": runs[k]["steps"]}], tag="[mega]")
-            prof = start_profile()
-            t0 = time.perf_counter()
-            tally.run_source_moves(MEGA_K, src, weights=ones, alive=alive)
-            busy = stop_profile(prof, 1, time.perf_counter() - t0)
-            runs[k]["busy"] = busy
-            log(f"[mega] full cell K={k} profiled call: card busy "
-                f"{busy['busy_ms']:.4f} ms (copies {busy['copy_ms']:.4f}) of "
-                f"{busy['span_ms']:.4f} ms host clock, busy share "
-                f"{busy['share']:.4f} (kernels {busy['kernel_share']:.4f})")
-            for key, ms in busy["top"]:
-                log(f"[mega]   {ms:9.4f} ms {key}")
             del tally
             continue
         for f, v in state.items():
@@ -2651,7 +2802,8 @@ def phase_transport() -> dict:
     """(c) SyntheticTransport on the 3x3 assembly at 55^3 cells (998,250
     tets, 10 regions; the pins at Material(4.0, 0.5)), 1,048,576
     particles: a megastep batch to its end (K = 8, at most 1,000 events)
-    and 4 host-mode events, in turns."""
+    and 4 host-mode events, one run each (the benchmark times the
+    device-sourced loop)."""
     from pumiumtally_tpu_torch import PumiTally, TallyConfig
     from pumiumtally_tpu_torch.models import problems
     from pumiumtally_tpu_torch.models.transport import (
@@ -2680,7 +2832,7 @@ def phase_transport() -> dict:
     mt, md = transport("megastep", 5)
     ht, hd = transport("host", 5)
     out = dict(megastep=[], host=[], regions=regions)
-    for turn in ("megastep", "host", "host", "megastep"):
+    for turn in ("megastep", "host"):
         if turn == "megastep":
             r = transport_run(md, mt)
             log(f"[mega] transport megastep batch: {r['moves']} moves, "
@@ -6864,6 +7016,7 @@ def _phases(card: str, name: str, t_start: float,
     payload, probe_launches = phase_probe(tally, snaps["move"], k["records"])
     atomic_f64 = probe_atomic_f64(k["records"], tally.flux.numel() // 2)
     gather_f64 = probe_gather_f64()
+    sparse_probe = sparse_fold_probe()
     log(f"[phase] probe path: {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -7031,7 +7184,9 @@ def _phases(card: str, name: str, t_start: float,
              bucket_launches=launches["scatter_bucket"],
              crowded_launches=launches["scatter_crowded"],
              move1_bucket_ms=k["scatter_ms"], move1_crowded_ms=k["crowded_ms"],
+             move1_sparse_ms=k["sparse_ms"],
              move1_library_ms=k["library_ms"], buckets=k["buckets"],
+             sparse=sparse_probe,
              io_bucket_launches={m: r["launches"]["scatter_bucket"]
                                  for m, r in io.items()},
              pipeline_bucket_launches={
@@ -7068,7 +7223,6 @@ def _phases(card: str, name: str, t_start: float,
          "dest_differ": flight["dest_differ"], "max_ulp": flight["max_ulp"],
          "megastep_segments_per_s": full["segments_per_s"],
          "megastep_moves_per_s": full["moves_per_s"],
-         "megastep_busy_share": full["busy"]["share"],
          "transport_moves_per_s": [
              r["moves_per_s"] for r in mega["transport"]["megastep"]],
          "resil_launches": resil["launches"]["source"],

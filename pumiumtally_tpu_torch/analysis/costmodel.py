@@ -30,7 +30,8 @@ runner reads the logs alone). Baseline-free invariants
                         ``batch_bytes`` / ``dynamic_bytes``
                         (``csrc/walk.cu``, ``Lane<T>`` of 48 and 80 B) and
                         of the bucket fold's fixed arrays and
-                        ``bucket_smem`` (``csrc/scatter.cu``) and of the
+                        ``bucket_smem`` and the sparse fold's
+                        ``sparse_smem`` (``csrc/scatter.cu``) and of the
                         exchange's count and place passes
                         (``place_smem``, ``csrc/exchange.cu``) agrees with
                         the static bytes ptxas reports for each
@@ -96,7 +97,7 @@ OPTIN_SMEM_MAX = 227 * 1024
 # -- the mirror of the kernels' launch widths and shared memory --------- #
 # Deliberately DUPLICATED from csrc/ (walk.cu SCHED_THREADS, Lane<T>,
 # batch_bytes, dynamic_bytes; scatter.cu's launches, BUCKET_CAP, SMALL,
-# bucket_smem; gather.cu and source.cu BLOCK; exchange.cu TILE,
+# SPARSE_THREADS, bucket_smem, sparse_smem; gather.cu and source.cu BLOCK; exchange.cu TILE,
 # SCAN_THREADS, MAX_PARTS, place_smem; integrity.cu BLOCK): a kernel edit
 # that changes them must change this mirror in the same PR, or cost.smem /
 # cost.regfile name it.
@@ -106,6 +107,7 @@ _BUCKET_THREADS = 256
 _BUCKET_CAP = 2048
 _BUCKET_SHIFT_MAX = 10
 _SMALL = 32
+_SPARSE_THREADS = 256
 _ITEM = {"f": 4, "d": 8}
 _EXCHANGE_TILE = 256
 _EXCHANGE_SCAN = 1024
@@ -119,6 +121,8 @@ LAUNCH_THREADS = {
     "atomic_kernel": 256, "count_kernel": 256, "order_count": 256,
     "bucket_stats": 256, "add_sums": 256, "place_kernel": 256,
     "fold_small": 256, "bucket_place": 256, "bucket_fold": _BUCKET_THREADS,
+    "bucket_fold_sparse": _SPARSE_THREADS,
+    "bucket_sort_fold": _SPARSE_THREADS,
     "scan_tiles": 1024, "scan_sums": 1024, "sort_fold_large": 1024,
     "gather_kernel": 256, "sample_flight_kernel": 256,
     "exchange_count": _EXCHANGE_TILE, "exchange_scan": _EXCHANGE_SCAN,
@@ -142,6 +146,12 @@ def walk_dynamic_bytes(t: str, block: int) -> int:
 def bucket_smem(t: str, cap: int, shift: int) -> int:
     """``bucket_smem<T>(cap, shift)``: the bucket fold's dynamic bytes."""
     return cap * (8 + _ITEM[t] + 2 * 2) + (2 * (1 << shift) + 1) * 4
+
+
+def sparse_smem(t: str, cap: int) -> int:
+    """``sparse_smem<T>(cap)``: the sparse fold's sort of listed buckets
+    holds a key and a value a record."""
+    return cap * (8 + _ITEM[t])
 
 
 def bucket_static_bytes() -> int:
@@ -172,6 +182,8 @@ def expected_smem(kernel: str, targs: str) -> tuple[int, int] | None:
     if kernel == "bucket_fold":
         return bucket_static_bytes(), bucket_smem(
             targs[0], _BUCKET_CAP, _BUCKET_SHIFT_MAX)
+    if kernel == "bucket_sort_fold":
+        return 0, sparse_smem(targs[0], _BUCKET_CAP)
     return None
 
 
@@ -533,7 +545,8 @@ def check_bank(metas: list, cap: dict) -> list[Finding]:
 def entry_smem(source: str, t: str, *args) -> int:
     """The dynamic shared memory bytes a launch of ``csrc/<source>.cu``
     passes, through its C entry (on the card): the walk at a block width,
-    the bucket fold at a cap and shift, the exchange at a part count,
+    the bucket fold at a cap and shift, the sparse fold's sort
+    (``scatter_sparse``) at a cap, the exchange at a part count,
     the gather, the flight and the integrity vector."""
     import torch
 
@@ -551,6 +564,8 @@ def entry_smem(source: str, t: str, *args) -> int:
         return walk_cuda.dynamic_smem(dt, *args)
     if source == "scatter":
         return scatter.bucket_dynamic_smem(dt, *args)
+    if source == "scatter_sparse":
+        return scatter.sparse_dynamic_smem(dt, *args)
     if source == "exchange":
         return exchange_cuda.dynamic_smem(*args)
     return {"gather": gather, "source": source_cuda,
@@ -579,6 +594,13 @@ def check_smem_entries() -> list[Finding]:
                     "cost.smem.bucket_fold",
                     f"pumi_scatter_smem_{t}({cap}, {shift}) = {got} B, the "
                     f"mirror {bucket_smem(t, cap, shift)} B"))
+        for cap in (1, 33, _BUCKET_CAP):
+            got = dynamic("scatter_sparse", t, cap)
+            if got != sparse_smem(t, cap):
+                out.append(_finding(
+                    "cost.smem.bucket_sort_fold",
+                    f"pumi_scatter_sparse_smem_{t}({cap}) = {got} B, the "
+                    f"mirror {sparse_smem(t, cap)} B"))
     for parts in (1, 4, 64, _EXCHANGE_MAX_PARTS):
         got = dynamic("exchange", "f", parts)
         if got != exchange_smem(parts):

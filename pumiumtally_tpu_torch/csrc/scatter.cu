@@ -20,7 +20,8 @@
 //   inside a 128-lane block with one-hot products on the MXU; on this
 //   card the records of a whole move are ordered at once. The fold is
 //   f = f + c and, with squares, f2 = f2 + c*c, seeded from the flux; no
-//   library sort or scan is used. Two paths, chosen by the data:
+//   library sort or scan is used. Two paths, chosen by the data, and two
+//   folds on the first:
 //   - the bucket path. A bucket is 2^shift consecutive bins (the caller
 //     picks the shift so that the mean bucket holds at most a third of
 //     BUCKET_CAP records). pumi_bucket_count counts the records of every
@@ -43,7 +44,25 @@
 //     counters (31,196 at the main path's move 1) stay in L2, and the
 //     placement's stores advance one cursor per bucket, so they merge in
 //     L2 instead of landing at random in device memory: one 16 B store a
-//     record takes a third of the time of four stores of 4-8 B;
+//     record takes a third of the time of four stores of 4-8 B. That fold
+//     (bucket_fold, the dense fold) does its work per bin: a bucket with
+//     any record zeroes, scans and walks 2^shift counters, so at shift 10
+//     a sparse call pays for every bin of every occupied bucket;
+//   - the same placement with the sparse fold, pumi_scatter_sparse_<t>,
+//     whose work follows the records: one thread a bucket reads its two
+//     offsets (an empty bucket costs nothing more), a bucket of <= TINY
+//     records is sorted by its whole key in the thread's registers and
+//     folded by it, one of <= SPARSE_WARP records by its warp (one record
+//     a lane, a bitonic network over shuffles), and a larger one is listed
+//     for bucket_sort_fold, a block that sorts it in shared memory sized
+//     to its records (a bitonic network over the next power of two, the
+//     places past the records left out) and folds it. After the sort, the
+//     thread at the first record of each bin's run reads the bin's pair,
+//     adds the run in key order and writes the pair back: within a bin the
+//     order is (order, index), the dense fold's, so both folds give the
+//     plain version's bits. The caller takes it below SPARSE_BELOW mean
+//     records a bin (ops/scatter.py::fold_path), where it is the faster
+//     (PERF.md: the crossover measured on the card);
 //   - the crowded path, for a call in which some bucket holds more than
 //     BUCKET_CAP records (a point source puts ~n/G records in one bin) or
 //     whose keys do not fit 63 bits:
@@ -68,9 +87,12 @@
 // What bounds it: the bytes of the records and of the touched bins are
 // the least it must move. The bucket path adds the 16 B record it writes
 // and reads back once, a read of the bins for the count and of the order
-// keys for their range; the crowded path adds random 4 B index stores and
-// key reads into arrays larger than L2, and 3 passes over the bins. The
-// per-bin folds are chains of dependent adds.
+// keys for their range, and a pass over the bucket offsets (4 B a bucket:
+// 2.8 MB for the 10M-tet assembly's 707.8M bins); the dense fold adds its
+// per-bin shared-memory work in every occupied bucket, the sparse fold a
+// sort of each bucket's records. The crowded path adds random 4 B index
+// stores and key reads into arrays larger than L2, and 3 passes over the
+// bins. The per-bin folds are chains of dependent adds.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -89,6 +111,9 @@ constexpr int PLACE_BYTES = 24 << 20;  // record indices per range (L2 50 MB)
 constexpr int BUCKET_CAP = 2048;      // records of a bucket in shared memory
 constexpr int BUCKET_THREADS = 256;   // threads of a bucket's block
 constexpr int BUCKET_SHIFT_MAX = 10;  // at most 1024 bins a bucket
+constexpr int SPARSE_THREADS = 256;   // threads of a sparse fold's block
+constexpr int SPARSE_WARP = 32;       // records of a bucket a warp sorts
+constexpr int SPARSE_BLOCKS = 1056;   // bucket_sort_fold: eight per SM
 constexpr long long KEY_MAX = 0x7fffffffffffffffLL;
 constexpr int IDX_MAX = 0x7fffffff;
 
@@ -431,6 +456,26 @@ __global__ void fold_small(const int* __restrict__ offsets, int lo, int hi,
   if (sq) flux[2 * (long long)b + 1] = f2;
 }
 
+// Orders TINY distinct keys and their values in registers by an odd-even
+// transposition network (the padding keys are KEY_MAX).
+template <typename T>
+__device__ __forceinline__ void sort_tiny(long long* kk, T* v) {
+#pragma unroll
+  for (int round = 0; round < TINY; ++round) {
+#pragma unroll
+    for (int j = round & 1; j + 1 < TINY; j += 2) {
+      if (kk[j + 1] < kk[j]) {
+        const long long tk = kk[j];
+        kk[j] = kk[j + 1];
+        kk[j + 1] = tk;
+        const T tv = v[j];
+        v[j] = v[j + 1];
+        v[j + 1] = tv;
+      }
+    }
+  }
+}
+
 // Bytes of bucket_fold's dynamic shared memory for buckets of at most cap
 // records and 2^shift bins.
 template <typename T>
@@ -507,8 +552,7 @@ bucket_fold(const int* __restrict__ offsets,
     T f = flux[g];
     T f2 = sq ? flux[g + 1] : f;
     if (k <= TINY) {
-      // Keys and values into registers, ordered by an odd-even
-      // transposition network, then folded.
+      // Keys and values into registers, ordered, then folded.
       long long kk[TINY];
       T v[TINY];
 #pragma unroll
@@ -517,20 +561,7 @@ bucket_fold(const int* __restrict__ offsets,
         kk[j] = j < k ? sk[q] : KEY_MAX;
         v[j] = j < k ? sv[q] : (T)0;
       }
-#pragma unroll
-      for (int round = 0; round < TINY; ++round) {
-#pragma unroll
-        for (int j = round & 1; j + 1 < TINY; j += 2) {
-          if (kk[j + 1] < kk[j]) {
-            const long long tk = kk[j];
-            kk[j] = kk[j + 1];
-            kk[j + 1] = tk;
-            const T tv = v[j];
-            v[j] = v[j + 1];
-            v[j + 1] = tv;
-          }
-        }
-      }
+      sort_tiny(kk, v);
 #pragma unroll
       for (int j = 0; j < TINY; ++j) {
         if (j < k) {
@@ -588,6 +619,209 @@ bucket_fold(const int* __restrict__ offsets,
     }
     flux[g] = f;
     if (sq) flux[g + 1] = f2;
+  }
+}
+
+// The sparse fold: the work of a bucket follows its records, never its
+// 2^shift bins. A bucket's records are ordered by their whole key, and
+// each run of one local bin (key >> lshift) is folded in that order by
+// the thread that holds its first record. Within a bin the key order is
+// (order, index), the dense fold's, so the two folds give the same bits.
+
+// Folds a bucket of 1..TINY records (rec[beg, beg + cnt)) by one thread.
+template <typename T>
+__device__ void fold_bucket_thread(const longlong2* __restrict__ rec, int beg,
+                                   int cnt, long long base, int lshift,
+                                   T* __restrict__ flux, int sq) {
+  long long kk[TINY];
+  T v[TINY];
+#pragma unroll
+  for (int j = 0; j < TINY; ++j) {
+    kk[j] = KEY_MAX;
+    v[j] = (T)0;
+    if (j < cnt) {
+      const longlong2 x = rec[beg + j];
+      kk[j] = x.x;
+      from_bits(x.y, v + j);
+    }
+  }
+  sort_tiny(kk, v);
+  long long g = 2 * (base + (kk[0] >> lshift));
+  T f = flux[g];
+  T f2 = sq ? flux[g + 1] : f;
+#pragma unroll
+  for (int j = 0; j < TINY; ++j) {
+    if (j < cnt) {
+      const long long gj = 2 * (base + (kk[j] >> lshift));
+      if (gj != g) {  // a new bin: the last one's pair goes back
+        flux[g] = f;
+        if (sq) flux[g + 1] = f2;
+        g = gj;
+        f = flux[g];
+        f2 = sq ? flux[g + 1] : f;
+      }
+      f = f + v[j];
+      if (sq) f2 = f2 + v[j] * v[j];
+    }
+  }
+  flux[g] = f;
+  if (sq) flux[g + 1] = f2;
+}
+
+// Folds a bucket of TINY+1..SPARSE_WARP records by the whole warp: one
+// record a lane, sorted by a bitonic network over shuffles, then the
+// first lane of each bin's run adds the run's values, broadcast in order.
+template <typename T>
+__device__ void fold_bucket_warp(const longlong2* __restrict__ rec, int beg,
+                                 int cnt, long long base, int lshift,
+                                 T* __restrict__ flux, int sq) {
+  const int lane = threadIdx.x & 31;
+  long long key = KEY_MAX;
+  T v = (T)0;
+  if (lane < cnt) {
+    const longlong2 x = rec[beg + lane];
+    key = x.x;
+    from_bits(x.y, &v);
+  }
+  const int width = cnt > 16 ? 32 : 16;
+  for (int size = 2; size <= width; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const long long ok = __shfl_xor_sync(0xffffffffu, key, stride);
+      const T ov = __shfl_xor_sync(0xffffffffu, v, stride);
+      // The lower lane of a pair keeps the smaller key in an ascending
+      // block, the larger in a descending one.
+      const bool keep_min = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (keep_min ? ok < key : ok > key) {
+        key = ok;
+        v = ov;
+      }
+    }
+  }
+  const long long l = key >> lshift;
+  const long long prev = __shfl_up_sync(0xffffffffu, l, 1);
+  const bool head = lane < cnt && (lane == 0 || prev != l);
+  const unsigned heads = __ballot_sync(0xffffffffu, head);
+  const unsigned later = lane == 31 ? 0u : heads >> (lane + 1) << (lane + 1);
+  const int end = later ? __ffs(later) - 1 : cnt;
+  long long g = 0;
+  T f = (T)0, f2 = (T)0;
+  if (head) {
+    g = 2 * (base + l);
+    f = flux[g];
+    f2 = sq ? flux[g + 1] : f;
+  }
+  for (int j = 0; j < cnt; ++j) {
+    const T x = __shfl_sync(0xffffffffu, v, j);
+    if (head && j >= lane && j < end) {
+      f = f + x;
+      if (sq) f2 = f2 + x * x;
+    }
+  }
+  if (head) {
+    flux[g] = f;
+    if (sq) flux[g + 1] = f2;
+  }
+}
+
+// One thread a bucket, the buckets [offsets[k], offsets[k+1]) of the
+// placed records: a bucket of at most TINY records is folded by its
+// thread, one of at most SPARSE_WARP by its warp, and a larger one is
+// listed (listed[0] counts them, listed[1..] their buckets) for
+// bucket_sort_fold. An empty bucket costs its thread two offsets loads.
+template <typename T>
+__global__ void __launch_bounds__(SPARSE_THREADS)
+bucket_fold_sparse(const int* __restrict__ offsets,
+                   const longlong2* __restrict__ rec, int nbuckets, int shift,
+                   int lshift, T* __restrict__ flux, int sq,
+                   int* __restrict__ listed) {
+  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  int beg = 0, cnt = 0;
+  if (k < nbuckets) {
+    beg = offsets[k];
+    cnt = offsets[k + 1] - beg;
+  }
+  const long long base = k << shift;
+  if (cnt > 0 && cnt <= TINY)
+    fold_bucket_thread(rec, beg, cnt, base, lshift, flux, sq);
+  else if (cnt > SPARSE_WARP)
+    listed[1 + atomicAdd(listed, 1)] = (int)k;
+  unsigned mid = __ballot_sync(0xffffffffu, cnt > TINY && cnt <= SPARSE_WARP);
+  while (mid) {
+    const int src = __ffs(mid) - 1;
+    mid &= mid - 1;
+    fold_bucket_warp(rec, __shfl_sync(0xffffffffu, beg, src),
+                     __shfl_sync(0xffffffffu, cnt, src),
+                     __shfl_sync(0xffffffffu, base, src), lshift, flux, sq);
+  }
+}
+
+// Bytes of bucket_sort_fold's dynamic shared memory for buckets of at
+// most cap records: a key and a value each.
+template <typename T>
+constexpr size_t sparse_smem(int cap) {
+  return (size_t)cap * (sizeof(long long) + sizeof(T));
+}
+
+// The buckets bucket_fold_sparse listed, a block each in turn: its records
+// into shared memory (at most cap), sorted by key with a bitonic network
+// over the next power of two, whose places past the records hold keys
+// above all (so every compare-exchange with one of them is skipped), then
+// each bin's run folded by the thread at its first record.
+template <typename T>
+__global__ void __launch_bounds__(SPARSE_THREADS)
+bucket_sort_fold(const int* __restrict__ offsets,
+                 const longlong2* __restrict__ rec,
+                 const int* __restrict__ listed, int shift, int lshift,
+                 int cap, T* __restrict__ flux, int sq) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  long long* sk = reinterpret_cast<long long*>(smem);  // [cap] keys
+  T* sv = reinterpret_cast<T*>(sk + cap);              // [cap] values
+  const int t = threadIdx.x, nl = listed[0];
+  for (int L = blockIdx.x; L < nl; L += gridDim.x) {
+    const int k = listed[1 + L];
+    const int beg = offsets[k], n = offsets[k + 1] - beg;
+    for (int j = t; j < n; j += blockDim.x) {
+      const longlong2 x = rec[beg + j];
+      sk[j] = x.x;
+      from_bits(x.y, sv + j);
+    }
+    __syncthreads();
+    int p2 = 1;
+    while (p2 < n) p2 <<= 1;
+    // Every compare-exchange puts the smaller key at the lower place: the
+    // first step of a merge compares mirrored places, the rest halve.
+    for (int size = 2; size <= p2; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int p = t; p < p2 / 2; p += blockDim.x) {
+          const int i = 2 * p - (p & (stride - 1));
+          const int q = stride == size >> 1 ? i ^ (size - 1) : i + stride;
+          if (q < n && sk[q] < sk[i]) {
+            const long long tk = sk[i];
+            sk[i] = sk[q];
+            sk[q] = tk;
+            const T tv = sv[i];
+            sv[i] = sv[q];
+            sv[q] = tv;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    const long long base = (long long)k << shift;
+    for (int j = t; j < n; j += blockDim.x) {
+      const long long l = sk[j] >> lshift;
+      if (j > 0 && (sk[j - 1] >> lshift) == l) continue;
+      const long long g = 2 * (base + l);
+      T f = flux[g];
+      T f2 = sq ? flux[g + 1] : f;
+      for (int x = j; x < n && (sk[x] >> lshift) == l; ++x) {
+        f = f + sv[x];
+        if (sq) f2 = f2 + sv[x] * sv[x];
+      }
+      flux[g] = f;
+      if (sq) flux[g + 1] = f2;
+    }
+    __syncthreads();
   }
 }
 
@@ -797,21 +1031,33 @@ int bucket_count_launch(const void* bin, const void* order, int m, int nbins,
 // omin and record indices of ibits bits. counts are spent as cursors; rec
 // holds 2m int64, 16 B aligned.
 template <typename T>
+int place_launch(const void* bin, const void* order, const void* c, int m,
+                 int shift, long long omin, int obits, int ibits, int cap,
+                 const void* offsets, void* counts, void* rec,
+                 cudaStream_t s) {
+  if (shift < 0 || shift > BUCKET_SHIFT_MAX || cap < 1 || cap > BUCKET_CAP ||
+      obits < 0 || ibits < 1 || obits + ibits + shift > 63 ||
+      (uintptr_t)rec % 16)
+    return (int)cudaErrorInvalidValue;
+  bucket_place<T><<<cdiv(m, 256), 256, 0, s>>>(
+      (const int*)bin, (const long long*)order, (const T*)c, m, shift, omin,
+      obits + ibits, ibits, (const int*)offsets, (int*)counts,
+      (longlong2*)rec);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int bucket_launch(void* flux, const void* bin, const void* order,
                   const void* c, int m, int nbins, int shift, long long omin,
                   int obits, int ibits, int cap, int sq, const void* offsets,
                   void* counts, void* rec, void* stream) {
   if (m <= 0) return (int)cudaSuccess;
-  const int lshift = obits + ibits;
-  if (shift < 0 || shift > BUCKET_SHIFT_MAX || cap < 1 || cap > BUCKET_CAP ||
-      obits < 0 || ibits < 1 || lshift + shift > 63 || (uintptr_t)rec % 16)
-    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
+  const int e = place_launch<T>(bin, order, c, m, shift, omin, obits, ibits,
+                                cap, offsets, counts, rec, s);
+  if (e != 0) return e;
+  const int lshift = obits + ibits;
   const int nbuckets = (int)(((long long)nbins + (1 << shift) - 1) >> shift);
-  bucket_place<T><<<cdiv(m, 256), 256, 0, s>>>(
-      (const int*)bin, (const long long*)order, (const T*)c, m, shift, omin,
-      lshift, ibits, (const int*)offsets, (int*)counts, (longlong2*)rec);
-  PUMI_CHECK_LAUNCH();
   // Above 48 KB a block's dynamic shared memory must be asked for.
   const cudaError_t a = cudaFuncSetAttribute(
       bucket_fold<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -820,6 +1066,43 @@ int bucket_launch(void* flux, const void* bin, const void* order,
   bucket_fold<T><<<nbuckets, BUCKET_THREADS, bucket_smem<T>(cap, shift), s>>>(
       (const int*)offsets, (const longlong2*)rec, nbins, shift, lshift, cap,
       (T*)flux, sq);
+  return (int)cudaGetLastError();
+}
+
+// The bucket path's placement and the sparse fold: the same placement,
+// then bucket_fold_sparse over every bucket and, when some bucket holds
+// more than SPARSE_WARP records (cap, the largest), bucket_sort_fold over
+// the ones it listed. listed holds 1 + min(nbuckets, m / (SPARSE_WARP +
+// 1)) int32.
+template <typename T>
+int sparse_launch(void* flux, const void* bin, const void* order,
+                  const void* c, int m, int nbins, int shift, long long omin,
+                  int obits, int ibits, int cap, int sq, const void* offsets,
+                  void* counts, void* rec, void* listed, void* stream) {
+  if (m <= 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int e = place_launch<T>(bin, order, c, m, shift, omin, obits, ibits,
+                                cap, offsets, counts, rec, s);
+  if (e != 0) return e;
+  const int lshift = obits + ibits;
+  const int nbuckets = (int)(((long long)nbins + (1 << shift) - 1) >> shift);
+  const bool large = cap > SPARSE_WARP;
+  if (large) {
+    const cudaError_t z = cudaMemsetAsync(listed, 0, sizeof(int), s);
+    if (z != cudaSuccess) return (int)z;
+  }
+  bucket_fold_sparse<T><<<cdiv(nbuckets, SPARSE_THREADS), SPARSE_THREADS, 0,
+                          s>>>((const int*)offsets, (const longlong2*)rec,
+                               nbuckets, shift, lshift, (T*)flux, sq,
+                               (int*)listed);
+  PUMI_CHECK_LAUNCH();
+  if (!large) return (int)cudaSuccess;
+  int blocks = m / (SPARSE_WARP + 1);  // at most this many are listed
+  if (blocks > nbuckets) blocks = nbuckets;
+  if (blocks > SPARSE_BLOCKS) blocks = SPARSE_BLOCKS;
+  bucket_sort_fold<T><<<blocks, SPARSE_THREADS, sparse_smem<T>(cap), s>>>(
+      (const int*)offsets, (const longlong2*)rec, (const int*)listed, shift,
+      lshift, cap, (T*)flux, sq);
   return (int)cudaGetLastError();
 }
 
@@ -915,6 +1198,15 @@ extern "C" int pumi_bucket_count(const void* bin, const void* order, int m,
                             obits, ibits, cap, sq, offsets, counts, rec,      \
                             stream);                                          \
   }                                                                           \
+  extern "C" int pumi_scatter_sparse_##TAG(                                   \
+      void* flux, const void* bin, const void* order, const void* c, int m,   \
+      int nbins, int shift, long long omin, int obits, int ibits, int cap,    \
+      int sq, const void* offsets, void* counts, void* rec, void* listed,     \
+      void* stream) {                                                         \
+    return sparse_launch<T>(flux, bin, order, c, m, nbins, shift, omin,       \
+                            obits, ibits, cap, sq, offsets, counts, rec,      \
+                            listed, stream);                                  \
+  }                                                                           \
   extern "C" int pumi_scatter_ordered_##TAG(                                  \
       void* flux, const void* bin, const void* order, const void* c, int m,   \
       int nbins, int sq, void* counts, void* offsets, void* tile_sums,        \
@@ -943,4 +1235,14 @@ extern "C" long long pumi_scatter_smem_f32(int cap, int shift) {
 }
 extern "C" long long pumi_scatter_smem_f64(int cap, int shift) {
   return (long long)bucket_smem<double>(cap, shift);
+}
+
+// pumi_scatter_sparse_smem_<t> gives the dynamic shared memory bytes the
+// sparse fold's sort of listed buckets passes for buckets of at most cap
+// records (sparse_smem).
+extern "C" long long pumi_scatter_sparse_smem_f32(int cap) {
+  return (long long)sparse_smem<float>(cap);
+}
+extern "C" long long pumi_scatter_sparse_smem_f64(int cap) {
+  return (long long)sparse_smem<double>(cap);
 }

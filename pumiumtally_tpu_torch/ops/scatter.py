@@ -32,25 +32,32 @@ bins (``bucket_shift`` picks the shift) and reads the largest count and
 the range of the order keys to the host once. The bucket path places
 every record in its bucket's range as one 16 B record, a 63-bit key that
 orders it by (bin, order, record index) beside its value
-(``bucket_keys_plain`` is the key's plain version), and folds each bucket
-in shared memory. A call takes the crowded path (``crowded_cuda``, a sort
-by bin over all records) when a bucket holds more than
-``BUCKET_CAPACITY`` records (``is_crowded``) or the keys do not fit 63
-bits (``key_bits``).
+(``bucket_keys_plain`` is the key's plain version), and folds the
+buckets by one of two folds of the same bits (``fold_path``): the dense
+fold, a block a bucket that counts and places the records by bin in
+shared memory, whose work follows the bins; or, below ``SPARSE_BELOW``
+records a bin, the sparse fold, which sorts each bucket's keys and folds
+each bin's run, whose work follows the records. A call takes the crowded
+path (``crowded_cuda``, a sort by bin over all records) when a bucket
+holds more than ``BUCKET_CAPACITY`` records (``is_crowded``) or the keys
+do not fit 63 bits (``key_bits``).
 
 ``ATOMIC_LAUNCHES`` and ``ORDERED_LAUNCHES`` count the wrappers' kernel
 launches (one per call that reaches the card), and
 nothing else; ``BUCKET_LAUNCHES`` and ``CROWDED_LAUNCHES`` count the
-ordered scatter's calls by path. ``LAST_BUCKETS`` describes the last
-ordered call on the card that had records: its shift, bucket count,
-largest bucket, the capacity, the key's bits and the path taken.
+ordered scatter's calls by path, and ``SPARSE_LAUNCHES`` the bucket
+path's calls that took the sparse fold. ``LAST_BUCKETS`` describes the
+last ordered call on the card that had records: its shift, bucket count,
+largest bucket, the capacity, the key's bits and the path taken
+("bucket", "sparse" or "crowded").
 
 The host steps on the card are spans of ``utils/timing.py``:
 ``scatter.count`` (the buffers, the staged information word and the count
 kernel's entry), the row ``bucket_wait`` around the read of the bucket
-information (the host read ``bucket``), then ``scatter.fold`` or
-``scatter.crowded``, in which ``crowded_wait`` is the read of the large
-bins (the host read ``crowded``).
+information (the host read ``bucket``), then ``scatter.fold`` (the dense
+fold), ``scatter.sparse`` (the sparse fold) or ``scatter.crowded``, in
+which ``crowded_wait`` is the read of the large bins (the host read
+``crowded``).
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from . import _build
 ATOMIC_LAUNCHES = 0
 ORDERED_LAUNCHES = 0
 BUCKET_LAUNCHES = 0
+SPARSE_LAUNCHES = 0
 CROWDED_LAUNCHES = 0
 LAST_BUCKETS: dict = {}
 
@@ -71,6 +79,13 @@ LAST_BUCKETS: dict = {}
 # (csrc/scatter.cu BUCKET_CAP, BUCKET_SHIFT_MAX).
 BUCKET_CAPACITY = 2048
 MAX_SHIFT = 10
+# The sparse fold sorts a bucket of at most this many records in one warp
+# and lists a larger one for a block (csrc/scatter.cu SPARSE_WARP).
+SPARSE_WARP = 32
+# Mean records a bin below which the sparse fold is taken: the crossover
+# of the two folds' times, measured on an H100 (chip_smoke.py's scatter
+# probe; PERF.md).
+SPARSE_BELOW = 0.3
 
 _DTYPE_TAG = {torch.float32: "f32", torch.float64: "f64"}
 _INT32_MAX = 2**31 - 1
@@ -161,6 +176,19 @@ def is_crowded(largest: int) -> bool:
     """A call whose largest bucket holds more records than a bucket's
     block can: it takes the crowded path."""
     return largest > BUCKET_CAPACITY
+
+
+def fold_path(m: int, nbins: int, largest: int, bits: int) -> str:
+    """The path of an ordered call on the card of ``m`` records into
+    ``nbins`` bins, given its largest bucket and the bits of its keys (the
+    local bin's shift with ``key_bits``): "crowded" when a bucket
+    overfills a block or the keys pass 63 bits; else "sparse" below
+    ``SPARSE_BELOW`` records a bin, where the sparse fold's work, which
+    follows the records, is less than the dense fold's, which follows
+    the bins; else "bucket"."""
+    if is_crowded(largest) or bits > 63:
+        return "crowded"
+    return "sparse" if m < SPARSE_BELOW * nbins else "bucket"
 
 
 def key_bits(m: int, span: int) -> tuple[int, int]:
@@ -269,7 +297,8 @@ def lane_order(keys, nbins: int):
 #: The C entries of csrc/scatter.cu this module binds.
 SYMBOLS = ("pumi_bucket_count",) + tuple(
     f"pumi_scatter_{name}_{tag}"
-    for name in ("atomic", "bucket", "ordered", "ordered_large", "smem")
+    for name in ("atomic", "bucket", "sparse", "ordered", "ordered_large",
+                 "smem", "sparse_smem")
     for tag in _DTYPE_TAG.values())
 
 
@@ -289,6 +318,16 @@ def bucket_dynamic_smem(dtype, cap: int, shift: int) -> int:
     fn = _entry("pumi_scatter_smem", dtype)
     fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
     return int(fn(int(cap), int(shift)))
+
+
+def sparse_dynamic_smem(dtype, cap: int) -> int:
+    """The dynamic shared memory bytes the sparse fold's sort of listed
+    buckets passes for buckets of at most ``cap`` records
+    (``pumi_scatter_sparse_smem_<t>``; analysis/costmodel.py checks its
+    mirror)."""
+    fn = _entry("pumi_scatter_sparse_smem", dtype)
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_longlong
+    return int(fn(int(cap)))
 
 
 def _stream(dev) -> int:
@@ -320,10 +359,10 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
     """Launch the ordered scatter of ``csrc/scatter.cu`` on records that
     were checked (or that the walk made): count the records per bucket,
     scan, read the largest count and the order range to the host (the
-    call's one host sync), then either place them by bucket and fold each
-    bucket in shared memory (the bucket path) or, if the call is crowded
-    or its keys do not fit, ``crowded_cuda``."""
-    global ORDERED_LAUNCHES, BUCKET_LAUNCHES, LAST_BUCKETS
+    call's one host sync), then either place them by bucket and fold the
+    buckets (the bucket path, by the fold ``fold_path`` names) or, if the
+    call is crowded or its keys do not fit, ``crowded_cuda``."""
+    global ORDERED_LAUNCHES, BUCKET_LAUNCHES, SPARSE_LAUNCHES, LAST_BUCKETS
     m = bin.numel()
     check_counts(m, nbins)
     if m == 0:
@@ -354,31 +393,38 @@ def ordered_cuda(flux, bin, order, c, score_squares, nbins: int):
             largest, lo, hi = info.tolist()
         timing.count("bucket")
         obits, ibits = key_bits(m, hi - lo)
-        crowded = is_crowded(largest) or shift + obits + ibits > 63
+        path = fold_path(m, nbins, largest, shift + obits + ibits)
         LAST_BUCKETS = dict(shift=shift, buckets=nb, largest=largest,
                             capacity=BUCKET_CAPACITY,
-                            key_bits=shift + obits + ibits,
-                            path="crowded" if crowded else "bucket")
-        if crowded:
+                            key_bits=shift + obits + ibits, path=path)
+        if path == "crowded":
             del counts, offsets, tile_sums
             with timing.span("scatter.crowded"):
                 crowded_cuda(flux, bin, order, c, score_squares, nbins)
             ORDERED_LAUNCHES += 1
             return flux
-        with timing.span("scatter.fold"):
+        sparse = path == "sparse"
+        with timing.span("scatter.sparse" if sparse else "scatter.fold"):
             rec = torch.empty(2 * m, dtype=torch.int64, device=dev)
-            fold = _entry("pumi_scatter_bucket", flux.dtype)
-            fold.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                             + [ctypes.c_longlong] + [ctypes.c_int] * 4
-                             + [ctypes.c_void_p] * 4)
-            err = fold(flux.data_ptr(), bin.data_ptr(), order.data_ptr(),
-                       c.data_ptr(), m, nbins, shift, lo, obits, ibits,
-                       largest, int(bool(score_squares)), offsets.data_ptr(),
-                       counts.data_ptr(), rec.data_ptr(), _stream(dev))
+            args = [flux.data_ptr(), bin.data_ptr(), order.data_ptr(),
+                    c.data_ptr(), m, nbins, shift, lo, obits, ibits,
+                    largest, int(bool(score_squares)), offsets.data_ptr(),
+                    counts.data_ptr(), rec.data_ptr()]
+            if sparse:  # the count and the buckets listed for a block
+                listed = torch.empty(1 + min(nb, m // (SPARSE_WARP + 1)),
+                                     **i32)
+                args.append(listed.data_ptr())
+            fn = _entry("pumi_scatter_sparse" if sparse
+                        else "pumi_scatter_bucket", flux.dtype)
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                           + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * (5 if sparse else 4))
+            err = fn(*args, _stream(dev))
     if err != 0:
-        raise RuntimeError(
-            f"scatter_ordered bucket fold failed with cudaError_t {err}")
+        raise RuntimeError(f"scatter_ordered {path} fold failed with "
+                           f"cudaError_t {err}")
     BUCKET_LAUNCHES += 1
+    SPARSE_LAUNCHES += sparse
     ORDERED_LAUNCHES += 1
     return flux
 

@@ -16,6 +16,7 @@ a call to the other path.
 from __future__ import annotations
 
 import importlib.util
+import math
 import pathlib
 
 import jax
@@ -211,3 +212,134 @@ def test_cpu_tensors_take_neither_path():
     assert torch.equal(got, want)
     assert counts == (scatter.ORDERED_LAUNCHES, scatter.BUCKET_LAUNCHES,
                       scatter.CROWDED_LAUNCHES)
+
+
+# The assembly cell's flux (119^3 cubes of 6 tets, 70 groups) and its
+# records a move on an H100: up to 11,953,477 (largest bucket 96) in a
+# batch's first moves, a few thousand in its tail (PERF.md §6).
+ASSEMBLY_BINS = 119 ** 3 * 6 * 70
+ASSEMBLY_FULL, ASSEMBLY_TAIL = 11_953_477, 3_000
+
+
+@pytest.mark.parametrize("m,nbins,largest,want", [
+    (ASSEMBLY_FULL, ASSEMBLY_BINS, 96, "sparse"),
+    (ASSEMBLY_TAIL, ASSEMBLY_BINS, 3, "sparse"),
+    (MOVE1_RECORDS, MOVE1_BINS, 700, "bucket"),
+    (200_000, 8 * 6000, scatter.BUCKET_CAPACITY + 1, "crowded"),
+    (ASSEMBLY_TAIL, ASSEMBLY_BINS, scatter.BUCKET_CAPACITY + 1, "crowded"),
+], ids=["assembly full width", "assembly tail", "move 1",
+        "point source", "sparse but crowded"])
+def test_fold_path_follows_the_density(m, nbins, largest, want):
+    """The assembly's moves take the sparse fold, the main path's move 1
+    the dense one, and a crowded call neither, whatever its density."""
+    shift = scatter.bucket_shift(m, nbins)
+    obits, ibits = scatter.key_bits(m, 233 * 2**20)
+    assert scatter.fold_path(m, nbins, largest,
+                             shift + obits + ibits) == want
+
+
+def test_fold_path_crossover_and_wide_keys():
+    nbins = 1 << 24
+    at = math.ceil(scatter.SPARSE_BELOW * nbins)
+    assert scatter.fold_path(at - 1, nbins, 1, 40) == "sparse"
+    assert scatter.fold_path(at, nbins, 1, 40) == "bucket"
+    assert scatter.fold_path(at - 1, nbins, 1, 64) == "crowded"
+    assert scatter.fold_path(at, nbins, 1, 63) == "bucket"
+
+
+def sparse_fold_plain(flux, bin, order, c, shift: int,
+                      score_squares: bool = True):
+    """The sparse fold's plain model: every record's key
+    (``bucket_keys_plain``), the records of each bucket of ``2^shift``
+    bins sorted by key, nothing built per bin, and each run of one bin
+    folded in that order. The runs are folded a position at a time, so
+    that each round adds to every bin at most once. Updates ``flux`` in
+    place and returns it."""
+    if bin.numel() == 0:
+        return flux
+    flux2 = flux.view(-1, 2)
+    key = scatter.bucket_keys_plain(bin, order, shift)
+    by_key = torch.argsort(key)
+    perm = by_key[torch.argsort(bin.long()[by_key] >> shift, stable=True)]
+    sbin = bin.long()[perm]
+    m = sbin.numel()
+    pos = torch.arange(m, device=bin.device)
+    head = torch.ones(m, dtype=torch.bool, device=bin.device)
+    head[1:] = sbin[1:] != sbin[:-1]
+    at = pos - torch.cummax(torch.where(head, pos, 0), dim=0).values
+    for r in range(int(at.max()) + 1):
+        sel = perm[at == r]
+        b, v = bin.long()[sel], c[sel]
+        flux2[:, 0].index_add_(0, b, v)
+        if score_squares:
+            flux2[:, 1].index_add_(0, b, v * v)
+    return flux
+
+
+def _sparse_case(np_dtype, ties, seed=0):
+    """Records in buckets of 2^10 bins of 1, 32, 33 and BUCKET_CAP records,
+    one with a bin of 40 records, empty buckets, and a ragged last bucket
+    of 100 bins; in shuffled record order."""
+    rng = np.random.default_rng(seed)
+    width = 1 << scatter.MAX_SHIFT
+    nbins = 8 * width + 100
+    parts = [np.full(1, 5),                               # bucket 0: 1
+             width + rng.integers(0, width, 32),          # bucket 1: 32
+             2 * width + rng.integers(0, width, 33),      # bucket 2: 33
+             3 * width + rng.integers(0, width, scatter.BUCKET_CAPACITY),
+             np.full(40, 5 * width + 17),                 # bucket 5: a bin
+             5 * width + rng.integers(0, width, 20),      # of 40, and 20
+             8 * width + rng.integers(0, 100, 50)]        # ragged: 50
+    bin = rng.permutation(np.concatenate(parts))
+    m = bin.size
+    order = (rng.integers(0, 16, m) if ties else rng.permutation(4 * m)[:m])
+    c = rng.uniform(0.5, 1.0, m) * 2.0 ** rng.integers(-12, 4, m)
+    return (bin.astype(np.int32), order.astype(np.int64), c.astype(np_dtype),
+            nbins)
+
+
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "ties"])
+@pytest.mark.parametrize("score_squares", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_sparse_fold_plain_is_bitwise_the_one_shot_fold(dtype, score_squares,
+                                                        ties):
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    bin, order, c, nbins = _sparse_case(np_dtype, ties)
+    t = torch.from_numpy
+    shift = scatter.bucket_shift(bin.size, nbins)
+    assert shift == scatter.MAX_SHIFT
+    sizes = scatter.bucket_counts_plain(t(bin), nbins, shift).tolist()
+    assert sizes == [1, 32, 33, scatter.BUCKET_CAPACITY, 0, 60, 0, 0, 50]
+    assert not scatter.is_crowded(max(sizes))
+    flux0 = np.random.default_rng(8).uniform(0, 3, 2 * nbins).astype(np_dtype)
+    want = scatter.scatter_ordered_plain(t(flux0.copy()), t(bin), t(order),
+                                         t(c), score_squares)
+    got = sparse_fold_plain(t(flux0.copy()), t(bin), t(order), t(c),
+                                    shift, score_squares)
+    assert torch.equal(got, want)
+    if not score_squares:
+        assert torch.equal(got[1::2], t(flux0[1::2]))
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_sparse_fold_plain_breaks_ties_by_record_index(swap):
+    """test_bucket_fold_breaks_ties_by_record_index's records through the
+    sparse model: in record order 1e8 - 1e8 + 1 gives 1, with the 1 second
+    it gives 0."""
+    c = np.array([1e8, -1e8, 1.0, 0.5], np.float32)
+    if swap:
+        c = c[[0, 2, 1, 3]]
+    t = torch.from_numpy
+    got = sparse_fold_plain(
+        torch.zeros(4), t(np.array([0, 0, 0, 1], np.int32)),
+        torch.zeros(4, dtype=torch.int64), t(c), 0, False)
+    assert got.tolist() == [0.0 if swap else 1.0, 0.0, 0.5, 0.0]
+
+
+def test_sparse_fold_plain_without_records_leaves_the_flux():
+    flux = torch.arange(8.0)
+    empty = torch.zeros(0, dtype=torch.int32)
+    got = sparse_fold_plain(flux.clone(), empty,
+                                    torch.zeros(0, dtype=torch.int64),
+                                    torch.zeros(0), 10)
+    assert torch.equal(got, flux)

@@ -101,7 +101,7 @@ def test_fit_exponent_rejects_degenerate_input():
 # --------------------------------------------------------------------- #
 def test_parse_ptxas_reads_every_entry_of_the_real_logs():
     counts = {n: len(M.parse_ptxas(_log(n))) for n in M.SOURCES}
-    assert counts == {"walk": 69, "scatter": 19, "gather": 12, "source": 2,
+    assert counts == {"walk": 69, "scatter": 23, "gather": 12, "source": 2,
                       "exchange": 7, "integrity": 2}
     for n in M.SOURCES:
         text = _log(n)
@@ -300,7 +300,8 @@ def test_smem_mirror_matches_the_sources_and_the_logs():
     for name, value in (("BUCKET_CAP", M._BUCKET_CAP),
                         ("BUCKET_THREADS", M._BUCKET_THREADS),
                         ("BUCKET_SHIFT_MAX", M._BUCKET_SHIFT_MAX),
-                        ("SMALL", M._SMALL)):
+                        ("SMALL", M._SMALL),
+                        ("SPARSE_THREADS", M._SPARSE_THREADS)):
         assert re.search(rf"constexpr int {name} = (\d+)",
                          scatter).group(1) == str(value), name
     recs = M.parse_ptxas(_log("walk"))

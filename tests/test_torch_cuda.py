@@ -26,6 +26,7 @@ walked one after another.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -519,7 +520,7 @@ def _bucket_case(case, cuda, dtype):
     from pumiumtally_tpu_torch.ops import scatter
 
     rng = np.random.default_rng(len(case))
-    path = "bucket"
+    path = None  # the bucket path, by the density's fold
     if case in ("uniform", "ties", "unaligned", "wide keys"):
         m, nbins = 30000, 20000
         b = rng.integers(0, nbins, m + 1)
@@ -534,11 +535,23 @@ def _bucket_case(case, cuda, dtype):
         width = 1 << scatter.bucket_shift(m, nbins)
         b = rng.integers(0, width, m)
         b[:300] = 5  # a bin ranked by the block
-        path = "bucket" if case == "capacity" else "crowded"
+        path = None if case == "capacity" else "crowded"
     elif case == "ragged":  # a short last bucket, its last bin crowded
         m, nbins = 20000, 20001
         b = rng.integers(0, nbins, m)
         b[:500] = nbins - 1
+    elif case.startswith("sparse"):  # 2^26 bins, far below the crossover
+        m, nbins = 300_000, 1 << 26
+        b = rng.integers(0, nbins, m)
+        if case == "sparse capacity":  # bucket 7 at the capacity
+            width = 1 << scatter.bucket_shift(m, nbins)
+            b[b // width == 7] += width
+            b[:scatter.BUCKET_CAPACITY] = 7 * width + rng.integers(
+                0, width, scatter.BUCKET_CAPACITY)
+            b[:300] = 7 * width + 5
+        elif case == "sparse bin of 40":
+            b[:40] = 12345
+        path = "sparse"
     else:  # "empty", "one"
         m, nbins = {"empty": 0, "one": 1}[case], 1000
         b = rng.integers(0, nbins, m)
@@ -556,27 +569,38 @@ def _bucket_case(case, cuda, dtype):
         rec = tuple(r[1:] for r in rec)
     else:
         rec = tuple(r[:m] for r in rec)
+    if path is None:
+        path = "sparse" if m < scatter.SPARSE_BELOW * nbins else "bucket"
     return rec, nbins, path
 
 
 @pytest.mark.parametrize("case", [
     "uniform", "ties", "bin sizes", "capacity", "capacity + 1", "empty", "one",
-    "ragged", "unaligned", "wide keys"])
+    "ragged", "unaligned", "wide keys", "sparse", "sparse capacity",
+    "sparse bin of 40"])
 @pytest.mark.parametrize("score_squares", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_bucket_path_matches_plain(cuda, dtype, score_squares, case):
+def test_bucket_path_matches_plain(cuda, dtype, score_squares, case,
+                                   monkeypatch):
     """The ordered scatter's bucket path, bitwise its plain version, and
     the path each case takes: a bucket at exactly the capacity fits, one
     more record sends the call to the crowded path, and so do order keys
-    too wide for a bucket key."""
+    too wide for a bucket key; below the crossover the sparse fold. Each
+    call on the bucket path is repeated with each fold forced: the dense
+    and the sparse fold (``SPARSE_BELOW`` at 0 and at infinity) give the
+    plain version's bits."""
     from pumiumtally_tpu_torch.ops import scatter
 
     (b, order, c), nbins, path = _bucket_case(case, cuda, dtype)
     m = b.numel()
     seed = torch.from_numpy(np.random.default_rng(1).uniform(
         0, 1, 2 * nbins)).to(cuda, dtype)
-    before = (scatter.ORDERED_LAUNCHES, scatter.BUCKET_LAUNCHES,
-              scatter.CROWDED_LAUNCHES)
+
+    def counts():
+        return (scatter.ORDERED_LAUNCHES, scatter.BUCKET_LAUNCHES,
+                scatter.SPARSE_LAUNCHES, scatter.CROWDED_LAUNCHES)
+
+    before = counts()
     got = scatter.scatter_ordered(seed.clone(), b, order, c, score_squares)
     ref = scatter.scatter_ordered_plain(seed.clone(), b, order, c,
                                         score_squares)
@@ -584,21 +608,27 @@ def test_bucket_path_matches_plain(cuda, dtype, score_squares, case):
     assert torch.equal(got, ref)
     if not score_squares:
         assert torch.equal(got[1::2], seed[1::2])
-    after = (scatter.ORDERED_LAUNCHES, scatter.BUCKET_LAUNCHES,
-             scatter.CROWDED_LAUNCHES)
-    ran = [a - z for a, z in zip(after, before)]
+    ran = [a - z for a, z in zip(counts(), before)]
     if m == 0:
-        assert ran == [0, 0, 0]
+        assert ran == [0, 0, 0, 0]
         return
-    assert ran == ([1, 1, 0] if path == "bucket" else [1, 0, 1])
-    info = scatter.LAST_BUCKETS
+    assert ran == {"bucket": [1, 1, 0, 0], "sparse": [1, 1, 1, 0],
+                   "crowded": [1, 0, 0, 1]}[path]
+    info = dict(scatter.LAST_BUCKETS)
     shift = scatter.bucket_shift(m, nbins)
     sizes = scatter.bucket_counts_plain(b, nbins, shift)
     assert info["path"] == path and info["shift"] == shift
     assert info["largest"] == int(sizes.max())
     assert (info["key_bits"] > 63) == (case == "wide keys")
-    if case == "capacity":
+    if case in ("capacity", "sparse capacity"):
         assert info["largest"] == scatter.BUCKET_CAPACITY
+    if path != "crowded":
+        for fold, below in (("bucket", 0.0), ("sparse", math.inf)):
+            monkeypatch.setattr(scatter, "SPARSE_BELOW", below)
+            forced = scatter.ordered_cuda(seed.clone(), b, order, c,
+                                          score_squares, nbins)
+            assert scatter.LAST_BUCKETS["path"] == fold
+            assert torch.equal(forced, ref), fold
 
 
 @pytest.mark.parametrize("cols,dtype,idx_dtype,n,shift,piece", [

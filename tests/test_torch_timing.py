@@ -191,7 +191,7 @@ def _t(count, host_ns=0, self_ns=0):
 
 
 READERS = ("host_syncs_per_move.source", "loop_host_ms.source",
-           "walk_host_ms.source")
+           "walk_host_ms.source", "sparse_fold_pct.source")
 
 
 @pytest.mark.parametrize("name,want", [
@@ -201,6 +201,8 @@ READERS = ("host_syncs_per_move.source", "loop_host_ms.source",
     ("loop_host_ms.source", 2.0),
     # The walk's 15e6 ns less 3e6 of waits, over 3 moves.
     ("walk_host_ms.source", 4.0),
+    # Two sparse folds and one dense.
+    ("sparse_fold_pct.source", 200.0 / 3.0),
 ])
 def test_readers_arithmetic(monkeypatch, name, want):
     call = {
@@ -212,6 +214,8 @@ def test_readers_arithmetic(monkeypatch, name, want):
         "count_wait": _t(3, 2_000_000, 2_000_000),
         "bucket_wait": _t(3, 1_000_000, 1_000_000),
         "sample": _t(3, 900_000, 900_000),
+        "scatter.fold": _t(1, 300_000, 300_000),
+        "scatter.sparse": _t(2, 100_000, 100_000),
         "read:count": _t(3), "read:bucket": _t(3), "read:tail": _t(3),
     }
     totals = {"run_source_moves": call,
@@ -233,6 +237,25 @@ def test_readers_find_nothing_without_last_clock(monkeypatch, name):
     """A program without ``last_clock`` (an earlier one) gives nothing."""
     monkeypatch.delattr(timing, "last_clock")
     assert _reader(name)(None) is None
+
+
+def test_sparse_share_needs_the_sparse_fold_and_a_fold(monkeypatch):
+    """A program without the sparse fold (an earlier one) gives nothing,
+    and so does a window without a fold; a window of dense folds only
+    reads 0."""
+    from pumiumtally_tpu_torch.ops import scatter
+
+    read = _reader("sparse_fold_pct.source")
+    call = {"walk": _t(3), "scatter.fold": _t(3)}
+    monkeypatch.setattr(timing, "last_clock", lambda: _Clock(
+        "cuda", {"run_source_moves": call}))
+    assert read(None) == 0.0
+    del call["scatter.fold"]
+    assert read(None) is None
+    call["scatter.sparse"] = _t(3)
+    assert read(None) == 100.0
+    monkeypatch.delattr(scatter, "SPARSE_LAUNCHES")
+    assert read(None) is None
 
 
 # --------------------------------------------------------------------- #
